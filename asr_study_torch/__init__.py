@@ -1,0 +1,23 @@
+"""asr_study_torch — the PyTorch/CUDA port of ``asr_study_tpu`` for one
+NVIDIA H100.
+
+The JAX package stays the reference; every module here mirrors its
+counterpart's name and layout so the two can be read side by side.  This
+package imports ``torch`` and never ``jax``: of the JAX package it uses only
+the jax-free host modules (``features/audio.py``, ``features/wav.py``,
+``text/parser.py``, ``utils/hparams.py``).
+
+The serving path ported so far (BASELINE config 2):
+
+    pcm16 wire  -> data/wire.unpack_audio
+                -> features (MFCC + deltas; csrc/fbank.cu)
+                -> models/zoo deep_blstm (csrc/bilstm_fwd.cu per layer)
+                -> ops/ctc.greedy_decode
+                -> cli/predict.py --on_device
+
+Each hand-written CUDA kernel is compiled with ``nvcc`` at first use
+(``_build.py``) and has a plain PyTorch version beside it, which runs for
+CPU tensors and is what the kernel is checked against on the card.
+"""
+
+__version__ = "0.1.0"

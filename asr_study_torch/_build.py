@@ -1,0 +1,133 @@
+"""Build the CUDA kernels of ``csrc/`` into one shared library and load it.
+
+The sources expose a plain C interface, so they are compiled by ``nvcc``
+alone (no PyTorch headers: a few seconds instead of minutes) and loaded
+with ``ctypes``.  The library lands in ``build/kernels-<hash>/`` at the
+repository root, where the hash covers the sources and the flags; a
+changed source therefore builds anew at its first use, and an unchanged
+one loads the library already built.
+
+Nothing here runs at import: the first call to :func:`lib` builds.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parent.parent / "build"
+LIB_NAME = "libasr_kernels.so"
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+
+# C entry points: name -> argtypes.  Every pointer and the stream are
+# c_void_p (a bare Python int would be passed as a 32-bit int).
+SIGNATURES = {
+    # pre, n_sig, win, cos, sin, mel, dct, lift, out,
+    # batch, n_frames, frame_len, hop, n_bins, n_mel, n_cep, n_out,
+    # inv_nfft, floor, mode, append_energy, stream
+    "asr_fbank": [_P, _I, _P, _P, _P, _P, _P, _P, _P,
+                  _I, _I, _I, _I, _I, _I, _I, _I,
+                  _F, _F, _I, _I, _P],
+    # xp_f, xp_b, mask, wh_f, wh_b, h_f, c_f, h_b, c_b, T, B, H, stream
+    "asr_bilstm_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                       _I, _I, _I, _P],
+}
+
+
+def sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def nvcc() -> str:
+    for cand in (
+        shutil.which("nvcc"),
+        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                     "bin", "nvcc"),
+    ):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError(
+        "nvcc not found (looked on PATH and in $CUDA_HOME/bin): the CUDA "
+        "kernels of asr_study_torch cannot be built"
+    )
+
+
+def build_dir() -> Path:
+    return BUILD_ROOT / f"kernels-{source_hash()}"
+
+
+def build() -> Path:
+    """Compile ``csrc/*.cu`` into the hashed build directory (once).
+
+    The compiler's report (``-Xptxas -v``: registers, shared memory and
+    spills of each kernel) is kept beside the library as ``build.log``.
+    Returns the library's path."""
+    out_dir = build_dir()
+    lib_path = out_dir / LIB_NAME
+    if lib_path.exists():
+        return lib_path
+    out_dir.mkdir(parents=True, exist_ok=True)
+    # build under a private name, then rename: a concurrent process
+    # building the same hash never loads a half-written library
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+    os.close(fd)
+    cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources())]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    log = (f"$ {' '.join(cmd)}\n# {seconds:.2f} s, rc {proc.returncode}\n"
+           f"{proc.stdout}{proc.stderr}")
+    (out_dir / "build.log").write_text(log)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed (rc {proc.returncode}):\n{log}")
+    os.replace(tmp, lib_path)
+    return lib_path
+
+
+def build_log() -> str:
+    """The compiler report of the current sources' build."""
+    return (build_dir() / "build.log").read_text()
+
+
+@functools.cache
+def lib() -> ctypes.CDLL:
+    """The kernel library, built at first use, with every entry point's
+    ``argtypes`` and ``restype`` (a CUDA error code) declared."""
+    dll = ctypes.CDLL(str(build()))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(dll, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return dll
+
+
+def check(err: int, kernel: str) -> None:
+    """Raise if a launch returned a CUDA error (``cudaGetLastError``)."""
+    if err != 0:
+        raise RuntimeError(f"{kernel}: CUDA launch failed with error {err}")

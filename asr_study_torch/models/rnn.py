@@ -1,0 +1,99 @@
+"""Bidirectional LSTM layers and their stack (port of
+``asr_study_tpu/models/rnn.py``).
+
+Time-major [T, B, F] inside.  Each layer follows the JAX fused
+bidirectional path (``RNNLayer._apply_fused_bidi``): the input projection
+``x @ wx + b`` of each direction is one matmul over all frames, both
+directions' recurrences run in one call of ``ops.bilstm.bilstm`` (the
+kernel on a CUDA device), and the output is zeroed on padded frames.
+
+Only what BASELINE config 2 needs is ported: bidirectional LSTM layers,
+no skip connections, no dropout (inference).  The rest raises
+``NotImplementedError`` naming its ROADMAP item.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from asr_study_torch.models.cells import LSTMCell
+from asr_study_torch.ops.bilstm import bilstm
+
+
+class RNNLayer(nn.Module):
+    """One bidirectional LSTM layer; parameters under ``fw`` and ``bw``."""
+
+    def __init__(self, cell_kind: str, input_dim: int, hidden: int,
+                 bidirectional: bool = True,
+                 generator: Optional[torch.Generator] = None,
+                 device: torch.device | str | None = None):
+        super().__init__()
+        if cell_kind != "lstm":
+            raise NotImplementedError(
+                f"cell kind {cell_kind!r} is not ported yet (ROADMAP queue "
+                "A item 1; its kernels are in queue B)")
+        if not bidirectional:
+            raise NotImplementedError(
+                "unidirectional LSTM layers are not ported yet (ROADMAP "
+                "queue B item 6, ops/pallas_lstm.py)")
+        self.hidden = hidden
+        self.fw = LSTMCell(input_dim, hidden, generator, device)
+        self.bw = LSTMCell(input_dim, hidden, generator, device)
+
+    @property
+    def output_dim(self) -> int:
+        return 2 * self.hidden
+
+    def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        """x [T, B, F], mask [T, B, 1] -> [T, B, 2H]."""
+        xp_f = (self.fw.input_proj(x) + self.fw.b).contiguous()
+        xp_b = (self.bw.input_proj(x) + self.bw.b).contiguous()
+        h_f, _, h_b, _ = bilstm(xp_f, xp_b, mask.contiguous(), self.fw.wh,
+                                self.bw.wh)
+        return torch.cat([h_f, h_b], dim=-1) * mask
+
+
+class _StackEntry(nn.Module):
+    """One entry of the stack; holds the layer under ``rnn`` so that the
+    parameter paths match the JAX tree (``layers/<i>/rnn/fw/wx``)."""
+
+    def __init__(self, layer: RNNLayer):
+        super().__init__()
+        self.rnn = layer
+
+
+class StackedRNN(nn.Module):
+    """N bidirectional LSTM layers; skip kind 'none' only."""
+
+    def __init__(self, input_dim: int, cell_kind: str = "lstm",
+                 hidden: int = 256, num_layers: int = 3,
+                 bidirectional: bool = True, dropout: float = 0.0,
+                 skip: str = "none",
+                 generator: Optional[torch.Generator] = None,
+                 device: torch.device | str | None = None):
+        super().__init__()
+        if skip != "none":
+            raise NotImplementedError(
+                f"skip kind {skip!r} is not ported yet (ROADMAP queue A "
+                "item 1)")
+        # ``dropout`` acts only in training, which is not ported (queue A
+        # item 5): inference ignores it, as the JAX stack does
+        self.input_dim = input_dim
+        entries = []
+        dim = input_dim
+        for _ in range(num_layers):
+            layer = RNNLayer(cell_kind, dim, hidden, bidirectional,
+                             generator, device)
+            entries.append(_StackEntry(layer))
+            dim = layer.output_dim
+        self.layers = nn.ModuleList(entries)
+        self.output_dim = dim
+
+    def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        """x [T, B, F] -> [T, B, output_dim]"""
+        for entry in self.layers:
+            x = entry.rnn(x, mask)
+        return x
