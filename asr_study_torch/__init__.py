@@ -5,7 +5,7 @@ The JAX package stays the reference; every module here mirrors its
 counterpart's name and layout so the two can be read side by side.  This
 package imports ``torch`` and never ``jax``: of the JAX package it uses only
 the jax-free host modules (``features/audio.py``, ``features/wav.py``,
-``text/parser.py``, ``utils/hparams.py``).
+``text/parser.py``, ``utils/hparams.py``, ``utils/metrics_writer.py``).
 
 The serving path ported so far (BASELINE config 2):
 
@@ -14,6 +14,14 @@ The serving path ported so far (BASELINE config 2):
                 -> models/zoo deep_blstm (csrc/bilstm_fwd.cu per layer)
                 -> ops/ctc.greedy_decode
                 -> cli/predict.py --on_device
+
+and the training path (BASELINE config 3):
+
+    data/generator batches -> train/loop.fit -> train/trainer.train_step:
+        deep_blstm (ops/bilstm.BiLSTMFunction: csrc/bilstm_fwd.cu forward,
+        csrc/bilstm_bwd.cu backward) -> ops/ctc.ctc_loss (CTCNLL:
+        csrc/ctc.cu alpha forward, beta backward) -> clip -> Adam
+                -> train/checkpoint.CheckpointManager
 
 Each hand-written CUDA kernel is compiled with ``nvcc`` at first use
 (``_build.py``) and has a plain PyTorch version beside it, which runs for

@@ -26,11 +26,13 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "build"
 LIB_NAME = "libasr_kernels.so"
 
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+# one object per source, compiled in parallel, then one link
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-    "-Xptxas", "-v",
+    *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v", "-c",
 )
+LINK_FLAGS = (*ARCH_FLAGS, "-shared")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -48,6 +50,14 @@ SIGNATURES = {
     # xp_f, xp_b, mask, wh_f, wh_b, h_f, c_f, h_b, c_b, T, B, H, stream
     "asr_bilstm_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                        _I, _I, _I, _P],
+    # xp_f, xp_b, mask, wh_f, wh_b, wht_f, wht_b, h_f, c_f, h_b, c_b,
+    # dh_f, dh_b, dxp_f, dxp_b, T, B, H, stream
+    "asr_bilstm_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                       _P, _P, _P, _P, _I, _I, _I, _P],
+    # lp_ext, valid, skip, alpha_seq, T, B, S, stream
+    "asr_ctc_alpha": [_P, _P, _P, _P, _I, _I, _I, _P],
+    # lp_ext, valid, alpha_seq, skip2, end_ind, gamma, T, B, S, stream
+    "asr_ctc_beta": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
 }
 
 
@@ -56,7 +66,7 @@ def sources() -> list[Path]:
 
 
 def source_hash() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for src in sources():
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -81,8 +91,25 @@ def build_dir() -> Path:
     return BUILD_ROOT / f"kernels-{source_hash()}"
 
 
+def _run_all(cmds: list[list[str]]) -> tuple[bool, str]:
+    """Start every command at once, wait for all -> (all succeeded, their
+    commands, times and output as one log)."""
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    ok, log = True, ""
+    for cmd, proc in zip(cmds, procs):
+        out = proc.communicate()[0]
+        ok = ok and proc.returncode == 0
+        log += (f"$ {' '.join(cmd)}\n# done at {time.perf_counter() - t0:.2f}"
+                f" s, rc {proc.returncode}\n{out}")
+    return ok, log
+
+
 def build() -> Path:
-    """Compile ``csrc/*.cu`` into the hashed build directory (once).
+    """Compile ``csrc/*.cu`` into the hashed build directory (once): one
+    ``nvcc`` per source, all started together, then one link.
 
     The compiler's report (``-Xptxas -v``: registers, shared memory and
     spills of each kernel) is kept beside the library as ``build.log``.
@@ -92,21 +119,22 @@ def build() -> Path:
     if lib_path.exists():
         return lib_path
     out_dir.mkdir(parents=True, exist_ok=True)
-    # build under a private name, then rename: a concurrent process
+    # build in a private directory, then rename: a concurrent process
     # building the same hash never loads a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources())]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    log = (f"$ {' '.join(cmd)}\n# {seconds:.2f} s, rc {proc.returncode}\n"
-           f"{proc.stdout}{proc.stderr}")
+    tmp = Path(tempfile.mkdtemp(dir=out_dir))
+    objs = [str(tmp / f"{src.stem}.o") for src in sources()]
+    ok, log = _run_all([[nvcc(), *NVCC_FLAGS, "-o", obj, str(src)]
+                        for src, obj in zip(sources(), objs)])
+    if ok:
+        ok, link_log = _run_all([[nvcc(), *LINK_FLAGS, "-o",
+                                  str(tmp / LIB_NAME), *objs]])
+        log += link_log
     (out_dir / "build.log").write_text(log)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed (rc {proc.returncode}):\n{log}")
-    os.replace(tmp, lib_path)
+    if not ok:
+        shutil.rmtree(tmp)
+        raise RuntimeError(f"nvcc failed:\n{log}")
+    os.replace(tmp / LIB_NAME, lib_path)
+    shutil.rmtree(tmp)
     return lib_path
 
 

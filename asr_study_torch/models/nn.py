@@ -1,4 +1,5 @@
-"""Dense-layer primitives (port of ``asr_study_tpu/models/nn.py``).
+"""Dense-layer primitives and dropout (port of
+``asr_study_tpu/models/nn.py``).
 
 Parameters keep the JAX layout: ``w`` [in, out], ``b`` [out].  Random
 initialisation draws from a ``torch.Generator`` on the CPU and moves the
@@ -54,3 +55,18 @@ def dense_init(in_dim: int, out_dim: int,
 def dense_apply(params: Mapping[str, torch.Tensor],
                 x: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x, params["w"]) + params["b"]
+
+
+def dropout(x: torch.Tensor, rate: float, train: bool,
+            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Inverted dropout, ``where(keep, x / (1 - rate), 0)``, with the keep
+    mask drawn from ``generator`` (on ``x``'s device).  The identity in
+    eval mode or at rate 0."""
+    if not train or rate <= 0.0:
+        return x
+    if generator is None:
+        raise ValueError("dropout in train mode needs a torch.Generator")
+    keep = 1.0 - rate
+    u = torch.rand(x.shape, generator=generator, device=x.device,
+                   dtype=x.dtype)
+    return torch.where(u < keep, x / keep, 0.0)

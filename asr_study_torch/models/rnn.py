@@ -4,12 +4,13 @@
 Time-major [T, B, F] inside.  Each layer follows the JAX fused
 bidirectional path (``RNNLayer._apply_fused_bidi``): the input projection
 ``x @ wx + b`` of each direction is one matmul over all frames, both
-directions' recurrences run in one call of ``ops.bilstm.bilstm`` (the
-kernel on a CUDA device), and the output is zeroed on padded frames.
+directions' recurrences run in one ``ops.bilstm.BiLSTMFunction`` (the
+forward and backward kernels on a CUDA device), and the output is zeroed on
+padded frames.
 
-Only what BASELINE config 2 needs is ported: bidirectional LSTM layers,
-no skip connections, no dropout (inference).  The rest raises
-``NotImplementedError`` naming its ROADMAP item.
+Only what BASELINE configs 2 and 3 need is ported: bidirectional LSTM
+layers, no skip connections, inter-layer dropout in training.  The rest
+raises ``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -20,7 +21,8 @@ import torch
 from torch import nn
 
 from asr_study_torch.models.cells import LSTMCell
-from asr_study_torch.ops.bilstm import bilstm
+from asr_study_torch.models.nn import dropout as dropout_fn
+from asr_study_torch.ops.bilstm import BiLSTMFunction
 
 
 class RNNLayer(nn.Module):
@@ -51,8 +53,8 @@ class RNNLayer(nn.Module):
         """x [T, B, F], mask [T, B, 1] -> [T, B, 2H]."""
         xp_f = (self.fw.input_proj(x) + self.fw.b).contiguous()
         xp_b = (self.bw.input_proj(x) + self.bw.b).contiguous()
-        h_f, _, h_b, _ = bilstm(xp_f, xp_b, mask.contiguous(), self.fw.wh,
-                                self.bw.wh)
+        h_f, h_b = BiLSTMFunction.apply(xp_f, xp_b, mask.contiguous(),
+                                        self.fw.wh, self.bw.wh)
         return torch.cat([h_f, h_b], dim=-1) * mask
 
 
@@ -66,7 +68,8 @@ class _StackEntry(nn.Module):
 
 
 class StackedRNN(nn.Module):
-    """N bidirectional LSTM layers; skip kind 'none' only."""
+    """N bidirectional LSTM layers; skip kind 'none' only.  ``dropout``
+    acts after every layer but the last, in train mode only."""
 
     def __init__(self, input_dim: int, cell_kind: str = "lstm",
                  hidden: int = 256, num_layers: int = 3,
@@ -79,9 +82,8 @@ class StackedRNN(nn.Module):
             raise NotImplementedError(
                 f"skip kind {skip!r} is not ported yet (ROADMAP queue A "
                 "item 1)")
-        # ``dropout`` acts only in training, which is not ported (queue A
-        # item 5): inference ignores it, as the JAX stack does
         self.input_dim = input_dim
+        self.dropout = dropout
         entries = []
         dim = input_dim
         for _ in range(num_layers):
@@ -92,8 +94,14 @@ class StackedRNN(nn.Module):
         self.layers = nn.ModuleList(entries)
         self.output_dim = dim
 
-    def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask: torch.Tensor,
+                train: bool = False,
+                generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
         """x [T, B, F] -> [T, B, output_dim]"""
-        for entry in self.layers:
+        last = len(self.layers) - 1
+        for i, entry in enumerate(self.layers):
             x = entry.rnn(x, mask)
+            if i < last:
+                x = dropout_fn(x, self.dropout, train, generator)
         return x

@@ -44,14 +44,19 @@ class AcousticModel(nn.Module):
     def blank_id(self) -> int:
         return self.num_classes
 
-    def forward(self, inputs: torch.Tensor,
-                input_lengths: torch.Tensor) -> torch.Tensor:
-        """inputs [B, T, F], input_lengths [B] -> logits [B, T, V+1]"""
+    def forward(self, inputs: torch.Tensor, input_lengths: torch.Tensor,
+                train: bool = False,
+                generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
+        """inputs [B, T, F], input_lengths [B] -> logits [B, T, V+1].
+
+        ``train`` turns the stack's dropout on, drawn from ``generator``
+        (a ``torch.Generator`` on the inputs' device)."""
         x = inputs.transpose(0, 1)                               # [T, B, F]
         t_steps = x.shape[0]
         mask = (torch.arange(t_steps, device=x.device)[:, None]
                 < input_lengths[None, :]).to(x.dtype)[..., None]  # [T, B, 1]
-        h = self.rnn(x, mask)
+        h = self.rnn(x, mask, train, generator)
         return dense_apply(self.out, h).transpose(0, 1)
 
 

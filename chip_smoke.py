@@ -4,20 +4,33 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from ``asr_study_torch/csrc`` and drives the port's
-serving path (BASELINE config 2: pcm16 wire -> MFCC+deltas -> deep_blstm
-2x256 -> greedy CTC) at full width: B=32 LapsBM-like utterances of 3-8 s
-at 16 kHz, 8 batches, random weights from a seeded ``torch.Generator``.
+two paths at full width, with random weights from a seeded
+``torch.Generator``:
+
+- serving (BASELINE config 2): pcm16 wire -> MFCC+deltas -> deep_blstm
+  2x256 -> greedy CTC, B=32 LapsBM-like utterances of 3-8 s at 16 kHz, 8
+  batches, through ``cli.predict.serve_batch``;
+- training (BASELINE config 3): features [32, 512, 39] -> deep_blstm 3x256
+  (dropout 0) -> CTC -> backward -> clip by global norm -> Adam
+  (``make_optimizer("adam", 1e-4, 400.0)``), through ``Trainer.train_step``
+  and ``fit``, as ``benchmarks/bench_train.py`` drives the JAX trainer.
 
 Phases, in order; any failure raises and the exit code is not 0:
 
 1. toolchain: torch and its CUDA, nvcc, triton, the card and power limit;
 2. build: nvcc time and each kernel's registers / shared memory / spills;
-3. each kernel against its plain PyTorch version on the card, at the main
-   path's shapes, within the stated tolerance;
-4. the slice through ``cli.predict.serve_batch`` (what the CLI calls),
-   with launch counters proving both kernels ran, logits held against the
-   plain path on the CPU, decoded lengths within the frame lengths;
-5. timings from CUDA events after a warm-up.
+3. each kernel against its plain PyTorch version on the card, at its path's
+   shapes, within the stated tolerance;
+4. the serving slice, with launch counters proving both of its kernels ran,
+   logits held against the plain path on the CPU;
+5. serving timings from CUDA events after a warm-up;
+6. the training slice: launch counters per step, one card step held
+   against the same step of the plain path on the CPU (loss, grad norm,
+   every gradient), the loss falling over 20 steps on one batch, and
+   ``fit`` over a few batches with a checkpoint saved, restored and
+   continued;
+7. training timings: ms per step, steps/s, audio-s/s, per-stage ms, each
+   new kernel against its plain version, the device busy share.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA the script exits 1.
@@ -28,8 +41,10 @@ from __future__ import annotations
 import copy
 import importlib.util
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -58,6 +73,34 @@ BILSTM_RTOL = 1e-5
 # - logits of the whole slice, kernel path on the card against the plain
 #   path on the CPU (features, two layers and the classifier between).
 LOGITS_TOL = 2e-3
+# - bilstm_bwd: dxp elementwise |kernel - plain| <= ATOL + RTOL*|plain|,
+#   the forward check's form: 512 serial steps of fp32 sums in other orders
+#   (the first card run measured 9.5e-6 abs at |dxp| up to 17.8).
+BWD_ATOL = 1e-4
+BWD_RTOL = 1e-4
+# - dwh through BiLSTMFunction against autograd through bilstm_plain: a sum
+#   over T*B = 16384 rows, so the bound is relative to the largest entry.
+DWH_RTOL = 1e-4
+# - ctc_alpha / ctc_beta: alpha and gamma are log-likelihoods reaching
+#   about -2000, where one fp32 ulp is 1.2e-4: |kernel - plain| <= ATOL +
+#   RTOL*|plain| on entries above the floor; entries at LOG_EPS must be at
+#   LOG_EPS on both sides.  dlp = -exp(gamma - logP) lies in [-1, 0].
+CTC_ATOL = 1e-3
+CTC_RTOL = 1e-5
+DLP_TOL = 1e-5
+# - one train step on the card against the same step of the plain path on
+#   the CPU, same weights and batch: three layers of 512 steps in other
+#   summation orders.  Loss relative 1e-4; grad norm relative 1e-3; each
+#   parameter's gradient (after the clip) within 1e-3 of its norm
+#   (||g_card - g_cpu|| <= 1e-3 * ||g_cpu||).
+STEP_LOSS_RTOL = 1e-4
+STEP_GNORM_RTOL = 1e-3
+STEP_GRAD_RTOL = 1e-3
+
+# config 3 (benchmarks/bench_train.py defaults)
+TRAIN_B, TRAIN_T, TRAIN_L, TRAIN_LAYERS, FEATS = 32, 512, 48, 3, 39
+TRAIN_STEPS = 20                 # steps on one fixed batch
+AUDIO_PER_STEP = TRAIN_B * TRAIN_T * 0.01   # 10 ms frames: 163.84 s
 
 
 def synth_batch(rng: np.random.RandomState, max_len: bool = False):
@@ -97,6 +140,364 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def within(got: torch.Tensor, want: torch.Tensor, atol: float,
+           rtol: float) -> bool:
+    """|got - want| <= atol + rtol * |want| everywhere."""
+    return bool(((got - want).abs() <= atol + rtol * want.abs()).all())
+
+
+def ctc_compare(got: torch.Tensor, want: torch.Tensor
+                ) -> tuple[bool, bool, float]:
+    """Log-likelihood rows: entries at the LOG_EPS floor must be at the
+    floor on both sides; the rest within CTC_ATOL + CTC_RTOL * |want|.
+    -> (floors equal, live entries within tolerance, max abs error of the
+    live entries)"""
+    floor = want <= -5e29
+    floors_equal = torch.equal(got <= -5e29, floor)
+    live = ~floor
+    err = float((got - want)[live].abs().max()) if live.any() else 0.0
+    return (floors_equal, within(got[live], want[live], CTC_ATOL, CTC_RTOL),
+            err)
+
+
+def device_busy(prof) -> tuple[float, float, float] | None:
+    """(busy share, device-busy ms, window ms) of a torch.profiler run: the
+    union of the device's kernel and copy intervals over the span of all
+    recorded events.  None when the profiler saw no device activity."""
+    evs = prof.events()
+    dev = sorted((e.time_range.start, e.time_range.end) for e in evs
+                 if e.device_type == torch.autograd.DeviceType.CUDA)
+    if not dev:
+        return None
+    busy, cur_s, cur_e = 0.0, dev[0][0], dev[0][1]
+    for s, e in dev[1:]:
+        if s > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    busy += cur_e - cur_s
+    span = (max(e.time_range.end for e in evs)
+            - min(e.time_range.start for e in evs))
+    return busy / span, busy / 1e3, span / 1e3
+
+
+def check_training_kernels(dev: torch.device, card: str) -> dict:
+    """Phase 3 for the training kernels, at config-3 shapes (T=512, B=32,
+    H=256, L=48, S=97, lengths 256-512, label lengths 24-48), and their
+    timings against the plain versions."""
+    from asr_study_torch.models.zoo import deep_blstm
+    from asr_study_torch.ops import ctc
+    from asr_study_torch.ops.bilstm import (BiLSTMFunction, bilstm,
+                                            bilstm_bwd, bilstm_bwd_plain,
+                                            bilstm_plain)
+
+    g = torch.Generator().manual_seed(SEED + 1)
+    t, b, h = TRAIN_T, TRAIN_B, HIDDEN
+    layer = deep_blstm(f"num_hiddens={h},num_layers=1", input_dim=FEATS,
+                       generator=g, device=dev).rnn.layers[0].rnn
+    lengths = torch.randint(256, t + 1, (b,), generator=g)
+    lengths[0] = t
+    x = torch.randn(t, b, FEATS, generator=g).to(dev)
+    mask = (torch.arange(t)[:, None] < lengths[None, :]).float()[..., None]
+    mask = mask.to(dev)
+    dh_f = torch.randn(t, b, h, generator=g).to(dev)
+    dh_b = torch.randn(t, b, h, generator=g).to(dev)
+    with torch.no_grad():
+        xp_f = (layer.fw.input_proj(x) + layer.fw.b).contiguous()
+        xp_b = (layer.bw.input_proj(x) + layer.bw.b).contiguous()
+        wh_f, wh_b = layer.fw.wh.detach(), layer.bw.wh.detach()
+        fwd_args = (xp_f, xp_b, mask, wh_f, wh_b)
+        bwd_args = (*fwd_args, *bilstm(*fwd_args), dh_f, dh_b)
+        d_k = bilstm_bwd(*bwd_args)
+        d_p = bilstm_bwd_plain(*bwd_args)
+    bwd_errs = [float((k - p).abs().max()) for k, p in zip(d_k, d_p)]
+    bwd_ok = all(within(k, p, BWD_ATOL, BWD_RTOL) for k, p in zip(d_k, d_p))
+    # dwh through the Function against autograd through the plain loop
+    w_k = [w.clone().requires_grad_() for w in (wh_f, wh_b)]
+    w_p = [w.clone().requires_grad_() for w in (wh_f, wh_b)]
+    h_k = BiLSTMFunction.apply(xp_f, xp_b, mask, *w_k)
+    torch.autograd.backward(h_k, (dh_f, dh_b))
+    h_p = bilstm_plain(xp_f, xp_b, mask, *w_p)
+    torch.autograd.backward((h_p[0], h_p[2]), (dh_f, dh_b))
+    dwh_err = max(float((a.grad - p.grad).abs().max() / p.grad.abs().max())
+                  for a, p in zip(w_k, w_p))
+    print(f"bilstm_bwd kernel vs plain: T={t} B={b} H={h} lengths "
+          f"{int(lengths.min())}..{t} max_abs_err={max(bwd_errs):.3e} "
+          f"(dxp_f {bwd_errs[0]:.2e} dxp_b {bwd_errs[1]:.2e}; max|dxp| "
+          f"{max(float(p.abs().max()) for p in d_p):.2f}) (tol "
+          f"{BWD_ATOL:g} + {BWD_RTOL:g}*|plain|); dwh via BiLSTMFunction vs "
+          f"autograd through bilstm_plain: max err / max|dwh| = "
+          f"{dwh_err:.3e} (tol {DWH_RTOL:g})")
+    require(bwd_ok, "bilstm_bwd kernel disagrees with plain")
+    require(dwh_err <= DWH_RTOL, "BiLSTMFunction dwh disagrees with autograd")
+
+    vocab = NUM_CLASSES + 1
+    logits = torch.randn(b, t, vocab, generator=g).to(dev)
+    labels = torch.randint(0, NUM_CLASSES, (b, TRAIN_L), generator=g)
+    lab_lens = torch.randint(TRAIN_L // 2, TRAIN_L + 1, (b,), generator=g)
+    lab_lens[0] = TRAIN_L
+    with torch.no_grad():
+        lp_ext, valid, skip, end, ll = ctc.lattice(
+            logits, lengths.to(dev), labels.to(dev), lab_lens.to(dev))
+        s_len = lp_ext.shape[2]
+        skip2 = ctc.skip_from_source(skip)
+        end_ind = ctc.end_indicator(end, ll, s_len)
+        a_k = ctc.ctc_alpha(lp_ext, valid, skip)
+        a_p = ctc.ctc_alpha_plain(lp_ext, valid, skip)
+        g_k = ctc.ctc_beta(lp_ext, valid, a_k, skip2, end_ind)
+        g_p = ctc.ctc_beta_plain(lp_ext, valid, a_p, skip2, end_ind)
+        ones = torch.ones(b, device=dev)
+        dlp_k = ctc.posterior_grad(g_k, ctc.final_logp(a_k[-1], end, ll),
+                                   ones)
+        dlp_p = ctc.posterior_grad(g_p, ctc.final_logp(a_p[-1], end, ll),
+                                   ones)
+    alpha_floor, alpha_ok, alpha_err = ctc_compare(a_k, a_p)
+    gamma_floor, gamma_ok, gamma_err = ctc_compare(g_k, g_p)
+    dlp_err = float((dlp_k - dlp_p).abs().max())
+    live = a_p > -5e29
+    print(f"ctc_alpha kernel vs plain: T={t} B={b} S={s_len} label lengths "
+          f"{int(lab_lens.min())}..{TRAIN_L} max_abs_err={alpha_err:.3e} "
+          f"above the floor (tol {CTC_ATOL:g} + {CTC_RTOL:g}*|plain|; alpha "
+          f"there down to {float(a_p[live].min()):.1f}); LOG_EPS entries "
+          f"equal: {alpha_floor}")
+    print(f"ctc_beta kernel vs plain: gamma max_abs_err={gamma_err:.3e} "
+          f"above the floor (same tol); LOG_EPS entries equal: "
+          f"{gamma_floor}; dlp max_abs_err={dlp_err:.3e} (tol {DLP_TOL:g})")
+    require(alpha_floor and alpha_ok, "ctc_alpha kernel disagrees with plain")
+    require(gamma_floor and gamma_ok, "ctc_beta kernel disagrees with plain")
+    require(dlp_err <= DLP_TOL, "ctc dlp disagrees with plain")
+
+    with torch.no_grad():
+        times = {
+            "bilstm_fwd": (cuda_ms(lambda: bilstm(*fwd_args), 10),
+                           cuda_ms(lambda: bilstm_plain(*fwd_args), 2, 1)),
+            "bilstm_bwd": (cuda_ms(lambda: bilstm_bwd(*bwd_args), 10),
+                           cuda_ms(lambda: bilstm_bwd_plain(*bwd_args), 2,
+                                   1)),
+            "ctc_alpha": (cuda_ms(lambda: ctc.ctc_alpha(lp_ext, valid, skip),
+                                  20),
+                          cuda_ms(lambda: ctc.ctc_alpha_plain(
+                              lp_ext, valid, skip), 2, 1)),
+            "ctc_beta": (cuda_ms(lambda: ctc.ctc_beta(
+                lp_ext, valid, a_k, skip2, end_ind), 20),
+                         cuda_ms(lambda: ctc.ctc_beta_plain(
+                             lp_ext, valid, a_k, skip2, end_ind), 2, 1)),
+        }
+    for name, (k_ms, p_ms) in times.items():
+        print(f"[{card}] {name} at T={t} B={b}: kernel {k_ms:.4f} ms, plain "
+              f"{p_ms:.4f} ms")
+    return {"errs": {"bilstm_bwd": max(bwd_errs), "ctc_alpha": alpha_err,
+                     "ctc_beta": gamma_err},
+            "times": times}
+
+
+def training_slice(dev: torch.device, card: str) -> dict:
+    """Phases 6 and 7: the config-3 training path through Trainer and fit."""
+    from asr_study_torch.data.generator import DatasetGenerator
+    from asr_study_torch.models.zoo import deep_blstm
+    from asr_study_torch.ops import ctc
+    from asr_study_torch.ops.bilstm import bilstm, bilstm_bwd
+    from asr_study_torch.train.checkpoint import CheckpointManager
+    from asr_study_torch.train.loop import fit
+    from asr_study_torch.train.trainer import Trainer, make_optimizer
+
+    kernels = {"bilstm_fwd": bilstm, "bilstm_bwd": bilstm_bwd,
+               "ctc_alpha": ctc.ctc_alpha, "ctc_beta": ctc.ctc_beta}
+
+    def reset():
+        for fn in kernels.values():
+            fn.launches = 0
+
+    def counts():
+        return {k: fn.launches for k, fn in kernels.items()}
+
+    def per_steps(n, evals=0):
+        return {"bilstm_fwd": TRAIN_LAYERS * (n + evals),
+                "bilstm_bwd": TRAIN_LAYERS * n, "ctc_alpha": n + evals,
+                "ctc_beta": n}
+
+    hp = f"num_hiddens={HIDDEN},num_layers={TRAIN_LAYERS},dropout=0.0"
+
+    def make(device, seed=SEED):
+        return deep_blstm(hp, num_classes=NUM_CLASSES, input_dim=FEATS,
+                          generator=torch.Generator().manual_seed(seed),
+                          device=device)
+
+    spec = make_optimizer("adam", 1e-4, 400.0)
+    rng = np.random.RandomState(SEED)
+    host = (rng.randn(TRAIN_B, TRAIN_T, FEATS).astype(np.float32),
+            np.full(TRAIN_B, TRAIN_T, np.int32),
+            rng.randint(0, NUM_CLASSES, (TRAIN_B, TRAIN_L)).astype(np.int32),
+            np.full(TRAIN_B, TRAIN_L, np.int32),
+            np.ones(TRAIN_B, np.float32))
+    batch_cpu = [torch.from_numpy(a) for a in host]
+    batch = [a.to(dev) for a in batch_cpu]
+    model = make(dev)
+    model_cpu = make("cpu")
+    trainer = Trainer(model, spec)
+    state = trainer.init_state()
+
+    # the main path: TRAIN_STEPS steps on one batch, counted
+    reset()
+    state, m = trainer.train_step(state, *batch)
+    losses = [m["loss"]]
+    grads = {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
+    loss_1, gnorm_1 = float(m["loss"]), float(m["grad_norm"])
+    for _ in range(TRAIN_STEPS - 1):
+        state, m = trainer.train_step(state, *batch)
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    launches = counts()
+    losses = torch.stack(losses).cpu()
+    print(f"train slice: deep_blstm {TRAIN_LAYERS}x{HIDDEN} B={TRAIN_B} "
+          f"T={TRAIN_T} L={TRAIN_L}, adam 1e-4 clip 400; launches over "
+          f"{TRAIN_STEPS} steps {launches}, per step "
+          f"{ {k: v / TRAIN_STEPS for k, v in launches.items()} }")
+    require(launches == per_steps(TRAIN_STEPS),
+            f"train launches {launches}, want {per_steps(TRAIN_STEPS)}")
+    require(bool(torch.isfinite(losses).all()), "non-finite train loss")
+    print(f"train loss over {TRAIN_STEPS} steps on one batch: "
+          f"{float(losses[0]):.4f} -> {float(losses[-1]):.4f} "
+          f"(every 5th step: "
+          f"{[round(float(v), 4) for v in losses[::5]]})")
+    require(float(losses[-1]) < float(losses[0]), "train loss did not fall")
+
+    # the first step again on the CPU: the plain path, the same weights
+    t0 = time.perf_counter()
+    trainer_cpu = Trainer(model_cpu, spec)
+    _, m_cpu = trainer_cpu.train_step(trainer_cpu.init_state(), *batch_cpu)
+    cpu_s = time.perf_counter() - t0
+    loss_rel = abs(loss_1 - float(m_cpu["loss"])) / abs(float(m_cpu["loss"]))
+    gnorm_rel = (abs(gnorm_1 - float(m_cpu["grad_norm"]))
+                 / float(m_cpu["grad_norm"]))
+    grad_rel = {n: float((grads[n] - p.grad).norm() / p.grad.norm())
+                for n, p in model_cpu.named_parameters()}
+    worst = max(grad_rel, key=grad_rel.get)
+    print(f"train step 1, kernel path on the card vs plain path on the CPU "
+          f"({cpu_s:.1f} s there): loss {loss_1:.4f} vs "
+          f"{float(m_cpu['loss']):.4f}, rel {loss_rel:.3e} (tol "
+          f"{STEP_LOSS_RTOL:g}); grad_norm {gnorm_1:.4f} vs "
+          f"{float(m_cpu['grad_norm']):.4f}, rel {gnorm_rel:.3e} (tol "
+          f"{STEP_GNORM_RTOL:g}); gradients of {len(grad_rel)} parameters, "
+          f"worst ||diff||/||cpu|| {grad_rel[worst]:.3e} in {worst} (tol "
+          f"{STEP_GRAD_RTOL:g})")
+    require(loss_rel <= STEP_LOSS_RTOL, "train loss disagrees with CPU")
+    require(gnorm_rel <= STEP_GNORM_RTOL, "grad norm disagrees with CPU")
+    require(grad_rel[worst] <= STEP_GRAD_RTOL,
+            "a gradient disagrees with CPU")
+
+    # fit over a DatasetIterator, checkpoint, restore, continue
+    frng = np.random.RandomState(SEED + 2)
+    n_utt = 3 * TRAIN_B
+    feats = [frng.randn(frng.randint(256, TRAIN_T + 1), FEATS)
+             .astype(np.float32) for _ in range(n_utt)]
+    labs = [frng.randint(0, NUM_CLASSES, frng.randint(24, TRAIN_L + 1))
+            .astype(np.int32) for _ in range(n_utt)]
+    gen = DatasetGenerator(batch_size=TRAIN_B)
+    train_iter = gen.flow(feats, labs)
+    valid_iter = gen.flow(feats[:TRAIN_B], labs[:TRAIN_B])
+    n_fit = train_iter.steps_per_epoch
+    with tempfile.TemporaryDirectory() as tmp:
+        run_dir = os.path.join(tmp, "run")
+        fit_trainer = Trainer(make(dev), spec)
+        reset()
+        t0 = time.perf_counter()
+        fit_state = fit(fit_trainer, fit_trainer.init_state(), train_iter,
+                        valid_iter, epochs=1, seed=SEED,
+                        ckpt=CheckpointManager(run_dir),
+                        log_dir=os.path.join(tmp, "logs"), log_every=1)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        fit_launches = counts()
+        require(fit_launches == per_steps(n_fit, evals=1),
+                f"fit launches {fit_launches}")
+        # a fresh model and state, restored from the checkpoint
+        resumed = Trainer(make(dev, seed=SEED + 5), spec)
+        r_state = resumed.init_state()
+        ckpt = CheckpointManager(run_dir)
+        ckpt.restore(r_state)
+        require(r_state.step == n_fit and ckpt.latest_step == n_fit,
+                f"restored step {r_state.step}, latest {ckpt.latest_step}")
+        require(all(torch.equal(a, b) for a, b in zip(
+            fit_state.model.state_dict().values(),
+            r_state.model.state_dict().values())),
+            "restored weights differ from the saved ones")
+        r_state = fit(resumed, r_state, train_iter, valid_iter, epochs=1,
+                      seed=SEED + 1, ckpt=ckpt,
+                      log_dir=os.path.join(tmp, "logs"), log_every=1)
+        hist = CheckpointManager(run_dir).meta["history"]
+        require(r_state.step == 2 * n_fit and ckpt.latest_step == 2 * n_fit,
+                f"continued to step {r_state.step}")
+        require(len(hist) == 2 and all(np.isfinite(h["val_loss"])
+                                       for h in hist),
+                f"checkpoint history {hist}")
+        print(f"fit: {n_fit} steps + eval in {fit_s:.1f} s, launches "
+              f"{fit_launches}; checkpoint at step {n_fit} restored into a "
+              f"fresh model (weights equal), continued to step "
+              f"{r_state.step}; val_loss per epoch "
+              f"{[round(h['val_loss'], 4) for h in hist]}, val_ler "
+              f"{[round(h['val_ler'], 4) for h in hist]}, best step "
+              f"{ckpt.best_step}")
+
+    # 7. timings -----------------------------------------------------------
+    step_ms = cuda_ms(lambda: trainer.train_step(state, *batch), 10)
+    x, il, lab, ll, w = batch
+
+    def staged():
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        state.optimizer.zero_grad(set_to_none=True)
+        ev[0].record()
+        logits = model(x, il, train=True)
+        ev[1].record()
+        lg = logits.detach().requires_grad_()
+        per_seq = ctc.ctc_loss(lg, il, lab, ll, blank_id=model.blank_id)
+        ((per_seq * w).sum() / torch.clamp(w.sum(), min=1.0)).backward()
+        ev[2].record()
+        logits.backward(lg.grad)
+        ev[3].record()
+        trainer.apply_gradients(state)
+        ev[4].record()
+        return ev
+
+    staged()
+    runs = [staged() for _ in range(5)]
+    torch.cuda.synchronize()
+    names = ("forward (3 BLSTM layers + classifier)",
+             "CTC (lattice, alpha, beta, dlp, log-softmax grad)",
+             "backward (classifier + 3 BLSTM layers)", "clip + Adam")
+    stages = {n: sum(r[i].elapsed_time(r[i + 1]) for r in runs) / len(runs)
+              for i, n in enumerate(names)}
+    print(f"[{card}] train step (config 3: {TRAIN_LAYERS}x{HIDDEN}, "
+          f"B={TRAIN_B}, T={TRAIN_T}, L={TRAIN_L}): {step_ms:.4f} ms/step, "
+          f"{1e3 / step_ms:.3f} steps/s, "
+          f"{AUDIO_PER_STEP / (step_ms / 1e3):.1f} audio-s/s")
+    print(f"[{card}] train step stages, CUDA events, mean of {len(runs)}: "
+          + "; ".join(f"{n} {v:.4f} ms" for n, v in stages.items())
+          + f"; sum {sum(stages.values()):.4f} ms")
+
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            trainer.train_step(state, *batch)
+        torch.cuda.synchronize()
+    busy = device_busy(prof)
+    if busy is None:
+        print(f"[{card}] train device busy share: not measured (the "
+              "profiler recorded no device activity)")
+    else:
+        print(f"[{card}] train device busy share over 5 steps: "
+              f"{busy[0]:.4f} ({busy[1]:.2f} ms busy of {busy[2]:.2f} ms)")
+        tops = sorted(prof.key_averages(), key=lambda a: -getattr(
+            a, "self_device_time_total", 0.0))[:8]
+        print("  top device time: " + "; ".join(
+            f"{a.key[:60]} {getattr(a, 'self_device_time_total', 0.0) / 1e3:.2f}"
+            f" ms x{a.count}" for a in tops))
+    return {"launches": launches, "step_ms": step_ms, "stages": stages,
+            "busy": busy}
 
 
 def main() -> int:
@@ -142,13 +543,17 @@ def main() -> int:
                 "Compiling entry" in line or "Used" in line)) \
                 or "spill" in line:
             print(f"  {line.strip()}")
-    # both kernels size their shared memory at launch (ptxas sees none);
-    # the bytes at the main path's shapes, by the formulas of asr_fbank
-    # and asr_bilstm_fwd in csrc/
+    # the kernels size their shared memory at launch (ptxas sees none);
+    # the bytes at the main paths' shapes, by the formulas of the C entry
+    # points in csrc/
+    s_len = 2 * TRAIN_L + 1
     print(f"  dynamic shared memory per block: fbank "
           f"{4 * (16 * (400 + 257 + 40) + 16)} B (16 frames, L=400, "
           f"K=257, M=40), bilstm_fwd {4 * 4 * (2 * HIDDEN + 4 * HIDDEN)} B "
-          f"(4 rows, H={HIDDEN})")
+          f"(4 rows, H={HIDDEN}), bilstm_bwd "
+          f"{4 * 4 * ((3 + 4) * HIDDEN + 4 * HIDDEN)} B (4 rows, 4 partial "
+          f"sums), ctc_alpha {4 * 2 * s_len} B, ctc_beta {4 * 4 * s_len} B "
+          f"(S={s_len})")
 
     # 3. kernels against their plain versions at main-path shapes ---------
     rng = np.random.RandomState(SEED)
@@ -203,6 +608,7 @@ def main() -> int:
           f"vs plain on card "
           f"{yard:.3e}")
     require(bilstm_ok, "bilstm kernel disagrees with plain")
+    train_kernels = check_training_kernels(dev, card)
 
     # 4. the slice, through the CLI's serving function --------------------
     all_wavs, audio_s = [], 0.0
@@ -270,6 +676,18 @@ def main() -> int:
           f"(wire unpack + features + {LAYERS}x{HIDDEN} BLSTM + classifier "
           f"+ greedy decode, B={BATCH})")
 
+    # 6, 7. the training path ---------------------------------------------
+    train = training_slice(dev, card)
+    t_times, t_errs = train_kernels["times"], train_kernels["errs"]
+
+    def entry(name, source, replaces):
+        return {"name": name, "route": "cuda",
+                "source": f"asr_study_torch/csrc/{source}",
+                "replaces": replaces,
+                "launches": train["launches"][name],
+                "max_abs_err": t_errs[name], "ms": t_times[name][0],
+                "plain_ms": t_times[name][1]}
+
     record = {"kernels": [
         {"name": "fbank", "route": "cuda",
          "source": "asr_study_torch/csrc/fbank.cu",
@@ -279,8 +697,13 @@ def main() -> int:
         {"name": "bilstm_fwd", "route": "cuda",
          "source": "asr_study_torch/csrc/bilstm_fwd.cu",
          "replaces": "asr_study_tpu/ops/pallas_bilstm.py:84",
-         "launches": launches["bilstm_fwd"], "max_abs_err": bilstm_err,
+         "launches": launches["bilstm_fwd"]
+         + train["launches"]["bilstm_fwd"], "max_abs_err": bilstm_err,
          "ms": bl_ms, "plain_ms": bl_plain_ms},
+        entry("bilstm_bwd", "bilstm_bwd.cu",
+              "asr_study_tpu/ops/pallas_bilstm.py:125"),
+        entry("ctc_alpha", "ctc.cu", "asr_study_tpu/ops/pallas_ctc.py:76"),
+        entry("ctc_beta", "ctc.cu", "asr_study_tpu/ops/pallas_ctc.py:101"),
     ]}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

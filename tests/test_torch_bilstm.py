@@ -1,7 +1,8 @@
 """Port's BLSTM recurrence (asr_study_torch/ops/bilstm.py) against the JAX
-fused kernel ``pallas_bilstm`` in interpret mode, and the layer, cell and
-dense pieces around it.  On the CPU the wrapper ``bilstm`` takes its plain
-version, a Python loop on ``lstm_step``."""
+fused kernel ``pallas_bilstm`` in interpret mode, forward and backward
+(its custom VJP), and the layer, cell and dense pieces around it.  On the
+CPU the wrappers ``bilstm`` and ``bilstm_bwd`` take their plain versions,
+Python loops over time."""
 
 import jax
 import jax.numpy as jnp
@@ -12,13 +13,16 @@ import torch
 from asr_study_torch.models.cells import LSTMCell
 from asr_study_torch.models.nn import dense_apply, dense_init
 from asr_study_torch.models.rnn import RNNLayer
-from asr_study_torch.ops.bilstm import bilstm, bilstm_plain
+from asr_study_torch.ops.bilstm import (BiLSTMFunction, bilstm, bilstm_bwd,
+                                        bilstm_bwd_plain, bilstm_plain)
 from asr_study_tpu.models import nn as jnn
 from asr_study_tpu.models.cells import LSTMCell as JaxLSTMCell
 from asr_study_tpu.models.rnn import RNNLayer as JaxRNNLayer
 from asr_study_tpu.ops import pallas_bilstm as jbi
 
 TOL = dict(rtol=1e-5, atol=1e-5)    # tests/test_pallas_bilstm.py's contract
+# gradients: tests/test_pallas_lstm.py's contract for the backward kernels
+GRAD_TOL = dict(rtol=1e-4, atol=1e-5)
 
 
 def _inputs(seed, t, b, h, full_mask=False):
@@ -78,6 +82,122 @@ def test_wrapper_rejects(bad):
                                         (xp_f, xp_b, mask, wh_f, wh_b)]
     with pytest.raises(ValueError):
         bilstm(xp_f, xp_b, mask, wh_f, wh_b)
+
+
+def _cotangents(seed, t, b, h):
+    rng = np.random.RandomState(seed)
+    return (rng.randn(t, b, h).astype(np.float32),
+            rng.randn(t, b, h).astype(np.float32))
+
+
+def _function_grads(args, loss_of, through=None):
+    """d loss_of(h_f, h_b) / d (xp_f, xp_b, wh_f, wh_b) by torch autograd,
+    through BiLSTMFunction (or ``through``, same arguments -> (h_f,
+    h_b))."""
+    xp_f, xp_b, mask, wh_f, wh_b = [torch.from_numpy(a) for a in args]
+    leaves = [a.clone().requires_grad_() for a in (xp_f, xp_b, wh_f, wh_b)]
+    fn = through or BiLSTMFunction.apply
+    h_f, h_b = fn(leaves[0], leaves[1], mask, leaves[2], leaves[3])
+    loss_of(h_f, h_b).backward()
+    return [np.zeros(leaf.shape, np.float32) if leaf.grad is None
+            else leaf.grad.numpy() for leaf in leaves]
+
+
+def _jax_grads(args, loss_of, h):
+    """The same gradients through the JAX ``pallas_bilstm`` custom VJP in
+    interpret mode."""
+    mask = jnp.asarray(args[2])
+
+    def loss(xf, xb, wf, wb):
+        return loss_of(*jbi.pallas_bilstm(xf, xb, mask, wf, wb, h,
+                                          interpret=True))
+
+    return [np.asarray(g) for g in jax.grad(loss, argnums=(0, 1, 2, 3))(
+        *map(jnp.asarray, (args[0], args[1], args[3], args[4])))]
+
+
+GRAD_NAMES = ("dxp_f", "dxp_b", "dwh_f", "dwh_b")
+
+
+@pytest.mark.parametrize("h", [8, 100])
+@pytest.mark.parametrize("full_mask", [False, True],
+                         ids=["ragged", "full"])
+def test_bwd_matches_pallas_vjp(h, full_mask):
+    """bilstm_bwd_plain and BiLSTMFunction's gradients against jax.vjp of
+    pallas_bilstm: cotangents on every output frame."""
+    t, b = 12, 4
+    args = _inputs(h + 1, t, b, h, full_mask)
+    dh_f, dh_b = _cotangents(h + 2, t, b, h)
+    want = _jax_grads(args, lambda hf, hb: jnp.sum(hf * dh_f)
+                      + jnp.sum(hb * dh_b), h)
+    targs = [torch.from_numpy(a) for a in args]
+    dxp = bilstm_bwd_plain(*targs, *bilstm_plain(*targs),
+                           torch.from_numpy(dh_f), torch.from_numpy(dh_b))
+    for name, g, w in zip(GRAD_NAMES, dxp, want):
+        np.testing.assert_allclose(g.numpy(), w, **GRAD_TOL, err_msg=name)
+    got = _function_grads(args, lambda hf, hb: (
+        (hf * torch.from_numpy(dh_f)).sum()
+        + (hb * torch.from_numpy(dh_b)).sum()))
+    for name, g, w in zip(GRAD_NAMES, got, want):
+        np.testing.assert_allclose(g, w, **GRAD_TOL, err_msg=name)
+
+
+def test_bwd_held_frames_match_pallas():
+    """A loss that reads the padded outputs, where h and c are held: their
+    cotangents must pass straight back to the last real frame
+    (tests/test_pallas_lstm.py's unmasked-loss case)."""
+    t, b, h = 10, 4, 8
+    args = _inputs(5, t, b, h)
+    args[2][:, 1:] = (np.arange(t)[:, None] < np.array([3, 6, 9])[None, :]
+                      )[..., None]
+    want = _jax_grads(args, lambda hf, hb: jnp.sum(hf ** 2)
+                      + jnp.sum(hb ** 2), h)
+    got = _function_grads(args, lambda hf, hb: (hf ** 2).sum()
+                          + (hb ** 2).sum())
+    for name, g, w in zip(GRAD_NAMES, got, want):
+        np.testing.assert_allclose(g, w, **GRAD_TOL, err_msg=name)
+    # the held frames' own pre-activations get nothing
+    held = args[2][..., 0] == 0
+    assert np.abs(got[0][held]).max() == 0.0
+    assert np.abs(got[1][held]).max() == 0.0
+
+
+@pytest.mark.parametrize("h", [8, 100])
+@pytest.mark.parametrize("outputs", ["both", "h_f"])
+def test_function_matches_autograd_through_plain(h, outputs):
+    """BiLSTMFunction against torch autograd through the plain loop; with
+    ``h_f`` only the backward direction gets no cotangent at all."""
+    t, b = 9, 3
+    args = _inputs(h + 3, t, b, h)
+    dh_f, dh_b = (torch.from_numpy(a) for a in _cotangents(h + 4, t, b, h))
+
+    def loss_of(hf, hb):
+        out = (hf * dh_f).sum()
+        return out + (hb * dh_b).sum() if outputs == "both" else out
+
+    def plain(*a):
+        h_f, _, h_b, _ = bilstm_plain(*a)
+        return h_f, h_b
+
+    got = _function_grads(args, loss_of)
+    want = _function_grads(args, loss_of, through=plain)
+    for name, g, w in zip(GRAD_NAMES, got, want):
+        np.testing.assert_allclose(g, w, **GRAD_TOL, err_msg=name)
+    if outputs == "h_f":
+        assert np.abs(got[1]).max() == 0.0 and np.abs(got[3]).max() == 0.0
+
+
+def test_bwd_wrapper_takes_plain_on_cpu_and_checks():
+    args = [torch.from_numpy(a) for a in _inputs(1, 6, 3, 5)]
+    dh = [torch.from_numpy(a) for a in _cotangents(2, 6, 3, 5)]
+    res = bilstm(*args)
+    before = bilstm_bwd.launches
+    got = bilstm_bwd(*args, *res, *dh)
+    assert bilstm_bwd.launches == before
+    for g, w in zip(got, bilstm_bwd_plain(*args, *res, *dh)):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+    with pytest.raises(ValueError, match="dh_b"):
+        bilstm_bwd(*args, *res, dh[0], dh[1][:-1])
 
 
 def _load_cell(cell, p):

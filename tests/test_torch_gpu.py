@@ -15,9 +15,16 @@ from asr_study_torch.features.device import DeviceFeaturizer, spectral_plain
 from asr_study_torch.features.fbank import KernelFeaturizer, fbank
 from asr_study_torch.features.select import featurizer
 from asr_study_torch.models.zoo import deep_blstm, graves2006
-from asr_study_torch.ops.bilstm import bilstm, bilstm_plain
+from asr_study_torch.ops import ctc
+from asr_study_torch.ops.bilstm import (BiLSTMFunction, bilstm, bilstm_bwd,
+                                        bilstm_bwd_plain, bilstm_plain)
+from asr_study_torch.train.trainer import Trainer, make_optimizer
 
 pytestmark = pytest.mark.gpu
+
+# chip_smoke.py's bounds: |kernel - plain| <= atol + rtol * |plain|
+BWD_TOL = dict(rtol=1e-4, atol=1e-4)
+CTC_TOL = dict(rtol=1e-5, atol=1e-3)
 
 
 @pytest.fixture
@@ -120,3 +127,145 @@ def test_slice_on_card_matches_cpu(cuda, make):
     torch.testing.assert_close(got.logits.cpu(), want.logits, rtol=0,
                                atol=2e-3)
     assert torch.equal(got.feat_lengths.cpu(), want.feat_lengths)
+
+
+def _bilstm_case(cuda, t, b, h, seed):
+    g = torch.Generator().manual_seed(seed)
+    xp_f = torch.randn(t, b, 4 * h, generator=g)
+    xp_b = torch.randn(t, b, 4 * h, generator=g)
+    wh_f = torch.randn(h, 4 * h, generator=g) / h ** 0.5
+    wh_b = torch.randn(h, 4 * h, generator=g) / h ** 0.5
+    lengths = torch.randint(1, t + 1, (b,), generator=g)
+    lengths[0] = t
+    mask = (torch.arange(t)[:, None] < lengths[None, :]).float()[..., None]
+    dh = (torch.randn(t, b, h, generator=g), torch.randn(t, b, h, generator=g))
+    return ([a.to(cuda) for a in (xp_f, xp_b, mask, wh_f, wh_b)],
+            [a.to(cuda) for a in dh])
+
+
+@pytest.mark.parametrize("t,b,h", [(12, 4, 8), (37, 5, 100), (50, 9, 256),
+                                   (3, 1, 300), (512, 32, 256)])
+def test_bilstm_bwd_kernel_matches_plain(cuda, t, b, h):
+    args, dh = _bilstm_case(cuda, t, b, h, seed=h + t)
+    res = bilstm(*args)
+    before = bilstm_bwd.launches
+    got = bilstm_bwd(*args, *res, *dh)
+    assert bilstm_bwd.launches == before + 1
+    want = bilstm_bwd_plain(*args, *res, *dh)
+    torch.cuda.synchronize()
+    for name, g_, w_ in zip(("dxp_f", "dxp_b"), got, want):
+        torch.testing.assert_close(g_, w_, **BWD_TOL, msg=name)
+
+
+@pytest.mark.parametrize("t,b,h", [(12, 4, 8), (40, 6, 256)])
+def test_bilstm_function_matches_autograd_on_card(cuda, t, b, h):
+    """Gradients of xp and wh through BiLSTMFunction (both kernels)
+    against autograd through the plain loop, on the card."""
+    args, dh = _bilstm_case(cuda, t, b, h, seed=7)
+    grads = []
+    for fn in (BiLSTMFunction.apply,
+               lambda *a: bilstm_plain(*a)[0::2]):
+        leaves = [a.clone().requires_grad_() for a in
+                  (args[0], args[1], args[3], args[4])]
+        h_f, h_b = fn(leaves[0], leaves[1], args[2], leaves[2], leaves[3])
+        torch.autograd.backward((h_f, h_b), dh)
+        grads.append([leaf.grad for leaf in leaves])
+    for name, g_, w_ in zip(("dxp_f", "dxp_b", "dwh_f", "dwh_b"), *grads):
+        torch.testing.assert_close(g_, w_, **BWD_TOL, msg=name)
+
+
+def _lattice(cuda, b, t, l_max, seed):
+    g = torch.Generator().manual_seed(seed)
+    logits = torch.randn(b, t, 28, generator=g)
+    lengths = torch.randint(t // 2, t + 1, (b,), generator=g)
+    labels = torch.randint(0, 27, (b, l_max), generator=g)
+    lab_lens = torch.randint(0, l_max + 1, (b,), generator=g)
+    lab_lens[0] = l_max
+    with torch.no_grad():
+        return [x.to(cuda) for x in ctc.lattice(logits, lengths, labels,
+                                                lab_lens)]
+
+
+@pytest.mark.parametrize("b,t,l_max", [(4, 14, 4), (3, 40, 30),
+                                       (32, 512, 48)])
+def test_ctc_kernels_match_plain(cuda, b, t, l_max):
+    """alpha and gamma: floor entries equal, the rest within CTC_TOL; and
+    the posterior gradient built from them.  (3, 40, 30) has infeasible
+    rows; label length 0 occurs."""
+    lp_ext, valid, skip, end, ll = _lattice(cuda, b, t, l_max, seed=t)
+    skip2 = ctc.skip_from_source(skip)
+    end_ind = ctc.end_indicator(end, ll, lp_ext.shape[2])
+    a0, b0 = ctc.ctc_alpha.launches, ctc.ctc_beta.launches
+    alpha = ctc.ctc_alpha(lp_ext, valid, skip)
+    gamma = ctc.ctc_beta(lp_ext, valid, alpha, skip2, end_ind)
+    assert (ctc.ctc_alpha.launches, ctc.ctc_beta.launches) == (a0 + 1,
+                                                               b0 + 1)
+    alpha_p = ctc.ctc_alpha_plain(lp_ext, valid, skip)
+    gamma_p = ctc.ctc_beta_plain(lp_ext, valid, alpha_p, skip2, end_ind)
+    for got, want in ((alpha, alpha_p), (gamma, gamma_p)):
+        floor = want <= -5e29
+        assert torch.equal(got <= -5e29, floor)
+        torch.testing.assert_close(got[~floor], want[~floor], **CTC_TOL)
+    ones = torch.ones(b, device=cuda)
+    dlp = ctc.posterior_grad(gamma, ctc.final_logp(alpha[-1], end, ll), ones)
+    dlp_p = ctc.posterior_grad(gamma_p, ctc.final_logp(alpha_p[-1], end, ll),
+                               ones)
+    torch.testing.assert_close(dlp, dlp_p, rtol=0, atol=1e-5)
+
+
+def test_train_step_on_card_matches_cpu(cuda):
+    """One train step of a 2x24 deep_blstm: both BLSTM kernels and both
+    CTC kernels on the card against the plain path on the CPU."""
+    g = torch.Generator().manual_seed(0)
+    batch = [torch.randn(4, 30, 39, generator=g),
+             torch.tensor([30, 22, 17, 9]),
+             torch.randint(0, 27, (4, 6), generator=g),
+             torch.tensor([6, 4, 5, 0]),
+             torch.tensor([1.0, 1.0, 0.0, 1.0])]
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        model = deep_blstm("num_hiddens=24,num_layers=2,dropout=0.0",
+                           generator=torch.Generator().manual_seed(1),
+                           device=dev)
+        trainer = Trainer(model, make_optimizer("adam", 1e-3, 1.0))
+        counts = (bilstm.launches, bilstm_bwd.launches,
+                  ctc.ctc_alpha.launches, ctc.ctc_beta.launches)
+        _, m = trainer.train_step(trainer.init_state(),
+                                  *[a.to(dev) for a in batch])
+        launched = tuple(c1 - c0 for c0, c1 in zip(counts, (
+            bilstm.launches, bilstm_bwd.launches, ctc.ctc_alpha.launches,
+            ctc.ctc_beta.launches)))
+        assert launched == ((2, 2, 1, 1) if dev.type == "cuda"
+                            else (0, 0, 0, 0))
+        out.append((float(m["loss"]), float(m["grad_norm"]),
+                    {k: p.grad.cpu() for k, p in model.named_parameters()}))
+    (loss_k, gn_k, g_k), (loss_p, gn_p, g_p) = out
+    # chip_smoke.py's step bounds
+    assert loss_k == pytest.approx(loss_p, rel=1e-4)
+    assert gn_k == pytest.approx(gn_p, rel=1e-3)
+    for k in g_p:
+        assert float((g_k[k] - g_p[k]).norm()) <= 1e-3 * float(
+            g_p[k].norm()), k
+
+
+def test_dropout_train_step_on_card_is_seeded(cuda):
+    """Dropout on the card draws from a CUDA torch.Generator: the same seed
+    gives the same step, another seed another one."""
+    g = torch.Generator().manual_seed(2)
+    batch = [torch.randn(3, 20, 39, generator=g).to(cuda),
+             torch.tensor([20, 15, 11], device=cuda),
+             torch.randint(0, 27, (3, 4), generator=g).to(cuda),
+             torch.tensor([4, 3, 2], device=cuda),
+             torch.ones(3, device=cuda)]
+    losses = []
+    for seed in (5, 5, 6):
+        model = deep_blstm("num_hiddens=16,num_layers=2,dropout=0.5",
+                           generator=torch.Generator().manual_seed(0),
+                           device=cuda)
+        trainer = Trainer(model, make_optimizer("adam", 1e-3, 400.0))
+        _, m = trainer.train_step(
+            trainer.init_state(), *batch,
+            torch.Generator(device=cuda).manual_seed(seed))
+        losses.append(float(m["loss"]))
+    assert np.isfinite(losses).all()
+    assert losses[0] == losses[1] != losses[2]

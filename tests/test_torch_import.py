@@ -16,9 +16,10 @@ names = [m.name for m in pkgutil.walk_packages(asr_study_torch.__path__,
                                                "asr_study_torch.")]
 for name in names:
     importlib.import_module(name)
-assert "asr_study_torch.cli.predict" in names, names
-assert "asr_study_torch.features.fbank" in names, names
-assert "asr_study_torch.ops.bilstm" in names, names
+for want in ("cli.predict", "features.fbank", "ops.bilstm", "ops.ctc",
+             "ops.metrics", "data.generator", "train.trainer", "train.loop",
+             "train.checkpoint"):
+    assert "asr_study_torch." + want in names, (want, names)
 from asr_study_torch import _build
 assert _build.lib.cache_info().currsize == 0, "a kernel was built at import"
 bad = sorted(m for m in set(sys.modules) - before
