@@ -54,6 +54,12 @@ SIGNATURES = {
     # dh_f, dh_b, dxp_f, dxp_b, T, B, H, stream
     "asr_bilstm_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                        _P, _P, _P, _P, _I, _I, _I, _P],
+    # xp_f, xp_b, mask, wh_f, wh_b, h_f, h_b, T, B, H, ndir, stream
+    "asr_gru_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # xp_f, xp_b, mask, wh_f, wh_b, wht_f, wht_b, h_f, h_b, dh_f, dh_b,
+    # dxp_f, dhp_f, dxp_b, dhp_b, T, B, H, ndir, stream
+    "asr_gru_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                    _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # lp_ext, valid, skip, alpha_seq, T, B, S, stream
     "asr_ctc_alpha": [_P, _P, _P, _P, _I, _I, _I, _P],
     # lp_ext, valid, alpha_seq, skip2, end_ind, gamma, T, B, S, stream

@@ -25,14 +25,14 @@ import numpy as np
 import torch
 
 from asr_study_torch.data import wire
+from asr_study_torch.features import audio
 from asr_study_torch.features.device import DeviceFeaturizer
 from asr_study_torch.features.select import featurizer
+from asr_study_torch.features.wav import read_wav
 from asr_study_torch.models.zoo import AcousticModel, build_model
 from asr_study_torch.ops.ctc import greedy_decode
+from asr_study_torch.text.parser import CharParser
 from asr_study_torch.utils.weights import load_npz, params_from_flat
-from asr_study_tpu.features import audio
-from asr_study_tpu.features.wav import read_wav
-from asr_study_tpu.text.parser import CharParser
 
 # host (NumPy oracle) feature classes by --input_parser name
 ORACLE_FEATURES = {"mfcc": audio.MFCC, "logfbank": audio.LogFbank,

@@ -4,13 +4,13 @@
 This is the plain PyTorch version of the chain.  The DFT is a matmul
 against fixed cos/sin tables, framing is an index gather, and deltas use
 per-utterance edge replication so that a padded batch matches the NumPy
-oracle (``asr_study_tpu/features/audio.py``) row for row.  The spectral
-core (:func:`spectral_plain`) is the plain version of the fbank kernel in
+oracle (``features/audio.py``) row for row.  The spectral core
+(:func:`spectral_plain`) is the plain version of the fbank kernel in
 ``features/fbank.py``; the parts around it (``_prep``, ``_delta_device``,
 ``_finalize``) are shared by both featurizers.
 
-Operator tables come from the shared ``audio`` module and are built in
-float64 on the host, then cast to float32 on ``device``.
+Operator tables come from the oracle module ``features/audio.py`` and are
+built in float64 on the host, then cast to float32 on ``device``.
 """
 
 from __future__ import annotations
@@ -21,7 +21,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from asr_study_tpu.features import audio
+from asr_study_torch.features import audio
 
 F32_EPS = float(np.finfo(np.float32).eps)
 

@@ -16,7 +16,7 @@ from torch import nn
 
 from asr_study_torch.models.nn import dense_apply, dense_init
 from asr_study_torch.models.rnn import StackedRNN
-from asr_study_tpu.utils.hparams import HParams
+from asr_study_torch.utils.hparams import HParams
 
 
 class AcousticModel(nn.Module):
@@ -109,10 +109,23 @@ def deep_blstm(params=None, num_classes: int = 27, input_dim: int = 39,
         generator, device)
 
 
-MODELS = {"graves2006": graves2006, "deep_blstm": deep_blstm}
+def deep_gru(params=None, num_classes: int = 27, input_dim: int = 39,
+             generator: Optional[torch.Generator] = None,
+             device: torch.device | str | None = None) -> AcousticModel:
+    """Deep (B)GRU stack (the reference's GRU configs);
+    ``bidirectional=false`` gives the forward-only model."""
+    hp = _hp(params, num_hiddens=256, num_layers=3, bidirectional=True,
+             dropout=0.2)
+    return AcousticModel(
+        num_classes, _stacked(hp, input_dim, "gru", generator, device),
+        generator, device)
+
+
+MODELS = {"graves2006": graves2006, "deep_blstm": deep_blstm,
+          "deep_gru": deep_gru}
 
 # constructors of the JAX zoo that the port does not have yet
-_NOT_PORTED = ("deep_gru", "ln_blstm", "zoneout_blstm", "mi_blstm",
+_NOT_PORTED = ("ln_blstm", "zoneout_blstm", "mi_blstm",
                "highway_blstm", "residual_blstm", "deep_speech")
 
 

@@ -19,7 +19,7 @@ import torch
 
 from asr_study_torch.train.checkpoint import CheckpointManager
 from asr_study_torch.train.trainer import Trainer, TrainState, device_batch
-from asr_study_tpu.utils.metrics_writer import MetricWriter
+from asr_study_torch.utils.metrics_writer import MetricWriter
 
 
 def step_generator(device: torch.device, seed: int,

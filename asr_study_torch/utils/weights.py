@@ -5,8 +5,10 @@ it into one ``.npz`` keyed by tree path (``rnn/layers/0/rnn/fw/wx``,
 ``rnn/layers/0/rnn/fw/wh``, ``rnn/layers/0/rnn/fw/b``, ``out/w``,
 ``out/b``) with a JSON ``__meta__`` entry.  The port's modules are laid out
 so that their ``state_dict`` keys are those paths with ``/`` read as ``.``,
-and the tensors keep JAX's layouts: ``wx`` [F, 4H], ``wh`` [H, 4H], gate
-order i, f, g, o, the forget bias folded into ``b``, ``out/w`` [2H, V+1].
+and the tensors keep JAX's layouts: ``wx`` [F, G*H], ``wh`` [H, G*H] and
+``b`` [G*H] with G gate blocks (LSTM: 4, gate order i, f, g, o, the forget
+bias 1 in ``b``; GRU: 3, gate order r, z, n), and ``out/w`` [D*H, V+1] for
+D directions (a unidirectional layer has ``fw`` only).
 """
 
 from __future__ import annotations

@@ -4,35 +4,43 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from ``asr_study_torch/csrc`` and drives the port's
-two paths at full width, with random weights from a seeded
+paths at full width, with random weights from a seeded
 ``torch.Generator``:
 
 - serving (BASELINE config 2): pcm16 wire -> MFCC+deltas -> deep_blstm
   2x256 -> greedy CTC, B=32 LapsBM-like utterances of 3-8 s at 16 kHz, 8
   batches, through ``cli.predict.serve_batch``;
+- serving ``deep_gru`` at its full default size (3x256, bidirectional),
+  the same 8 batches through the same function;
 - training (BASELINE config 3): features [32, 512, 39] -> deep_blstm 3x256
   (dropout 0) -> CTC -> backward -> clip by global norm -> Adam
   (``make_optimizer("adam", 1e-4, 400.0)``), through ``Trainer.train_step``
-  and ``fit``, as ``benchmarks/bench_train.py`` drives the JAX trainer.
+  and ``fit``, as ``benchmarks/bench_train.py`` drives the JAX trainer;
+- training ``deep_gru`` 3x256 at the same shapes, bidirectional and
+  unidirectional (``bidirectional=false``), through ``Trainer.train_step``.
 
 Phases, in order; any failure raises and the exit code is not 0:
 
 1. toolchain: torch and its CUDA, nvcc, triton, the card and power limit;
 2. build: nvcc time and each kernel's registers / shared memory / spills;
 3. each kernel against its plain PyTorch version on the card, at its path's
-   shapes, within the stated tolerance;
-4. the serving slice, with launch counters proving both of its kernels ran,
+   shapes, within the stated tolerance, with its time, its plain version's
+   time, its bound and the time of the PyTorch library call that computes
+   the same function (cuDNN ``nn.LSTM`` / ``nn.GRU``, ``F.ctc_loss``);
+4. the serving slices, with launch counters proving their kernels ran,
    logits held against the plain path on the CPU;
 5. serving timings from CUDA events after a warm-up;
-6. the training slice: launch counters per step, one card step held
+6. the training slices: launch counters per step, one card step held
    against the same step of the plain path on the CPU (loss, grad norm,
-   every gradient), the loss falling over 20 steps on one batch, and
-   ``fit`` over a few batches with a checkpoint saved, restored and
-   continued;
-7. training timings: ms per step, steps/s, audio-s/s, per-stage ms, each
-   new kernel against its plain version, the device busy share.
+   every gradient), the loss falling over 20 steps on one batch, and (for
+   deep_blstm) ``fit`` over a few batches with a checkpoint saved,
+   restored and continued;
+7. training timings: ms per step, steps/s, audio-s/s, per-stage ms, the
+   device busy share.
 
-The line before the last is the kernels' JSON record; the last line is
+Each path is driven with every launch counter set to 0 just before it and
+read just after; the kernels line sums those counts.  The line before the
+last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA the script exits 1.
 """
 
@@ -96,6 +104,19 @@ DLP_TOL = 1e-5
 STEP_LOSS_RTOL = 1e-4
 STEP_GNORM_RTOL = 1e-3
 STEP_GRAD_RTOL = 1e-3
+
+# - bigru_fwd / gru_fwd: h elementwise, |kernel - plain| <= ATOL + RTOL *
+#   |plain|.  A GRU's h is a convex mix of tanh values, so |h| <= 1 and the
+#   absolute term carries the check: 805 serial steps of fp32 sums in
+#   another order than cuBLAS's.  The GRU backward kernels are held to the
+#   bilstm_bwd bounds (BWD_*, DWH_RTOL), for the same reasons.
+GRU_ATOL = 1e-4
+GRU_RTOL = 1e-5
+
+# H100 SXM peaks (NVIDIA's data sheet, at a 700 W power limit): fp32
+# outside the tensor cores, and HBM3 bandwidth
+PEAK_FP32 = 67e12
+PEAK_HBM = 3.35e12
 
 # config 3 (benchmarks/bench_train.py defaults)
 TRAIN_B, TRAIN_T, TRAIN_L, TRAIN_LAYERS, FEATS = 32, 512, 48, 3, 39
@@ -162,6 +183,128 @@ def ctc_compare(got: torch.Tensor, want: torch.Tensor
             err)
 
 
+def bound(ops: float, nbytes: float) -> tuple[float, str]:
+    """The least time the card could take: the larger of ``ops`` fp32
+    operations at PEAK_FP32 and ``nbytes`` moved at PEAK_HBM -> (ms, which
+    of the two limits it)."""
+    t_ops, t_bytes = ops / PEAK_FP32, nbytes / PEAK_HBM
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def tensor_bytes(*ts: torch.Tensor) -> float:
+    return float(sum(t.numel() * t.element_size() for t in ts))
+
+
+def rnn_bound(xp: torch.Tensor, hidden: int, ndir: int, passes: int,
+              moved: tuple) -> tuple[float, str]:
+    """Bound of a recurrent kernel: ``passes`` [B, H] x [H, G] products a
+    step and direction (1 forward; 2 backward: the recomputed h-side
+    pre-activations and the cotangent through wh^T) over every frame of
+    xp [T, B, G]; the gate maths is left out, so it stays a lower bound.
+    ``moved``: the function's inputs and outputs, each counted once."""
+    t, b, g = xp.shape
+    return bound(passes * 2.0 * t * b * hidden * g * ndir,
+                 tensor_bytes(*moved))
+
+
+def ctc_yardsticks(logits: torch.Tensor, lengths: torch.Tensor,
+                   labels: torch.Tensor, lab_lens: torch.Tensor,
+                   reps: int = 20) -> dict:
+    """The library call for the CTC loss: ``F.ctc_loss`` (summed over the
+    batch, on log-softmaxed logits) forward alone and forward + backward,
+    beside the port's ``ops.ctc.ctc_loss`` (lattice, then CTCNLL: ctc_alpha
+    forward, ctc_beta backward) timed the same way -> ms of each, the
+    library's backward alone as the difference, and the relative
+    difference of the two losses."""
+    from asr_study_torch.ops import ctc
+
+    blank = logits.shape[2] - 1
+    lg = logits.detach().clone().requires_grad_()
+
+    def lib(x):
+        return torch.nn.functional.ctc_loss(
+            torch.log_softmax(x, -1).transpose(0, 1), labels, lengths,
+            lab_lens, blank=blank, reduction="sum")
+
+    def port(x):
+        return ctc.ctc_loss(x, lengths, labels, lab_lens,
+                            blank_id=blank).sum()
+
+    with torch.no_grad():
+        want, got = lib(logits), port(logits)
+        lib_fwd = cuda_ms(lambda: lib(logits), reps)
+        port_fwd = cuda_ms(lambda: port(logits), reps)
+    lib_fwd_grad = cuda_ms(lambda: lib(lg), reps)
+    lib_fb = cuda_ms(lambda: torch.autograd.grad(lib(lg), lg), reps)
+    port_fb = cuda_ms(lambda: torch.autograd.grad(port(lg), lg), reps)
+    return {"lib_fwd": lib_fwd, "lib_bwd": lib_fb - lib_fwd_grad,
+            "lib_fwd_bwd": lib_fb, "port_fwd": port_fwd,
+            "port_fwd_bwd": port_fb,
+            "loss_rel": float((got - want).abs() / want.abs())}
+
+
+def rnn_yardsticks(kind: str, layer, x: torch.Tensor, lengths: torch.Tensor,
+                   mask: torch.Tensor, reps: int = 5) -> dict:
+    """The library call for a recurrent layer: cuDNN ``nn.LSTM`` /
+    ``nn.GRU`` loaded with ``layer``'s weights (``bias_hh`` zero: the port
+    folds every bias into ``x @ wx + b``, and nn.GRU would put b_hn inside
+    r * (...)) on the packed x [T, B, F], forward alone and forward +
+    backward (dx and every weight), beside the port's whole layer timed the
+    same way.  Both include the input projection, which the port leaves to
+    cuBLAS around its kernels.  -> ms of each, the library's backward alone
+    as the difference, and the max abs difference of the two layers'
+    outputs."""
+    cells = [layer.fw] + ([layer.bw] if layer.bidirectional else [])
+    ref = (torch.nn.LSTM if kind == "lstm" else torch.nn.GRU)(
+        x.shape[2], layer.hidden, bidirectional=len(cells) == 2).to(x.device)
+    with torch.no_grad():
+        for sfx, cell in zip(("", "_reverse"), cells):
+            getattr(ref, "weight_ih_l0" + sfx).copy_(cell.wx.t())
+            getattr(ref, "weight_hh_l0" + sfx).copy_(cell.wh.t())
+            getattr(ref, "bias_ih_l0" + sfx).copy_(cell.b)
+            getattr(ref, "bias_hh_l0" + sfx).zero_()
+    lens_cpu = lengths.cpu()
+    x = x.detach().clone()
+    x_req = x.clone().requires_grad_()
+
+    def lib(inp):
+        return ref(torch.nn.utils.rnn.pack_padded_sequence(
+            inp, lens_cpu, enforce_sorted=False))[0]
+
+    ref.eval()
+    with torch.no_grad():
+        out = torch.nn.utils.rnn.pad_packed_sequence(
+            lib(x), total_length=x.shape[0])[0]
+        mine = layer(x, mask)
+        err = float((out - mine).abs().max())
+        lib_fwd = cuda_ms(lambda: lib(x), reps)
+        port_fwd = cuda_ms(lambda: layer(x, mask), reps)
+    ref.train()
+    g_lib = torch.randn_like(out.new_empty(int(lens_cpu.sum()),
+                                           out.shape[2]))
+    g_port = torch.randn_like(mine)
+    lib_leaves = [x_req, *ref.parameters()]
+    port_leaves = [x_req, *layer.parameters()]
+    lib_fwd_grad = cuda_ms(lambda: lib(x_req), reps)
+    lib_fb = cuda_ms(lambda: torch.autograd.grad(lib(x_req).data,
+                                                 lib_leaves, g_lib), reps)
+    port_fb = cuda_ms(lambda: torch.autograd.grad(layer(x_req, mask),
+                                                  port_leaves, g_port), reps)
+    return {"lib_fwd": lib_fwd, "lib_bwd": lib_fb - lib_fwd_grad,
+            "lib_fwd_bwd": lib_fb, "port_fwd": port_fwd,
+            "port_fwd_bwd": port_fb, "out_err": err}
+
+
+def print_yardsticks(card: str, what: str, y: dict) -> None:
+    print(f"[{card}] library yardstick, {what}: forward {y['lib_fwd']:.4f} "
+          f"ms, forward + backward {y['lib_fwd_bwd']:.4f} ms (backward "
+          f"alone {y['lib_bwd']:.4f} ms); the port's layer (x@wx cuBLAS + "
+          f"kernel) forward {y['port_fwd']:.4f} ms, forward + backward "
+          f"{y['port_fwd_bwd']:.4f} ms; outputs differ by at most "
+          f"{y['out_err']:.3e}")
+
+
 def device_busy(prof) -> tuple[float, float, float] | None:
     """(busy share, device-busy ms, window ms) of a torch.profiler run: the
     union of the device's kernel and copy intervals over the span of all
@@ -198,7 +341,7 @@ def check_training_kernels(dev: torch.device, card: str) -> dict:
     t, b, h = TRAIN_T, TRAIN_B, HIDDEN
     layer = deep_blstm(f"num_hiddens={h},num_layers=1", input_dim=FEATS,
                        generator=g, device=dev).rnn.layers[0].rnn
-    lengths = torch.randint(256, t + 1, (b,), generator=g)
+    lengths = torch.randint(t // 2, t + 1, (b,), generator=g)
     lengths[0] = t
     x = torch.randn(t, b, FEATS, generator=g).to(dev)
     mask = (torch.arange(t)[:, None] < lengths[None, :]).float()[..., None]
@@ -270,6 +413,30 @@ def check_training_kernels(dev: torch.device, card: str) -> dict:
     require(gamma_floor and gamma_ok, "ctc_beta kernel disagrees with plain")
     require(dlp_err <= DLP_TOL, "ctc dlp disagrees with plain")
 
+    bounds = {
+        "bilstm_bwd": rnn_bound(xp_f, h, 2, 2, (*bwd_args, *d_k)),
+        # a logadd3 (3 exp, a log, about 8 adds and compares) per entry
+        "ctc_alpha": bound(12.0 * a_k.numel(), tensor_bytes(
+            lp_ext, valid, skip, a_k)),
+        "ctc_beta": bound(12.0 * g_k.numel(), tensor_bytes(
+            lp_ext, valid, a_k, skip2, end_ind, g_k)),
+    }
+    lstm_y = rnn_yardsticks("lstm", layer, x, lengths.to(dev), mask)
+    print_yardsticks(card, f"cuDNN nn.LSTM bidirectional, T={t} B={b} "
+                     f"H={h}", lstm_y)
+    ctc_y = ctc_yardsticks(logits, lengths.to(dev), labels.to(dev),
+                           lab_lens.to(dev))
+    print(f"[{card}] library yardstick, F.ctc_loss at T={t} B={b} "
+          f"L={TRAIN_L}: forward {ctc_y['lib_fwd']:.4f} ms, forward + "
+          f"backward {ctc_y['lib_fwd_bwd']:.4f} ms (backward alone "
+          f"{ctc_y['lib_bwd']:.4f} ms); the port's ctc_loss forward "
+          f"{ctc_y['port_fwd']:.4f} ms, forward + backward "
+          f"{ctc_y['port_fwd_bwd']:.4f} ms; losses differ by "
+          f"{ctc_y['loss_rel']:.3e} relative")
+    require(ctc_y["loss_rel"] <= 1e-4, "ctc_loss disagrees with F.ctc_loss")
+    library = {"bilstm_bwd": lstm_y["lib_bwd"],
+               "ctc_alpha": ctc_y["lib_fwd"], "ctc_beta": ctc_y["lib_bwd"]}
+
     with torch.no_grad():
         times = {
             "bilstm_fwd": (cuda_ms(lambda: bilstm(*fwd_args), 10),
@@ -291,40 +458,219 @@ def check_training_kernels(dev: torch.device, card: str) -> dict:
               f"{p_ms:.4f} ms")
     return {"errs": {"bilstm_bwd": max(bwd_errs), "ctc_alpha": alpha_err,
                      "ctc_beta": gamma_err},
-            "times": times}
+            "times": times, "bounds": bounds, "library": library}
 
 
-def training_slice(dev: torch.device, card: str) -> dict:
-    """Phases 6 and 7: the config-3 training path through Trainer and fit."""
-    from asr_study_torch.data.generator import DatasetGenerator
-    from asr_study_torch.models.zoo import deep_blstm
+def check_gru_kernels(dev: torch.device, card: str, x_serve: torch.Tensor,
+                      len_serve: torch.Tensor) -> dict:
+    """Phase 3 for the GRU kernels: bigru_fwd at the serving shapes (the
+    check batch's features [T=805, B=32, 39] through layer 0 of a 3x256
+    deep_gru, ragged lengths), and bigru_bwd, gru_fwd and gru_bwd at the
+    config-3 shapes (T=512, B=32, H=256, lengths 256-512); each against its
+    plain version, dwh through BiGRUFunction / GRUFunction against autograd
+    through the plain loops, timed, with its bound and its library call."""
+    from asr_study_torch.models.zoo import deep_gru
+    from asr_study_torch.ops.gru import (BiGRUFunction, GRUFunction, bigru,
+                                         bigru_bwd, bigru_bwd_plain,
+                                         bigru_plain, gru, gru_bwd,
+                                         gru_bwd_plain, gru_plain)
+
+    g = torch.Generator().manual_seed(SEED + 3)
+    h = HIDDEN
+
+    def layer0(bidirectional: bool):
+        return deep_gru(f"num_hiddens={h},num_layers=1,bidirectional="
+                        f"{str(bidirectional).lower()}", input_dim=FEATS,
+                        generator=g, device=dev).rnn.layers[0].rnn
+
+    def mask_of(lengths, t):
+        return (torch.arange(t)[:, None] < lengths.cpu()[None, :]).float()[
+            ..., None].to(dev).contiguous()
+
+    def proj(cell, x):
+        with torch.no_grad():
+            return (cell.input_proj(x) + cell.b).contiguous()
+
+    def dwh_err(fn, plain_fn, xps, mask, whs, dhs):
+        """max |dwh kernel - dwh autograd(plain)| / max |dwh|"""
+        w_k = [w.clone().requires_grad_() for w in whs]
+        w_p = [w.clone().requires_grad_() for w in whs]
+        torch.autograd.backward(fn(*xps, mask, *w_k), dhs)
+        torch.autograd.backward(plain_fn(*xps, mask, *w_p), dhs)
+        return max(float((a.grad - p.grad).abs().max()
+                         / p.grad.abs().max()) for a, p in zip(w_k, w_p))
+
+    def max_err(got, want):
+        return max(float((k - p).abs().max()) for k, p in zip(got, want))
+
+    errs, times, bounds, library = {}, {}, {}, {}
+
+    # bigru_fwd at the serving shapes
+    bi = layer0(True)
+    t_s = x_serve.shape[0]
+    mask_s = mask_of(len_serve, t_s)
+    fwd_s = (proj(bi.fw, x_serve), proj(bi.bw, x_serve), mask_s,
+             bi.fw.wh.detach(), bi.bw.wh.detach())
+    with torch.no_grad():
+        got, want = bigru(*fwd_s), bigru_plain(*fwd_s)
+        times["bigru_fwd"] = (cuda_ms(lambda: bigru(*fwd_s), 10),
+                              cuda_ms(lambda: bigru_plain(*fwd_s), 2, 1))
+    errs["bigru_fwd"] = max_err(got, want)
+    bounds["bigru_fwd"] = rnn_bound(fwd_s[0], h, 2, 1, (*fwd_s, *got))
+    print(f"bigru_fwd kernel vs plain: T={t_s} B={BATCH} H={h} lengths "
+          f"{int(len_serve.min())}..{int(len_serve.max())} "
+          f"max_abs_err={errs['bigru_fwd']:.3e} (tol {GRU_ATOL:g} + "
+          f"{GRU_RTOL:g}*|plain|)")
+    require(all(within(k, p, GRU_ATOL, GRU_RTOL) for k, p in zip(got, want)),
+            "bigru_fwd kernel disagrees with plain")
+    y = rnn_yardsticks("gru", bi, x_serve, len_serve, mask_s)
+    print_yardsticks(card, f"cuDNN nn.GRU bidirectional, T={t_s} B={BATCH} "
+                     f"H={h}", y)
+    require(y["out_err"] <= LOGITS_TOL, "layer disagrees with nn.GRU")
+    library["bigru_fwd"] = y["lib_fwd"]
+
+    # the training shapes: both directions, then one
+    t, b = TRAIN_T, TRAIN_B
+    lengths = torch.randint(t // 2, t + 1, (b,), generator=g)
+    lengths[0] = t
+    x = torch.randn(t, b, FEATS, generator=g).to(dev)
+    mask = mask_of(lengths, t)
+    dh = [torch.randn(t, b, h, generator=g).to(dev) for _ in range(2)]
+    uni = layer0(False)
+    cases = {
+        # name: (layer, xps, whs, forward, its plain, backward, its plain,
+        #        differentiable op, plain op)
+        "bigru": (bi, [proj(bi.fw, x), proj(bi.bw, x)],
+                  [bi.fw.wh.detach(), bi.bw.wh.detach()], bigru, bigru_plain,
+                  bigru_bwd, bigru_bwd_plain, BiGRUFunction.apply,
+                  bigru_plain),
+        "gru": (uni, [proj(uni.fw, x)], [uni.fw.wh.detach()], gru, gru_plain,
+                gru_bwd, gru_bwd_plain, GRUFunction.apply, gru_plain),
+    }
+    for name, (layer, xps, whs, fwd, fwd_plain, bwd, bwd_plain, fn,
+               plain_fn) in cases.items():
+        n = len(xps)
+        fwd_args = (*xps, mask, *whs)
+        with torch.no_grad():
+            hs = fwd(*fwd_args)
+            hs = hs if n == 2 else (hs,)
+            hs_p = fwd_plain(*fwd_args)
+            hs_p = hs_p if n == 2 else (hs_p,)
+            bwd_args = (*xps, mask, *whs, *hs, *dh[:n])
+            d_k, d_p = bwd(*bwd_args), bwd_plain(*bwd_args)
+            times[f"{name}_bwd"] = (cuda_ms(lambda: bwd(*bwd_args), 10),
+                                    cuda_ms(lambda: bwd_plain(*bwd_args), 2,
+                                            1))
+            if n == 1:
+                times["gru_fwd"] = (cuda_ms(lambda: fwd(*fwd_args), 10),
+                                    cuda_ms(lambda: fwd_plain(*fwd_args), 2,
+                                            1))
+        if n == 1:
+            errs["gru_fwd"] = max_err(hs, hs_p)
+            bounds["gru_fwd"] = rnn_bound(xps[0], h, 1, 1, (*fwd_args, *hs))
+            print(f"gru_fwd kernel vs plain: T={t} B={b} H={h} "
+                  f"max_abs_err={errs['gru_fwd']:.3e} (tol {GRU_ATOL:g} + "
+                  f"{GRU_RTOL:g}*|plain|)")
+            require(within(hs[0], hs_p[0], GRU_ATOL, GRU_RTOL),
+                    "gru_fwd kernel disagrees with plain")
+        errs[f"{name}_bwd"] = max_err(d_k, d_p)
+        bounds[f"{name}_bwd"] = rnn_bound(xps[0], h, n, 2, (*bwd_args, *d_k))
+        d_err = dwh_err(fn, plain_fn, xps, mask, whs, dh[:n])
+        print(f"{name}_bwd kernel vs plain: T={t} B={b} H={h} lengths "
+              f"{int(lengths.min())}..{t} max_abs_err over dxp and dhp "
+              f"{errs[f'{name}_bwd']:.3e} (max|dxp| "
+              f"{max(float(p.abs().max()) for p in d_p):.2f}; tol "
+              f"{BWD_ATOL:g} + {BWD_RTOL:g}*|plain|); dwh via "
+              f"{fn.__self__.__name__} vs autograd through {plain_fn.__name__}"
+              f": max err / max|dwh| = {d_err:.3e} (tol {DWH_RTOL:g})")
+        require(all(within(k, p, BWD_ATOL, BWD_RTOL)
+                    for k, p in zip(d_k, d_p)),
+                f"{name}_bwd kernel disagrees with plain")
+        require(d_err <= DWH_RTOL, f"{name} dwh disagrees with autograd")
+        y = rnn_yardsticks("gru", layer, x, lengths.to(dev), mask)
+        print_yardsticks(card, f"cuDNN nn.GRU {'bi' if n == 2 else 'uni'}"
+                         f"directional, T={t} B={b} H={h}", y)
+        require(y["out_err"] <= LOGITS_TOL, "layer disagrees with nn.GRU")
+        library[f"{name}_bwd"] = y["lib_bwd"]
+        if n == 1:
+            library["gru_fwd"] = y["lib_fwd"]
+    for name, (k_ms, p_ms) in times.items():
+        print(f"[{card}] {name}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+              f"bound {bounds[name][0]:.4f} ms ({bounds[name][1]}), library "
+              f"{library[name]:.4f} ms")
+    return {"errs": errs, "times": times, "bounds": bounds,
+            "library": library}
+
+
+# every kernel of the port: name -> (source in asr_study_torch/csrc, the TPU
+# kernel it replaces in asr_study_tpu)
+KERNELS = {
+    "fbank": ("fbank.cu", "features/pallas_fbank.py:107"),
+    "bilstm_fwd": ("bilstm_fwd.cu", "ops/pallas_bilstm.py:84"),
+    "bilstm_bwd": ("bilstm_bwd.cu", "ops/pallas_bilstm.py:125"),
+    "ctc_alpha": ("ctc.cu", "ops/pallas_ctc.py:76"),
+    "ctc_beta": ("ctc.cu", "ops/pallas_ctc.py:101"),
+    "bigru_fwd": ("gru_fwd.cu", "ops/pallas_bigru.py:69"),
+    "bigru_bwd": ("gru_bwd.cu", "ops/pallas_bigru.py:92"),
+    "gru_fwd": ("gru_fwd.cu", "ops/pallas_gru.py:41"),
+    "gru_bwd": ("gru_bwd.cu", "ops/pallas_gru.py:60"),
+}
+
+# training paths: label -> (zoo model, its hparams, forward and backward
+# kernel of its recurrence)
+TRAIN_PATHS = {
+    "deep_blstm": ("deep_blstm", "", "bilstm_fwd", "bilstm_bwd"),
+    "deep_gru": ("deep_gru", "", "bigru_fwd", "bigru_bwd"),
+    "deep_gru uni": ("deep_gru", ",bidirectional=false", "gru_fwd",
+                     "gru_bwd"),
+}
+
+
+def launch_counters() -> dict:
+    """Every kernel wrapper of the port, by kernel name."""
+    from asr_study_torch.features.fbank import fbank
     from asr_study_torch.ops import ctc
     from asr_study_torch.ops.bilstm import bilstm, bilstm_bwd
-    from asr_study_torch.train.checkpoint import CheckpointManager
-    from asr_study_torch.train.loop import fit
+    from asr_study_torch.ops.gru import bigru, bigru_bwd, gru, gru_bwd
+    return {"fbank": fbank, "bilstm_fwd": bilstm, "bilstm_bwd": bilstm_bwd,
+            "ctc_alpha": ctc.ctc_alpha, "ctc_beta": ctc.ctc_beta,
+            "bigru_fwd": bigru, "bigru_bwd": bigru_bwd, "gru_fwd": gru,
+            "gru_bwd": gru_bwd}
+
+
+def reset_counts() -> None:
+    for fn in launch_counters().values():
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    """The nonzero launch counts."""
+    return {k: fn.launches for k, fn in launch_counters().items()
+            if fn.launches}
+
+
+def training_slice(dev: torch.device, card: str, path: str = "deep_blstm",
+                   with_fit: bool = True) -> dict:
+    """Phases 6 and 7 for one of TRAIN_PATHS: the config-3 training shapes
+    through Trainer (and, ``with_fit``, fit with a checkpoint)."""
+    from asr_study_torch.models.zoo import build_model
     from asr_study_torch.train.trainer import Trainer, make_optimizer
 
-    kernels = {"bilstm_fwd": bilstm, "bilstm_bwd": bilstm_bwd,
-               "ctc_alpha": ctc.ctc_alpha, "ctc_beta": ctc.ctc_beta}
-
-    def reset():
-        for fn in kernels.values():
-            fn.launches = 0
-
-    def counts():
-        return {k: fn.launches for k, fn in kernels.items()}
+    model_name, extra_hp, fwd_name, bwd_name = TRAIN_PATHS[path]
 
     def per_steps(n, evals=0):
-        return {"bilstm_fwd": TRAIN_LAYERS * (n + evals),
-                "bilstm_bwd": TRAIN_LAYERS * n, "ctc_alpha": n + evals,
+        return {fwd_name: TRAIN_LAYERS * (n + evals),
+                bwd_name: TRAIN_LAYERS * n, "ctc_alpha": n + evals,
                 "ctc_beta": n}
 
-    hp = f"num_hiddens={HIDDEN},num_layers={TRAIN_LAYERS},dropout=0.0"
+    hp = (f"num_hiddens={HIDDEN},num_layers={TRAIN_LAYERS},dropout=0.0"
+          + extra_hp)
 
     def make(device, seed=SEED):
-        return deep_blstm(hp, num_classes=NUM_CLASSES, input_dim=FEATS,
-                          generator=torch.Generator().manual_seed(seed),
-                          device=device)
+        return build_model(model_name, hp, num_classes=NUM_CLASSES,
+                           input_dim=FEATS,
+                           generator=torch.Generator().manual_seed(seed),
+                           device=device)
 
     spec = make_optimizer("adam", 1e-4, 400.0)
     rng = np.random.RandomState(SEED)
@@ -341,7 +687,7 @@ def training_slice(dev: torch.device, card: str) -> dict:
     state = trainer.init_state()
 
     # the main path: TRAIN_STEPS steps on one batch, counted
-    reset()
+    reset_counts()
     state, m = trainer.train_step(state, *batch)
     losses = [m["loss"]]
     grads = {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
@@ -350,16 +696,16 @@ def training_slice(dev: torch.device, card: str) -> dict:
         state, m = trainer.train_step(state, *batch)
         losses.append(m["loss"])
     torch.cuda.synchronize()
-    launches = counts()
+    launches = read_counts()
     losses = torch.stack(losses).cpu()
-    print(f"train slice: deep_blstm {TRAIN_LAYERS}x{HIDDEN} B={TRAIN_B} "
+    print(f"train slice: {path} {TRAIN_LAYERS}x{HIDDEN} B={TRAIN_B} "
           f"T={TRAIN_T} L={TRAIN_L}, adam 1e-4 clip 400; launches over "
           f"{TRAIN_STEPS} steps {launches}, per step "
           f"{ {k: v / TRAIN_STEPS for k, v in launches.items()} }")
     require(launches == per_steps(TRAIN_STEPS),
             f"train launches {launches}, want {per_steps(TRAIN_STEPS)}")
     require(bool(torch.isfinite(losses).all()), "non-finite train loss")
-    print(f"train loss over {TRAIN_STEPS} steps on one batch: "
+    print(f"{path} train loss over {TRAIN_STEPS} steps on one batch: "
           f"{float(losses[0]):.4f} -> {float(losses[-1]):.4f} "
           f"(every 5th step: "
           f"{[round(float(v), 4) for v in losses[::5]]})")
@@ -376,7 +722,8 @@ def training_slice(dev: torch.device, card: str) -> dict:
     grad_rel = {n: float((grads[n] - p.grad).norm() / p.grad.norm())
                 for n, p in model_cpu.named_parameters()}
     worst = max(grad_rel, key=grad_rel.get)
-    print(f"train step 1, kernel path on the card vs plain path on the CPU "
+    print(f"{path} train step 1, kernel path on the card vs plain path on "
+          f"the CPU "
           f"({cpu_s:.1f} s there): loss {loss_1:.4f} vs "
           f"{float(m_cpu['loss']):.4f}, rel {loss_rel:.3e} (tol "
           f"{STEP_LOSS_RTOL:g}); grad_norm {gnorm_1:.4f} vs "
@@ -389,7 +736,21 @@ def training_slice(dev: torch.device, card: str) -> dict:
     require(grad_rel[worst] <= STEP_GRAD_RTOL,
             "a gradient disagrees with CPU")
 
-    # fit over a DatasetIterator, checkpoint, restore, continue
+    if with_fit:
+        fit_and_resume(dev, make, spec, per_steps)
+    stats = train_timings(card, path, trainer, state, batch)
+    return {"launches": launches, **stats}
+
+
+def fit_and_resume(dev, make, spec, per_steps) -> None:
+    """fit over a DatasetIterator, checkpoint, restore, continue; ``make``
+    builds the model on a device from a seed, ``per_steps`` gives the
+    launches that n steps and their evals should count."""
+    from asr_study_torch.data.generator import DatasetGenerator
+    from asr_study_torch.train.checkpoint import CheckpointManager
+    from asr_study_torch.train.loop import fit
+    from asr_study_torch.train.trainer import Trainer
+
     frng = np.random.RandomState(SEED + 2)
     n_utt = 3 * TRAIN_B
     feats = [frng.randn(frng.randint(256, TRAIN_T + 1), FEATS)
@@ -403,7 +764,7 @@ def training_slice(dev: torch.device, card: str) -> dict:
     with tempfile.TemporaryDirectory() as tmp:
         run_dir = os.path.join(tmp, "run")
         fit_trainer = Trainer(make(dev), spec)
-        reset()
+        reset_counts()
         t0 = time.perf_counter()
         fit_state = fit(fit_trainer, fit_trainer.init_state(), train_iter,
                         valid_iter, epochs=1, seed=SEED,
@@ -411,7 +772,7 @@ def training_slice(dev: torch.device, card: str) -> dict:
                         log_dir=os.path.join(tmp, "logs"), log_every=1)
         torch.cuda.synchronize()
         fit_s = time.perf_counter() - t0
-        fit_launches = counts()
+        fit_launches = read_counts()
         require(fit_launches == per_steps(n_fit, evals=1),
                 f"fit launches {fit_launches}")
         # a fresh model and state, restored from the checkpoint
@@ -442,7 +803,12 @@ def training_slice(dev: torch.device, card: str) -> dict:
               f"{[round(h['val_ler'], 4) for h in hist]}, best step "
               f"{ckpt.best_step}")
 
-    # 7. timings -----------------------------------------------------------
+
+def train_timings(card: str, path: str, trainer, state, batch) -> dict:
+    """Phase 7: ms per step, per-stage CUDA events, the busy share."""
+    from asr_study_torch.ops import ctc
+
+    model = trainer.model
     step_ms = cuda_ms(lambda: trainer.train_step(state, *batch), 10)
     x, il, lab, ll, w = batch
 
@@ -465,16 +831,18 @@ def training_slice(dev: torch.device, card: str) -> dict:
     staged()
     runs = [staged() for _ in range(5)]
     torch.cuda.synchronize()
-    names = ("forward (3 BLSTM layers + classifier)",
+    names = (f"forward ({TRAIN_LAYERS} recurrent layers + classifier)",
              "CTC (lattice, alpha, beta, dlp, log-softmax grad)",
-             "backward (classifier + 3 BLSTM layers)", "clip + Adam")
+             f"backward (classifier + {TRAIN_LAYERS} recurrent layers)",
+             "clip + Adam")
     stages = {n: sum(r[i].elapsed_time(r[i + 1]) for r in runs) / len(runs)
               for i, n in enumerate(names)}
-    print(f"[{card}] train step (config 3: {TRAIN_LAYERS}x{HIDDEN}, "
+    print(f"[{card}] {path} train step ({TRAIN_LAYERS}x{HIDDEN}, "
           f"B={TRAIN_B}, T={TRAIN_T}, L={TRAIN_L}): {step_ms:.4f} ms/step, "
           f"{1e3 / step_ms:.3f} steps/s, "
           f"{AUDIO_PER_STEP / (step_ms / 1e3):.1f} audio-s/s")
-    print(f"[{card}] train step stages, CUDA events, mean of {len(runs)}: "
+    print(f"[{card}] {path} train step stages, CUDA events, mean of "
+          f"{len(runs)}: "
           + "; ".join(f"{n} {v:.4f} ms" for n, v in stages.items())
           + f"; sum {sum(stages.values()):.4f} ms")
 
@@ -486,18 +854,17 @@ def training_slice(dev: torch.device, card: str) -> dict:
         torch.cuda.synchronize()
     busy = device_busy(prof)
     if busy is None:
-        print(f"[{card}] train device busy share: not measured (the "
+        print(f"[{card}] {path} train device busy share: not measured (the "
               "profiler recorded no device activity)")
     else:
-        print(f"[{card}] train device busy share over 5 steps: "
+        print(f"[{card}] {path} train device busy share over 5 steps: "
               f"{busy[0]:.4f} ({busy[1]:.2f} ms busy of {busy[2]:.2f} ms)")
         tops = sorted(prof.key_averages(), key=lambda a: -getattr(
             a, "self_device_time_total", 0.0))[:8]
         print("  top device time: " + "; ".join(
             f"{a.key[:60]} {getattr(a, 'self_device_time_total', 0.0) / 1e3:.2f}"
             f" ms x{a.count}" for a in tops))
-    return {"launches": launches, "step_ms": step_ms, "stages": stages,
-            "busy": busy}
+    return {"step_ms": step_ms, "stages": stages, "busy": busy}
 
 
 def main() -> int:
@@ -510,7 +877,7 @@ def main() -> int:
     from asr_study_torch.features.device import spectral_plain
     from asr_study_torch.features.fbank import fbank
     from asr_study_torch.features.select import featurizer
-    from asr_study_torch.models.zoo import deep_blstm
+    from asr_study_torch.models.zoo import deep_blstm, deep_gru
     from asr_study_torch.ops.bilstm import bilstm, bilstm_plain
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -553,7 +920,9 @@ def main() -> int:
           f"(4 rows, H={HIDDEN}), bilstm_bwd "
           f"{4 * 4 * ((3 + 4) * HIDDEN + 4 * HIDDEN)} B (4 rows, 4 partial "
           f"sums), ctc_alpha {4 * 2 * s_len} B, ctc_beta {4 * 4 * s_len} B "
-          f"(S={s_len})")
+          f"(S={s_len}), gru_fwd {4 * 4 * (HIDDEN + 3 * HIDDEN)} B (4 rows), "
+          f"gru_bwd {4 * 4 * ((2 + 3) * HIDDEN + 3 * HIDDEN)} B (4 rows, 3 "
+          f"partial sums)")
 
     # 3. kernels against their plain versions at main-path shapes ---------
     rng = np.random.RandomState(SEED)
@@ -574,6 +943,18 @@ def main() -> int:
           f"max_abs_err={fbank_err:.3e} (tol {FBANK_TOL:g})")
     require(bool(torch.isfinite(fb_k).all()), "fbank: non-finite output")
     require(fbank_err <= FBANK_TOL, "fbank kernel disagrees with plain")
+
+    chain = feat.chain
+    n_bins, n_mel = chain.mel.shape
+    fb_bound = bound(
+        # the DFT (cos and sin), mel and DCT products of every frame
+        2.0 * BATCH * t_out * (2 * chain.frame_len * n_bins + n_bins * n_mel
+                               + n_mel * chain.dct.shape[1]),
+        tensor_bytes(pre, chain.window, chain.cos, chain.sin, chain.mel,
+                     chain.dct, chain.lift, fb_k))
+    print("fbank library yardstick: none; no single PyTorch call computes "
+          "the framed, windowed DFT -> power -> mel -> log -> DCT chain of "
+          "MFCC (torch has no torchaudio here), so library_ms is null")
 
     gen = torch.Generator().manual_seed(SEED)
     model = deep_blstm(f"num_hiddens={HIDDEN},num_layers={LAYERS}",
@@ -608,9 +989,17 @@ def main() -> int:
           f"vs plain on card "
           f"{yard:.3e}")
     require(bilstm_ok, "bilstm kernel disagrees with plain")
+    bl_bound = rnn_bound(xp_f, HIDDEN, 2, 1, (*bl_args, *bl_k))
+    # outside inference mode: the yardsticks differentiate through them
+    x_serve, mask_serve = x.clone(), mask.clone()
+    lstm_y = rnn_yardsticks("lstm", layer, x_serve, feat_lengths, mask_serve)
+    print_yardsticks(card, f"cuDNN nn.LSTM bidirectional, T={t_out} "
+                     f"B={BATCH} H={HIDDEN}", lstm_y)
+    require(lstm_y["out_err"] <= LOGITS_TOL, "layer disagrees with nn.LSTM")
     train_kernels = check_training_kernels(dev, card)
+    gru_kernels = check_gru_kernels(dev, card, x_serve, feat_lengths)
 
-    # 4. the slice, through the CLI's serving function --------------------
+    # 4, 5. the serving slices, through the CLI's serving function ---------
     all_wavs, audio_s = [], 0.0
     for _ in range(N_BATCHES):
         b_wavs, secs = synth_batch(rng)
@@ -619,92 +1008,102 @@ def main() -> int:
     chunk, cap, n_pad = pack_batches(all_wavs, BATCH)
     dev_chunk = torch.from_numpy(chunk).to(dev)
     offsets = range(0, chunk.shape[0], cap)
-
-    def run_slice():
-        return [serve_batch(model, feat, dev_chunk[o: o + cap], BATCH, n_pad)
-                for o in offsets]
-
-    fbank.launches = 0
-    bilstm.launches = 0
-    served = run_slice()
-    torch.cuda.synchronize()
-    launches = {"fbank": fbank.launches, "bilstm_fwd": bilstm.launches}
-    print(f"slice: {N_BATCHES} batches x {BATCH}, {audio_s:.1f} s of audio, "
-          f"T={served[0].logits.shape[1]}; launches {launches}")
-    require(launches["fbank"] == N_BATCHES, f"fbank launches {launches}")
-    require(launches["bilstm_fwd"] == N_BATCHES * LAYERS,
-            f"bilstm_fwd launches {launches}")
-
-    model_cpu = copy.deepcopy(model).to("cpu")
     feat_cpu = featurizer("mfcc", "cpu")
     chunk_cpu = torch.from_numpy(chunk)
-    logits_err, same = 0.0, 0
-    for o, s in zip(offsets, served):
-        ref = serve_batch(model_cpu, feat_cpu, chunk_cpu[o: o + cap], BATCH,
-                          n_pad)
-        require(s.logits.shape == (BATCH, ref.logits.shape[1],
-                                   NUM_CLASSES + 1),
-                f"logits shape {tuple(s.logits.shape)}")
-        require(bool(torch.isfinite(s.logits).all()), "non-finite logits")
-        require(torch.equal(s.feat_lengths.cpu(), ref.feat_lengths),
-                "frame lengths differ from the plain path")
-        require(bool((s.lengths <= s.feat_lengths).all()),
-                "a decode is longer than its frames")
-        logits_err = max(logits_err,
-                         float((s.logits.cpu() - ref.logits).abs().max()))
-        same += int((s.decoded.cpu() == ref.decoded).all(1).sum())
-    print(f"slice logits, kernel path on the card vs plain path on the CPU: "
-          f"max_abs_err={logits_err:.3e} (tol {LOGITS_TOL:g}); identical "
-          f"transcripts {same}/{N_BATCHES * BATCH}")
-    require(logits_err <= LOGITS_TOL, "slice logits disagree with plain")
 
-    # 5. timings ------------------------------------------------------------
+    def serving_slice(label, model, fwd_name, layers) -> dict:
+        """One model's serving slice: launches counted from 0, logits and
+        transcripts against the plain path on the CPU, ms per batch."""
+        def run_slice():
+            return [serve_batch(model, feat, dev_chunk[o: o + cap], BATCH,
+                                n_pad) for o in offsets]
+
+        reset_counts()
+        served = run_slice()
+        torch.cuda.synchronize()
+        launches = read_counts()
+        print(f"{label} slice: {N_BATCHES} batches x {BATCH}, {audio_s:.1f} "
+              f"s of audio, T={served[0].logits.shape[1]}; launches "
+              f"{launches}")
+        want = {"fbank": N_BATCHES, fwd_name: N_BATCHES * layers}
+        require(launches == want, f"{label} launches {launches}, want {want}")
+
+        model_cpu = copy.deepcopy(model).to("cpu")
+        logits_err, same = 0.0, 0
+        for o, s in zip(offsets, served):
+            ref = serve_batch(model_cpu, feat_cpu, chunk_cpu[o: o + cap],
+                              BATCH, n_pad)
+            require(s.logits.shape == (BATCH, ref.logits.shape[1],
+                                       NUM_CLASSES + 1),
+                    f"logits shape {tuple(s.logits.shape)}")
+            require(bool(torch.isfinite(s.logits).all()), "non-finite logits")
+            require(torch.equal(s.feat_lengths.cpu(), ref.feat_lengths),
+                    "frame lengths differ from the plain path")
+            require(bool((s.lengths <= s.feat_lengths).all()),
+                    "a decode is longer than its frames")
+            logits_err = max(logits_err,
+                             float((s.logits.cpu() - ref.logits).abs().max()))
+            same += int((s.decoded.cpu() == ref.decoded).all(1).sum())
+        print(f"{label} slice logits, kernel path on the card vs plain path "
+              f"on the CPU: max_abs_err={logits_err:.3e} (tol "
+              f"{LOGITS_TOL:g}); identical transcripts "
+              f"{same}/{N_BATCHES * BATCH}")
+        require(logits_err <= LOGITS_TOL,
+                f"{label} slice logits disagree with plain")
+        slice_ms = cuda_ms(run_slice, 3, warmup=1) / N_BATCHES
+        print(f"[{card}] {label} slice: {slice_ms:.4f} ms/batch, "
+              f"{audio_s / (slice_ms * N_BATCHES / 1e3):.1f} audio-s/s "
+              f"(wire unpack + features + {layers}x{HIDDEN} recurrent layers "
+              f"+ classifier + greedy decode, B={BATCH})")
+        return launches
+
+    path_launches = [serving_slice("deep_blstm", model, "bilstm_fwd",
+                                   LAYERS)]
+    gru_model = deep_gru(num_classes=NUM_CLASSES, input_dim=feat.num_feats,
+                         generator=torch.Generator().manual_seed(SEED + 4),
+                         device=dev).eval()
+    path_launches.append(serving_slice(
+        "deep_gru", gru_model, "bigru_fwd", len(gru_model.rnn.layers)))
+
     with torch.inference_mode():
         fb_ms = cuda_ms(lambda: fbank(feat.chain, pre, t_out), 20)
         fb_plain_ms = cuda_ms(lambda: spectral_plain(feat.chain, pre, t_out),
                               20)
         bl_ms = cuda_ms(lambda: bilstm(*bl_args), 10)
         bl_plain_ms = cuda_ms(lambda: bilstm_plain(*bl_args), 3, warmup=1)
-    slice_ms = cuda_ms(run_slice, 3, warmup=1) / N_BATCHES
     print(f"[{card}] fbank: kernel {fb_ms:.4f} ms/batch, plain "
           f"{fb_plain_ms:.4f} ms/batch (B={BATCH}, T={t_out})")
     print(f"[{card}] bilstm_fwd (one layer, both directions): kernel "
           f"{bl_ms:.4f} ms/batch, plain {bl_plain_ms:.4f} ms/batch "
           f"(T={t_out}, B={BATCH}, H={HIDDEN})")
-    print(f"[{card}] slice: {slice_ms:.4f} ms/batch, "
-          f"{audio_s / (slice_ms * N_BATCHES / 1e3):.1f} audio-s/s "
-          f"(wire unpack + features + {LAYERS}x{HIDDEN} BLSTM + classifier "
-          f"+ greedy decode, B={BATCH})")
 
-    # 6, 7. the training path ---------------------------------------------
-    train = training_slice(dev, card)
-    t_times, t_errs = train_kernels["times"], train_kernels["errs"]
+    # 6, 7. the training paths ---------------------------------------------
+    for path in TRAIN_PATHS:
+        path_launches.append(training_slice(
+            dev, card, path, with_fit=path == "deep_blstm")["launches"])
 
-    def entry(name, source, replaces):
-        return {"name": name, "route": "cuda",
-                "source": f"asr_study_torch/csrc/{source}",
-                "replaces": replaces,
-                "launches": train["launches"][name],
-                "max_abs_err": t_errs[name], "ms": t_times[name][0],
-                "plain_ms": t_times[name][1]}
-
-    record = {"kernels": [
-        {"name": "fbank", "route": "cuda",
-         "source": "asr_study_torch/csrc/fbank.cu",
-         "replaces": "asr_study_tpu/features/pallas_fbank.py:107",
-         "launches": launches["fbank"], "max_abs_err": fbank_err,
-         "ms": fb_ms, "plain_ms": fb_plain_ms},
-        {"name": "bilstm_fwd", "route": "cuda",
-         "source": "asr_study_torch/csrc/bilstm_fwd.cu",
-         "replaces": "asr_study_tpu/ops/pallas_bilstm.py:84",
-         "launches": launches["bilstm_fwd"]
-         + train["launches"]["bilstm_fwd"], "max_abs_err": bilstm_err,
-         "ms": bl_ms, "plain_ms": bl_plain_ms},
-        entry("bilstm_bwd", "bilstm_bwd.cu",
-              "asr_study_tpu/ops/pallas_bilstm.py:125"),
-        entry("ctc_alpha", "ctc.cu", "asr_study_tpu/ops/pallas_ctc.py:76"),
-        entry("ctc_beta", "ctc.cu", "asr_study_tpu/ops/pallas_ctc.py:101"),
-    ]}
+    # the kernels line -------------------------------------------------------
+    measured = {
+        "fbank": (fbank_err, fb_ms, fb_plain_ms, fb_bound, None),
+        "bilstm_fwd": (bilstm_err, bl_ms, bl_plain_ms, bl_bound,
+                       lstm_y["lib_fwd"]),
+    }
+    for found in (train_kernels, gru_kernels):
+        for name, err in found["errs"].items():
+            measured[name] = (err, *found["times"][name],
+                              found["bounds"][name], found["library"][name])
+    record = {"kernels": []}
+    for name, (source, replaces) in KERNELS.items():
+        err, ms, plain_ms, (bound_ms, bound_by), library_ms = measured[name]
+        launches = sum(p.get(name, 0) for p in path_launches)
+        require(launches > 0, f"{name} was not launched on a main path")
+        record["kernels"].append({
+            "name": name, "route": "cuda",
+            "source": f"asr_study_torch/csrc/{source}",
+            "replaces": f"asr_study_tpu/{replaces}", "launches": launches,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms})
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

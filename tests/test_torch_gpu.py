@@ -14,16 +14,20 @@ from asr_study_torch.cli.predict import pack_batches, serve_batch
 from asr_study_torch.features.device import DeviceFeaturizer, spectral_plain
 from asr_study_torch.features.fbank import KernelFeaturizer, fbank
 from asr_study_torch.features.select import featurizer
-from asr_study_torch.models.zoo import deep_blstm, graves2006
+from asr_study_torch.models.zoo import deep_blstm, deep_gru, graves2006
 from asr_study_torch.ops import ctc
 from asr_study_torch.ops.bilstm import (BiLSTMFunction, bilstm, bilstm_bwd,
                                         bilstm_bwd_plain, bilstm_plain)
+from asr_study_torch.ops.gru import (BiGRUFunction, GRUFunction, bigru,
+                                     bigru_bwd, bigru_bwd_plain, bigru_plain,
+                                     gru, gru_bwd, gru_bwd_plain, gru_plain)
 from asr_study_torch.train.trainer import Trainer, make_optimizer
 
 pytestmark = pytest.mark.gpu
 
 # chip_smoke.py's bounds: |kernel - plain| <= atol + rtol * |plain|
 BWD_TOL = dict(rtol=1e-4, atol=1e-4)
+GRU_TOL = dict(rtol=1e-5, atol=1e-4)
 CTC_TOL = dict(rtol=1e-5, atol=1e-3)
 
 
@@ -269,3 +273,134 @@ def test_dropout_train_step_on_card_is_seeded(cuda):
         losses.append(float(m["loss"]))
     assert np.isfinite(losses).all()
     assert losses[0] == losses[1] != losses[2]
+
+
+GRU_SIZES = [(12, 4, 8), (37, 5, 100), (50, 9, 256)]
+
+
+def _gru_case(cuda, t, b, h, seed):
+    """xp_f, xp_b [T,B,3H], ragged mask, wh_f, wh_b [H,3H] and two
+    cotangents [T,B,H], on the card."""
+    g = torch.Generator().manual_seed(seed)
+    xp = [torch.randn(t, b, 3 * h, generator=g) for _ in range(2)]
+    wh = [torch.randn(h, 3 * h, generator=g) / h ** 0.5 for _ in range(2)]
+    lengths = torch.randint(1, t + 1, (b,), generator=g)
+    lengths[0] = t
+    mask = (torch.arange(t)[:, None] < lengths[None, :]).float()[..., None]
+    dh = [torch.randn(t, b, h, generator=g) for _ in range(2)]
+    return ([a.to(cuda) for a in (xp[0], xp[1], mask, wh[0], wh[1])],
+            [a.to(cuda) for a in dh])
+
+
+@pytest.mark.parametrize("t,b,h", GRU_SIZES)
+def test_gru_fwd_kernels_match_plain(cuda, t, b, h):
+    """bigru (two directions) and gru (one) against their plain loops."""
+    args, _ = _gru_case(cuda, t, b, h, seed=h + t)
+    before = (bigru.launches, gru.launches)
+    got = bigru(*args)
+    got_uni = gru(args[0], args[2], args[3])
+    assert (bigru.launches, gru.launches) == (before[0] + 1, before[1] + 1)
+    want = bigru_plain(*args)
+    torch.cuda.synchronize()
+    for name, g_, w_ in zip(("h_f", "h_b"), got, want):
+        torch.testing.assert_close(g_, w_, **GRU_TOL, msg=name)
+    torch.testing.assert_close(got_uni, want[0], **GRU_TOL)
+
+
+@pytest.mark.parametrize("t,b,h", GRU_SIZES)
+def test_gru_bwd_kernels_match_plain(cuda, t, b, h):
+    """bigru_bwd and gru_bwd: dxp and dhp of each direction."""
+    args, dh = _gru_case(cuda, t, b, h, seed=h + t + 1)
+    hs = bigru(*args)
+    before = (bigru_bwd.launches, gru_bwd.launches)
+    got = bigru_bwd(*args, *hs, *dh)
+    got_uni = gru_bwd(args[0], args[2], args[3], hs[0], dh[0])
+    assert (bigru_bwd.launches, gru_bwd.launches) == (before[0] + 1,
+                                                      before[1] + 1)
+    want = bigru_bwd_plain(*args, *hs, *dh)
+    want_uni = gru_bwd_plain(args[0], args[2], args[3], hs[0], dh[0])
+    torch.cuda.synchronize()
+    for name, g_, w_ in zip(("dxp_f", "dhp_f", "dxp_b", "dhp_b"), got, want):
+        torch.testing.assert_close(g_, w_, **BWD_TOL, msg=name)
+    for name, g_, w_ in zip(("dxp", "dhp"), got_uni, want_uni):
+        torch.testing.assert_close(g_, w_, **BWD_TOL, msg=name)
+
+
+def _grads(fn, leaves, dh):
+    leaves = [a.clone().requires_grad_() for a in leaves]
+    outs = fn(*leaves)
+    torch.autograd.backward(outs, dh[:len(outs)])
+    return [leaf.grad for leaf in leaves]
+
+
+@pytest.mark.parametrize("t,b,h", [(12, 4, 8), (40, 6, 256)])
+def test_gru_functions_match_autograd_on_card(cuda, t, b, h):
+    """Gradients of xp and wh through BiGRUFunction and GRUFunction (both
+    kernels each) against autograd through the plain loops, on the card."""
+    (xp_f, xp_b, mask, wh_f, wh_b), dh = _gru_case(cuda, t, b, h, seed=9)
+    cases = {
+        "bi": (lambda xf, xb, wf, wb: BiGRUFunction.apply(xf, xb, mask, wf,
+                                                          wb),
+               lambda xf, xb, wf, wb: bigru_plain(xf, xb, mask, wf, wb),
+               (xp_f, xp_b, wh_f, wh_b)),
+        "uni": (lambda x, w: (GRUFunction.apply(x, mask, w),),
+                lambda x, w: (gru_plain(x, mask, w),), (xp_f, wh_f)),
+    }
+    for kind, (kernel_fn, plain_fn, leaves) in cases.items():
+        for i, (g_, w_) in enumerate(zip(_grads(kernel_fn, leaves, dh),
+                                         _grads(plain_fn, leaves, dh))):
+            torch.testing.assert_close(g_, w_, **BWD_TOL, msg=f"{kind} {i}")
+
+
+def test_deep_gru_slice_on_card_matches_cpu(cuda):
+    """deep_gru serving: bigru_fwd once per layer, logits against the
+    plain path on the CPU."""
+    rng = np.random.RandomState(2)
+    wavs = [(0.3 * rng.randn(n)).astype(np.float32)
+            for n in (9000, 4000, 6500)]
+    chunk, cap, n_pad = pack_batches(wavs, 3)
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        model = deep_gru("num_hiddens=24,num_layers=2", num_classes=27,
+                         generator=torch.Generator().manual_seed(0),
+                         device=dev).eval()
+        before = bigru.launches
+        out.append(serve_batch(model, featurizer("mfcc", dev),
+                               torch.from_numpy(chunk).to(dev), 3, n_pad))
+        assert bigru.launches - before == (2 if dev.type == "cuda" else 0)
+    torch.testing.assert_close(out[0].logits.cpu(), out[1].logits, rtol=0,
+                               atol=2e-3)
+
+
+@pytest.mark.parametrize("bidirectional", [True, False],
+                         ids=["bi", "uni"])
+def test_deep_gru_train_step_on_card_matches_cpu(cuda, bidirectional):
+    """One train step of a 2x24 deep_gru: the GRU kernels and both CTC
+    kernels on the card against the plain path on the CPU."""
+    g = torch.Generator().manual_seed(0)
+    batch = [torch.randn(4, 30, 39, generator=g),
+             torch.tensor([30, 22, 17, 9]),
+             torch.randint(0, 27, (4, 6), generator=g),
+             torch.tensor([6, 4, 5, 0]),
+             torch.tensor([1.0, 1.0, 0.0, 1.0])]
+    fwd, bwd = (bigru, bigru_bwd) if bidirectional else (gru, gru_bwd)
+    hp = (f"num_hiddens=24,num_layers=2,dropout=0.0,"
+          f"bidirectional={str(bidirectional).lower()}")
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        model = deep_gru(hp, generator=torch.Generator().manual_seed(1),
+                         device=dev)
+        trainer = Trainer(model, make_optimizer("adam", 1e-3, 1.0))
+        counts = (fwd.launches, bwd.launches)
+        _, m = trainer.train_step(trainer.init_state(),
+                                  *[a.to(dev) for a in batch])
+        launched = (fwd.launches - counts[0], bwd.launches - counts[1])
+        assert launched == ((2, 2) if dev.type == "cuda" else (0, 0))
+        out.append((float(m["loss"]), float(m["grad_norm"]),
+                    {k: p.grad.cpu() for k, p in model.named_parameters()}))
+    (loss_k, gn_k, g_k), (loss_p, gn_p, g_p) = out
+    assert loss_k == pytest.approx(loss_p, rel=1e-4)
+    assert gn_k == pytest.approx(gn_p, rel=1e-3)
+    for k in g_p:
+        assert float((g_k[k] - g_p[k]).norm()) <= 1e-3 * float(
+            g_p[k].norm()), k

@@ -119,7 +119,7 @@ def test_graves2006_shapes():
 
 
 @pytest.mark.parametrize("name,err", [
-    ("deep_gru", NotImplementedError),
+    ("ln_blstm", NotImplementedError),
     ("nosuch", KeyError),
 ])
 def test_build_model_refuses(name, err):

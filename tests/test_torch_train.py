@@ -18,7 +18,7 @@ import torch
 
 from asr_study_torch.data.generator import DatasetGenerator
 from asr_study_torch.models.nn import dropout
-from asr_study_torch.models.zoo import deep_blstm
+from asr_study_torch.models.zoo import build_model, deep_blstm
 from asr_study_torch.ops.metrics import edit_distance, ler
 from asr_study_torch.train.checkpoint import CheckpointManager
 from asr_study_torch.train.loop import fit, step_generator
@@ -30,6 +30,7 @@ from asr_study_tpu.ops import ctc as jctc
 from asr_study_tpu.ops import metrics as jmetrics
 from asr_study_tpu.train import trainer as jtrainer
 from asr_study_tpu.models.zoo import deep_blstm as jax_deep_blstm
+from asr_study_tpu.models.zoo import deep_gru as jax_deep_gru
 # the exporter's own flattening: JAX tree -> tree-path keyed arrays
 from extras.export_weights import _flatten as flatten_params
 
@@ -56,14 +57,18 @@ def _port_model(hp=HP, seed=0):
                       generator=torch.Generator().manual_seed(seed))
 
 
-def _pair(spec_args, hp=HP):
+JAX_MODELS = {"deep_blstm": jax_deep_blstm, "deep_gru": jax_deep_gru}
+
+
+def _pair(spec_args, hp=HP, model="deep_blstm"):
     """A JAX trainer and state, and the port's trainer and state on the
     same initial weights."""
-    jm = jax_deep_blstm(hp, num_classes=CLASSES)
+    jm = JAX_MODELS[model](hp, num_classes=CLASSES)
     jt = jtrainer.Trainer(jm, jtrainer.make_optimizer(*spec_args),
                           donate_state=False)
     jstate = jt.init_state(jax.random.PRNGKey(0), FEATS)
-    pm = _port_model(hp)
+    pm = build_model(model, hp, num_classes=CLASSES, input_dim=FEATS,
+                     generator=torch.Generator().manual_seed(0))
     pm.load_state_dict(params_from_flat(flatten_params(jstate.params)))
     trainer = Trainer(pm, make_optimizer(*spec_args))
     return jm, jt, jstate, trainer, trainer.init_state()
@@ -84,17 +89,21 @@ def _jax_grads(jm, params, batch):
     return jax.grad(loss)(params)
 
 
-@pytest.mark.parametrize("spec_args", [
-    ("adam", 5e-3, 400.0),
-    ("adam", 5e-3, 0.5),
-    ("adam", 2e-2, 400.0, 0.0, 0.5, 1),
-], ids=["no_clip", "clip", "lr_decay"])
-def test_train_steps_match_jax(spec_args):
+@pytest.mark.parametrize("spec_args,model,hp", [
+    (("adam", 5e-3, 400.0), "deep_blstm", HP),
+    (("adam", 5e-3, 0.5), "deep_blstm", HP),
+    (("adam", 2e-2, 400.0, 0.0, 0.5, 1), "deep_blstm", HP),
+    (("adam", 5e-3, 400.0), "deep_gru", "num_hiddens=8,num_layers=2,"
+     "dropout=0.0,bidirectional=true"),
+    (("adam", 5e-3, 0.5), "deep_gru", "num_hiddens=8,num_layers=2,"
+     "dropout=0.0,bidirectional=false"),
+], ids=["no_clip", "clip", "lr_decay", "gru_bi", "gru_uni_clip"])
+def test_train_steps_match_jax(spec_args, model, hp):
     """Three train steps from the same weights on the same batch: each
     step's loss and grad norm, the first step's gradients key by key (after
     the clip, which optax's clip_by_global_norm decides), and the weights
     after the third update."""
-    jm, jt, jstate, trainer, state = _pair(spec_args)
+    jm, jt, jstate, trainer, state = _pair(spec_args, hp, model)
     batch = _batch(0)
     tbatch = [torch.from_numpy(a) for a in batch]
     j_grads = _jax_grads(jm, jstate.params, batch)
