@@ -47,13 +47,14 @@ SIGNATURES = {
     "asr_fbank": [_P, _I, _P, _P, _P, _P, _P, _P, _P,
                   _I, _I, _I, _I, _I, _I, _I, _I,
                   _F, _F, _I, _I, _P],
-    # xp_f, xp_b, mask, wh_f, wh_b, h_f, c_f, h_b, c_b, T, B, H, stream
+    # xp_f, xp_b, mask, wh_f, wh_b, h_f, c_f, h_b, c_b, T, B, H, ndir,
+    # stream
     "asr_bilstm_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
-                       _I, _I, _I, _P],
+                       _I, _I, _I, _I, _P],
     # xp_f, xp_b, mask, wh_f, wh_b, wht_f, wht_b, h_f, c_f, h_b, c_b,
-    # dh_f, dh_b, dxp_f, dxp_b, T, B, H, stream
+    # dh_f, dh_b, dxp_f, dxp_b, T, B, H, ndir, stream
     "asr_bilstm_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                       _P, _P, _P, _P, _I, _I, _I, _P],
+                       _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # xp_f, xp_b, mask, wh_f, wh_b, h_f, h_b, T, B, H, ndir, stream
     "asr_gru_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # xp_f, xp_b, mask, wh_f, wh_b, wht_f, wht_b, h_f, h_b, dh_f, dh_b,

@@ -9,8 +9,9 @@ from a training run.  Two serving paths, as in the JAX CLI:
 
 - ``--on_device``: the utterances cross to the device as pcm16 wire
   buffers, one per batch, all in one host->device copy; each batch is
-  unpacked, featurized (fbank kernel), run through the model (bilstm
-  kernel per layer) and greedily decoded on the device (:func:`serve_batch`).
+  unpacked, featurized (fbank kernel), run through the model (one
+  recurrence kernel per layer) and greedily decoded on the device
+  (:func:`serve_batch`).
 - default: features from the NumPy oracle on the host, then the same model
   and decode on ``--device``.
 """

@@ -1,9 +1,14 @@
-// Both directions of one bidirectional LSTM layer, backward pass: the
-// cotangent scans that give the gate pre-activation gradients dxp.
+// The LSTM recurrence of one layer, backward pass, over one or two
+// directions in one launch: the cotangent scans that give the gate
+// pre-activation gradients dxp.
 //
-// Replaces the TPU kernel asr_study_tpu/ops/pallas_bilstm.py
-// `_bibwd_kernel` (row maths: ops/pallas_lstm.py `_lstm_row_bwd`, with the
-// held-frame rule of its masked branch).
+// Replaces two TPU kernels: asr_study_tpu/ops/pallas_bilstm.py
+// `_bibwd_kernel` (both directions) with ndir = 2, and
+// asr_study_tpu/ops/pallas_lstm.py `_bwd_kernel` (one direction) with
+// ndir = 1.  Row maths: ops/pallas_lstm.py `_lstm_row_bwd`, with the
+// held-frame rule of its masked branch: there dh_prev takes the whole dh
+// and dc_prev = dc_next.  With ndir = 1 only lane 0 (the forward
+// direction) runs and the _b pointers are unused.
 //
 // Inputs: the forward's bias-folded projections xp_f / xp_b [T, B, 4H], the
 // mask [T, B], the recurrent weights wh [H, 4H] and their transposes
@@ -30,9 +35,10 @@
 // barriers a step.
 //
 // What bounds it on the H100: like the forward kernel, each step streams
-// the direction's 1 MB wh from L2 through one SM, and here wht as well: two
-// 1 MB passes a step, so about twice the forward's time per step.  Keeping
-// the weights resident across a thread-block cluster is later work.
+// the direction's wh (1 MB at H=256, 4 MB at H=512) from L2 through one
+// SM, and here wht as well: two passes a step, so about twice the
+// forward's time per step (measured 2.9x).  Keeping the weights resident
+// across a thread-block cluster is later work.
 
 #include <cuda_runtime.h>
 
@@ -200,7 +206,8 @@ extern "C" int asr_bilstm_bwd(const float* xp_f, const float* xp_b,
                               const float* c_f, const float* h_b,
                               const float* c_b, const float* dh_f,
                               const float* dh_b, float* dxp_f, float* dxp_b,
-                              int T, int B, int H, void* stream) {
+                              int T, int B, int H, int ndir, void* stream) {
+  if (ndir < 1 || ndir > 2) return static_cast<int>(cudaErrorInvalidValue);
   const int G = 4 * H;
   const int warps_g = ((G + 31) / 32) * 32;
   const int threads = warps_g < kMaxThreads ? warps_g : kMaxThreads;
@@ -211,7 +218,7 @@ extern "C" int asr_bilstm_bwd(const float* xp_f, const float* xp_b,
       bilstm_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((B + kRows - 1) / kRows, 2);
+  const dim3 grid((B + kRows - 1) / kRows, ndir);
   bilstm_bwd_kernel<<<grid, threads, smem,
                       static_cast<cudaStream_t>(stream)>>>(
       xp_f, xp_b, mask, wh_f, wh_b, wht_f, wht_b, h_f, c_f, h_b, c_b, dh_f,

@@ -1,16 +1,20 @@
-// Both directions of one bidirectional LSTM layer, forward pass.
+// The LSTM recurrence of one layer, forward pass, over one or two
+// directions in one launch.
 //
-// Replaces the TPU kernel asr_study_tpu/ops/pallas_bilstm.py
-// `_bifwd_kernel` (cell maths: ops/pallas_lstm.py `_lstm_cell_math`).
+// Replaces two TPU kernels: asr_study_tpu/ops/pallas_bilstm.py
+// `_bifwd_kernel` (both directions) with ndir = 2, and
+// asr_study_tpu/ops/pallas_lstm.py `_fwd_kernel` (one direction) with
+// ndir = 1.  Cell maths: ops/pallas_lstm.py `_lstm_cell_math`.
 //
 // Inputs are the bias-folded input projections xp_f / xp_b [T, B, 4H]
 // (x @ wx + b, computed outside by one matmul per direction), the frame
 // mask [T, B] and the recurrent weights wh_f / wh_b [H, 4H], gate order
 // i, f, g, o.  Outputs h and c of each direction, [T, B, H] in forward time
-// order.  The reverse direction walks time backward (it reads xp_b and the
-// mask at T-1-s); both start from zero state, and a frame whose mask is 0
-// keeps the previous h and c, which makes the reverse direction exact on
-// right-padded batches.
+// order.  Lane 1 (the reverse direction) walks time backward: it reads xp_b
+// and the mask at T-1-s.  Both lanes start from zero state, and a frame
+// whose mask is 0 keeps the previous h and c, which makes the reverse lane
+// exact on right-padded batches.  With ndir = 1 only lane 0 runs, walking
+// forward time, and the _b pointers are unused.
 //
 // What bounds it on the H100: the recurrence is serial in time, and each
 // step is a [rows, H] x [H, 4H] product whose weights (1 MB at H=256) do not
@@ -21,7 +25,10 @@
 // each thread owns one gate column j and keeps kRows running sums, the
 // h_prev rows sit in shared memory where every read is a broadcast, and the
 // loop over time runs inside the kernel so there is one launch per layer.
-// Keeping wh resident across the SMs of a cluster is later work.
+// Keeping wh resident across the SMs of a cluster is later work.  Any H
+// works: gate columns and (row, unit) pairs are strided over the threads,
+// and the launcher raises the block's dynamic shared memory limit to what
+// H needs (48 KB, the default limit, at H=512).
 
 #include <cuda_runtime.h>
 
@@ -116,7 +123,8 @@ extern "C" int asr_bilstm_fwd(const float* xp_f, const float* xp_b,
                               const float* mask, const float* wh_f,
                               const float* wh_b, float* h_f, float* c_f,
                               float* h_b, float* c_b, int T, int B, int H,
-                              void* stream) {
+                              int ndir, void* stream) {
+  if (ndir < 1 || ndir > 2) return static_cast<int>(cudaErrorInvalidValue);
   const int G = 4 * H;
   const size_t smem = sizeof(float) * static_cast<size_t>(kRows) * (2 * H + G);
   cudaError_t err = cudaFuncSetAttribute(
@@ -125,7 +133,7 @@ extern "C" int asr_bilstm_fwd(const float* xp_f, const float* xp_b,
   if (err != cudaSuccess) return static_cast<int>(err);
   const int warps_g = ((G + 31) / 32) * 32;
   const int threads = warps_g < kMaxThreads ? warps_g : kMaxThreads;
-  const dim3 grid((B + kRows - 1) / kRows, 2);
+  const dim3 grid((B + kRows - 1) / kRows, ndir);
   bilstm_fwd_kernel<<<grid, threads, smem,
                       static_cast<cudaStream_t>(stream)>>>(
       xp_f, xp_b, mask, wh_f, wh_b, h_f, c_f, h_b, c_b, T, B, H);

@@ -5,13 +5,14 @@ input projection ``x @ wx + b`` of each direction is one matmul over all
 frames, and the recurrence runs in one differentiable op (the forward and
 backward kernels on a CUDA device) — both directions of a bidirectional
 layer together (``RNNLayer._apply_fused_bidi``: ``ops.bilstm.BiLSTMFunction``
-or ``ops.gru.BiGRUFunction``), or the one direction of a unidirectional GRU
-layer (``scan_cell``'s Pallas path: ``ops.gru.GRUFunction``).  The output
-is zeroed on padded frames.
+or ``ops.gru.BiGRUFunction``), or the one direction of a unidirectional
+layer (``scan_cell``'s Pallas path: ``ops.bilstm.LSTMFunction`` or
+``ops.gru.GRUFunction``).  The output is zeroed on padded frames.
 
-Ported: LSTM and GRU cells, bidirectional LSTM and GRU layers,
-unidirectional GRU layers, no skip connections, inter-layer dropout in
-training.  The rest raises ``NotImplementedError`` naming its ROADMAP item.
+Ported: LSTM and GRU cells, uni- and bidirectional layers of both, the skip
+kinds ``none``, ``residual`` and ``highway``, inter-layer dropout in
+training.  The other cells raise ``NotImplementedError`` naming their
+ROADMAP item.
 """
 
 from __future__ import annotations
@@ -22,12 +23,14 @@ import torch
 from torch import nn
 
 from asr_study_torch.models.cells import GRUCell, LSTMCell
+from asr_study_torch.models.nn import dense_apply, dense_init
 from asr_study_torch.models.nn import dropout as dropout_fn
-from asr_study_torch.ops.bilstm import BiLSTMFunction
+from asr_study_torch.ops.bilstm import BiLSTMFunction, LSTMFunction
 from asr_study_torch.ops.gru import BiGRUFunction, GRUFunction
 
-# cell kind -> (cell, fused bidirectional op)
-_KINDS = {"lstm": (LSTMCell, BiLSTMFunction), "gru": (GRUCell, BiGRUFunction)}
+# cell kind -> (cell, fused bidirectional op, unidirectional op)
+_KINDS = {"lstm": (LSTMCell, BiLSTMFunction, LSTMFunction),
+          "gru": (GRUCell, BiGRUFunction, GRUFunction)}
 
 
 class RNNLayer(nn.Module):
@@ -43,11 +46,7 @@ class RNNLayer(nn.Module):
             raise NotImplementedError(
                 f"cell kind {cell_kind!r} is not ported yet (ROADMAP queue "
                 "A item 1; its kernels are in queue B)")
-        if cell_kind == "lstm" and not bidirectional:
-            raise NotImplementedError(
-                "unidirectional LSTM layers are not ported yet (ROADMAP "
-                "queue B item 6, ops/pallas_lstm.py)")
-        cell, self._bidi_op = _KINDS[cell_kind]
+        cell, self._bidi_op, self._uni_op = _KINDS[cell_kind]
         self.hidden = hidden
         self.bidirectional = bidirectional
         self.fw = cell(input_dim, hidden, generator, device)
@@ -63,7 +62,7 @@ class RNNLayer(nn.Module):
         mask = mask.contiguous()
         xp_f = (self.fw.input_proj(x) + self.fw.b).contiguous()
         if not self.bidirectional:
-            return GRUFunction.apply(xp_f, mask, self.fw.wh) * mask
+            return self._uni_op.apply(xp_f, mask, self.fw.wh) * mask
         xp_b = (self.bw.input_proj(x) + self.bw.b).contiguous()
         h_f, h_b = self._bidi_op.apply(xp_f, xp_b, mask, self.fw.wh,
                                        self.bw.wh)
@@ -71,17 +70,39 @@ class RNNLayer(nn.Module):
 
 
 class _StackEntry(nn.Module):
-    """One entry of the stack; holds the layer under ``rnn`` so that the
-    parameter paths match the JAX tree (``layers/<i>/rnn/fw/wx``)."""
+    """One entry of the stack; holds the layer under ``rnn`` and its skip
+    parameters under ``proj`` and ``gate``, so that the parameter paths
+    match the JAX tree (``layers/<i>/rnn/fw/wx``, ``layers/<i>/proj/w``,
+    ``layers/<i>/gate/w``).
 
-    def __init__(self, layer: RNNLayer):
+    ``proj`` exists only where the layer changes the width (a skip kind
+    other than 'none'), ``gate`` in every highway layer."""
+
+    def __init__(self, layer: RNNLayer, input_dim: int, skip: str,
+                 generator: Optional[torch.Generator] = None,
+                 device: torch.device | str | None = None):
         super().__init__()
         self.rnn = layer
+        self.proj = self.gate = None
+        if skip != "none" and input_dim != layer.output_dim:
+            self.proj = nn.ParameterDict(dense_init(
+                input_dim, layer.output_dim, generator, device))
+        if skip == "highway":
+            self.gate = nn.ParameterDict(dense_init(
+                input_dim, layer.output_dim, generator, device))
 
 
 class StackedRNN(nn.Module):
-    """N recurrent layers of one cell kind; skip kind 'none' only.  ``dropout``
-    acts after every layer but the last, in train mode only."""
+    """N recurrent layers of one cell kind with skip connections 'none',
+    'residual' or 'highway', as the JAX ``StackedRNN``:
+
+    - residual: ``h = rnn(x) + proj(x)`` (proj the identity where the
+      widths match);
+    - highway: ``h = t * rnn(x) + (1 - t) * proj(x)``, ``t = sigmoid(x @ Wt
+      + bt)``;
+
+    then ``h *= mask``.  ``dropout`` acts after every layer but the last,
+    after the skip, in train mode only."""
 
     def __init__(self, input_dim: int, cell_kind: str = "lstm",
                  hidden: int = 256, num_layers: int = 3,
@@ -90,18 +111,17 @@ class StackedRNN(nn.Module):
                  generator: Optional[torch.Generator] = None,
                  device: torch.device | str | None = None):
         super().__init__()
-        if skip != "none":
-            raise NotImplementedError(
-                f"skip kind {skip!r} is not ported yet (ROADMAP queue A "
-                "item 1)")
+        if skip not in ("none", "residual", "highway"):
+            raise ValueError(f"unknown skip kind {skip!r}")
         self.input_dim = input_dim
         self.dropout = dropout
+        self.skip = skip
         entries = []
         dim = input_dim
         for _ in range(num_layers):
             layer = RNNLayer(cell_kind, dim, hidden, bidirectional,
                              generator, device)
-            entries.append(_StackEntry(layer))
+            entries.append(_StackEntry(layer, dim, skip, generator, device))
             dim = layer.output_dim
         self.layers = nn.ModuleList(entries)
         self.output_dim = dim
@@ -113,7 +133,17 @@ class StackedRNN(nn.Module):
         """x [T, B, F] -> [T, B, output_dim]"""
         last = len(self.layers) - 1
         for i, entry in enumerate(self.layers):
-            x = entry.rnn(x, mask)
+            h = entry.rnn(x, mask)
+            if self.skip != "none":
+                skip_in = x if entry.proj is None else dense_apply(
+                    entry.proj, x)
+                if self.skip == "residual":
+                    h = h + skip_in
+                else:
+                    t = torch.sigmoid(dense_apply(entry.gate, x))
+                    h = t * h + (1.0 - t) * skip_in
+                h = h * mask
             if i < last:
-                x = dropout_fn(x, self.dropout, train, generator)
+                h = dropout_fn(h, self.dropout, train, generator)
+            x = h
         return x

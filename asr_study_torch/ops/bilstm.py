@@ -1,15 +1,21 @@
-"""Both directions of one BLSTM layer in one launch, forward and backward:
-the kernels ``csrc/bilstm_fwd.cu`` and ``csrc/bilstm_bwd.cu``, their plain
-versions, and :class:`BiLSTMFunction`, the differentiable op (port of
-``asr_study_tpu/ops/pallas_bilstm.py`` ``pallas_bilstm`` and its custom
-VJP).
+"""The LSTM recurrence, forward and backward, in both of the JAX package's
+forms: both directions of a bidirectional layer in one launch (port of
+``asr_study_tpu/ops/pallas_bilstm.py`` ``pallas_bilstm``) and one direction
+(port of ``asr_study_tpu/ops/pallas_lstm.py`` ``pallas_lstm``), each with its
+custom VJP.
 
-:func:`bilstm` and :func:`bilstm_bwd` launch their kernels for CUDA tensors
-and take :func:`bilstm_plain` / :func:`bilstm_bwd_plain`, Python loops over
-time, for CPU tensors.  Neither records an autograd graph on either device:
-gradients go through :class:`BiLSTMFunction`, whose backward is
-:func:`bilstm_bwd` plus one ``h_prev^T @ dxp`` matmul per direction for the
-recurrent weights.
+The kernels are ``csrc/bilstm_fwd.cu`` and ``csrc/bilstm_bwd.cu``; each
+takes the number of directions, so :func:`bilstm` and :func:`lstm` launch
+the same forward kernel with 2 and 1 directions, and :func:`bilstm_bwd` and
+:func:`lstm_bwd` the same backward kernel.  Each of the four wrappers counts
+its own launches.  A CUDA tensor launches the kernel (or raises); a CPU
+tensor takes the plain version, a Python loop over time.  Neither records
+an autograd graph: gradients go through :class:`BiLSTMFunction` and
+:class:`LSTMFunction`, whose backward is the backward kernel plus one
+``h_prev^T @ dxp`` matmul per direction for the recurrent weights.
+
+Gate order i, f, g, o with the bias folded into ``xp``.  Masked frames hold
+h and c.
 """
 
 from __future__ import annotations
@@ -18,6 +24,24 @@ import torch
 
 from asr_study_torch import _build
 from asr_study_torch.models.cells import lstm_step
+from asr_study_torch.ops.recurrence import check, cotangent, prev, stream
+
+
+def _scan(xp: torch.Tensor, mask: torch.Tensor, wh: torch.Tensor,
+          reverse: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """One direction's h and c sequences [T, B, H] in forward time order."""
+    t_steps, batch, gh = xp.shape
+    h = xp.new_zeros((batch, gh // 4))
+    c = xp.new_zeros((batch, gh // 4))
+    hs = [None] * t_steps
+    cs = [None] * t_steps
+    for t in (reversed(range(t_steps)) if reverse else range(t_steps)):
+        h, c = lstm_step(h, c, xp[t], mask[t], wh)
+        hs[t], cs[t] = h, c
+    if not hs:
+        empty = xp.new_zeros((0, batch, gh // 4))
+        return empty, empty.clone()
+    return torch.stack(hs), torch.stack(cs)
 
 
 def bilstm_plain(xp_f: torch.Tensor, xp_b: torch.Tensor, mask: torch.Tensor,
@@ -25,52 +49,32 @@ def bilstm_plain(xp_f: torch.Tensor, xp_b: torch.Tensor, mask: torch.Tensor,
                  ) -> tuple[torch.Tensor, ...]:
     """Plain version of the kernel; same arguments and results as
     :func:`bilstm`."""
-    t_steps, batch, gh = xp_f.shape
-    hidden = gh // 4
-    outs = []
-    for xp, wh, steps in ((xp_f, wh_f, range(t_steps)),
-                          (xp_b, wh_b, reversed(range(t_steps)))):
-        h = xp.new_zeros((batch, hidden))
-        c = xp.new_zeros((batch, hidden))
-        hs = [None] * t_steps
-        cs = [None] * t_steps
-        for t in steps:
-            h, c = lstm_step(h, c, xp[t], mask[t], wh)
-            hs[t], cs[t] = h, c
-        empty = xp.new_zeros((0, batch, hidden))
-        outs += [torch.stack(hs) if hs else empty,
-                 torch.stack(cs) if cs else empty]
-    return tuple(outs)
+    return (*_scan(xp_f, mask, wh_f, False), *_scan(xp_b, mask, wh_b, True))
 
 
-def _check(name: str, xp_f, xp_b, mask, wh_f, wh_b, **seqs) -> None:
-    if xp_f.dim() != 3 or xp_f.shape[2] % 4:
-        raise ValueError(f"{name}: xp_f must be [T, B, 4H], got "
-                         f"{tuple(xp_f.shape)}")
-    t_steps, batch, gh = xp_f.shape
-    hidden = gh // 4
-    want = {
-        "xp_b": (xp_b, (t_steps, batch, gh)),
-        "mask": (mask, (t_steps, batch, 1)),
-        "wh_f": (wh_f, (hidden, gh)),
-        "wh_b": (wh_b, (hidden, gh)),
-        **{k: (v, (t_steps, batch, hidden)) for k, v in seqs.items()},
-    }
-    for arg, (t, shape) in want.items():
-        if tuple(t.shape) != shape:
-            raise ValueError(f"{name}: {arg} must be {shape}, got "
-                             f"{tuple(t.shape)}")
-    for arg, t in (("xp_f", xp_f), *((k, v[0]) for k, v in want.items())):
-        if t.dtype != torch.float32:
-            raise ValueError(f"{name}: {arg} must be float32, got {t.dtype}")
-        if t.device != xp_f.device:
-            raise ValueError(f"{name}: {arg} is on {t.device}, "
-                             f"xp_f on {xp_f.device}")
-    if xp_f.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"{name}: no kernel for device {xp_f.device}")
-    if xp_f.device.type == "cuda" and not all(
-            t.is_contiguous() for t in (xp_f, *(v[0] for v in want.values()))):
-        raise ValueError(f"{name}: the kernel takes contiguous tensors")
+def lstm_plain(xp: torch.Tensor, mask: torch.Tensor, wh: torch.Tensor
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of :func:`lstm`; same arguments and results."""
+    return _scan(xp, mask, wh, False)
+
+
+def _fwd_kernel(name: str, xps: list, mask: torch.Tensor,
+                whs: list) -> list:
+    """Launch ``bilstm_fwd`` over ``len(xps)`` directions (the second one
+    walks time backward) -> [h, c] per direction, flattened."""
+    t_steps, batch, gh = xps[0].shape
+    outs = [torch.empty((t_steps, batch, gh // 4), dtype=torch.float32,
+                        device=xps[0].device) for _ in range(2 * len(xps))]
+    if outs[0].numel() == 0:
+        return outs
+    with torch.cuda.device(xps[0].device):
+        err = _build.lib().asr_bilstm_fwd(
+            xps[0].data_ptr(), xps[-1].data_ptr(), mask.data_ptr(),
+            whs[0].data_ptr(), whs[-1].data_ptr(), outs[0].data_ptr(),
+            outs[1].data_ptr(), outs[-2].data_ptr(), outs[-1].data_ptr(),
+            t_steps, batch, gh // 4, len(xps), stream(xps[0]))
+    _build.check(err, name)
+    return outs
 
 
 def bilstm(xp_f: torch.Tensor, xp_b: torch.Tensor, mask: torch.Tensor,
@@ -86,74 +90,95 @@ def bilstm(xp_f: torch.Tensor, xp_b: torch.Tensor, mask: torch.Tensor,
                 a masked frame repeats the previous state.  No autograd
                 graph: :class:`BiLSTMFunction` is the differentiable form.
     """
-    _check("bilstm", xp_f, xp_b, mask, wh_f, wh_b)
+    check("bilstm", 4, mask, dict(xp_f=xp_f, xp_b=xp_b),
+          dict(wh_f=wh_f, wh_b=wh_b), {})
     if xp_f.device.type == "cpu":
         with torch.no_grad():
             return bilstm_plain(xp_f, xp_b, mask, wh_f, wh_b)
-    args = (xp_f, xp_b, mask, wh_f, wh_b)
-    t_steps, batch, gh = xp_f.shape
-    hidden = gh // 4
-    outs = tuple(torch.empty((t_steps, batch, hidden), dtype=torch.float32,
-                             device=xp_f.device) for _ in range(4))
-    if t_steps == 0 or batch == 0 or hidden == 0:
-        return outs
-    with torch.cuda.device(xp_f.device):
-        err = _build.lib().asr_bilstm_fwd(
-            *(t.data_ptr() for t in args), *(t.data_ptr() for t in outs),
-            t_steps, batch, hidden,
-            torch.cuda.current_stream(xp_f.device).cuda_stream,
-        )
-    _build.check(err, "bilstm_fwd")
+    outs = _fwd_kernel("bilstm_fwd", [xp_f, xp_b], mask, [wh_f, wh_b])
     bilstm.launches += 1
-    return outs
+    return tuple(outs)
 
 
 bilstm.launches = 0
 
 
-def _prev(seq_f: torch.Tensor, seq_b: torch.Tensor
-          ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The scan-previous state of every frame: t-1 for the forward
-    direction, t+1 for the reversed one, zero past the ends."""
-    zero = seq_f.new_zeros((1,) + tuple(seq_f.shape[1:]))
-    return torch.cat([zero, seq_f[:-1]]), torch.cat([seq_b[1:], zero])
+def lstm(xp: torch.Tensor, mask: torch.Tensor, wh: torch.Tensor
+         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One unidirectional LSTM layer's recurrence, forward only: xp [T, B,
+    4H], mask [T, B, 1], wh [H, 4H] -> (h, c), each [T, B, H] (see
+    :func:`bilstm`).  :class:`LSTMFunction` is the differentiable form."""
+    check("lstm", 4, mask, dict(xp=xp), dict(wh=wh), {})
+    if xp.device.type == "cpu":
+        with torch.no_grad():
+            return lstm_plain(xp, mask, wh)
+    h, c = _fwd_kernel("lstm_fwd", [xp], mask, [wh])
+    lstm.launches += 1
+    return h, c
+
+
+lstm.launches = 0
+
+
+def _walk_bwd(xp, mask, wh, h, c, dh_out, reverse: bool) -> torch.Tensor:
+    """One direction's cotangent walk (``_lstm_row_bwd`` of the JAX
+    package), from the end of its own time order back -> dxp."""
+    t_steps, batch, gh = xp.shape
+    hp, cp = prev(h, reverse), prev(c, reverse)
+    dxp = torch.empty_like(xp)
+    dh_next = xp.new_zeros((batch, gh // 4))
+    dc_next = xp.new_zeros((batch, gh // 4))
+    for t in (range(t_steps) if reverse else reversed(range(t_steps))):
+        m = mask[t] > 0                                      # [B, 1]
+        gates = xp[t] + hp[t] @ wh
+        i, f, g, o = gates.chunk(4, dim=-1)
+        i, f, g, o = (torch.sigmoid(i), torch.sigmoid(f), torch.tanh(g),
+                      torch.sigmoid(o))
+        dh = dh_out[t] + dh_next
+        tc = torch.tanh(c[t])
+        dc = dc_next + dh * o * (1.0 - tc * tc)
+        dpre = torch.cat([dc * g * i * (1.0 - i),
+                          dc * cp[t] * f * (1.0 - f),
+                          dc * i * (1.0 - g * g),
+                          dh * tc * o * (1.0 - o)], dim=-1)
+        dpre = torch.where(m, dpre, 0.0)
+        dxp[t] = dpre
+        # held frames pass h and c (and their cotangents) straight on
+        dh_next = dpre @ wh.t() + torch.where(m, 0.0, dh)
+        dc_next = torch.where(m, dc * f, dc_next)
+    return dxp
 
 
 def bilstm_bwd_plain(xp_f, xp_b, mask, wh_f, wh_b, h_f, c_f, h_b, c_b,
                      dh_f, dh_b) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of :func:`bilstm_bwd`: ``_lstm_row_bwd`` of the JAX
-    package, a Python loop over time for each direction."""
-    t_steps, batch, gh = xp_f.shape
-    hidden = gh // 4
-    hp_f, hp_b = _prev(h_f, h_b)
-    cp_f, cp_b = _prev(c_f, c_b)
-    outs = []
-    for xp, wh, hp, cp, c, dh_out, steps in (
-            (xp_f, wh_f, hp_f, cp_f, c_f, dh_f, reversed(range(t_steps))),
-            (xp_b, wh_b, hp_b, cp_b, c_b, dh_b, range(t_steps))):
-        dxp = torch.empty_like(xp)
-        dh_next = xp.new_zeros((batch, hidden))
-        dc_next = xp.new_zeros((batch, hidden))
-        for t in steps:
-            m = mask[t] > 0                                  # [B, 1]
-            gates = xp[t] + hp[t] @ wh
-            i, f, g, o = gates.chunk(4, dim=-1)
-            i, f, g, o = (torch.sigmoid(i), torch.sigmoid(f), torch.tanh(g),
-                          torch.sigmoid(o))
-            dh = dh_out[t] + dh_next
-            tc = torch.tanh(c[t])
-            dc = dc_next + dh * o * (1.0 - tc * tc)
-            dpre = torch.cat([dc * g * i * (1.0 - i),
-                              dc * cp[t] * f * (1.0 - f),
-                              dc * i * (1.0 - g * g),
-                              dh * tc * o * (1.0 - o)], dim=-1)
-            dpre = torch.where(m, dpre, 0.0)
-            dxp[t] = dpre
-            # held frames pass h and c (and their cotangents) straight on
-            dh_next = dpre @ wh.t() + torch.where(m, 0.0, dh)
-            dc_next = torch.where(m, dc * f, dc_next)
-        outs.append(dxp)
-    return tuple(outs)
+    """Plain version of :func:`bilstm_bwd`."""
+    return (_walk_bwd(xp_f, mask, wh_f, h_f, c_f, dh_f, False),
+            _walk_bwd(xp_b, mask, wh_b, h_b, c_b, dh_b, True))
+
+
+def lstm_bwd_plain(xp, mask, wh, h, c, dh) -> torch.Tensor:
+    """Plain version of :func:`lstm_bwd`."""
+    return _walk_bwd(xp, mask, wh, h, c, dh, False)
+
+
+def _bwd_kernel(name: str, xps: list, mask: torch.Tensor, whs: list,
+                hs: list, cs: list, dhs: list) -> list:
+    """Launch ``bilstm_bwd`` over ``len(xps)`` directions -> dxp per
+    direction."""
+    outs = [torch.empty_like(x) for x in xps]
+    if outs[0].numel() == 0:
+        return outs
+    t_steps, batch, gh = xps[0].shape
+    whts = [w.t().contiguous() for w in whs]
+    args = (xps[0], xps[-1], mask, whs[0], whs[-1], whts[0], whts[-1],
+            hs[0], cs[0], hs[-1], cs[-1], dhs[0], dhs[-1], outs[0],
+            outs[-1])
+    with torch.cuda.device(xps[0].device):
+        err = _build.lib().asr_bilstm_bwd(
+            *(t.data_ptr() for t in args), t_steps, batch, gh // 4,
+            len(xps), stream(xps[0]))
+    _build.check(err, name)
+    return outs
 
 
 def bilstm_bwd(xp_f: torch.Tensor, xp_b: torch.Tensor, mask: torch.Tensor,
@@ -166,30 +191,47 @@ def bilstm_bwd(xp_f: torch.Tensor, xp_b: torch.Tensor, mask: torch.Tensor,
     The first five arguments are :func:`bilstm`'s, h_* and c_* its
     outputs, dh_f and dh_b [T, B, H] the cotangents of h_f and h_b.
     dxp is zero on masked frames."""
-    seqs = dict(h_f=h_f, c_f=c_f, h_b=h_b, c_b=c_b, dh_f=dh_f, dh_b=dh_b)
-    _check("bilstm_bwd", xp_f, xp_b, mask, wh_f, wh_b, **seqs)
+    check("bilstm_bwd", 4, mask, dict(xp_f=xp_f, xp_b=xp_b),
+          dict(wh_f=wh_f, wh_b=wh_b),
+          dict(h_f=h_f, c_f=c_f, h_b=h_b, c_b=c_b, dh_f=dh_f, dh_b=dh_b))
     if xp_f.device.type == "cpu":
         with torch.no_grad():
             return bilstm_bwd_plain(xp_f, xp_b, mask, wh_f, wh_b, h_f, c_f,
                                     h_b, c_b, dh_f, dh_b)
-    t_steps, batch, gh = xp_f.shape
-    dxp_f, dxp_b = torch.empty_like(xp_f), torch.empty_like(xp_b)
-    if dxp_f.numel() == 0:
-        return dxp_f, dxp_b
-    wht_f, wht_b = wh_f.t().contiguous(), wh_b.t().contiguous()
-    args = (xp_f, xp_b, mask, wh_f, wh_b, wht_f, wht_b, h_f, c_f, h_b, c_b,
-            dh_f, dh_b, dxp_f, dxp_b)
-    with torch.cuda.device(xp_f.device):
-        err = _build.lib().asr_bilstm_bwd(
-            *(t.data_ptr() for t in args), t_steps, batch, gh // 4,
-            torch.cuda.current_stream(xp_f.device).cuda_stream,
-        )
-    _build.check(err, "bilstm_bwd")
+    dxp_f, dxp_b = _bwd_kernel("bilstm_bwd", [xp_f, xp_b], mask,
+                               [wh_f, wh_b], [h_f, h_b], [c_f, c_b],
+                               [dh_f, dh_b])
     bilstm_bwd.launches += 1
     return dxp_f, dxp_b
 
 
 bilstm_bwd.launches = 0
+
+
+def lstm_bwd(xp: torch.Tensor, mask: torch.Tensor, wh: torch.Tensor,
+             h: torch.Tensor, c: torch.Tensor, dh: torch.Tensor
+             ) -> torch.Tensor:
+    """The cotangent scan of :func:`lstm` -> dxp [T, B, 4H], as in
+    :func:`bilstm_bwd` for one direction."""
+    check("lstm_bwd", 4, mask, dict(xp=xp), dict(wh=wh),
+          dict(h=h, c=c, dh=dh))
+    if xp.device.type == "cpu":
+        with torch.no_grad():
+            return lstm_bwd_plain(xp, mask, wh, h, c, dh)
+    (dxp,) = _bwd_kernel("lstm_bwd", [xp], mask, [wh], [h], [c], [dh])
+    lstm_bwd.launches += 1
+    return dxp
+
+
+lstm_bwd.launches = 0
+
+
+def _dwh(h: torch.Tensor, dxp: torch.Tensor, reverse: bool) -> torch.Tensor:
+    """``h_prev^T dxp`` over all T*B rows: one matmul (as
+    ``pallas_lstm.py``'s einsum)."""
+    hidden = h.shape[-1]
+    return prev(h, reverse).reshape(-1, hidden).t() @ dxp.reshape(
+        -1, 4 * hidden)
 
 
 class BiLSTMFunction(torch.autograd.Function):
@@ -210,12 +252,27 @@ class BiLSTMFunction(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dh_f, dh_b):
         xp_f, xp_b, mask, wh_f, wh_b, h_f, c_f, h_b, c_b = ctx.saved_tensors
-        dh_f = torch.zeros_like(h_f) if dh_f is None else dh_f.contiguous()
-        dh_b = torch.zeros_like(h_b) if dh_b is None else dh_b.contiguous()
         dxp_f, dxp_b = bilstm_bwd(xp_f, xp_b, mask, wh_f, wh_b, h_f, c_f,
-                                  h_b, c_b, dh_f, dh_b)
-        hp_f, hp_b = _prev(h_f, h_b)
-        hidden, gh = wh_f.shape
-        dwh_f = hp_f.reshape(-1, hidden).t() @ dxp_f.reshape(-1, gh)
-        dwh_b = hp_b.reshape(-1, hidden).t() @ dxp_b.reshape(-1, gh)
-        return dxp_f, dxp_b, None, dwh_f, dwh_b
+                                  h_b, c_b, cotangent(dh_f, h_f),
+                                  cotangent(dh_b, h_b))
+        return (dxp_f, dxp_b, None, _dwh(h_f, dxp_f, False),
+                _dwh(h_b, dxp_b, True))
+
+
+class LSTMFunction(torch.autograd.Function):
+    """Differentiable unidirectional LSTM recurrence: ``apply(xp, mask, wh)
+    -> h`` (the JAX ``pallas_lstm``).  Forward is :func:`lstm`, keeping h
+    and c; backward is :func:`lstm_bwd` and ``dwh = h_prev^T dxp``.  The
+    mask gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, xp, mask, wh):
+        h, c = lstm(xp, mask, wh)
+        ctx.save_for_backward(xp, mask, wh, h, c)
+        return h
+
+    @staticmethod
+    def backward(ctx, dh):
+        xp, mask, wh, h, c = ctx.saved_tensors
+        dxp = lstm_bwd(xp, mask, wh, h, c, cotangent(dh, h))
+        return dxp, None, _dwh(h, dxp, False)

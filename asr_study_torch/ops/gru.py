@@ -24,6 +24,7 @@ import torch
 
 from asr_study_torch import _build
 from asr_study_torch.models.cells import gru_step
+from asr_study_torch.ops.recurrence import check, cotangent, prev, stream
 
 
 def _scan(xp: torch.Tensor, mask: torch.Tensor, wh: torch.Tensor,
@@ -51,43 +52,6 @@ def gru_plain(xp: torch.Tensor, mask: torch.Tensor,
     return _scan(xp, mask, wh, False)
 
 
-def _check(name: str, mask: torch.Tensor, xps: dict, whs: dict,
-           seqs: dict) -> None:
-    """Shapes [T, B, 3H] for ``xps``, [T, B, 1] for the mask, [H, 3H] for
-    ``whs``, [T, B, H] for ``seqs`` (dicts name -> tensor); float32, one
-    device, contiguous on CUDA."""
-    first_name, first = next(iter(xps.items()))
-    if first.dim() != 3 or first.shape[2] % 3:
-        raise ValueError(f"{name}: {first_name} must be [T, B, 3H], got "
-                         f"{tuple(first.shape)}")
-    t_steps, batch, gh = first.shape
-    hidden = gh // 3
-    want = {
-        **{k: (v, (t_steps, batch, gh)) for k, v in xps.items()},
-        "mask": (mask, (t_steps, batch, 1)),
-        **{k: (v, (hidden, gh)) for k, v in whs.items()},
-        **{k: (v, (t_steps, batch, hidden)) for k, v in seqs.items()},
-    }
-    for arg, (t, shape) in want.items():
-        if tuple(t.shape) != shape:
-            raise ValueError(f"{name}: {arg} must be {shape}, got "
-                             f"{tuple(t.shape)}")
-        if t.dtype != torch.float32:
-            raise ValueError(f"{name}: {arg} must be float32, got {t.dtype}")
-        if t.device != first.device:
-            raise ValueError(f"{name}: {arg} is on {t.device}, "
-                             f"{first_name} on {first.device}")
-    if first.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"{name}: no kernel for device {first.device}")
-    if first.device.type == "cuda" and not all(
-            t.is_contiguous() for t, _ in want.values()):
-        raise ValueError(f"{name}: the kernel takes contiguous tensors")
-
-
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
 def _fwd_kernel(name: str, xps: list, mask: torch.Tensor,
                 whs: list) -> list:
     """Launch ``gru_fwd`` over ``len(xps)`` directions (the second one
@@ -102,7 +66,7 @@ def _fwd_kernel(name: str, xps: list, mask: torch.Tensor,
             xps[0].data_ptr(), xps[-1].data_ptr(), mask.data_ptr(),
             whs[0].data_ptr(), whs[-1].data_ptr(), outs[0].data_ptr(),
             outs[-1].data_ptr(), t_steps, batch, gh // 3, len(xps),
-            _stream(xps[0]))
+            stream(xps[0]))
     _build.check(err, name)
     return outs
 
@@ -121,8 +85,8 @@ def bigru(xp_f: torch.Tensor, xp_b: torch.Tensor, mask: torch.Tensor,
                 frame repeats the previous h.  No autograd graph:
                 :class:`BiGRUFunction` is the differentiable form.
     """
-    _check("bigru", mask, dict(xp_f=xp_f, xp_b=xp_b),
-           dict(wh_f=wh_f, wh_b=wh_b), {})
+    check("bigru", 3, mask, dict(xp_f=xp_f, xp_b=xp_b),
+          dict(wh_f=wh_f, wh_b=wh_b), {})
     if xp_f.device.type == "cpu":
         with torch.no_grad():
             return bigru_plain(xp_f, xp_b, mask, wh_f, wh_b)
@@ -139,7 +103,7 @@ def gru(xp: torch.Tensor, mask: torch.Tensor,
     """One unidirectional GRU layer's recurrence, forward only: xp [T, B,
     3H], mask [T, B, 1], wh [H, 3H] -> h [T, B, H] (see :func:`bigru`).
     :class:`GRUFunction` is the differentiable form."""
-    _check("gru", mask, dict(xp=xp), dict(wh=wh), {})
+    check("gru", 3, mask, dict(xp=xp), dict(wh=wh), {})
     if xp.device.type == "cpu":
         with torch.no_grad():
             return gru_plain(xp, mask, wh)
@@ -151,20 +115,12 @@ def gru(xp: torch.Tensor, mask: torch.Tensor,
 gru.launches = 0
 
 
-def _prev(seq: torch.Tensor, reverse: bool) -> torch.Tensor:
-    """The scan-previous state of every frame: t-1 for a forward walk, t+1
-    for a reversed one, zero past the ends."""
-    zero = seq.new_zeros((1,) + tuple(seq.shape[1:]))
-    return torch.cat([seq[1:], zero]) if reverse else torch.cat(
-        [zero, seq[:-1]])
-
-
 def _walk_bwd(xp, mask, wh, h, dh_out, reverse: bool
               ) -> tuple[torch.Tensor, torch.Tensor]:
     """One direction's cotangent walk (``_gru_row_bwd`` of the JAX
     package), from the end of its own time order back -> (dxp, dhp)."""
     t_steps, batch, gh = xp.shape
-    hp = _prev(h, reverse)
+    hp = prev(h, reverse)
     dxp, dhp = torch.empty_like(xp), torch.empty_like(xp)
     dh_next = xp.new_zeros((batch, gh // 3))
     for t in (range(t_steps) if reverse else reversed(range(t_steps))):
@@ -213,7 +169,7 @@ def _bwd_kernel(name: str, xps: list, mask: torch.Tensor, whs: list,
     with torch.cuda.device(xps[0].device):
         err = _build.lib().asr_gru_bwd(
             *(t.data_ptr() for t in args), t_steps, batch, gh // 3,
-            len(xps), _stream(xps[0]))
+            len(xps), stream(xps[0]))
     _build.check(err, name)
     return outs
 
@@ -230,9 +186,9 @@ def bigru_bwd(xp_f: torch.Tensor, xp_b: torch.Tensor, mask: torch.Tensor,
     ``dhp = [dr, dz, dn * r]`` (pre-activation gradients on the x and h
     side), both zero on masked frames; the recurrent weight gradient is
     ``h_prev^T dhp``."""
-    _check("bigru_bwd", mask, dict(xp_f=xp_f, xp_b=xp_b),
-           dict(wh_f=wh_f, wh_b=wh_b),
-           dict(h_f=h_f, h_b=h_b, dh_f=dh_f, dh_b=dh_b))
+    check("bigru_bwd", 3, mask, dict(xp_f=xp_f, xp_b=xp_b),
+          dict(wh_f=wh_f, wh_b=wh_b),
+          dict(h_f=h_f, h_b=h_b, dh_f=dh_f, dh_b=dh_b))
     if xp_f.device.type == "cpu":
         with torch.no_grad():
             return bigru_bwd_plain(xp_f, xp_b, mask, wh_f, wh_b, h_f, h_b,
@@ -251,7 +207,7 @@ def gru_bwd(xp: torch.Tensor, mask: torch.Tensor, wh: torch.Tensor,
             ) -> tuple[torch.Tensor, torch.Tensor]:
     """The cotangent walk of :func:`gru` -> (dxp, dhp), as in
     :func:`bigru_bwd` for one direction."""
-    _check("gru_bwd", mask, dict(xp=xp), dict(wh=wh), dict(h=h, dh=dh))
+    check("gru_bwd", 3, mask, dict(xp=xp), dict(wh=wh), dict(h=h, dh=dh))
     if xp.device.type == "cpu":
         with torch.no_grad():
             return gru_bwd_plain(xp, mask, wh, h, dh)
@@ -267,12 +223,8 @@ def _dwh(h: torch.Tensor, dhp: torch.Tensor, reverse: bool) -> torch.Tensor:
     """``h_prev^T dhp`` over all T*B rows (not ``dxp``: its n block lacks
     the factor r)."""
     hidden = h.shape[-1]
-    return _prev(h, reverse).reshape(-1, hidden).t() @ dhp.reshape(
+    return prev(h, reverse).reshape(-1, hidden).t() @ dhp.reshape(
         -1, 3 * hidden)
-
-
-def _cot(dh, h):
-    return torch.zeros_like(h) if dh is None else dh.contiguous()
 
 
 class BiGRUFunction(torch.autograd.Function):
@@ -290,8 +242,8 @@ class BiGRUFunction(torch.autograd.Function):
     def backward(ctx, dh_f, dh_b):
         xp_f, xp_b, mask, wh_f, wh_b, h_f, h_b = ctx.saved_tensors
         dxp_f, dhp_f, dxp_b, dhp_b = bigru_bwd(
-            xp_f, xp_b, mask, wh_f, wh_b, h_f, h_b, _cot(dh_f, h_f),
-            _cot(dh_b, h_b))
+            xp_f, xp_b, mask, wh_f, wh_b, h_f, h_b, cotangent(dh_f, h_f),
+            cotangent(dh_b, h_b))
         return (dxp_f, dxp_b, None, _dwh(h_f, dhp_f, False),
                 _dwh(h_b, dhp_b, True))
 
@@ -309,5 +261,5 @@ class GRUFunction(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dh):
         xp, mask, wh, h = ctx.saved_tensors
-        dxp, dhp = gru_bwd(xp, mask, wh, h, _cot(dh, h))
+        dxp, dhp = gru_bwd(xp, mask, wh, h, cotangent(dh, h))
         return dxp, None, _dwh(h, dhp, False)

@@ -3,9 +3,9 @@
 
 A train step is forward (``train=True``, dropout from a ``torch.Generator``)
 -> per-sequence CTC -> the weighted sum over ``max(sum(w), 1)`` ->
-backward -> clip by global norm -> Adam.  On a CUDA device the BLSTM layers
-and the CTC lattice run the port's kernels forward and backward; the rest
-is plain torch (cuBLAS fp32 matmuls: TF32 is not turned on here).
+backward -> clip by global norm -> Adam.  On a CUDA device the recurrent
+layers and the CTC lattice run the port's kernels forward and backward; the
+rest is plain torch (cuBLAS fp32 matmuls: TF32 is not turned on here).
 
 The optimizer is optax's ``chain(clip_by_global_norm(clipnorm),
 adam(lr))``: the clip scales by ``clipnorm / norm`` only where

@@ -9,6 +9,12 @@ and the tensors keep JAX's layouts: ``wx`` [F, G*H], ``wh`` [H, G*H] and
 ``b`` [G*H] with G gate blocks (LSTM: 4, gate order i, f, g, o, the forget
 bias 1 in ``b``; GRU: 3, gate order r, z, n), and ``out/w`` [D*H, V+1] for
 D directions (a unidirectional layer has ``fw`` only).
+
+Dense layers are ``w`` [in, out] and ``b`` [out] under their own paths:
+the Deep Speech front end ``front/<i>/w`` and ``front/<i>/b``, and the skip
+parameters of a residual or highway stack, ``rnn/layers/<i>/proj/w`` (only
+where layer i changes the width) and ``rnn/layers/<i>/gate/w`` (every
+highway layer).
 """
 
 from __future__ import annotations

@@ -10,14 +10,17 @@ paths at full width, with random weights from a seeded
 - serving (BASELINE config 2): pcm16 wire -> MFCC+deltas -> deep_blstm
   2x256 -> greedy CTC, B=32 LapsBM-like utterances of 3-8 s at 16 kHz, 8
   batches, through ``cli.predict.serve_batch``;
-- serving ``deep_gru`` at its full default size (3x256, bidirectional),
-  the same 8 batches through the same function;
+- serving the other recurrent models at full width, the same 8 batches
+  through the same function: ``deep_gru`` 3x256 (bidirectional),
+  ``deep_blstm`` 3x256 with ``bidirectional=false``, ``highway_blstm``
+  5x256 and ``deep_speech`` (3x512 dense front end, one 512-unit BLSTM);
 - training (BASELINE config 3): features [32, 512, 39] -> deep_blstm 3x256
   (dropout 0) -> CTC -> backward -> clip by global norm -> Adam
   (``make_optimizer("adam", 1e-4, 400.0)``), through ``Trainer.train_step``
   and ``fit``, as ``benchmarks/bench_train.py`` drives the JAX trainer;
-- training ``deep_gru`` 3x256 at the same shapes, bidirectional and
-  unidirectional (``bidirectional=false``), through ``Trainer.train_step``.
+- training at the same shapes through ``Trainer.train_step``: ``deep_gru``
+  3x256 bidirectional and unidirectional, ``deep_blstm`` 3x256
+  unidirectional, ``highway_blstm`` 5x256 and ``deep_speech``, dropout 0.
 
 Phases, in order; any failure raises and the exit code is not 0:
 
@@ -26,15 +29,16 @@ Phases, in order; any failure raises and the exit code is not 0:
 3. each kernel against its plain PyTorch version on the card, at its path's
    shapes, within the stated tolerance, with its time, its plain version's
    time, its bound and the time of the PyTorch library call that computes
-   the same function (cuDNN ``nn.LSTM`` / ``nn.GRU``, ``F.ctc_loss``);
+   the same function (cuDNN ``nn.LSTM`` / ``nn.GRU``, ``F.ctc_loss``); the
+   LSTM kernels also at the zoo's other widths, H=512 and H=100;
 4. the serving slices, with launch counters proving their kernels ran,
    logits held against the plain path on the CPU;
 5. serving timings from CUDA events after a warm-up;
 6. the training slices: launch counters per step, one card step held
    against the same step of the plain path on the CPU (loss, grad norm,
    every gradient), the loss falling over 20 steps on one batch, and (for
-   deep_blstm) ``fit`` over a few batches with a checkpoint saved,
-   restored and continued;
+   the bidirectional deep_blstm) ``fit`` over a few batches with a
+   checkpoint saved, restored and continued;
 7. training timings: ms per step, steps/s, audio-s/s, per-stage ms, the
    device busy share.
 
@@ -327,6 +331,18 @@ def device_busy(prof) -> tuple[float, float, float] | None:
     return busy / span, busy / 1e3, span / 1e3
 
 
+def mask_of(lengths: torch.Tensor, t: int, dev: torch.device) -> torch.Tensor:
+    """The frame mask [T, B, 1] of ``lengths``, contiguous on ``dev``."""
+    return (torch.arange(t)[:, None] < lengths.cpu()[None, :]).float()[
+        ..., None].to(dev).contiguous()
+
+
+def input_proj(cell, x: torch.Tensor) -> torch.Tensor:
+    """``x @ wx + b`` of one cell, as the layer hands it to the kernel."""
+    with torch.no_grad():
+        return (cell.input_proj(x) + cell.b).contiguous()
+
+
 def check_training_kernels(dev: torch.device, card: str) -> dict:
     """Phase 3 for the training kernels, at config-3 shapes (T=512, B=32,
     H=256, L=48, S=97, lengths 256-512, label lengths 24-48), and their
@@ -344,13 +360,11 @@ def check_training_kernels(dev: torch.device, card: str) -> dict:
     lengths = torch.randint(t // 2, t + 1, (b,), generator=g)
     lengths[0] = t
     x = torch.randn(t, b, FEATS, generator=g).to(dev)
-    mask = (torch.arange(t)[:, None] < lengths[None, :]).float()[..., None]
-    mask = mask.to(dev)
+    mask = mask_of(lengths, t, dev)
     dh_f = torch.randn(t, b, h, generator=g).to(dev)
     dh_b = torch.randn(t, b, h, generator=g).to(dev)
     with torch.no_grad():
-        xp_f = (layer.fw.input_proj(x) + layer.fw.b).contiguous()
-        xp_b = (layer.bw.input_proj(x) + layer.bw.b).contiguous()
+        xp_f, xp_b = input_proj(layer.fw, x), input_proj(layer.bw, x)
         wh_f, wh_b = layer.fw.wh.detach(), layer.bw.wh.detach()
         fwd_args = (xp_f, xp_b, mask, wh_f, wh_b)
         bwd_args = (*fwd_args, *bilstm(*fwd_args), dh_f, dh_b)
@@ -483,14 +497,6 @@ def check_gru_kernels(dev: torch.device, card: str, x_serve: torch.Tensor,
                         f"{str(bidirectional).lower()}", input_dim=FEATS,
                         generator=g, device=dev).rnn.layers[0].rnn
 
-    def mask_of(lengths, t):
-        return (torch.arange(t)[:, None] < lengths.cpu()[None, :]).float()[
-            ..., None].to(dev).contiguous()
-
-    def proj(cell, x):
-        with torch.no_grad():
-            return (cell.input_proj(x) + cell.b).contiguous()
-
     def dwh_err(fn, plain_fn, xps, mask, whs, dhs):
         """max |dwh kernel - dwh autograd(plain)| / max |dwh|"""
         w_k = [w.clone().requires_grad_() for w in whs]
@@ -508,9 +514,9 @@ def check_gru_kernels(dev: torch.device, card: str, x_serve: torch.Tensor,
     # bigru_fwd at the serving shapes
     bi = layer0(True)
     t_s = x_serve.shape[0]
-    mask_s = mask_of(len_serve, t_s)
-    fwd_s = (proj(bi.fw, x_serve), proj(bi.bw, x_serve), mask_s,
-             bi.fw.wh.detach(), bi.bw.wh.detach())
+    mask_s = mask_of(len_serve, t_s, dev)
+    fwd_s = (input_proj(bi.fw, x_serve), input_proj(bi.bw, x_serve),
+             mask_s, bi.fw.wh.detach(), bi.bw.wh.detach())
     with torch.no_grad():
         got, want = bigru(*fwd_s), bigru_plain(*fwd_s)
         times["bigru_fwd"] = (cuda_ms(lambda: bigru(*fwd_s), 10),
@@ -534,18 +540,19 @@ def check_gru_kernels(dev: torch.device, card: str, x_serve: torch.Tensor,
     lengths = torch.randint(t // 2, t + 1, (b,), generator=g)
     lengths[0] = t
     x = torch.randn(t, b, FEATS, generator=g).to(dev)
-    mask = mask_of(lengths, t)
+    mask = mask_of(lengths, t, dev)
     dh = [torch.randn(t, b, h, generator=g).to(dev) for _ in range(2)]
     uni = layer0(False)
     cases = {
         # name: (layer, xps, whs, forward, its plain, backward, its plain,
         #        differentiable op, plain op)
-        "bigru": (bi, [proj(bi.fw, x), proj(bi.bw, x)],
+        "bigru": (bi, [input_proj(bi.fw, x), input_proj(bi.bw, x)],
                   [bi.fw.wh.detach(), bi.bw.wh.detach()], bigru, bigru_plain,
                   bigru_bwd, bigru_bwd_plain, BiGRUFunction.apply,
                   bigru_plain),
-        "gru": (uni, [proj(uni.fw, x)], [uni.fw.wh.detach()], gru, gru_plain,
-                gru_bwd, gru_bwd_plain, GRUFunction.apply, gru_plain),
+        "gru": (uni, [input_proj(uni.fw, x)], [uni.fw.wh.detach()], gru,
+                gru_plain, gru_bwd, gru_bwd_plain, GRUFunction.apply,
+                gru_plain),
     }
     for name, (layer, xps, whs, fwd, fwd_plain, bwd, bwd_plain, fn,
                plain_fn) in cases.items():
@@ -602,6 +609,159 @@ def check_gru_kernels(dev: torch.device, card: str, x_serve: torch.Tensor,
             "library": library}
 
 
+def lstm_smem(hidden: int) -> tuple[int, int, int]:
+    """Dynamic shared memory of bilstm_fwd and bilstm_bwd per block at width
+    ``hidden``, by the formulas of their C entry points -> (forward bytes,
+    backward bytes, the backward's partial sums per unit)."""
+    gates = 4 * hidden
+    threads = min(-(-gates // 32) * 32, 1024)
+    nsplit = max(threads // hidden, 1)
+    return (4 * 4 * (2 * hidden + gates),
+            4 * 4 * ((3 + nsplit) * hidden + gates), nsplit)
+
+
+def check_lstm_kernels(dev: torch.device, card: str, x_serve: torch.Tensor,
+                       len_serve: torch.Tensor) -> dict:
+    """Phase 3 for the one-direction LSTM kernels, and for the two-direction
+    ones at the zoo's other widths.
+
+    lstm_fwd at the serving shapes (the check batch's features [T=805,
+    B=32, 39] through layer 0 of a unidirectional 3x256 deep_blstm, ragged
+    lengths) and lstm_bwd at the config-3 shapes (T=512, B=32, H=256,
+    lengths 256-512), each against its plain version, dwh through
+    LSTMFunction against autograd through lstm_plain, timed with its bound
+    and cuDNN's unidirectional ``nn.LSTM``.  Then bilstm_fwd (T=805) and
+    bilstm_bwd (T=512) at H=512 (deep_speech's width) and H=100
+    (graves2006's) against their plain versions, timed; their xp come from
+    the features through a layer of that width."""
+    from asr_study_torch.models.zoo import deep_blstm
+    from asr_study_torch.ops.bilstm import (LSTMFunction, bilstm, bilstm_bwd,
+                                            bilstm_bwd_plain, bilstm_plain,
+                                            lstm, lstm_bwd, lstm_bwd_plain,
+                                            lstm_plain)
+
+    g = torch.Generator().manual_seed(SEED + 6)
+
+    def layer0(hidden: int, bidirectional: bool):
+        return deep_blstm(f"num_hiddens={hidden},num_layers=1,bidirectional="
+                          f"{str(bidirectional).lower()}", input_dim=FEATS,
+                          generator=g, device=dev).rnn.layers[0].rnn
+
+    def max_err(got, want):
+        return max(float((k - p).abs().max()) for k, p in zip(got, want))
+
+    errs, times, bounds, library = {}, {}, {}, {}
+
+    # lstm_fwd at the serving shapes
+    uni = layer0(HIDDEN, False)
+    t_s = x_serve.shape[0]
+    mask_s = mask_of(len_serve, t_s, dev)
+    fwd_s = (input_proj(uni.fw, x_serve), mask_s, uni.fw.wh.detach())
+    with torch.no_grad():
+        got, want = lstm(*fwd_s), lstm_plain(*fwd_s)
+        times["lstm_fwd"] = (cuda_ms(lambda: lstm(*fwd_s), 10),
+                             cuda_ms(lambda: lstm_plain(*fwd_s), 2, 1))
+    errs["lstm_fwd"] = max_err(got, want)
+    bounds["lstm_fwd"] = rnn_bound(fwd_s[0], HIDDEN, 1, 1, (*fwd_s, *got))
+    print(f"lstm_fwd kernel vs plain: T={t_s} B={BATCH} H={HIDDEN} lengths "
+          f"{int(len_serve.min())}..{int(len_serve.max())} "
+          f"max_abs_err={errs['lstm_fwd']:.3e} (h "
+          f"{max_err(got[:1], want[:1]):.2e} c "
+          f"{max_err(got[1:], want[1:]):.2e}; max|c| "
+          f"{float(want[1].abs().max()):.2f}) (tol {BILSTM_ATOL:g} + "
+          f"{BILSTM_RTOL:g}*|plain|)")
+    require(all(within(k, p, BILSTM_ATOL, BILSTM_RTOL)
+                for k, p in zip(got, want)),
+            "lstm_fwd kernel disagrees with plain")
+    y = rnn_yardsticks("lstm", uni, x_serve, len_serve, mask_s)
+    print_yardsticks(card, f"cuDNN nn.LSTM unidirectional, T={t_s} "
+                     f"B={BATCH} H={HIDDEN}", y)
+    require(y["out_err"] <= LOGITS_TOL, "layer disagrees with nn.LSTM")
+    library["lstm_fwd"] = y["lib_fwd"]
+
+    # lstm_bwd at the training shapes
+    t, b = TRAIN_T, TRAIN_B
+    lengths = torch.randint(t // 2, t + 1, (b,), generator=g)
+    lengths[0] = t
+    x = torch.randn(t, b, FEATS, generator=g).to(dev)
+    mask = mask_of(lengths, t, dev)
+    dh = torch.randn(t, b, HIDDEN, generator=g).to(dev)
+    xp, wh = input_proj(uni.fw, x), uni.fw.wh.detach()
+    with torch.no_grad():
+        bwd_args = (xp, mask, wh, *lstm(xp, mask, wh), dh)
+        d_k, d_p = lstm_bwd(*bwd_args), lstm_bwd_plain(*bwd_args)
+        times["lstm_bwd"] = (cuda_ms(lambda: lstm_bwd(*bwd_args), 10),
+                             cuda_ms(lambda: lstm_bwd_plain(*bwd_args), 2,
+                                     1))
+    errs["lstm_bwd"] = float((d_k - d_p).abs().max())
+    bounds["lstm_bwd"] = rnn_bound(xp, HIDDEN, 1, 2, (*bwd_args, d_k))
+    w_k, w_p = wh.clone().requires_grad_(), wh.clone().requires_grad_()
+    torch.autograd.backward(LSTMFunction.apply(xp, mask, w_k), dh)
+    torch.autograd.backward(lstm_plain(xp, mask, w_p)[0], dh)
+    dwh_err = float((w_k.grad - w_p.grad).abs().max() / w_p.grad.abs().max())
+    print(f"lstm_bwd kernel vs plain: T={t} B={b} H={HIDDEN} lengths "
+          f"{int(lengths.min())}..{t} max_abs_err={errs['lstm_bwd']:.3e} "
+          f"(max|dxp| {float(d_p.abs().max()):.2f}; tol {BWD_ATOL:g} + "
+          f"{BWD_RTOL:g}*|plain|); dwh via LSTMFunction vs autograd through "
+          f"lstm_plain: max err / max|dwh| = {dwh_err:.3e} (tol "
+          f"{DWH_RTOL:g})")
+    require(within(d_k, d_p, BWD_ATOL, BWD_RTOL),
+            "lstm_bwd kernel disagrees with plain")
+    require(dwh_err <= DWH_RTOL, "LSTMFunction dwh disagrees with autograd")
+    y = rnn_yardsticks("lstm", uni, x, lengths.to(dev), mask)
+    print_yardsticks(card, f"cuDNN nn.LSTM unidirectional, T={t} B={b} "
+                     f"H={HIDDEN}", y)
+    require(y["out_err"] <= LOGITS_TOL, "layer disagrees with nn.LSTM")
+    library["lstm_bwd"] = y["lib_bwd"]
+    for name in ("lstm_fwd", "lstm_bwd"):
+        k_ms, p_ms = times[name]
+        print(f"[{card}] {name}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+              f"bound {bounds[name][0]:.4f} ms ({bounds[name][1]}), library "
+              f"{library[name]:.4f} ms")
+
+    # the two-direction kernels at the zoo's other widths
+    for hidden, model in ((512, "deep_speech"), (100, "graves2006")):
+        bi = layer0(hidden, True)
+        fwd_args = (input_proj(bi.fw, x_serve), input_proj(bi.bw, x_serve),
+                    mask_s, bi.fw.wh.detach(), bi.bw.wh.detach())
+        train_fwd = (input_proj(bi.fw, x), input_proj(bi.bw, x), mask,
+                     bi.fw.wh.detach(), bi.bw.wh.detach())
+        dhs = [torch.randn(t, b, hidden, generator=g).to(dev)
+               for _ in range(2)]
+        with torch.no_grad():
+            got, want = bilstm(*fwd_args), bilstm_plain(*fwd_args)
+            bwd_args = (*train_fwd, *bilstm(*train_fwd), *dhs)
+            d_k, d_p = bilstm_bwd(*bwd_args), bilstm_bwd_plain(*bwd_args)
+            fwd_ms = (cuda_ms(lambda: bilstm(*fwd_args), 5),
+                      cuda_ms(lambda: bilstm_plain(*fwd_args), 1, 1))
+            bwd_ms = (cuda_ms(lambda: bilstm_bwd(*bwd_args), 5),
+                      cuda_ms(lambda: bilstm_bwd_plain(*bwd_args), 1, 1))
+        fwd_bound = rnn_bound(fwd_args[0], hidden, 2, 1, (*fwd_args, *got))
+        bwd_bound = rnn_bound(train_fwd[0], hidden, 2, 2, (*bwd_args, *d_k))
+        max_c = max(float(want[1].abs().max()), float(want[3].abs().max()))
+        print(f"bilstm_fwd kernel vs plain at H={hidden} ({model}'s width): "
+              f"T={t_s} B={BATCH} max_abs_err={max_err(got, want):.3e} "
+              f"(max|c| {max_c:.2f})"
+              f" (tol {BILSTM_ATOL:g} + {BILSTM_RTOL:g}*|plain|); bilstm_bwd "
+              f"at T={t} B={b}: max_abs_err={max_err(d_k, d_p):.3e} (max|dxp| "
+              f"{max(float(p.abs().max()) for p in d_p):.2f}; tol "
+              f"{BWD_ATOL:g} + {BWD_RTOL:g}*|plain|)")
+        require(all(within(k, p, BILSTM_ATOL, BILSTM_RTOL)
+                    for k, p in zip(got, want)),
+                f"bilstm_fwd kernel disagrees with plain at H={hidden}")
+        require(all(within(k, p, BWD_ATOL, BWD_RTOL)
+                    for k, p in zip(d_k, d_p)),
+                f"bilstm_bwd kernel disagrees with plain at H={hidden}")
+        print(f"[{card}] bilstm_fwd at H={hidden}, T={t_s} B={BATCH}: kernel "
+              f"{fwd_ms[0]:.4f} ms, plain {fwd_ms[1]:.4f} ms, bound "
+              f"{fwd_bound[0]:.4f} ms ({fwd_bound[1]}); bilstm_bwd at "
+              f"H={hidden}, T={t} B={b}: kernel {bwd_ms[0]:.4f} ms, plain "
+              f"{bwd_ms[1]:.4f} ms, bound {bwd_bound[0]:.4f} ms "
+              f"({bwd_bound[1]})")
+    return {"errs": errs, "times": times, "bounds": bounds,
+            "library": library}
+
+
 # every kernel of the port: name -> (source in asr_study_torch/csrc, the TPU
 # kernel it replaces in asr_study_tpu)
 KERNELS = {
@@ -614,15 +774,29 @@ KERNELS = {
     "bigru_bwd": ("gru_bwd.cu", "ops/pallas_bigru.py:92"),
     "gru_fwd": ("gru_fwd.cu", "ops/pallas_gru.py:41"),
     "gru_bwd": ("gru_bwd.cu", "ops/pallas_gru.py:60"),
+    "lstm_fwd": ("bilstm_fwd.cu", "ops/pallas_lstm.py:83"),
+    "lstm_bwd": ("bilstm_bwd.cu", "ops/pallas_lstm.py:173"),
 }
 
 # training paths: label -> (zoo model, its hparams, forward and backward
-# kernel of its recurrence)
+# kernel of its recurrence, recurrent layers, what it is)
+_CONFIG3 = f"num_hiddens={HIDDEN},num_layers={TRAIN_LAYERS},dropout=0.0"
 TRAIN_PATHS = {
-    "deep_blstm": ("deep_blstm", "", "bilstm_fwd", "bilstm_bwd"),
-    "deep_gru": ("deep_gru", "", "bigru_fwd", "bigru_bwd"),
-    "deep_gru uni": ("deep_gru", ",bidirectional=false", "gru_fwd",
-                     "gru_bwd"),
+    "deep_blstm": ("deep_blstm", _CONFIG3, "bilstm_fwd", "bilstm_bwd",
+                   TRAIN_LAYERS, f"{TRAIN_LAYERS}x{HIDDEN}"),
+    "deep_gru": ("deep_gru", _CONFIG3, "bigru_fwd", "bigru_bwd",
+                 TRAIN_LAYERS, f"{TRAIN_LAYERS}x{HIDDEN}"),
+    "deep_gru uni": ("deep_gru", _CONFIG3 + ",bidirectional=false",
+                     "gru_fwd", "gru_bwd", TRAIN_LAYERS,
+                     f"{TRAIN_LAYERS}x{HIDDEN}"),
+    "deep_blstm uni": ("deep_blstm", _CONFIG3 + ",bidirectional=false",
+                       "lstm_fwd", "lstm_bwd", TRAIN_LAYERS,
+                       f"{TRAIN_LAYERS}x{HIDDEN}"),
+    "highway_blstm": ("highway_blstm", f"num_hiddens={HIDDEN},dropout=0.0",
+                      "bilstm_fwd", "bilstm_bwd", 5, f"5x{HIDDEN} highway"),
+    "deep_speech": ("deep_speech", "dropout=0.0,input_dropout=0.0",
+                    "bilstm_fwd", "bilstm_bwd", 1,
+                    "3x512 dense + 1x512 BLSTM"),
 }
 
 
@@ -630,12 +804,12 @@ def launch_counters() -> dict:
     """Every kernel wrapper of the port, by kernel name."""
     from asr_study_torch.features.fbank import fbank
     from asr_study_torch.ops import ctc
-    from asr_study_torch.ops.bilstm import bilstm, bilstm_bwd
+    from asr_study_torch.ops.bilstm import bilstm, bilstm_bwd, lstm, lstm_bwd
     from asr_study_torch.ops.gru import bigru, bigru_bwd, gru, gru_bwd
     return {"fbank": fbank, "bilstm_fwd": bilstm, "bilstm_bwd": bilstm_bwd,
             "ctc_alpha": ctc.ctc_alpha, "ctc_beta": ctc.ctc_beta,
             "bigru_fwd": bigru, "bigru_bwd": bigru_bwd, "gru_fwd": gru,
-            "gru_bwd": gru_bwd}
+            "gru_bwd": gru_bwd, "lstm_fwd": lstm, "lstm_bwd": lstm_bwd}
 
 
 def reset_counts() -> None:
@@ -656,15 +830,11 @@ def training_slice(dev: torch.device, card: str, path: str = "deep_blstm",
     from asr_study_torch.models.zoo import build_model
     from asr_study_torch.train.trainer import Trainer, make_optimizer
 
-    model_name, extra_hp, fwd_name, bwd_name = TRAIN_PATHS[path]
+    model_name, hp, fwd_name, bwd_name, layers, desc = TRAIN_PATHS[path]
 
     def per_steps(n, evals=0):
-        return {fwd_name: TRAIN_LAYERS * (n + evals),
-                bwd_name: TRAIN_LAYERS * n, "ctc_alpha": n + evals,
-                "ctc_beta": n}
-
-    hp = (f"num_hiddens={HIDDEN},num_layers={TRAIN_LAYERS},dropout=0.0"
-          + extra_hp)
+        return {fwd_name: layers * (n + evals), bwd_name: layers * n,
+                "ctc_alpha": n + evals, "ctc_beta": n}
 
     def make(device, seed=SEED):
         return build_model(model_name, hp, num_classes=NUM_CLASSES,
@@ -698,7 +868,7 @@ def training_slice(dev: torch.device, card: str, path: str = "deep_blstm",
     torch.cuda.synchronize()
     launches = read_counts()
     losses = torch.stack(losses).cpu()
-    print(f"train slice: {path} {TRAIN_LAYERS}x{HIDDEN} B={TRAIN_B} "
+    print(f"train slice: {path} {desc} B={TRAIN_B} "
           f"T={TRAIN_T} L={TRAIN_L}, adam 1e-4 clip 400; launches over "
           f"{TRAIN_STEPS} steps {launches}, per step "
           f"{ {k: v / TRAIN_STEPS for k, v in launches.items()} }")
@@ -738,7 +908,7 @@ def training_slice(dev: torch.device, card: str, path: str = "deep_blstm",
 
     if with_fit:
         fit_and_resume(dev, make, spec, per_steps)
-    stats = train_timings(card, path, trainer, state, batch)
+    stats = train_timings(card, path, desc, layers, trainer, state, batch)
     return {"launches": launches, **stats}
 
 
@@ -804,7 +974,8 @@ def fit_and_resume(dev, make, spec, per_steps) -> None:
               f"{ckpt.best_step}")
 
 
-def train_timings(card: str, path: str, trainer, state, batch) -> dict:
+def train_timings(card: str, path: str, desc: str, layers: int, trainer,
+                  state, batch) -> dict:
     """Phase 7: ms per step, per-stage CUDA events, the busy share."""
     from asr_study_torch.ops import ctc
 
@@ -831,13 +1002,13 @@ def train_timings(card: str, path: str, trainer, state, batch) -> dict:
     staged()
     runs = [staged() for _ in range(5)]
     torch.cuda.synchronize()
-    names = (f"forward ({TRAIN_LAYERS} recurrent layers + classifier)",
+    names = (f"forward ({layers} recurrent layers + classifier)",
              "CTC (lattice, alpha, beta, dlp, log-softmax grad)",
-             f"backward (classifier + {TRAIN_LAYERS} recurrent layers)",
+             f"backward (classifier + {layers} recurrent layers)",
              "clip + Adam")
     stages = {n: sum(r[i].elapsed_time(r[i + 1]) for r in runs) / len(runs)
               for i, n in enumerate(names)}
-    print(f"[{card}] {path} train step ({TRAIN_LAYERS}x{HIDDEN}, "
+    print(f"[{card}] {path} train step ({desc}, "
           f"B={TRAIN_B}, T={TRAIN_T}, L={TRAIN_L}): {step_ms:.4f} ms/step, "
           f"{1e3 / step_ms:.3f} steps/s, "
           f"{AUDIO_PER_STEP / (step_ms / 1e3):.1f} audio-s/s")
@@ -877,7 +1048,7 @@ def main() -> int:
     from asr_study_torch.features.device import spectral_plain
     from asr_study_torch.features.fbank import fbank
     from asr_study_torch.features.select import featurizer
-    from asr_study_torch.models.zoo import deep_blstm, deep_gru
+    from asr_study_torch.models.zoo import build_model, deep_blstm
     from asr_study_torch.ops.bilstm import bilstm, bilstm_plain
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -916,13 +1087,17 @@ def main() -> int:
     s_len = 2 * TRAIN_L + 1
     print(f"  dynamic shared memory per block: fbank "
           f"{4 * (16 * (400 + 257 + 40) + 16)} B (16 frames, L=400, "
-          f"K=257, M=40), bilstm_fwd {4 * 4 * (2 * HIDDEN + 4 * HIDDEN)} B "
-          f"(4 rows, H={HIDDEN}), bilstm_bwd "
-          f"{4 * 4 * ((3 + 4) * HIDDEN + 4 * HIDDEN)} B (4 rows, 4 partial "
-          f"sums), ctc_alpha {4 * 2 * s_len} B, ctc_beta {4 * 4 * s_len} B "
-          f"(S={s_len}), gru_fwd {4 * 4 * (HIDDEN + 3 * HIDDEN)} B (4 rows), "
-          f"gru_bwd {4 * 4 * ((2 + 3) * HIDDEN + 3 * HIDDEN)} B (4 rows, 3 "
-          f"partial sums)")
+          f"K=257, M=40), ctc_alpha {4 * 2 * s_len} B, ctc_beta "
+          f"{4 * 4 * s_len} B (S={s_len}), gru_fwd "
+          f"{4 * 4 * (HIDDEN + 3 * HIDDEN)} B (4 rows), gru_bwd "
+          f"{4 * 4 * ((2 + 3) * HIDDEN + 3 * HIDDEN)} B (4 rows, 3 partial "
+          f"sums)")
+    for hidden in (100, HIDDEN, 512):
+        fwd_b, bwd_b, nsplit = lstm_smem(hidden)
+        print(f"  dynamic shared memory per block at H={hidden}: bilstm_fwd "
+              f"and lstm_fwd {fwd_b} B (4 rows), bilstm_bwd and lstm_bwd "
+              f"{bwd_b} B (4 rows, {nsplit} partial sums); the default "
+              f"limit is 49152 B, raised at each launch")
 
     # 3. kernels against their plain versions at main-path shapes ---------
     rng = np.random.RandomState(SEED)
@@ -964,8 +1139,7 @@ def main() -> int:
         feats, _ = feat(w, lens)
         x = feats.transpose(0, 1)
         layer = model.rnn.layers[0].rnn
-        xp_f = (layer.fw.input_proj(x) + layer.fw.b).contiguous()
-        xp_b = (layer.bw.input_proj(x) + layer.bw.b).contiguous()
+        xp_f, xp_b = input_proj(layer.fw, x), input_proj(layer.bw, x)
         mask = (torch.arange(t_out, device=dev)[:, None]
                 < feat_lengths[None, :]).float()[..., None].contiguous()
         wh_f, wh_b = layer.fw.wh.detach(), layer.bw.wh.detach()
@@ -998,6 +1172,7 @@ def main() -> int:
     require(lstm_y["out_err"] <= LOGITS_TOL, "layer disagrees with nn.LSTM")
     train_kernels = check_training_kernels(dev, card)
     gru_kernels = check_gru_kernels(dev, card, x_serve, feat_lengths)
+    lstm_kernels = check_lstm_kernels(dev, card, x_serve, feat_lengths)
 
     # 4, 5. the serving slices, through the CLI's serving function ---------
     all_wavs, audio_s = [], 0.0
@@ -1011,7 +1186,7 @@ def main() -> int:
     feat_cpu = featurizer("mfcc", "cpu")
     chunk_cpu = torch.from_numpy(chunk)
 
-    def serving_slice(label, model, fwd_name, layers) -> dict:
+    def serving_slice(label, model, fwd_name, layers, desc) -> dict:
         """One model's serving slice: launches counted from 0, logits and
         transcripts against the plain path on the CPU, ms per batch."""
         def run_slice():
@@ -1053,17 +1228,32 @@ def main() -> int:
         slice_ms = cuda_ms(run_slice, 3, warmup=1) / N_BATCHES
         print(f"[{card}] {label} slice: {slice_ms:.4f} ms/batch, "
               f"{audio_s / (slice_ms * N_BATCHES / 1e3):.1f} audio-s/s "
-              f"(wire unpack + features + {layers}x{HIDDEN} recurrent layers "
-              f"+ classifier + greedy decode, B={BATCH})")
+              f"(wire unpack + features + {desc} + classifier + greedy "
+              f"decode, B={BATCH})")
         return launches
 
     path_launches = [serving_slice("deep_blstm", model, "bilstm_fwd",
-                                   LAYERS)]
-    gru_model = deep_gru(num_classes=NUM_CLASSES, input_dim=feat.num_feats,
-                         generator=torch.Generator().manual_seed(SEED + 4),
-                         device=dev).eval()
-    path_launches.append(serving_slice(
-        "deep_gru", gru_model, "bigru_fwd", len(gru_model.rnn.layers)))
+                                   LAYERS, f"{LAYERS}x{HIDDEN} BLSTM")]
+    # the other recurrent models at full width: label -> (zoo model, its
+    # hparams, forward kernel, what it is); random weights from seeds
+    serve_models = {
+        "deep_gru": ("deep_gru", "", "bigru_fwd", f"3x{HIDDEN} BGRU"),
+        "deep_blstm uni": ("deep_blstm", "bidirectional=false", "lstm_fwd",
+                           f"3x{HIDDEN} unidirectional LSTM"),
+        "highway_blstm": ("highway_blstm", "", "bilstm_fwd",
+                          f"5x{HIDDEN} highway BLSTM"),
+        "deep_speech": ("deep_speech", "", "bilstm_fwd",
+                        "3x512 clipped-ReLU dense + 1x512 BLSTM"),
+    }
+    for i, (label, (name, hp, fwd_name, desc)) in enumerate(
+            serve_models.items()):
+        served = build_model(name, hp, num_classes=NUM_CLASSES,
+                             input_dim=feat.num_feats,
+                             generator=torch.Generator().manual_seed(
+                                 SEED + 4 + i), device=dev).eval()
+        path_launches.append(serving_slice(
+            label, served, fwd_name, len(served.rnn.layers), desc))
+        del served
 
     with torch.inference_mode():
         fb_ms = cuda_ms(lambda: fbank(feat.chain, pre, t_out), 20)
@@ -1088,7 +1278,7 @@ def main() -> int:
         "bilstm_fwd": (bilstm_err, bl_ms, bl_plain_ms, bl_bound,
                        lstm_y["lib_fwd"]),
     }
-    for found in (train_kernels, gru_kernels):
+    for found in (train_kernels, gru_kernels, lstm_kernels):
         for name, err in found["errs"].items():
             measured[name] = (err, *found["times"][name],
                               found["bounds"][name], found["library"][name])

@@ -14,6 +14,7 @@ from asr_study_tpu.data import wire as jwire
 from asr_study_tpu.features import audio
 from asr_study_tpu.features.device import DeviceFeaturizer as JaxFeaturizer
 from asr_study_tpu.features.wav import read_wav, write_wav
+from asr_study_tpu.models import zoo as jzoo
 from asr_study_tpu.models.zoo import deep_gru, graves2006
 from asr_study_tpu.ops.ctc import greedy_decode as jax_greedy_decode
 from asr_study_tpu.text.parser import CharParser
@@ -92,6 +93,34 @@ def test_predict_serves_exported_deep_gru(artifact, tmp_path, capsys,
     meta = {"model": "deep_gru", "params": hp, "num_feats": 39,
             "num_classes": 27, "vocab": CharParser().vocab, "blank_id": 27}
     npz = str(tmp_path / "gru.npz")
+    np.savez(npz, __meta__=json.dumps(meta), **flatten_params(params))
+    assert predict.main(["--on_device", "--weights", npz, "--device", "cpu",
+                         "--batch_size", "2", *paths]) == 0
+    rows = [json.loads(line)
+            for line in capsys.readouterr().out.strip().splitlines()]
+    assert [r["file"] for r in rows] == paths
+    want = _jax_transcripts(model, params, paths, on_device=True)
+    assert [r["transcript"] for r in rows] == want
+
+
+@pytest.mark.parametrize("name,hp", [
+    ("deep_blstm", "num_hiddens=12,num_layers=2,bidirectional=false"),
+    ("highway_blstm", "num_hiddens=12,num_layers=2"),
+    ("residual_blstm", "num_hiddens=12,num_layers=2"),
+    ("deep_speech", "num_hiddens=12,input_dense=16"),
+])
+def test_predict_serves_exported_lstm_zoo(artifact, tmp_path, capsys, name,
+                                          hp):
+    """An exported JAX .npz of each plain-LSTM model the port added (the
+    unidirectional deep_blstm, the highway and residual stacks, the Deep
+    Speech front end) served on the CPU, with the transcripts of the JAX
+    pipeline for the same weights."""
+    _, paths, _, _ = artifact
+    model = getattr(jzoo, name)(hp, num_classes=27)
+    params = model.init(jax.random.PRNGKey(3), 39)
+    meta = {"model": name, "params": hp, "num_feats": 39,
+            "num_classes": 27, "vocab": CharParser().vocab, "blank_id": 27}
+    npz = str(tmp_path / f"{name}.npz")
     np.savez(npz, __meta__=json.dumps(meta), **flatten_params(params))
     assert predict.main(["--on_device", "--weights", npz, "--device", "cpu",
                          "--batch_size", "2", *paths]) == 0

@@ -14,10 +14,13 @@ from asr_study_torch.cli.predict import pack_batches, serve_batch
 from asr_study_torch.features.device import DeviceFeaturizer, spectral_plain
 from asr_study_torch.features.fbank import KernelFeaturizer, fbank
 from asr_study_torch.features.select import featurizer
-from asr_study_torch.models.zoo import deep_blstm, deep_gru, graves2006
+from asr_study_torch.models.zoo import (build_model, deep_blstm, deep_gru,
+                                        graves2006)
 from asr_study_torch.ops import ctc
-from asr_study_torch.ops.bilstm import (BiLSTMFunction, bilstm, bilstm_bwd,
-                                        bilstm_bwd_plain, bilstm_plain)
+from asr_study_torch.ops.bilstm import (BiLSTMFunction, LSTMFunction, bilstm,
+                                        bilstm_bwd, bilstm_bwd_plain,
+                                        bilstm_plain, lstm, lstm_bwd,
+                                        lstm_bwd_plain, lstm_plain)
 from asr_study_torch.ops.gru import (BiGRUFunction, GRUFunction, bigru,
                                      bigru_bwd, bigru_bwd_plain, bigru_plain,
                                      gru, gru_bwd, gru_bwd_plain, gru_plain)
@@ -75,7 +78,7 @@ def test_fbank_kernel_matches_plain(cuda, kind, kw):
 
 
 @pytest.mark.parametrize("t,b,h", [(12, 4, 8), (37, 5, 100), (50, 9, 256),
-                                   (3, 1, 300)])
+                                   (3, 1, 300), (20, 3, 512)])
 def test_bilstm_kernel_matches_plain(cuda, t, b, h):
     g = torch.Generator().manual_seed(h)
     xp_f = torch.randn(t, b, 4 * h, generator=g)
@@ -148,7 +151,7 @@ def _bilstm_case(cuda, t, b, h, seed):
 
 
 @pytest.mark.parametrize("t,b,h", [(12, 4, 8), (37, 5, 100), (50, 9, 256),
-                                   (3, 1, 300), (512, 32, 256)])
+                                   (3, 1, 300), (512, 32, 256), (20, 3, 512)])
 def test_bilstm_bwd_kernel_matches_plain(cuda, t, b, h):
     args, dh = _bilstm_case(cuda, t, b, h, seed=h + t)
     res = bilstm(*args)
@@ -396,6 +399,113 @@ def test_deep_gru_train_step_on_card_matches_cpu(cuda, bidirectional):
                                   *[a.to(dev) for a in batch])
         launched = (fwd.launches - counts[0], bwd.launches - counts[1])
         assert launched == ((2, 2) if dev.type == "cuda" else (0, 0))
+        out.append((float(m["loss"]), float(m["grad_norm"]),
+                    {k: p.grad.cpu() for k, p in model.named_parameters()}))
+    (loss_k, gn_k, g_k), (loss_p, gn_p, g_p) = out
+    assert loss_k == pytest.approx(loss_p, rel=1e-4)
+    assert gn_k == pytest.approx(gn_p, rel=1e-3)
+    for k in g_p:
+        assert float((g_k[k] - g_p[k]).norm()) <= 1e-3 * float(
+            g_p[k].norm()), k
+
+
+LSTM_SIZES = [(12, 4, 8), (37, 5, 100), (50, 9, 256), (20, 3, 512)]
+
+
+@pytest.mark.parametrize("t,b,h", LSTM_SIZES)
+def test_lstm_kernels_match_plain(cuda, t, b, h):
+    """lstm (one direction of bilstm_fwd) and lstm_bwd (of bilstm_bwd)
+    against their plain loops: h, c and dxp; H=100 has a gate width not a
+    multiple of 32, H=512 takes more than 48 KB of shared memory."""
+    args, dh = _bilstm_case(cuda, t, b, h, seed=h + t + 2)
+    xp, mask, wh = args[0], args[2], args[3]
+    before = (lstm.launches, lstm_bwd.launches, bilstm.launches)
+    h_k, c_k = lstm(xp, mask, wh)
+    dxp = lstm_bwd(xp, mask, wh, h_k, c_k, dh[0])
+    assert (lstm.launches, lstm_bwd.launches, bilstm.launches) == (
+        before[0] + 1, before[1] + 1, before[2])
+    h_p, c_p = lstm_plain(xp, mask, wh)
+    dxp_p = lstm_bwd_plain(xp, mask, wh, h_k, c_k, dh[0])
+    torch.cuda.synchronize()
+    torch.testing.assert_close(h_k, h_p, rtol=0, atol=1e-4, msg="h")
+    torch.testing.assert_close(c_k, c_p, rtol=0, atol=1e-4, msg="c")
+    torch.testing.assert_close(dxp, dxp_p, **BWD_TOL, msg="dxp")
+
+
+@pytest.mark.parametrize("t,b,h", [(12, 4, 8), (40, 6, 256)])
+def test_lstm_function_matches_autograd_on_card(cuda, t, b, h):
+    """Gradients of xp and wh through LSTMFunction (both kernels) against
+    autograd through the plain loop, on the card."""
+    (xp, _, mask, wh, _), dh = _bilstm_case(cuda, t, b, h, seed=11)
+    got = _grads(lambda x, w: (LSTMFunction.apply(x, mask, w),), (xp, wh),
+                 dh)
+    want = _grads(lambda x, w: (lstm_plain(x, mask, w)[0],), (xp, wh), dh)
+    for name, g_, w_ in zip(("dxp", "dwh"), got, want):
+        torch.testing.assert_close(g_, w_, **BWD_TOL, msg=name)
+
+
+# plain-LSTM models beside deep_blstm: name, hparams, forward and backward
+# wrapper, recurrent layers
+LSTM_ZOO = [
+    ("deep_blstm", "num_hiddens=24,num_layers=2,bidirectional=false",
+     lstm, lstm_bwd, 2),
+    ("highway_blstm", "num_hiddens=24,num_layers=2", bilstm, bilstm_bwd, 2),
+    ("residual_blstm", "num_hiddens=24,num_layers=2,bidirectional=false",
+     lstm, lstm_bwd, 2),
+    ("deep_speech", "num_hiddens=24,input_dense=32", bilstm, bilstm_bwd, 1),
+]
+LSTM_ZOO_IDS = ["deep_blstm_uni", "highway", "residual_uni", "deep_speech"]
+
+
+@pytest.mark.parametrize("name,hp,fwd,bwd,layers", LSTM_ZOO,
+                         ids=LSTM_ZOO_IDS)
+def test_lstm_zoo_slice_on_card_matches_cpu(cuda, name, hp, fwd, bwd,
+                                            layers):
+    """Serving each plain-LSTM model: its forward kernel once per layer,
+    logits against the plain path on the CPU."""
+    rng = np.random.RandomState(3)
+    wavs = [(0.3 * rng.randn(n)).astype(np.float32)
+            for n in (9000, 4000, 6500)]
+    chunk, cap, n_pad = pack_batches(wavs, 3)
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        model = build_model(name, hp, num_classes=27,
+                            generator=torch.Generator().manual_seed(0),
+                            device=dev).eval()
+        before = fwd.launches
+        out.append(serve_batch(model, featurizer("mfcc", dev),
+                               torch.from_numpy(chunk).to(dev), 3, n_pad))
+        assert fwd.launches - before == (layers if dev.type == "cuda"
+                                         else 0)
+    torch.testing.assert_close(out[0].logits.cpu(), out[1].logits, rtol=0,
+                               atol=2e-3)
+
+
+@pytest.mark.parametrize("name,hp,fwd,bwd,layers", LSTM_ZOO,
+                         ids=LSTM_ZOO_IDS)
+def test_lstm_zoo_train_step_on_card_matches_cpu(cuda, name, hp, fwd, bwd,
+                                                 layers):
+    """One train step of each plain-LSTM model (dropout off): its LSTM
+    kernels and both CTC kernels on the card against the plain path on the
+    CPU."""
+    g = torch.Generator().manual_seed(0)
+    batch = [torch.randn(4, 30, 39, generator=g),
+             torch.tensor([30, 22, 17, 9]),
+             torch.randint(0, 27, (4, 6), generator=g),
+             torch.tensor([6, 4, 5, 0]),
+             torch.tensor([1.0, 1.0, 0.0, 1.0])]
+    hp = hp + ",dropout=0.0,input_dropout=0.0"
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        model = build_model(name, hp, generator=torch.Generator().manual_seed(
+            1), device=dev)
+        trainer = Trainer(model, make_optimizer("adam", 1e-3, 1.0))
+        counts = (fwd.launches, bwd.launches)
+        _, m = trainer.train_step(trainer.init_state(),
+                                  *[a.to(dev) for a in batch])
+        launched = (fwd.launches - counts[0], bwd.launches - counts[1])
+        assert launched == ((layers, layers) if dev.type == "cuda"
+                            else (0, 0))
         out.append((float(m["loss"]), float(m["grad_norm"]),
                     {k: p.grad.cpu() for k, p in model.named_parameters()}))
     (loss_k, gn_k, g_k), (loss_p, gn_p, g_p) = out

@@ -120,6 +120,8 @@ def test_graves2006_shapes():
 
 @pytest.mark.parametrize("name,err", [
     ("ln_blstm", NotImplementedError),
+    ("zoneout_blstm", NotImplementedError),
+    ("mi_blstm", NotImplementedError),
     ("nosuch", KeyError),
 ])
 def test_build_model_refuses(name, err):

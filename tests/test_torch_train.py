@@ -29,8 +29,7 @@ from asr_study_tpu.data.generator import DatasetGenerator as JaxGenerator
 from asr_study_tpu.ops import ctc as jctc
 from asr_study_tpu.ops import metrics as jmetrics
 from asr_study_tpu.train import trainer as jtrainer
-from asr_study_tpu.models.zoo import deep_blstm as jax_deep_blstm
-from asr_study_tpu.models.zoo import deep_gru as jax_deep_gru
+from asr_study_tpu.models import zoo as jzoo
 # the exporter's own flattening: JAX tree -> tree-path keyed arrays
 from extras.export_weights import _flatten as flatten_params
 
@@ -57,7 +56,9 @@ def _port_model(hp=HP, seed=0):
                       generator=torch.Generator().manual_seed(seed))
 
 
-JAX_MODELS = {"deep_blstm": jax_deep_blstm, "deep_gru": jax_deep_gru}
+JAX_MODELS = {name: getattr(jzoo, name) for name in (
+    "deep_blstm", "deep_gru", "highway_blstm", "residual_blstm",
+    "deep_speech")}
 
 
 def _pair(spec_args, hp=HP, model="deep_blstm"):
@@ -97,7 +98,16 @@ def _jax_grads(jm, params, batch):
      "dropout=0.0,bidirectional=true"),
     (("adam", 5e-3, 0.5), "deep_gru", "num_hiddens=8,num_layers=2,"
      "dropout=0.0,bidirectional=false"),
-], ids=["no_clip", "clip", "lr_decay", "gru_bi", "gru_uni_clip"])
+    (("adam", 5e-3, 400.0), "deep_blstm", "num_hiddens=8,num_layers=2,"
+     "dropout=0.0,bidirectional=false"),
+    (("adam", 5e-3, 0.5), "highway_blstm", "num_hiddens=8,num_layers=2,"
+     "dropout=0.0"),
+    (("adam", 5e-3, 400.0), "residual_blstm", "num_hiddens=8,num_layers=2,"
+     "dropout=0.0,bidirectional=false"),
+    (("adam", 5e-3, 400.0), "deep_speech", "num_hiddens=8,input_dense=16,"
+     "input_layers=2,dropout=0.0,input_dropout=0.0"),
+], ids=["no_clip", "clip", "lr_decay", "gru_bi", "gru_uni_clip", "lstm_uni",
+        "highway", "residual", "deep_speech"])
 def test_train_steps_match_jax(spec_args, model, hp):
     """Three train steps from the same weights on the same batch: each
     step's loss and grad norm, the first step's gradients key by key (after
@@ -288,6 +298,31 @@ def test_dropout_semantics():
         dropout(x, 0.25, True, None)
 
 
+def test_front_end_dropout_in_train_only():
+    """deep_speech's input dropout draws from the step's generator in train
+    mode; one recurrent layer, so the stack adds no dropout of its own."""
+    x = torch.from_numpy(_batch(6)[0])
+    lens = torch.tensor([12, 9, 11, 7])
+    m = build_model("deep_speech", "num_hiddens=8,input_dense=16,"
+                    "input_layers=2,dropout=0.5,input_dropout=0.5",
+                    num_classes=CLASSES, input_dim=FEATS,
+                    generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        ev = m(x, lens)
+        tr = m(x, lens, train=True,
+               generator=torch.Generator().manual_seed(3))
+        tr2 = m(x, lens, train=True,
+                generator=torch.Generator().manual_seed(3))
+        assert not torch.allclose(ev, tr)
+        assert torch.equal(tr, tr2)
+        with pytest.raises(ValueError, match="Generator"):
+            m(x, lens, train=True)
+        m.input_dropout = 0.0
+        torch.testing.assert_close(
+            m(x, lens, train=True,
+              generator=torch.Generator().manual_seed(3)), ev, rtol=0, atol=0)
+
+
 def test_stack_dropout_between_layers_in_train_only():
     x = torch.from_numpy(_batch(6)[0])
     lens = torch.tensor([12, 9, 11, 7])
@@ -446,6 +481,42 @@ def test_fit_early_stop_and_refusals(tmp_path):
         fit(trainer, state, train_iter, None, early_stop_patience=1)
     with pytest.raises(NotImplementedError):
         fit(trainer, state, train_iter, profile=True)
+
+
+def test_front_end_dropout_through_train_step_and_fit():
+    """Trainer.train_step and fit hand train=True and the step's generator
+    to deep_speech's input dropout: one seed gives one step and another
+    seed another, a step without a generator refuses, and fit's updates
+    repeat at one seed and change when the input dropout is turned off."""
+    hp = "num_hiddens=8,input_dense=16,input_layers=2,dropout=0.0"
+    spec = make_optimizer("adam", 1e-2, 400.0)
+
+    def make(rate):
+        return build_model("deep_speech", f"{hp},input_dropout={rate}",
+                           num_classes=CLASSES, input_dim=FEATS,
+                           generator=torch.Generator().manual_seed(0))
+
+    batch = [torch.from_numpy(a) for a in _batch(9)]
+    losses = []
+    for seed in (5, 5, 6):
+        trainer = Trainer(make(0.5), spec)
+        _, m = trainer.train_step(trainer.init_state(), *batch,
+                                  torch.Generator().manual_seed(seed))
+        losses.append(float(m["loss"]))
+    assert losses[0] == losses[1] != losses[2]
+    with pytest.raises(ValueError, match="Generator"):
+        trainer.train_step(trainer.init_state(), *batch)
+
+    train_iter, _ = _corpus(2)
+    weights = []
+    for rate in (0.5, 0.5, 0.0):
+        trainer = Trainer(make(rate), spec)
+        state = fit(trainer, trainer.init_state(), train_iter, epochs=1,
+                    seed=3)
+        weights.append(state.model.state_dict())
+    for k, v in weights[0].items():
+        torch.testing.assert_close(v, weights[1][k], rtol=0, atol=0, msg=k)
+    assert not torch.equal(weights[0]["front.0.w"], weights[2]["front.0.w"])
 
 
 def test_global_norm():
