@@ -61,6 +61,13 @@ SIGNATURES = {
     # dxp_f, dhp_f, dxp_b, dhp_b, T, B, H, ndir, stream
     "asr_gru_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                     _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # xpn_f, xpn_b, mask, wh_f, wh_b, gh_f, gh_b, gc_f, gc_b, bc_f, bc_b,
+    # h_f, c_f, h_b, c_b, T, B, H, ndir, stream
+    "asr_ln_lstm_fwd": [_P] * 15 + [_I, _I, _I, _I, _P],
+    # xpn_f, xpn_b, mask, wh_f, wh_b, wht_f, wht_b, gh_f, gh_b, gc_f, gc_b,
+    # bc_f, bc_b, h_f, c_f, h_b, c_b, dh_f, dh_b, dpre_f, dcn_f, dpre_b,
+    # dcn_b, T, B, H, ndir, stream
+    "asr_ln_lstm_bwd": [_P] * 23 + [_I, _I, _I, _I, _P],
     # lp_ext, valid, skip, alpha_seq, T, B, S, stream
     "asr_ctc_alpha": [_P, _P, _P, _P, _I, _I, _I, _P],
     # lp_ext, valid, alpha_seq, skip2, end_ind, gamma, T, B, S, stream

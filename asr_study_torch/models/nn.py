@@ -1,4 +1,4 @@
-"""Dense-layer primitives and dropout (port of
+"""Dense-layer primitives, LayerNorm and dropout (port of
 ``asr_study_tpu/models/nn.py``).
 
 Parameters keep the JAX layout: ``w`` [in, out], ``b`` [out].  Random
@@ -55,6 +55,22 @@ def dense_init(in_dim: int, out_dim: int,
 def dense_apply(params: Mapping[str, torch.Tensor],
                 x: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x, params["w"]) + params["b"]
+
+
+def layer_norm_init(dim: int, device: torch.device | str | None = None
+                    ) -> dict[str, torch.Tensor]:
+    """Gain ``g`` (ones) and bias ``b`` (zeros), both [dim]."""
+    return {"g": torch.ones((dim,), dtype=torch.float32, device=device),
+            "b": torch.zeros((dim,), dtype=torch.float32, device=device)}
+
+
+def layer_norm_apply(params: Mapping[str, torch.Tensor], x: torch.Tensor,
+                     eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm over the last dim with the population variance (as
+    ``jnp.var``)."""
+    mean = x.mean(dim=-1, keepdim=True)
+    var = x.var(dim=-1, keepdim=True, correction=0)
+    return (x - mean) * torch.rsqrt(var + eps) * params["g"] + params["b"]
 
 
 def dropout(x: torch.Tensor, rate: float, train: bool,

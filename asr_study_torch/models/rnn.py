@@ -1,18 +1,21 @@
 """Recurrent layers and their stack (port of ``asr_study_tpu/models/rnn.py``).
 
 Time-major [T, B, F] inside.  Each layer follows the JAX fused paths: the
-input projection ``x @ wx + b`` of each direction is one matmul over all
-frames, and the recurrence runs in one differentiable op (the forward and
-backward kernels on a CUDA device) — both directions of a bidirectional
-layer together (``RNNLayer._apply_fused_bidi``: ``ops.bilstm.BiLSTMFunction``
-or ``ops.gru.BiGRUFunction``), or the one direction of a unidirectional
-layer (``scan_cell``'s Pallas path: ``ops.bilstm.LSTMFunction`` or
-``ops.gru.GRUFunction``).  The output is zeroed on padded frames.
+input projection of each direction is one matmul over all frames, which the
+cell's ``prepare`` turns into the streamed tensor (``x @ wx + b``; for the
+layer-norm LSTM ``xpn``, with ``ln_x`` applied), and the recurrence runs in
+one differentiable op (the forward and backward kernels on a CUDA device) —
+both directions of a bidirectional layer together
+(``RNNLayer._apply_fused_bidi``: ``ops.bilstm.BiLSTMFunction``,
+``ops.gru.BiGRUFunction`` or ``ops.ln_lstm.BiLNLSTMFunction``), or the one
+direction of a unidirectional layer (``scan_cell``'s Pallas path:
+``LSTMFunction``, ``GRUFunction`` or ``LNLSTMFunction``).  The output is
+zeroed on padded frames.
 
-Ported: LSTM and GRU cells, uni- and bidirectional layers of both, the skip
-kinds ``none``, ``residual`` and ``highway``, inter-layer dropout in
-training.  The other cells raise ``NotImplementedError`` naming their
-ROADMAP item.
+Ported: the LSTM, layer-norm LSTM and GRU cells, uni- and bidirectional
+layers of each, the skip kinds ``none``, ``residual`` and ``highway``,
+inter-layer dropout in training.  The other cells raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -22,15 +25,18 @@ from typing import Optional
 import torch
 from torch import nn
 
-from asr_study_torch.models.cells import GRUCell, LSTMCell
+from asr_study_torch.models.cells import (GRUCell, LayerNormLSTMCell,
+                                          LSTMCell)
 from asr_study_torch.models.nn import dense_apply, dense_init
 from asr_study_torch.models.nn import dropout as dropout_fn
 from asr_study_torch.ops.bilstm import BiLSTMFunction, LSTMFunction
 from asr_study_torch.ops.gru import BiGRUFunction, GRUFunction
+from asr_study_torch.ops.ln_lstm import BiLNLSTMFunction, LNLSTMFunction
 
 # cell kind -> (cell, fused bidirectional op, unidirectional op)
 _KINDS = {"lstm": (LSTMCell, BiLSTMFunction, LSTMFunction),
-          "gru": (GRUCell, BiGRUFunction, GRUFunction)}
+          "gru": (GRUCell, BiGRUFunction, GRUFunction),
+          "ln_lstm": (LayerNormLSTMCell, BiLNLSTMFunction, LNLSTMFunction)}
 
 
 class RNNLayer(nn.Module):
@@ -60,12 +66,14 @@ class RNNLayer(nn.Module):
     def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         """x [T, B, F], mask [T, B, 1] -> [T, B, output_dim]."""
         mask = mask.contiguous()
-        xp_f = (self.fw.input_proj(x) + self.fw.b).contiguous()
+        xp_f, res_f = self.fw.prepare(x)
         if not self.bidirectional:
-            return self._uni_op.apply(xp_f, mask, self.fw.wh) * mask
-        xp_b = (self.bw.input_proj(x) + self.bw.b).contiguous()
-        h_f, h_b = self._bidi_op.apply(xp_f, xp_b, mask, self.fw.wh,
-                                       self.bw.wh)
+            return self._uni_op.apply(xp_f, mask, *res_f) * mask
+        xp_b, res_b = self.bw.prepare(x)
+        # the fused op takes each resident argument as (forward, backward)
+        h_f, h_b = self._bidi_op.apply(
+            xp_f, xp_b, mask, *(a for pair in zip(res_f, res_b)
+                                for a in pair))
         return torch.cat([h_f, h_b], dim=-1) * mask
 
 

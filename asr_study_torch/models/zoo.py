@@ -155,6 +155,18 @@ def deep_gru(params=None, num_classes: int = 27, input_dim: int = 39,
         generator, device)
 
 
+def ln_blstm(params=None, num_classes: int = 27, input_dim: int = 39,
+             generator: Optional[torch.Generator] = None,
+             device: torch.device | str | None = None) -> AcousticModel:
+    """Layer-norm BLSTM stack (the reference's LN variant);
+    ``bidirectional=false`` gives the forward-only model."""
+    hp = _hp(params, num_hiddens=256, num_layers=3, bidirectional=True,
+             dropout=0.2)
+    return AcousticModel(
+        num_classes, _stacked(hp, input_dim, "ln_lstm", generator, device),
+        generator, device)
+
+
 def highway_blstm(params=None, num_classes: int = 27, input_dim: int = 39,
                   generator: Optional[torch.Generator] = None,
                   device: torch.device | str | None = None
@@ -197,12 +209,13 @@ def deep_speech(params=None, num_classes: int = 27, input_dim: int = 39,
 
 
 MODELS = {"graves2006": graves2006, "deep_blstm": deep_blstm,
-          "deep_gru": deep_gru, "highway_blstm": highway_blstm,
-          "residual_blstm": residual_blstm, "deep_speech": deep_speech}
+          "deep_gru": deep_gru, "ln_blstm": ln_blstm,
+          "highway_blstm": highway_blstm, "residual_blstm": residual_blstm,
+          "deep_speech": deep_speech}
 
-# constructors of the JAX zoo that the port does not have yet: their cells'
-# kernels are ROADMAP queue B items 9-14
-_NOT_PORTED = ("ln_blstm", "zoneout_blstm", "mi_blstm")
+# constructors of the JAX zoo that the port does not have yet -> their
+# cells' kernels, ROADMAP queue B items
+_NOT_PORTED = {"zoneout_blstm": "B9-B10", "mi_blstm": "B11-B12"}
 
 
 def build_model(name: str, params=None, num_classes: int = 27,
@@ -212,7 +225,8 @@ def build_model(name: str, params=None, num_classes: int = 27,
     key = name.lower()
     if key in _NOT_PORTED:
         raise NotImplementedError(
-            f"model {name!r} is not ported yet (ROADMAP queue A item 1)")
+            f"model {name!r} is not ported yet (ROADMAP queue A item 1; its "
+            f"kernels are queue B items {_NOT_PORTED[key]})")
     if key not in MODELS:
         raise KeyError(f"unknown model {name!r}; available: "
                        f"{', '.join(sorted(MODELS))}")

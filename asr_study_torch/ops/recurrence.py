@@ -1,6 +1,7 @@
-"""What the LSTM and GRU recurrence ops (``ops/bilstm.py``, ``ops/gru.py``)
-share around their kernels: the argument check, the stream, the
-scan-previous state of a sequence and the cotangent of an unused output."""
+"""What the recurrence ops (``ops/bilstm.py``, ``ops/gru.py``,
+``ops/ln_lstm.py``) share around their kernels: the argument check, the
+stream, the scan-previous state of a sequence and the cotangent of an
+unused output."""
 
 from __future__ import annotations
 
@@ -8,10 +9,12 @@ import torch
 
 
 def check(name: str, gates: int, mask: torch.Tensor, xps: dict, whs: dict,
-          seqs: dict) -> None:
+          seqs: dict, gate_vecs: dict | None = None,
+          unit_vecs: dict | None = None) -> None:
     """Shapes [T, B, G*H] for ``xps``, [T, B, 1] for the mask, [H, G*H] for
-    ``whs``, [T, B, H] for ``seqs`` (dicts name -> tensor, G = ``gates``);
-    float32, one device, contiguous on CUDA.  Raises ValueError."""
+    ``whs``, [T, B, H] for ``seqs``, [G*H] for ``gate_vecs`` and [H] for
+    ``unit_vecs`` (dicts name -> tensor, G = ``gates``); float32, one
+    device, contiguous on CUDA.  Raises ValueError."""
     first_name, first = next(iter(xps.items()))
     if first.dim() != 3 or first.shape[2] % gates:
         raise ValueError(f"{name}: {first_name} must be [T, B, {gates}H], "
@@ -23,6 +26,8 @@ def check(name: str, gates: int, mask: torch.Tensor, xps: dict, whs: dict,
         "mask": (mask, (t_steps, batch, 1)),
         **{k: (v, (hidden, gh)) for k, v in whs.items()},
         **{k: (v, (t_steps, batch, hidden)) for k, v in seqs.items()},
+        **{k: (v, (gh,)) for k, v in (gate_vecs or {}).items()},
+        **{k: (v, (hidden,)) for k, v in (unit_vecs or {}).items()},
     }
     for arg, (t, shape) in want.items():
         if tuple(t.shape) != shape:

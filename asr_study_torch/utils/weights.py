@@ -8,7 +8,12 @@ so that their ``state_dict`` keys are those paths with ``/`` read as ``.``,
 and the tensors keep JAX's layouts: ``wx`` [F, G*H], ``wh`` [H, G*H] and
 ``b`` [G*H] with G gate blocks (LSTM: 4, gate order i, f, g, o, the forget
 bias 1 in ``b``; GRU: 3, gate order r, z, n), and ``out/w`` [D*H, V+1] for
-D directions (a unidirectional layer has ``fw`` only).
+D directions (a unidirectional layer has ``fw`` only).  A layer-norm LSTM
+cell adds its LayerNorm gains and biases under the cell's path:
+``rnn/layers/<i>/rnn/fw/ln_x/g`` and ``.../ln_x/b`` [4H] (the input side,
+one LayerNorm per gate block), ``ln_h/g`` and ``ln_h/b`` [4H] (the
+recurrent side, the same) and ``ln_c/g`` and ``ln_c/b`` [H] (the cell
+state).
 
 Dense layers are ``w`` [in, out] and ``b`` [out] under their own paths:
 the Deep Speech front end ``front/<i>/w`` and ``front/<i>/b``, and the skip

@@ -13,14 +13,16 @@ paths at full width, with random weights from a seeded
 - serving the other recurrent models at full width, the same 8 batches
   through the same function: ``deep_gru`` 3x256 (bidirectional),
   ``deep_blstm`` 3x256 with ``bidirectional=false``, ``highway_blstm``
-  5x256 and ``deep_speech`` (3x512 dense front end, one 512-unit BLSTM);
+  5x256, ``deep_speech`` (3x512 dense front end, one 512-unit BLSTM) and
+  ``ln_blstm`` 3x256 (layer-norm BLSTM);
 - training (BASELINE config 3): features [32, 512, 39] -> deep_blstm 3x256
   (dropout 0) -> CTC -> backward -> clip by global norm -> Adam
   (``make_optimizer("adam", 1e-4, 400.0)``), through ``Trainer.train_step``
   and ``fit``, as ``benchmarks/bench_train.py`` drives the JAX trainer;
 - training at the same shapes through ``Trainer.train_step``: ``deep_gru``
   3x256 bidirectional and unidirectional, ``deep_blstm`` 3x256
-  unidirectional, ``highway_blstm`` 5x256 and ``deep_speech``, dropout 0.
+  unidirectional, ``highway_blstm`` 5x256, ``deep_speech``, and ``ln_blstm``
+  3x256 bidirectional and unidirectional, dropout 0.
 
 Phases, in order; any failure raises and the exit code is not 0:
 
@@ -29,14 +31,17 @@ Phases, in order; any failure raises and the exit code is not 0:
 3. each kernel against its plain PyTorch version on the card, at its path's
    shapes, within the stated tolerance, with its time, its plain version's
    time, its bound and the time of the PyTorch library call that computes
-   the same function (cuDNN ``nn.LSTM`` / ``nn.GRU``, ``F.ctc_loss``); the
-   LSTM kernels also at the zoo's other widths, H=512 and H=100;
+   the same function (cuDNN ``nn.LSTM`` / ``nn.GRU``, ``F.ctc_loss``; none
+   for fbank and the layer-norm LSTM); the LSTM kernels also at the zoo's
+   other widths, H=512 and H=100;
 4. the serving slices, with launch counters proving their kernels ran,
-   logits held against the plain path on the CPU;
+   logits held against the plain path on the CPU (for ln_blstm, whose
+   recurrence is chaotic, on a batch cut to LN_CHECK_T frames);
 5. serving timings from CUDA events after a warm-up;
 6. the training slices: launch counters per step, one card step held
    against the same step of the plain path on the CPU (loss, grad norm,
-   every gradient), the loss falling over 20 steps on one batch, and (for
+   every gradient; for ln_blstm a step on LN_CHECK_T frames), the loss
+   falling over 20 steps on one batch, and (for
    the bidirectional deep_blstm) ``fit`` over a few batches with a
    checkpoint saved, restored and continued;
 7. training timings: ms per step, steps/s, audio-s/s, per-stage ms, the
@@ -116,6 +121,20 @@ STEP_GRAD_RTOL = 1e-3
 #   bilstm_bwd bounds (BWD_*, DWH_RTOL), for the same reasons.
 GRU_ATOL = 1e-4
 GRU_RTOL = 1e-5
+# - The layer-norm LSTM.  Its recurrence is chaotic at these widths and
+#   init scales: a perturbation grows about e^(0.04 t) (its backward grows
+#   to 5e8 over T=512, in the JAX scan's VJP as in the port), so two fp32
+#   runs of the same maths part within a few hundred frames (logits of
+#   the 3x256 slice by 0.7, train steps at T=512 by 1e-2 in the loss).  So
+#   the LN forward kernels are held step by step: every frame of the
+#   kernel's h and raw c against the plain step from the kernel's own
+#   previous state, to the BILSTM_* bounds.  The backward is linear in its
+#   cotangents given the forward states, which both sides share: dpre and
+#   dcn of every (frame, row) within BWD_RTOL of that row's norm plus
+#   BWD_ATOL.  dwh, dgh, dgc and dbc through the Functions, the ln_blstm
+#   logits and the train step against the CPU are held at the usual bounds
+#   on the first LN_CHECK_T frames, where e^(0.04 t) is still about 13.
+LN_CHECK_T = 64
 
 # H100 SXM peaks (NVIDIA's data sheet, at a 700 W power limit): fp32
 # outside the tensor cores, and HBM3 bandwidth
@@ -620,6 +639,197 @@ def lstm_smem(hidden: int) -> tuple[int, int, int]:
             4 * 4 * ((3 + nsplit) * hidden + gates), nsplit)
 
 
+def ln_smem(hidden: int) -> tuple[int, int, int]:
+    """Dynamic shared memory of ln_lstm_fwd and ln_lstm_bwd per block at
+    width ``hidden``, by the formulas of their C entry points -> (forward
+    bytes, backward bytes, the backward's partial sums per unit)."""
+    gates = 4 * hidden
+    threads = min(-(-gates // 32) * 32, 1024)
+    nsplit = max(threads // hidden, 1)
+    return (4 * 4 * (4 * hidden + gates + 10),
+            4 * 4 * ((6 + nsplit) * hidden + 2 * gates + 20), nsplit)
+
+
+def check_ln_kernels(dev: torch.device, card: str, x_serve: torch.Tensor,
+                     len_serve: torch.Tensor) -> dict:
+    """Phase 3 for the layer-norm LSTM kernels.
+
+    bi_ln_lstm_fwd and ln_lstm_fwd at the serving shapes (the check batch's
+    features [T=805, B=32, 39] through layer 0 of a 3x256 ln_blstm, both
+    directions and one, ragged lengths), every frame against the plain
+    step from the kernel's own previous state; bi_ln_lstm_bwd and
+    ln_lstm_bwd at the config-3 shapes (T=512, B=32, H=256, lengths
+    256-512) against their plain versions row by row; dwh, dgh, dgc and dbc
+    through BiLNLSTMFunction / LNLSTMFunction against autograd through the
+    plain loops on the first LN_CHECK_T frames; each timed with its plain
+    version and its bound.  The LN gains and biases are moved off their
+    init (1 and 0) by seeded noise, so that every vector the kernels take
+    matters."""
+    from asr_study_torch.models.cells import ln_lstm_step
+    from asr_study_torch.models.zoo import ln_blstm
+    from asr_study_torch.ops.ln_lstm import (BiLNLSTMFunction, LNLSTMFunction,
+                                             bi_ln_lstm, bi_ln_lstm_bwd,
+                                             bi_ln_lstm_bwd_plain,
+                                             bi_ln_lstm_plain, ln_lstm,
+                                             ln_lstm_bwd, ln_lstm_bwd_plain,
+                                             ln_lstm_plain)
+    from asr_study_torch.ops.recurrence import prev
+
+    g = torch.Generator().manual_seed(SEED + 7)
+    h = HIDDEN
+
+    def layer0(bidirectional: bool):
+        layer = ln_blstm(f"num_hiddens={h},num_layers=1,bidirectional="
+                         f"{str(bidirectional).lower()}", input_dim=FEATS,
+                         generator=g, device=dev).rnn.layers[0].rnn
+        with torch.no_grad():
+            for cell in [layer.fw] + ([layer.bw] if bidirectional else []):
+                for ln in (cell.ln_x, cell.ln_h, cell.ln_c):
+                    for v in ln.values():
+                        v.add_(0.1 * torch.randn(v.shape, generator=g).to(dev))
+        return layer
+
+    def prepared(layer, x):
+        """xpn of each direction, and the resident arguments in the order
+        the ops take them (wh, gh, gc, bc; each forward, then backward)."""
+        cells = [layer.fw] + ([layer.bw] if layer.bidirectional else [])
+        with torch.no_grad():
+            preps = [c.prepare(x) for c in cells]
+        return ([p[0] for p in preps],
+                [a.detach() for vecs in zip(*(p[1] for p in preps))
+                 for a in vecs])
+
+    def max_err(got, want):
+        return max(float((k - p).abs().max()) for k, p in zip(got, want))
+
+    def stepwise(args, outs):
+        """Each direction's plain step from the kernel's own previous
+        state at every frame at once -> (h, c) per direction, flattened
+        as the kernel's outputs."""
+        n = len(outs) // 2
+        xpns, mask_ = args[:n], args[n]
+        vecs = args[n + 1:]
+        steps = []
+        for d in range(n):
+            wh, gh, gc, bc = vecs[d::n]
+            h_k, c_k = outs[2 * d], outs[2 * d + 1]
+            tb = h_k.shape[0] * h_k.shape[1]
+            h_s, c_s = ln_lstm_step(
+                prev(h_k, d == 1).reshape(tb, h), prev(c_k, d == 1).reshape(
+                    tb, h), xpns[d].reshape(tb, 4 * h), mask_.reshape(tb, 1),
+                wh, gh, gc, bc)
+            steps += [h_s.view_as(h_k), c_s.view_as(c_k)]
+        return steps
+
+    def rows_within(got, want, atol, rtol):
+        """Every (frame, row) vector: ||got - want|| <= atol + rtol *
+        ||want||."""
+        return all(bool(((k - p).norm(dim=-1) <= atol + rtol * p.norm(
+            dim=-1)).all()) for k, p in zip(got, want))
+
+    errs, times, bounds = {}, {}, {}
+    cases = {
+        # name: (layer, forward, its plain, backward, its plain, Function)
+        "bi_ln_lstm": (layer0(True), bi_ln_lstm, bi_ln_lstm_plain,
+                       bi_ln_lstm_bwd, bi_ln_lstm_bwd_plain,
+                       BiLNLSTMFunction),
+        "ln_lstm": (layer0(False), ln_lstm, ln_lstm_plain, ln_lstm_bwd,
+                    ln_lstm_bwd_plain, LNLSTMFunction),
+    }
+    t_s = x_serve.shape[0]
+    mask_s = mask_of(len_serve, t_s, dev)
+    t, b = TRAIN_T, TRAIN_B
+    lengths = torch.randint(t // 2, t + 1, (b,), generator=g)
+    lengths[0] = t
+    x = torch.randn(t, b, FEATS, generator=g).to(dev)
+    mask = mask_of(lengths, t, dev)
+    dh = [torch.randn(t, b, h, generator=g).to(dev) for _ in range(2)]
+    for name, (layer, fwd, fwd_plain, bwd, bwd_plain, fn) in cases.items():
+        # the forward at the serving shapes
+        xpns, res = prepared(layer, x_serve)
+        n = len(xpns)
+        args = (*xpns, mask_s, *res)
+        with torch.no_grad():
+            got, want = fwd(*args), fwd_plain(*args)
+            steps = stepwise(args, got)
+            # the recurrence's own fp32 spread: h of each fp32 run against
+            # a float64 run of the plain loop (printed, not held)
+            ref = fwd_plain(*(a.double() for a in args))[0::2]
+            cpu = fwd_plain(*(a.cpu() for a in args))[0::2]
+            drift = [max_err([r.double().to(dev) for r in run], ref)
+                     for run in (got[0::2], want[0::2], cpu)]
+            times[f"{name}_fwd"] = (cuda_ms(lambda: fwd(*args), 10),
+                                    cuda_ms(lambda: fwd_plain(*args), 2, 1))
+        errs[f"{name}_fwd"] = max_err(got, steps)
+        bounds[f"{name}_fwd"] = rnn_bound(xpns[0], h, n, 1, (*args, *got))
+        print(f"{name}_fwd kernel vs the plain step from its own state, "
+              f"every frame: T={t_s} B={BATCH} H={h} lengths "
+              f"{int(len_serve.min())}..{int(len_serve.max())} "
+              f"max_abs_err={errs[f'{name}_fwd']:.3e} (h "
+              f"{max_err(got[0::2], steps[0::2]):.2e} c "
+              f"{max_err(got[1::2], steps[1::2]):.2e}; max|c| "
+              f"{max(float(c.abs().max()) for c in got[1::2]):.2f}) (tol "
+              f"{BILSTM_ATOL:g} + {BILSTM_RTOL:g}*|plain|); the whole "
+              f"trajectories of kernel and plain loop part by "
+              f"{max_err(got, want):.3e} (h "
+              f"{max_err(got[0::2], want[0::2]):.2e}); h against a float64 "
+              f"run of the plain loop: kernel {drift[0]:.2e}, plain loop on "
+              f"the card {drift[1]:.2e}, on the CPU {drift[2]:.2e}")
+        require(all(within(k, p, BILSTM_ATOL, BILSTM_RTOL)
+                    for k, p in zip(got, steps)),
+                f"{name}_fwd kernel disagrees with the plain step")
+
+        # the backward at the training shapes
+        xpns, res = prepared(layer, x)
+        args = (*xpns, mask, *res)
+        with torch.no_grad():
+            bwd_args = (*args, *fwd(*args), *dh[:n])
+            d_k, d_p = bwd(*bwd_args), bwd_plain(*bwd_args)
+            times[f"{name}_bwd"] = (cuda_ms(lambda: bwd(*bwd_args), 10),
+                                    cuda_ms(lambda: bwd_plain(*bwd_args), 2,
+                                            1))
+        errs[f"{name}_bwd"] = max_err(d_k, d_p)
+        bounds[f"{name}_bwd"] = rnn_bound(xpns[0], h, n, 2,
+                                          (*bwd_args, *d_k))
+        row_rel = max(float(((k - p).norm(dim=-1) / p.norm(dim=-1).clamp(
+            min=1e-30)).max()) for k, p in zip(d_k, d_p))
+        # the parameter gradients through the Function against autograd
+        # through the plain loop, on the first LN_CHECK_T frames
+        cut = [a[:LN_CHECK_T] for a in (*xpns, mask, *dh[:n])]
+        w_k = [a.clone().requires_grad_() for a in res]
+        w_p = [a.clone().requires_grad_() for a in res]
+        outs = fn.apply(*cut[:n], cut[n], *w_k)
+        torch.autograd.backward(outs if n == 2 else (outs,), cut[n + 1:])
+        torch.autograd.backward(fwd_plain(*cut[:n], cut[n], *w_p)[0::2],
+                                cut[n + 1:])
+        p_errs = [float((a.grad - p.grad).abs().max() / p.grad.abs().max())
+                  for a, p in zip(w_k, w_p)]
+        by_kind = {k: max(p_errs[i * n: (i + 1) * n])
+                   for i, k in enumerate(("dwh", "dgh", "dgc", "dbc"))}
+        print(f"{name}_bwd kernel vs plain: T={t} B={b} H={h} lengths "
+              f"{int(lengths.min())}..{t} max_abs_err over dpre and dcn "
+              f"{errs[f'{name}_bwd']:.3e} at max|dpre| "
+              f"{max(float(p.abs().max()) for p in d_p[0::2]):.4g}; worst "
+              f"(frame, row) ||diff||/||plain|| {row_rel:.3e} (tol "
+              f"{BWD_ATOL:g} + {BWD_RTOL:g}*||plain||); via {fn.__name__} "
+              f"vs autograd through {fwd_plain.__name__} at T={LN_CHECK_T}, "
+              f"max err / max|grad|: "
+              + ", ".join(f"{k} {v:.3e}" for k, v in by_kind.items())
+              + f" (tol {DWH_RTOL:g})")
+        require(rows_within(d_k, d_p, BWD_ATOL, BWD_RTOL),
+                f"{name}_bwd kernel disagrees with plain")
+        require(max(p_errs) <= DWH_RTOL,
+                f"{fn.__name__} parameter gradients disagree with autograd")
+    print("layer-norm LSTM library yardstick: none; no PyTorch call computes "
+          "an LN-LSTM (cuDNN's nn.LSTM has no layer norm), so library_ms is "
+          "null for its four kernels")
+    for name, (k_ms, p_ms) in times.items():
+        print(f"[{card}] {name}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+              f"bound {bounds[name][0]:.4f} ms ({bounds[name][1]})")
+    return {"errs": errs, "times": times, "bounds": bounds,
+            "library": dict.fromkeys(times)}
+
+
 def check_lstm_kernels(dev: torch.device, card: str, x_serve: torch.Tensor,
                        len_serve: torch.Tensor) -> dict:
     """Phase 3 for the one-direction LSTM kernels, and for the two-direction
@@ -776,10 +986,15 @@ KERNELS = {
     "gru_bwd": ("gru_bwd.cu", "ops/pallas_gru.py:60"),
     "lstm_fwd": ("bilstm_fwd.cu", "ops/pallas_lstm.py:83"),
     "lstm_bwd": ("bilstm_bwd.cu", "ops/pallas_lstm.py:173"),
+    "bi_ln_lstm_fwd": ("ln_lstm_fwd.cu", "ops/pallas_bi_ln_lstm.py:39"),
+    "bi_ln_lstm_bwd": ("ln_lstm_bwd.cu", "ops/pallas_bi_ln_lstm.py:81"),
+    "ln_lstm_fwd": ("ln_lstm_fwd.cu", "ops/pallas_ln_lstm.py:106"),
+    "ln_lstm_bwd": ("ln_lstm_bwd.cu", "ops/pallas_ln_lstm.py:198"),
 }
 
 # training paths: label -> (zoo model, its hparams, forward and backward
-# kernel of its recurrence, recurrent layers, what it is)
+# kernel of its recurrence, recurrent layers, what it is); the LN paths'
+# first step is held against the CPU on LN_CHECK_T frames (CHAOTIC)
 _CONFIG3 = f"num_hiddens={HIDDEN},num_layers={TRAIN_LAYERS},dropout=0.0"
 TRAIN_PATHS = {
     "deep_blstm": ("deep_blstm", _CONFIG3, "bilstm_fwd", "bilstm_bwd",
@@ -797,7 +1012,13 @@ TRAIN_PATHS = {
     "deep_speech": ("deep_speech", "dropout=0.0,input_dropout=0.0",
                     "bilstm_fwd", "bilstm_bwd", 1,
                     "3x512 dense + 1x512 BLSTM"),
+    "ln_blstm": ("ln_blstm", _CONFIG3, "bi_ln_lstm_fwd", "bi_ln_lstm_bwd",
+                 TRAIN_LAYERS, f"{TRAIN_LAYERS}x{HIDDEN} LN"),
+    "ln_blstm uni": ("ln_blstm", _CONFIG3 + ",bidirectional=false",
+                     "ln_lstm_fwd", "ln_lstm_bwd", TRAIN_LAYERS,
+                     f"{TRAIN_LAYERS}x{HIDDEN} LN"),
 }
+CHAOTIC = ("ln_blstm", "ln_blstm uni")
 
 
 def launch_counters() -> dict:
@@ -806,10 +1027,14 @@ def launch_counters() -> dict:
     from asr_study_torch.ops import ctc
     from asr_study_torch.ops.bilstm import bilstm, bilstm_bwd, lstm, lstm_bwd
     from asr_study_torch.ops.gru import bigru, bigru_bwd, gru, gru_bwd
+    from asr_study_torch.ops.ln_lstm import (bi_ln_lstm, bi_ln_lstm_bwd,
+                                             ln_lstm, ln_lstm_bwd)
     return {"fbank": fbank, "bilstm_fwd": bilstm, "bilstm_bwd": bilstm_bwd,
             "ctc_alpha": ctc.ctc_alpha, "ctc_beta": ctc.ctc_beta,
             "bigru_fwd": bigru, "bigru_bwd": bigru_bwd, "gru_fwd": gru,
-            "gru_bwd": gru_bwd, "lstm_fwd": lstm, "lstm_bwd": lstm_bwd}
+            "gru_bwd": gru_bwd, "lstm_fwd": lstm, "lstm_bwd": lstm_bwd,
+            "bi_ln_lstm_fwd": bi_ln_lstm, "bi_ln_lstm_bwd": bi_ln_lstm_bwd,
+            "ln_lstm_fwd": ln_lstm, "ln_lstm_bwd": ln_lstm_bwd}
 
 
 def reset_counts() -> None:
@@ -882,6 +1107,32 @@ def training_slice(dev: torch.device, card: str, path: str = "deep_blstm",
     require(float(losses[-1]) < float(losses[0]), "train loss did not fall")
 
     # the first step again on the CPU: the plain path, the same weights
+    check_on = "the first step"
+    if path in CHAOTIC:
+        # the full-size first step on the CPU too: printed, not held
+        full = Trainer(make("cpu"), spec)
+        _, m_full = full.train_step(full.init_state(), *batch_cpu)
+        print(f"{path} train, the first step at full size, kernel path on "
+              f"the card vs plain path on the CPU (not held: a chaotic "
+              f"recurrence): loss {loss_1:.4f} vs "
+              f"{float(m_full['loss']):.4f}, rel "
+              f"{abs(loss_1 / float(m_full['loss']) - 1):.3e}; grad_norm "
+              f"{gnorm_1:.4g} vs {float(m_full['grad_norm']):.4g}")
+        # one step from the same weights on the batch cut to LN_CHECK_T
+        # frames and LN_CHECK_T // 4 labels, on the card and on the CPU
+        n_lab = LN_CHECK_T // 4
+        batch_cpu = [batch_cpu[0][:, :LN_CHECK_T],
+                     torch.clamp(batch_cpu[1], max=LN_CHECK_T),
+                     batch_cpu[2][:, :n_lab],
+                     torch.clamp(batch_cpu[3], max=n_lab), batch_cpu[4]]
+        short = Trainer(make(dev), spec)
+        _, m = short.train_step(short.init_state(),
+                                *[a.to(dev) for a in batch_cpu])
+        grads = {n: p.grad.detach().cpu()
+                 for n, p in short.model.named_parameters()}
+        loss_1, gnorm_1 = float(m["loss"]), float(m["grad_norm"])
+        check_on = (f"a step at T={LN_CHECK_T}, L={n_lab} from the same "
+                    f"weights (a chaotic recurrence)")
     t0 = time.perf_counter()
     trainer_cpu = Trainer(model_cpu, spec)
     _, m_cpu = trainer_cpu.train_step(trainer_cpu.init_state(), *batch_cpu)
@@ -892,8 +1143,8 @@ def training_slice(dev: torch.device, card: str, path: str = "deep_blstm",
     grad_rel = {n: float((grads[n] - p.grad).norm() / p.grad.norm())
                 for n, p in model_cpu.named_parameters()}
     worst = max(grad_rel, key=grad_rel.get)
-    print(f"{path} train step 1, kernel path on the card vs plain path on "
-          f"the CPU "
+    print(f"{path} train, {check_on}, kernel path on the card vs plain "
+          f"path on the CPU "
           f"({cpu_s:.1f} s there): loss {loss_1:.4f} vs "
           f"{float(m_cpu['loss']):.4f}, rel {loss_rel:.3e} (tol "
           f"{STEP_LOSS_RTOL:g}); grad_norm {gnorm_1:.4f} vs "
@@ -1098,6 +1349,11 @@ def main() -> int:
               f"and lstm_fwd {fwd_b} B (4 rows), bilstm_bwd and lstm_bwd "
               f"{bwd_b} B (4 rows, {nsplit} partial sums); the default "
               f"limit is 49152 B, raised at each launch")
+    fwd_b, bwd_b, nsplit = ln_smem(HIDDEN)
+    print(f"  dynamic shared memory per block at H={HIDDEN}: ln_lstm_fwd "
+          f"(both forms) {fwd_b} B (4 rows), ln_lstm_bwd (both forms) "
+          f"{bwd_b} B (4 rows, {nsplit} partial sums), raised at each "
+          f"launch")
 
     # 3. kernels against their plain versions at main-path shapes ---------
     rng = np.random.RandomState(SEED)
@@ -1173,6 +1429,7 @@ def main() -> int:
     train_kernels = check_training_kernels(dev, card)
     gru_kernels = check_gru_kernels(dev, card, x_serve, feat_lengths)
     lstm_kernels = check_lstm_kernels(dev, card, x_serve, feat_lengths)
+    ln_kernels = check_ln_kernels(dev, card, x_serve, feat_lengths)
 
     # 4, 5. the serving slices, through the CLI's serving function ---------
     all_wavs, audio_s = [], 0.0
@@ -1186,9 +1443,13 @@ def main() -> int:
     feat_cpu = featurizer("mfcc", "cpu")
     chunk_cpu = torch.from_numpy(chunk)
 
-    def serving_slice(label, model, fwd_name, layers, desc) -> dict:
+    def serving_slice(label, model, fwd_name, layers, desc,
+                      chaotic=False) -> dict:
         """One model's serving slice: launches counted from 0, logits and
-        transcripts against the plain path on the CPU, ms per batch."""
+        transcripts against the plain path on the CPU, ms per batch.  For
+        a ``chaotic`` recurrence (the layer-norm LSTM) the full batches'
+        logits drift is printed, and the logits are held on the first
+        LN_CHECK_T frames' worth of audio of one batch instead."""
         def run_slice():
             return [serve_batch(model, feat, dev_chunk[o: o + cap], BATCH,
                                 n_pad) for o in offsets]
@@ -1219,10 +1480,23 @@ def main() -> int:
             logits_err = max(logits_err,
                              float((s.logits.cpu() - ref.logits).abs().max()))
             same += int((s.decoded.cpu() == ref.decoded).all(1).sum())
+        held = ", not held: a chaotic recurrence" if chaotic else ""
         print(f"{label} slice logits, kernel path on the card vs plain path "
               f"on the CPU: max_abs_err={logits_err:.3e} (tol "
-              f"{LOGITS_TOL:g}); identical transcripts "
+              f"{LOGITS_TOL:g}{held}); identical transcripts "
               f"{same}/{N_BATCHES * BATCH}")
+        if chaotic:
+            short = [w_[: LN_CHECK_T * 160] for w_ in all_wavs[:BATCH]]
+            s_chunk, s_cap, s_pad = pack_batches(short, BATCH)
+            got = serve_batch(model, feat, torch.from_numpy(s_chunk).to(dev),
+                              BATCH, s_pad)
+            ref = serve_batch(model_cpu, feat_cpu, torch.from_numpy(s_chunk),
+                              BATCH, s_pad)
+            logits_err = float((got.logits.cpu() - ref.logits).abs().max())
+            print(f"{label} logits on {BATCH} utterances cut to "
+                  f"{LN_CHECK_T * 160} samples (T={got.logits.shape[1]}), "
+                  f"kernel path on the card vs plain path on the CPU: "
+                  f"max_abs_err={logits_err:.3e} (tol {LOGITS_TOL:g})")
         require(logits_err <= LOGITS_TOL,
                 f"{label} slice logits disagree with plain")
         slice_ms = cuda_ms(run_slice, 3, warmup=1) / N_BATCHES
@@ -1244,6 +1518,8 @@ def main() -> int:
                           f"5x{HIDDEN} highway BLSTM"),
         "deep_speech": ("deep_speech", "", "bilstm_fwd",
                         "3x512 clipped-ReLU dense + 1x512 BLSTM"),
+        "ln_blstm": ("ln_blstm", "", "bi_ln_lstm_fwd",
+                     f"3x{HIDDEN} layer-norm BLSTM"),
     }
     for i, (label, (name, hp, fwd_name, desc)) in enumerate(
             serve_models.items()):
@@ -1252,7 +1528,8 @@ def main() -> int:
                              generator=torch.Generator().manual_seed(
                                  SEED + 4 + i), device=dev).eval()
         path_launches.append(serving_slice(
-            label, served, fwd_name, len(served.rnn.layers), desc))
+            label, served, fwd_name, len(served.rnn.layers), desc,
+            chaotic=name == "ln_blstm"))
         del served
 
     with torch.inference_mode():
@@ -1278,7 +1555,7 @@ def main() -> int:
         "bilstm_fwd": (bilstm_err, bl_ms, bl_plain_ms, bl_bound,
                        lstm_y["lib_fwd"]),
     }
-    for found in (train_kernels, gru_kernels, lstm_kernels):
+    for found in (train_kernels, gru_kernels, lstm_kernels, ln_kernels):
         for name, err in found["errs"].items():
             measured[name] = (err, *found["times"][name],
                               found["bounds"][name], found["library"][name])

@@ -24,6 +24,12 @@ from asr_study_torch.ops.bilstm import (BiLSTMFunction, LSTMFunction, bilstm,
 from asr_study_torch.ops.gru import (BiGRUFunction, GRUFunction, bigru,
                                      bigru_bwd, bigru_bwd_plain, bigru_plain,
                                      gru, gru_bwd, gru_bwd_plain, gru_plain)
+from asr_study_torch.ops.ln_lstm import (BiLNLSTMFunction, LNLSTMFunction,
+                                         bi_ln_lstm, bi_ln_lstm_bwd,
+                                         bi_ln_lstm_bwd_plain,
+                                         bi_ln_lstm_plain, ln_lstm,
+                                         ln_lstm_bwd, ln_lstm_bwd_plain,
+                                         ln_lstm_plain)
 from asr_study_torch.train.trainer import Trainer, make_optimizer
 
 pytestmark = pytest.mark.gpu
@@ -508,6 +514,143 @@ def test_lstm_zoo_train_step_on_card_matches_cpu(cuda, name, hp, fwd, bwd,
                             else (0, 0))
         out.append((float(m["loss"]), float(m["grad_norm"]),
                     {k: p.grad.cpu() for k, p in model.named_parameters()}))
+    (loss_k, gn_k, g_k), (loss_p, gn_p, g_p) = out
+    assert loss_k == pytest.approx(loss_p, rel=1e-4)
+    assert gn_k == pytest.approx(gn_p, rel=1e-3)
+    for k in g_p:
+        assert float((g_k[k] - g_p[k]).norm()) <= 1e-3 * float(
+            g_p[k].norm()), k
+
+
+def _ln_case(cuda, t, b, h, seed):
+    """Both directions' LN-LSTM arguments (xpn, wh, gh, gc, bc; gains about
+    1 and biases about 0, none exactly), a ragged mask and two cotangents,
+    on the card -> (xpn_f, xpn_b, mask, wh_f, wh_b, gh_f, gh_b, gc_f, gc_b,
+    bc_f, bc_b), [dh_f, dh_b]."""
+    g = torch.Generator().manual_seed(seed)
+
+    def near(n, centre):
+        return centre + 0.3 * torch.randn(n, generator=g)
+
+    xpn = [torch.randn(t, b, 4 * h, generator=g) for _ in range(2)]
+    wh = [torch.randn(h, 4 * h, generator=g) / h ** 0.5 for _ in range(2)]
+    gh = [near(4 * h, 1.0) for _ in range(2)]
+    gc = [near(h, 1.0) for _ in range(2)]
+    bc = [near(h, 0.0) for _ in range(2)]
+    lengths = torch.randint(1, t + 1, (b,), generator=g)
+    lengths[0] = t
+    mask = (torch.arange(t)[:, None] < lengths[None, :]).float()[..., None]
+    dh = [torch.randn(t, b, h, generator=g) for _ in range(2)]
+    args = (xpn[0], xpn[1], mask, wh[0], wh[1], gh[0], gh[1], gc[0], gc[1],
+            bc[0], bc[1])
+    return [a.to(cuda) for a in args], [a.to(cuda) for a in dh]
+
+
+LN_SIZES = [(12, 4, 8), (37, 5, 100), (50, 9, 256), (3, 1, 300)]
+
+
+@pytest.mark.parametrize("t,b,h", LN_SIZES)
+def test_ln_fwd_kernels_match_plain(cuda, t, b, h):
+    """bi_ln_lstm (two directions of ln_lstm_fwd) and ln_lstm (one) against
+    their plain loops: h and raw c (chip_smoke.py's BILSTM_* bounds)."""
+    args, _ = _ln_case(cuda, t, b, h, seed=h + t)
+    xf, _, mask, whf, _, ghf, _, gcf, _, bcf, _ = args
+    before = (bi_ln_lstm.launches, ln_lstm.launches)
+    got = bi_ln_lstm(*args)
+    got_uni = ln_lstm(xf, mask, whf, ghf, gcf, bcf)
+    assert (bi_ln_lstm.launches, ln_lstm.launches) == (before[0] + 1,
+                                                       before[1] + 1)
+    want = bi_ln_lstm_plain(*args)
+    torch.cuda.synchronize()
+    for name, g_, w_ in zip(("h_f", "c_f", "h_b", "c_b", "h", "c"),
+                            (*got, *got_uni), (*want, *want[:2])):
+        torch.testing.assert_close(g_, w_, rtol=1e-5, atol=1e-4, msg=name)
+
+
+@pytest.mark.parametrize("t,b,h", LN_SIZES)
+def test_ln_bwd_kernels_match_plain(cuda, t, b, h):
+    """bi_ln_lstm_bwd and ln_lstm_bwd: dpre and dcn of each direction."""
+    args, dh = _ln_case(cuda, t, b, h, seed=h + t + 1)
+    xf, _, mask, whf, _, ghf, _, gcf, _, bcf, _ = args
+    hc = bi_ln_lstm(*args)
+    before = (bi_ln_lstm_bwd.launches, ln_lstm_bwd.launches)
+    got = bi_ln_lstm_bwd(*args, *hc, *dh)
+    uni = (xf, mask, whf, ghf, gcf, bcf, hc[0], hc[1], dh[0])
+    got_uni = ln_lstm_bwd(*uni)
+    assert (bi_ln_lstm_bwd.launches, ln_lstm_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    want = bi_ln_lstm_bwd_plain(*args, *hc, *dh)
+    want_uni = ln_lstm_bwd_plain(*uni)
+    torch.cuda.synchronize()
+    for name, g_, w_ in zip(("dpre_f", "dcn_f", "dpre_b", "dcn_b", "dpre",
+                             "dcn"), (*got, *got_uni), (*want, *want_uni)):
+        torch.testing.assert_close(g_, w_, **BWD_TOL, msg=name)
+
+
+@pytest.mark.parametrize("t,b,h", [(12, 4, 8), (40, 6, 256)])
+def test_ln_functions_match_autograd_on_card(cuda, t, b, h):
+    """Gradients of xpn, wh, gh, gc and bc through BiLNLSTMFunction and
+    LNLSTMFunction (both kernels each) against autograd through the plain
+    loops, on the card.  Each within 1e-4 of its largest entry
+    (chip_smoke.py's DWH_RTOL form), not elementwise: the two run separate
+    forwards, and the LN backward amplifies their fp32 differences over
+    time."""
+    args, dh = _ln_case(cuda, t, b, h, seed=13)
+    mask = args[2]
+    leaves_bi = [a for i, a in enumerate(args) if i != 2]
+    cases = {
+        "bi": (lambda *a: BiLNLSTMFunction.apply(*a[:2], mask, *a[2:]),
+               lambda *a: bi_ln_lstm_plain(*a[:2], mask, *a[2:])[0::2],
+               leaves_bi),
+        "uni": (lambda x, w, g1, g2, b1: (LNLSTMFunction.apply(
+                    x, mask, w, g1, g2, b1),),
+                lambda x, w, g1, g2, b1: (ln_lstm_plain(
+                    x, mask, w, g1, g2, b1)[0],),
+                leaves_bi[0::2]),
+    }
+    for kind, (kernel_fn, plain_fn, leaves) in cases.items():
+        for i, (g_, w_) in enumerate(zip(_grads(kernel_fn, leaves, dh),
+                                         _grads(plain_fn, leaves, dh))):
+            err = float((g_ - w_).abs().max())
+            assert err <= 1e-4 * float(w_.abs().max()), (kind, i, err)
+
+
+@pytest.mark.parametrize("bidirectional", [True, False], ids=["bi", "uni"])
+def test_ln_blstm_on_card_matches_cpu(cuda, bidirectional):
+    """ln_blstm: serving (its forward kernel once per layer, logits against
+    the plain path on the CPU) and one train step (both LN kernels and both
+    CTC kernels on the card against the plain step on the CPU)."""
+    fwd, bwd = ((bi_ln_lstm, bi_ln_lstm_bwd) if bidirectional
+                else (ln_lstm, ln_lstm_bwd))
+    hp = (f"num_hiddens=24,num_layers=2,dropout=0.0,"
+          f"bidirectional={str(bidirectional).lower()}")
+    rng = np.random.RandomState(4)
+    wavs = [(0.3 * rng.randn(n)).astype(np.float32)
+            for n in (9000, 4000, 6500)]
+    chunk, cap, n_pad = pack_batches(wavs, 3)
+    g = torch.Generator().manual_seed(0)
+    batch = [torch.randn(4, 30, 39, generator=g),
+             torch.tensor([30, 22, 17, 9]),
+             torch.randint(0, 27, (4, 6), generator=g),
+             torch.tensor([6, 4, 5, 0]),
+             torch.tensor([1.0, 1.0, 0.0, 1.0])]
+    served, out = [], []
+    for dev in (cuda, torch.device("cpu")):
+        model = build_model("ln_blstm", hp, num_classes=27,
+                            generator=torch.Generator().manual_seed(1),
+                            device=dev)
+        counts = (fwd.launches, bwd.launches)
+        served.append(serve_batch(model.eval(), featurizer("mfcc", dev),
+                                  torch.from_numpy(chunk).to(dev), 3, n_pad))
+        trainer = Trainer(model.train(), make_optimizer("adam", 1e-3, 1.0))
+        _, m = trainer.train_step(trainer.init_state(),
+                                  *[a.to(dev) for a in batch])
+        launched = (fwd.launches - counts[0], bwd.launches - counts[1])
+        assert launched == ((4, 2) if dev.type == "cuda" else (0, 0))
+        out.append((float(m["loss"]), float(m["grad_norm"]),
+                    {k: p.grad.cpu() for k, p in model.named_parameters()}))
+    torch.testing.assert_close(served[0].logits.cpu(), served[1].logits,
+                               rtol=0, atol=2e-3)
     (loss_k, gn_k, g_k), (loss_p, gn_p, g_p) = out
     assert loss_k == pytest.approx(loss_p, rel=1e-4)
     assert gn_k == pytest.approx(gn_p, rel=1e-3)

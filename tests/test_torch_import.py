@@ -26,7 +26,8 @@ for name in names:
     importlib.import_module(name)
 for want in ("cli.predict", "features.fbank", "features.audio",
              "features.wav", "text.parser", "utils.hparams",
-             "utils.metrics_writer", "ops.bilstm", "ops.gru", "ops.ctc",
+             "utils.metrics_writer", "ops.bilstm", "ops.gru", "ops.ln_lstm",
+             "ops.ctc",
              "ops.metrics", "data.generator", "train.trainer", "train.loop",
              "train.checkpoint"):
     assert "asr_study_torch." + want in names, (want, names)

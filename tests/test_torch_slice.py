@@ -118,12 +118,25 @@ def test_graves2006_shapes():
         assert m(x, torch.tensor([5, 3])).shape == (2, 5, 28)
 
 
-@pytest.mark.parametrize("name,err", [
-    ("ln_blstm", NotImplementedError),
-    ("zoneout_blstm", NotImplementedError),
-    ("mi_blstm", NotImplementedError),
-    ("nosuch", KeyError),
+@pytest.mark.parametrize("name,err,match", [
+    ("zoneout_blstm", NotImplementedError, "B9-B10"),
+    ("mi_blstm", NotImplementedError, "B11-B12"),
+    ("nosuch", KeyError, "ln_blstm"),
 ])
-def test_build_model_refuses(name, err):
-    with pytest.raises(err):
+def test_build_model_refuses(name, err, match):
+    with pytest.raises(err, match=match):
         build_model(name)
+
+
+@pytest.mark.parametrize("bidirectional", [True, False], ids=["bi", "uni"])
+def test_build_model_ln_blstm_runs(bidirectional):
+    """ln_blstm builds (it was refused before its kernels were ported) and
+    serves a small batch: finite logits, zero-padded frames held."""
+    m = build_model("ln_blstm", f"num_hiddens=6,num_layers=2,bidirectional="
+                    f"{str(bidirectional).lower()}", num_classes=27,
+                    generator=torch.Generator().manual_seed(0))
+    assert m.rnn.layers[1].rnn.fw.ln_h["g"].shape == (24,)
+    x = torch.randn(2, 7, 39, generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        out = m(x, torch.tensor([7, 4]))
+    assert out.shape == (2, 7, 28) and bool(torch.isfinite(out).all())
