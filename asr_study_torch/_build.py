@@ -68,6 +68,19 @@ SIGNATURES = {
     # bc_f, bc_b, h_f, c_f, h_b, c_b, dh_f, dh_b, dpre_f, dcn_f, dpre_b,
     # dcn_b, T, B, H, ndir, stream
     "asr_ln_lstm_bwd": [_P] * 23 + [_I, _I, _I, _I, _P],
+    # xp_f, xp_b, mask, zh_f, zh_b, zc_f, zc_b, wh_f, wh_b, h_f, c_f, h_b,
+    # c_b, T, B, H, ndir, stream
+    "asr_zoneout_lstm_fwd": [_P] * 13 + [_I, _I, _I, _I, _P],
+    # xp_f, xp_b, mask, zh_f, zh_b, zc_f, zc_b, wh_f, wh_b, wht_f, wht_b,
+    # h_f, c_f, h_b, c_b, dh_f, dh_b, dxp_f, dxp_b, T, B, H, ndir, stream
+    "asr_zoneout_lstm_bwd": [_P] * 19 + [_I, _I, _I, _I, _P],
+    # xp_f, xp_b, mask, wh_f, wh_b, alpha_f, alpha_b, beta1_f, beta1_b,
+    # beta2_f, beta2_b, b_f, b_b, h_f, c_f, h_b, c_b, T, B, H, ndir, stream
+    "asr_mi_lstm_fwd": [_P] * 17 + [_I, _I, _I, _I, _P],
+    # xp_f, xp_b, mask, wh_f, wh_b, wht_f, wht_b, alpha_f, alpha_b, beta1_f,
+    # beta1_b, beta2_f, beta2_b, b_f, b_b, h_f, c_f, h_b, c_b, dh_f, dh_b,
+    # dpre_f, dpre_b, T, B, H, ndir, stream
+    "asr_mi_lstm_bwd": [_P] * 23 + [_I, _I, _I, _I, _P],
     # lp_ext, valid, skip, alpha_seq, T, B, S, stream
     "asr_ctc_alpha": [_P, _P, _P, _P, _I, _I, _I, _P],
     # lp_ext, valid, alpha_seq, skip2, end_ind, gamma, T, B, S, stream

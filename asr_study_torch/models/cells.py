@@ -1,5 +1,6 @@
-"""LSTM, layer-norm LSTM and GRU cells (port of
-``asr_study_tpu/models/cells.py`` ``LSTMCell``, ``LayerNormLSTMCell`` and
+"""LSTM, layer-norm, multiplicative-integration and zoneout LSTM, and GRU
+cells (port of ``asr_study_tpu/models/cells.py`` ``LSTMCell``,
+``LayerNormLSTMCell``, ``MILSTMCell``, ``ZoneoutLSTMCell`` and
 ``GRUCell``).
 
 The input-side projection ``x @ wx`` for all frames is hoisted out of the
@@ -60,10 +61,13 @@ class LSTMCell(nn.Module):
     def input_proj(self, x: torch.Tensor) -> torch.Tensor:
         return torch.matmul(x, self.wx)
 
-    def prepare(self, x: torch.Tensor
+    def prepare(self, x: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None
                 ) -> tuple[torch.Tensor, tuple[torch.Tensor, ...]]:
         """What the recurrence op takes for input x [T, B, F]: the streamed
-        ``x @ wx + b`` [T, B, 4H] and the resident ``(wh,)``."""
+        ``x @ wx + b`` [T, B, 4H] and the rest of its arguments, here
+        ``(wh,)``.  ``train`` and ``generator`` reach the cells that draw
+        (:class:`ZoneoutLSTMCell`); the others ignore them."""
         return (self.input_proj(x) + self.b).contiguous(), (self.wh,)
 
     def step(self, carry: tuple[torch.Tensor, torch.Tensor],
@@ -129,7 +133,8 @@ class LayerNormLSTMCell(LSTMCell):
                              x.reshape(*shape[:-1], blocks, -1))
         return y.reshape(shape)
 
-    def prepare(self, x: torch.Tensor
+    def prepare(self, x: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None
                 ) -> tuple[torch.Tensor, tuple[torch.Tensor, ...]]:
         """The streamed ``xpn`` [T, B, 4H] (``ln_x`` has no recurrent
         dependence, so it runs here over every frame, and every additive
@@ -152,6 +157,142 @@ class LayerNormLSTMCell(LSTMCell):
         c = torch.sigmoid(f) * c_prev + torch.sigmoid(i) * torch.tanh(g)
         h = torch.sigmoid(o) * torch.tanh(layer_norm_apply(self.ln_c, c))
         h, c = _hold(mask_t, h, h_prev), _hold(mask_t, c, c_prev)
+        return (h, c), h
+
+
+def mi_lstm_step(h_prev: torch.Tensor, c_prev: torch.Tensor,
+                 xp_t: torch.Tensor, mask_t: torch.Tensor, wh: torch.Tensor,
+                 alpha: torch.Tensor, beta1: torch.Tensor,
+                 beta2: torch.Tensor, b: torch.Tensor
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One frame of the multiplicative-integration LSTM: xp_t [B, 4H] is the
+    raw ``x @ wx`` (no bias), alpha, beta1, beta2 and b [4H]; the gate
+    pre-activation is ``alpha * xp * hp + beta1 * xp + beta2 * hp + b`` with
+    ``hp = h_prev @ wh``.  -> (h, c)."""
+    hp = torch.matmul(h_prev, wh)
+    pre = alpha * xp_t * hp + beta1 * xp_t + beta2 * hp + b
+    i, f, g, o = pre.chunk(4, dim=-1)
+    c = torch.sigmoid(f) * c_prev + torch.sigmoid(i) * torch.tanh(g)
+    h = torch.sigmoid(o) * torch.tanh(c)
+    return _hold(mask_t, h, h_prev), _hold(mask_t, c, c_prev)
+
+
+class MILSTMCell(LSTMCell):
+    """Multiplicative-integration LSTM (port of ``cells.py``
+    ``MILSTMCell``, Wu et al. 2016): the parameters of ``LSTMCell`` plus
+    ``alpha``, ``beta1`` and ``beta2`` [4H], ones at init."""
+
+    def __init__(self, input_dim: int, hidden: int,
+                 generator: Optional[torch.Generator] = None,
+                 device: torch.device | str | None = None):
+        super().__init__(input_dim, hidden, generator, device)
+        g = self.num_gates * hidden
+        for name in ("alpha", "beta1", "beta2"):
+            setattr(self, name, nn.Parameter(torch.ones(
+                (g,), dtype=torch.float32, device=device)))
+
+    def prepare(self, x: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None
+                ) -> tuple[torch.Tensor, tuple[torch.Tensor, ...]]:
+        """The streamed RAW ``x @ wx`` [T, B, 4H] (the Hadamard term needs
+        it without the bias) and the resident ``(wh, alpha, beta1, beta2,
+        b)``."""
+        return self.input_proj(x).contiguous(), (
+            self.wh, self.alpha, self.beta1, self.beta2, self.b)
+
+    def step(self, carry: tuple[torch.Tensor, torch.Tensor],
+             xp_t: torch.Tensor, mask_t: torch.Tensor
+             ) -> tuple[tuple[torch.Tensor, torch.Tensor], torch.Tensor]:
+        """xp_t [B, 4H] is ``input_proj``."""
+        h, c = mi_lstm_step(carry[0], carry[1], xp_t, mask_t, self.wh,
+                            self.alpha, self.beta1, self.beta2, self.b)
+        return (h, c), h
+
+
+def zoneout_lstm_step(h_prev: torch.Tensor, c_prev: torch.Tensor,
+                      xp_t: torch.Tensor, mask_t: torch.Tensor,
+                      zh_t: torch.Tensor, zc_t: torch.Tensor,
+                      wh: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """One frame of the zoneout LSTM in the kernel's split form (the JAX
+    ``_zo_cell_math``): the LSTM update from xp_t [B, 4H] (bias folded in),
+    then ``h = zh * h_new + (1 - zh) * h_prev`` and the same for c with zc
+    (zh_t, zc_t [B, H]: the weight of the new state), then the hold on
+    masked frames.  -> (h, c)."""
+    pre = xp_t + torch.matmul(h_prev, wh)
+    i, f, g, o = pre.chunk(4, dim=-1)
+    c_new = torch.sigmoid(f) * c_prev + torch.sigmoid(i) * torch.tanh(g)
+    h_new = torch.sigmoid(o) * torch.tanh(c_new)
+    h = zh_t * h_new + (1.0 - zh_t) * h_prev
+    c = zc_t * c_new + (1.0 - zc_t) * c_prev
+    return _hold(mask_t, h, h_prev), _hold(mask_t, c, c_prev)
+
+
+def zoneout_mix(rate: float, train: bool,
+                generator: Optional[torch.Generator], shape: tuple,
+                device: torch.device | str | None = None) -> torch.Tensor:
+    """Zoneout mix weights of ``shape``, the weight of the new state (the
+    JAX ``_zoneout_mix`` without its key schedule): in train mode at a rate
+    above 0, {0, 1} samples that are 1 with probability ``1 - rate``, drawn
+    from ``generator`` (on ``device``; train mode without one raises, as
+    dropout does); else the constant ``1 - rate`` (1.0 at rate <= 0), with
+    no draw."""
+    if train and rate > 0.0:
+        if generator is None:
+            raise ValueError("zoneout in train mode needs a torch.Generator")
+        u = torch.rand(shape, generator=generator, device=device,
+                       dtype=torch.float32)
+        return (u < 1.0 - rate).to(torch.float32)
+    return torch.full(shape, 1.0 if rate <= 0.0 else 1.0 - rate,
+                      dtype=torch.float32, device=device)
+
+
+class ZoneoutLSTMCell(LSTMCell):
+    """Zoneout LSTM (port of ``cells.py`` ``ZoneoutLSTMCell``, Krueger et
+    al. 2017): the parameters of ``LSTMCell``; each unit's h (c) keeps its
+    previous value with probability ``zoneout_h`` (``zoneout_c``) in train
+    mode, and eval mode takes ``(1 - rate) * new + rate * old``.
+
+    The mix weights are drawn outside the recurrence, for every frame at
+    once (``prepare``), and streamed into the recurrence op; a train-mode
+    layer draws its own zh, then its zc, from the caller's generator."""
+
+    def __init__(self, input_dim: int, hidden: int,
+                 generator: Optional[torch.Generator] = None,
+                 device: torch.device | str | None = None,
+                 zoneout_h: float = 0.1, zoneout_c: float = 0.1):
+        super().__init__(input_dim, hidden, generator, device)
+        self.zoneout_h = zoneout_h
+        self.zoneout_c = zoneout_c
+
+    def mix(self, t_steps: int, batch: int, train: bool = False,
+            generator: Optional[torch.Generator] = None,
+            device: torch.device | str | None = None
+            ) -> tuple[torch.Tensor, torch.Tensor]:
+        """(zh, zc) [T, B, H] for a walk of ``t_steps`` frames: zh drawn
+        first, then zc (:func:`zoneout_mix`)."""
+        shape = (t_steps, batch, self.hidden)
+        return (zoneout_mix(self.zoneout_h, train, generator, shape, device),
+                zoneout_mix(self.zoneout_c, train, generator, shape, device))
+
+    def prepare(self, x: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None
+                ) -> tuple[torch.Tensor, tuple[torch.Tensor, ...]]:
+        """The streamed ``x @ wx + b`` [T, B, 4H] and ``(zh, zc, wh)``, the
+        mix weights [T, B, H] in forward time order whichever way the layer
+        walks."""
+        zh, zc = self.mix(x.shape[0], x.shape[1], train, generator,
+                          x.device)
+        return (self.input_proj(x) + self.b).contiguous(), (zh, zc, self.wh)
+
+    def step(self, carry: tuple[torch.Tensor, torch.Tensor],
+             xp_t: torch.Tensor, mask_t: torch.Tensor, train: bool = False,
+             generator: Optional[torch.Generator] = None
+             ) -> tuple[tuple[torch.Tensor, torch.Tensor], torch.Tensor]:
+        """xp_t [B, 4H] is ``input_proj`` without the bias: the LSTM step,
+        the mix (weights drawn for this frame), the hold."""
+        zh, zc = self.mix(1, xp_t.shape[0], train, generator, xp_t.device)
+        h, c = zoneout_lstm_step(carry[0], carry[1], xp_t + self.b, mask_t,
+                                 zh[0], zc[0], self.wh)
         return (h, c), h
 
 
@@ -189,7 +330,8 @@ class GRUCell(nn.Module):
     def input_proj(self, x: torch.Tensor) -> torch.Tensor:
         return torch.matmul(x, self.wx)
 
-    def prepare(self, x: torch.Tensor
+    def prepare(self, x: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None
                 ) -> tuple[torch.Tensor, tuple[torch.Tensor, ...]]:
         """The streamed ``x @ wx + b`` [T, B, 3H] and the resident
         ``(wh,)``."""

@@ -107,7 +107,7 @@ def _hp(params, **defaults) -> HParams:
 
 
 def _stacked(hp: HParams, input_dim: int, cell_kind: str, generator,
-             device) -> StackedRNN:
+             device, **cell_kw) -> StackedRNN:
     return StackedRNN(
         input_dim,
         cell_kind=cell_kind,
@@ -118,6 +118,7 @@ def _stacked(hp: HParams, input_dim: int, cell_kind: str, generator,
         skip=hp.get("skip", "none"),
         generator=generator,
         device=device,
+        **cell_kw,
     )
 
 
@@ -167,6 +168,33 @@ def ln_blstm(params=None, num_classes: int = 27, input_dim: int = 39,
         generator, device)
 
 
+def zoneout_blstm(params=None, num_classes: int = 27, input_dim: int = 39,
+                  generator: Optional[torch.Generator] = None,
+                  device: torch.device | str | None = None
+                  ) -> AcousticModel:
+    """Zoneout BLSTM stack (the reference's zoneout variant);
+    ``bidirectional=false`` gives the forward-only model."""
+    hp = _hp(params, num_hiddens=256, num_layers=3, bidirectional=True,
+             dropout=0.0, zoneout_h=0.1, zoneout_c=0.1)
+    return AcousticModel(
+        num_classes, _stacked(hp, input_dim, "zoneout_lstm", generator,
+                              device, zoneout_h=hp.zoneout_h,
+                              zoneout_c=hp.zoneout_c),
+        generator, device)
+
+
+def mi_blstm(params=None, num_classes: int = 27, input_dim: int = 39,
+             generator: Optional[torch.Generator] = None,
+             device: torch.device | str | None = None) -> AcousticModel:
+    """Multiplicative-integration BLSTM stack (the reference's MI variant);
+    ``bidirectional=false`` gives the forward-only model."""
+    hp = _hp(params, num_hiddens=256, num_layers=3, bidirectional=True,
+             dropout=0.2)
+    return AcousticModel(
+        num_classes, _stacked(hp, input_dim, "mi_lstm", generator, device),
+        generator, device)
+
+
 def highway_blstm(params=None, num_classes: int = 27, input_dim: int = 39,
                   generator: Optional[torch.Generator] = None,
                   device: torch.device | str | None = None
@@ -210,12 +238,9 @@ def deep_speech(params=None, num_classes: int = 27, input_dim: int = 39,
 
 MODELS = {"graves2006": graves2006, "deep_blstm": deep_blstm,
           "deep_gru": deep_gru, "ln_blstm": ln_blstm,
+          "zoneout_blstm": zoneout_blstm, "mi_blstm": mi_blstm,
           "highway_blstm": highway_blstm, "residual_blstm": residual_blstm,
           "deep_speech": deep_speech}
-
-# constructors of the JAX zoo that the port does not have yet -> their
-# cells' kernels, ROADMAP queue B items
-_NOT_PORTED = {"zoneout_blstm": "B9-B10", "mi_blstm": "B11-B12"}
 
 
 def build_model(name: str, params=None, num_classes: int = 27,
@@ -223,10 +248,6 @@ def build_model(name: str, params=None, num_classes: int = 27,
                 generator: Optional[torch.Generator] = None,
                 device: torch.device | str | None = None) -> AcousticModel:
     key = name.lower()
-    if key in _NOT_PORTED:
-        raise NotImplementedError(
-            f"model {name!r} is not ported yet (ROADMAP queue A item 1; its "
-            f"kernels are queue B items {_NOT_PORTED[key]})")
     if key not in MODELS:
         raise KeyError(f"unknown model {name!r}; available: "
                        f"{', '.join(sorted(MODELS))}")

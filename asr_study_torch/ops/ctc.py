@@ -14,9 +14,11 @@ whose gradient boundary is ``lp_ext``, as the JAX ``ctc_nll`` custom VJP:
   (``csrc/ctc.cu`` / :func:`ctc_beta_plain`), then
   ``dlp = -exp(min(gamma - logP, 0))`` on feasible rows, elementwise.
 
-The label gather and the log-softmax stay ordinary autograd ops.  Two
-TPU-only forms are left out: ``lp_ext`` is a ``torch.gather`` (not a
-one-hot matmul) and S is not padded to 128 lanes.
+The log-softmax stays an ordinary autograd op.  The label gather is
+:class:`LatticeGather`: a gather forward, and backward the JAX package's
+one-hot product, which sums each class's lattice states in a fixed order
+(so a train step repeats bit for bit on the card).  S is not padded to 128
+lanes (a TPU-only form).
 """
 
 from __future__ import annotations
@@ -255,6 +257,35 @@ class CTCNLL(torch.autograd.Function):
         return posterior_grad(gamma, logp, cot), None, None, None, None
 
 
+class LatticeGather(torch.autograd.Function):
+    """The per-state emissions ``lp_ext[t, b, s] = log_probs[b, t,
+    ext[b, s]]`` -> [T, B, S], from log_probs [B, T, V] and the lattice's
+    class ids ext [B, S] (int64, in range).
+
+    The forward is a gather.  The backward sums each class's lattice states
+    (the blank's L+1 of them) in a fixed order, so that a train step is
+    reproducible bit for bit on a CUDA device, where the gather's own
+    backward is an atomic scatter-add whose order changes from run to run:
+    it is the one-hot [B, S, V] product of the JAX package's ``ctc_loss``,
+    as one batched matmul in float64 (exact sums of the float32 cotangents
+    whatever the caller's TF32 setting), rounded once to float32."""
+
+    @staticmethod
+    def forward(ctx, log_probs, ext):
+        batch, t_max, vocab = log_probs.shape
+        ctx.save_for_backward(ext)
+        ctx.vocab = vocab
+        idx = ext[:, None, :].expand(batch, t_max, ext.shape[1])
+        return torch.gather(log_probs, 2, idx).transpose(0, 1).contiguous()
+
+    @staticmethod
+    def backward(ctx, d_lp):
+        (ext,) = ctx.saved_tensors
+        sel = torch.nn.functional.one_hot(ext, ctx.vocab).double()
+        d = torch.bmm(d_lp.transpose(0, 1).double(), sel)     # [B, T, V]
+        return d.to(d_lp.dtype), None
+
+
 def lattice(logits: torch.Tensor, logit_lengths: torch.Tensor,
             labels: torch.Tensor, label_lengths: torch.Tensor,
             blank_id: Optional[int] = None) -> tuple[torch.Tensor, ...]:
@@ -270,7 +301,6 @@ def lattice(logits: torch.Tensor, logit_lengths: torch.Tensor,
     labels = labels.to(device=dev, dtype=torch.int64)
     label_lengths = label_lengths.to(device=dev, dtype=torch.int64)
     ext = extend_labels(labels, blank_id)                   # [B, S]
-    s_len = ext.shape[1]
     # skip s-2 -> s allowed iff ext[s] is a real label differing from
     # ext[s-2] (Graves 2006 eq. 6)
     ext_m2 = torch.cat([ext.new_full((batch, 2), -1), ext[:, :-2]], dim=1)
@@ -280,9 +310,7 @@ def lattice(logits: torch.Tensor, logit_lengths: torch.Tensor,
     log_probs = torch.log_softmax(logits.float(), dim=-1)   # [B, T, V]
     # states past a row's labels never reach its end states, so an
     # out-of-range pad id may read any class: clamp it into the table
-    idx = torch.clamp(ext, 0, vocab - 1)[:, None, :].expand(batch, t_max,
-                                                            s_len)
-    lp_ext = torch.gather(log_probs, 2, idx).transpose(0, 1).contiguous()
+    lp_ext = LatticeGather.apply(log_probs, torch.clamp(ext, 0, vocab - 1))
     valid = (torch.arange(t_max, device=dev)[:, None]
              < logit_lengths.to(dev)[None, :]).to(torch.float32)
     return lp_ext, valid, skip, 2 * label_lengths, label_lengths

@@ -13,7 +13,9 @@ cell adds its LayerNorm gains and biases under the cell's path:
 ``rnn/layers/<i>/rnn/fw/ln_x/g`` and ``.../ln_x/b`` [4H] (the input side,
 one LayerNorm per gate block), ``ln_h/g`` and ``ln_h/b`` [4H] (the
 recurrent side, the same) and ``ln_c/g`` and ``ln_c/b`` [H] (the cell
-state).
+state).  A multiplicative-integration LSTM cell adds ``alpha``, ``beta1``
+and ``beta2`` [4H] (``rnn/layers/<i>/rnn/fw/alpha``, ...); a zoneout LSTM
+cell has the LSTM's parameters only (its rates are hyperparameters).
 
 Dense layers are ``w`` [in, out] and ``b`` [out] under their own paths:
 the Deep Speech front end ``front/<i>/w`` and ``front/<i>/b``, and the skip

@@ -13,16 +13,19 @@ paths at full width, with random weights from a seeded
 - serving the other recurrent models at full width, the same 8 batches
   through the same function: ``deep_gru`` 3x256 (bidirectional),
   ``deep_blstm`` 3x256 with ``bidirectional=false``, ``highway_blstm``
-  5x256, ``deep_speech`` (3x512 dense front end, one 512-unit BLSTM) and
-  ``ln_blstm`` 3x256 (layer-norm BLSTM);
+  5x256, ``deep_speech`` (3x512 dense front end, one 512-unit BLSTM),
+  ``ln_blstm`` 3x256 (layer-norm BLSTM), ``zoneout_blstm`` 3x256 (eval
+  mode) and ``mi_blstm`` 3x256 (multiplicative integration);
 - training (BASELINE config 3): features [32, 512, 39] -> deep_blstm 3x256
   (dropout 0) -> CTC -> backward -> clip by global norm -> Adam
   (``make_optimizer("adam", 1e-4, 400.0)``), through ``Trainer.train_step``
   and ``fit``, as ``benchmarks/bench_train.py`` drives the JAX trainer;
 - training at the same shapes through ``Trainer.train_step``: ``deep_gru``
   3x256 bidirectional and unidirectional, ``deep_blstm`` 3x256
-  unidirectional, ``highway_blstm`` 5x256, ``deep_speech``, and ``ln_blstm``
-  3x256 bidirectional and unidirectional, dropout 0.
+  unidirectional, ``highway_blstm`` 5x256, ``deep_speech``, and
+  ``ln_blstm``, ``zoneout_blstm`` (train mode at zoneout 0.1/0.1, the mix
+  weights drawn on the card) and ``mi_blstm``, each 3x256 bidirectional and
+  unidirectional, dropout 0.
 
 Phases, in order; any failure raises and the exit code is not 0:
 
@@ -32,16 +35,18 @@ Phases, in order; any failure raises and the exit code is not 0:
    shapes, within the stated tolerance, with its time, its plain version's
    time, its bound and the time of the PyTorch library call that computes
    the same function (cuDNN ``nn.LSTM`` / ``nn.GRU``, ``F.ctc_loss``; none
-   for fbank and the layer-norm LSTM); the LSTM kernels also at the zoo's
-   other widths, H=512 and H=100;
+   for fbank and the layer-norm, zoneout and MI LSTMs); the LSTM kernels
+   also at the zoo's other widths, H=512 and H=100; the zoneout kernels
+   with Bernoulli and with constant mix weights;
 4. the serving slices, with launch counters proving their kernels ran,
    logits held against the plain path on the CPU (for ln_blstm, whose
    recurrence is chaotic, on a batch cut to LN_CHECK_T frames);
 5. serving timings from CUDA events after a warm-up;
 6. the training slices: launch counters per step, one card step held
    against the same step of the plain path on the CPU (loss, grad norm,
-   every gradient; for ln_blstm a step on LN_CHECK_T frames), the loss
-   falling over 20 steps on one batch, and (for
+   every gradient; for ln_blstm a step on LN_CHECK_T frames; for
+   zoneout_blstm with the card's mix weights), the loss falling over 20
+   steps on one batch, two identical steps equal bit for bit, and (for
    the bidirectional deep_blstm) ``fit`` over a few batches with a
    checkpoint saved, restored and continued;
 7. training timings: ms per step, steps/s, audio-s/s, per-stage ms, the
@@ -55,6 +60,7 @@ last is the kernels' JSON record; the last line is
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import importlib.util
 import json
@@ -972,6 +978,191 @@ def check_lstm_kernels(dev: torch.device, card: str, x_serve: torch.Tensor,
             "library": library}
 
 
+def check_cell_family(dev: torch.device, card: str, x_serve: torch.Tensor,
+                      len_serve: torch.Tensor, family: str) -> dict:
+    """Phase 3 for the zoneout-LSTM (``family`` "zoneout") or the MI-LSTM
+    ("mi") kernels, both forms (two directions a launch and one).
+
+    Each forward at the serving shapes (the check batch's features [T=805,
+    B=32, 39] through layer 0 of a 3x256 model, ragged lengths) and each
+    backward at the config-3 shapes (T=512, B=32, H=256, lengths 256-512)
+    against its plain version, with the LSTM tolerances; the parameter
+    gradients through the Function against autograd through the plain
+    loop; each timed with its plain version and its bound (the mix weights'
+    bytes counted in).  The zoneout kernels are held twice, with
+    Bernoulli(0.9) mix weights drawn on the card (train mode) and with the
+    eval constant 0.9, and the zoneout forward at zh = zc = 1 against
+    bilstm_fwd.  The MI vectors alpha, beta1, beta2 and b are moved off
+    their init by seeded noise, so that each one the kernels take matters.
+    The forward's h is also printed against a float64 run of the plain
+    loop, the recurrence's own fp32 spread."""
+    from asr_study_torch.models.zoo import build_model
+    from asr_study_torch.ops import mi_lstm as mi
+    from asr_study_torch.ops import zoneout_lstm as zo
+    from asr_study_torch.ops.bilstm import bilstm
+
+    g = torch.Generator().manual_seed(SEED + (8 if family == "zoneout" else 9))
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    h = HIDDEN
+    model_name = {"zoneout": "zoneout_blstm", "mi": "mi_blstm"}[family]
+    op = zo if family == "zoneout" else mi
+    stem = "zoneout_lstm" if family == "zoneout" else "mi_lstm"
+    # positions of the differentiable resident arguments (the MI vectors
+    # and wh; a zoneout cell's mix weights get no gradient)
+    grad_names = (("dwh",) if family == "zoneout"
+                  else ("dwh", "dalpha", "dbeta1", "dbeta2", "db"))
+
+    def layer0(bidirectional: bool):
+        layer = build_model(model_name, f"num_hiddens={h},num_layers=1,"
+                            f"bidirectional={str(bidirectional).lower()}",
+                            input_dim=FEATS, generator=g,
+                            device=dev).rnn.layers[0].rnn
+        if family == "mi":
+            with torch.no_grad():
+                for cell in [layer.fw] + ([layer.bw] if bidirectional
+                                          else []):
+                    for v in (cell.alpha, cell.beta1, cell.beta2, cell.b):
+                        v.add_(0.1 * torch.randn(v.shape, generator=g).to(
+                            dev))
+        return layer
+
+    def prepared(layer, x, train: bool):
+        """The op's arguments but the mask: streamed tensors, then the
+        residents (each forward, then backward), as RNNLayer hands them."""
+        cells = [layer.fw] + ([layer.bw] if layer.bidirectional else [])
+        with torch.no_grad():
+            preps = [c.prepare(x, train, gen) for c in cells]
+        return ([p[0] for p in preps],
+                [a.detach() for vecs in zip(*(p[1] for p in preps))
+                 for a in vecs])
+
+    def max_err(got, want):
+        return max(float((k - p).abs().max()) for k, p in zip(got, want))
+
+    mixes = ("bernoulli", "constant") if family == "zoneout" else ("-",)
+    errs, times, bounds = {}, {}, {}
+    t_s = x_serve.shape[0]
+    mask_s = mask_of(len_serve, t_s, dev)
+    t, b = TRAIN_T, TRAIN_B
+    lengths = torch.randint(t // 2, t + 1, (b,), generator=g)
+    lengths[0] = t
+    x = torch.randn(t, b, FEATS, generator=g).to(dev)
+    mask = mask_of(lengths, t, dev)
+    dh = [torch.randn(t, b, h, generator=g).to(dev) for _ in range(2)]
+    forms = {f"bi_{stem}": (layer0(True), getattr(op, f"bi_{stem}"),
+                            getattr(op, f"bi_{stem}_plain"),
+                            getattr(op, f"bi_{stem}_bwd"),
+                            getattr(op, f"bi_{stem}_bwd_plain"),
+                            op.BiZoneoutLSTMFunction if family == "zoneout"
+                            else op.BiMILSTMFunction),
+             stem: (layer0(False), getattr(op, stem),
+                    getattr(op, f"{stem}_plain"),
+                    getattr(op, f"{stem}_bwd"),
+                    getattr(op, f"{stem}_bwd_plain"),
+                    op.ZoneoutLSTMFunction if family == "zoneout"
+                    else op.MILSTMFunction)}
+    for name, (layer, fwd, fwd_plain, bwd, bwd_plain, fn) in forms.items():
+        for mix in mixes:
+            train = mix == "bernoulli"
+            how = f" ({mix} mix weights)" if family == "zoneout" else ""
+            # the forward at the serving shapes
+            xps, res = prepared(layer, x_serve, train)
+            n = len(xps)
+            args = (*xps, mask_s, *res)
+            with torch.no_grad():
+                got, want = fwd(*args), fwd_plain(*args)
+                ref = fwd_plain(*(a.double() for a in args))[0::2]
+                drift = [max_err([r.double() for r in run], ref)
+                         for run in (got[0::2], want[0::2])]
+                if mix != "constant":
+                    times[f"{name}_fwd"] = (
+                        cuda_ms(lambda: fwd(*args), 10),
+                        cuda_ms(lambda: fwd_plain(*args), 2, 1))
+            err = max_err(got, want)
+            errs[f"{name}_fwd"] = max(err, errs.get(f"{name}_fwd", 0.0))
+            bounds[f"{name}_fwd"] = rnn_bound(xps[0], h, n, 1, (*args, *got))
+            print(f"{name}_fwd kernel vs plain{how}: T={t_s} B={BATCH} H={h} "
+                  f"lengths {int(len_serve.min())}..{int(len_serve.max())} "
+                  f"max_abs_err={err:.3e} (h "
+                  f"{max_err(got[0::2], want[0::2]):.2e} c "
+                  f"{max_err(got[1::2], want[1::2]):.2e}; max|c| "
+                  f"{max(float(c.abs().max()) for c in want[1::2]):.2f}) "
+                  f"(tol {BILSTM_ATOL:g} + {BILSTM_RTOL:g}*|plain|); h against "
+                  f"a float64 run of the plain loop: kernel {drift[0]:.2e}, "
+                  f"plain loop on the card {drift[1]:.2e}")
+            require(all(within(k, p, BILSTM_ATOL, BILSTM_RTOL)
+                        for k, p in zip(got, want)),
+                    f"{name}_fwd kernel disagrees with plain{how}")
+            if family == "zoneout" and n == 2 and mix == "constant":
+                ones = torch.ones_like(args[3])
+                with torch.no_grad():
+                    z1 = fwd(*args[:3], ones, ones, ones, ones, *args[7:])
+                    ref = bilstm(*args[:3], *args[7:])
+                one_err = max_err(z1, ref)
+                print(f"{name}_fwd at zh = zc = 1 vs bilstm_fwd on the same "
+                      f"inputs: max_abs_err={one_err:.3e}, bit-equal "
+                      f"{all(torch.equal(k, p) for k, p in zip(z1, ref))} "
+                      f"(tol 1e-6 + 1e-6*|bilstm|)")
+                require(all(within(k, p, 1e-6, 1e-6) for k, p in zip(z1, ref)),
+                        "zoneout at rate 0 differs from the LSTM kernel")
+
+            # the backward at the training shapes
+            xps, res = prepared(layer, x, train)
+            args = (*xps, mask, *res)
+            with torch.no_grad():
+                bwd_args = (*args, *fwd(*args), *dh[:n])
+                d_k, d_p = bwd(*bwd_args), bwd_plain(*bwd_args)
+                d_k = d_k if n == 2 else (d_k,)
+                d_p = d_p if n == 2 else (d_p,)
+                if mix != "constant":
+                    times[f"{name}_bwd"] = (
+                        cuda_ms(lambda: bwd(*bwd_args), 10),
+                        cuda_ms(lambda: bwd_plain(*bwd_args), 2, 1))
+            err = max_err(d_k, d_p)
+            errs[f"{name}_bwd"] = max(err, errs.get(f"{name}_bwd", 0.0))
+            bounds[f"{name}_bwd"] = rnn_bound(xps[0], h, n, 2,
+                                              (*bwd_args, *d_k))
+            # the parameter gradients through the Function against autograd
+            # through the plain loop
+            diff = [i for i in range(len(res))
+                    if family != "zoneout" or i >= 2 * n]
+            w_k = [a.clone().requires_grad_() if i in diff else a
+                   for i, a in enumerate(res)]
+            w_p = [a.clone().requires_grad_() if i in diff else a
+                   for i, a in enumerate(res)]
+            outs = fn.apply(*xps, mask, *w_k)
+            torch.autograd.backward(outs if n == 2 else (outs,), dh[:n])
+            torch.autograd.backward(fwd_plain(*xps, mask, *w_p)[0::2],
+                                    dh[:n])
+            p_errs = [float((w_k[i].grad - w_p[i].grad).abs().max()
+                            / w_p[i].grad.abs().max()) for i in diff]
+            by_kind = {k: max(p_errs[j * n: (j + 1) * n])
+                       for j, k in enumerate(grad_names)}
+            print(f"{name}_bwd kernel vs plain{how}: T={t} B={b} H={h} "
+                  f"lengths {int(lengths.min())}..{t} max_abs_err={err:.3e} "
+                  f"(max|{'dpre' if family == 'mi' else 'dxp'}| "
+                  f"{max(float(p.abs().max()) for p in d_p):.4g}; tol "
+                  f"{BWD_ATOL:g} + {BWD_RTOL:g}*|plain|); via {fn.__name__} "
+                  f"vs autograd through {fwd_plain.__name__}, max err / "
+                  f"max|grad|: " + ", ".join(f"{k} {v:.3e}"
+                                             for k, v in by_kind.items())
+                  + f" (tol {DWH_RTOL:g})")
+            require(all(within(k, p, BWD_ATOL, BWD_RTOL)
+                        for k, p in zip(d_k, d_p)),
+                    f"{name}_bwd kernel disagrees with plain{how}")
+            require(max(p_errs) <= DWH_RTOL,
+                    f"{fn.__name__} gradients disagree with autograd{how}")
+    print(f"{family} LSTM library yardstick: none; no PyTorch call computes "
+          f"a{' zoneout' if family == 'zoneout' else 'n MI'} LSTM (cuDNN's "
+          f"nn.LSTM has no {'zoneout mix' if family == 'zoneout' else 'multiplicative integration'}), "
+          f"so library_ms is null for its four kernels")
+    for name, (k_ms, p_ms) in times.items():
+        print(f"[{card}] {name}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+              f"bound {bounds[name][0]:.4f} ms ({bounds[name][1]})")
+    return {"errs": errs, "times": times, "bounds": bounds,
+            "library": dict.fromkeys(times)}
+
+
 # every kernel of the port: name -> (source in asr_study_torch/csrc, the TPU
 # kernel it replaces in asr_study_tpu)
 KERNELS = {
@@ -990,11 +1181,25 @@ KERNELS = {
     "bi_ln_lstm_bwd": ("ln_lstm_bwd.cu", "ops/pallas_bi_ln_lstm.py:81"),
     "ln_lstm_fwd": ("ln_lstm_fwd.cu", "ops/pallas_ln_lstm.py:106"),
     "ln_lstm_bwd": ("ln_lstm_bwd.cu", "ops/pallas_ln_lstm.py:198"),
+    "bi_zoneout_lstm_fwd": ("zoneout_lstm_fwd.cu",
+                            "ops/pallas_bi_zoneout_lstm.py:41"),
+    "bi_zoneout_lstm_bwd": ("zoneout_lstm_bwd.cu",
+                            "ops/pallas_bi_zoneout_lstm.py:83"),
+    "zoneout_lstm_fwd": ("zoneout_lstm_fwd.cu",
+                         "ops/pallas_zoneout_lstm.py:56"),
+    "zoneout_lstm_bwd": ("zoneout_lstm_bwd.cu",
+                         "ops/pallas_zoneout_lstm.py:133"),
+    "bi_mi_lstm_fwd": ("mi_lstm_fwd.cu", "ops/pallas_bi_mi_lstm.py:39"),
+    "bi_mi_lstm_bwd": ("mi_lstm_bwd.cu", "ops/pallas_bi_mi_lstm.py:81"),
+    "mi_lstm_fwd": ("mi_lstm_fwd.cu", "ops/pallas_mi_lstm.py:59"),
+    "mi_lstm_bwd": ("mi_lstm_bwd.cu", "ops/pallas_mi_lstm.py:132"),
 }
 
 # training paths: label -> (zoo model, its hparams, forward and backward
 # kernel of its recurrence, recurrent layers, what it is); the LN paths'
-# first step is held against the CPU on LN_CHECK_T frames (CHAOTIC)
+# first step is held against the CPU on LN_CHECK_T frames (CHAOTIC); the
+# zoneout paths train at their default rates 0.1, the mix weights drawn
+# on the card from a CUDA generator
 _CONFIG3 = f"num_hiddens={HIDDEN},num_layers={TRAIN_LAYERS},dropout=0.0"
 TRAIN_PATHS = {
     "deep_blstm": ("deep_blstm", _CONFIG3, "bilstm_fwd", "bilstm_bwd",
@@ -1017,6 +1222,18 @@ TRAIN_PATHS = {
     "ln_blstm uni": ("ln_blstm", _CONFIG3 + ",bidirectional=false",
                      "ln_lstm_fwd", "ln_lstm_bwd", TRAIN_LAYERS,
                      f"{TRAIN_LAYERS}x{HIDDEN} LN"),
+    "zoneout_blstm": ("zoneout_blstm", _CONFIG3, "bi_zoneout_lstm_fwd",
+                      "bi_zoneout_lstm_bwd", TRAIN_LAYERS,
+                      f"{TRAIN_LAYERS}x{HIDDEN} zoneout 0.1/0.1"),
+    "zoneout_blstm uni": ("zoneout_blstm", _CONFIG3 + ",bidirectional=false",
+                          "zoneout_lstm_fwd", "zoneout_lstm_bwd",
+                          TRAIN_LAYERS,
+                          f"{TRAIN_LAYERS}x{HIDDEN} zoneout 0.1/0.1"),
+    "mi_blstm": ("mi_blstm", _CONFIG3, "bi_mi_lstm_fwd", "bi_mi_lstm_bwd",
+                 TRAIN_LAYERS, f"{TRAIN_LAYERS}x{HIDDEN} MI"),
+    "mi_blstm uni": ("mi_blstm", _CONFIG3 + ",bidirectional=false",
+                     "mi_lstm_fwd", "mi_lstm_bwd", TRAIN_LAYERS,
+                     f"{TRAIN_LAYERS}x{HIDDEN} MI"),
 }
 CHAOTIC = ("ln_blstm", "ln_blstm uni")
 
@@ -1029,12 +1246,24 @@ def launch_counters() -> dict:
     from asr_study_torch.ops.gru import bigru, bigru_bwd, gru, gru_bwd
     from asr_study_torch.ops.ln_lstm import (bi_ln_lstm, bi_ln_lstm_bwd,
                                              ln_lstm, ln_lstm_bwd)
+    from asr_study_torch.ops.mi_lstm import (bi_mi_lstm, bi_mi_lstm_bwd,
+                                             mi_lstm, mi_lstm_bwd)
+    from asr_study_torch.ops.zoneout_lstm import (bi_zoneout_lstm,
+                                                  bi_zoneout_lstm_bwd,
+                                                  zoneout_lstm,
+                                                  zoneout_lstm_bwd)
     return {"fbank": fbank, "bilstm_fwd": bilstm, "bilstm_bwd": bilstm_bwd,
             "ctc_alpha": ctc.ctc_alpha, "ctc_beta": ctc.ctc_beta,
             "bigru_fwd": bigru, "bigru_bwd": bigru_bwd, "gru_fwd": gru,
             "gru_bwd": gru_bwd, "lstm_fwd": lstm, "lstm_bwd": lstm_bwd,
             "bi_ln_lstm_fwd": bi_ln_lstm, "bi_ln_lstm_bwd": bi_ln_lstm_bwd,
-            "ln_lstm_fwd": ln_lstm, "ln_lstm_bwd": ln_lstm_bwd}
+            "ln_lstm_fwd": ln_lstm, "ln_lstm_bwd": ln_lstm_bwd,
+            "bi_zoneout_lstm_fwd": bi_zoneout_lstm,
+            "bi_zoneout_lstm_bwd": bi_zoneout_lstm_bwd,
+            "zoneout_lstm_fwd": zoneout_lstm,
+            "zoneout_lstm_bwd": zoneout_lstm_bwd,
+            "bi_mi_lstm_fwd": bi_mi_lstm, "bi_mi_lstm_bwd": bi_mi_lstm_bwd,
+            "mi_lstm_fwd": mi_lstm, "mi_lstm_bwd": mi_lstm_bwd}
 
 
 def reset_counts() -> None:
@@ -1046,6 +1275,72 @@ def read_counts() -> dict:
     """The nonzero launch counts."""
     return {k: fn.launches for k, fn in launch_counters().items()
             if fn.launches}
+
+
+class MixTap:
+    """The zoneout mix weights of one train-mode run, handed to another:
+    inside ``record()`` the train-mode draws are kept (layer by layer, the
+    forward cell first); inside ``replay()`` they are handed out in that
+    order, on the caller's device, instead of new draws.  Eval mode and the
+    other cells are left alone."""
+
+    def __init__(self):
+        self.drawn = []
+
+    @contextlib.contextmanager
+    def _patched(self, replay: bool):
+        from asr_study_torch.models.cells import ZoneoutLSTMCell
+
+        real = ZoneoutLSTMCell.mix
+        queue = list(self.drawn)
+
+        def mix(cell, t_steps, batch, train=False, generator=None,
+                device=None):
+            if train and replay:
+                return tuple(z.to(device) for z in queue.pop(0))
+            out = real(cell, t_steps, batch, train, generator, device)
+            if train:
+                self.drawn.append(out)
+            return out
+
+        ZoneoutLSTMCell.mix = mix
+        try:
+            yield
+        finally:
+            ZoneoutLSTMCell.mix = real
+        require(not (replay and queue), "mix weights left over in replay")
+
+    def record(self):
+        self.drawn = []
+        return self._patched(False)
+
+    def replay(self):
+        return self._patched(True)
+
+
+def check_reproducible(path: str, make, spec, batch, dev) -> None:
+    """Two train steps from the same weights, fresh Adam state, batch and
+    generator seed: the loss and every gradient must be equal bit for
+    bit."""
+    from asr_study_torch.train.trainer import Trainer
+
+    runs = []
+    for _ in range(2):
+        tr = Trainer(make(dev), spec)
+        _, m = tr.train_step(tr.init_state(), *batch,
+                             torch.Generator(device=dev).manual_seed(SEED + 9))
+        runs.append((m["loss"], {n: p.grad for n, p in
+                                 tr.model.named_parameters()}))
+    (loss0, g0), (loss1, g1) = runs
+    differ = [n for n in g0 if not torch.equal(g0[n], g1[n])]
+    same = bool(torch.equal(loss0, loss1)) and not differ
+    print(f"{path} train, two identical steps (same weights, fresh Adam "
+          f"state, batch and generator seed): loss bit-equal "
+          f"{bool(torch.equal(loss0, loss1))} ({float(loss0):.6f} vs "
+          f"{float(loss1):.6f}), gradients bit-equal "
+          f"{len(g0) - len(differ)}/{len(g0)}"
+          + (f"; differing: {differ[:4]}" if differ else ""))
+    require(same, f"{path}: two identical train steps differ")
 
 
 def training_slice(dev: torch.device, card: str, path: str = "deep_blstm",
@@ -1080,15 +1375,19 @@ def training_slice(dev: torch.device, card: str, path: str = "deep_blstm",
     model_cpu = make("cpu")
     trainer = Trainer(model, spec)
     state = trainer.init_state()
+    # draws in train mode (the zoneout mix weights) come from the card
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    tap = MixTap()
 
     # the main path: TRAIN_STEPS steps on one batch, counted
     reset_counts()
-    state, m = trainer.train_step(state, *batch)
+    with tap.record():
+        state, m = trainer.train_step(state, *batch, gen)
     losses = [m["loss"]]
     grads = {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
     loss_1, gnorm_1 = float(m["loss"]), float(m["grad_norm"])
     for _ in range(TRAIN_STEPS - 1):
-        state, m = trainer.train_step(state, *batch)
+        state, m = trainer.train_step(state, *batch, gen)
         losses.append(m["loss"])
     torch.cuda.synchronize()
     launches = read_counts()
@@ -1105,6 +1404,7 @@ def training_slice(dev: torch.device, card: str, path: str = "deep_blstm",
           f"(every 5th step: "
           f"{[round(float(v), 4) for v in losses[::5]]})")
     require(float(losses[-1]) < float(losses[0]), "train loss did not fall")
+    check_reproducible(path, make, spec, batch, dev)
 
     # the first step again on the CPU: the plain path, the same weights
     check_on = "the first step"
@@ -1133,9 +1433,16 @@ def training_slice(dev: torch.device, card: str, path: str = "deep_blstm",
         loss_1, gnorm_1 = float(m["loss"]), float(m["grad_norm"])
         check_on = (f"a step at T={LN_CHECK_T}, L={n_lab} from the same "
                     f"weights (a chaotic recurrence)")
+    if tap.drawn:
+        check_on += (f" with the card's mix weights of that step "
+                     f"({len(tap.drawn)} pairs, mean zh "
+                     f"{float(torch.stack([z[0].mean() for z in tap.drawn]).mean()):.4f})")
     t0 = time.perf_counter()
     trainer_cpu = Trainer(model_cpu, spec)
-    _, m_cpu = trainer_cpu.train_step(trainer_cpu.init_state(), *batch_cpu)
+    with tap.replay():
+        _, m_cpu = trainer_cpu.train_step(trainer_cpu.init_state(),
+                                          *batch_cpu,
+                                          torch.Generator().manual_seed(SEED))
     cpu_s = time.perf_counter() - t0
     loss_rel = abs(loss_1 - float(m_cpu["loss"])) / abs(float(m_cpu["loss"]))
     gnorm_rel = (abs(gnorm_1 - float(m_cpu["grad_norm"]))
@@ -1159,7 +1466,8 @@ def training_slice(dev: torch.device, card: str, path: str = "deep_blstm",
 
     if with_fit:
         fit_and_resume(dev, make, spec, per_steps)
-    stats = train_timings(card, path, desc, layers, trainer, state, batch)
+    stats = train_timings(card, path, desc, layers, trainer, state, batch,
+                          gen)
     return {"launches": launches, **stats}
 
 
@@ -1226,19 +1534,20 @@ def fit_and_resume(dev, make, spec, per_steps) -> None:
 
 
 def train_timings(card: str, path: str, desc: str, layers: int, trainer,
-                  state, batch) -> dict:
-    """Phase 7: ms per step, per-stage CUDA events, the busy share."""
+                  state, batch, gen: torch.Generator) -> dict:
+    """Phase 7: ms per step, per-stage CUDA events, the busy share; train
+    mode draws from ``gen``."""
     from asr_study_torch.ops import ctc
 
     model = trainer.model
-    step_ms = cuda_ms(lambda: trainer.train_step(state, *batch), 10)
+    step_ms = cuda_ms(lambda: trainer.train_step(state, *batch, gen), 10)
     x, il, lab, ll, w = batch
 
     def staged():
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
         state.optimizer.zero_grad(set_to_none=True)
         ev[0].record()
-        logits = model(x, il, train=True)
+        logits = model(x, il, train=True, generator=gen)
         ev[1].record()
         lg = logits.detach().requires_grad_()
         per_seq = ctc.ctc_loss(lg, il, lab, ll, blank_id=model.blank_id)
@@ -1272,7 +1581,7 @@ def train_timings(card: str, path: str, desc: str, layers: int, trainer,
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(5):
-            trainer.train_step(state, *batch)
+            trainer.train_step(state, *batch, gen)
         torch.cuda.synchronize()
     busy = device_busy(prof)
     if busy is None:
@@ -1349,6 +1658,10 @@ def main() -> int:
               f"and lstm_fwd {fwd_b} B (4 rows), bilstm_bwd and lstm_bwd "
               f"{bwd_b} B (4 rows, {nsplit} partial sums); the default "
               f"limit is 49152 B, raised at each launch")
+    fwd_b, bwd_b, nsplit = lstm_smem(HIDDEN)
+    print(f"  dynamic shared memory per block at H={HIDDEN}: zoneout_lstm_fwd "
+          f"and mi_lstm_fwd (both forms) {fwd_b} B, zoneout_lstm_bwd and "
+          f"mi_lstm_bwd {bwd_b} B (the LSTM kernels' layout)")
     fwd_b, bwd_b, nsplit = ln_smem(HIDDEN)
     print(f"  dynamic shared memory per block at H={HIDDEN}: ln_lstm_fwd "
           f"(both forms) {fwd_b} B (4 rows), ln_lstm_bwd (both forms) "
@@ -1430,6 +1743,9 @@ def main() -> int:
     gru_kernels = check_gru_kernels(dev, card, x_serve, feat_lengths)
     lstm_kernels = check_lstm_kernels(dev, card, x_serve, feat_lengths)
     ln_kernels = check_ln_kernels(dev, card, x_serve, feat_lengths)
+    zo_kernels = check_cell_family(dev, card, x_serve, feat_lengths,
+                                   "zoneout")
+    mi_kernels = check_cell_family(dev, card, x_serve, feat_lengths, "mi")
 
     # 4, 5. the serving slices, through the CLI's serving function ---------
     all_wavs, audio_s = [], 0.0
@@ -1520,6 +1836,9 @@ def main() -> int:
                         "3x512 clipped-ReLU dense + 1x512 BLSTM"),
         "ln_blstm": ("ln_blstm", "", "bi_ln_lstm_fwd",
                      f"3x{HIDDEN} layer-norm BLSTM"),
+        "zoneout_blstm": ("zoneout_blstm", "", "bi_zoneout_lstm_fwd",
+                          f"3x{HIDDEN} zoneout BLSTM, eval mode"),
+        "mi_blstm": ("mi_blstm", "", "bi_mi_lstm_fwd", f"3x{HIDDEN} MI BLSTM"),
     }
     for i, (label, (name, hp, fwd_name, desc)) in enumerate(
             serve_models.items()):
@@ -1555,7 +1874,8 @@ def main() -> int:
         "bilstm_fwd": (bilstm_err, bl_ms, bl_plain_ms, bl_bound,
                        lstm_y["lib_fwd"]),
     }
-    for found in (train_kernels, gru_kernels, lstm_kernels, ln_kernels):
+    for found in (train_kernels, gru_kernels, lstm_kernels, ln_kernels,
+                  zo_kernels, mi_kernels):
         for name, err in found["errs"].items():
             measured[name] = (err, *found["times"][name],
                               found["bounds"][name], found["library"][name])

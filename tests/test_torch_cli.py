@@ -109,13 +109,16 @@ def test_predict_serves_exported_deep_gru(artifact, tmp_path, capsys,
     ("residual_blstm", "num_hiddens=12,num_layers=2"),
     ("deep_speech", "num_hiddens=12,input_dense=16"),
     ("ln_blstm", "num_hiddens=12,num_layers=2"),
+    ("zoneout_blstm", "num_hiddens=12,num_layers=2"),
+    ("mi_blstm", "num_hiddens=12,num_layers=2"),
 ])
 def test_predict_serves_exported_lstm_zoo(artifact, tmp_path, capsys, name,
                                           hp):
     """An exported JAX .npz of each LSTM model the port added after
     deep_blstm (the unidirectional deep_blstm, the highway and residual
-    stacks, the Deep Speech front end, the layer-norm BLSTM) served on the
-    CPU, with the transcripts of the JAX pipeline for the same weights."""
+    stacks, the Deep Speech front end, the layer-norm, zoneout and MI
+    BLSTMs) served on the CPU, with the transcripts of the JAX pipeline for
+    the same weights."""
     _, paths, _, _ = artifact
     model = getattr(jzoo, name)(hp, num_classes=27)
     params = model.init(jax.random.PRNGKey(3), 39)

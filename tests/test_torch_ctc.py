@@ -233,3 +233,36 @@ def test_extend_labels_and_skip_mask():
     # only the label differing from the one two states back may skip
     assert (skip[0] == 0).tolist() == [False, True, False, False, False,
                                        True, False]
+
+
+def test_lattice_gather_sums_each_class_in_a_fixed_order():
+    """LatticeGather: the forward is the per-state gather; the backward is
+    the one-hot product of the JAX package's ctc_loss (its VJP through the
+    einsum), equal to the gather's own autograd backward, with the blank
+    class taking the sum of its L+1 lattice states."""
+    rng = np.random.RandomState(3)
+    b, t, v, l_max = 3, 7, 6, 4
+    lp = rng.randn(b, t, v).astype(np.float32)
+    ext = pc.extend_labels(torch.from_numpy(
+        rng.randint(0, v - 1, (b, l_max))), v - 1)
+    d_lp = rng.randn(t, b, ext.shape[1]).astype(np.float32)
+    leaf = torch.from_numpy(lp).requires_grad_()
+    out = pc.LatticeGather.apply(leaf, ext)
+    idx = ext[:, None, :].expand(b, t, ext.shape[1])
+    ref_leaf = torch.from_numpy(lp).requires_grad_()
+    ref = torch.gather(ref_leaf, 2, idx).transpose(0, 1)
+    assert torch.equal(out, ref)
+    out.backward(torch.from_numpy(d_lp))
+    ref.backward(torch.from_numpy(d_lp))
+    torch.testing.assert_close(leaf.grad, ref_leaf.grad, rtol=1e-6,
+                               atol=1e-6)
+    sel = jax.nn.one_hot(jnp.asarray(ext.numpy()), v, dtype=jnp.float32)
+    _, vjp = jax.vjp(lambda x: jnp.einsum(
+        "bsv,btv->tbs", sel, x, precision=jax.lax.Precision.HIGHEST),
+        jnp.asarray(lp))
+    np.testing.assert_allclose(leaf.grad.numpy(),
+                               np.asarray(vjp(jnp.asarray(d_lp))[0]),
+                               rtol=1e-6, atol=1e-6)
+    blank = d_lp.sum(axis=2, where=(ext.numpy() == v - 1)[None])
+    np.testing.assert_allclose(leaf.grad[..., v - 1].numpy(), blank.T,
+                               rtol=1e-6, atol=1e-6)

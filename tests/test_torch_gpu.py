@@ -30,6 +30,22 @@ from asr_study_torch.ops.ln_lstm import (BiLNLSTMFunction, LNLSTMFunction,
                                          bi_ln_lstm_plain, ln_lstm,
                                          ln_lstm_bwd, ln_lstm_bwd_plain,
                                          ln_lstm_plain)
+from asr_study_torch.models.cells import ZoneoutLSTMCell
+from asr_study_torch.ops.mi_lstm import (BiMILSTMFunction, MILSTMFunction,
+                                         bi_mi_lstm, bi_mi_lstm_bwd,
+                                         bi_mi_lstm_bwd_plain,
+                                         bi_mi_lstm_plain, mi_lstm,
+                                         mi_lstm_bwd, mi_lstm_bwd_plain,
+                                         mi_lstm_plain)
+from asr_study_torch.ops.zoneout_lstm import (BiZoneoutLSTMFunction,
+                                              ZoneoutLSTMFunction,
+                                              bi_zoneout_lstm,
+                                              bi_zoneout_lstm_bwd,
+                                              bi_zoneout_lstm_bwd_plain,
+                                              bi_zoneout_lstm_plain,
+                                              zoneout_lstm, zoneout_lstm_bwd,
+                                              zoneout_lstm_bwd_plain,
+                                              zoneout_lstm_plain)
 from asr_study_torch.train.trainer import Trainer, make_optimizer
 
 pytestmark = pytest.mark.gpu
@@ -649,6 +665,313 @@ def test_ln_blstm_on_card_matches_cpu(cuda, bidirectional):
         assert launched == ((4, 2) if dev.type == "cuda" else (0, 0))
         out.append((float(m["loss"]), float(m["grad_norm"]),
                     {k: p.grad.cpu() for k, p in model.named_parameters()}))
+    torch.testing.assert_close(served[0].logits.cpu(), served[1].logits,
+                               rtol=0, atol=2e-3)
+    (loss_k, gn_k, g_k), (loss_p, gn_p, g_p) = out
+    assert loss_k == pytest.approx(loss_p, rel=1e-4)
+    assert gn_k == pytest.approx(gn_p, rel=1e-3)
+    for k in g_p:
+        assert float((g_k[k] - g_p[k]).norm()) <= 1e-3 * float(
+            g_p[k].norm()), k
+
+
+def _two_identical_steps(cuda, name, hp, seed=3):
+    """Two train steps of ``name`` from the same weights, fresh Adam state,
+    batch and generator seed -> [(loss, {param: grad}, {param: updated})]
+    for each, all on the host."""
+    g = torch.Generator().manual_seed(7)
+    b, t, l_max = 16, 300, 40
+    batch = [torch.randn(b, t, 39, generator=g),
+             torch.randint(t // 2, t + 1, (b,), generator=g),
+             torch.randint(0, 27, (b, l_max), generator=g),
+             torch.randint(l_max // 2, l_max + 1, (b,), generator=g),
+             torch.ones(b)]
+    batch[1][0] = t
+    runs = []
+    for _ in range(2):
+        model = build_model(name, hp, generator=torch.Generator().manual_seed(
+            1), device=cuda)
+        trainer = Trainer(model, make_optimizer("adam", 1e-3, 400.0))
+        _, m = trainer.train_step(
+            trainer.init_state(), *[a.to(cuda) for a in batch],
+            torch.Generator(device=cuda).manual_seed(seed))
+        runs.append((m["loss"].cpu(),
+                     {k: p.grad.cpu() for k, p in model.named_parameters()},
+                     {k: p.detach().cpu()
+                      for k, p in model.named_parameters()}))
+    return runs
+
+
+def _bit_differences(runs) -> list:
+    """The names of the tensors that differ in any bit between two runs,
+    with their largest absolute difference."""
+    (loss0, g0, p0), (loss1, g1, p1) = runs
+    diff = [] if torch.equal(loss0, loss1) else [("loss", float(
+        (loss0 - loss1).abs()))]
+    for kind, a, b in (("grad", g0, g1), ("param", p0, p1)):
+        diff += [(f"{kind} {k}", float((a[k] - b[k]).abs().max()))
+                 for k in a if not torch.equal(a[k], b[k])]
+    return diff
+
+
+def test_deep_blstm_train_step_is_bit_reproducible(cuda):
+    """Two identical train steps of deep_blstm 3x256 give bit-equal loss,
+    gradients and updated weights."""
+    runs = _two_identical_steps(cuda, "deep_blstm", "dropout=0.0")
+    assert _bit_differences(runs) == []
+
+
+def test_deep_blstm_train_step_is_bit_reproducible_deterministic(cuda):
+    """The same under ``torch.use_deterministic_algorithms``, switched on
+    for this test only: the control that separates a nondeterministic
+    library op from the port's own code."""
+    before = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        runs = _two_identical_steps(cuda, "deep_blstm", "dropout=0.0")
+    finally:
+        torch.use_deterministic_algorithms(before)
+    assert _bit_differences(runs) == []
+
+
+ZO_SIZES = [(12, 4, 8), (37, 5, 100), (50, 9, 256), (3, 1, 300)]
+
+
+def _zoneout_case(cuda, t, b, h, seed, mix):
+    """Both directions' zoneout-LSTM arguments in the port's order (xp_f,
+    xp_b, mask, zh_f, zh_b, zc_f, zc_b, wh_f, wh_b) with Bernoulli(0.9) or
+    constant 0.9 mix weights, a ragged mask and two cotangents, on the
+    card."""
+    g = torch.Generator().manual_seed(seed)
+    xp = [torch.randn(t, b, 4 * h, generator=g) for _ in range(2)]
+    wh = [torch.randn(h, 4 * h, generator=g) / h ** 0.5 for _ in range(2)]
+    if mix == "bernoulli":
+        z = [(torch.rand(t, b, h, generator=g) < 0.9).float()
+             for _ in range(4)]
+    else:
+        z = [torch.full((t, b, h), 0.9) for _ in range(4)]
+    lengths = torch.randint(1, t + 1, (b,), generator=g)
+    lengths[0] = t
+    mask = (torch.arange(t)[:, None] < lengths[None, :]).float()[..., None]
+    dh = [torch.randn(t, b, h, generator=g) for _ in range(2)]
+    args = (xp[0], xp[1], mask, *z, wh[0], wh[1])
+    return [a.to(cuda) for a in args], [a.to(cuda) for a in dh]
+
+
+def _zo_uni(args):
+    return [args[i] for i in (0, 2, 3, 5, 7)]
+
+
+@pytest.mark.parametrize("mix", ["bernoulli", "constant"])
+@pytest.mark.parametrize("t,b,h", ZO_SIZES)
+def test_zoneout_kernels_match_plain(cuda, t, b, h, mix):
+    """bi_zoneout_lstm and zoneout_lstm (the zoneout_lstm_fwd kernel with
+    two and one directions) and their backwards against the plain loops:
+    mixed h and c (chip_smoke.py's BILSTM_* bounds), dxp (BWD_TOL)."""
+    args, dh = _zoneout_case(cuda, t, b, h, t + h, mix)
+    uni = _zo_uni(args)
+    before = [f.launches for f in (bi_zoneout_lstm, zoneout_lstm,
+                                   bi_zoneout_lstm_bwd, zoneout_lstm_bwd)]
+    got = bi_zoneout_lstm(*args)
+    got_uni = zoneout_lstm(*uni)
+    d = bi_zoneout_lstm_bwd(*args, *got, *dh)
+    d_uni = zoneout_lstm_bwd(*uni, *got_uni, dh[0])
+    assert [f.launches - n for f, n in zip(
+        (bi_zoneout_lstm, zoneout_lstm, bi_zoneout_lstm_bwd,
+         zoneout_lstm_bwd), before)] == [1, 1, 1, 1]
+    want = bi_zoneout_lstm_plain(*args)
+    want_d = bi_zoneout_lstm_bwd_plain(*args, *got, *dh)
+    want_d_uni = zoneout_lstm_bwd_plain(*uni, *got_uni, dh[0])
+    torch.cuda.synchronize()
+    for name, g_, w_ in zip(("h_f", "c_f", "h_b", "c_b", "h", "c"),
+                            (*got, *got_uni), (*want, *want[:2])):
+        torch.testing.assert_close(g_, w_, rtol=1e-5, atol=1e-4, msg=name)
+    for name, g_, w_ in zip(("dxp_f", "dxp_b", "dxp"), (*d, d_uni),
+                            (*want_d, want_d_uni)):
+        torch.testing.assert_close(g_, w_, **BWD_TOL, msg=name)
+
+
+def test_zoneout_rate_zero_kernel_is_the_lstm_kernel(cuda):
+    """zh = zc = 1: zoneout_lstm_fwd gives what bilstm_fwd gives."""
+    args, _ = _zoneout_case(cuda, 40, 6, 256, 3, "constant")
+    ones = torch.ones_like(args[3])
+    got = bi_zoneout_lstm(*args[:3], ones, ones, ones, ones, *args[7:])
+    want = bilstm(*args[:3], *args[7:])
+    torch.cuda.synchronize()
+    for g_, w_ in zip(got, want):
+        torch.testing.assert_close(g_, w_, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("t,b,h", [(12, 4, 8), (40, 6, 256)])
+def test_zoneout_functions_match_autograd_on_card(cuda, t, b, h):
+    """Gradients of xp and wh through BiZoneoutLSTMFunction and
+    ZoneoutLSTMFunction against autograd through the plain loops, with
+    Bernoulli mix weights, each within 1e-4 of its largest entry."""
+    args, dh = _zoneout_case(cuda, t, b, h, 17, "bernoulli")
+    mask, z = args[2], args[3:7]
+    cases = {
+        "bi": (lambda xf, xb, wf, wb: BiZoneoutLSTMFunction.apply(
+                   xf, xb, mask, *z, wf, wb),
+               lambda xf, xb, wf, wb: bi_zoneout_lstm_plain(
+                   xf, xb, mask, *z, wf, wb)[0::2],
+               [args[0], args[1], args[7], args[8]]),
+        "uni": (lambda x, w: (ZoneoutLSTMFunction.apply(x, mask, z[0], z[2],
+                                                        w),),
+                lambda x, w: (zoneout_lstm_plain(x, mask, z[0], z[2], w)[0],),
+                [args[0], args[7]]),
+    }
+    for kind, (kernel_fn, plain_fn, leaves) in cases.items():
+        for i, (g_, w_) in enumerate(zip(_grads(kernel_fn, leaves, dh),
+                                         _grads(plain_fn, leaves, dh))):
+            err = float((g_ - w_).abs().max())
+            assert err <= 1e-4 * float(w_.abs().max()), (kind, i, err)
+
+
+MI_SIZES = [(12, 4, 8), (37, 5, 100), (50, 9, 256), (3, 1, 300)]
+
+
+def _mi_case(cuda, t, b, h, seed):
+    """Both directions' MI-LSTM arguments in the port's order (xp_f, xp_b,
+    mask, wh_f, wh_b, alpha_*, beta1_*, beta2_*, b_*; the scales about 1),
+    a ragged mask and two cotangents, on the card."""
+    g = torch.Generator().manual_seed(seed)
+    xp = [torch.randn(t, b, 4 * h, generator=g) for _ in range(2)]
+    wh = [torch.randn(h, 4 * h, generator=g) / h ** 0.5 for _ in range(2)]
+    vecs = [c + 0.3 * torch.randn(4 * h, generator=g)
+            for c in (1.0, 1.0, 1.0, 1.0, 1.0, 1.0, 0.0, 0.0)]
+    lengths = torch.randint(1, t + 1, (b,), generator=g)
+    lengths[0] = t
+    mask = (torch.arange(t)[:, None] < lengths[None, :]).float()[..., None]
+    dh = [torch.randn(t, b, h, generator=g) for _ in range(2)]
+    args = (xp[0], xp[1], mask, wh[0], wh[1], *vecs)
+    return [a.to(cuda) for a in args], [a.to(cuda) for a in dh]
+
+
+def _mi_uni(args):
+    return [args[i] for i in (0, 2, 3, 5, 7, 9, 11)]
+
+
+@pytest.mark.parametrize("t,b,h", MI_SIZES)
+def test_mi_kernels_match_plain(cuda, t, b, h):
+    """bi_mi_lstm and mi_lstm (the mi_lstm_fwd kernel with two and one
+    directions) and their backwards against the plain loops: h and c
+    (chip_smoke.py's BILSTM_* bounds), dpre (BWD_TOL)."""
+    args, dh = _mi_case(cuda, t, b, h, t + h)
+    uni = _mi_uni(args)
+    before = [f.launches for f in (bi_mi_lstm, mi_lstm, bi_mi_lstm_bwd,
+                                   mi_lstm_bwd)]
+    got = bi_mi_lstm(*args)
+    got_uni = mi_lstm(*uni)
+    d = bi_mi_lstm_bwd(*args, *got, *dh)
+    d_uni = mi_lstm_bwd(*uni, *got_uni, dh[0])
+    assert [f.launches - n for f, n in zip(
+        (bi_mi_lstm, mi_lstm, bi_mi_lstm_bwd, mi_lstm_bwd),
+        before)] == [1, 1, 1, 1]
+    want = bi_mi_lstm_plain(*args)
+    want_d = bi_mi_lstm_bwd_plain(*args, *got, *dh)
+    want_d_uni = mi_lstm_bwd_plain(*uni, *got_uni, dh[0])
+    torch.cuda.synchronize()
+    for name, g_, w_ in zip(("h_f", "c_f", "h_b", "c_b", "h", "c"),
+                            (*got, *got_uni), (*want, *want[:2])):
+        torch.testing.assert_close(g_, w_, rtol=1e-5, atol=1e-4, msg=name)
+    for name, g_, w_ in zip(("dpre_f", "dpre_b", "dpre"), (*d, d_uni),
+                            (*want_d, want_d_uni)):
+        torch.testing.assert_close(g_, w_, **BWD_TOL, msg=name)
+
+
+@pytest.mark.parametrize("t,b,h", [(12, 4, 8), (40, 6, 256)])
+def test_mi_functions_match_autograd_on_card(cuda, t, b, h):
+    """Gradients of xp, wh, alpha, beta1, beta2 and b through
+    BiMILSTMFunction and MILSTMFunction against autograd through the plain
+    loops, each within 1e-4 of its largest entry."""
+    args, dh = _mi_case(cuda, t, b, h, 19)
+    mask = args[2]
+    leaves_bi = [a for i, a in enumerate(args) if i != 2]
+    cases = {
+        "bi": (lambda *a: BiMILSTMFunction.apply(*a[:2], mask, *a[2:]),
+               lambda *a: bi_mi_lstm_plain(*a[:2], mask, *a[2:])[0::2],
+               leaves_bi),
+        "uni": (lambda x, w, *v: (MILSTMFunction.apply(x, mask, w, *v),),
+                lambda x, w, *v: (mi_lstm_plain(x, mask, w, *v)[0],),
+                leaves_bi[0::2]),
+    }
+    for kind, (kernel_fn, plain_fn, leaves) in cases.items():
+        for i, (g_, w_) in enumerate(zip(_grads(kernel_fn, leaves, dh),
+                                         _grads(plain_fn, leaves, dh))):
+            err = float((g_ - w_).abs().max())
+            assert err <= 1e-4 * float(w_.abs().max()), (kind, i, err)
+
+
+def _same_masks(monkeypatch):
+    """Zoneout mix weights shared by two train-mode runs: the first run's
+    draws are recorded in order (layer by layer, forward cell first) in
+    ``drawn``; once they are moved to ``replay``, the next run is handed
+    the same ones on its own device.  Eval mode is left alone."""
+    drawn, replay = [], []
+    real = ZoneoutLSTMCell.mix
+
+    def mix(cell, t_steps, batch, train=False, generator=None, device=None):
+        if train and replay:
+            return tuple(z.to(device) for z in replay.pop(0))
+        out = real(cell, t_steps, batch, train, generator, device)
+        if train:
+            drawn.append(out)
+        return out
+
+    monkeypatch.setattr(ZoneoutLSTMCell, "mix", mix)
+    return drawn, replay
+
+
+@pytest.mark.parametrize("name", ["zoneout_blstm", "mi_blstm"])
+@pytest.mark.parametrize("bidirectional", [True, False], ids=["bi", "uni"])
+def test_zoneout_and_mi_blstm_on_card_match_cpu(cuda, monkeypatch, name,
+                                                bidirectional):
+    """zoneout_blstm (eval mode serving, then a train step at rates 0.1
+    with masks drawn on the card from a CUDA generator and handed to the
+    CPU step) and mi_blstm: serving (the forward kernel once per layer,
+    logits against the plain path on the CPU) and one train step (both
+    kernels of the model and both CTC kernels on the card against the plain
+    step on the CPU)."""
+    kernels = {"zoneout_blstm": ((bi_zoneout_lstm, bi_zoneout_lstm_bwd),
+                                 (zoneout_lstm, zoneout_lstm_bwd)),
+               "mi_blstm": ((bi_mi_lstm, bi_mi_lstm_bwd),
+                            (mi_lstm, mi_lstm_bwd))}
+    fwd, bwd = kernels[name][0 if bidirectional else 1]
+    hp = (f"num_hiddens=24,num_layers=2,dropout=0.0,"
+          f"bidirectional={str(bidirectional).lower()}")
+    rng = np.random.RandomState(4)
+    wavs = [(0.3 * rng.randn(n)).astype(np.float32)
+            for n in (9000, 4000, 6500)]
+    chunk, cap, n_pad = pack_batches(wavs, 3)
+    g = torch.Generator().manual_seed(0)
+    batch = [torch.randn(4, 30, 39, generator=g),
+             torch.tensor([30, 22, 17, 9]),
+             torch.randint(0, 27, (4, 6), generator=g),
+             torch.tensor([6, 4, 5, 0]),
+             torch.tensor([1.0, 1.0, 0.0, 1.0])]
+    drawn, replay = _same_masks(monkeypatch)
+    served, out = [], []
+    for dev in (cuda, torch.device("cpu")):
+        model = build_model(name, hp, num_classes=27,
+                            generator=torch.Generator().manual_seed(1),
+                            device=dev)
+        counts = (fwd.launches, bwd.launches)
+        served.append(serve_batch(model.eval(), featurizer("mfcc", dev),
+                                  torch.from_numpy(chunk).to(dev), 3, n_pad))
+        trainer = Trainer(model.train(), make_optimizer("adam", 1e-3, 1.0))
+        _, m = trainer.train_step(trainer.init_state(),
+                                  *[a.to(dev) for a in batch],
+                                  torch.Generator(device=dev).manual_seed(2))
+        if dev.type == "cuda":
+            replay.extend(drawn)
+        launched = (fwd.launches - counts[0], bwd.launches - counts[1])
+        assert launched == ((4, 2) if dev.type == "cuda" else (0, 0))
+        out.append((float(m["loss"]), float(m["grad_norm"]),
+                    {k: p.grad.cpu() for k, p in model.named_parameters()}))
+    if name == "zoneout_blstm":
+        assert not replay and len(drawn) == 2 * (2 if bidirectional else 1)
+        assert all(z.device.type == "cuda" and 0.0 < float(z.mean()) < 1.0
+                   for pair in drawn for z in pair)
     torch.testing.assert_close(served[0].logits.cpu(), served[1].logits,
                                rtol=0, atol=2e-3)
     (loss_k, gn_k, g_k), (loss_p, gn_p, g_p) = out

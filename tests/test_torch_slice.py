@@ -119,9 +119,7 @@ def test_graves2006_shapes():
 
 
 @pytest.mark.parametrize("name,err,match", [
-    ("zoneout_blstm", NotImplementedError, "B9-B10"),
-    ("mi_blstm", NotImplementedError, "B11-B12"),
-    ("nosuch", KeyError, "ln_blstm"),
+    ("nosuch", KeyError, "mi_blstm"),
 ])
 def test_build_model_refuses(name, err, match):
     with pytest.raises(err, match=match):
@@ -136,6 +134,42 @@ def test_build_model_ln_blstm_runs(bidirectional):
                     f"{str(bidirectional).lower()}", num_classes=27,
                     generator=torch.Generator().manual_seed(0))
     assert m.rnn.layers[1].rnn.fw.ln_h["g"].shape == (24,)
+    x = torch.randn(2, 7, 39, generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        out = m(x, torch.tensor([7, 4]))
+    assert out.shape == (2, 7, 28) and bool(torch.isfinite(out).all())
+
+
+@pytest.mark.parametrize("bidirectional", [True, False], ids=["bi", "uni"])
+def test_build_model_zoneout_blstm_runs(bidirectional):
+    """zoneout_blstm builds (it was refused before its kernels were ported)
+    and serves a small batch in eval mode: finite logits; its cells carry
+    the zoneout rates of the JAX constructor."""
+    m = build_model("zoneout_blstm", f"num_hiddens=6,num_layers=2,"
+                    f"bidirectional={str(bidirectional).lower()}",
+                    num_classes=27,
+                    generator=torch.Generator().manual_seed(0)).eval()
+    cell = m.rnn.layers[1].rnn.fw
+    assert (cell.zoneout_h, cell.zoneout_c) == (0.1, 0.1)
+    assert m.rnn.dropout == 0.0
+    x = torch.randn(2, 7, 39, generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        out = m(x, torch.tensor([7, 4]))
+    assert out.shape == (2, 7, 28) and bool(torch.isfinite(out).all())
+
+
+@pytest.mark.parametrize("bidirectional", [True, False], ids=["bi", "uni"])
+def test_build_model_mi_blstm_runs(bidirectional):
+    """mi_blstm builds (it was refused before its kernels were ported) and
+    serves a small batch: finite logits; alpha, beta1 and beta2 start at
+    ones."""
+    m = build_model("mi_blstm", f"num_hiddens=6,num_layers=2,bidirectional="
+                    f"{str(bidirectional).lower()}", num_classes=27,
+                    generator=torch.Generator().manual_seed(0))
+    cell = m.rnn.layers[1].rnn.fw
+    for v in (cell.alpha, cell.beta1, cell.beta2):
+        assert torch.equal(v.detach(), torch.ones(24))
+    assert m.rnn.dropout == 0.2
     x = torch.randn(2, 7, 39, generator=torch.Generator().manual_seed(1))
     with torch.no_grad():
         out = m(x, torch.tensor([7, 4]))

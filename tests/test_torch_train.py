@@ -58,7 +58,7 @@ def _port_model(hp=HP, seed=0):
 
 JAX_MODELS = {name: getattr(jzoo, name) for name in (
     "deep_blstm", "deep_gru", "highway_blstm", "residual_blstm",
-    "deep_speech", "ln_blstm")}
+    "deep_speech", "ln_blstm", "zoneout_blstm", "mi_blstm")}
 
 
 def _pair(spec_args, hp=HP, model="deep_blstm"):
@@ -112,8 +112,18 @@ def _jax_grads(jm, params, batch):
      "dropout=0.0"),
     (("adam", 5e-3, 400.0), "ln_blstm", "num_hiddens=8,num_layers=2,"
      "dropout=0.0,bidirectional=false"),
+    # zoneout at rate 0 in train mode: no draw, the mix takes the new state
+    (("adam", 5e-3, 400.0), "zoneout_blstm", "num_hiddens=8,num_layers=2,"
+     "dropout=0.0,zoneout_h=0.0,zoneout_c=0.0"),
+    (("adam", 5e-3, 0.5), "zoneout_blstm", "num_hiddens=8,num_layers=2,"
+     "dropout=0.0,zoneout_h=0.0,zoneout_c=0.0,bidirectional=false"),
+    (("adam", 5e-3, 0.5), "mi_blstm", "num_hiddens=8,num_layers=2,"
+     "dropout=0.0"),
+    (("adam", 5e-3, 400.0), "mi_blstm", "num_hiddens=8,num_layers=2,"
+     "dropout=0.0,bidirectional=false"),
 ], ids=["no_clip", "clip", "lr_decay", "gru_bi", "gru_uni_clip", "lstm_uni",
-        "highway", "residual", "deep_speech", "ln_bi_clip", "ln_uni"])
+        "highway", "residual", "deep_speech", "ln_bi_clip", "ln_uni",
+        "zoneout_bi", "zoneout_uni_clip", "mi_bi_clip", "mi_uni"])
 def test_train_steps_match_jax(spec_args, model, hp):
     """Three train steps from the same weights on the same batch: each
     step's loss and grad norm, the first step's gradients key by key (after
