@@ -10,7 +10,9 @@ the host modules it needs from there are copies of its own
 
 The serving path ported so far (BASELINE config 2, and ``deep_gru``):
 
-    pcm16 wire  -> data/wire.unpack_audio
+    pcm16, dpack or mulaw wire
+                -> data/wire.unpack_audio (dpack: ops/dpack.dpack_decode,
+                   csrc/dpack.cu)
                 -> features (MFCC + deltas; csrc/fbank.cu)
                 -> models/zoo deep_blstm (csrc/bilstm_fwd.cu per layer)
                    or deep_gru (csrc/gru_fwd.cu per layer)

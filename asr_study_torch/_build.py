@@ -37,6 +37,7 @@ LINK_FLAGS = (*ARCH_FLAGS, "-shared")
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 
 # C entry points: name -> argtypes.  Every pointer and the stream are
 # c_void_p (a bare Python int would be passed as a 32-bit int).
@@ -85,6 +86,8 @@ SIGNATURES = {
     "asr_ctc_alpha": [_P, _P, _P, _P, _I, _I, _I, _P],
     # lp_ext, valid, alpha_seq, skip2, end_ind, gamma, T, B, S, stream
     "asr_ctc_beta": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # payload, n_words, row_start, widths, totals, out, nbcap, stream
+    "asr_dpack_decode": [_P, _L, _P, _P, _P, _P, _I, _P],
 }
 
 

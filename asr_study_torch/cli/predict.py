@@ -7,10 +7,11 @@ JSON transcripts, one line per file.
 ``--weights`` takes the ``.npz`` that ``extras/export_weights.py`` writes
 from a training run.  Two serving paths, as in the JAX CLI:
 
-- ``--on_device``: the utterances cross to the device as pcm16 wire
-  buffers, one per batch, all in one host->device copy; each batch is
-  unpacked, featurized (fbank kernel), run through the model (one
-  recurrence kernel per layer) and greedily decoded on the device
+- ``--on_device``: the utterances cross to the device as wire buffers
+  (``--wire_codec`` pcm16, dpack, mulaw, or auto: probe the link), one per
+  batch, all in one host->device copy; each batch is unpacked (for dpack
+  by the dpack kernel), featurized (fbank kernel), run through the model
+  (one recurrence kernel per layer) and greedily decoded on the device
   (:func:`serve_batch`).
 - default: features from the NumPy oracle on the host, then the same model
   and decode on ``--device``.
@@ -20,6 +21,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import sys
 from typing import NamedTuple, Sequence
 
 import numpy as np
@@ -54,7 +56,12 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--batch_size", type=int, default=8,
                    help="utterances per device batch with --on_device")
     p.add_argument("--wire_codec", default="pcm16",
-                   help="--on_device wire encoding (pcm16 only so far)")
+                   choices=("pcm16", "dpack", "mulaw", "auto"),
+                   help="--on_device wire encoding: pcm16 (raw), dpack "
+                        "(lossless delta + bit-packing, bit-identical to "
+                        "pcm16), mulaw (8-bit companded, lossy, half the "
+                        "bytes), or auto (probe the link to --device: "
+                        "dpack below 1000 MB/s, else pcm16)")
     p.add_argument("--device", default="cuda",
                    help="torch device to serve on (default cuda)")
     # JAX CLI options the port does not have yet: refused with the item
@@ -74,10 +81,6 @@ def _refuse_unported(args) -> None:
     if args.lm:
         raise SystemExit("--lm is not ported to asr_study_torch yet "
                          "(ROADMAP queue A item 8)")
-    if args.wire_codec != "pcm16":
-        raise SystemExit(f"--wire_codec {args.wire_codec} is not ported to "
-                         "asr_study_torch yet (ROADMAP queue A item 4; "
-                         "pcm16 only)")
 
 
 def load_model(path: str, device: torch.device | str
@@ -104,10 +107,12 @@ class Served(NamedTuple):
 
 @torch.inference_mode()
 def serve_batch(model: AcousticModel, feat: DeviceFeaturizer,
-                flat: torch.Tensor, batch: int, n_pad: int) -> Served:
-    """One pcm16 wire buffer -> logits and greedy transcripts, all on the
-    wire tensor's device."""
-    wavs, lens = wire.unpack_audio(flat, batch, n_pad)
+                flat: torch.Tensor, batch: int, n_pad: int,
+                codec: str = "pcm16", scap: int | None = None) -> Served:
+    """One wire buffer -> logits and greedy transcripts, all on the wire
+    tensor's device.  dpack needs the ``scap`` it was packed with."""
+    wavs, lens = wire.unpack_audio(flat, batch, n_pad, codec=codec,
+                                   scap=scap)
     feats, feat_lengths = feat(wavs, lens)
     logits = model(feats, feat_lengths)
     decoded, lengths = greedy_decode(logits, feat_lengths,
@@ -115,30 +120,47 @@ def serve_batch(model: AcousticModel, feat: DeviceFeaturizer,
     return Served(logits, feat_lengths, decoded, lengths)
 
 
-def pack_batches(wavs: Sequence[np.ndarray], batch: int
-                 ) -> tuple[np.ndarray, int, int]:
-    """Pack ``wavs`` into equal-size pcm16 wire buffers of ``batch`` rows,
-    laid end to end for one host->device copy -> (chunk, cap, n_pad)."""
+class Packed(NamedTuple):
+    chunk: np.ndarray            # the wire buffers end to end, int16
+    cap: int                     # words a buffer
+    n_pad: int                   # samples a row after unpacking
+    scap: int | None             # dpack's sample capacity, else None
+
+
+def pack_batches(wavs: Sequence[np.ndarray], batch: int,
+                 codec: str = "pcm16") -> Packed:
+    """Pack ``wavs`` into equal-size wire buffers of ``batch`` rows, laid
+    end to end for one host->device copy.  For dpack each group is
+    encoded once; the groups share the largest group's ``scap``."""
     n_pad = -(-max(len(w) for w in wavs) // 2048) * 2048
     groups = [wavs[i: i + batch] for i in range(0, len(wavs), batch)]
-    cap = max(wire.wire_cap(batch, sum(len(w) for w in g), align=256)
-              for g in groups)
-    chunk = np.concatenate([wire.pack_audio(g, cap, batch=batch)
+    if codec == "dpack":
+        encs = [wire.dpack_encode(g) for g in groups]
+        scap = max(4096, max(-(-n // 4096) * 4096 for *_, n in encs))
+        cap = max(-(-(2 * batch + scap // 4096 + payload.shape[0]) // 256)
+                  * 256 for _, _, payload, _ in encs)
+        bufs = [wire.dpack_pack(g, cap, scap, batch=batch, enc=e)
+                for g, e in zip(groups, encs)]
+        return Packed(np.concatenate(bufs), cap, n_pad, scap)
+    cap = max(wire.wire_cap(batch, sum(len(w) for w in g), align=256,
+                            codec=codec) for g in groups)
+    chunk = np.concatenate([wire.pack_audio(g, cap, batch=batch, codec=codec)
                             for g in groups])
-    return chunk, cap, n_pad
+    return Packed(chunk, cap, n_pad, None)
 
 
 def predict_on_device(model: AcousticModel, feat: DeviceFeaturizer,
-                      wavs: Sequence[np.ndarray], batch_size: int
-                      ) -> list[np.ndarray]:
+                      wavs: Sequence[np.ndarray], batch_size: int,
+                      codec: str = "pcm16") -> list[np.ndarray]:
     """Transcribe ``wavs`` in batches through :func:`serve_batch`
     -> one label-id array per utterance."""
     batch = max(1, min(batch_size, len(wavs)))
-    chunk, cap, n_pad = pack_batches(wavs, batch)
+    chunk, cap, n_pad, scap = pack_batches(wavs, batch, codec)
     dev_chunk = torch.from_numpy(chunk).to(feat.device)
     out = []
     for off in range(0, chunk.shape[0], cap):
-        s = serve_batch(model, feat, dev_chunk[off: off + cap], batch, n_pad)
+        s = serve_batch(model, feat, dev_chunk[off: off + cap], batch, n_pad,
+                        codec, scap)
         dec, lens = s.decoded.cpu().numpy(), s.lengths.cpu().numpy()
         out += [dec[i, : lens[i]] for i in range(dec.shape[0])]
     return out[: len(wavs)]
@@ -178,9 +200,15 @@ def main(argv=None) -> int:
     if args.on_device:
         feat = featurizer(args.input_parser, device, **feat_kw)
         _check_feats(args.input_parser, feat.num_feats, model)
+        codec = args.wire_codec
+        if codec == "auto":
+            bw = wire.probe_link(device)
+            codec = wire.choose_codec(bw)
+            print(f"wire_codec auto: measured link ~{bw:.0f} MB/s -> "
+                  f"{codec}", file=sys.stderr)
         # resample to the featurizer's rate, like the JAX CLI
         wavs = [read_wav(p, sr=feat.fs)[0] for p in args.wavs]
-        ids = predict_on_device(model, feat, wavs, args.batch_size)
+        ids = predict_on_device(model, feat, wavs, args.batch_size, codec)
     else:
         if args.input_parser not in ORACLE_FEATURES:
             raise SystemExit(f"unknown --input_parser {args.input_parser!r}; "

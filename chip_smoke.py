@@ -9,7 +9,8 @@ paths at full width, with random weights from a seeded
 
 - serving (BASELINE config 2): pcm16 wire -> MFCC+deltas -> deep_blstm
   2x256 -> greedy CTC, B=32 LapsBM-like utterances of 3-8 s at 16 kHz, 8
-  batches, through ``cli.predict.serve_batch``;
+  batches, through ``cli.predict.serve_batch``; the same batches over the
+  dpack wire (the dpack decode kernel) and the mu-law wire;
 - serving the other recurrent models at full width, the same 8 batches
   through the same function: ``deep_gru`` 3x256 (bidirectional),
   ``deep_blstm`` 3x256 with ``bidirectional=false``, ``highway_blstm``
@@ -35,12 +36,17 @@ Phases, in order; any failure raises and the exit code is not 0:
    shapes, within the stated tolerance, with its time, its plain version's
    time, its bound and the time of the PyTorch library call that computes
    the same function (cuDNN ``nn.LSTM`` / ``nn.GRU``, ``F.ctc_loss``; none
-   for fbank and the layer-norm, zoneout and MI LSTMs); the LSTM kernels
-   also at the zoo's other widths, H=512 and H=100; the zoneout kernels
-   with Bernoulli and with constant mix weights;
+   for fbank, dpack_decode and the layer-norm, zoneout and MI LSTMs); the
+   LSTM kernels also at the zoo's other widths, H=512 and H=100; the
+   zoneout kernels with Bernoulli and with constant mix weights; the dpack
+   decode bit for bit over the whole stream of every serving batch and of
+   an edge batch, with the host encode time;
 4. the serving slices, with launch counters proving their kernels ran,
    logits held against the plain path on the CPU (for ln_blstm, whose
-   recurrence is chaotic, on a batch cut to LN_CHECK_T frames);
+   recurrence is chaotic, on a batch cut to LN_CHECK_T frames); the dpack
+   slice's logits and transcripts equal to the pcm16 slice's, the mulaw
+   slice's logits against the plain path fed the same mulaw wire; the
+   link probe and the codec it picks;
 5. serving timings from CUDA events after a warm-up;
 6. the training slices: launch counters per step, one card step held
    against the same step of the plain path on the CPU (loss, grad norm,
@@ -69,6 +75,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -1163,6 +1170,138 @@ def check_cell_family(dev: torch.device, card: str, x_serve: torch.Tensor,
             "library": dict.fromkeys(times)}
 
 
+class Wire(NamedTuple):
+    """One codec's wire buffers of the serving batches, end to end."""
+    cap: int                     # words a buffer
+    n_pad: int
+    scap: int | None             # dpack's sample capacity
+    dev: torch.Tensor            # the chunk on the card
+    cpu: torch.Tensor            # the same chunk on the host
+    offsets: range               # each buffer's first word
+
+
+def make_wire(wavs: list, codec: str, dev: torch.device) -> Wire:
+    from asr_study_torch.cli.predict import pack_batches
+
+    chunk, cap, n_pad, scap = pack_batches(wavs, BATCH, codec)
+    cpu = torch.from_numpy(chunk)
+    return Wire(cap, n_pad, scap, cpu.to(dev), cpu,
+                range(0, chunk.shape[0], cap))
+
+
+def edge_dpack_batches() -> dict:
+    """The dpack decode's edge cases (tests/test_wire.py): width extremes in
+    one batch (an all-zero block, w=0; ones, w=1-2; a full-scale +-32768
+    alternation, w=16), and single utterances of 1, 3, 9 and 13 blocks (13
+    divides by no grouping of blocks)."""
+    rng = np.random.RandomState(SEED + 9)
+    edge = [(rng.randn(n) * 0.3).astype(np.float32)
+            for n in (3100, 7000, 4095)]
+    edge += [np.zeros(4096, np.int16), np.ones(4097, np.int16),
+             np.tile(np.array([32767, -32768], np.int16), 2100)]
+    out = {"width extremes": edge}
+    for n in (100, 3 * 4096 - 7, 9 * 4096 - 5, 13 * 4096 - 1):
+        out[f"{-(-n // 4096)} block(s)"] = [
+            (rng.randn(n) * 0.2).astype(np.float32)]
+    return out
+
+
+def kernel_device_ms(fn, reps: int, part: str) -> float | None:
+    """Device ms per call of the kernels whose name holds ``part``, from
+    torch.profiler over ``reps`` calls; None when it saw none."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and part in e.name)
+    return us / 1e3 / reps if us else None
+
+
+def check_dpack_kernel(dev: torch.device, card: str, groups: list,
+                       wires: dict) -> dict:
+    """Phase 3 for the dpack decode: bit for bit against its plain version
+    over the whole [scap] stream of every serving batch's dpack wire and of
+    the edge batches, and unpack_audio over dpack equal to it over pcm16;
+    times at the first serving batch; the host encode time."""
+    from asr_study_torch.data import wire
+    from asr_study_torch.ops.dpack import dpack_decode, dpack_decode_plain
+
+    enc_ms = []
+    for g in groups:
+        t0 = time.perf_counter()
+        wire.dpack_encode(g)
+        enc_ms.append(1e3 * (time.perf_counter() - t0))
+    print(f"dpack host encode (NumPy, host time, not the card's): "
+          f"{np.mean(enc_ms):.1f} ms per batch of {BATCH} (min "
+          f"{min(enc_ms):.1f}, max {max(enc_ms):.1f})")
+
+    dp, pcm = wires["dpack"], wires["pcm16"]
+    cases = []
+    for k, (o, o_pcm) in enumerate(zip(dp.offsets, pcm.offsets)):
+        cases.append((f"serving batch {k}", dp.dev[o: o + dp.cap], BATCH,
+                      dp.n_pad, dp.scap, pcm.dev[o_pcm: o_pcm + pcm.cap]))
+    for name, ws in edge_dpack_batches().items():
+        b = len(ws)
+        cap, scap = wire.dpack_measure([ws], b, align=256)
+        n_pad = -(-max(len(x) for x in ws) // 2048) * 2048
+        flat = wire.pack_audio(ws, cap, batch=b, codec="dpack", scap=scap)
+        flat_pcm = wire.pack_audio(ws, wire.wire_cap(b, sum(map(len, ws))),
+                                   batch=b)
+        cases.append((name, torch.from_numpy(flat).to(dev), b, n_pad, scap,
+                      torch.from_numpy(flat_pcm).to(dev)))
+    for name, flat, b, n_pad, scap, flat_pcm in cases:
+        args = wire.dpack_regions(flat, b, scap)
+        got = dpack_decode(*args, scap)
+        want = dpack_decode_plain(*args, scap)
+        wav_d, len_d = wire.unpack_audio(flat, b, n_pad, codec="dpack",
+                                         scap=scap)
+        wav_p, len_p = wire.unpack_audio(flat_pcm, b, n_pad)
+        torch.cuda.synchronize()
+        require(torch.equal(got, want),
+                f"dpack_decode differs from plain on {name}: max_abs_err "
+                f"{float((got - want).abs().max()):.3e}")
+        require(torch.equal(wav_d, wav_p) and torch.equal(len_d, len_p),
+                f"unpack over dpack differs from pcm16 on {name}")
+    print(f"dpack_decode kernel vs plain: bit-equal over the whole stream "
+          f"on {len(cases)} wires ({len(dp.offsets)} serving batches of "
+          f"{dp.scap // 4096} blocks, scap {dp.scap}; edge: "
+          f"{', '.join(c[0] for c in cases[len(dp.offsets):])}); "
+          f"unpack_audio over dpack bit-equal to pcm16 on each")
+
+    args = wire.dpack_regions(dp.dev[: dp.cap], BATCH, dp.scap)
+    payload, row_start, widths = args
+    ms = cuda_ms(lambda: dpack_decode(*args, dp.scap), 50, warmup=5)
+    plain_ms = cuda_ms(lambda: dpack_decode_plain(*args, dp.scap), 5)
+    dev_ms = kernel_device_ms(lambda: dpack_decode(*args, dp.scap), 20,
+                              "dpack")
+    w_sum = int(widths.sum())
+    # bytes: the payload rows the blocks own, row_start and widths, the f32
+    # stream; operations: one integer add a sample in the scan (the
+    # expansion's shifts and masks are left out, so a lower bound)
+    d_bound = bound(float(dp.scap),
+                    256 * 2 * w_sum + tensor_bytes(row_start, widths)
+                    + 4.0 * dp.scap)
+    dev_txt = "not measured" if dev_ms is None else f"{dev_ms:.4f} ms"
+    print(f"[{card}] dpack_decode (one batch: {dp.scap // 4096} blocks, "
+          f"{16 * w_sum * 256 / dp.scap:.2f} bits a sample of scap): "
+          f"kernel {ms:.4f} ms (device time of its two launches "
+          f"{dev_txt}, torch.profiler), plain {plain_ms:.4f} ms, bound "
+          f"{d_bound[0]:.4f} ms ({d_bound[1]})")
+    print("dpack_decode library yardstick: none; no PyTorch call decodes "
+          "dpack (bit-plane expansion with a carried prefix sum), so "
+          "library_ms is null")
+    return {"errs": {"dpack_decode": 0.0},
+            "times": {"dpack_decode": (ms, plain_ms)},
+            "bounds": {"dpack_decode": d_bound},
+            "library": {"dpack_decode": None}}
+
+
 # every kernel of the port: name -> (source in asr_study_torch/csrc, the TPU
 # kernel it replaces in asr_study_tpu)
 KERNELS = {
@@ -1193,6 +1332,7 @@ KERNELS = {
     "bi_mi_lstm_bwd": ("mi_lstm_bwd.cu", "ops/pallas_bi_mi_lstm.py:81"),
     "mi_lstm_fwd": ("mi_lstm_fwd.cu", "ops/pallas_mi_lstm.py:59"),
     "mi_lstm_bwd": ("mi_lstm_bwd.cu", "ops/pallas_mi_lstm.py:132"),
+    "dpack_decode": ("dpack.cu", "ops/pallas_dpack.py:56"),
 }
 
 # training paths: label -> (zoo model, its hparams, forward and backward
@@ -1243,6 +1383,7 @@ def launch_counters() -> dict:
     from asr_study_torch.features.fbank import fbank
     from asr_study_torch.ops import ctc
     from asr_study_torch.ops.bilstm import bilstm, bilstm_bwd, lstm, lstm_bwd
+    from asr_study_torch.ops.dpack import dpack_decode
     from asr_study_torch.ops.gru import bigru, bigru_bwd, gru, gru_bwd
     from asr_study_torch.ops.ln_lstm import (bi_ln_lstm, bi_ln_lstm_bwd,
                                              ln_lstm, ln_lstm_bwd)
@@ -1263,7 +1404,8 @@ def launch_counters() -> dict:
             "zoneout_lstm_fwd": zoneout_lstm,
             "zoneout_lstm_bwd": zoneout_lstm_bwd,
             "bi_mi_lstm_fwd": bi_mi_lstm, "bi_mi_lstm_bwd": bi_mi_lstm_bwd,
-            "mi_lstm_fwd": mi_lstm, "mi_lstm_bwd": mi_lstm_bwd}
+            "mi_lstm_fwd": mi_lstm, "mi_lstm_bwd": mi_lstm_bwd,
+            "dpack_decode": dpack_decode}
 
 
 def reset_counts() -> None:
@@ -1605,6 +1747,7 @@ def main() -> int:
         return 1
     from asr_study_torch import _build
     from asr_study_torch.cli.predict import pack_batches, serve_batch
+    from asr_study_torch.data import wire
     from asr_study_torch.features.device import spectral_plain
     from asr_study_torch.features.fbank import fbank
     from asr_study_torch.features.select import featurizer
@@ -1748,27 +1891,38 @@ def main() -> int:
     mi_kernels = check_cell_family(dev, card, x_serve, feat_lengths, "mi")
 
     # 4, 5. the serving slices, through the CLI's serving function ---------
-    all_wavs, audio_s = [], 0.0
+    all_wavs, groups, audio_s = [], [], 0.0
     for _ in range(N_BATCHES):
         b_wavs, secs = synth_batch(rng)
         all_wavs += b_wavs
+        groups.append(b_wavs)
         audio_s += secs
-    chunk, cap, n_pad = pack_batches(all_wavs, BATCH)
-    dev_chunk = torch.from_numpy(chunk).to(dev)
-    offsets = range(0, chunk.shape[0], cap)
+    wires = {}
+    for codec in ("pcm16", "dpack", "mulaw"):
+        t0 = time.perf_counter()
+        wires[codec] = make_wire(all_wavs, codec, dev)
+        print(f"{codec} wire: {N_BATCHES} buffers of {wires[codec].cap} "
+              f"words ({2 * wires[codec].cap / 2**20:.3f} MiB each), packed "
+              f"in {time.perf_counter() - t0:.2f} s of host time")
+    dpack_kernels = check_dpack_kernel(dev, card, groups, wires)
     feat_cpu = featurizer("mfcc", "cpu")
-    chunk_cpu = torch.from_numpy(chunk)
 
-    def serving_slice(label, model, fwd_name, layers, desc,
-                      chaotic=False) -> dict:
-        """One model's serving slice: launches counted from 0, logits and
-        transcripts against the plain path on the CPU, ms per batch.  For
+    def serving_slice(label, model, fwd_name, layers, desc, chaotic=False,
+                      codec="pcm16", vs_pcm16=None):
+        """One model's serving slice over the ``codec`` wire: launches
+        counted from 0, logits and transcripts against the plain path on
+        the CPU fed the same wire, ms per batch -> (launches, served).  For
         a ``chaotic`` recurrence (the layer-norm LSTM) the full batches'
         logits drift is printed, and the logits are held on the first
-        LN_CHECK_T frames' worth of audio of one batch instead."""
+        LN_CHECK_T frames' worth of audio of one batch instead.  The dpack
+        slice is held equal to ``vs_pcm16``, the pcm16 slice's batches
+        (the same samples after the unpack); the mulaw slice counts its
+        transcripts equal to them."""
+        w = wires[codec]
+
         def run_slice():
-            return [serve_batch(model, feat, dev_chunk[o: o + cap], BATCH,
-                                n_pad) for o in offsets]
+            return [serve_batch(model, feat, w.dev[o: o + w.cap], BATCH,
+                                w.n_pad, codec, w.scap) for o in w.offsets]
 
         reset_counts()
         served = run_slice()
@@ -1778,32 +1932,56 @@ def main() -> int:
               f"s of audio, T={served[0].logits.shape[1]}; launches "
               f"{launches}")
         want = {"fbank": N_BATCHES, fwd_name: N_BATCHES * layers}
+        if codec == "dpack":
+            want["dpack_decode"] = N_BATCHES
         require(launches == want, f"{label} launches {launches}, want {want}")
 
-        model_cpu = copy.deepcopy(model).to("cpu")
-        logits_err, same = 0.0, 0
-        for o, s in zip(offsets, served):
-            ref = serve_batch(model_cpu, feat_cpu, chunk_cpu[o: o + cap],
-                              BATCH, n_pad)
-            require(s.logits.shape == (BATCH, ref.logits.shape[1],
-                                       NUM_CLASSES + 1),
-                    f"logits shape {tuple(s.logits.shape)}")
-            require(bool(torch.isfinite(s.logits).all()), "non-finite logits")
-            require(torch.equal(s.feat_lengths.cpu(), ref.feat_lengths),
-                    "frame lengths differ from the plain path")
-            require(bool((s.lengths <= s.feat_lengths).all()),
-                    "a decode is longer than its frames")
-            logits_err = max(logits_err,
-                             float((s.logits.cpu() - ref.logits).abs().max()))
-            same += int((s.decoded.cpu() == ref.decoded).all(1).sum())
-        held = ", not held: a chaotic recurrence" if chaotic else ""
-        print(f"{label} slice logits, kernel path on the card vs plain path "
-              f"on the CPU: max_abs_err={logits_err:.3e} (tol "
-              f"{LOGITS_TOL:g}{held}); identical transcripts "
-              f"{same}/{N_BATCHES * BATCH}")
+        if codec == "dpack":
+            logits_err, bit_equal = 0.0, True
+            for s, r in zip(served, vs_pcm16):
+                bit_equal = bit_equal and torch.equal(s.logits, r.logits)
+                logits_err = max(logits_err,
+                                 float((s.logits - r.logits).abs().max()))
+                require(torch.equal(s.decoded, r.decoded)
+                        and torch.equal(s.lengths, r.lengths),
+                        f"{label} transcripts differ from the pcm16 slice's")
+            print(f"{label} slice vs the pcm16 slice: logits "
+                  + ("bit-equal" if bit_equal else
+                     f"max_abs_err={logits_err:.3e} (tol {LOGITS_TOL:g})")
+                  + f"; identical transcripts {N_BATCHES * BATCH}/"
+                  f"{N_BATCHES * BATCH}")
+        else:
+            model_cpu = copy.deepcopy(model).to("cpu")
+            logits_err, same = 0.0, 0
+            for o, s in zip(w.offsets, served):
+                ref = serve_batch(model_cpu, feat_cpu, w.cpu[o: o + w.cap],
+                                  BATCH, w.n_pad, codec, w.scap)
+                require(s.logits.shape == (BATCH, ref.logits.shape[1],
+                                           NUM_CLASSES + 1),
+                        f"logits shape {tuple(s.logits.shape)}")
+                require(bool(torch.isfinite(s.logits).all()),
+                        "non-finite logits")
+                require(torch.equal(s.feat_lengths.cpu(), ref.feat_lengths),
+                        "frame lengths differ from the plain path")
+                require(bool((s.lengths <= s.feat_lengths).all()),
+                        "a decode is longer than its frames")
+                logits_err = max(logits_err, float(
+                    (s.logits.cpu() - ref.logits).abs().max()))
+                same += int((s.decoded.cpu() == ref.decoded).all(1).sum())
+            held = ", not held: a chaotic recurrence" if chaotic else ""
+            print(f"{label} slice logits, kernel path on the card vs plain "
+                  f"path on the CPU: max_abs_err={logits_err:.3e} (tol "
+                  f"{LOGITS_TOL:g}{held}); identical transcripts "
+                  f"{same}/{N_BATCHES * BATCH}")
+        if codec == "mulaw":
+            same = sum(int((s.decoded == r.decoded).all(1).sum())
+                       for s, r in zip(served, vs_pcm16))
+            print(f"{label} slice: transcripts equal to the pcm16 slice's "
+                  f"{same}/{N_BATCHES * BATCH} (mu-law is lossy; "
+                  f"informational)")
         if chaotic:
             short = [w_[: LN_CHECK_T * 160] for w_ in all_wavs[:BATCH]]
-            s_chunk, s_cap, s_pad = pack_batches(short, BATCH)
+            s_chunk, s_cap, s_pad, _ = pack_batches(short, BATCH)
             got = serve_batch(model, feat, torch.from_numpy(s_chunk).to(dev),
                               BATCH, s_pad)
             ref = serve_batch(model_cpu, feat_cpu, torch.from_numpy(s_chunk),
@@ -1818,12 +1996,24 @@ def main() -> int:
         slice_ms = cuda_ms(run_slice, 3, warmup=1) / N_BATCHES
         print(f"[{card}] {label} slice: {slice_ms:.4f} ms/batch, "
               f"{audio_s / (slice_ms * N_BATCHES / 1e3):.1f} audio-s/s "
-              f"(wire unpack + features + {desc} + classifier + greedy "
-              f"decode, B={BATCH})")
-        return launches
+              f"({codec} wire unpack + features + {desc} + classifier + "
+              f"greedy decode, B={BATCH})")
+        return launches, served
 
-    path_launches = [serving_slice("deep_blstm", model, "bilstm_fwd",
-                                   LAYERS, f"{LAYERS}x{HIDDEN} BLSTM")]
+    blstm_desc = f"{LAYERS}x{HIDDEN} BLSTM"
+    launches, pcm_served = serving_slice("deep_blstm", model, "bilstm_fwd",
+                                         LAYERS, blstm_desc)
+    path_launches = [launches]
+    for codec in ("dpack", "mulaw"):
+        launches, _ = serving_slice(f"deep_blstm {codec}", model,
+                                    "bilstm_fwd", LAYERS, blstm_desc,
+                                    codec=codec, vs_pcm16=pcm_served)
+        path_launches.append(launches)
+    del pcm_served
+    bw = wire.probe_link(dev)
+    print(f"[{card}] probe_link: host -> card ~{bw:.0f} MB/s (4 MiB against "
+          f"64 KiB copies, min of 3); choose_codec picks "
+          f"{wire.choose_codec(bw)}")
     # the other recurrent models at full width: label -> (zoo model, its
     # hparams, forward kernel, what it is); random weights from seeds
     serve_models = {
@@ -1848,7 +2038,7 @@ def main() -> int:
                                  SEED + 4 + i), device=dev).eval()
         path_launches.append(serving_slice(
             label, served, fwd_name, len(served.rnn.layers), desc,
-            chaotic=name == "ln_blstm"))
+            chaotic=name == "ln_blstm")[0])
         del served
 
     with torch.inference_mode():
@@ -1875,7 +2065,7 @@ def main() -> int:
                        lstm_y["lib_fwd"]),
     }
     for found in (train_kernels, gru_kernels, lstm_kernels, ln_kernels,
-                  zo_kernels, mi_kernels):
+                  zo_kernels, mi_kernels, dpack_kernels):
         for name, err in found["errs"].items():
             measured[name] = (err, *found["times"][name],
                               found["bounds"][name], found["library"][name])

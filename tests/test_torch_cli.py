@@ -137,7 +137,6 @@ def test_predict_serves_exported_lstm_zoo(artifact, tmp_path, capsys, name,
 
 @pytest.mark.parametrize("flag", [
     ["--stream"], ["--beam_width", "4"], ["--lm", "lm.npz"],
-    ["--wire_codec", "dpack"],
 ])
 def test_unported_options_refused(artifact, flag):
     npz, paths, _, _ = artifact
@@ -151,3 +150,41 @@ def test_wrong_feature_width_refused(artifact):
     with pytest.raises(SystemExit, match="features"):
         predict.main(["--weights", npz, "--device", "cpu", "--on_device",
                       "--input_parser", "logfbank", *paths])
+
+
+def _rows(capsys):
+    captured = capsys.readouterr()
+    return ([json.loads(line) for line in captured.out.strip().splitlines()],
+            captured.err)
+
+
+@pytest.mark.parametrize("codec", ["dpack", "mulaw", "auto"])
+def test_predict_over_each_wire_codec(artifact, capsys, codec):
+    """--wire_codec dpack transcribes exactly as pcm16 and as the JAX
+    pipeline do; mulaw (lossy) completes with one JSON line a file; auto
+    prints the codec it chose to stderr and transcribes."""
+    npz, paths, model, params = artifact
+    argv = ["--on_device", "--weights", npz, "--device", "cpu",
+            "--batch_size", "2", *paths]
+    assert predict.main(argv) == 0
+    pcm16, _ = _rows(capsys)
+    assert predict.main(["--wire_codec", codec, *argv]) == 0
+    rows, err = _rows(capsys)
+    assert [r["file"] for r in rows] == paths
+    if codec == "mulaw":
+        return
+    if codec == "auto":
+        assert "wire_codec auto:" in err
+        assert err.strip().split()[-1] in ("pcm16", "dpack")
+    assert [r["transcript"] for r in rows] == \
+        [r["transcript"] for r in pcm16]
+    want = _jax_transcripts(model, params, paths, on_device=True)
+    assert [r["transcript"] for r in rows] == want
+
+
+def test_unknown_wire_codec_refused(artifact, capsys):
+    npz, paths, _, _ = artifact
+    with pytest.raises(SystemExit):
+        predict.main(["--on_device", "--weights", npz, "--device", "cpu",
+                      "--wire_codec", "flac", *paths])
+    assert "invalid choice" in capsys.readouterr().err

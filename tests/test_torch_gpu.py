@@ -11,12 +11,14 @@ import pytest
 import torch
 
 from asr_study_torch.cli.predict import pack_batches, serve_batch
+from asr_study_torch.data import wire
 from asr_study_torch.features.device import DeviceFeaturizer, spectral_plain
 from asr_study_torch.features.fbank import KernelFeaturizer, fbank
 from asr_study_torch.features.select import featurizer
 from asr_study_torch.models.zoo import (build_model, deep_blstm, deep_gru,
                                         graves2006)
 from asr_study_torch.ops import ctc
+from asr_study_torch.ops.dpack import dpack_decode, dpack_decode_plain
 from asr_study_torch.ops.bilstm import (BiLSTMFunction, LSTMFunction, bilstm,
                                         bilstm_bwd, bilstm_bwd_plain,
                                         bilstm_plain, lstm, lstm_bwd,
@@ -140,7 +142,7 @@ def test_slice_on_card_matches_cpu(cuda, make):
     rng = np.random.RandomState(1)
     wavs = [(0.3 * rng.randn(n)).astype(np.float32)
             for n in (9000, 4000, 6500)]
-    chunk, cap, n_pad = pack_batches(wavs, 3)
+    chunk, cap, n_pad, _ = pack_batches(wavs, 3)
     m_cpu = make("num_hiddens=24,num_layers=2", num_classes=27,
                  generator=torch.Generator().manual_seed(0)).eval()
     m_gpu = make("num_hiddens=24,num_layers=2", num_classes=27,
@@ -156,6 +158,70 @@ def test_slice_on_card_matches_cpu(cuda, make):
     torch.testing.assert_close(got.logits.cpu(), want.logits, rtol=0,
                                atol=2e-3)
     assert torch.equal(got.feat_lengths.cpu(), want.feat_lengths)
+
+
+def _dpack_case(name):
+    """tests/test_wire.py's dpack edge cases: width extremes in one batch
+    (w=0, w=1-2, w=16), and block counts of 1, 3, 9 and 13."""
+    rng = np.random.RandomState(9)
+    if name == "width extremes":
+        return [(rng.randn(n) * 0.3).astype(np.float32)
+                for n in (3100, 7000, 4095)] + [
+            np.zeros(4096, np.int16), np.ones(4097, np.int16),
+            np.tile(np.array([32767, -32768], np.int16), 2100)]
+    return [(rng.randn(int(name)) * 0.2).astype(np.float32)]
+
+
+@pytest.mark.parametrize("name", ["width extremes", "100", "12281", "36859",
+                                  "53247"])
+def test_dpack_kernel_matches_plain(cuda, name):
+    """The whole [scap] stream bit for bit, and the unpacked batch equal to
+    the pcm16 wire's."""
+    wavs = _dpack_case(name)
+    b = len(wavs)
+    cap, scap = wire.dpack_measure([wavs], b, align=256)
+    flat = torch.from_numpy(wire.pack_audio(wavs, cap, batch=b,
+                                            codec="dpack",
+                                            scap=scap)).to(cuda)
+    args = (*wire.dpack_regions(flat, b, scap), scap)
+    before = dpack_decode.launches
+    got = dpack_decode(*args)
+    assert dpack_decode.launches == before + 1
+    want = dpack_decode_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    n_pad = -(-max(len(w) for w in wavs) // 2048) * 2048
+    pcm = wire.pack_audio(wavs, wire.wire_cap(b, sum(map(len, wavs))))
+    w_d, l_d = wire.unpack_audio(flat, b, n_pad, codec="dpack", scap=scap)
+    w_p, l_p = wire.unpack_audio(torch.from_numpy(pcm).to(cuda), b, n_pad)
+    assert torch.equal(w_d, w_p) and torch.equal(l_d, l_p)
+
+
+def test_dpack_serving_slice_launches(cuda):
+    """The dpack serving slice on the card: one dpack_decode launch a
+    batch, and the pcm16 slice's logits and transcripts exactly."""
+    rng = np.random.RandomState(2)
+    wavs = [(0.3 * rng.randn(n)).astype(np.float32)
+            for n in (9000, 4000, 6500, 12000, 300, 7000)]
+    model = deep_blstm("num_hiddens=24,num_layers=2", num_classes=27,
+                       generator=torch.Generator().manual_seed(0),
+                       device=cuda).eval()
+    feat = featurizer("mfcc", cuda)
+    pcm, pcm_cap, n_pad, _ = pack_batches(wavs, 3)
+    chunk, cap, n_pad_d, scap = pack_batches(wavs, 3, "dpack")
+    assert n_pad_d == n_pad
+    dev_chunk = torch.from_numpy(chunk).to(cuda)
+    dev_pcm = torch.from_numpy(pcm).to(cuda)
+    d0, f0 = dpack_decode.launches, fbank.launches
+    for k in range(2):
+        got = serve_batch(model, feat, dev_chunk[k * cap: (k + 1) * cap], 3,
+                          n_pad, "dpack", scap)
+        want = serve_batch(model, feat,
+                           dev_pcm[k * pcm_cap: (k + 1) * pcm_cap], 3, n_pad)
+        assert torch.equal(got.logits, want.logits)
+        assert torch.equal(got.decoded, want.decoded)
+    assert dpack_decode.launches == d0 + 2
+    assert fbank.launches == f0 + 4
 
 
 def _bilstm_case(cuda, t, b, h, seed):
@@ -383,7 +449,7 @@ def test_deep_gru_slice_on_card_matches_cpu(cuda):
     rng = np.random.RandomState(2)
     wavs = [(0.3 * rng.randn(n)).astype(np.float32)
             for n in (9000, 4000, 6500)]
-    chunk, cap, n_pad = pack_batches(wavs, 3)
+    chunk, cap, n_pad, _ = pack_batches(wavs, 3)
     out = []
     for dev in (cuda, torch.device("cpu")):
         model = deep_gru("num_hiddens=24,num_layers=2", num_classes=27,
@@ -488,7 +554,7 @@ def test_lstm_zoo_slice_on_card_matches_cpu(cuda, name, hp, fwd, bwd,
     rng = np.random.RandomState(3)
     wavs = [(0.3 * rng.randn(n)).astype(np.float32)
             for n in (9000, 4000, 6500)]
-    chunk, cap, n_pad = pack_batches(wavs, 3)
+    chunk, cap, n_pad, _ = pack_batches(wavs, 3)
     out = []
     for dev in (cuda, torch.device("cpu")):
         model = build_model(name, hp, num_classes=27,
@@ -643,7 +709,7 @@ def test_ln_blstm_on_card_matches_cpu(cuda, bidirectional):
     rng = np.random.RandomState(4)
     wavs = [(0.3 * rng.randn(n)).astype(np.float32)
             for n in (9000, 4000, 6500)]
-    chunk, cap, n_pad = pack_batches(wavs, 3)
+    chunk, cap, n_pad, _ = pack_batches(wavs, 3)
     g = torch.Generator().manual_seed(0)
     batch = [torch.randn(4, 30, 39, generator=g),
              torch.tensor([30, 22, 17, 9]),
@@ -942,7 +1008,7 @@ def test_zoneout_and_mi_blstm_on_card_match_cpu(cuda, monkeypatch, name,
     rng = np.random.RandomState(4)
     wavs = [(0.3 * rng.randn(n)).astype(np.float32)
             for n in (9000, 4000, 6500)]
-    chunk, cap, n_pad = pack_batches(wavs, 3)
+    chunk, cap, n_pad, _ = pack_batches(wavs, 3)
     g = torch.Generator().manual_seed(0)
     batch = [torch.randn(4, 30, 39, generator=g),
              torch.tensor([30, 22, 17, 9]),

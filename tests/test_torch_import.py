@@ -27,7 +27,8 @@ for name in names:
 for want in ("cli.predict", "features.fbank", "features.audio",
              "features.wav", "text.parser", "utils.hparams",
              "utils.metrics_writer", "ops.bilstm", "ops.gru", "ops.ln_lstm",
-             "ops.zoneout_lstm", "ops.mi_lstm", "ops.ctc",
+             "ops.zoneout_lstm", "ops.mi_lstm", "ops.ctc", "ops.dpack",
+             "data.wire",
              "ops.metrics", "data.generator", "train.trainer", "train.loop",
              "train.checkpoint"):
     assert "asr_study_torch." + want in names, (want, names)

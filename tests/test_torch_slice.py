@@ -50,7 +50,7 @@ def models():
 def test_slice_logits_and_decode_match_jax(models, batch):
     jm, params, pm = models
     wavs = _utterances()
-    chunk, cap, n_pad = pack_batches(wavs, batch)
+    chunk, cap, n_pad, _ = pack_batches(wavs, batch)
     feat = featurizer("mfcc", "cpu")
     jfeat = JaxFeaturizer(kind="mfcc")
     for off in range(0, chunk.shape[0], cap):
@@ -73,6 +73,39 @@ def test_slice_logits_and_decode_match_jax(models, batch):
         np.testing.assert_array_equal(pl.numpy(), np.asarray(jl))
         assert pd.dtype == torch.int32 and pl.dtype == torch.int32
         assert (got.lengths <= got.feat_lengths).all()
+
+
+@pytest.mark.parametrize("codec", ["dpack", "mulaw"])
+def test_slice_over_codec_matches_jax(models, codec):
+    """The slice over the dpack and the mu-law wire: the port's wire
+    buffers through the JAX unpack, features and model against
+    ``serve_batch`` with the codec.  dpack gives the pcm16 slice's logits
+    exactly."""
+    jm, params, pm = models
+    wavs = _utterances(seed=3)
+    batch = 3
+    chunk, cap, n_pad, scap = pack_batches(wavs, batch, codec)
+    assert (scap is not None) == (codec == "dpack")
+    pcm, pcm_cap, _, _ = pack_batches(wavs, batch)
+    feat = featurizer("mfcc", "cpu")
+    jfeat = JaxFeaturizer(kind="mfcc")
+    for k, off in enumerate(range(0, chunk.shape[0], cap)):
+        flat = chunk[off: off + cap]
+        w, lens = jwire.unpack_audio(jnp.asarray(flat), batch, n_pad,
+                                     codec=codec, scap=scap)
+        jf, jfl = jfeat(w, lens)
+        want = np.array(jm.apply(params, jf, jfl, train=False))
+        got = serve_batch(pm, feat, torch.from_numpy(flat), batch, n_pad,
+                          codec, scap)
+        np.testing.assert_array_equal(got.feat_lengths.numpy(),
+                                      np.asarray(jfl))
+        np.testing.assert_allclose(got.logits.numpy(), want, rtol=1e-4,
+                                   atol=1e-4)
+        if codec == "dpack":
+            ref = serve_batch(pm, feat, torch.from_numpy(
+                pcm[k * pcm_cap: (k + 1) * pcm_cap]), batch, n_pad)
+            assert torch.equal(got.logits, ref.logits)
+            assert torch.equal(got.decoded, ref.decoded)
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
