@@ -49,13 +49,22 @@ SIGNATURES = {
                   _I, _I, _I, _I, _I, _I, _I, _I,
                   _F, _F, _I, _I, _P],
     # xp_f, xp_b, mask, wh_f, wh_b, h_f, c_f, h_b, c_b, T, B, H, ndir,
-    # stream
-    "asr_bilstm_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
-                       _I, _I, _I, _I, _P],
+    # cluster CTAs, units per CTA, rows per cluster, stream
+    "asr_bilstm_fwd": [_P] * 9 + [_I] * 7 + [_P],
+    # B, H, ndir, cluster CTAs, units, rows, *smem bytes, *max clusters
+    "asr_bilstm_fwd_info": [_I] * 6 + [_P, _P],
+    # xp_f, xp_b, mask, wh_f, wh_b, h_f, c_f, h_b, c_b, dh_f, dh_b, dxp_f,
+    # dxp_b, T, B, H, ndir, cluster CTAs, units, rows, stream
+    "asr_bilstm_bwd": [_P] * 13 + [_I] * 7 + [_P],
+    "asr_bilstm_bwd_info": [_I] * 6 + [_P, _P],
+    # the streamed-weight forms (H=512): xp_f, xp_b, mask, wh_f, wh_b, h_f,
+    # c_f, h_b, c_b, T, B, H, ndir, stream
+    "asr_lstm_stream_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                            _I, _I, _I, _I, _P],
     # xp_f, xp_b, mask, wh_f, wh_b, wht_f, wht_b, h_f, c_f, h_b, c_b,
     # dh_f, dh_b, dxp_f, dxp_b, T, B, H, ndir, stream
-    "asr_bilstm_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                       _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "asr_lstm_stream_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                            _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # xp_f, xp_b, mask, wh_f, wh_b, h_f, h_b, T, B, H, ndir, stream
     "asr_gru_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # xp_f, xp_b, mask, wh_f, wh_b, wht_f, wht_b, h_f, h_b, dh_f, dh_b,

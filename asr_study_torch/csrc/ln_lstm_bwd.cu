@@ -41,7 +41,7 @@
 //
 // and the next step's P3 forms dh_next = hold + sum of the partials.
 //
-// What bounds it on the H100: as in bilstm_bwd.cu, each step streams the
+// What bounds it on the H100: as in lstm_stream_bwd.cu, each step streams the
 // direction's wh and wht (1 MB each at H=256) from L2 through one SM, and
 // the step is serial; the LayerNorm backward adds three reductions and
 // five barriers a step but no traffic to device memory.  Shared memory is

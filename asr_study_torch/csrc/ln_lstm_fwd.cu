@@ -27,7 +27,7 @@
 //   P4  mean and rstd of c per row, one warp a row
 //   P5  h = o * tanh(chat * gc + bc); hold on masked frames; store
 //
-// What bounds it on the H100: as in bilstm_fwd.cu, each step streams the
+// What bounds it on the H100: as in lstm_stream_fwd.cu, each step streams the
 // direction's wh (1 MB at H=256) from L2 through one SM, and the step is
 // serial.  The LayerNorm adds two reductions and two barriers a step but no
 // traffic: hp, the new c and the statistics stay in shared memory.  Any H

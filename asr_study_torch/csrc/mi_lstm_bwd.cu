@@ -7,7 +7,7 @@
 // asr_study_tpu/ops/pallas_mi_lstm.py `_bwd_kernel` (one direction) with
 // ndir = 1.  Row maths: ops/pallas_mi_lstm.py `_mi_row_bwd`.
 //
-// The layout and the three phases a step are csrc/bilstm_bwd.cu's (one
+// The layout and the three phases a step are csrc/lstm_stream_bwd.cu's (one
 // block per direction and kRows batch rows; P1 recomputes the gates, P2 the
 // cell's reverse-mode maths, P3 the partial sums of the recurrent cotangent
 // through wht).  Two things differ from the LSTM:

@@ -13,7 +13,7 @@
 // bias out of it), and alpha, beta1, beta2, b [4H] per direction.  Then the
 // LSTM update, gate order i, f, g, o; a frame whose mask is 0 keeps h and c.
 //
-// The layout is csrc/bilstm_fwd.cu's (one block per direction and kRows
+// The layout is csrc/lstm_stream_fwd.cu's (one block per direction and kRows
 // batch rows, one gate column j per thread, h_prev in shared memory, the
 // loop over time inside the kernel).  A thread's column accumulates hp from
 // zero and then combines it with xp and the column's four vector entries,

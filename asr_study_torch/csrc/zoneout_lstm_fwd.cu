@@ -6,7 +6,7 @@
 // asr_study_tpu/ops/pallas_zoneout_lstm.py `_fwd_kernel` (one direction)
 // with ndir = 1.  Cell maths: ops/pallas_zoneout_lstm.py `_zo_cell_math`.
 //
-// The layout is csrc/bilstm_fwd.cu's (one block per direction and kRows
+// The layout is csrc/lstm_stream_fwd.cu's (one block per direction and kRows
 // batch rows, one gate column per thread, h_prev in shared memory, the loop
 // over time inside the kernel); two [T, B, H] tensors more are streamed in.
 // zh and zc are the zoneout mix weights, the weight of the new state: {0, 1}

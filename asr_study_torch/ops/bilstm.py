@@ -4,15 +4,26 @@ forms: both directions of a bidirectional layer in one launch (port of
 (port of ``asr_study_tpu/ops/pallas_lstm.py`` ``pallas_lstm``), each with its
 custom VJP.
 
-The kernels are ``csrc/bilstm_fwd.cu`` and ``csrc/bilstm_bwd.cu``; each
-takes the number of directions, so :func:`bilstm` and :func:`lstm` launch
-the same forward kernel with 2 and 1 directions, and :func:`bilstm_bwd` and
-:func:`lstm_bwd` the same backward kernel.  Each of the four wrappers counts
-its own launches.  A CUDA tensor launches the kernel (or raises); a CPU
-tensor takes the plain version, a Python loop over time.  Neither records
-an autograd graph: gradients go through :class:`BiLSTMFunction` and
-:class:`LSTMFunction`, whose backward is the backward kernel plus one
-``h_prev^T @ dxp`` matmul per direction for the recurrent weights.
+Two designs of the kernels, each taking the number of directions, so
+:func:`bilstm` and :func:`lstm` launch the same forward kernel with 2 and 1
+directions, and :func:`bilstm_bwd` and :func:`lstm_bwd` the same backward:
+
+- ``cluster``: ``csrc/bilstm_fwd.cu`` and ``csrc/bilstm_bwd.cu``, the
+  recurrent weights resident in a thread-block cluster (its threads'
+  registers, and for the backward its shared memory too) for the whole
+  sequence, h exchanged through distributed shared memory;
+- ``stream``: ``csrc/lstm_stream_fwd.cu`` and ``csrc/lstm_stream_bwd.cu``,
+  one block per (direction, 4 rows) streaming ``wh`` from L2 every step,
+  for the widths whose weights do not fit in a cluster (H=512).
+
+:func:`lstm_geometry` picks the design by size alone; a failed build or
+launch raises either way.  Each of the four wrappers counts its own
+launches, in all and by design (``launches``, ``by_design``).  A CUDA
+tensor launches a kernel (or raises); a CPU tensor takes the plain version,
+a Python loop over time.  Neither records an autograd graph: gradients go
+through :class:`BiLSTMFunction` and :class:`LSTMFunction`, whose backward is
+the backward kernel plus one ``h_prev^T @ dxp`` matmul per direction for
+the recurrent weights.
 
 Gate order i, f, g, o with the bias folded into ``xp``.  Masked frames hold
 h and c.
@@ -20,11 +31,123 @@ h and c.
 
 from __future__ import annotations
 
+import ctypes
+from typing import NamedTuple
+
 import torch
 
 from asr_study_torch import _build
 from asr_study_torch.models.cells import lstm_step
 from asr_study_torch.ops.recurrence import check, cotangent, prev, stream
+
+
+# The fit rule.  A cluster of CLUSTER_CTAS CTAs (the portable maximum) per
+# (direction, group of `rows` batch rows); CTA k owns ceil(H / 8) hidden units
+# and their four gate columns, and keeps wh[:, those columns] resident: each
+# of its CLUSTER_THREADS threads holds CLUSTER_SLICE rows of one column in
+# registers (so 4U * ceil(H / CLUSTER_SLICE) <= CLUSTER_THREADS), and the
+# backward a copy in shared memory.  The launch may hold at most
+# CLUSTER_BUDGET clusters, all resident at once: the kernel checks that on
+# the card (cudaOccupancyMaxActiveClusters) and refuses otherwise.  An H100
+# SXM holds 15 clusters of 8 CTAs of these kernels (one CTA an SM; a
+# cluster stays inside one GPC, and the GPCs' SM counts vary from die to
+# die), so the budget keeps a margin of 3.  `rows` is the least of
+# CLUSTER_ROWS that keeps the launch within the budget.
+CLUSTER_CTAS = 8
+CLUSTER_BUDGET = 12
+CLUSTER_ROWS = (1, 2, 4, 8)
+CLUSTER_THREADS = 256
+CLUSTER_SLICE = 128          # rows of wh a thread holds in registers
+SMEM_LIMIT = 232_448         # dynamic shared memory a block can use, H100
+STREAM_ROWS = 4              # batch rows per block of the stream design
+
+
+class LSTMGeometry(NamedTuple):
+    """How one launch of the LSTM kernels is laid out."""
+    design: str                     # "cluster" or "stream"
+    ctas: int                       # CTAs per cluster (1: stream)
+    units: int                      # hidden units per CTA
+    rows: int                       # batch rows per cluster (stream: block)
+    grid: tuple[int, int, int]      # (ctas, row groups, ndir)
+    smem_fwd: int                   # dynamic shared memory per CTA, bytes
+    smem_bwd: int
+
+
+def _r4(n: int) -> int:
+    return -(-n // 4) * 4
+
+
+def cluster_smem(hidden: int, units: int, rows: int, ctas: int
+                 ) -> tuple[int, int]:
+    """Dynamic shared memory per CTA of the cluster forward and backward,
+    bytes: ``FwdLayout`` and ``BwdLayout`` of ``csrc/bilstm_{fwd,bwd}.cu``.
+    """
+    gc, hp = 4 * units, _r4(hidden)
+    ks = -(-hidden // CLUSTER_SLICE)           # slices of the reduction
+    hs = ks * CLUSTER_SLICE                    # h rows padded to slices
+    ws = _r4(hp * (gc + 1))                    # the backward's weight copy
+    fwd = (2 * rows * hs + 2 * rows * gc + _r4(2 * rows) + ks * rows * gc
+           + _r4(rows * units))
+    bwd = (ws + 2 * rows * hs + 2 * rows * gc + 3 * _r4(2 * rows * units)
+           + _r4(2 * rows) + ks * rows * gc + rows * gc
+           + _r4(2 * ctas * rows * units) + 2 * _r4(rows * units))
+    return 4 * fwd, 4 * bwd
+
+
+def stream_smem(hidden: int) -> tuple[int, int]:
+    """Dynamic shared memory per block of the stream forward and backward,
+    bytes, by the formulas of ``csrc/lstm_stream_{fwd,bwd}.cu``."""
+    gates = 4 * hidden
+    threads = min(-(-gates // 32) * 32, 1024)
+    nsplit = max(threads // hidden, 1)
+    return (4 * STREAM_ROWS * (2 * hidden + gates),
+            4 * STREAM_ROWS * ((3 + nsplit) * hidden + gates))
+
+
+def lstm_geometry(hidden: int, batch: int, ndir: int) -> LSTMGeometry:
+    """The design and layout of the LSTM kernels for width ``hidden``,
+    ``batch`` rows and ``ndir`` directions.
+
+    ``cluster`` where a CTA's threads hold its slice in registers, some row
+    count of CLUSTER_ROWS keeps the launch within CLUSTER_BUDGET clusters
+    and both kernels' shared memory stays within SMEM_LIMIT (H=256 and
+    H=100 up to B=48 in two directions and B=96 in one: every width of the
+    zoo but deep_speech's); ``stream`` otherwise (H=512: a CTA's 256
+    columns of 512 rows would take 512 threads of 256 registers)."""
+    units = -(-hidden // CLUSTER_CTAS)
+    ctas = -(-hidden // units)
+    if 4 * units * -(-hidden // CLUSTER_SLICE) <= CLUSTER_THREADS:
+        for rows in CLUSTER_ROWS:
+            groups = -(-batch // rows)
+            if ndir * groups <= CLUSTER_BUDGET:
+                fwd, bwd = cluster_smem(hidden, units, rows, ctas)
+                if max(fwd, bwd) <= SMEM_LIMIT:
+                    return LSTMGeometry("cluster", ctas, units, rows,
+                                        (ctas, groups, ndir), fwd, bwd)
+                break
+    return stream_geometry(hidden, batch, ndir)
+
+
+def stream_geometry(hidden: int, batch: int, ndir: int) -> LSTMGeometry:
+    """The stream design's layout, at any width: the one
+    :func:`lstm_geometry` gives where the cluster design does not fit."""
+    fwd, bwd = stream_smem(hidden)
+    return LSTMGeometry("stream", 1, hidden, STREAM_ROWS,
+                        (1, -(-batch // STREAM_ROWS), ndir), fwd, bwd)
+
+
+def cluster_info(geo: LSTMGeometry, batch: int, hidden: int, backward: bool
+                 ) -> tuple[int, int]:
+    """On the card: (dynamic shared memory per CTA the kernel sizes, clusters
+    of this launch the card holds at once), from the kernel's own launch
+    configuration (``asr_bilstm_{fwd,bwd}_info``)."""
+    smem, fit = ctypes.c_int(0), ctypes.c_int(0)
+    fn = (_build.lib().asr_bilstm_bwd_info if backward
+          else _build.lib().asr_bilstm_fwd_info)
+    err = fn(batch, hidden, geo.grid[2], geo.ctas, geo.units, geo.rows,
+             ctypes.addressof(smem), ctypes.addressof(fit))
+    _build.check(err, "bilstm_bwd_info" if backward else "bilstm_fwd_info")
+    return smem.value, fit.value
 
 
 def _scan(xp: torch.Tensor, mask: torch.Tensor, wh: torch.Tensor,
@@ -58,22 +181,33 @@ def lstm_plain(xp: torch.Tensor, mask: torch.Tensor, wh: torch.Tensor
     return _scan(xp, mask, wh, False)
 
 
-def _fwd_kernel(name: str, xps: list, mask: torch.Tensor,
-                whs: list) -> list:
-    """Launch ``bilstm_fwd`` over ``len(xps)`` directions (the second one
-    walks time backward) -> [h, c] per direction, flattened."""
+def _geometry(xp: torch.Tensor, ndir: int) -> LSTMGeometry:
+    return lstm_geometry(xp.shape[2] // 4, xp.shape[1], ndir)
+
+
+def launch_fwd(geo: LSTMGeometry, xps: list, mask: torch.Tensor,
+               whs: list) -> list:
+    """Launch the forward over ``len(xps)`` directions (the second one walks
+    time backward) in the design and layout ``geo`` -> [h, c] per
+    direction, flattened.  The wrappers count the launches."""
     t_steps, batch, gh = xps[0].shape
-    outs = [torch.empty((t_steps, batch, gh // 4), dtype=torch.float32,
-                        device=xps[0].device) for _ in range(2 * len(xps))]
+    hidden, ndir = gh // 4, len(xps)
+    outs = [torch.empty((t_steps, batch, hidden), dtype=torch.float32,
+                        device=xps[0].device) for _ in range(2 * ndir)]
     if outs[0].numel() == 0:
         return outs
-    with torch.cuda.device(xps[0].device):
-        err = _build.lib().asr_bilstm_fwd(
-            xps[0].data_ptr(), xps[-1].data_ptr(), mask.data_ptr(),
+    ptrs = (xps[0].data_ptr(), xps[-1].data_ptr(), mask.data_ptr(),
             whs[0].data_ptr(), whs[-1].data_ptr(), outs[0].data_ptr(),
             outs[1].data_ptr(), outs[-2].data_ptr(), outs[-1].data_ptr(),
-            t_steps, batch, gh // 4, len(xps), stream(xps[0]))
-    _build.check(err, name)
+            t_steps, batch, hidden, ndir)
+    with torch.cuda.device(xps[0].device):
+        if geo.design == "cluster":
+            err = _build.lib().asr_bilstm_fwd(
+                *ptrs, geo.ctas, geo.units, geo.rows, stream(xps[0]))
+        else:
+            err = _build.lib().asr_lstm_stream_fwd(*ptrs, stream(xps[0]))
+    _build.check(err, f"{'bilstm' if ndir == 2 else 'lstm'}_fwd "
+                      f"({geo.design})")
     return outs
 
 
@@ -95,12 +229,15 @@ def bilstm(xp_f: torch.Tensor, xp_b: torch.Tensor, mask: torch.Tensor,
     if xp_f.device.type == "cpu":
         with torch.no_grad():
             return bilstm_plain(xp_f, xp_b, mask, wh_f, wh_b)
-    outs = _fwd_kernel("bilstm_fwd", [xp_f, xp_b], mask, [wh_f, wh_b])
+    geo = _geometry(xp_f, 2)
+    outs = launch_fwd(geo, [xp_f, xp_b], mask, [wh_f, wh_b])
     bilstm.launches += 1
+    bilstm.by_design[geo.design] += 1
     return tuple(outs)
 
 
 bilstm.launches = 0
+bilstm.by_design = {"cluster": 0, "stream": 0}
 
 
 def lstm(xp: torch.Tensor, mask: torch.Tensor, wh: torch.Tensor
@@ -112,12 +249,15 @@ def lstm(xp: torch.Tensor, mask: torch.Tensor, wh: torch.Tensor
     if xp.device.type == "cpu":
         with torch.no_grad():
             return lstm_plain(xp, mask, wh)
-    h, c = _fwd_kernel("lstm_fwd", [xp], mask, [wh])
+    geo = _geometry(xp, 1)
+    h, c = launch_fwd(geo, [xp], mask, [wh])
     lstm.launches += 1
+    lstm.by_design[geo.design] += 1
     return h, c
 
 
 lstm.launches = 0
+lstm.by_design = {"cluster": 0, "stream": 0}
 
 
 def _walk_bwd(xp, mask, wh, h, c, dh_out, reverse: bool) -> torch.Tensor:
@@ -161,23 +301,33 @@ def lstm_bwd_plain(xp, mask, wh, h, c, dh) -> torch.Tensor:
     return _walk_bwd(xp, mask, wh, h, c, dh, False)
 
 
-def _bwd_kernel(name: str, xps: list, mask: torch.Tensor, whs: list,
-                hs: list, cs: list, dhs: list) -> list:
-    """Launch ``bilstm_bwd`` over ``len(xps)`` directions -> dxp per
-    direction."""
+def launch_bwd(geo: LSTMGeometry, xps: list, mask: torch.Tensor, whs: list,
+               hs: list, cs: list, dhs: list) -> list:
+    """Launch the backward over ``len(xps)`` directions in the design and
+    layout ``geo`` -> dxp per direction.  The wrappers count the
+    launches."""
     outs = [torch.empty_like(x) for x in xps]
     if outs[0].numel() == 0:
         return outs
     t_steps, batch, gh = xps[0].shape
-    whts = [w.t().contiguous() for w in whs]
-    args = (xps[0], xps[-1], mask, whs[0], whs[-1], whts[0], whts[-1],
-            hs[0], cs[0], hs[-1], cs[-1], dhs[0], dhs[-1], outs[0],
-            outs[-1])
+    hidden, ndir = gh // 4, len(xps)
     with torch.cuda.device(xps[0].device):
-        err = _build.lib().asr_bilstm_bwd(
-            *(t.data_ptr() for t in args), t_steps, batch, gh // 4,
-            len(xps), stream(xps[0]))
-    _build.check(err, name)
+        if geo.design == "cluster":
+            args = (xps[0], xps[-1], mask, whs[0], whs[-1], hs[0], cs[0],
+                    hs[-1], cs[-1], dhs[0], dhs[-1], outs[0], outs[-1])
+            err = _build.lib().asr_bilstm_bwd(
+                *(t.data_ptr() for t in args), t_steps, batch, hidden, ndir,
+                geo.ctas, geo.units, geo.rows, stream(xps[0]))
+        else:
+            whts = [w.t().contiguous() for w in whs]
+            args = (xps[0], xps[-1], mask, whs[0], whs[-1], whts[0],
+                    whts[-1], hs[0], cs[0], hs[-1], cs[-1], dhs[0], dhs[-1],
+                    outs[0], outs[-1])
+            err = _build.lib().asr_lstm_stream_bwd(
+                *(t.data_ptr() for t in args), t_steps, batch, hidden, ndir,
+                stream(xps[0]))
+    _build.check(err, f"{'bilstm' if ndir == 2 else 'lstm'}_bwd "
+                      f"({geo.design})")
     return outs
 
 
@@ -198,14 +348,16 @@ def bilstm_bwd(xp_f: torch.Tensor, xp_b: torch.Tensor, mask: torch.Tensor,
         with torch.no_grad():
             return bilstm_bwd_plain(xp_f, xp_b, mask, wh_f, wh_b, h_f, c_f,
                                     h_b, c_b, dh_f, dh_b)
-    dxp_f, dxp_b = _bwd_kernel("bilstm_bwd", [xp_f, xp_b], mask,
-                               [wh_f, wh_b], [h_f, h_b], [c_f, c_b],
-                               [dh_f, dh_b])
+    geo = _geometry(xp_f, 2)
+    dxp_f, dxp_b = launch_bwd(geo, [xp_f, xp_b], mask, [wh_f, wh_b],
+                              [h_f, h_b], [c_f, c_b], [dh_f, dh_b])
     bilstm_bwd.launches += 1
+    bilstm_bwd.by_design[geo.design] += 1
     return dxp_f, dxp_b
 
 
 bilstm_bwd.launches = 0
+bilstm_bwd.by_design = {"cluster": 0, "stream": 0}
 
 
 def lstm_bwd(xp: torch.Tensor, mask: torch.Tensor, wh: torch.Tensor,
@@ -218,12 +370,15 @@ def lstm_bwd(xp: torch.Tensor, mask: torch.Tensor, wh: torch.Tensor,
     if xp.device.type == "cpu":
         with torch.no_grad():
             return lstm_bwd_plain(xp, mask, wh, h, c, dh)
-    (dxp,) = _bwd_kernel("lstm_bwd", [xp], mask, [wh], [h], [c], [dh])
+    geo = _geometry(xp, 1)
+    (dxp,) = launch_bwd(geo, [xp], mask, [wh], [h], [c], [dh])
     lstm_bwd.launches += 1
+    lstm_bwd.by_design[geo.design] += 1
     return dxp
 
 
 lstm_bwd.launches = 0
+lstm_bwd.by_design = {"cluster": 0, "stream": 0}
 
 
 def _dwh(h: torch.Tensor, dxp: torch.Tensor, reverse: bool) -> torch.Tensor:

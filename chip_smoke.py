@@ -37,11 +37,17 @@ Phases, in order; any failure raises and the exit code is not 0:
    time, its bound and the time of the PyTorch library call that computes
    the same function (cuDNN ``nn.LSTM`` / ``nn.GRU``, ``F.ctc_loss``; none
    for fbank, dpack_decode and the layer-norm, zoneout and MI LSTMs); the
-   LSTM kernels also at the zoo's other widths, H=512 and H=100; the
+   LSTM kernels also at the zoo's other widths, H=512 and H=100, and at
+   shapes ragged for the cluster design's tiling (H=100, B=5 and B=33, a
+   row masked throughout, T=1), with the design each width takes, its
+   cluster geometry and shared memory; at H=256 the cluster design timed
+   in turns against the stream design it replaced (through the latter's C
+   entry point) beside cuDNN; the
    zoneout kernels with Bernoulli and with constant mix weights; the dpack
    decode bit for bit over the whole stream of every serving batch and of
    an edge batch, with the host encode time;
-4. the serving slices, with launch counters proving their kernels ran,
+4. the serving slices, with launch counters proving their kernels ran
+   (the LSTM kernels in the design their width takes),
    logits held against the plain path on the CPU (for ln_blstm, whose
    recurrence is chaotic, on a batch cut to LN_CHECK_T frames); the dpack
    slice's logits and transcripts equal to the pcm16 slice's, the mulaw
@@ -641,15 +647,54 @@ def check_gru_kernels(dev: torch.device, card: str, x_serve: torch.Tensor,
             "library": library}
 
 
-def lstm_smem(hidden: int) -> tuple[int, int, int]:
-    """Dynamic shared memory of bilstm_fwd and bilstm_bwd per block at width
-    ``hidden``, by the formulas of their C entry points -> (forward bytes,
-    backward bytes, the backward's partial sums per unit)."""
+def cell_family_smem(hidden: int) -> tuple[int, int, int]:
+    """Dynamic shared memory of zoneout_lstm_fwd / mi_lstm_fwd and
+    zoneout_lstm_bwd / mi_lstm_bwd per block at width ``hidden`` (one block
+    per direction and 4 rows, the layout of csrc/lstm_stream_*.cu), by the
+    formulas of their C entry points -> (forward bytes, backward bytes, the
+    backward's partial sums per unit)."""
     gates = 4 * hidden
     threads = min(-(-gates // 32) * 32, 1024)
     nsplit = max(threads // hidden, 1)
     return (4 * 4 * (2 * hidden + gates),
             4 * 4 * ((3 + nsplit) * hidden + gates), nsplit)
+
+
+def print_lstm_geometry() -> None:
+    """The LSTM kernels' design at each width of the zoo and each direction
+    count, at B=32: the cluster geometry and shared memory, held against
+    the kernels' own launch configuration (asr_bilstm_{fwd,bwd}_info),
+    and the clusters the card holds at once against those the launch
+    needs."""
+    from asr_study_torch.ops.bilstm import (CLUSTER_THREADS, cluster_info,
+                                            lstm_geometry)
+
+    for hidden in (100, HIDDEN, 512):
+        for ndir in (2, 1):
+            geo = lstm_geometry(hidden, BATCH, ndir)
+            names = "bilstm" if ndir == 2 else "lstm"
+            if geo.design == "stream":
+                print(f"  {names}_fwd/_bwd at H={hidden}, B={BATCH}: stream "
+                      f"design (csrc/lstm_stream_*.cu), grid {geo.grid} of "
+                      f"{geo.rows}-row blocks, dynamic shared memory "
+                      f"{geo.smem_fwd} / {geo.smem_bwd} B a block")
+                continue
+            (fwd_b, fwd_fit), (bwd_b, bwd_fit) = (
+                cluster_info(geo, BATCH, hidden, bwd) for bwd in (False, True))
+            clusters = geo.grid[1] * geo.grid[2]
+            print(f"  {names}_fwd/_bwd at H={hidden}, B={BATCH}: cluster "
+                  f"design (csrc/bilstm_*.cu), {clusters} clusters of "
+                  f"{geo.ctas} CTAs x {CLUSTER_THREADS} threads, grid "
+                  f"{geo.grid}, "
+                  f"{geo.units} units and {geo.rows} rows a CTA; dynamic "
+                  f"shared memory {fwd_b} / {bwd_b} B a CTA (of 232448), "
+                  f"the card holds {fwd_fit} / {bwd_fit} such clusters at "
+                  f"once")
+            require((fwd_b, bwd_b) == (geo.smem_fwd, geo.smem_bwd),
+                    f"lstm_geometry's shared memory at H={hidden} differs "
+                    f"from the kernels' own")
+            require(min(fwd_fit, bwd_fit) >= clusters,
+                    f"the LSTM clusters at H={hidden} do not fit in one wave")
 
 
 def ln_smem(hidden: int) -> tuple[int, int, int]:
@@ -985,6 +1030,143 @@ def check_lstm_kernels(dev: torch.device, card: str, x_serve: torch.Tensor,
             "library": library}
 
 
+def sm_clock_hz() -> float:
+    """The card's SM clock now, from nvidia-smi."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True).stdout
+    return float(out.splitlines()[0]) * 1e6
+
+
+def check_lstm_designs(dev: torch.device, card: str, x_serve: torch.Tensor,
+                       len_serve: torch.Tensor, library: dict) -> None:
+    """Phase 3 for the cluster design of the LSTM kernels beyond the main
+    paths, and its time against the design it replaced.
+
+    The four wrappers against their plain versions at shapes ragged for the
+    cluster tiling: H=100 (13 units a CTA, the last CTA 9), B=5 and B=33
+    (rows left over in the last group), a row masked on every frame, T=1;
+    each case runs the design ``lstm_geometry`` picks, at the forward and
+    backward tolerances.  Then, at H=256 and the main paths' shapes (T=805
+    forward, T=512 backward, B=32), the cluster design and the stream design
+    (its C entry point) timed in turns, cluster, stream, stream, cluster,
+    beside cuDNN's time from ``library`` (this run), with the per-step time
+    split into the FMA time of one CTA's slice at the card's SM clock and
+    the rest (exchange, barrier, cell)."""
+    from asr_study_torch.models.zoo import deep_blstm
+    from asr_study_torch.ops.bilstm import (bilstm, bilstm_bwd,
+                                            bilstm_bwd_plain, bilstm_plain,
+                                            launch_bwd, launch_fwd, lstm,
+                                            lstm_bwd, lstm_bwd_plain,
+                                            lstm_geometry, lstm_plain,
+                                            stream_geometry)
+
+    g = torch.Generator().manual_seed(SEED + 12)
+    for t, b, h, masked in ((37, 5, 100, True), (40, 33, 256, True),
+                            (1, 33, 256, False), (1, 5, 100, False),
+                            (64, 9, 256, True)):
+        xps = [torch.randn(t, b, 4 * h, generator=g) for _ in range(2)]
+        whs = [torch.randn(h, 4 * h, generator=g) / h ** 0.5
+               for _ in range(2)]
+        lengths = torch.randint(1, t + 1, (b,), generator=g)
+        lengths[0] = t
+        mask = (torch.arange(t)[:, None] < lengths[None, :]).float()
+        if masked:
+            mask[:, b - 1] = 0.0
+        dhs = [torch.randn(t, b, h, generator=g).to(dev) for _ in range(2)]
+        xps = [x.to(dev) for x in xps]
+        whs = [w.to(dev) for w in whs]
+        mask = mask[..., None].to(dev)
+        with torch.no_grad():
+            bi = (*xps, mask, *whs)
+            fb = bilstm(*bi), bilstm_plain(*bi)
+            bb = (bilstm_bwd(*bi, *fb[0], *dhs),
+                  bilstm_bwd_plain(*bi, *fb[0], *dhs))
+            uni = (xps[0], mask, whs[0])
+            fu = lstm(*uni), lstm_plain(*uni)
+            bu = (lstm_bwd(*uni, *fu[0], dhs[0]),
+                  lstm_bwd_plain(*uni, *fu[0], dhs[0]))
+        errs = {}
+        for name, (got, want), atol, rtol in (
+                ("bilstm_fwd", fb, BILSTM_ATOL, BILSTM_RTOL),
+                ("bilstm_bwd", bb, BWD_ATOL, BWD_RTOL),
+                ("lstm_fwd", fu, BILSTM_ATOL, BILSTM_RTOL),
+                ("lstm_bwd", ([bu[0]], [bu[1]]), BWD_ATOL, BWD_RTOL)):
+            errs[name] = max(float((k - p).abs().max())
+                             for k, p in zip(got, want))
+            require(all(within(k, p, atol, rtol) for k, p in zip(got, want)),
+                    f"{name} kernel disagrees with plain at T={t} B={b} "
+                    f"H={h}")
+        designs = {n: lstm_geometry(h, b, n).design for n in (2, 1)}
+        print(f"LSTM kernels vs plain at T={t} B={b} H={h}"
+              f"{', the last row masked throughout' if masked else ''} "
+              f"(designs: bi {designs[2]}, uni {designs[1]}): max_abs_err "
+              + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+              + f" (tol fwd {BILSTM_ATOL:g} + {BILSTM_RTOL:g}*|plain|, bwd "
+              f"{BWD_ATOL:g} + {BWD_RTOL:g}*|plain|)")
+
+    # the two designs in turns at H=256
+    layer = deep_blstm(f"num_hiddens={HIDDEN},num_layers=1", input_dim=FEATS,
+                       generator=g, device=dev).rnn.layers[0].rnn
+    t_s = x_serve.shape[0]
+    mask_s = mask_of(len_serve, t_s, dev)
+    fxps = [input_proj(layer.fw, x_serve), input_proj(layer.bw, x_serve)]
+    whs = [layer.fw.wh.detach(), layer.bw.wh.detach()]
+    t, b = TRAIN_T, TRAIN_B
+    lengths = torch.randint(t // 2, t + 1, (b,), generator=g)
+    lengths[0] = t
+    x = torch.randn(t, b, FEATS, generator=g).to(dev)
+    mask = mask_of(lengths, t, dev)
+    bxps = [input_proj(layer.fw, x), input_proj(layer.bw, x)]
+    dhs = [torch.randn(t, b, HIDDEN, generator=g).to(dev) for _ in range(2)]
+    with torch.no_grad():
+        hf, cf, hb, cb = bilstm(*bxps, mask, *whs)
+        # the stream design through launch_fwd / launch_bwd, which call
+        # its C entry points directly and count no launch
+        uni_s, bi_s = (stream_geometry(HIDDEN, BATCH, n) for n in (1, 2))
+        runs = {
+            "lstm_fwd": (lambda: lstm(fxps[0], mask_s, whs[0]),
+                         lambda: launch_fwd(uni_s, fxps[:1], mask_s,
+                                            whs[:1]), t_s, 1, 1),
+            "bilstm_fwd": (lambda: bilstm(*fxps, mask_s, *whs),
+                           lambda: launch_fwd(bi_s, fxps, mask_s, whs),
+                           t_s, 2, 1),
+            "lstm_bwd": (lambda: lstm_bwd(bxps[0], mask, whs[0], hf, cf,
+                                          dhs[0]),
+                         lambda: launch_bwd(uni_s, bxps[:1], mask, whs[:1],
+                                            [hf], [cf], dhs[:1]), t, 1, 2),
+            "bilstm_bwd": (lambda: bilstm_bwd(*bxps, mask, *whs, hf, cf, hb,
+                                              cb, *dhs),
+                           lambda: launch_bwd(bi_s, bxps, mask, whs,
+                                              [hf, hb], [cf, cb], dhs),
+                           t, 2, 2),
+        }
+        for name, (cluster_fn, stream_fn, steps, ndir, passes) in \
+                runs.items():
+            turns = {"cluster": [], "stream": []}
+            for design in ("cluster", "stream", "stream", "cluster"):
+                turns[design].append(cuda_ms(
+                    cluster_fn if design == "cluster" else stream_fn, 5))
+            clk = sm_clock_hz()
+            geo = lstm_geometry(HIDDEN, BATCH, ndir)
+            fmas = passes * geo.rows * HIDDEN * 4 * geo.units
+            c_ms = sum(turns["cluster"]) / 2
+            s_ms = sum(turns["stream"]) / 2
+            step_us = 1e3 * c_ms / steps
+            fma_us = 1e6 * fmas / (128 * clk)
+            print(f"[{card}] {name} at H={HIDDEN} T={steps} B={BATCH}, in "
+                  f"turns: cluster design {turns['cluster'][0]:.4f} / "
+                  f"{turns['cluster'][1]:.4f} ms, stream design "
+                  f"{turns['stream'][0]:.4f} / {turns['stream'][1]:.4f} ms "
+                  f"({s_ms / c_ms:.2f}x); cuDNN {library[name]:.4f} ms "
+                  f"({library[name] / c_ms:.2f}x the cluster design); "
+                  f"{step_us:.3f} us a step, of which the {fmas} FMAs of "
+                  f"one CTA's slice take {fma_us:.3f} us at 128 a clock "
+                  f"and the SM clock {clk / 1e6:.0f} MHz, the rest "
+                  f"(exchange, barrier, cell, loads) {step_us - fma_us:.3f} "
+                  f"us")
+
+
 def check_cell_family(dev: torch.device, card: str, x_serve: torch.Tensor,
                       len_serve: torch.Tensor, family: str) -> dict:
     """Phase 3 for the zoneout-LSTM (``family`` "zoneout") or the MI-LSTM
@@ -999,14 +1181,15 @@ def check_cell_family(dev: torch.device, card: str, x_serve: torch.Tensor,
     bytes counted in).  The zoneout kernels are held twice, with
     Bernoulli(0.9) mix weights drawn on the card (train mode) and with the
     eval constant 0.9, and the zoneout forward at zh = zc = 1 against
-    bilstm_fwd.  The MI vectors alpha, beta1, beta2 and b are moved off
-    their init by seeded noise, so that each one the kernels take matters.
+    the LSTM kernel of its own layout (the stream design).  The MI vectors
+    alpha, beta1, beta2 and b are moved off their init by seeded noise, so
+    that each one the kernels take matters.
     The forward's h is also printed against a float64 run of the plain
     loop, the recurrence's own fp32 spread."""
     from asr_study_torch.models.zoo import build_model
     from asr_study_torch.ops import mi_lstm as mi
     from asr_study_torch.ops import zoneout_lstm as zo
-    from asr_study_torch.ops.bilstm import bilstm
+    from asr_study_torch.ops.bilstm import launch_fwd, stream_geometry
 
     g = torch.Generator().manual_seed(SEED + (8 if family == "zoneout" else 9))
     gen = torch.Generator(device=dev).manual_seed(SEED + 8)
@@ -1104,10 +1287,14 @@ def check_cell_family(dev: torch.device, card: str, x_serve: torch.Tensor,
                 ones = torch.ones_like(args[3])
                 with torch.no_grad():
                     z1 = fwd(*args[:3], ones, ones, ones, ones, *args[7:])
-                    ref = bilstm(*args[:3], *args[7:])
+                    # the LSTM kernel of the zoneout kernel's own layout
+                    # and summation order: the stream design
+                    ref = launch_fwd(stream_geometry(h, BATCH, 2),
+                                     list(args[:2]), args[2], list(args[7:]))
                 one_err = max_err(z1, ref)
-                print(f"{name}_fwd at zh = zc = 1 vs bilstm_fwd on the same "
-                      f"inputs: max_abs_err={one_err:.3e}, bit-equal "
+                print(f"{name}_fwd at zh = zc = 1 vs the stream design of "
+                      f"bilstm_fwd (lstm_stream_fwd.cu) on the same inputs: "
+                      f"max_abs_err={one_err:.3e}, bit-equal "
                       f"{all(torch.equal(k, p) for k, p in zip(z1, ref))} "
                       f"(tol 1e-6 + 1e-6*|bilstm|)")
                 require(all(within(k, p, 1e-6, 1e-6) for k, p in zip(z1, ref)),
@@ -1408,9 +1595,34 @@ def launch_counters() -> dict:
             "dpack_decode": dpack_decode}
 
 
+# the wrappers of the LSTM kernels, which count their launches by design too
+LSTM_WRAPPERS = ("bilstm_fwd", "bilstm_bwd", "lstm_fwd", "lstm_bwd")
+
+
 def reset_counts() -> None:
-    for fn in launch_counters().values():
+    counters = launch_counters()
+    for fn in counters.values():
         fn.launches = 0
+    for name in LSTM_WRAPPERS:
+        counters[name].by_design = dict.fromkeys(counters[name].by_design, 0)
+
+
+def check_designs(label: str, hidden: int, batch: int) -> None:
+    """The LSTM kernels launched since the counts were reset ran the design
+    ``lstm_geometry`` gives this path's width and batch, and no other."""
+    from asr_study_torch.ops.bilstm import lstm_geometry
+
+    counters = launch_counters()
+    ran = {name: {k: v for k, v in counters[name].by_design.items() if v}
+           for name in LSTM_WRAPPERS if counters[name].launches}
+    if not ran:
+        return
+    print(f"{label}: LSTM launches by design (H={hidden}) {ran}")
+    for name, by_design in ran.items():
+        want = lstm_geometry(hidden, batch,
+                             2 if name.startswith("bi") else 1).design
+        require(list(by_design) == [want],
+                f"{label}: {name} ran {by_design}, want only {want}")
 
 
 def read_counts() -> dict:
@@ -1540,6 +1752,7 @@ def training_slice(dev: torch.device, card: str, path: str = "deep_blstm",
           f"{ {k: v / TRAIN_STEPS for k, v in launches.items()} }")
     require(launches == per_steps(TRAIN_STEPS),
             f"train launches {launches}, want {per_steps(TRAIN_STEPS)}")
+    check_designs(f"{path} train", model.rnn.layers[0].rnn.hidden, TRAIN_B)
     require(bool(torch.isfinite(losses).all()), "non-finite train loss")
     print(f"{path} train loss over {TRAIN_STEPS} steps on one batch: "
           f"{float(losses[0]):.4f} -> {float(losses[-1]):.4f} "
@@ -1795,16 +2008,12 @@ def main() -> int:
           f"{4 * 4 * (HIDDEN + 3 * HIDDEN)} B (4 rows), gru_bwd "
           f"{4 * 4 * ((2 + 3) * HIDDEN + 3 * HIDDEN)} B (4 rows, 3 partial "
           f"sums)")
-    for hidden in (100, HIDDEN, 512):
-        fwd_b, bwd_b, nsplit = lstm_smem(hidden)
-        print(f"  dynamic shared memory per block at H={hidden}: bilstm_fwd "
-              f"and lstm_fwd {fwd_b} B (4 rows), bilstm_bwd and lstm_bwd "
-              f"{bwd_b} B (4 rows, {nsplit} partial sums); the default "
-              f"limit is 49152 B, raised at each launch")
-    fwd_b, bwd_b, nsplit = lstm_smem(HIDDEN)
+    print_lstm_geometry()
+    fwd_b, bwd_b, nsplit = cell_family_smem(HIDDEN)
     print(f"  dynamic shared memory per block at H={HIDDEN}: zoneout_lstm_fwd "
           f"and mi_lstm_fwd (both forms) {fwd_b} B, zoneout_lstm_bwd and "
-          f"mi_lstm_bwd {bwd_b} B (the LSTM kernels' layout)")
+          f"mi_lstm_bwd {bwd_b} B (4 rows, {nsplit} partial sums), raised at "
+          f"each launch")
     fwd_b, bwd_b, nsplit = ln_smem(HIDDEN)
     print(f"  dynamic shared memory per block at H={HIDDEN}: ln_lstm_fwd "
           f"(both forms) {fwd_b} B (4 rows), ln_lstm_bwd (both forms) "
@@ -1885,6 +2094,10 @@ def main() -> int:
     train_kernels = check_training_kernels(dev, card)
     gru_kernels = check_gru_kernels(dev, card, x_serve, feat_lengths)
     lstm_kernels = check_lstm_kernels(dev, card, x_serve, feat_lengths)
+    check_lstm_designs(dev, card, x_serve, feat_lengths, {
+        "bilstm_fwd": lstm_y["lib_fwd"],
+        "bilstm_bwd": train_kernels["library"]["bilstm_bwd"],
+        **lstm_kernels["library"]})
     ln_kernels = check_ln_kernels(dev, card, x_serve, feat_lengths)
     zo_kernels = check_cell_family(dev, card, x_serve, feat_lengths,
                                    "zoneout")
@@ -1935,6 +2148,7 @@ def main() -> int:
         if codec == "dpack":
             want["dpack_decode"] = N_BATCHES
         require(launches == want, f"{label} launches {launches}, want {want}")
+        check_designs(label, model.rnn.layers[0].rnn.hidden, BATCH)
 
         if codec == "dpack":
             logits_err, bit_equal = 0.0, True

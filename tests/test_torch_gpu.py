@@ -21,8 +21,9 @@ from asr_study_torch.ops import ctc
 from asr_study_torch.ops.dpack import dpack_decode, dpack_decode_plain
 from asr_study_torch.ops.bilstm import (BiLSTMFunction, LSTMFunction, bilstm,
                                         bilstm_bwd, bilstm_bwd_plain,
-                                        bilstm_plain, lstm, lstm_bwd,
-                                        lstm_bwd_plain, lstm_plain)
+                                        bilstm_plain, cluster_info, lstm,
+                                        lstm_bwd, lstm_bwd_plain,
+                                        lstm_geometry, lstm_plain)
 from asr_study_torch.ops.gru import (BiGRUFunction, GRUFunction, bigru,
                                      bigru_bwd, bigru_bwd_plain, bigru_plain,
                                      gru, gru_bwd, gru_bwd_plain, gru_plain)
@@ -101,9 +102,32 @@ def test_fbank_kernel_matches_plain(cuda, kind, kw):
         torch.testing.assert_close(got, want, rtol=0, atol=2e-3)
 
 
-@pytest.mark.parametrize("t,b,h", [(12, 4, 8), (37, 5, 100), (50, 9, 256),
-                                   (3, 1, 300), (20, 3, 512)])
-def test_bilstm_kernel_matches_plain(cuda, t, b, h):
+# shapes ragged for the cluster design's tiling (ops/bilstm.py
+# lstm_geometry): T=1; H=100 over 8 CTAs of 13 units; B=5 and B=33, rows
+# left over in the last group of R; "dead": the last row masked on every
+# frame
+LSTM_RAGGED = [(1, 33, 256, False), (37, 5, 100, True), (23, 5, 256, True),
+               (40, 33, 256, True), (29, 33, 100, True)]
+
+
+def _lstm_cases(sizes):
+    """Parametrise (t, b, h, dead) over ``sizes`` (no dead row) and
+    LSTM_RAGGED; the ids of ``sizes`` stay "t-b-h"."""
+    cases = [(*size, False) for size in sizes] + LSTM_RAGGED
+    return pytest.mark.parametrize(
+        "t,b,h,dead", cases,
+        ids=[f"{t}-{b}-{h}" + ("-dead" if d else "") for t, b, h, d in cases])
+
+
+def _count_design(wrapper, h, b, ndir):
+    """-> (launches, launches of the design lstm_geometry gives)."""
+    design = lstm_geometry(h, b, ndir).design
+    return wrapper.launches, wrapper.by_design[design]
+
+
+@_lstm_cases([(12, 4, 8), (37, 5, 100), (50, 9, 256), (3, 1, 300),
+              (20, 3, 512)])
+def test_bilstm_kernel_matches_plain(cuda, t, b, h, dead):
     g = torch.Generator().manual_seed(h)
     xp_f = torch.randn(t, b, 4 * h, generator=g)
     xp_b = torch.randn(t, b, 4 * h, generator=g)
@@ -111,11 +135,13 @@ def test_bilstm_kernel_matches_plain(cuda, t, b, h):
     wh_b = torch.randn(h, 4 * h, generator=g) / h ** 0.5
     lengths = torch.randint(1, t + 1, (b,), generator=g)
     lengths[0] = t
+    if dead:
+        lengths[-1] = 0
     mask = (torch.arange(t)[:, None] < lengths[None, :]).float()[..., None]
     args = [a.to(cuda) for a in (xp_f, xp_b, mask, wh_f, wh_b)]
-    before = bilstm.launches
+    before = _count_design(bilstm, h, b, 2)
     got = bilstm(*args)
-    assert bilstm.launches == before + 1
+    assert _count_design(bilstm, h, b, 2) == (before[0] + 1, before[1] + 1)
     want = bilstm_plain(*args)
     torch.cuda.synchronize()
     for name, g_, w_ in zip(("h_f", "c_f", "h_b", "c_b"), got, want):
@@ -224,7 +250,7 @@ def test_dpack_serving_slice_launches(cuda):
     assert fbank.launches == f0 + 4
 
 
-def _bilstm_case(cuda, t, b, h, seed):
+def _bilstm_case(cuda, t, b, h, seed, dead=False):
     g = torch.Generator().manual_seed(seed)
     xp_f = torch.randn(t, b, 4 * h, generator=g)
     xp_b = torch.randn(t, b, 4 * h, generator=g)
@@ -232,20 +258,23 @@ def _bilstm_case(cuda, t, b, h, seed):
     wh_b = torch.randn(h, 4 * h, generator=g) / h ** 0.5
     lengths = torch.randint(1, t + 1, (b,), generator=g)
     lengths[0] = t
+    if dead:
+        lengths[-1] = 0
     mask = (torch.arange(t)[:, None] < lengths[None, :]).float()[..., None]
     dh = (torch.randn(t, b, h, generator=g), torch.randn(t, b, h, generator=g))
     return ([a.to(cuda) for a in (xp_f, xp_b, mask, wh_f, wh_b)],
             [a.to(cuda) for a in dh])
 
 
-@pytest.mark.parametrize("t,b,h", [(12, 4, 8), (37, 5, 100), (50, 9, 256),
-                                   (3, 1, 300), (512, 32, 256), (20, 3, 512)])
-def test_bilstm_bwd_kernel_matches_plain(cuda, t, b, h):
-    args, dh = _bilstm_case(cuda, t, b, h, seed=h + t)
+@_lstm_cases([(12, 4, 8), (37, 5, 100), (50, 9, 256), (3, 1, 300),
+              (512, 32, 256), (20, 3, 512)])
+def test_bilstm_bwd_kernel_matches_plain(cuda, t, b, h, dead):
+    args, dh = _bilstm_case(cuda, t, b, h, seed=h + t, dead=dead)
     res = bilstm(*args)
-    before = bilstm_bwd.launches
+    before = _count_design(bilstm_bwd, h, b, 2)
     got = bilstm_bwd(*args, *res, *dh)
-    assert bilstm_bwd.launches == before + 1
+    assert _count_design(bilstm_bwd, h, b, 2) == (before[0] + 1,
+                                                  before[1] + 1)
     want = bilstm_bwd_plain(*args, *res, *dh)
     torch.cuda.synchronize()
     for name, g_, w_ in zip(("dxp_f", "dxp_b"), got, want):
@@ -500,18 +529,29 @@ def test_deep_gru_train_step_on_card_matches_cpu(cuda, bidirectional):
 LSTM_SIZES = [(12, 4, 8), (37, 5, 100), (50, 9, 256), (20, 3, 512)]
 
 
-@pytest.mark.parametrize("t,b,h", LSTM_SIZES)
-def test_lstm_kernels_match_plain(cuda, t, b, h):
+@_lstm_cases(LSTM_SIZES)
+def test_lstm_kernels_match_plain(cuda, t, b, h, dead):
     """lstm (one direction of bilstm_fwd) and lstm_bwd (of bilstm_bwd)
     against their plain loops: h, c and dxp; H=100 has a gate width not a
-    multiple of 32, H=512 takes more than 48 KB of shared memory."""
-    args, dh = _bilstm_case(cuda, t, b, h, seed=h + t + 2)
+    multiple of 32 and a last CTA of 9 units, H=512 takes the stream
+    design.  Where the cluster design runs, lstm_geometry's shared memory is
+    the kernels' own and the card holds the launch's clusters at once."""
+    args, dh = _bilstm_case(cuda, t, b, h, seed=h + t + 2, dead=dead)
     xp, mask, wh = args[0], args[2], args[3]
-    before = (lstm.launches, lstm_bwd.launches, bilstm.launches)
+    before = (_count_design(lstm, h, b, 1), _count_design(lstm_bwd, h, b, 1),
+              bilstm.launches)
     h_k, c_k = lstm(xp, mask, wh)
     dxp = lstm_bwd(xp, mask, wh, h_k, c_k, dh[0])
-    assert (lstm.launches, lstm_bwd.launches, bilstm.launches) == (
-        before[0] + 1, before[1] + 1, before[2])
+    assert (_count_design(lstm, h, b, 1), _count_design(lstm_bwd, h, b, 1),
+            bilstm.launches) == (
+        (before[0][0] + 1, before[0][1] + 1),
+        (before[1][0] + 1, before[1][1] + 1), before[2])
+    geo = lstm_geometry(h, b, 1)
+    if geo.design == "cluster":
+        for backward, smem in ((False, geo.smem_fwd), (True, geo.smem_bwd)):
+            got_smem, fit = cluster_info(geo, b, h, backward)
+            assert got_smem == smem
+            assert fit >= geo.grid[1] * geo.grid[2]
     h_p, c_p = lstm_plain(xp, mask, wh)
     dxp_p = lstm_bwd_plain(xp, mask, wh, h_k, c_k, dh[0])
     torch.cuda.synchronize()

@@ -16,9 +16,13 @@ import torch
 from asr_study_torch.models.cells import lstm_step
 from asr_study_torch.models.rnn import RNNLayer, StackedRNN
 from asr_study_torch.models.zoo import build_model
-from asr_study_torch.ops.bilstm import (LSTMFunction, bilstm, bilstm_bwd,
+from asr_study_torch.ops.bilstm import (CLUSTER_BUDGET, CLUSTER_CTAS,
+                                        CLUSTER_ROWS, CLUSTER_SLICE,
+                                        CLUSTER_THREADS, LSTMFunction,
+                                        bilstm, bilstm_bwd, cluster_smem,
                                         lstm, lstm_bwd, lstm_bwd_plain,
-                                        lstm_plain)
+                                        lstm_geometry, lstm_plain,
+                                        stream_smem)
 from asr_study_torch.utils.weights import flat_from_params, params_from_flat
 from asr_study_tpu.models import zoo as jzoo
 from asr_study_tpu.models.cells import LSTMCell as JaxLSTMCell
@@ -232,6 +236,47 @@ def test_wrappers_take_plain_on_cpu_and_check():
         lstm(xp, mask[..., 0], wh)
     with pytest.raises(ValueError, match="device"):
         lstm(*(a.to("meta") for a in (xp, mask, wh)))
+
+
+@pytest.mark.parametrize("ndir", [1, 2])
+@pytest.mark.parametrize("batch", [1, 5, 9, 32])
+@pytest.mark.parametrize("hidden", [8, 100, 256, 512])
+def test_lstm_geometry(hidden, batch, ndir):
+    """The fit rule of the LSTM kernels: every hidden unit owned by exactly
+    one CTA of a cluster, with its four gate columns (the kernels' slice
+    mapping: CTA k holds wh[:, q*H + u] for its units u, q = i, f, g, o);
+    no CTA empty; every row group within the launch; shared memory within
+    the H100's 232,448 B a block; the grid a whole number of clusters; the
+    launch within the budget of resident clusters; H=512 on the stream
+    design, the rest on the cluster design."""
+    geo = lstm_geometry(hidden, batch, ndir)
+    assert max(geo.smem_fwd, geo.smem_bwd) <= 232_448
+    assert geo.grid[0] % geo.ctas == 0 and geo.grid[2] == ndir
+    assert geo.grid[1] * geo.rows >= batch > (geo.grid[1] - 1) * geo.rows
+    if hidden == 512:
+        assert geo.design == "stream"
+        assert (geo.ctas, geo.units) == (1, hidden)
+        assert (geo.smem_fwd, geo.smem_bwd) == stream_smem(hidden)
+        return
+    assert geo.design == "cluster"
+    assert geo.ctas <= CLUSTER_CTAS and geo.rows in CLUSTER_ROWS
+    assert geo.grid[1] * geo.grid[2] <= CLUSTER_BUDGET
+    # every thread holds CLUSTER_SLICE rows of one gate column
+    assert 4 * geo.units * -(-hidden // CLUSTER_SLICE) <= CLUSTER_THREADS
+    assert (geo.smem_fwd, geo.smem_bwd) == cluster_smem(
+        hidden, geo.units, geo.rows, geo.ctas)
+    owner = {}
+    for k in range(geo.ctas):
+        units = range(k * geo.units, min(hidden, (k + 1) * geo.units))
+        assert len(units) > 0
+        for q in range(4):
+            for u in units:
+                col = q * hidden + u
+                assert col not in owner
+                owner[col] = k
+    assert sorted(owner) == list(range(4 * hidden))
+    assert all(len({owner[q * hidden + u] for q in range(4)}) == 1
+               for u in range(hidden))
 
 
 def test_stack_refuses_unknown_skip():
