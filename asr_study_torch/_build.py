@@ -65,12 +65,21 @@ SIGNATURES = {
     # dh_f, dh_b, dxp_f, dxp_b, T, B, H, ndir, stream
     "asr_lstm_stream_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                             _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    # xp_f, xp_b, mask, wh_f, wh_b, h_f, h_b, T, B, H, ndir, stream
-    "asr_gru_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # xp_f, xp_b, mask, wh_f, wh_b, h_f, h_b, T, B, H, ndir, cluster CTAs,
+    # units per CTA, rows per cluster, stream
+    "asr_gru_fwd": [_P] * 7 + [_I] * 7 + [_P],
+    # B, H, ndir, cluster CTAs, units, rows, *smem bytes, *max clusters
+    "asr_gru_fwd_info": [_I] * 6 + [_P, _P],
+    # xp_f, xp_b, mask, wh_f, wh_b, h_f, h_b, dh_f, dh_b, dxp_f, dhp_f,
+    # dxp_b, dhp_b, T, B, H, ndir, cluster CTAs, units, rows, stream
+    "asr_gru_bwd": [_P] * 13 + [_I] * 7 + [_P],
+    "asr_gru_bwd_info": [_I] * 6 + [_P, _P],
+    # the streamed-weight forms (H=512): xp_f, xp_b, mask, wh_f, wh_b, h_f,
+    # h_b, T, B, H, ndir, stream
+    "asr_gru_stream_fwd": [_P] * 7 + [_I] * 4 + [_P],
     # xp_f, xp_b, mask, wh_f, wh_b, wht_f, wht_b, h_f, h_b, dh_f, dh_b,
     # dxp_f, dhp_f, dxp_b, dhp_b, T, B, H, ndir, stream
-    "asr_gru_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                    _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "asr_gru_stream_bwd": [_P] * 15 + [_I] * 4 + [_P],
     # xpn_f, xpn_b, mask, wh_f, wh_b, gh_f, gh_b, gc_f, gc_b, bc_f, bc_b,
     # h_f, c_f, h_b, c_b, T, B, H, ndir, stream
     "asr_ln_lstm_fwd": [_P] * 15 + [_I, _I, _I, _I, _P],

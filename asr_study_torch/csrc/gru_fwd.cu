@@ -1,5 +1,6 @@
 // The GRU recurrence of one layer, forward pass, over one or two
-// directions in one launch.
+// directions in one launch, with the recurrent weights resident in a
+// thread-block cluster for the whole sequence.
 //
 // Replaces two TPU kernels: asr_study_tpu/ops/pallas_bigru.py
 // `_bifwd_kernel` (both directions, row maths `_gru_row_fwd`) with
@@ -19,111 +20,326 @@
 //   h = (1 - z) * n + z * h_prev,   where [hr, hz, hn] = h_prev @ wh.
 //
 // The h-side n pre-activation hn is kept apart from xn: r multiplies hn
-// alone, so the two halves of n cannot be summed before the gate, as r and
-// z's are.
+// alone, so the n column's recurrent sum is finished before r touches it.
 //
-// What bounds it on the H100.  The work is the [B, H] x [H, 3H] product of
-// every step: 2 * B * H * 3H flops a step and direction, at T=805, B=32,
-// H=256 and both directions 20.3 GFLOP, 0.30 ms at the 67 TFLOP/s of fp32
-// outside the tensor cores; the bytes (xp, mask, wh in, h out: 212 MB) take
-// 0.06 ms at 3.35 TB/s, so the bound is the operations.  The recurrence is
-// serial in time and each step's product is too small to spread over the
-// card, so this simple design stays far above that bound: one block per
-// (direction, kRows batch rows) with the time loop inside the kernel (one
-// launch per layer), each thread owning gate columns j of the 3H (a strided
-// loop, so any H works) with kRows running sums, the h_prev rows in shared
-// memory where every read is a broadcast, and the direction's wh (768 KB at
-// H=256) read from L2 at every step.  Keeping wh resident across the SMs of
-// a cluster is later work.
+// What bounds it on the H100: the recurrence is serial in time, and a step
+// is a [R, H] x [H, 3H] product (0.8 M FMAs at R=4, H=256) whose weights
+// (768 KB at H=256) do not fit in one SM.  A design that reads wh from L2
+// every step pays one pass of it through one SM's L2 port a step (11 us at
+// H=256: gru_stream_fwd.cu).  Here the weights are read from device memory
+// once, and a step costs the FMAs of one CTA's slice plus one exchange of h
+// and one cluster barrier.
+//
+// The design is bilstm_fwd.cu's (persistent RNN, Diamos et al., ICML 2016,
+// on Hopper's clusters), with three gate columns a unit in place of four:
+// one cluster of C CTAs per (direction, group of R batch rows), grid (C,
+// ceil(B/R), ndir).  CTA k owns the U hidden units [kU, kU + U) and all
+// three gate columns (r, z, n) of each, so the cell update stays inside the
+// CTA.  Its slice wh[:, its 3U columns] (96 KB at H=256, C=8) is read once
+// into the registers of its 384 threads: thread (column, ks) holds rows
+// [64 ks, 64 ks + 64) of one column, so at H=256 the 96 columns of four
+// slices take every thread.  (The LSTM's shape, 256 threads of 128 rows,
+// leaves 64 of them idle here; it and 192 threads of 128 rows were slower
+// at H=256, B=32: lstm_step_split.py, PERF.md.)  A step:
+//
+//   1. hp[R, 3U] = h_prev[R, H] @ slice, each thread its column over its
+//      64 rows, h_prev broadcast from shared memory as float4; the row
+//      slices' sums added in a fixed order;
+//   2. xp[t] and the mask, fetched one step ahead by cp.async, complete the
+//      gates; the cell runs for the CTA's (row, unit) pairs and writes h;
+//   3. each h goes into every CTA's h_prev buffer for the next step through
+//      distributed shared memory (cluster.map_shared_rank); the buffers
+//      alternate on s & 1, so one cluster barrier a step suffices.
+//
+// The launcher checks with cudaOccupancyMaxActiveClusters that every
+// cluster of the grid is resident at once and refuses the launch otherwise.
+// ops/gru.py `gru_geometry` picks C, U and R, and sends the widths whose
+// slice does not fit (H=512: 8 x 64 rows of 3U = 192 columns a CTA would
+// take 1,536 threads) to gru_stream_fwd.cu.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kRows = 4;         // batch rows per block
-constexpr int kMaxThreads = 1024;
+constexpr int kThreads = 384;
+constexpr int kSlice = 64;       // k rows of the weights a thread holds
+constexpr int kMaxCluster = 8;   // the portable cluster size
+
+__host__ __device__ constexpr int round4(int n) { return (n + 3) & ~3; }
+
+// Offsets (in floats) of the dynamic shared memory of one CTA; mirrored by
+// ops/gru.py `gru_cluster_smem`.  Every region starts on 16 bytes.
+struct FwdLayout {
+  int ks, hs, hbuf, xs, mk, red, total;
+  __host__ __device__ FwdLayout(int H, int U, int R) {
+    const int gc = 3 * U;
+    ks = (H + kSlice - 1) / kSlice;  // slices of the H reduction
+    hs = ks * kSlice;             // h rows, zero-padded to whole slices
+    hbuf = 0;                     // [2][R][hs]  h_prev, alternating
+    xs = hbuf + 2 * R * hs;       // [2][R][gc]  xp of own columns
+    mk = xs + round4(2 * R * gc); // [2][R]      mask
+    red = mk + round4(2 * R);     // [ks][R][gc] partial products
+    total = red + round4(ks * R * gc);
+  }
+};
 
 __device__ __forceinline__ float sigmoidf(float x) {
   return 1.f / (1.f + expf(-x));
 }
 
-__global__ void __launch_bounds__(kMaxThreads)
+// 4-byte asynchronous copy global -> shared; zero-fills when !valid
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_prev() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+template <int R>
+__global__ void __launch_bounds__(kThreads, 1)
 gru_fwd_kernel(const float* __restrict__ xp_f, const float* __restrict__ xp_b,
                const float* __restrict__ mask,
                const float* __restrict__ wh_f,
                const float* __restrict__ wh_b, float* __restrict__ h_f,
-               float* __restrict__ h_b, int T, int B, int H) {
-  extern __shared__ float smem[];
-  const int G = 3 * H;
-  float* hs = smem;              // [kRows][H]  h of the previous step
-  float* hp = hs + kRows * H;    // [kRows][G]  h_prev @ wh
+               float* __restrict__ h_b, int T, int B, int H, int U) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const FwdLayout L(H, U, R);
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  float* hbuf = smem + L.hbuf;
+  float* xs = smem + L.xs;
+  float* mk = smem + L.mk;
+  float* red = smem + L.red;
+  const int G = 3 * H, GC = 3 * U, HS = L.hs;
 
-  const bool rev = blockIdx.y == 1;
+  const bool rev = blockIdx.z == 1;
   const float* __restrict__ xp = rev ? xp_b : xp_f;
   const float* __restrict__ wh = rev ? wh_b : wh_f;
   float* __restrict__ h_out = rev ? h_b : h_f;
-  const int b0 = blockIdx.x * kRows;
-  const int rows = min(kRows, B - b0);
+  const int b0 = blockIdx.y * R;
+  const int u0 = rank * U;
+  const int tid = threadIdx.x;
 
-  for (int i = threadIdx.x; i < kRows * H; i += blockDim.x) hs[i] = 0.f;
-  __syncthreads();
+  // the resident slice, in registers: thread (col, ks) holds
+  // w[kk] = wh[ks*kSlice + kk][q*H + u0 + u] for col = q*U + u, zero past H
+  const int col = tid % GC, ks = tid / GC;
+  const bool active = ks < L.ks;
+  float w[kSlice];
+  {
+    const int q = col / U, unit = u0 + col - q * U;
+#pragma unroll
+    for (int kk = 0; kk < kSlice; ++kk) {
+      const int k = ks * kSlice + kk;
+      w[kk] = (active && k < H && unit < H)
+                  ? wh[static_cast<size_t>(k) * G + q * H + unit]
+                  : 0.f;
+    }
+  }
+  for (int i = tid; i < 2 * R * HS; i += kThreads) hbuf[i] = 0.f;
+
+  // xp of own columns and the mask of step s, into slot s & 1
+  auto prefetch = [&](int s) {
+    const int t = rev ? T - 1 - s : s;
+    float* xd = xs + (s & 1) * R * GC;
+    for (int i = tid; i < R * GC; i += kThreads) {
+      const int r = i / GC, col = i - r * GC;
+      const int q = col / U, unit = u0 + col - q * U;
+      const int b = b0 + r;
+      const bool ok = b < B && unit < H;
+      cp_async4(xd + i,
+                ok ? xp + (static_cast<size_t>(t) * B + b) * G + q * H + unit
+                   : xp,
+                ok);
+    }
+    for (int r = tid; r < R; r += kThreads) {
+      const bool ok = b0 + r < B;
+      cp_async4(mk + (s & 1) * R + r,
+                ok ? mask + static_cast<size_t>(t) * B + b0 + r : mask, ok);
+    }
+    cp_async_commit();
+  };
+
+  prefetch(0);
+  // every CTA of the cluster is running and initialised before any peer
+  // writes into its shared memory
+  cluster.sync();
 
   for (int s = 0; s < T; ++s) {
+    const int cur = s & 1;
     const int t = rev ? T - 1 - s : s;
-    const size_t row0 = static_cast<size_t>(t) * B + b0;
+    if (s + 1 < T)
+      prefetch(s + 1);
+    else
+      cp_async_commit();
+    const float* hp = hbuf + cur * R * HS;
 
-    // h-side pre-activations h_prev @ wh, gate columns strided over threads
-    for (int j = threadIdx.x; j < G; j += blockDim.x) {
-      float acc[kRows];
+    // 1. h_prev @ w, one column and one slice of the reduction a thread,
+    // the weights from registers and h broadcast from shared memory
+    if (active) {
+      const float* hk = hp + ks * kSlice;
+      float acc[R];
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) acc[r] = 0.f;
-#pragma unroll 4
-      for (int k = 0; k < H; ++k) {
-        const float w = __ldg(wh + static_cast<size_t>(k) * G + j);
+      for (int r = 0; r < R; ++r) acc[r] = 0.f;
 #pragma unroll
-        for (int r = 0; r < kRows; ++r) acc[r] = fmaf(hs[r * H + k], w, acc[r]);
+      for (int kk = 0; kk < kSlice; kk += 4) {
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const float4 hv =
+              *reinterpret_cast<const float4*>(hk + r * HS + kk);
+          acc[r] = fmaf(hv.x, w[kk], acc[r]);
+          acc[r] = fmaf(hv.y, w[kk + 1], acc[r]);
+          acc[r] = fmaf(hv.z, w[kk + 2], acc[r]);
+          acc[r] = fmaf(hv.w, w[kk + 3], acc[r]);
+        }
       }
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) hp[r * G + j] = acc[r];
+      for (int r = 0; r < R; ++r) red[(ks * R + r) * GC + col] = acc[r];
     }
+    cp_async_wait_prev();
     __syncthreads();
 
-    // state update, held where the frame is masked
-    for (int i = threadIdx.x; i < rows * H; i += blockDim.x) {
-      const int r = i / H;
-      const int u = i - r * H;
-      const float* x = xp + (row0 + r) * G;
-      const float* g = hp + r * G;
-      const float rg = sigmoidf(x[u] + g[u]);
-      const float zg = sigmoidf(x[H + u] + g[H + u]);
-      const float ng = tanhf(x[2 * H + u] + rg * g[2 * H + u]);
-      const float h_prev = hs[i];
+    // 2. the cell on own (row, unit) pairs; 3. h to every CTA's next buffer
+    float* hn = hbuf + (cur ^ 1) * R * HS;
+    const float* x = xs + cur * R * GC;
+    for (int i = tid; i < R * U; i += kThreads) {
+      const int r = i / U, u = i - r * U, unit = u0 + u;
+      if (unit >= H) continue;
+      // the recurrent sums [hr, hz, hn], each finished before the gates
+      float hsum[3];
+#pragma unroll
+      for (int q = 0; q < 3; ++q) {
+        const int j = q * U + u;
+        float v = red[r * GC + j];
+        for (int p = 1; p < L.ks; ++p) v += red[(p * R + r) * GC + j];
+        hsum[q] = v;
+      }
+      const float* xr = x + r * GC;
+      const float rg = sigmoidf(xr[u] + hsum[0]);
+      const float zg = sigmoidf(xr[U + u] + hsum[1]);
+      const float ng = tanhf(xr[2 * U + u] + rg * hsum[2]);
+      const float h_prev = hp[r * HS + unit];
       float h = (1.f - zg) * ng + zg * h_prev;
-      if (!(mask[row0 + r] > 0.f)) h = h_prev;
-      hs[i] = h;
-      h_out[(row0 + r) * H + u] = h;
+      if (!(mk[cur * R + r] > 0.f)) h = h_prev;
+      const int b = b0 + r;
+      if (b < B) h_out[(static_cast<size_t>(t) * B + b) * H + unit] = h;
+      for (int p = 0; p < C; ++p)
+        cluster.map_shared_rank(hn, p)[r * HS + unit] = h;
     }
-    __syncthreads();
+    cluster.sync();
+  }
+}
+
+// The launch configuration of the cluster grid -> its dynamic shared memory
+// and how many of its clusters the card holds at once.
+template <int R>
+cudaError_t configure(int B, int H, int ndir, int C, int U,
+                      cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr,
+                      int* max_clusters) {
+  const size_t smem =
+      sizeof(float) * static_cast<size_t>(FwdLayout(H, U, R).total);
+  cudaError_t err = cudaFuncSetAttribute(
+      gru_fwd_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  *cfg = cudaLaunchConfig_t{};
+  cfg->gridDim = dim3(C, (B + R - 1) / R, ndir);
+  cfg->blockDim = dim3(kThreads);
+  cfg->dynamicSmemBytes = smem;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  return cudaOccupancyMaxActiveClusters(max_clusters, gru_fwd_kernel<R>,
+                                        cfg);
+}
+
+template <int R>
+cudaError_t launch(const float* xp_f, const float* xp_b, const float* mask,
+                   const float* wh_f, const float* wh_b, float* h_f,
+                   float* h_b, int T, int B, int H, int ndir, int C, int U,
+                   cudaStream_t stream) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  int fit = 0;
+  cudaError_t err = configure<R>(B, H, ndir, C, U, &cfg, attr, &fit);
+  if (err != cudaSuccess) return err;
+  // all clusters in one wave, or no launch
+  if (fit < static_cast<int>(cfg.gridDim.y * cfg.gridDim.z))
+    return cudaErrorCooperativeLaunchTooLarge;
+  cfg.stream = stream;
+  err = cudaLaunchKernelEx(&cfg, gru_fwd_kernel<R>, xp_f, xp_b, mask, wh_f,
+                           wh_b, h_f, h_b, T, B, H, U);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+bool valid_geometry(int H, int ndir, int C, int U) {
+  return ndir >= 1 && ndir <= 2 && C >= 1 && C <= kMaxCluster && U >= 1 &&
+         3 * U * ((H + kSlice - 1) / kSlice) <= kThreads && C * U >= H &&
+         (C - 1) * U < H;
+}
+
+// f(std::integral_constant<int, R>) for the row counts the kernel is built
+// for
+template <typename F>
+cudaError_t by_rows(int R, F&& f) {
+  switch (R) {
+    case 1: return f(std::integral_constant<int, 1>{});
+    case 2: return f(std::integral_constant<int, 2>{});
+    case 4: return f(std::integral_constant<int, 4>{});
+    case 8: return f(std::integral_constant<int, 8>{});
+    default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
+// Launch the forward over ndir directions: clusters of C CTAs of U units
+// each, R (1, 2, 4 or 8) batch rows a cluster.
 extern "C" int asr_gru_fwd(const float* xp_f, const float* xp_b,
                            const float* mask, const float* wh_f,
                            const float* wh_b, float* h_f, float* h_b, int T,
-                           int B, int H, int ndir, void* stream) {
-  if (ndir < 1 || ndir > 2) return static_cast<int>(cudaErrorInvalidValue);
-  const int G = 3 * H;
-  const size_t smem = sizeof(float) * static_cast<size_t>(kRows) * (H + G);
-  cudaError_t err = cudaFuncSetAttribute(
-      gru_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int warps_g = ((G + 31) / 32) * 32;
-  const int threads = warps_g < kMaxThreads ? warps_g : kMaxThreads;
-  const dim3 grid((B + kRows - 1) / kRows, ndir);
-  gru_fwd_kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      xp_f, xp_b, mask, wh_f, wh_b, h_f, h_b, T, B, H);
-  return static_cast<int>(cudaGetLastError());
+                           int B, int H, int ndir, int C, int U, int R,
+                           void* stream) {
+  if (!valid_geometry(H, ndir, C, U))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(by_rows(R, [&](auto rows) {
+    return launch<decltype(rows)::value>(xp_f, xp_b, mask, wh_f, wh_b, h_f,
+                                         h_b, T, B, H, ndir, C, U,
+                                         static_cast<cudaStream_t>(stream));
+  }));
+}
+
+// The forward's dynamic shared memory per CTA and the clusters the card
+// holds at once for that launch, without launching.
+extern "C" int asr_gru_fwd_info(int B, int H, int ndir, int C, int U, int R,
+                                int* smem_bytes, int* max_clusters) {
+  if (!valid_geometry(H, ndir, C, U))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  const cudaError_t err = by_rows(R, [&](auto rows) {
+    return configure<decltype(rows)::value>(B, H, ndir, C, U, &cfg, attr,
+                                            max_clusters);
+  });
+  if (err == cudaSuccess) *smem_bytes = static_cast<int>(cfg.dynamicSmemBytes);
+  return static_cast<int>(err);
 }

@@ -31,50 +31,18 @@ h and c.
 
 from __future__ import annotations
 
-import ctypes
-from typing import NamedTuple
-
 import torch
 
 from asr_study_torch import _build
 from asr_study_torch.models.cells import lstm_step
-from asr_study_torch.ops.recurrence import check, cotangent, prev, stream
+from asr_study_torch.ops.recurrence import (STREAM_ROWS, Geometry, check,
+                                            cluster_geometry, cotangent,
+                                            kernel_info, prev, r4, stream)
 
-
-# The fit rule.  A cluster of CLUSTER_CTAS CTAs (the portable maximum) per
-# (direction, group of `rows` batch rows); CTA k owns ceil(H / 8) hidden units
-# and their four gate columns, and keeps wh[:, those columns] resident: each
-# of its CLUSTER_THREADS threads holds CLUSTER_SLICE rows of one column in
-# registers (so 4U * ceil(H / CLUSTER_SLICE) <= CLUSTER_THREADS), and the
-# backward a copy in shared memory.  The launch may hold at most
-# CLUSTER_BUDGET clusters, all resident at once: the kernel checks that on
-# the card (cudaOccupancyMaxActiveClusters) and refuses otherwise.  An H100
-# SXM holds 15 clusters of 8 CTAs of these kernels (one CTA an SM; a
-# cluster stays inside one GPC, and the GPCs' SM counts vary from die to
-# die), so the budget keeps a margin of 3.  `rows` is the least of
-# CLUSTER_ROWS that keeps the launch within the budget.
-CLUSTER_CTAS = 8
-CLUSTER_BUDGET = 12
-CLUSTER_ROWS = (1, 2, 4, 8)
+# The cluster kernels' thread shape (csrc/bilstm_{fwd,bwd}.cu kThreads and
+# kSlice): 256 threads a CTA, each holding 128 rows of one gate column.
 CLUSTER_THREADS = 256
-CLUSTER_SLICE = 128          # rows of wh a thread holds in registers
-SMEM_LIMIT = 232_448         # dynamic shared memory a block can use, H100
-STREAM_ROWS = 4              # batch rows per block of the stream design
-
-
-class LSTMGeometry(NamedTuple):
-    """How one launch of the LSTM kernels is laid out."""
-    design: str                     # "cluster" or "stream"
-    ctas: int                       # CTAs per cluster (1: stream)
-    units: int                      # hidden units per CTA
-    rows: int                       # batch rows per cluster (stream: block)
-    grid: tuple[int, int, int]      # (ctas, row groups, ndir)
-    smem_fwd: int                   # dynamic shared memory per CTA, bytes
-    smem_bwd: int
-
-
-def _r4(n: int) -> int:
-    return -(-n // 4) * 4
+CLUSTER_SLICE = 128
 
 
 def cluster_smem(hidden: int, units: int, rows: int, ctas: int
@@ -82,15 +50,15 @@ def cluster_smem(hidden: int, units: int, rows: int, ctas: int
     """Dynamic shared memory per CTA of the cluster forward and backward,
     bytes: ``FwdLayout`` and ``BwdLayout`` of ``csrc/bilstm_{fwd,bwd}.cu``.
     """
-    gc, hp = 4 * units, _r4(hidden)
+    gc, hp = 4 * units, r4(hidden)
     ks = -(-hidden // CLUSTER_SLICE)           # slices of the reduction
     hs = ks * CLUSTER_SLICE                    # h rows padded to slices
-    ws = _r4(hp * (gc + 1))                    # the backward's weight copy
-    fwd = (2 * rows * hs + 2 * rows * gc + _r4(2 * rows) + ks * rows * gc
-           + _r4(rows * units))
-    bwd = (ws + 2 * rows * hs + 2 * rows * gc + 3 * _r4(2 * rows * units)
-           + _r4(2 * rows) + ks * rows * gc + rows * gc
-           + _r4(2 * ctas * rows * units) + 2 * _r4(rows * units))
+    ws = r4(hp * (gc + 1))                     # the backward's weight copy
+    fwd = (2 * rows * hs + 2 * rows * gc + r4(2 * rows) + ks * rows * gc
+           + r4(rows * units))
+    bwd = (ws + 2 * rows * hs + 2 * rows * gc + 3 * r4(2 * rows * units)
+           + r4(2 * rows) + ks * rows * gc + rows * gc
+           + r4(2 * ctas * rows * units) + 2 * r4(rows * units))
     return 4 * fwd, 4 * bwd
 
 
@@ -104,50 +72,35 @@ def stream_smem(hidden: int) -> tuple[int, int]:
             4 * STREAM_ROWS * ((3 + nsplit) * hidden + gates))
 
 
-def lstm_geometry(hidden: int, batch: int, ndir: int) -> LSTMGeometry:
+def lstm_geometry(hidden: int, batch: int, ndir: int) -> Geometry:
     """The design and layout of the LSTM kernels for width ``hidden``,
     ``batch`` rows and ``ndir`` directions.
 
-    ``cluster`` where a CTA's threads hold its slice in registers, some row
-    count of CLUSTER_ROWS keeps the launch within CLUSTER_BUDGET clusters
-    and both kernels' shared memory stays within SMEM_LIMIT (H=256 and
-    H=100 up to B=48 in two directions and B=96 in one: every width of the
-    zoo but deep_speech's); ``stream`` otherwise (H=512: a CTA's 256
-    columns of 512 rows would take 512 threads of 256 registers)."""
-    units = -(-hidden // CLUSTER_CTAS)
-    ctas = -(-hidden // units)
-    if 4 * units * -(-hidden // CLUSTER_SLICE) <= CLUSTER_THREADS:
-        for rows in CLUSTER_ROWS:
-            groups = -(-batch // rows)
-            if ndir * groups <= CLUSTER_BUDGET:
-                fwd, bwd = cluster_smem(hidden, units, rows, ctas)
-                if max(fwd, bwd) <= SMEM_LIMIT:
-                    return LSTMGeometry("cluster", ctas, units, rows,
-                                        (ctas, groups, ndir), fwd, bwd)
-                break
-    return stream_geometry(hidden, batch, ndir)
+    ``cluster`` where :func:`~asr_study_torch.ops.recurrence.cluster_geometry`
+    fits four gate columns a unit (H=256 and H=100 up to B=48 in two
+    directions and B=96 in one: every width of the zoo but deep_speech's);
+    ``stream`` otherwise (H=512: a CTA's 256 columns of 512 rows would take
+    512 threads of 256 registers)."""
+    return (cluster_geometry(hidden, batch, ndir, 4, CLUSTER_THREADS,
+                             CLUSTER_SLICE, cluster_smem)
+            or stream_geometry(hidden, batch, ndir))
 
 
-def stream_geometry(hidden: int, batch: int, ndir: int) -> LSTMGeometry:
+def stream_geometry(hidden: int, batch: int, ndir: int) -> Geometry:
     """The stream design's layout, at any width: the one
     :func:`lstm_geometry` gives where the cluster design does not fit."""
     fwd, bwd = stream_smem(hidden)
-    return LSTMGeometry("stream", 1, hidden, STREAM_ROWS,
-                        (1, -(-batch // STREAM_ROWS), ndir), fwd, bwd)
+    return Geometry("stream", 1, hidden, STREAM_ROWS,
+                    (1, -(-batch // STREAM_ROWS), ndir), fwd, bwd)
 
 
-def cluster_info(geo: LSTMGeometry, batch: int, hidden: int, backward: bool
+def cluster_info(geo: Geometry, batch: int, hidden: int, backward: bool
                  ) -> tuple[int, int]:
     """On the card: (dynamic shared memory per CTA the kernel sizes, clusters
     of this launch the card holds at once), from the kernel's own launch
     configuration (``asr_bilstm_{fwd,bwd}_info``)."""
-    smem, fit = ctypes.c_int(0), ctypes.c_int(0)
-    fn = (_build.lib().asr_bilstm_bwd_info if backward
-          else _build.lib().asr_bilstm_fwd_info)
-    err = fn(batch, hidden, geo.grid[2], geo.ctas, geo.units, geo.rows,
-             ctypes.addressof(smem), ctypes.addressof(fit))
-    _build.check(err, "bilstm_bwd_info" if backward else "bilstm_fwd_info")
-    return smem.value, fit.value
+    return kernel_info("bilstm_bwd_info" if backward else "bilstm_fwd_info",
+                       geo, batch, hidden)
 
 
 def _scan(xp: torch.Tensor, mask: torch.Tensor, wh: torch.Tensor,
@@ -181,11 +134,11 @@ def lstm_plain(xp: torch.Tensor, mask: torch.Tensor, wh: torch.Tensor
     return _scan(xp, mask, wh, False)
 
 
-def _geometry(xp: torch.Tensor, ndir: int) -> LSTMGeometry:
+def _geometry(xp: torch.Tensor, ndir: int) -> Geometry:
     return lstm_geometry(xp.shape[2] // 4, xp.shape[1], ndir)
 
 
-def launch_fwd(geo: LSTMGeometry, xps: list, mask: torch.Tensor,
+def launch_fwd(geo: Geometry, xps: list, mask: torch.Tensor,
                whs: list) -> list:
     """Launch the forward over ``len(xps)`` directions (the second one walks
     time backward) in the design and layout ``geo`` -> [h, c] per
@@ -301,7 +254,7 @@ def lstm_bwd_plain(xp, mask, wh, h, c, dh) -> torch.Tensor:
     return _walk_bwd(xp, mask, wh, h, c, dh, False)
 
 
-def launch_bwd(geo: LSTMGeometry, xps: list, mask: torch.Tensor, whs: list,
+def launch_bwd(geo: Geometry, xps: list, mask: torch.Tensor, whs: list,
                hs: list, cs: list, dhs: list) -> list:
     """Launch the backward over ``len(xps)`` directions in the design and
     layout ``geo`` -> dxp per direction.  The wrappers count the

@@ -4,15 +4,28 @@ forms: both directions of a bidirectional layer in one launch (port of
 (port of ``asr_study_tpu/ops/pallas_gru.py`` ``pallas_gru``), each with its
 custom VJP.
 
-The kernels are ``csrc/gru_fwd.cu`` and ``csrc/gru_bwd.cu``; each takes the
-number of directions, so :func:`bigru` and :func:`gru` launch the same
-forward kernel with 2 and 1 directions, and :func:`bigru_bwd` and
-:func:`gru_bwd` the same backward kernel.  Each of the four wrappers counts
-its own launches.  A CUDA tensor launches the kernel (or raises); a CPU
-tensor takes the plain version, a Python loop over time.  Neither records
-an autograd graph: gradients go through :class:`BiGRUFunction` and
-:class:`GRUFunction`, whose backward is the backward kernel plus one
-``h_prev^T @ dhp`` matmul per direction for the recurrent weights.
+Two designs of the kernels, each taking the number of directions, so
+:func:`bigru` and :func:`gru` launch the same forward kernel with 2 and 1
+directions, and :func:`bigru_bwd` and :func:`gru_bwd` the same backward:
+
+- ``cluster``: ``csrc/gru_fwd.cu`` and ``csrc/gru_bwd.cu``, the recurrent
+  weights resident in a thread-block cluster (its threads' registers, and
+  for the backward its shared memory too) for the whole sequence, h
+  exchanged through distributed shared memory;
+- ``stream``: ``csrc/gru_stream_fwd.cu`` and ``csrc/gru_stream_bwd.cu``, one
+  block per (direction, 4 rows) streaming ``wh`` from L2 every step, for
+  the widths whose weights do not fit in a cluster (H=512).
+
+:func:`gru_geometry` picks the design by size alone (the fit rule of
+``ops/recurrence.py``, shared with the LSTM, for three gate columns a unit
+and this module's thread shape); a failed build or launch raises either
+way.  Each of the four wrappers counts its own
+launches, in all and by design (``launches``, ``by_design``).  A CUDA
+tensor launches a kernel (or raises); a CPU tensor takes the plain version,
+a Python loop over time.  Neither records an autograd graph: gradients go
+through :class:`BiGRUFunction` and :class:`GRUFunction`, whose backward is
+the backward kernel plus one ``h_prev^T @ dhp`` matmul per direction for
+the recurrent weights.
 
 Gate order r, z, n with every bias folded into ``xp`` (valid because
 ``n = tanh((xn + bn) + r * hn)``).  Masked frames hold ``h``.
@@ -24,7 +37,73 @@ import torch
 
 from asr_study_torch import _build
 from asr_study_torch.models.cells import gru_step
-from asr_study_torch.ops.recurrence import check, cotangent, prev, stream
+from asr_study_torch.ops.recurrence import (STREAM_ROWS, Geometry, check,
+                                            cluster_geometry, cotangent,
+                                            kernel_info, prev, r4, stream)
+
+# The cluster kernels' thread shape (csrc/gru_{fwd,bwd}.cu kThreads and
+# kSlice): 384 threads a CTA, each holding 64 rows of one gate column, so at
+# H=256 a CTA's 96 columns of four slices take every thread.  Measured
+# faster than the LSTM's 256 threads of 128 rows (64 of them idle here) and
+# than 192 threads of 128 rows (lstm_step_split.py; PERF.md).
+GRU_THREADS = 384
+GRU_SLICE = 64
+
+
+def gru_cluster_smem(hidden: int, units: int, rows: int, ctas: int
+                     ) -> tuple[int, int]:
+    """Dynamic shared memory per CTA of the cluster forward and backward,
+    bytes: ``FwdLayout`` and ``BwdLayout`` of ``csrc/gru_{fwd,bwd}.cu``."""
+    gc, gcp = 3 * units, r4(3 * units)
+    ks = -(-hidden // GRU_SLICE)               # slices of the reduction
+    hs = ks * GRU_SLICE                        # h rows padded to slices
+    fwd = 2 * rows * hs + r4(2 * rows * gc) + r4(2 * rows) + r4(
+        ks * rows * gc)
+    bwd = (r4(r4(hidden) * (gcp + 1))          # the weight copy ws
+           + 2 * rows * hs + r4(2 * rows * gc) + r4(2 * rows * units)
+           + r4(2 * rows) + r4(ks * rows * gc) + rows * gcp
+           + r4(2 * ctas * rows * units) + r4(rows * units))
+    return 4 * fwd, 4 * bwd
+
+
+def gru_stream_smem(hidden: int) -> tuple[int, int]:
+    """Dynamic shared memory per block of the stream forward and backward,
+    bytes, by the formulas of ``csrc/gru_stream_{fwd,bwd}.cu``."""
+    gates = 3 * hidden
+    threads = min(-(-gates // 32) * 32, 1024)
+    nsplit = max(threads // hidden, 1)
+    return (4 * STREAM_ROWS * (hidden + gates),
+            4 * STREAM_ROWS * ((2 + nsplit) * hidden + gates))
+
+
+def gru_geometry(hidden: int, batch: int, ndir: int) -> Geometry:
+    """The design and layout of the GRU kernels for width ``hidden``,
+    ``batch`` rows and ``ndir`` directions: ``cluster`` where
+    :func:`~asr_study_torch.ops.recurrence.cluster_geometry` fits three gate
+    columns a unit (H=256: 8 CTAs of 32 units, 96 columns of four 64-row
+    slices, R=4 rows a cluster in one direction and R=8 in two at B=32);
+    ``stream`` otherwise (H=512: a CTA's 192 columns of 512 rows would take
+    1,536 threads)."""
+    return (cluster_geometry(hidden, batch, ndir, 3, GRU_THREADS, GRU_SLICE,
+                             gru_cluster_smem)
+            or gru_stream_geometry(hidden, batch, ndir))
+
+
+def gru_stream_geometry(hidden: int, batch: int, ndir: int) -> Geometry:
+    """The stream design's layout, at any width: the one
+    :func:`gru_geometry` gives where the cluster design does not fit."""
+    fwd, bwd = gru_stream_smem(hidden)
+    return Geometry("stream", 1, hidden, STREAM_ROWS,
+                    (1, -(-batch // STREAM_ROWS), ndir), fwd, bwd)
+
+
+def gru_cluster_info(geo: Geometry, batch: int, hidden: int, backward: bool
+                     ) -> tuple[int, int]:
+    """On the card: (dynamic shared memory per CTA the kernel sizes, clusters
+    of this launch the card holds at once), from the kernel's own launch
+    configuration (``asr_gru_{fwd,bwd}_info``)."""
+    return kernel_info("gru_bwd_info" if backward else "gru_fwd_info",
+                       geo, batch, hidden)
 
 
 def _scan(xp: torch.Tensor, mask: torch.Tensor, wh: torch.Tensor,
@@ -52,22 +131,31 @@ def gru_plain(xp: torch.Tensor, mask: torch.Tensor,
     return _scan(xp, mask, wh, False)
 
 
-def _fwd_kernel(name: str, xps: list, mask: torch.Tensor,
-                whs: list) -> list:
-    """Launch ``gru_fwd`` over ``len(xps)`` directions (the second one
-    walks time backward) -> one h sequence per direction."""
+def _geometry(xp: torch.Tensor, ndir: int) -> Geometry:
+    return gru_geometry(xp.shape[2] // 3, xp.shape[1], ndir)
+
+
+def launch_fwd(geo: Geometry, xps: list, mask: torch.Tensor,
+               whs: list) -> list:
+    """Launch the forward over ``len(xps)`` directions (the second one walks
+    time backward) in the design and layout ``geo`` -> one h sequence per
+    direction.  The wrappers count the launches."""
     t_steps, batch, gh = xps[0].shape
-    outs = [torch.empty((t_steps, batch, gh // 3), dtype=torch.float32,
+    hidden, ndir = gh // 3, len(xps)
+    outs = [torch.empty((t_steps, batch, hidden), dtype=torch.float32,
                         device=xps[0].device) for _ in xps]
     if outs[0].numel() == 0:
         return outs
-    with torch.cuda.device(xps[0].device):
-        err = _build.lib().asr_gru_fwd(
-            xps[0].data_ptr(), xps[-1].data_ptr(), mask.data_ptr(),
+    ptrs = (xps[0].data_ptr(), xps[-1].data_ptr(), mask.data_ptr(),
             whs[0].data_ptr(), whs[-1].data_ptr(), outs[0].data_ptr(),
-            outs[-1].data_ptr(), t_steps, batch, gh // 3, len(xps),
-            stream(xps[0]))
-    _build.check(err, name)
+            outs[-1].data_ptr(), t_steps, batch, hidden, ndir)
+    with torch.cuda.device(xps[0].device):
+        if geo.design == "cluster":
+            err = _build.lib().asr_gru_fwd(*ptrs, geo.ctas, geo.units,
+                                           geo.rows, stream(xps[0]))
+        else:
+            err = _build.lib().asr_gru_stream_fwd(*ptrs, stream(xps[0]))
+    _build.check(err, f"{'bigru' if ndir == 2 else 'gru'}_fwd ({geo.design})")
     return outs
 
 
@@ -90,12 +178,15 @@ def bigru(xp_f: torch.Tensor, xp_b: torch.Tensor, mask: torch.Tensor,
     if xp_f.device.type == "cpu":
         with torch.no_grad():
             return bigru_plain(xp_f, xp_b, mask, wh_f, wh_b)
-    h_f, h_b = _fwd_kernel("bigru_fwd", [xp_f, xp_b], mask, [wh_f, wh_b])
+    geo = _geometry(xp_f, 2)
+    h_f, h_b = launch_fwd(geo, [xp_f, xp_b], mask, [wh_f, wh_b])
     bigru.launches += 1
+    bigru.by_design[geo.design] += 1
     return h_f, h_b
 
 
 bigru.launches = 0
+bigru.by_design = {"cluster": 0, "stream": 0}
 
 
 def gru(xp: torch.Tensor, mask: torch.Tensor,
@@ -107,12 +198,15 @@ def gru(xp: torch.Tensor, mask: torch.Tensor,
     if xp.device.type == "cpu":
         with torch.no_grad():
             return gru_plain(xp, mask, wh)
-    (h,) = _fwd_kernel("gru_fwd", [xp], mask, [wh])
+    geo = _geometry(xp, 1)
+    (h,) = launch_fwd(geo, [xp], mask, [wh])
     gru.launches += 1
+    gru.by_design[geo.design] += 1
     return h
 
 
 gru.launches = 0
+gru.by_design = {"cluster": 0, "stream": 0}
 
 
 def _walk_bwd(xp, mask, wh, h, dh_out, reverse: bool
@@ -154,23 +248,32 @@ def gru_bwd_plain(xp, mask, wh, h, dh) -> tuple[torch.Tensor, torch.Tensor]:
     return _walk_bwd(xp, mask, wh, h, dh, False)
 
 
-def _bwd_kernel(name: str, xps: list, mask: torch.Tensor, whs: list,
-                hs: list, dhs: list) -> list:
-    """Launch ``gru_bwd`` over ``len(xps)`` directions -> [dxp, dhp] per
-    direction, flattened."""
+def launch_bwd(geo: Geometry, xps: list, mask: torch.Tensor, whs: list,
+               hs: list, dhs: list) -> list:
+    """Launch the backward over ``len(xps)`` directions in the design and
+    layout ``geo`` -> [dxp, dhp] per direction, flattened.  The wrappers
+    count the launches."""
     outs = [torch.empty_like(xps[0]) for _ in range(2 * len(xps))]
     if outs[0].numel() == 0:
         return outs
     t_steps, batch, gh = xps[0].shape
-    whts = [w.t().contiguous() for w in whs]
-    args = (xps[0], xps[-1], mask, whs[0], whs[-1], whts[0], whts[-1],
-            hs[0], hs[-1], dhs[0], dhs[-1], outs[0], outs[1], outs[-2],
+    hidden, ndir = gh // 3, len(xps)
+    tail = (hs[0], hs[-1], dhs[0], dhs[-1], outs[0], outs[1], outs[-2],
             outs[-1])
     with torch.cuda.device(xps[0].device):
-        err = _build.lib().asr_gru_bwd(
-            *(t.data_ptr() for t in args), t_steps, batch, gh // 3,
-            len(xps), stream(xps[0]))
-    _build.check(err, name)
+        if geo.design == "cluster":
+            args = (xps[0], xps[-1], mask, whs[0], whs[-1], *tail)
+            err = _build.lib().asr_gru_bwd(
+                *(t.data_ptr() for t in args), t_steps, batch, hidden, ndir,
+                geo.ctas, geo.units, geo.rows, stream(xps[0]))
+        else:
+            whts = [w.t().contiguous() for w in whs]
+            args = (xps[0], xps[-1], mask, whs[0], whs[-1], whts[0],
+                    whts[-1], *tail)
+            err = _build.lib().asr_gru_stream_bwd(
+                *(t.data_ptr() for t in args), t_steps, batch, hidden, ndir,
+                stream(xps[0]))
+    _build.check(err, f"{'bigru' if ndir == 2 else 'gru'}_bwd ({geo.design})")
     return outs
 
 
@@ -193,13 +296,16 @@ def bigru_bwd(xp_f: torch.Tensor, xp_b: torch.Tensor, mask: torch.Tensor,
         with torch.no_grad():
             return bigru_bwd_plain(xp_f, xp_b, mask, wh_f, wh_b, h_f, h_b,
                                    dh_f, dh_b)
-    outs = _bwd_kernel("bigru_bwd", [xp_f, xp_b], mask, [wh_f, wh_b],
-                       [h_f, h_b], [dh_f, dh_b])
+    geo = _geometry(xp_f, 2)
+    outs = launch_bwd(geo, [xp_f, xp_b], mask, [wh_f, wh_b], [h_f, h_b],
+                      [dh_f, dh_b])
     bigru_bwd.launches += 1
+    bigru_bwd.by_design[geo.design] += 1
     return tuple(outs)
 
 
 bigru_bwd.launches = 0
+bigru_bwd.by_design = {"cluster": 0, "stream": 0}
 
 
 def gru_bwd(xp: torch.Tensor, mask: torch.Tensor, wh: torch.Tensor,
@@ -211,12 +317,15 @@ def gru_bwd(xp: torch.Tensor, mask: torch.Tensor, wh: torch.Tensor,
     if xp.device.type == "cpu":
         with torch.no_grad():
             return gru_bwd_plain(xp, mask, wh, h, dh)
-    dxp, dhp = _bwd_kernel("gru_bwd", [xp], mask, [wh], [h], [dh])
+    geo = _geometry(xp, 1)
+    dxp, dhp = launch_bwd(geo, [xp], mask, [wh], [h], [dh])
     gru_bwd.launches += 1
+    gru_bwd.by_design[geo.design] += 1
     return dxp, dhp
 
 
 gru_bwd.launches = 0
+gru_bwd.by_design = {"cluster": 0, "stream": 0}
 
 
 def _dwh(h: torch.Tensor, dhp: torch.Tensor, reverse: bool) -> torch.Tensor:

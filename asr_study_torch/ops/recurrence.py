@@ -1,11 +1,92 @@
 """What the recurrence ops (``ops/bilstm.py``, ``ops/gru.py``,
 ``ops/ln_lstm.py``) share around their kernels: the argument check, the
-stream, the scan-previous state of a sequence and the cotangent of an
-unused output."""
+stream, the scan-previous state of a sequence, the cotangent of an unused
+output, and the fit rule of the cluster-resident kernels (the LSTM's and the
+GRU's)."""
 
 from __future__ import annotations
 
+import ctypes
+from typing import Callable, NamedTuple
+
 import torch
+
+from asr_study_torch import _build
+
+
+# The fit rule.  A cluster of CLUSTER_CTAS CTAs (the portable maximum) per
+# (direction, group of `rows` batch rows); CTA k owns ceil(H / 8) hidden units
+# and all their gate columns, and keeps wh[:, those columns] resident: each
+# of its threads holds a slice of `slice_rows` rows of one column in
+# registers (so gates * U * ceil(H / slice_rows) <= threads), and the
+# backward a copy in shared memory.  The launch may hold at most
+# CLUSTER_BUDGET clusters, all resident at once: the kernels check that on
+# the card (cudaOccupancyMaxActiveClusters) and refuse otherwise.  An H100
+# SXM holds 15 clusters of 8 CTAs of these kernels (one CTA an SM; a
+# cluster stays inside one GPC, and the GPCs' SM counts vary from die to
+# die), so the budget keeps a margin of 3.  `rows` is the least of
+# CLUSTER_ROWS that keeps the launch within the budget.
+CLUSTER_CTAS = 8
+CLUSTER_BUDGET = 12
+CLUSTER_ROWS = (1, 2, 4, 8)
+SMEM_LIMIT = 232_448         # dynamic shared memory a block can use, H100
+STREAM_ROWS = 4              # batch rows per block of the stream design
+
+
+class Geometry(NamedTuple):
+    """How one launch of a recurrence's kernels is laid out."""
+    design: str                     # "cluster" or "stream"
+    ctas: int                       # CTAs per cluster (1: stream)
+    units: int                      # hidden units per CTA
+    rows: int                       # batch rows per cluster (stream: block)
+    grid: tuple[int, int, int]      # (ctas, row groups, ndir)
+    smem_fwd: int                   # dynamic shared memory per CTA, bytes
+    smem_bwd: int
+
+
+def r4(n: int) -> int:
+    """``n`` rounded up to a multiple of 4 (a float4)."""
+    return -(-n // 4) * 4
+
+
+def cluster_geometry(hidden: int, batch: int, ndir: int, gates: int,
+                     threads: int, slice_rows: int,
+                     smem: Callable[[int, int, int, int], tuple[int, int]]
+                     ) -> Geometry | None:
+    """The cluster design's layout for a cell of ``gates`` gate columns a
+    unit whose kernels run ``threads`` threads a CTA of ``slice_rows`` rows
+    of a column each, or None where it does not fit: where a CTA's threads
+    cannot hold its slice in registers, no row count of CLUSTER_ROWS keeps
+    the launch within CLUSTER_BUDGET clusters, or the kernels' shared
+    memory, ``smem(hidden, units, rows, ctas) -> (forward, backward)``
+    bytes, exceeds SMEM_LIMIT at that row count."""
+    units = -(-hidden // CLUSTER_CTAS)
+    ctas = -(-hidden // units)
+    if gates * units * -(-hidden // slice_rows) > threads:
+        return None
+    for rows in CLUSTER_ROWS:
+        groups = -(-batch // rows)
+        if ndir * groups <= CLUSTER_BUDGET:
+            fwd, bwd = smem(hidden, units, rows, ctas)
+            if max(fwd, bwd) > SMEM_LIMIT:
+                return None
+            return Geometry("cluster", ctas, units, rows,
+                            (ctas, groups, ndir), fwd, bwd)
+    return None
+
+
+def kernel_info(name: str, geo: Geometry, batch: int, hidden: int
+                ) -> tuple[int, int]:
+    """On the card: (dynamic shared memory per CTA the kernel sizes, clusters
+    of this launch the card holds at once), from the kernel's own launch
+    configuration through its C entry point ``asr_<name>``."""
+    smem, fit = ctypes.c_int(0), ctypes.c_int(0)
+    err = getattr(_build.lib(), f"asr_{name}")(
+        batch, hidden, geo.grid[2], geo.ctas, geo.units, geo.rows,
+        ctypes.addressof(smem), ctypes.addressof(fit))
+    _build.check(err, name)
+    return smem.value, fit.value
+
 
 
 def check(name: str, gates: int, mask: torch.Tensor, xps: dict, whs: dict,

@@ -37,17 +37,17 @@ Phases, in order; any failure raises and the exit code is not 0:
    time, its bound and the time of the PyTorch library call that computes
    the same function (cuDNN ``nn.LSTM`` / ``nn.GRU``, ``F.ctc_loss``; none
    for fbank, dpack_decode and the layer-norm, zoneout and MI LSTMs); the
-   LSTM kernels also at the zoo's other widths, H=512 and H=100, and at
-   shapes ragged for the cluster design's tiling (H=100, B=5 and B=33, a
-   row masked throughout, T=1), with the design each width takes, its
-   cluster geometry and shared memory; at H=256 the cluster design timed
-   in turns against the stream design it replaced (through the latter's C
-   entry point) beside cuDNN; the
+   LSTM and GRU kernels also at H=512 and H=100, and at shapes ragged for
+   the cluster design's tiling (H=100, B=5 and B=33, a row masked
+   throughout, T=1), with the design each width takes, its cluster
+   geometry and shared memory; at H=256 the cluster design timed in turns
+   against the stream design it replaced (through the latter's C entry
+   point) beside cuDNN; the
    zoneout kernels with Bernoulli and with constant mix weights; the dpack
    decode bit for bit over the whole stream of every serving batch and of
    an edge batch, with the host encode time;
 4. the serving slices, with launch counters proving their kernels ran
-   (the LSTM kernels in the design their width takes),
+   (the LSTM and GRU kernels in the design their width takes),
    logits held against the plain path on the CPU (for ln_blstm, whose
    recurrence is chaotic, on a batch cut to LN_CHECK_T frames); the dpack
    slice's logits and transcripts equal to the pcm16 slice's, the mulaw
@@ -660,41 +660,50 @@ def cell_family_smem(hidden: int) -> tuple[int, int, int]:
             4 * 4 * ((3 + nsplit) * hidden + gates), nsplit)
 
 
-def print_lstm_geometry() -> None:
-    """The LSTM kernels' design at each width of the zoo and each direction
-    count, at B=32: the cluster geometry and shared memory, held against
-    the kernels' own launch configuration (asr_bilstm_{fwd,bwd}_info),
-    and the clusters the card holds at once against those the launch
-    needs."""
+def print_cluster_geometry() -> None:
+    """The LSTM and GRU kernels' design at each width of the zoo (and
+    H=100) and each direction count, at B=32: the cluster geometry and
+    shared memory, held against the kernels' own launch configuration
+    (asr_{bilstm,gru}_{fwd,bwd}_info), and the clusters the card holds at
+    once against those the launch needs."""
     from asr_study_torch.ops.bilstm import (CLUSTER_THREADS, cluster_info,
                                             lstm_geometry)
+    from asr_study_torch.ops.gru import (GRU_THREADS, gru_cluster_info,
+                                         gru_geometry)
 
-    for hidden in (100, HIDDEN, 512):
-        for ndir in (2, 1):
-            geo = lstm_geometry(hidden, BATCH, ndir)
-            names = "bilstm" if ndir == 2 else "lstm"
-            if geo.design == "stream":
-                print(f"  {names}_fwd/_bwd at H={hidden}, B={BATCH}: stream "
-                      f"design (csrc/lstm_stream_*.cu), grid {geo.grid} of "
-                      f"{geo.rows}-row blocks, dynamic shared memory "
-                      f"{geo.smem_fwd} / {geo.smem_bwd} B a block")
-                continue
-            (fwd_b, fwd_fit), (bwd_b, bwd_fit) = (
-                cluster_info(geo, BATCH, hidden, bwd) for bwd in (False, True))
-            clusters = geo.grid[1] * geo.grid[2]
-            print(f"  {names}_fwd/_bwd at H={hidden}, B={BATCH}: cluster "
-                  f"design (csrc/bilstm_*.cu), {clusters} clusters of "
-                  f"{geo.ctas} CTAs x {CLUSTER_THREADS} threads, grid "
-                  f"{geo.grid}, "
-                  f"{geo.units} units and {geo.rows} rows a CTA; dynamic "
-                  f"shared memory {fwd_b} / {bwd_b} B a CTA (of 232448), "
-                  f"the card holds {fwd_fit} / {bwd_fit} such clusters at "
-                  f"once")
-            require((fwd_b, bwd_b) == (geo.smem_fwd, geo.smem_bwd),
-                    f"lstm_geometry's shared memory at H={hidden} differs "
-                    f"from the kernels' own")
-            require(min(fwd_fit, bwd_fit) >= clusters,
-                    f"the LSTM clusters at H={hidden} do not fit in one wave")
+    families = (("bilstm", "lstm", lstm_geometry, cluster_info,
+                 CLUSTER_THREADS, "bilstm", "lstm_stream"),
+                ("bigru", "gru", gru_geometry, gru_cluster_info, GRU_THREADS,
+                 "gru", "gru_stream"))
+    for bi, uni, geometry, info, threads, cluster_src, stream_src in \
+            families:
+        for hidden in (100, HIDDEN, 512):
+            for ndir in (2, 1):
+                geo = geometry(hidden, BATCH, ndir)
+                names = bi if ndir == 2 else uni
+                if geo.design == "stream":
+                    print(f"  {names}_fwd/_bwd at H={hidden}, B={BATCH}: "
+                          f"stream design (csrc/{stream_src}_*.cu), grid "
+                          f"{geo.grid} of {geo.rows}-row blocks, dynamic "
+                          f"shared memory {geo.smem_fwd} / {geo.smem_bwd} B "
+                          f"a block")
+                    continue
+                (fwd_b, fwd_fit), (bwd_b, bwd_fit) = (
+                    info(geo, BATCH, hidden, bwd) for bwd in (False, True))
+                clusters = geo.grid[1] * geo.grid[2]
+                print(f"  {names}_fwd/_bwd at H={hidden}, B={BATCH}: cluster"
+                      f" design (csrc/{cluster_src}_*.cu), {clusters} "
+                      f"clusters of {geo.ctas} CTAs x {threads} "
+                      f"threads, grid {geo.grid}, {geo.units} units and "
+                      f"{geo.rows} rows a CTA; dynamic shared memory "
+                      f"{fwd_b} / {bwd_b} B a CTA (of 232448), the card "
+                      f"holds {fwd_fit} / {bwd_fit} such clusters at once")
+                require((fwd_b, bwd_b) == (geo.smem_fwd, geo.smem_bwd),
+                        f"{names} geometry's shared memory at H={hidden} "
+                        f"differs from the kernels' own")
+                require(min(fwd_fit, bwd_fit) >= clusters,
+                        f"the {names} clusters at H={hidden} do not fit in "
+                        f"one wave")
 
 
 def ln_smem(hidden: int) -> tuple[int, int, int]:
@@ -1167,6 +1176,151 @@ def check_lstm_designs(dev: torch.device, card: str, x_serve: torch.Tensor,
                   f"us")
 
 
+def check_gru_designs(dev: torch.device, card: str, x_serve: torch.Tensor,
+                      len_serve: torch.Tensor, library: dict) -> None:
+    """Phase 3 for the cluster design of the GRU kernels beyond the main
+    paths, and its time against the design it replaced, as
+    ``check_lstm_designs`` for the LSTM.
+
+    The four wrappers against their plain versions at shapes ragged for the
+    cluster tiling (H=100: 13 units a CTA, the last CTA 9; B=5 and B=33; a
+    row masked on every frame; T=1) and at H=512 (the stream design), each
+    case in the design ``gru_geometry`` picks (held by the by-design
+    counts), at the forward and backward tolerances.  Then, at H=256 and
+    the main paths' shapes (T=805 forward, T=512 backward, B=32), the
+    cluster and stream designs timed in turns, cluster, stream, stream,
+    cluster, beside nn.GRU's time in this run (``library``; for the
+    one-direction forward, which the kernel line times at T=512, nn.GRU is
+    timed here at T=805), with the per-step time split into the FMA time of
+    one CTA's slice at the card's SM clock and the rest."""
+    from asr_study_torch.models.zoo import deep_gru
+    from asr_study_torch.ops.gru import (bigru, bigru_bwd, bigru_bwd_plain,
+                                         bigru_plain, gru, gru_bwd,
+                                         gru_bwd_plain, gru_geometry,
+                                         gru_plain, gru_stream_geometry,
+                                         launch_bwd, launch_fwd)
+
+    g = torch.Generator().manual_seed(SEED + 13)
+    wrappers = {"bigru_fwd": bigru, "bigru_bwd": bigru_bwd, "gru_fwd": gru,
+                "gru_bwd": gru_bwd}
+    for t, b, h, masked in ((37, 5, 100, True), (40, 33, 256, True),
+                            (1, 33, 256, False), (1, 5, 100, False),
+                            (64, 9, 256, True), (20, 3, 512, True)):
+        xps = [torch.randn(t, b, 3 * h, generator=g) for _ in range(2)]
+        whs = [torch.randn(h, 3 * h, generator=g) / h ** 0.5
+               for _ in range(2)]
+        lengths = torch.randint(1, t + 1, (b,), generator=g)
+        lengths[0] = t
+        mask = (torch.arange(t)[:, None] < lengths[None, :]).float()
+        if masked:
+            mask[:, b - 1] = 0.0
+        dhs = [torch.randn(t, b, h, generator=g).to(dev) for _ in range(2)]
+        xps = [x.to(dev) for x in xps]
+        whs = [w.to(dev) for w in whs]
+        mask = mask[..., None].to(dev)
+        designs = {n: gru_geometry(h, b, n).design for n in (2, 1)}
+        before = {k: dict(w.by_design) for k, w in wrappers.items()}
+        with torch.no_grad():
+            bi = (*xps, mask, *whs)
+            fb = bigru(*bi), bigru_plain(*bi)
+            bb = (bigru_bwd(*bi, *fb[0], *dhs),
+                  bigru_bwd_plain(*bi, *fb[0], *dhs))
+            uni = (xps[0], mask, whs[0])
+            fu = [gru(*uni)], [gru_plain(*uni)]
+            bu = (gru_bwd(*uni, fu[0][0], dhs[0]),
+                  gru_bwd_plain(*uni, fu[0][0], dhs[0]))
+        torch.cuda.synchronize()
+        for name, w in wrappers.items():
+            design = designs[2 if name.startswith("bi") else 1]
+            require(w.by_design[design] == before[name][design] + 1,
+                    f"{name} did not run the {design} design at T={t} B={b} "
+                    f"H={h}")
+        errs = {}
+        for name, (got, want), atol, rtol in (
+                ("bigru_fwd", fb, GRU_ATOL, GRU_RTOL),
+                ("bigru_bwd", bb, BWD_ATOL, BWD_RTOL),
+                ("gru_fwd", fu, GRU_ATOL, GRU_RTOL),
+                ("gru_bwd", bu, BWD_ATOL, BWD_RTOL)):
+            errs[name] = max(float((k - p).abs().max())
+                             for k, p in zip(got, want))
+            require(all(within(k, p, atol, rtol) for k, p in zip(got, want)),
+                    f"{name} kernel disagrees with plain at T={t} B={b} "
+                    f"H={h}")
+        print(f"GRU kernels vs plain at T={t} B={b} H={h}"
+              f"{', the last row masked throughout' if masked else ''} "
+              f"(designs: bi {designs[2]}, uni {designs[1]}): max_abs_err "
+              + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+              + f" (tol fwd {GRU_ATOL:g} + {GRU_RTOL:g}*|plain|, bwd "
+              f"{BWD_ATOL:g} + {BWD_RTOL:g}*|plain|)")
+
+    # the two designs in turns at H=256
+    layer, uni = (deep_gru(f"num_hiddens={HIDDEN},num_layers=1,bidirectional="
+                           f"{bi}", input_dim=FEATS, generator=g,
+                           device=dev).rnn.layers[0].rnn
+                  for bi in ("true", "false"))
+    t_s = x_serve.shape[0]
+    mask_s = mask_of(len_serve, t_s, dev)
+    y = rnn_yardsticks("gru", uni, x_serve, len_serve, mask_s)
+    print_yardsticks(card, f"cuDNN nn.GRU unidirectional, T={t_s} "
+                     f"B={BATCH} H={HIDDEN}", y)
+    require(y["out_err"] <= LOGITS_TOL, "layer disagrees with nn.GRU")
+    library = {**library, "gru_fwd": y["lib_fwd"]}
+    fxps = [input_proj(layer.fw, x_serve), input_proj(layer.bw, x_serve)]
+    whs = [layer.fw.wh.detach(), layer.bw.wh.detach()]
+    uxp, uwh = input_proj(uni.fw, x_serve), uni.fw.wh.detach()
+    t, b = TRAIN_T, TRAIN_B
+    lengths = torch.randint(t // 2, t + 1, (b,), generator=g)
+    lengths[0] = t
+    x = torch.randn(t, b, FEATS, generator=g).to(dev)
+    mask = mask_of(lengths, t, dev)
+    bxps = [input_proj(layer.fw, x), input_proj(layer.bw, x)]
+    dhs = [torch.randn(t, b, HIDDEN, generator=g).to(dev) for _ in range(2)]
+    with torch.no_grad():
+        hf, hb = bigru(*bxps, mask, *whs)
+        # the stream design through launch_fwd / launch_bwd, which call
+        # its C entry points directly and count no launch
+        uni_s, bi_s = (gru_stream_geometry(HIDDEN, BATCH, n) for n in (1, 2))
+        runs = {
+            "gru_fwd": (lambda: gru(uxp, mask_s, uwh),
+                        lambda: launch_fwd(uni_s, [uxp], mask_s, [uwh]),
+                        t_s, 1, 1),
+            "bigru_fwd": (lambda: bigru(*fxps, mask_s, *whs),
+                          lambda: launch_fwd(bi_s, fxps, mask_s, whs),
+                          t_s, 2, 1),
+            "gru_bwd": (lambda: gru_bwd(bxps[0], mask, whs[0], hf, dhs[0]),
+                        lambda: launch_bwd(uni_s, bxps[:1], mask, whs[:1],
+                                           [hf], dhs[:1]), t, 1, 2),
+            "bigru_bwd": (lambda: bigru_bwd(*bxps, mask, *whs, hf, hb, *dhs),
+                          lambda: launch_bwd(bi_s, bxps, mask, whs, [hf, hb],
+                                             dhs), t, 2, 2),
+        }
+        for name, (cluster_fn, stream_fn, steps, ndir, passes) in \
+                runs.items():
+            turns = {"cluster": [], "stream": []}
+            for design in ("cluster", "stream", "stream", "cluster"):
+                turns[design].append(cuda_ms(
+                    cluster_fn if design == "cluster" else stream_fn, 5))
+            clk = sm_clock_hz()
+            geo = gru_geometry(HIDDEN, BATCH, ndir)
+            fmas = passes * geo.rows * HIDDEN * 3 * geo.units
+            c_ms = sum(turns["cluster"]) / 2
+            s_ms = sum(turns["stream"]) / 2
+            step_us = 1e3 * c_ms / steps
+            fma_us = 1e6 * fmas / (128 * clk)
+            print(f"[{card}] {name} at H={HIDDEN} T={steps} B={BATCH} "
+                  f"(R={geo.rows}), in turns: cluster design "
+                  f"{turns['cluster'][0]:.4f} / {turns['cluster'][1]:.4f} "
+                  f"ms, stream design {turns['stream'][0]:.4f} / "
+                  f"{turns['stream'][1]:.4f} ms ({s_ms / c_ms:.2f}x); "
+                  f"cuDNN nn.GRU {library[name]:.4f} ms "
+                  f"({library[name] / c_ms:.2f}x the cluster design); "
+                  f"{step_us:.3f} us a step, of which the {fmas} FMAs of "
+                  f"one CTA's slice take {fma_us:.3f} us at 128 a clock "
+                  f"and the SM clock {clk / 1e6:.0f} MHz, the rest "
+                  f"(exchange, barrier, cell, loads) {step_us - fma_us:.3f} "
+                  f"us")
+
+
 def check_cell_family(dev: torch.device, card: str, x_serve: torch.Tensor,
                       len_serve: torch.Tensor, family: str) -> dict:
     """Phase 3 for the zoneout-LSTM (``family`` "zoneout") or the MI-LSTM
@@ -1595,32 +1749,37 @@ def launch_counters() -> dict:
             "dpack_decode": dpack_decode}
 
 
-# the wrappers of the LSTM kernels, which count their launches by design too
-LSTM_WRAPPERS = ("bilstm_fwd", "bilstm_bwd", "lstm_fwd", "lstm_bwd")
+# the wrappers of the LSTM and GRU kernels, which count their launches by
+# design too
+DESIGN_WRAPPERS = ("bilstm_fwd", "bilstm_bwd", "lstm_fwd", "lstm_bwd",
+                   "bigru_fwd", "bigru_bwd", "gru_fwd", "gru_bwd")
 
 
 def reset_counts() -> None:
     counters = launch_counters()
     for fn in counters.values():
         fn.launches = 0
-    for name in LSTM_WRAPPERS:
+    for name in DESIGN_WRAPPERS:
         counters[name].by_design = dict.fromkeys(counters[name].by_design, 0)
 
 
 def check_designs(label: str, hidden: int, batch: int) -> None:
-    """The LSTM kernels launched since the counts were reset ran the design
-    ``lstm_geometry`` gives this path's width and batch, and no other."""
+    """The LSTM and GRU kernels launched since the counts were reset ran the
+    design ``lstm_geometry`` / ``gru_geometry`` gives this path's width and
+    batch, and no other."""
     from asr_study_torch.ops.bilstm import lstm_geometry
+    from asr_study_torch.ops.gru import gru_geometry
 
     counters = launch_counters()
     ran = {name: {k: v for k, v in counters[name].by_design.items() if v}
-           for name in LSTM_WRAPPERS if counters[name].launches}
+           for name in DESIGN_WRAPPERS if counters[name].launches}
     if not ran:
         return
-    print(f"{label}: LSTM launches by design (H={hidden}) {ran}")
+    print(f"{label}: launches by design (H={hidden}) {ran}")
     for name, by_design in ran.items():
-        want = lstm_geometry(hidden, batch,
-                             2 if name.startswith("bi") else 1).design
+        geometry = gru_geometry if "gru" in name else lstm_geometry
+        want = geometry(hidden, batch,
+                        2 if name.startswith("bi") else 1).design
         require(list(by_design) == [want],
                 f"{label}: {name} ran {by_design}, want only {want}")
 
@@ -2004,11 +2163,8 @@ def main() -> int:
     print(f"  dynamic shared memory per block: fbank "
           f"{4 * (16 * (400 + 257 + 40) + 16)} B (16 frames, L=400, "
           f"K=257, M=40), ctc_alpha {4 * 2 * s_len} B, ctc_beta "
-          f"{4 * 4 * s_len} B (S={s_len}), gru_fwd "
-          f"{4 * 4 * (HIDDEN + 3 * HIDDEN)} B (4 rows), gru_bwd "
-          f"{4 * 4 * ((2 + 3) * HIDDEN + 3 * HIDDEN)} B (4 rows, 3 partial "
-          f"sums)")
-    print_lstm_geometry()
+          f"{4 * 4 * s_len} B (S={s_len})")
+    print_cluster_geometry()
     fwd_b, bwd_b, nsplit = cell_family_smem(HIDDEN)
     print(f"  dynamic shared memory per block at H={HIDDEN}: zoneout_lstm_fwd "
           f"and mi_lstm_fwd (both forms) {fwd_b} B, zoneout_lstm_bwd and "
@@ -2098,6 +2254,8 @@ def main() -> int:
         "bilstm_fwd": lstm_y["lib_fwd"],
         "bilstm_bwd": train_kernels["library"]["bilstm_bwd"],
         **lstm_kernels["library"]})
+    check_gru_designs(dev, card, x_serve, feat_lengths,
+                      gru_kernels["library"])
     ln_kernels = check_ln_kernels(dev, card, x_serve, feat_lengths)
     zo_kernels = check_cell_family(dev, card, x_serve, feat_lengths,
                                    "zoneout")

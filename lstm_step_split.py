@@ -1,27 +1,35 @@
 #!/usr/bin/env python3
-"""Where a step of the cluster LSTM forward kernel spends its time, on one
+"""Where a step of the cluster LSTM and GRU kernels spends its time, on one
 NVIDIA GPU.
 
     python3 lstm_step_split.py
 
-Compiles ``asr_study_torch/csrc/bilstm_fwd.cu`` as it is and in variants
-that each drop one part of the step (their outputs are wrong; only their
-times count), into ``build/step_split/``, and times each at the main
-paths' shapes (H=256, T=805, B=32; one direction, R=4 rows a cluster, and
-two, R=8) with CUDA events, the unchanged kernel first and last.  The
-variants:
+Compiles ``asr_study_torch/csrc/bilstm_fwd.cu``, ``gru_fwd.cu`` and
+``gru_bwd.cu`` as they are and in variants, into ``build/step_split/``,
+and times each at the main paths' shapes (H=256, B=32; T=805 forward,
+T=512 backward; one direction, R=4 rows a cluster, and two, R=8) with CUDA
+events, the unchanged kernel first and last.  Variants that drop one part
+of the step (their outputs are wrong; only their times count):
 
 - ``no_push``: h goes to the CTA's own buffer only, no exchange through
   distributed shared memory;
 - ``no_push_no_sync``: that, and a block barrier instead of the cluster
   barrier;
 - ``no_product``: no h_prev @ w;
-- ``no_cell_math``: the cell's sigmoids and tanhs replaced by a sum;
+- ``no_cell_math``: the cell's sigmoids and tanhs replaced by sums;
 - ``skeleton``: neither product nor exchange.
 
 The difference to the unchanged kernel is the part's cost on the step's
-critical path.  Prints one line per variant and the card's name and power
-limit.  Without CUDA it exits 1.
+critical path.  Variants of the GRU kernels' thread shape (their outputs
+are right; the committed kernels run 384 threads of 64 rows of a column,
+the 96 gate columns of four slices at H=256):
+
+- ``slice128``: the LSTM kernels' shape, 256 threads of 128 rows, of which
+  64 wait out the product;
+- ``threads192``: 192 threads of 128 rows, none idle.
+
+Prints one line per variant and the card's name and power limit.  Without
+CUDA it exits 1.
 """
 
 from __future__ import annotations
@@ -33,56 +41,79 @@ from pathlib import Path
 
 import torch
 
-T, B, H = 805, 32, 256
+T_FWD, T_BWD, B, H = 805, 512, 32, 256
 
 PRODUCT = "for (int kk = 0; kk < kSlice; kk += 4) {"
+NO_PRODUCT = (PRODUCT, PRODUCT.replace("kk < kSlice", "kk < 0"))
 PUSH = "cluster.map_shared_rank(hn, p)[r * HS + unit] = h;"
-OWN = "if (p == rank) hn[r * HS + unit] = h;"
-STEP_SYNC = "    cluster.sync();\n  }\n}"
-CELL = ("      float c = fg * c_prev + ig * gg;\n"
-        "      float h = og * tanhf(c);")
-VARIANTS = {
-    "base": [],
-    "no_push": [(PUSH, OWN)],
-    "no_push_no_sync": [(PUSH, OWN),
-                        (STEP_SYNC, "    __syncthreads();\n  }\n}")],
-    "no_product": [(PRODUCT, PRODUCT.replace("kk < kSlice", "kk < 0"))],
-    "no_cell_math": [(CELL, "      float c = pre[0] + pre[1] + pre[2] + "
-                            "pre[3] + c_prev;\n      float h = c;")],
-    "skeleton": [(PRODUCT, PRODUCT.replace("kk < kSlice", "kk < 0")),
-                 (PUSH, OWN)],
+NO_PUSH = (PUSH, "if (p == rank) hn[r * HS + unit] = h;")
+NO_SYNC = ("    cluster.sync();\n  }\n}", "    __syncthreads();\n  }\n}")
+LSTM_CELL = ("      float c = fg * c_prev + ig * gg;\n"
+             "      float h = og * tanhf(c);",
+             "      float c = pre[0] + pre[1] + pre[2] + pre[3] + c_prev;\n"
+             "      float h = c;")
+GRU_CELL = ("      const float rg = sigmoidf(xr[u] + hsum[0]);\n"
+            "      const float zg = sigmoidf(xr[U + u] + hsum[1]);\n"
+            "      const float ng = tanhf(xr[2 * U + u] + rg * hsum[2]);",
+            "      const float rg = xr[u] + hsum[0];\n"
+            "      const float zg = xr[U + u] + hsum[1];\n"
+            "      const float ng = xr[2 * U + u] + rg * hsum[2];")
+SLICE = ("constexpr int kSlice = 64; ", "constexpr int kSlice = 128;")
+SLICE128 = [("constexpr int kThreads = 384;",
+             "constexpr int kThreads = 256;"), SLICE]
+THREADS192 = [("constexpr int kThreads = 384;",
+               "constexpr int kThreads = 192;"), SLICE]
+SPLIT = {
+    "no_push": [NO_PUSH],
+    "no_push_no_sync": [NO_PUSH, NO_SYNC],
+    "no_product": [NO_PRODUCT],
+    "skeleton": [NO_PRODUCT, NO_PUSH],
+}
+# kernel -> (source, C entry point, gate columns a unit, steps, variants)
+KERNELS = {
+    "bilstm_fwd": ("bilstm_fwd.cu", "asr_bilstm_fwd", 4, T_FWD,
+                   {"base": [], **SPLIT, "no_cell_math": [LSTM_CELL]}),
+    "gru_fwd": ("gru_fwd.cu", "asr_gru_fwd", 3, T_FWD,
+                {"base": [], **SPLIT, "no_cell_math": [GRU_CELL],
+                 "slice128": SLICE128, "threads192": THREADS192}),
+    "gru_bwd": ("gru_bwd.cu", "asr_gru_bwd", 3, T_BWD,
+                {"base": [], "slice128": SLICE128,
+                 "threads192": THREADS192}),
 }
 
 
 def build(root: Path) -> dict:
-    """Each variant's source, compiled in parallel -> name -> its
-    ``asr_bilstm_fwd`` entry point."""
+    """Each kernel's variants, compiled in parallel -> (kernel, variant) ->
+    its C entry point."""
     from asr_study_torch import _build
 
-    src = (_build.CSRC / "bilstm_fwd.cu").read_text()
     out = root / "build" / "step_split"
     out.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name, edits in VARIANTS.items():
-        text = src
-        for old, new in edits:
-            if old not in text:
-                raise RuntimeError(f"{name}: the kernel no longer has "
-                                   f"{old!r}")
-            text = text.replace(old, new)
-        (out / f"{name}.cu").write_text(text)
-        procs[name] = subprocess.Popen(
-            [_build.nvcc(), *_build.ARCH_FLAGS, "-std=c++17", "-O3",
-             "-Xcompiler", "-fPIC", "-shared", "-o", str(out / f"{name}.so"),
-             str(out / f"{name}.cu")])
+    for kernel, (source, _, _, _, variants) in KERNELS.items():
+        src = (_build.CSRC / source).read_text()
+        for name, edits in variants.items():
+            text = src
+            for old, new in edits:
+                if old not in text:
+                    raise RuntimeError(f"{kernel} {name}: the kernel no "
+                                       f"longer has {old!r}")
+                text = text.replace(old, new)
+            stem = f"{kernel}_{name}"
+            (out / f"{stem}.cu").write_text(text)
+            procs[kernel, name] = subprocess.Popen(
+                [_build.nvcc(), *_build.ARCH_FLAGS, "-std=c++17", "-O3",
+                 "-Xcompiler", "-fPIC", "-shared", "-o",
+                 str(out / f"{stem}.so"), str(out / f"{stem}.cu")])
     entry = {}
-    for name, proc in procs.items():
+    for (kernel, name), proc in procs.items():
         if proc.wait() != 0:
-            raise RuntimeError(f"nvcc failed on the {name} variant")
-        fn = ctypes.CDLL(str(out / f"{name}.so")).asr_bilstm_fwd
-        fn.argtypes = _build.SIGNATURES["asr_bilstm_fwd"]
+            raise RuntimeError(f"nvcc failed on the {kernel} {name} variant")
+        c_name = KERNELS[kernel][1]
+        fn = getattr(ctypes.CDLL(str(out / f"{kernel}_{name}.so")), c_name)
+        fn.argtypes = _build.SIGNATURES[c_name]
         fn.restype = ctypes.c_int
-        entry[name] = fn
+        entry[kernel, name] = fn
     return entry
 
 
@@ -92,6 +123,7 @@ def main() -> int:
               "script needs an NVIDIA GPU", file=sys.stderr)
         return 1
     from asr_study_torch.ops.bilstm import lstm_geometry
+    from asr_study_torch.ops.gru import gru_geometry
     from asr_study_torch.ops.recurrence import stream
 
     card = subprocess.run(
@@ -101,34 +133,53 @@ def main() -> int:
     entry = build(Path(__file__).resolve().parent)
     dev = torch.device("cuda", 0)
     g = torch.Generator(device=dev).manual_seed(0)
-    xp = torch.randn(T, B, 4 * H, device=dev, generator=g)
-    wh = torch.randn(H, 4 * H, device=dev, generator=g) / H ** 0.5
-    mask = torch.ones(T, B, 1, device=dev)
-    outs = [torch.empty(T, B, H, device=dev) for _ in range(4)]
     print(card)
-    for ndir in (1, 2):
-        geo = lstm_geometry(H, B, ndir)
-        for name in [*VARIANTS, "base"]:
-            def call(fn=entry[name]):
-                err = fn(xp.data_ptr(), xp.data_ptr(), mask.data_ptr(),
-                         wh.data_ptr(), wh.data_ptr(),
-                         *(o.data_ptr() for o in outs), T, B, H, ndir,
-                         geo.ctas, geo.units, geo.rows, stream(xp))
-                if err:
-                    raise RuntimeError(f"{name}: launch failed ({err})")
-            call()
-            torch.cuda.synchronize()
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            for _ in range(10):
+    for kernel, (_, _, gates, t, variants) in KERNELS.items():
+        geometry = lstm_geometry if gates == 4 else gru_geometry
+        xp = torch.randn(t, B, gates * H, device=dev, generator=g)
+        wh = torch.randn(H, gates * H, device=dev, generator=g) / H ** 0.5
+        mask = torch.ones(t, B, 1, device=dev)
+        seqs = [torch.randn(t, B, H, device=dev, generator=g) * 0.5
+                for _ in range(2)]
+        outs = [torch.zeros(t, B, H if kernel.endswith("fwd") else gates * H,
+                            device=dev) for _ in range(4)]
+        if kernel == "bilstm_fwd":      # h_f, c_f, h_b, c_b
+            ptrs = (xp, xp, mask, wh, wh, *outs)
+        elif kernel == "gru_fwd":       # h_f, h_b
+            ptrs = (xp, xp, mask, wh, wh, *outs[:2])
+        else:                           # h, dh; dxp_f, dhp_f, dxp_b, dhp_b
+            ptrs = (xp, xp, mask, wh, wh, seqs[0], seqs[0], seqs[1],
+                    seqs[1], *outs)
+        for ndir in (1, 2):
+            geo = geometry(H, B, ndir)
+            base = None
+            for name in [*variants, "base"]:
+                def call(fn=entry[kernel, name]):
+                    err = fn(*(a.data_ptr() for a in ptrs), t, B, H, ndir,
+                             geo.ctas, geo.units, geo.rows, stream(xp))
+                    if err:
+                        raise RuntimeError(f"{kernel} {name}: launch failed "
+                                           f"({err})")
                 call()
-            end.record()
-            end.synchronize()
-            ms = start.elapsed_time(end) / 10
-            print(f"[{card}] bilstm_fwd, ndir={ndir} R={geo.rows} H={H} "
-                  f"T={T} B={B}, {name}: {ms:.4f} ms, "
-                  f"{1e3 * ms / T:.3f} us a step")
+                torch.cuda.synchronize()
+                if base is None:
+                    base = [o.clone() for o in outs]
+                # the thread-shape variants compute the same function
+                shape_err = ("" if name in SPLIT or name == "no_cell_math"
+                             else ", max |out - base's| " + format(max(
+                                 float((o - b).abs().max())
+                                 for o, b in zip(outs, base)), ".3e"))
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                for _ in range(10):
+                    call()
+                end.record()
+                end.synchronize()
+                ms = start.elapsed_time(end) / 10
+                print(f"[{card}] {kernel}, ndir={ndir} R={geo.rows} H={H} "
+                      f"T={t} B={B}, {name}: {ms:.4f} ms, "
+                      f"{1e3 * ms / t:.3f} us a step{shape_err}")
     return 0
 
 

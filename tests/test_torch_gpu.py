@@ -26,7 +26,9 @@ from asr_study_torch.ops.bilstm import (BiLSTMFunction, LSTMFunction, bilstm,
                                         lstm_geometry, lstm_plain)
 from asr_study_torch.ops.gru import (BiGRUFunction, GRUFunction, bigru,
                                      bigru_bwd, bigru_bwd_plain, bigru_plain,
-                                     gru, gru_bwd, gru_bwd_plain, gru_plain)
+                                     gru, gru_bwd, gru_bwd_plain,
+                                     gru_cluster_info, gru_geometry,
+                                     gru_plain)
 from asr_study_torch.ops.ln_lstm import (BiLNLSTMFunction, LNLSTMFunction,
                                          bi_ln_lstm, bi_ln_lstm_bwd,
                                          bi_ln_lstm_bwd_plain,
@@ -398,28 +400,64 @@ def test_dropout_train_step_on_card_is_seeded(cuda):
 GRU_SIZES = [(12, 4, 8), (37, 5, 100), (50, 9, 256)]
 
 
-def _gru_case(cuda, t, b, h, seed):
-    """xp_f, xp_b [T,B,3H], ragged mask, wh_f, wh_b [H,3H] and two
-    cotangents [T,B,H], on the card."""
+def _gru_cases(sizes):
+    """Parametrise (t, b, h, dead) over ``sizes`` (no dead row), the shapes
+    ragged for the cluster tiling (LSTM_RAGGED: the same tiling with three
+    gate columns a unit) and H=512 (the stream design); the ids of
+    ``sizes`` stay "t-b-h"."""
+    cases = ([(*size, False) for size in sizes] + LSTM_RAGGED
+             + [(20, 3, 512, True)])
+    return pytest.mark.parametrize(
+        "t,b,h,dead", cases,
+        ids=[f"{t}-{b}-{h}" + ("-dead" if d else "") for t, b, h, d in cases])
+
+
+def _gru_case(cuda, t, b, h, seed, dead=False):
+    """xp_f, xp_b [T,B,3H], ragged mask (with ``dead``, the last row masked
+    on every frame), wh_f, wh_b [H,3H] and two cotangents [T,B,H], on the
+    card."""
     g = torch.Generator().manual_seed(seed)
     xp = [torch.randn(t, b, 3 * h, generator=g) for _ in range(2)]
     wh = [torch.randn(h, 3 * h, generator=g) / h ** 0.5 for _ in range(2)]
     lengths = torch.randint(1, t + 1, (b,), generator=g)
     lengths[0] = t
+    if dead:
+        lengths[-1] = 0
     mask = (torch.arange(t)[:, None] < lengths[None, :]).float()[..., None]
     dh = [torch.randn(t, b, h, generator=g) for _ in range(2)]
     return ([a.to(cuda) for a in (xp[0], xp[1], mask, wh[0], wh[1])],
             [a.to(cuda) for a in dh])
 
 
-@pytest.mark.parametrize("t,b,h", GRU_SIZES)
-def test_gru_fwd_kernels_match_plain(cuda, t, b, h):
-    """bigru (two directions) and gru (one) against their plain loops."""
-    args, _ = _gru_case(cuda, t, b, h, seed=h + t)
-    before = (bigru.launches, gru.launches)
+def _gru_designs(wrappers, h, b):
+    """-> per wrapper (launches, launches of the design gru_geometry gives
+    its direction count)."""
+    return [(w.launches, w.by_design[gru_geometry(
+        h, b, 2 if w.__name__.startswith("bi") else 1).design])
+        for w in wrappers]
+
+
+def _one_more(before):
+    return [(n + 1, d + 1) for n, d in before]
+
+
+@_gru_cases(GRU_SIZES)
+def test_gru_fwd_kernels_match_plain(cuda, t, b, h, dead):
+    """bigru (two directions) and gru (one) against their plain loops, each
+    in the design gru_geometry picks (H=512: stream); where the cluster
+    design runs, gru_geometry's shared memory is the kernel's own and the
+    card holds the launch's clusters at once."""
+    args, _ = _gru_case(cuda, t, b, h, seed=h + t, dead=dead)
+    before = _gru_designs((bigru, gru), h, b)
     got = bigru(*args)
     got_uni = gru(args[0], args[2], args[3])
-    assert (bigru.launches, gru.launches) == (before[0] + 1, before[1] + 1)
+    assert _gru_designs((bigru, gru), h, b) == _one_more(before)
+    for ndir in (1, 2):
+        geo = gru_geometry(h, b, ndir)
+        if geo.design == "cluster":
+            smem, fit = gru_cluster_info(geo, b, h, False)
+            assert smem == geo.smem_fwd
+            assert fit >= geo.grid[1] * geo.grid[2]
     want = bigru_plain(*args)
     torch.cuda.synchronize()
     for name, g_, w_ in zip(("h_f", "h_b"), got, want):
@@ -427,16 +465,23 @@ def test_gru_fwd_kernels_match_plain(cuda, t, b, h):
     torch.testing.assert_close(got_uni, want[0], **GRU_TOL)
 
 
-@pytest.mark.parametrize("t,b,h", GRU_SIZES)
-def test_gru_bwd_kernels_match_plain(cuda, t, b, h):
-    """bigru_bwd and gru_bwd: dxp and dhp of each direction."""
-    args, dh = _gru_case(cuda, t, b, h, seed=h + t + 1)
+@_gru_cases(GRU_SIZES)
+def test_gru_bwd_kernels_match_plain(cuda, t, b, h, dead):
+    """bigru_bwd and gru_bwd: dxp and dhp of each direction, each in the
+    design gru_geometry picks, with the backward's shared memory held
+    against the kernel's own where the cluster design runs."""
+    args, dh = _gru_case(cuda, t, b, h, seed=h + t + 1, dead=dead)
     hs = bigru(*args)
-    before = (bigru_bwd.launches, gru_bwd.launches)
+    before = _gru_designs((bigru_bwd, gru_bwd), h, b)
     got = bigru_bwd(*args, *hs, *dh)
     got_uni = gru_bwd(args[0], args[2], args[3], hs[0], dh[0])
-    assert (bigru_bwd.launches, gru_bwd.launches) == (before[0] + 1,
-                                                      before[1] + 1)
+    assert _gru_designs((bigru_bwd, gru_bwd), h, b) == _one_more(before)
+    for ndir in (1, 2):
+        geo = gru_geometry(h, b, ndir)
+        if geo.design == "cluster":
+            smem, fit = gru_cluster_info(geo, b, h, True)
+            assert smem == geo.smem_bwd
+            assert fit >= geo.grid[1] * geo.grid[2]
     want = bigru_bwd_plain(*args, *hs, *dh)
     want_uni = gru_bwd_plain(args[0], args[2], args[3], hs[0], dh[0])
     torch.cuda.synchronize()
@@ -824,6 +869,20 @@ def test_deep_blstm_train_step_is_bit_reproducible(cuda):
     """Two identical train steps of deep_blstm 3x256 give bit-equal loss,
     gradients and updated weights."""
     runs = _two_identical_steps(cuda, "deep_blstm", "dropout=0.0")
+    assert _bit_differences(runs) == []
+
+
+@pytest.mark.parametrize("bidirectional", [True, False],
+                         ids=["bi", "uni"])
+def test_deep_gru_train_step_is_bit_reproducible(cuda, bidirectional):
+    """Two identical train steps of deep_gru 3x256 (the cluster GRU kernels)
+    give bit-equal loss, gradients and updated weights."""
+    fwd = bigru if bidirectional else gru
+    before = fwd.by_design["cluster"]
+    runs = _two_identical_steps(
+        cuda, "deep_gru",
+        f"dropout=0.0,bidirectional={str(bidirectional).lower()}")
+    assert fwd.by_design["cluster"] - before == 2 * 3
     assert _bit_differences(runs) == []
 
 

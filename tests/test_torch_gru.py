@@ -17,7 +17,12 @@ from asr_study_torch.models.rnn import RNNLayer
 from asr_study_torch.models.zoo import build_model, deep_gru
 from asr_study_torch.ops.gru import (BiGRUFunction, GRUFunction, bigru,
                                      bigru_bwd, bigru_bwd_plain, bigru_plain,
-                                     gru, gru_bwd, gru_bwd_plain, gru_plain)
+                                     GRU_SLICE, GRU_THREADS, gru, gru_bwd,
+                                     gru_bwd_plain, gru_cluster_smem,
+                                     gru_geometry, gru_plain,
+                                     gru_stream_smem)
+from asr_study_torch.ops.recurrence import (CLUSTER_BUDGET, CLUSTER_CTAS,
+                                            CLUSTER_ROWS)
 from asr_study_torch.utils.weights import flat_from_params, params_from_flat
 from asr_study_tpu.models.cells import GRUCell as JaxGRUCell
 from asr_study_tpu.models.rnn import RNNLayer as JaxRNNLayer
@@ -281,6 +286,51 @@ def test_wrappers_take_plain_on_cpu_and_check():
         bigru(xp_f, xp_b, mask[..., 0], wh_f, wh_b)
     with pytest.raises(ValueError, match="device"):
         gru(*(a.to("meta") for a in (xp_f, mask, wh_f)))
+
+
+@pytest.mark.parametrize("ndir", [1, 2])
+@pytest.mark.parametrize("batch", [1, 5, 9, 32])
+@pytest.mark.parametrize("hidden", [8, 100, 256, 512])
+def test_gru_geometry(hidden, batch, ndir):
+    """The fit rule of the GRU kernels: every hidden unit owned by exactly
+    one CTA of a cluster, with its three gate columns (the kernels' slice
+    mapping: CTA k holds wh[:, q*H + u] for its units u, q = r, z, n); no
+    CTA empty; every row group within the launch; shared memory within the
+    H100's 232,448 B a block and equal to the kernels' layouts; the launch
+    within the budget of resident clusters; H=512 on the stream design, the
+    rest on the cluster design, H=256 at B=32 in 8 clusters of R=4 rows
+    (one direction) or R=8 (two)."""
+    geo = gru_geometry(hidden, batch, ndir)
+    assert max(geo.smem_fwd, geo.smem_bwd) <= 232_448
+    assert geo.grid[0] % geo.ctas == 0 and geo.grid[2] == ndir
+    assert geo.grid[1] * geo.rows >= batch > (geo.grid[1] - 1) * geo.rows
+    if hidden == 512:
+        assert geo.design == "stream"
+        assert (geo.ctas, geo.units) == (1, hidden)
+        assert (geo.smem_fwd, geo.smem_bwd) == gru_stream_smem(hidden)
+        return
+    assert geo.design == "cluster"
+    assert geo.ctas <= CLUSTER_CTAS and geo.rows in CLUSTER_ROWS
+    assert geo.grid[1] * geo.grid[2] <= CLUSTER_BUDGET
+    # every thread holds GRU_SLICE rows of one gate column
+    assert 3 * geo.units * -(-hidden // GRU_SLICE) <= GRU_THREADS
+    assert (geo.smem_fwd, geo.smem_bwd) == gru_cluster_smem(
+        hidden, geo.units, geo.rows, geo.ctas)
+    if (hidden, batch) == (256, 32):
+        assert (geo.units, geo.rows) == (32, 4 * ndir)
+        assert geo.grid[1] * geo.grid[2] == 8
+    owner = {}
+    for k in range(geo.ctas):
+        units = range(k * geo.units, min(hidden, (k + 1) * geo.units))
+        assert len(units) > 0
+        for q in range(3):
+            for u in units:
+                col = q * hidden + u
+                assert col not in owner
+                owner[col] = k
+    assert sorted(owner) == list(range(3 * hidden))
+    assert all(len({owner[q * hidden + u] for q in range(3)}) == 1
+               for u in range(hidden))
 
 
 def _load_cell(cell, p):

@@ -16,13 +16,13 @@ import torch
 from asr_study_torch.models.cells import lstm_step
 from asr_study_torch.models.rnn import RNNLayer, StackedRNN
 from asr_study_torch.models.zoo import build_model
-from asr_study_torch.ops.bilstm import (CLUSTER_BUDGET, CLUSTER_CTAS,
-                                        CLUSTER_ROWS, CLUSTER_SLICE,
-                                        CLUSTER_THREADS, LSTMFunction,
-                                        bilstm, bilstm_bwd, cluster_smem,
-                                        lstm, lstm_bwd, lstm_bwd_plain,
-                                        lstm_geometry, lstm_plain,
-                                        stream_smem)
+from asr_study_torch.ops.bilstm import (CLUSTER_SLICE, CLUSTER_THREADS,
+                                        LSTMFunction, bilstm, bilstm_bwd,
+                                        cluster_smem, lstm, lstm_bwd,
+                                        lstm_bwd_plain, lstm_geometry,
+                                        lstm_plain, stream_smem)
+from asr_study_torch.ops.recurrence import (CLUSTER_BUDGET, CLUSTER_CTAS,
+                                            CLUSTER_ROWS)
 from asr_study_torch.utils.weights import flat_from_params, params_from_flat
 from asr_study_tpu.models import zoo as jzoo
 from asr_study_tpu.models.cells import LSTMCell as JaxLSTMCell
