@@ -81,12 +81,23 @@ SIGNATURES = {
     # dxp_f, dhp_f, dxp_b, dhp_b, T, B, H, ndir, stream
     "asr_gru_stream_bwd": [_P] * 15 + [_I] * 4 + [_P],
     # xpn_f, xpn_b, mask, wh_f, wh_b, gh_f, gh_b, gc_f, gc_b, bc_f, bc_b,
-    # h_f, c_f, h_b, c_b, T, B, H, ndir, stream
-    "asr_ln_lstm_fwd": [_P] * 15 + [_I, _I, _I, _I, _P],
+    # h_f, c_f, h_b, c_b, T, B, H, ndir, cluster CTAs, units per CTA, rows
+    # per cluster, stream
+    "asr_ln_lstm_fwd": [_P] * 15 + [_I] * 7 + [_P],
+    # B, H, ndir, cluster CTAs, units, rows, *smem bytes, *max clusters
+    "asr_ln_lstm_fwd_info": [_I] * 6 + [_P, _P],
+    # xpn_f, xpn_b, mask, wh_f, wh_b, gh_f, gh_b, gc_f, gc_b, bc_f, bc_b,
+    # h_f, c_f, h_b, c_b, dh_f, dh_b, dpre_f, dcn_f, dpre_b, dcn_b, T, B, H,
+    # ndir, cluster CTAs, units, rows, stream
+    "asr_ln_lstm_bwd": [_P] * 21 + [_I] * 7 + [_P],
+    "asr_ln_lstm_bwd_info": [_I] * 6 + [_P, _P],
+    # the streamed-weight forms (H=300, H=512): the cluster forward's
+    # arguments without the geometry
+    "asr_ln_lstm_stream_fwd": [_P] * 15 + [_I, _I, _I, _I, _P],
     # xpn_f, xpn_b, mask, wh_f, wh_b, wht_f, wht_b, gh_f, gh_b, gc_f, gc_b,
     # bc_f, bc_b, h_f, c_f, h_b, c_b, dh_f, dh_b, dpre_f, dcn_f, dpre_b,
     # dcn_b, T, B, H, ndir, stream
-    "asr_ln_lstm_bwd": [_P] * 23 + [_I, _I, _I, _I, _P],
+    "asr_ln_lstm_stream_bwd": [_P] * 23 + [_I, _I, _I, _I, _P],
     # xp_f, xp_b, mask, zh_f, zh_b, zc_f, zc_b, wh_f, wh_b, h_f, c_f, h_b,
     # c_b, T, B, H, ndir, stream
     "asr_zoneout_lstm_fwd": [_P] * 13 + [_I, _I, _I, _I, _P],

@@ -11,16 +11,31 @@ wh) * gh`` per gate block (``gh`` the ``ln_h`` gain), forms the gates and
 c, and takes ``h = o * tanh(xhat(c) * gc + bc)`` (``ln_c``).  The port never
 pads the hidden width, so every statistic is over all H units.
 
-The kernels are ``csrc/ln_lstm_fwd.cu`` and ``csrc/ln_lstm_bwd.cu``; each
-takes the number of directions, so :func:`bi_ln_lstm` and :func:`ln_lstm`
-launch the same forward kernel with 2 and 1 directions, and
-:func:`bi_ln_lstm_bwd` and :func:`ln_lstm_bwd` the same backward kernel.
-Each of the four wrappers counts its own launches.  A CUDA tensor launches
-the kernel (or raises); a CPU tensor takes the plain version, a Python loop
-over time.  Neither records an autograd graph: gradients go through
-:class:`BiLNLSTMFunction` and :class:`LNLSTMFunction`, whose backward is the
-backward kernel (``dpre``, the gate pre-activation cotangents, and ``dcn``,
-the cell-LN output's) plus :func:`_ln_param_grads` per direction.
+Two designs of the kernels, each taking the number of directions, so
+:func:`bi_ln_lstm` and :func:`ln_lstm` launch the same forward kernel with 2
+and 1 directions, and :func:`bi_ln_lstm_bwd` and :func:`ln_lstm_bwd` the
+same backward kernel:
+
+- ``cluster``: ``csrc/ln_lstm_fwd.cu`` and ``csrc/ln_lstm_bwd.cu``, the
+  recurrent weights resident in a thread-block cluster (its threads'
+  registers, and for the backward its shared memory too) for the whole
+  sequence; h, the cotangent partials and every LayerNorm statistic cross
+  the cluster through distributed shared memory;
+- ``stream``: ``csrc/ln_lstm_stream_fwd.cu`` and
+  ``csrc/ln_lstm_stream_bwd.cu``, one block per (direction, 4 rows)
+  streaming ``wh`` from L2 every step, for the widths whose weights do not
+  fit in a cluster (H=300, H=512).
+
+:func:`ln_geometry` picks the design by size alone (the LSTM's fit rule of
+``ops/recurrence.py``, with the LSTM kernels' thread shape); a failed build
+or launch raises either way.  Each of the four wrappers counts its own
+launches, in all and by design (``launches``, ``by_design``).  A CUDA tensor
+launches a kernel (or raises); a CPU tensor takes the plain version, a
+Python loop over time.  Neither records an autograd graph: gradients go
+through :class:`BiLNLSTMFunction` and :class:`LNLSTMFunction`, whose
+backward is the backward kernel (``dpre``, the gate pre-activation
+cotangents, and ``dcn``, the cell-LN output's) plus :func:`_ln_param_grads`
+per direction.
 
 Masked frames hold h and c.
 """
@@ -31,7 +46,71 @@ import torch
 
 from asr_study_torch import _build
 from asr_study_torch.models.cells import ln_lstm_step, ln_stats
-from asr_study_torch.ops.recurrence import check, cotangent, prev, stream
+from asr_study_torch.ops.bilstm import CLUSTER_SLICE, CLUSTER_THREADS
+from asr_study_torch.ops.recurrence import (STREAM_ROWS, Geometry, check,
+                                            cluster_geometry, cotangent,
+                                            kernel_info, prev, r4, stream)
+
+
+def ln_cluster_smem(hidden: int, units: int, rows: int, ctas: int
+                    ) -> tuple[int, int]:
+    """Dynamic shared memory per CTA of the cluster forward and backward,
+    bytes: ``FwdLayout`` and ``BwdLayout`` of ``csrc/ln_lstm_{fwd,bwd}.cu``
+    (``ops/bilstm.py`` ``cluster_smem`` without the c buffer, whose unit
+    state lives in registers here, and with the statistics slots: per
+    sender and row, the (mean, M2) pairs of the four gate blocks and of c,
+    and the backward's sums)."""
+    gc, hp = 4 * units, r4(hidden)
+    ks = -(-hidden // CLUSTER_SLICE)           # slices of the reduction
+    hs = ks * CLUSTER_SLICE                    # h rows padded to slices
+    cr = ctas * rows
+    fwd = (2 * rows * hs + 2 * rows * gc + r4(2 * rows) + ks * rows * gc
+           + 16 * cr + 4 * cr)
+    bwd = (r4(hp * (gc + 1)) + 2 * rows * hs + 2 * rows * gc
+           + 3 * r4(2 * rows * units) + r4(2 * rows) + ks * rows * gc
+           + rows * gc + r4(2 * cr * units) + 24 * cr + 4 * cr + 16 * cr)
+    return 4 * fwd, 4 * bwd
+
+
+def ln_stream_smem(hidden: int) -> tuple[int, int]:
+    """Dynamic shared memory per block of the stream forward and backward,
+    bytes, by the formulas of ``csrc/ln_lstm_stream_{fwd,bwd}.cu``."""
+    gates = 4 * hidden
+    threads = min(-(-gates // 32) * 32, 1024)
+    nsplit = max(threads // hidden, 1)
+    return (4 * STREAM_ROWS * (4 * hidden + gates + 10),
+            4 * STREAM_ROWS * ((6 + nsplit) * hidden + 2 * gates + 20))
+
+
+def ln_geometry(hidden: int, batch: int, ndir: int) -> Geometry:
+    """The design and layout of the LN-LSTM kernels for width ``hidden``,
+    ``batch`` rows and ``ndir`` directions: ``cluster`` where
+    :func:`~asr_study_torch.ops.recurrence.cluster_geometry` fits four gate
+    columns a unit in 256 threads of 128 rows (H=256: 8 CTAs of 32 units,
+    R=4 rows a cluster in one direction and R=8 in two at B=32, 8 clusters
+    either way; H=100: 13 units, the last CTA 9); ``stream`` otherwise
+    (H=300: 4 x 38 columns of three slices would take 456 threads; H=512).
+    """
+    return (cluster_geometry(hidden, batch, ndir, 4, CLUSTER_THREADS,
+                             CLUSTER_SLICE, ln_cluster_smem)
+            or ln_stream_geometry(hidden, batch, ndir))
+
+
+def ln_stream_geometry(hidden: int, batch: int, ndir: int) -> Geometry:
+    """The stream design's layout, at any width: the one
+    :func:`ln_geometry` gives where the cluster design does not fit."""
+    fwd, bwd = ln_stream_smem(hidden)
+    return Geometry("stream", 1, hidden, STREAM_ROWS,
+                    (1, -(-batch // STREAM_ROWS), ndir), fwd, bwd)
+
+
+def ln_cluster_info(geo: Geometry, batch: int, hidden: int, backward: bool
+                    ) -> tuple[int, int]:
+    """On the card: (dynamic shared memory per CTA the kernel sizes,
+    clusters of this launch the card holds at once), from the kernel's own
+    launch configuration (``asr_ln_lstm_{fwd,bwd}_info``)."""
+    return kernel_info("ln_lstm_bwd_info" if backward else "ln_lstm_fwd_info",
+                       geo, batch, hidden)
 
 
 def _scan(xpn, mask, wh, gh, gc, bc, reverse: bool
@@ -64,23 +143,33 @@ def ln_lstm_plain(xpn, mask, wh, gh, gc, bc
     return _scan(xpn, mask, wh, gh, gc, bc, False)
 
 
-def _fwd_kernel(name: str, xpns: list, mask: torch.Tensor, whs: list,
-                ghs: list, gcs: list, bcs: list) -> list:
-    """Launch ``ln_lstm_fwd`` over ``len(xpns)`` directions (the second one
-    walks time backward) -> [h, c] per direction, flattened."""
+def _geometry(xpn: torch.Tensor, ndir: int) -> Geometry:
+    return ln_geometry(xpn.shape[2] // 4, xpn.shape[1], ndir)
+
+
+def launch_fwd(geo: Geometry, xpns: list, mask: torch.Tensor, whs: list,
+               ghs: list, gcs: list, bcs: list) -> list:
+    """Launch the forward over ``len(xpns)`` directions (the second one walks
+    time backward) in the design and layout ``geo`` -> [h, c] per
+    direction, flattened.  The wrappers count the launches."""
     t_steps, batch, gh4 = xpns[0].shape
-    outs = [torch.empty((t_steps, batch, gh4 // 4), dtype=torch.float32,
-                        device=xpns[0].device) for _ in range(2 * len(xpns))]
+    hidden, ndir = gh4 // 4, len(xpns)
+    outs = [torch.empty((t_steps, batch, hidden), dtype=torch.float32,
+                        device=xpns[0].device) for _ in range(2 * ndir)]
     if outs[0].numel() == 0:
         return outs
     args = (xpns[0], xpns[-1], mask, whs[0], whs[-1], ghs[0], ghs[-1],
             gcs[0], gcs[-1], bcs[0], bcs[-1], outs[0], outs[1], outs[-2],
             outs[-1])
+    ptrs = (*(a.data_ptr() for a in args), t_steps, batch, hidden, ndir)
     with torch.cuda.device(xpns[0].device):
-        err = _build.lib().asr_ln_lstm_fwd(
-            *(a.data_ptr() for a in args), t_steps, batch, gh4 // 4,
-            len(xpns), stream(xpns[0]))
-    _build.check(err, name)
+        if geo.design == "cluster":
+            err = _build.lib().asr_ln_lstm_fwd(
+                *ptrs, geo.ctas, geo.units, geo.rows, stream(xpns[0]))
+        else:
+            err = _build.lib().asr_ln_lstm_stream_fwd(*ptrs, stream(xpns[0]))
+    _build.check(err, f"{'bi_ln_lstm' if ndir == 2 else 'ln_lstm'}_fwd "
+                      f"({geo.design})")
     return outs
 
 
@@ -110,13 +199,16 @@ def bi_ln_lstm(xpn_f: torch.Tensor, xpn_b: torch.Tensor, mask: torch.Tensor,
     if xpn_f.device.type == "cpu":
         with torch.no_grad():
             return bi_ln_lstm_plain(*args)
-    outs = _fwd_kernel("bi_ln_lstm_fwd", [xpn_f, xpn_b], mask, [wh_f, wh_b],
-                       [gh_f, gh_b], [gc_f, gc_b], [bc_f, bc_b])
+    geo = _geometry(xpn_f, 2)
+    outs = launch_fwd(geo, [xpn_f, xpn_b], mask, [wh_f, wh_b], [gh_f, gh_b],
+                      [gc_f, gc_b], [bc_f, bc_b])
     bi_ln_lstm.launches += 1
+    bi_ln_lstm.by_design[geo.design] += 1
     return tuple(outs)
 
 
 bi_ln_lstm.launches = 0
+bi_ln_lstm.by_design = {"cluster": 0, "stream": 0}
 
 
 def ln_lstm(xpn: torch.Tensor, mask: torch.Tensor, wh: torch.Tensor,
@@ -131,12 +223,15 @@ def ln_lstm(xpn: torch.Tensor, mask: torch.Tensor, wh: torch.Tensor,
     if xpn.device.type == "cpu":
         with torch.no_grad():
             return ln_lstm_plain(xpn, mask, wh, gh, gc, bc)
-    h, c = _fwd_kernel("ln_lstm_fwd", [xpn], mask, [wh], [gh], [gc], [bc])
+    geo = _geometry(xpn, 1)
+    h, c = launch_fwd(geo, [xpn], mask, [wh], [gh], [gc], [bc])
     ln_lstm.launches += 1
+    ln_lstm.by_design[geo.design] += 1
     return h, c
 
 
 ln_lstm.launches = 0
+ln_lstm.by_design = {"cluster": 0, "stream": 0}
 
 
 def _ln_bwd(dy_g: torch.Tensor, xhat: torch.Tensor,
@@ -203,27 +298,37 @@ def ln_lstm_bwd_plain(xpn, mask, wh, gh, gc, bc, h, c, dh
     return _walk_bwd(xpn, mask, wh, gh, gc, bc, h, c, dh, False)
 
 
-def _bwd_kernel(name: str, xpns: list, mask: torch.Tensor, whs: list,
-                ghs: list, gcs: list, bcs: list, hs: list, cs: list,
-                dhs: list) -> list:
-    """Launch ``ln_lstm_bwd`` over ``len(xpns)`` directions -> [dpre, dcn]
-    per direction, flattened."""
+def launch_bwd(geo: Geometry, xpns: list, mask: torch.Tensor, whs: list,
+               ghs: list, gcs: list, bcs: list, hs: list, cs: list,
+               dhs: list) -> list:
+    """Launch the backward over ``len(xpns)`` directions in the design and
+    layout ``geo`` -> [dpre, dcn] per direction, flattened.  The wrappers
+    count the launches."""
     outs = []
     for x, h in zip(xpns, hs):
         outs += [torch.empty_like(x), torch.empty_like(h)]
     if outs[0].numel() == 0:
         return outs
     t_steps, batch, gh4 = xpns[0].shape
-    whts = [w.t().contiguous() for w in whs]
-    args = (xpns[0], xpns[-1], mask, whs[0], whs[-1], whts[0], whts[-1],
-            ghs[0], ghs[-1], gcs[0], gcs[-1], bcs[0], bcs[-1], hs[0], cs[0],
+    hidden, ndir = gh4 // 4, len(xpns)
+    vecs = (ghs[0], ghs[-1], gcs[0], gcs[-1], bcs[0], bcs[-1], hs[0], cs[0],
             hs[-1], cs[-1], dhs[0], dhs[-1], outs[0], outs[1], outs[-2],
             outs[-1])
     with torch.cuda.device(xpns[0].device):
-        err = _build.lib().asr_ln_lstm_bwd(
-            *(a.data_ptr() for a in args), t_steps, batch, gh4 // 4,
-            len(xpns), stream(xpns[0]))
-    _build.check(err, name)
+        if geo.design == "cluster":
+            args = (xpns[0], xpns[-1], mask, whs[0], whs[-1], *vecs)
+            err = _build.lib().asr_ln_lstm_bwd(
+                *(a.data_ptr() for a in args), t_steps, batch, hidden, ndir,
+                geo.ctas, geo.units, geo.rows, stream(xpns[0]))
+        else:
+            whts = [w.t().contiguous() for w in whs]
+            args = (xpns[0], xpns[-1], mask, whs[0], whs[-1], whts[0],
+                    whts[-1], *vecs)
+            err = _build.lib().asr_ln_lstm_stream_bwd(
+                *(a.data_ptr() for a in args), t_steps, batch, hidden, ndir,
+                stream(xpns[0]))
+    _build.check(err, f"{'bi_ln_lstm' if ndir == 2 else 'ln_lstm'}_bwd "
+                      f"({geo.design})")
     return outs
 
 
@@ -247,14 +352,17 @@ def bi_ln_lstm_bwd(xpn_f, xpn_b, mask, wh_f, wh_b, gh_f, gh_b, gc_f, gc_b,
             return bi_ln_lstm_bwd_plain(xpn_f, xpn_b, mask, wh_f, wh_b, gh_f,
                                         gh_b, gc_f, gc_b, bc_f, bc_b, h_f,
                                         c_f, h_b, c_b, dh_f, dh_b)
-    outs = _bwd_kernel("bi_ln_lstm_bwd", [xpn_f, xpn_b], mask, [wh_f, wh_b],
-                       [gh_f, gh_b], [gc_f, gc_b], [bc_f, bc_b], [h_f, h_b],
-                       [c_f, c_b], [dh_f, dh_b])
+    geo = _geometry(xpn_f, 2)
+    outs = launch_bwd(geo, [xpn_f, xpn_b], mask, [wh_f, wh_b], [gh_f, gh_b],
+                      [gc_f, gc_b], [bc_f, bc_b], [h_f, h_b], [c_f, c_b],
+                      [dh_f, dh_b])
     bi_ln_lstm_bwd.launches += 1
+    bi_ln_lstm_bwd.by_design[geo.design] += 1
     return tuple(outs)
 
 
 bi_ln_lstm_bwd.launches = 0
+bi_ln_lstm_bwd.by_design = {"cluster": 0, "stream": 0}
 
 
 def ln_lstm_bwd(xpn, mask, wh, gh, gc, bc, h, c, dh
@@ -266,13 +374,16 @@ def ln_lstm_bwd(xpn, mask, wh, gh, gc, bc, h, c, dh
     if xpn.device.type == "cpu":
         with torch.no_grad():
             return ln_lstm_bwd_plain(xpn, mask, wh, gh, gc, bc, h, c, dh)
-    dpre, dcn = _bwd_kernel("ln_lstm_bwd", [xpn], mask, [wh], [gh], [gc],
-                            [bc], [h], [c], [dh])
+    geo = _geometry(xpn, 1)
+    dpre, dcn = launch_bwd(geo, [xpn], mask, [wh], [gh], [gc], [bc], [h],
+                           [c], [dh])
     ln_lstm_bwd.launches += 1
+    ln_lstm_bwd.by_design[geo.design] += 1
     return dpre, dcn
 
 
 ln_lstm_bwd.launches = 0
+ln_lstm_bwd.by_design = {"cluster": 0, "stream": 0}
 
 
 def _ln_param_grads(dpre, dcn, h, c, wh, gh, reverse: bool

@@ -42,12 +42,13 @@ Phases, in order; any failure raises and the exit code is not 0:
    throughout, T=1), with the design each width takes, its cluster
    geometry and shared memory; at H=256 the cluster design timed in turns
    against the stream design it replaced (through the latter's C entry
-   point) beside cuDNN; the
+   point) beside cuDNN, the layer-norm LSTM kernels too (no cuDNN); the
    zoneout kernels with Bernoulli and with constant mix weights; the dpack
    decode bit for bit over the whole stream of every serving batch and of
    an edge batch, with the host encode time;
 4. the serving slices, with launch counters proving their kernels ran
-   (the LSTM and GRU kernels in the design their width takes),
+   (the LSTM, GRU and layer-norm LSTM kernels in the design their width
+   takes),
    logits held against the plain path on the CPU (for ln_blstm, whose
    recurrence is chaotic, on a batch cut to LN_CHECK_T frames); the dpack
    slice's logits and transcripts equal to the pcm16 slice's, the mulaw
@@ -661,20 +662,23 @@ def cell_family_smem(hidden: int) -> tuple[int, int, int]:
 
 
 def print_cluster_geometry() -> None:
-    """The LSTM and GRU kernels' design at each width of the zoo (and
-    H=100) and each direction count, at B=32: the cluster geometry and
-    shared memory, held against the kernels' own launch configuration
-    (asr_{bilstm,gru}_{fwd,bwd}_info), and the clusters the card holds at
-    once against those the launch needs."""
+    """The LSTM, GRU and layer-norm LSTM kernels' design at each width of
+    the zoo (and H=100) and each direction count, at B=32: the cluster
+    geometry and shared memory, held against the kernels' own launch
+    configuration (asr_{bilstm,gru,ln_lstm}_{fwd,bwd}_info), and the
+    clusters the card holds at once against those the launch needs."""
     from asr_study_torch.ops.bilstm import (CLUSTER_THREADS, cluster_info,
                                             lstm_geometry)
     from asr_study_torch.ops.gru import (GRU_THREADS, gru_cluster_info,
                                          gru_geometry)
+    from asr_study_torch.ops.ln_lstm import ln_cluster_info, ln_geometry
 
     families = (("bilstm", "lstm", lstm_geometry, cluster_info,
                  CLUSTER_THREADS, "bilstm", "lstm_stream"),
                 ("bigru", "gru", gru_geometry, gru_cluster_info, GRU_THREADS,
-                 "gru", "gru_stream"))
+                 "gru", "gru_stream"),
+                ("bi_ln_lstm", "ln_lstm", ln_geometry, ln_cluster_info,
+                 CLUSTER_THREADS, "ln_lstm", "ln_lstm_stream"))
     for bi, uni, geometry, info, threads, cluster_src, stream_src in \
             families:
         for hidden in (100, HIDDEN, 512):
@@ -707,14 +711,15 @@ def print_cluster_geometry() -> None:
 
 
 def ln_smem(hidden: int) -> tuple[int, int, int]:
-    """Dynamic shared memory of ln_lstm_fwd and ln_lstm_bwd per block at
-    width ``hidden``, by the formulas of their C entry points -> (forward
-    bytes, backward bytes, the backward's partial sums per unit)."""
-    gates = 4 * hidden
-    threads = min(-(-gates // 32) * 32, 1024)
-    nsplit = max(threads // hidden, 1)
-    return (4 * 4 * (4 * hidden + gates + 10),
-            4 * 4 * ((6 + nsplit) * hidden + 2 * gates + 20), nsplit)
+    """Dynamic shared memory per block of the layer-norm LSTM's stream
+    route (csrc/ln_lstm_stream_{fwd,bwd}.cu: the widths whose weights do
+    not fit in a cluster, and the design the cluster one is timed against)
+    at width ``hidden`` -> (forward bytes, backward bytes, the backward's
+    partial sums per unit)."""
+    from asr_study_torch.ops.ln_lstm import ln_stream_smem
+
+    threads = min(-(-4 * hidden // 32) * 32, 1024)
+    return (*ln_stream_smem(hidden), max(threads // hidden, 1))
 
 
 def check_ln_kernels(dev: torch.device, card: str, x_serve: torch.Tensor,
@@ -728,18 +733,25 @@ def check_ln_kernels(dev: torch.device, card: str, x_serve: torch.Tensor,
     ln_lstm_bwd at the config-3 shapes (T=512, B=32, H=256, lengths
     256-512) against their plain versions row by row; dwh, dgh, dgc and dbc
     through BiLNLSTMFunction / LNLSTMFunction against autograd through the
-    plain loops on the first LN_CHECK_T frames; each timed with its plain
-    version and its bound.  The LN gains and biases are moved off their
-    init (1 and 0) by seeded noise, so that every vector the kernels take
-    matters."""
+    plain loops on the first LN_CHECK_T frames; each in the design
+    ``ln_geometry`` gives (the cluster one at H=256: held by the by-design
+    counts) and timed with its plain version and its bound, and in turns
+    (cluster, stream, stream, cluster) against the stream design (its C
+    entry point, through ``launch_fwd`` / ``launch_bwd``, which count no
+    launch), with the per-step time split into the FMA time of one CTA's
+    slice at the card's SM clock and the rest.  The LN gains and biases are
+    moved off their init (1 and 0) by seeded noise, so that every vector
+    the kernels take matters."""
     from asr_study_torch.models.cells import ln_lstm_step
     from asr_study_torch.models.zoo import ln_blstm
     from asr_study_torch.ops.ln_lstm import (BiLNLSTMFunction, LNLSTMFunction,
                                              bi_ln_lstm, bi_ln_lstm_bwd,
                                              bi_ln_lstm_bwd_plain,
-                                             bi_ln_lstm_plain, ln_lstm,
+                                             bi_ln_lstm_plain, launch_bwd,
+                                             launch_fwd, ln_geometry, ln_lstm,
                                              ln_lstm_bwd, ln_lstm_bwd_plain,
-                                             ln_lstm_plain)
+                                             ln_lstm_plain,
+                                             ln_stream_geometry)
     from asr_study_torch.ops.recurrence import prev
 
     g = torch.Generator().manual_seed(SEED + 7)
@@ -788,6 +800,42 @@ def check_ln_kernels(dev: torch.device, card: str, x_serve: torch.Tensor,
             steps += [h_s.view_as(h_k), c_s.view_as(c_k)]
         return steps
 
+    def ran_design(wrapper, before, ndir, batch):
+        """The wrapper launched once since ``before`` (its by-design counts),
+        in the design ln_geometry gives."""
+        want = ln_geometry(h, batch, ndir).design
+        after = dict(wrapper.by_design)
+        require(after[want] == before[want] + 1 and sum(after.values())
+                == sum(before.values()) + 1,
+                f"{wrapper.__name__} ran {after} (before {before}), want one "
+                f"more launch of the {want} design")
+        return want
+
+    def in_turns(label, cluster_fn, stream_fn, steps, ndir, passes):
+        """Both designs timed in turns, cluster, stream, stream, cluster ->
+        the cluster design's mean ms."""
+        turns = {"cluster": [], "stream": []}
+        for design in ("cluster", "stream", "stream", "cluster"):
+            turns[design].append(cuda_ms(
+                cluster_fn if design == "cluster" else stream_fn, 5))
+        clk = sm_clock_hz()
+        geo = ln_geometry(h, BATCH, ndir)
+        fmas = passes * geo.rows * h * 4 * geo.units
+        c_ms = sum(turns["cluster"]) / 2
+        s_ms = sum(turns["stream"]) / 2
+        step_us = 1e3 * c_ms / steps
+        fma_us = 1e6 * fmas / (128 * clk)
+        print(f"[{card}] {label} at H={h} T={steps} B={BATCH} "
+              f"(R={geo.rows}), in turns: cluster design "
+              f"{turns['cluster'][0]:.4f} / {turns['cluster'][1]:.4f} ms, "
+              f"stream design {turns['stream'][0]:.4f} / "
+              f"{turns['stream'][1]:.4f} ms ({s_ms / c_ms:.2f}x); "
+              f"{step_us:.3f} us a step, of which the {fmas} FMAs of one "
+              f"CTA's slice take {fma_us:.3f} us at 128 a clock and the SM "
+              f"clock {clk / 1e6:.0f} MHz, the rest (statistics, exchange, "
+              f"barriers, cell, loads) {step_us - fma_us:.3f} us")
+        return c_ms
+
     def rows_within(got, want, atol, rtol):
         """Every (frame, row) vector: ||got - want|| <= atol + rtol *
         ||want||."""
@@ -816,8 +864,13 @@ def check_ln_kernels(dev: torch.device, card: str, x_serve: torch.Tensor,
         xpns, res = prepared(layer, x_serve)
         n = len(xpns)
         args = (*xpns, mask_s, *res)
+        # wh, gh, gc, bc, each a list over the directions
+        groups = [list(res[i * n: (i + 1) * n]) for i in range(4)]
         with torch.no_grad():
+            before = dict(fwd.by_design)
             got, want = fwd(*args), fwd_plain(*args)
+            torch.cuda.synchronize()
+            design = ran_design(fwd, before, n, BATCH)
             steps = stepwise(args, got)
             # the recurrence's own fp32 spread: h of each fp32 run against
             # a float64 run of the plain loop (printed, not held)
@@ -825,12 +878,16 @@ def check_ln_kernels(dev: torch.device, card: str, x_serve: torch.Tensor,
             cpu = fwd_plain(*(a.cpu() for a in args))[0::2]
             drift = [max_err([r.double().to(dev) for r in run], ref)
                      for run in (got[0::2], want[0::2], cpu)]
-            times[f"{name}_fwd"] = (cuda_ms(lambda: fwd(*args), 10),
-                                    cuda_ms(lambda: fwd_plain(*args), 2, 1))
+            times[f"{name}_fwd"] = (
+                in_turns(f"{name}_fwd", lambda: fwd(*args),
+                         lambda: launch_fwd(ln_stream_geometry(h, BATCH, n),
+                                            list(xpns), mask_s, *groups),
+                         t_s, n, 1),
+                cuda_ms(lambda: fwd_plain(*args), 2, 1))
         errs[f"{name}_fwd"] = max_err(got, steps)
         bounds[f"{name}_fwd"] = rnn_bound(xpns[0], h, n, 1, (*args, *got))
-        print(f"{name}_fwd kernel vs the plain step from its own state, "
-              f"every frame: T={t_s} B={BATCH} H={h} lengths "
+        print(f"{name}_fwd kernel ({design} design) vs the plain step from "
+              f"its own state, every frame: T={t_s} B={BATCH} H={h} lengths "
               f"{int(len_serve.min())}..{int(len_serve.max())} "
               f"max_abs_err={errs[f'{name}_fwd']:.3e} (h "
               f"{max_err(got[0::2], steps[0::2]):.2e} c "
@@ -849,12 +906,22 @@ def check_ln_kernels(dev: torch.device, card: str, x_serve: torch.Tensor,
         # the backward at the training shapes
         xpns, res = prepared(layer, x)
         args = (*xpns, mask, *res)
+        groups = [list(res[i * n: (i + 1) * n]) for i in range(4)]
         with torch.no_grad():
-            bwd_args = (*args, *fwd(*args), *dh[:n])
+            hc = fwd(*args)
+            bwd_args = (*args, *hc, *dh[:n])
+            before = dict(bwd.by_design)
             d_k, d_p = bwd(*bwd_args), bwd_plain(*bwd_args)
-            times[f"{name}_bwd"] = (cuda_ms(lambda: bwd(*bwd_args), 10),
-                                    cuda_ms(lambda: bwd_plain(*bwd_args), 2,
-                                            1))
+            torch.cuda.synchronize()
+            design = ran_design(bwd, before, n, b)
+            times[f"{name}_bwd"] = (
+                in_turns(f"{name}_bwd", lambda: bwd(*bwd_args),
+                         lambda: launch_bwd(ln_stream_geometry(h, b, n),
+                                            list(xpns), mask, *groups,
+                                            list(hc[0::2]), list(hc[1::2]),
+                                            dh[:n]),
+                         t, n, 2),
+                cuda_ms(lambda: bwd_plain(*bwd_args), 2, 1))
         errs[f"{name}_bwd"] = max_err(d_k, d_p)
         bounds[f"{name}_bwd"] = rnn_bound(xpns[0], h, n, 2,
                                           (*bwd_args, *d_k))
@@ -873,9 +940,9 @@ def check_ln_kernels(dev: torch.device, card: str, x_serve: torch.Tensor,
                   for a, p in zip(w_k, w_p)]
         by_kind = {k: max(p_errs[i * n: (i + 1) * n])
                    for i, k in enumerate(("dwh", "dgh", "dgc", "dbc"))}
-        print(f"{name}_bwd kernel vs plain: T={t} B={b} H={h} lengths "
-              f"{int(lengths.min())}..{t} max_abs_err over dpre and dcn "
-              f"{errs[f'{name}_bwd']:.3e} at max|dpre| "
+        print(f"{name}_bwd kernel ({design} design) vs plain: T={t} B={b} "
+              f"H={h} lengths {int(lengths.min())}..{t} max_abs_err over "
+              f"dpre and dcn {errs[f'{name}_bwd']:.3e} at max|dpre| "
               f"{max(float(p.abs().max()) for p in d_p[0::2]):.4g}; worst "
               f"(frame, row) ||diff||/||plain|| {row_rel:.3e} (tol "
               f"{BWD_ATOL:g} + {BWD_RTOL:g}*||plain||); via {fn.__name__} "
@@ -1749,10 +1816,12 @@ def launch_counters() -> dict:
             "dpack_decode": dpack_decode}
 
 
-# the wrappers of the LSTM and GRU kernels, which count their launches by
-# design too
+# the wrappers of the LSTM, GRU and layer-norm LSTM kernels, which count
+# their launches by design too
 DESIGN_WRAPPERS = ("bilstm_fwd", "bilstm_bwd", "lstm_fwd", "lstm_bwd",
-                   "bigru_fwd", "bigru_bwd", "gru_fwd", "gru_bwd")
+                   "bigru_fwd", "bigru_bwd", "gru_fwd", "gru_bwd",
+                   "bi_ln_lstm_fwd", "bi_ln_lstm_bwd", "ln_lstm_fwd",
+                   "ln_lstm_bwd")
 
 
 def reset_counts() -> None:
@@ -1764,11 +1833,12 @@ def reset_counts() -> None:
 
 
 def check_designs(label: str, hidden: int, batch: int) -> None:
-    """The LSTM and GRU kernels launched since the counts were reset ran the
-    design ``lstm_geometry`` / ``gru_geometry`` gives this path's width and
-    batch, and no other."""
+    """The LSTM, GRU and layer-norm LSTM kernels launched since the counts
+    were reset ran the design ``lstm_geometry`` / ``gru_geometry`` /
+    ``ln_geometry`` gives this path's width and batch, and no other."""
     from asr_study_torch.ops.bilstm import lstm_geometry
     from asr_study_torch.ops.gru import gru_geometry
+    from asr_study_torch.ops.ln_lstm import ln_geometry
 
     counters = launch_counters()
     ran = {name: {k: v for k, v in counters[name].by_design.items() if v}
@@ -1777,7 +1847,8 @@ def check_designs(label: str, hidden: int, batch: int) -> None:
         return
     print(f"{label}: launches by design (H={hidden}) {ran}")
     for name, by_design in ran.items():
-        geometry = gru_geometry if "gru" in name else lstm_geometry
+        geometry = (gru_geometry if "gru" in name else
+                    ln_geometry if "ln_" in name else lstm_geometry)
         want = geometry(hidden, batch,
                         2 if name.startswith("bi") else 1).design
         require(list(by_design) == [want],
@@ -2170,11 +2241,12 @@ def main() -> int:
           f"and mi_lstm_fwd (both forms) {fwd_b} B, zoneout_lstm_bwd and "
           f"mi_lstm_bwd {bwd_b} B (4 rows, {nsplit} partial sums), raised at "
           f"each launch")
-    fwd_b, bwd_b, nsplit = ln_smem(HIDDEN)
-    print(f"  dynamic shared memory per block at H={HIDDEN}: ln_lstm_fwd "
-          f"(both forms) {fwd_b} B (4 rows), ln_lstm_bwd (both forms) "
-          f"{bwd_b} B (4 rows, {nsplit} partial sums), raised at each "
-          f"launch")
+    for hidden in (HIDDEN, 512):
+        fwd_b, bwd_b, nsplit = ln_smem(hidden)
+        print(f"  dynamic shared memory per block at H={hidden} of the "
+              f"layer-norm LSTM's stream route: ln_lstm_stream_fwd (both "
+              f"forms) {fwd_b} B (4 rows), ln_lstm_stream_bwd {bwd_b} B (4 "
+              f"rows, {nsplit} partial sums), raised at each launch")
 
     # 3. kernels against their plain versions at main-path shapes ---------
     rng = np.random.RandomState(SEED)

@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
-"""Where a step of the cluster LSTM and GRU kernels spends its time, on one
-NVIDIA GPU.
+"""Where a step of the cluster LSTM, GRU and layer-norm LSTM kernels spends
+its time, on one NVIDIA GPU.
 
     python3 lstm_step_split.py
 
-Compiles ``asr_study_torch/csrc/bilstm_fwd.cu``, ``gru_fwd.cu`` and
-``gru_bwd.cu`` as they are and in variants, into ``build/step_split/``,
+Compiles ``asr_study_torch/csrc/bilstm_fwd.cu``, ``gru_fwd.cu``,
+``gru_bwd.cu``, ``ln_lstm_fwd.cu`` and ``ln_lstm_bwd.cu`` as they are and in
+variants, into ``build/step_split/``,
 and times each at the main paths' shapes (H=256, B=32; T=805 forward,
 T=512 backward; one direction, R=4 rows a cluster, and two, R=8) with CUDA
 events, the unchanged kernel first and last.  Variants that drop one part
@@ -27,6 +28,15 @@ the 96 gate columns of four slices at H=256):
 - ``slice128``: the LSTM kernels' shape, 256 threads of 128 rows, of which
   64 wait out the product;
 - ``threads192``: 192 threads of 128 rows, none idle.
+
+Variants of the layer-norm LSTM kernels, whose steps add rounds of
+LayerNorm statistics across the cluster (outputs wrong; times count):
+
+- ``no_stats_sync``: the forward's two statistics rounds keep their pushes
+  but lose their cluster barriers (the backward: the two LN rounds of its
+  cotangent chain; its h-side and c statistics share the partials');
+- ``no_stats``: the forward's statistics rounds gone, pushes and barriers;
+- ``no_push``, ``no_product``: as above, for the forward.
 
 Prints one line per variant and the card's name and power limit.  Without
 CUDA it exits 1.
@@ -63,6 +73,19 @@ SLICE128 = [("constexpr int kThreads = 384;",
              "constexpr int kThreads = 256;"), SLICE]
 THREADS192 = [("constexpr int kThreads = 384;",
                "constexpr int kThreads = 192;"), SLICE]
+LN_FWD_SYNCS = [("    cluster.sync();\n\n    // 3. the gates",
+                 "\n\n    // 3. the gates"),
+                ("    cluster.sync();\n\n    // 4. h from",
+                 "\n\n    // 4. h from")]
+LN_FWD_PUSHES = [("      if (lane < C) {\n        float4* dst",
+                  "      if (false) {\n        float4* dst"),
+                 ("      if (lane < C)\n        *reinterpret_cast<float2*>",
+                  "      if (false)\n        *reinterpret_cast<float2*>")]
+LN_PUSH = ("for (int p = 0; p < C; ++p) *cluster.map_shared_rank(hn_buf, p) "
+           "= hn;", "*hn_buf = hn;")
+LN_BWD_SYNCS = [(f"      cluster.sync();\n\n      // {step}",
+                 f"\n\n      // {step}")
+                for step in ("d. dc, dpre", "e. dhp of own")]
 SPLIT = {
     "no_push": [NO_PUSH],
     "no_push_no_sync": [NO_PUSH, NO_SYNC],
@@ -79,6 +102,12 @@ KERNELS = {
     "gru_bwd": ("gru_bwd.cu", "asr_gru_bwd", 3, T_BWD,
                 {"base": [], "slice128": SLICE128,
                  "threads192": THREADS192}),
+    "ln_lstm_fwd": ("ln_lstm_fwd.cu", "asr_ln_lstm_fwd", 4, T_FWD,
+                    {"base": [], "no_stats_sync": LN_FWD_SYNCS,
+                     "no_stats": LN_FWD_SYNCS + LN_FWD_PUSHES,
+                     "no_push": [LN_PUSH], "no_product": [NO_PRODUCT]}),
+    "ln_lstm_bwd": ("ln_lstm_bwd.cu", "asr_ln_lstm_bwd", 4, T_BWD,
+                    {"base": [], "no_stats_sync": LN_BWD_SYNCS}),
 }
 
 
@@ -124,6 +153,7 @@ def main() -> int:
         return 1
     from asr_study_torch.ops.bilstm import lstm_geometry
     from asr_study_torch.ops.gru import gru_geometry
+    from asr_study_torch.ops.ln_lstm import ln_geometry, ln_lstm
     from asr_study_torch.ops.recurrence import stream
 
     card = subprocess.run(
@@ -135,7 +165,8 @@ def main() -> int:
     g = torch.Generator(device=dev).manual_seed(0)
     print(card)
     for kernel, (_, _, gates, t, variants) in KERNELS.items():
-        geometry = lstm_geometry if gates == 4 else gru_geometry
+        geometry = (ln_geometry if kernel.startswith("ln") else
+                    lstm_geometry if gates == 4 else gru_geometry)
         xp = torch.randn(t, B, gates * H, device=dev, generator=g)
         wh = torch.randn(H, gates * H, device=dev, generator=g) / H ** 0.5
         mask = torch.ones(t, B, 1, device=dev)
@@ -143,7 +174,22 @@ def main() -> int:
                 for _ in range(2)]
         outs = [torch.zeros(t, B, H if kernel.endswith("fwd") else gates * H,
                             device=dev) for _ in range(4)]
-        if kernel == "bilstm_fwd":      # h_f, c_f, h_b, c_b
+        # the layer-norm gains and bias: gh [4H], gc and bc [H]
+        gh = 1.0 + 0.1 * torch.randn(gates * H, device=dev, generator=g)
+        gc = 1.0 + 0.1 * torch.randn(H, device=dev, generator=g)
+        bc = 0.1 * torch.randn(H, device=dev, generator=g)
+        ln = (gh, gh, gc, gc, bc, bc)
+        if kernel == "ln_lstm_fwd":     # h_f, c_f, h_b, c_b
+            ptrs = (xp, xp, mask, wh, wh, *ln, *outs)
+        elif kernel == "ln_lstm_bwd":   # h, c, dh; dpre, dcn of each lane
+            # h and c from the forward: random ones make the cotangent
+            # chain overflow
+            h, c = ln_lstm(xp, mask, wh, gh, gc, bc)
+            outs[1], outs[3] = (torch.zeros(t, B, H, device=dev)
+                                for _ in range(2))
+            ptrs = (xp, xp, mask, wh, wh, *ln, h, c, h, c, seqs[1], seqs[1],
+                    *outs)
+        elif kernel == "bilstm_fwd":    # h_f, c_f, h_b, c_b
             ptrs = (xp, xp, mask, wh, wh, *outs)
         elif kernel == "gru_fwd":       # h_f, h_b
             ptrs = (xp, xp, mask, wh, wh, *outs[:2])
@@ -165,7 +211,7 @@ def main() -> int:
                 if base is None:
                     base = [o.clone() for o in outs]
                 # the thread-shape variants compute the same function
-                shape_err = ("" if name in SPLIT or name == "no_cell_math"
+                shape_err = ("" if name in SPLIT or name.startswith("no_")
                              else ", max |out - base's| " + format(max(
                                  float((o - b).abs().max())
                                  for o, b in zip(outs, base)), ".3e"))

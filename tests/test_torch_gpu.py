@@ -32,9 +32,11 @@ from asr_study_torch.ops.gru import (BiGRUFunction, GRUFunction, bigru,
 from asr_study_torch.ops.ln_lstm import (BiLNLSTMFunction, LNLSTMFunction,
                                          bi_ln_lstm, bi_ln_lstm_bwd,
                                          bi_ln_lstm_bwd_plain,
-                                         bi_ln_lstm_plain, ln_lstm,
-                                         ln_lstm_bwd, ln_lstm_bwd_plain,
-                                         ln_lstm_plain)
+                                         bi_ln_lstm_plain, launch_bwd,
+                                         launch_fwd, ln_cluster_info,
+                                         ln_geometry, ln_lstm, ln_lstm_bwd,
+                                         ln_lstm_bwd_plain, ln_lstm_plain)
+from asr_study_torch.ops.recurrence import Geometry
 from asr_study_torch.models.cells import ZoneoutLSTMCell
 from asr_study_torch.ops.mi_lstm import (BiMILSTMFunction, MILSTMFunction,
                                          bi_mi_lstm, bi_mi_lstm_bwd,
@@ -689,11 +691,12 @@ def test_lstm_zoo_train_step_on_card_matches_cpu(cuda, name, hp, fwd, bwd,
             g_p[k].norm()), k
 
 
-def _ln_case(cuda, t, b, h, seed):
+def _ln_case(cuda, t, b, h, seed, dead=False):
     """Both directions' LN-LSTM arguments (xpn, wh, gh, gc, bc; gains about
-    1 and biases about 0, none exactly), a ragged mask and two cotangents,
-    on the card -> (xpn_f, xpn_b, mask, wh_f, wh_b, gh_f, gh_b, gc_f, gc_b,
-    bc_f, bc_b), [dh_f, dh_b]."""
+    1 and biases about 0, none exactly), a ragged mask (with ``dead``, the
+    last row masked on every frame) and two cotangents, on the card ->
+    (xpn_f, xpn_b, mask, wh_f, wh_b, gh_f, gh_b, gc_f, gc_b, bc_f, bc_b),
+    [dh_f, dh_b]."""
     g = torch.Generator().manual_seed(seed)
 
     def near(n, centre):
@@ -706,6 +709,8 @@ def _ln_case(cuda, t, b, h, seed):
     bc = [near(h, 0.0) for _ in range(2)]
     lengths = torch.randint(1, t + 1, (b,), generator=g)
     lengths[0] = t
+    if dead:
+        lengths[-1] = 0
     mask = (torch.arange(t)[:, None] < lengths[None, :]).float()[..., None]
     dh = [torch.randn(t, b, h, generator=g) for _ in range(2)]
     args = (xpn[0], xpn[1], mask, wh[0], wh[1], gh[0], gh[1], gc[0], gc[1],
@@ -713,20 +718,55 @@ def _ln_case(cuda, t, b, h, seed):
     return [a.to(cuda) for a in args], [a.to(cuda) for a in dh]
 
 
-LN_SIZES = [(12, 4, 8), (37, 5, 100), (50, 9, 256), (3, 1, 300)]
+# H=8, 100 and 256 take the cluster design, H=300 and 512 the stream design
+# (ops/ln_lstm.py ln_geometry)
+LN_SIZES = [(12, 4, 8), (37, 5, 100), (50, 9, 256), (3, 1, 300),
+            (20, 3, 512)]
 
 
-@pytest.mark.parametrize("t,b,h", LN_SIZES)
-def test_ln_fwd_kernels_match_plain(cuda, t, b, h):
+def _ln_cases(sizes):
+    """Parametrise (t, b, h, dead) over ``sizes`` (no dead row) and the
+    shapes ragged for the cluster tiling (LSTM_RAGGED: B=33, T=1, H=100,
+    a row masked on every frame) and a dead row at H=300 (the stream
+    design); the ids of ``sizes`` stay "t-b-h"."""
+    cases = ([(*size, False) for size in sizes] + LSTM_RAGGED
+             + [(9, 6, 300, True)])
+    return pytest.mark.parametrize(
+        "t,b,h,dead", cases,
+        ids=[f"{t}-{b}-{h}" + ("-dead" if d else "") for t, b, h, d in cases])
+
+
+def _ln_designs(wrappers, h, b):
+    """-> per wrapper (launches, launches of the design ln_geometry gives
+    its direction count)."""
+    return [(w.launches, w.by_design[ln_geometry(
+        h, b, 2 if w.__name__.startswith("bi") else 1).design])
+        for w in wrappers]
+
+
+def _ln_layout_is_the_kernels(h, b, backward):
+    """Where the cluster design runs: ln_geometry's shared memory is the
+    kernel's own and the card holds the launch's clusters at once."""
+    for ndir in (1, 2):
+        geo = ln_geometry(h, b, ndir)
+        if geo.design == "cluster":
+            smem, fit = ln_cluster_info(geo, b, h, backward)
+            assert smem == (geo.smem_bwd if backward else geo.smem_fwd)
+            assert fit >= geo.grid[1] * geo.grid[2]
+
+
+@_ln_cases(LN_SIZES)
+def test_ln_fwd_kernels_match_plain(cuda, t, b, h, dead):
     """bi_ln_lstm (two directions of ln_lstm_fwd) and ln_lstm (one) against
-    their plain loops: h and raw c (chip_smoke.py's BILSTM_* bounds)."""
-    args, _ = _ln_case(cuda, t, b, h, seed=h + t)
+    their plain loops: h and raw c (chip_smoke.py's BILSTM_* bounds), each
+    in the design ln_geometry picks."""
+    args, _ = _ln_case(cuda, t, b, h, seed=h + t, dead=dead)
     xf, _, mask, whf, _, ghf, _, gcf, _, bcf, _ = args
-    before = (bi_ln_lstm.launches, ln_lstm.launches)
+    before = _ln_designs((bi_ln_lstm, ln_lstm), h, b)
     got = bi_ln_lstm(*args)
     got_uni = ln_lstm(xf, mask, whf, ghf, gcf, bcf)
-    assert (bi_ln_lstm.launches, ln_lstm.launches) == (before[0] + 1,
-                                                       before[1] + 1)
+    assert _ln_designs((bi_ln_lstm, ln_lstm), h, b) == _one_more(before)
+    _ln_layout_is_the_kernels(h, b, False)
     want = bi_ln_lstm_plain(*args)
     torch.cuda.synchronize()
     for name, g_, w_ in zip(("h_f", "c_f", "h_b", "c_b", "h", "c"),
@@ -734,24 +774,67 @@ def test_ln_fwd_kernels_match_plain(cuda, t, b, h):
         torch.testing.assert_close(g_, w_, rtol=1e-5, atol=1e-4, msg=name)
 
 
-@pytest.mark.parametrize("t,b,h", LN_SIZES)
-def test_ln_bwd_kernels_match_plain(cuda, t, b, h):
-    """bi_ln_lstm_bwd and ln_lstm_bwd: dpre and dcn of each direction."""
-    args, dh = _ln_case(cuda, t, b, h, seed=h + t + 1)
+@_ln_cases(LN_SIZES)
+def test_ln_bwd_kernels_match_plain(cuda, t, b, h, dead):
+    """bi_ln_lstm_bwd and ln_lstm_bwd: dpre and dcn of each direction, each
+    in the design ln_geometry picks, against the plain loops run in float64
+    from the same inputs.  The fp32 plain loop is itself up to 1.4e-4 from
+    that value here (40-33-256), as large as the tolerance's absolute part:
+    the LN backward carries rounding down the chain, so two fp32 runs can
+    part by more than the tolerance.  Each kernel is held to the exact
+    function instead."""
+    args, dh = _ln_case(cuda, t, b, h, seed=h + t + 1, dead=dead)
     xf, _, mask, whf, _, ghf, _, gcf, _, bcf, _ = args
     hc = bi_ln_lstm(*args)
-    before = (bi_ln_lstm_bwd.launches, ln_lstm_bwd.launches)
+    before = _ln_designs((bi_ln_lstm_bwd, ln_lstm_bwd), h, b)
     got = bi_ln_lstm_bwd(*args, *hc, *dh)
     uni = (xf, mask, whf, ghf, gcf, bcf, hc[0], hc[1], dh[0])
     got_uni = ln_lstm_bwd(*uni)
-    assert (bi_ln_lstm_bwd.launches, ln_lstm_bwd.launches) == (
-        before[0] + 1, before[1] + 1)
-    want = bi_ln_lstm_bwd_plain(*args, *hc, *dh)
-    want_uni = ln_lstm_bwd_plain(*uni)
+    assert _ln_designs((bi_ln_lstm_bwd, ln_lstm_bwd), h, b) == _one_more(
+        before)
+    _ln_layout_is_the_kernels(h, b, True)
+    want = bi_ln_lstm_bwd_plain(*(a.double() for a in (*args, *hc, *dh)))
+    want_uni = ln_lstm_bwd_plain(*(a.double() for a in uni))
     torch.cuda.synchronize()
     for name, g_, w_ in zip(("dpre_f", "dcn_f", "dpre_b", "dcn_b", "dpre",
-                             "dcn"), (*got, *got_uni), (*want, *want_uni)):
+                             "dcn"), (*got, *got_uni),
+                            (w.float() for w in (*want, *want_uni))):
         torch.testing.assert_close(g_, w_, **BWD_TOL, msg=name)
+
+
+def test_ln_kernels_repeat_bit_for_bit(cuda):
+    """bi_ln_lstm and bi_ln_lstm_bwd at H=256, B=32 (the cluster design,
+    every statistic summed across the cluster in rank order), run twice on
+    the same inputs: equal bit for bit."""
+    args, dh = _ln_case(cuda, 60, 32, 256, seed=21, dead=True)
+    hc = [bi_ln_lstm(*args) for _ in range(2)]
+    grads = [bi_ln_lstm_bwd(*args, *hc[0], *dh) for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b_ in zip(*hc):
+        assert torch.equal(a, b_)
+    for a, b_ in zip(*grads):
+        assert torch.equal(a, b_)
+
+
+def test_ln_cluster_launch_refuses_what_is_not_resident(cuda):
+    """A cluster grid the card cannot hold at once (R=1 at B=32 in two
+    directions: 64 clusters of 8 CTAs) is refused with an error, for both
+    kernels, and never falls back to another design."""
+    args, dh = _ln_case(cuda, 4, 32, 256, seed=5)
+    # [wh_f, wh_b], [gh_f, gh_b], [gc_f, gc_b], [bc_f, bc_b]
+    vecs = [args[i:i + 2] for i in (3, 5, 7, 9)]
+    too_many = Geometry("cluster", 8, 32, 1, (8, 32, 2), 0, 0)
+    before = [(w.launches, dict(w.by_design)) for w in (bi_ln_lstm,
+                                                        bi_ln_lstm_bwd)]
+    with pytest.raises(RuntimeError, match="CUDA launch failed"):
+        launch_fwd(too_many, args[:2], args[2], *vecs)
+    hc = bi_ln_lstm(*args)
+    with pytest.raises(RuntimeError, match="CUDA launch failed"):
+        launch_bwd(too_many, args[:2], args[2], *vecs, list(hc[0::2]),
+                   list(hc[1::2]), dh)
+    after = [(w.launches, w.by_design) for w in (bi_ln_lstm, bi_ln_lstm_bwd)]
+    assert after[1] == before[1]
+    assert after[0][0] == before[0][0] + 1
 
 
 @pytest.mark.parametrize("t,b,h", [(12, 4, 8), (40, 6, 256)])

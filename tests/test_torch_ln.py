@@ -17,11 +17,15 @@ from asr_study_torch.models.cells import LayerNormLSTMCell
 from asr_study_torch.models.nn import layer_norm_apply
 from asr_study_torch.models.rnn import RNNLayer
 from asr_study_torch.models.zoo import build_model
+from asr_study_torch.ops.bilstm import CLUSTER_SLICE, CLUSTER_THREADS
 from asr_study_torch.ops.ln_lstm import (BiLNLSTMFunction, LNLSTMFunction,
                                          bi_ln_lstm, bi_ln_lstm_bwd,
-                                         bi_ln_lstm_plain, ln_lstm,
-                                         ln_lstm_bwd, ln_lstm_bwd_plain,
-                                         ln_lstm_plain)
+                                         bi_ln_lstm_plain, ln_cluster_smem,
+                                         ln_geometry, ln_lstm, ln_lstm_bwd,
+                                         ln_lstm_bwd_plain, ln_lstm_plain,
+                                         ln_stream_smem)
+from asr_study_torch.ops.recurrence import (CLUSTER_BUDGET, CLUSTER_CTAS,
+                                            CLUSTER_ROWS, SMEM_LIMIT)
 from asr_study_torch.utils.weights import flat_from_params, params_from_flat
 from asr_study_tpu.models import nn as jnn
 from asr_study_tpu.models import zoo as jzoo
@@ -338,3 +342,51 @@ def test_wrappers_take_plain_on_cpu_and_check():
         ln_lstm(xpn, mask, wh, gh, gc.double(), bc)
     with pytest.raises(ValueError, match="device"):
         ln_lstm(*(a.to("meta") for a in uni))
+
+
+@pytest.mark.parametrize("ndir", [1, 2])
+@pytest.mark.parametrize("hidden", [100, 256, 300, 512])
+def test_ln_geometry(hidden, ndir):
+    """The size rule of the LN-LSTM kernels at B=32: H=100 and H=256 take the
+    cluster design (every hidden unit owned by exactly one CTA with its four
+    gate columns, no CTA empty, a warp a batch row and a lane a unit, every
+    row group within the launch and the launch within the budget of
+    resident clusters; H=256 in 8 clusters of R=4 rows in one direction and
+    R=8 in two; H=100 in CTAs of 13 units, the last 9), H=300 and H=512 the
+    stream design; shared memory within the H100's limit and equal to the
+    kernels' layouts."""
+    batch = 32
+    geo = ln_geometry(hidden, batch, ndir)
+    assert max(geo.smem_fwd, geo.smem_bwd) <= SMEM_LIMIT
+    assert geo.grid[2] == ndir
+    assert geo.grid[1] * geo.rows >= batch > (geo.grid[1] - 1) * geo.rows
+    if hidden in (300, 512):
+        assert geo.design == "stream"
+        assert (geo.ctas, geo.units) == (1, hidden)
+        assert (geo.smem_fwd, geo.smem_bwd) == ln_stream_smem(hidden)
+        return
+    assert geo.design == "cluster"
+    assert geo.ctas <= CLUSTER_CTAS and geo.rows in CLUSTER_ROWS
+    assert geo.grid[0] == geo.ctas
+    assert geo.grid[1] * geo.grid[2] <= CLUSTER_BUDGET
+    # the slice in registers: CLUSTER_SLICE rows of one gate column a thread
+    assert 4 * geo.units * -(-hidden // CLUSTER_SLICE) <= CLUSTER_THREADS
+    # the cell: a warp a row, a lane a unit
+    assert geo.units <= 32 and geo.rows <= CLUSTER_THREADS // 32
+    assert (geo.smem_fwd, geo.smem_bwd) == ln_cluster_smem(
+        hidden, geo.units, geo.rows, geo.ctas)
+    if hidden == 256:
+        assert (geo.units, geo.rows) == (32, 4 * ndir)
+        assert geo.grid[1] * geo.grid[2] == 8
+    else:
+        assert (geo.ctas, geo.units, hidden - 7 * geo.units) == (8, 13, 9)
+    owner = {}
+    for k in range(geo.ctas):
+        units = range(k * geo.units, min(hidden, (k + 1) * geo.units))
+        assert len(units) > 0
+        for q in range(4):
+            for u in units:
+                col = q * hidden + u
+                assert col not in owner
+                owner[col] = k
+    assert sorted(owner) == list(range(4 * hidden))
