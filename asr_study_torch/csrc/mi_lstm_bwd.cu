@@ -1,54 +1,133 @@
 // The multiplicative-integration (MI) LSTM recurrence of one layer,
 // backward pass, over one or two directions in one launch: the cotangent
-// scans that give the gate pre-activation gradients dpre.
+// scans that give the gate pre-activation gradients dpre, with the
+// recurrent weights resident in a thread-block cluster for the whole
+// sequence.
 //
 // Replaces two TPU kernels: asr_study_tpu/ops/pallas_bi_mi_lstm.py
 // `_bibwd_kernel` (both directions) with ndir = 2, and
 // asr_study_tpu/ops/pallas_mi_lstm.py `_bwd_kernel` (one direction) with
-// ndir = 1.  Row maths: ops/pallas_mi_lstm.py `_mi_row_bwd`.
-//
-// The layout and the three phases a step are csrc/lstm_stream_bwd.cu's (one
-// block per direction and kRows batch rows; P1 recomputes the gates, P2 the
-// cell's reverse-mode maths, P3 the partial sums of the recurrent cotangent
-// through wht).  Two things differ from the LSTM:
-//
-// - P1 recomputes the MI pre-activation, alpha * xp * hp + beta1 * xp +
-//   beta2 * hp + b with hp = h_prev @ wh (csrc/mi_lstm_fwd.cu);
-// - the recurrent chain goes through hp, not through the pre-activation:
-//   d pre / d hp = alpha * xp + beta2, so P2 keeps dhp = dpre * (alpha * xp
-//   + beta2) in shared memory and P3 sums dhp @ wht.  dpre itself is the
-//   output: dxp, dwh, dalpha, dbeta1, dbeta2 and db are sums over all T*B
-//   rows outside the kernel (ops/mi_lstm.py `dir_grads`).
-//
-// The stored c is the cell's own (no mix), so tanh(c_t) reads it.  A held
-// frame (mask 0) has dpre = 0 and passes dh and dc_next straight on.
+// ndir = 1.  Row maths: ops/pallas_mi_lstm.py `_mi_row_bwd`, with the
+// held-frame rule of its masked branch: there dh_prev takes the whole dh
+// and dc_prev = dc_next.  With ndir = 1 only lane 0 (the forward direction)
+// runs and the _b pointers are unused.
 //
 // Inputs: the forward's arguments (xp_* [T, B, 4H] raw, the mask [T, B],
-// wh_* [H, 4H], alpha_*, beta1_*, beta2_*, b_* [4H]), the transposes wht_*
-// [4H, H] (contiguous), the forward's h and c of each direction [T, B, H]
-// and the cotangents dh_f / dh_b [T, B, H] of the h outputs.  Output
-// dpre_f / dpre_b [T, B, 4H], zero on masked frames.  With ndir = 1 only
-// lane 0 runs.
+// wh_* [H, 4H], alpha_*, beta1_*, beta2_*, b_* [4H]), the forward's h and c
+// of each direction [T, B, H] and the cotangents dh_f / dh_b [T, B, H] of
+// the h outputs.  Output dpre_f / dpre_b [T, B, 4H], zero on masked frames;
+// dxp, dwh and the vectors' gradients are sums over all T*B rows outside
+// the kernel (ops/mi_lstm.py `dir_grads`).  The forward direction's chain
+// runs t = T-1 .. 0, the reversed direction's t = 0 .. T-1; h_prev and
+// c_prev are the saved sequences at t-1 (forward) or t+1 (reversed), zero
+// past the ends.
+//
+// Two things differ from the LSTM (bilstm_bwd.cu): the gates are recomputed
+// with the MI pre-activation (mi_lstm_fwd.cu), and the recurrent chain goes
+// through hp, not through the pre-activation: d pre / d hp = alpha * xp +
+// beta2, so the cotangent sent back through wh^T is dhp = dpre * (alpha *
+// xp + beta2).  Both are elementwise on a CTA's own columns, so the design
+// is bilstm_bwd.cu's, with one cluster barrier a step: one cluster of C
+// CTAs per (direction, group of R batch rows), CTA k owning the U units
+// [kU, kU + U) with their four gate columns.  Its slice wh[:, own columns]
+// is held twice, in the registers of its threads as in the forward, for
+// step a, and in shared memory as ws [H][4U + 1], for step c, whose thread
+// j reads row j: the odd row stride keeps those reads free of bank
+// conflicts.  The column's four MI entries sit in shared memory.  A step:
+//
+//   a. hp[R, 4U] = h[t_prev] @ slice from the saved h, which needs no
+//      exchange (h, c, dh_out, xp and the mask of the next step are fetched
+//      by cp.async while this one runs);
+//   b. the gates from the MI pre-activation, then the cell's reverse maths
+//      for own units: dh = dh_out[t] + hold + the C partial sums of the
+//      recurrent cotangent received last step, added in rank order; dpre
+//      goes to dpre[t], dhp to shared memory;
+//   c. partial[R, H] = dhp[R, own columns] @ ws^T, thread j taking unit j,
+//      dhp broadcast as float4; each unit's part sent to the CTA that owns
+//      it (its slot for this sender, alternating on s & 1);
+//   d. one cluster barrier.
+//
+// What bounds it on the H100: the chain is serial in time, with two [R, H]
+// x [H, 4H]-sized products a step through wh; both read one slice held on
+// chip for the whole sequence, where mi_lstm_stream_bwd.cu reads wh and a
+// transposed copy from L2 every step.  The fixed order of every sum keeps
+// the backward, and so the train steps, bit-reproducible.  The launcher
+// refuses a grid whose clusters are not all resident at once
+// (cudaOccupancyMaxActiveClusters); ops/mi_lstm.py `mi_geometry` picks C, U
+// and R and sends the widths whose slice does not fit (H=300, H=512) to
+// mi_lstm_stream_bwd.cu.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kRows = 4;         // batch rows per block
-constexpr int kMaxThreads = 1024;
+constexpr int kThreads = 256;
+constexpr int kSlice = 128;      // k rows of the weights a thread holds
+constexpr int kMaxCluster = 8;   // the portable cluster size
+
+__host__ __device__ constexpr int round4(int n) { return (n + 3) & ~3; }
+
+// Offsets (in floats) of the dynamic shared memory of one CTA; mirrored by
+// ops/mi_lstm.py `mi_cluster_smem`.
+struct BwdLayout {
+  int hp, gcs, ks, hs, ws, hpb, xs, ct, cp, dho, mk, red, dhp, vec, recv,
+      hold, dcs, total;
+  __host__ __device__ BwdLayout(int H, int U, int R, int C) {
+    const int gc = 4 * U;
+    hp = round4(H);
+    gcs = gc + 1;
+    ks = (H + kSlice - 1) / kSlice;  // slices of the H reduction
+    hs = ks * kSlice;                // h rows, zero-padded to whole slices
+    ws = 0;                          // [hp][gcs]   wh[:, own columns]
+    hpb = ws + round4(hp * gcs);     // [2][R][hs]  saved h at t_prev
+    xs = hpb + 2 * R * hs;           // [2][R][gc]  xp of own columns
+    ct = xs + 2 * R * gc;            // [2][R][U]   c at t, own units
+    cp = ct + round4(2 * R * U);     // [2][R][U]   c at t_prev
+    dho = cp + round4(2 * R * U);    // [2][R][U]   dh_out at t
+    mk = dho + round4(2 * R * U);    // [2][R]      mask
+    red = mk + round4(2 * R);        // [ks][R][gc] partial gate products
+    dhp = red + ks * R * gc;         // [R][gc]     dhp of own columns
+    vec = dhp + R * gc;              // [4][gc]     alpha, beta1, beta2, b
+    recv = vec + 4 * gc;             // [2][C][R][U] received partials
+    hold = recv + round4(2 * C * R * U);  // [R][U] dh passed by held frames
+    dcs = hold + round4(R * U);      // [R][U]      dc_next
+    total = dcs + round4(R * U);
+  }
+};
 
 __device__ __forceinline__ float sigmoidf(float x) {
   return 1.f / (1.f + expf(-x));
 }
 
-__global__ void __launch_bounds__(kMaxThreads)
+// 4-byte asynchronous copy global -> shared; zero-fills when !valid
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_prev() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+template <int R>
+__global__ void __launch_bounds__(kThreads, 1)
 mi_lstm_bwd_kernel(const float* __restrict__ xp_f,
                    const float* __restrict__ xp_b,
                    const float* __restrict__ mask,
                    const float* __restrict__ wh_f,
                    const float* __restrict__ wh_b,
-                   const float* __restrict__ wht_f,
-                   const float* __restrict__ wht_b,
                    const float* __restrict__ al_f,
                    const float* __restrict__ al_b,
                    const float* __restrict__ b1_f,
@@ -64,109 +143,204 @@ mi_lstm_bwd_kernel(const float* __restrict__ xp_f,
                    const float* __restrict__ dh_f,
                    const float* __restrict__ dh_b,
                    float* __restrict__ dpre_f, float* __restrict__ dpre_b,
-                   int T, int B, int H, int nsplit) {
-  extern __shared__ float smem[];
-  const int G = 4 * H;
-  const int RH = kRows * H;
-  float* hs = smem;                  // [kRows][H]  h_prev of this step
-  float* hold = hs + RH;             // [kRows][H]  dh passed by held frames
-  float* dcs = hold + RH;            // [kRows][H]  dc_next
-  float* part = dcs + RH;            // [nsplit][kRows][H]  dh_rec partials
-  float* gates = part + nsplit * RH; // [kRows][G]  gates, then dhp
+                   int T, int B, int H, int U) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const BwdLayout L(H, U, R, C);
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  float* ws = smem + L.ws;
+  float* hpb = smem + L.hpb;
+  float* xs = smem + L.xs;
+  float* cts = smem + L.ct;
+  float* cps = smem + L.cp;
+  float* dho = smem + L.dho;
+  float* mk = smem + L.mk;
+  float* red = smem + L.red;
+  float* dhp = smem + L.dhp;
+  float* vec = smem + L.vec;
+  float* recv = smem + L.recv;
+  float* hold = smem + L.hold;
+  float* dcs = smem + L.dcs;
+  const int G = 4 * H, GC = 4 * U, HP = L.hp, GCS = L.gcs, HS = L.hs;
+  const int RU = R * U;
 
-  const bool rev = blockIdx.y == 1;
+  const bool rev = blockIdx.z == 1;
   const float* __restrict__ xp = rev ? xp_b : xp_f;
   const float* __restrict__ wh = rev ? wh_b : wh_f;
-  const float* __restrict__ wht = rev ? wht_b : wht_f;
-  const float* __restrict__ al = rev ? al_b : al_f;
-  const float* __restrict__ b1 = rev ? b1_b : b1_f;
-  const float* __restrict__ b2 = rev ? b2_b : b2_f;
-  const float* __restrict__ bias = rev ? bias_b : bias_f;
+  const float* vsrc[4] = {rev ? al_b : al_f, rev ? b1_b : b1_f,
+                          rev ? b2_b : b2_f, rev ? bias_b : bias_f};
   const float* __restrict__ h = rev ? h_b : h_f;
   const float* __restrict__ c = rev ? c_b : c_f;
   const float* __restrict__ dh_out = rev ? dh_b : dh_f;
   float* __restrict__ dpre = rev ? dpre_b : dpre_f;
-  const int b0 = blockIdx.x * kRows;
-  const int rows = min(kRows, B - b0);
+  const int b0 = blockIdx.y * R;
+  const int u0 = rank * U;
   const int step_dir = rev ? 1 : -1;       // t_prev = t + step_dir
-  const int chunk = (G + nsplit - 1) / nsplit;
+  const int tid = threadIdx.x;
 
-  for (int i = threadIdx.x; i < RH; i += blockDim.x) {
-    hold[i] = 0.f;
-    dcs[i] = 0.f;
+  // the resident slice twice: in shared memory, ws[k][q*U + u] =
+  // wh[k][q*H + u0 + u], for step c's row reads; in registers, thread
+  // (col, ks) holding w[kk] = ws[ks*kSlice + kk][col], for step a
+  for (int i = tid; i < HP * GC; i += kThreads) {
+    const int k = i / GC, col = i - k * GC;
+    const int q = col / U, unit = u0 + col - q * U;
+    ws[k * GCS + col] =
+        (k < H && unit < H) ? wh[static_cast<size_t>(k) * G + q * H + unit]
+                            : 0.f;
   }
-  for (int i = threadIdx.x; i < nsplit * RH; i += blockDim.x) part[i] = 0.f;
+  const int col = tid % GC, ks = tid / GC;
+  const bool active = ks < L.ks;
+  float w[kSlice];
   {
-    const int t = rev ? 0 : T - 1;
-    const int tp = t + step_dir;
-    for (int i = threadIdx.x; i < RH; i += blockDim.x) {
-      const int r = i / H;
-      hs[i] = (r < rows && tp >= 0 && tp < T)
-                  ? h[(static_cast<size_t>(tp) * B + b0) * H + i]
+    const int q = col / U, unit = u0 + col - q * U;
+#pragma unroll
+    for (int kk = 0; kk < kSlice; ++kk) {
+      const int k = ks * kSlice + kk;
+      w[kk] = (active && k < H && unit < H)
+                  ? wh[static_cast<size_t>(k) * G + q * H + unit]
                   : 0.f;
     }
   }
-  __syncthreads();
+  // the MI vectors of own columns: vec[v][q*U + u] = vsrc[v][q*H + u0 + u]
+  for (int i = tid; i < 4 * GC; i += kThreads) {
+    const int v = i / GC, j = i - v * GC;
+    const int q = j / U, unit = u0 + j - q * U;
+    vec[i] = unit < H ? vsrc[v][q * H + unit] : 0.f;
+  }
+  for (int i = tid; i < R * GC; i += kThreads) dhp[i] = 0.f;
+  for (int i = tid; i < 2 * C * RU; i += kThreads) recv[i] = 0.f;
+  for (int i = tid; i < RU; i += kThreads) {
+    hold[i] = 0.f;
+    dcs[i] = 0.f;
+  }
 
-  for (int s = 0; s < T; ++s) {
+  // everything step s reads from device memory, into slot s & 1
+  auto prefetch = [&](int s) {
     const int t = rev ? s : T - 1 - s;
     const int tp = t + step_dir;
     const bool has_prev = tp >= 0 && tp < T;
-    const size_t row0 = static_cast<size_t>(t) * B + b0;
+    const int slot = s & 1;
+    for (int i = tid; i < R * GC; i += kThreads) {
+      const int r = i / GC, col = i - r * GC;
+      const int q = col / U, unit = u0 + col - q * U;
+      const int b = b0 + r;
+      const bool ok = b < B && unit < H;
+      cp_async4(xs + slot * R * GC + i,
+                ok ? xp + (static_cast<size_t>(t) * B + b) * G + q * H + unit
+                   : xp,
+                ok);
+    }
+    for (int i = tid; i < R * HS; i += kThreads) {
+      const int r = i / HS, k = i - r * HS;
+      const int b = b0 + r;
+      const bool ok = has_prev && b < B && k < H;
+      cp_async4(hpb + slot * R * HS + i,
+                ok ? h + (static_cast<size_t>(tp) * B + b) * H + k : h, ok);
+    }
+    for (int i = tid; i < RU; i += kThreads) {
+      const int r = i / U, unit = u0 + i - r * U;
+      const int b = b0 + r;
+      const bool ok = b < B && unit < H;
+      const size_t o = (static_cast<size_t>(t) * B + b) * H + unit;
+      cp_async4(cts + slot * RU + i, ok ? c + o : c, ok);
+      cp_async4(dho + slot * RU + i, ok ? dh_out + o : dh_out, ok);
+      const bool okp = ok && has_prev;
+      cp_async4(cps + slot * RU + i,
+                okp ? c + (static_cast<size_t>(tp) * B + b) * H + unit : c,
+                okp);
+    }
+    for (int r = tid; r < R; r += kThreads) {
+      const bool ok = b0 + r < B;
+      cp_async4(mk + slot * R + r,
+                ok ? mask + static_cast<size_t>(t) * B + b0 + r : mask, ok);
+    }
+    cp_async_commit();
+  };
 
-    // P1: the MI gate pre-activations, recomputed
-    for (int j = threadIdx.x; j < G; j += blockDim.x) {
-      float acc[kRows];
+  prefetch(0);
+  // every CTA of the cluster is running and initialised before any peer
+  // writes into its shared memory
+  cluster.sync();
+
+  for (int s = 0; s < T; ++s) {
+    const int cur = s & 1;
+    const int t = rev ? s : T - 1 - s;
+    if (s + 1 < T)
+      prefetch(s + 1);
+    else
+      cp_async_commit();
+    cp_async_wait_prev();
+    __syncthreads();
+
+    // a. hp, recomputed from the saved h_prev, the weights from registers
+    if (active) {
+      const float* hk = hpb + cur * R * HS + ks * kSlice;
+      float acc[R];
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) acc[r] = 0.f;
-#pragma unroll 4
-      for (int k = 0; k < H; ++k) {
-        const float w = __ldg(wh + static_cast<size_t>(k) * G + j);
+      for (int r = 0; r < R; ++r) acc[r] = 0.f;
 #pragma unroll
-        for (int r = 0; r < kRows; ++r) acc[r] = fmaf(hs[r * H + k], w, acc[r]);
+      for (int kk = 0; kk < kSlice; kk += 4) {
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const float4 hv =
+              *reinterpret_cast<const float4*>(hk + r * HS + kk);
+          acc[r] = fmaf(hv.x, w[kk], acc[r]);
+          acc[r] = fmaf(hv.y, w[kk + 1], acc[r]);
+          acc[r] = fmaf(hv.z, w[kk + 2], acc[r]);
+          acc[r] = fmaf(hv.w, w[kk + 3], acc[r]);
+        }
       }
-      const float a = __ldg(al + j);
-      const float v1 = __ldg(b1 + j);
-      const float v2 = __ldg(b2 + j);
-      const float vb = __ldg(bias + j);
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float x = r < rows ? xp[(row0 + r) * G + j] : 0.f;
-        gates[r * G + j] = a * x * acc[r] + v1 * x + v2 * acc[r] + vb;
-      }
+      for (int r = 0; r < R; ++r) red[(ks * R + r) * GC + col] = acc[r];
     }
     __syncthreads();
 
-    // P2: the cell's reverse-mode maths, one (row, unit) per thread; dpre
-    // goes out, dhp = dpre * (alpha * xp + beta2) replaces the gates
-    for (int i = threadIdx.x; i < rows * H; i += blockDim.x) {
-      const int r = i / H;
-      const int u = i - r * H;
-      float* g = gates + r * G;
-      const float ig = sigmoidf(g[u]);
-      const float fg = sigmoidf(g[H + u]);
-      const float gg = tanhf(g[2 * H + u]);
-      const float og = sigmoidf(g[3 * H + u]);
-      float dh = dh_out[(row0 + r) * H + u] + hold[i];
-      for (int q = 0; q < nsplit; ++q) dh += part[q * RH + i];
-      const float c_t = c[(row0 + r) * H + u];
-      const float c_prev =
-          has_prev ? c[(static_cast<size_t>(tp) * B + b0 + r) * H + u] : 0.f;
-      const float tc = tanhf(c_t);
+    // b. the MI gates and the cell's reverse-mode maths, one (row, own
+    // unit) per thread
+    const float* x = xs + cur * R * GC;
+    const float* got = recv + (cur ^ 1) * C * RU;
+    for (int i = tid; i < RU; i += kThreads) {
+      const int r = i / U, u = i - r * U, unit = u0 + u;
+      if (unit >= H) continue;
+      float pre[4], xq[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int j = q * U + u;
+        xq[q] = x[r * GC + j];
+        float hpj = 0.f;
+        for (int p = 0; p < L.ks; ++p) hpj += red[(p * R + r) * GC + j];
+        pre[q] = vec[j] * xq[q] * hpj + vec[GC + j] * xq[q] +
+                 vec[2 * GC + j] * hpj + vec[3 * GC + j];
+      }
+      const float ig = sigmoidf(pre[0]);
+      const float fg = sigmoidf(pre[1]);
+      const float gg = tanhf(pre[2]);
+      const float og = sigmoidf(pre[3]);
+      float dh = dho[cur * RU + i] + hold[i];
+      for (int p = 0; p < C; ++p) dh += got[p * RU + i];
+      const float c_prev = cps[cur * RU + i];
+      const float tc = tanhf(cts[cur * RU + i]);
       const float d_o = dh * tc;
       const float dc = dcs[i] + dh * og * (1.f - tc * tc);
-      const bool m = mask[row0 + r] > 0.f;
+      const bool m = mk[cur * R + r] > 0.f;
       const float p[4] = {m ? dc * gg * ig * (1.f - ig) : 0.f,
                           m ? dc * c_prev * fg * (1.f - fg) : 0.f,
                           m ? dc * ig * (1.f - gg * gg) : 0.f,
                           m ? d_o * og * (1.f - og) : 0.f};
-      const float* x = xp + (row0 + r) * G;
-      float* out = dpre + (row0 + r) * G;
 #pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const int j = k * H + u;
-        out[j] = p[k];
-        g[j] = p[k] * (__ldg(al + j) * x[j] + __ldg(b2 + j));
+      for (int q = 0; q < 4; ++q) {
+        const int j = q * U + u;
+        dhp[r * GC + j] = p[q] * (vec[j] * xq[q] + vec[2 * GC + j]);
+      }
+      const int b = b0 + r;
+      if (b < B) {
+        float* out = dpre + (static_cast<size_t>(t) * B + b) * G + unit;
+        out[0] = p[0];
+        out[H] = p[1];
+        out[2 * H] = p[2];
+        out[3 * H] = p[3];
       }
       // held frames pass h and c (and their cotangents) straight through
       hold[i] = m ? 0.f : dh;
@@ -174,67 +348,145 @@ mi_lstm_bwd_kernel(const float* __restrict__ xp_f,
     }
     __syncthreads();
 
-    // P3: dh_rec = dhp @ wht, partial sums over the 4H reduction; next
-    // step's h_prev
-    for (int i = threadIdx.x; i < nsplit * H; i += blockDim.x) {
-      const int q = i / H;
-      const int u = i - q * H;
-      const int j1 = min(G, (q + 1) * chunk);
-      float acc[kRows];
+    // c. dhp[R, own columns] @ ws^T, each unit's part to its owner
+    for (int j = tid; j < H; j += kThreads) {
+      float acc[R];
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) acc[r] = 0.f;
-#pragma unroll 4
-      for (int j = q * chunk; j < j1; ++j) {
-        const float w = __ldg(wht + static_cast<size_t>(j) * H + u);
+      for (int r = 0; r < R; ++r) acc[r] = 0.f;
+      const float* wrow = ws + j * GCS;
+#pragma unroll 2
+      for (int k = 0; k < GC; k += 4) {
+        const float w0 = wrow[k], w1 = wrow[k + 1], w2 = wrow[k + 2],
+                    w3 = wrow[k + 3];
 #pragma unroll
-        for (int r = 0; r < kRows; ++r)
-          acc[r] = fmaf(gates[r * G + j], w, acc[r]);
+        for (int r = 0; r < R; ++r) {
+          const float4 dv =
+              *reinterpret_cast<const float4*>(dhp + r * GC + k);
+          acc[r] = fmaf(dv.x, w0, acc[r]);
+          acc[r] = fmaf(dv.y, w1, acc[r]);
+          acc[r] = fmaf(dv.z, w2, acc[r]);
+          acc[r] = fmaf(dv.w, w3, acc[r]);
+        }
       }
+      const int owner = j / U;
+      float* dst = cluster.map_shared_rank(recv + (cur * C + rank) * RU,
+                                           owner);
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) part[q * RH + r * H + u] = acc[r];
+      for (int r = 0; r < R; ++r) dst[r * U + j - owner * U] = acc[r];
     }
-    {
-      const int tn = tp;                    // the next step's t
-      const int tpn = tn + step_dir;
-      const bool ok = s + 1 < T && tpn >= 0 && tpn < T;
-      for (int i = threadIdx.x; i < RH; i += blockDim.x) {
-        const int r = i / H;
-        hs[i] = (ok && r < rows)
-                    ? h[(static_cast<size_t>(tpn) * B + b0) * H + i]
-                    : 0.f;
-      }
-    }
-    __syncthreads();
+    // d.
+    cluster.sync();
+  }
+}
+
+// The launch configuration of the cluster grid -> its dynamic shared memory
+// and how many of its clusters the card holds at once.
+template <int R>
+cudaError_t configure(int B, int H, int ndir, int C, int U,
+                      cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr,
+                      int* max_clusters) {
+  const size_t smem =
+      sizeof(float) * static_cast<size_t>(BwdLayout(H, U, R, C).total);
+  cudaError_t err = cudaFuncSetAttribute(
+      mi_lstm_bwd_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  *cfg = cudaLaunchConfig_t{};
+  cfg->gridDim = dim3(C, (B + R - 1) / R, ndir);
+  cfg->blockDim = dim3(kThreads);
+  cfg->dynamicSmemBytes = smem;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  return cudaOccupancyMaxActiveClusters(max_clusters, mi_lstm_bwd_kernel<R>,
+                                        cfg);
+}
+
+template <int R>
+cudaError_t launch(const float* xp_f, const float* xp_b, const float* mask,
+                   const float* wh_f, const float* wh_b, const float* al_f,
+                   const float* al_b, const float* b1_f, const float* b1_b,
+                   const float* b2_f, const float* b2_b,
+                   const float* bias_f, const float* bias_b,
+                   const float* h_f, const float* c_f, const float* h_b,
+                   const float* c_b, const float* dh_f, const float* dh_b,
+                   float* dpre_f, float* dpre_b, int T, int B, int H,
+                   int ndir, int C, int U, cudaStream_t stream) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  int fit = 0;
+  cudaError_t err = configure<R>(B, H, ndir, C, U, &cfg, attr, &fit);
+  if (err != cudaSuccess) return err;
+  // all clusters in one wave, or no launch
+  if (fit < static_cast<int>(cfg.gridDim.y * cfg.gridDim.z))
+    return cudaErrorCooperativeLaunchTooLarge;
+  cfg.stream = stream;
+  err = cudaLaunchKernelEx(&cfg, mi_lstm_bwd_kernel<R>, xp_f, xp_b, mask,
+                           wh_f, wh_b, al_f, al_b, b1_f, b1_b, b2_f, b2_b,
+                           bias_f, bias_b, h_f, c_f, h_b, c_b, dh_f, dh_b,
+                           dpre_f, dpre_b, T, B, H, U);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+bool valid_geometry(int H, int ndir, int C, int U) {
+  return ndir >= 1 && ndir <= 2 && C >= 1 && C <= kMaxCluster && U >= 1 &&
+         4 * U * ((H + kSlice - 1) / kSlice) <= kThreads && C * U >= H &&
+         (C - 1) * U < H;
+}
+
+// f(std::integral_constant<int, R>) for the row counts the kernel is built
+// for
+template <typename F>
+cudaError_t by_rows(int R, F&& f) {
+  switch (R) {
+    case 1: return f(std::integral_constant<int, 1>{});
+    case 2: return f(std::integral_constant<int, 2>{});
+    case 4: return f(std::integral_constant<int, 4>{});
+    case 8: return f(std::integral_constant<int, 8>{});
+    default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
+// Launch the backward over ndir directions: clusters of C CTAs of U units
+// each, R (1, 2, 4 or 8) batch rows a cluster.
 extern "C" int asr_mi_lstm_bwd(
     const float* xp_f, const float* xp_b, const float* mask,
-    const float* wh_f, const float* wh_b, const float* wht_f,
-    const float* wht_b, const float* al_f, const float* al_b,
-    const float* b1_f, const float* b1_b, const float* b2_f,
-    const float* b2_b, const float* bias_f, const float* bias_b,
-    const float* h_f, const float* c_f, const float* h_b, const float* c_b,
-    const float* dh_f, const float* dh_b, float* dpre_f, float* dpre_b,
-    int T, int B, int H, int ndir, void* stream) {
-  if (ndir < 1 || ndir > 2) return static_cast<int>(cudaErrorInvalidValue);
-  const int G = 4 * H;
-  const int warps_g = ((G + 31) / 32) * 32;
-  const int threads = warps_g < kMaxThreads ? warps_g : kMaxThreads;
-  const int nsplit = threads / H > 1 ? threads / H : 1;
-  const size_t smem = sizeof(float) * static_cast<size_t>(kRows) *
-                      ((3 + nsplit) * static_cast<size_t>(H) + G);
-  cudaError_t err = cudaFuncSetAttribute(
-      mi_lstm_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((B + kRows - 1) / kRows, ndir);
-  mi_lstm_bwd_kernel<<<grid, threads, smem,
-                       static_cast<cudaStream_t>(stream)>>>(
-      xp_f, xp_b, mask, wh_f, wh_b, wht_f, wht_b, al_f, al_b, b1_f, b1_b,
-      b2_f, b2_b, bias_f, bias_b, h_f, c_f, h_b, c_b, dh_f, dh_b, dpre_f,
-      dpre_b, T, B, H, nsplit);
-  return static_cast<int>(cudaGetLastError());
+    const float* wh_f, const float* wh_b, const float* al_f,
+    const float* al_b, const float* b1_f, const float* b1_b,
+    const float* b2_f, const float* b2_b, const float* bias_f,
+    const float* bias_b, const float* h_f, const float* c_f,
+    const float* h_b, const float* c_b, const float* dh_f,
+    const float* dh_b, float* dpre_f, float* dpre_b, int T, int B, int H,
+    int ndir, int C, int U, int R, void* stream) {
+  if (!valid_geometry(H, ndir, C, U))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(by_rows(R, [&](auto rows) {
+    return launch<decltype(rows)::value>(
+        xp_f, xp_b, mask, wh_f, wh_b, al_f, al_b, b1_f, b1_b, b2_f, b2_b,
+        bias_f, bias_b, h_f, c_f, h_b, c_b, dh_f, dh_b, dpre_f, dpre_b, T,
+        B, H, ndir, C, U, static_cast<cudaStream_t>(stream));
+  }));
+}
+
+// The backward's dynamic shared memory per CTA and the clusters the card
+// holds at once for that launch, without launching.
+extern "C" int asr_mi_lstm_bwd_info(int B, int H, int ndir, int C, int U,
+                                    int R, int* smem_bytes,
+                                    int* max_clusters) {
+  if (!valid_geometry(H, ndir, C, U))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  const cudaError_t err = by_rows(R, [&](auto rows) {
+    return configure<decltype(rows)::value>(B, H, ndir, C, U, &cfg, attr,
+                                            max_clusters);
+  });
+  if (err == cudaSuccess) *smem_bytes = static_cast<int>(cfg.dynamicSmemBytes);
+  return static_cast<int>(err);
 }

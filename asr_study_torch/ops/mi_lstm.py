@@ -11,16 +11,30 @@ the bias out of it) and ``hp = h_prev @ wh``; alpha, beta1, beta2 and b
 [4H] ride along with wh.  Then the LSTM update, gate order i, f, g, o;
 masked frames hold h and c.
 
-The kernels are ``csrc/mi_lstm_fwd.cu`` and ``csrc/mi_lstm_bwd.cu``; each
-takes the number of directions, so :func:`bi_mi_lstm` and :func:`mi_lstm`
-launch the same forward kernel with 2 and 1 directions, and
-:func:`bi_mi_lstm_bwd` and :func:`mi_lstm_bwd` the same backward kernel.
-Each of the four wrappers counts its own launches.  A CUDA tensor launches
-the kernel (or raises); a CPU tensor takes the plain version, a Python loop
-over time.  Neither records an autograd graph: gradients go through
-:class:`BiMILSTMFunction` and :class:`MILSTMFunction`, whose backward is
-the backward kernel (``dpre``, the gate pre-activation cotangents) plus
-:func:`dir_grads` per direction.
+Two designs of the kernels, each taking the number of directions, so
+:func:`bi_mi_lstm` and :func:`mi_lstm` launch the same forward kernel with 2
+and 1 directions, and :func:`bi_mi_lstm_bwd` and :func:`mi_lstm_bwd` the
+same backward kernel:
+
+- ``cluster``: ``csrc/mi_lstm_fwd.cu`` and ``csrc/mi_lstm_bwd.cu``, the
+  recurrent weights resident in a thread-block cluster (its threads'
+  registers, and for the backward its shared memory too) for the whole
+  sequence, h and the cotangent partials exchanged through distributed
+  shared memory;
+- ``stream``: ``csrc/mi_lstm_stream_fwd.cu`` and
+  ``csrc/mi_lstm_stream_bwd.cu``, one block per (direction, 4 rows)
+  streaming ``wh`` from L2 every step, for the widths whose weights do not
+  fit in a cluster (H=300, H=512).
+
+:func:`mi_geometry` picks the design by size alone (the LSTM's fit rule of
+``ops/recurrence.py``, with the LSTM kernels' thread shape); a failed build
+or launch raises either way.  Each of the four wrappers counts its own
+launches, in all and by design (``launches``, ``by_design``).  A CUDA tensor
+launches a kernel (or raises); a CPU tensor takes the plain version, a
+Python loop over time.  Neither records an autograd graph: gradients go
+through :class:`BiMILSTMFunction` and :class:`MILSTMFunction`, whose
+backward is the backward kernel (``dpre``, the gate pre-activation
+cotangents) plus :func:`dir_grads` per direction.
 """
 
 from __future__ import annotations
@@ -29,7 +43,61 @@ import torch
 
 from asr_study_torch import _build
 from asr_study_torch.models.cells import mi_lstm_step
-from asr_study_torch.ops.recurrence import check, cotangent, prev, stream
+from asr_study_torch.ops.bilstm import (CLUSTER_SLICE, CLUSTER_THREADS,
+                                        cluster_smem, stream_smem)
+from asr_study_torch.ops.recurrence import (STREAM_ROWS, Geometry, check,
+                                            cluster_geometry, cotangent,
+                                            kernel_info, prev, stream)
+
+
+def mi_cluster_smem(hidden: int, units: int, rows: int, ctas: int
+                    ) -> tuple[int, int]:
+    """Dynamic shared memory per CTA of the cluster forward and backward,
+    bytes: ``FwdLayout`` and ``BwdLayout`` of ``csrc/mi_lstm_{fwd,bwd}.cu``,
+    the LSTM kernels' (``ops/bilstm.py`` ``cluster_smem``) with the MI
+    vectors of the CTA's columns (alpha, beta1, beta2, b: 4 x 4U floats)."""
+    fwd, bwd = cluster_smem(hidden, units, rows, ctas)
+    vecs = 4 * 4 * 4 * units
+    return fwd + vecs, bwd + vecs
+
+
+def mi_stream_smem(hidden: int) -> tuple[int, int]:
+    """Dynamic shared memory per block of the stream forward and backward,
+    bytes: the formulas of ``csrc/mi_lstm_stream_{fwd,bwd}.cu``, which are
+    ``csrc/lstm_stream_{fwd,bwd}.cu``'s (``ops/bilstm.py``
+    ``stream_smem``)."""
+    return stream_smem(hidden)
+
+
+def mi_geometry(hidden: int, batch: int, ndir: int) -> Geometry:
+    """The design and layout of the MI-LSTM kernels for width ``hidden``,
+    ``batch`` rows and ``ndir`` directions: ``cluster`` where
+    :func:`~asr_study_torch.ops.recurrence.cluster_geometry` fits four gate
+    columns a unit in 256 threads of 128 rows (H=256: 8 CTAs of 32 units,
+    R=4 rows a cluster in one direction and R=8 in two at B=32, 8 clusters
+    either way; H=100: 13 units, the last CTA 9); ``stream`` otherwise
+    (H=300: 4 x 38 columns of three slices would take 456 threads; H=512).
+    """
+    return (cluster_geometry(hidden, batch, ndir, 4, CLUSTER_THREADS,
+                             CLUSTER_SLICE, mi_cluster_smem)
+            or mi_stream_geometry(hidden, batch, ndir))
+
+
+def mi_stream_geometry(hidden: int, batch: int, ndir: int) -> Geometry:
+    """The stream design's layout, at any width: the one
+    :func:`mi_geometry` gives where the cluster design does not fit."""
+    fwd, bwd = mi_stream_smem(hidden)
+    return Geometry("stream", 1, hidden, STREAM_ROWS,
+                    (1, -(-batch // STREAM_ROWS), ndir), fwd, bwd)
+
+
+def mi_cluster_info(geo: Geometry, batch: int, hidden: int, backward: bool
+                    ) -> tuple[int, int]:
+    """On the card: (dynamic shared memory per CTA the kernel sizes,
+    clusters of this launch the card holds at once), from the kernel's own
+    launch configuration (``asr_mi_lstm_{fwd,bwd}_info``)."""
+    return kernel_info("mi_lstm_bwd_info" if backward else "mi_lstm_fwd_info",
+                       geo, batch, hidden)
 
 
 def _scan(xp, mask, wh, alpha, beta1, beta2, b, reverse: bool
@@ -63,25 +131,40 @@ def mi_lstm_plain(xp, mask, wh, alpha, beta1, beta2, b
     return _scan(xp, mask, wh, alpha, beta1, beta2, b, False)
 
 
-def _fwd_kernel(name: str, xps: list, mask: torch.Tensor, whs: list,
-                vecs: list) -> list:
-    """Launch ``mi_lstm_fwd`` over ``len(xps)`` directions (the second one
-    walks time backward) -> [h, c] per direction, flattened.  ``vecs``:
-    alpha, beta1, beta2 and b of each direction, in that order."""
+def _geometry(xp: torch.Tensor, ndir: int) -> Geometry:
+    return mi_geometry(xp.shape[2] // 4, xp.shape[1], ndir)
+
+
+def _pairs(vecs: list, ndir: int) -> list:
+    """alpha, beta1, beta2 and b, each as (forward, backward direction):
+    ``vecs`` holds each vector of every direction in turn."""
+    return [a for k in range(4)
+            for a in (vecs[k * ndir], vecs[k * ndir + ndir - 1])]
+
+
+def launch_fwd(geo: Geometry, xps: list, mask: torch.Tensor, whs: list,
+               vecs: list) -> list:
+    """Launch the forward over ``len(xps)`` directions (the second one walks
+    time backward) in the design and layout ``geo`` -> [h, c] per
+    direction, flattened.  ``vecs``: alpha, beta1, beta2 and b, each of
+    every direction in turn.  The wrappers count the launches."""
     t_steps, batch, gh = xps[0].shape
-    n = len(xps)
-    outs = [torch.empty((t_steps, batch, gh // 4), dtype=torch.float32,
-                        device=xps[0].device) for _ in range(2 * n)]
+    hidden, ndir = gh // 4, len(xps)
+    outs = [torch.empty((t_steps, batch, hidden), dtype=torch.float32,
+                        device=xps[0].device) for _ in range(2 * ndir)]
     if outs[0].numel() == 0:
         return outs
-    pairs = [a for k in range(4) for a in (vecs[k * n], vecs[k * n + n - 1])]
-    args = (xps[0], xps[-1], mask, whs[0], whs[-1], *pairs, outs[0],
-            outs[1], outs[-2], outs[-1])
+    args = (xps[0], xps[-1], mask, whs[0], whs[-1], *_pairs(vecs, ndir),
+            outs[0], outs[1], outs[-2], outs[-1])
+    ptrs = (*(a.data_ptr() for a in args), t_steps, batch, hidden, ndir)
     with torch.cuda.device(xps[0].device):
-        err = _build.lib().asr_mi_lstm_fwd(
-            *(a.data_ptr() for a in args), t_steps, batch, gh // 4, n,
-            stream(xps[0]))
-    _build.check(err, name)
+        if geo.design == "cluster":
+            err = _build.lib().asr_mi_lstm_fwd(
+                *ptrs, geo.ctas, geo.units, geo.rows, stream(xps[0]))
+        else:
+            err = _build.lib().asr_mi_lstm_stream_fwd(*ptrs, stream(xps[0]))
+    _build.check(err, f"{'bi_mi_lstm' if ndir == 2 else 'mi_lstm'}_fwd "
+                      f"({geo.design})")
     return outs
 
 
@@ -114,13 +197,15 @@ def bi_mi_lstm(xp_f: torch.Tensor, xp_b: torch.Tensor, mask: torch.Tensor,
     if xp_f.device.type == "cpu":
         with torch.no_grad():
             return bi_mi_lstm_plain(*args)
-    outs = _fwd_kernel("bi_mi_lstm_fwd", [xp_f, xp_b], mask, [wh_f, wh_b],
-                       list(args[5:]))
+    geo = _geometry(xp_f, 2)
+    outs = launch_fwd(geo, [xp_f, xp_b], mask, [wh_f, wh_b], list(args[5:]))
     bi_mi_lstm.launches += 1
+    bi_mi_lstm.by_design[geo.design] += 1
     return tuple(outs)
 
 
 bi_mi_lstm.launches = 0
+bi_mi_lstm.by_design = {"cluster": 0, "stream": 0}
 
 
 def mi_lstm(xp: torch.Tensor, mask: torch.Tensor, wh: torch.Tensor,
@@ -135,13 +220,15 @@ def mi_lstm(xp: torch.Tensor, mask: torch.Tensor, wh: torch.Tensor,
     if xp.device.type == "cpu":
         with torch.no_grad():
             return mi_lstm_plain(xp, mask, wh, alpha, beta1, beta2, b)
-    h, c = _fwd_kernel("mi_lstm_fwd", [xp], mask, [wh],
-                       [alpha, beta1, beta2, b])
+    geo = _geometry(xp, 1)
+    h, c = launch_fwd(geo, [xp], mask, [wh], [alpha, beta1, beta2, b])
     mi_lstm.launches += 1
+    mi_lstm.by_design[geo.design] += 1
     return h, c
 
 
 mi_lstm.launches = 0
+mi_lstm.by_design = {"cluster": 0, "stream": 0}
 
 
 def _walk_bwd(xp, mask, wh, alpha, beta1, beta2, b, h, c, dh_out,
@@ -194,25 +281,35 @@ def mi_lstm_bwd_plain(xp, mask, wh, alpha, beta1, beta2, b, h, c, dh
     return _walk_bwd(xp, mask, wh, alpha, beta1, beta2, b, h, c, dh, False)
 
 
-def _bwd_kernel(name: str, xps: list, mask: torch.Tensor, whs: list,
-                vecs: list, hs: list, cs: list, dhs: list) -> list:
-    """Launch ``mi_lstm_bwd`` over ``len(xps)`` directions -> dpre per
-    direction (``vecs`` as in :func:`_fwd_kernel`)."""
+def launch_bwd(geo: Geometry, xps: list, mask: torch.Tensor, whs: list,
+               vecs: list, hs: list, cs: list, dhs: list) -> list:
+    """Launch the backward over ``len(xps)`` directions in the design and
+    layout ``geo`` -> dpre per direction (``vecs`` as in
+    :func:`launch_fwd`).  The cluster design holds its slice of ``wh`` on
+    chip; the stream design also reads ``wh`` transposed, made here.  The
+    wrappers count the launches."""
     outs = [torch.empty_like(x) for x in xps]
     if outs[0].numel() == 0:
         return outs
     t_steps, batch, gh = xps[0].shape
-    n = len(xps)
-    whts = [w.t().contiguous() for w in whs]
-    pairs = [a for k in range(4) for a in (vecs[k * n], vecs[k * n + n - 1])]
-    args = (xps[0], xps[-1], mask, whs[0], whs[-1], whts[0], whts[-1],
-            *pairs, hs[0], cs[0], hs[-1], cs[-1], dhs[0], dhs[-1], outs[0],
-            outs[-1])
+    hidden, ndir = gh // 4, len(xps)
+    seqs = (*_pairs(vecs, ndir), hs[0], cs[0], hs[-1], cs[-1], dhs[0],
+            dhs[-1], outs[0], outs[-1])
     with torch.cuda.device(xps[0].device):
-        err = _build.lib().asr_mi_lstm_bwd(
-            *(a.data_ptr() for a in args), t_steps, batch, gh // 4, n,
-            stream(xps[0]))
-    _build.check(err, name)
+        if geo.design == "cluster":
+            args = (xps[0], xps[-1], mask, whs[0], whs[-1], *seqs)
+            err = _build.lib().asr_mi_lstm_bwd(
+                *(a.data_ptr() for a in args), t_steps, batch, hidden, ndir,
+                geo.ctas, geo.units, geo.rows, stream(xps[0]))
+        else:
+            whts = [w.t().contiguous() for w in whs]
+            args = (xps[0], xps[-1], mask, whs[0], whs[-1], whts[0],
+                    whts[-1], *seqs)
+            err = _build.lib().asr_mi_lstm_stream_bwd(
+                *(a.data_ptr() for a in args), t_steps, batch, hidden, ndir,
+                stream(xps[0]))
+    _build.check(err, f"{'bi_mi_lstm' if ndir == 2 else 'mi_lstm'}_bwd "
+                      f"({geo.design})")
     return outs
 
 
@@ -235,14 +332,16 @@ def bi_mi_lstm_bwd(xp_f, xp_b, mask, wh_f, wh_b, alpha_f, alpha_b, beta1_f,
         with torch.no_grad():
             return bi_mi_lstm_bwd_plain(xp_f, xp_b, mask, wh_f, wh_b, *vecs,
                                         h_f, c_f, h_b, c_b, dh_f, dh_b)
-    dpre_f, dpre_b = _bwd_kernel("bi_mi_lstm_bwd", [xp_f, xp_b], mask,
-                                 [wh_f, wh_b], vecs, [h_f, h_b], [c_f, c_b],
-                                 [dh_f, dh_b])
+    geo = _geometry(xp_f, 2)
+    dpre_f, dpre_b = launch_bwd(geo, [xp_f, xp_b], mask, [wh_f, wh_b], vecs,
+                                [h_f, h_b], [c_f, c_b], [dh_f, dh_b])
     bi_mi_lstm_bwd.launches += 1
+    bi_mi_lstm_bwd.by_design[geo.design] += 1
     return dpre_f, dpre_b
 
 
 bi_mi_lstm_bwd.launches = 0
+bi_mi_lstm_bwd.by_design = {"cluster": 0, "stream": 0}
 
 
 def mi_lstm_bwd(xp, mask, wh, alpha, beta1, beta2, b, h, c, dh
@@ -256,13 +355,16 @@ def mi_lstm_bwd(xp, mask, wh, alpha, beta1, beta2, b, h, c, dh
         with torch.no_grad():
             return mi_lstm_bwd_plain(xp, mask, wh, alpha, beta1, beta2, b, h,
                                      c, dh)
-    (dpre,) = _bwd_kernel("mi_lstm_bwd", [xp], mask, [wh],
-                          [alpha, beta1, beta2, b], [h], [c], [dh])
+    geo = _geometry(xp, 1)
+    (dpre,) = launch_bwd(geo, [xp], mask, [wh], [alpha, beta1, beta2, b],
+                         [h], [c], [dh])
     mi_lstm_bwd.launches += 1
+    mi_lstm_bwd.by_design[geo.design] += 1
     return dpre
 
 
 mi_lstm_bwd.launches = 0
+mi_lstm_bwd.by_design = {"cluster": 0, "stream": 0}
 
 
 def dir_grads(dpre, xp, h, wh, alpha, beta1, beta2, reverse: bool

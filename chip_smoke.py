@@ -37,18 +37,21 @@ Phases, in order; any failure raises and the exit code is not 0:
    time, its bound and the time of the PyTorch library call that computes
    the same function (cuDNN ``nn.LSTM`` / ``nn.GRU``, ``F.ctc_loss``; none
    for fbank, dpack_decode and the layer-norm, zoneout and MI LSTMs); the
-   LSTM and GRU kernels also at H=512 and H=100, and at shapes ragged for
-   the cluster design's tiling (H=100, B=5 and B=33, a row masked
+   LSTM, GRU and MI kernels also at H=512 and H=100, and at shapes ragged
+   for the cluster design's tiling (H=100, B=5 and B=33, a row masked
    throughout, T=1), with the design each width takes, its cluster
-   geometry and shared memory; at H=256 the cluster design timed in turns
+   geometry and shared memory; the LSTM stream design at H=512 beside
+   cuDNN at the same shapes; at H=256 the cluster design timed in turns
    against the stream design it replaced (through the latter's C entry
-   point) beside cuDNN, the layer-norm LSTM kernels too (no cuDNN); the
-   zoneout kernels with Bernoulli and with constant mix weights; the dpack
+   point) beside cuDNN, the layer-norm and MI LSTM kernels too (no cuDNN);
+   the MI kernels at alpha = 0, beta1 = beta2 = 1 against the LSTM
+   kernels; the zoneout kernels with Bernoulli and with constant mix
+   weights; the dpack
    decode bit for bit over the whole stream of every serving batch and of
    an edge batch, with the host encode time;
 4. the serving slices, with launch counters proving their kernels ran
-   (the LSTM, GRU and layer-norm LSTM kernels in the design their width
-   takes),
+   (the LSTM, GRU, layer-norm and MI LSTM kernels in the design their
+   width takes),
    logits held against the plain path on the CPU (for ln_blstm, whose
    recurrence is chaotic, on a batch cut to LN_CHECK_T frames); the dpack
    slice's logits and transcripts equal to the pcm16 slice's, the mulaw
@@ -649,11 +652,11 @@ def check_gru_kernels(dev: torch.device, card: str, x_serve: torch.Tensor,
 
 
 def cell_family_smem(hidden: int) -> tuple[int, int, int]:
-    """Dynamic shared memory of zoneout_lstm_fwd / mi_lstm_fwd and
-    zoneout_lstm_bwd / mi_lstm_bwd per block at width ``hidden`` (one block
-    per direction and 4 rows, the layout of csrc/lstm_stream_*.cu), by the
-    formulas of their C entry points -> (forward bytes, backward bytes, the
-    backward's partial sums per unit)."""
+    """Dynamic shared memory of zoneout_lstm_fwd and zoneout_lstm_bwd per
+    block at width ``hidden`` (one block per direction and 4 rows, the
+    layout of csrc/lstm_stream_*.cu), by the formulas of their C entry
+    points -> (forward bytes, backward bytes, the backward's partial sums
+    per unit)."""
     gates = 4 * hidden
     threads = min(-(-gates // 32) * 32, 1024)
     nsplit = max(threads // hidden, 1)
@@ -662,23 +665,26 @@ def cell_family_smem(hidden: int) -> tuple[int, int, int]:
 
 
 def print_cluster_geometry() -> None:
-    """The LSTM, GRU and layer-norm LSTM kernels' design at each width of
-    the zoo (and H=100) and each direction count, at B=32: the cluster
+    """The LSTM, GRU, layer-norm and MI LSTM kernels' design at each width
+    of the zoo (and H=100) and each direction count, at B=32: the cluster
     geometry and shared memory, held against the kernels' own launch
-    configuration (asr_{bilstm,gru,ln_lstm}_{fwd,bwd}_info), and the
-    clusters the card holds at once against those the launch needs."""
+    configuration (asr_{bilstm,gru,ln_lstm,mi_lstm}_{fwd,bwd}_info), and
+    the clusters the card holds at once against those the launch needs."""
     from asr_study_torch.ops.bilstm import (CLUSTER_THREADS, cluster_info,
                                             lstm_geometry)
     from asr_study_torch.ops.gru import (GRU_THREADS, gru_cluster_info,
                                          gru_geometry)
     from asr_study_torch.ops.ln_lstm import ln_cluster_info, ln_geometry
+    from asr_study_torch.ops.mi_lstm import mi_cluster_info, mi_geometry
 
     families = (("bilstm", "lstm", lstm_geometry, cluster_info,
                  CLUSTER_THREADS, "bilstm", "lstm_stream"),
                 ("bigru", "gru", gru_geometry, gru_cluster_info, GRU_THREADS,
                  "gru", "gru_stream"),
                 ("bi_ln_lstm", "ln_lstm", ln_geometry, ln_cluster_info,
-                 CLUSTER_THREADS, "ln_lstm", "ln_lstm_stream"))
+                 CLUSTER_THREADS, "ln_lstm", "ln_lstm_stream"),
+                ("bi_mi_lstm", "mi_lstm", mi_geometry, mi_cluster_info,
+                 CLUSTER_THREADS, "mi_lstm", "mi_lstm_stream"))
     for bi, uni, geometry, info, threads, cluster_src, stream_src in \
             families:
         for hidden in (100, HIDDEN, 512):
@@ -708,6 +714,42 @@ def print_cluster_geometry() -> None:
                 require(min(fwd_fit, bwd_fit) >= clusters,
                         f"the {names} clusters at H={hidden} do not fit in "
                         f"one wave")
+
+
+def time_in_turns(card: str, label: str, cluster_fn, stream_fn, steps: int,
+                  geo, passes: int, rest: str, gates: int = 4,
+                  library: tuple[str, float] | None = None) -> float:
+    """One kernel's cluster and stream designs timed in turns, cluster,
+    stream, stream, cluster, 5 calls a turn, at H=HIDDEN and B=BATCH ->
+    the cluster design's mean ms.  Prints both, the library call's time
+    where there is one (``library``: its name and ms in this run), and the
+    cluster design's step split into the FMA time of one CTA's slice
+    (``passes`` [R, H] x [H, gates*U] products a step in the layout
+    ``geo``, at 128 FMAs a clock and the card's SM clock) and the
+    ``rest``."""
+    turns = {"cluster": [], "stream": []}
+    for design in ("cluster", "stream", "stream", "cluster"):
+        turns[design].append(cuda_ms(
+            cluster_fn if design == "cluster" else stream_fn, 5))
+    clk = sm_clock_hz()
+    fmas = passes * geo.rows * HIDDEN * gates * geo.units
+    c_ms = sum(turns["cluster"]) / 2
+    s_ms = sum(turns["stream"]) / 2
+    step_us = 1e3 * c_ms / steps
+    fma_us = 1e6 * fmas / (128 * clk)
+    lib = ("" if library is None else
+           f"{library[0]} {library[1]:.4f} ms ({library[1] / c_ms:.2f}x the "
+           f"cluster design); ")
+    print(f"[{card}] {label} at H={HIDDEN} T={steps} B={BATCH} "
+          f"(R={geo.rows}), in turns: cluster design "
+          f"{turns['cluster'][0]:.4f} / {turns['cluster'][1]:.4f} ms, "
+          f"stream design {turns['stream'][0]:.4f} / "
+          f"{turns['stream'][1]:.4f} ms ({s_ms / c_ms:.2f}x); {lib}"
+          f"{step_us:.3f} us a step, of which the {fmas} FMAs of one "
+          f"CTA's slice take {fma_us:.3f} us at 128 a clock and the SM "
+          f"clock {clk / 1e6:.0f} MHz, the rest ({rest}) "
+          f"{step_us - fma_us:.3f} us")
+    return c_ms
 
 
 def ln_smem(hidden: int) -> tuple[int, int, int]:
@@ -812,29 +854,9 @@ def check_ln_kernels(dev: torch.device, card: str, x_serve: torch.Tensor,
         return want
 
     def in_turns(label, cluster_fn, stream_fn, steps, ndir, passes):
-        """Both designs timed in turns, cluster, stream, stream, cluster ->
-        the cluster design's mean ms."""
-        turns = {"cluster": [], "stream": []}
-        for design in ("cluster", "stream", "stream", "cluster"):
-            turns[design].append(cuda_ms(
-                cluster_fn if design == "cluster" else stream_fn, 5))
-        clk = sm_clock_hz()
-        geo = ln_geometry(h, BATCH, ndir)
-        fmas = passes * geo.rows * h * 4 * geo.units
-        c_ms = sum(turns["cluster"]) / 2
-        s_ms = sum(turns["stream"]) / 2
-        step_us = 1e3 * c_ms / steps
-        fma_us = 1e6 * fmas / (128 * clk)
-        print(f"[{card}] {label} at H={h} T={steps} B={BATCH} "
-              f"(R={geo.rows}), in turns: cluster design "
-              f"{turns['cluster'][0]:.4f} / {turns['cluster'][1]:.4f} ms, "
-              f"stream design {turns['stream'][0]:.4f} / "
-              f"{turns['stream'][1]:.4f} ms ({s_ms / c_ms:.2f}x); "
-              f"{step_us:.3f} us a step, of which the {fmas} FMAs of one "
-              f"CTA's slice take {fma_us:.3f} us at 128 a clock and the SM "
-              f"clock {clk / 1e6:.0f} MHz, the rest (statistics, exchange, "
-              f"barriers, cell, loads) {step_us - fma_us:.3f} us")
-        return c_ms
+        return time_in_turns(card, label, cluster_fn, stream_fn, steps,
+                             ln_geometry(h, BATCH, ndir), passes,
+                             "statistics, exchange, barriers, cell, loads")
 
     def rows_within(got, want, atol, rtol):
         """Every (frame, row) vector: ||got - want|| <= atol + rtol *
@@ -977,7 +999,8 @@ def check_lstm_kernels(dev: torch.device, card: str, x_serve: torch.Tensor,
     and cuDNN's unidirectional ``nn.LSTM``.  Then bilstm_fwd (T=805) and
     bilstm_bwd (T=512) at H=512 (deep_speech's width) and H=100
     (graves2006's) against their plain versions, timed; their xp come from
-    the features through a layer of that width."""
+    the features through a layer of that width.  At H=512 (the stream
+    design) cuDNN's bidirectional ``nn.LSTM`` at the same shapes too."""
     from asr_study_torch.models.zoo import deep_blstm
     from asr_study_torch.ops.bilstm import (LSTMFunction, bilstm, bilstm_bwd,
                                             bilstm_bwd_plain, bilstm_plain,
@@ -1102,6 +1125,21 @@ def check_lstm_kernels(dev: torch.device, card: str, x_serve: torch.Tensor,
               f"H={hidden}, T={t} B={b}: kernel {bwd_ms[0]:.4f} ms, plain "
               f"{bwd_ms[1]:.4f} ms, bound {bwd_bound[0]:.4f} ms "
               f"({bwd_bound[1]})")
+        if hidden == 512:
+            # the library call beside the stream design, at its shapes
+            for what, xs, lens, m in (("fwd", x_serve, len_serve, mask_s),
+                                      ("bwd", x, lengths.to(dev), mask)):
+                y = rnn_yardsticks("lstm", bi, xs, lens, m)
+                print_yardsticks(card, f"cuDNN nn.LSTM bidirectional, "
+                                 f"T={xs.shape[0]} B={xs.shape[1]} "
+                                 f"H={hidden}", y)
+                require(y["out_err"] <= LOGITS_TOL,
+                        f"layer disagrees with nn.LSTM at H={hidden}")
+                lib_ms = y[f"lib_{what}"]
+                k_ms = (fwd_ms if what == "fwd" else bwd_ms)[0]
+                print(f"[{card}] bilstm_{what} at H={hidden} (stream design) "
+                      f"{k_ms:.4f} ms against cuDNN nn.LSTM {lib_ms:.4f} ms "
+                      f"({lib_ms / k_ms:.2f}x the kernel)")
     return {"errs": errs, "times": times, "bounds": bounds,
             "library": library}
 
@@ -1219,28 +1257,10 @@ def check_lstm_designs(dev: torch.device, card: str, x_serve: torch.Tensor,
         }
         for name, (cluster_fn, stream_fn, steps, ndir, passes) in \
                 runs.items():
-            turns = {"cluster": [], "stream": []}
-            for design in ("cluster", "stream", "stream", "cluster"):
-                turns[design].append(cuda_ms(
-                    cluster_fn if design == "cluster" else stream_fn, 5))
-            clk = sm_clock_hz()
-            geo = lstm_geometry(HIDDEN, BATCH, ndir)
-            fmas = passes * geo.rows * HIDDEN * 4 * geo.units
-            c_ms = sum(turns["cluster"]) / 2
-            s_ms = sum(turns["stream"]) / 2
-            step_us = 1e3 * c_ms / steps
-            fma_us = 1e6 * fmas / (128 * clk)
-            print(f"[{card}] {name} at H={HIDDEN} T={steps} B={BATCH}, in "
-                  f"turns: cluster design {turns['cluster'][0]:.4f} / "
-                  f"{turns['cluster'][1]:.4f} ms, stream design "
-                  f"{turns['stream'][0]:.4f} / {turns['stream'][1]:.4f} ms "
-                  f"({s_ms / c_ms:.2f}x); cuDNN {library[name]:.4f} ms "
-                  f"({library[name] / c_ms:.2f}x the cluster design); "
-                  f"{step_us:.3f} us a step, of which the {fmas} FMAs of "
-                  f"one CTA's slice take {fma_us:.3f} us at 128 a clock "
-                  f"and the SM clock {clk / 1e6:.0f} MHz, the rest "
-                  f"(exchange, barrier, cell, loads) {step_us - fma_us:.3f} "
-                  f"us")
+            time_in_turns(card, name, cluster_fn, stream_fn, steps,
+                          lstm_geometry(HIDDEN, BATCH, ndir), passes,
+                          "exchange, barrier, cell, loads",
+                          library=("cuDNN", library[name]))
 
 
 def check_gru_designs(dev: torch.device, card: str, x_serve: torch.Tensor,
@@ -1363,29 +1383,10 @@ def check_gru_designs(dev: torch.device, card: str, x_serve: torch.Tensor,
         }
         for name, (cluster_fn, stream_fn, steps, ndir, passes) in \
                 runs.items():
-            turns = {"cluster": [], "stream": []}
-            for design in ("cluster", "stream", "stream", "cluster"):
-                turns[design].append(cuda_ms(
-                    cluster_fn if design == "cluster" else stream_fn, 5))
-            clk = sm_clock_hz()
-            geo = gru_geometry(HIDDEN, BATCH, ndir)
-            fmas = passes * geo.rows * HIDDEN * 3 * geo.units
-            c_ms = sum(turns["cluster"]) / 2
-            s_ms = sum(turns["stream"]) / 2
-            step_us = 1e3 * c_ms / steps
-            fma_us = 1e6 * fmas / (128 * clk)
-            print(f"[{card}] {name} at H={HIDDEN} T={steps} B={BATCH} "
-                  f"(R={geo.rows}), in turns: cluster design "
-                  f"{turns['cluster'][0]:.4f} / {turns['cluster'][1]:.4f} "
-                  f"ms, stream design {turns['stream'][0]:.4f} / "
-                  f"{turns['stream'][1]:.4f} ms ({s_ms / c_ms:.2f}x); "
-                  f"cuDNN nn.GRU {library[name]:.4f} ms "
-                  f"({library[name] / c_ms:.2f}x the cluster design); "
-                  f"{step_us:.3f} us a step, of which the {fmas} FMAs of "
-                  f"one CTA's slice take {fma_us:.3f} us at 128 a clock "
-                  f"and the SM clock {clk / 1e6:.0f} MHz, the rest "
-                  f"(exchange, barrier, cell, loads) {step_us - fma_us:.3f} "
-                  f"us")
+            time_in_turns(card, name, cluster_fn, stream_fn, steps,
+                          gru_geometry(HIDDEN, BATCH, ndir), passes,
+                          "exchange, barrier, cell, loads", gates=3,
+                          library=("cuDNN nn.GRU", library[name]))
 
 
 def check_cell_family(dev: torch.device, card: str, x_serve: torch.Tensor,
@@ -1404,7 +1405,13 @@ def check_cell_family(dev: torch.device, card: str, x_serve: torch.Tensor,
     eval constant 0.9, and the zoneout forward at zh = zc = 1 against
     the LSTM kernel of its own layout (the stream design).  The MI vectors
     alpha, beta1, beta2 and b are moved off their init by seeded noise, so
-    that each one the kernels take matters.
+    that each one the kernels take matters.  The MI kernels run the design
+    ``mi_geometry`` gives (the cluster one at H=256: held by the by-design
+    counts), are timed in turns against the stream design (its C entry
+    point through ``launch_fwd`` / ``launch_bwd``, which count no launch),
+    and are held at alpha = 0, beta1 = beta2 = 1 against the cluster LSTM
+    kernels fed xp + b, where the MI pre-activation is the LSTM's; then
+    ``check_mi_designs`` holds them at ragged shapes.
     The forward's h is also printed against a float64 run of the plain
     loop, the recurrence's own fp32 spread."""
     from asr_study_torch.models.zoo import build_model
@@ -1450,6 +1457,25 @@ def check_cell_family(dev: torch.device, card: str, x_serve: torch.Tensor,
     def max_err(got, want):
         return max(float((k - p).abs().max()) for k, p in zip(got, want))
 
+    def ran_design(wrapper, before, ndir, batch):
+        """For the MI wrappers, which count by design: one launch since
+        ``before`` (their by-design counts), in the design mi_geometry
+        gives -> its words for the report ("" for zoneout)."""
+        if family != "mi":
+            return ""
+        want = mi.mi_geometry(h, batch, ndir).design
+        after = dict(wrapper.by_design)
+        require(after[want] == before[want] + 1 and sum(after.values())
+                == sum(before.values()) + 1,
+                f"{wrapper.__name__} ran {after} (before {before}), want one "
+                f"more launch of the {want} design")
+        return f" ({want} design)"
+
+    def in_turns(label, cluster_fn, stream_fn, steps, ndir, passes):
+        return time_in_turns(card, label, cluster_fn, stream_fn, steps,
+                             mi.mi_geometry(h, BATCH, ndir), passes,
+                             "exchange, barrier, cell, loads")
+
     mixes = ("bernoulli", "constant") if family == "zoneout" else ("-",)
     errs, times, bounds = {}, {}, {}
     t_s = x_serve.shape[0]
@@ -1481,18 +1507,30 @@ def check_cell_family(dev: torch.device, card: str, x_serve: torch.Tensor,
             n = len(xps)
             args = (*xps, mask_s, *res)
             with torch.no_grad():
+                before = dict(getattr(fwd, "by_design", {}))
                 got, want = fwd(*args), fwd_plain(*args)
+                torch.cuda.synchronize()
+                design = ran_design(fwd, before, n, BATCH)
                 ref = fwd_plain(*(a.double() for a in args))[0::2]
                 drift = [max_err([r.double() for r in run], ref)
                          for run in (got[0::2], want[0::2])]
-                if mix != "constant":
+                if family == "mi":
+                    geo_s = mi.mi_stream_geometry(h, BATCH, n)
+                    times[f"{name}_fwd"] = (
+                        in_turns(f"{name}_fwd", lambda: fwd(*args),
+                                 lambda: mi.launch_fwd(
+                                     geo_s, list(xps), mask_s, list(res[:n]),
+                                     list(res[n:])), t_s, n, 1),
+                        cuda_ms(lambda: fwd_plain(*args), 2, 1))
+                elif mix != "constant":
                     times[f"{name}_fwd"] = (
                         cuda_ms(lambda: fwd(*args), 10),
                         cuda_ms(lambda: fwd_plain(*args), 2, 1))
             err = max_err(got, want)
             errs[f"{name}_fwd"] = max(err, errs.get(f"{name}_fwd", 0.0))
             bounds[f"{name}_fwd"] = rnn_bound(xps[0], h, n, 1, (*args, *got))
-            print(f"{name}_fwd kernel vs plain{how}: T={t_s} B={BATCH} H={h} "
+            print(f"{name}_fwd kernel{design} vs plain{how}: T={t_s} "
+                  f"B={BATCH} H={h} "
                   f"lengths {int(len_serve.min())}..{int(len_serve.max())} "
                   f"max_abs_err={err:.3e} (h "
                   f"{max_err(got[0::2], want[0::2]):.2e} c "
@@ -1525,11 +1563,24 @@ def check_cell_family(dev: torch.device, card: str, x_serve: torch.Tensor,
             xps, res = prepared(layer, x, train)
             args = (*xps, mask, *res)
             with torch.no_grad():
-                bwd_args = (*args, *fwd(*args), *dh[:n])
+                hc = fwd(*args)
+                bwd_args = (*args, *hc, *dh[:n])
+                before = dict(getattr(bwd, "by_design", {}))
                 d_k, d_p = bwd(*bwd_args), bwd_plain(*bwd_args)
+                torch.cuda.synchronize()
+                design = ran_design(bwd, before, n, b)
                 d_k = d_k if n == 2 else (d_k,)
                 d_p = d_p if n == 2 else (d_p,)
-                if mix != "constant":
+                if family == "mi":
+                    geo_s = mi.mi_stream_geometry(h, b, n)
+                    times[f"{name}_bwd"] = (
+                        in_turns(f"{name}_bwd", lambda: bwd(*bwd_args),
+                                 lambda: mi.launch_bwd(
+                                     geo_s, list(xps), mask, list(res[:n]),
+                                     list(res[n:]), list(hc[0::2]),
+                                     list(hc[1::2]), dh[:n]), t, n, 2),
+                        cuda_ms(lambda: bwd_plain(*bwd_args), 2, 1))
+                elif mix != "constant":
                     times[f"{name}_bwd"] = (
                         cuda_ms(lambda: bwd(*bwd_args), 10),
                         cuda_ms(lambda: bwd_plain(*bwd_args), 2, 1))
@@ -1553,7 +1604,8 @@ def check_cell_family(dev: torch.device, card: str, x_serve: torch.Tensor,
                             / w_p[i].grad.abs().max()) for i in diff]
             by_kind = {k: max(p_errs[j * n: (j + 1) * n])
                        for j, k in enumerate(grad_names)}
-            print(f"{name}_bwd kernel vs plain{how}: T={t} B={b} H={h} "
+            print(f"{name}_bwd kernel{design} vs plain{how}: T={t} B={b} "
+                  f"H={h} "
                   f"lengths {int(lengths.min())}..{t} max_abs_err={err:.3e} "
                   f"(max|{'dpre' if family == 'mi' else 'dxp'}| "
                   f"{max(float(p.abs().max()) for p in d_p):.4g}; tol "
@@ -1567,6 +1619,10 @@ def check_cell_family(dev: torch.device, card: str, x_serve: torch.Tensor,
                     f"{name}_bwd kernel disagrees with plain{how}")
             require(max(p_errs) <= DWH_RTOL,
                     f"{fn.__name__} gradients disagree with autograd{how}")
+            if family == "mi":
+                check_mi_anchor(name, xps, mask, res, dh[:n])
+    if family == "mi":
+        check_mi_designs(dev)
     print(f"{family} LSTM library yardstick: none; no PyTorch call computes "
           f"a{' zoneout' if family == 'zoneout' else 'n MI'} LSTM (cuDNN's "
           f"nn.LSTM has no {'zoneout mix' if family == 'zoneout' else 'multiplicative integration'}), "
@@ -1576,6 +1632,128 @@ def check_cell_family(dev: torch.device, card: str, x_serve: torch.Tensor,
               f"bound {bounds[name][0]:.4f} ms ({bounds[name][1]})")
     return {"errs": errs, "times": times, "bounds": bounds,
             "library": dict.fromkeys(times)}
+
+
+def check_mi_anchor(name: str, xps: list, mask: torch.Tensor, res: list,
+                    dhs: list) -> None:
+    """The MI kernels at alpha = 0 and beta1 = beta2 = 1, where the MI
+    pre-activation is the LSTM's, xp + hp + b: ``name``'s forward (two
+    directions of mi_lstm_fwd, or one) against the cluster LSTM forward
+    (bilstm_fwd, or lstm_fwd) fed xp + b, at the BILSTM_* bounds, and its
+    backward's dpre against the LSTM backward's dxp from the same h and c,
+    at the BWD_* bounds.  ``res``: the layer's wh, alpha, beta1, beta2 and
+    b, each of every direction in turn (only wh and b are used)."""
+    from asr_study_torch.ops import mi_lstm as mi
+    from asr_study_torch.ops.bilstm import (bilstm, bilstm_bwd, lstm,
+                                            lstm_bwd, lstm_geometry)
+
+    n = len(xps)
+    t, b, gh = xps[0].shape
+    whs, bs = list(res[:n]), list(res[4 * n:])
+    ones = [torch.ones_like(v) for v in bs]
+    vecs = [torch.zeros_like(v) for v in bs] + ones + ones + bs
+    lstm_xps = [(x + b_).contiguous() for x, b_ in zip(xps, bs)]
+    designs = {lstm_geometry(gh // 4, b, n).design,
+               mi.mi_geometry(gh // 4, b, n).design}
+    require(designs == {"cluster"}, f"{name} anchor runs {designs}")
+    with torch.no_grad():
+        if n == 2:
+            got = mi.bi_mi_lstm(*xps, mask, *whs, *vecs)
+            want = bilstm(*lstm_xps, mask, *whs)
+            d_k = mi.bi_mi_lstm_bwd(*xps, mask, *whs, *vecs, *want, *dhs)
+            d_w = bilstm_bwd(*lstm_xps, mask, *whs, *want, *dhs)
+        else:
+            got = mi.mi_lstm(xps[0], mask, whs[0], *vecs)
+            want = lstm(lstm_xps[0], mask, whs[0])
+            d_k = (mi.mi_lstm_bwd(xps[0], mask, whs[0], *vecs, *want,
+                                  dhs[0]),)
+            d_w = (lstm_bwd(lstm_xps[0], mask, whs[0], *want, dhs[0]),)
+    torch.cuda.synchronize()
+    f_err = max(float((k - w).abs().max()) for k, w in zip(got, want))
+    b_err = max(float((k - w).abs().max()) for k, w in zip(d_k, d_w))
+    print(f"{name} at alpha = 0, beta1 = beta2 = 1 vs the cluster "
+          f"{'bilstm' if n == 2 else 'lstm'} kernels fed xp + b: T={t} B={b} "
+          f"H={gh // 4}, forward max_abs_err={f_err:.3e} (tol "
+          f"{BILSTM_ATOL:g} + {BILSTM_RTOL:g}*|lstm|), dpre vs dxp "
+          f"max_abs_err={b_err:.3e} (tol {BWD_ATOL:g} + {BWD_RTOL:g}*|lstm|)")
+    require(all(within(k, w, BILSTM_ATOL, BILSTM_RTOL)
+                for k, w in zip(got, want)),
+            f"{name}_fwd at alpha = 0 differs from the LSTM kernel")
+    require(all(within(k, w, BWD_ATOL, BWD_RTOL) for k, w in zip(d_k, d_w)),
+            f"{name}_bwd at alpha = 0 differs from the LSTM kernel")
+
+
+def check_mi_designs(dev: torch.device) -> None:
+    """Phase 3 for the MI-LSTM kernels beyond the main paths, as
+    ``check_gru_designs`` for the GRU: the four wrappers against their
+    plain versions at shapes ragged for the cluster tiling (H=100: 13 units
+    a CTA, the last CTA 9; B=5 and B=33, rows left over in the last group;
+    a row masked on every frame; T=1) and at H=512 (the stream design),
+    each case in the design ``mi_geometry`` picks (held by the by-design
+    counts), at the forward and backward tolerances.  The MI vectors are
+    about 1 (alpha, beta1, beta2) and 0 (b), none exactly."""
+    from asr_study_torch.ops.mi_lstm import (bi_mi_lstm, bi_mi_lstm_bwd,
+                                             bi_mi_lstm_bwd_plain,
+                                             bi_mi_lstm_plain, mi_geometry,
+                                             mi_lstm, mi_lstm_bwd,
+                                             mi_lstm_bwd_plain, mi_lstm_plain)
+
+    g = torch.Generator().manual_seed(SEED + 14)
+    wrappers = {"bi_mi_lstm_fwd": bi_mi_lstm, "bi_mi_lstm_bwd": bi_mi_lstm_bwd,
+                "mi_lstm_fwd": mi_lstm, "mi_lstm_bwd": mi_lstm_bwd}
+    for t, b, h, masked in ((37, 5, 100, True), (29, 33, 100, True),
+                            (40, 33, 256, True), (1, 33, 256, False),
+                            (1, 5, 100, False), (64, 9, 256, True),
+                            (20, 3, 512, True)):
+        xps = [torch.randn(t, b, 4 * h, generator=g) for _ in range(2)]
+        whs = [torch.randn(h, 4 * h, generator=g) / h ** 0.5
+               for _ in range(2)]
+        vecs = [c + 0.3 * torch.randn(4 * h, generator=g)
+                for c in (1.0, 1.0, 1.0, 1.0, 1.0, 1.0, 0.0, 0.0)]
+        lengths = torch.randint(1, t + 1, (b,), generator=g)
+        lengths[0] = t
+        mask = (torch.arange(t)[:, None] < lengths[None, :]).float()
+        if masked:
+            mask[:, b - 1] = 0.0
+        dhs = [torch.randn(t, b, h, generator=g).to(dev) for _ in range(2)]
+        xps = [x.to(dev) for x in xps]
+        whs = [w.to(dev) for w in whs]
+        vecs = [v.to(dev) for v in vecs]
+        mask = mask[..., None].to(dev)
+        designs = {n: mi_geometry(h, b, n).design for n in (2, 1)}
+        before = {k: dict(w.by_design) for k, w in wrappers.items()}
+        with torch.no_grad():
+            bi = (*xps, mask, *whs, *vecs)
+            fb = bi_mi_lstm(*bi), bi_mi_lstm_plain(*bi)
+            bb = (bi_mi_lstm_bwd(*bi, *fb[0], *dhs),
+                  bi_mi_lstm_bwd_plain(*bi, *fb[0], *dhs))
+            uni = (xps[0], mask, whs[0], *vecs[0::2])
+            fu = mi_lstm(*uni), mi_lstm_plain(*uni)
+            bu = ([mi_lstm_bwd(*uni, *fu[0], dhs[0])],
+                  [mi_lstm_bwd_plain(*uni, *fu[0], dhs[0])])
+        torch.cuda.synchronize()
+        for name, w in wrappers.items():
+            design = designs[2 if name.startswith("bi") else 1]
+            require(w.by_design[design] == before[name][design] + 1,
+                    f"{name} did not run the {design} design at T={t} B={b} "
+                    f"H={h}")
+        errs = {}
+        for name, (got, want), atol, rtol in (
+                ("bi_mi_lstm_fwd", fb, BILSTM_ATOL, BILSTM_RTOL),
+                ("bi_mi_lstm_bwd", bb, BWD_ATOL, BWD_RTOL),
+                ("mi_lstm_fwd", fu, BILSTM_ATOL, BILSTM_RTOL),
+                ("mi_lstm_bwd", bu, BWD_ATOL, BWD_RTOL)):
+            errs[name] = max(float((k - p).abs().max())
+                             for k, p in zip(got, want))
+            require(all(within(k, p, atol, rtol) for k, p in zip(got, want)),
+                    f"{name} kernel disagrees with plain at T={t} B={b} "
+                    f"H={h}")
+        print(f"MI kernels vs plain at T={t} B={b} H={h}"
+              f"{', the last row masked throughout' if masked else ''} "
+              f"(designs: bi {designs[2]}, uni {designs[1]}): max_abs_err "
+              + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+              + f" (tol fwd {BILSTM_ATOL:g} + {BILSTM_RTOL:g}*|plain|, bwd "
+              f"{BWD_ATOL:g} + {BWD_RTOL:g}*|plain|)")
 
 
 class Wire(NamedTuple):
@@ -1816,12 +1994,13 @@ def launch_counters() -> dict:
             "dpack_decode": dpack_decode}
 
 
-# the wrappers of the LSTM, GRU and layer-norm LSTM kernels, which count
-# their launches by design too
+# the wrappers of the LSTM, GRU, layer-norm and MI LSTM kernels, which
+# count their launches by design too
 DESIGN_WRAPPERS = ("bilstm_fwd", "bilstm_bwd", "lstm_fwd", "lstm_bwd",
                    "bigru_fwd", "bigru_bwd", "gru_fwd", "gru_bwd",
                    "bi_ln_lstm_fwd", "bi_ln_lstm_bwd", "ln_lstm_fwd",
-                   "ln_lstm_bwd")
+                   "ln_lstm_bwd", "bi_mi_lstm_fwd", "bi_mi_lstm_bwd",
+                   "mi_lstm_fwd", "mi_lstm_bwd")
 
 
 def reset_counts() -> None:
@@ -1833,12 +2012,14 @@ def reset_counts() -> None:
 
 
 def check_designs(label: str, hidden: int, batch: int) -> None:
-    """The LSTM, GRU and layer-norm LSTM kernels launched since the counts
-    were reset ran the design ``lstm_geometry`` / ``gru_geometry`` /
-    ``ln_geometry`` gives this path's width and batch, and no other."""
+    """The LSTM, GRU, layer-norm and MI LSTM kernels launched since the
+    counts were reset ran the design ``lstm_geometry`` / ``gru_geometry`` /
+    ``ln_geometry`` / ``mi_geometry`` gives this path's width and batch,
+    and no other."""
     from asr_study_torch.ops.bilstm import lstm_geometry
     from asr_study_torch.ops.gru import gru_geometry
     from asr_study_torch.ops.ln_lstm import ln_geometry
+    from asr_study_torch.ops.mi_lstm import mi_geometry
 
     counters = launch_counters()
     ran = {name: {k: v for k, v in counters[name].by_design.items() if v}
@@ -1848,7 +2029,8 @@ def check_designs(label: str, hidden: int, batch: int) -> None:
     print(f"{label}: launches by design (H={hidden}) {ran}")
     for name, by_design in ran.items():
         geometry = (gru_geometry if "gru" in name else
-                    ln_geometry if "ln_" in name else lstm_geometry)
+                    ln_geometry if "ln_" in name else
+                    mi_geometry if "mi_" in name else lstm_geometry)
         want = geometry(hidden, batch,
                         2 if name.startswith("bi") else 1).design
         require(list(by_design) == [want],
@@ -2238,9 +2420,8 @@ def main() -> int:
     print_cluster_geometry()
     fwd_b, bwd_b, nsplit = cell_family_smem(HIDDEN)
     print(f"  dynamic shared memory per block at H={HIDDEN}: zoneout_lstm_fwd "
-          f"and mi_lstm_fwd (both forms) {fwd_b} B, zoneout_lstm_bwd and "
-          f"mi_lstm_bwd {bwd_b} B (4 rows, {nsplit} partial sums), raised at "
-          f"each launch")
+          f"(both forms) {fwd_b} B, zoneout_lstm_bwd {bwd_b} B (4 rows, "
+          f"{nsplit} partial sums), raised at each launch")
     for hidden in (HIDDEN, 512):
         fwd_b, bwd_b, nsplit = ln_smem(hidden)
         print(f"  dynamic shared memory per block at H={hidden} of the "

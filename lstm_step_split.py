@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
-"""Where a step of the cluster LSTM, GRU and layer-norm LSTM kernels spends
-its time, on one NVIDIA GPU.
+"""Where a step of the cluster LSTM, GRU, layer-norm and MI LSTM kernels
+spends its time, on one NVIDIA GPU.
 
     python3 lstm_step_split.py
 
 Compiles ``asr_study_torch/csrc/bilstm_fwd.cu``, ``gru_fwd.cu``,
-``gru_bwd.cu``, ``ln_lstm_fwd.cu`` and ``ln_lstm_bwd.cu`` as they are and in
-variants, into ``build/step_split/``,
+``gru_bwd.cu``, ``ln_lstm_fwd.cu``, ``ln_lstm_bwd.cu``, ``mi_lstm_fwd.cu``
+and ``mi_lstm_bwd.cu`` as they are and in variants, into
+``build/step_split/``,
 and times each at the main paths' shapes (H=256, B=32; T=805 forward,
 T=512 backward; one direction, R=4 rows a cluster, and two, R=8) with CUDA
 events, the unchanged kernel first and last.  Variants that drop one part
@@ -37,6 +38,12 @@ LayerNorm statistics across the cluster (outputs wrong; times count):
   cotangent chain; its h-side and c statistics share the partials');
 - ``no_stats``: the forward's statistics rounds gone, pushes and barriers;
 - ``no_push``, ``no_product``: as above, for the forward.
+
+Variants of the MI-LSTM kernels (outputs wrong; times count):
+``no_push`` and ``no_product`` as above for the forward; for the backward,
+``no_push`` keeps each unit's cotangent partial in the sender's own
+buffer, and ``no_product`` drops both of its products (the recomputed
+h_prev @ w and the partials' dhp @ ws^T).
 
 Prints one line per variant and the card's name and power limit.  Without
 CUDA it exits 1.
@@ -86,6 +93,11 @@ LN_PUSH = ("for (int p = 0; p < C; ++p) *cluster.map_shared_rank(hn_buf, p) "
 LN_BWD_SYNCS = [(f"      cluster.sync();\n\n      // {step}",
                  f"\n\n      // {step}")
                 for step in ("d. dc, dpre", "e. dhp of own")]
+MI_BWD_PUSH = ("float* dst = cluster.map_shared_rank(recv + (cur * C + rank)"
+               " * RU,\n                                           owner);",
+               "float* dst = recv + (cur * C + rank) * RU;")
+MI_BWD_PRODUCT = ("for (int k = 0; k < GC; k += 4) {",
+                  "for (int k = 0; k < 0; k += 4) {")
 SPLIT = {
     "no_push": [NO_PUSH],
     "no_push_no_sync": [NO_PUSH, NO_SYNC],
@@ -108,6 +120,12 @@ KERNELS = {
                      "no_push": [LN_PUSH], "no_product": [NO_PRODUCT]}),
     "ln_lstm_bwd": ("ln_lstm_bwd.cu", "asr_ln_lstm_bwd", 4, T_BWD,
                     {"base": [], "no_stats_sync": LN_BWD_SYNCS}),
+    "mi_lstm_fwd": ("mi_lstm_fwd.cu", "asr_mi_lstm_fwd", 4, T_FWD,
+                    {"base": [], "no_push": [NO_PUSH],
+                     "no_product": [NO_PRODUCT]}),
+    "mi_lstm_bwd": ("mi_lstm_bwd.cu", "asr_mi_lstm_bwd", 4, T_BWD,
+                    {"base": [], "no_push": [MI_BWD_PUSH],
+                     "no_product": [NO_PRODUCT, MI_BWD_PRODUCT]}),
 }
 
 
@@ -154,6 +172,7 @@ def main() -> int:
     from asr_study_torch.ops.bilstm import lstm_geometry
     from asr_study_torch.ops.gru import gru_geometry
     from asr_study_torch.ops.ln_lstm import ln_geometry, ln_lstm
+    from asr_study_torch.ops.mi_lstm import mi_geometry, mi_lstm
     from asr_study_torch.ops.recurrence import stream
 
     card = subprocess.run(
@@ -166,6 +185,7 @@ def main() -> int:
     print(card)
     for kernel, (_, _, gates, t, variants) in KERNELS.items():
         geometry = (ln_geometry if kernel.startswith("ln") else
+                    mi_geometry if kernel.startswith("mi") else
                     lstm_geometry if gates == 4 else gru_geometry)
         xp = torch.randn(t, B, gates * H, device=dev, generator=g)
         wh = torch.randn(H, gates * H, device=dev, generator=g) / H ** 0.5
@@ -179,6 +199,11 @@ def main() -> int:
         gc = 1.0 + 0.1 * torch.randn(H, device=dev, generator=g)
         bc = 0.1 * torch.randn(H, device=dev, generator=g)
         ln = (gh, gh, gc, gc, bc, bc)
+        # the MI vectors alpha, beta1, beta2 about 1 and b about 0, [4H]
+        al, b1, b2 = (1.0 + 0.1 * torch.randn(gates * H, device=dev,
+                                              generator=g) for _ in range(3))
+        bias = 0.1 * torch.randn(gates * H, device=dev, generator=g)
+        mi = (al, al, b1, b1, b2, b2, bias, bias)
         if kernel == "ln_lstm_fwd":     # h_f, c_f, h_b, c_b
             ptrs = (xp, xp, mask, wh, wh, *ln, *outs)
         elif kernel == "ln_lstm_bwd":   # h, c, dh; dpre, dcn of each lane
@@ -189,6 +214,12 @@ def main() -> int:
                                 for _ in range(2))
             ptrs = (xp, xp, mask, wh, wh, *ln, h, c, h, c, seqs[1], seqs[1],
                     *outs)
+        elif kernel == "mi_lstm_fwd":   # h_f, c_f, h_b, c_b
+            ptrs = (xp, xp, mask, wh, wh, *mi, *outs)
+        elif kernel == "mi_lstm_bwd":   # h, c, dh; dpre of each lane
+            h, c = mi_lstm(xp, mask, wh, al, b1, b2, bias)
+            ptrs = (xp, xp, mask, wh, wh, *mi, h, c, h, c, seqs[1], seqs[1],
+                    *outs[:2])
         elif kernel == "bilstm_fwd":    # h_f, c_f, h_b, c_b
             ptrs = (xp, xp, mask, wh, wh, *outs)
         elif kernel == "gru_fwd":       # h_f, h_b

@@ -41,9 +41,11 @@ from asr_study_torch.models.cells import ZoneoutLSTMCell
 from asr_study_torch.ops.mi_lstm import (BiMILSTMFunction, MILSTMFunction,
                                          bi_mi_lstm, bi_mi_lstm_bwd,
                                          bi_mi_lstm_bwd_plain,
-                                         bi_mi_lstm_plain, mi_lstm,
-                                         mi_lstm_bwd, mi_lstm_bwd_plain,
-                                         mi_lstm_plain)
+                                         bi_mi_lstm_plain, mi_cluster_info,
+                                         mi_geometry, mi_lstm, mi_lstm_bwd,
+                                         mi_lstm_bwd_plain, mi_lstm_plain)
+from asr_study_torch.ops.mi_lstm import launch_bwd as mi_launch_bwd
+from asr_study_torch.ops.mi_lstm import launch_fwd as mi_launch_fwd
 from asr_study_torch.ops.zoneout_lstm import (BiZoneoutLSTMFunction,
                                               ZoneoutLSTMFunction,
                                               bi_zoneout_lstm,
@@ -1075,7 +1077,11 @@ def test_zoneout_functions_match_autograd_on_card(cuda, t, b, h):
             assert err <= 1e-4 * float(w_.abs().max()), (kind, i, err)
 
 
-MI_SIZES = [(12, 4, 8), (37, 5, 100), (50, 9, 256), (3, 1, 300)]
+# H=8, 100 and 256 take the cluster design (B=32: R=4 rows a cluster in
+# one direction, R=8 in two; B=33: a ragged last group), H=300 the stream
+# design (ops/mi_lstm.py mi_geometry)
+MI_SIZES = [(12, 4, 8), (37, 5, 100), (50, 9, 256), (3, 1, 300),
+            (60, 32, 256), (20, 33, 100)]
 
 
 def _mi_case(cuda, t, b, h, seed):
@@ -1099,22 +1105,37 @@ def _mi_uni(args):
     return [args[i] for i in (0, 2, 3, 5, 7, 9, 11)]
 
 
+def _mi_designs(wrappers, h, b):
+    """-> per wrapper (launches, launches of the design mi_geometry gives
+    its direction count)."""
+    return [(w.launches, w.by_design[mi_geometry(
+        h, b, 2 if w.__name__.startswith("bi") else 1).design])
+        for w in wrappers]
+
+
 @pytest.mark.parametrize("t,b,h", MI_SIZES)
 def test_mi_kernels_match_plain(cuda, t, b, h):
     """bi_mi_lstm and mi_lstm (the mi_lstm_fwd kernel with two and one
-    directions) and their backwards against the plain loops: h and c
-    (chip_smoke.py's BILSTM_* bounds), dpre (BWD_TOL)."""
+    directions) and their backwards against the plain loops, each in the
+    design mi_geometry picks (where that is the cluster one, with the
+    kernels' own shared memory and every cluster resident at once): h and
+    c (chip_smoke.py's BILSTM_* bounds), dpre (BWD_TOL)."""
     args, dh = _mi_case(cuda, t, b, h, t + h)
     uni = _mi_uni(args)
-    before = [f.launches for f in (bi_mi_lstm, mi_lstm, bi_mi_lstm_bwd,
-                                   mi_lstm_bwd)]
+    wrappers = (bi_mi_lstm, mi_lstm, bi_mi_lstm_bwd, mi_lstm_bwd)
+    before = _mi_designs(wrappers, h, b)
     got = bi_mi_lstm(*args)
     got_uni = mi_lstm(*uni)
     d = bi_mi_lstm_bwd(*args, *got, *dh)
     d_uni = mi_lstm_bwd(*uni, *got_uni, dh[0])
-    assert [f.launches - n for f, n in zip(
-        (bi_mi_lstm, mi_lstm, bi_mi_lstm_bwd, mi_lstm_bwd),
-        before)] == [1, 1, 1, 1]
+    assert _mi_designs(wrappers, h, b) == _one_more(before)
+    for ndir in (1, 2):
+        geo = mi_geometry(h, b, ndir)
+        if geo.design == "cluster":
+            for backward in (False, True):
+                smem, fit = mi_cluster_info(geo, b, h, backward)
+                assert smem == (geo.smem_bwd if backward else geo.smem_fwd)
+                assert fit >= geo.grid[1] * geo.grid[2]
     want = bi_mi_lstm_plain(*args)
     want_d = bi_mi_lstm_bwd_plain(*args, *got, *dh)
     want_d_uni = mi_lstm_bwd_plain(*uni, *got_uni, dh[0])
@@ -1124,6 +1145,77 @@ def test_mi_kernels_match_plain(cuda, t, b, h):
         torch.testing.assert_close(g_, w_, rtol=1e-5, atol=1e-4, msg=name)
     for name, g_, w_ in zip(("dpre_f", "dpre_b", "dpre"), (*d, d_uni),
                             (*want_d, want_d_uni)):
+        torch.testing.assert_close(g_, w_, **BWD_TOL, msg=name)
+
+
+def test_mi_kernels_repeat_bit_for_bit(cuda):
+    """bi_mi_lstm and bi_mi_lstm_bwd at H=256, B=32 (the cluster design,
+    every sum in a fixed order), and mi_lstm and mi_lstm_bwd, each run twice
+    on the same inputs: equal bit for bit."""
+    args, dh = _mi_case(cuda, 60, 32, 256, seed=21)
+    uni = _mi_uni(args)
+    assert mi_geometry(256, 32, 2).design == "cluster"
+    hc = [bi_mi_lstm(*args) for _ in range(2)]
+    grads = [bi_mi_lstm_bwd(*args, *hc[0], *dh) for _ in range(2)]
+    hc_uni = [mi_lstm(*uni) for _ in range(2)]
+    grads_uni = [mi_lstm_bwd(*uni, *hc_uni[0], dh[0]) for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b_ in zip(*hc):
+        assert torch.equal(a, b_)
+    for a, b_ in zip(*grads):
+        assert torch.equal(a, b_)
+    for a, b_ in zip(*hc_uni):
+        assert torch.equal(a, b_)
+    assert torch.equal(*grads_uni)
+
+
+def test_mi_cluster_launch_refuses_what_is_not_resident(cuda):
+    """A cluster grid the card cannot hold at once (R=1 at B=32 in two
+    directions: 64 clusters of 8 CTAs) is refused with an error, for both
+    kernels, and never falls back to another design."""
+    args, dh = _mi_case(cuda, 4, 32, 256, seed=5)
+    too_many = Geometry("cluster", 8, 32, 1, (8, 32, 2), 0, 0)
+    before = [(w.launches, dict(w.by_design)) for w in (bi_mi_lstm,
+                                                        bi_mi_lstm_bwd)]
+    with pytest.raises(RuntimeError, match="CUDA launch failed"):
+        mi_launch_fwd(too_many, args[:2], args[2], args[3:5], args[5:])
+    hc = bi_mi_lstm(*args)
+    with pytest.raises(RuntimeError, match="CUDA launch failed"):
+        mi_launch_bwd(too_many, args[:2], args[2], args[3:5], args[5:],
+                      list(hc[0::2]), list(hc[1::2]), dh)
+    after = [(w.launches, w.by_design) for w in (bi_mi_lstm, bi_mi_lstm_bwd)]
+    assert after[1] == before[1]
+    assert after[0][0] == before[0][0] + 1
+
+
+@pytest.mark.parametrize("t,b,h", [(40, 32, 256), (37, 5, 100)])
+def test_mi_at_alpha_zero_is_the_lstm_kernel(cuda, t, b, h):
+    """At alpha = 0 and beta1 = beta2 = 1 the MI pre-activation is the
+    LSTM's, xp + hp + b: bi_mi_lstm and mi_lstm match the cluster bilstm
+    and lstm kernels fed xp + b (chip_smoke.py's BILSTM_* bounds), and the
+    MI backward's dpre matches bilstm_bwd's dxp from the same h and c
+    (BWD_TOL)."""
+    args, dh = _mi_case(cuda, t, b, h, seed=t + h + 2)
+    xps, mask, whs, b_vecs = args[:2], args[2], args[3:5], args[11:13]
+    ones = torch.ones_like(b_vecs[0])
+    mi_args = (*xps, mask, *whs, ones * 0, ones * 0, ones, ones, ones, ones,
+               *b_vecs)
+    lstm_xps = [x + bv for x, bv in zip(xps, b_vecs)]
+    assert lstm_geometry(h, b, 2).design == mi_geometry(h, b, 2).design
+    got = bi_mi_lstm(*mi_args)
+    want = bilstm(*lstm_xps, mask, *whs)
+    got_uni = mi_lstm(*_mi_uni(mi_args))
+    want_uni = lstm(lstm_xps[0], mask, whs[0])
+    d = bi_mi_lstm_bwd(*mi_args, *want, *dh)
+    d_want = bilstm_bwd(*lstm_xps, mask, *whs, *want, *dh)
+    d_uni = mi_lstm_bwd(*_mi_uni(mi_args), *want_uni, dh[0])
+    d_uni_want = lstm_bwd(lstm_xps[0], mask, whs[0], *want_uni, dh[0])
+    torch.cuda.synchronize()
+    for name, g_, w_ in zip(("h_f", "c_f", "h_b", "c_b", "h", "c"),
+                            (*got, *got_uni), (*want, *want_uni)):
+        torch.testing.assert_close(g_, w_, rtol=1e-5, atol=1e-4, msg=name)
+    for name, g_, w_ in zip(("dpre_f", "dpre_b", "dpre"), (*d, d_uni),
+                            (*d_want, d_uni_want)):
         torch.testing.assert_close(g_, w_, **BWD_TOL, msg=name)
 
 

@@ -17,12 +17,17 @@ import torch
 from asr_study_torch.models.cells import MILSTMCell
 from asr_study_torch.models.rnn import RNNLayer
 from asr_study_torch.models.zoo import build_model
+from asr_study_torch.ops.bilstm import CLUSTER_SLICE, CLUSTER_THREADS
 from asr_study_torch.ops.mi_lstm import (BiMILSTMFunction, MILSTMFunction,
                                          bi_mi_lstm, bi_mi_lstm_bwd,
                                          bi_mi_lstm_bwd_plain,
                                          bi_mi_lstm_plain, dir_grads,
+                                         mi_cluster_smem, mi_geometry,
                                          mi_lstm, mi_lstm_bwd,
-                                         mi_lstm_bwd_plain, mi_lstm_plain)
+                                         mi_lstm_bwd_plain, mi_lstm_plain,
+                                         mi_stream_smem)
+from asr_study_torch.ops.recurrence import (CLUSTER_BUDGET, CLUSTER_CTAS,
+                                            CLUSTER_ROWS, SMEM_LIMIT)
 from asr_study_torch.utils.weights import (flat_from_params, load_npz,
                                            params_from_flat)
 from asr_study_tpu.models import zoo as jzoo
@@ -379,3 +384,95 @@ def test_wrappers_take_plain_on_cpu_and_check():
         mi_lstm_bwd(*uni, h, c, dh[:-1])
     with pytest.raises(ValueError, match="device"):
         mi_lstm(*(a.to("meta") for a in uni))
+
+
+def _wrapper_case(wrapper):
+    """``wrapper``'s arguments at T=6, B=3, H=5 on the CPU, in its order."""
+    args = _t(_inputs(1, 6, 3, 5))
+    uni = _t(_uni(_inputs(1, 6, 3, 5)))
+    if wrapper in (bi_mi_lstm, mi_lstm):
+        return args if wrapper is bi_mi_lstm else uni
+    dh = torch.from_numpy(_cotangents(2, 6, 3, 5)[0])
+    if wrapper is bi_mi_lstm_bwd:
+        return [*args, *bi_mi_lstm_plain(*args), dh, dh]
+    return [*uni, *mi_lstm_plain(*uni), dh]
+
+
+# each defect: (the argument spoilt: its index, "alpha" for the first MI
+# vector, None for every one; how it is spoilt; what the error says)
+_DEFECTS = {
+    "shape": (-1, lambda a: a[..., :-1], "must be"),
+    "dtype": ("alpha", lambda a: a.double(), "float32"),
+    "one device": ("alpha", lambda a: a.to("meta"), "is on meta"),
+    "kernel device": (None, lambda a: a.to("meta"), "no kernel for device"),
+}
+
+
+@pytest.mark.parametrize("defect", list(_DEFECTS))
+@pytest.mark.parametrize("wrapper", [bi_mi_lstm, mi_lstm, bi_mi_lstm_bwd,
+                                     mi_lstm_bwd],
+                         ids=lambda w: w.__name__)
+def test_wrappers_refuse_bad_arguments(wrapper, defect):
+    """Every wrapper checks its arguments before it picks a design or a
+    kernel: a wrong shape, a float64 vector, one tensor on another device
+    and a device with no kernel each raise ValueError, and no launch is
+    counted in all or by design."""
+    args = _wrapper_case(wrapper)
+    pos, spoil, msg = _DEFECTS[defect]
+    if pos is None:
+        args = [spoil(a) for a in args]
+    else:
+        i = {"alpha": 5 if wrapper in (bi_mi_lstm, bi_mi_lstm_bwd) else 3
+             }.get(pos, pos)
+        args[i] = spoil(args[i])
+    before = (wrapper.launches, dict(wrapper.by_design))
+    with pytest.raises(ValueError, match=msg):
+        wrapper(*args)
+    assert (wrapper.launches, wrapper.by_design) == before
+
+
+@pytest.mark.parametrize("ndir", [1, 2])
+@pytest.mark.parametrize("hidden", [100, 256, 300, 512])
+def test_mi_geometry(hidden, ndir):
+    """The size rule of the MI-LSTM kernels at B=32: H=100 and H=256 take the
+    cluster design (every hidden unit owned by exactly one CTA with its four
+    gate columns, no CTA empty, every row group within the launch and the
+    launch within the budget of resident clusters; H=256 in 8 clusters of
+    R=4 rows in one direction and R=8 in two; H=100 in CTAs of 13 units,
+    the last 9), H=300 and H=512 the stream design; shared memory within
+    the H100's limit and equal to the kernels' layouts."""
+    batch = 32
+    geo = mi_geometry(hidden, batch, ndir)
+    assert max(geo.smem_fwd, geo.smem_bwd) <= SMEM_LIMIT
+    assert geo.grid[2] == ndir
+    assert geo.grid[1] * geo.rows >= batch > (geo.grid[1] - 1) * geo.rows
+    if hidden in (300, 512):
+        assert geo.design == "stream"
+        assert (geo.ctas, geo.units) == (1, hidden)
+        assert (geo.smem_fwd, geo.smem_bwd) == mi_stream_smem(hidden)
+        return
+    assert geo.design == "cluster"
+    assert geo.ctas <= CLUSTER_CTAS and geo.rows in CLUSTER_ROWS
+    assert geo.grid[0] == geo.ctas
+    assert geo.grid[1] * geo.grid[2] <= CLUSTER_BUDGET
+    # the slice in registers: CLUSTER_SLICE rows of one gate column a thread
+    assert 4 * geo.units * -(-hidden // CLUSTER_SLICE) <= CLUSTER_THREADS
+    # the cell: one (row, unit) pair a thread
+    assert geo.rows * geo.units <= CLUSTER_THREADS
+    assert (geo.smem_fwd, geo.smem_bwd) == mi_cluster_smem(
+        hidden, geo.units, geo.rows, geo.ctas)
+    if hidden == 256:
+        assert (geo.units, geo.rows) == (32, 4 * ndir)
+        assert geo.grid[1] * geo.grid[2] == 8
+    else:
+        assert (geo.ctas, geo.units, hidden - 7 * geo.units) == (8, 13, 9)
+    owner = {}
+    for k in range(geo.ctas):
+        units = range(k * geo.units, min(hidden, (k + 1) * geo.units))
+        assert len(units) > 0
+        for q in range(4):
+            for u in units:
+                col = q * hidden + u
+                assert col not in owner
+                owner[col] = k
+    assert sorted(owner) == list(range(4 * hidden))
