@@ -14,7 +14,8 @@ The serving path ported so far (BASELINE config 2, and ``deep_gru``):
                 -> data/wire.unpack_audio (dpack: ops/dpack.dpack_decode,
                    csrc/dpack.cu)
                 -> features (MFCC + deltas; csrc/fbank.cu)
-                -> models/zoo deep_blstm (csrc/bilstm_fwd.cu per layer)
+                -> models/zoo deep_blstm (csrc/bilstm_fwd.cu per layer;
+                   deep_speech's 512-unit layer: csrc/lstm_wide_fwd.cu)
                    or deep_gru (csrc/gru_fwd.cu per layer)
                 -> ops/ctc.greedy_decode
                 -> cli/predict.py --on_device
@@ -23,7 +24,8 @@ and the training path (BASELINE config 3, and ``deep_gru``):
 
     data/generator batches -> train/loop.fit -> train/trainer.train_step:
         deep_blstm (ops/bilstm.BiLSTMFunction: csrc/bilstm_fwd.cu forward,
-        csrc/bilstm_bwd.cu backward) or deep_gru (ops/gru.BiGRUFunction
+        csrc/bilstm_bwd.cu backward; at H=512 csrc/lstm_wide_fwd.cu and
+        csrc/lstm_wide_bwd.cu) or deep_gru (ops/gru.BiGRUFunction
         and GRUFunction: csrc/gru_fwd.cu forward, csrc/gru_bwd.cu
         backward) -> ops/ctc.ctc_loss (CTCNLL: csrc/ctc.cu alpha forward,
         beta backward) -> clip -> Adam

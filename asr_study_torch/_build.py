@@ -57,6 +57,16 @@ SIGNATURES = {
     # dxp_b, T, B, H, ndir, cluster CTAs, units, rows, stream
     "asr_bilstm_bwd": [_P] * 13 + [_I] * 7 + [_P],
     "asr_bilstm_bwd_info": [_I] * 6 + [_P, _P],
+    # the wide forms (256 < H <= 512): xp_f, xp_b, mask, wh_f, wh_b, h_f,
+    # c_f, h_b, c_b, g_f, g_b (the saved gates, or null), T, B, H, ndir,
+    # cluster CTAs, units per CTA, rows per cluster, stream
+    "asr_lstm_wide_fwd": [_P] * 11 + [_I] * 7 + [_P],
+    # B, H, ndir, cluster CTAs, units, rows, *smem bytes, *max clusters
+    "asr_lstm_wide_fwd_info": [_I] * 6 + [_P, _P],
+    # g_f, g_b, mask, wh_f, wh_b, c_f, c_b, dh_f, dh_b, dxp_f, dxp_b, T, B,
+    # H, ndir, cluster CTAs, units, rows, stream
+    "asr_lstm_wide_bwd": [_P] * 11 + [_I] * 7 + [_P],
+    "asr_lstm_wide_bwd_info": [_I] * 6 + [_P, _P],
     # the streamed-weight forms (H=512): xp_f, xp_b, mask, wh_f, wh_b, h_f,
     # c_f, h_b, c_b, T, B, H, ndir, stream
     "asr_lstm_stream_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P,

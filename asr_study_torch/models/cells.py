@@ -29,15 +29,30 @@ def _hold(mask_t: torch.Tensor, new: torch.Tensor,
     return torch.where(mask_t > 0, new, old)
 
 
+def lstm_gates(xp_t: torch.Tensor, h_prev: torch.Tensor, wh: torch.Tensor
+               ) -> torch.Tensor:
+    """One frame's activated gates [B, 4H]: sigmoid i, f, o and tanh g of
+    ``xp_t + h_prev @ wh``."""
+    i, f, g, o = (xp_t + torch.matmul(h_prev, wh)).chunk(4, dim=-1)
+    return torch.cat([torch.sigmoid(i), torch.sigmoid(f), torch.tanh(g),
+                      torch.sigmoid(o)], dim=-1)
+
+
+def lstm_update(gates: torch.Tensor, h_prev: torch.Tensor,
+                c_prev: torch.Tensor, mask_t: torch.Tensor
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(h, c) of one frame from its activated gates (:func:`lstm_gates`)."""
+    i, f, g, o = gates.chunk(4, dim=-1)
+    c = f * c_prev + i * g
+    h = o * torch.tanh(c)
+    return _hold(mask_t, h, h_prev), _hold(mask_t, c, c_prev)
+
+
 def lstm_step(h_prev: torch.Tensor, c_prev: torch.Tensor, xp_t: torch.Tensor,
               mask_t: torch.Tensor, wh: torch.Tensor
               ) -> tuple[torch.Tensor, torch.Tensor]:
     """One frame: xp_t [B, 4H] (bias folded in), mask_t [B, 1] -> (h, c)."""
-    pre = xp_t + torch.matmul(h_prev, wh)
-    i, f, g, o = pre.chunk(4, dim=-1)
-    c = torch.sigmoid(f) * c_prev + torch.sigmoid(i) * torch.tanh(g)
-    h = torch.sigmoid(o) * torch.tanh(c)
-    return _hold(mask_t, h, h_prev), _hold(mask_t, c, c_prev)
+    return lstm_update(lstm_gates(xp_t, h_prev, wh), h_prev, c_prev, mask_t)
 
 
 class LSTMCell(nn.Module):

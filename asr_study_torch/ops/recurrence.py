@@ -32,10 +32,23 @@ CLUSTER_ROWS = (1, 2, 4, 8)
 SMEM_LIMIT = 232_448         # dynamic shared memory a block can use, H100
 STREAM_ROWS = 4              # batch rows per block of the stream design
 
+# The wide rule (256 < H <= WIDE_MAX_HIDDEN, where a CTA's slice at 8 CTAs
+# fits nowhere): a non-portable cluster of ceil(H / WIDE_UNITS) CTAs (16 at
+# H=512) per (direction, group of `rows` batch rows), CTA k owning the
+# WIDE_UNITS units [32k, 32k + 32) and their gate columns, its 512-row slice
+# half in registers and half in shared memory.  `rows` is the least of
+# WIDE_ROWS that keeps the launch within WIDE_BUDGET clusters, all resident
+# at once; an H100 SXM holds 7 clusters of 16 such CTAs (PERF.md), so the
+# budget keeps a margin of 1 and a bidirectional B=32 launch takes 4.
+WIDE_UNITS = 32
+WIDE_MAX_HIDDEN = 512
+WIDE_BUDGET = 6
+WIDE_ROWS = (4, 8, 16)
+
 
 class Geometry(NamedTuple):
     """How one launch of a recurrence's kernels is laid out."""
-    design: str                     # "cluster" or "stream"
+    design: str                     # "cluster", "wide" or "stream"
     ctas: int                       # CTAs per cluster (1: stream)
     units: int                      # hidden units per CTA
     rows: int                       # batch rows per cluster (stream: block)
@@ -71,6 +84,27 @@ def cluster_geometry(hidden: int, batch: int, ndir: int, gates: int,
             if max(fwd, bwd) > SMEM_LIMIT:
                 return None
             return Geometry("cluster", ctas, units, rows,
+                            (ctas, groups, ndir), fwd, bwd)
+    return None
+
+
+def wide_geometry(hidden: int, batch: int, ndir: int,
+                  smem: Callable[[int, int], tuple[int, int]]
+                  ) -> Geometry | None:
+    """The wide design's layout, or None where it does not fit: outside
+    256 < H <= WIDE_MAX_HIDDEN, where no row count of WIDE_ROWS keeps the
+    launch within WIDE_BUDGET clusters, or where the kernels' shared memory,
+    ``smem(rows, ctas) -> (forward, backward)`` bytes, exceeds SMEM_LIMIT."""
+    if not 256 < hidden <= WIDE_MAX_HIDDEN:
+        return None
+    ctas = -(-hidden // WIDE_UNITS)
+    for rows in WIDE_ROWS:
+        groups = -(-batch // rows)
+        if ndir * groups <= WIDE_BUDGET:
+            fwd, bwd = smem(rows, ctas)
+            if max(fwd, bwd) > SMEM_LIMIT:
+                return None
+            return Geometry("wide", ctas, WIDE_UNITS, rows,
                             (ctas, groups, ndir), fwd, bwd)
     return None
 

@@ -14,16 +14,18 @@ paths at full width, with random weights from a seeded
 - serving the other recurrent models at full width, the same 8 batches
   through the same function: ``deep_gru`` 3x256 (bidirectional),
   ``deep_blstm`` 3x256 with ``bidirectional=false``, ``highway_blstm``
-  5x256, ``deep_speech`` (3x512 dense front end, one 512-unit BLSTM),
-  ``ln_blstm`` 3x256 (layer-norm BLSTM), ``zoneout_blstm`` 3x256 (eval
-  mode) and ``mi_blstm`` 3x256 (multiplicative integration);
+  5x256, ``deep_speech`` (3x512 dense front end, one 512-unit BLSTM; and
+  with ``bidirectional=false``), ``ln_blstm`` 3x256 (layer-norm BLSTM),
+  ``zoneout_blstm`` 3x256 (eval mode) and ``mi_blstm`` 3x256
+  (multiplicative integration);
 - training (BASELINE config 3): features [32, 512, 39] -> deep_blstm 3x256
   (dropout 0) -> CTC -> backward -> clip by global norm -> Adam
   (``make_optimizer("adam", 1e-4, 400.0)``), through ``Trainer.train_step``
   and ``fit``, as ``benchmarks/bench_train.py`` drives the JAX trainer;
 - training at the same shapes through ``Trainer.train_step``: ``deep_gru``
   3x256 bidirectional and unidirectional, ``deep_blstm`` 3x256
-  unidirectional, ``highway_blstm`` 5x256, ``deep_speech``, and
+  unidirectional, ``highway_blstm`` 5x256, ``deep_speech`` bidirectional
+  and unidirectional (the wide LSTM kernels), and
   ``ln_blstm``, ``zoneout_blstm`` (train mode at zoneout 0.1/0.1, the mix
   weights drawn on the card) and ``mi_blstm``, each 3x256 bidirectional and
   unidirectional, dropout 0.
@@ -37,11 +39,16 @@ Phases, in order; any failure raises and the exit code is not 0:
    time, its bound and the time of the PyTorch library call that computes
    the same function (cuDNN ``nn.LSTM`` / ``nn.GRU``, ``F.ctc_loss``; none
    for fbank, dpack_decode and the layer-norm, zoneout and MI LSTMs); the
+   LSTM kernels' wide design at H=512 (deep_speech's width), both
+   directions and one, its backward from the forward's saved gates, timed
+   in turns against the stream design it replaced beside cuDNN's two
+   calls and the bound, with the card's cudaOccupancyMaxActiveClusters
+   for its 16-CTA clusters; the GRU's stream route at H=512 timed beside
+   cuDNN ``nn.GRU`` and its bound; the
    LSTM, GRU and MI kernels also at H=512 and H=100, and at shapes ragged
    for the cluster design's tiling (H=100, B=5 and B=33, a row masked
    throughout, T=1), with the design each width takes, its cluster
-   geometry and shared memory; the LSTM stream design at H=512 beside
-   cuDNN at the same shapes; at H=256 the cluster design timed in turns
+   geometry and shared memory; at H=256 the cluster design timed in turns
    against the stream design it replaced (through the latter's C entry
    point) beside cuDNN, the layer-norm and MI LSTM kernels too (no cuDNN);
    the MI kernels at alpha = 0, beta1 = beta2 = 1 against the LSTM
@@ -51,7 +58,7 @@ Phases, in order; any failure raises and the exit code is not 0:
    an edge batch, with the host encode time;
 4. the serving slices, with launch counters proving their kernels ran
    (the LSTM, GRU, layer-norm and MI LSTM kernels in the design their
-   width takes),
+   width takes; the LSTM's wide design under its own kernel line rows),
    logits held against the plain path on the CPU (for ln_blstm, whose
    recurrence is chaotic, on a batch cut to LN_CHECK_T frames); the dpack
    slice's logits and transcripts equal to the pcm16 slice's, the mulaw
@@ -667,9 +674,10 @@ def cell_family_smem(hidden: int) -> tuple[int, int, int]:
 def print_cluster_geometry() -> None:
     """The LSTM, GRU, layer-norm and MI LSTM kernels' design at each width
     of the zoo (and H=100) and each direction count, at B=32: the cluster
-    geometry and shared memory, held against the kernels' own launch
-    configuration (asr_{bilstm,gru,ln_lstm,mi_lstm}_{fwd,bwd}_info), and
-    the clusters the card holds at once against those the launch needs."""
+    (or, for the LSTM at H=512, the wide) geometry and shared memory, held
+    against the kernels' own launch configuration
+    (asr_{bilstm,gru,ln_lstm,mi_lstm,lstm_wide}_{fwd,bwd}_info), and the
+    clusters the card holds at once against those the launch needs."""
     from asr_study_torch.ops.bilstm import (CLUSTER_THREADS, cluster_info,
                                             lstm_geometry)
     from asr_study_torch.ops.gru import (GRU_THREADS, gru_cluster_info,
@@ -691,6 +699,7 @@ def print_cluster_geometry() -> None:
             for ndir in (2, 1):
                 geo = geometry(hidden, BATCH, ndir)
                 names = bi if ndir == 2 else uni
+                src = cluster_src if geo.design == "cluster" else "lstm_wide"
                 if geo.design == "stream":
                     print(f"  {names}_fwd/_bwd at H={hidden}, B={BATCH}: "
                           f"stream design (csrc/{stream_src}_*.cu), grid "
@@ -701,13 +710,14 @@ def print_cluster_geometry() -> None:
                 (fwd_b, fwd_fit), (bwd_b, bwd_fit) = (
                     info(geo, BATCH, hidden, bwd) for bwd in (False, True))
                 clusters = geo.grid[1] * geo.grid[2]
-                print(f"  {names}_fwd/_bwd at H={hidden}, B={BATCH}: cluster"
-                      f" design (csrc/{cluster_src}_*.cu), {clusters} "
+                print(f"  {names}_fwd/_bwd at H={hidden}, B={BATCH}: "
+                      f"{geo.design} design (csrc/{src}_*.cu), {clusters} "
                       f"clusters of {geo.ctas} CTAs x {threads} "
                       f"threads, grid {geo.grid}, {geo.units} units and "
                       f"{geo.rows} rows a CTA; dynamic shared memory "
                       f"{fwd_b} / {bwd_b} B a CTA (of 232448), the card "
-                      f"holds {fwd_fit} / {bwd_fit} such clusters at once")
+                      f"holds {fwd_fit} / {bwd_fit} such clusters at once "
+                      f"(cudaOccupancyMaxActiveClusters)")
                 require((fwd_b, bwd_b) == (geo.smem_fwd, geo.smem_bwd),
                         f"{names} geometry's shared memory at H={hidden} "
                         f"differs from the kernels' own")
@@ -718,30 +728,31 @@ def print_cluster_geometry() -> None:
 
 def time_in_turns(card: str, label: str, cluster_fn, stream_fn, steps: int,
                   geo, passes: int, rest: str, gates: int = 4,
-                  library: tuple[str, float] | None = None) -> float:
-    """One kernel's cluster and stream designs timed in turns, cluster,
-    stream, stream, cluster, 5 calls a turn, at H=HIDDEN and B=BATCH ->
-    the cluster design's mean ms.  Prints both, the library call's time
-    where there is one (``library``: its name and ms in this run), and the
-    cluster design's step split into the FMA time of one CTA's slice
-    (``passes`` [R, H] x [H, gates*U] products a step in the layout
-    ``geo``, at 128 FMAs a clock and the card's SM clock) and the
-    ``rest``."""
+                  library: tuple[str, float] | None = None,
+                  hidden: int = HIDDEN) -> float:
+    """One kernel's resident design (``geo.design``: cluster or wide) and
+    the stream design timed in turns, resident, stream, stream, resident,
+    5 calls a turn, at H=``hidden`` and B=BATCH -> the resident design's
+    mean ms.  Prints both, the library call's time where there is one
+    (``library``: its name and ms in this run), and the resident design's
+    step split into the FMA time of one CTA's slice (``passes`` [R, H] x
+    [H, gates*U] products a step in the layout ``geo``, at 128 FMAs a
+    clock and the card's SM clock) and the ``rest``."""
     turns = {"cluster": [], "stream": []}
     for design in ("cluster", "stream", "stream", "cluster"):
         turns[design].append(cuda_ms(
             cluster_fn if design == "cluster" else stream_fn, 5))
     clk = sm_clock_hz()
-    fmas = passes * geo.rows * HIDDEN * gates * geo.units
+    fmas = passes * geo.rows * hidden * gates * geo.units
     c_ms = sum(turns["cluster"]) / 2
     s_ms = sum(turns["stream"]) / 2
     step_us = 1e3 * c_ms / steps
     fma_us = 1e6 * fmas / (128 * clk)
     lib = ("" if library is None else
            f"{library[0]} {library[1]:.4f} ms ({library[1] / c_ms:.2f}x the "
-           f"cluster design); ")
-    print(f"[{card}] {label} at H={HIDDEN} T={steps} B={BATCH} "
-          f"(R={geo.rows}), in turns: cluster design "
+           f"{geo.design} design); ")
+    print(f"[{card}] {label} at H={hidden} T={steps} B={BATCH} "
+          f"(R={geo.rows}), in turns: {geo.design} design "
           f"{turns['cluster'][0]:.4f} / {turns['cluster'][1]:.4f} ms, "
           f"stream design {turns['stream'][0]:.4f} / "
           f"{turns['stream'][1]:.4f} ms ({s_ms / c_ms:.2f}x); {lib}"
@@ -997,10 +1008,9 @@ def check_lstm_kernels(dev: torch.device, card: str, x_serve: torch.Tensor,
     lengths 256-512), each against its plain version, dwh through
     LSTMFunction against autograd through lstm_plain, timed with its bound
     and cuDNN's unidirectional ``nn.LSTM``.  Then bilstm_fwd (T=805) and
-    bilstm_bwd (T=512) at H=512 (deep_speech's width) and H=100
-    (graves2006's) against their plain versions, timed; their xp come from
-    the features through a layer of that width.  At H=512 (the stream
-    design) cuDNN's bidirectional ``nn.LSTM`` at the same shapes too."""
+    bilstm_bwd (T=512) at H=100 (graves2006's width) against their plain
+    versions, timed; their xp come from the features through a layer of
+    that width.  H=512 is ``check_lstm_wide``'s."""
     from asr_study_torch.models.zoo import deep_blstm
     from asr_study_torch.ops.bilstm import (LSTMFunction, bilstm, bilstm_bwd,
                                             bilstm_bwd_plain, bilstm_plain,
@@ -1086,8 +1096,8 @@ def check_lstm_kernels(dev: torch.device, card: str, x_serve: torch.Tensor,
               f"bound {bounds[name][0]:.4f} ms ({bounds[name][1]}), library "
               f"{library[name]:.4f} ms")
 
-    # the two-direction kernels at the zoo's other widths
-    for hidden, model in ((512, "deep_speech"), (100, "graves2006")):
+    # the two-direction kernels at graves2006's width
+    for hidden, model in ((100, "graves2006"),):
         bi = layer0(hidden, True)
         fwd_args = (input_proj(bi.fw, x_serve), input_proj(bi.bw, x_serve),
                     mask_s, bi.fw.wh.detach(), bi.bw.wh.detach())
@@ -1125,23 +1135,312 @@ def check_lstm_kernels(dev: torch.device, card: str, x_serve: torch.Tensor,
               f"H={hidden}, T={t} B={b}: kernel {bwd_ms[0]:.4f} ms, plain "
               f"{bwd_ms[1]:.4f} ms, bound {bwd_bound[0]:.4f} ms "
               f"({bwd_bound[1]})")
-        if hidden == 512:
-            # the library call beside the stream design, at its shapes
-            for what, xs, lens, m in (("fwd", x_serve, len_serve, mask_s),
-                                      ("bwd", x, lengths.to(dev), mask)):
-                y = rnn_yardsticks("lstm", bi, xs, lens, m)
-                print_yardsticks(card, f"cuDNN nn.LSTM bidirectional, "
-                                 f"T={xs.shape[0]} B={xs.shape[1]} "
-                                 f"H={hidden}", y)
-                require(y["out_err"] <= LOGITS_TOL,
-                        f"layer disagrees with nn.LSTM at H={hidden}")
-                lib_ms = y[f"lib_{what}"]
-                k_ms = (fwd_ms if what == "fwd" else bwd_ms)[0]
-                print(f"[{card}] bilstm_{what} at H={hidden} (stream design) "
-                      f"{k_ms:.4f} ms against cuDNN nn.LSTM {lib_ms:.4f} ms "
-                      f"({lib_ms / k_ms:.2f}x the kernel)")
     return {"errs": errs, "times": times, "bounds": bounds,
             "library": library}
+
+
+def check_lstm_wide(dev: torch.device, card: str, x_serve: torch.Tensor,
+                    len_serve: torch.Tensor) -> dict:
+    """Phase 3 for the wide design of the LSTM kernels
+    (csrc/lstm_wide_{fwd,bwd}.cu), at deep_speech's width H=512, two
+    directions and one, B=32.
+
+    The forward at the serving shapes (the check batch's features [T=805,
+    B=32, 39] through a 512-unit layer, ragged lengths), as serving runs it
+    (no gates), against its plain version at the BILSTM_* bounds, and as
+    training runs it (``residual``, whose res holds the gates): h and c
+    bit-equal to the serving run, the gates against the plain gates.  The
+    backward at the config-3 shapes (T=512, lengths 256-512) from the card
+    forward's res against the plain backward from the same gates and
+    against the plain walk that recomputes them, both at the BWD_* bounds,
+    dwh through the Function against autograd through the plain loop
+    (DWH_RTOL).  The stream design (csrc/lstm_stream_{fwd,bwd}.cu, through
+    its C entry point: the route of the batches the wide design cannot
+    hold) on the same inputs against the same plain versions.  Each wide
+    kernel timed in turns against the stream design (wide, stream, stream,
+    wide), beside cuDNN ``nn.LSTM`` at the same shapes, timed twice in the
+    run (the library time is the lower), the plain version and the bound:
+    the forward's one product a step, the backward's one (``dpre @ wh^T``;
+    its gates are an input) -> the kernel line's numbers for the four wide
+    rows, which are the serving forward's; the training forward (which
+    also writes the gates) timed and bounded beside it."""
+    from asr_study_torch.models.zoo import deep_blstm
+    from asr_study_torch.ops.bilstm import (BiLSTMFunction, LSTMFunction,
+                                            bilstm, bilstm_bwd,
+                                            bilstm_bwd_gates_plain,
+                                            bilstm_bwd_plain, bilstm_plain,
+                                            cluster_info, launch_bwd,
+                                            launch_fwd, lstm, lstm_bwd,
+                                            lstm_bwd_gates_plain,
+                                            lstm_bwd_plain, lstm_geometry,
+                                            lstm_plain, stream_geometry)
+
+    h = 512
+    g = torch.Generator().manual_seed(SEED + 14)
+    t_s = x_serve.shape[0]
+    mask_s = mask_of(len_serve, t_s, dev)
+    t, b = TRAIN_T, TRAIN_B
+    lengths = torch.randint(t // 2, t + 1, (b,), generator=g)
+    lengths[0] = t
+    x = torch.randn(t, b, FEATS, generator=g).to(dev)
+    mask = mask_of(lengths, t, dev)
+    dh = [torch.randn(t, b, h, generator=g).to(dev) for _ in range(2)]
+    errs, times, bounds, library = {}, {}, {}, {}
+
+    def max_err(got, want):
+        return max(float((k - p).abs().max()) for k, p in zip(got, want))
+
+    for n in (2, 1):
+        pre = "bi" if n == 2 else ""
+        fwd_row, bwd_row = f"{pre}lstm_fwd_wide", f"{pre}lstm_bwd_wide"
+        layer = deep_blstm(f"num_hiddens={h},num_layers=1,bidirectional="
+                           f"{str(n == 2).lower()}", input_dim=FEATS,
+                           generator=g, device=dev).rnn.layers[0].rnn
+        cells = [layer.fw] + ([layer.bw] if n == 2 else [])
+        whs = [c.wh.detach() for c in cells]
+        fxps = [input_proj(c, x_serve) for c in cells]
+        bxps = [input_proj(c, x) for c in cells]
+        geo = lstm_geometry(h, BATCH, n)
+        require(geo.design == "wide", f"{fwd_row}: lstm_geometry gives "
+                f"{geo.design} at H={h}, B={BATCH}")
+        fits = [cluster_info(geo, BATCH, h, bwd) for bwd in (False, True)]
+        print(f"{pre}lstm_fwd/_bwd at H={h} B={BATCH}: wide design, "
+              f"{geo.grid[1] * geo.grid[2]} clusters of {geo.ctas} CTAs "
+              f"(R={geo.rows}); cudaOccupancyMaxActiveClusters at their "
+              f"shared memory ({fits[0][0]} / {fits[1][0]} B): "
+              f"{fits[0][1]} / {fits[1][1]}")
+
+        def fwd(xps, m, train=False):
+            if n == 2:
+                return bilstm(*xps, m, *whs, residual=train)
+            return lstm(xps[0], m, whs[0], residual=train)
+
+        def fwd_plain(xps, m, keep=False):
+            if n == 2:
+                return bilstm_plain(*xps, m, *whs, keep_gates=keep)
+            return lstm_plain(xps[0], m, whs[0], keep_gates=keep)
+
+        def bwd(hcs, res):
+            if n == 2:
+                return bilstm_bwd(*bxps, mask, *whs, *hcs, *dh, res)
+            return (lstm_bwd(bxps[0], mask, whs[0], *hcs, dh[0], res),)
+
+        def bwd_plain(cs, gs):
+            if n == 2:
+                return bilstm_bwd_gates_plain(*gs, mask, *whs, *cs, *dh)
+            return (lstm_bwd_gates_plain(gs[0], mask, whs[0], cs[0],
+                                         dh[0]),)
+
+        stream_geo = stream_geometry(h, BATCH, n)
+        with torch.no_grad():
+            got, want = fwd(fxps, mask_s), fwd_plain(fxps, mask_s)
+            *kept, kept_g = fwd(fxps, mask_s, train=True)
+            want_g = fwd_plain(fxps, mask_s, keep=True)[2 * n:]
+            *hcs, gs = fwd(bxps, mask, train=True)
+            hs, cs = hcs[0::2], hcs[1::2]
+            require(len(gs) == n and len(kept_g) == n,
+                    f"{fwd_row}: the training forward's res holds "
+                    f"{len(gs)} tensors, not the gates of {n} directions")
+            d_k, d_p = bwd(hcs, gs), bwd_plain(cs, gs)
+            d_r = (bilstm_bwd_plain(*bxps, mask, *whs, *hcs, *dh)
+                   if n == 2 else (lstm_bwd_plain(bxps[0], mask, whs[0],
+                                                  *hcs, dh[0]),))
+            # the stream design on the same inputs (its C entry points,
+            # which count no launch)
+            s_fwd = launch_fwd(stream_geo, fxps, mask_s, whs)
+            s_bwd = launch_bwd(stream_geo, bxps, mask, whs, list(hs),
+                               list(cs), dh[:n])
+            times[fwd_row] = (None, cuda_ms(lambda: fwd_plain(fxps, mask_s),
+                                            1, 1))
+            times[bwd_row] = (None, cuda_ms(lambda: bwd_plain(cs, gs), 1, 1))
+        errs[fwd_row] = max_err(got, want)
+        errs[bwd_row] = max_err(d_k, d_p)
+        g_err = max_err(kept_g, want_g)
+        same = all(torch.equal(a, c) for a, c in zip(kept, got))
+        max_c = max(float(c.abs().max()) for c in want[1::2])
+        print(f"{fwd_row} kernel vs plain: T={t_s} B={BATCH} H={h} "
+              f"max_abs_err={errs[fwd_row]:.3e} (max|c| {max_c:.2f}; tol "
+              f"{BILSTM_ATOL:g} + {BILSTM_RTOL:g}*|plain|); the training "
+              f"form's h and c bit-equal to the serving run {same}, its "
+              f"gates max_abs_err={g_err:.3e}")
+        require(all(within(k, p, BILSTM_ATOL, BILSTM_RTOL)
+                    for k, p in zip(got, want)),
+                f"{fwd_row} kernel disagrees with plain")
+        require(same and all(within(k, p, BILSTM_ATOL, BILSTM_RTOL)
+                             for k, p in zip(kept_g, want_g)),
+                f"{fwd_row} kernel's gates disagree with plain")
+        s_errs = max_err(s_fwd, want), max_err(s_bwd, d_r)
+        print(f"{pre}lstm stream design (csrc/lstm_stream_{{fwd,bwd}}.cu) "
+              f"vs plain at H={h} B={BATCH}: forward T={t_s} "
+              f"max_abs_err={s_errs[0]:.3e} (tol {BILSTM_ATOL:g} + "
+              f"{BILSTM_RTOL:g}*|plain|), backward T={t} "
+              f"max_abs_err={s_errs[1]:.3e} against the plain walk that "
+              f"recomputes the gates (tol {BWD_ATOL:g} + "
+              f"{BWD_RTOL:g}*|plain|)")
+        require(all(within(k, p, BILSTM_ATOL, BILSTM_RTOL)
+                    for k, p in zip(s_fwd, want)),
+                f"{pre}lstm stream forward disagrees with plain at H={h}")
+        require(all(within(k, p, BWD_ATOL, BWD_RTOL)
+                    for k, p in zip(s_bwd, d_r)),
+                f"{pre}lstm stream backward disagrees with plain at H={h}")
+        w_k = [w.clone().requires_grad_() for w in whs]
+        w_p = [w.clone().requires_grad_() for w in whs]
+        if n == 2:
+            torch.autograd.backward(
+                BiLSTMFunction.apply(*bxps, mask, *w_k), dh)
+            torch.autograd.backward(bilstm_plain(*bxps, mask, *w_p)[0::2],
+                                    dh)
+        else:
+            torch.autograd.backward(LSTMFunction.apply(bxps[0], mask,
+                                                       w_k[0]), dh[0])
+            torch.autograd.backward(lstm_plain(bxps[0], mask, w_p[0])[0],
+                                    dh[0])
+        dwh_err = max(float((a.grad - p.grad).abs().max() / p.grad.abs().max())
+                      for a, p in zip(w_k, w_p))
+        print(f"{bwd_row} kernel vs plain (from the card's gates): T={t} "
+              f"B={b} H={h} lengths {int(lengths.min())}..{t} "
+              f"max_abs_err={errs[bwd_row]:.3e} (max|dxp| "
+              f"{max(float(p.abs().max()) for p in d_p):.2f}; tol "
+              f"{BWD_ATOL:g} + {BWD_RTOL:g}*|plain|); against the plain walk "
+              f"that recomputes the gates {max_err(d_k, d_r):.3e}; dwh via "
+              f"the Function vs autograd through the plain loop: max err / "
+              f"max|dwh| = {dwh_err:.3e} (tol {DWH_RTOL:g})")
+        require(all(within(k, p, BWD_ATOL, BWD_RTOL)
+                    for k, p in zip(d_k, d_p)),
+                f"{bwd_row} kernel disagrees with plain")
+        require(all(within(k, p, BWD_ATOL, BWD_RTOL)
+                    for k, p in zip(d_k, d_r)),
+                f"{bwd_row} kernel disagrees with the recomputing plain walk")
+        require(dwh_err <= DWH_RTOL, f"{bwd_row}: dwh disagrees with autograd")
+        bounds[fwd_row] = rnn_bound(fxps[0], h, n, 1,
+                                    (*fxps, mask_s, *whs, *got))
+        train_bound = rnn_bound(fxps[0], h, n, 1,
+                                (*fxps, mask_s, *whs, *kept, *kept_g))
+        bounds[bwd_row] = rnn_bound(bxps[0], h, n, 1,
+                                    (*gs, mask, *whs, *cs, *dh[:n], *d_k))
+
+        # cuDNN at the same shapes, twice, around the designs in turns
+        def yardsticks():
+            out = []
+            for xs, lens, m in ((x_serve, len_serve, mask_s),
+                                (x, lengths.to(dev), mask)):
+                y = rnn_yardsticks("lstm", layer, xs, lens, m)
+                print_yardsticks(card, f"cuDNN nn.LSTM {pre or 'uni'}"
+                                 f"directional, T={xs.shape[0]} B={BATCH} "
+                                 f"H={h}", y)
+                require(y["out_err"] <= LOGITS_TOL,
+                        f"layer disagrees with nn.LSTM at H={h}")
+                out.append(y)
+            return out[0]["lib_fwd"], out[1]["lib_bwd"]
+
+        libs = [yardsticks()]
+        with torch.no_grad():
+            k_fwd = time_in_turns(
+                card, fwd_row, lambda: fwd(fxps, mask_s),
+                lambda: launch_fwd(stream_geo, fxps, mask_s, whs), t_s, geo,
+                1, "exchange, barrier, cell, loads", hidden=h)
+            k_train = cuda_ms(lambda: fwd(fxps, mask_s, train=True), 10)
+            k_bwd = time_in_turns(
+                card, bwd_row, lambda: bwd(hcs, gs),
+                lambda: launch_bwd(stream_geo, bxps, mask, whs, list(hs),
+                                   list(cs), dh[:n]), t, geo, 1,
+                "exchange, barrier, cell, loads", hidden=h)
+        libs.append(yardsticks())
+        print(f"[{card}] {fwd_row} as training runs it (residual: also "
+              f"writes the gates [T, B, 4H] of each direction), T={t_s} "
+              f"B={BATCH}: {k_train:.4f} ms against the serving form's "
+              f"{k_fwd:.4f} ms ({k_train / k_fwd:.3f}x); bound "
+              f"{train_bound[0]:.4f} ms ({train_bound[1]}; the gates' "
+              f"{tensor_bytes(*kept_g) / 1e6:.1f} MB written included)")
+        times[fwd_row] = (k_fwd, times[fwd_row][1])
+        times[bwd_row] = (k_bwd, times[bwd_row][1])
+        library[fwd_row] = min(lib[0] for lib in libs)
+        library[bwd_row] = min(lib[1] for lib in libs)
+        for row, k_ms, i in ((fwd_row, k_fwd, 0), (bwd_row, k_bwd, 1)):
+            print(f"[{card}] {row}: kernel {k_ms:.4f} ms, plain "
+                  f"{times[row][1]:.4f} ms, bound {bounds[row][0]:.4f} ms "
+                  f"({bounds[row][1]}); cuDNN nn.LSTM "
+                  f"{libs[0][i]:.4f} / {libs[1][i]:.4f} ms, the lower "
+                  f"{library[row] / k_ms:.2f}x the kernel")
+    return {"errs": errs, "times": times, "bounds": bounds,
+            "library": library}
+
+
+def check_gru_h512(dev: torch.device, card: str, x_serve: torch.Tensor,
+                   len_serve: torch.Tensor) -> None:
+    """The GRU kernels' route at H=512 (the stream design,
+    csrc/gru_stream_{fwd,bwd}.cu; no zoo model's default width), two
+    directions and one, B=32: the forward at the serving shapes (T=805),
+    the backward at the config-3 shapes (T=512), each against its plain
+    version, timed beside its bound and cuDNN ``nn.GRU`` at the same
+    shapes, for the ranking of the wide routes still to redesign."""
+    from asr_study_torch.models.zoo import deep_gru
+    from asr_study_torch.ops.gru import (bigru, bigru_bwd, bigru_bwd_plain,
+                                         bigru_plain, gru, gru_bwd,
+                                         gru_bwd_plain, gru_geometry,
+                                         gru_plain)
+
+    h = 512
+    g = torch.Generator().manual_seed(SEED + 15)
+    t_s = x_serve.shape[0]
+    mask_s = mask_of(len_serve, t_s, dev)
+    t, b = TRAIN_T, TRAIN_B
+    lengths = torch.randint(t // 2, t + 1, (b,), generator=g)
+    lengths[0] = t
+    x = torch.randn(t, b, FEATS, generator=g).to(dev)
+    mask = mask_of(lengths, t, dev)
+    dh = [torch.randn(t, b, h, generator=g).to(dev) for _ in range(2)]
+
+    def tup(out):
+        return out if isinstance(out, tuple) else (out,)
+
+    def max_err(got, want):
+        return max(float((k - p).abs().max()) for k, p in zip(got, want))
+
+    for n in (2, 1):
+        name = "bigru" if n == 2 else "gru"
+        fwd, fwd_plain, bwd, bwd_plain = (
+            (bigru, bigru_plain, bigru_bwd, bigru_bwd_plain) if n == 2 else
+            (gru, gru_plain, gru_bwd, gru_bwd_plain))
+        layer = deep_gru(f"num_hiddens={h},num_layers=1,bidirectional="
+                         f"{str(n == 2).lower()}", input_dim=FEATS,
+                         generator=g, device=dev).rnn.layers[0].rnn
+        cells = [layer.fw] + ([layer.bw] if n == 2 else [])
+        whs = [c.wh.detach() for c in cells]
+        fa = (*[input_proj(c, x_serve) for c in cells], mask_s, *whs)
+        xps = [input_proj(c, x) for c in cells]
+        with torch.no_grad():
+            got, want = tup(fwd(*fa)), tup(fwd_plain(*fa))
+            hs = tup(fwd(*xps, mask, *whs))
+            ba = (*xps, mask, *whs, *hs, *dh[:n])
+            d_k, d_p = tup(bwd(*ba)), tup(bwd_plain(*ba))
+            k_fwd = cuda_ms(lambda: fwd(*fa), 3)
+            k_bwd = cuda_ms(lambda: bwd(*ba), 3)
+        design = gru_geometry(h, BATCH, n).design
+        require(all(within(k, p, GRU_ATOL, GRU_RTOL)
+                    for k, p in zip(got, want)),
+                f"{name}_fwd disagrees with plain at H={h}")
+        require(all(within(k, p, BWD_ATOL, BWD_RTOL)
+                    for k, p in zip(d_k, d_p)),
+                f"{name}_bwd disagrees with plain at H={h}")
+        fb = rnn_bound(fa[0], h, n, 1, (*fa, *got))
+        bb = rnn_bound(xps[0], h, n, 2, (*ba, *d_k))
+        lib = []
+        for xs, lens, m, key in ((x_serve, len_serve, mask_s, "lib_fwd"),
+                                 (x, lengths.to(dev), mask, "lib_bwd")):
+            y = rnn_yardsticks("gru", layer, xs, lens, m)
+            print_yardsticks(card, f"cuDNN nn.GRU {'bi' if n == 2 else 'uni'}"
+                             f"directional, T={xs.shape[0]} B={BATCH} H={h}",
+                             y)
+            require(y["out_err"] <= LOGITS_TOL,
+                    f"layer disagrees with nn.GRU at H={h}")
+            lib.append(y[key])
+        print(f"[{card}] {name}_fwd at H={h} ({design} design), T={t_s} "
+              f"B={BATCH}: kernel {k_fwd:.4f} ms, bound {fb[0]:.4f} ms "
+              f"({fb[1]}), cuDNN nn.GRU {lib[0]:.4f} ms; max_abs_err "
+              f"{max_err(got, want):.3e}.  {name}_bwd at T={t}: kernel "
+              f"{k_bwd:.4f} ms, bound {bb[0]:.4f} ms ({bb[1]}), cuDNN "
+              f"{lib[1]:.4f} ms; max_abs_err {max_err(d_k, d_p):.3e}")
 
 
 def sm_clock_hz() -> float:
@@ -1159,8 +1458,11 @@ def check_lstm_designs(dev: torch.device, card: str, x_serve: torch.Tensor,
 
     The four wrappers against their plain versions at shapes ragged for the
     cluster tiling: H=100 (13 units a CTA, the last CTA 9), B=5 and B=33
-    (rows left over in the last group), a row masked on every frame, T=1;
-    each case runs the design ``lstm_geometry`` picks, at the forward and
+    (rows left over in the last group), a row masked on every frame, T=1,
+    and H=512 at B=49 (two directions: more rows than the wide design's
+    clusters hold, so the stream design; one direction: the wide design
+    with a ragged last group); each case runs the design ``lstm_geometry``
+    picks, held by the wrappers' by-design counts, at the forward and
     backward tolerances.  Then, at H=256 and the main paths' shapes (T=805
     forward, T=512 backward, B=32), the cluster design and the stream design
     (its C entry point) timed in turns, cluster, stream, stream, cluster,
@@ -1178,7 +1480,7 @@ def check_lstm_designs(dev: torch.device, card: str, x_serve: torch.Tensor,
     g = torch.Generator().manual_seed(SEED + 12)
     for t, b, h, masked in ((37, 5, 100, True), (40, 33, 256, True),
                             (1, 33, 256, False), (1, 5, 100, False),
-                            (64, 9, 256, True)):
+                            (64, 9, 256, True), (24, 49, 512, True)):
         xps = [torch.randn(t, b, 4 * h, generator=g) for _ in range(2)]
         whs = [torch.randn(h, 4 * h, generator=g) / h ** 0.5
                for _ in range(2)]
@@ -1191,15 +1493,20 @@ def check_lstm_designs(dev: torch.device, card: str, x_serve: torch.Tensor,
         xps = [x.to(dev) for x in xps]
         whs = [w.to(dev) for w in whs]
         mask = mask[..., None].to(dev)
+        designs = {n: lstm_geometry(h, b, n).design for n in (2, 1)}
+        ran = {w: (designs[n], w.by_design[designs[n]]) for w, n in (
+            (bilstm, 2), (bilstm_bwd, 2), (lstm, 1), (lstm_bwd, 1))}
         with torch.no_grad():
             bi = (*xps, mask, *whs)
-            fb = bilstm(*bi), bilstm_plain(*bi)
-            bb = (bilstm_bwd(*bi, *fb[0], *dhs),
-                  bilstm_bwd_plain(*bi, *fb[0], *dhs))
+            *hc, res = bilstm(*bi, residual=True)
+            fb = hc, bilstm_plain(*bi)
+            bb = (bilstm_bwd(*bi, *hc, *dhs, res),
+                  bilstm_bwd_plain(*bi, *hc, *dhs))
             uni = (xps[0], mask, whs[0])
-            fu = lstm(*uni), lstm_plain(*uni)
-            bu = (lstm_bwd(*uni, *fu[0], dhs[0]),
-                  lstm_bwd_plain(*uni, *fu[0], dhs[0]))
+            *hc, res = lstm(*uni, residual=True)
+            fu = hc, lstm_plain(*uni)
+            bu = (lstm_bwd(*uni, *hc, dhs[0], res),
+                  lstm_bwd_plain(*uni, *hc, dhs[0]))
         errs = {}
         for name, (got, want), atol, rtol in (
                 ("bilstm_fwd", fb, BILSTM_ATOL, BILSTM_RTOL),
@@ -1211,7 +1518,10 @@ def check_lstm_designs(dev: torch.device, card: str, x_serve: torch.Tensor,
             require(all(within(k, p, atol, rtol) for k, p in zip(got, want)),
                     f"{name} kernel disagrees with plain at T={t} B={b} "
                     f"H={h}")
-        designs = {n: lstm_geometry(h, b, n).design for n in (2, 1)}
+        for w, (design, before) in ran.items():
+            require(w.by_design[design] == before + 1,
+                    f"{w.__name__} at T={t} B={b} H={h} did not run the "
+                    f"{design} design")
         print(f"LSTM kernels vs plain at T={t} B={b} H={h}"
               f"{', the last row masked throughout' if masked else ''} "
               f"(designs: bi {designs[2]}, uni {designs[1]}): max_abs_err "
@@ -1919,7 +2229,16 @@ KERNELS = {
     "mi_lstm_fwd": ("mi_lstm_fwd.cu", "ops/pallas_mi_lstm.py:59"),
     "mi_lstm_bwd": ("mi_lstm_bwd.cu", "ops/pallas_mi_lstm.py:132"),
     "dpack_decode": ("dpack.cu", "ops/pallas_dpack.py:56"),
+    # the LSTM wrappers' wide design (256 < H <= 512): the same TPU
+    # kernels, another source
+    "bilstm_fwd_wide": ("lstm_wide_fwd.cu", "ops/pallas_bilstm.py:84"),
+    "bilstm_bwd_wide": ("lstm_wide_bwd.cu", "ops/pallas_bilstm.py:125"),
+    "lstm_fwd_wide": ("lstm_wide_fwd.cu", "ops/pallas_lstm.py:83"),
+    "lstm_bwd_wide": ("lstm_wide_bwd.cu", "ops/pallas_lstm.py:173"),
 }
+# kernel line row of the wide design -> the wrapper that launches it
+WIDE_ROWS = {"bilstm_fwd_wide": "bilstm_fwd", "bilstm_bwd_wide": "bilstm_bwd",
+             "lstm_fwd_wide": "lstm_fwd", "lstm_bwd_wide": "lstm_bwd"}
 
 # training paths: label -> (zoo model, its hparams, forward and backward
 # kernel of its recurrence, recurrent layers, what it is); the LN paths'
@@ -1941,8 +2260,12 @@ TRAIN_PATHS = {
     "highway_blstm": ("highway_blstm", f"num_hiddens={HIDDEN},dropout=0.0",
                       "bilstm_fwd", "bilstm_bwd", 5, f"5x{HIDDEN} highway"),
     "deep_speech": ("deep_speech", "dropout=0.0,input_dropout=0.0",
-                    "bilstm_fwd", "bilstm_bwd", 1,
+                    "bilstm_fwd_wide", "bilstm_bwd_wide", 1,
                     "3x512 dense + 1x512 BLSTM"),
+    "deep_speech uni": ("deep_speech", "dropout=0.0,input_dropout=0.0,"
+                        "bidirectional=false", "lstm_fwd_wide",
+                        "lstm_bwd_wide", 1,
+                        "3x512 dense + 1x512 unidirectional LSTM"),
     "ln_blstm": ("ln_blstm", _CONFIG3, "bi_ln_lstm_fwd", "bi_ln_lstm_bwd",
                  TRAIN_LAYERS, f"{TRAIN_LAYERS}x{HIDDEN} LN"),
     "ln_blstm uni": ("ln_blstm", _CONFIG3 + ",bidirectional=false",
@@ -2038,9 +2361,15 @@ def check_designs(label: str, hidden: int, batch: int) -> None:
 
 
 def read_counts() -> dict:
-    """The nonzero launch counts."""
-    return {k: fn.launches for k, fn in launch_counters().items()
-            if fn.launches}
+    """The nonzero launch counts by kernel line row: the LSTM wrappers'
+    wide launches under their own rows (WIDE_ROWS), the rest under the
+    wrapper's."""
+    counters = launch_counters()
+    counts = {k: fn.launches for k, fn in counters.items()}
+    for row, name in WIDE_ROWS.items():
+        counts[row] = counters[name].by_design["wide"]
+        counts[name] -= counts[row]
+    return {k: v for k, v in counts.items() if v}
 
 
 class MixTap:
@@ -2503,12 +2832,14 @@ def main() -> int:
     train_kernels = check_training_kernels(dev, card)
     gru_kernels = check_gru_kernels(dev, card, x_serve, feat_lengths)
     lstm_kernels = check_lstm_kernels(dev, card, x_serve, feat_lengths)
+    wide_kernels = check_lstm_wide(dev, card, x_serve, feat_lengths)
     check_lstm_designs(dev, card, x_serve, feat_lengths, {
         "bilstm_fwd": lstm_y["lib_fwd"],
         "bilstm_bwd": train_kernels["library"]["bilstm_bwd"],
         **lstm_kernels["library"]})
     check_gru_designs(dev, card, x_serve, feat_lengths,
                       gru_kernels["library"])
+    check_gru_h512(dev, card, x_serve, feat_lengths)
     ln_kernels = check_ln_kernels(dev, card, x_serve, feat_lengths)
     zo_kernels = check_cell_family(dev, card, x_serve, feat_lengths,
                                    "zoneout")
@@ -2647,13 +2978,16 @@ def main() -> int:
                            f"3x{HIDDEN} unidirectional LSTM"),
         "highway_blstm": ("highway_blstm", "", "bilstm_fwd",
                           f"5x{HIDDEN} highway BLSTM"),
-        "deep_speech": ("deep_speech", "", "bilstm_fwd",
+        "deep_speech": ("deep_speech", "", "bilstm_fwd_wide",
                         "3x512 clipped-ReLU dense + 1x512 BLSTM"),
         "ln_blstm": ("ln_blstm", "", "bi_ln_lstm_fwd",
                      f"3x{HIDDEN} layer-norm BLSTM"),
         "zoneout_blstm": ("zoneout_blstm", "", "bi_zoneout_lstm_fwd",
                           f"3x{HIDDEN} zoneout BLSTM, eval mode"),
         "mi_blstm": ("mi_blstm", "", "bi_mi_lstm_fwd", f"3x{HIDDEN} MI BLSTM"),
+        "deep_speech uni": ("deep_speech", "bidirectional=false",
+                            "lstm_fwd_wide", "3x512 clipped-ReLU dense + "
+                            "1x512 unidirectional LSTM"),
     }
     for i, (label, (name, hp, fwd_name, desc)) in enumerate(
             serve_models.items()):
@@ -2689,8 +3023,8 @@ def main() -> int:
         "bilstm_fwd": (bilstm_err, bl_ms, bl_plain_ms, bl_bound,
                        lstm_y["lib_fwd"]),
     }
-    for found in (train_kernels, gru_kernels, lstm_kernels, ln_kernels,
-                  zo_kernels, mi_kernels, dpack_kernels):
+    for found in (train_kernels, gru_kernels, lstm_kernels, wide_kernels,
+                  ln_kernels, zo_kernels, mi_kernels, dpack_kernels):
         for name, err in found["errs"].items():
             measured[name] = (err, *found["times"][name],
                               found["bounds"][name], found["library"][name])

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Where a step of the cluster LSTM, GRU, layer-norm and MI LSTM kernels
-spends its time, on one NVIDIA GPU.
+"""Where a step of the cluster LSTM, GRU, layer-norm and MI LSTM kernels,
+and of the wide LSTM kernels, spends its time, on one NVIDIA GPU.
 
     python3 lstm_step_split.py
 
@@ -10,7 +10,9 @@ and ``mi_lstm_bwd.cu`` as they are and in variants, into
 ``build/step_split/``,
 and times each at the main paths' shapes (H=256, B=32; T=805 forward,
 T=512 backward; one direction, R=4 rows a cluster, and two, R=8) with CUDA
-events, the unchanged kernel first and last.  Variants that drop one part
+events, the unchanged kernel first and last; ``lstm_wide_fwd.cu`` and
+``lstm_wide_bwd.cu`` the same way at deep_speech's H=512 (16 CTAs of 32
+units; R=8 in one direction, R=16 in two).  Variants that drop one part
 of the step (their outputs are wrong; only their times count):
 
 - ``no_push``: h goes to the CTA's own buffer only, no exchange through
@@ -39,6 +41,13 @@ LayerNorm statistics across the cluster (outputs wrong; times count):
 - ``no_stats``: the forward's statistics rounds gone, pushes and barriers;
 - ``no_push``, ``no_product``: as above, for the forward.
 
+Variants of the wide LSTM kernels (outputs wrong; times count): for the
+forward ``no_push``, ``no_push_no_sync`` and ``no_product`` as above, and
+``no_shared_half``: the product without the slice's rows 256..511, which
+it reads from shared memory; for the backward, ``no_push`` keeps each
+row's cotangent partials in the sender's own buffer and ``no_product``
+drops its one product (dpre @ wh^T).
+
 Variants of the MI-LSTM kernels (outputs wrong; times count):
 ``no_push`` and ``no_product`` as above for the forward; for the backward,
 ``no_push`` keeps each unit's cotangent partial in the sender's own
@@ -58,7 +67,7 @@ from pathlib import Path
 
 import torch
 
-T_FWD, T_BWD, B, H = 805, 512, 32, 256
+T_FWD, T_BWD, B, H_NARROW = 805, 512, 32, 256
 
 PRODUCT = "for (int kk = 0; kk < kSlice; kk += 4) {"
 NO_PRODUCT = (PRODUCT, PRODUCT.replace("kk < kSlice", "kk < 0"))
@@ -98,13 +107,25 @@ MI_BWD_PUSH = ("float* dst = cluster.map_shared_rank(recv + (cur * C + rank)"
                "float* dst = recv + (cur * C + rank) * RU;")
 MI_BWD_PRODUCT = ("for (int k = 0; k < GC; k += 4) {",
                   "for (int k = 0; k < 0; k += 4) {")
+WIDE_PUSH = ("*reinterpret_cast<float4*>(cluster.map_shared_rank(hn, p))"
+             " = h4;", "if (p == rank) *reinterpret_cast<float4*>(hn) = h4;")
+WIDE_SHARED = ("#pragma unroll 4\n      for (int kk = 0; kk < kSlice; "
+               "kk += 4) {", "#pragma unroll 4\n      for (int kk = 0; "
+               "kk < 0; kk += 4) {")
+WIDE_BWD_PUSH = ("cluster.map_shared_rank(\n            slot + (j - owner * "
+                 "kUnits) * R, owner)", "(slot + (j - owner * kUnits) * R)")
+WIDE_BWD_PRODUCT = ("for (int col = 0; col < kCols; ++col) {\n        const "
+                    "float wa", "for (int col = 0; col < 0; ++col) {\n"
+                    "        const float wa")
 SPLIT = {
     "no_push": [NO_PUSH],
     "no_push_no_sync": [NO_PUSH, NO_SYNC],
     "no_product": [NO_PRODUCT],
     "skeleton": [NO_PRODUCT, NO_PUSH],
 }
-# kernel -> (source, C entry point, gate columns a unit, steps, variants)
+# kernel -> (source, C entry point, gate columns a unit, steps, variants;
+# the wide kernels' width is H_WIDE)
+H_WIDE = 512
 KERNELS = {
     "bilstm_fwd": ("bilstm_fwd.cu", "asr_bilstm_fwd", 4, T_FWD,
                    {"base": [], **SPLIT, "no_cell_math": [LSTM_CELL]}),
@@ -126,6 +147,14 @@ KERNELS = {
     "mi_lstm_bwd": ("mi_lstm_bwd.cu", "asr_mi_lstm_bwd", 4, T_BWD,
                     {"base": [], "no_push": [MI_BWD_PUSH],
                      "no_product": [NO_PRODUCT, MI_BWD_PRODUCT]}),
+    "lstm_wide_fwd": ("lstm_wide_fwd.cu", "asr_lstm_wide_fwd", 4, T_FWD,
+                      {"base": [], "no_push": [WIDE_PUSH],
+                       "no_push_no_sync": [WIDE_PUSH, NO_SYNC],
+                       "no_product": [NO_PRODUCT],
+                       "no_shared_half": [WIDE_SHARED]}),
+    "lstm_wide_bwd": ("lstm_wide_bwd.cu", "asr_lstm_wide_bwd", 4, T_BWD,
+                      {"base": [], "no_push": [WIDE_BWD_PUSH],
+                       "no_product": [WIDE_BWD_PRODUCT]}),
 }
 
 
@@ -169,7 +198,7 @@ def main() -> int:
         print("lstm_step_split: torch.cuda.is_available() is false; this "
               "script needs an NVIDIA GPU", file=sys.stderr)
         return 1
-    from asr_study_torch.ops.bilstm import lstm_geometry
+    from asr_study_torch.ops.bilstm import lstm, lstm_geometry
     from asr_study_torch.ops.gru import gru_geometry
     from asr_study_torch.ops.ln_lstm import ln_geometry, ln_lstm
     from asr_study_torch.ops.mi_lstm import mi_geometry, mi_lstm
@@ -184,6 +213,7 @@ def main() -> int:
     g = torch.Generator(device=dev).manual_seed(0)
     print(card)
     for kernel, (_, _, gates, t, variants) in KERNELS.items():
+        H = H_WIDE if "wide" in kernel else H_NARROW
         geometry = (ln_geometry if kernel.startswith("ln") else
                     mi_geometry if kernel.startswith("mi") else
                     lstm_geometry if gates == 4 else gru_geometry)
@@ -222,6 +252,13 @@ def main() -> int:
                     *outs[:2])
         elif kernel == "bilstm_fwd":    # h_f, c_f, h_b, c_b
             ptrs = (xp, xp, mask, wh, wh, *outs)
+        elif kernel == "lstm_wide_fwd":  # h_f, c_f, h_b, c_b; no gates
+            ptrs = (xp, xp, mask, wh, wh, *outs, None, None)
+        elif kernel == "lstm_wide_bwd":  # gates, c, dh; dxp of each lane
+            # the gates and c from the forward
+            _, c, (gts,) = lstm(xp, mask, wh, residual=True)
+            ptrs = (gts, gts, mask, wh, wh, c, c, seqs[1], seqs[1],
+                    *outs[:2])
         elif kernel == "gru_fwd":       # h_f, h_b
             ptrs = (xp, xp, mask, wh, wh, *outs[:2])
         else:                           # h, dh; dxp_f, dhp_f, dxp_b, dhp_b
@@ -232,7 +269,8 @@ def main() -> int:
             base = None
             for name in [*variants, "base"]:
                 def call(fn=entry[kernel, name]):
-                    err = fn(*(a.data_ptr() for a in ptrs), t, B, H, ndir,
+                    err = fn(*(None if a is None else a.data_ptr()
+                               for a in ptrs), t, B, H, ndir,
                              geo.ctas, geo.units, geo.rows, stream(xp))
                     if err:
                         raise RuntimeError(f"{kernel} {name}: launch failed "

@@ -20,9 +20,10 @@ from asr_study_torch.models.zoo import (build_model, deep_blstm, deep_gru,
 from asr_study_torch.ops import ctc
 from asr_study_torch.ops.dpack import dpack_decode, dpack_decode_plain
 from asr_study_torch.ops.bilstm import (BiLSTMFunction, LSTMFunction, bilstm,
-                                        bilstm_bwd, bilstm_bwd_plain,
-                                        bilstm_plain, cluster_info, lstm,
-                                        lstm_bwd, lstm_bwd_plain,
+                                        bilstm_bwd, bilstm_bwd_gates_plain,
+                                        bilstm_bwd_plain, bilstm_plain,
+                                        cluster_info, lstm, lstm_bwd,
+                                        lstm_bwd_gates_plain, lstm_bwd_plain,
                                         lstm_geometry, lstm_plain)
 from asr_study_torch.ops.gru import (BiGRUFunction, GRUFunction, bigru,
                                      bigru_bwd, bigru_bwd_plain, bigru_plain,
@@ -275,19 +276,30 @@ def _bilstm_case(cuda, t, b, h, seed, dead=False):
 @_lstm_cases([(12, 4, 8), (37, 5, 100), (50, 9, 256), (3, 1, 300),
               (512, 32, 256), (20, 3, 512)])
 def test_bilstm_bwd_kernel_matches_plain(cuda, t, b, h, dead):
+    """bilstm_bwd against the plain walk that recomputes the gates; where
+    the wide design runs (H=300, H=512) the kernel reads the gates that
+    the forward kept in its res, and is held against the plain walk from
+    those gates too."""
     args, dh = _bilstm_case(cuda, t, b, h, seed=h + t, dead=dead)
-    res = bilstm(*args)
+    *res, saved = bilstm(*args, residual=True)
+    assert len(saved) == (2 if lstm_geometry(h, b, 2).design == "wide"
+                          else 0)
     before = _count_design(bilstm_bwd, h, b, 2)
-    got = bilstm_bwd(*args, *res, *dh)
+    got = bilstm_bwd(*args, *res, *dh, saved)
     assert _count_design(bilstm_bwd, h, b, 2) == (before[0] + 1,
                                                   before[1] + 1)
     want = bilstm_bwd_plain(*args, *res, *dh)
     torch.cuda.synchronize()
     for name, g_, w_ in zip(("dxp_f", "dxp_b"), got, want):
         torch.testing.assert_close(g_, w_, **BWD_TOL, msg=name)
+    if saved:
+        want = bilstm_bwd_gates_plain(*saved, args[2], args[3], args[4],
+                                      res[1], res[3], *dh)
+        for name, g_, w_ in zip(("dxp_f", "dxp_b"), got, want):
+            torch.testing.assert_close(g_, w_, **BWD_TOL, msg=name)
 
 
-@pytest.mark.parametrize("t,b,h", [(12, 4, 8), (40, 6, 256)])
+@pytest.mark.parametrize("t,b,h", [(12, 4, 8), (40, 6, 256), (20, 5, 512)])
 def test_bilstm_function_matches_autograd_on_card(cuda, t, b, h):
     """Gradients of xp and wh through BiLSTMFunction (both kernels)
     against autograd through the plain loop, on the card."""
@@ -582,21 +594,22 @@ LSTM_SIZES = [(12, 4, 8), (37, 5, 100), (50, 9, 256), (20, 3, 512)]
 def test_lstm_kernels_match_plain(cuda, t, b, h, dead):
     """lstm (one direction of bilstm_fwd) and lstm_bwd (of bilstm_bwd)
     against their plain loops: h, c and dxp; H=100 has a gate width not a
-    multiple of 32 and a last CTA of 9 units, H=512 takes the stream
-    design.  Where the cluster design runs, lstm_geometry's shared memory is
-    the kernels' own and the card holds the launch's clusters at once."""
+    multiple of 32 and a last CTA of 9 units, H=512 takes the wide design
+    (the backward from the gates the forward kept).  Where a cluster
+    design runs, lstm_geometry's shared memory is the kernels' own and the
+    card holds the launch's clusters at once."""
     args, dh = _bilstm_case(cuda, t, b, h, seed=h + t + 2, dead=dead)
     xp, mask, wh = args[0], args[2], args[3]
     before = (_count_design(lstm, h, b, 1), _count_design(lstm_bwd, h, b, 1),
               bilstm.launches)
-    h_k, c_k = lstm(xp, mask, wh)
-    dxp = lstm_bwd(xp, mask, wh, h_k, c_k, dh[0])
+    geo = lstm_geometry(h, b, 1)
+    h_k, c_k, res = lstm(xp, mask, wh, residual=True)
+    dxp = lstm_bwd(xp, mask, wh, h_k, c_k, dh[0], res)
     assert (_count_design(lstm, h, b, 1), _count_design(lstm_bwd, h, b, 1),
             bilstm.launches) == (
         (before[0][0] + 1, before[0][1] + 1),
         (before[1][0] + 1, before[1][1] + 1), before[2])
-    geo = lstm_geometry(h, b, 1)
-    if geo.design == "cluster":
+    if geo.design != "stream":
         for backward, smem in ((False, geo.smem_fwd), (True, geo.smem_bwd)):
             got_smem, fit = cluster_info(geo, b, h, backward)
             assert got_smem == smem
@@ -609,7 +622,7 @@ def test_lstm_kernels_match_plain(cuda, t, b, h, dead):
     torch.testing.assert_close(dxp, dxp_p, **BWD_TOL, msg="dxp")
 
 
-@pytest.mark.parametrize("t,b,h", [(12, 4, 8), (40, 6, 256)])
+@pytest.mark.parametrize("t,b,h", [(12, 4, 8), (40, 6, 256), (20, 5, 512)])
 def test_lstm_function_matches_autograd_on_card(cuda, t, b, h):
     """Gradients of xp and wh through LSTMFunction (both kernels) against
     autograd through the plain loop, on the card."""
@@ -621,6 +634,100 @@ def test_lstm_function_matches_autograd_on_card(cuda, t, b, h):
         torch.testing.assert_close(g_, w_, **BWD_TOL, msg=name)
 
 
+# the wide design at H=512: deep_speech's B=32 in two directions (R=16)
+# and one (R=8), ragged B=33 (a last row group of one row) and B=5, a row
+# masked on every frame, T=1
+WIDE_CASES = [(64, 32, 2, False), (64, 32, 1, False), (40, 33, 2, True),
+              (40, 33, 1, True), (23, 5, 2, True), (1, 3, 1, False)]
+
+
+@pytest.mark.parametrize("t,b,ndir,dead", WIDE_CASES,
+                         ids=[f"{t}-{b}-{'bi' if n == 2 else 'uni'}"
+                              + ("-dead" if d else "")
+                              for t, b, n, d in WIDE_CASES])
+def test_wide_kernels_match_plain(cuda, t, b, ndir, dead):
+    """The wide design's forward (serving, and keeping the gates) and its
+    backward from those gates against their plain versions at H=512; the
+    launches counted under the wide design; lstm_geometry's shared memory
+    is the kernels' own and the card holds the launch's clusters at once;
+    the backward run twice from the same inputs is equal bit for bit."""
+    h = 512
+    args, dh = _bilstm_case(cuda, t, b, h, seed=t + b + ndir, dead=dead)
+    geo = lstm_geometry(h, b, ndir)
+    assert geo.design == "wide"
+    for backward, smem in ((False, geo.smem_fwd), (True, geo.smem_bwd)):
+        got_smem, fit = cluster_info(geo, b, h, backward)
+        assert got_smem == smem
+        assert fit >= geo.grid[1] * geo.grid[2]
+    fwd, bwd = (bilstm, bilstm_bwd) if ndir == 2 else (lstm, lstm_bwd)
+    before = (_count_design(fwd, h, b, ndir), _count_design(bwd, h, b, ndir))
+    if ndir == 2:
+        served = bilstm(*args)
+        *res, saved = bilstm(*args, residual=True)
+        want = bilstm_plain(*args, keep_gates=True)
+        runs = [bilstm_bwd(*args, *res, *dh, saved) for _ in range(2)]
+        want_d = bilstm_bwd_gates_plain(*saved, args[2], args[3], args[4],
+                                        res[1], res[3], *dh)
+    else:
+        xp, mask, wh = args[0], args[2], args[3]
+        served = lstm(xp, mask, wh)
+        *res, saved = lstm(xp, mask, wh, residual=True)
+        want = lstm_plain(xp, mask, wh, keep_gates=True)
+        runs = [(lstm_bwd(xp, mask, wh, *res, dh[0], saved),)
+                for _ in range(2)]
+        want_d = (lstm_bwd_gates_plain(*saved, mask, wh, res[1], dh[0]),)
+    assert (_count_design(fwd, h, b, ndir), _count_design(bwd, h, b, ndir)) \
+        == ((before[0][0] + 2, before[0][1] + 2),
+            (before[1][0] + 2, before[1][1] + 2))
+    torch.cuda.synchronize()
+    assert len(saved) == ndir
+    for g_, s_ in zip(res, served):
+        assert torch.equal(g_, s_)
+    for g_, w_ in zip((*res, *saved), want):
+        torch.testing.assert_close(g_, w_, rtol=1e-5, atol=1e-4)
+    for g_, w_ in zip(runs[0], want_d):
+        torch.testing.assert_close(g_, w_, **BWD_TOL)
+    assert all(torch.equal(a, c) for a, c in zip(*runs))
+
+
+# H=512 beyond the wide design's budget: B=49 in two directions and B=97
+# in one take the stream design (csrc/lstm_stream_{fwd,bwd}.cu)
+STREAM_CASES = [(20, 49, 2), (12, 97, 1)]
+
+
+@pytest.mark.parametrize("t,b,ndir", STREAM_CASES,
+                         ids=[f"{t}-{b}-{'bi' if n == 2 else 'uni'}"
+                              for t, b, n in STREAM_CASES])
+def test_lstm_stream_route_matches_plain(cuda, t, b, ndir):
+    """At H=512 and a batch the wide design's clusters cannot hold, the
+    forward and backward run the stream design (counted under it, the
+    forward's res empty) and agree with their plain versions."""
+    h = 512
+    args, dh = _bilstm_case(cuda, t, b, h, seed=t + b, dead=True)
+    assert lstm_geometry(h, b, ndir).design == "stream"
+    fwd, bwd = (bilstm, bilstm_bwd) if ndir == 2 else (lstm, lstm_bwd)
+    before = [dict(w.by_design) for w in (fwd, bwd)]
+    if ndir == 2:
+        *res, saved = bilstm(*args, residual=True)
+        got = bilstm_bwd(*args, *res, *dh, saved)
+        want = bilstm_plain(*args)
+        want_d = bilstm_bwd_plain(*args, *res, *dh)
+    else:
+        xp, mask, wh = args[0], args[2], args[3]
+        *res, saved = lstm(xp, mask, wh, residual=True)
+        got = (lstm_bwd(xp, mask, wh, *res, dh[0], saved),)
+        want = lstm_plain(xp, mask, wh)
+        want_d = (lstm_bwd_plain(xp, mask, wh, *res, dh[0]),)
+    assert saved == ()
+    for w, was in zip((fwd, bwd), before):
+        assert w.by_design == {**was, "stream": was["stream"] + 1}
+    torch.cuda.synchronize()
+    for g_, w_ in zip(res, want):
+        torch.testing.assert_close(g_, w_, rtol=1e-5, atol=1e-4)
+    for g_, w_ in zip(got, want_d):
+        torch.testing.assert_close(g_, w_, **BWD_TOL)
+
+
 # plain-LSTM models beside deep_blstm: name, hparams, forward and backward
 # wrapper, recurrent layers
 LSTM_ZOO = [
@@ -630,8 +737,13 @@ LSTM_ZOO = [
     ("residual_blstm", "num_hiddens=24,num_layers=2,bidirectional=false",
      lstm, lstm_bwd, 2),
     ("deep_speech", "num_hiddens=24,input_dense=32", bilstm, bilstm_bwd, 1),
+    # deep_speech at its own width: the wide design
+    ("deep_speech", "num_hiddens=512,input_dense=32", bilstm, bilstm_bwd, 1),
+    ("deep_speech", "num_hiddens=512,input_dense=32,bidirectional=false",
+     lstm, lstm_bwd, 1),
 ]
-LSTM_ZOO_IDS = ["deep_blstm_uni", "highway", "residual_uni", "deep_speech"]
+LSTM_ZOO_IDS = ["deep_blstm_uni", "highway", "residual_uni", "deep_speech",
+                "deep_speech_512", "deep_speech_512_uni"]
 
 
 @pytest.mark.parametrize("name,hp,fwd,bwd,layers", LSTM_ZOO,

@@ -20,9 +20,11 @@ from asr_study_torch.ops.bilstm import (CLUSTER_SLICE, CLUSTER_THREADS,
                                         LSTMFunction, bilstm, bilstm_bwd,
                                         cluster_smem, lstm, lstm_bwd,
                                         lstm_bwd_plain, lstm_geometry,
-                                        lstm_plain, stream_smem)
+                                        lstm_plain, wide_smem)
 from asr_study_torch.ops.recurrence import (CLUSTER_BUDGET, CLUSTER_CTAS,
-                                            CLUSTER_ROWS)
+                                            CLUSTER_ROWS, WIDE_BUDGET,
+                                            WIDE_MAX_HIDDEN, WIDE_ROWS,
+                                            WIDE_UNITS)
 from asr_study_torch.utils.weights import flat_from_params, params_from_flat
 from asr_study_tpu.models import zoo as jzoo
 from asr_study_tpu.models.cells import LSTMCell as JaxLSTMCell
@@ -247,24 +249,32 @@ def test_lstm_geometry(hidden, batch, ndir):
     mapping: CTA k holds wh[:, q*H + u] for its units u, q = i, f, g, o);
     no CTA empty; every row group within the launch; shared memory within
     the H100's 232,448 B a block; the grid a whole number of clusters; the
-    launch within the budget of resident clusters; H=512 on the stream
-    design, the rest on the cluster design."""
+    launch within the budget of resident clusters; H=512 on the wide design
+    (16 CTAs of 32 units, each thread's 128 register rows and 128 shared
+    rows of one column covering the 512 rows), the rest on the cluster
+    design."""
     geo = lstm_geometry(hidden, batch, ndir)
     assert max(geo.smem_fwd, geo.smem_bwd) <= 232_448
     assert geo.grid[0] % geo.ctas == 0 and geo.grid[2] == ndir
     assert geo.grid[1] * geo.rows >= batch > (geo.grid[1] - 1) * geo.rows
     if hidden == 512:
-        assert geo.design == "stream"
-        assert (geo.ctas, geo.units) == (1, hidden)
-        assert (geo.smem_fwd, geo.smem_bwd) == stream_smem(hidden)
-        return
-    assert geo.design == "cluster"
-    assert geo.ctas <= CLUSTER_CTAS and geo.rows in CLUSTER_ROWS
-    assert geo.grid[1] * geo.grid[2] <= CLUSTER_BUDGET
-    # every thread holds CLUSTER_SLICE rows of one gate column
-    assert 4 * geo.units * -(-hidden // CLUSTER_SLICE) <= CLUSTER_THREADS
-    assert (geo.smem_fwd, geo.smem_bwd) == cluster_smem(
-        hidden, geo.units, geo.rows, geo.ctas)
+        assert geo.design == "wide"
+        assert (geo.ctas, geo.units) == (16, 32) == (WIDE_MAX_HIDDEN // 32,
+                                                      WIDE_UNITS)
+        assert geo.rows in WIDE_ROWS
+        assert geo.grid[1] * geo.grid[2] <= WIDE_BUDGET
+        assert (geo.smem_fwd, geo.smem_bwd) == wide_smem(geo.rows, geo.ctas)
+        # 2 threads a gate column, each 128 rows in registers + 128 shared
+        assert 2 * 4 * geo.units == CLUSTER_THREADS
+        assert 2 * 2 * CLUSTER_SLICE >= hidden
+    else:
+        assert geo.design == "cluster"
+        assert geo.ctas <= CLUSTER_CTAS and geo.rows in CLUSTER_ROWS
+        assert geo.grid[1] * geo.grid[2] <= CLUSTER_BUDGET
+        # every thread holds CLUSTER_SLICE rows of one gate column
+        assert 4 * geo.units * -(-hidden // CLUSTER_SLICE) <= CLUSTER_THREADS
+        assert (geo.smem_fwd, geo.smem_bwd) == cluster_smem(
+            hidden, geo.units, geo.rows, geo.ctas)
     owner = {}
     for k in range(geo.ctas):
         units = range(k * geo.units, min(hidden, (k + 1) * geo.units))
