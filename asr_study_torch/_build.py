@@ -109,11 +109,22 @@ SIGNATURES = {
     # dcn_b, T, B, H, ndir, stream
     "asr_ln_lstm_stream_bwd": [_P] * 23 + [_I, _I, _I, _I, _P],
     # xp_f, xp_b, mask, zh_f, zh_b, zc_f, zc_b, wh_f, wh_b, h_f, c_f, h_b,
-    # c_b, T, B, H, ndir, stream
-    "asr_zoneout_lstm_fwd": [_P] * 13 + [_I, _I, _I, _I, _P],
+    # c_b, T, B, H, ndir, cluster CTAs, units per CTA, rows per cluster,
+    # stream
+    "asr_zoneout_lstm_fwd": [_P] * 13 + [_I] * 7 + [_P],
+    # B, H, ndir, cluster CTAs, units, rows, *smem bytes, *max clusters
+    "asr_zoneout_lstm_fwd_info": [_I] * 6 + [_P, _P],
+    # xp_f, xp_b, mask, zh_f, zh_b, zc_f, zc_b, wh_f, wh_b, h_f, c_f, h_b,
+    # c_b, dh_f, dh_b, dxp_f, dxp_b, T, B, H, ndir, cluster CTAs, units,
+    # rows, stream
+    "asr_zoneout_lstm_bwd": [_P] * 17 + [_I] * 7 + [_P],
+    "asr_zoneout_lstm_bwd_info": [_I] * 6 + [_P, _P],
+    # the streamed-weight forms (H=300, H=512): the cluster forward's
+    # arguments without the geometry
+    "asr_zoneout_lstm_stream_fwd": [_P] * 13 + [_I, _I, _I, _I, _P],
     # xp_f, xp_b, mask, zh_f, zh_b, zc_f, zc_b, wh_f, wh_b, wht_f, wht_b,
     # h_f, c_f, h_b, c_b, dh_f, dh_b, dxp_f, dxp_b, T, B, H, ndir, stream
-    "asr_zoneout_lstm_bwd": [_P] * 19 + [_I, _I, _I, _I, _P],
+    "asr_zoneout_lstm_stream_bwd": [_P] * 19 + [_I, _I, _I, _I, _P],
     # xp_f, xp_b, mask, wh_f, wh_b, alpha_f, alpha_b, beta1_f, beta1_b,
     # beta2_f, beta2_b, b_f, b_b, h_f, c_f, h_b, c_b, T, B, H, ndir, cluster
     # CTAs, units per CTA, rows per cluster, stream

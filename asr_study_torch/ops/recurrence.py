@@ -1,8 +1,9 @@
 """What the recurrence ops (``ops/bilstm.py``, ``ops/gru.py``,
-``ops/ln_lstm.py``, ``ops/mi_lstm.py``) share around their kernels: the
-argument check, the stream, the scan-previous state of a sequence, the
-cotangent of an unused output, and the fit rule of the cluster-resident
-kernels (the LSTM's, the GRU's, the layer-norm and MI LSTMs')."""
+``ops/ln_lstm.py``, ``ops/zoneout_lstm.py``, ``ops/mi_lstm.py``) share
+around their kernels: the argument check, the stream, the scan-previous
+state of a sequence, the cotangent of an unused output, and the fit rule of
+the cluster-resident kernels (the LSTM's, the GRU's, the layer-norm,
+zoneout and MI LSTMs')."""
 
 from __future__ import annotations
 

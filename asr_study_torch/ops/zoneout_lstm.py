@@ -13,17 +13,31 @@ f, g, o, the bias folded into ``xp``), then ``h = zh * h_new + (1 - zh) *
 h_prev`` and the same for c with ``zc``, then the hold on masked frames.
 Both directions take their mix weights in forward time order.
 
-The kernels are ``csrc/zoneout_lstm_fwd.cu`` and
-``csrc/zoneout_lstm_bwd.cu``; each takes the number of directions, so
+Two designs of the kernels, each taking the number of directions, so
 :func:`bi_zoneout_lstm` and :func:`zoneout_lstm` launch the same forward
 kernel with 2 and 1 directions, and :func:`bi_zoneout_lstm_bwd` and
-:func:`zoneout_lstm_bwd` the same backward kernel.  Each of the four
-wrappers counts its own launches.  A CUDA tensor launches the kernel (or
-raises); a CPU tensor takes the plain version, a Python loop over time.
-Neither records an autograd graph: gradients go through
-:class:`BiZoneoutLSTMFunction` and :class:`ZoneoutLSTMFunction`, whose
-backward is the backward kernel plus one ``h_prev^T @ dxp`` matmul per
-direction.  The mix weights get no gradient.
+:func:`zoneout_lstm_bwd` the same backward kernel:
+
+- ``cluster``: ``csrc/zoneout_lstm_fwd.cu`` and ``csrc/zoneout_lstm_bwd.cu``,
+  the recurrent weights resident in a thread-block cluster (its threads'
+  registers, and for the backward its shared memory too) for the whole
+  sequence, h and the cotangent partials exchanged through distributed
+  shared memory, the mix weights of a CTA's own units staged a step ahead;
+- ``stream``: ``csrc/zoneout_lstm_stream_fwd.cu`` and
+  ``csrc/zoneout_lstm_stream_bwd.cu``, one block per (direction, 4 rows)
+  streaming ``wh`` from L2 every step, for the widths whose weights do not
+  fit in a cluster (H=300, H=512).
+
+:func:`zoneout_geometry` picks the design by size alone (the LSTM's fit
+rule of ``ops/recurrence.py``, with the LSTM kernels' thread shape); a
+failed build or launch raises either way.  Each of the four wrappers counts
+its own launches, in all and by design (``launches``, ``by_design``).  A
+CUDA tensor launches a kernel (or raises); a CPU tensor takes the plain
+version, a Python loop over time.  Neither records an autograd graph:
+gradients go through :class:`BiZoneoutLSTMFunction` and
+:class:`ZoneoutLSTMFunction`, whose backward is the backward kernel plus
+one ``h_prev^T @ dxp`` matmul per direction.  The mix weights get no
+gradient.
 """
 
 from __future__ import annotations
@@ -32,8 +46,64 @@ import torch
 
 from asr_study_torch import _build
 from asr_study_torch.models.cells import zoneout_lstm_step
-from asr_study_torch.ops.bilstm import _dwh
-from asr_study_torch.ops.recurrence import check, cotangent, prev, stream
+from asr_study_torch.ops.bilstm import (CLUSTER_SLICE, CLUSTER_THREADS,
+                                        _dwh, cluster_smem, stream_smem)
+from asr_study_torch.ops.recurrence import (STREAM_ROWS, Geometry, check,
+                                            cluster_geometry, cotangent,
+                                            kernel_info, prev, r4, stream)
+
+
+def zoneout_cluster_smem(hidden: int, units: int, rows: int, ctas: int
+                         ) -> tuple[int, int]:
+    """Dynamic shared memory per CTA of the cluster forward and backward,
+    bytes: ``FwdLayout`` and ``BwdLayout`` of
+    ``csrc/zoneout_lstm_{fwd,bwd}.cu``, the LSTM kernels'
+    (``ops/bilstm.py`` ``cluster_smem``) with the mix weights zh and zc of
+    the CTA's own (row, unit) pairs, two steps of each ([2][R][U] floats);
+    the backward reads c at t_prev only, so its buffer of c at t goes."""
+    fwd, bwd = cluster_smem(hidden, units, rows, ctas)
+    pairs = 4 * r4(2 * rows * units)
+    return fwd + 2 * pairs, bwd + pairs
+
+
+def zoneout_stream_smem(hidden: int) -> tuple[int, int]:
+    """Dynamic shared memory per block of the stream forward and backward,
+    bytes: the formulas of ``csrc/zoneout_lstm_stream_{fwd,bwd}.cu``, which
+    are ``csrc/lstm_stream_{fwd,bwd}.cu``'s (``ops/bilstm.py``
+    ``stream_smem``)."""
+    return stream_smem(hidden)
+
+
+def zoneout_geometry(hidden: int, batch: int, ndir: int) -> Geometry:
+    """The design and layout of the zoneout-LSTM kernels for width
+    ``hidden``, ``batch`` rows and ``ndir`` directions: ``cluster`` where
+    :func:`~asr_study_torch.ops.recurrence.cluster_geometry` fits four gate
+    columns a unit in 256 threads of 128 rows (H=256: 8 CTAs of 32 units,
+    R=4 rows a cluster in one direction and R=8 in two at B=32, 8 clusters
+    either way; H=100: 13 units, the last CTA 9); ``stream`` otherwise
+    (H=300: 4 x 38 columns of three slices would take 456 threads; H=512;
+    and a batch no row count keeps within the budget, as B=49 at H=100 in
+    two directions)."""
+    return (cluster_geometry(hidden, batch, ndir, 4, CLUSTER_THREADS,
+                             CLUSTER_SLICE, zoneout_cluster_smem)
+            or zoneout_stream_geometry(hidden, batch, ndir))
+
+
+def zoneout_stream_geometry(hidden: int, batch: int, ndir: int) -> Geometry:
+    """The stream design's layout, at any width: the one
+    :func:`zoneout_geometry` gives where the cluster design does not fit."""
+    fwd, bwd = zoneout_stream_smem(hidden)
+    return Geometry("stream", 1, hidden, STREAM_ROWS,
+                    (1, -(-batch // STREAM_ROWS), ndir), fwd, bwd)
+
+
+def zoneout_cluster_info(geo: Geometry, batch: int, hidden: int,
+                         backward: bool) -> tuple[int, int]:
+    """On the card: (dynamic shared memory per CTA the kernel sizes,
+    clusters of this launch the card holds at once), from the kernel's own
+    launch configuration (``asr_zoneout_lstm_{fwd,bwd}_info``)."""
+    return kernel_info("zoneout_lstm_bwd_info" if backward
+                       else "zoneout_lstm_fwd_info", geo, batch, hidden)
 
 
 def _scan(xp, mask, zh, zc, wh, reverse: bool
@@ -68,22 +138,33 @@ def zoneout_lstm_plain(xp, mask, zh, zc, wh
     return _scan(xp, mask, zh, zc, wh, False)
 
 
-def _fwd_kernel(name: str, xps: list, mask: torch.Tensor, zhs: list,
-                zcs: list, whs: list) -> list:
-    """Launch ``zoneout_lstm_fwd`` over ``len(xps)`` directions (the second
-    one walks time backward) -> [h, c] per direction, flattened."""
+def _geometry(xp: torch.Tensor, ndir: int) -> Geometry:
+    return zoneout_geometry(xp.shape[2] // 4, xp.shape[1], ndir)
+
+
+def launch_fwd(geo: Geometry, xps: list, mask: torch.Tensor, zhs: list,
+               zcs: list, whs: list) -> list:
+    """Launch the forward over ``len(xps)`` directions (the second one walks
+    time backward) in the design and layout ``geo`` -> [h, c] per
+    direction, flattened.  The wrappers count the launches."""
     t_steps, batch, gh = xps[0].shape
-    outs = [torch.empty((t_steps, batch, gh // 4), dtype=torch.float32,
-                        device=xps[0].device) for _ in range(2 * len(xps))]
+    hidden, ndir = gh // 4, len(xps)
+    outs = [torch.empty((t_steps, batch, hidden), dtype=torch.float32,
+                        device=xps[0].device) for _ in range(2 * ndir)]
     if outs[0].numel() == 0:
         return outs
     args = (xps[0], xps[-1], mask, zhs[0], zhs[-1], zcs[0], zcs[-1], whs[0],
             whs[-1], outs[0], outs[1], outs[-2], outs[-1])
+    ptrs = (*(a.data_ptr() for a in args), t_steps, batch, hidden, ndir)
     with torch.cuda.device(xps[0].device):
-        err = _build.lib().asr_zoneout_lstm_fwd(
-            *(a.data_ptr() for a in args), t_steps, batch, gh // 4,
-            len(xps), stream(xps[0]))
-    _build.check(err, name)
+        if geo.design == "cluster":
+            err = _build.lib().asr_zoneout_lstm_fwd(
+                *ptrs, geo.ctas, geo.units, geo.rows, stream(xps[0]))
+        else:
+            err = _build.lib().asr_zoneout_lstm_stream_fwd(*ptrs,
+                                                           stream(xps[0]))
+    _build.check(err, f"{'bi_zoneout_lstm' if ndir == 2 else 'zoneout_lstm'}"
+                      f"_fwd ({geo.design})")
     return outs
 
 
@@ -114,13 +195,16 @@ def bi_zoneout_lstm(xp_f: torch.Tensor, xp_b: torch.Tensor,
     if xp_f.device.type == "cpu":
         with torch.no_grad():
             return bi_zoneout_lstm_plain(*args)
-    outs = _fwd_kernel("bi_zoneout_lstm_fwd", [xp_f, xp_b], mask,
-                       [zh_f, zh_b], [zc_f, zc_b], [wh_f, wh_b])
+    geo = _geometry(xp_f, 2)
+    outs = launch_fwd(geo, [xp_f, xp_b], mask, [zh_f, zh_b], [zc_f, zc_b],
+                      [wh_f, wh_b])
     bi_zoneout_lstm.launches += 1
+    bi_zoneout_lstm.by_design[geo.design] += 1
     return tuple(outs)
 
 
 bi_zoneout_lstm.launches = 0
+bi_zoneout_lstm.by_design = {"cluster": 0, "stream": 0}
 
 
 def zoneout_lstm(xp: torch.Tensor, mask: torch.Tensor, zh: torch.Tensor,
@@ -135,12 +219,15 @@ def zoneout_lstm(xp: torch.Tensor, mask: torch.Tensor, zh: torch.Tensor,
     if xp.device.type == "cpu":
         with torch.no_grad():
             return zoneout_lstm_plain(xp, mask, zh, zc, wh)
-    h, c = _fwd_kernel("zoneout_lstm_fwd", [xp], mask, [zh], [zc], [wh])
+    geo = _geometry(xp, 1)
+    h, c = launch_fwd(geo, [xp], mask, [zh], [zc], [wh])
     zoneout_lstm.launches += 1
+    zoneout_lstm.by_design[geo.design] += 1
     return h, c
 
 
 zoneout_lstm.launches = 0
+zoneout_lstm.by_design = {"cluster": 0, "stream": 0}
 
 
 def _walk_bwd(xp, mask, zh, zc, wh, h, c, dh_out, reverse: bool
@@ -189,23 +276,33 @@ def zoneout_lstm_bwd_plain(xp, mask, zh, zc, wh, h, c, dh) -> torch.Tensor:
     return _walk_bwd(xp, mask, zh, zc, wh, h, c, dh, False)
 
 
-def _bwd_kernel(name: str, xps: list, mask: torch.Tensor, zhs: list,
-                zcs: list, whs: list, hs: list, cs: list, dhs: list) -> list:
-    """Launch ``zoneout_lstm_bwd`` over ``len(xps)`` directions -> dxp per
-    direction."""
+def launch_bwd(geo: Geometry, xps: list, mask: torch.Tensor, zhs: list,
+               zcs: list, whs: list, hs: list, cs: list, dhs: list) -> list:
+    """Launch the backward over ``len(xps)`` directions in the design and
+    layout ``geo`` -> dxp per direction.  The cluster design holds its slice
+    of ``wh`` on chip; the stream design also reads ``wh`` transposed, made
+    here.  The wrappers count the launches."""
     outs = [torch.empty_like(x) for x in xps]
     if outs[0].numel() == 0:
         return outs
     t_steps, batch, gh = xps[0].shape
-    whts = [w.t().contiguous() for w in whs]
-    args = (xps[0], xps[-1], mask, zhs[0], zhs[-1], zcs[0], zcs[-1], whs[0],
-            whs[-1], whts[0], whts[-1], hs[0], cs[0], hs[-1], cs[-1], dhs[0],
-            dhs[-1], outs[0], outs[-1])
+    hidden, ndir = gh // 4, len(xps)
+    head = (xps[0], xps[-1], mask, zhs[0], zhs[-1], zcs[0], zcs[-1], whs[0],
+            whs[-1])
+    seqs = (hs[0], cs[0], hs[-1], cs[-1], dhs[0], dhs[-1], outs[0], outs[-1])
     with torch.cuda.device(xps[0].device):
-        err = _build.lib().asr_zoneout_lstm_bwd(
-            *(a.data_ptr() for a in args), t_steps, batch, gh // 4,
-            len(xps), stream(xps[0]))
-    _build.check(err, name)
+        if geo.design == "cluster":
+            err = _build.lib().asr_zoneout_lstm_bwd(
+                *(a.data_ptr() for a in (*head, *seqs)), t_steps, batch,
+                hidden, ndir, geo.ctas, geo.units, geo.rows, stream(xps[0]))
+        else:
+            whts = [w.t().contiguous() for w in whs]
+            args = (*head, whts[0], whts[-1], *seqs)
+            err = _build.lib().asr_zoneout_lstm_stream_bwd(
+                *(a.data_ptr() for a in args), t_steps, batch, hidden, ndir,
+                stream(xps[0]))
+    _build.check(err, f"{'bi_zoneout_lstm' if ndir == 2 else 'zoneout_lstm'}"
+                      f"_bwd ({geo.design})")
     return outs
 
 
@@ -226,14 +323,17 @@ def bi_zoneout_lstm_bwd(xp_f, xp_b, mask, zh_f, zh_b, zc_f, zc_b, wh_f,
             return bi_zoneout_lstm_bwd_plain(xp_f, xp_b, mask, zh_f, zh_b,
                                              zc_f, zc_b, wh_f, wh_b, h_f,
                                              c_f, h_b, c_b, dh_f, dh_b)
-    dxp_f, dxp_b = _bwd_kernel("bi_zoneout_lstm_bwd", [xp_f, xp_b], mask,
-                               [zh_f, zh_b], [zc_f, zc_b], [wh_f, wh_b],
-                               [h_f, h_b], [c_f, c_b], [dh_f, dh_b])
+    geo = _geometry(xp_f, 2)
+    dxp_f, dxp_b = launch_bwd(geo, [xp_f, xp_b], mask, [zh_f, zh_b],
+                              [zc_f, zc_b], [wh_f, wh_b], [h_f, h_b],
+                              [c_f, c_b], [dh_f, dh_b])
     bi_zoneout_lstm_bwd.launches += 1
+    bi_zoneout_lstm_bwd.by_design[geo.design] += 1
     return dxp_f, dxp_b
 
 
 bi_zoneout_lstm_bwd.launches = 0
+bi_zoneout_lstm_bwd.by_design = {"cluster": 0, "stream": 0}
 
 
 def zoneout_lstm_bwd(xp, mask, zh, zc, wh, h, c, dh) -> torch.Tensor:
@@ -244,13 +344,15 @@ def zoneout_lstm_bwd(xp, mask, zh, zc, wh, h, c, dh) -> torch.Tensor:
     if xp.device.type == "cpu":
         with torch.no_grad():
             return zoneout_lstm_bwd_plain(xp, mask, zh, zc, wh, h, c, dh)
-    (dxp,) = _bwd_kernel("zoneout_lstm_bwd", [xp], mask, [zh], [zc], [wh],
-                         [h], [c], [dh])
+    geo = _geometry(xp, 1)
+    (dxp,) = launch_bwd(geo, [xp], mask, [zh], [zc], [wh], [h], [c], [dh])
     zoneout_lstm_bwd.launches += 1
+    zoneout_lstm_bwd.by_design[geo.design] += 1
     return dxp
 
 
 zoneout_lstm_bwd.launches = 0
+zoneout_lstm_bwd.by_design = {"cluster": 0, "stream": 0}
 
 
 class BiZoneoutLSTMFunction(torch.autograd.Function):

@@ -50,15 +50,16 @@ Phases, in order; any failure raises and the exit code is not 0:
    throughout, T=1), with the design each width takes, its cluster
    geometry and shared memory; at H=256 the cluster design timed in turns
    against the stream design it replaced (through the latter's C entry
-   point) beside cuDNN, the layer-norm and MI LSTM kernels too (no cuDNN);
-   the MI kernels at alpha = 0, beta1 = beta2 = 1 against the LSTM
-   kernels; the zoneout kernels with Bernoulli and with constant mix
-   weights; the dpack
+   point) beside cuDNN, the layer-norm, zoneout and MI LSTM kernels too (no
+   cuDNN); the MI kernels at alpha = 0, beta1 = beta2 = 1 and the zoneout
+   kernels at zh = zc = 1 against the LSTM kernels; the zoneout kernels
+   with Bernoulli and with constant mix weights, and at ragged shapes as
+   the MI ones; the dpack
    decode bit for bit over the whole stream of every serving batch and of
    an edge batch, with the host encode time;
 4. the serving slices, with launch counters proving their kernels ran
-   (the LSTM, GRU, layer-norm and MI LSTM kernels in the design their
-   width takes; the LSTM's wide design under its own kernel line rows),
+   (the LSTM, GRU, layer-norm, zoneout and MI LSTM kernels in the design
+   their width takes; the LSTM's wide design under its own kernel line rows),
    logits held against the plain path on the CPU (for ln_blstm, whose
    recurrence is chaotic, on a batch cut to LN_CHECK_T frames); the dpack
    slice's logits and transcripts equal to the pcm16 slice's, the mulaw
@@ -658,32 +659,22 @@ def check_gru_kernels(dev: torch.device, card: str, x_serve: torch.Tensor,
             "library": library}
 
 
-def cell_family_smem(hidden: int) -> tuple[int, int, int]:
-    """Dynamic shared memory of zoneout_lstm_fwd and zoneout_lstm_bwd per
-    block at width ``hidden`` (one block per direction and 4 rows, the
-    layout of csrc/lstm_stream_*.cu), by the formulas of their C entry
-    points -> (forward bytes, backward bytes, the backward's partial sums
-    per unit)."""
-    gates = 4 * hidden
-    threads = min(-(-gates // 32) * 32, 1024)
-    nsplit = max(threads // hidden, 1)
-    return (4 * 4 * (2 * hidden + gates),
-            4 * 4 * ((3 + nsplit) * hidden + gates), nsplit)
-
-
 def print_cluster_geometry() -> None:
-    """The LSTM, GRU, layer-norm and MI LSTM kernels' design at each width
-    of the zoo (and H=100) and each direction count, at B=32: the cluster
-    (or, for the LSTM at H=512, the wide) geometry and shared memory, held
-    against the kernels' own launch configuration
-    (asr_{bilstm,gru,ln_lstm,mi_lstm,lstm_wide}_{fwd,bwd}_info), and the
-    clusters the card holds at once against those the launch needs."""
+    """The LSTM, GRU, layer-norm, zoneout and MI LSTM kernels' design at
+    each width of the zoo (and H=100) and each direction count, at B=32:
+    the cluster (or, for the LSTM at H=512, the wide) geometry and shared
+    memory, held against the kernels' own launch configuration
+    (asr_{bilstm,gru,ln_lstm,zoneout_lstm,mi_lstm,lstm_wide}_{fwd,bwd}_info),
+    and the clusters the card holds at once against those the launch
+    needs."""
     from asr_study_torch.ops.bilstm import (CLUSTER_THREADS, cluster_info,
                                             lstm_geometry)
     from asr_study_torch.ops.gru import (GRU_THREADS, gru_cluster_info,
                                          gru_geometry)
     from asr_study_torch.ops.ln_lstm import ln_cluster_info, ln_geometry
     from asr_study_torch.ops.mi_lstm import mi_cluster_info, mi_geometry
+    from asr_study_torch.ops.zoneout_lstm import (zoneout_cluster_info,
+                                                  zoneout_geometry)
 
     families = (("bilstm", "lstm", lstm_geometry, cluster_info,
                  CLUSTER_THREADS, "bilstm", "lstm_stream"),
@@ -691,6 +682,9 @@ def print_cluster_geometry() -> None:
                  "gru", "gru_stream"),
                 ("bi_ln_lstm", "ln_lstm", ln_geometry, ln_cluster_info,
                  CLUSTER_THREADS, "ln_lstm", "ln_lstm_stream"),
+                ("bi_zoneout_lstm", "zoneout_lstm", zoneout_geometry,
+                 zoneout_cluster_info, CLUSTER_THREADS, "zoneout_lstm",
+                 "zoneout_lstm_stream"),
                 ("bi_mi_lstm", "mi_lstm", mi_geometry, mi_cluster_info,
                  CLUSTER_THREADS, "mi_lstm", "mi_lstm_stream"))
     for bi, uni, geometry, info, threads, cluster_src, stream_src in \
@@ -1712,28 +1706,31 @@ def check_cell_family(dev: torch.device, card: str, x_serve: torch.Tensor,
     loop; each timed with its plain version and its bound (the mix weights'
     bytes counted in).  The zoneout kernels are held twice, with
     Bernoulli(0.9) mix weights drawn on the card (train mode) and with the
-    eval constant 0.9, and the zoneout forward at zh = zc = 1 against
-    the LSTM kernel of its own layout (the stream design).  The MI vectors
-    alpha, beta1, beta2 and b are moved off their init by seeded noise, so
-    that each one the kernels take matters.  The MI kernels run the design
-    ``mi_geometry`` gives (the cluster one at H=256: held by the by-design
-    counts), are timed in turns against the stream design (its C entry
-    point through ``launch_fwd`` / ``launch_bwd``, which count no launch),
-    and are held at alpha = 0, beta1 = beta2 = 1 against the cluster LSTM
-    kernels fed xp + b, where the MI pre-activation is the LSTM's; then
+    eval constant 0.9, and at zh = zc = 1 against the cluster LSTM kernels
+    (``check_zoneout_anchor``).  The MI vectors alpha, beta1, beta2 and b
+    are moved off their init by seeded noise, so that each one the kernels
+    take matters.  Both families' kernels run the design
+    ``zoneout_geometry`` / ``mi_geometry`` gives (the cluster one at H=256:
+    held by the by-design counts), are timed in turns against the stream
+    design (its C entry point through ``launch_fwd`` / ``launch_bwd``,
+    which count no launch); the MI kernels are held at alpha = 0, beta1 =
+    beta2 = 1 against the cluster LSTM kernels fed xp + b, where the MI
+    pre-activation is the LSTM's; then ``check_zoneout_designs`` /
     ``check_mi_designs`` holds them at ragged shapes.
     The forward's h is also printed against a float64 run of the plain
     loop, the recurrence's own fp32 spread."""
     from asr_study_torch.models.zoo import build_model
     from asr_study_torch.ops import mi_lstm as mi
     from asr_study_torch.ops import zoneout_lstm as zo
-    from asr_study_torch.ops.bilstm import launch_fwd, stream_geometry
 
     g = torch.Generator().manual_seed(SEED + (8 if family == "zoneout" else 9))
     gen = torch.Generator(device=dev).manual_seed(SEED + 8)
     h = HIDDEN
     model_name = {"zoneout": "zoneout_blstm", "mi": "mi_blstm"}[family]
     op = zo if family == "zoneout" else mi
+    geometry = zo.zoneout_geometry if family == "zoneout" else mi.mi_geometry
+    stream_geometry = (zo.zoneout_stream_geometry if family == "zoneout"
+                       else mi.mi_stream_geometry)
     stem = "zoneout_lstm" if family == "zoneout" else "mi_lstm"
     # positions of the differentiable resident arguments (the MI vectors
     # and wh; a zoneout cell's mix weights get no gradient)
@@ -1768,12 +1765,10 @@ def check_cell_family(dev: torch.device, card: str, x_serve: torch.Tensor,
         return max(float((k - p).abs().max()) for k, p in zip(got, want))
 
     def ran_design(wrapper, before, ndir, batch):
-        """For the MI wrappers, which count by design: one launch since
-        ``before`` (their by-design counts), in the design mi_geometry
-        gives -> its words for the report ("" for zoneout)."""
-        if family != "mi":
-            return ""
-        want = mi.mi_geometry(h, batch, ndir).design
+        """One launch of ``wrapper`` since ``before`` (its by-design
+        counts), in the design the family's geometry gives -> its words for
+        the report."""
+        want = geometry(h, batch, ndir).design
         after = dict(wrapper.by_design)
         require(after[want] == before[want] + 1 and sum(after.values())
                 == sum(before.values()) + 1,
@@ -1783,8 +1778,16 @@ def check_cell_family(dev: torch.device, card: str, x_serve: torch.Tensor,
 
     def in_turns(label, cluster_fn, stream_fn, steps, ndir, passes):
         return time_in_turns(card, label, cluster_fn, stream_fn, steps,
-                             mi.mi_geometry(h, BATCH, ndir), passes,
+                             geometry(h, BATCH, ndir), passes,
                              "exchange, barrier, cell, loads")
+
+    def split(res, n):
+        """The residents as launch_fwd / launch_bwd take them: zoneout's
+        (zh, zc, wh), the MI's (wh, its vectors), each a list over the
+        directions."""
+        if family == "zoneout":
+            return [list(res[k * n:(k + 1) * n]) for k in range(3)]
+        return [list(res[:n]), list(res[n:])]
 
     mixes = ("bernoulli", "constant") if family == "zoneout" else ("-",)
     errs, times, bounds = {}, {}, {}
@@ -1817,24 +1820,20 @@ def check_cell_family(dev: torch.device, card: str, x_serve: torch.Tensor,
             n = len(xps)
             args = (*xps, mask_s, *res)
             with torch.no_grad():
-                before = dict(getattr(fwd, "by_design", {}))
+                before = dict(fwd.by_design)
                 got, want = fwd(*args), fwd_plain(*args)
                 torch.cuda.synchronize()
                 design = ran_design(fwd, before, n, BATCH)
                 ref = fwd_plain(*(a.double() for a in args))[0::2]
                 drift = [max_err([r.double() for r in run], ref)
                          for run in (got[0::2], want[0::2])]
-                if family == "mi":
-                    geo_s = mi.mi_stream_geometry(h, BATCH, n)
+                if mix != "constant":
+                    geo_s = stream_geometry(h, BATCH, n)
                     times[f"{name}_fwd"] = (
                         in_turns(f"{name}_fwd", lambda: fwd(*args),
-                                 lambda: mi.launch_fwd(
-                                     geo_s, list(xps), mask_s, list(res[:n]),
-                                     list(res[n:])), t_s, n, 1),
-                        cuda_ms(lambda: fwd_plain(*args), 2, 1))
-                elif mix != "constant":
-                    times[f"{name}_fwd"] = (
-                        cuda_ms(lambda: fwd(*args), 10),
+                                 lambda: op.launch_fwd(
+                                     geo_s, list(xps), mask_s,
+                                     *split(res, n)), t_s, n, 1),
                         cuda_ms(lambda: fwd_plain(*args), 2, 1))
             err = max_err(got, want)
             errs[f"{name}_fwd"] = max(err, errs.get(f"{name}_fwd", 0.0))
@@ -1852,22 +1851,6 @@ def check_cell_family(dev: torch.device, card: str, x_serve: torch.Tensor,
             require(all(within(k, p, BILSTM_ATOL, BILSTM_RTOL)
                         for k, p in zip(got, want)),
                     f"{name}_fwd kernel disagrees with plain{how}")
-            if family == "zoneout" and n == 2 and mix == "constant":
-                ones = torch.ones_like(args[3])
-                with torch.no_grad():
-                    z1 = fwd(*args[:3], ones, ones, ones, ones, *args[7:])
-                    # the LSTM kernel of the zoneout kernel's own layout
-                    # and summation order: the stream design
-                    ref = launch_fwd(stream_geometry(h, BATCH, 2),
-                                     list(args[:2]), args[2], list(args[7:]))
-                one_err = max_err(z1, ref)
-                print(f"{name}_fwd at zh = zc = 1 vs the stream design of "
-                      f"bilstm_fwd (lstm_stream_fwd.cu) on the same inputs: "
-                      f"max_abs_err={one_err:.3e}, bit-equal "
-                      f"{all(torch.equal(k, p) for k, p in zip(z1, ref))} "
-                      f"(tol 1e-6 + 1e-6*|bilstm|)")
-                require(all(within(k, p, 1e-6, 1e-6) for k, p in zip(z1, ref)),
-                        "zoneout at rate 0 differs from the LSTM kernel")
 
             # the backward at the training shapes
             xps, res = prepared(layer, x, train)
@@ -1875,24 +1858,20 @@ def check_cell_family(dev: torch.device, card: str, x_serve: torch.Tensor,
             with torch.no_grad():
                 hc = fwd(*args)
                 bwd_args = (*args, *hc, *dh[:n])
-                before = dict(getattr(bwd, "by_design", {}))
+                before = dict(bwd.by_design)
                 d_k, d_p = bwd(*bwd_args), bwd_plain(*bwd_args)
                 torch.cuda.synchronize()
                 design = ran_design(bwd, before, n, b)
                 d_k = d_k if n == 2 else (d_k,)
                 d_p = d_p if n == 2 else (d_p,)
-                if family == "mi":
-                    geo_s = mi.mi_stream_geometry(h, b, n)
+                if mix != "constant":
+                    geo_s = stream_geometry(h, b, n)
                     times[f"{name}_bwd"] = (
                         in_turns(f"{name}_bwd", lambda: bwd(*bwd_args),
-                                 lambda: mi.launch_bwd(
-                                     geo_s, list(xps), mask, list(res[:n]),
-                                     list(res[n:]), list(hc[0::2]),
-                                     list(hc[1::2]), dh[:n]), t, n, 2),
-                        cuda_ms(lambda: bwd_plain(*bwd_args), 2, 1))
-                elif mix != "constant":
-                    times[f"{name}_bwd"] = (
-                        cuda_ms(lambda: bwd(*bwd_args), 10),
+                                 lambda: op.launch_bwd(
+                                     geo_s, list(xps), mask, *split(res, n),
+                                     list(hc[0::2]), list(hc[1::2]), dh[:n]),
+                                 t, n, 2),
                         cuda_ms(lambda: bwd_plain(*bwd_args), 2, 1))
             err = max_err(d_k, d_p)
             errs[f"{name}_bwd"] = max(err, errs.get(f"{name}_bwd", 0.0))
@@ -1931,8 +1910,12 @@ def check_cell_family(dev: torch.device, card: str, x_serve: torch.Tensor,
                     f"{fn.__name__} gradients disagree with autograd{how}")
             if family == "mi":
                 check_mi_anchor(name, xps, mask, res, dh[:n])
+            elif mix == "constant":
+                check_zoneout_anchor(name, xps, mask, res, dh[:n])
     if family == "mi":
         check_mi_designs(dev)
+    else:
+        check_zoneout_designs(dev)
     print(f"{family} LSTM library yardstick: none; no PyTorch call computes "
           f"a{' zoneout' if family == 'zoneout' else 'n MI'} LSTM (cuDNN's "
           f"nn.LSTM has no {'zoneout mix' if family == 'zoneout' else 'multiplicative integration'}), "
@@ -2065,6 +2048,138 @@ def check_mi_designs(dev: torch.device) -> None:
               + f" (tol fwd {BILSTM_ATOL:g} + {BILSTM_RTOL:g}*|plain|, bwd "
               f"{BWD_ATOL:g} + {BWD_RTOL:g}*|plain|)")
 
+
+
+def check_zoneout_anchor(name: str, xps: list, mask: torch.Tensor,
+                         res: list, dhs: list) -> None:
+    """The zoneout kernels at zh = zc = 1, where every step takes the new
+    state and the zoneout recurrence is the LSTM's: ``name``'s forward (two
+    directions of zoneout_lstm_fwd, or one) against the cluster LSTM
+    forward (bilstm_fwd, or lstm_fwd) on the same xp and wh, within 1e-6 +
+    1e-6*|lstm| (the same layout and summation order: only the mix, exact
+    at weight 1, differs), and its backward's dxp against the LSTM
+    backward's from the same h and c, at the BWD_* bounds (the zoneout
+    backward recomputes tanh(c_new) from the gates, the LSTM's reads the
+    stored c).  ``res``: the layer's zh, zc and wh, each of every direction
+    in turn (only wh is used)."""
+    from asr_study_torch.ops import zoneout_lstm as zo
+    from asr_study_torch.ops.bilstm import (bilstm, bilstm_bwd, lstm,
+                                            lstm_bwd, lstm_geometry)
+
+    n = len(xps)
+    t, b, gh = xps[0].shape
+    whs = list(res[2 * n:])
+    ones = [torch.ones(t, b, gh // 4, device=xps[0].device)] * (2 * n)
+    designs = {lstm_geometry(gh // 4, b, n).design,
+               zo.zoneout_geometry(gh // 4, b, n).design}
+    require(designs == {"cluster"}, f"{name} anchor runs {designs}")
+    with torch.no_grad():
+        if n == 2:
+            got = zo.bi_zoneout_lstm(*xps, mask, *ones, *whs)
+            want = bilstm(*xps, mask, *whs)
+            d_k = zo.bi_zoneout_lstm_bwd(*xps, mask, *ones, *whs, *want,
+                                         *dhs)
+            d_w = bilstm_bwd(*xps, mask, *whs, *want, *dhs)
+        else:
+            got = zo.zoneout_lstm(xps[0], mask, *ones, whs[0])
+            want = lstm(xps[0], mask, whs[0])
+            d_k = (zo.zoneout_lstm_bwd(xps[0], mask, *ones, whs[0], *want,
+                                       dhs[0]),)
+            d_w = (lstm_bwd(xps[0], mask, whs[0], *want, dhs[0]),)
+    torch.cuda.synchronize()
+    f_err = max(float((k - w).abs().max()) for k, w in zip(got, want))
+    b_err = max(float((k - w).abs().max()) for k, w in zip(d_k, d_w))
+    print(f"{name} at zh = zc = 1 vs the cluster "
+          f"{'bilstm' if n == 2 else 'lstm'} kernels on the same inputs: "
+          f"T={t} B={b} H={gh // 4}, forward max_abs_err={f_err:.3e}, "
+          f"bit-equal {all(torch.equal(k, w) for k, w in zip(got, want))} "
+          f"(tol 1e-6 + 1e-6*|lstm|), dxp max_abs_err={b_err:.3e}, "
+          f"bit-equal {all(torch.equal(k, w) for k, w in zip(d_k, d_w))} "
+          f"(tol {BWD_ATOL:g} + {BWD_RTOL:g}*|lstm|)")
+    require(all(within(k, w, 1e-6, 1e-6) for k, w in zip(got, want)),
+            f"{name}_fwd at zh = zc = 1 differs from the LSTM kernel")
+    require(all(within(k, w, BWD_ATOL, BWD_RTOL) for k, w in zip(d_k, d_w)),
+            f"{name}_bwd at zh = zc = 1 differs from the LSTM kernel")
+
+
+def check_zoneout_designs(dev: torch.device) -> None:
+    """Phase 3 for the zoneout-LSTM kernels beyond the main paths, as
+    ``check_mi_designs`` for the MI kernels: the four wrappers against their
+    plain versions, with Bernoulli(0.9) mix weights, at shapes ragged for
+    the cluster tiling (H=100: 13 units a CTA, the last CTA 9; B=5 and
+    B=33, rows left over in the last group; B=49 at H=100, which takes the
+    stream design in two directions by size and the cluster one at R=8 in
+    one; a row masked on every frame; T=1) and at H=300 (the stream
+    design), each case in the design ``zoneout_geometry`` picks (held by
+    the by-design counts), at the forward and backward tolerances."""
+    from asr_study_torch.ops.zoneout_lstm import (bi_zoneout_lstm,
+                                                  bi_zoneout_lstm_bwd,
+                                                  bi_zoneout_lstm_bwd_plain,
+                                                  bi_zoneout_lstm_plain,
+                                                  zoneout_geometry,
+                                                  zoneout_lstm,
+                                                  zoneout_lstm_bwd,
+                                                  zoneout_lstm_bwd_plain,
+                                                  zoneout_lstm_plain)
+
+    g = torch.Generator().manual_seed(SEED + 15)
+    wrappers = {"bi_zoneout_lstm_fwd": bi_zoneout_lstm,
+                "bi_zoneout_lstm_bwd": bi_zoneout_lstm_bwd,
+                "zoneout_lstm_fwd": zoneout_lstm,
+                "zoneout_lstm_bwd": zoneout_lstm_bwd}
+    for t, b, h, masked in ((37, 5, 100, True), (29, 49, 100, True),
+                            (40, 33, 256, True), (1, 33, 256, False),
+                            (1, 5, 100, False), (64, 9, 256, True),
+                            (20, 3, 300, True)):
+        xps = [torch.randn(t, b, 4 * h, generator=g) for _ in range(2)]
+        whs = [torch.randn(h, 4 * h, generator=g) / h ** 0.5
+               for _ in range(2)]
+        zs = [(torch.rand(t, b, h, generator=g) < 0.9).float()
+              for _ in range(4)]
+        lengths = torch.randint(1, t + 1, (b,), generator=g)
+        lengths[0] = t
+        mask = (torch.arange(t)[:, None] < lengths[None, :]).float()
+        if masked:
+            mask[:, b - 1] = 0.0
+        dhs = [torch.randn(t, b, h, generator=g).to(dev) for _ in range(2)]
+        xps = [x.to(dev) for x in xps]
+        whs = [w.to(dev) for w in whs]
+        zs = [z.to(dev) for z in zs]
+        mask = mask[..., None].to(dev)
+        designs = {n: zoneout_geometry(h, b, n).design for n in (2, 1)}
+        before = {k: dict(w.by_design) for k, w in wrappers.items()}
+        with torch.no_grad():
+            bi = (*xps, mask, *zs, *whs)
+            fb = bi_zoneout_lstm(*bi), bi_zoneout_lstm_plain(*bi)
+            bb = (bi_zoneout_lstm_bwd(*bi, *fb[0], *dhs),
+                  bi_zoneout_lstm_bwd_plain(*bi, *fb[0], *dhs))
+            uni = (xps[0], mask, zs[0], zs[2], whs[0])
+            fu = zoneout_lstm(*uni), zoneout_lstm_plain(*uni)
+            bu = ([zoneout_lstm_bwd(*uni, *fu[0], dhs[0])],
+                  [zoneout_lstm_bwd_plain(*uni, *fu[0], dhs[0])])
+        torch.cuda.synchronize()
+        for name, w in wrappers.items():
+            design = designs[2 if name.startswith("bi") else 1]
+            require(w.by_design[design] == before[name][design] + 1,
+                    f"{name} did not run the {design} design at T={t} B={b} "
+                    f"H={h}")
+        errs = {}
+        for name, (got, want), atol, rtol in (
+                ("bi_zoneout_lstm_fwd", fb, BILSTM_ATOL, BILSTM_RTOL),
+                ("bi_zoneout_lstm_bwd", bb, BWD_ATOL, BWD_RTOL),
+                ("zoneout_lstm_fwd", fu, BILSTM_ATOL, BILSTM_RTOL),
+                ("zoneout_lstm_bwd", bu, BWD_ATOL, BWD_RTOL)):
+            errs[name] = max(float((k - p).abs().max())
+                             for k, p in zip(got, want))
+            require(all(within(k, p, atol, rtol) for k, p in zip(got, want)),
+                    f"{name} kernel disagrees with plain at T={t} B={b} "
+                    f"H={h}")
+        print(f"zoneout kernels vs plain at T={t} B={b} H={h}"
+              f"{', the last row masked throughout' if masked else ''} "
+              f"(designs: bi {designs[2]}, uni {designs[1]}): max_abs_err "
+              + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+              + f" (tol fwd {BILSTM_ATOL:g} + {BILSTM_RTOL:g}*|plain|, bwd "
+              f"{BWD_ATOL:g} + {BWD_RTOL:g}*|plain|)")
 
 class Wire(NamedTuple):
     """One codec's wire buffers of the serving batches, end to end."""
@@ -2317,12 +2432,14 @@ def launch_counters() -> dict:
             "dpack_decode": dpack_decode}
 
 
-# the wrappers of the LSTM, GRU, layer-norm and MI LSTM kernels, which
-# count their launches by design too
+# the wrappers of the LSTM, GRU, layer-norm, zoneout and MI LSTM kernels,
+# which count their launches by design too
 DESIGN_WRAPPERS = ("bilstm_fwd", "bilstm_bwd", "lstm_fwd", "lstm_bwd",
                    "bigru_fwd", "bigru_bwd", "gru_fwd", "gru_bwd",
                    "bi_ln_lstm_fwd", "bi_ln_lstm_bwd", "ln_lstm_fwd",
-                   "ln_lstm_bwd", "bi_mi_lstm_fwd", "bi_mi_lstm_bwd",
+                   "ln_lstm_bwd", "bi_zoneout_lstm_fwd",
+                   "bi_zoneout_lstm_bwd", "zoneout_lstm_fwd",
+                   "zoneout_lstm_bwd", "bi_mi_lstm_fwd", "bi_mi_lstm_bwd",
                    "mi_lstm_fwd", "mi_lstm_bwd")
 
 
@@ -2335,14 +2452,15 @@ def reset_counts() -> None:
 
 
 def check_designs(label: str, hidden: int, batch: int) -> None:
-    """The LSTM, GRU, layer-norm and MI LSTM kernels launched since the
-    counts were reset ran the design ``lstm_geometry`` / ``gru_geometry`` /
-    ``ln_geometry`` / ``mi_geometry`` gives this path's width and batch,
-    and no other."""
+    """The LSTM, GRU, layer-norm, zoneout and MI LSTM kernels launched
+    since the counts were reset ran the design ``lstm_geometry`` /
+    ``gru_geometry`` / ``ln_geometry`` / ``zoneout_geometry`` /
+    ``mi_geometry`` gives this path's width and batch, and no other."""
     from asr_study_torch.ops.bilstm import lstm_geometry
     from asr_study_torch.ops.gru import gru_geometry
     from asr_study_torch.ops.ln_lstm import ln_geometry
     from asr_study_torch.ops.mi_lstm import mi_geometry
+    from asr_study_torch.ops.zoneout_lstm import zoneout_geometry
 
     counters = launch_counters()
     ran = {name: {k: v for k, v in counters[name].by_design.items() if v}
@@ -2353,6 +2471,7 @@ def check_designs(label: str, hidden: int, batch: int) -> None:
     for name, by_design in ran.items():
         geometry = (gru_geometry if "gru" in name else
                     ln_geometry if "ln_" in name else
+                    zoneout_geometry if "zoneout" in name else
                     mi_geometry if "mi_" in name else lstm_geometry)
         want = geometry(hidden, batch,
                         2 if name.startswith("bi") else 1).design
@@ -2747,10 +2866,6 @@ def main() -> int:
           f"K=257, M=40), ctc_alpha {4 * 2 * s_len} B, ctc_beta "
           f"{4 * 4 * s_len} B (S={s_len})")
     print_cluster_geometry()
-    fwd_b, bwd_b, nsplit = cell_family_smem(HIDDEN)
-    print(f"  dynamic shared memory per block at H={HIDDEN}: zoneout_lstm_fwd "
-          f"(both forms) {fwd_b} B, zoneout_lstm_bwd {bwd_b} B (4 rows, "
-          f"{nsplit} partial sums), raised at each launch")
     for hidden in (HIDDEN, 512):
         fwd_b, bwd_b, nsplit = ln_smem(hidden)
         print(f"  dynamic shared memory per block at H={hidden} of the "

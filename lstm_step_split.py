@@ -1,13 +1,13 @@
 #!/usr/bin/env python3
-"""Where a step of the cluster LSTM, GRU, layer-norm and MI LSTM kernels,
-and of the wide LSTM kernels, spends its time, on one NVIDIA GPU.
+"""Where a step of the cluster LSTM, GRU, layer-norm, zoneout and MI LSTM
+kernels, and of the wide LSTM kernels, spends its time, on one NVIDIA GPU.
 
     python3 lstm_step_split.py
 
 Compiles ``asr_study_torch/csrc/bilstm_fwd.cu``, ``gru_fwd.cu``,
-``gru_bwd.cu``, ``ln_lstm_fwd.cu``, ``ln_lstm_bwd.cu``, ``mi_lstm_fwd.cu``
-and ``mi_lstm_bwd.cu`` as they are and in variants, into
-``build/step_split/``,
+``gru_bwd.cu``, ``ln_lstm_fwd.cu``, ``ln_lstm_bwd.cu``,
+``zoneout_lstm_fwd.cu``, ``zoneout_lstm_bwd.cu``, ``mi_lstm_fwd.cu`` and
+``mi_lstm_bwd.cu`` as they are and in variants, into ``build/step_split/``,
 and times each at the main paths' shapes (H=256, B=32; T=805 forward,
 T=512 backward; one direction, R=4 rows a cluster, and two, R=8) with CUDA
 events, the unchanged kernel first and last; ``lstm_wide_fwd.cu`` and
@@ -53,6 +53,13 @@ Variants of the MI-LSTM kernels (outputs wrong; times count):
 ``no_push`` keeps each unit's cotangent partial in the sender's own
 buffer, and ``no_product`` drops both of its products (the recomputed
 h_prev @ w and the partials' dhp @ ws^T).
+
+Variants of the zoneout-LSTM kernels (outputs wrong; times count): the
+forward's as the LSTM forward's above (``no_cell_math`` there keeps the
+mix), and ``no_mix``: h_new and c_new taken whole, the mix weights still
+staged; ``no_mix_loads``: that, and no staging of zh and zc either; for the
+backward, ``no_push`` and ``no_product`` as the MI backward's, and
+``no_mix_loads``: no staging of zh and zc (the step reads stale ones).
 
 Prints one line per variant and the card's name and power limit.  Without
 CUDA it exits 1.
@@ -107,6 +114,16 @@ MI_BWD_PUSH = ("float* dst = cluster.map_shared_rank(recv + (cur * C + rank)"
                "float* dst = recv + (cur * C + rank) * RU;")
 MI_BWD_PRODUCT = ("for (int k = 0; k < GC; k += 4) {",
                   "for (int k = 0; k < 0; k += 4) {")
+ZO_CELL = ("      const float c_new = fg * c_prev + ig * gg;\n"
+           "      const float h_new = og * tanhf(c_new);",
+           "      const float c_new = pre[0] + pre[1] + pre[2] + pre[3] + "
+           "c_prev;\n      const float h_new = c_new;")
+ZO_MIX = ("      float h = mh * h_new + (1.f - mh) * h_prev;\n"
+          "      float c = mc * c_new + (1.f - mc) * c_prev;",
+          "      float h = h_new;\n      float c = c_new;")
+ZO_LOADS = ("      cp_async4(zhs + slot * RU + i, ok ? zh + o : zh, ok);\n"
+            "      cp_async4(zcs + slot * RU + i, ok ? zc + o : zc, ok);\n",
+            "")
 WIDE_PUSH = ("*reinterpret_cast<float4*>(cluster.map_shared_rank(hn, p))"
              " = h4;", "if (p == rank) *reinterpret_cast<float4*>(hn) = h4;")
 WIDE_SHARED = ("#pragma unroll 4\n      for (int kk = 0; kk < kSlice; "
@@ -141,6 +158,15 @@ KERNELS = {
                      "no_push": [LN_PUSH], "no_product": [NO_PRODUCT]}),
     "ln_lstm_bwd": ("ln_lstm_bwd.cu", "asr_ln_lstm_bwd", 4, T_BWD,
                     {"base": [], "no_stats_sync": LN_BWD_SYNCS}),
+    "zoneout_lstm_fwd": ("zoneout_lstm_fwd.cu", "asr_zoneout_lstm_fwd", 4,
+                         T_FWD, {"base": [], **SPLIT,
+                                 "no_cell_math": [ZO_CELL],
+                                 "no_mix": [ZO_MIX],
+                                 "no_mix_loads": [ZO_MIX, ZO_LOADS]}),
+    "zoneout_lstm_bwd": ("zoneout_lstm_bwd.cu", "asr_zoneout_lstm_bwd", 4,
+                         T_BWD, {"base": [], "no_push": [MI_BWD_PUSH],
+                                 "no_product": [NO_PRODUCT, MI_BWD_PRODUCT],
+                                 "no_mix_loads": [ZO_LOADS]}),
     "mi_lstm_fwd": ("mi_lstm_fwd.cu", "asr_mi_lstm_fwd", 4, T_FWD,
                     {"base": [], "no_push": [NO_PUSH],
                      "no_product": [NO_PRODUCT]}),
@@ -203,6 +229,7 @@ def main() -> int:
     from asr_study_torch.ops.ln_lstm import ln_geometry, ln_lstm
     from asr_study_torch.ops.mi_lstm import mi_geometry, mi_lstm
     from asr_study_torch.ops.recurrence import stream
+    from asr_study_torch.ops.zoneout_lstm import zoneout_geometry, zoneout_lstm
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -216,6 +243,7 @@ def main() -> int:
         H = H_WIDE if "wide" in kernel else H_NARROW
         geometry = (ln_geometry if kernel.startswith("ln") else
                     mi_geometry if kernel.startswith("mi") else
+                    zoneout_geometry if kernel.startswith("zoneout") else
                     lstm_geometry if gates == 4 else gru_geometry)
         xp = torch.randn(t, B, gates * H, device=dev, generator=g)
         wh = torch.randn(H, gates * H, device=dev, generator=g) / H ** 0.5
@@ -234,6 +262,10 @@ def main() -> int:
                                               generator=g) for _ in range(3))
         bias = 0.1 * torch.randn(gates * H, device=dev, generator=g)
         mi = (al, al, b1, b1, b2, b2, bias, bias)
+        # the zoneout mix weights, Bernoulli(0.9) as in train mode
+        zh, zc = ((torch.rand(t, B, H, device=dev, generator=g) < 0.9).float()
+                  for _ in range(2))
+        zo = (zh, zh, zc, zc)
         if kernel == "ln_lstm_fwd":     # h_f, c_f, h_b, c_b
             ptrs = (xp, xp, mask, wh, wh, *ln, *outs)
         elif kernel == "ln_lstm_bwd":   # h, c, dh; dpre, dcn of each lane
@@ -244,6 +276,12 @@ def main() -> int:
                                 for _ in range(2))
             ptrs = (xp, xp, mask, wh, wh, *ln, h, c, h, c, seqs[1], seqs[1],
                     *outs)
+        elif kernel == "zoneout_lstm_fwd":  # h_f, c_f, h_b, c_b
+            ptrs = (xp, xp, mask, *zo, wh, wh, *outs)
+        elif kernel == "zoneout_lstm_bwd":  # h, c, dh; dxp of each lane
+            h, c = zoneout_lstm(xp, mask, zh, zc, wh)
+            ptrs = (xp, xp, mask, *zo, wh, wh, h, c, h, c, seqs[1], seqs[1],
+                    *outs[:2])
         elif kernel == "mi_lstm_fwd":   # h_f, c_f, h_b, c_b
             ptrs = (xp, xp, mask, wh, wh, *mi, *outs)
         elif kernel == "mi_lstm_bwd":   # h, c, dh; dpre of each lane

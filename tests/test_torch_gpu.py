@@ -53,9 +53,13 @@ from asr_study_torch.ops.zoneout_lstm import (BiZoneoutLSTMFunction,
                                               bi_zoneout_lstm_bwd,
                                               bi_zoneout_lstm_bwd_plain,
                                               bi_zoneout_lstm_plain,
+                                              zoneout_cluster_info,
+                                              zoneout_geometry,
                                               zoneout_lstm, zoneout_lstm_bwd,
                                               zoneout_lstm_bwd_plain,
                                               zoneout_lstm_plain)
+from asr_study_torch.ops.zoneout_lstm import launch_bwd as zo_launch_bwd
+from asr_study_torch.ops.zoneout_lstm import launch_fwd as zo_launch_fwd
 from asr_study_torch.train.trainer import Trainer, make_optimizer
 
 pytestmark = pytest.mark.gpu
@@ -1096,7 +1100,13 @@ def test_deep_blstm_train_step_is_bit_reproducible_deterministic(cuda):
     assert _bit_differences(runs) == []
 
 
-ZO_SIZES = [(12, 4, 8), (37, 5, 100), (50, 9, 256), (3, 1, 300)]
+# H=8, 100 and 256 take the cluster design (B=32 at H=256: R=4 rows a
+# cluster in one direction, R=8 in two), H=300 the stream design; B=49 at
+# H=100 the stream design in two directions (no row count keeps the launch
+# within the budget) and the cluster one at R=8 in one
+# (ops/zoneout_lstm.py zoneout_geometry)
+ZO_SIZES = [(12, 4, 8), (37, 5, 100), (50, 9, 256), (3, 1, 300),
+            (40, 32, 256), (37, 49, 100)]
 
 
 def _zoneout_case(cuda, t, b, h, seed, mix):
@@ -1124,23 +1134,40 @@ def _zo_uni(args):
     return [args[i] for i in (0, 2, 3, 5, 7)]
 
 
+def _zo_designs(wrappers, h, b):
+    """-> per wrapper (launches, launches of the design zoneout_geometry
+    gives its direction count)."""
+    return [(w.launches, w.by_design[zoneout_geometry(
+        h, b, 2 if w.__name__.startswith("bi") else 1).design])
+        for w in wrappers]
+
+
 @pytest.mark.parametrize("mix", ["bernoulli", "constant"])
 @pytest.mark.parametrize("t,b,h", ZO_SIZES)
 def test_zoneout_kernels_match_plain(cuda, t, b, h, mix):
     """bi_zoneout_lstm and zoneout_lstm (the zoneout_lstm_fwd kernel with
-    two and one directions) and their backwards against the plain loops:
-    mixed h and c (chip_smoke.py's BILSTM_* bounds), dxp (BWD_TOL)."""
+    two and one directions) and their backwards against the plain loops,
+    each in the design zoneout_geometry picks (where that is the cluster
+    one, with the kernels' own shared memory and every cluster resident at
+    once): mixed h and c (chip_smoke.py's BILSTM_* bounds), dxp
+    (BWD_TOL)."""
     args, dh = _zoneout_case(cuda, t, b, h, t + h, mix)
     uni = _zo_uni(args)
-    before = [f.launches for f in (bi_zoneout_lstm, zoneout_lstm,
-                                   bi_zoneout_lstm_bwd, zoneout_lstm_bwd)]
+    wrappers = (bi_zoneout_lstm, zoneout_lstm, bi_zoneout_lstm_bwd,
+                zoneout_lstm_bwd)
+    before = _zo_designs(wrappers, h, b)
     got = bi_zoneout_lstm(*args)
     got_uni = zoneout_lstm(*uni)
     d = bi_zoneout_lstm_bwd(*args, *got, *dh)
     d_uni = zoneout_lstm_bwd(*uni, *got_uni, dh[0])
-    assert [f.launches - n for f, n in zip(
-        (bi_zoneout_lstm, zoneout_lstm, bi_zoneout_lstm_bwd,
-         zoneout_lstm_bwd), before)] == [1, 1, 1, 1]
+    assert _zo_designs(wrappers, h, b) == _one_more(before)
+    for ndir in (1, 2):
+        geo = zoneout_geometry(h, b, ndir)
+        if geo.design == "cluster":
+            for backward in (False, True):
+                smem, fit = zoneout_cluster_info(geo, b, h, backward)
+                assert smem == (geo.smem_bwd if backward else geo.smem_fwd)
+                assert fit >= geo.grid[1] * geo.grid[2]
     want = bi_zoneout_lstm_plain(*args)
     want_d = bi_zoneout_lstm_bwd_plain(*args, *got, *dh)
     want_d_uni = zoneout_lstm_bwd_plain(*uni, *got_uni, dh[0])
@@ -1153,15 +1180,75 @@ def test_zoneout_kernels_match_plain(cuda, t, b, h, mix):
         torch.testing.assert_close(g_, w_, **BWD_TOL, msg=name)
 
 
-def test_zoneout_rate_zero_kernel_is_the_lstm_kernel(cuda):
-    """zh = zc = 1: zoneout_lstm_fwd gives what bilstm_fwd gives."""
-    args, _ = _zoneout_case(cuda, 40, 6, 256, 3, "constant")
-    ones = torch.ones_like(args[3])
-    got = bi_zoneout_lstm(*args[:3], ones, ones, ones, ones, *args[7:])
-    want = bilstm(*args[:3], *args[7:])
+def test_zoneout_kernels_repeat_bit_for_bit(cuda):
+    """bi_zoneout_lstm and bi_zoneout_lstm_bwd at H=256, B=32 (the cluster
+    design, every sum in a fixed order), and zoneout_lstm and
+    zoneout_lstm_bwd, each run twice on the same inputs with Bernoulli mix
+    weights: equal bit for bit."""
+    args, dh = _zoneout_case(cuda, 60, 32, 256, 23, "bernoulli")
+    uni = _zo_uni(args)
+    assert {zoneout_geometry(256, 32, n).design for n in (1, 2)} == {
+        "cluster"}
+    hc = [bi_zoneout_lstm(*args) for _ in range(2)]
+    grads = [bi_zoneout_lstm_bwd(*args, *hc[0], *dh) for _ in range(2)]
+    hc_uni = [zoneout_lstm(*uni) for _ in range(2)]
+    grads_uni = [zoneout_lstm_bwd(*uni, *hc_uni[0], dh[0]) for _ in range(2)]
     torch.cuda.synchronize()
-    for g_, w_ in zip(got, want):
+    for a, b_ in zip(*hc):
+        assert torch.equal(a, b_)
+    for a, b_ in zip(*grads):
+        assert torch.equal(a, b_)
+    for a, b_ in zip(*hc_uni):
+        assert torch.equal(a, b_)
+    assert torch.equal(*grads_uni)
+
+
+def test_zoneout_cluster_launch_refuses_what_is_not_resident(cuda):
+    """A cluster grid the card cannot hold at once (R=1 at B=32 in two
+    directions: 64 clusters of 8 CTAs) is refused with an error, for both
+    kernels, and never falls back to another design."""
+    args, dh = _zoneout_case(cuda, 4, 32, 256, 5, "bernoulli")
+    too_many = Geometry("cluster", 8, 32, 1, (8, 32, 2), 0, 0)
+    before = [(w.launches, dict(w.by_design)) for w in (bi_zoneout_lstm,
+                                                        bi_zoneout_lstm_bwd)]
+    with pytest.raises(RuntimeError, match="CUDA launch failed"):
+        zo_launch_fwd(too_many, args[:2], args[2], args[3:5], args[5:7],
+                      args[7:])
+    hc = bi_zoneout_lstm(*args)
+    with pytest.raises(RuntimeError, match="CUDA launch failed"):
+        zo_launch_bwd(too_many, args[:2], args[2], args[3:5], args[5:7],
+                      args[7:], list(hc[0::2]), list(hc[1::2]), dh)
+    after = [(w.launches, w.by_design) for w in (bi_zoneout_lstm,
+                                                 bi_zoneout_lstm_bwd)]
+    assert after[1] == before[1]
+    assert after[0][0] == before[0][0] + 1
+
+
+def test_zoneout_rate_zero_kernel_is_the_lstm_kernel(cuda):
+    """zh = zc = 1: zoneout_lstm_fwd gives what bilstm_fwd gives, in two
+    directions and in one (the cluster design of both at H=256), and the
+    backward's dxp from the same h and c is bilstm_bwd's (BWD_TOL)."""
+    args, dh = _zoneout_case(cuda, 40, 6, 256, 3, "constant")
+    ones = torch.ones_like(args[3])
+    xps, mask, whs = args[:2], args[2], args[7:]
+    assert {zoneout_geometry(256, 6, n).design for n in (1, 2)} == {
+        lstm_geometry(256, 6, n).design for n in (1, 2)} == {"cluster"}
+    got = bi_zoneout_lstm(*xps, mask, ones, ones, ones, ones, *whs)
+    want = bilstm(*xps, mask, *whs)
+    got_uni = zoneout_lstm(xps[0], mask, ones, ones, whs[0])
+    want_uni = lstm(xps[0], mask, whs[0])
+    d = bi_zoneout_lstm_bwd(*xps, mask, ones, ones, ones, ones, *whs, *want,
+                            *dh)
+    d_want = bilstm_bwd(*xps, mask, *whs, *want, *dh)
+    d_uni = zoneout_lstm_bwd(xps[0], mask, ones, ones, whs[0], *want_uni,
+                             dh[0])
+    d_uni_want = lstm_bwd(xps[0], mask, whs[0], *want_uni, dh[0])
+    torch.cuda.synchronize()
+    for g_, w_ in zip((*got, *got_uni), (*want, *want_uni)):
         torch.testing.assert_close(g_, w_, rtol=1e-5, atol=1e-5)
+    for name, g_, w_ in zip(("dxp_f", "dxp_b", "dxp"), (*d, d_uni),
+                            (*d_want, d_uni_want)):
+        torch.testing.assert_close(g_, w_, **BWD_TOL, msg=name)
 
 
 @pytest.mark.parametrize("t,b,h", [(12, 4, 8), (40, 6, 256)])

@@ -18,16 +18,23 @@ import torch
 from asr_study_torch.models.cells import ZoneoutLSTMCell, zoneout_mix
 from asr_study_torch.models.rnn import RNNLayer
 from asr_study_torch.models.zoo import build_model
-from asr_study_torch.ops.bilstm import bilstm_plain
+from asr_study_torch.ops.bilstm import (CLUSTER_SLICE, CLUSTER_THREADS,
+                                        bilstm_bwd_plain, bilstm_plain,
+                                        lstm_bwd_plain, lstm_plain)
+from asr_study_torch.ops.recurrence import (CLUSTER_BUDGET, CLUSTER_CTAS,
+                                            CLUSTER_ROWS, SMEM_LIMIT)
 from asr_study_torch.ops.zoneout_lstm import (BiZoneoutLSTMFunction,
                                               ZoneoutLSTMFunction,
                                               bi_zoneout_lstm,
                                               bi_zoneout_lstm_bwd,
                                               bi_zoneout_lstm_bwd_plain,
                                               bi_zoneout_lstm_plain,
+                                              zoneout_cluster_smem,
+                                              zoneout_geometry,
                                               zoneout_lstm, zoneout_lstm_bwd,
                                               zoneout_lstm_bwd_plain,
-                                              zoneout_lstm_plain)
+                                              zoneout_lstm_plain,
+                                              zoneout_stream_smem)
 from asr_study_torch.utils.weights import flat_from_params, params_from_flat
 from asr_study_tpu.models import zoo as jzoo
 from asr_study_tpu.models.rnn import RNNLayer as JaxRNNLayer
@@ -250,6 +257,31 @@ def test_rate_zero_is_the_lstm():
         assert torch.equal(g, w)
 
 
+@pytest.mark.parametrize("bidirectional", [True, False], ids=["bi", "uni"])
+def test_rate_zero_backward_is_the_lstm(bidirectional):
+    """zh = zc = 1: the zoneout backward's cotangent walk, which recomputes
+    tanh(c_new) from the gates and the stored c_prev, is the LSTM's, which
+    reads tanh of the stored c, bit for bit on the CPU, from the LSTM
+    forward's h and c and on held frames too."""
+    args = _t(_inputs(6, 11, 3, 8, mix="constant"))
+    dh = _t(_cotangents(7, 11, 3, 8))
+    ones = torch.ones_like(args[3])
+    if bidirectional:
+        hc = bilstm_plain(*args[:3], *args[7:])
+        got = bi_zoneout_lstm_bwd_plain(*args[:3], ones, ones, ones, ones,
+                                        *args[7:], *hc, *dh)
+        want = bilstm_bwd_plain(*args[:3], *args[7:], *hc, *dh)
+    else:
+        xp, mask, _, _, wh = _uni(args)
+        hc = lstm_plain(xp, mask, wh)
+        got = (zoneout_lstm_bwd_plain(xp, mask, ones, ones, wh, *hc, dh[0]),)
+        want = (lstm_bwd_plain(xp, mask, wh, *hc, dh[0]),)
+    assert args[2].min() == 0.0
+    for g, w in zip(got, want):
+        assert g.abs().max() > 0
+        assert torch.equal(g, w)
+
+
 def _perturbed(params, seed):
     """The JAX initial weights plus seeded noise."""
     rng = np.random.RandomState(seed)
@@ -431,3 +463,112 @@ def test_wrappers_take_plain_on_cpu_and_check():
         zoneout_lstm_bwd(*uni, h, c, dh[:-1])
     with pytest.raises(ValueError, match="device"):
         zoneout_lstm(*(a.to("meta") for a in uni))
+
+
+def _wrapper_case(wrapper):
+    """``wrapper``'s arguments at T=6, B=3, H=5 on the CPU, in its order."""
+    args = _t(_inputs(1, 6, 3, 5))
+    uni = _t(_uni(_inputs(1, 6, 3, 5)))
+    if wrapper in (bi_zoneout_lstm, zoneout_lstm):
+        return list(args if wrapper is bi_zoneout_lstm else uni)
+    dh = torch.from_numpy(_cotangents(2, 6, 3, 5)[0])
+    if wrapper is bi_zoneout_lstm_bwd:
+        return [*args, *bi_zoneout_lstm_plain(*args), dh, dh]
+    return [*uni, *zoneout_lstm_plain(*uni), dh]
+
+
+# each defect: (the argument spoilt: its index, "zh" for the first mix
+# weight, None for every one; how it is spoilt; what the error says)
+_DEFECTS = {
+    "shape": (-1, lambda a: a[..., :-1], "must be"),
+    "dtype": ("zh", lambda a: a.double(), "float32"),
+    "one device": ("zh", lambda a: a.to("meta"), "is on meta"),
+    "kernel device": (None, lambda a: a.to("meta"), "no kernel for device"),
+}
+
+
+@pytest.mark.parametrize("defect", list(_DEFECTS))
+@pytest.mark.parametrize("wrapper", [bi_zoneout_lstm, zoneout_lstm,
+                                     bi_zoneout_lstm_bwd, zoneout_lstm_bwd],
+                         ids=lambda w: w.__name__)
+def test_wrappers_refuse_bad_arguments(wrapper, defect):
+    """Every wrapper checks its arguments before it picks a design or a
+    kernel: a wrong shape, a float64 mix weight, one tensor on another
+    device and a device with no kernel each raise ValueError, and no launch
+    is counted in all or by design."""
+    args = _wrapper_case(wrapper)
+    pos, spoil, msg = _DEFECTS[defect]
+    if pos is None:
+        args = [spoil(a) for a in args]
+    else:
+        i = {"zh": 3 if wrapper in (bi_zoneout_lstm, bi_zoneout_lstm_bwd)
+             else 2}.get(pos, pos)
+        args[i] = spoil(args[i])
+    before = (wrapper.launches, dict(wrapper.by_design))
+    with pytest.raises(ValueError, match=msg):
+        wrapper(*args)
+    assert (wrapper.launches, wrapper.by_design) == before
+
+
+@pytest.mark.parametrize("ndir", [1, 2])
+@pytest.mark.parametrize("hidden", [100, 256, 300, 512])
+def test_zoneout_geometry(hidden, ndir):
+    """The size rule of the zoneout-LSTM kernels at B=32: H=100 and H=256
+    take the cluster design (every hidden unit owned by exactly one CTA with
+    its four gate columns, no CTA empty, every row group within the launch
+    and the launch within the budget of resident clusters; H=256 in 8
+    clusters of R=4 rows in one direction and R=8 in two; H=100 in CTAs of
+    13 units, the last 9), H=300 and H=512 the stream design; shared memory
+    within the H100's limit and equal to the kernels' layouts."""
+    batch = 32
+    geo = zoneout_geometry(hidden, batch, ndir)
+    assert max(geo.smem_fwd, geo.smem_bwd) <= SMEM_LIMIT
+    assert geo.grid[2] == ndir
+    assert geo.grid[1] * geo.rows >= batch > (geo.grid[1] - 1) * geo.rows
+    if hidden in (300, 512):
+        assert geo.design == "stream"
+        assert (geo.ctas, geo.units) == (1, hidden)
+        assert (geo.smem_fwd, geo.smem_bwd) == zoneout_stream_smem(hidden)
+        return
+    assert geo.design == "cluster"
+    assert geo.ctas <= CLUSTER_CTAS and geo.rows in CLUSTER_ROWS
+    assert geo.grid[0] == geo.ctas
+    assert geo.grid[1] * geo.grid[2] <= CLUSTER_BUDGET
+    # the slice in registers: CLUSTER_SLICE rows of one gate column a thread
+    assert 4 * geo.units * -(-hidden // CLUSTER_SLICE) <= CLUSTER_THREADS
+    # the cell: one (row, unit) pair a thread
+    assert geo.rows * geo.units <= CLUSTER_THREADS
+    assert (geo.smem_fwd, geo.smem_bwd) == zoneout_cluster_smem(
+        hidden, geo.units, geo.rows, geo.ctas)
+    if hidden == 256:
+        assert (geo.units, geo.rows) == (32, 4 * ndir)
+        assert geo.grid[1] * geo.grid[2] == 8
+        if ndir == 2:
+            # the LSTM kernels' 33,856 / 193,600 B, the forward with two
+            # [2][R][U] buffers of mix weights more, the backward with one
+            # more (it keeps c at t_prev only)
+            assert (geo.smem_fwd, geo.smem_bwd) == (37_952, 195_648)
+    else:
+        assert (geo.ctas, geo.units, hidden - 7 * geo.units) == (8, 13, 9)
+    owner = {}
+    for k in range(geo.ctas):
+        units = range(k * geo.units, min(hidden, (k + 1) * geo.units))
+        assert len(units) > 0
+        for q in range(4):
+            for u in units:
+                col = q * hidden + u
+                assert col not in owner
+                owner[col] = k
+    assert sorted(owner) == list(range(4 * hidden))
+
+
+@pytest.mark.parametrize("ndir,design", [(2, "stream"), (1, "cluster")])
+def test_zoneout_geometry_by_batch(ndir, design):
+    """B=49 at H=100: no row count keeps two directions within the budget of
+    resident clusters (R=8 gives 7 groups, 14 clusters), so that launch
+    takes the stream design by size; one direction takes the cluster design
+    at R=8 in 7 clusters."""
+    geo = zoneout_geometry(100, 49, ndir)
+    assert geo.design == design
+    if design == "cluster":
+        assert (geo.rows, geo.grid[1] * geo.grid[2]) == (8, 7)
