@@ -84,8 +84,18 @@ SIGNATURES = {
     # dxp_b, dhp_b, T, B, H, ndir, cluster CTAs, units, rows, stream
     "asr_gru_bwd": [_P] * 13 + [_I] * 7 + [_P],
     "asr_gru_bwd_info": [_I] * 6 + [_P, _P],
-    # the streamed-weight forms (H=512): xp_f, xp_b, mask, wh_f, wh_b, h_f,
-    # h_b, T, B, H, ndir, stream
+    # the wide forms (256 < H <= 512): xp_f, xp_b, mask, wh_f, wh_b, h_f,
+    # h_b, hg_f, hg_b (the saved h side of the pre-activations, or null),
+    # T, B, H, ndir, cluster CTAs, units per CTA, rows per cluster, stream
+    "asr_gru_wide_fwd": [_P] * 9 + [_I] * 7 + [_P],
+    # B, H, ndir, cluster CTAs, units, rows, *smem bytes, *max clusters
+    "asr_gru_wide_fwd_info": [_I] * 6 + [_P, _P],
+    # xp_f, xp_b, hg_f, hg_b, mask, wh_f, wh_b, h_f, h_b, dh_f, dh_b, dxp_f,
+    # dhp_f, dxp_b, dhp_b, T, B, H, ndir, cluster CTAs, units, rows, stream
+    "asr_gru_wide_bwd": [_P] * 15 + [_I] * 7 + [_P],
+    "asr_gru_wide_bwd_info": [_I] * 6 + [_P, _P],
+    # the streamed-weight forms (H > 512, or batches beyond the wide
+    # design): xp_f, xp_b, mask, wh_f, wh_b, h_f, h_b, T, B, H, ndir, stream
     "asr_gru_stream_fwd": [_P] * 7 + [_I] * 4 + [_P],
     # xp_f, xp_b, mask, wh_f, wh_b, wht_f, wht_b, h_f, h_b, dh_f, dh_b,
     # dxp_f, dhp_f, dxp_b, dhp_b, T, B, H, ndir, stream

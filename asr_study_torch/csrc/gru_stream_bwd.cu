@@ -1,9 +1,10 @@
 // The GRU recurrence of one layer, backward pass, over one or two
 // directions in one launch: the cotangent walks that give the
 // pre-activation gradients dxp and dhp, in the streamed-weight design, for
-// the widths whose recurrent weights do not fit in one thread-block cluster
-// (H=512).  The other widths take the cluster-resident design of
-// gru_bwd.cu; ops/gru.py `gru_geometry` picks between the two by size.
+// the shapes that neither cluster-resident design takes (H > 512, or at
+// H=512 a batch beyond the clusters of gru_wide_bwd.cu).  The other shapes
+// take gru_bwd.cu (H <= 256) or gru_wide_bwd.cu (256 < H <= 512);
+// ops/gru.py `gru_geometry` picks between the three by size.
 //
 // Replaces two TPU kernels: asr_study_tpu/ops/pallas_bigru.py
 // `_bibwd_kernel` (both walks, in opposite time directions) with ndir = 2,

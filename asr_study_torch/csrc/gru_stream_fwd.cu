@@ -1,8 +1,9 @@
 // The GRU recurrence of one layer, forward pass, over one or two
-// directions in one launch: the streamed-weight design, for the widths whose
-// recurrent weights do not fit in one thread-block cluster (H=512).  The
-// other widths take the cluster-resident design of gru_fwd.cu; ops/gru.py
-// `gru_geometry` picks between the two by size.
+// directions in one launch: the streamed-weight design, for the shapes that
+// neither cluster-resident design takes (H > 512, or at H=512 a batch
+// beyond the clusters of gru_wide_fwd.cu, e.g. B > 48 in two directions).
+// The other shapes take gru_fwd.cu (H <= 256) or gru_wide_fwd.cu (256 < H
+// <= 512); ops/gru.py `gru_geometry` picks between the three by size.
 //
 // Replaces two TPU kernels: asr_study_tpu/ops/pallas_bigru.py
 // `_bifwd_kernel` (both directions, row maths `_gru_row_fwd`) with

@@ -317,7 +317,15 @@ def gru_step(h_prev: torch.Tensor, xp_t: torch.Tensor, mask_t: torch.Tensor,
 
     ``n = tanh(xn + r * hn)``: the bias ``bn`` is additive inside the tanh
     and outside ``r * hn``, so it folds into ``xn`` with the others."""
-    hr, hz, hn = torch.matmul(h_prev, wh).chunk(3, dim=-1)
+    return gru_update(torch.matmul(h_prev, wh), h_prev, xp_t, mask_t)
+
+
+def gru_update(hg_t: torch.Tensor, h_prev: torch.Tensor, xp_t: torch.Tensor,
+               mask_t: torch.Tensor) -> torch.Tensor:
+    """h of one frame from the h side of its pre-activations, ``hg_t = [hr,
+    hz, hn] = h_prev @ wh`` [B, 3H] (:func:`gru_step` without the
+    product)."""
+    hr, hz, hn = hg_t.chunk(3, dim=-1)
     xr, xz, xn = xp_t.chunk(3, dim=-1)
     r = torch.sigmoid(xr + hr)
     z = torch.sigmoid(xz + hz)

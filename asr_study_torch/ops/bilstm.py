@@ -46,7 +46,7 @@ import torch
 from asr_study_torch import _build
 from asr_study_torch.models.cells import lstm_gates, lstm_update
 from asr_study_torch.ops.recurrence import (STREAM_ROWS, WIDE_UNITS,
-                                            Geometry, check,
+                                            Geometry, check, check_res,
                                             cluster_geometry, cotangent,
                                             kernel_info, prev, r4, stream,
                                             wide_geometry)
@@ -371,21 +371,6 @@ def launch_bwd(geo: Geometry, xps: list, mask: torch.Tensor, whs: list,
     return outs
 
 
-def _check_res(name: str, geo: Geometry, mask: torch.Tensor, xps: dict,
-               res: tuple) -> None:
-    """``res`` is what the forward returned with ``residual`` for this
-    design: the gates of each direction, shaped as xp, where the wide
-    design runs; nothing elsewhere."""
-    want = len(xps) if geo.design == "wide" else 0
-    if len(res) != want:
-        raise ValueError(
-            f"{name}: res holds {len(res)} tensors, the {geo.design} "
-            f"design's forward with residual=True returns {want}")
-    if res:
-        check(name, 4, mask, {f"g{k[2:]}": g for k, g in zip(xps, res)},
-              {}, {})
-
-
 def bilstm_bwd(xp_f: torch.Tensor, xp_b: torch.Tensor, mask: torch.Tensor,
                wh_f: torch.Tensor, wh_b: torch.Tensor, h_f: torch.Tensor,
                c_f: torch.Tensor, h_b: torch.Tensor, c_b: torch.Tensor,
@@ -401,7 +386,8 @@ def bilstm_bwd(xp_f: torch.Tensor, xp_b: torch.Tensor, mask: torch.Tensor,
           dict(wh_f=wh_f, wh_b=wh_b),
           dict(h_f=h_f, c_f=c_f, h_b=h_b, c_b=c_b, dh_f=dh_f, dh_b=dh_b))
     geo = _geometry(xp_f, 2)
-    _check_res("bilstm_bwd", geo, mask, dict(xp_f=xp_f, xp_b=xp_b), res)
+    check_res("bilstm_bwd", 4, geo, mask, dict(xp_f=xp_f, xp_b=xp_b), res,
+              "g")
     if xp_f.device.type == "cpu":
         with torch.no_grad():
             if res:
@@ -429,7 +415,7 @@ def lstm_bwd(xp: torch.Tensor, mask: torch.Tensor, wh: torch.Tensor,
     check("lstm_bwd", 4, mask, dict(xp=xp), dict(wh=wh),
           dict(h=h, c=c, dh=dh))
     geo = _geometry(xp, 1)
-    _check_res("lstm_bwd", geo, mask, dict(xp=xp), res)
+    check_res("lstm_bwd", 4, geo, mask, dict(xp=xp), res, "g")
     if xp.device.type == "cpu":
         with torch.no_grad():
             if res:

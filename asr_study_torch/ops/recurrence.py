@@ -1,9 +1,11 @@
 """What the recurrence ops (``ops/bilstm.py``, ``ops/gru.py``,
 ``ops/ln_lstm.py``, ``ops/zoneout_lstm.py``, ``ops/mi_lstm.py``) share
-around their kernels: the argument check, the stream, the scan-previous
-state of a sequence, the cotangent of an unused output, and the fit rule of
-the cluster-resident kernels (the LSTM's, the GRU's, the layer-norm,
-zoneout and MI LSTMs')."""
+around their kernels: the argument check (and that of the residual the
+wide designs' forwards hand their backwards), the stream, the
+scan-previous state of a sequence, the cotangent of an unused output, and
+the fit rules of the cluster-resident kernels (the LSTM's, the GRU's, the
+layer-norm, zoneout and MI LSTMs'; the wide rule, the LSTM's and the
+GRU's)."""
 
 from __future__ import annotations
 
@@ -37,7 +39,8 @@ STREAM_ROWS = 4              # batch rows per block of the stream design
 # fits nowhere): a non-portable cluster of ceil(H / WIDE_UNITS) CTAs (16 at
 # H=512) per (direction, group of `rows` batch rows), CTA k owning the
 # WIDE_UNITS units [32k, 32k + 32) and their gate columns, its 512-row slice
-# half in registers and half in shared memory.  `rows` is the least of
+# in registers and shared memory (the LSTM's half and half; the GRU's by its
+# thread shape, ops/gru.py GRU_WIDE_SPLIT).  `rows` is the least of
 # WIDE_ROWS that keeps the launch within WIDE_BUDGET clusters, all resident
 # at once; an H100 SXM holds 7 clusters of 16 such CTAs (PERF.md), so the
 # budget keeps a margin of 1 and a bidirectional B=32 launch takes 4.
@@ -123,7 +126,6 @@ def kernel_info(name: str, geo: Geometry, batch: int, hidden: int
     return smem.value, fit.value
 
 
-
 def check(name: str, gates: int, mask: torch.Tensor, xps: dict, whs: dict,
           seqs: dict, gate_vecs: dict | None = None,
           unit_vecs: dict | None = None) -> None:
@@ -159,6 +161,23 @@ def check(name: str, gates: int, mask: torch.Tensor, xps: dict, whs: dict,
     if first.device.type == "cuda" and not all(
             t.is_contiguous() for t, _ in want.values()):
         raise ValueError(f"{name}: the kernel takes contiguous tensors")
+
+
+def check_res(name: str, gates: int, geo: Geometry, mask: torch.Tensor,
+              xps: dict, res: tuple, prefix: str) -> None:
+    """``res`` is what the forward returned with ``residual`` for the design
+    of ``geo``: one tensor a direction, shaped as xp [T, B, ``gates`` * H],
+    where the wide design runs; nothing elsewhere.  The tensors are named
+    ``prefix`` and xp's suffix in the errors (``g_f`` for ``xp_f``).
+    Raises ValueError."""
+    want = len(xps) if geo.design == "wide" else 0
+    if len(res) != want:
+        raise ValueError(
+            f"{name}: res holds {len(res)} tensors, the {geo.design} "
+            f"design's forward with residual=True returns {want}")
+    if res:
+        check(name, gates, mask,
+              {f"{prefix}{k[2:]}": r for k, r in zip(xps, res)}, {}, {})
 
 
 def stream(t: torch.Tensor) -> int:

@@ -16,8 +16,9 @@ paths at full width, with random weights from a seeded
   ``deep_blstm`` 3x256 with ``bidirectional=false``, ``highway_blstm``
   5x256, ``deep_speech`` (3x512 dense front end, one 512-unit BLSTM; and
   with ``bidirectional=false``), ``ln_blstm`` 3x256 (layer-norm BLSTM),
-  ``zoneout_blstm`` 3x256 (eval mode) and ``mi_blstm`` 3x256
-  (multiplicative integration);
+  ``zoneout_blstm`` 3x256 (eval mode), ``mi_blstm`` 3x256
+  (multiplicative integration) and ``deep_gru`` 3x512 (the wide GRU
+  kernels; bidirectional and with ``bidirectional=false``);
 - training (BASELINE config 3): features [32, 512, 39] -> deep_blstm 3x256
   (dropout 0) -> CTC -> backward -> clip by global norm -> Adam
   (``make_optimizer("adam", 1e-4, 400.0)``), through ``Trainer.train_step``
@@ -25,7 +26,8 @@ paths at full width, with random weights from a seeded
 - training at the same shapes through ``Trainer.train_step``: ``deep_gru``
   3x256 bidirectional and unidirectional, ``deep_blstm`` 3x256
   unidirectional, ``highway_blstm`` 5x256, ``deep_speech`` bidirectional
-  and unidirectional (the wide LSTM kernels), and
+  and unidirectional (the wide LSTM kernels), ``deep_gru`` 3x512
+  bidirectional and unidirectional (the wide GRU kernels), and
   ``ln_blstm``, ``zoneout_blstm`` (train mode at zoneout 0.1/0.1, the mix
   weights drawn on the card) and ``mi_blstm``, each 3x256 bidirectional and
   unidirectional, dropout 0.
@@ -43,8 +45,11 @@ Phases, in order; any failure raises and the exit code is not 0:
    directions and one, its backward from the forward's saved gates, timed
    in turns against the stream design it replaced beside cuDNN's two
    calls and the bound, with the card's cudaOccupancyMaxActiveClusters
-   for its 16-CTA clusters; the GRU's stream route at H=512 timed beside
-   cuDNN ``nn.GRU`` and its bound; the
+   for its 16-CTA clusters; the GRU kernels' wide design at H=512 the same
+   way (its backward from the h side of the pre-activations the forward
+   keeps), beside cuDNN ``nn.GRU``; the layer-norm, zoneout and MI LSTM
+   kernels' stream route at H=512 against plain once and timed beside its
+   bound; the
    LSTM, GRU and MI kernels also at H=512 and H=100, and at shapes ragged
    for the cluster design's tiling (H=100, B=5 and B=33, a row masked
    throughout, T=1), with the design each width takes, its cluster
@@ -662,41 +667,50 @@ def check_gru_kernels(dev: torch.device, card: str, x_serve: torch.Tensor,
 def print_cluster_geometry() -> None:
     """The LSTM, GRU, layer-norm, zoneout and MI LSTM kernels' design at
     each width of the zoo (and H=100) and each direction count, at B=32:
-    the cluster (or, for the LSTM at H=512, the wide) geometry and shared
-    memory, held against the kernels' own launch configuration
-    (asr_{bilstm,gru,ln_lstm,zoneout_lstm,mi_lstm,lstm_wide}_{fwd,bwd}_info),
-    and the clusters the card holds at once against those the launch
-    needs."""
+    the cluster (or, for the LSTM and the GRU at H=512, the wide) geometry
+    and shared memory, held against the kernels' own launch configuration
+    (asr_{bilstm,gru,ln_lstm,zoneout_lstm,mi_lstm,lstm_wide,gru_wide}_
+    {fwd,bwd}_info), and the clusters the card holds at once against those
+    the launch needs."""
     from asr_study_torch.ops.bilstm import (CLUSTER_THREADS, cluster_info,
                                             lstm_geometry)
-    from asr_study_torch.ops.gru import (GRU_THREADS, gru_cluster_info,
-                                         gru_geometry)
+    from asr_study_torch.ops.gru import (GRU_THREADS, GRU_WIDE_SPLIT,
+                                         gru_cluster_info, gru_geometry)
     from asr_study_torch.ops.ln_lstm import ln_cluster_info, ln_geometry
     from asr_study_torch.ops.mi_lstm import mi_cluster_info, mi_geometry
     from asr_study_torch.ops.zoneout_lstm import (zoneout_cluster_info,
                                                   zoneout_geometry)
 
+    # bi name, uni name, geometry, info, source stem and threads a CTA
+    # (forward / backward) by design
+    lstm_threads = f"{CLUSTER_THREADS} / {CLUSTER_THREADS}"
     families = (("bilstm", "lstm", lstm_geometry, cluster_info,
-                 CLUSTER_THREADS, "bilstm", "lstm_stream"),
-                ("bigru", "gru", gru_geometry, gru_cluster_info, GRU_THREADS,
-                 "gru", "gru_stream"),
+                 {"cluster": ("bilstm", lstm_threads),
+                  "wide": ("lstm_wide", "256 / 256"),
+                  "stream": ("lstm_stream", "")}),
+                ("bigru", "gru", gru_geometry, gru_cluster_info,
+                 {"cluster": ("gru", f"{GRU_THREADS} / {GRU_THREADS}"),
+                  "wide": ("gru_wide", f"{96 * GRU_WIDE_SPLIT} / 256"),
+                  "stream": ("gru_stream", "")}),
                 ("bi_ln_lstm", "ln_lstm", ln_geometry, ln_cluster_info,
-                 CLUSTER_THREADS, "ln_lstm", "ln_lstm_stream"),
+                 {"cluster": ("ln_lstm", lstm_threads),
+                  "stream": ("ln_lstm_stream", "")}),
                 ("bi_zoneout_lstm", "zoneout_lstm", zoneout_geometry,
-                 zoneout_cluster_info, CLUSTER_THREADS, "zoneout_lstm",
-                 "zoneout_lstm_stream"),
+                 zoneout_cluster_info,
+                 {"cluster": ("zoneout_lstm", lstm_threads),
+                  "stream": ("zoneout_lstm_stream", "")}),
                 ("bi_mi_lstm", "mi_lstm", mi_geometry, mi_cluster_info,
-                 CLUSTER_THREADS, "mi_lstm", "mi_lstm_stream"))
-    for bi, uni, geometry, info, threads, cluster_src, stream_src in \
-            families:
+                 {"cluster": ("mi_lstm", lstm_threads),
+                  "stream": ("mi_lstm_stream", "")}))
+    for bi, uni, geometry, info, designs in families:
         for hidden in (100, HIDDEN, 512):
             for ndir in (2, 1):
                 geo = geometry(hidden, BATCH, ndir)
                 names = bi if ndir == 2 else uni
-                src = cluster_src if geo.design == "cluster" else "lstm_wide"
+                src, threads = designs[geo.design]
                 if geo.design == "stream":
                     print(f"  {names}_fwd/_bwd at H={hidden}, B={BATCH}: "
-                          f"stream design (csrc/{stream_src}_*.cu), grid "
+                          f"stream design (csrc/{src}_*.cu), grid "
                           f"{geo.grid} of {geo.rows}-row blocks, dynamic "
                           f"shared memory {geo.smem_fwd} / {geo.smem_bwd} B "
                           f"a block")
@@ -707,7 +721,8 @@ def print_cluster_geometry() -> None:
                 print(f"  {names}_fwd/_bwd at H={hidden}, B={BATCH}: "
                       f"{geo.design} design (csrc/{src}_*.cu), {clusters} "
                       f"clusters of {geo.ctas} CTAs x {threads} "
-                      f"threads, grid {geo.grid}, {geo.units} units and "
+                      f"threads (fwd / bwd), grid {geo.grid}, {geo.units} "
+                      f"units and "
                       f"{geo.rows} rows a CTA; dynamic shared memory "
                       f"{fwd_b} / {bwd_b} B a CTA (of 232448), the card "
                       f"holds {fwd_fit} / {bwd_fit} such clusters at once "
@@ -769,6 +784,38 @@ def ln_smem(hidden: int) -> tuple[int, int, int]:
     return (*ln_stream_smem(hidden), max(threads // hidden, 1))
 
 
+def ln_stepwise(args, outs) -> list:
+    """The layer-norm LSTM's plain step from the kernel's own previous state
+    at every frame at once, each direction -> (h, c) per direction,
+    flattened as the kernel's outputs; ``args`` the op's (xpn..., mask, wh,
+    gh, gc, bc paired by direction), ``outs`` the kernel's (h, c...)."""
+    from asr_study_torch.models.cells import ln_lstm_step
+    from asr_study_torch.ops.recurrence import prev
+
+    n = len(outs) // 2
+    xpns, mask_ = args[:n], args[n]
+    vecs = args[n + 1:]
+    steps = []
+    for d in range(n):
+        wh, gh, gc, bc = vecs[d::n]
+        h_k, c_k = outs[2 * d], outs[2 * d + 1]
+        h = h_k.shape[2]
+        tb = h_k.shape[0] * h_k.shape[1]
+        h_s, c_s = ln_lstm_step(
+            prev(h_k, d == 1).reshape(tb, h), prev(c_k, d == 1).reshape(
+                tb, h), xpns[d].reshape(tb, 4 * h), mask_.reshape(tb, 1),
+            wh, gh, gc, bc)
+        steps += [h_s.view_as(h_k), c_s.view_as(c_k)]
+    return steps
+
+
+def rows_within(got, want, atol: float, rtol: float) -> bool:
+    """Every (frame, row) vector: ||got - want|| <= atol + rtol *
+    ||want||."""
+    return all(bool(((k - p).norm(dim=-1) <= atol + rtol * p.norm(
+        dim=-1)).all()) for k, p in zip(got, want))
+
+
 def check_ln_kernels(dev: torch.device, card: str, x_serve: torch.Tensor,
                      len_serve: torch.Tensor) -> dict:
     """Phase 3 for the layer-norm LSTM kernels.
@@ -789,7 +836,6 @@ def check_ln_kernels(dev: torch.device, card: str, x_serve: torch.Tensor,
     slice at the card's SM clock and the rest.  The LN gains and biases are
     moved off their init (1 and 0) by seeded noise, so that every vector
     the kernels take matters."""
-    from asr_study_torch.models.cells import ln_lstm_step
     from asr_study_torch.models.zoo import ln_blstm
     from asr_study_torch.ops.ln_lstm import (BiLNLSTMFunction, LNLSTMFunction,
                                              bi_ln_lstm, bi_ln_lstm_bwd,
@@ -799,7 +845,6 @@ def check_ln_kernels(dev: torch.device, card: str, x_serve: torch.Tensor,
                                              ln_lstm_bwd, ln_lstm_bwd_plain,
                                              ln_lstm_plain,
                                              ln_stream_geometry)
-    from asr_study_torch.ops.recurrence import prev
 
     g = torch.Generator().manual_seed(SEED + 7)
     h = HIDDEN
@@ -828,25 +873,6 @@ def check_ln_kernels(dev: torch.device, card: str, x_serve: torch.Tensor,
     def max_err(got, want):
         return max(float((k - p).abs().max()) for k, p in zip(got, want))
 
-    def stepwise(args, outs):
-        """Each direction's plain step from the kernel's own previous
-        state at every frame at once -> (h, c) per direction, flattened
-        as the kernel's outputs."""
-        n = len(outs) // 2
-        xpns, mask_ = args[:n], args[n]
-        vecs = args[n + 1:]
-        steps = []
-        for d in range(n):
-            wh, gh, gc, bc = vecs[d::n]
-            h_k, c_k = outs[2 * d], outs[2 * d + 1]
-            tb = h_k.shape[0] * h_k.shape[1]
-            h_s, c_s = ln_lstm_step(
-                prev(h_k, d == 1).reshape(tb, h), prev(c_k, d == 1).reshape(
-                    tb, h), xpns[d].reshape(tb, 4 * h), mask_.reshape(tb, 1),
-                wh, gh, gc, bc)
-            steps += [h_s.view_as(h_k), c_s.view_as(c_k)]
-        return steps
-
     def ran_design(wrapper, before, ndir, batch):
         """The wrapper launched once since ``before`` (its by-design counts),
         in the design ln_geometry gives."""
@@ -862,12 +888,6 @@ def check_ln_kernels(dev: torch.device, card: str, x_serve: torch.Tensor,
         return time_in_turns(card, label, cluster_fn, stream_fn, steps,
                              ln_geometry(h, BATCH, ndir), passes,
                              "statistics, exchange, barriers, cell, loads")
-
-    def rows_within(got, want, atol, rtol):
-        """Every (frame, row) vector: ||got - want|| <= atol + rtol *
-        ||want||."""
-        return all(bool(((k - p).norm(dim=-1) <= atol + rtol * p.norm(
-            dim=-1)).all()) for k, p in zip(got, want))
 
     errs, times, bounds = {}, {}, {}
     cases = {
@@ -898,7 +918,7 @@ def check_ln_kernels(dev: torch.device, card: str, x_serve: torch.Tensor,
             got, want = fwd(*args), fwd_plain(*args)
             torch.cuda.synchronize()
             design = ran_design(fwd, before, n, BATCH)
-            steps = stepwise(args, got)
+            steps = ln_stepwise(args, got)
             # the recurrence's own fp32 spread: h of each fp32 run against
             # a float64 run of the plain loop (printed, not held)
             ref = fwd_plain(*(a.double() for a in args))[0::2]
@@ -1360,19 +1380,41 @@ def check_lstm_wide(dev: torch.device, card: str, x_serve: torch.Tensor,
             "library": library}
 
 
-def check_gru_h512(dev: torch.device, card: str, x_serve: torch.Tensor,
-                   len_serve: torch.Tensor) -> None:
-    """The GRU kernels' route at H=512 (the stream design,
-    csrc/gru_stream_{fwd,bwd}.cu; no zoo model's default width), two
-    directions and one, B=32: the forward at the serving shapes (T=805),
-    the backward at the config-3 shapes (T=512), each against its plain
-    version, timed beside its bound and cuDNN ``nn.GRU`` at the same
-    shapes, for the ranking of the wide routes still to redesign."""
+def check_gru_wide(dev: torch.device, card: str, x_serve: torch.Tensor,
+                   len_serve: torch.Tensor) -> dict:
+    """Phase 3 for the wide design of the GRU kernels
+    (csrc/gru_wide_{fwd,bwd}.cu), at H=512 (deep_gru at 512 units), two
+    directions and one, B=32.
+
+    The forward at the serving shapes (the check batch's features [T=805,
+    B=32, 39] through a 512-unit layer, ragged lengths), as serving runs it
+    (no residual), against its plain version at the GRU_* bounds, and as
+    training runs it (``residual``, whose res holds the h side of the
+    pre-activations ``h_prev @ wh``): h bit-equal to the serving run, res
+    against the plain one.  The backward at the config-3 shapes (T=512,
+    lengths 256-512) from the card forward's res against the plain backward
+    from the same res and against the plain walk that recomputes it, both
+    at the BWD_* bounds, dwh through the Function against autograd through
+    the plain loop (DWH_RTOL).  The stream design (csrc/gru_stream_{fwd,
+    bwd}.cu, through its C entry point: the route of the shapes the wide
+    design cannot hold) on the same inputs against the same plain versions.
+    Each wide kernel timed in turns against the stream design (wide,
+    stream, stream, wide), beside cuDNN ``nn.GRU`` at the same shapes,
+    timed twice in the run (the library time is the lower), the plain
+    version and the bound: the forward's one product a step, the
+    backward's one (``dhp @ wh^T``; res is an input) -> the kernel line's
+    numbers for the four wide rows, which are the serving forward's; the
+    training forward (which also writes res) timed and bounded beside
+    it."""
     from asr_study_torch.models.zoo import deep_gru
-    from asr_study_torch.ops.gru import (bigru, bigru_bwd, bigru_bwd_plain,
-                                         bigru_plain, gru, gru_bwd,
-                                         gru_bwd_plain, gru_geometry,
-                                         gru_plain)
+    from asr_study_torch.ops.gru import (BiGRUFunction, GRUFunction, bigru,
+                                         bigru_bwd, bigru_bwd_plain,
+                                         bigru_bwd_res_plain, bigru_plain,
+                                         gru, gru_bwd, gru_bwd_plain,
+                                         gru_bwd_res_plain, gru_cluster_info,
+                                         gru_geometry, gru_plain,
+                                         gru_stream_geometry, launch_bwd,
+                                         launch_fwd)
 
     h = 512
     g = torch.Generator().manual_seed(SEED + 15)
@@ -1384,57 +1426,291 @@ def check_gru_h512(dev: torch.device, card: str, x_serve: torch.Tensor,
     x = torch.randn(t, b, FEATS, generator=g).to(dev)
     mask = mask_of(lengths, t, dev)
     dh = [torch.randn(t, b, h, generator=g).to(dev) for _ in range(2)]
-
-    def tup(out):
-        return out if isinstance(out, tuple) else (out,)
+    errs, times, bounds, library = {}, {}, {}, {}
 
     def max_err(got, want):
         return max(float((k - p).abs().max()) for k, p in zip(got, want))
 
     for n in (2, 1):
-        name = "bigru" if n == 2 else "gru"
-        fwd, fwd_plain, bwd, bwd_plain = (
-            (bigru, bigru_plain, bigru_bwd, bigru_bwd_plain) if n == 2 else
-            (gru, gru_plain, gru_bwd, gru_bwd_plain))
+        pre = "bi" if n == 2 else ""
+        fwd_row, bwd_row = f"{pre}gru_fwd_wide", f"{pre}gru_bwd_wide"
         layer = deep_gru(f"num_hiddens={h},num_layers=1,bidirectional="
                          f"{str(n == 2).lower()}", input_dim=FEATS,
                          generator=g, device=dev).rnn.layers[0].rnn
         cells = [layer.fw] + ([layer.bw] if n == 2 else [])
         whs = [c.wh.detach() for c in cells]
-        fa = (*[input_proj(c, x_serve) for c in cells], mask_s, *whs)
-        xps = [input_proj(c, x) for c in cells]
+        fxps = [input_proj(c, x_serve) for c in cells]
+        bxps = [input_proj(c, x) for c in cells]
+        geo = gru_geometry(h, BATCH, n)
+        require(geo.design == "wide", f"{fwd_row}: gru_geometry gives "
+                f"{geo.design} at H={h}, B={BATCH}")
+        fits = [gru_cluster_info(geo, BATCH, h, bwd) for bwd in (False, True)]
+        print(f"{pre}gru_fwd/_bwd at H={h} B={BATCH}: wide design, "
+              f"{geo.grid[1] * geo.grid[2]} clusters of {geo.ctas} CTAs "
+              f"(R={geo.rows}); cudaOccupancyMaxActiveClusters at their "
+              f"shared memory ({fits[0][0]} / {fits[1][0]} B): "
+              f"{fits[0][1]} / {fits[1][1]}")
+
+        def fwd(xps, m, train=False):
+            """-> h of each direction, and with ``train`` (h..., res)."""
+            if n == 2:
+                out = bigru(*xps, m, *whs, residual=train)
+                return (out[:2], out[2]) if train else out
+            out = gru(xps[0], m, whs[0], residual=train)
+            return ((out[0],), out[1]) if train else (out,)
+
+        def fwd_plain(xps, m, keep=False):
+            if n == 2:
+                return bigru_plain(*xps, m, *whs, keep_hg=keep)
+            out = gru_plain(xps[0], m, whs[0], keep_hg=keep)
+            return out if keep else (out,)
+
+        def bwd(hs, res):
+            if n == 2:
+                return bigru_bwd(*bxps, mask, *whs, *hs, *dh, res)
+            return gru_bwd(bxps[0], mask, whs[0], hs[0], dh[0], res)
+
+        def bwd_plain(hs, res):
+            if n == 2:
+                return bigru_bwd_res_plain(*bxps, *res, mask, *whs, *hs, *dh)
+            return gru_bwd_res_plain(bxps[0], *res, mask, whs[0], hs[0],
+                                     dh[0])
+
+        stream_geo = gru_stream_geometry(h, BATCH, n)
         with torch.no_grad():
-            got, want = tup(fwd(*fa)), tup(fwd_plain(*fa))
-            hs = tup(fwd(*xps, mask, *whs))
-            ba = (*xps, mask, *whs, *hs, *dh[:n])
-            d_k, d_p = tup(bwd(*ba)), tup(bwd_plain(*ba))
-            k_fwd = cuda_ms(lambda: fwd(*fa), 3)
-            k_bwd = cuda_ms(lambda: bwd(*ba), 3)
-        design = gru_geometry(h, BATCH, n).design
+            got, want = fwd(fxps, mask_s), fwd_plain(fxps, mask_s)
+            kept, kept_g = fwd(fxps, mask_s, train=True)
+            want_g = fwd_plain(fxps, mask_s, keep=True)[n:]
+            hs, gs = fwd(bxps, mask, train=True)
+            require(len(gs) == n and len(kept_g) == n,
+                    f"{fwd_row}: the training forward's res holds "
+                    f"{len(gs)} tensors, not the h side of {n} directions")
+            d_k, d_p = bwd(hs, gs), bwd_plain(hs, gs)
+            d_r = (bigru_bwd_plain(*bxps, mask, *whs, *hs, *dh) if n == 2
+                   else gru_bwd_plain(bxps[0], mask, whs[0], hs[0], dh[0]))
+            # the stream design on the same inputs (its C entry points,
+            # which count no launch)
+            s_fwd = launch_fwd(stream_geo, fxps, mask_s, whs)
+            s_bwd = launch_bwd(stream_geo, bxps, mask, whs, list(hs), dh[:n])
+            times[fwd_row] = (None, cuda_ms(lambda: fwd_plain(fxps, mask_s),
+                                            1, 1))
+            times[bwd_row] = (None, cuda_ms(lambda: bwd_plain(hs, gs), 1, 1))
+        errs[fwd_row] = max_err(got, want)
+        errs[bwd_row] = max_err(d_k, d_p)
+        g_err = max_err(kept_g, want_g)
+        same = all(torch.equal(a, c) for a, c in zip(kept, got))
+        print(f"{fwd_row} kernel vs plain: T={t_s} B={BATCH} H={h} "
+              f"max_abs_err={errs[fwd_row]:.3e} (tol {GRU_ATOL:g} + "
+              f"{GRU_RTOL:g}*|plain|); the training form's h bit-equal to "
+              f"the serving run {same}, its res (h_prev @ wh) "
+              f"max_abs_err={g_err:.3e} (max|hg| "
+              f"{max(float(a.abs().max()) for a in want_g):.2f})")
         require(all(within(k, p, GRU_ATOL, GRU_RTOL)
                     for k, p in zip(got, want)),
-                f"{name}_fwd disagrees with plain at H={h}")
+                f"{fwd_row} kernel disagrees with plain")
+        require(same and all(within(k, p, GRU_ATOL, GRU_RTOL)
+                             for k, p in zip(kept_g, want_g)),
+                f"{fwd_row} kernel's res disagrees with plain")
+        s_errs = max_err(s_fwd, want), max_err(s_bwd, d_r)
+        print(f"{pre}gru stream design (csrc/gru_stream_{{fwd,bwd}}.cu) "
+              f"vs plain at H={h} B={BATCH}: forward T={t_s} "
+              f"max_abs_err={s_errs[0]:.3e} (tol {GRU_ATOL:g} + "
+              f"{GRU_RTOL:g}*|plain|), backward T={t} "
+              f"max_abs_err={s_errs[1]:.3e} against the plain walk that "
+              f"recomputes h_prev @ wh (tol {BWD_ATOL:g} + "
+              f"{BWD_RTOL:g}*|plain|)")
+        require(all(within(k, p, GRU_ATOL, GRU_RTOL)
+                    for k, p in zip(s_fwd, want)),
+                f"{pre}gru stream forward disagrees with plain at H={h}")
+        require(all(within(k, p, BWD_ATOL, BWD_RTOL)
+                    for k, p in zip(s_bwd, d_r)),
+                f"{pre}gru stream backward disagrees with plain at H={h}")
+        w_k = [w.clone().requires_grad_() for w in whs]
+        w_p = [w.clone().requires_grad_() for w in whs]
+        if n == 2:
+            torch.autograd.backward(BiGRUFunction.apply(*bxps, mask, *w_k),
+                                    dh)
+            torch.autograd.backward(bigru_plain(*bxps, mask, *w_p), dh)
+        else:
+            torch.autograd.backward(GRUFunction.apply(bxps[0], mask, w_k[0]),
+                                    dh[0])
+            torch.autograd.backward(gru_plain(bxps[0], mask, w_p[0]), dh[0])
+        dwh_err = max(float((a.grad - p.grad).abs().max() / p.grad.abs().max())
+                      for a, p in zip(w_k, w_p))
+        print(f"{bwd_row} kernel vs plain (from the card's res): T={t} "
+              f"B={b} H={h} lengths {int(lengths.min())}..{t} "
+              f"max_abs_err={errs[bwd_row]:.3e} over dxp and dhp (max|dxp| "
+              f"{max(float(p.abs().max()) for p in d_p):.2f}; tol "
+              f"{BWD_ATOL:g} + {BWD_RTOL:g}*|plain|); against the plain walk "
+              f"that recomputes h_prev @ wh {max_err(d_k, d_r):.3e}; dwh via "
+              f"the Function vs autograd through the plain loop: max err / "
+              f"max|dwh| = {dwh_err:.3e} (tol {DWH_RTOL:g})")
         require(all(within(k, p, BWD_ATOL, BWD_RTOL)
                     for k, p in zip(d_k, d_p)),
-                f"{name}_bwd disagrees with plain at H={h}")
-        fb = rnn_bound(fa[0], h, n, 1, (*fa, *got))
-        bb = rnn_bound(xps[0], h, n, 2, (*ba, *d_k))
-        lib = []
-        for xs, lens, m, key in ((x_serve, len_serve, mask_s, "lib_fwd"),
-                                 (x, lengths.to(dev), mask, "lib_bwd")):
-            y = rnn_yardsticks("gru", layer, xs, lens, m)
-            print_yardsticks(card, f"cuDNN nn.GRU {'bi' if n == 2 else 'uni'}"
-                             f"directional, T={xs.shape[0]} B={BATCH} H={h}",
-                             y)
-            require(y["out_err"] <= LOGITS_TOL,
-                    f"layer disagrees with nn.GRU at H={h}")
-            lib.append(y[key])
-        print(f"[{card}] {name}_fwd at H={h} ({design} design), T={t_s} "
-              f"B={BATCH}: kernel {k_fwd:.4f} ms, bound {fb[0]:.4f} ms "
-              f"({fb[1]}), cuDNN nn.GRU {lib[0]:.4f} ms; max_abs_err "
-              f"{max_err(got, want):.3e}.  {name}_bwd at T={t}: kernel "
-              f"{k_bwd:.4f} ms, bound {bb[0]:.4f} ms ({bb[1]}), cuDNN "
-              f"{lib[1]:.4f} ms; max_abs_err {max_err(d_k, d_p):.3e}")
+                f"{bwd_row} kernel disagrees with plain")
+        require(all(within(k, p, BWD_ATOL, BWD_RTOL)
+                    for k, p in zip(d_k, d_r)),
+                f"{bwd_row} kernel disagrees with the recomputing plain walk")
+        require(dwh_err <= DWH_RTOL, f"{bwd_row}: dwh disagrees with autograd")
+        bounds[fwd_row] = rnn_bound(fxps[0], h, n, 1,
+                                    (*fxps, mask_s, *whs, *got))
+        train_bound = rnn_bound(fxps[0], h, n, 1,
+                                (*fxps, mask_s, *whs, *kept, *kept_g))
+        bounds[bwd_row] = rnn_bound(bxps[0], h, n, 1,
+                                    (*bxps, *gs, mask, *whs, *hs, *dh[:n],
+                                     *d_k))
+
+        # cuDNN at the same shapes, twice, around the designs in turns
+        def yardsticks():
+            out = []
+            for xs, lens, m in ((x_serve, len_serve, mask_s),
+                                (x, lengths.to(dev), mask)):
+                y = rnn_yardsticks("gru", layer, xs, lens, m)
+                print_yardsticks(card, f"cuDNN nn.GRU {pre or 'uni'}"
+                                 f"directional, T={xs.shape[0]} B={BATCH} "
+                                 f"H={h}", y)
+                require(y["out_err"] <= LOGITS_TOL,
+                        f"layer disagrees with nn.GRU at H={h}")
+                out.append(y)
+            return out[0]["lib_fwd"], out[1]["lib_bwd"]
+
+        libs = [yardsticks()]
+        with torch.no_grad():
+            k_fwd = time_in_turns(
+                card, fwd_row, lambda: fwd(fxps, mask_s),
+                lambda: launch_fwd(stream_geo, fxps, mask_s, whs), t_s, geo,
+                1, "exchange, barrier, cell, loads", gates=3, hidden=h)
+            k_train = cuda_ms(lambda: fwd(fxps, mask_s, train=True), 10)
+            k_bwd = time_in_turns(
+                card, bwd_row, lambda: bwd(hs, gs),
+                lambda: launch_bwd(stream_geo, bxps, mask, whs, list(hs),
+                                   dh[:n]), t, geo, 1,
+                "exchange, barrier, cell, loads", gates=3, hidden=h)
+        libs.append(yardsticks())
+        print(f"[{card}] {fwd_row} as training runs it (residual: also "
+              f"writes h_prev @ wh [T, B, 3H] of each direction), T={t_s} "
+              f"B={BATCH}: {k_train:.4f} ms against the serving form's "
+              f"{k_fwd:.4f} ms ({k_train / k_fwd:.3f}x); bound "
+              f"{train_bound[0]:.4f} ms ({train_bound[1]}; the res "
+              f"{tensor_bytes(*kept_g) / 1e6:.1f} MB written included)")
+        times[fwd_row] = (k_fwd, times[fwd_row][1])
+        times[bwd_row] = (k_bwd, times[bwd_row][1])
+        library[fwd_row] = min(lib[0] for lib in libs)
+        library[bwd_row] = min(lib[1] for lib in libs)
+        for row, k_ms, i in ((fwd_row, k_fwd, 0), (bwd_row, k_bwd, 1)):
+            print(f"[{card}] {row}: kernel {k_ms:.4f} ms, plain "
+                  f"{times[row][1]:.4f} ms, bound {bounds[row][0]:.4f} ms "
+                  f"({bounds[row][1]}); cuDNN nn.GRU "
+                  f"{libs[0][i]:.4f} / {libs[1][i]:.4f} ms, the lower "
+                  f"{library[row] / k_ms:.2f}x the kernel")
+    return {"errs": errs, "times": times, "bounds": bounds,
+            "library": library}
+
+
+def check_stream_h512(dev: torch.device, card: str,
+                      x_serve: torch.Tensor) -> None:
+    """The layer-norm, zoneout and MI LSTM kernels' route at H=512 (their
+    stream design, csrc/{ln,zoneout,mi}_lstm_stream_{fwd,bwd}.cu; no zoo
+    model's default width), two directions and one, B=32: each forward and
+    backward through its wrapper against its plain version once (the
+    forward at the serving shapes, T=805, the backward at the config-3
+    ones, T=512, every frame real), at the BILSTM_* and BWD_* bounds (the
+    chaotic layer-norm recurrence as ``check_ln_kernels`` holds it: every
+    frame of the forward against the plain step from the kernel's own
+    previous state, every (frame, row) of the backward against the row's
+    norm), and timed beside its plain version and its bound (no library
+    call computes them), for the ranking of the wide routes still to
+    redesign."""
+    from asr_study_torch.models.zoo import build_model
+    from asr_study_torch.ops import ln_lstm, mi_lstm, zoneout_lstm
+
+    h = 512
+    g = torch.Generator().manual_seed(SEED + 16)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 16)
+    x = torch.randn(TRAIN_T, TRAIN_B, FEATS, generator=g).to(dev)
+    families = {"ln_lstm": (ln_lstm, "ln_blstm", ln_lstm.ln_geometry),
+                "zoneout_lstm": (zoneout_lstm, "zoneout_blstm",
+                                 zoneout_lstm.zoneout_geometry),
+                "mi_lstm": (mi_lstm, "mi_blstm", mi_lstm.mi_geometry)}
+
+    def max_err(got, want):
+        return max(float((k - p).abs().max()) for k, p in zip(got, want))
+
+    def tup(out):
+        return out if isinstance(out, tuple) else (out,)
+
+    for stem, (op, model, geometry) in families.items():
+        chaotic = stem == "ln_lstm"
+        for n in (2, 1):
+            name = f"bi_{stem}" if n == 2 else stem
+            fwd, fwd_plain, bwd, bwd_plain = (
+                getattr(op, name), getattr(op, f"{name}_plain"),
+                getattr(op, f"{name}_bwd"), getattr(op, f"{name}_bwd_plain"))
+            layer = build_model(model, f"num_hiddens={h},num_layers=1,"
+                                f"bidirectional={str(n == 2).lower()}",
+                                input_dim=FEATS, generator=g,
+                                device=dev).rnn.layers[0].rnn
+            cells = [layer.fw] + ([layer.bw] if n == 2 else [])
+            design = geometry(h, BATCH, n).design
+
+            def args_of(xs):
+                """The op's arguments for input xs: streamed tensors, the
+                mask (every frame real), the residents paired by
+                direction, as RNNLayer hands them (zoneout: train-mode
+                mix weights drawn on the card)."""
+                with torch.no_grad():
+                    preps = [c.prepare(xs, True, gen) for c in cells]
+                mask = torch.ones(xs.shape[0], xs.shape[1], 1, device=dev)
+                return (*[p[0] for p in preps], mask,
+                        *[a.detach() for vecs in zip(*(p[1] for p in preps))
+                          for a in vecs])
+
+            fa, ba = args_of(x_serve), args_of(x)
+            with torch.no_grad():
+                before = dict(fwd.by_design)
+                got = fwd(*fa)
+                want = ln_stepwise(fa, got) if chaotic else fwd_plain(*fa)
+                hc = fwd(*ba)
+                dhs = [torch.randn(hc[0].shape, generator=g).to(dev)
+                       for _ in range(n)]
+                d_k = tup(bwd(*ba, *hc, *dhs))
+                d_p = tup(bwd_plain(*ba, *hc, *dhs))
+                torch.cuda.synchronize()
+                require(fwd.by_design[design] == before[design] + 2,
+                        f"{name} did not run the {design} design at H={h}")
+                k_fwd = cuda_ms(lambda: fwd(*fa), 3)
+                k_bwd = cuda_ms(lambda: bwd(*ba, *hc, *dhs), 3)
+                p_fwd = cuda_ms(lambda: fwd_plain(*fa), 1, 1)
+                p_bwd = cuda_ms(lambda: bwd_plain(*ba, *hc, *dhs), 1, 1)
+            f_err, b_err = max_err(got, want), max_err(d_k, d_p)
+            fb = rnn_bound(fa[0], h, n, 1, (*fa, *got))
+            bb = rnn_bound(ba[0], h, n, 2, (*ba, *hc, *dhs, *d_k))
+            how = ""
+            if chaotic:
+                row_rel = max(float(((k - p).norm(dim=-1) / p.norm(
+                    dim=-1).clamp(min=1e-30)).max()) for k, p in zip(d_k, d_p))
+                how = (" (a chaotic recurrence: the forward against the "
+                       "plain step from its own state, every frame; the "
+                       "backward row by row, max ||diff|| / ||plain|| "
+                       f"{row_rel:.3e})")
+            print(f"[{card}] {name} at H={h} ({design} design, "
+                  f"csrc/{stem}_stream_*.cu), B={BATCH}: forward T="
+                  f"{fa[0].shape[0]} kernel {k_fwd:.4f} ms, plain "
+                  f"{p_fwd:.4f} ms, bound {fb[0]:.4f} ms ({fb[1]}); "
+                  f"backward T={ba[0].shape[0]} kernel {k_bwd:.4f} ms, plain "
+                  f"{p_bwd:.4f} ms, bound {bb[0]:.4f} ms ({bb[1]}, two "
+                  f"products a step); against plain{how}: forward "
+                  f"max_abs_err={f_err:.3e} (tol {BILSTM_ATOL:g} + "
+                  f"{BILSTM_RTOL:g}*|plain|), backward {b_err:.3e} (tol "
+                  f"{BWD_ATOL:g} + {BWD_RTOL:g}*|plain|"
+                  f"{', of the row norm' if chaotic else ''}); library: none")
+            require(all(within(k, p, BILSTM_ATOL, BILSTM_RTOL)
+                        for k, p in zip(got, want)),
+                    f"{name} stream forward disagrees with plain at H={h}")
+            require(rows_within(d_k, d_p, BWD_ATOL, BWD_RTOL) if chaotic
+                    else all(within(k, p, BWD_ATOL, BWD_RTOL)
+                             for k, p in zip(d_k, d_p)),
+                    f"{name} stream backward disagrees with plain at H={h}")
 
 
 def sm_clock_hz() -> float:
@@ -1575,9 +1851,10 @@ def check_gru_designs(dev: torch.device, card: str, x_serve: torch.Tensor,
 
     The four wrappers against their plain versions at shapes ragged for the
     cluster tiling (H=100: 13 units a CTA, the last CTA 9; B=5 and B=33; a
-    row masked on every frame; T=1) and at H=512 (the stream design), each
-    case in the design ``gru_geometry`` picks (held by the by-design
-    counts), at the forward and backward tolerances.  Then, at H=256 and
+    row masked on every frame; T=1) and at H=512 (the wide design, its
+    backward from the forward's res), each case in the design
+    ``gru_geometry`` picks (held by the by-design counts), at the forward
+    and backward tolerances.  Then, at H=256 and
     the main paths' shapes (T=805 forward, T=512 backward, B=32), the
     cluster and stream designs timed in turns, cluster, stream, stream,
     cluster, beside nn.GRU's time in this run (``library``; for the
@@ -1613,13 +1890,15 @@ def check_gru_designs(dev: torch.device, card: str, x_serve: torch.Tensor,
         before = {k: dict(w.by_design) for k, w in wrappers.items()}
         with torch.no_grad():
             bi = (*xps, mask, *whs)
-            fb = bigru(*bi), bigru_plain(*bi)
-            bb = (bigru_bwd(*bi, *fb[0], *dhs),
-                  bigru_bwd_plain(*bi, *fb[0], *dhs))
+            *h_bi, res_bi = bigru(*bi, residual=True)
+            fb = h_bi, bigru_plain(*bi)
+            bb = (bigru_bwd(*bi, *h_bi, *dhs, res_bi),
+                  bigru_bwd_plain(*bi, *h_bi, *dhs))
             uni = (xps[0], mask, whs[0])
-            fu = [gru(*uni)], [gru_plain(*uni)]
-            bu = (gru_bwd(*uni, fu[0][0], dhs[0]),
-                  gru_bwd_plain(*uni, fu[0][0], dhs[0]))
+            h_uni, res_uni = gru(*uni, residual=True)
+            fu = [h_uni], [gru_plain(*uni)]
+            bu = (gru_bwd(*uni, h_uni, dhs[0], res_uni),
+                  gru_bwd_plain(*uni, h_uni, dhs[0]))
         torch.cuda.synchronize()
         for name, w in wrappers.items():
             design = designs[2 if name.startswith("bi") else 1]
@@ -2350,10 +2629,17 @@ KERNELS = {
     "bilstm_bwd_wide": ("lstm_wide_bwd.cu", "ops/pallas_bilstm.py:125"),
     "lstm_fwd_wide": ("lstm_wide_fwd.cu", "ops/pallas_lstm.py:83"),
     "lstm_bwd_wide": ("lstm_wide_bwd.cu", "ops/pallas_lstm.py:173"),
+    # the GRU wrappers' wide design (256 < H <= 512)
+    "bigru_fwd_wide": ("gru_wide_fwd.cu", "ops/pallas_bigru.py:69"),
+    "bigru_bwd_wide": ("gru_wide_bwd.cu", "ops/pallas_bigru.py:92"),
+    "gru_fwd_wide": ("gru_wide_fwd.cu", "ops/pallas_gru.py:41"),
+    "gru_bwd_wide": ("gru_wide_bwd.cu", "ops/pallas_gru.py:60"),
 }
 # kernel line row of the wide design -> the wrapper that launches it
 WIDE_ROWS = {"bilstm_fwd_wide": "bilstm_fwd", "bilstm_bwd_wide": "bilstm_bwd",
-             "lstm_fwd_wide": "lstm_fwd", "lstm_bwd_wide": "lstm_bwd"}
+             "lstm_fwd_wide": "lstm_fwd", "lstm_bwd_wide": "lstm_bwd",
+             "bigru_fwd_wide": "bigru_fwd", "bigru_bwd_wide": "bigru_bwd",
+             "gru_fwd_wide": "gru_fwd", "gru_bwd_wide": "gru_bwd"}
 
 # training paths: label -> (zoo model, its hparams, forward and backward
 # kernel of its recurrence, recurrent layers, what it is); the LN paths'
@@ -2398,6 +2684,13 @@ TRAIN_PATHS = {
     "mi_blstm uni": ("mi_blstm", _CONFIG3 + ",bidirectional=false",
                      "mi_lstm_fwd", "mi_lstm_bwd", TRAIN_LAYERS,
                      f"{TRAIN_LAYERS}x{HIDDEN} MI"),
+    "deep_gru 512": ("deep_gru", f"num_hiddens=512,num_layers={TRAIN_LAYERS}"
+                     ",dropout=0.0", "bigru_fwd_wide", "bigru_bwd_wide",
+                     TRAIN_LAYERS, f"{TRAIN_LAYERS}x512 BGRU"),
+    "deep_gru 512 uni": ("deep_gru", f"num_hiddens=512,num_layers="
+                         f"{TRAIN_LAYERS},dropout=0.0,bidirectional=false",
+                         "gru_fwd_wide", "gru_bwd_wide", TRAIN_LAYERS,
+                         f"{TRAIN_LAYERS}x512 unidirectional GRU"),
 }
 CHAOTIC = ("ln_blstm", "ln_blstm uni")
 
@@ -2814,6 +3107,7 @@ def train_timings(card: str, path: str, desc: str, layers: int, trainer,
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
               "needs an NVIDIA GPU", file=sys.stderr)
@@ -2954,11 +3248,12 @@ def main() -> int:
         **lstm_kernels["library"]})
     check_gru_designs(dev, card, x_serve, feat_lengths,
                       gru_kernels["library"])
-    check_gru_h512(dev, card, x_serve, feat_lengths)
+    gru_wide_kernels = check_gru_wide(dev, card, x_serve, feat_lengths)
     ln_kernels = check_ln_kernels(dev, card, x_serve, feat_lengths)
     zo_kernels = check_cell_family(dev, card, x_serve, feat_lengths,
                                    "zoneout")
     mi_kernels = check_cell_family(dev, card, x_serve, feat_lengths, "mi")
+    check_stream_h512(dev, card, x_serve)
 
     # 4, 5. the serving slices, through the CLI's serving function ---------
     all_wavs, groups, audio_s = [], [], 0.0
@@ -2978,7 +3273,7 @@ def main() -> int:
     feat_cpu = featurizer("mfcc", "cpu")
 
     def serving_slice(label, model, fwd_name, layers, desc, chaotic=False,
-                      codec="pcm16", vs_pcm16=None):
+                      codec="pcm16", vs_pcm16=None, cpu_batches=N_BATCHES):
         """One model's serving slice over the ``codec`` wire: launches
         counted from 0, logits and transcripts against the plain path on
         the CPU fed the same wire, ms per batch -> (launches, served).  For
@@ -2987,7 +3282,8 @@ def main() -> int:
         LN_CHECK_T frames' worth of audio of one batch instead.  The dpack
         slice is held equal to ``vs_pcm16``, the pcm16 slice's batches
         (the same samples after the unpack); the mulaw slice counts its
-        transcripts equal to them."""
+        transcripts equal to them.  ``cpu_batches``: how many of the
+        batches (the first ones) the plain path on the CPU checks."""
         w = wires[codec]
 
         def run_slice():
@@ -3024,7 +3320,7 @@ def main() -> int:
         else:
             model_cpu = copy.deepcopy(model).to("cpu")
             logits_err, same = 0.0, 0
-            for o, s in zip(w.offsets, served):
+            for o, s in list(zip(w.offsets, served))[:cpu_batches]:
                 ref = serve_batch(model_cpu, feat_cpu, w.cpu[o: o + w.cap],
                                   BATCH, w.n_pad, codec, w.scap)
                 require(s.logits.shape == (BATCH, ref.logits.shape[1],
@@ -3041,9 +3337,9 @@ def main() -> int:
                 same += int((s.decoded.cpu() == ref.decoded).all(1).sum())
             held = ", not held: a chaotic recurrence" if chaotic else ""
             print(f"{label} slice logits, kernel path on the card vs plain "
-                  f"path on the CPU: max_abs_err={logits_err:.3e} (tol "
-                  f"{LOGITS_TOL:g}{held}); identical transcripts "
-                  f"{same}/{N_BATCHES * BATCH}")
+                  f"path on the CPU ({cpu_batches} of {N_BATCHES} batches): "
+                  f"max_abs_err={logits_err:.3e} (tol {LOGITS_TOL:g}{held}); "
+                  f"identical transcripts {same}/{cpu_batches * BATCH}")
         if codec == "mulaw":
             same = sum(int((s.decoded == r.decoded).all(1).sum())
                        for s, r in zip(served, vs_pcm16))
@@ -3103,6 +3399,12 @@ def main() -> int:
         "deep_speech uni": ("deep_speech", "bidirectional=false",
                             "lstm_fwd_wide", "3x512 clipped-ReLU dense + "
                             "1x512 unidirectional LSTM"),
+        # the GRU's wide design; the CPU plain path checks one batch
+        "deep_gru 512": ("deep_gru", "num_hiddens=512", "bigru_fwd_wide",
+                         "3x512 BGRU"),
+        "deep_gru 512 uni": ("deep_gru", "num_hiddens=512,bidirectional="
+                             "false", "gru_fwd_wide",
+                             "3x512 unidirectional GRU"),
     }
     for i, (label, (name, hp, fwd_name, desc)) in enumerate(
             serve_models.items()):
@@ -3112,7 +3414,8 @@ def main() -> int:
                                  SEED + 4 + i), device=dev).eval()
         path_launches.append(serving_slice(
             label, served, fwd_name, len(served.rnn.layers), desc,
-            chaotic=name == "ln_blstm")[0])
+            chaotic=name == "ln_blstm",
+            cpu_batches=1 if "512" in label else N_BATCHES)[0])
         del served
 
     with torch.inference_mode():
@@ -3139,7 +3442,8 @@ def main() -> int:
                        lstm_y["lib_fwd"]),
     }
     for found in (train_kernels, gru_kernels, lstm_kernels, wide_kernels,
-                  ln_kernels, zo_kernels, mi_kernels, dpack_kernels):
+                  gru_wide_kernels, ln_kernels, zo_kernels, mi_kernels,
+                  dpack_kernels):
         for name, err in found["errs"].items():
             measured[name] = (err, *found["times"][name],
                               found["bounds"][name], found["library"][name])
@@ -3155,6 +3459,8 @@ def main() -> int:
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms})
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, the "
+          f"kernels' build included")
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,12 @@
 #!/usr/bin/env python3
 """Where a step of the cluster LSTM, GRU, layer-norm, zoneout and MI LSTM
-kernels, and of the wide LSTM kernels, spends its time, on one NVIDIA GPU.
+kernels, and of the wide LSTM and GRU kernels, spends its time, on one
+NVIDIA GPU.
 
-    python3 lstm_step_split.py
+    python3 lstm_step_split.py [kernel ...]
+
+With no argument every kernel below; with names (``gru_wide_fwd``, ...)
+those alone.
 
 Compiles ``asr_study_torch/csrc/bilstm_fwd.cu``, ``gru_fwd.cu``,
 ``gru_bwd.cu``, ``ln_lstm_fwd.cu``, ``ln_lstm_bwd.cu``,
@@ -10,9 +14,10 @@ Compiles ``asr_study_torch/csrc/bilstm_fwd.cu``, ``gru_fwd.cu``,
 ``mi_lstm_bwd.cu`` as they are and in variants, into ``build/step_split/``,
 and times each at the main paths' shapes (H=256, B=32; T=805 forward,
 T=512 backward; one direction, R=4 rows a cluster, and two, R=8) with CUDA
-events, the unchanged kernel first and last; ``lstm_wide_fwd.cu`` and
-``lstm_wide_bwd.cu`` the same way at deep_speech's H=512 (16 CTAs of 32
-units; R=8 in one direction, R=16 in two).  Variants that drop one part
+events, the unchanged kernel first and last; ``lstm_wide_fwd.cu``,
+``lstm_wide_bwd.cu``, ``gru_wide_fwd.cu`` and ``gru_wide_bwd.cu`` the same
+way at H=512 (16 CTAs of 32 units; R=8 in one direction, R=16 in two).
+Variants that drop one part
 of the step (their outputs are wrong; only their times count):
 
 - ``no_push``: h goes to the CTA's own buffer only, no exchange through
@@ -47,6 +52,16 @@ forward ``no_push``, ``no_push_no_sync`` and ``no_product`` as above, and
 it reads from shared memory; for the backward, ``no_push`` keeps each
 row's cotangent partials in the sender's own buffer and ``no_product``
 drops its one product (dpre @ wh^T).
+
+Variants of the wide GRU kernels: for the forward ``no_push``,
+``no_push_no_sync``, ``no_product`` and ``no_shared_half`` as the wide
+LSTM forward's (the committed shape: 192 threads, each column split over
+two threads of 128 rows in registers, the slice's rows 256..511 in shared
+memory); the other thread shape, ``split4`` (outputs right): 384 threads
+of 128 rows, the whole slice in registers.  For the backward ``no_push`` and
+``no_product`` as the wide LSTM backward's, and ``no_shared_half``: the
+product without the rows 256..511 of wh, which it reads from shared
+memory.
 
 Variants of the MI-LSTM kernels (outputs wrong; times count):
 ``no_push`` and ``no_product`` as above for the forward; for the backward,
@@ -134,6 +149,11 @@ WIDE_BWD_PUSH = ("cluster.map_shared_rank(\n            slot + (j - owner * "
 WIDE_BWD_PRODUCT = ("for (int col = 0; col < kCols; ++col) {\n        const "
                     "float wa", "for (int col = 0; col < 0; ++col) {\n"
                     "        const float wa")
+GRU_WIDE_SPLIT4 = ("constexpr int kSplit = 2;", "constexpr int kSplit = 4;")
+GRU_WIDE_SHARED = ("for (int kk = 0; kk < kPerShared; kk += 4) {",
+                   "for (int kk = 0; kk < 0; kk += 4) {")
+GRU_WIDE_BWD_SHARED = ("const float wa = w[col], wb = ws[col * kThreads + "
+                       "tid];", "const float wa = w[col], wb = 0.f;")
 SPLIT = {
     "no_push": [NO_PUSH],
     "no_push_no_sync": [NO_PUSH, NO_SYNC],
@@ -181,18 +201,29 @@ KERNELS = {
     "lstm_wide_bwd": ("lstm_wide_bwd.cu", "asr_lstm_wide_bwd", 4, T_BWD,
                       {"base": [], "no_push": [WIDE_BWD_PUSH],
                        "no_product": [WIDE_BWD_PRODUCT]}),
+    "gru_wide_fwd": ("gru_wide_fwd.cu", "asr_gru_wide_fwd", 3, T_FWD,
+                     {"base": [], "no_push": [WIDE_PUSH],
+                      "no_push_no_sync": [WIDE_PUSH, NO_SYNC],
+                      "no_product": [NO_PRODUCT, GRU_WIDE_SHARED],
+                      "no_shared_half": [GRU_WIDE_SHARED],
+                      "split4": [GRU_WIDE_SPLIT4]}),
+    "gru_wide_bwd": ("gru_wide_bwd.cu", "asr_gru_wide_bwd", 3, T_BWD,
+                     {"base": [], "no_push": [WIDE_BWD_PUSH],
+                      "no_product": [WIDE_BWD_PRODUCT],
+                      "no_shared_half": [GRU_WIDE_BWD_SHARED]}),
 }
 
 
-def build(root: Path) -> dict:
-    """Each kernel's variants, compiled in parallel -> (kernel, variant) ->
-    its C entry point."""
+def build(root: Path, kernels: list) -> dict:
+    """The variants of ``kernels``, compiled in parallel -> (kernel,
+    variant) -> its C entry point."""
     from asr_study_torch import _build
 
     out = root / "build" / "step_split"
     out.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for kernel, (source, _, _, _, variants) in KERNELS.items():
+    for kernel in kernels:
+        source, _, _, _, variants = KERNELS[kernel]
         src = (_build.CSRC / source).read_text()
         for name, edits in variants.items():
             text = src
@@ -231,15 +262,24 @@ def main() -> int:
     from asr_study_torch.ops.recurrence import stream
     from asr_study_torch.ops.zoneout_lstm import zoneout_geometry, zoneout_lstm
 
+    from asr_study_torch.ops.gru import gru
+
+    kernels = sys.argv[1:] or list(KERNELS)
+    unknown = [k for k in kernels if k not in KERNELS]
+    if unknown:
+        print(f"lstm_step_split: no kernel {unknown}; the kernels are "
+              f"{list(KERNELS)}", file=sys.stderr)
+        return 2
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.splitlines()[0]
-    entry = build(Path(__file__).resolve().parent)
+    entry = build(Path(__file__).resolve().parent, kernels)
     dev = torch.device("cuda", 0)
     g = torch.Generator(device=dev).manual_seed(0)
     print(card)
-    for kernel, (_, _, gates, t, variants) in KERNELS.items():
+    for kernel in kernels:
+        _, _, gates, t, variants = KERNELS[kernel]
         H = H_WIDE if "wide" in kernel else H_NARROW
         geometry = (ln_geometry if kernel.startswith("ln") else
                     mi_geometry if kernel.startswith("mi") else
@@ -297,6 +337,13 @@ def main() -> int:
             _, c, (gts,) = lstm(xp, mask, wh, residual=True)
             ptrs = (gts, gts, mask, wh, wh, c, c, seqs[1], seqs[1],
                     *outs[:2])
+        elif kernel == "gru_wide_fwd":  # h_f, h_b; no hg
+            ptrs = (xp, xp, mask, wh, wh, *outs[:2], None, None)
+        elif kernel == "gru_wide_bwd":  # xp, hg, h, dh; dxp, dhp each lane
+            # h and hg from the forward
+            h, (hg,) = gru(xp, mask, wh, residual=True)
+            ptrs = (xp, xp, hg, hg, mask, wh, wh, h, h, seqs[1], seqs[1],
+                    *outs)
         elif kernel == "gru_fwd":       # h_f, h_b
             ptrs = (xp, xp, mask, wh, wh, *outs[:2])
         else:                           # h, dh; dxp_f, dhp_f, dxp_b, dhp_b
@@ -318,7 +365,7 @@ def main() -> int:
                 if base is None:
                     base = [o.clone() for o in outs]
                 # the thread-shape variants compute the same function
-                shape_err = ("" if name in SPLIT or name.startswith("no_")
+                shape_err = ("" if name in SPLIT or "no_" in name
                              else ", max |out - base's| " + format(max(
                                  float((o - b).abs().max())
                                  for o, b in zip(outs, base)), ".3e"))

@@ -26,10 +26,11 @@ from asr_study_torch.ops.bilstm import (BiLSTMFunction, LSTMFunction, bilstm,
                                         lstm_bwd_gates_plain, lstm_bwd_plain,
                                         lstm_geometry, lstm_plain)
 from asr_study_torch.ops.gru import (BiGRUFunction, GRUFunction, bigru,
-                                     bigru_bwd, bigru_bwd_plain, bigru_plain,
-                                     gru, gru_bwd, gru_bwd_plain,
-                                     gru_cluster_info, gru_geometry,
-                                     gru_plain)
+                                     bigru_bwd, bigru_bwd_plain,
+                                     bigru_bwd_res_plain, bigru_plain, gru,
+                                     gru_bwd, gru_bwd_plain,
+                                     gru_bwd_res_plain, gru_cluster_info,
+                                     gru_geometry, gru_plain)
 from asr_study_torch.ops.ln_lstm import (BiLNLSTMFunction, LNLSTMFunction,
                                          bi_ln_lstm, bi_ln_lstm_bwd,
                                          bi_ln_lstm_bwd_plain,
@@ -423,8 +424,8 @@ GRU_SIZES = [(12, 4, 8), (37, 5, 100), (50, 9, 256)]
 def _gru_cases(sizes):
     """Parametrise (t, b, h, dead) over ``sizes`` (no dead row), the shapes
     ragged for the cluster tiling (LSTM_RAGGED: the same tiling with three
-    gate columns a unit) and H=512 (the stream design); the ids of
-    ``sizes`` stay "t-b-h"."""
+    gate columns a unit) and H=512 (the wide design); the ids of ``sizes``
+    stay "t-b-h"."""
     cases = ([(*size, False) for size in sizes] + LSTM_RAGGED
              + [(20, 3, 512, True)])
     return pytest.mark.parametrize(
@@ -464,9 +465,9 @@ def _one_more(before):
 @_gru_cases(GRU_SIZES)
 def test_gru_fwd_kernels_match_plain(cuda, t, b, h, dead):
     """bigru (two directions) and gru (one) against their plain loops, each
-    in the design gru_geometry picks (H=512: stream); where the cluster
-    design runs, gru_geometry's shared memory is the kernel's own and the
-    card holds the launch's clusters at once."""
+    in the design gru_geometry picks (H=512: wide); where a cluster design
+    runs, gru_geometry's shared memory is the kernel's own and the card
+    holds the launch's clusters at once."""
     args, _ = _gru_case(cuda, t, b, h, seed=h + t, dead=dead)
     before = _gru_designs((bigru, gru), h, b)
     got = bigru(*args)
@@ -474,7 +475,7 @@ def test_gru_fwd_kernels_match_plain(cuda, t, b, h, dead):
     assert _gru_designs((bigru, gru), h, b) == _one_more(before)
     for ndir in (1, 2):
         geo = gru_geometry(h, b, ndir)
-        if geo.design == "cluster":
+        if geo.design != "stream":
             smem, fit = gru_cluster_info(geo, b, h, False)
             assert smem == geo.smem_fwd
             assert fit >= geo.grid[1] * geo.grid[2]
@@ -488,17 +489,20 @@ def test_gru_fwd_kernels_match_plain(cuda, t, b, h, dead):
 @_gru_cases(GRU_SIZES)
 def test_gru_bwd_kernels_match_plain(cuda, t, b, h, dead):
     """bigru_bwd and gru_bwd: dxp and dhp of each direction, each in the
-    design gru_geometry picks, with the backward's shared memory held
-    against the kernel's own where the cluster design runs."""
+    design gru_geometry picks (from the forward's res, which holds the h
+    side of the pre-activations where the wide design runs), against the
+    plain walks that recompute them, with the backward's shared memory
+    held against the kernel's own where a cluster design runs."""
     args, dh = _gru_case(cuda, t, b, h, seed=h + t + 1, dead=dead)
-    hs = bigru(*args)
+    *hs, res = bigru(*args, residual=True)
+    h_uni, res_uni = gru(args[0], args[2], args[3], residual=True)
     before = _gru_designs((bigru_bwd, gru_bwd), h, b)
-    got = bigru_bwd(*args, *hs, *dh)
-    got_uni = gru_bwd(args[0], args[2], args[3], hs[0], dh[0])
+    got = bigru_bwd(*args, *hs, *dh, res)
+    got_uni = gru_bwd(args[0], args[2], args[3], h_uni, dh[0], res_uni)
     assert _gru_designs((bigru_bwd, gru_bwd), h, b) == _one_more(before)
     for ndir in (1, 2):
         geo = gru_geometry(h, b, ndir)
-        if geo.design == "cluster":
+        if geo.design != "stream":
             smem, fit = gru_cluster_info(geo, b, h, True)
             assert smem == geo.smem_bwd
             assert fit >= geo.grid[1] * geo.grid[2]
@@ -511,6 +515,108 @@ def test_gru_bwd_kernels_match_plain(cuda, t, b, h, dead):
         torch.testing.assert_close(g_, w_, **BWD_TOL, msg=name)
 
 
+# the wide GRU design at H=512: B=32 in two directions (R=16) and one
+# (R=8), ragged B=5, 9, 33 (a last row group of one row) and 48 (the most
+# two directions take), a row masked on every frame, T=1
+GRU_WIDE_CASES = [(64, 32, 2, False), (64, 32, 1, False), (40, 33, 2, True),
+                  (40, 33, 1, True), (23, 5, 2, True), (30, 9, 2, True),
+                  (17, 48, 2, False), (1, 5, 2, True), (1, 3, 1, False)]
+
+
+@pytest.mark.parametrize("t,b,ndir,dead", GRU_WIDE_CASES,
+                         ids=[f"{t}-{b}-{'bi' if n == 2 else 'uni'}"
+                              + ("-dead" if d else "")
+                              for t, b, n, d in GRU_WIDE_CASES])
+def test_gru_wide_kernels_match_plain(cuda, t, b, ndir, dead):
+    """The wide GRU design's forward (serving, and keeping the h side of
+    the pre-activations) and its backward from that res against their plain
+    versions at H=512, and against the plain walk that recomputes the
+    product; the launches counted under the wide design; gru_geometry's
+    shared memory is the kernels' own and the card holds the launch's
+    clusters at once; the backward run twice is equal bit for bit."""
+    h = 512
+    args, dh = _gru_case(cuda, t, b, h, seed=t + b + ndir, dead=dead)
+    geo = gru_geometry(h, b, ndir)
+    assert geo.design == "wide"
+    for backward, smem in ((False, geo.smem_fwd), (True, geo.smem_bwd)):
+        got_smem, fit = gru_cluster_info(geo, b, h, backward)
+        assert got_smem == smem
+        assert fit >= geo.grid[1] * geo.grid[2]
+    fwd, bwd = (bigru, bigru_bwd) if ndir == 2 else (gru, gru_bwd)
+    before = [(w.launches, w.by_design["wide"]) for w in (fwd, bwd)]
+    if ndir == 2:
+        served = bigru(*args)
+        *hs, res = bigru(*args, residual=True)
+        want = bigru_plain(*args, keep_hg=True)
+        runs = [bigru_bwd(*args, *hs, *dh, res) for _ in range(2)]
+        want_d = bigru_bwd_res_plain(args[0], args[1], *res, *args[2:], *hs,
+                                     *dh)
+        want_r = bigru_bwd_plain(*args, *hs, *dh)
+    else:
+        xp, mask, wh = args[0], args[2], args[3]
+        served = (gru(xp, mask, wh),)
+        h_1, res = gru(xp, mask, wh, residual=True)
+        hs = [h_1]
+        want = gru_plain(xp, mask, wh, keep_hg=True)
+        runs = [gru_bwd(xp, mask, wh, h_1, dh[0], res) for _ in range(2)]
+        want_d = gru_bwd_res_plain(xp, *res, mask, wh, h_1, dh[0])
+        want_r = gru_bwd_plain(xp, mask, wh, h_1, dh[0])
+    assert [(w.launches, w.by_design["wide"]) for w in (fwd, bwd)] == [
+        (n + 2, d + 2) for n, d in before]
+    torch.cuda.synchronize()
+    assert len(res) == ndir
+    for k_, s_ in zip(hs, served):
+        assert torch.equal(k_, s_)
+    for g_, w_ in zip((*hs, *res), want):
+        torch.testing.assert_close(g_, w_, **GRU_TOL)
+    for g_, w_, r_ in zip(runs[0], want_d, want_r):
+        torch.testing.assert_close(g_, w_, **BWD_TOL)
+        torch.testing.assert_close(g_, r_, **BWD_TOL)
+    assert all(torch.equal(a, c) for a, c in zip(*runs))
+    if dead:
+        for d_ in runs[0]:
+            assert not d_[:, b - 1].any()
+
+
+# H=512 beyond the wide design's budget: B=49 in two directions and B=97
+# in one take the stream design (csrc/gru_stream_{fwd,bwd}.cu)
+GRU_STREAM_CASES = [(20, 49, 2), (12, 97, 1)]
+
+
+@pytest.mark.parametrize("t,b,ndir", GRU_STREAM_CASES,
+                         ids=[f"{t}-{b}-{'bi' if n == 2 else 'uni'}"
+                              for t, b, n in GRU_STREAM_CASES])
+def test_gru_stream_route_matches_plain(cuda, t, b, ndir):
+    """At H=512 and a batch the wide design's clusters cannot hold, the GRU
+    forward and backward run the stream design (counted under it, the
+    forward's res empty) and agree with their plain versions."""
+    h = 512
+    args, dh = _gru_case(cuda, t, b, h, seed=t + b, dead=True)
+    assert gru_geometry(h, b, ndir).design == "stream"
+    fwd, bwd = (bigru, bigru_bwd) if ndir == 2 else (gru, gru_bwd)
+    before = [dict(w.by_design) for w in (fwd, bwd)]
+    if ndir == 2:
+        *hs, res = bigru(*args, residual=True)
+        got = bigru_bwd(*args, *hs, *dh, res)
+        want = bigru_plain(*args)
+        want_d = bigru_bwd_plain(*args, *hs, *dh)
+    else:
+        xp, mask, wh = args[0], args[2], args[3]
+        h_1, res = gru(xp, mask, wh, residual=True)
+        hs = [h_1]
+        got = gru_bwd(xp, mask, wh, h_1, dh[0], res)
+        want = (gru_plain(xp, mask, wh),)
+        want_d = gru_bwd_plain(xp, mask, wh, h_1, dh[0])
+    assert res == ()
+    for w, was in zip((fwd, bwd), before):
+        assert w.by_design == {**was, "stream": was["stream"] + 1}
+    torch.cuda.synchronize()
+    for g_, w_ in zip(hs, want):
+        torch.testing.assert_close(g_, w_, **GRU_TOL)
+    for g_, w_ in zip(got, want_d):
+        torch.testing.assert_close(g_, w_, **BWD_TOL)
+
+
 def _grads(fn, leaves, dh):
     leaves = [a.clone().requires_grad_() for a in leaves]
     outs = fn(*leaves)
@@ -518,10 +624,11 @@ def _grads(fn, leaves, dh):
     return [leaf.grad for leaf in leaves]
 
 
-@pytest.mark.parametrize("t,b,h", [(12, 4, 8), (40, 6, 256)])
+@pytest.mark.parametrize("t,b,h", [(12, 4, 8), (40, 6, 256), (24, 5, 512)])
 def test_gru_functions_match_autograd_on_card(cuda, t, b, h):
     """Gradients of xp and wh through BiGRUFunction and GRUFunction (both
-    kernels each) against autograd through the plain loops, on the card."""
+    kernels each; at H=512 the wide ones, the backward from the forward's
+    res) against autograd through the plain loops, on the card."""
     (xp_f, xp_b, mask, wh_f, wh_b), dh = _gru_case(cuda, t, b, h, seed=9)
     cases = {
         "bi": (lambda xf, xb, wf, wb: BiGRUFunction.apply(xf, xb, mask, wf,
@@ -1084,6 +1191,23 @@ def test_deep_gru_train_step_is_bit_reproducible(cuda, bidirectional):
         cuda, "deep_gru",
         f"dropout=0.0,bidirectional={str(bidirectional).lower()}")
     assert fwd.by_design["cluster"] - before == 2 * 3
+    assert _bit_differences(runs) == []
+
+
+@pytest.mark.parametrize("bidirectional", [True, False],
+                         ids=["bi", "uni"])
+def test_deep_gru_512_train_step_is_bit_reproducible(cuda, bidirectional):
+    """Two identical train steps of deep_gru 3x512 (the wide GRU kernels,
+    the backward from the forward's res) give bit-equal loss, gradients and
+    updated weights."""
+    fwd, bwd = (bigru, bigru_bwd) if bidirectional else (gru, gru_bwd)
+    before = (fwd.by_design["wide"], bwd.by_design["wide"])
+    runs = _two_identical_steps(
+        cuda, "deep_gru",
+        f"num_hiddens=512,dropout=0.0,"
+        f"bidirectional={str(bidirectional).lower()}")
+    assert (fwd.by_design["wide"] - before[0],
+            bwd.by_design["wide"] - before[1]) == (2 * 3, 2 * 3)
     assert _bit_differences(runs) == []
 
 

@@ -20,9 +20,10 @@ from asr_study_torch.ops.gru import (BiGRUFunction, GRUFunction, bigru,
                                      GRU_SLICE, GRU_THREADS, gru, gru_bwd,
                                      gru_bwd_plain, gru_cluster_smem,
                                      gru_geometry, gru_plain,
-                                     gru_stream_smem)
+                                     gru_wide_smem)
 from asr_study_torch.ops.recurrence import (CLUSTER_BUDGET, CLUSTER_CTAS,
-                                            CLUSTER_ROWS)
+                                            CLUSTER_ROWS, WIDE_BUDGET,
+                                            WIDE_UNITS)
 from asr_study_torch.utils.weights import flat_from_params, params_from_flat
 from asr_study_tpu.models.cells import GRUCell as JaxGRUCell
 from asr_study_tpu.models.rnn import RNNLayer as JaxRNNLayer
@@ -297,17 +298,22 @@ def test_gru_geometry(hidden, batch, ndir):
     mapping: CTA k holds wh[:, q*H + u] for its units u, q = r, z, n); no
     CTA empty; every row group within the launch; shared memory within the
     H100's 232,448 B a block and equal to the kernels' layouts; the launch
-    within the budget of resident clusters; H=512 on the stream design, the
-    rest on the cluster design, H=256 at B=32 in 8 clusters of R=4 rows
-    (one direction) or R=8 (two)."""
+    within the budget of resident clusters; H=512 on the wide design (16
+    CTAs of 32 units, R=16 rows a cluster in two directions and R=8 in one
+    at B=32), the rest on the cluster design, H=256 at B=32 in 8 clusters
+    of R=4 rows (one direction) or R=8 (two)."""
     geo = gru_geometry(hidden, batch, ndir)
     assert max(geo.smem_fwd, geo.smem_bwd) <= 232_448
     assert geo.grid[0] % geo.ctas == 0 and geo.grid[2] == ndir
     assert geo.grid[1] * geo.rows >= batch > (geo.grid[1] - 1) * geo.rows
     if hidden == 512:
-        assert geo.design == "stream"
-        assert (geo.ctas, geo.units) == (1, hidden)
-        assert (geo.smem_fwd, geo.smem_bwd) == gru_stream_smem(hidden)
+        assert geo.design == "wide"
+        assert (geo.ctas, geo.units) == (16, WIDE_UNITS)
+        assert geo.grid[1] * geo.grid[2] <= WIDE_BUDGET
+        assert (geo.smem_fwd, geo.smem_bwd) == gru_wide_smem(geo.rows,
+                                                             geo.ctas)
+        if batch == 32:
+            assert geo.rows == 8 * ndir
         return
     assert geo.design == "cluster"
     assert geo.ctas <= CLUSTER_CTAS and geo.rows in CLUSTER_ROWS
