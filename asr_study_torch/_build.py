@@ -157,6 +157,9 @@ SIGNATURES = {
     "asr_ctc_alpha": [_P, _P, _P, _P, _I, _I, _I, _P],
     # lp_ext, valid, alpha_seq, skip2, end_ind, gamma, T, B, S, stream
     "asr_ctc_beta": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # the warp design (S <= 544), the same arguments
+    "asr_ctc_alpha_warp": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "asr_ctc_beta_warp": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     # payload, n_words, row_start, widths, totals, out, nbcap, stream
     "asr_dpack_decode": [_P, _L, _P, _P, _P, _P, _I, _P],
 }

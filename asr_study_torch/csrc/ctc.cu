@@ -11,17 +11,20 @@
 // [B, S].  One block per batch row, one thread per lattice state (strided
 // when S exceeds the block), the loop over time inside the block.
 //
+// Its role: the route for lattices beyond the warp design of ctc_warp.cu
+// (S > 544 states, ops/ctc.py CTC_WARP_MAX_S and `ctc_design`); the main
+// paths' lattices (S = 97 at L = 48) take the warp design.
+//
 // What bounds it on the H100: the walk is serial in time and each step is a
 // handful of transcendental ops on S values, so a step costs one
 // shared-memory exchange and one barrier, plus the latency of the frame's
-// emission load.  The lattice neighbours (s-1, s-2 forward; s+1, s+2
-// backward) come from a double-buffered row in shared memory, so each step
-// needs one __syncthreads only; the beta walk loads the emissions it needs
-// at the next step after its stores, so that load overlaps the barrier.
-// Only B blocks run
-// (32 at the main path's shapes): the card is far from full, and the
-// kernel is latency bound by design.  Both use IEEE expf/logf (no fast
-// math): LOG_EPS arithmetic and 512-step log-sums need them.
+// emission load, which alpha issues after the barrier and beta needs a few
+// instructions after its load.  The lattice neighbours (s-1, s-2 forward;
+// s+1, s+2 backward) come from a double-buffered row in shared memory, so
+// each step needs one __syncthreads only.  Only B blocks run (32 at the
+// main path's shapes): the card is far from full, and the kernel is
+// latency bound.  Both use IEEE expf/logf (no fast math): LOG_EPS
+// arithmetic and 512-step log-sums need them.
 
 #include <cuda_runtime.h>
 

@@ -8,11 +8,19 @@ the per-state emissions ``lp_ext`` [T, B, S], the virtual pre-start state,
 The recursion itself is :class:`CTCNLL`, a ``torch.autograd.Function``
 whose gradient boundary is ``lp_ext``, as the JAX ``ctc_nll`` custom VJP:
 
-- forward: :func:`ctc_alpha`, the log-space alpha walk (``csrc/ctc.cu``
-  on a CUDA device, :func:`ctc_alpha_plain` on the CPU);
+- forward: :func:`ctc_alpha`, the log-space alpha walk (on a CUDA device
+  a kernel, :func:`ctc_alpha_plain` on the CPU);
 - backward: :func:`ctc_beta`, the beta walk giving gamma = alpha + beta
-  (``csrc/ctc.cu`` / :func:`ctc_beta_plain`), then
+  (a kernel / :func:`ctc_beta_plain`), then
   ``dlp = -exp(min(gamma - logP, 0))`` on feasible rows, elementwise.
+
+Two kernel designs compute each walk; :func:`ctc_design` picks one from
+the lattice size S.  The warp design (``csrc/ctc_warp.cu``: a warp for
+each 32 states of a batch row, a state in each lane's registers, the
+neighbours by warp shuffles, the emissions loaded frames ahead) takes
+S <= ``CTC_WARP_MAX_S`` (544, L <= 271), which every main path's lattice
+meets; the block design (``csrc/ctc.cu``: a block a row, the neighbours
+through a row in shared memory) takes longer ones.
 
 The log-softmax stays an ordinary autograd op.  The label gather is
 :class:`LatticeGather`: a gather forward, and backward the JAX package's
@@ -108,6 +116,19 @@ def ctc_beta_plain(lp_ext: torch.Tensor, valid: torch.Tensor,
 
 # -- the kernel wrappers ---------------------------------------------------
 
+# The warp design runs J = ceil(S / 32) warps a row, J <= 17 (csrc/ctc_warp.cu
+# kMaxJ, which also bounds its one-warp shape's registers); its entry points
+# refuse longer lattices.
+CTC_WARP_MAX_S = 17 * 32
+
+
+def ctc_design(s_len: int) -> str:
+    """The kernel design for a lattice of ``s_len`` states: ``"warp"``
+    (csrc/ctc_warp.cu) up to CTC_WARP_MAX_S, ``"block"`` (csrc/ctc.cu)
+    beyond."""
+    return "warp" if s_len <= CTC_WARP_MAX_S else "block"
+
+
 def _check(name: str, want: dict) -> None:
     dev = next(iter(want.values()))[0].device
     for arg, (t, shape) in want.items():
@@ -144,17 +165,21 @@ def ctc_alpha(lp_ext: torch.Tensor, valid: torch.Tensor,
     out = torch.empty_like(lp_ext)
     if out.numel() == 0:
         return out
+    design = ctc_design(s_len)
+    lib = _build.lib()
+    fn = lib.asr_ctc_alpha_warp if design == "warp" else lib.asr_ctc_alpha
     with torch.cuda.device(lp_ext.device):
-        err = _build.lib().asr_ctc_alpha(
-            lp_ext.data_ptr(), valid.data_ptr(), skip.data_ptr(),
-            out.data_ptr(), t_steps, batch, s_len,
-            torch.cuda.current_stream(lp_ext.device).cuda_stream)
-    _build.check(err, "ctc_alpha")
+        err = fn(lp_ext.data_ptr(), valid.data_ptr(), skip.data_ptr(),
+                 out.data_ptr(), t_steps, batch, s_len,
+                 torch.cuda.current_stream(lp_ext.device).cuda_stream)
+    _build.check(err, f"ctc_alpha ({design} design)")
     ctc_alpha.launches += 1
+    ctc_alpha.by_design[design] += 1
     return out
 
 
 ctc_alpha.launches = 0
+ctc_alpha.by_design = {"warp": 0, "block": 0}
 
 
 def ctc_beta(lp_ext: torch.Tensor, valid: torch.Tensor,
@@ -179,18 +204,22 @@ def ctc_beta(lp_ext: torch.Tensor, valid: torch.Tensor,
     out = torch.empty_like(lp_ext)
     if out.numel() == 0:
         return out
+    design = ctc_design(s_len)
+    lib = _build.lib()
+    fn = lib.asr_ctc_beta_warp if design == "warp" else lib.asr_ctc_beta
     with torch.cuda.device(lp_ext.device):
-        err = _build.lib().asr_ctc_beta(
-            lp_ext.data_ptr(), valid.data_ptr(), alpha_seq.data_ptr(),
-            skip2.data_ptr(), end_ind.data_ptr(), out.data_ptr(),
-            t_steps, batch, s_len,
-            torch.cuda.current_stream(lp_ext.device).cuda_stream)
-    _build.check(err, "ctc_beta")
+        err = fn(lp_ext.data_ptr(), valid.data_ptr(), alpha_seq.data_ptr(),
+                 skip2.data_ptr(), end_ind.data_ptr(), out.data_ptr(),
+                 t_steps, batch, s_len,
+                 torch.cuda.current_stream(lp_ext.device).cuda_stream)
+    _build.check(err, f"ctc_beta ({design} design)")
     ctc_beta.launches += 1
+    ctc_beta.by_design[design] += 1
     return out
 
 
 ctc_beta.launches = 0
+ctc_beta.by_design = {"warp": 0, "block": 0}
 
 
 # -- the loss --------------------------------------------------------------
@@ -303,7 +332,9 @@ def lattice(logits: torch.Tensor, logit_lengths: torch.Tensor,
     ext = extend_labels(labels, blank_id)                   # [B, S]
     # skip s-2 -> s allowed iff ext[s] is a real label differing from
     # ext[s-2] (Graves 2006 eq. 6)
-    ext_m2 = torch.cat([ext.new_full((batch, 2), -1), ext[:, :-2]], dim=1)
+    # (cut to S: at L = 0 the pad alone is wider than the lattice)
+    ext_m2 = torch.cat([ext.new_full((batch, 2), -1), ext[:, :-2]],
+                       dim=1)[:, : ext.shape[1]]
     can_skip = (ext != blank_id) & (ext != ext_m2)
     skip = torch.where(can_skip, 0.0, LOG_EPS).to(torch.float32)
 

@@ -59,7 +59,11 @@ Phases, in order; any failure raises and the exit code is not 0:
    cuDNN); the MI kernels at alpha = 0, beta1 = beta2 = 1 and the zoneout
    kernels at zh = zc = 1 against the LSTM kernels; the zoneout kernels
    with Bernoulli and with constant mix weights, and at ragged shapes as
-   the MI ones; the dpack
+   the MI ones; the CTC walks' warp design (csrc/ctc_warp.cu, through the
+   wrappers) and block design (csrc/ctc.cu, through its C entry points)
+   against their plain versions at T=512, B=32, S=97, timed in turns
+   beside F.ctc_loss, and a lattice just above the warp design's cap
+   through the wrappers, which must take the block design; the dpack
    decode bit for bit over the whole stream of every serving batch and of
    an edge batch, with the host encode time;
 4. the serving slices, with launch counters proving their kernels ran
@@ -78,8 +82,9 @@ Phases, in order; any failure raises and the exit code is not 0:
    steps on one batch, two identical steps equal bit for bit, and (for
    the bidirectional deep_blstm) ``fit`` over a few batches with a
    checkpoint saved, restored and continued;
-7. training timings: ms per step, steps/s, audio-s/s, per-stage ms, the
-   device busy share.
+7. training timings: ms per step, steps/s, audio-s/s, per-stage ms (the
+   deep_blstm step's CTC stage split into its pieces), the device busy
+   share.
 
 Each path is driven with every launch counter set to 0 just before it and
 read just after; the kernels line sums those counts.  The line before the
@@ -466,21 +471,48 @@ def check_training_kernels(dev: torch.device, card: str) -> dict:
                                    ones)
         dlp_p = ctc.posterior_grad(g_p, ctc.final_logp(a_p[-1], end, ll),
                                    ones)
-    alpha_floor, alpha_ok, alpha_err = ctc_compare(a_k, a_p)
-    gamma_floor, gamma_ok, gamma_err = ctc_compare(g_k, g_p)
-    dlp_err = float((dlp_k - dlp_p).abs().max())
-    live = a_p > -5e29
-    print(f"ctc_alpha kernel vs plain: T={t} B={b} S={s_len} label lengths "
-          f"{int(lab_lens.min())}..{TRAIN_L} max_abs_err={alpha_err:.3e} "
-          f"above the floor (tol {CTC_ATOL:g} + {CTC_RTOL:g}*|plain|; alpha "
-          f"there down to {float(a_p[live].min()):.1f}); LOG_EPS entries "
-          f"equal: {alpha_floor}")
-    print(f"ctc_beta kernel vs plain: gamma max_abs_err={gamma_err:.3e} "
-          f"above the floor (same tol); LOG_EPS entries equal: "
-          f"{gamma_floor}; dlp max_abs_err={dlp_err:.3e} (tol {DLP_TOL:g})")
-    require(alpha_floor and alpha_ok, "ctc_alpha kernel disagrees with plain")
-    require(gamma_floor and gamma_ok, "ctc_beta kernel disagrees with plain")
-    require(dlp_err <= DLP_TOL, "ctc dlp disagrees with plain")
+    require(ctc.ctc_design(s_len) == "warp",
+            f"the main path's lattice (S={s_len}) does not take the warp "
+            f"design")
+    # the block design (csrc/ctc.cu) through its C entry points, from the
+    # same inputs; the warp design's entry points, for the timings
+    entry = {design: ctc_entries(lp_ext, valid, skip, skip2, end_ind,
+                                 a_p, suffix)
+             for design, suffix in (("warp", "_warp"), ("block", ""))}
+    entry["block"]["ctc_alpha"]()
+    entry["block"]["ctc_beta"]()
+    with torch.no_grad():
+        a_blk, g_blk = entry["block"]["outs"]()
+        dlp_blk = ctc.posterior_grad(g_blk, ctc.final_logp(a_blk[-1], end,
+                                                           ll), ones)
+    ctc_errs = {}
+    for design, (a_d, g_d, dlp_d) in (("warp", (a_k, g_k, dlp_k)),
+                                      ("block", (a_blk, g_blk, dlp_blk))):
+        alpha_floor, alpha_ok, alpha_err = ctc_compare(a_d, a_p)
+        gamma_floor, gamma_ok, gamma_err = ctc_compare(g_d, g_p)
+        dlp_err = float((dlp_d - dlp_p).abs().max())
+        live = a_p > -5e29
+        how = ("through the wrappers" if design == "warp" else
+               "through its C entry points")
+        print(f"ctc_alpha {design} design ({how}) vs plain: T={t} B={b} "
+              f"S={s_len} label lengths {int(lab_lens.min())}..{TRAIN_L} "
+              f"max_abs_err={alpha_err:.3e} above the floor (tol "
+              f"{CTC_ATOL:g} + {CTC_RTOL:g}*|plain|; alpha there down to "
+              f"{float(a_p[live].min()):.1f}); LOG_EPS entries equal: "
+              f"{alpha_floor}")
+        print(f"ctc_beta {design} design vs plain: gamma max_abs_err="
+              f"{gamma_err:.3e} above the floor (same tol); LOG_EPS entries "
+              f"equal: {gamma_floor}; dlp max_abs_err={dlp_err:.3e} (tol "
+              f"{DLP_TOL:g})")
+        require(alpha_floor and alpha_ok,
+                f"ctc_alpha {design} design disagrees with plain")
+        require(gamma_floor and gamma_ok,
+                f"ctc_beta {design} design disagrees with plain")
+        require(dlp_err <= DLP_TOL, f"ctc dlp ({design}) disagrees with "
+                f"plain")
+        ctc_errs[design] = (alpha_err, gamma_err)
+    alpha_err, gamma_err = ctc_errs["warp"]
+    check_ctc_beyond_cap(dev)
 
     bounds = {
         "bilstm_bwd": rnn_bound(xp_f, h, 2, 2, (*bwd_args, *d_k)),
@@ -506,6 +538,7 @@ def check_training_kernels(dev: torch.device, card: str) -> dict:
     library = {"bilstm_bwd": lstm_y["lib_bwd"],
                "ctc_alpha": ctc_y["lib_fwd"], "ctc_beta": ctc_y["lib_bwd"]}
 
+    warp_ms = time_ctc_designs(card, entry, bounds, library, t, b, s_len)
     with torch.no_grad():
         times = {
             "bilstm_fwd": (cuda_ms(lambda: bilstm(*fwd_args), 10),
@@ -513,12 +546,10 @@ def check_training_kernels(dev: torch.device, card: str) -> dict:
             "bilstm_bwd": (cuda_ms(lambda: bilstm_bwd(*bwd_args), 10),
                            cuda_ms(lambda: bilstm_bwd_plain(*bwd_args), 2,
                                    1)),
-            "ctc_alpha": (cuda_ms(lambda: ctc.ctc_alpha(lp_ext, valid, skip),
-                                  20),
+            "ctc_alpha": (warp_ms["ctc_alpha"],
                           cuda_ms(lambda: ctc.ctc_alpha_plain(
                               lp_ext, valid, skip), 2, 1)),
-            "ctc_beta": (cuda_ms(lambda: ctc.ctc_beta(
-                lp_ext, valid, a_k, skip2, end_ind), 20),
+            "ctc_beta": (warp_ms["ctc_beta"],
                          cuda_ms(lambda: ctc.ctc_beta_plain(
                              lp_ext, valid, a_k, skip2, end_ind), 2, 1)),
         }
@@ -528,6 +559,106 @@ def check_training_kernels(dev: torch.device, card: str) -> dict:
     return {"errs": {"bilstm_bwd": max(bwd_errs), "ctc_alpha": alpha_err,
                      "ctc_beta": gamma_err},
             "times": times, "bounds": bounds, "library": library}
+
+
+def ctc_entries(lp_ext, valid, skip, skip2, end_ind, alpha_in,
+                suffix: str) -> dict:
+    """The CTC kernels of one design through their C entry points
+    (``suffix`` "_warp": csrc/ctc_warp.cu; "": csrc/ctc.cu), into outputs
+    of their own, beta from ``alpha_in`` -> {"ctc_alpha": launch,
+    "ctc_beta": launch, "outs": () -> (alpha, gamma)}.  They count no
+    launch: the wrappers do."""
+    from asr_study_torch import _build
+
+    t, b, s = lp_ext.shape
+    alpha, gamma = torch.empty_like(lp_ext), torch.empty_like(lp_ext)
+    lib = _build.lib()
+
+    def launch(name, *args):
+        stream = torch.cuda.current_stream().cuda_stream
+        _build.check(getattr(lib, name + suffix)(
+            *(a.data_ptr() for a in args), t, b, s, stream), name + suffix)
+
+    return {"ctc_alpha": lambda: launch("asr_ctc_alpha", lp_ext, valid, skip,
+                                        alpha),
+            "ctc_beta": lambda: launch("asr_ctc_beta", lp_ext, valid,
+                                       alpha_in, skip2, end_ind, gamma),
+            "outs": lambda: (alpha, gamma)}
+
+
+def time_ctc_designs(card: str, entry: dict, bounds: dict, library: dict,
+                     t: int, b: int, s_len: int) -> dict:
+    """The CTC kernels' warp and block designs through their C entry
+    points, timed in turns, warp, block, block, warp, 20 calls a turn ->
+    the warp design's mean ms by kernel.  Prints both, µs a step, the
+    bound, F.ctc_loss's time and the warp kernels' device time from the
+    profiler."""
+    turns = {k: {"warp": [], "block": []} for k in ("ctc_alpha", "ctc_beta")}
+    for design in ("warp", "block", "block", "warp"):
+        for name in turns:
+            turns[name][design].append(cuda_ms(entry[design][name], 20))
+    clk = sm_clock_hz()
+    out = {}
+    for name, by in turns.items():
+        w_ms, b_ms = (sum(by[d]) / 2 for d in ("warp", "block"))
+        dev_ms = kernel_device_ms(entry["warp"][name], 20, name + "_warp")
+        dev_txt = "not measured" if dev_ms is None else f"{dev_ms:.4f} ms"
+        print(f"[{card}] {name} at T={t} B={b} S={s_len}, in turns: warp "
+              f"design {by['warp'][0]:.4f} / {by['warp'][1]:.4f} ms, block "
+              f"design {by['block'][0]:.4f} / {by['block'][1]:.4f} ms "
+              f"({b_ms / w_ms:.2f}x); {1e3 * w_ms / t:.4f} us a step "
+              f"({1e6 * w_ms / t * clk / 1e9:.0f} cycles at the SM clock "
+              f"{clk / 1e6:.0f} MHz) against the block design's "
+              f"{1e3 * b_ms / t:.4f}; the warp kernel's device time "
+              f"{dev_txt} (torch.profiler); bound {bounds[name][0]:.4f} ms "
+              f"({bounds[name][1]}); F.ctc_loss "
+              f"{'forward' if name == 'ctc_alpha' else 'backward'} "
+              f"{library[name]:.4f} ms ({library[name] / w_ms:.2f}x the "
+              f"warp design)")
+        out[name] = w_ms
+    return out
+
+
+def check_ctc_beyond_cap(dev: torch.device) -> None:
+    """One lattice just above CTC_WARP_MAX_S states through the wrappers:
+    the block design runs (by_design), and agrees with plain."""
+    from asr_study_torch.ops import ctc
+
+    g = torch.Generator().manual_seed(SEED + 3)
+    b, l_max = 4, (ctc.CTC_WARP_MAX_S + 1) // 2
+    t = 2 * l_max + 40
+    lengths = torch.randint(t - 40, t + 1, (b,), generator=g)
+    lab_lens = torch.randint(l_max // 2, l_max + 1, (b,), generator=g)
+    lab_lens[0] = l_max
+    with torch.no_grad():
+        lp_ext, valid, skip, end, ll = ctc.lattice(
+            torch.randn(b, t, NUM_CLASSES + 1, generator=g).to(dev),
+            lengths.to(dev), torch.randint(0, NUM_CLASSES, (b, l_max),
+                                           generator=g).to(dev),
+            lab_lens.to(dev))
+        s_len = lp_ext.shape[2]
+        skip2 = ctc.skip_from_source(skip)
+        end_ind = ctc.end_indicator(end, ll, s_len)
+        before = (dict(ctc.ctc_alpha.by_design),
+                  dict(ctc.ctc_beta.by_design))
+        a_k = ctc.ctc_alpha(lp_ext, valid, skip)
+        g_k = ctc.ctc_beta(lp_ext, valid, a_k, skip2, end_ind)
+        after = (dict(ctc.ctc_alpha.by_design), dict(ctc.ctc_beta.by_design))
+        a_p = ctc.ctc_alpha_plain(lp_ext, valid, skip)
+        g_p = ctc.ctc_beta_plain(lp_ext, valid, a_p, skip2, end_ind)
+    ran = [{d: n - was[d] for d, n in now.items() if n != was[d]}
+           for was, now in zip(before, after)]
+    a_floor, a_ok, a_err = ctc_compare(a_k, a_p)
+    g_floor, g_ok, g_err = ctc_compare(g_k, g_p)
+    print(f"ctc beyond the warp design's cap (CTC_WARP_MAX_S "
+          f"{ctc.CTC_WARP_MAX_S}): T={t} B={b} S={s_len} through the "
+          f"wrappers ran alpha {ran[0]}, beta {ran[1]}; vs plain alpha "
+          f"max_abs_err={a_err:.3e}, gamma {g_err:.3e}, LOG_EPS entries "
+          f"equal: {a_floor and g_floor}")
+    require(ran == [{"block": 1}, {"block": 1}],
+            f"S={s_len}: the wrappers ran {ran}, want the block design")
+    require(a_floor and a_ok and g_floor and g_ok,
+            f"the block design at S={s_len} disagrees with plain")
 
 
 def check_gru_kernels(dev: torch.device, card: str, x_serve: torch.Tensor,
@@ -2598,8 +2729,8 @@ KERNELS = {
     "fbank": ("fbank.cu", "features/pallas_fbank.py:107"),
     "bilstm_fwd": ("bilstm_fwd.cu", "ops/pallas_bilstm.py:84"),
     "bilstm_bwd": ("bilstm_bwd.cu", "ops/pallas_bilstm.py:125"),
-    "ctc_alpha": ("ctc.cu", "ops/pallas_ctc.py:76"),
-    "ctc_beta": ("ctc.cu", "ops/pallas_ctc.py:101"),
+    "ctc_alpha": ("ctc_warp.cu", "ops/pallas_ctc.py:76"),
+    "ctc_beta": ("ctc_warp.cu", "ops/pallas_ctc.py:101"),
     "bigru_fwd": ("gru_fwd.cu", "ops/pallas_bigru.py:69"),
     "bigru_bwd": ("gru_bwd.cu", "ops/pallas_bigru.py:92"),
     "gru_fwd": ("gru_fwd.cu", "ops/pallas_gru.py:41"),
@@ -2725,15 +2856,15 @@ def launch_counters() -> dict:
             "dpack_decode": dpack_decode}
 
 
-# the wrappers of the LSTM, GRU, layer-norm, zoneout and MI LSTM kernels,
-# which count their launches by design too
+# the wrappers of the LSTM, GRU, layer-norm, zoneout and MI LSTM kernels
+# and of the CTC kernels, which count their launches by design too
 DESIGN_WRAPPERS = ("bilstm_fwd", "bilstm_bwd", "lstm_fwd", "lstm_bwd",
                    "bigru_fwd", "bigru_bwd", "gru_fwd", "gru_bwd",
                    "bi_ln_lstm_fwd", "bi_ln_lstm_bwd", "ln_lstm_fwd",
                    "ln_lstm_bwd", "bi_zoneout_lstm_fwd",
                    "bi_zoneout_lstm_bwd", "zoneout_lstm_fwd",
                    "zoneout_lstm_bwd", "bi_mi_lstm_fwd", "bi_mi_lstm_bwd",
-                   "mi_lstm_fwd", "mi_lstm_bwd")
+                   "mi_lstm_fwd", "mi_lstm_bwd", "ctc_alpha", "ctc_beta")
 
 
 def reset_counts() -> None:
@@ -2744,12 +2875,16 @@ def reset_counts() -> None:
         counters[name].by_design = dict.fromkeys(counters[name].by_design, 0)
 
 
-def check_designs(label: str, hidden: int, batch: int) -> None:
+def check_designs(label: str, hidden: int, batch: int,
+                  s_len: int | None = None) -> None:
     """The LSTM, GRU, layer-norm, zoneout and MI LSTM kernels launched
     since the counts were reset ran the design ``lstm_geometry`` /
     ``gru_geometry`` / ``ln_geometry`` / ``zoneout_geometry`` /
-    ``mi_geometry`` gives this path's width and batch, and no other."""
+    ``mi_geometry`` gives this path's width and batch, and the CTC kernels
+    the one ``ctc_design`` gives its lattice of ``s_len`` states, and no
+    other."""
     from asr_study_torch.ops.bilstm import lstm_geometry
+    from asr_study_torch.ops.ctc import ctc_design
     from asr_study_torch.ops.gru import gru_geometry
     from asr_study_torch.ops.ln_lstm import ln_geometry
     from asr_study_torch.ops.mi_lstm import mi_geometry
@@ -2762,6 +2897,11 @@ def check_designs(label: str, hidden: int, batch: int) -> None:
         return
     print(f"{label}: launches by design (H={hidden}) {ran}")
     for name, by_design in ran.items():
+        if name.startswith("ctc"):
+            want = ctc_design(s_len)
+            require(list(by_design) == [want],
+                    f"{label}: {name} ran {by_design}, want only {want}")
+            continue
         geometry = (gru_geometry if "gru" in name else
                     ln_geometry if "ln_" in name else
                     zoneout_geometry if "zoneout" in name else
@@ -2905,7 +3045,8 @@ def training_slice(dev: torch.device, card: str, path: str = "deep_blstm",
           f"{ {k: v / TRAIN_STEPS for k, v in launches.items()} }")
     require(launches == per_steps(TRAIN_STEPS),
             f"train launches {launches}, want {per_steps(TRAIN_STEPS)}")
-    check_designs(f"{path} train", model.rnn.layers[0].rnn.hidden, TRAIN_B)
+    check_designs(f"{path} train", model.rnn.layers[0].rnn.hidden, TRAIN_B,
+                  2 * TRAIN_L + 1)
     require(bool(torch.isfinite(losses).all()), "non-finite train loss")
     print(f"{path} train loss over {TRAIN_STEPS} steps on one batch: "
           f"{float(losses[0]):.4f} -> {float(losses[-1]):.4f} "
@@ -3076,6 +3217,8 @@ def train_timings(card: str, path: str, desc: str, layers: int, trainer,
              "clip + Adam")
     stages = {n: sum(r[i].elapsed_time(r[i + 1]) for r in runs) / len(runs)
               for i, n in enumerate(names)}
+    if path == "deep_blstm":
+        ctc_stage_split(card, model, batch, gen)
     print(f"[{card}] {path} train step ({desc}, "
           f"B={TRAIN_B}, T={TRAIN_T}, L={TRAIN_L}): {step_ms:.4f} ms/step, "
           f"{1e3 / step_ms:.3f} steps/s, "
@@ -3104,6 +3247,56 @@ def train_timings(card: str, path: str, desc: str, layers: int, trainer,
             f"{a.key[:60]} {getattr(a, 'self_device_time_total', 0.0) / 1e3:.2f}"
             f" ms x{a.count}" for a in tops))
     return {"step_ms": step_ms, "stages": stages, "busy": busy}
+
+
+def ctc_stage_split(card: str, model, batch, gen: torch.Generator) -> None:
+    """The train step's CTC stage split with CUDA events, its pieces run as
+    ``ops.ctc.ctc_loss`` and ``CTCNLL`` run them: log-softmax and the
+    lattice gather; alpha; the loss reduction; beta; ``posterior_grad``;
+    the gather's and log-softmax's backward.  Mean of 5 after one
+    warm-up."""
+    from asr_study_torch.ops import ctc
+
+    x, il, lab, ll, w = batch
+    with torch.no_grad():
+        logits = model(x, il, train=True, generator=gen)
+
+    def split():
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(7)]
+        lg = logits.detach().requires_grad_()
+        ev[0].record()
+        lp_ext, valid, skip, end, lens = ctc.lattice(lg, il, lab, ll,
+                                                      model.blank_id)
+        ev[1].record()
+        lp = lp_ext.detach()
+        alpha = ctc.ctc_alpha(lp, valid, skip)
+        ev[2].record()
+        logp = ctc.final_logp(alpha[-1], end, lens)
+        nll = -logp
+        wsum = torch.clamp(w.sum(), min=1.0)
+        loss = (torch.clamp(nll, max=-ctc.LOG_EPS) * w).sum() / wsum
+        cot = (nll < -ctc.LOG_EPS).to(nll.dtype) * w / wsum
+        ev[3].record()
+        gamma = ctc.ctc_beta(lp, valid, alpha, ctc.skip_from_source(skip),
+                             ctc.end_indicator(end, lens, lp.shape[2]))
+        ev[4].record()
+        dlp = ctc.posterior_grad(gamma, logp, cot)
+        ev[5].record()
+        lp_ext.backward(dlp)
+        ev[6].record()
+        return ev, loss
+
+    split()
+    runs = [split()[0] for _ in range(5)]
+    torch.cuda.synchronize()
+    names = ("log-softmax + lattice gather", "alpha", "loss reduction",
+             "beta", "posterior_grad", "gather + log-softmax backward")
+    parts = {n: sum(r[i].elapsed_time(r[i + 1]) for r in runs) / len(runs)
+             for i, n in enumerate(names)}
+    print(f"[{card}] deep_blstm train step's CTC stage split, CUDA events, "
+          f"mean of {len(runs)}: "
+          + "; ".join(f"{n} {v:.4f} ms" for n, v in parts.items())
+          + f"; sum {sum(parts.values()):.4f} ms")
 
 
 def main() -> int:
@@ -3155,10 +3348,13 @@ def main() -> int:
     # the bytes at the main paths' shapes, by the formulas of the C entry
     # points in csrc/
     s_len = 2 * TRAIN_L + 1
+    # the CTC warp design: static, the chunk edges' row [2][J][2] floats,
+    # J = ceil(S / 32)
     print(f"  dynamic shared memory per block: fbank "
           f"{4 * (16 * (400 + 257 + 40) + 16)} B (16 frames, L=400, "
-          f"K=257, M=40), ctc_alpha {4 * 2 * s_len} B, ctc_beta "
-          f"{4 * 4 * s_len} B (S={s_len})")
+          f"K=257, M=40); ctc_alpha and ctc_beta, the warp design, none "
+          f"({16 * -(-s_len // 32)} B static at S={s_len}; the block design "
+          f"{4 * 2 * s_len} B and {4 * 4 * s_len} B)")
     print_cluster_geometry()
     for hidden in (HIDDEN, 512):
         fwd_b, bwd_b, nsplit = ln_smem(hidden)

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where a step of the cluster LSTM, GRU, layer-norm, zoneout and MI LSTM
-kernels, and of the wide LSTM and GRU kernels, spends its time, on one
-NVIDIA GPU.
+kernels, of the wide LSTM and GRU kernels, and of the CTC walks spends its
+time, on one NVIDIA GPU.
 
     python3 lstm_step_split.py [kernel ...]
 
@@ -75,6 +75,11 @@ mix), and ``no_mix``: h_new and c_new taken whole, the mix weights still
 staged; ``no_mix_loads``: that, and no staging of zh and zc either; for the
 backward, ``no_push`` and ``no_product`` as the MI backward's, and
 ``no_mix_loads``: no staging of zh and zc (the step reads stale ones).
+
+The CTC walks (``ctc_alpha``, ``ctc_beta``): ``ctc.cu`` (the block design)
+and ``ctc_warp.cu`` (the warp design), the block design first, at the main
+path's lattice (T=512, B=32, S=97), in the variants listed at
+``CTC_KERNELS``.
 
 Prints one line per variant and the card's name and power limit.  Without
 CUDA it exits 1.
@@ -214,40 +219,189 @@ KERNELS = {
 }
 
 
+def variants_of(kernel: str) -> list:
+    """The variants of one entry -> [(key, source, C entry point, edits)];
+    the key (kernel, variant), for the CTC kernels (kernel, design,
+    variant)."""
+    if kernel in CTC_KERNELS:
+        return [((kernel, design, name), source, c_name, edits)
+                for design, (source, c_name, variants)
+                in CTC_KERNELS[kernel].items()
+                for name, edits in variants.items()]
+    source, c_name, _, _, variants = KERNELS[kernel]
+    return [((kernel, name), source, c_name, edits)
+            for name, edits in variants.items()]
+
+
 def build(root: Path, kernels: list) -> dict:
-    """The variants of ``kernels``, compiled in parallel -> (kernel,
-    variant) -> its C entry point."""
+    """The variants of ``kernels``, compiled in parallel -> their key ->
+    its C entry point."""
     from asr_study_torch import _build
 
     out = root / "build" / "step_split"
     out.mkdir(parents=True, exist_ok=True)
     procs = {}
     for kernel in kernels:
-        source, _, _, _, variants = KERNELS[kernel]
-        src = (_build.CSRC / source).read_text()
-        for name, edits in variants.items():
-            text = src
+        for key, source, c_name, edits in variants_of(kernel):
+            text = (_build.CSRC / source).read_text()
             for old, new in edits:
                 if old not in text:
-                    raise RuntimeError(f"{kernel} {name}: the kernel no "
-                                       f"longer has {old!r}")
+                    raise RuntimeError(f"{key}: the kernel no longer has "
+                                       f"{old!r}")
                 text = text.replace(old, new)
-            stem = f"{kernel}_{name}"
+            stem = "_".join(key)
             (out / f"{stem}.cu").write_text(text)
-            procs[kernel, name] = subprocess.Popen(
+            procs[key] = (c_name, stem, subprocess.Popen(
                 [_build.nvcc(), *_build.ARCH_FLAGS, "-std=c++17", "-O3",
                  "-Xcompiler", "-fPIC", "-shared", "-o",
-                 str(out / f"{stem}.so"), str(out / f"{stem}.cu")])
+                 str(out / f"{stem}.so"), str(out / f"{stem}.cu")]))
     entry = {}
-    for (kernel, name), proc in procs.items():
+    for key, (c_name, stem, proc) in procs.items():
         if proc.wait() != 0:
-            raise RuntimeError(f"nvcc failed on the {kernel} {name} variant")
-        c_name = KERNELS[kernel][1]
-        fn = getattr(ctypes.CDLL(str(out / f"{kernel}_{name}.so")), c_name)
+            raise RuntimeError(f"nvcc failed on the {key} variant")
+        fn = getattr(ctypes.CDLL(str(out / f"{stem}.so")), c_name)
         fn.argtypes = _build.SIGNATURES[c_name]
         fn.restype = ctypes.c_int
-        entry[kernel, name] = fn
+        entry[key] = fn
     return entry
+
+
+def time_ms(call, reps: int = 10) -> float:
+    """Mean ms a call from CUDA events around ``reps`` calls."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        call()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def ctc_split(card: str, kernel: str, entry: dict) -> None:
+    """One CTC kernel's variants, the block design's first, at the main
+    path's lattice (T=512, B=32, L=48: S=97, lengths 256..512, label
+    lengths 24..48), each design's unchanged kernel first and last; the
+    variants that compute the same function are held against it."""
+    from asr_study_torch.ops import ctc
+
+    dev = torch.device("cuda", 0)
+    g = torch.Generator().manual_seed(0)
+    t, l_max = T_BWD, 48
+    lengths = torch.randint(t // 2, t + 1, (B,), generator=g)
+    lengths[0] = t
+    lab_lens = torch.randint(l_max // 2, l_max + 1, (B,), generator=g)
+    lab_lens[0] = l_max
+    with torch.no_grad():
+        lp_ext, valid, skip, end, ll = ctc.lattice(
+            torch.randn(B, t, 28, generator=g).to(dev), lengths.to(dev),
+            torch.randint(0, 27, (B, l_max), generator=g).to(dev),
+            lab_lens.to(dev))
+        s_len = lp_ext.shape[2]
+        alpha = ctc.ctc_alpha_plain(lp_ext, valid, skip)
+        args = ((lp_ext, valid, skip) if kernel == "ctc_alpha" else
+                (lp_ext, valid, alpha, ctc.skip_from_source(skip),
+                 ctc.end_indicator(end, ll, s_len)))
+    out = torch.empty_like(lp_ext)
+    clk = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,"
+         "nounits"], capture_output=True, text=True,
+        check=True).stdout.splitlines()[0])
+    for design, (_, _, variants) in CTC_KERNELS[kernel].items():
+        base = None
+        for name in [*variants, "base"]:
+            def call(fn=entry[kernel, design, name]):
+                err = fn(*(a.data_ptr() for a in (*args, out)), t, B, s_len,
+                         torch.cuda.current_stream().cuda_stream)
+                if err:
+                    raise RuntimeError(f"{kernel} {design} {name}: launch "
+                                       f"failed ({err})")
+            call()
+            torch.cuda.synchronize()
+            if base is None:
+                base = out.clone()
+            same = ("" if "no_" in name else
+                    f", max |out - base's| "
+                    f"{float((out - base).abs().max()):.3e}")
+            ms = time_ms(call, 20)
+            print(f"[{card}] {kernel}, {design} design, T={t} B={B} "
+                  f"S={s_len}, {name}: {ms:.4f} ms, {1e3 * ms / t:.4f} us "
+                  f"a step ({1e3 * ms / t * clk:.0f} cycles at {clk:.0f} "
+                  f"MHz){same}")
+
+
+# The CTC kernels: kernel -> design -> (source, C entry point, variants
+# past the unchanged one).  Variants that drop one part of the step (their
+# outputs are wrong; only their times count): ``no_lp_load``, the frame's
+# emissions replaced by 0 (the warp design: not loaded either);
+# ``no_exchange``, the lattice neighbours' exchange dropped (the block
+# design: its barrier; the warp design: the shuffles, each state taking
+# its own chunk's values); ``no_barrier``, the warp design's named barrier
+# dropped (its chunk edges read stale values); ``no_logadd``, logadd3
+# replaced by the max of its arguments.  The warp design's other ring
+# depths and thread shape compute the same function: ``depth4``,
+# ``depth8`` (frames fetched ahead; the committed kernel 16) and
+# ``one_warp``, ``one_warp_depth8`` (one warp a row, J = ceil(S/32) states
+# a lane, the neighbours by shuffles alone; the committed kernel runs J
+# warps a row, one state a lane, the chunk edges through shared memory
+# behind a named barrier).
+NO_LOGADD = ("  return mx + logf(expf(a - mx) + expf(b - mx) + expf(c - mx));",
+             "  return mx;")
+ONE_WARP = ("constexpr bool kSplitRow = true;",
+            "constexpr bool kSplitRow = false;")
+DEPTH8 = ("constexpr int kDepth = 16;", "constexpr int kDepth = 8;")
+WARP_SHAPES = {
+    "depth4": [("constexpr int kDepth = 16;", "constexpr int kDepth = 4;")],
+    "depth8": [DEPTH8],
+    "one_warp": [ONE_WARP],
+    "one_warp_depth8": [ONE_WARP, DEPTH8],
+    "no_barrier": [("row_barrier<kThreads>();", "")],
+}
+CTC_KERNELS = {
+    "ctc_alpha": {
+        "block": ("ctc.cu", "asr_ctc_alpha", {
+            "base": [],
+            "no_lp_load": [("logadd3(a0, a1, a2) + lp[row + s]",
+                            "logadd3(a0, a1, a2) + 0.f")],
+            "no_exchange": [("      alpha_seq[row + s] = a;\n    }\n"
+                             "    __syncthreads();",
+                             "      alpha_seq[row + s] = a;\n    }")],
+            "no_logadd": [NO_LOGADD]}),
+        "warp": ("ctc_warp.cu", "asr_ctc_alpha_warp", {
+            "base": [],
+            "no_lp_load": [("++i) ring_lp[u][i] = in[i] ? lp_at[s_of[i]] : "
+                            "0.f;", "++i) ring_lp[u][i] = 0.f;")],
+            "no_exchange": [("a1[i] = __shfl_sync(kFull, lane == 31 ? below "
+                             ": cur[i],\n                            (lane "
+                             "+ 31) & 31);", "a1[i] = below;"),
+                            ("a2[i] = __shfl_sync(kFull, lane >= 30 ? below "
+                             ": cur[i],\n                            (lane "
+                             "+ 30) & 31);", "a2[i] = cur[i];")],
+            "no_logadd": [NO_LOGADD], **WARP_SHAPES}),
+    },
+    "ctc_beta": {
+        "block": ("ctc.cu", "asr_ctc_beta", {
+            "base": [],
+            "no_lp_load": [("lp_next[s] = lp[row + s];",
+                            "lp_next[s] = 0.f;")],
+            "no_exchange": [("      be[s] = beta[s] + lp_next[s];\n"
+                             "    __syncthreads();",
+                             "      be[s] = beta[s] + lp_next[s];")],
+            "no_logadd": [NO_LOGADD]}),
+        "warp": ("ctc_warp.cu", "asr_ctc_beta_warp", {
+            "base": [],
+            "no_lp_load": [("ring_lp[u][i] = in[i] ? lp_at[s_of[i]] : "
+                            "0.f;\n      ring_a", "ring_lp[u][i] = 0.f;\n"
+                            "      ring_a")],
+            "no_exchange": [("b1[i] = __shfl_sync(kFull, lane == 0 ? above "
+                             ": be[i],\n                            (lane "
+                             "+ 1) & 31);", "b1[i] = above;"),
+                            ("b2[i] = __shfl_sync(kFull, lane < 2 ? above : "
+                             "be[i],\n                            (lane + "
+                             "2) & 31);", "b2[i] = be[i];")],
+            "no_logadd": [NO_LOGADD], **WARP_SHAPES}),
+    },
+}
 
 
 def main() -> int:
@@ -264,11 +418,12 @@ def main() -> int:
 
     from asr_study_torch.ops.gru import gru
 
-    kernels = sys.argv[1:] or list(KERNELS)
-    unknown = [k for k in kernels if k not in KERNELS]
+    kernels = sys.argv[1:] or [*KERNELS, *CTC_KERNELS]
+    unknown = [k for k in kernels if k not in KERNELS
+               and k not in CTC_KERNELS]
     if unknown:
         print(f"lstm_step_split: no kernel {unknown}; the kernels are "
-              f"{list(KERNELS)}", file=sys.stderr)
+              f"{[*KERNELS, *CTC_KERNELS]}", file=sys.stderr)
         return 2
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -279,6 +434,9 @@ def main() -> int:
     g = torch.Generator(device=dev).manual_seed(0)
     print(card)
     for kernel in kernels:
+        if kernel in CTC_KERNELS:
+            ctc_split(card, kernel, entry)
+            continue
         _, _, gates, t, variants = KERNELS[kernel]
         H = H_WIDE if "wide" in kernel else H_NARROW
         geometry = (ln_geometry if kernel.startswith("ln") else
@@ -369,14 +527,7 @@ def main() -> int:
                              else ", max |out - base's| " + format(max(
                                  float((o - b).abs().max())
                                  for o, b in zip(outs, base)), ".3e"))
-                start = torch.cuda.Event(enable_timing=True)
-                end = torch.cuda.Event(enable_timing=True)
-                start.record()
-                for _ in range(10):
-                    call()
-                end.record()
-                end.synchronize()
-                ms = start.elapsed_time(end) / 10
+                ms = time_ms(call)
                 print(f"[{card}] {kernel}, ndir={ndir} R={geo.rows} H={H} "
                       f"T={t} B={B}, {name}: {ms:.4f} ms, "
                       f"{1e3 * ms / t:.3f} us a step{shape_err}")

@@ -71,16 +71,51 @@ def _jax_lattice(lp_ext, skip, s_pad=128):
     return lp_p, skip_p
 
 
-@pytest.mark.parametrize("seed", [3, 4])
-def test_recursions_match_pallas_calls(seed):
+def _lane_case(seed, l_max, b=4, v=6):
+    """A batch whose longest label has exactly ``l_max`` labels (S = 2L+1
+    states), label lengths 0..l_max, and frames enough for the walks to
+    reach the lattice's end."""
+    rng = np.random.default_rng(seed)
+    t = 2 * l_max + 6
+    logits = rng.normal(size=(b, t, v)).astype(np.float32)
+    lengths = rng.integers(t // 2, t + 1, size=(b,)).astype(np.int32)
+    lengths[0] = t
+    labels = rng.integers(0, v - 1, size=(b, l_max)).astype(np.int32)
+    lab_lens = rng.integers(0, l_max + 1, size=(b,)).astype(np.int32)
+    lab_lens[0] = l_max
+    return logits, lengths, labels, lab_lens
+
+
+@pytest.mark.parametrize("s_len,design", [
+    (1, "warp"), (97, "warp"), (pc.CTC_WARP_MAX_S, "warp"),
+    (pc.CTC_WARP_MAX_S + 2, "block")])
+def test_ctc_design(s_len, design):
+    """The size rule: the warp design up to CTC_WARP_MAX_S states (at
+    least 513, L = 256), the block design beyond."""
+    assert pc.CTC_WARP_MAX_S >= 513
+    assert pc.ctc_design(s_len) == design
+
+
+# (3, 5) and (4, 5) as before; then L = 0, 15, 16, 31, 32 and 48 (S = 1,
+# 31, 33, 63, 65 and 97): the lane boundaries of the warp design, whose
+# lanes hold the states l + 32 j
+@pytest.mark.parametrize("seed,l_max", [(3, 5), (4, 5), (5, 0), (6, 15),
+                                        (7, 16), (8, 31), (9, 32),
+                                        (10, 48)])
+def test_recursions_match_pallas_calls(seed, l_max):
     """ctc_alpha_plain / ctc_beta_plain against the Pallas kernels
     (interpret mode), the JAX side's lane padding sliced off."""
-    logits, lengths, labels, lab_lens = _rand_case(seed, t=11, l_max=5)
+    if l_max == 5:
+        logits, lengths, labels, lab_lens = _rand_case(seed, t=11,
+                                                       l_max=l_max)
+    else:
+        logits, lengths, labels, lab_lens = _lane_case(seed, l_max)
     lp_ext, valid, skip, end, ll = (
         x.detach() for x in pc.lattice(
             torch.from_numpy(logits),
             *map(torch.from_numpy, (lengths, labels, lab_lens))))
     t, b, s = lp_ext.shape
+    assert s == 2 * int(lab_lens.max()) + 1
     alpha = pc.ctc_alpha_plain(lp_ext, valid, skip)
     skip2 = pc.skip_from_source(skip)
     end_ind = pc.end_indicator(end, ll, s)
@@ -156,6 +191,23 @@ def test_empty_and_infeasible_labels():
     assert np.abs(grad[2]).max() == 0.0
 
 
+@pytest.mark.parametrize("backend", ["scan", "pallas"])
+def test_no_labels_at_all(backend):
+    """Every row of label length 0 in a [B, 0] label array: a one-state
+    lattice (S = 1, the skip gate one wide), against the JAX loss and
+    gradient."""
+    rng = np.random.default_rng(12)
+    logits = rng.normal(size=(3, 7, 5)).astype(np.float32)
+    case = (logits, np.array([7, 5, 2], np.int32),
+            np.zeros((3, 0), np.int32), np.zeros(3, np.int32))
+    lattice = pc.lattice(*map(torch.from_numpy, case))
+    assert lattice[0].shape[2] == lattice[2].shape[1] == 1
+    loss, grad = _port_loss_and_grad(*case)
+    j_loss, j_grad = _jax_loss_and_grad(backend, *case)
+    np.testing.assert_allclose(loss, j_loss, **LOSS_TOL)
+    np.testing.assert_allclose(grad, j_grad, **GRAD_TOL)
+
+
 @pytest.mark.parametrize("seed", [5, 6])
 def test_matches_torch_ctc_loss(seed):
     """Feasible sequences against torch.nn.functional.ctc_loss, an
@@ -192,14 +244,19 @@ def test_full_length_and_padded_label_ids():
 
 
 def test_wrappers_take_plain_on_cpu():
+    """On the CPU the wrappers take the plain versions: no launch is
+    counted, by design or in all."""
     lp_ext, valid, skip, end, ll = (x.detach() for x in pc.lattice(
         *map(torch.from_numpy, _rand_case(8))))
     a0, b0 = pc.ctc_alpha.launches, pc.ctc_beta.launches
+    designs = (dict(pc.ctc_alpha.by_design), dict(pc.ctc_beta.by_design))
     alpha = pc.ctc_alpha(lp_ext, valid, skip)
     skip2 = pc.skip_from_source(skip)
     end_ind = pc.end_indicator(end, ll, lp_ext.shape[2])
     gamma = pc.ctc_beta(lp_ext, valid, alpha, skip2, end_ind)
     assert (pc.ctc_alpha.launches, pc.ctc_beta.launches) == (a0, b0)
+    assert (pc.ctc_alpha.by_design, pc.ctc_beta.by_design) == designs
+    assert set(designs[0]) == set(designs[1]) == {"warp", "block"}
     torch.testing.assert_close(alpha, pc.ctc_alpha_plain(lp_ext, valid,
                                                          skip),
                                rtol=0, atol=0)

@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from asr_study_torch import _build
 from asr_study_torch.cli.predict import pack_batches, serve_batch
 from asr_study_torch.data import wire
 from asr_study_torch.features.device import DeviceFeaturizer, spectral_plain
@@ -327,37 +328,81 @@ def _lattice(cuda, b, t, l_max, seed):
     lengths = torch.randint(t // 2, t + 1, (b,), generator=g)
     labels = torch.randint(0, 27, (b, l_max), generator=g)
     lab_lens = torch.randint(0, l_max + 1, (b,), generator=g)
+    lab_lens[-1] = 0
     lab_lens[0] = l_max
     with torch.no_grad():
         return [x.to(cuda) for x in ctc.lattice(logits, lengths, labels,
                                                 lab_lens)]
 
 
-@pytest.mark.parametrize("b,t,l_max", [(4, 14, 4), (3, 40, 30),
-                                       (32, 512, 48)])
+def _ctc_entry(name, *args):
+    """One CTC kernel through its C entry point: ``args`` the tensors (the
+    last one the output), then T, B, S -> the entry point's error code."""
+    tensors, dims = args[:-3], args[-3:]
+    return getattr(_build.lib(), name)(
+        *(a.data_ptr() for a in tensors), *dims,
+        torch.cuda.current_stream().cuda_stream)
+
+
+def _ctc_held(got, want):
+    """alpha or gamma: floor entries equal, the rest within CTC_TOL."""
+    floor = want <= -5e29
+    assert torch.equal(got <= -5e29, floor)
+    torch.testing.assert_close(got[~floor], want[~floor], **CTC_TOL)
+
+
+# (B, T, L): S = 2L+1 over the warp design's lane boundaries (S = 1, 31,
+# 33, 63, 65, 97, 543) and one above its cap (545, the block design); B =
+# 1, 5, 33; T = 1, 2, 512; every batch has a row of label length 0, and
+# (3, 40, 30), (5, 2, 15) and (1, 1, 0)'s neighbours infeasible rows
+@pytest.mark.parametrize("b,t,l_max", [
+    (4, 14, 4), (3, 40, 30), (32, 512, 48), (1, 1, 0), (5, 2, 15),
+    (33, 80, 16), (5, 140, 31), (33, 140, 32), (1, 512, 48),
+    (2, 560, 271), (5, 600, 272)])
 def test_ctc_kernels_match_plain(cuda, b, t, l_max):
-    """alpha and gamma: floor entries equal, the rest within CTC_TOL; and
-    the posterior gradient built from them.  (3, 40, 30) has infeasible
-    rows; label length 0 occurs."""
+    """alpha and gamma of the design ``ctc_design`` picks, through the
+    wrappers, and of both designs through their C entry points: floor
+    entries equal, the rest within CTC_TOL, the posterior gradient within
+    1e-5; two launches on the same inputs bit-equal; the launch counts by
+    design.  The warp design's entry points refuse S above its cap."""
     lp_ext, valid, skip, end, ll = _lattice(cuda, b, t, l_max, seed=t)
+    s = lp_ext.shape[2]
     skip2 = ctc.skip_from_source(skip)
-    end_ind = ctc.end_indicator(end, ll, lp_ext.shape[2])
+    end_ind = ctc.end_indicator(end, ll, s)
+    design = ctc.ctc_design(s)
     a0, b0 = ctc.ctc_alpha.launches, ctc.ctc_beta.launches
+    da0, db0 = dict(ctc.ctc_alpha.by_design), dict(ctc.ctc_beta.by_design)
     alpha = ctc.ctc_alpha(lp_ext, valid, skip)
     gamma = ctc.ctc_beta(lp_ext, valid, alpha, skip2, end_ind)
     assert (ctc.ctc_alpha.launches, ctc.ctc_beta.launches) == (a0 + 1,
                                                                b0 + 1)
+    assert ctc.ctc_alpha.by_design == {**da0, design: da0[design] + 1}
+    assert ctc.ctc_beta.by_design == {**db0, design: db0[design] + 1}
+    assert torch.equal(ctc.ctc_alpha(lp_ext, valid, skip), alpha)
+    assert torch.equal(ctc.ctc_beta(lp_ext, valid, alpha, skip2, end_ind),
+                       gamma)
     alpha_p = ctc.ctc_alpha_plain(lp_ext, valid, skip)
     gamma_p = ctc.ctc_beta_plain(lp_ext, valid, alpha_p, skip2, end_ind)
-    for got, want in ((alpha, alpha_p), (gamma, gamma_p)):
-        floor = want <= -5e29
-        assert torch.equal(got <= -5e29, floor)
-        torch.testing.assert_close(got[~floor], want[~floor], **CTC_TOL)
+    _ctc_held(alpha, alpha_p)
+    _ctc_held(gamma, gamma_p)
     ones = torch.ones(b, device=cuda)
     dlp = ctc.posterior_grad(gamma, ctc.final_logp(alpha[-1], end, ll), ones)
     dlp_p = ctc.posterior_grad(gamma_p, ctc.final_logp(alpha_p[-1], end, ll),
                                ones)
     torch.testing.assert_close(dlp, dlp_p, rtol=0, atol=1e-5)
+    for suffix in ("_warp", ""):
+        a_k, g_k = torch.empty_like(alpha), torch.empty_like(gamma)
+        err_a = _ctc_entry("asr_ctc_alpha" + suffix, lp_ext, valid, skip,
+                           a_k, t, b, s)
+        err_b = _ctc_entry("asr_ctc_beta" + suffix, lp_ext, valid, alpha_p,
+                           skip2, end_ind, g_k, t, b, s)
+        if suffix and s > ctc.CTC_WARP_MAX_S:
+            assert err_a != 0 and err_b != 0
+            continue
+        assert err_a == 0 and err_b == 0
+        torch.cuda.synchronize()
+        _ctc_held(a_k, alpha_p)
+        _ctc_held(g_k, gamma_p)
 
 
 def test_train_step_on_card_matches_cpu(cuda):
