@@ -48,6 +48,12 @@ SIGNATURES = {
     "asr_fbank": [_P, _I, _P, _P, _P, _P, _P, _P, _P,
                   _I, _I, _I, _I, _I, _I, _I, _I,
                   _F, _F, _I, _I, _P],
+    # the FFT design: pre, n_sig, win, twiddle, mel_packed, n_packed,
+    # bands, dct, lift, out, batch, n_frames, frame_len, hop, nfft, n_mel,
+    # n_cep, n_out, floor, mode, append_energy, stream
+    "asr_fbank_fft": [_P, _I, _P, _P, _P, _I, _P, _P, _P, _P,
+                      _I, _I, _I, _I, _I, _I, _I, _I,
+                      _F, _I, _I, _P],
     # xp_f, xp_b, mask, wh_f, wh_b, h_f, c_f, h_b, c_b, T, B, H, ndir,
     # cluster CTAs, units per CTA, rows per cluster, stream
     "asr_bilstm_fwd": [_P] * 9 + [_I] * 7 + [_P],
@@ -162,6 +168,9 @@ SIGNATURES = {
     "asr_ctc_beta_warp": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     # payload, n_words, row_start, widths, totals, out, nbcap, stream
     "asr_dpack_decode": [_P, _L, _P, _P, _P, _P, _I, _P],
+    # the one-launch design: payload, n_words, row_start, widths, scratch,
+    # scratch_cap, out, nbcap, stream
+    "asr_dpack_decode_onepass": [_P, _L, _P, _P, _P, _I, _P, _I, _P],
 }
 
 

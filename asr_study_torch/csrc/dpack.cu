@@ -1,7 +1,11 @@
-// The dpack wire decode: payload bit planes -> float32 samples.
+// The dpack wire decode in two launches: payload bit planes -> float32
+// samples.  Retired: ops/dpack.py `dpack_decode` launches the one-launch
+// design, csrc/dpack_onepass.cu; no route reaches this one, which stays as
+// the yardstick that chip_smoke.py times in turns against it (and the GPU
+// tests hold bit for bit against it).
 //
-// Replaces the TPU kernel asr_study_tpu/ops/pallas_dpack.py `_kernel` (via
-// `dpack_decode`); the format is asr_study_tpu/data/wire.py's dpack v2.
+// It replaced the TPU kernel asr_study_tpu/ops/pallas_dpack.py `_kernel`
+// (via `dpack_decode`); the format is asr_study_tpu/data/wire.py's dpack v2.
 // Block j of the stream owns the payload plane rows
 // [row_start[j], row_start[j] + w_j), each 256 int16 words; plane p, word m,
 // bit i = bit p of the block's sample 256*i + m.  The samples are the
@@ -18,11 +22,13 @@
 // outside the payload, read as 0.  Every sum is unsigned 32-bit: it wraps
 // without undefined behaviour, and only the low 16 bits matter.
 //
-// What bounds it on the H100: bytes.  A batch reads its payload (~14 bits a
-// sample) and writes 4 bytes a sample; the expansion is 16 shifts and masks
-// a word and plane.  The carry sum is quadratic in the block count (each
-// block reads the totals before it, from L2): at the serving shapes' ~670
-// blocks that is small; a decoupled look-back scan would remove it.
+// What bounds it on the H100: the launches.  A batch reads its payload
+// (~14 bits a sample) and writes 4 bytes a sample, a few microseconds at
+// HBM rate, but two launches and the host's gap between them cost more
+// (device 0.0123 ms against 0.0542 ms by CUDA events at a serving batch).
+// The expansion is 16 shifts and masks a word and plane; the carry sum is
+// quadratic in the block count (each block reads the totals before it,
+// from L2), small at the serving shapes' ~690 blocks.
 
 #include <cuda_runtime.h>
 

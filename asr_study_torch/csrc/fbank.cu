@@ -1,7 +1,12 @@
-// MFCC / log-mel / mel chain for a batch of pre-emphasised signals.
+// MFCC / log-mel / mel chain for a batch of pre-emphasised signals, with
+// the spectrum as a direct DFT (the DFT design).
 //
 // Replaces the TPU kernel asr_study_tpu/features/pallas_fbank.py
-// `_fbank_kernel`.  One block takes one utterance and a tile of kTile
+// `_fbank_kernel` for the shapes the FFT design (csrc/fbank_fft.cu) does
+// not take: nfft outside {256, 512, 1024, 2048}, frame_len > nfft, or a
+// tile of frames too long for the FFT design's shared memory
+// (features/fbank.py `fbank_design`).  No zoo featurizer reaches it at its
+// defaults.  One block takes one utterance and a tile of kTile
 // frames and runs the whole per-frame chain without writing any
 // intermediate to device memory:
 //

@@ -70,6 +70,33 @@ def _dft_matrices(frame_len: int, nfft: int) -> tuple[np.ndarray, np.ndarray]:
     return np.cos(ang).astype(np.float32), (-np.sin(ang)).astype(np.float32)
 
 
+def _fft_twiddles(nfft: int) -> np.ndarray:
+    """The FFT design's twiddles: [nfft, 2] float32 (cos, -sin) of
+    2 pi k / nfft, i.e. e^{-2 pi i k / nfft}, computed in float64 and
+    rounded once."""
+    ang = 2.0 * np.pi * np.arange(nfft) / nfft
+    return np.stack([np.cos(ang), -np.sin(ang)], axis=1).astype(np.float32)
+
+
+def _mel_bands(mel: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """Each filter's band of a [K, M] filterbank -> (bands [M, 2] int32: the
+    first and last nonzero bin, (0, -1) for an all-zero filter; the band
+    weights [sum of widths] float32, filter by filter).  Summing a filter
+    over its band in ascending bin order equals the dense sum with its
+    zeros left out, whatever the filterbank."""
+    mel = np.asarray(mel, dtype=np.float32)
+    bands = np.zeros((mel.shape[1], 2), np.int32)
+    bands[:, 1] = -1
+    packed = []
+    for m in range(mel.shape[1]):
+        nz = np.flatnonzero(mel[:, m])
+        if nz.size:
+            bands[m] = nz[0], nz[-1]
+            packed.append(mel[nz[0]: nz[-1] + 1, m])
+    packed = np.concatenate(packed) if packed else np.zeros(0, np.float32)
+    return bands, packed
+
+
 def _delta_device(feat: torch.Tensor, lengths: torch.Tensor,
                   n: int = 2) -> torch.Tensor:
     """Regression delta with per-utterance edge replication.
@@ -113,6 +140,12 @@ class SpectralChain:
     mel: torch.Tensor       # [K, M]
     dct: torch.Tensor       # [M, C]
     lift: torch.Tensor      # [C]
+    # the fbank kernel's FFT design (features/fbank.py): e^{-2 pi i k/nfft}
+    # [nfft, 2], each filter's first and last nonzero bin [M, 2] int32 and
+    # the band weights, filter by filter [sum of widths]
+    twiddle: torch.Tensor
+    mel_bands: torch.Tensor
+    mel_packed: torch.Tensor
 
     @property
     def num_out(self) -> int:
@@ -232,6 +265,11 @@ class DeviceFeaturizer:
                                    device=self.device).contiguous()
 
         cos_m, sin_m = _dft_matrices(self.frame_len, nfft)
+        mel = audio.mel_filterbank(
+            nfilt, nfft, fs, low_freq, high_freq, self.htk,
+            construction=self.filterbank, norm=self.fb_norm,
+        ).T.astype(np.float32)
+        bands, packed = _mel_bands(mel)
         lift = (1.0 + (cep_lifter / 2.0) * np.sin(
             np.pi * np.arange(num_cep) / cep_lifter)
             if cep_lifter > 0 else np.ones(num_cep))
@@ -246,12 +284,12 @@ class DeviceFeaturizer:
             window=table(audio.get_window(self.window)(self.frame_len)),
             cos=table(cos_m),
             sin=table(sin_m),
-            mel=table(audio.mel_filterbank(
-                nfilt, nfft, fs, low_freq, high_freq, self.htk,
-                construction=self.filterbank, norm=self.fb_norm,
-            ).T),
+            mel=table(mel),
             dct=table(audio.dct2_ortho_matrix(nfilt, num_cep).T),
             lift=table(lift),
+            twiddle=table(_fft_twiddles(nfft)),
+            mel_bands=torch.as_tensor(bands, device=self.device),
+            mel_packed=table(packed),
         )
 
     @property

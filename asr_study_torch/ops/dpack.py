@@ -1,6 +1,6 @@
 """The dpack wire decode: payload bit planes -> float32 samples (port of
 ``asr_study_tpu/ops/pallas_dpack.py`` ``dpack_decode``; the kernel is
-``csrc/dpack.cu``).
+``csrc/dpack_onepass.cu``, one cooperative launch).
 
 Block j of the stream owns the payload plane rows ``[row_start[j],
 row_start[j] + widths[j])``, each row 256 int16 words; plane p, word m,
@@ -11,7 +11,9 @@ concatenated batch, and their inclusive prefix sum over the whole stream
 samples, scaled by 1/32768.
 
 :func:`dpack_decode` runs the plain version for tensors on the CPU and
-launches the kernel for CUDA tensors; any other device raises.
+launches the kernel once for CUDA tensors; any other device raises.
+``csrc/dpack.cu`` is the retired two-launch design (per-block totals, then
+the decode); no route reaches it.
 """
 
 from __future__ import annotations
@@ -23,6 +25,12 @@ from asr_study_torch import _build
 BLOCK = 4096      # samples per dpack block
 PLANES = 16       # bits per word == planes at most == sample rows a block
 WORDS = 256       # payload words per plane
+# CTA totals the one-pass kernel's scratch holds: its grid never exceeds
+# this (an H100 keeps a few hundred of its CTAs resident together)
+SCRATCH_CTAS = 4096
+# (device, stream) -> int32 [SCRATCH_CTAS], kept across calls: the decodes
+# that share one run in order on their stream
+_SCRATCH: dict = {}
 
 
 def _check(payload: torch.Tensor, row_start: torch.Tensor,
@@ -84,9 +92,11 @@ def dpack_decode(payload: torch.Tensor, row_start: torch.Tensor,
 
     Past the last encoded sample the stream holds the last sample's value
     (the padding deltas are 0).  CPU tensors take
-    :func:`dpack_decode_plain`; CUDA tensors launch ``csrc/dpack.cu`` (two
-    launches: per-block delta totals, then the decode with each block's
-    carry) or raise."""
+    :func:`dpack_decode_plain`; CUDA tensors launch
+    ``csrc/dpack_onepass.cu`` once (each CTA's delta total, a grid barrier,
+    then the scan from each CTA's carry) or raise.  The CTA totals live in
+    a scratch kept per device and stream, so a call allocates only its
+    output."""
     nbcap = _check(payload, row_start, widths, scap)
     if payload.device.type == "cpu":
         return dpack_decode_plain(payload, row_start, widths, scap)
@@ -99,12 +109,16 @@ def dpack_decode(payload: torch.Tensor, row_start: torch.Tensor,
     out = torch.empty(scap, dtype=torch.float32, device=payload.device)
     if nbcap == 0:
         return out
-    totals = torch.empty(nbcap, dtype=torch.int32, device=payload.device)
+    stream = torch.cuda.current_stream(payload.device).cuda_stream
+    scratch = _SCRATCH.get((payload.device, stream))
+    if scratch is None:
+        scratch = _SCRATCH[payload.device, stream] = torch.empty(
+            SCRATCH_CTAS, dtype=torch.int32, device=payload.device)
     with torch.cuda.device(payload.device):
-        err = _build.lib().asr_dpack_decode(
+        err = _build.lib().asr_dpack_decode_onepass(
             payload.data_ptr(), payload.shape[0], row_start.data_ptr(),
-            widths.data_ptr(), totals.data_ptr(), out.data_ptr(), nbcap,
-            torch.cuda.current_stream(payload.device).cuda_stream,
+            widths.data_ptr(), scratch.data_ptr(), SCRATCH_CTAS,
+            out.data_ptr(), nbcap, stream,
         )
     _build.check(err, "dpack_decode")
     dpack_decode.launches += 1

@@ -41,7 +41,10 @@ Phases, in order; any failure raises and the exit code is not 0:
    time, its bound and the time of the PyTorch library call that computes
    the same function (cuDNN ``nn.LSTM`` / ``nn.GRU``, ``F.ctc_loss``; none
    for fbank, dpack_decode and the layer-norm, zoneout and MI LSTMs); the
-   LSTM kernels' wide design at H=512 (deep_speech's width), both
+   fbank kernel's FFT design (csrc/fbank_fft.cu) and DFT design
+   (csrc/fbank.cu) both against the plain version and against it run with
+   float64 tables, timed in turns, beside the stock cuFFT chain
+   (``torch.fft.rfft`` and the rest, several calls); the LSTM kernels' wide design at H=512 (deep_speech's width), both
    directions and one, its backward from the forward's saved gates, timed
    in turns against the stream design it replaced beside cuDNN's two
    calls and the bound, with the card's cudaOccupancyMaxActiveClusters
@@ -64,9 +67,13 @@ Phases, in order; any failure raises and the exit code is not 0:
    against their plain versions at T=512, B=32, S=97, timed in turns
    beside F.ctc_loss, and a lattice just above the warp design's cap
    through the wrappers, which must take the block design; the dpack
-   decode bit for bit over the whole stream of every serving batch and of
-   an edge batch, with the host encode time;
+   decode's one-launch design (csrc/dpack_onepass.cu) bit for bit against
+   its plain version and the two-launch design (csrc/dpack.cu) over the
+   whole stream of every serving batch, of the edge batches and of a
+   stream of more blocks than the cooperative grid has CTAs, timed in
+   turns against the two-launch design, with the host encode time;
 4. the serving slices, with launch counters proving their kernels ran
+   (fbank in the FFT design only)
    (the LSTM, GRU, layer-norm, zoneout and MI LSTM kernels in the design
    their width takes; the LSTM's wide design under its own kernel line rows),
    logits held against the plain path on the CPU (for ln_blstm, whose
@@ -86,6 +93,10 @@ Phases, in order; any failure raises and the exit code is not 0:
    deep_blstm step's CTC stage split into its pieces), the device busy
    share.
 
+The deep_blstm pcm16 slice's wire unpack and features stage are split
+with CUDA events (``_prep``, fbank, the two deltas, ``_finalize``), and
+each phase's wall time is printed as it ends.
+
 Each path is driven with every launch counter set to 0 just before it and
 read just after; the kernels line sums those counts.  The line before the
 last is the kernels' JSON record; the last line is
@@ -97,7 +108,9 @@ from __future__ import annotations
 import contextlib
 import copy
 import importlib.util
+import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -258,6 +271,23 @@ def bound(ops: float, nbytes: float) -> tuple[float, str]:
 
 def tensor_bytes(*ts: torch.Tensor) -> float:
     return float(sum(t.numel() * t.element_size() for t in ts))
+
+
+class PhaseClock:
+    """Wall time of each phase, printed as it ends and summed at the end."""
+
+    def __init__(self):
+        self.start = self.last = time.perf_counter()
+        self.rows = []
+
+    def mark(self, name: str) -> None:
+        now = time.perf_counter()
+        self.rows.append((name, now - self.last))
+        print(f"phase wall time: {name} {now - self.last:.1f} s")
+        self.last = now
+
+    def summary(self) -> str:
+        return "; ".join(f"{n} {s:.1f}" for n, s in self.rows)
 
 
 def rnn_bound(xp: torch.Tensor, hidden: int, ndir: int, passes: int,
@@ -2591,6 +2621,181 @@ def check_zoneout_designs(dev: torch.device) -> None:
               + f" (tol fwd {BILSTM_ATOL:g} + {BILSTM_RTOL:g}*|plain|, bwd "
               f"{BWD_ATOL:g} + {BWD_RTOL:g}*|plain|)")
 
+def fbank_bounds(chain, pre: torch.Tensor, out: torch.Tensor) -> dict:
+    """fbank's bound two ways -> {"fft": (ms, limit), "dft": (ms, limit)}.
+    "fft" is the least work of the function: a real FFT at 2.5 nfft
+    log2(nfft) flops a frame, the power (3 a bin), the banded mel (2 a
+    band weight), the DCT (2 a table entry) and the window (1 a sample),
+    against the bytes of pre, the FFT design's tables and the output.
+    "dft" is the earlier yardstick, the DFT, mel and DCT as dense
+    products against the DFT design's tables."""
+    frames = out.shape[0] * out.shape[1]
+    n_bins, n_mel = chain.mel.shape
+    n_cep = chain.dct.shape[1]
+    fft_ops = frames * (2.5 * chain.nfft * math.log2(chain.nfft)
+                        + 3 * n_bins + 2 * chain.mel_packed.numel()
+                        + 2 * n_mel * n_cep + chain.frame_len)
+    dft_ops = 2.0 * frames * (2 * chain.frame_len * n_bins + n_bins * n_mel
+                              + n_mel * n_cep)
+    return {"fft": bound(fft_ops, tensor_bytes(
+                pre, chain.window, chain.twiddle, chain.mel_packed,
+                chain.mel_bands, chain.dct, chain.lift, out)),
+            "dft": bound(dft_ops, tensor_bytes(
+                pre, chain.window, chain.cos, chain.sin, chain.mel,
+                chain.dct, chain.lift, out))}
+
+
+def cufft_chain(chain, pre: torch.Tensor, t_out: int) -> torch.Tensor:
+    """The stock PyTorch form of the MFCC chain, as a yardstick: frames by
+    ``unfold``, ``torch.fft.rfft`` (cuFFT), power, the mel and DCT as
+    matrix products, the logs and floors of spectral_plain."""
+    from asr_study_torch.features.device import F32_EPS
+    need = (t_out - 1) * chain.frame_step + chain.frame_len
+    if need > pre.shape[1]:
+        pre = torch.nn.functional.pad(pre, (0, need - pre.shape[1]))
+    frames = pre.unfold(1, chain.frame_len, chain.frame_step)[:, :t_out]
+    spec = torch.fft.rfft(frames * chain.window, n=chain.nfft)
+    pspec = spec.abs().square() / chain.nfft
+    log_e = torch.log(pspec.sum(-1).clamp_min(F32_EPS).clamp_min(
+        chain.floor))
+    feat = torch.matmul(pspec, chain.mel).clamp_min(F32_EPS)
+    cep = torch.matmul(torch.log(feat.clamp_min(chain.floor)), chain.dct) \
+        * chain.lift
+    return torch.cat([log_e[..., None], cep[..., 1:]], dim=-1)
+
+
+def check_fbank_kernel(card: str, feat, pre: torch.Tensor,
+                       t_out: int) -> dict:
+    """Phase 3 for fbank at the serving shape: the FFT design through the
+    wrapper, and the DFT design through its C entry point asr_fbank as the
+    wrapper ran it (the signal padded to the last frame, then the launch),
+    against spectral_plain at FBANK_TOL, each beside its error against
+    spectral_plain with float64 tables; the two timed in turns, fft, dft,
+    dft, fft, 20 calls a turn, with their device times; the cuFFT chain as
+    a yardstick; both bounds."""
+    from asr_study_torch.features.device import spectral_plain
+    from asr_study_torch.features.fbank import (chain_design, fbank,
+                                                launch_dft)
+
+    chain = feat.chain
+    require(chain_design(chain) == "fft",
+            "the serving featurizer's shapes must take the FFT design")
+    need = (t_out - 1) * chain.frame_step + chain.frame_len
+    dft_out = torch.empty(pre.shape[0], t_out, chain.num_out,
+                          device=pre.device)
+
+    def dft():
+        padded = torch.nn.functional.pad(pre, (0, max(0, need
+                                                      - pre.shape[1])))
+        launch_dft(chain, padded, t_out, dft_out)
+        return dft_out
+
+    before = dict(fbank.by_design)
+    with torch.inference_mode():
+        got = {"fft": fbank(chain, pre, t_out), "dft": dft().clone()}
+        plain = spectral_plain(chain, pre, t_out)
+        chain64 = dataclasses.replace(chain, **{
+            k: getattr(chain, k).double()
+            for k in ("window", "cos", "sin", "mel", "dct", "lift")})
+        truth = spectral_plain(chain64, pre.double(), t_out)
+    torch.cuda.synchronize()
+    require(fbank.by_design == {"fft": before["fft"] + 1,
+                                "dft": before["dft"]},
+            f"fbank by_design {fbank.by_design} after one call")
+    errs = {d: float((x - plain).abs().max()) for d, x in got.items()}
+    vs64 = {d: float((x.double() - truth).abs().max())
+            for d, x in got.items()}
+    vs64["plain"] = float((plain.double() - truth).abs().max())
+    print(f"fbank kernel vs plain: B={pre.shape[0]} T={t_out} "
+          f"F={got['fft'].shape[2]} max_abs_err: fft design "
+          f"{errs['fft']:.3e}, dft design {errs['dft']:.3e} (tol "
+          f"{FBANK_TOL:g}); against spectral_plain with float64 tables on "
+          f"the card: fft {vs64['fft']:.3e}, dft {vs64['dft']:.3e}, plain "
+          f"(fp32) {vs64['plain']:.3e}")
+    for d, x in got.items():
+        require(bool(torch.isfinite(x).all()), f"fbank {d}: non-finite")
+        require(errs[d] <= FBANK_TOL, f"fbank {d} design disagrees with "
+                "plain")
+
+    calls = {"fft": lambda: fbank(chain, pre, t_out), "dft": dft}
+    turns = {"fft": [], "dft": []}
+    with torch.inference_mode():
+        for d in ("fft", "dft", "dft", "fft"):
+            turns[d].append(cuda_ms(calls[d], 20))
+        dev = {"fft": kernel_device_ms(calls["fft"], 20, "fbank_fft"),
+               "dft": kernel_device_ms(calls["dft"], 20, "fbank_kernel")}
+        plain_ms = cuda_ms(lambda: spectral_plain(chain, pre, t_out), 20)
+        lib_out = cufft_chain(chain, pre, t_out)
+        lib_ms = cuda_ms(lambda: cufft_chain(chain, pre, t_out), 20)
+    torch.cuda.synchronize()
+    fft_ms, dft_ms = (sum(turns[d]) / 2 for d in ("fft", "dft"))
+    bounds = fbank_bounds(chain, pre, got["fft"])
+
+    def dev_txt(d):
+        return "not measured" if dev[d] is None else f"{dev[d]:.4f} ms"
+    print(f"[{card}] fbank at B={pre.shape[0]} T={t_out}, in turns (the fft "
+          f"design through the wrapper, the dft design as the wrapper ran "
+          f"it): fft design {turns['fft'][0]:.4f} / "
+          f"{turns['fft'][1]:.4f} ms (device time {dev_txt('fft')}), dft "
+          f"design {turns['dft'][0]:.4f} / {turns['dft'][1]:.4f} ms (device "
+          f"time {dev_txt('dft')}; with the pad copy of pre) "
+          f"({dft_ms / fft_ms:.2f}x); "
+          f"plain {plain_ms:.4f} ms; bound {bounds['fft'][0]:.4f} ms "
+          f"({bounds['fft'][1]}; the least work: a real FFT, banded mel), "
+          f"the DFT-form bound {bounds['dft'][0]:.4f} ms "
+          f"({bounds['dft'][1]})")
+    print(f"[{card}] fbank yardstick, the stock cuFFT chain (unfold, "
+          f"torch.fft.rfft, power, mel and DCT products, logs; several "
+          f"calls, so library_ms stays null): {lib_ms:.4f} ms "
+          f"({lib_ms / fft_ms:.2f}x the fft design), max_abs_err vs plain "
+          f"{float((lib_out - plain).abs().max()):.3e}")
+    return {"errs": {"fbank": errs["fft"]},
+            "times": {"fbank": (fft_ms, plain_ms)},
+            "bounds": {"fbank": bounds["fft"]},
+            "library": {"fbank": None}}
+
+
+def features_stage_split(card: str, feat, flat: torch.Tensor,
+                         n_pad: int) -> None:
+    """The deep_blstm pcm16 slice's wire unpack and features stage split
+    with CUDA events, as ``serve_batch`` and ``DeviceFeaturizer._transform``
+    run them: unpack_audio; _prep; fbank; the two _delta_device calls; the
+    concatenation and _finalize.  Mean of 5 after one warm-up."""
+    from asr_study_torch.data import wire
+    from asr_study_torch.features.device import _delta_device
+
+    def split():
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(7)]
+        ev[0].record()
+        wavs, lens = wire.unpack_audio(flat, BATCH, n_pad)
+        wavs, lens = wavs.to(torch.float32), lens.to(torch.int32)
+        ev[1].record()
+        pre, t_out, fl = feat._prep(wavs, lens)
+        ev[2].record()
+        base = feat._spectral(pre, t_out)
+        ev[3].record()
+        d1 = _delta_device(base, fl)
+        ev[4].record()
+        d2 = _delta_device(d1, fl)
+        ev[5].record()
+        feat._finalize(torch.cat([base, d1, d2], dim=-1), fl)
+        ev[6].record()
+        return ev
+
+    with torch.inference_mode():
+        split()
+        runs = [split() for _ in range(5)]
+    torch.cuda.synchronize()
+    names = ("pcm16 unpack_audio", "_prep", "fbank", "delta",
+             "delta of delta", "cat + _finalize")
+    parts = {n: sum(r[i].elapsed_time(r[i + 1]) for r in runs) / len(runs)
+             for i, n in enumerate(names)}
+    print(f"[{card}] deep_blstm pcm16 slice's wire and features stages "
+          f"split, CUDA events, one batch, mean of {len(runs)}: "
+          + "; ".join(f"{n} {v:.4f} ms" for n, v in parts.items())
+          + f"; features {sum(parts.values()) - parts[names[0]]:.4f} ms")
+
+
 class Wire(NamedTuple):
     """One codec's wire buffers of the serving batches, end to end."""
     cap: int                     # words a buffer
@@ -2644,12 +2849,63 @@ def kernel_device_ms(fn, reps: int, part: str) -> float | None:
     return us / 1e3 / reps if us else None
 
 
+def dpack_two_launch(payload: torch.Tensor, row_start: torch.Tensor,
+                     widths: torch.Tensor, scap: int):
+    """The retired two-launch dpack decode (csrc/dpack.cu) through its C
+    entry point -> (launch, its output).  It counts no launch."""
+    from asr_study_torch import _build
+
+    nbcap = scap // 4096
+    out = torch.empty(scap, dtype=torch.float32, device=payload.device)
+    totals = torch.empty(nbcap, dtype=torch.int32, device=payload.device)
+
+    def launch():
+        _build.check(_build.lib().asr_dpack_decode(
+            payload.data_ptr(), payload.shape[0], row_start.data_ptr(),
+            widths.data_ptr(), totals.data_ptr(), out.data_ptr(), nbcap,
+            torch.cuda.current_stream().cuda_stream), "asr_dpack_decode")
+    return launch, out
+
+
+def dpack_one_launch(payload: torch.Tensor, row_start: torch.Tensor,
+                     widths: torch.Tensor, scap: int):
+    """The one-launch dpack decode (csrc/dpack_onepass.cu) through its C
+    entry point, with its output and scratch made once -> (launch, its
+    output).  It counts no launch: the wrapper does."""
+    from asr_study_torch import _build
+    from asr_study_torch.ops.dpack import SCRATCH_CTAS
+
+    out = torch.empty(scap, dtype=torch.float32, device=payload.device)
+    scratch = torch.empty(SCRATCH_CTAS, dtype=torch.int32,
+                          device=payload.device)
+
+    def launch():
+        _build.check(_build.lib().asr_dpack_decode_onepass(
+            payload.data_ptr(), payload.shape[0], row_start.data_ptr(),
+            widths.data_ptr(), scratch.data_ptr(), SCRATCH_CTAS,
+            out.data_ptr(), scap // 4096,
+            torch.cuda.current_stream().cuda_stream),
+            "asr_dpack_decode_onepass")
+    return launch, out
+
+
+def dpack_max_grid(dev: torch.device) -> int:
+    """The most CTAs the one-launch design's cooperative grid can hold on
+    ``dev``: its 256-thread CTAs that fit in the SMs' threads (the
+    occupancy calculator, which the C entry point asks, may allow fewer)."""
+    p = torch.cuda.get_device_properties(dev)
+    return p.multi_processor_count * p.max_threads_per_multi_processor // 256
+
+
 def check_dpack_kernel(dev: torch.device, card: str, groups: list,
                        wires: dict) -> dict:
-    """Phase 3 for the dpack decode: bit for bit against its plain version
-    over the whole [scap] stream of every serving batch's dpack wire and of
-    the edge batches, and unpack_audio over dpack equal to it over pcm16;
-    times at the first serving batch; the host encode time."""
+    """Phase 3 for the dpack decode: the one-launch design bit for bit
+    against its plain version and the two-launch design over the whole
+    [scap] stream of every serving batch's dpack wire, of the edge batches
+    and of 48 rows of 8 s (more dpack blocks than the cooperative grid has
+    CTAs), and unpack_audio over dpack equal to it over pcm16; the two
+    designs timed in turns at the first serving batch, by CUDA events and
+    device time; the host encode time."""
     from asr_study_torch.data import wire
     from asr_study_torch.ops.dpack import dpack_decode, dpack_decode_plain
 
@@ -2667,7 +2923,11 @@ def check_dpack_kernel(dev: torch.device, card: str, groups: list,
     for k, (o, o_pcm) in enumerate(zip(dp.offsets, pcm.offsets)):
         cases.append((f"serving batch {k}", dp.dev[o: o + dp.cap], BATCH,
                       dp.n_pad, dp.scap, pcm.dev[o_pcm: o_pcm + pcm.cap]))
-    for name, ws in edge_dpack_batches().items():
+    rng = np.random.RandomState(SEED + 10)
+    edges = dict(edge_dpack_batches())
+    edges["48 rows of 8 s"] = [(rng.randn(8 * SR) * 0.2).astype(np.float32)
+                               for _ in range(48)]
+    for name, ws in edges.items():
         b = len(ws)
         cap, scap = wire.dpack_measure([ws], b, align=256)
         n_pad = -(-max(len(x) for x in ws) // 2048) * 2048
@@ -2680,6 +2940,8 @@ def check_dpack_kernel(dev: torch.device, card: str, groups: list,
         args = wire.dpack_regions(flat, b, scap)
         got = dpack_decode(*args, scap)
         want = dpack_decode_plain(*args, scap)
+        two, two_out = dpack_two_launch(*args, scap)
+        two()
         wav_d, len_d = wire.unpack_audio(flat, b, n_pad, codec="dpack",
                                          scap=scap)
         wav_p, len_p = wire.unpack_audio(flat_pcm, b, n_pad)
@@ -2687,20 +2949,33 @@ def check_dpack_kernel(dev: torch.device, card: str, groups: list,
         require(torch.equal(got, want),
                 f"dpack_decode differs from plain on {name}: max_abs_err "
                 f"{float((got - want).abs().max()):.3e}")
+        require(torch.equal(got, two_out),
+                f"dpack_decode differs from the two-launch design on {name}")
         require(torch.equal(wav_d, wav_p) and torch.equal(len_d, len_p),
                 f"unpack over dpack differs from pcm16 on {name}")
-    print(f"dpack_decode kernel vs plain: bit-equal over the whole stream "
-          f"on {len(cases)} wires ({len(dp.offsets)} serving batches of "
+    max_grid = dpack_max_grid(dev)
+    big = cases[-1]
+    require(big[4] // 4096 > max_grid, "the long stream must have more "
+            "dpack blocks than the cooperative grid has CTAs")
+    print(f"dpack_decode kernel (one-launch design) vs plain and the "
+          f"two-launch design: bit-equal over the whole stream on "
+          f"{len(cases)} wires ({len(dp.offsets)} serving batches of "
           f"{dp.scap // 4096} blocks, scap {dp.scap}; edge: "
-          f"{', '.join(c[0] for c in cases[len(dp.offsets):])}); "
-          f"unpack_audio over dpack bit-equal to pcm16 on each")
+          f"{', '.join(c[0] for c in cases[len(dp.offsets):])}, the last "
+          f"{big[4] // 4096} blocks, more than the {max_grid} CTAs the "
+          f"cooperative grid can hold); unpack_audio over dpack bit-equal "
+          f"to pcm16 on each")
 
     args = wire.dpack_regions(dp.dev[: dp.cap], BATCH, dp.scap)
     payload, row_start, widths = args
+    calls = {"one": dpack_one_launch(*args, dp.scap)[0],
+             "two": dpack_two_launch(*args, dp.scap)[0]}
+    turns = {"one": [], "two": []}
+    for d in ("one", "two", "two", "one"):
+        turns[d].append(cuda_ms(calls[d], 50, warmup=5))
+    dev_ms = {d: kernel_device_ms(calls[d], 20, "dpack") for d in calls}
     ms = cuda_ms(lambda: dpack_decode(*args, dp.scap), 50, warmup=5)
     plain_ms = cuda_ms(lambda: dpack_decode_plain(*args, dp.scap), 5)
-    dev_ms = kernel_device_ms(lambda: dpack_decode(*args, dp.scap), 20,
-                              "dpack")
     w_sum = int(widths.sum())
     # bytes: the payload rows the blocks own, row_start and widths, the f32
     # stream; operations: one integer add a sample in the scan (the
@@ -2708,11 +2983,17 @@ def check_dpack_kernel(dev: torch.device, card: str, groups: list,
     d_bound = bound(float(dp.scap),
                     256 * 2 * w_sum + tensor_bytes(row_start, widths)
                     + 4.0 * dp.scap)
-    dev_txt = "not measured" if dev_ms is None else f"{dev_ms:.4f} ms"
+    def dev_txt(d):
+        return ("not measured" if dev_ms[d] is None
+                else f"{dev_ms[d]:.4f} ms")
     print(f"[{card}] dpack_decode (one batch: {dp.scap // 4096} blocks, "
           f"{16 * w_sum * 256 / dp.scap:.2f} bits a sample of scap): "
-          f"kernel {ms:.4f} ms (device time of its two launches "
-          f"{dev_txt}, torch.profiler), plain {plain_ms:.4f} ms, bound "
+          f"through the wrapper {ms:.4f} ms; in turns through the C entry "
+          f"points, 50 calls a turn: one-launch design {turns['one'][0]:.4f}"
+          f" / {turns['one'][1]:.4f} ms (device time {dev_txt('one')}, "
+          f"torch.profiler), two-launch design {turns['two'][0]:.4f} / "
+          f"{turns['two'][1]:.4f} ms (device time of its two launches "
+          f"{dev_txt('two')}); plain {plain_ms:.4f} ms, bound "
           f"{d_bound[0]:.4f} ms ({d_bound[1]})")
     print("dpack_decode library yardstick: none; no PyTorch call decodes "
           "dpack (bit-plane expansion with a carried prefix sum), so "
@@ -2726,7 +3007,7 @@ def check_dpack_kernel(dev: torch.device, card: str, groups: list,
 # every kernel of the port: name -> (source in asr_study_torch/csrc, the TPU
 # kernel it replaces in asr_study_tpu)
 KERNELS = {
-    "fbank": ("fbank.cu", "features/pallas_fbank.py:107"),
+    "fbank": ("fbank_fft.cu", "features/pallas_fbank.py:107"),
     "bilstm_fwd": ("bilstm_fwd.cu", "ops/pallas_bilstm.py:84"),
     "bilstm_bwd": ("bilstm_bwd.cu", "ops/pallas_bilstm.py:125"),
     "ctc_alpha": ("ctc_warp.cu", "ops/pallas_ctc.py:76"),
@@ -2753,7 +3034,7 @@ KERNELS = {
     "bi_mi_lstm_bwd": ("mi_lstm_bwd.cu", "ops/pallas_bi_mi_lstm.py:81"),
     "mi_lstm_fwd": ("mi_lstm_fwd.cu", "ops/pallas_mi_lstm.py:59"),
     "mi_lstm_bwd": ("mi_lstm_bwd.cu", "ops/pallas_mi_lstm.py:132"),
-    "dpack_decode": ("dpack.cu", "ops/pallas_dpack.py:56"),
+    "dpack_decode": ("dpack_onepass.cu", "ops/pallas_dpack.py:56"),
     # the LSTM wrappers' wide design (256 < H <= 512): the same TPU
     # kernels, another source
     "bilstm_fwd_wide": ("lstm_wide_fwd.cu", "ops/pallas_bilstm.py:84"),
@@ -2871,7 +3152,7 @@ def reset_counts() -> None:
     counters = launch_counters()
     for fn in counters.values():
         fn.launches = 0
-    for name in DESIGN_WRAPPERS:
+    for name in (*DESIGN_WRAPPERS, "fbank"):
         counters[name].by_design = dict.fromkeys(counters[name].by_design, 0)
 
 
@@ -3301,6 +3582,7 @@ def ctc_stage_split(card: str, model, batch, gen: torch.Generator) -> None:
 
 def main() -> int:
     t_start = time.perf_counter()
+    clock = PhaseClock()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
               "needs an NVIDIA GPU", file=sys.stderr)
@@ -3308,7 +3590,6 @@ def main() -> int:
     from asr_study_torch import _build
     from asr_study_torch.cli.predict import pack_batches, serve_batch
     from asr_study_torch.data import wire
-    from asr_study_torch.features.device import spectral_plain
     from asr_study_torch.features.fbank import fbank
     from asr_study_torch.features.select import featurizer
     from asr_study_torch.models.zoo import build_model, deep_blstm
@@ -3336,6 +3617,7 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.build()
     _build.lib()
+    clock.mark("toolchain and build")
     print(f"build: {time.perf_counter() - t0:.2f} s "
           f"(sm_90a, {len(_build.sources())} sources, "
           f"{_build.build_dir().name})")
@@ -3350,7 +3632,11 @@ def main() -> int:
     s_len = 2 * TRAIN_L + 1
     # the CTC warp design: static, the chunk edges' row [2][J][2] floats,
     # J = ceil(S / 32)
-    print(f"  dynamic shared memory per block: fbank "
+    from asr_study_torch.features.fbank import fft_smem
+    serve_chain = featurizer("mfcc", "cpu").chain
+    print(f"  dynamic shared memory per block: fbank's FFT design "
+          f"{fft_smem(serve_chain)} B (8 warps, 16 frames, nfft=512, L=400, "
+          f"{serve_chain.mel_packed.numel()} band weights), its DFT design "
           f"{4 * (16 * (400 + 257 + 40) + 16)} B (16 frames, L=400, "
           f"K=257, M=40); ctc_alpha and ctc_beta, the warp design, none "
           f"({16 * -(-s_len // 32)} B static at S={s_len}; the block design "
@@ -3375,24 +3661,9 @@ def main() -> int:
                         device=dev)
     feat = featurizer("mfcc", dev)
     pre, t_out, feat_lengths = feat._prep(w, lens)
-    fb_k = fbank(feat.chain, pre, t_out)
-    fb_p = spectral_plain(feat.chain, pre, t_out)
-    fbank_err = float((fb_k - fb_p).abs().max())
-    print(f"fbank kernel vs plain: B={BATCH} T={t_out} F={fb_k.shape[2]} "
-          f"max_abs_err={fbank_err:.3e} (tol {FBANK_TOL:g})")
-    require(bool(torch.isfinite(fb_k).all()), "fbank: non-finite output")
-    require(fbank_err <= FBANK_TOL, "fbank kernel disagrees with plain")
-
-    chain = feat.chain
-    n_bins, n_mel = chain.mel.shape
-    fb_bound = bound(
-        # the DFT (cos and sin), mel and DCT products of every frame
-        2.0 * BATCH * t_out * (2 * chain.frame_len * n_bins + n_bins * n_mel
-                               + n_mel * chain.dct.shape[1]),
-        tensor_bytes(pre, chain.window, chain.cos, chain.sin, chain.mel,
-                     chain.dct, chain.lift, fb_k))
+    fbank_kernels = check_fbank_kernel(card, feat, pre, t_out)
     print("fbank library yardstick: none; no single PyTorch call computes "
-          "the framed, windowed DFT -> power -> mel -> log -> DCT chain of "
+          "the framed, windowed FFT -> power -> mel -> log -> DCT chain of "
           "MFCC (torch has no torchaudio here), so library_ms is null")
 
     gen = torch.Generator().manual_seed(SEED)
@@ -3450,6 +3721,7 @@ def main() -> int:
                                    "zoneout")
     mi_kernels = check_cell_family(dev, card, x_serve, feat_lengths, "mi")
     check_stream_h512(dev, card, x_serve)
+    clock.mark("kernels against their plain versions")
 
     # 4, 5. the serving slices, through the CLI's serving function ---------
     all_wavs, groups, audio_s = [], [], 0.0
@@ -3466,6 +3738,7 @@ def main() -> int:
               f"words ({2 * wires[codec].cap / 2**20:.3f} MiB each), packed "
               f"in {time.perf_counter() - t0:.2f} s of host time")
     dpack_kernels = check_dpack_kernel(dev, card, groups, wires)
+    clock.mark("wires and the dpack decode")
     feat_cpu = featurizer("mfcc", "cpu")
 
     def serving_slice(label, model, fwd_name, layers, desc, chaotic=False,
@@ -3497,6 +3770,9 @@ def main() -> int:
         if codec == "dpack":
             want["dpack_decode"] = N_BATCHES
         require(launches == want, f"{label} launches {launches}, want {want}")
+        require(fbank.by_design == {"fft": N_BATCHES, "dft": 0},
+                f"{label}: fbank ran {fbank.by_design}, want the FFT design "
+                "only")
         check_designs(label, model.rnn.layers[0].rnn.hidden, BATCH)
 
         if codec == "dpack":
@@ -3566,6 +3842,8 @@ def main() -> int:
     blstm_desc = f"{LAYERS}x{HIDDEN} BLSTM"
     launches, pcm_served = serving_slice("deep_blstm", model, "bilstm_fwd",
                                          LAYERS, blstm_desc)
+    features_stage_split(card, feat, wires["pcm16"].dev[: wires["pcm16"].cap],
+                         wires["pcm16"].n_pad)
     path_launches = [launches]
     for codec in ("dpack", "mulaw"):
         launches, _ = serving_slice(f"deep_blstm {codec}", model,
@@ -3614,14 +3892,10 @@ def main() -> int:
             cpu_batches=1 if "512" in label else N_BATCHES)[0])
         del served
 
+    clock.mark("serving slices")
     with torch.inference_mode():
-        fb_ms = cuda_ms(lambda: fbank(feat.chain, pre, t_out), 20)
-        fb_plain_ms = cuda_ms(lambda: spectral_plain(feat.chain, pre, t_out),
-                              20)
         bl_ms = cuda_ms(lambda: bilstm(*bl_args), 10)
         bl_plain_ms = cuda_ms(lambda: bilstm_plain(*bl_args), 3, warmup=1)
-    print(f"[{card}] fbank: kernel {fb_ms:.4f} ms/batch, plain "
-          f"{fb_plain_ms:.4f} ms/batch (B={BATCH}, T={t_out})")
     print(f"[{card}] bilstm_fwd (one layer, both directions): kernel "
           f"{bl_ms:.4f} ms/batch, plain {bl_plain_ms:.4f} ms/batch "
           f"(T={t_out}, B={BATCH}, H={HIDDEN})")
@@ -3630,16 +3904,16 @@ def main() -> int:
     for path in TRAIN_PATHS:
         path_launches.append(training_slice(
             dev, card, path, with_fit=path == "deep_blstm")["launches"])
+    clock.mark("training paths")
 
     # the kernels line -------------------------------------------------------
     measured = {
-        "fbank": (fbank_err, fb_ms, fb_plain_ms, fb_bound, None),
         "bilstm_fwd": (bilstm_err, bl_ms, bl_plain_ms, bl_bound,
                        lstm_y["lib_fwd"]),
     }
-    for found in (train_kernels, gru_kernels, lstm_kernels, wide_kernels,
-                  gru_wide_kernels, ln_kernels, zo_kernels, mi_kernels,
-                  dpack_kernels):
+    for found in (fbank_kernels, train_kernels, gru_kernels, lstm_kernels,
+                  wide_kernels, gru_wide_kernels, ln_kernels, zo_kernels,
+                  mi_kernels, dpack_kernels):
         for name, err in found["errs"].items():
             measured[name] = (err, *found["times"][name],
                               found["bounds"][name], found["library"][name])
@@ -3656,7 +3930,7 @@ def main() -> int:
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms})
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, the "
-          f"kernels' build included")
+          f"kernels' build included; by phase (s): {clock.summary()}")
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

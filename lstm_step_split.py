@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Where a step of the cluster LSTM, GRU, layer-norm, zoneout and MI LSTM
 kernels, of the wide LSTM and GRU kernels, and of the CTC walks spends its
-time, on one NVIDIA GPU.
+time, and where a frame of the fbank kernel's FFT design spends its, on one
+NVIDIA GPU.
 
     python3 lstm_step_split.py [kernel ...]
 
@@ -80,6 +81,17 @@ The CTC walks (``ctc_alpha``, ``ctc_beta``): ``ctc.cu`` (the block design)
 and ``ctc_warp.cu`` (the warp design), the block design first, at the main
 path's lattice (T=512, B=32, S=97), in the variants listed at
 ``CTC_KERNELS``.
+
+The fbank kernel's FFT design (``fbank_fft``, csrc/fbank_fft.cu) at the
+serving shape (B=32 utterances of 3-8 s, T=805, MFCC, nfft=512), unchanged
+(8 warps a CTA, tiles of 16 frames) first and last, in the variants listed
+at ``FBANK_KERNELS``: the other CTA shapes (outputs right), ``warps4``
+(4 warps a CTA), ``tile32`` (tiles of 32 frames) and ``warps4_tile32``;
+and, outputs wrong, times count: ``no_passes`` (the FFT's passes after the
+first), ``no_split`` (the split step's four loads of Z), ``no_mel`` (the
+band sums), ``no_dct`` (the DCT sums), and ``skeleton`` (the four
+together: the tile's copy, the tables, the first pass, the power, the logs
+and the stores).
 
 Prints one line per variant and the card's name and power limit.  Without
 CUDA it exits 1.
@@ -223,6 +235,10 @@ def variants_of(kernel: str) -> list:
     """The variants of one entry -> [(key, source, C entry point, edits)];
     the key (kernel, variant), for the CTC kernels (kernel, design,
     variant)."""
+    if kernel in FBANK_KERNELS:
+        source, c_name, variants = FBANK_KERNELS[kernel]
+        return [((kernel, name), source, c_name, edits)
+                for name, edits in variants.items()]
     if kernel in CTC_KERNELS:
         return [((kernel, design, name), source, c_name, edits)
                 for design, (source, c_name, variants)
@@ -357,6 +373,80 @@ WARP_SHAPES = {
     "one_warp_depth8": [ONE_WARP, DEPTH8],
     "no_barrier": [("row_barrier<kThreads>();", "")],
 }
+FBANK_NO_PASSES = ("      fft_rest<M, R>(re, im, ptw, lane);\n", "")
+FBANK_NO_SPLIT = ("const float a = re[ik], bq = im[ik], c = re[jk], "
+                  "d = im[jk];", "const float a = ik, bq = jk, c = 0.f, "
+                  "d = 0.f;")
+FBANK_NO_MEL = ("for (int k = 0; k < n; ++k) acc", "for (int k = 0; k < 0; "
+                "++k) acc")
+FBANK_NO_DCT = ("for (int m = 0; m < n_mel; ++m)\n          acc",
+                "for (int m = 0; m < 0; ++m)\n          acc")
+FBANK_WARPS4 = ("constexpr int kWarps = 8;", "constexpr int kWarps = 4;")
+FBANK_TILE32 = ("constexpr int kTile = 16;", "constexpr int kTile = 32;")
+FBANK_KERNELS = {
+    "fbank_fft": ("fbank_fft.cu", "asr_fbank_fft", {
+        "base": [], "warps4": [FBANK_WARPS4], "tile32": [FBANK_TILE32],
+        "warps4_tile32": [FBANK_WARPS4, FBANK_TILE32],
+        "no_passes": [FBANK_NO_PASSES],
+        "no_split": [FBANK_NO_SPLIT], "no_mel": [FBANK_NO_MEL],
+        "no_dct": [FBANK_NO_DCT],
+        "skeleton": [FBANK_NO_PASSES, FBANK_NO_SPLIT, FBANK_NO_MEL,
+                     FBANK_NO_DCT]}),
+}
+
+
+def fbank_split(card: str, entry: dict) -> None:
+    """The FFT design's variants at the serving shape (chip_smoke.py's
+    batch: 32 utterances of 3-8 s, one of 8 s, T=805), the unchanged
+    kernel first and last; the other CTA shapes also against the unchanged
+    kernel's output, which must be equal bit for bit."""
+    import numpy as np
+
+    from asr_study_torch.features.fbank import _MODES
+    from asr_study_torch.features.select import featurizer
+
+    dev = torch.device("cuda", 0)
+    rng = np.random.RandomState(0)
+    lens = rng.randint(48000, 128001, size=B)
+    lens[0] = 128000
+    n_pad = -(-int(lens.max()) // 2048) * 2048
+    w = torch.from_numpy(0.3 * rng.randn(B, n_pad).astype(np.float32))
+    w = w * (torch.arange(n_pad)[None, :] < torch.from_numpy(lens)[:, None])
+    feat = featurizer("mfcc", dev)
+    pre, t, _ = feat._prep(w.to(dev), torch.from_numpy(lens).to(dev))
+    ch = feat.chain
+    out = torch.empty(B, t, ch.num_out, device=dev)
+    n_mel, n_cep = ch.dct.shape
+    _, _, variants = FBANK_KERNELS["fbank_fft"]
+    shapes = ("warps4", "tile32", "warps4_tile32")
+    ref = None
+    for name in [*variants, "base"]:
+        def call(fn=entry["fbank_fft", name]):
+            err = fn(pre.data_ptr(), pre.shape[1], ch.window.data_ptr(),
+                     ch.twiddle.data_ptr(), ch.mel_packed.data_ptr(),
+                     ch.mel_packed.shape[0], ch.mel_bands.data_ptr(),
+                     ch.dct.data_ptr(), ch.lift.data_ptr(), out.data_ptr(),
+                     B, t, ch.frame_len, ch.frame_step, ch.nfft, n_mel,
+                     n_cep, ch.num_out, ch.floor, _MODES[ch.kind],
+                     int(ch.append_energy),
+                     torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise RuntimeError(f"fbank_fft {name}: launch failed ({err})")
+        call()
+        torch.cuda.synchronize()
+        note = ""
+        if ref is None:
+            ref = out.clone()
+        elif name in shapes:
+            if not torch.equal(out, ref):
+                raise RuntimeError(f"fbank_fft {name}: output differs from "
+                                   "the unchanged kernel's")
+            note = ", output bit-equal to base"
+        ms = time_ms(call, 20)
+        print(f"[{card}] fbank_fft, B={B} T={t} nfft={ch.nfft}, {name}: "
+              f"{ms:.4f} ms, {1e6 * ms / (B * t):.3f} ns a frame{note}")
+
+
 CTC_KERNELS = {
     "ctc_alpha": {
         "block": ("ctc.cu", "asr_ctc_alpha", {
@@ -418,12 +508,12 @@ def main() -> int:
 
     from asr_study_torch.ops.gru import gru
 
-    kernels = sys.argv[1:] or [*KERNELS, *CTC_KERNELS]
-    unknown = [k for k in kernels if k not in KERNELS
-               and k not in CTC_KERNELS]
+    names = [*KERNELS, *CTC_KERNELS, *FBANK_KERNELS]
+    kernels = sys.argv[1:] or names
+    unknown = [k for k in kernels if k not in names]
     if unknown:
         print(f"lstm_step_split: no kernel {unknown}; the kernels are "
-              f"{[*KERNELS, *CTC_KERNELS]}", file=sys.stderr)
+              f"{names}", file=sys.stderr)
         return 2
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -436,6 +526,9 @@ def main() -> int:
     for kernel in kernels:
         if kernel in CTC_KERNELS:
             ctc_split(card, kernel, entry)
+            continue
+        if kernel in FBANK_KERNELS:
+            fbank_split(card, entry)
             continue
         _, _, gates, t, variants = KERNELS[kernel]
         H = H_WIDE if "wide" in kernel else H_NARROW

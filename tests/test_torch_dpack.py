@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from asr_study_torch.data import wire
+from asr_study_torch.ops import dpack
 from asr_study_torch.ops.dpack import dpack_decode, dpack_decode_plain
 from asr_study_tpu.data import wire as jwire
 from asr_study_tpu.ops import pallas_dpack
@@ -142,12 +143,76 @@ def test_reads_past_the_payload_are_zero():
 
 
 def test_cpu_wrapper_takes_the_plain_version():
+    """On the CPU: the plain version, no launch counted, and no scratch for
+    the one-launch kernel's CTA totals."""
     flat, b, _, scap = _wire(_edge_batch())
     args = [torch.from_numpy(a) for a in _regions(flat, b, scap)]
     before = dpack_decode.launches
     assert torch.equal(dpack_decode(*args, scap),
                        dpack_decode_plain(*args, scap))
     assert dpack_decode.launches == before
+    assert not dpack._SCRATCH
+
+
+def _transpose16(words):
+    """csrc/dpack_onepass.cu's 16x16 bit-matrix transpose, 4 rounds of
+    masked swaps, on [16, ...] uint32 plane words -> d[i] bit p = words[p]
+    bit i."""
+    d = [w.copy() for w in words]
+    for s, mask in ((8, 0x00FF), (4, 0x0F0F), (2, 0x3333), (1, 0x5555)):
+        for p in range(16):
+            if p & s:
+                continue
+            t = ((d[p] >> s) ^ d[p + s]) & mask
+            d[p + s] ^= t
+            d[p] ^= t << s
+    return np.stack(d)
+
+
+def _onepass_model(payload, row_start, widths, scap, grid):
+    """The one-launch decode as the kernel runs it: CTA c owns blocks
+    [c nb / G, (c+1) nb / G); each CTA's delta total; its carry the totals
+    before it; each block scanned from the running carry; uint32 wrap."""
+    nb = scap // 4096
+    words = payload.astype(np.int64) & 0xFFFF
+    m = np.arange(256)
+
+    def deltas(j):
+        at = (row_start[j] + np.arange(16)[:, None]) * 256 + m[None, :]
+        live = ((np.arange(16)[:, None] < min(max(widths[j], 0), 16))
+                & (at >= 0) & (at < words.shape[0]))
+        planes = np.where(live, words[np.clip(at, 0, len(words) - 1)],
+                          0).astype(np.uint32)
+        u = _transpose16(planes)              # [16 samples i, 256 words m]
+        return ((u >> 1) ^ (0 - (u & 1))).astype(np.uint32).reshape(-1)
+
+    bounds = [nb * c // grid for c in range(grid + 1)]
+    totals = [np.uint32(sum(int(deltas(j).sum(dtype=np.uint64))
+                            for j in range(bounds[c], bounds[c + 1]))
+                        & 0xFFFFFFFF) for c in range(grid)]
+    out = np.empty(scap, np.float32)
+    for c in range(grid):
+        carry = sum(int(t) for t in totals[:c]) & 0xFFFFFFFF
+        for j in range(bounds[c], bounds[c + 1]):
+            v = (carry + np.cumsum(deltas(j), dtype=np.uint64)) & 0xFFFFFFFF
+            carry = int(v[-1])
+            s16 = ((v + 32768) & 0xFFFF).astype(np.int64) - 32768
+            out[j * 4096: (j + 1) * 4096] = s16 / 32768.0
+    return out
+
+
+@pytest.mark.parametrize("grid", [1, 4, 9])
+def test_onepass_model_equals_pallas_kernel(grid):
+    """A NumPy model of the one-launch kernel's block split, bit-matrix
+    transpose and carries, on 1, 4 and 9 CTAs (one block each at 9), against
+    the Pallas kernel in interpret mode, exactly."""
+    flat, b, _, scap = _wire(BATCHES["9 blocks"]())
+    payload, row_start, widths = _regions(flat, b, scap)
+    want = pallas_dpack.dpack_decode(
+        jnp.asarray(payload), jnp.asarray(row_start), jnp.asarray(widths),
+        scap, interpret=True)
+    got = _onepass_model(payload, row_start, widths, scap, grid)
+    np.testing.assert_array_equal(got, np.asarray(want))
 
 
 def test_decode_arguments_checked():

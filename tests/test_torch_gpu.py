@@ -14,7 +14,8 @@ from asr_study_torch import _build
 from asr_study_torch.cli.predict import pack_batches, serve_batch
 from asr_study_torch.data import wire
 from asr_study_torch.features.device import DeviceFeaturizer, spectral_plain
-from asr_study_torch.features.fbank import KernelFeaturizer, fbank
+from asr_study_torch.features.fbank import (KernelFeaturizer, chain_design,
+                                            fbank, launch_dft)
 from asr_study_torch.features.select import featurizer
 from asr_study_torch.models.zoo import (build_model, deep_blstm, deep_gru,
                                         graves2006)
@@ -92,6 +93,41 @@ def _wavs(seed, lengths, n_pad):
     return torch.from_numpy(w), torch.tensor(lengths, dtype=torch.int32)
 
 
+def _check_fbank(cuda, design, kind, kw, lengths, n_pad):
+    """One design against the plain version, two launches bit-equal: the
+    design the size rule picks through the wrapper (by_design counted), or
+    else the DFT design through its launch helper on the padded signal (the
+    wrapper's route for the shapes the FFT design does not take)."""
+    w, lens = _wavs(0, lengths, n_pad)
+    feat = KernelFeaturizer(kind=kind, device=cuda, **kw)
+    pre, t_out, _ = feat._prep(w.to(cuda), lens.to(cuda))
+    before, by_design = fbank.launches, dict(fbank.by_design)
+    if chain_design(feat.chain) == design:
+        got = fbank(feat.chain, pre, t_out)
+        again = fbank(feat.chain, pre, t_out)
+        by_design[design] += 2
+        before += 2
+    else:
+        need = (t_out - 1) * feat.chain.frame_step + feat.chain.frame_len
+        padded = torch.nn.functional.pad(pre, (0, max(0, need
+                                                      - pre.shape[1])))
+        got, again = (torch.empty(len(lengths), t_out, feat.chain.num_out,
+                                  device=cuda) for _ in range(2))
+        launch_dft(feat.chain, padded, t_out, got)
+        launch_dft(feat.chain, padded, t_out, again)
+    assert fbank.launches == before and fbank.by_design == by_design
+    want = spectral_plain(feat.chain, pre, t_out)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert got.shape == want.shape == (len(lengths), t_out,
+                                       feat.chain.num_out)
+    if kind == "fbank":      # linear energies: relative error
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-6)
+    else:                    # log domain (chip_smoke.py FBANK_TOL)
+        torch.testing.assert_close(got, want, rtol=0, atol=2e-3)
+
+
+@pytest.mark.parametrize("design", ["fft", "dft"])
 @pytest.mark.parametrize("kind,kw", [
     ("mfcc", {}),
     ("mfcc", {"convention": "librosa"}),
@@ -99,20 +135,50 @@ def _wavs(seed, lengths, n_pad):
     ("logfbank", {"append_energy": True}),
     ("fbank", {}),
 ])
-def test_fbank_kernel_matches_plain(cuda, kind, kw):
-    w, lens = _wavs(0, [9000, 5000, 700, 12000, 3], 12000)
-    feat = KernelFeaturizer(kind=kind, device=cuda, **kw)
-    pre, t_out, _ = feat._prep(w.to(cuda), lens.to(cuda))
-    before = fbank.launches
-    got = fbank(feat.chain, pre, t_out)
-    assert fbank.launches == before + 1
-    want = spectral_plain(feat.chain, pre, t_out)
-    torch.cuda.synchronize()
-    assert got.shape == want.shape == (5, t_out, feat.chain.num_out)
-    if kind == "fbank":      # linear energies: relative error
-        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-6)
-    else:                    # log domain (chip_smoke.py FBANK_TOL)
-        torch.testing.assert_close(got, want, rtol=0, atol=2e-3)
+def test_fbank_kernel_matches_plain(cuda, kind, kw, design):
+    _check_fbank(cuda, design, kind, kw, [9000, 5000, 700, 12000, 3],
+                 12000)
+
+
+@pytest.mark.parametrize("design", ["fft", "dft"])
+@pytest.mark.parametrize("nfft", [256, 512, 1024, 2048])
+def test_fbank_kernel_fft_sizes(cuda, nfft, design):
+    """frame_len equal to nfft: every sample of the transform is live."""
+    _check_fbank(cuda, design, "mfcc", {"nfft": nfft,
+                                        "win_len": nfft / 16000},
+                 [9000, 5000, 700, 12000, 3], 12000)
+
+
+@pytest.mark.parametrize("design", ["fft", "dft"])
+def test_fbank_kernel_near_the_shared_memory_limit(cuda, design):
+    """2048-sample frames a hop of 480 apart: the FFT design's CTA takes
+    203,168 B of the 227 KB it may hold."""
+    _check_fbank(cuda, design, "mfcc", {"nfft": 2048, "win_len": 0.128,
+                                        "win_step": 0.03},
+                 [9000, 5000, 700, 12000, 3], 12000)
+
+
+@pytest.mark.parametrize("design", ["fft", "dft"])
+@pytest.mark.parametrize("lengths,n_pad", [([400], 400), ([12000], 12000),
+                                           ([3], 2048)],
+                         ids=["T=1", "B=1", "3 samples"])
+def test_fbank_kernel_edge_shapes(cuda, lengths, n_pad, design):
+    _check_fbank(cuda, design, "mfcc", {}, lengths, n_pad)
+
+
+@pytest.mark.parametrize("kw", [
+    {"nfft": 400}, {"nfft": 256},
+    {"nfft": 2048, "win_len": 0.128, "win_step": 0.064}],
+    ids=["nfft 400", "frame past nfft", "tile past shared memory"])
+def test_fbank_kernel_dft_route(cuda, kw):
+    """The shapes the size rule sends to the DFT design, through the
+    wrapper: nfft not a power of two; a 400-sample frame over nfft=256;
+    2048-sample frames a hop of 1024 apart, whose FFT-design tile would
+    not fit in a CTA's shared memory."""
+    feat = KernelFeaturizer(kind="mfcc", device=cuda, **kw)
+    assert chain_design(feat.chain) == "dft"
+    _check_fbank(cuda, "dft", "mfcc", kw, [9000, 5000, 700, 12000, 3],
+                 12000)
 
 
 # shapes ragged for the cluster design's tiling (ops/bilstm.py
@@ -212,11 +278,19 @@ def _dpack_case(name):
 
 
 @pytest.mark.parametrize("name", ["width extremes", "100", "12281", "36859",
-                                  "53247"])
+                                  "53247", "48 rows of 8 s"])
 def test_dpack_kernel_matches_plain(cuda, name):
-    """The whole [scap] stream bit for bit, and the unpacked batch equal to
-    the pcm16 wire's."""
-    wavs = _dpack_case(name)
+    """The one-launch design: the whole [scap] stream bit for bit against
+    the plain version and the two-launch design (csrc/dpack.cu through its
+    C entry point), and the unpacked batch equal to the pcm16 wire's.  48
+    rows of 8 s are ~1,500 dpack blocks, more than the cooperative grid
+    has CTAs."""
+    if name == "48 rows of 8 s":
+        rng = np.random.RandomState(48)
+        wavs = [(rng.randn(128000) * 0.2).astype(np.float32)
+                for _ in range(48)]
+    else:
+        wavs = _dpack_case(name)
     b = len(wavs)
     cap, scap = wire.dpack_measure([wavs], b, align=256)
     flat = torch.from_numpy(wire.pack_audio(wavs, cap, batch=b,
@@ -227,13 +301,44 @@ def test_dpack_kernel_matches_plain(cuda, name):
     got = dpack_decode(*args)
     assert dpack_decode.launches == before + 1
     want = dpack_decode_plain(*args)
+    payload, row_start, widths = args[:3]
+    two = torch.empty(scap, dtype=torch.float32, device=cuda)
+    totals = torch.empty(scap // 4096, dtype=torch.int32, device=cuda)
+    assert _build.lib().asr_dpack_decode(
+        payload.data_ptr(), payload.shape[0], row_start.data_ptr(),
+        widths.data_ptr(), totals.data_ptr(), two.data_ptr(), scap // 4096,
+        torch.cuda.current_stream().cuda_stream) == 0
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+    assert torch.equal(got, two)
     n_pad = -(-max(len(w) for w in wavs) // 2048) * 2048
     pcm = wire.pack_audio(wavs, wire.wire_cap(b, sum(map(len, wavs))))
     w_d, l_d = wire.unpack_audio(flat, b, n_pad, codec="dpack", scap=scap)
     w_p, l_p = wire.unpack_audio(torch.from_numpy(pcm).to(cuda), b, n_pad)
     assert torch.equal(w_d, w_p) and torch.equal(l_d, l_p)
+
+
+def test_dpack_kernel_on_two_streams(cuda):
+    """Decodes on two streams at once, each with its own scratch of CTA
+    totals: both bit for bit against the plain version."""
+    rng = np.random.RandomState(7)
+    wavs = [(rng.randn(n) * 0.2).astype(np.float32)
+            for n in (128000, 96000, 64000, 48000)]
+    cap, scap = wire.dpack_measure([wavs], len(wavs), align=256)
+    flat = torch.from_numpy(wire.pack_audio(wavs, cap, batch=len(wavs),
+                                            codec="dpack",
+                                            scap=scap)).to(cuda)
+    args = (*wire.dpack_regions(flat, len(wavs), scap), scap)
+    want = dpack_decode_plain(*args)
+    streams = [torch.cuda.Stream(cuda) for _ in range(2)]
+    torch.cuda.synchronize()
+    got = []
+    for _ in range(20):
+        for s in streams:
+            with torch.cuda.stream(s):
+                got.append(dpack_decode(*args))
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, want) for g in got)
 
 
 def test_dpack_serving_slice_launches(cuda):
