@@ -6,14 +6,16 @@ counterpart's name and layout so the two can be read side by side.  This
 package imports ``torch`` and never ``jax``, and nothing of the JAX package:
 the host modules it needs from there are copies of its own
 (``features/audio.py``, ``features/wav.py``, ``text/parser.py``,
-``utils/hparams.py``, ``utils/metrics_writer.py``).
+``utils/hparams.py``, ``utils/metrics_writer.py``, ``data/corpora.py``,
+``data/dataset_parser.py``, the host ``wer`` and ``cer`` of
+``ops/metrics.py``).
 
 The serving path ported so far (BASELINE config 2, and ``deep_gru``):
 
     pcm16, dpack or mulaw wire
                 -> data/wire.unpack_audio (dpack: ops/dpack.dpack_decode,
-                   csrc/dpack.cu)
-                -> features (MFCC + deltas; csrc/fbank.cu)
+                   csrc/dpack_onepass.cu)
+                -> features (MFCC + deltas; csrc/fbank_fft.cu)
                 -> models/zoo deep_blstm (csrc/bilstm_fwd.cu per layer;
                    deep_speech's 512-unit layer: csrc/lstm_wide_fwd.cu)
                    or deep_gru (csrc/gru_fwd.cu per layer)
@@ -22,14 +24,17 @@ The serving path ported so far (BASELINE config 2, and ``deep_gru``):
 
 and the training path (BASELINE config 3, and ``deep_gru``):
 
-    data/generator batches -> train/loop.fit -> train/trainer.train_step:
+    cli/make_dataset (data/corpora -> a JSON-lines manifest)
+        -> cli/train: data/generator.flow_from_json (host features)
+        -> train/loop.fit -> train/trainer.train_step:
         deep_blstm (ops/bilstm.BiLSTMFunction: csrc/bilstm_fwd.cu forward,
         csrc/bilstm_bwd.cu backward; at H=512 csrc/lstm_wide_fwd.cu and
         csrc/lstm_wide_bwd.cu) or deep_gru (ops/gru.BiGRUFunction
         and GRUFunction: csrc/gru_fwd.cu forward, csrc/gru_bwd.cu
-        backward) -> ops/ctc.ctc_loss (CTCNLL: csrc/ctc.cu alpha forward,
-        beta backward) -> clip -> Adam
+        backward) -> ops/ctc.ctc_loss (CTCNLL: csrc/ctc_warp.cu alpha
+        forward, beta backward) -> clip -> Adam
                 -> train/checkpoint.CheckpointManager
+        -> cli/eval (forward, CTC loss, greedy decode; CER and WER)
 
 Each hand-written CUDA kernel is compiled with ``nvcc`` at first use
 (``_build.py``) and has a plain PyTorch version beside it, which runs for

@@ -37,10 +37,6 @@ from asr_study_torch.ops.ctc import greedy_decode
 from asr_study_torch.text.parser import CharParser
 from asr_study_torch.utils.weights import load_npz, params_from_flat
 
-# host (NumPy oracle) feature classes by --input_parser name
-ORACLE_FEATURES = {"mfcc": audio.MFCC, "logfbank": audio.LogFbank,
-                   "fbank": audio.FBank}
-
 
 def build_argparser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="Transcribe wav files")
@@ -210,10 +206,10 @@ def main(argv=None) -> int:
         wavs = [read_wav(p, sr=feat.fs)[0] for p in args.wavs]
         ids = predict_on_device(model, feat, wavs, args.batch_size, codec)
     else:
-        if args.input_parser not in ORACLE_FEATURES:
+        if args.input_parser not in audio.FEATURES:
             raise SystemExit(f"unknown --input_parser {args.input_parser!r}; "
-                             f"have {sorted(ORACLE_FEATURES)}")
-        feature = ORACLE_FEATURES[args.input_parser](**feat_kw)
+                             f"have {sorted(audio.FEATURES)}")
+        feature = audio.FEATURES[args.input_parser](**feat_kw)
         _check_feats(args.input_parser, feature.num_feats, model)
         ids = predict_host_features(model, feature, args.wavs, device)
     for path, seq in zip(args.wavs, ids):

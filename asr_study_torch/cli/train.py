@@ -1,0 +1,245 @@
+"""Training CLI (port of ``asr_study_tpu/cli/train.py``).
+
+    python -m asr_study_torch.cli.train --dataset m.json --model deep_blstm \\
+        --epochs 20 --save runs/exp1
+
+The JAX CLI's flags keep their names; ``--platform`` is ``--device`` (a
+torch device, ``cuda`` unless asked for the CPU).  The run directory, its
+automatic name, its ``meta.json`` hparams and the training semantics
+(train and valid splits, early stop, the staircase decay, resume, warm
+start, SortaGrad) are the JAX CLI's.  Options the port does not have yet
+are refused, before the dataset is read, with the ROADMAP item that brings
+them.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+
+import torch
+
+from asr_study_torch.cli.data_flow import (
+    DEVICE_FEATURES_ITEM, flow_from_arg, host_feature, parser_for_training,
+    require_manifest, require_port_run, resolve_device)
+from asr_study_torch.data.generator import DatasetGenerator
+from asr_study_torch.models.zoo import build_model
+from asr_study_torch.train.checkpoint import CheckpointManager
+from asr_study_torch.train.loop import fit
+from asr_study_torch.train.trainer import Trainer, make_optimizer
+
+# run-dir tags, in the JAX CLI's order
+_NAME_TAGS = ("params", "batch_size", "opt", "lr", "clipnorm", "bf16",
+              "lr_decay", "early_stop", "accum_steps", "lr_plateau")
+
+
+def build_argparser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description="Train a CTC acoustic model")
+    p.add_argument("--dataset", required=True,
+                   help="a .json / .jsonl manifest (features extracted on "
+                        "the host with --input_parser)")
+    p.add_argument("--input_parser", default="mfcc",
+                   help="feature extractor (fbank|logfbank|mfcc)")
+    p.add_argument("--input_params", default=None,
+                   help="feature kwargs as JSON")
+    p.add_argument("--model", default="graves2006")
+    p.add_argument("--params", default=None,
+                   help='hparam overrides, e.g. '
+                        '"num_hiddens=256,num_layers=3"')
+    p.add_argument("--batch_size", type=int, default=32)
+    p.add_argument("--epochs", type=int, default=20)
+    p.add_argument("--opt", default="adam")
+    p.add_argument("--lr", type=float, default=1e-3)
+    p.add_argument("--clipnorm", type=float, default=400.0)
+    p.add_argument("--lr_decay", type=float, default=0.0,
+                   help="staircase LR decay per epoch, e.g. 0.95 "
+                        "(0 = constant lr)")
+    p.add_argument("--lr_plateau", type=float, default=0.0)
+    p.add_argument("--lr_patience", type=int, default=3)
+    p.add_argument("--accum_steps", type=int, default=1)
+    p.add_argument("--early_stop", type=int, default=0,
+                   help="stop when --monitor has not improved for N "
+                        "epochs (0 = off)")
+    p.add_argument("--monitor", default="val_loss",
+                   choices=["val_loss", "val_ler"],
+                   help="validation metric driving the 'best' checkpoint "
+                        "and --early_stop (lower is better)")
+    p.add_argument("--save", default=None,
+                   help="checkpoint/log dir (default: runs/<name> from the "
+                        "model and the non-default args)")
+    p.add_argument("--resume", nargs="?", const="latest", default="",
+                   choices=["", "latest", "auto"],
+                   help="resume from the latest checkpoint in --save: "
+                        "'latest' (bare --resume; errors if none exists) or "
+                        "'auto' (resume when one exists, else start fresh)")
+    p.add_argument("--init_from", default=None,
+                   help="warm-start the weights from another run dir of "
+                        "the port (its best checkpoint if kept, else "
+                        "latest); the optimizer starts fresh at step 0")
+    p.add_argument("--num_devices", type=int, default=0,
+                   help="data-parallel devices (0 or 1: one)")
+    p.add_argument("--tp_devices", type=int, default=1)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--profile", action="store_true")
+    p.add_argument("--tensorboard", action="store_true",
+                   help="also write TensorBoard event files to <run>/tb")
+    p.add_argument("--log_every", type=int, default=10)
+    p.add_argument("--device", default="cuda",
+                   help="torch device to train on (default cuda)")
+    p.add_argument("--check_nans", action="store_true")
+    p.add_argument("--bf16", action="store_true")
+    p.add_argument("--vocab", default=None,
+                   help="label vocabulary: preset name (pt_br, "
+                        "pt_br_apostrophe) or literal characters")
+    p.add_argument("--device_features", nargs="?", const="mfcc",
+                   default=None, choices=["fbank", "logfbank", "mfcc"])
+    p.add_argument("--device_feature_params", default=None)
+    p.add_argument("--sortagrad", action="store_true",
+                   help="first epoch in ascending-duration batch order")
+    p.add_argument("--wav_augment", nargs="?", const="", default=None)
+    p.add_argument("--spec_augment", nargs="?", const="", default=None)
+    return p
+
+
+def _refuse_unported(args) -> None:
+    """Every option the port does not have yet, by its ROADMAP item."""
+    a5 = "is not ported to asr_study_torch yet (ROADMAP queue A item 5)"
+    a9 = "is not ported to asr_study_torch yet (ROADMAP queue A item 9)"
+    refusals = [
+        (args.device_features is not None,
+         f"--device_features: in-step device features are not ported to "
+         f"asr_study_torch yet ({DEVICE_FEATURES_ITEM})"),
+        (args.spec_augment is not None, f"--spec_augment {a9}"),
+        (args.wav_augment is not None, f"--wav_augment {a9}"),
+        (args.num_devices > 1,
+         "--num_devices > 1: data parallelism is not ported to "
+         "asr_study_torch yet (ROADMAP queue A item 12)"),
+        (args.tp_devices > 1,
+         "--tp_devices > 1: tensor parallelism is not ported to "
+         "asr_study_torch yet (ROADMAP queue A item 13)"),
+        (args.opt != "adam", f"--opt {args.opt}: only adam; the rest {a5}"),
+        (args.accum_steps > 1, f"--accum_steps > 1 {a5}"),
+        (bool(args.lr_plateau), f"--lr_plateau {a5}"),
+        (args.bf16, f"--bf16 {a5}"),
+        (args.profile, f"--profile {a5}"),
+        (args.check_nans, f"--check_nans {a5}"),
+    ]
+    for refused, why in refusals:
+        if refused:
+            raise SystemExit(why)
+    require_manifest(args.dataset)
+
+
+def run_dir(args) -> str:
+    """``runs/<model>_<k=v of each non-default tag>``, as the JAX CLI
+    names it."""
+    defaults = build_argparser().parse_args(["--dataset", args.dataset])
+    tags = [args.model]
+    for k in _NAME_TAGS:
+        v = getattr(args, k)
+        # `is not False`, not `not in (None, False)`: 0 == False, and a
+        # zero override (--clipnorm 0) must still tag the run dir
+        if v != getattr(defaults, k) and v is not None and v is not False:
+            tags.append(f"{k}={v}")
+    safe = "".join(c if c.isalnum() or c in "=._-" else "_"
+                   for c in "_".join(tags))
+    return os.path.join("runs", safe)
+
+
+def main(argv=None) -> int:
+    args = build_argparser().parse_args(argv)
+    _refuse_unported(args)
+    device = resolve_device(args.device)
+    if args.save is None:
+        args.save = run_dir(args)
+        print(f"run dir: {args.save}", file=sys.stderr)
+    for d in (args.save, args.init_from):
+        if d:
+            require_port_run(d)
+    if args.init_from and args.resume:
+        raise SystemExit("--init_from and --resume are exclusive")
+
+    label_parser = parser_for_training(args.dataset, args.vocab)
+    feature = host_feature(args.input_parser, args.input_params)
+    model = build_model(args.model, args.params,
+                        num_classes=label_parser.num_classes,
+                        input_dim=feature.num_feats,
+                        generator=torch.Generator().manual_seed(args.seed),
+                        device=device)
+
+    gen = DatasetGenerator(batch_size=args.batch_size)
+    train_it = flow_from_arg(gen, args.dataset, "train", label_parser,
+                             args.input_parser, args.input_params)
+    try:
+        valid_it = flow_from_arg(gen, args.dataset, "valid", label_parser,
+                                 args.input_parser, args.input_params)
+    except ValueError as e:
+        # only the generator's "no usable valid data" means training
+        # without validation; anything else must surface
+        if "empty dataset" not in str(e):
+            raise
+        valid_it = None
+    if args.early_stop and valid_it is None:
+        raise SystemExit(
+            "--early_stop requires a 'valid' split in the dataset "
+            "(val_loss drives the stopping decision)")
+
+    try:
+        spec = make_optimizer(
+            args.opt, args.lr, args.clipnorm, lr_decay=args.lr_decay,
+            decay_steps=(train_it.steps_per_epoch if args.lr_decay else 0),
+            accum_steps=args.accum_steps, plateau_factor=args.lr_plateau)
+    except NotImplementedError as e:
+        raise SystemExit(str(e)) from None
+    trainer = Trainer(model, spec)
+    state = trainer.init_state()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"{args.model}: {n_params:,} parameters on {device}",
+          file=sys.stderr)
+    if args.init_from:
+        src = CheckpointManager(args.init_from)
+        # the best checkpoint if the source run kept one, else latest
+        use_best = src.best_step is not None
+        model.load_state_dict(src.restore_params(model.state_dict(),
+                                                 best=use_best))
+        print(f"warm-started weights from {args.init_from} "
+              f"({'best' if use_best else 'latest'} checkpoint)",
+              file=sys.stderr)
+    ckpt = CheckpointManager(args.save, best_metric=args.monitor)
+    if args.resume:
+        if ckpt.latest_step is not None:
+            state = ckpt.restore(state)
+            print(f"resumed from step {state.step}", file=sys.stderr)
+        elif args.resume == "latest":
+            raise SystemExit(
+                f"--resume: no checkpoint found in {args.save} "
+                "(use '--resume auto' to start fresh when none exists)")
+
+    hparams = {
+        "model": args.model, "params": args.params,
+        "batch_size": args.batch_size, "opt": args.opt, "lr": args.lr,
+        "clipnorm": args.clipnorm, "num_devices": 1, "tp_devices": 1,
+        "bf16": args.bf16, "lr_decay": args.lr_decay,
+        "early_stop": args.early_stop, "accum_steps": args.accum_steps,
+        "lr_plateau": args.lr_plateau,
+        "monitor": args.monitor,
+        "spec_augment": args.spec_augment,
+        "wav_augment": args.wav_augment,
+        "sortagrad": args.sortagrad,
+        "device_features": args.device_features,
+        "device_feature_params": args.device_feature_params,
+        "num_feats": train_it.num_feats,
+        "num_classes": label_parser.num_classes,
+        "vocab": label_parser.vocab,
+    }
+    fit(trainer, state, train_it, valid_it, epochs=args.epochs,
+        seed=args.seed, ckpt=ckpt, hparams=hparams, log_dir=args.save,
+        log_every=args.log_every, tensorboard=args.tensorboard,
+        early_stop_patience=args.early_stop, sortagrad=args.sortagrad,
+        monitor=args.monitor)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,6 +1,6 @@
 """Length-bucketed, padded batches (numpy copy of
-``asr_study_tpu/data/generator.py`` ``Batch``, ``DatasetGenerator.flow`` and
-``DatasetIterator``).
+``asr_study_tpu/data/generator.py`` ``Batch``, ``DatasetGenerator.flow``,
+``flow_from_json`` and ``DatasetIterator``).
 
 A copy because importing any ``asr_study_tpu.data`` module runs that
 package's ``__init__``, which imports ``h5py``, absent on the machine with
@@ -10,16 +10,21 @@ axes are rounded up to multiples, a ragged last batch is padded with
 zero-weight rows that still hold a valid CTC problem, and each epoch
 shuffles the bucket order with ``np.random.default_rng(seed)``.
 
-The HDF5 and JSON-manifest sources (``flow_from_h5``, ``flow_from_json``)
-come with the data layer, ROADMAP queue A item 7.
+``flow_from_json`` streams a JSON-lines manifest (``DatasetParser.to_json``)
+and extracts each utterance's features on the host, as the JAX generator
+does.  The HDF5 source (``flow_from_h5``) is ROADMAP queue A item 7's HDF5
+part.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 from typing import Iterator, List, Optional, Sequence
 
 import numpy as np
+
+from asr_study_torch.data.dataset_parser import HDF5_ITEM
 
 
 def _round_up(x: int, multiple: int) -> int:
@@ -74,14 +79,31 @@ class DatasetGenerator:
         return DatasetIterator(self, list(inputs), list(labels), texts)
 
     def flow_from_h5(self, *args, **kwargs) -> "DatasetIterator":
-        raise NotImplementedError(
-            "HDF5 datasets come with the port's data layer (ROADMAP queue A "
-            "item 7)")
+        raise NotImplementedError(HDF5_ITEM)
 
-    def flow_from_json(self, *args, **kwargs) -> "DatasetIterator":
-        raise NotImplementedError(
-            "JSON-manifest datasets come with the port's data layer "
-            "(ROADMAP queue A item 7)")
+    def flow_from_json(self, json_path: str, input_parser, label_parser,
+                       split: Optional[str] = None) -> "DatasetIterator":
+        """Stream a JSON-lines manifest, extracting features on the host.
+        ``split=None`` takes every utterance; otherwise filter by the
+        manifest's ``split`` field (missing fields count as 'train').
+        Transcripts ``label_parser`` rejects are skipped."""
+        inputs, labels, texts = [], [], []
+        with open(json_path) as f:
+            for line in f:
+                line = line.strip()
+                if not line:
+                    continue
+                utt = json.loads(line)
+                if split and utt.get("split", "train") != split:
+                    continue
+                if not label_parser.is_valid(utt["label"]):
+                    continue
+                inputs.append(np.ascontiguousarray(input_parser(utt["audio"]),
+                                                   dtype=np.float32))
+                ids = np.asarray(label_parser(utt["label"]), np.int32)
+                labels.append(ids)
+                texts.append(label_parser.imap(ids))
+        return self.flow(inputs, labels, texts)
 
 
 class DatasetIterator:
@@ -103,6 +125,10 @@ class DatasetIterator:
             order[i: i + gen.batch_size]
             for i in range(0, len(order), gen.batch_size)
         ]
+
+    @property
+    def num_samples(self) -> int:
+        return len(self.inputs)
 
     @property
     def num_feats(self) -> int:
@@ -159,3 +185,16 @@ class DatasetIterator:
 
     def __iter__(self) -> Iterator[Batch]:
         return self.epoch()
+
+    def padded_shapes(self) -> "set[tuple[int, int]]":
+        """The (T, L) padded shapes this iterator's batches take."""
+        gen = self.gen
+        shapes = set()
+        for idx in self._batches:
+            t = max(gen.min_time,
+                    _round_up(max(self._row_lengths[i] for i in idx),
+                              gen.time_multiple))
+            l = _round_up(max(len(self.labels[i]) for i in idx),
+                          gen.label_multiple)
+            shapes.add((t, l))
+        return shapes

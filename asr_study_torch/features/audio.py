@@ -529,3 +529,8 @@ class MFCC(_SpectralFeature):
         if self.dd:
             out.append(delta(out[-1], 2))
         return np.hstack(out)
+
+
+# the host feature classes by ``--input_parser`` name, for every CLI of the
+# port (the JAX package's ``register("feature")`` names, ``raw`` left out)
+FEATURES = {"mfcc": MFCC, "logfbank": LogFbank, "fbank": FBank}

@@ -1,5 +1,6 @@
-"""Label error metrics on the device (port of
-``asr_study_tpu/ops/metrics.py`` ``edit_distance`` and ``ler``).
+"""Label error metrics: on the device (port of
+``asr_study_tpu/ops/metrics.py`` ``edit_distance`` and ``ler``) and on
+the host (``wer`` and ``cer`` over transcripts, copied).
 
 The row-wise Levenshtein recurrence ``new[j] = min(row[j] + 1,
 new[j-1] + 1, row[j-1] + cost)`` depends on ``new[j-1]``; with
@@ -9,6 +10,8 @@ JAX version is XLA, not a Pallas kernel.
 """
 
 from __future__ import annotations
+
+from typing import List, Sequence
 
 import torch
 
@@ -46,3 +49,41 @@ def ler(hyp: torch.Tensor, hyp_lengths: torch.Tensor, ref: torch.Tensor,
     dist = edit_distance(hyp, hyp_lengths, ref, ref_lengths)
     return dist.to(torch.float32) / torch.clamp(
         ref_lengths.to(device=dist.device, dtype=torch.float32), min=1.0)
+
+
+# ---------------------------------------------------------------------------
+# host metrics over decoded strings (copied from asr_study_tpu/ops/metrics.py
+# ``_levenshtein_py``, ``wer`` and ``cer``, without the native-library
+# dispatch: the same distances from the pure-Python DP)
+# ---------------------------------------------------------------------------
+
+def _levenshtein_py(a: Sequence, b: Sequence) -> int:
+    """Levenshtein distance between two token sequences."""
+    if len(a) < len(b):
+        a, b = b, a
+    prev = list(range(len(b) + 1))
+    for i, x in enumerate(a):
+        cur = [i + 1]
+        for j, y in enumerate(b):
+            cur.append(min(prev[j + 1] + 1, cur[j] + 1, prev[j] + (x != y)))
+        prev = cur
+    return prev[-1]
+
+
+def wer(hyps: List[str], refs: List[str]) -> float:
+    """Corpus word error rate over decoded transcripts."""
+    errs = tot = 0
+    for h, r in zip(hyps, refs):
+        rw = r.split()
+        errs += _levenshtein_py(h.split(), rw)
+        tot += len(rw)
+    return errs / max(tot, 1)
+
+
+def cer(hyps: List[str], refs: List[str]) -> float:
+    """Corpus character error rate over decoded transcripts."""
+    errs = tot = 0
+    for h, r in zip(hyps, refs):
+        errs += _levenshtein_py(list(h), list(r))
+        tot += len(r)
+    return errs / max(tot, 1)

@@ -2,11 +2,13 @@
 checkpoint per epoch, logging, early stop (port of
 ``asr_study_tpu/train/loop.py`` ``fit``).
 
-Host work per step is the batch hand-off: each field goes from pinned
-memory to the device without blocking, on the current stream (the JAX
-loop's ``device_prefetch``).  The epoch loss is summed on the device, and
-the metrics of a logged step are fetched one log step late, so the host
-never waits on the step it has just enqueued.
+Host work per step is the batch hand-off: the iterator pads the next
+batch and each field goes from pinned memory to the device without
+blocking, on the current stream.  The epoch loss is summed on the device,
+and the metrics of a logged step are fetched one log step late, so the
+host never waits on the step it has just enqueued and runs ahead of the
+card (a worker thread building batches ahead gained nothing: the corpus
+phase of ``chip_smoke.py`` times both).
 """
 
 from __future__ import annotations

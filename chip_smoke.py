@@ -30,7 +30,13 @@ paths at full width, with random weights from a seeded
   bidirectional and unidirectional (the wide GRU kernels), and
   ``ln_blstm``, ``zoneout_blstm`` (train mode at zoneout 0.1/0.1, the mix
   weights drawn on the card) and ``mi_blstm``, each 3x256 bidirectional and
-  unidirectional, dropout 0.
+  unidirectional, dropout 0;
+- training from a corpus through the CLIs' ``main(argv)`` (BASELINE config
+  3 with its variable-length bucketed batches): ``cli.make_dataset``
+  writes a manifest of 800 SynthWords utterances, ``cli.train`` trains
+  ``deep_blstm`` at its zoo defaults (3x256, dropout 0.2) from it for 3
+  epochs and one more with ``--resume``, ``cli.eval`` scores its valid and
+  test splits.
 
 Phases, in order; any failure raises and the exit code is not 0:
 
@@ -91,7 +97,14 @@ Phases, in order; any failure raises and the exit code is not 0:
    checkpoint saved, restored and continued;
 7. training timings: ms per step, steps/s, audio-s/s, per-stage ms (the
    deep_blstm step's CTC stage split into its pieces), the device busy
-   share.
+   share;
+8. the corpus phase: each CLI run's launches held to what its steps and
+   evals need, every logged loss finite and the train loss falling from
+   the first epoch to the third, the step count continued by ``--resume``,
+   eval's valid loss equal to the run's last ``val_loss``, finite test
+   CER and WER; the host seconds of the synthesis and of the manifest's
+   features, ms per train step (CUDA events) and audio-s/s, eval ms per
+   batch.
 
 The deep_blstm pcm16 slice's wire unpack and features stage are split
 with CUDA events (``_prep``, fbank, the two deltas, ``_finalize``), and
@@ -107,14 +120,18 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import csv
 import importlib.util
 import dataclasses
+import io
 import json
 import math
 import os
+import queue
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from typing import NamedTuple
 
@@ -199,6 +216,12 @@ PEAK_HBM = 3.35e12
 TRAIN_B, TRAIN_T, TRAIN_L, TRAIN_LAYERS, FEATS = 32, 512, 48, 3, 39
 TRAIN_STEPS = 20                 # steps on one fixed batch
 AUDIO_PER_STEP = TRAIN_B * TRAIN_T * 0.01   # 10 ms frames: 163.84 s
+
+# the corpus phase: BASELINE config 3 from a SynthWords manifest through the
+# CLIs (deep_blstm at its zoo defaults, 3x256, dropout 0.2; Adam 1e-3, clip
+# 400): 640 train, 80 valid and 80 test utterances of 3-8 words
+CORPUS_N, CORPUS_EPOCHS, CORPUS_B = 800, 3, 32
+CORPUS_LOSS_RTOL = 1e-5          # eval's valid loss against the last val_loss
 
 
 def synth_batch(rng: np.random.RandomState, max_len: bool = False):
@@ -3580,6 +3603,319 @@ def ctc_stage_split(card: str, model, batch, gen: torch.Generator) -> None:
           + f"; sum {sum(parts.values()):.4f} ms")
 
 
+class CliTap:
+    """Inside ``record()``: CUDA events around every ``Trainer.train_step``
+    and ``cli.eval.eval_batch`` call, with the batch's padded T, and the
+    host seconds and iterators of every ``DatasetGenerator.flow_from_json``
+    call (the manifest's features), as the CLIs make them; nothing else
+    changes."""
+
+    def __init__(self):
+        self.steps, self.evals, self.flows = [], [], []
+        self.features_s = 0.0
+
+    @contextlib.contextmanager
+    def record(self):
+        from asr_study_torch.cli import eval as cli_eval
+        from asr_study_torch.data.generator import DatasetGenerator
+        from asr_study_torch.train.trainer import Trainer
+
+        real_step, real_eval = Trainer.train_step, cli_eval.eval_batch
+        real_flow = DatasetGenerator.flow_from_json
+
+        def timed(fn, into, inputs_at):
+            def call(*args, **kwargs):
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                ev[0].record()
+                out = fn(*args, **kwargs)
+                ev[1].record()
+                into.append((ev, args[inputs_at].shape[1]))
+                return out
+            return call
+
+        def flow(gen, *args, **kwargs):
+            t0 = time.perf_counter()
+            it = real_flow(gen, *args, **kwargs)
+            self.features_s += time.perf_counter() - t0
+            self.flows.append((kwargs.get("split"), it))
+            return it
+
+        Trainer.train_step = timed(real_step, self.steps, 2)
+        cli_eval.eval_batch = timed(real_eval, self.evals, 1)
+        DatasetGenerator.flow_from_json = flow
+        try:
+            yield self
+        finally:
+            Trainer.train_step, cli_eval.eval_batch = real_step, real_eval
+            DatasetGenerator.flow_from_json = real_flow
+
+    @staticmethod
+    def epoch_windows(timed, spe: int) -> list:
+        """ms from the first step's start event to the last step's end
+        event of each epoch of ``spe`` steps: the steps and the host's
+        gaps between them (batches, copies, log fetches), not the
+        validation and checkpoint after the epoch."""
+        torch.cuda.synchronize()
+        return [timed[e][0][0].elapsed_time(timed[e + spe - 1][0][1])
+                for e in range(0, len(timed), spe)]
+
+    @staticmethod
+    def ms(timed) -> tuple[list, str]:
+        """-> (ms of each call, the mean ms by padded T as text)."""
+        torch.cuda.synchronize()
+        ms = [a.elapsed_time(b) for (a, b), _ in timed]
+        by_t = {}
+        for m, (_, t) in zip(ms, timed):
+            by_t.setdefault(t, []).append(m)
+        return ms, ", ".join(f"T={t} {np.mean(v):.4f} (x{len(v)})"
+                             for t, v in sorted(by_t.items()))
+
+
+def threaded_batches(batches, depth: int = 2):
+    """``batches`` built by a daemon thread up to ``depth`` ahead of the
+    consumer, in order, a worker's error re-raised at the consumer: the
+    training loop's alternative that the corpus phase times against the
+    loop's plain iteration."""
+    q: "queue.Queue" = queue.Queue(maxsize=depth)
+    done, stop = object(), threading.Event()
+
+    def put(item) -> bool:
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                pass
+        return False
+
+    def worker():
+        try:
+            for b in batches:
+                if not put(b):
+                    return
+        except BaseException as e:  # re-raised by the consumer
+            put(e)
+            return
+        put(done)
+
+    t = threading.Thread(target=worker, daemon=True)
+    t.start()
+    try:
+        while (item := q.get()) is not done:
+            if isinstance(item, BaseException):
+                raise item
+            yield item
+    finally:
+        stop.set()
+        t.join()
+
+
+def corpus_phase(card: str) -> list:
+    """BASELINE config 3 from a corpus, through the CLIs' ``main(argv)``:
+    make_dataset (a SynthWords manifest), train (deep_blstm at its zoo
+    defaults, CORPUS_EPOCHS epochs from the manifest), train --resume (one
+    more epoch), eval on the valid and test splits; the launch counts of
+    each held to what its steps and evals need; then fresh train runs in
+    turns with the loop's batches straight from the iterator, as ``fit``
+    takes them, and built ahead by a worker thread -> each counted CLI
+    run's launches."""
+    from asr_study_torch.data.generator import DatasetGenerator
+    from asr_study_torch.cli import eval as cli_eval
+    from asr_study_torch.cli import make_dataset
+    from asr_study_torch.cli import train as cli_train
+
+    runs = []
+    with tempfile.TemporaryDirectory() as tmp:
+        manifest = os.path.join(tmp, "m.json")
+        run_dir = os.path.join(tmp, "run")
+        t0 = time.perf_counter()
+        require(make_dataset.main([
+            "--parser", "synthwords", "--dataset_dir",
+            os.path.join(tmp, "corpus"), "--corpus_params",
+            json.dumps({"n": CORPUS_N, "seed": SEED}),
+            "--to_json", manifest]) == 0, "make_dataset failed")
+        synth_s = time.perf_counter() - t0
+        with open(manifest) as f:
+            utts = [json.loads(line) for line in f]
+        by_split = {s: [u for u in utts if u["split"] == s]
+                    for s in ("train", "valid", "test")}
+        require({s: len(u) for s, u in by_split.items()}
+                == {"train": CORPUS_N * 8 // 10, "valid": CORPUS_N // 10,
+                    "test": CORPUS_N // 10},
+                f"manifest splits {[(s, len(u)) for s, u in by_split.items()]}")
+        train_audio_s = sum(u["duration"] for u in by_split["train"])
+        print(f"corpus: make_dataset --parser synthwords n={CORPUS_N}: "
+              f"{len(utts)} utterances ({train_audio_s:.1f} s of train "
+              f"audio, {min(u['duration'] for u in utts):.2f}-"
+              f"{max(u['duration'] for u in utts):.2f} s each) synthesised "
+              f"and written in {synth_s:.2f} s of host time")
+
+        def train(argv, epochs):
+            tap = CliTap()
+            reset_counts()
+            t0 = time.perf_counter()
+            with tap.record():
+                require(cli_train.main([
+                    "--dataset", manifest, "--model", "deep_blstm",
+                    "--batch_size", str(CORPUS_B), "--seed", str(SEED),
+                    "--log_every", "5", "--save", run_dir,
+                    "--epochs", str(epochs), *argv]) == 0, "train failed")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = read_counts()
+            its = dict(tap.flows)
+            spe = its["train"].steps_per_epoch
+            v_batches = its["valid"].steps_per_epoch
+            want = {"bilstm_fwd": TRAIN_LAYERS * epochs * (spe + v_batches),
+                    "bilstm_bwd": TRAIN_LAYERS * epochs * spe,
+                    "ctc_alpha": epochs * (spe + v_batches),
+                    "ctc_beta": epochs * spe}
+            require(launches == want,
+                    f"corpus train launches {launches}, want {want}")
+            labels = max(l for it in its.values()
+                         for _, l in it.padded_shapes())
+            check_designs("corpus train", HIDDEN, CORPUS_B, 2 * labels + 1)
+            step_ms, by_t = CliTap.ms(tap.steps)
+            require(len(step_ms) == epochs * spe,
+                    f"{len(step_ms)} steps timed, want {epochs * spe}")
+            shapes = sorted(its["train"].padded_shapes())
+            print(f"corpus train {' '.join(argv) or '(fresh)'}: {epochs} "
+                  f"epochs x {spe} steps, B={CORPUS_B}, {len(shapes)} (T, L) "
+                  f"buckets {shapes}; launches {launches}; manifest features "
+                  f"(train + valid) {tap.features_s:.2f} s of host time; "
+                  f"{wall:.1f} s wall in all")
+            # the run's first step carries one-time costs (cuBLAS
+            # handles, first launches): shown apart
+            steady = step_ms[1:]
+            windows = CliTap.epoch_windows(tap.steps, spe)
+            print(f"[{card}] corpus train step, CUDA events around each of "
+                  f"{len(step_ms)} steps: first {step_ms[0]:.4f} ms, the "
+                  f"rest {np.mean(steady):.4f} ms/step mean, median "
+                  f"{np.median(steady):.4f} ({min(steady):.4f}-"
+                  f"{max(steady):.4f}); by bucket {by_t}; step-time rate "
+                  f"{epochs * train_audio_s / (sum(step_ms) / 1e3):.1f} "
+                  f"audio-s/s over the {len(step_ms)} steps alone; epoch "
+                  f"windows (first step's start to last step's end) "
+                  f"{', '.join(f'{w:.4f}' for w in windows)} ms: "
+                  f"{epochs * train_audio_s / (sum(windows) / 1e3):.1f} "
+                  f"audio-s/s with the gaps between steps")
+            runs.append(launches)
+            return spe, its
+
+        spe, its = train([], CORPUS_EPOCHS)
+        with open(os.path.join(run_dir, "meta.json")) as f:
+            meta = json.load(f)
+        with open(os.path.join(run_dir, "train_metrics.csv")) as f:
+            rows = list(csv.DictReader(f))
+        logged = [float(r["loss"]) for r in rows if r.get("loss")]
+        epoch_loss = [h["train_loss"] for h in meta["history"]]
+        print(f"corpus train: logged losses {[round(v, 3) for v in logged]}; "
+              f"train_loss by epoch {[round(v, 4) for v in epoch_loss]}, "
+              f"val_loss {[round(h['val_loss'], 4) for h in meta['history']]}"
+              f", val_ler {[round(h['val_ler'], 4) for h in meta['history']]}")
+        require(len(logged) > 0 and all(math.isfinite(v) for v in logged)
+                and all(math.isfinite(v) for h in meta["history"]
+                        for v in h.values()), "a non-finite corpus loss")
+        require(len(epoch_loss) == CORPUS_EPOCHS
+                and epoch_loss[-1] < epoch_loss[0],
+                f"train_loss did not fall over the epochs: {epoch_loss}")
+        require(meta["last_step"] == CORPUS_EPOCHS * spe,
+                f"last step {meta['last_step']}")
+
+        train(["--resume"], 1)
+        with open(os.path.join(run_dir, "meta.json")) as f:
+            meta = json.load(f)
+        require(meta["last_step"] == (CORPUS_EPOCHS + 1) * spe
+                and [h["step"] for h in meta["history"]]
+                == [(e + 1) * spe for e in range(CORPUS_EPOCHS + 1)],
+                f"--resume: history steps {[h['step'] for h in meta['history']]}")
+        print(f"corpus train --resume: continued from step "
+              f"{CORPUS_EPOCHS * spe} to {meta['last_step']}")
+
+        for split in ("valid", "test"):
+            tap = CliTap()
+            out = io.StringIO()
+            reset_counts()
+            with tap.record(), contextlib.redirect_stdout(out):
+                require(cli_eval.main(["--dataset", manifest, "--split",
+                                       split, "--save", run_dir]) == 0,
+                        "eval failed")
+            torch.cuda.synchronize()
+            launches = read_counts()
+            res = json.loads(out.getvalue().strip().splitlines()[-1])
+            n_b = dict(tap.flows)[split].steps_per_epoch
+            want = {"bilstm_fwd": TRAIN_LAYERS * n_b, "ctc_alpha": n_b}
+            require(launches == want,
+                    f"corpus eval {split} launches {launches}, want {want}")
+            ms, by_t = CliTap.ms(tap.evals)
+            print(f"corpus eval --split {split}: {res}; launches {launches}; "
+                  f"manifest features {tap.features_s:.2f} s of host time")
+            print(f"[{card}] corpus eval, CUDA events around each of "
+                  f"{len(ms)} batches (B={CORPUS_B}): {np.mean(ms):.4f} "
+                  f"ms/batch mean; {by_t}")
+            require(res["num_utts"] == CORPUS_N // 10 and all(
+                math.isfinite(res[k]) for k in ("loss", "cer", "wer")),
+                f"eval {split}: {res}")
+            if split == "valid":
+                val_loss = meta["history"][-1]["val_loss"]
+                rel = abs(res["loss"] - val_loss) / abs(val_loss)
+                print(f"corpus eval valid loss {res['loss']:.6f} vs the "
+                      f"run's last val_loss {val_loss:.6f}: rel {rel:.3e} "
+                      f"(tol {CORPUS_LOSS_RTOL:g})")
+                require(rel <= CORPUS_LOSS_RTOL,
+                        "eval's valid loss differs from the last val_loss")
+            runs.append(launches)
+
+        # the loop's batches from the iterator (fit) or from a worker
+        # thread, in turns, on the first run's splits (no features again);
+        # the same batches in the same order, so the same losses
+        real_flow, train_it = DatasetGenerator.flow_from_json, its["train"]
+        ab = {"plain": [], "thread": []}
+        histories = []
+        for i, variant in enumerate(("plain", "thread", "thread", "plain")):
+            if variant == "thread":
+                plain_epoch = train_it.epoch
+                train_it.epoch = lambda *a, **k: threaded_batches(
+                    plain_epoch(*a, **k))
+            DatasetGenerator.flow_from_json = (
+                lambda gen, *a, split=None, **k: its[split])
+            tap = CliTap()
+            try:
+                with tap.record(), contextlib.redirect_stdout(io.StringIO()):
+                    require(cli_train.main([
+                        "--dataset", manifest, "--model", "deep_blstm",
+                        "--batch_size", str(CORPUS_B), "--seed", str(SEED),
+                        "--log_every", "5", "--epochs", str(CORPUS_EPOCHS),
+                        "--save", os.path.join(tmp, f"ab{i}")]) == 0,
+                        "train failed")
+            finally:
+                DatasetGenerator.flow_from_json = real_flow
+                train_it.__dict__.pop("epoch", None)
+            windows = CliTap.epoch_windows(tap.steps, spe)
+            step_ms, _ = CliTap.ms(tap.steps)
+            ab[variant].append((sum(windows), sum(step_ms)))
+            with open(os.path.join(tmp, f"ab{i}", "meta.json")) as f:
+                histories.append([h["train_loss"]
+                                  for h in json.load(f)["history"]])
+            print(f"[{card}] corpus train, batches from "
+                  f"{'the iterator' if variant == 'plain' else 'a thread'} "
+                  f"(run {i}): epoch windows {sum(windows):.4f} ms, steps "
+                  f"{sum(step_ms):.4f} ms, "
+                  f"{CORPUS_EPOCHS * train_audio_s / (sum(windows) / 1e3):.1f}"
+                  f" audio-s/s over the windows")
+        require(all(h == histories[0] for h in histories),
+                f"the train losses differ between the loops: {histories}")
+        means = {v: np.mean(r, axis=0) for v, r in ab.items()}
+        print(f"[{card}] corpus train loop A/B, {CORPUS_EPOCHS} epochs a run"
+              f", 2 runs each in turns, mean epoch windows (steps): "
+              + "; ".join(f"{v} {m[0]:.4f} ms ({m[1]:.4f} ms), "
+                          f"{CORPUS_EPOCHS * train_audio_s / (m[0] / 1e3):.1f}"
+                          f" audio-s/s" for v, m in means.items())
+              + f"; thread/plain {means['thread'][0] / means['plain'][0]:.4f}"
+              f"; train losses equal")
+    return runs
+
+
 def main() -> int:
     t_start = time.perf_counter()
     clock = PhaseClock()
@@ -3905,6 +4241,10 @@ def main() -> int:
         path_launches.append(training_slice(
             dev, card, path, with_fit=path == "deep_blstm")["launches"])
     clock.mark("training paths")
+
+    # 8. the corpus phase: make_dataset -> train -> resume -> eval ---------
+    path_launches += corpus_phase(card)
+    clock.mark("corpus phase")
 
     # the kernels line -------------------------------------------------------
     measured = {

@@ -1,0 +1,272 @@
+"""The port's make_dataset, train and eval CLIs on the CPU, held against the
+JAX CLIs: the same manifest, the same run-dir name and meta.json hparams,
+a resumed run that continues its step count, and eval on weights trained
+by the JAX CLI giving the same loss and transcripts; every option the port
+does not have yet refused with its ROADMAP item before any data is read."""
+
+import json
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from asr_study_torch.cli import data_flow
+from asr_study_torch.cli import eval as port_eval
+from asr_study_torch.cli import make_dataset as port_make_dataset
+from asr_study_torch.cli import train as port_train
+from asr_study_torch.models.zoo import build_model
+from asr_study_torch.train.checkpoint import CheckpointManager
+from asr_study_torch.train.trainer import Trainer, make_optimizer
+from asr_study_torch.utils.weights import load_npz, params_from_flat
+from asr_study_tpu.cli import eval as jax_eval
+from asr_study_tpu.cli import make_dataset as jax_make_dataset
+from asr_study_tpu.cli import train as jax_train
+
+SYNTH = '{"n": 20, "seed": 0}'
+TRAIN_ARGS = ["--model", "graves2006", "--params", "num_hiddens=16",
+              "--batch_size", "8", "--num_devices", "1", "--log_every", "1"]
+
+
+def _last_json(text):
+    return json.loads(text.strip().splitlines()[-1])
+
+
+@pytest.fixture(scope="module")
+def synth(tmp_path_factory):
+    d = tmp_path_factory.mktemp("synth")
+    m = str(d / "m.json")
+    assert port_make_dataset.main(["--parser", "synthwords", "--dataset_dir",
+                                   str(d / "corpus"), "--corpus_params", SYNTH,
+                                   "--to_json", m]) == 0
+    return m
+
+
+# -- make_dataset ------------------------------------------------------------
+
+def test_make_dataset_writes_the_jax_manifest(tmp_path, capsys):
+    """--to_json: the port's manifest equals the JAX CLI's line for line
+    (the corpus directories apart)."""
+    lines = {}
+    for side, main, extra in (
+            ("port", port_make_dataset.main, []),
+            ("jax", jax_make_dataset.main,
+             ["--output", str(tmp_path / "jax.h5")])):
+        root = str(tmp_path / side)
+        assert main(["--parser", "synthwords", "--dataset_dir", root,
+                     "--corpus_params", '{"n": 12, "seed": 2}', "--to_json",
+                     str(tmp_path / f"{side}.json"), *extra]) == 0
+        with open(tmp_path / f"{side}.json") as f:
+            lines[side] = [l.replace(root, "<root>") for l in f]
+    assert lines["port"] == lines["jax"] and len(lines["port"]) == 12
+    assert "wrote 12 utterances" in capsys.readouterr().out
+
+
+# -- refusals, each before the dataset is read -------------------------------
+
+MISSING = "missing.json"
+
+
+@pytest.mark.parametrize("cli,argv,item", [
+    ("make_dataset", ["--output", "d.h5", "--to_json", "m.json"], "item 7"),
+    ("make_dataset", ["--to_json", "m.json", "--device"], "item 11"),
+    ("make_dataset", ["--to_json", "m.json", "--device_batch", "8"],
+     "item 11"),
+    ("make_dataset", ["--to_json", "m.json", "--device_wire_codec", "dpack"],
+     "item 11"),
+    ("make_dataset", ["--to_json", "m.json", "--input_parser", "raw"],
+     "item 7"),
+    ("make_dataset", ["--to_json", "m.json", "--input_parser", "fbank"],
+     "item 7"),
+    ("make_dataset", ["--to_json", "m.json", "--input_params", "{}"],
+     "item 7"),
+    ("make_dataset", ["--to_json", "m.json", "--vocab", "pt_br_apostrophe"],
+     "item 7"),
+    ("train", ["--dataset", "d.h5"], "item 7"),
+    ("train", ["--device_features"], "item 7"),
+    ("train", ["--spec_augment"], "item 9"),
+    ("train", ["--wav_augment", "gain_db=3"], "item 9"),
+    ("train", ["--num_devices", "2"], "item 12"),
+    ("train", ["--tp_devices", "2"], "item 13"),
+    ("train", ["--opt", "sgd"], "item 5"),
+    ("train", ["--accum_steps", "2"], "item 5"),
+    ("train", ["--lr_plateau", "0.5"], "item 5"),
+    ("train", ["--bf16"], "item 5"),
+    ("train", ["--profile"], "item 5"),
+    ("train", ["--check_nans"], "item 5"),
+    ("eval", ["--dataset", "d.h5"], "item 7"),
+    ("eval", ["--beam_width", "8"], "item 8"),
+    ("eval", ["--beam_prune", "4"], "item 8"),
+    ("eval", ["--blank_collapse", "0.9"], "item 8"),
+    ("eval", ["--lm", "lm.npz"], "item 8"),
+    ("eval", ["--num_devices", "2"], "item 12"),
+])
+def test_unported_options_are_refused(tmp_path, monkeypatch, cli, argv,
+                                      item):
+    monkeypatch.chdir(tmp_path)
+    base = {"make_dataset": ["--parser", "dummy", "--dataset_dir", "c"],
+            "train": ["--dataset", MISSING, "--device", "cpu"],
+            "eval": ["--dataset", MISSING, "--save", "run", "--device",
+                     "cpu"]}[cli]
+    main = {"make_dataset": port_make_dataset.main, "train": port_train.main,
+            "eval": port_eval.main}[cli]
+    with pytest.raises(SystemExit) as e:
+        main(base + argv)
+    assert f"ROADMAP queue A {item}" in str(e.value.code)
+    assert os.listdir(tmp_path) == []          # nothing read or written
+
+
+def test_device_and_run_checks(tmp_path, synth):
+    if not torch.cuda.is_available():
+        with pytest.raises(SystemExit, match="--device cpu"):
+            data_flow.resolve_device("cuda")
+    assert data_flow.resolve_device("cpu").type == "cpu"
+    with pytest.raises(SystemExit, match="--to_json"):
+        port_make_dataset.main(["--parser", "dummy", "--dataset_dir",
+                                str(tmp_path / "c")])
+    with pytest.raises(SystemExit, match="fbank"):
+        data_flow.host_feature("nosuch")
+    # --early_stop needs a valid split; the manifest's train lines only
+    train_only = str(tmp_path / "train_only.json")
+    with open(synth) as src, open(train_only, "w") as dst:
+        dst.writelines(l for l in src if '"split": "train"' in l)
+    with pytest.raises(SystemExit, match="early_stop"):
+        port_train.main(["--dataset", train_only, "--device", "cpu",
+                         "--early_stop", "2", "--save",
+                         str(tmp_path / "r"), *TRAIN_ARGS])
+
+
+# -- train -------------------------------------------------------------------
+
+def test_train_resume_and_hparams_match_jax(tmp_path, monkeypatch, synth,
+                                            capsys):
+    """Two epochs, then one more with --resume: the step continues and
+    every loss is finite; the run dir's name and meta.json hparams are the
+    JAX CLI's for the same argv."""
+    monkeypatch.chdir(tmp_path)
+    argv = ["--dataset", synth, *TRAIN_ARGS]
+    assert port_train.main([*argv, "--device", "cpu", "--epochs", "2"]) == 0
+    name = os.path.join("runs", "graves2006_params=num_hiddens=16_"
+                                "batch_size=8")
+    assert f"run dir: {name}" in capsys.readouterr().err
+    with open(os.path.join(name, "meta.json")) as f:
+        meta = json.load(f)
+    spe = 2                                   # 16 train utterances / 8
+    assert meta["last_step"] == 2 * spe
+    assert [h["step"] for h in meta["history"]] == [spe, 2 * spe]
+    assert port_train.main([*argv, "--device", "cpu", "--epochs", "1",
+                            "--resume"]) == 0
+    assert f"resumed from step {2 * spe}" in capsys.readouterr().err
+    ckpt = CheckpointManager(name)
+    assert ckpt.latest_step == 3 * spe
+    hist = ckpt.meta["history"]
+    assert len(hist) == 3 and all(
+        np.isfinite(h[k]) for h in hist for k in ("train_loss", "val_loss"))
+    with open(os.path.join(name, "train_metrics.csv")) as f:
+        rows = [l.split(",") for l in f.read().splitlines()]
+    loss_col = rows[0].index("loss")
+    losses = [float(r[loss_col]) for r in rows[1:] if r[loss_col]]
+    assert len(losses) == 3 * spe and np.isfinite(losses).all()
+
+    # the JAX CLI on the same argv, its fit replaced by a capture
+    seen = {}
+    monkeypatch.setattr(jax_train, "fit",
+                        lambda *a, **kw: seen.update(kw["hparams"]))
+    jax_dir = tmp_path / "jax"
+    jax_dir.mkdir()
+    monkeypatch.chdir(jax_dir)
+    assert jax_train.main([*argv, "--platform", "cpu", "--epochs", "2"]) == 0
+    assert f"run dir: {name}" in capsys.readouterr().err
+    assert os.path.isdir(name)
+    assert meta["hparams"] == seen
+    assert seen["num_devices"] == 1 and seen["tp_devices"] == 1
+
+
+class _Named(Exception):
+    """Stops the JAX train CLI once it has named its run dir."""
+
+
+@pytest.mark.parametrize("extra", [
+    [], ["--clipnorm", "0"], ["--lr", "3e-4", "--bf16"],
+    ["--params", "num_hiddens=8,bidirectional=false", "--lr_decay", "0.9",
+     "--early_stop", "3"]])
+def test_run_dir_names_match_jax(monkeypatch, capsys, extra):
+    """The port's run-dir name is the one the JAX train CLI prints for the
+    same argv (the JAX CLI stopped before it reads the dataset)."""
+    from asr_study_tpu.cli import data_flow as jax_data_flow
+
+    def named(*args, **kwargs):
+        raise _Named
+
+    monkeypatch.setattr(jax_data_flow, "parser_for_training", named)
+    argv = ["--dataset", "m.json", "--model", "deep_blstm", *extra]
+    with pytest.raises(_Named):
+        jax_train.main([*argv, "--platform", "cpu", "--num_devices", "1"])
+    printed = [l for l in capsys.readouterr().err.splitlines()
+               if l.startswith("run dir: ")]
+    pargs = port_train.build_argparser().parse_args(argv)
+    assert printed == [f"run dir: {port_train.run_dir(pargs)}"]
+
+
+# -- eval on weights the JAX CLI trained --------------------------------------
+
+@pytest.fixture(scope="module")
+def jax_run(tmp_path_factory):
+    """A JAX run trained for one epoch on a Dummy manifest, exported, and
+    loaded into a run dir of the port."""
+    from extras.export_weights import main as export_main
+
+    d = tmp_path_factory.mktemp("jaxrun")
+    manifest = str(d / "dummy.json")
+    assert port_make_dataset.main(["--parser", "dummy", "--dataset_dir",
+                                   str(d / "corpus"), "--to_json",
+                                   manifest]) == 0
+    jdir = str(d / "jax_run")
+    assert jax_train.main([
+        "--platform", "cpu", "--dataset", manifest, "--model", "graves2006",
+        "--params", "num_hiddens=8", "--epochs", "1", "--batch_size", "16",
+        "--num_devices", "1", "--lr", "0.01", "--save", jdir]) == 0
+    npz = str(d / "w.npz")
+    assert export_main(["--save", jdir, "--output", npz, "--latest"]) == 0
+    flat, meta = load_npz(npz)
+    with open(os.path.join(jdir, "meta.json")) as f:
+        jmeta = json.load(f)
+    model = build_model(meta["model"], meta["params"],
+                        num_classes=meta["num_classes"],
+                        input_dim=meta["num_feats"])
+    model.load_state_dict(params_from_flat(flat))
+    state = Trainer(model, make_optimizer()).init_state()
+    state.step = jmeta["last_step"]
+    pdir = str(d / "port_run")
+    CheckpointManager(pdir).save(state, hparams=jmeta["hparams"])
+    return manifest, jdir, pdir
+
+
+@pytest.mark.parametrize("split", ["train", "test"])
+def test_eval_matches_jax_eval(tmp_path, capsys, jax_run, split):
+    manifest, jdir, pdir = jax_run
+    dumps = {k: str(tmp_path / f"{k}.jsonl") for k in ("port", "jax")}
+    assert port_eval.main(["--dataset", manifest, "--split", split, "--save",
+                           pdir, "--device", "cpu", "--batch_size", "4",
+                           "--dump", dumps["port"]]) == 0
+    got = _last_json(capsys.readouterr().out)
+    assert jax_eval.main(["--dataset", manifest, "--split", split, "--save",
+                          jdir, "--platform", "cpu", "--batch_size", "4",
+                          "--dump", dumps["jax"]]) == 0
+    want = _last_json(capsys.readouterr().out)
+    assert set(got) == set(want)
+    assert got["split"] == want["split"] and got["decoder"] == "greedy"
+    assert got["num_utts"] == want["num_utts"] > 0
+    assert got["loss"] == pytest.approx(want["loss"], rel=1e-4)
+    with open(dumps["port"]) as a, open(dumps["jax"]) as b:
+        hyps = [json.loads(l) for l in a]
+        assert hyps == [json.loads(l) for l in b]
+    assert any(h["hyp"] for h in hyps)        # not all empty
+    assert got["cer"] == want["cer"] and got["wer"] == want["wer"]
+
+
+def test_eval_refuses_a_jax_run_dir(jax_run):
+    manifest, jdir, _ = jax_run
+    with pytest.raises(SystemExit, match="export_weights"):
+        port_eval.main(["--dataset", manifest, "--save", jdir, "--device",
+                        "cpu"])

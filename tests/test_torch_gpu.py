@@ -6,6 +6,8 @@ there without the repo's conftest::
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 """
 
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -1793,3 +1795,47 @@ def test_zoneout_and_mi_blstm_on_card_match_cpu(cuda, monkeypatch, name,
     for k in g_p:
         assert float((g_k[k] - g_p[k]).norm()) <= 1e-3 * float(
             g_p[k].norm()), k
+
+
+def test_cli_train_and_eval_on_card(cuda, tmp_path, monkeypatch, capsys):
+    """make_dataset -> train one epoch -> eval through the CLIs on the card
+    at a small size: the recurrence and CTC kernels launch, and every
+    tensor a train step is handed lies on the card."""
+    from asr_study_torch.cli import eval as cli_eval
+    from asr_study_torch.cli import make_dataset
+    from asr_study_torch.cli import train as cli_train
+
+    monkeypatch.chdir(tmp_path)
+    assert make_dataset.main(["--parser", "synthwords", "--dataset_dir",
+                              "corpus", "--corpus_params",
+                              '{"n": 40, "seed": 1}', "--to_json",
+                              "m.json"]) == 0
+    devices = set()
+    real_step = Trainer.train_step
+
+    def train_step(self, state, *args):
+        devices.update(a.device.type for a in args
+                       if isinstance(a, torch.Tensor))
+        devices.update(p.device.type for p in self.model.parameters())
+        return real_step(self, state, *args)
+
+    monkeypatch.setattr(Trainer, "train_step", train_step)
+    wrappers = (bilstm, bilstm_bwd, ctc.ctc_alpha, ctc.ctc_beta)
+    before = [w.launches for w in wrappers]
+    assert cli_train.main(["--dataset", "m.json", "--model", "deep_blstm",
+                           "--params", "num_hiddens=32,num_layers=2",
+                           "--epochs", "1", "--batch_size", "8",
+                           "--save", "run"]) == 0
+    trained = [w.launches - b for w, b in zip(wrappers, before)]
+    assert all(n > 0 for n in trained), trained
+    assert devices == {"cuda"}
+    before = [w.launches for w in wrappers]
+    assert cli_eval.main(["--dataset", "m.json", "--split", "valid",
+                          "--batch_size", "8", "--save", "run"]) == 0
+    evals = [w.launches - b for w, b in zip(wrappers, before)]
+    assert evals[0] > 0 and evals[2] > 0 and evals[1] == evals[3] == 0
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    with open("run/meta.json") as f:
+        val_loss = json.load(f)["history"][-1]["val_loss"]
+    assert out["num_utts"] == 4 and np.isfinite(out["loss"])
+    assert out["loss"] == pytest.approx(val_loss, rel=1e-5)

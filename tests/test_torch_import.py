@@ -30,7 +30,8 @@ for want in ("cli.predict", "features.fbank", "features.audio",
              "ops.zoneout_lstm", "ops.mi_lstm", "ops.ctc", "ops.dpack",
              "data.wire",
              "ops.metrics", "data.generator", "train.trainer", "train.loop",
-             "train.checkpoint"):
+             "train.checkpoint", "cli.make_dataset", "cli.train", "cli.eval",
+             "cli.data_flow", "data.corpora", "data.dataset_parser"):
     assert "asr_study_torch." + want in names, (want, names)
 import chip_smoke
 from asr_study_torch import _build
