@@ -6,7 +6,7 @@ counterpart's name and layout so the two can be read side by side.  This
 package imports ``torch`` and never ``jax``, and nothing of the JAX package:
 the host modules it needs from there are copies of its own
 (``features/audio.py``, ``features/wav.py``, ``text/parser.py``,
-``utils/hparams.py``, ``utils/metrics_writer.py``, ``data/corpora.py``,
+``text/lm.py``, ``utils/hparams.py``, ``utils/metrics_writer.py``, ``data/corpora.py``,
 ``data/dataset_parser.py``, the host ``wer`` and ``cer`` of
 ``ops/metrics.py``).
 
@@ -19,7 +19,9 @@ The serving path ported so far (BASELINE config 2, and ``deep_gru``):
                 -> models/zoo deep_blstm (csrc/bilstm_fwd.cu per layer;
                    deep_speech's 512-unit layer: csrc/lstm_wide_fwd.cu)
                    or deep_gru (csrc/gru_fwd.cu per layer)
-                -> ops/ctc.greedy_decode
+                -> ops/ctc.greedy_decode, or ops/beam.beam_search_decode
+                   (csrc/ctc_beam.cu, a CTA per utterance; a char n-gram
+                   LM from cli/train_lm fused with --lm)
                 -> cli/predict.py --on_device
 
 and the training path (BASELINE config 3, and ``deep_gru``):
@@ -34,7 +36,8 @@ and the training path (BASELINE config 3, and ``deep_gru``):
         backward) -> ops/ctc.ctc_loss (CTCNLL: csrc/ctc_warp.cu alpha
         forward, beta backward) -> clip -> Adam
                 -> train/checkpoint.CheckpointManager
-        -> cli/eval (forward, CTC loss, greedy decode; CER and WER)
+        -> cli/eval (forward, CTC loss, greedy or beam decode, blank
+           collapse; CER and WER)
 
 Each hand-written CUDA kernel is compiled with ``nvcc`` at first use
 (``_build.py``) and has a plain PyTorch version beside it, which runs for

@@ -38,6 +38,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _L = ctypes.c_longlong
+_U = ctypes.c_uint
 
 # C entry points: name -> argtypes.  Every pointer and the stream are
 # c_void_p (a bare Python int would be passed as a 32-bit int).
@@ -166,6 +167,10 @@ SIGNATURES = {
     # the warp design (S <= 544), the same arguments
     "asr_ctc_alpha_warp": [_P, _P, _P, _P, _I, _I, _I, _P],
     "asr_ctc_beta_warp": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # the beam decode: log_probs, lengths, lm_logp (or null), bp, prefixes,
+    # out_len, out_score, B, T, V, W, P, E, pad_id, lm_order, lm_mod,
+    # lm_state0, alpha, beta, hash multipliers, stream
+    "asr_ctc_beam": [_P] * 7 + [_I] * 10 + [_F, _F, _U, _U, _P],
     # payload, n_words, row_start, widths, totals, out, nbcap, stream
     "asr_dpack_decode": [_P, _L, _P, _P, _P, _P, _I, _P],
     # the one-launch design: payload, n_words, row_start, widths, scratch,

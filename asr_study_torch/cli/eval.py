@@ -4,14 +4,20 @@ decode a split -> loss, CER and WER.
     python -m asr_study_torch.cli.eval --dataset m.json --split test \\
         --save runs/exp1
 
+    python -m asr_study_torch.cli.eval --dataset m.json --split test \\
+        --save runs/exp1 --beam_width 16 --lm lm3.npz [--blank_collapse 0.99]
+
 Per batch, on ``--device``: the model in eval mode, the per-sequence CTC
-loss weighted over ``max(sum(w), 1)`` and the greedy decode
-(:func:`eval_batch`); the transcripts are scored on the host.  The last
-line of standard output is the JAX CLI's JSON record (``split``,
-``num_utts``, ``loss``, ``cer``, ``wer``, ``decoder``).  Beam search, the
-LM, blank collapse and data-parallel eval are refused with the ROADMAP
-items that bring them, as is a run trained with in-step device features
-or written by the JAX package.
+loss weighted over ``max(sum(w), 1)`` and the decode (:func:`eval_batch`):
+greedy, or with ``--beam_width`` the best path of the prefix beam search
+(on the card one launch of ``csrc/ctc_beam.cu`` a batch), optionally after
+``--blank_collapse`` and with a char n-gram LM fused in (``--lm``, from
+``cli.train_lm``).  The transcripts are scored on the host.  The last line
+of standard output is the JAX CLI's JSON record (``split``, ``num_utts``,
+``loss``, ``cer``, ``wer``, ``decoder``; with ``--lm`` also ``lm``, with
+``--blank_collapse`` ``blank_collapse_overflow_utts``).  Data-parallel
+eval is refused with the ROADMAP item that brings it, as is a run trained
+with in-step device features or written by the JAX package.
 """
 
 from __future__ import annotations
@@ -19,6 +25,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import sys
 
 import torch
 
@@ -27,8 +34,10 @@ from asr_study_torch.cli.data_flow import (
     require_port_run, resolve_device)
 from asr_study_torch.data.generator import DatasetGenerator
 from asr_study_torch.models.zoo import AcousticModel, build_model
-from asr_study_torch.ops.ctc import ctc_loss, greedy_decode
+from asr_study_torch.ops.beam import BeamConfig, decode
+from asr_study_torch.ops.ctc import blank_collapse, ctc_loss
 from asr_study_torch.ops.metrics import cer, wer
+from asr_study_torch.text.lm import CharNGramLM, check_lm_vocab
 from asr_study_torch.text.parser import CharParser
 from asr_study_torch.train.checkpoint import CheckpointManager
 from asr_study_torch.train.trainer import device_batch
@@ -67,14 +76,22 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--save", required=True, help="training run directory")
     p.add_argument("--batch_size", type=int, default=32)
     p.add_argument("--beam_width", type=int, default=0,
-                   help="0 = greedy decode (beam search: not ported, "
-                        "ROADMAP queue A item 8)")
-    p.add_argument("--beam_prune", type=int, default=0)
-    p.add_argument("--blank_collapse", type=float, default=0.0)
-    p.add_argument("--keep_ratio", type=float, default=0.6)
-    p.add_argument("--lm", default=None)
-    p.add_argument("--lm_alpha", type=float, default=0.8)
-    p.add_argument("--lm_beta", type=float, default=0.0)
+                   help="0 = greedy decode, >0 = prefix beam search")
+    p.add_argument("--beam_prune", type=int, default=0,
+                   help="expand only the per-frame top-K chars (0 = exact)")
+    p.add_argument("--blank_collapse", type=float, default=0.0,
+                   help="collapse blank runs with posterior >= this "
+                        "threshold before beam decoding (0 = off)")
+    p.add_argument("--keep_ratio", type=float, default=0.6,
+                   help="static frame budget for --blank_collapse as a "
+                        "fraction of T; overflowing utterances are reported")
+    p.add_argument("--lm", default=None,
+                   help="char n-gram LM (.npz from train_lm) for "
+                        "shallow fusion; needs --beam_width > 0")
+    p.add_argument("--lm_alpha", type=float, default=0.8,
+                   help="LM weight in the fused beam score")
+    p.add_argument("--lm_beta", type=float, default=0.0,
+                   help="per-character insertion bonus with --lm")
     p.add_argument("--num_devices", type=int, default=0,
                    help="0 or 1: one device")
     p.add_argument("--best", action="store_true",
@@ -87,37 +104,40 @@ def build_argparser() -> argparse.ArgumentParser:
 
 
 def _refuse_unported(args) -> None:
-    a8 = "is not ported to asr_study_torch yet (ROADMAP queue A item 8)"
-    refusals = [
-        (args.beam_width > 0, f"--beam_width > 0: beam search {a8}"),
-        (args.beam_prune > 0, f"--beam_prune: beam search {a8}"),
-        (args.blank_collapse > 0, f"--blank_collapse {a8}"),
-        (args.lm is not None, f"--lm {a8}"),
-        (args.num_devices > 1,
-         "--num_devices > 1: data-parallel eval is not ported to "
-         "asr_study_torch yet (ROADMAP queue A item 12)"),
-    ]
-    for refused, why in refusals:
-        if refused:
-            raise SystemExit(why)
+    if args.num_devices > 1:
+        raise SystemExit("--num_devices > 1: data-parallel eval is not "
+                         "ported to asr_study_torch yet (ROADMAP queue A "
+                         "item 12)")
     require_manifest(args.dataset)
 
 
 @torch.inference_mode()
 def eval_batch(model: AcousticModel, inputs: torch.Tensor,
                input_lengths: torch.Tensor, labels: torch.Tensor,
-               label_lengths: torch.Tensor, weights: torch.Tensor
-               ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """One batch on the device -> (weighted mean loss, decoded ids [B, T]
-    padded with -1, decoded lengths [B])."""
+               label_lengths: torch.Tensor, weights: torch.Tensor,
+               beam: BeamConfig | None = None, collapse: float = 0.0,
+               keep_ratio: float = 0.6
+               ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                          torch.Tensor]:
+    """One batch on the device -> (weighted mean loss, decoded ids [B, T']
+    padded with -1, decoded lengths [B], frames dropped [B]).
+
+    Greedy decode; with ``beam`` the best beam, after ``blank_collapse``
+    at threshold ``collapse`` when that is > 0 (``dropped``: the frames
+    each utterance lost to the ``keep_ratio`` budget, else 0)."""
     logits = model(inputs, input_lengths, train=False)
     per_seq = ctc_loss(logits, input_lengths, labels, label_lengths,
                        blank_id=model.blank_id)
     w = weights.to(torch.float32)
     loss = (per_seq * w).sum() / torch.clamp(w.sum(), min=1.0)
-    decoded, lengths = greedy_decode(logits, input_lengths,
-                                     blank_id=model.blank_id)
-    return loss, decoded, lengths
+    dropped = torch.zeros_like(input_lengths)
+    dec_logits, dec_lengths = logits, input_lengths
+    if beam is not None and beam.width > 0 and collapse > 0:
+        dec_logits, dec_lengths, dropped = blank_collapse(
+            logits, input_lengths, blank_id=model.blank_id,
+            threshold=collapse, keep_ratio=keep_ratio)
+    decoded, lengths = decode(dec_logits, dec_lengths, model.blank_id, beam)
+    return loss, decoded, lengths, dropped
 
 
 def main(argv=None) -> int:
@@ -125,6 +145,14 @@ def main(argv=None) -> int:
     _refuse_unported(args)
     device = resolve_device(args.device)
     label_parser = parser_from_run(args.save)
+    lm = None
+    if args.lm:
+        if args.beam_width <= 0:
+            raise SystemExit("--lm requires --beam_width > 0")
+        lm = CharNGramLM.load(args.lm)
+        check_lm_vocab(lm, label_parser.vocab)
+    beam = BeamConfig(args.beam_width, args.beam_prune, lm, args.lm_alpha,
+                      args.lm_beta) if args.beam_width > 0 else None
     model, _ = load_run(args.save, label_parser, best=args.best,
                         device=device)
     gen = DatasetGenerator(batch_size=args.batch_size, shuffle=False)
@@ -133,12 +161,21 @@ def main(argv=None) -> int:
 
     hyps, refs = [], []
     tot_loss, tot_n = 0.0, 0
+    overflow_utts = 0
     for b in it.epoch():
-        loss, dec, lens = eval_batch(model, *device_batch(b, device))
+        loss, dec, lens, dropped = eval_batch(
+            model, *device_batch(b, device), beam=beam,
+            collapse=args.blank_collapse, keep_ratio=args.keep_ratio)
         dec, lens = dec.cpu().numpy(), lens.cpu().numpy()
         n = int(b.weights.sum())
         tot_loss += float(loss) * n
         tot_n += n
+        n_over = int(((dropped.cpu().numpy() > 0) & (b.weights > 0)).sum())
+        if n_over:
+            overflow_utts += n_over
+            print(f"warning: blank_collapse dropped frames on {n_over} "
+                  f"utterance(s) in this batch — raise --keep_ratio "
+                  f"(currently {args.keep_ratio})", file=sys.stderr)
         for i in range(b.size):
             if b.weights[i] == 0:
                 continue
@@ -153,8 +190,14 @@ def main(argv=None) -> int:
         "loss": tot_loss / max(tot_n, 1),
         "cer": cer(hyps, refs),
         "wer": wer(hyps, refs),
-        "decoder": "greedy",
+        "decoder": (f"beam{args.beam_width}" + ("+lm" if lm else ""))
+        if args.beam_width else "greedy",
     }
+    if lm is not None:
+        results["lm"] = {"path": args.lm, "order": lm.order,
+                         "alpha": args.lm_alpha, "beta": args.lm_beta}
+    if args.blank_collapse > 0:
+        results["blank_collapse_overflow_utts"] = overflow_utts
     if args.dump:
         with open(args.dump, "w") as f:
             for h, r in zip(hyps, refs):

@@ -2,7 +2,7 @@
 JSON transcripts, one line per file.
 
     python -m asr_study_torch.cli.predict --weights model.npz --on_device \\
-        [--batch_size N] a.wav b.wav ...
+        [--batch_size N] [--beam_width 16 [--lm lm3.npz]] a.wav b.wav ...
 
 ``--weights`` takes the ``.npz`` that ``extras/export_weights.py`` writes
 from a training run.  Two serving paths, as in the JAX CLI:
@@ -11,10 +11,15 @@ from a training run.  Two serving paths, as in the JAX CLI:
   (``--wire_codec`` pcm16, dpack, mulaw, or auto: probe the link), one per
   batch, all in one host->device copy; each batch is unpacked (for dpack
   by the dpack kernel), featurized (fbank kernel), run through the model
-  (one recurrence kernel per layer) and greedily decoded on the device
+  (one recurrence kernel per layer) and decoded on the device
   (:func:`serve_batch`).
 - default: features from the NumPy oracle on the host, then the same model
   and decode on ``--device``.
+
+The decode is greedy, or with ``--beam_width`` the best path of the prefix
+beam search (``ops/beam.py``; on the card one launch of
+``csrc/ctc_beam.cu`` a batch), with ``--lm`` a char n-gram LM fused in.
+``--stream`` is refused with the ROADMAP item that brings it.
 """
 
 from __future__ import annotations
@@ -33,7 +38,8 @@ from asr_study_torch.features.device import DeviceFeaturizer
 from asr_study_torch.features.select import featurizer
 from asr_study_torch.features.wav import read_wav
 from asr_study_torch.models.zoo import AcousticModel, build_model
-from asr_study_torch.ops.ctc import greedy_decode
+from asr_study_torch.ops.beam import BeamConfig, decode
+from asr_study_torch.text.lm import CharNGramLM, check_lm_vocab
 from asr_study_torch.text.parser import CharParser
 from asr_study_torch.utils.weights import load_npz, params_from_flat
 
@@ -60,9 +66,14 @@ def build_argparser() -> argparse.ArgumentParser:
                         "dpack below 1000 MB/s, else pcm16)")
     p.add_argument("--device", default="cuda",
                    help="torch device to serve on (default cuda)")
-    # JAX CLI options the port does not have yet: refused with the item
-    p.add_argument("--beam_width", type=int, default=0)
-    p.add_argument("--lm", default=None)
+    p.add_argument("--beam_width", type=int, default=0,
+                   help="0 = greedy decode, >0 = prefix beam search")
+    p.add_argument("--lm", default=None,
+                   help="char n-gram LM (.npz from train_lm) for "
+                        "shallow fusion; needs --beam_width > 0")
+    p.add_argument("--lm_alpha", type=float, default=0.8)
+    p.add_argument("--lm_beta", type=float, default=0.0)
+    # a JAX CLI option the port does not have yet: refused with the item
     p.add_argument("--stream", action="store_true")
     return p
 
@@ -71,12 +82,6 @@ def _refuse_unported(args) -> None:
     if args.stream:
         raise SystemExit("--stream is not ported to asr_study_torch yet "
                          "(ROADMAP queue A item 10)")
-    if args.beam_width > 0:
-        raise SystemExit("--beam_width > 0 is not ported to asr_study_torch "
-                         "yet (ROADMAP queue A item 8)")
-    if args.lm:
-        raise SystemExit("--lm is not ported to asr_study_torch yet "
-                         "(ROADMAP queue A item 8)")
 
 
 def load_model(path: str, device: torch.device | str
@@ -104,15 +109,16 @@ class Served(NamedTuple):
 @torch.inference_mode()
 def serve_batch(model: AcousticModel, feat: DeviceFeaturizer,
                 flat: torch.Tensor, batch: int, n_pad: int,
-                codec: str = "pcm16", scap: int | None = None) -> Served:
-    """One wire buffer -> logits and greedy transcripts, all on the wire
-    tensor's device.  dpack needs the ``scap`` it was packed with."""
+                codec: str = "pcm16", scap: int | None = None,
+                beam: BeamConfig | None = None) -> Served:
+    """One wire buffer -> logits and transcripts (greedy, or the best
+    beam with ``beam``), all on the wire tensor's device.  dpack needs the
+    ``scap`` it was packed with."""
     wavs, lens = wire.unpack_audio(flat, batch, n_pad, codec=codec,
                                    scap=scap)
     feats, feat_lengths = feat(wavs, lens)
     logits = model(feats, feat_lengths)
-    decoded, lengths = greedy_decode(logits, feat_lengths,
-                                     blank_id=model.blank_id)
+    decoded, lengths = decode(logits, feat_lengths, model.blank_id, beam)
     return Served(logits, feat_lengths, decoded, lengths)
 
 
@@ -147,7 +153,8 @@ def pack_batches(wavs: Sequence[np.ndarray], batch: int,
 
 def predict_on_device(model: AcousticModel, feat: DeviceFeaturizer,
                       wavs: Sequence[np.ndarray], batch_size: int,
-                      codec: str = "pcm16") -> list[np.ndarray]:
+                      codec: str = "pcm16",
+                      beam: BeamConfig | None = None) -> list[np.ndarray]:
     """Transcribe ``wavs`` in batches through :func:`serve_batch`
     -> one label-id array per utterance."""
     batch = max(1, min(batch_size, len(wavs)))
@@ -156,7 +163,7 @@ def predict_on_device(model: AcousticModel, feat: DeviceFeaturizer,
     out = []
     for off in range(0, chunk.shape[0], cap):
         s = serve_batch(model, feat, dev_chunk[off: off + cap], batch, n_pad,
-                        codec, scap)
+                        codec, scap, beam)
         dec, lens = s.decoded.cpu().numpy(), s.lengths.cpu().numpy()
         out += [dec[i, : lens[i]] for i in range(dec.shape[0])]
     return out[: len(wavs)]
@@ -164,7 +171,9 @@ def predict_on_device(model: AcousticModel, feat: DeviceFeaturizer,
 
 @torch.inference_mode()
 def predict_host_features(model: AcousticModel, feature, paths: Sequence[str],
-                          device: torch.device) -> list[np.ndarray]:
+                          device: torch.device,
+                          beam: BeamConfig | None = None
+                          ) -> list[np.ndarray]:
     """NumPy-oracle features on the host, then model and decode."""
     feats = [feature(p).astype(np.float32) for p in paths]
     t_max = max(f.shape[0] for f in feats)
@@ -174,7 +183,7 @@ def predict_host_features(model: AcousticModel, feature, paths: Sequence[str],
         x[i, : f.shape[0]] = f
     lengths_t = torch.from_numpy(lengths).to(device)
     logits = model(torch.from_numpy(x).to(device), lengths_t)
-    dec, lens = greedy_decode(logits, lengths_t, blank_id=model.blank_id)
+    dec, lens = decode(logits, lengths_t, model.blank_id, beam)
     dec, lens = dec.cpu().numpy(), lens.cpu().numpy()
     return [dec[i, : lens[i]] for i in range(len(paths))]
 
@@ -192,6 +201,14 @@ def main(argv=None) -> int:
     model, meta = load_model(args.weights, device)
     label_parser = CharParser(meta["vocab"]) if meta.get("vocab") \
         else CharParser()
+    lm = None
+    if args.lm:
+        if args.beam_width <= 0:
+            raise SystemExit("--lm requires --beam_width > 0")
+        lm = CharNGramLM.load(args.lm)
+        check_lm_vocab(lm, label_parser.vocab)
+    beam = BeamConfig(args.beam_width, 0, lm, args.lm_alpha,
+                      args.lm_beta) if args.beam_width > 0 else None
     feat_kw = json.loads(args.input_params) if args.input_params else {}
     if args.on_device:
         feat = featurizer(args.input_parser, device, **feat_kw)
@@ -204,14 +221,15 @@ def main(argv=None) -> int:
                   f"{codec}", file=sys.stderr)
         # resample to the featurizer's rate, like the JAX CLI
         wavs = [read_wav(p, sr=feat.fs)[0] for p in args.wavs]
-        ids = predict_on_device(model, feat, wavs, args.batch_size, codec)
+        ids = predict_on_device(model, feat, wavs, args.batch_size, codec,
+                                beam)
     else:
         if args.input_parser not in audio.FEATURES:
             raise SystemExit(f"unknown --input_parser {args.input_parser!r}; "
                              f"have {sorted(audio.FEATURES)}")
         feature = audio.FEATURES[args.input_parser](**feat_kw)
         _check_feats(args.input_parser, feature.num_feats, model)
-        ids = predict_host_features(model, feature, args.wavs, device)
+        ids = predict_host_features(model, feature, args.wavs, device, beam)
     for path, seq in zip(args.wavs, ids):
         print(json.dumps({"file": path,
                           "transcript": label_parser.imap(seq)}))

@@ -1,0 +1,352 @@
+"""CTC prefix beam search with optional char n-gram LM shallow fusion (port
+of ``asr_study_tpu/ops/beam.py``, its gather form).
+
+The beam is dense: per utterance W beams, each with its length, last
+character, the (p_blank, p_nonblank) log-prob split, an LM context code and
+a rolling prefix hash in two independent uint32 lanes.  Each frame expands
+the W beams into W stays and W*E extensions (E = V-1 characters, or the
+frame's top ``prune``), merges the candidates that denote the same prefix
+and keeps the top W.  Two facts make the merge a hash match and nothing
+more: two extensions never denote the same string, and the beams' prefixes
+are pairwise distinct, so the only merges are stay(w) == extend(w', c),
+one to one.  A spurious merge needs both hash lanes to collide.
+
+Ranking is exact and ties go to the lower candidate index, as
+``jax.lax.top_k`` and ``jnp.argsort`` break them: dead beams and killed
+extensions sit at LOG_EPS exactly, so ties are common.  The decoded
+strings are not carried: each frame writes (parent, emitted char)
+backpointers, walked back once at the end.
+
+:func:`beam_search_decode` takes the log-softmax in torch, then runs the
+walk: on a CUDA tensor one launch of ``csrc/ctc_beam.cu`` (:func:`ctc_beam`,
+a CTA per utterance, the whole time loop inside), on a CPU tensor
+:func:`beam_search_plain` (a loop over T of batched [B, W] torch ops).  The
+TPU forms of the reference (the one-hot winner reshuffle, its 16-bit
+halves and the ``ASR_BEAM_SELECT`` knob) are left out.
+"""
+
+from __future__ import annotations
+
+import weakref
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from asr_study_torch import _build
+from asr_study_torch.ops.ctc import LOG_EPS, _logadd, greedy_decode
+
+_HASH_MULT = 0x9E3779B1   # golden-ratio multiplier (lane 1)
+_HASH_MULT2 = 0x85EBCA77  # murmur3 fmix constant (lane 2)
+_HASH_INIT = 1
+# hash seeds of the dead placeholder beams 1..W-1: distinct, so they never
+# merge with anything live
+_DEAD1, _DEAD2 = 0xDEAD0000, 0xBEEF0000
+_U32 = 0xFFFFFFFF
+
+# csrc/ctc_beam.cu keeps a frame's W + W*(V-1) candidate keys (8 bytes
+# each) and W*(V-1) extension scores in shared memory: at these limits
+# about 96 KB of its 227 KB
+BEAM_MAX_WIDTH = 128
+BEAM_MAX_VOCAB = 64
+
+
+class BeamConfig(NamedTuple):
+    """A decode's beam options (the CLIs' ``--beam_width``,
+    ``--beam_prune``, ``--lm``, ``--lm_alpha``, ``--lm_beta``)."""
+    width: int
+    prune: int = 0
+    lm: object = None              # text.lm.CharNGramLM
+    lm_alpha: float = 1.0
+    lm_beta: float = 0.0
+
+
+def _mul_u32(h: torch.Tensor, mult: int) -> torch.Tensor:
+    """(h * mult) mod 2^32 for int64 h in [0, 2^32), from 16-bit halves of
+    ``mult`` so that no product passes 2^63."""
+    lo, hi = mult & 0xFFFF, mult >> 16
+    return (h * lo + (((h * hi) & 0xFFFF) << 16)) & _U32
+
+
+def _lm_context(lm, n_char: int) -> tuple[int, int]:
+    """-> (the LM's order, the modulus of its context update); checks the
+    table against the decoder's alphabet."""
+    if lm.logp.shape[1] != n_char:
+        raise ValueError(
+            f"LM alphabet {lm.logp.shape[1]} != decoder's {n_char} "
+            "(the LM must be fit on the same label vocabulary, "
+            "blank excluded)")
+    return lm.order, n_char ** max(lm.order - 2, 0)
+
+
+# each LM's table on each device it decoded on, made at its first decode
+# there (a decode per batch would otherwise copy it from the host each time)
+_LM_TABLES: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def _lm_table(lm, dev: torch.device) -> torch.Tensor:
+    """``lm.logp`` as a contiguous float32 tensor on ``dev``, moved there
+    once per LM and device."""
+    tables = _LM_TABLES.setdefault(lm, {})
+    if dev not in tables:
+        tables[dev] = torch.from_numpy(
+            np.ascontiguousarray(lm.logp, np.float32)).to(dev)
+    return tables[dev]
+
+
+def _sort_desc(x: torch.Tensor) -> torch.Tensor:
+    """Indices of ``x`` along its last dim by value descending, ties by the
+    lower index first (``jax.lax.top_k``'s order; ``torch.topk`` promises
+    none among ties)."""
+    return torch.sort(x, dim=-1, descending=True, stable=True).indices
+
+
+def beam_search_plain(log_probs: torch.Tensor, lengths: torch.Tensor,
+                      beam_width: int, pad_id: int = -1, prune: int = 0,
+                      lm=None, lm_alpha: float = 1.0, lm_beta: float = 0.0
+                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plain version of :func:`ctc_beam`: the reference's scan, batched
+    over B as [B, W] state tensors, a Python loop over T.
+
+    log_probs [B, T, V] float32 (a log-softmax, blank = V-1), lengths [B]
+    -> (prefixes [B, W, T] int32 padded with ``pad_id``, lengths [B, W]
+    int32, scores [B, W] float32), all W beams best first."""
+    batch, t_max, vocab = log_probs.shape
+    dev = log_probs.device
+    n_char, blank = vocab - 1, vocab - 1
+    n_ext = n_char if prune <= 0 else min(prune, n_char)
+    width = beam_width
+    i64 = dict(dtype=torch.int64, device=dev)
+    w_idx = torch.arange(width, **i64)
+    lengths = lengths.to(**i64)
+
+    lens = torch.zeros((batch, width), **i64)
+    last = torch.full((batch, width), -1, **i64)
+    p_b = log_probs.new_full((batch, width), LOG_EPS)
+    p_b[:, 0] = 0.0
+    p_nb = log_probs.new_full((batch, width), LOG_EPS)
+    h1 = (_DEAD1 + w_idx).expand(batch, width).clone()
+    h2 = (_DEAD2 + w_idx).expand(batch, width).clone()
+    h1[:, 0] = h2[:, 0] = _HASH_INIT
+    if lm is not None:
+        order, lm_mod = _lm_context(lm, n_char)
+        lm_tab = _lm_table(lm, dev)
+        lm_state = torch.full((batch, width), lm.init_state(), **i64)
+    else:
+        order = 0
+        lm_state = torch.zeros((batch, width), **i64)
+    all_chars = torch.arange(n_char, **i64).expand(batch, n_char)
+
+    # frames past every length leave the state and emit nothing
+    t_run = max(0, min(t_max, int(lengths.max()))) if batch else 0
+    bp_parent = torch.empty((t_run, batch, width), **i64)
+    bp_char = torch.empty((t_run, batch, width), **i64)
+    for t in range(t_run):
+        lp = log_probs[:, t]                                  # [B, V]
+        valid = (t < lengths)[:, None]                        # [B, 1]
+        if n_ext < n_char:
+            chars = _sort_desc(lp[:, :n_char])[:, :n_ext]      # [B, E]
+            lp_c = torch.gather(lp, 1, chars)
+        else:
+            chars, lp_c = all_chars, lp[:, :n_char]
+
+        # candidate scores
+        p_tot = _logadd(p_b, p_nb)                            # [B, W]
+        stay_pb = p_tot + lp[:, blank, None]
+        lp_sel = torch.gather(lp, 1, last.clamp(min=0))
+        stay_pnb = p_nb + torch.where(last >= 0, lp_sel, LOG_EPS)
+        is_last = chars[:, None, :] == last[:, :, None]       # [B, W, E]
+        ext_pnb = torch.where(is_last, p_b[..., None],
+                              p_tot[..., None]) + lp_c[:, None, :]
+        if lm is not None:
+            lm_lp = torch.gather(lm_tab[lm_state], 2,
+                                 chars[:, None, :].expand(-1, width, -1))
+            ext_pnb = ext_pnb + lm_alpha * lm_lp + lm_beta
+        ext_pnb = ext_pnb.reshape(batch, width * n_ext)
+        step = chars[:, None, :] + 1
+        ext_h1 = ((_mul_u32(h1, _HASH_MULT)[..., None] + step) & _U32
+                  ).reshape(batch, -1)
+        ext_h2 = ((_mul_u32(h2, _HASH_MULT2)[..., None] + step) & _U32
+                  ).reshape(batch, -1)
+
+        # merge: stay(w) == extend(w', c), found by a two-lane hash match
+        eq = ((ext_h1[:, None, :] == h1[..., None])
+              & (ext_h2[:, None, :] == h2[..., None]))        # [B, W, W*E]
+        absorbed = torch.where(eq, ext_pnb[:, None, :], LOG_EPS).amax(2)
+        stay_pnb = _logadd(stay_pnb, absorbed)
+        ext_score = torch.where(eq.any(1), LOG_EPS, ext_pnb)
+        stay_score = _logadd(stay_pb, stay_pnb)
+
+        # keep the top W of [W stays | W*E extensions]
+        sel = _sort_desc(torch.cat([stay_score, ext_score], 1))[:, :width]
+        is_stay = sel < width
+        eflat = (sel - width).clamp(min=0)
+        parent = torch.where(is_stay, sel, eflat // n_ext)
+        ext_char = torch.gather(chars, 1, eflat % n_ext)
+        if lm is not None and order >= 2:
+            ext_lm = (torch.gather(lm_state, 1, parent) % lm_mod) * n_char \
+                + ext_char
+        else:
+            ext_lm = torch.gather(lm_state, 1, parent)
+
+        def pick(stay, ext):
+            return torch.where(is_stay, torch.gather(stay, 1, parent), ext)
+
+        new = (
+            torch.gather(lens, 1, parent) + (~is_stay).long(),
+            torch.where(is_stay, torch.gather(last, 1, parent), ext_char),
+            torch.where(is_stay, torch.gather(stay_pb, 1, parent), LOG_EPS),
+            pick(stay_pnb, torch.gather(ext_pnb, 1, eflat)),
+            pick(h1, torch.gather(ext_h1, 1, eflat)),
+            pick(h2, torch.gather(ext_h2, 1, eflat)),
+            pick(lm_state, ext_lm),
+        )
+        lens, last, p_b, p_nb, h1, h2, lm_state = (
+            torch.where(valid, n, o) for n, o in
+            zip(new, (lens, last, p_b, p_nb, h1, h2, lm_state)))
+        bp_parent[t] = torch.where(valid, parent, w_idx)
+        bp_char[t] = torch.where(valid & ~is_stay, ext_char, -1)
+
+    # walk the backpointers back from each final beam, then place each
+    # emitted char at its position
+    slots = w_idx.expand(batch, width)
+    chars_tw = torch.empty((t_run, batch, width), **i64)
+    for t in reversed(range(t_run)):
+        chars_tw[t] = torch.gather(bp_char[t], 1, slots)
+        slots = torch.gather(bp_parent[t], 1, slots)
+    emitted = chars_tw >= 0
+    pos = torch.where(emitted, emitted.cumsum(0) - 1, t_max)
+    prefixes = torch.full((batch, width, t_max + 1), pad_id, **i64)
+    prefixes.scatter_(2, pos.permute(1, 2, 0), chars_tw.permute(1, 2, 0))
+    prefixes = prefixes[..., :t_max]
+
+    scores = _logadd(p_b, p_nb)
+    order_w = _sort_desc(scores)
+    prefixes = torch.gather(prefixes, 1,
+                            order_w[..., None].expand(-1, -1, t_max))
+    lens = torch.gather(lens, 1, order_w)
+    prefixes = torch.where(torch.arange(t_max, device=dev) < lens[..., None],
+                           prefixes, pad_id)
+    return (prefixes.to(torch.int32), lens.to(torch.int32),
+            torch.gather(scores, 1, order_w))
+
+
+def _check_limits(beam_width: int, vocab: int) -> None:
+    if not 1 <= beam_width <= BEAM_MAX_WIDTH:
+        raise ValueError(f"ctc_beam: beam_width {beam_width} outside the "
+                         f"kernel's 1..{BEAM_MAX_WIDTH}")
+    if not 2 <= vocab <= BEAM_MAX_VOCAB:
+        raise ValueError(f"ctc_beam: {vocab} classes (blank included) "
+                         f"outside the kernel's 2..{BEAM_MAX_VOCAB}")
+
+
+def ctc_beam(log_probs: torch.Tensor, lengths: torch.Tensor,
+             beam_width: int, pad_id: int = -1, top_paths: int = 1,
+             prune: int = 0, lm=None, lm_alpha: float = 1.0,
+             lm_beta: float = 0.0
+             ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The beam walk on a CUDA tensor: one launch of ``csrc/ctc_beam.cu``
+    for the batch.
+
+    log_probs [B, T, V] float32 log-softmax (blank = V-1), lengths [B] ->
+    (prefixes [B, P, T] int32, lengths [B, P] int32, scores [B, P]
+    float32), P = min(top_paths, beam_width), best first.  Raises beyond
+    the kernel's limits (W <= 128, V <= 64) and for a tensor not on a CUDA
+    device."""
+    batch, t_max, vocab = log_probs.shape
+    dev = log_probs.device
+    if dev.type != "cuda":
+        raise ValueError(f"ctc_beam: no kernel for device {dev}")
+    if log_probs.dtype != torch.float32:
+        raise ValueError(f"ctc_beam: log_probs must be float32, got "
+                         f"{log_probs.dtype}")
+    _check_limits(beam_width, vocab)
+    n_char = vocab - 1
+    n_ext = n_char if prune <= 0 else min(prune, n_char)
+    paths = max(1, min(top_paths, beam_width))
+    lp = log_probs.contiguous()
+    lens_in = lengths.to(device=dev, dtype=torch.int32).contiguous()
+    prefixes = torch.empty((batch, paths, t_max), dtype=torch.int32,
+                           device=dev)
+    out_len = torch.empty((batch, paths), dtype=torch.int32, device=dev)
+    scores = torch.empty((batch, paths), dtype=torch.float32, device=dev)
+    if batch == 0:
+        return prefixes, out_len, scores
+    # backpointers (parent | (char + 1) << 16) of every frame and beam
+    bp = torch.empty((batch, max(t_max, 1), beam_width), dtype=torch.int32,
+                     device=dev)
+    order, lm_mod, state0, lm_ptr = 0, 1, 0, 0
+    if lm is not None:
+        order, lm_mod = _lm_context(lm, n_char)
+        if lm.logp.shape[0] >= 2 ** 31:
+            raise ValueError("ctc_beam: the LM's context codes pass int32")
+        state0 = lm.init_state()
+        lm_ptr = _lm_table(lm, dev).data_ptr()
+    with torch.cuda.device(dev):
+        err = _build.lib().asr_ctc_beam(
+            lp.data_ptr(), lens_in.data_ptr(), lm_ptr, bp.data_ptr(),
+            prefixes.data_ptr(), out_len.data_ptr(), scores.data_ptr(),
+            batch, t_max, vocab, beam_width, paths, n_ext, pad_id, order,
+            lm_mod, state0, lm_alpha, lm_beta, _HASH_MULT & _U32,
+            _HASH_MULT2 & _U32, torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "ctc_beam")
+    ctc_beam.launches += 1
+    return prefixes, out_len, scores
+
+
+ctc_beam.launches = 0
+
+
+def beam_search_decode(
+    logits: torch.Tensor,           # [B, T, V]
+    logit_lengths: torch.Tensor,    # [B]
+    beam_width: int = 16,
+    blank_id: Optional[int] = None,
+    pad_id: int = -1,
+    top_paths: int = 1,
+    prune: int = 0,
+    lm=None,
+    lm_alpha: float = 1.0,
+    lm_beta: float = 0.0,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """CTC prefix beam search over a batch.
+
+    Returns (decoded [B, P, T] int32 padded with ``pad_id``, lengths [B, P]
+    int32, log_scores [B, P] float32) with ``P = top_paths`` beams (at most
+    ``beam_width``) best first.  ``prune > 0`` expands only the frame's
+    top-``prune`` characters.  ``lm`` (a ``text.lm.CharNGramLM`` over the
+    label alphabet, blank excluded) fuses ``lm_alpha * log p_lm + lm_beta``
+    into every extension, so beams rank, and the scores are, the combined
+    objective.  CPU tensors take :func:`beam_search_plain`; CUDA tensors
+    launch the kernel (:func:`ctc_beam`) or raise."""
+    vocab = logits.shape[-1]
+    if blank_id is None:
+        blank_id = vocab - 1
+    if blank_id != vocab - 1:
+        raise ValueError("beam_search_decode requires blank as the last id")
+    dev = logits.device
+    log_probs = torch.log_softmax(logits.float(), dim=-1)
+    if dev.type == "cuda":
+        return ctc_beam(log_probs, logit_lengths, beam_width, pad_id,
+                        top_paths, prune, lm, lm_alpha, lm_beta)
+    if dev.type != "cpu":
+        raise ValueError(f"beam_search_decode: no kernel for device {dev}")
+    prefixes, lens, scores = beam_search_plain(
+        log_probs, logit_lengths, beam_width, pad_id, prune, lm, lm_alpha,
+        lm_beta)
+    return (prefixes[:, :top_paths], lens[:, :top_paths],
+            scores[:, :top_paths])
+
+
+def decode(logits: torch.Tensor, lengths: torch.Tensor, blank_id: int,
+           beam: Optional[BeamConfig] = None
+           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Greedy decode, or with ``beam`` the best beam -> (decoded [B, T']
+    int32 padded with -1, lengths [B] int32)."""
+    if beam is None or beam.width <= 0:
+        return greedy_decode(logits, lengths, blank_id=blank_id)
+    dec, lens, _ = beam_search_decode(
+        logits, lengths, beam_width=beam.width, blank_id=blank_id,
+        prune=beam.prune, lm=beam.lm, lm_alpha=beam.lm_alpha,
+        lm_beta=beam.lm_beta)
+    return dec[:, 0], lens[:, 0]

@@ -376,6 +376,38 @@ def ctc_loss_mean(logits: torch.Tensor, logit_lengths: torch.Tensor,
 
 # -- decoding ----------------------------------------------------------------
 
+def blank_collapse(logits: torch.Tensor, logit_lengths: torch.Tensor,
+                   blank_id: Optional[int] = None, threshold: float = 0.99,
+                   keep_ratio: float = 0.6
+                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Collapse each run of blank-dominated frames to its first frame
+    (Blank Collapse, arXiv:2210.17017): such frames carry only the repeat
+    separation, which one survivor keeps.
+
+    The kept frames are left-packed into ``T2 = ceil(T * keep_ratio)``
+    frames; an utterance that keeps more loses its latest ones.  Returns
+    (packed logits [B, T2, V], new lengths int32 [B], dropped int32 [B]:
+    the frames lost to T2, which the caller should report)."""
+    batch, t_max, vocab = logits.shape
+    if blank_id is None:
+        blank_id = vocab - 1
+    t2 = max(1, int(-(-t_max * keep_ratio // 1)))
+    probs = torch.softmax(logits, dim=-1)
+    t = torch.arange(t_max, device=logits.device)[None, :]
+    valid = t < logit_lengths.to(logits.device)[:, None]
+    blankish = probs[:, :, blank_id] >= threshold              # [B, T]
+    prev_blankish = torch.cat([blankish.new_zeros((batch, 1)),
+                               blankish[:, :-1]], dim=1)
+    # every non-blank frame and the first frame of each blank run
+    keep = valid & (~blankish | ~prev_blankish)
+    key = torch.where(keep, t, t_max)
+    order = torch.argsort(key, dim=1, stable=True)[:, :t2]    # [B, T2]
+    packed = torch.gather(logits, 1, order[..., None].expand(-1, -1, vocab))
+    num_keep = keep.sum(dim=1).to(torch.int32)
+    new_lengths = torch.clamp(num_keep, max=t2)
+    return packed, new_lengths, num_keep - new_lengths
+
+
 def greedy_decode(logits: torch.Tensor, logit_lengths: torch.Tensor,
                   blank_id: Optional[int] = None, pad_id: int = -1
                   ) -> tuple[torch.Tensor, torch.Tensor]:

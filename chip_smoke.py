@@ -36,7 +36,14 @@ paths at full width, with random weights from a seeded
   writes a manifest of 800 SynthWords utterances, ``cli.train`` trains
   ``deep_blstm`` at its zoo defaults (3x256, dropout 0.2) from it for 3
   epochs and one more with ``--resume``, ``cli.eval`` scores its valid and
-  test splits.
+  test splits;
+- prefix beam search (BASELINE config 4): the ``ctc_beam`` kernel
+  (csrc/ctc_beam.cu, a CTA per utterance) on speech-like emissions of
+  B=32, T=512, V=28 at widths 4, 16 and 64, pruned, after blank collapse
+  and with a char 3-gram LM fused; the deep_blstm 2x256 serving slice with
+  ``beam_width=16`` through ``serve_batch``; ``cli.train_lm`` on the
+  corpus manifest and ``cli.eval --beam_width 16`` with its LM and with
+  ``--blank_collapse 0.99``.
 
 Phases, in order; any failure raises and the exit code is not 0:
 
@@ -104,7 +111,14 @@ Phases, in order; any failure raises and the exit code is not 0:
    eval's valid loss equal to the run's last ``val_loss``, finite test
    CER and WER; the host seconds of the synthesis and of the manifest's
    features, ms per train step (CUDA events) and audio-s/s, eval ms per
-   batch.
+   batch;
+9. the beam phase: ctc_beam against its plain twin on the card (all W
+   beams of every row; prefixes, lengths and scores equal bit for bit),
+   each case timed beside its bound (no library call does prefix beam
+   search), the plain twin once; the
+   beam serving slice's launches and transcripts against the plain twin
+   on its logits, its ms a batch beside the greedy slice's; train_lm's
+   report, each beam eval's record and launches (one ctc_beam a batch).
 
 The deep_blstm pcm16 slice's wire unpack and features stage are split
 with CUDA events (``_prep``, fbank, the two deltas, ``_finalize``), and
@@ -222,6 +236,18 @@ AUDIO_PER_STEP = TRAIN_B * TRAIN_T * 0.01   # 10 ms frames: 163.84 s
 # 400): 640 train, 80 valid and 80 test utterances of 3-8 words
 CORPUS_N, CORPUS_EPOCHS, CORPUS_B = 800, 3, 32
 CORPUS_LOSS_RTOL = 1e-5          # eval's valid loss against the last val_loss
+
+# the beam phase (BASELINE config 4, prefix beam search on an eval set):
+# speech-like emissions as benchmarks/bench_decode.py:49-53 makes them
+# (randn, the blank column +10 on 65% of frames and -10 on the rest), B=32,
+# T=512, V=28; 24 rows at T, 8 ragged in 1..T-1; 10 ms frames.  The
+# kernel is held equal to its plain twin bit for bit: prefixes, lengths
+# and scores (the same arithmetic in the same order)
+BEAM_B, BEAM_T, BEAM_V, BEAM_FULL = 32, 512, 28, 24
+BEAM_WIDTHS = (4, 16, 64)
+BEAM_SERVE_W = 16                # the serving slice's and the CLIs' width
+BEAM_LM = dict(lm_alpha=0.8, lm_beta=0.1)
+FRAME_S = 0.01
 
 
 def synth_batch(rng: np.random.RandomState, max_len: bool = False):
@@ -3058,6 +3084,8 @@ KERNELS = {
     "mi_lstm_fwd": ("mi_lstm_fwd.cu", "ops/pallas_mi_lstm.py:59"),
     "mi_lstm_bwd": ("mi_lstm_bwd.cu", "ops/pallas_mi_lstm.py:132"),
     "dpack_decode": ("dpack_onepass.cu", "ops/pallas_dpack.py:56"),
+    # no Pallas kernel: the JAX package's beam is one XLA scan
+    "ctc_beam": ("ctc_beam.cu", "ops/beam.py:412"),
     # the LSTM wrappers' wide design (256 < H <= 512): the same TPU
     # kernels, another source
     "bilstm_fwd_wide": ("lstm_wide_fwd.cu", "ops/pallas_bilstm.py:84"),
@@ -3133,7 +3161,7 @@ CHAOTIC = ("ln_blstm", "ln_blstm uni")
 def launch_counters() -> dict:
     """Every kernel wrapper of the port, by kernel name."""
     from asr_study_torch.features.fbank import fbank
-    from asr_study_torch.ops import ctc
+    from asr_study_torch.ops import beam, ctc
     from asr_study_torch.ops.bilstm import bilstm, bilstm_bwd, lstm, lstm_bwd
     from asr_study_torch.ops.dpack import dpack_decode
     from asr_study_torch.ops.gru import bigru, bigru_bwd, gru, gru_bwd
@@ -3157,7 +3185,7 @@ def launch_counters() -> dict:
             "zoneout_lstm_bwd": zoneout_lstm_bwd,
             "bi_mi_lstm_fwd": bi_mi_lstm, "bi_mi_lstm_bwd": bi_mi_lstm_bwd,
             "mi_lstm_fwd": mi_lstm, "mi_lstm_bwd": mi_lstm_bwd,
-            "dpack_decode": dpack_decode}
+            "dpack_decode": dpack_decode, "ctc_beam": beam.ctc_beam}
 
 
 # the wrappers of the LSTM, GRU, layer-norm, zoneout and MI LSTM kernels
@@ -3710,210 +3738,416 @@ def threaded_batches(batches, depth: int = 2):
         t.join()
 
 
-def corpus_phase(card: str) -> list:
+def corpus_phase(card: str, tmp: str) -> tuple[list, str, str]:
     """BASELINE config 3 from a corpus, through the CLIs' ``main(argv)``:
     make_dataset (a SynthWords manifest), train (deep_blstm at its zoo
     defaults, CORPUS_EPOCHS epochs from the manifest), train --resume (one
     more epoch), eval on the valid and test splits; the launch counts of
     each held to what its steps and evals need; then fresh train runs in
     turns with the loop's batches straight from the iterator, as ``fit``
-    takes them, and built ahead by a worker thread -> each counted CLI
-    run's launches."""
+    takes them, and built ahead by a worker thread; all in ``tmp`` ->
+    (each counted CLI run's launches, the manifest, the first run's
+    directory)."""
     from asr_study_torch.data.generator import DatasetGenerator
     from asr_study_torch.cli import eval as cli_eval
     from asr_study_torch.cli import make_dataset
     from asr_study_torch.cli import train as cli_train
 
     runs = []
-    with tempfile.TemporaryDirectory() as tmp:
-        manifest = os.path.join(tmp, "m.json")
-        run_dir = os.path.join(tmp, "run")
-        t0 = time.perf_counter()
-        require(make_dataset.main([
-            "--parser", "synthwords", "--dataset_dir",
-            os.path.join(tmp, "corpus"), "--corpus_params",
-            json.dumps({"n": CORPUS_N, "seed": SEED}),
-            "--to_json", manifest]) == 0, "make_dataset failed")
-        synth_s = time.perf_counter() - t0
-        with open(manifest) as f:
-            utts = [json.loads(line) for line in f]
-        by_split = {s: [u for u in utts if u["split"] == s]
-                    for s in ("train", "valid", "test")}
-        require({s: len(u) for s, u in by_split.items()}
-                == {"train": CORPUS_N * 8 // 10, "valid": CORPUS_N // 10,
-                    "test": CORPUS_N // 10},
-                f"manifest splits {[(s, len(u)) for s, u in by_split.items()]}")
-        train_audio_s = sum(u["duration"] for u in by_split["train"])
-        print(f"corpus: make_dataset --parser synthwords n={CORPUS_N}: "
-              f"{len(utts)} utterances ({train_audio_s:.1f} s of train "
-              f"audio, {min(u['duration'] for u in utts):.2f}-"
-              f"{max(u['duration'] for u in utts):.2f} s each) synthesised "
-              f"and written in {synth_s:.2f} s of host time")
+    manifest = os.path.join(tmp, "m.json")
+    run_dir = os.path.join(tmp, "run")
+    t0 = time.perf_counter()
+    require(make_dataset.main([
+        "--parser", "synthwords", "--dataset_dir",
+        os.path.join(tmp, "corpus"), "--corpus_params",
+        json.dumps({"n": CORPUS_N, "seed": SEED}),
+        "--to_json", manifest]) == 0, "make_dataset failed")
+    synth_s = time.perf_counter() - t0
+    with open(manifest) as f:
+        utts = [json.loads(line) for line in f]
+    by_split = {s: [u for u in utts if u["split"] == s]
+                for s in ("train", "valid", "test")}
+    require({s: len(u) for s, u in by_split.items()}
+            == {"train": CORPUS_N * 8 // 10, "valid": CORPUS_N // 10,
+                "test": CORPUS_N // 10},
+            f"manifest splits {[(s, len(u)) for s, u in by_split.items()]}")
+    train_audio_s = sum(u["duration"] for u in by_split["train"])
+    print(f"corpus: make_dataset --parser synthwords n={CORPUS_N}: "
+          f"{len(utts)} utterances ({train_audio_s:.1f} s of train "
+          f"audio, {min(u['duration'] for u in utts):.2f}-"
+          f"{max(u['duration'] for u in utts):.2f} s each) synthesised "
+          f"and written in {synth_s:.2f} s of host time")
 
-        def train(argv, epochs):
-            tap = CliTap()
-            reset_counts()
-            t0 = time.perf_counter()
-            with tap.record():
+    def train(argv, epochs):
+        tap = CliTap()
+        reset_counts()
+        t0 = time.perf_counter()
+        with tap.record():
+            require(cli_train.main([
+                "--dataset", manifest, "--model", "deep_blstm",
+                "--batch_size", str(CORPUS_B), "--seed", str(SEED),
+                "--log_every", "5", "--save", run_dir,
+                "--epochs", str(epochs), *argv]) == 0, "train failed")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+        its = dict(tap.flows)
+        spe = its["train"].steps_per_epoch
+        v_batches = its["valid"].steps_per_epoch
+        want = {"bilstm_fwd": TRAIN_LAYERS * epochs * (spe + v_batches),
+                "bilstm_bwd": TRAIN_LAYERS * epochs * spe,
+                "ctc_alpha": epochs * (spe + v_batches),
+                "ctc_beta": epochs * spe}
+        require(launches == want,
+                f"corpus train launches {launches}, want {want}")
+        labels = max(l for it in its.values()
+                     for _, l in it.padded_shapes())
+        check_designs("corpus train", HIDDEN, CORPUS_B, 2 * labels + 1)
+        step_ms, by_t = CliTap.ms(tap.steps)
+        require(len(step_ms) == epochs * spe,
+                f"{len(step_ms)} steps timed, want {epochs * spe}")
+        shapes = sorted(its["train"].padded_shapes())
+        print(f"corpus train {' '.join(argv) or '(fresh)'}: {epochs} "
+              f"epochs x {spe} steps, B={CORPUS_B}, {len(shapes)} (T, L) "
+              f"buckets {shapes}; launches {launches}; manifest features "
+              f"(train + valid) {tap.features_s:.2f} s of host time; "
+              f"{wall:.1f} s wall in all")
+        # the run's first step carries one-time costs (cuBLAS
+        # handles, first launches): shown apart
+        steady = step_ms[1:]
+        windows = CliTap.epoch_windows(tap.steps, spe)
+        print(f"[{card}] corpus train step, CUDA events around each of "
+              f"{len(step_ms)} steps: first {step_ms[0]:.4f} ms, the "
+              f"rest {np.mean(steady):.4f} ms/step mean, median "
+              f"{np.median(steady):.4f} ({min(steady):.4f}-"
+              f"{max(steady):.4f}); by bucket {by_t}; step-time rate "
+              f"{epochs * train_audio_s / (sum(step_ms) / 1e3):.1f} "
+              f"audio-s/s over the {len(step_ms)} steps alone; epoch "
+              f"windows (first step's start to last step's end) "
+              f"{', '.join(f'{w:.4f}' for w in windows)} ms: "
+              f"{epochs * train_audio_s / (sum(windows) / 1e3):.1f} "
+              f"audio-s/s with the gaps between steps")
+        runs.append(launches)
+        return spe, its
+
+    spe, its = train([], CORPUS_EPOCHS)
+    with open(os.path.join(run_dir, "meta.json")) as f:
+        meta = json.load(f)
+    with open(os.path.join(run_dir, "train_metrics.csv")) as f:
+        rows = list(csv.DictReader(f))
+    logged = [float(r["loss"]) for r in rows if r.get("loss")]
+    epoch_loss = [h["train_loss"] for h in meta["history"]]
+    print(f"corpus train: logged losses {[round(v, 3) for v in logged]}; "
+          f"train_loss by epoch {[round(v, 4) for v in epoch_loss]}, "
+          f"val_loss {[round(h['val_loss'], 4) for h in meta['history']]}"
+          f", val_ler {[round(h['val_ler'], 4) for h in meta['history']]}")
+    require(len(logged) > 0 and all(math.isfinite(v) for v in logged)
+            and all(math.isfinite(v) for h in meta["history"]
+                    for v in h.values()), "a non-finite corpus loss")
+    require(len(epoch_loss) == CORPUS_EPOCHS
+            and epoch_loss[-1] < epoch_loss[0],
+            f"train_loss did not fall over the epochs: {epoch_loss}")
+    require(meta["last_step"] == CORPUS_EPOCHS * spe,
+            f"last step {meta['last_step']}")
+
+    train(["--resume"], 1)
+    with open(os.path.join(run_dir, "meta.json")) as f:
+        meta = json.load(f)
+    require(meta["last_step"] == (CORPUS_EPOCHS + 1) * spe
+            and [h["step"] for h in meta["history"]]
+            == [(e + 1) * spe for e in range(CORPUS_EPOCHS + 1)],
+            f"--resume: history steps {[h['step'] for h in meta['history']]}")
+    print(f"corpus train --resume: continued from step "
+          f"{CORPUS_EPOCHS * spe} to {meta['last_step']}")
+
+    for split in ("valid", "test"):
+        tap = CliTap()
+        out = io.StringIO()
+        reset_counts()
+        with tap.record(), contextlib.redirect_stdout(out):
+            require(cli_eval.main(["--dataset", manifest, "--split",
+                                   split, "--save", run_dir]) == 0,
+                    "eval failed")
+        torch.cuda.synchronize()
+        launches = read_counts()
+        res = json.loads(out.getvalue().strip().splitlines()[-1])
+        n_b = dict(tap.flows)[split].steps_per_epoch
+        want = {"bilstm_fwd": TRAIN_LAYERS * n_b, "ctc_alpha": n_b}
+        require(launches == want,
+                f"corpus eval {split} launches {launches}, want {want}")
+        ms, by_t = CliTap.ms(tap.evals)
+        print(f"corpus eval --split {split}: {res}; launches {launches}; "
+              f"manifest features {tap.features_s:.2f} s of host time")
+        print(f"[{card}] corpus eval, CUDA events around each of "
+              f"{len(ms)} batches (B={CORPUS_B}): {np.mean(ms):.4f} "
+              f"ms/batch mean; {by_t}")
+        require(res["num_utts"] == CORPUS_N // 10 and all(
+            math.isfinite(res[k]) for k in ("loss", "cer", "wer")),
+            f"eval {split}: {res}")
+        if split == "valid":
+            val_loss = meta["history"][-1]["val_loss"]
+            rel = abs(res["loss"] - val_loss) / abs(val_loss)
+            print(f"corpus eval valid loss {res['loss']:.6f} vs the "
+                  f"run's last val_loss {val_loss:.6f}: rel {rel:.3e} "
+                  f"(tol {CORPUS_LOSS_RTOL:g})")
+            require(rel <= CORPUS_LOSS_RTOL,
+                    "eval's valid loss differs from the last val_loss")
+        runs.append(launches)
+
+    # the loop's batches from the iterator (fit) or from a worker
+    # thread, in turns, on the first run's splits (no features again);
+    # the same batches in the same order, so the same losses
+    real_flow, train_it = DatasetGenerator.flow_from_json, its["train"]
+    ab = {"plain": [], "thread": []}
+    histories = []
+    for i, variant in enumerate(("plain", "thread", "thread", "plain")):
+        if variant == "thread":
+            plain_epoch = train_it.epoch
+            train_it.epoch = lambda *a, **k: threaded_batches(
+                plain_epoch(*a, **k))
+        DatasetGenerator.flow_from_json = (
+            lambda gen, *a, split=None, **k: its[split])
+        tap = CliTap()
+        try:
+            with tap.record(), contextlib.redirect_stdout(io.StringIO()):
                 require(cli_train.main([
                     "--dataset", manifest, "--model", "deep_blstm",
                     "--batch_size", str(CORPUS_B), "--seed", str(SEED),
-                    "--log_every", "5", "--save", run_dir,
-                    "--epochs", str(epochs), *argv]) == 0, "train failed")
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            launches = read_counts()
-            its = dict(tap.flows)
-            spe = its["train"].steps_per_epoch
-            v_batches = its["valid"].steps_per_epoch
-            want = {"bilstm_fwd": TRAIN_LAYERS * epochs * (spe + v_batches),
-                    "bilstm_bwd": TRAIN_LAYERS * epochs * spe,
-                    "ctc_alpha": epochs * (spe + v_batches),
-                    "ctc_beta": epochs * spe}
-            require(launches == want,
-                    f"corpus train launches {launches}, want {want}")
-            labels = max(l for it in its.values()
-                         for _, l in it.padded_shapes())
-            check_designs("corpus train", HIDDEN, CORPUS_B, 2 * labels + 1)
-            step_ms, by_t = CliTap.ms(tap.steps)
-            require(len(step_ms) == epochs * spe,
-                    f"{len(step_ms)} steps timed, want {epochs * spe}")
-            shapes = sorted(its["train"].padded_shapes())
-            print(f"corpus train {' '.join(argv) or '(fresh)'}: {epochs} "
-                  f"epochs x {spe} steps, B={CORPUS_B}, {len(shapes)} (T, L) "
-                  f"buckets {shapes}; launches {launches}; manifest features "
-                  f"(train + valid) {tap.features_s:.2f} s of host time; "
-                  f"{wall:.1f} s wall in all")
-            # the run's first step carries one-time costs (cuBLAS
-            # handles, first launches): shown apart
-            steady = step_ms[1:]
-            windows = CliTap.epoch_windows(tap.steps, spe)
-            print(f"[{card}] corpus train step, CUDA events around each of "
-                  f"{len(step_ms)} steps: first {step_ms[0]:.4f} ms, the "
-                  f"rest {np.mean(steady):.4f} ms/step mean, median "
-                  f"{np.median(steady):.4f} ({min(steady):.4f}-"
-                  f"{max(steady):.4f}); by bucket {by_t}; step-time rate "
-                  f"{epochs * train_audio_s / (sum(step_ms) / 1e3):.1f} "
-                  f"audio-s/s over the {len(step_ms)} steps alone; epoch "
-                  f"windows (first step's start to last step's end) "
-                  f"{', '.join(f'{w:.4f}' for w in windows)} ms: "
-                  f"{epochs * train_audio_s / (sum(windows) / 1e3):.1f} "
-                  f"audio-s/s with the gaps between steps")
-            runs.append(launches)
-            return spe, its
+                    "--log_every", "5", "--epochs", str(CORPUS_EPOCHS),
+                    "--save", os.path.join(tmp, f"ab{i}")]) == 0,
+                    "train failed")
+        finally:
+            DatasetGenerator.flow_from_json = real_flow
+            train_it.__dict__.pop("epoch", None)
+        windows = CliTap.epoch_windows(tap.steps, spe)
+        step_ms, _ = CliTap.ms(tap.steps)
+        ab[variant].append((sum(windows), sum(step_ms)))
+        with open(os.path.join(tmp, f"ab{i}", "meta.json")) as f:
+            histories.append([h["train_loss"]
+                              for h in json.load(f)["history"]])
+        print(f"[{card}] corpus train, batches from "
+              f"{'the iterator' if variant == 'plain' else 'a thread'} "
+              f"(run {i}): epoch windows {sum(windows):.4f} ms, steps "
+              f"{sum(step_ms):.4f} ms, "
+              f"{CORPUS_EPOCHS * train_audio_s / (sum(windows) / 1e3):.1f}"
+              f" audio-s/s over the windows")
+    require(all(h == histories[0] for h in histories),
+            f"the train losses differ between the loops: {histories}")
+    means = {v: np.mean(r, axis=0) for v, r in ab.items()}
+    print(f"[{card}] corpus train loop A/B, {CORPUS_EPOCHS} epochs a run"
+          f", 2 runs each in turns, mean epoch windows (steps): "
+          + "; ".join(f"{v} {m[0]:.4f} ms ({m[1]:.4f} ms), "
+                      f"{CORPUS_EPOCHS * train_audio_s / (m[0] / 1e3):.1f}"
+                      f" audio-s/s" for v, m in means.items())
+          + f"; thread/plain {means['thread'][0] / means['plain'][0]:.4f}"
+          f"; train losses equal")
+    return runs, manifest, run_dir
 
-        spe, its = train([], CORPUS_EPOCHS)
-        with open(os.path.join(run_dir, "meta.json")) as f:
-            meta = json.load(f)
-        with open(os.path.join(run_dir, "train_metrics.csv")) as f:
-            rows = list(csv.DictReader(f))
-        logged = [float(r["loss"]) for r in rows if r.get("loss")]
-        epoch_loss = [h["train_loss"] for h in meta["history"]]
-        print(f"corpus train: logged losses {[round(v, 3) for v in logged]}; "
-              f"train_loss by epoch {[round(v, 4) for v in epoch_loss]}, "
-              f"val_loss {[round(h['val_loss'], 4) for h in meta['history']]}"
-              f", val_ler {[round(h['val_ler'], 4) for h in meta['history']]}")
-        require(len(logged) > 0 and all(math.isfinite(v) for v in logged)
-                and all(math.isfinite(v) for h in meta["history"]
-                        for v in h.values()), "a non-finite corpus loss")
-        require(len(epoch_loss) == CORPUS_EPOCHS
-                and epoch_loss[-1] < epoch_loss[0],
-                f"train_loss did not fall over the epochs: {epoch_loss}")
-        require(meta["last_step"] == CORPUS_EPOCHS * spe,
-                f"last step {meta['last_step']}")
 
-        train(["--resume"], 1)
-        with open(os.path.join(run_dir, "meta.json")) as f:
-            meta = json.load(f)
-        require(meta["last_step"] == (CORPUS_EPOCHS + 1) * spe
-                and [h["step"] for h in meta["history"]]
-                == [(e + 1) * spe for e in range(CORPUS_EPOCHS + 1)],
-                f"--resume: history steps {[h['step'] for h in meta['history']]}")
-        print(f"corpus train --resume: continued from step "
-              f"{CORPUS_EPOCHS * spe} to {meta['last_step']}")
+def beam_emissions(dev: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """The beam phase's logits [BEAM_B, BEAM_T, BEAM_V] and lengths."""
+    rng = np.random.RandomState(SEED)
+    x = rng.randn(BEAM_B, BEAM_T, BEAM_V).astype(np.float32)
+    blank = rng.rand(BEAM_B, BEAM_T) < 0.65
+    x[:, :, -1] += np.where(blank, 10.0, -10.0).astype(np.float32)
+    lens = np.full(BEAM_B, BEAM_T, np.int32)
+    lens[BEAM_FULL:] = rng.randint(1, BEAM_T, BEAM_B - BEAM_FULL)
+    return torch.from_numpy(x).to(dev), torch.from_numpy(lens).to(dev)
 
-        for split in ("valid", "test"):
-            tap = CliTap()
-            out = io.StringIO()
-            reset_counts()
-            with tap.record(), contextlib.redirect_stdout(out):
-                require(cli_eval.main(["--dataset", manifest, "--split",
-                                       split, "--save", run_dir]) == 0,
-                        "eval failed")
-            torch.cuda.synchronize()
-            launches = read_counts()
-            res = json.loads(out.getvalue().strip().splitlines()[-1])
-            n_b = dict(tap.flows)[split].steps_per_epoch
-            want = {"bilstm_fwd": TRAIN_LAYERS * n_b, "ctc_alpha": n_b}
-            require(launches == want,
-                    f"corpus eval {split} launches {launches}, want {want}")
-            ms, by_t = CliTap.ms(tap.evals)
-            print(f"corpus eval --split {split}: {res}; launches {launches}; "
-                  f"manifest features {tap.features_s:.2f} s of host time")
-            print(f"[{card}] corpus eval, CUDA events around each of "
-                  f"{len(ms)} batches (B={CORPUS_B}): {np.mean(ms):.4f} "
-                  f"ms/batch mean; {by_t}")
-            require(res["num_utts"] == CORPUS_N // 10 and all(
-                math.isfinite(res[k]) for k in ("loss", "cer", "wer")),
-                f"eval {split}: {res}")
-            if split == "valid":
-                val_loss = meta["history"][-1]["val_loss"]
-                rel = abs(res["loss"] - val_loss) / abs(val_loss)
-                print(f"corpus eval valid loss {res['loss']:.6f} vs the "
-                      f"run's last val_loss {val_loss:.6f}: rel {rel:.3e} "
-                      f"(tol {CORPUS_LOSS_RTOL:g})")
-                require(rel <= CORPUS_LOSS_RTOL,
-                        "eval's valid loss differs from the last val_loss")
-            runs.append(launches)
 
-        # the loop's batches from the iterator (fit) or from a worker
-        # thread, in turns, on the first run's splits (no features again);
-        # the same batches in the same order, so the same losses
-        real_flow, train_it = DatasetGenerator.flow_from_json, its["train"]
-        ab = {"plain": [], "thread": []}
-        histories = []
-        for i, variant in enumerate(("plain", "thread", "thread", "plain")):
-            if variant == "thread":
-                plain_epoch = train_it.epoch
-                train_it.epoch = lambda *a, **k: threaded_batches(
-                    plain_epoch(*a, **k))
-            DatasetGenerator.flow_from_json = (
-                lambda gen, *a, split=None, **k: its[split])
-            tap = CliTap()
-            try:
-                with tap.record(), contextlib.redirect_stdout(io.StringIO()):
-                    require(cli_train.main([
-                        "--dataset", manifest, "--model", "deep_blstm",
-                        "--batch_size", str(CORPUS_B), "--seed", str(SEED),
-                        "--log_every", "5", "--epochs", str(CORPUS_EPOCHS),
-                        "--save", os.path.join(tmp, f"ab{i}")]) == 0,
-                        "train failed")
-            finally:
-                DatasetGenerator.flow_from_json = real_flow
-                train_it.__dict__.pop("epoch", None)
-            windows = CliTap.epoch_windows(tap.steps, spe)
-            step_ms, _ = CliTap.ms(tap.steps)
-            ab[variant].append((sum(windows), sum(step_ms)))
-            with open(os.path.join(tmp, f"ab{i}", "meta.json")) as f:
-                histories.append([h["train_loss"]
-                                  for h in json.load(f)["history"]])
-            print(f"[{card}] corpus train, batches from "
-                  f"{'the iterator' if variant == 'plain' else 'a thread'} "
-                  f"(run {i}): epoch windows {sum(windows):.4f} ms, steps "
-                  f"{sum(step_ms):.4f} ms, "
-                  f"{CORPUS_EPOCHS * train_audio_s / (sum(windows) / 1e3):.1f}"
-                  f" audio-s/s over the windows")
-        require(all(h == histories[0] for h in histories),
-                f"the train losses differ between the loops: {histories}")
-        means = {v: np.mean(r, axis=0) for v, r in ab.items()}
-        print(f"[{card}] corpus train loop A/B, {CORPUS_EPOCHS} epochs a run"
-              f", 2 runs each in turns, mean epoch windows (steps): "
-              + "; ".join(f"{v} {m[0]:.4f} ms ({m[1]:.4f} ms), "
-                          f"{CORPUS_EPOCHS * train_audio_s / (m[0] / 1e3):.1f}"
-                          f" audio-s/s" for v, m in means.items())
-              + f"; thread/plain {means['thread'][0] / means['plain'][0]:.4f}"
-              f"; train losses equal")
-    return runs
+def beam_bound(lp: torch.Tensor, lens: torch.Tensor, width: int, n_ext: int,
+               outs: tuple, lm=None) -> tuple[float, str]:
+    """Bound of one beam decode.  Operations, for each frame within a
+    row's length: the stays' three logadds (5 each) and 3 adds, each
+    extension's add and select (2 more with the LM), the merge as one
+    lookup for each stay (its only possible partner is the extension of
+    its parent by its last char), and a selection that looks at each of
+    the W + W*E candidates once.  Bytes: the log-probs, lengths and LM
+    table read, the outputs written."""
+    frames = float(lens.clamp(0, lp.shape[1]).sum())
+    cand = width * n_ext
+    per = (18 * width + (4 if lm is not None else 2) * cand + width
+           + width + cand)
+    moved = tensor_bytes(lp, lens, *outs)
+    if lm is not None:
+        moved += 4.0 * lm.logp.size
+    return bound(frames * per, moved)
+
+
+def check_beam_kernel(dev: torch.device, card: str, lm) -> dict:
+    """ctc_beam against its plain twin on the card (all W beams of every
+    row: prefixes, lengths, scores) at W = 4, 16, 64, W = 64 pruned to 8,
+    W = 16 after blank_collapse(0.99) and W = 16 with ``lm`` fused; each
+    case timed beside its bound, the plain twin once at W = 16."""
+    from asr_study_torch.ops import beam
+    from asr_study_torch.ops.ctc import blank_collapse
+
+    logits, lens = beam_emissions(dev)
+    lp = torch.log_softmax(logits, -1)
+    c_logits, c_lens, dropped = blank_collapse(logits, lens, threshold=0.99)
+    c_lp = torch.log_softmax(c_logits, -1)
+    print(f"beam emissions: B={BEAM_B} T={BEAM_T} V={BEAM_V}, lengths "
+          f"{sorted(lens.tolist())[:BEAM_B - BEAM_FULL]} and {BEAM_FULL} x "
+          f"{BEAM_T}; blank_collapse(0.99, keep_ratio 0.6): T2="
+          f"{c_logits.shape[1]}, lengths {int(c_lens.min())}.."
+          f"{int(c_lens.max())}, {int((dropped > 0).sum())} rows over the "
+          f"budget ({int(dropped.sum())} frames dropped)")
+    cases = {f"W={w}": (lp, lens, w, {}) for w in BEAM_WIDTHS}
+    cases["W=64 prune 8"] = (lp, lens, 64, {"prune": 8})
+    cases["W=16 after blank_collapse 0.99"] = (c_lp, c_lens, 16, {})
+    cases[f"W=16 LM order {lm.order}"] = (lp, lens, 16, {"lm": lm,
+                                                          **BEAM_LM})
+    err, timed = 0.0, {}
+    for label, (x, n, w, kw) in cases.items():
+        got = beam.ctc_beam(x, n, w, top_paths=w, **kw)
+        want = beam.beam_search_plain(x, n, w, **kw)
+        require(torch.equal(got[0], want[0]) and torch.equal(got[1],
+                                                             want[1]),
+                f"ctc_beam {label}: prefixes or lengths differ from plain")
+        diff = float((got[2] - want[2]).abs().max())
+        require(torch.equal(got[2], want[2]),
+                f"ctc_beam {label}: scores differ from plain by up to "
+                f"{diff:.3e} (tol 0: bit-equal)")
+        err = max(err, diff)
+        n_ext = min(kw.get("prune") or BEAM_V - 1, BEAM_V - 1)
+        npad = 1 << (w + w * n_ext - 1).bit_length()
+        ms = cuda_ms(lambda: beam.ctc_beam(x, n, w, **kw), 5)
+        out = beam.ctc_beam(x, n, w, **kw)
+        b_ms, b_by = beam_bound(x, n, w, n_ext, out, kw.get("lm"))
+        audio = float(n.sum()) * FRAME_S
+        timed[label] = (ms, b_ms, b_by)
+        print(f"ctc_beam kernel vs plain, {label} (T={x.shape[1]}, E="
+              f"{n_ext}, {8 * npad + 4 * w * n_ext} B of dynamic shared "
+              f"memory): all {w} beams of {BEAM_B} rows, prefixes, "
+              f"lengths and scores equal bit for bit (tol 0)")
+        print(f"[{card}] ctc_beam {label}: {ms:.4f} ms/batch, "
+              f"{1e3 * ms / x.shape[1]:.3f} us a frame of T, "
+              f"{audio / (ms / 1e3):.1f} audio-s/s ({audio:.2f} s of audio "
+              f"at 10 ms a frame); bound {b_ms:.6f} ms ({b_by})")
+    plain_ms = cuda_ms(lambda: beam.beam_search_plain(lp, lens, BEAM_SERVE_W),
+                       1, warmup=1)
+    ms16, b16, by16 = timed[f"W={BEAM_SERVE_W}"]
+    print(f"[{card}] ctc_beam W={BEAM_SERVE_W}: kernel {ms16:.4f} ms/batch, "
+          f"plain twin {plain_ms:.4f} ms/batch; library: none (no PyTorch "
+          f"call does prefix beam search, and torchaudio is absent)")
+    return {"errs": {"ctc_beam": err},
+            "times": {"ctc_beam": (ms16, plain_ms)},
+            "bounds": {"ctc_beam": (b16, by16)},
+            "library": {"ctc_beam": None}}
+
+
+def beam_serving_slice(card: str, model, feat, w: "Wire",
+                       audio_s: float) -> dict:
+    """deep_blstm 2x256 served over the pcm16 wire with beam width
+    BEAM_SERVE_W through ``serve_batch``: launches counted from 0, every
+    batch's transcripts against the plain twin on the same logits, ms a
+    batch beside the greedy slice's -> the launches."""
+    from asr_study_torch.cli.predict import serve_batch
+    from asr_study_torch.ops.beam import BeamConfig, beam_search_plain
+
+    cfg = BeamConfig(BEAM_SERVE_W)
+
+    def run(beam=None):
+        return [serve_batch(model, feat, w.dev[o: o + w.cap], BATCH, w.n_pad,
+                            "pcm16", w.scap, beam) for o in w.offsets]
+
+    reset_counts()
+    served = run(cfg)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    want = {"fbank": N_BATCHES, "bilstm_fwd": N_BATCHES * LAYERS,
+            "ctc_beam": N_BATCHES}
+    require(launches == want, f"beam slice launches {launches}, want {want}")
+    for s in served:
+        plain = beam_search_plain(torch.log_softmax(s.logits.float(), -1),
+                                  s.feat_lengths, BEAM_SERVE_W)
+        require(torch.equal(s.decoded, plain[0][:, 0])
+                and torch.equal(s.lengths, plain[1][:, 0]),
+                "beam slice transcripts differ from the plain twin's")
+    greedy_ms = cuda_ms(run, 3, warmup=1) / N_BATCHES
+    beam_ms = cuda_ms(lambda: run(cfg), 3, warmup=1) / N_BATCHES
+    print(f"deep_blstm beam{BEAM_SERVE_W} slice: {N_BATCHES} batches x "
+          f"{BATCH}, T={served[0].logits.shape[1]}; launches {launches}; "
+          f"transcripts equal to the plain twin's on the same logits "
+          f"{N_BATCHES * BATCH}/{N_BATCHES * BATCH}")
+    print(f"[{card}] deep_blstm slice, beam{BEAM_SERVE_W} decode: "
+          f"{beam_ms:.4f} ms/batch, {audio_s / (beam_ms * N_BATCHES / 1e3):.1f}"
+          f" audio-s/s; greedy decode {greedy_ms:.4f} ms/batch, "
+          f"{audio_s / (greedy_ms * N_BATCHES / 1e3):.1f} audio-s/s (pcm16 "
+          f"wire, {LAYERS}x{HIDDEN} BLSTM, B={BATCH}, timed one after the "
+          f"other)")
+    return launches
+
+
+def beam_cli_phase(dev: torch.device, card: str, manifest: str,
+                   run_dir: str, tmp: str) -> tuple[dict, list]:
+    """The beam phase on the corpus phase's manifest and run: ctc_beam
+    against its plain twin (``check_beam_kernel``) with an order-3 LM fit
+    by ``fit_ngram_lm`` on the train transcripts; then ``cli.train_lm``
+    on train and valid, ``cli.eval --beam_width 16`` with that LM and with
+    ``--blank_collapse 0.99`` on the test split, each with one ctc_beam
+    launch a batch -> (the kernel's measurements, each eval's launches)."""
+    from asr_study_torch.cli import eval as cli_eval
+    from asr_study_torch.cli import train_lm
+    from asr_study_torch.text.lm import fit_ngram_lm
+    from asr_study_torch.text.parser import CharParser
+
+    parser = CharParser()
+    with open(manifest) as f:
+        texts = [u["label"] for u in map(json.loads, f)
+                 if u["split"] == "train"]
+    lm = fit_ngram_lm([parser(t) for t in texts if parser.is_valid(t)], 3,
+                      parser.num_classes, parser.char_to_id[" "],
+                      vocab=parser.vocab)
+    found = check_beam_kernel(dev, card, lm)
+
+    lm_path = os.path.join(tmp, "lm3.npz")
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        require(train_lm.main(["--dataset", manifest, "--splits", "train",
+                               "valid", "--order", "3", "--output",
+                               lm_path]) == 0, "train_lm failed")
+    print(f"corpus train_lm --splits train valid --order 3: "
+          f"{out.getvalue().strip().splitlines()[-1]} "
+          f"({time.perf_counter() - t0:.2f} s of host time)")
+    runs = []
+    for extra, decoder in ((["--lm", lm_path], f"beam{BEAM_SERVE_W}+lm"),
+                           (["--blank_collapse", "0.99"],
+                            f"beam{BEAM_SERVE_W}")):
+        tap = CliTap()
+        out = io.StringIO()
+        reset_counts()
+        with tap.record(), contextlib.redirect_stdout(out):
+            require(cli_eval.main([
+                "--dataset", manifest, "--split", "test", "--save", run_dir,
+                "--beam_width", str(BEAM_SERVE_W), *extra]) == 0,
+                "beam eval failed")
+        torch.cuda.synchronize()
+        launches = read_counts()
+        res = json.loads(out.getvalue().strip().splitlines()[-1])
+        n_b = dict(tap.flows)["test"].steps_per_epoch
+        want = {"bilstm_fwd": TRAIN_LAYERS * n_b, "ctc_alpha": n_b,
+                "ctc_beam": n_b}
+        require(launches == want,
+                f"beam eval launches {launches}, want {want}")
+        require(res["decoder"] == decoder and res["num_utts"] == CORPUS_N
+                // 10 and all(math.isfinite(res[k])
+                               for k in ("loss", "cer", "wer")),
+                f"beam eval {extra}: {res}")
+        require(("lm" in res) == ("--lm" in extra)
+                and ("blank_collapse_overflow_utts" in res)
+                == ("--blank_collapse" in extra),
+                f"beam eval {extra}: record keys {sorted(res)}")
+        ms, by_t = CliTap.ms(tap.evals)
+        print(f"corpus eval --split test --beam_width {BEAM_SERVE_W} "
+              f"{' '.join(extra)}: {res}; launches {launches}")
+        print(f"[{card}] corpus eval beam{BEAM_SERVE_W} "
+              f"{' '.join(extra[:1])}, CUDA events around each of {len(ms)} "
+              f"batches (B={CORPUS_B}): {np.mean(ms):.4f} ms/batch mean; "
+              f"{by_t}")
+        runs.append(launches)
+    return found, runs
 
 
 def main() -> int:
@@ -4229,6 +4463,9 @@ def main() -> int:
         del served
 
     clock.mark("serving slices")
+    path_launches.append(beam_serving_slice(card, model, feat,
+                                            wires["pcm16"], audio_s))
+    clock.mark("beam serving slice")
     with torch.inference_mode():
         bl_ms = cuda_ms(lambda: bilstm(*bl_args), 10)
         bl_plain_ms = cuda_ms(lambda: bilstm_plain(*bl_args), 3, warmup=1)
@@ -4242,9 +4479,16 @@ def main() -> int:
             dev, card, path, with_fit=path == "deep_blstm")["launches"])
     clock.mark("training paths")
 
-    # 8. the corpus phase: make_dataset -> train -> resume -> eval ---------
-    path_launches += corpus_phase(card)
-    clock.mark("corpus phase")
+    # 8. the corpus phase: make_dataset -> train -> resume -> eval; then
+    # 9. the beam phase on its manifest and run: ctc_beam against its
+    # plain twin, train_lm, eval by beam search
+    with tempfile.TemporaryDirectory() as tmp:
+        runs, manifest, run_dir = corpus_phase(card, tmp)
+        path_launches += runs
+        clock.mark("corpus phase")
+        beam_kernel, runs = beam_cli_phase(dev, card, manifest, run_dir, tmp)
+        path_launches += runs
+    clock.mark("beam phase")
 
     # the kernels line -------------------------------------------------------
     measured = {
@@ -4253,7 +4497,7 @@ def main() -> int:
     }
     for found in (fbank_kernels, train_kernels, gru_kernels, lstm_kernels,
                   wide_kernels, gru_wide_kernels, ln_kernels, zo_kernels,
-                  mi_kernels, dpack_kernels):
+                  mi_kernels, dpack_kernels, beam_kernel):
         for name, err in found["errs"].items():
             measured[name] = (err, *found["times"][name],
                               found["bounds"][name], found["library"][name])

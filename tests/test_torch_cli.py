@@ -1,6 +1,7 @@
 """The port's predict CLI on the CPU: two wavs and an ``export_weights``
 artifact in, one JSON line per file out, with the transcripts the JAX
-pipeline gives for the same weights."""
+pipeline gives for the same weights, greedy and by beam search with an
+LM."""
 
 import json
 
@@ -16,7 +17,9 @@ from asr_study_tpu.features.device import DeviceFeaturizer as JaxFeaturizer
 from asr_study_tpu.features.wav import read_wav, write_wav
 from asr_study_tpu.models import zoo as jzoo
 from asr_study_tpu.models.zoo import deep_gru, graves2006
+from asr_study_tpu.ops import beam_search_decode as jax_beam_search_decode
 from asr_study_tpu.ops.ctc import greedy_decode as jax_greedy_decode
+from asr_study_tpu.text.lm import fit_ngram_lm as jax_fit_ngram_lm
 from asr_study_tpu.text.parser import CharParser
 from extras.export_weights import _flatten as flatten_params
 
@@ -43,7 +46,9 @@ def artifact(tmp_path_factory):
     return npz, paths, model, params
 
 
-def _jax_transcripts(model, params, paths, on_device):
+def _jax_transcripts(model, params, paths, on_device, beam=None):
+    """The JAX pipeline's transcripts: greedy, or with ``beam`` (kwargs of
+    its beam_search_decode) the best beam."""
     parser = CharParser()
     wavs = [read_wav(p)[0] for p in paths]
     if on_device:
@@ -60,7 +65,12 @@ def _jax_transcripts(model, params, paths, on_device):
             feats[i, : len(f)] = f
         fl = jnp.asarray([len(f) for f in fs], jnp.int32)
     logits = model.apply(params, jnp.asarray(feats), fl, train=False)
-    dec, lens = jax_greedy_decode(logits, fl, blank_id=27)
+    if beam:
+        dec, lens, _ = jax_beam_search_decode(logits, fl, blank_id=27,
+                                              **beam)
+        dec, lens = dec[:, 0], lens[:, 0]
+    else:
+        dec, lens = jax_greedy_decode(logits, fl, blank_id=27)
     dec, lens = np.asarray(dec), np.asarray(lens)
     return [parser.imap(dec[i, : lens[i]]) for i in range(len(paths))]
 
@@ -136,13 +146,50 @@ def test_predict_serves_exported_lstm_zoo(artifact, tmp_path, capsys, name,
 
 
 @pytest.mark.parametrize("flag", [
-    ["--stream"], ["--beam_width", "4"], ["--lm", "lm.npz"],
+    ["--stream"], ["--stream", "--beam_width", "4"],
 ])
 def test_unported_options_refused(artifact, flag):
     npz, paths, _, _ = artifact
-    with pytest.raises(SystemExit, match="ROADMAP"):
+    with pytest.raises(SystemExit, match="ROADMAP queue A item 10"):
         predict.main(["--weights", npz, "--device", "cpu", "--on_device",
                       *flag, *paths])
+
+
+@pytest.mark.parametrize("on_device", [True, False],
+                         ids=["on_device", "host_features"])
+def test_predict_beam_with_lm_matches_jax(artifact, tmp_path, capsys,
+                                          monkeypatch, on_device):
+    """--beam_width 4 --lm: the best beam with the LM fused, as the JAX
+    decoder (its gather form) gives it on the JAX pipeline's logits, over
+    both serving paths."""
+    npz, paths, model, params = artifact
+    monkeypatch.setenv("ASR_BEAM_SELECT", "gather")
+    parser = CharParser()
+    lm = jax_fit_ngram_lm(
+        [parser(t) for t in ("ola mundo", "a casa de papel", "mundo novo")],
+        order=3, n_char=parser.num_classes, space_id=parser.char_to_id[" "],
+        vocab=parser.vocab)
+    lm_path = str(tmp_path / "lm3.npz")
+    lm.save(lm_path)
+    argv = ["--weights", npz, "--device", "cpu", "--batch_size", "2",
+            "--beam_width", "4", "--lm", lm_path, "--lm_alpha", "0.6",
+            "--lm_beta", "0.4", *paths]
+    if on_device:
+        argv.insert(0, "--on_device")
+    assert predict.main(argv) == 0
+    rows = [json.loads(line)
+            for line in capsys.readouterr().out.strip().splitlines()]
+    assert [r["file"] for r in rows] == paths
+    want = _jax_transcripts(model, params, paths, on_device, beam=dict(
+        beam_width=4, lm=lm, lm_alpha=0.6, lm_beta=0.4))
+    assert [r["transcript"] for r in rows] == want
+
+
+def test_predict_lm_needs_a_beam(artifact, tmp_path):
+    npz, paths, _, _ = artifact
+    with pytest.raises(SystemExit, match="--lm requires --beam_width"):
+        predict.main(["--weights", npz, "--device", "cpu", "--lm",
+                      str(tmp_path / "lm.npz"), *paths])
 
 
 def test_wrong_feature_width_refused(artifact):

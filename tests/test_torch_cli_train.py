@@ -1,8 +1,10 @@
-"""The port's make_dataset, train and eval CLIs on the CPU, held against the
-JAX CLIs: the same manifest, the same run-dir name and meta.json hparams,
-a resumed run that continues its step count, and eval on weights trained
-by the JAX CLI giving the same loss and transcripts; every option the port
-does not have yet refused with its ROADMAP item before any data is read."""
+"""The port's make_dataset, train, train_lm and eval CLIs on the CPU, held
+against the JAX CLIs: the same manifest, the same run-dir name and
+meta.json hparams, a resumed run that continues its step count, the same
+LM table and report from train_lm, and eval on weights trained by the JAX
+CLI giving the same loss and transcripts, greedy and by beam search (with
+an LM, blank collapse and pruning); every option the port does not have
+yet refused with its ROADMAP item before any data is read."""
 
 import json
 import os
@@ -15,6 +17,7 @@ from asr_study_torch.cli import data_flow
 from asr_study_torch.cli import eval as port_eval
 from asr_study_torch.cli import make_dataset as port_make_dataset
 from asr_study_torch.cli import train as port_train
+from asr_study_torch.cli import train_lm as port_train_lm
 from asr_study_torch.models.zoo import build_model
 from asr_study_torch.train.checkpoint import CheckpointManager
 from asr_study_torch.train.trainer import Trainer, make_optimizer
@@ -22,6 +25,7 @@ from asr_study_torch.utils.weights import load_npz, params_from_flat
 from asr_study_tpu.cli import eval as jax_eval
 from asr_study_tpu.cli import make_dataset as jax_make_dataset
 from asr_study_tpu.cli import train as jax_train
+from asr_study_tpu.cli import train_lm as jax_train_lm
 
 SYNTH = '{"n": 20, "seed": 0}'
 TRAIN_ARGS = ["--model", "graves2006", "--params", "num_hiddens=16",
@@ -95,11 +99,12 @@ MISSING = "missing.json"
     ("train", ["--profile"], "item 5"),
     ("train", ["--check_nans"], "item 5"),
     ("eval", ["--dataset", "d.h5"], "item 7"),
-    ("eval", ["--beam_width", "8"], "item 8"),
-    ("eval", ["--beam_prune", "4"], "item 8"),
-    ("eval", ["--blank_collapse", "0.9"], "item 8"),
-    ("eval", ["--lm", "lm.npz"], "item 8"),
     ("eval", ["--num_devices", "2"], "item 12"),
+    ("eval", ["--num_devices", "2", "--beam_width", "8", "--lm", "lm.npz"],
+     "item 12"),
+    ("train_lm", ["--dataset", "d.h5"], "item 7"),
+    ("train_lm", ["--dataset", "d.h5", "--splits", "train", "valid"],
+     "item 7"),
 ])
 def test_unported_options_are_refused(tmp_path, monkeypatch, cli, argv,
                                       item):
@@ -107,9 +112,10 @@ def test_unported_options_are_refused(tmp_path, monkeypatch, cli, argv,
     base = {"make_dataset": ["--parser", "dummy", "--dataset_dir", "c"],
             "train": ["--dataset", MISSING, "--device", "cpu"],
             "eval": ["--dataset", MISSING, "--save", "run", "--device",
-                     "cpu"]}[cli]
+                     "cpu"],
+            "train_lm": ["--output", "lm.npz"]}[cli]
     main = {"make_dataset": port_make_dataset.main, "train": port_train.main,
-            "eval": port_eval.main}[cli]
+            "eval": port_eval.main, "train_lm": port_train_lm.main}[cli]
     with pytest.raises(SystemExit) as e:
         main(base + argv)
     assert f"ROADMAP queue A {item}" in str(e.value.code)
@@ -208,6 +214,46 @@ def test_run_dir_names_match_jax(monkeypatch, capsys, extra):
     assert printed == [f"run dir: {port_train.run_dir(pargs)}"]
 
 
+# -- train_lm ----------------------------------------------------------------
+
+def test_train_lm_matches_jax(tmp_path, capsys, synth):
+    """The same table, order, space id and vocabulary in the .npz, and the
+    same report, from the port's and the JAX train_lm on one manifest;
+    each package's LM loads in the other."""
+    from asr_study_torch.text.lm import CharNGramLM
+    from asr_study_tpu.text.lm import CharNGramLM as JaxCharNGramLM
+
+    reports, paths = {}, {}
+    for side, main in (("port", port_train_lm.main),
+                       ("jax", jax_train_lm.main)):
+        paths[side] = str(tmp_path / f"{side}.npz")
+        assert main(["--dataset", synth, "--splits", "train", "valid",
+                     "--order", "3", "--held_out", "test", "--output",
+                     paths[side]]) == 0
+        reports[side] = _last_json(capsys.readouterr().out)
+        reports[side].pop("output")
+    assert reports["port"] == reports["jax"]
+    assert reports["port"]["num_sequences"] == 18
+    for z_port, z_jax in ((CharNGramLM.load(paths["port"]),
+                           JaxCharNGramLM.load(paths["jax"])),
+                          (JaxCharNGramLM.load(paths["port"]),
+                           CharNGramLM.load(paths["jax"]))):
+        np.testing.assert_array_equal(z_port.logp, z_jax.logp)
+        assert (z_port.order, z_port.space_id, z_port.vocab) == (
+            z_jax.order, z_jax.space_id, z_jax.vocab)
+    # plain-text input, the JAX CLI's other source
+    text = tmp_path / "lines.txt"
+    text.write_text("ola mundo\n\ncasa de papel\n")
+    out = {}
+    for side, main in (("port", port_train_lm.main),
+                       ("jax", jax_train_lm.main)):
+        assert main(["--text", str(text), "--order", "2", "--output",
+                     str(tmp_path / f"t_{side}.npz")]) == 0
+        out[side] = _last_json(capsys.readouterr().out)
+        out[side].pop("output")
+    assert out["port"] == out["jax"] and out["port"]["num_sequences"] == 2
+
+
 # -- eval on weights the JAX CLI trained --------------------------------------
 
 @pytest.fixture(scope="module")
@@ -270,3 +316,52 @@ def test_eval_refuses_a_jax_run_dir(jax_run):
     with pytest.raises(SystemExit, match="export_weights"):
         port_eval.main(["--dataset", manifest, "--save", jdir, "--device",
                         "cpu"])
+
+
+# eval by beam search: the JAX eval in the gather form of its beam
+@pytest.mark.parametrize("extra", [
+    ["--beam_width", "4"],
+    ["--beam_width", "4", "--lm", "LM", "--lm_alpha", "0.5",
+     "--lm_beta", "0.2"],
+    ["--beam_width", "4", "--blank_collapse", "0.5", "--keep_ratio", "0.3",
+     "--beam_prune", "3"],
+], ids=["beam4", "beam4_lm", "beam4_collapse_prune"])
+def test_eval_beam_matches_jax_eval(tmp_path, capsys, monkeypatch, jax_run,
+                                    extra):
+    manifest, jdir, pdir = jax_run
+    monkeypatch.setenv("ASR_BEAM_SELECT", "gather")
+    if "LM" in extra:
+        lm = str(tmp_path / "lm.npz")
+        assert port_train_lm.main(["--dataset", manifest, "--output",
+                                   lm]) == 0
+        capsys.readouterr()
+        extra = [lm if a == "LM" else a for a in extra]
+    dumps = {k: str(tmp_path / f"{k}.jsonl") for k in ("port", "jax")}
+    common = ["--dataset", manifest, "--split", "test", "--batch_size", "4",
+              *extra]
+    assert port_eval.main([*common, "--save", pdir, "--device", "cpu",
+                           "--dump", dumps["port"]]) == 0
+    got = _last_json(capsys.readouterr().out)
+    assert jax_eval.main([*common, "--save", jdir, "--platform", "cpu",
+                          "--dump", dumps["jax"]]) == 0
+    want = _last_json(capsys.readouterr().out)
+    assert set(got) == set(want)
+    assert got["decoder"] == want["decoder"]
+    assert got["decoder"] == "beam4" + ("+lm" if "--lm" in extra else "")
+    if "--lm" in extra:
+        assert got["lm"] == want["lm"] and got["lm"]["order"] == 3
+    if "--blank_collapse" in extra:
+        assert got["blank_collapse_overflow_utts"] == \
+            want["blank_collapse_overflow_utts"]
+    assert got["num_utts"] == want["num_utts"] > 0
+    assert got["loss"] == pytest.approx(want["loss"], rel=1e-5)
+    assert got["cer"] == want["cer"] and got["wer"] == want["wer"]
+    with open(dumps["port"]) as a, open(dumps["jax"]) as b:
+        assert [json.loads(l) for l in a] == [json.loads(l) for l in b]
+
+
+def test_eval_lm_needs_a_beam(jax_run, tmp_path):
+    manifest, _, pdir = jax_run
+    with pytest.raises(SystemExit, match="--lm requires --beam_width"):
+        port_eval.main(["--dataset", manifest, "--save", pdir, "--device",
+                        "cpu", "--lm", str(tmp_path / "lm.npz")])

@@ -1,6 +1,7 @@
 """The port's copies of the JAX package's host modules (features/audio.py,
-features/wav.py, text/parser.py, utils/hparams.py, utils/metrics_writer.py)
-give what their originals give on the same inputs."""
+features/wav.py, text/parser.py, text/lm.py, utils/hparams.py,
+utils/metrics_writer.py) give what their originals give on the same
+inputs."""
 
 import csv
 import os
@@ -10,11 +11,13 @@ import pytest
 from scipy.signal import resample_poly as scipy_resample_poly
 
 from asr_study_torch.features import audio, wav
+from asr_study_torch.text import lm as port_lm
 from asr_study_torch.text.parser import CharParser
 from asr_study_torch.utils.hparams import HParams
 from asr_study_torch.utils.metrics_writer import MetricWriter
 from asr_study_tpu.features import audio as jaudio
 from asr_study_tpu.features import wav as jwav
+from asr_study_tpu.text import lm as jax_lm
 from asr_study_tpu.text.parser import CharParser as JaxCharParser
 from asr_study_tpu.utils.hparams import HParams as JaxHParams
 from asr_study_tpu.utils.metrics_writer import MetricWriter as JaxMetricWriter
@@ -121,3 +124,48 @@ def test_metric_writer_csv_equals_the_original(tmp_path):
                          for r in csv.DictReader(f)])
     assert rows[0] == rows[1]
     assert rows[0][1] == {"step": "2", "loss": "2.0", "val_ler": "0.75"}
+
+
+@pytest.mark.parametrize("order", [1, 2, 3, 4])
+def test_ngram_lm_fit_equals_the_original(order):
+    """fit_ngram_lm's tables bit for bit, and the context arithmetic and
+    host scoring of the two classes."""
+    parser = CharParser()
+    rng = np.random.RandomState(order)
+    words = ["ola", "mundo", "acao", "e", "otima", "casa", "de", "papel"]
+    seqs = [parser(" ".join(rng.choice(words, size=rng.randint(1, 6))))
+            for _ in range(30)]
+    kw = dict(order=order, n_char=parser.num_classes,
+              space_id=parser.char_to_id[" "], delta=0.5,
+              vocab=parser.vocab)
+    got = port_lm.fit_ngram_lm(seqs, **kw)
+    want = jax_lm.fit_ngram_lm(seqs, **kw)
+    assert got.logp.dtype == want.logp.dtype == np.float32
+    np.testing.assert_array_equal(got.logp, want.logp)
+    assert got.init_state() == want.init_state()
+    assert [got.next_state(s, 3) for s in range(0, got.logp.shape[0], 7)] \
+        == [want.next_state(s, 3) for s in range(0, want.logp.shape[0], 7)]
+    assert got.perplexity(seqs) == want.perplexity(seqs)
+
+
+def test_ngram_lm_saved_by_either_loads_in_the_other(tmp_path):
+    parser = CharParser()
+    seqs = [parser("ola mundo"), parser("casa de papel")]
+    kw = dict(order=3, n_char=parser.num_classes,
+              space_id=parser.char_to_id[" "], vocab=parser.vocab)
+    for save_mod, load_mod in ((port_lm, jax_lm), (jax_lm, port_lm)):
+        path = str(tmp_path / f"{save_mod.__name__}.npz")
+        saved = save_mod.fit_ngram_lm(seqs, **kw)
+        saved.save(path)
+        loaded = load_mod.CharNGramLM.load(path)
+        np.testing.assert_array_equal(loaded.logp, saved.logp)
+        assert (loaded.order, loaded.space_id, loaded.vocab) == (
+            saved.order, saved.space_id, saved.vocab)
+    # a same-size LM over another alphabet is refused, naming the port's
+    # train_lm CLI
+    other = port_lm.CharNGramLM(saved.logp, 3, parser.char_to_id[" "],
+                                vocab=parser.vocab[::-1])
+    with pytest.raises(SystemExit, match="asr_study_torch.cli.train_lm"):
+        port_lm.check_lm_vocab(other, parser.vocab)
+    port_lm.check_lm_vocab(port_lm.CharNGramLM(saved.logp, 3, 0),
+                           parser.vocab)

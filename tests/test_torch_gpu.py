@@ -21,7 +21,7 @@ from asr_study_torch.features.fbank import (KernelFeaturizer, chain_design,
 from asr_study_torch.features.select import featurizer
 from asr_study_torch.models.zoo import (build_model, deep_blstm, deep_gru,
                                         graves2006)
-from asr_study_torch.ops import ctc
+from asr_study_torch.ops import beam, ctc
 from asr_study_torch.ops.dpack import dpack_decode, dpack_decode_plain
 from asr_study_torch.ops.bilstm import (BiLSTMFunction, LSTMFunction, bilstm,
                                         bilstm_bwd, bilstm_bwd_gates_plain,
@@ -43,6 +43,7 @@ from asr_study_torch.ops.ln_lstm import (BiLNLSTMFunction, LNLSTMFunction,
                                          ln_geometry, ln_lstm, ln_lstm_bwd,
                                          ln_lstm_bwd_plain, ln_lstm_plain)
 from asr_study_torch.ops.recurrence import Geometry
+from asr_study_torch.text.lm import fit_ngram_lm
 from asr_study_torch.models.cells import ZoneoutLSTMCell
 from asr_study_torch.ops.mi_lstm import (BiMILSTMFunction, MILSTMFunction,
                                          bi_mi_lstm, bi_mi_lstm_bwd,
@@ -1839,3 +1840,80 @@ def test_cli_train_and_eval_on_card(cuda, tmp_path, monkeypatch, capsys):
         val_loss = json.load(f)["history"][-1]["val_loss"]
     assert out["num_utts"] == 4 and np.isfinite(out["loss"])
     assert out["loss"] == pytest.approx(val_loss, rel=1e-5)
+
+
+# -- the beam decode (csrc/ctc_beam.cu) --------------------------------------
+
+def _beam_emissions(cuda, seed=0, batch=6, t_max=160, vocab=28):
+    """chip_smoke.py's beam emissions at a small size: randn, the blank
+    column +10 on 65% of frames and -10 on the rest; lengths T but on the
+    last rows (ragged, one of them 0)."""
+    rng = np.random.RandomState(seed)
+    x = rng.randn(batch, t_max, vocab).astype(np.float32)
+    x[:, :, -1] += np.where(rng.rand(batch, t_max) < 0.65, 10.0,
+                            -10.0).astype(np.float32)
+    lens = np.full(batch, t_max, np.int32)
+    lens[-3:] = [rng.randint(1, t_max), 1, 0]
+    return torch.from_numpy(x).to(cuda), torch.from_numpy(lens).to(cuda)
+
+
+def _beam_lm(seed=0):
+    rng = np.random.RandomState(seed)
+    return fit_ngram_lm([rng.randint(0, 27, size=rng.randint(1, 30))
+                         for _ in range(100)], 3, 27, 26)
+
+
+@pytest.mark.parametrize("width,prune,collapse,with_lm", [
+    (4, 0, False, False), (16, 0, False, False), (64, 0, False, False),
+    (64, 8, False, False), (16, 0, True, False), (16, 0, False, True)],
+    ids=["w4", "w16", "w64", "w64_prune8", "w16_collapse", "w16_lm3"])
+def test_beam_kernel_matches_plain(cuda, width, prune, collapse, with_lm):
+    """Every beam of the kernel against the plain twin on the card, on
+    chip_smoke.py's cases: the same prefixes and lengths, the scores bit
+    for bit (the same arithmetic, no FMA contraction)."""
+    logits, lens = _beam_emissions(cuda)
+    if collapse:
+        logits, lens, _ = ctc.blank_collapse(logits, lens, threshold=0.99)
+    lp = torch.log_softmax(logits, -1)
+    lm = _beam_lm() if with_lm else None
+    kw = dict(prune=prune, lm=lm, lm_alpha=0.8, lm_beta=0.1)
+    before = beam.ctc_beam.launches
+    got = beam.ctc_beam(lp, lens, width, top_paths=width, **kw)
+    assert beam.ctc_beam.launches == before + 1
+    want = beam.beam_search_plain(lp, lens, width, **kw)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        assert torch.equal(g, w)
+    assert int(got[1][-1, 0]) == 0 and float(got[2][-1, 0]) == 0.0
+
+
+def test_beam_kernel_limits(cuda):
+    """The kernel's limits are raised as ValueError, never run on the plain
+    twin; at the limits the kernel runs and equals the twin."""
+    logits, lens = _beam_emissions(cuda, batch=4, t_max=12, vocab=64)
+    lp = torch.log_softmax(logits, -1)
+    with pytest.raises(ValueError, match="beam_width 129"):
+        beam.beam_search_decode(logits, lens, beam_width=129)
+    wide = torch.log_softmax(torch.randn(2, 5, 65, device=cuda), -1)
+    with pytest.raises(ValueError, match="65 classes"):
+        beam.ctc_beam(wide, torch.tensor([5, 5], device=cuda), 4)
+    got = beam.ctc_beam(lp, lens, 128, top_paths=128)
+    want = beam.beam_search_plain(lp, lens, 128)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_beam_cuda_input_never_reaches_the_plain_twin(cuda, monkeypatch):
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CUDA input reached beam_search_plain")
+
+    logits, lens = _beam_emissions(cuda, batch=3, t_max=40)
+    want = beam.beam_search_plain(torch.log_softmax(logits, -1), lens, 8)
+    monkeypatch.setattr(beam, "beam_search_plain", refuse)
+    before = beam.ctc_beam.launches
+    dec, dlens, scores = beam.beam_search_decode(logits, lens, beam_width=8,
+                                                 top_paths=3)
+    assert beam.ctc_beam.launches == before + 1
+    assert dec.device.type == "cuda" and dec.shape == (3, 3, 40)
+    assert torch.equal(dec, want[0][:, :3])
+    assert torch.equal(scores, want[2][:, :3])

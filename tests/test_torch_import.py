@@ -28,7 +28,7 @@ for want in ("cli.predict", "features.fbank", "features.audio",
              "features.wav", "text.parser", "utils.hparams",
              "utils.metrics_writer", "ops.bilstm", "ops.gru", "ops.ln_lstm",
              "ops.zoneout_lstm", "ops.mi_lstm", "ops.ctc", "ops.dpack",
-             "data.wire",
+             "ops.beam", "text.lm", "cli.train_lm", "data.wire",
              "ops.metrics", "data.generator", "train.trainer", "train.loop",
              "train.checkpoint", "cli.make_dataset", "cli.train", "cli.eval",
              "cli.data_flow", "data.corpora", "data.dataset_parser"):
