@@ -44,9 +44,9 @@ _HASH_INIT = 1
 _DEAD1, _DEAD2 = 0xDEAD0000, 0xBEEF0000
 _U32 = 0xFFFFFFFF
 
-# csrc/ctc_beam.cu keeps a frame's W + W*(V-1) candidate keys (8 bytes
-# each) and W*(V-1) extension scores in shared memory: at these limits
-# about 96 KB of its 227 KB
+# csrc/ctc_beam.cu sizes its shared beam state (W beams), a frame's char
+# tables (V classes) and its warps' lists of 32*R keys (R <= 4 a lane) to
+# these
 BEAM_MAX_WIDTH = 128
 BEAM_MAX_VOCAB = 64
 

@@ -4010,16 +4010,16 @@ def check_beam_kernel(dev: torch.device, card: str, lm) -> dict:
                 f"{diff:.3e} (tol 0: bit-equal)")
         err = max(err, diff)
         n_ext = min(kw.get("prune") or BEAM_V - 1, BEAM_V - 1)
-        npad = 1 << (w + w * n_ext - 1).bit_length()
         ms = cuda_ms(lambda: beam.ctc_beam(x, n, w, **kw), 5)
         out = beam.ctc_beam(x, n, w, **kw)
         b_ms, b_by = beam_bound(x, n, w, n_ext, out, kw.get("lm"))
         audio = float(n.sum()) * FRAME_S
         timed[label] = (ms, b_ms, b_by)
         print(f"ctc_beam kernel vs plain, {label} (T={x.shape[1]}, E="
-              f"{n_ext}, {8 * npad + 4 * w * n_ext} B of dynamic shared "
-              f"memory): all {w} beams of {BEAM_B} rows, prefixes, "
-              f"lengths and scores equal bit for bit (tol 0)")
+              f"{n_ext}; a frame: {w + w * n_ext} candidates for the top "
+              f"{w}, {w * w} merge pair checks): all {w} beams of "
+              f"{BEAM_B} rows, prefixes, lengths and scores equal bit for "
+              f"bit (tol 0)")
         print(f"[{card}] ctc_beam {label}: {ms:.4f} ms/batch, "
               f"{1e3 * ms / x.shape[1]:.3f} us a frame of T, "
               f"{audio / (ms / 1e3):.1f} audio-s/s ({audio:.2f} s of audio "

@@ -93,6 +93,14 @@ band sums), ``no_dct`` (the DCT sums), and ``skeleton`` (the four
 together: the tile's copy, the tables, the first pass, the power, the logs
 and the stores).
 
+The beam decode (``ctc_beam``) at chip_smoke.py's beam emissions (B=32,
+T=512, V=28): its designs' unchanged kernels in turns on each case of
+``BEAM_TURN_CASES`` (W = 4, 16, 64, W=64 pruned to 8, W=16 with a 3-gram
+LM, W=16 on flat emissions), the sort design (csrc/ctc_beam_sort.cu,
+timing only) first and last, their outputs required bit-equal; then each
+design on the cases of ``BEAM_SPLIT_CASES`` in the variants listed at
+``BEAM_KERNELS``.
+
 Prints one line per variant and the card's name and power limit.  Without
 CUDA it exits 1.
 """
@@ -233,16 +241,16 @@ KERNELS = {
 
 def variants_of(kernel: str) -> list:
     """The variants of one entry -> [(key, source, C entry point, edits)];
-    the key (kernel, variant), for the CTC kernels (kernel, design,
-    variant)."""
+    the key (kernel, variant), for the CTC and beam kernels (kernel,
+    design, variant)."""
     if kernel in FBANK_KERNELS:
         source, c_name, variants = FBANK_KERNELS[kernel]
         return [((kernel, name), source, c_name, edits)
                 for name, edits in variants.items()]
-    if kernel in CTC_KERNELS:
+    designs = CTC_KERNELS.get(kernel) or BEAM_KERNELS.get(kernel)
+    if designs:
         return [((kernel, design, name), source, c_name, edits)
-                for design, (source, c_name, variants)
-                in CTC_KERNELS[kernel].items()
+                for design, (source, c_name, variants) in designs.items()
                 for name, edits in variants.items()]
     source, c_name, _, _, variants = KERNELS[kernel]
     return [((kernel, name), source, c_name, edits)
@@ -494,6 +502,183 @@ CTC_KERNELS = {
 }
 
 
+# The beam decode (``ctc_beam``): kernel -> design -> (source, C entry
+# point, variants past the unchanged one).  ``sort`` is the first design,
+# csrc/ctc_beam_sort.cu (timing only: a warp per stay compares it with all
+# W*E extensions, a bitonic sort of all W + W*E keys a frame).  Variants
+# that drop one part of a frame (outputs wrong; only their times count):
+# ``no_sort``, the first W candidates kept unsorted; ``no_merge``, no stay
+# absorbs an extension; ``no_row_load``, every frame reuses frame 0's row
+# from shared memory; ``no_backtrack``, the walk back after the last frame
+# gone; ``skeleton``, all four.
+BEAM_SORT_NO_SORT = ("    // 5. the top W candidates\n    bitonic_sort(keys, "
+                     "npad);\n", "")
+BEAM_SORT_NO_MERGE = ("      for (int p = 0; p < W; ++p) {\n        const "
+                      "uint32_t m1", "      for (int p = 0; p < 0; ++p) {\n"
+                      "        const uint32_t m1")
+BEAM_SORT_NO_ROW = ("for (int v = tid; v < V; v += kThreads) s_lp[v] = "
+                    "lp_row[v];", "for (int v = tid; v < V; v += kThreads)\n"
+                    "      s_lp[v] = t == 0 ? lp_row[v] : s_lp[v];")
+BEAM_SORT_NO_BACK = ("for (int t = len - 1; t >= 0; --t) {",
+                     "for (int t = len - 1; t >= len; --t) {")
+# ``select`` is csrc/ctc_beam.cu (a lookup a (stay, parent) pair, warp
+# lists merged by rank, the next row prefetched): ``no_select``, the stays
+# kept unsorted as the winners (the chunks' keys still made, not sorted,
+# merged or ranked); ``no_merge``, ``no_row_load``, ``no_backtrack`` and
+# ``skeleton`` as above.  Variants that compute the same function: the CTA
+# shapes ``warps4``, ``warps8``, ``warps16`` (the committed kernel picks 4
+# warps for W <= 8, 8 for W <= 64, else 16), and ``no_bound``, every
+# candidate kept (none dropped above the worst stay's key: every chunk
+# sorted and merged).
+BEAM_SEL_NO_SELECT = [("        key = warp_sort(key, lane);\n", ""),
+                      ("          merge_chunk<R>(l, key, lane);",
+                       "          l[0] ^= key;"),
+                      ("      if (q >= s_kept[li]) continue;\n", ""),
+                      ("const uint64_t key = s_list[li][q];",
+                       "const uint64_t key = s_skey[q];"),
+                      ("k += count_below<kList>(s_list[j], key);",
+                       "k += 0;")]
+BEAM_SEL_NO_MERGE = ("for (int p = sub; p < W; p += G) {",
+                     "for (int p = sub; p < 0; p += G) {")
+BEAM_SEL_NO_ROW = ("lp_next = __ldg(lp_b + static_cast<size_t>(t + 1) * V + "
+                   "tid);", "lp_next = s_lp[tid];")
+BEAM_SEL_WARPS = "  return W <= 8 ? 4 : W <= 64 ? 8 : 16;"
+BEAM_KERNELS = {
+    "ctc_beam": {
+        "sort": ("ctc_beam_sort.cu", "asr_ctc_beam", {
+            "base": [], "no_sort": [BEAM_SORT_NO_SORT],
+            "no_merge": [BEAM_SORT_NO_MERGE],
+            "no_row_load": [BEAM_SORT_NO_ROW],
+            "no_backtrack": [BEAM_SORT_NO_BACK],
+            "skeleton": [BEAM_SORT_NO_SORT, BEAM_SORT_NO_MERGE,
+                         BEAM_SORT_NO_ROW, BEAM_SORT_NO_BACK]}),
+        "select": ("ctc_beam.cu", "asr_ctc_beam", {
+            "base": [], "no_select": BEAM_SEL_NO_SELECT,
+            "no_merge": [BEAM_SEL_NO_MERGE],
+            "no_row_load": [BEAM_SEL_NO_ROW],
+            "no_backtrack": [BEAM_SORT_NO_BACK],
+            "skeleton": [*BEAM_SEL_NO_SELECT, BEAM_SEL_NO_MERGE,
+                         BEAM_SEL_NO_ROW, BEAM_SORT_NO_BACK],
+            **{f"warps{n}": [(BEAM_SEL_WARPS, f"  return {n};")]
+               for n in (4, 8, 16)},
+            "no_bound": [("          if (key > bound) key = kPad;\n", "")]}),
+    },
+}
+# the cases timed in turns: label -> (W, prune, with the LM, emissions),
+# and those of the split: label -> (W, emissions).  ``speech`` is
+# chip_smoke.py's (the blank column +10 on 65% of frames, -10 on the
+# rest); ``flat``, standard normal logits, no class favoured (an untrained
+# model's emissions are of that kind)
+BEAM_TURN_CASES = {"W=4": (4, 0, False, "speech"),
+                   "W=16": (16, 0, False, "speech"),
+                   "W=64": (64, 0, False, "speech"),
+                   "W=64 prune 8": (64, 8, False, "speech"),
+                   "W=16 LM order 3": (16, 0, True, "speech"),
+                   "W=16 flat": (16, 0, False, "flat")}
+BEAM_SPLIT_CASES = {"W=4": (4, "speech"), "W=16": (16, "speech"),
+                    "W=64": (64, "speech"), "W=16 flat": (16, "flat")}
+
+
+def beam_split(card: str, entry: dict) -> None:
+    """The beam decode at chip_smoke.py's beam emissions (B=32, T=512,
+    V=28; 24 rows at T, 8 ragged) and at flat ones of the same shape: the
+    designs' unchanged kernels in turns (the sort design first and last) on
+    each case of ``BEAM_TURN_CASES``, their outputs required equal bit for
+    bit; then each design's variants on each case of ``BEAM_SPLIT_CASES``,
+    those that compute the same function held against the unchanged
+    kernel.  Each time beside chip_smoke.py's bound for the case."""
+    import numpy as np
+
+    from asr_study_torch.ops import beam
+    from asr_study_torch.text.lm import fit_ngram_lm
+    from chip_smoke import beam_bound, beam_emissions
+
+    dev = torch.device("cuda", 0)
+    logits, lens = beam_emissions(dev)
+    emissions = {
+        "speech": torch.log_softmax(logits, -1),
+        "flat": torch.log_softmax(torch.randn(
+            logits.shape, generator=torch.Generator().manual_seed(1)),
+            -1).to(dev)}
+    b, t, v = logits.shape
+    n_char = v - 1
+    rng = np.random.RandomState(0)
+    lm = fit_ngram_lm([rng.randint(0, n_char, size=rng.randint(1, 30))
+                       for _ in range(200)], 3, n_char, n_char - 1)
+    lm_tab = beam._lm_table(lm, dev)
+    lens32 = lens.to(torch.int32).contiguous()
+    designs = BEAM_KERNELS["ctc_beam"]
+
+    def case(w, prune, with_lm, kind):
+        lp = emissions[kind]
+        e = min(prune, n_char) if prune > 0 else n_char
+        outs = (torch.empty(b, 1, t, dtype=torch.int32, device=dev),
+                torch.empty(b, 1, dtype=torch.int32, device=dev),
+                torch.empty(b, 1, dtype=torch.float32, device=dev))
+        bp = torch.empty(b, t, w, dtype=torch.int32, device=dev)
+        order, lm_mod = beam._lm_context(lm, n_char) if with_lm else (0, 1)
+        state0 = lm.init_state() if with_lm else 0
+
+        def call(fn, label):
+            err = fn(lp.data_ptr(), lens32.data_ptr(),
+                     lm_tab.data_ptr() if with_lm else None, bp.data_ptr(),
+                     *(o.data_ptr() for o in outs), b, t, v, w, 1, e, -1,
+                     order, lm_mod, state0, 0.8, 0.1,
+                     beam._HASH_MULT & beam._U32,
+                     beam._HASH_MULT2 & beam._U32,
+                     torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise RuntimeError(f"ctc_beam {label}: launch failed ({err})")
+        b_ms, b_by = beam_bound(lp, lens, w, e, outs,
+                                lm if with_lm else None)
+        return call, outs, b_ms, b_by
+
+    def report(label, name, ms, b_ms, b_by, note=""):
+        print(f"[{card}] ctc_beam {label}, {name}: {ms:.4f} ms/batch, "
+              f"{1e3 * ms / t:.3f} us a frame of T, {ms / b_ms:,.0f}x its "
+              f"bound of {b_ms:.6f} ms ({b_by}){note}")
+
+    order = [d for d in designs]
+    turns = [order[0], *order[1:], *order[1:][::-1], order[0]]
+    for label, (w, prune, with_lm, kind) in BEAM_TURN_CASES.items():
+        call, outs, b_ms, b_by = case(w, prune, with_lm, kind)
+        ref = None
+        for design in turns:
+            fn = entry["ctc_beam", design, "base"]
+            call(fn, f"{label} {design}")
+            torch.cuda.synchronize()
+            got = [o.clone() for o in outs]
+            if ref is None:
+                ref = got
+            elif not all(torch.equal(g, r) for g, r in zip(got, ref)):
+                raise RuntimeError(f"ctc_beam {label}: the {design} design's "
+                                   "output differs from the sort design's")
+            ms = time_ms(lambda: call(fn, label), 5)
+            report(label, f"{design} design", ms, b_ms, b_by,
+                   "" if design == order[0] else
+                   ", output bit-equal to the sort design's")
+    for design, (_, _, variants) in designs.items():
+        for label, (w, kind) in BEAM_SPLIT_CASES.items():
+            call, outs, b_ms, b_by = case(w, 0, False, kind)
+            base = None
+            for name in [*variants, "base"]:
+                fn = entry["ctc_beam", design, name]
+                call(fn, f"{design} {name}")
+                torch.cuda.synchronize()
+                note = ""
+                if base is None:
+                    base = [o.clone() for o in outs]
+                elif name.startswith(("warps", "no_bound")):
+                    if not all(torch.equal(o, r)
+                               for o, r in zip(outs, base)):
+                        raise RuntimeError(f"ctc_beam {design} {name}: "
+                                           "output differs from base's")
+                    note = ", output bit-equal to base"
+                ms = time_ms(lambda: call(fn, name), 5)
+                report(label, f"{design} design, {name}", ms, b_ms, b_by,
+                       note)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("lstm_step_split: torch.cuda.is_available() is false; this "
@@ -508,7 +693,7 @@ def main() -> int:
 
     from asr_study_torch.ops.gru import gru
 
-    names = [*KERNELS, *CTC_KERNELS, *FBANK_KERNELS]
+    names = [*KERNELS, *CTC_KERNELS, *FBANK_KERNELS, *BEAM_KERNELS]
     kernels = sys.argv[1:] or names
     unknown = [k for k in kernels if k not in names]
     if unknown:
@@ -529,6 +714,9 @@ def main() -> int:
             continue
         if kernel in FBANK_KERNELS:
             fbank_split(card, entry)
+            continue
+        if kernel in BEAM_KERNELS:
+            beam_split(card, entry)
             continue
         _, _, gates, t, variants = KERNELS[kernel]
         H = H_WIDE if "wide" in kernel else H_NARROW

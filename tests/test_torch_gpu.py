@@ -1887,6 +1887,38 @@ def test_beam_kernel_matches_plain(cuda, width, prune, collapse, with_lm):
     assert int(got[1][-1, 0]) == 0 and float(got[2][-1, 0]) == 0.0
 
 
+@pytest.mark.parametrize("width,prune", [(16, 0), (64, 8)])
+def test_beam_kernel_lane1_collisions(cuda, monkeypatch, width, prune):
+    """Lane 1 of the hash patched to a multiplier of 0 (every two prefixes
+    with the same last char collide in it; the kernel reads the multiplier
+    at each call): the merge's lane-1 step and lane-2 check must still
+    find exactly the twin's matches, so every beam is bit-equal."""
+    monkeypatch.setattr(beam, "_HASH_MULT", 0)
+    logits, lens = _beam_emissions(cuda, seed=1)
+    lp = torch.log_softmax(logits, -1)
+    got = beam.ctc_beam(lp, lens, width, top_paths=width, prune=prune)
+    want = beam.beam_search_plain(lp, lens, width, prune=prune)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("width,with_lm", [(16, True), (128, False)],
+                         ids=["w16_lm3", "w128"])
+def test_beam_kernel_long_rows(cuda, width, with_lm):
+    """T=805 (the serving slices' frames) with rows of length 0 and 1, at
+    W=16 with the LM and at W=128 (16 warps, four keys a lane in each
+    warp's list): the first four beams bit-equal to the twin's."""
+    logits, lens = _beam_emissions(cuda, seed=2, batch=5, t_max=805)
+    lp = torch.log_softmax(logits, -1)
+    kw = dict(lm=_beam_lm(), lm_alpha=0.8, lm_beta=0.1) if with_lm else {}
+    got = beam.ctc_beam(lp, lens, width, top_paths=4, **kw)
+    want = beam.beam_search_plain(lp, lens, width, **kw)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w[:, :4])
+    assert sorted(lens.tolist())[:2] == [0, 1]
+    assert int(got[1][-1, 0]) == 0 and float(got[2][-1, 0]) == 0.0
+
+
 def test_beam_kernel_limits(cuda):
     """The kernel's limits are raised as ValueError, never run on the plain
     twin; at the limits the kernel runs and equals the twin."""
