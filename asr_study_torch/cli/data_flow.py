@@ -1,10 +1,11 @@
 """Shared CLI helpers (port of ``asr_study_tpu/cli/data_flow.py``): resolve
 ``--dataset`` into a DatasetIterator, reconstruct the vocabulary of a
-run, pick the torch device, build the host feature extractor.
+dataset or run, pick the torch device, build the host feature extractor
+and the in-step device featurizer.
 
-The port reads JSON-lines manifests (``DatasetParser.to_json``) with the
-features extracted on the host; HDF5 datasets and in-step device features
-are refused with the ROADMAP item that brings them.
+Both on-disk formats of the data layer: HDF5 datasets (``make_dataset
+--output``, read by ``data/h5.py``) and JSON-lines manifests
+(``DatasetParser.to_json``) with the features extracted on the host.
 """
 
 from __future__ import annotations
@@ -15,23 +16,15 @@ from typing import Optional
 
 import torch
 
-from asr_study_torch.data.dataset_parser import HDF5_ITEM
+from asr_study_torch.data import h5
 from asr_study_torch.data.generator import DatasetGenerator, DatasetIterator
 from asr_study_torch.features.audio import FEATURES
+from asr_study_torch.features.select import featurizer
 from asr_study_torch.text.parser import CharParser, resolve_vocab
-
-DEVICE_FEATURES_ITEM = ("ROADMAP queue A item 7, device features: it needs "
-                        "the raw-waveform feature and the in-step "
-                        "featurizer")
 
 
 def is_manifest(dataset: str) -> bool:
     return dataset.endswith(".json") or dataset.endswith(".jsonl")
-
-
-def require_manifest(dataset: str) -> None:
-    if not is_manifest(dataset):
-        raise SystemExit(f"--dataset {dataset!r}: {HDF5_ITEM}")
 
 
 def resolve_device(name: str) -> torch.device:
@@ -44,23 +37,50 @@ def resolve_device(name: str) -> torch.device:
     return device
 
 
+def dataset_vocab(dataset: str) -> Optional[str]:
+    """The vocabulary an HDF5 dataset was built with (the first split
+    group's ``vocab`` attribute, in name order); None for a manifest or a
+    dataset without the attribute."""
+    if is_manifest(dataset):
+        return None
+    with h5.File(dataset) as f:
+        for split in f:
+            v = f[split].attrs.get("vocab")
+            if v is not None:
+                return v if isinstance(v, str) else v.decode()
+    return None
+
+
 def parser_for_training(dataset: str, vocab_arg: Optional[str] = None
                         ) -> CharParser:
-    """Label parser for a training run: ``--vocab`` if given, else the
-    default (a manifest stores no vocabulary; its labels are parsed on the
-    fly)."""
-    require_manifest(dataset)
-    return CharParser(resolve_vocab(vocab_arg))
+    """Label parser for a training run: an HDF5 dataset's stored
+    vocabulary (its label ids were minted with it); an explicit
+    ``--vocab`` must match it.  A manifest stores none: ``--vocab`` if
+    given, else the default."""
+    stored = dataset_vocab(dataset)
+    if vocab_arg:
+        requested = resolve_vocab(vocab_arg)
+        if stored is not None and requested != stored:
+            raise SystemExit(
+                f"--vocab {vocab_arg!r} resolves to {requested!r} but the "
+                f"dataset was built with {stored!r}; rebuild the dataset "
+                "or drop --vocab (the stored vocabulary is used "
+                "automatically)")
+        return CharParser(requested)
+    return CharParser(stored) if stored is not None else CharParser()
 
 
-def parser_from_run(save_dir: str) -> CharParser:
+def parser_from_run(save_dir: str, dataset: Optional[str] = None
+                    ) -> CharParser:
     """Label parser for eval: the run's recorded vocabulary (meta.json
-    hparams), else the default."""
+    hparams), else the dataset's stored one, else the default."""
     meta_path = os.path.join(save_dir, "meta.json")
     vocab = None
     if os.path.exists(meta_path):
         with open(meta_path) as f:
             vocab = json.load(f).get("hparams", {}).get("vocab")
+    if vocab is None and dataset:
+        vocab = dataset_vocab(dataset)
     return CharParser(vocab) if vocab else CharParser()
 
 
@@ -85,10 +105,6 @@ def require_port_run(save_dir: str) -> None:
 def host_feature(name: str, params_json: Optional[str] = None):
     """``--input_parser`` / ``--input_params`` -> a host feature
     extractor."""
-    if name == "raw":
-        raise SystemExit(f"--input_parser raw: raw-waveform datasets are not "
-                         f"ported to asr_study_torch yet "
-                         f"({DEVICE_FEATURES_ITEM})")
     if name not in FEATURES:
         raise SystemExit(f"unknown --input_parser {name!r}; have "
                          f"{sorted(FEATURES)}")
@@ -96,10 +112,34 @@ def host_feature(name: str, params_json: Optional[str] = None):
     return FEATURES[name](**kw)
 
 
+# raw-sample rows bucket at 2048 samples (128 ms at 16 kHz): the default
+# 64-row multiple would make a distinct padded length every 4 ms
+RAW_GEN_KW = dict(time_multiple=2048, min_time=2048)
+
+
+def device_featurizer_for(kind: str, params_json: Optional[str], it,
+                          dataset: str, context: str,
+                          device: torch.device | str):
+    """The in-step feature chain for a raw-waveform iterator: one policy
+    for train (``--device_features``) and eval (the run's recorded
+    hparams), so the two cannot drift.  The kernel featurizer on a CUDA
+    device, the plain one on the CPU; there is no probe (a kernel that
+    fails raises)."""
+    if it.num_feats != 1:
+        raise SystemExit(
+            f"{context} needs a raw-waveform dataset "
+            f"(make_dataset --input_parser raw); {dataset} stores "
+            f"{it.num_feats}-dim features")
+    kw = json.loads(params_json) if params_json else {}
+    return featurizer(kind, device, **kw)
+
+
 def flow_from_arg(gen: DatasetGenerator, dataset: str, split: Optional[str],
                   label_parser, input_parser_name: str = "mfcc",
                   input_params: Optional[str] = None) -> DatasetIterator:
-    require_manifest(dataset)
-    return gen.flow_from_json(dataset,
-                              host_feature(input_parser_name, input_params),
-                              label_parser, split=split)
+    if is_manifest(dataset):
+        return gen.flow_from_json(dataset,
+                                  host_feature(input_parser_name,
+                                               input_params),
+                                  label_parser, split=split)
+    return gen.flow_from_h5(dataset, split)

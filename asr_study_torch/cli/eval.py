@@ -1,7 +1,7 @@
 """Evaluation CLI (port of ``asr_study_tpu/cli/eval.py``): checkpoint ->
 decode a split -> loss, CER and WER.
 
-    python -m asr_study_torch.cli.eval --dataset m.json --split test \\
+    python -m asr_study_torch.cli.eval --dataset d.h5 --split test \\
         --save runs/exp1
 
     python -m asr_study_torch.cli.eval --dataset m.json --split test \\
@@ -15,9 +15,11 @@ greedy, or with ``--beam_width`` the best path of the prefix beam search
 ``cli.train_lm``).  The transcripts are scored on the host.  The last line
 of standard output is the JAX CLI's JSON record (``split``, ``num_utts``,
 ``loss``, ``cer``, ``wer``, ``decoder``; with ``--lm`` also ``lm``, with
-``--blank_collapse`` ``blank_collapse_overflow_utts``).  Data-parallel
-eval is refused with the ROADMAP item that brings it, as is a run trained
-with in-step device features or written by the JAX package.
+``--blank_collapse`` ``blank_collapse_overflow_utts``).  A run trained
+with in-step device features (``train --device_features``) is evaluated
+on a raw dataset, featurized on the device by the chain its hparams
+record.  Data-parallel eval is refused with the ROADMAP item that brings
+it, as is a run written by the JAX package.
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ import sys
 import torch
 
 from asr_study_torch.cli.data_flow import (
-    DEVICE_FEATURES_ITEM, flow_from_arg, parser_from_run, require_manifest,
+    RAW_GEN_KW, device_featurizer_for, flow_from_arg, parser_from_run,
     require_port_run, resolve_device)
 from asr_study_torch.data.generator import DatasetGenerator
 from asr_study_torch.models.zoo import AcousticModel, build_model
@@ -52,10 +54,6 @@ def load_run(save_dir: str, label_parser: CharParser, best: bool = True,
     require_port_run(save_dir)
     with open(os.path.join(save_dir, "meta.json")) as f:
         hp = json.load(f).get("hparams", {})
-    if hp.get("device_features"):
-        raise SystemExit(
-            f"run {save_dir} was trained with on-device features, which "
-            f"are not ported to asr_study_torch yet ({DEVICE_FEATURES_ITEM})")
     model = build_model(
         hp.get("model", "graves2006"), hp.get("params"),
         num_classes=hp.get("num_classes", label_parser.num_classes),
@@ -68,9 +66,10 @@ def load_run(save_dir: str, label_parser: CharParser, best: bool = True,
 def build_argparser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="Evaluate a trained model")
     p.add_argument("--dataset", required=True,
-                   help="a .json / .jsonl manifest")
+                   help="HDF5 dataset path or .json / .jsonl manifest")
     p.add_argument("--input_parser", default="mfcc",
-                   help="feature extractor (fbank|logfbank|mfcc)")
+                   help="feature extractor for manifests "
+                        "(fbank|logfbank|mfcc|raw)")
     p.add_argument("--input_params", default=None)
     p.add_argument("--split", default="test")
     p.add_argument("--save", required=True, help="training run directory")
@@ -108,7 +107,6 @@ def _refuse_unported(args) -> None:
         raise SystemExit("--num_devices > 1: data-parallel eval is not "
                          "ported to asr_study_torch yet (ROADMAP queue A "
                          "item 12)")
-    require_manifest(args.dataset)
 
 
 @torch.inference_mode()
@@ -116,15 +114,20 @@ def eval_batch(model: AcousticModel, inputs: torch.Tensor,
                input_lengths: torch.Tensor, labels: torch.Tensor,
                label_lengths: torch.Tensor, weights: torch.Tensor,
                beam: BeamConfig | None = None, collapse: float = 0.0,
-               keep_ratio: float = 0.6
+               keep_ratio: float = 0.6, featurizer=None
                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                           torch.Tensor]:
     """One batch on the device -> (weighted mean loss, decoded ids [B, T']
     padded with -1, decoded lengths [B], frames dropped [B]).
 
-    Greedy decode; with ``beam`` the best beam, after ``blank_collapse``
-    at threshold ``collapse`` when that is > 0 (``dropped``: the frames
-    each utterance lost to the ``keep_ratio`` budget, else 0)."""
+    With ``featurizer`` the inputs are raw padded waveforms [B, N, 1],
+    featurized first.  Greedy decode; with ``beam`` the best beam, after
+    ``blank_collapse`` at threshold ``collapse`` when that is > 0
+    (``dropped``: the frames each utterance lost to the ``keep_ratio``
+    budget, else 0)."""
+    if featurizer is not None:
+        inputs, input_lengths = featurizer._transform(inputs[..., 0],
+                                                      input_lengths)
     logits = model(inputs, input_lengths, train=False)
     per_seq = ctc_loss(logits, input_lengths, labels, label_lengths,
                        blank_id=model.blank_id)
@@ -144,7 +147,7 @@ def main(argv=None) -> int:
     args = build_argparser().parse_args(argv)
     _refuse_unported(args)
     device = resolve_device(args.device)
-    label_parser = parser_from_run(args.save)
+    label_parser = parser_from_run(args.save, args.dataset)
     lm = None
     if args.lm:
         if args.beam_width <= 0:
@@ -153,11 +156,21 @@ def main(argv=None) -> int:
         check_lm_vocab(lm, label_parser.vocab)
     beam = BeamConfig(args.beam_width, args.beam_prune, lm, args.lm_alpha,
                       args.lm_beta) if args.beam_width > 0 else None
-    model, _ = load_run(args.save, label_parser, best=args.best,
-                        device=device)
-    gen = DatasetGenerator(batch_size=args.batch_size, shuffle=False)
+    model, hp = load_run(args.save, label_parser, best=args.best,
+                         device=device)
+    gen = DatasetGenerator(batch_size=args.batch_size, shuffle=False,
+                           **(RAW_GEN_KW if hp.get("device_features")
+                              else {}))
     it = flow_from_arg(gen, args.dataset, args.split, label_parser,
                        args.input_parser, args.input_params)
+    feat = None
+    if hp.get("device_features"):
+        # the run trained on raw waveforms with in-step features: the same
+        # chain, rebuilt from its recorded hparams, on a raw dataset
+        feat = device_featurizer_for(
+            hp["device_features"], hp.get("device_feature_params"), it,
+            args.dataset,
+            f"run {args.save} (trained with on-device features)", device)
 
     hyps, refs = [], []
     tot_loss, tot_n = 0.0, 0
@@ -165,7 +178,8 @@ def main(argv=None) -> int:
     for b in it.epoch():
         loss, dec, lens, dropped = eval_batch(
             model, *device_batch(b, device), beam=beam,
-            collapse=args.blank_collapse, keep_ratio=args.keep_ratio)
+            collapse=args.blank_collapse, keep_ratio=args.keep_ratio,
+            featurizer=feat)
         dec, lens = dec.cpu().numpy(), lens.cpu().numpy()
         n = int(b.weights.sum())
         tot_loss += float(loss) * n

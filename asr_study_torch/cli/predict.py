@@ -4,8 +4,14 @@ JSON transcripts, one line per file.
     python -m asr_study_torch.cli.predict --weights model.npz --on_device \\
         [--batch_size N] [--beam_width 16 [--lm lm3.npz]] a.wav b.wav ...
 
+    python -m asr_study_torch.cli.predict --save runs/exp1 a.wav
+
 ``--weights`` takes the ``.npz`` that ``extras/export_weights.py`` writes
-from a training run.  Two serving paths, as in the JAX CLI:
+from a JAX training run, ``--save`` a run directory of the port's
+``train``.  ``--input_parser`` defaults to the run's recorded
+``--device_features`` chain and its parameters, else mfcc; an explicit
+parser drops the recorded parameters.  Two serving paths, as in the JAX
+CLI:
 
 - ``--on_device``: the utterances cross to the device as wire buffers
   (``--wire_codec`` pcm16, dpack, mulaw, or auto: probe the link), one per
@@ -32,6 +38,8 @@ from typing import NamedTuple, Sequence
 import numpy as np
 import torch
 
+from asr_study_torch.cli.data_flow import parser_from_run
+from asr_study_torch.cli.eval import load_run
 from asr_study_torch.data import wire
 from asr_study_torch.features import audio
 from asr_study_torch.features.device import DeviceFeaturizer
@@ -47,10 +55,16 @@ from asr_study_torch.utils.weights import load_npz, params_from_flat
 def build_argparser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="Transcribe wav files")
     p.add_argument("wavs", nargs="+", help="wav file paths")
-    p.add_argument("--weights", required=True,
-                   help=".npz written by extras/export_weights.py")
-    p.add_argument("--input_parser", default="mfcc",
-                   help="feature extractor name (fbank|logfbank|mfcc)")
+    src = p.add_mutually_exclusive_group(required=True)
+    src.add_argument("--weights",
+                     help=".npz written by extras/export_weights.py")
+    src.add_argument("--save", help="a training run directory of the port")
+    p.add_argument("--best", action="store_true",
+                   help="with --save: the best checkpoint, not the latest")
+    p.add_argument("--input_parser", default=None,
+                   help="feature extractor name (fbank|logfbank|mfcc); "
+                        "default = the run's recorded --device_features "
+                        "chain when present, else mfcc")
     p.add_argument("--input_params", default=None,
                    help='feature kwargs as JSON, e.g. \'{"d": true}\'')
     p.add_argument("--on_device", action="store_true",
@@ -198,9 +212,21 @@ def main(argv=None) -> int:
     args = build_argparser().parse_args(argv)
     _refuse_unported(args)
     device = torch.device(args.device)
-    model, meta = load_model(args.weights, device)
-    label_parser = CharParser(meta["vocab"]) if meta.get("vocab") \
-        else CharParser()
+    if args.save:
+        label_parser = parser_from_run(args.save)
+        model, meta = load_run(args.save, label_parser, best=args.best,
+                               device=device)
+    else:
+        model, meta = load_model(args.weights, device)
+        label_parser = CharParser(meta["vocab"]) if meta.get("vocab") \
+            else CharParser()
+    if args.input_parser is None:
+        # a run trained with in-step features records its chain: the
+        # default; an explicit parser drops the recorded params (they
+        # belong to the recorded parser)
+        args.input_parser = meta.get("device_features") or "mfcc"
+        if args.input_params is None and meta.get("device_features"):
+            args.input_params = meta.get("device_feature_params")
     lm = None
     if args.lm:
         if args.beam_width <= 0:

@@ -1,15 +1,22 @@
 """Training CLI (port of ``asr_study_tpu/cli/train.py``).
 
-    python -m asr_study_torch.cli.train --dataset m.json --model deep_blstm \\
+    python -m asr_study_torch.cli.train --dataset d.h5 --model deep_blstm \\
         --epochs 20 --save runs/exp1
 
-The JAX CLI's flags keep their names; ``--platform`` is ``--device`` (a
-torch device, ``cuda`` unless asked for the CPU).  The run directory, its
-automatic name, its ``meta.json`` hparams and the training semantics
-(train and valid splits, early stop, the staircase decay, resume, warm
-start, SortaGrad) are the JAX CLI's.  Options the port does not have yet
-are refused, before the dataset is read, with the ROADMAP item that brings
-them.
+    python -m asr_study_torch.cli.train --dataset raw.h5 \\
+        --device_features mfcc --spec_augment --wav_augment gain_db=3
+
+The dataset is an HDF5 file of ``make_dataset --output`` or a JSON-lines
+manifest.  With ``--device_features`` (a raw dataset, ``make_dataset
+--input_parser raw``) each step featurizes its waveforms on the device
+(the fbank kernel on the card), after ``--wav_augment`` and before
+``--spec_augment``.  The JAX CLI's flags keep their names; ``--platform``
+is ``--device`` (a torch device, ``cuda`` unless asked for the CPU).  The
+run directory, its automatic name, its ``meta.json`` hparams and the
+training semantics (train and valid splits, early stop, the staircase
+decay, resume, warm start, SortaGrad) are the JAX CLI's.  Options the port
+does not have yet are refused, before the dataset is read, with the
+ROADMAP item that brings them.
 """
 
 from __future__ import annotations
@@ -21,9 +28,11 @@ import sys
 import torch
 
 from asr_study_torch.cli.data_flow import (
-    DEVICE_FEATURES_ITEM, flow_from_arg, host_feature, parser_for_training,
-    require_manifest, require_port_run, resolve_device)
+    RAW_GEN_KW, device_featurizer_for, flow_from_arg, parser_for_training,
+    require_port_run, resolve_device)
 from asr_study_torch.data.generator import DatasetGenerator
+from asr_study_torch.features.augment import (
+    parse_spec_augment, parse_wav_augment)
 from asr_study_torch.models.zoo import build_model
 from asr_study_torch.train.checkpoint import CheckpointManager
 from asr_study_torch.train.loop import fit
@@ -37,12 +46,14 @@ _NAME_TAGS = ("params", "batch_size", "opt", "lr", "clipnorm", "bf16",
 def build_argparser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="Train a CTC acoustic model")
     p.add_argument("--dataset", required=True,
-                   help="a .json / .jsonl manifest (features extracted on "
-                        "the host with --input_parser)")
+                   help="HDF5 dataset path, or a .json / .jsonl manifest "
+                        "(features extracted on the host with "
+                        "--input_parser)")
     p.add_argument("--input_parser", default="mfcc",
-                   help="feature extractor (fbank|logfbank|mfcc)")
+                   help="feature extractor for manifests "
+                        "(fbank|logfbank|mfcc|raw)")
     p.add_argument("--input_params", default=None,
-                   help="feature kwargs as JSON")
+                   help="feature kwargs as JSON for manifests")
     p.add_argument("--model", default="graves2006")
     p.add_argument("--params", default=None,
                    help='hparam overrides, e.g. '
@@ -91,27 +102,39 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--bf16", action="store_true")
     p.add_argument("--vocab", default=None,
                    help="label vocabulary: preset name (pt_br, "
-                        "pt_br_apostrophe) or literal characters")
+                        "pt_br_apostrophe) or literal characters; default "
+                        "= an HDF5 dataset's stored vocabulary, which it "
+                        "must match")
     p.add_argument("--device_features", nargs="?", const="mfcc",
-                   default=None, choices=["fbank", "logfbank", "mfcc"])
-    p.add_argument("--device_feature_params", default=None)
+                   default=None, choices=["fbank", "logfbank", "mfcc"],
+                   help="train from a raw-waveform dataset (make_dataset "
+                        "--input_parser raw), featurizing each batch of "
+                        "this kind on the device inside the step (bare "
+                        "flag = mfcc)")
+    p.add_argument("--device_feature_params", default=None,
+                   help='feature kwargs as JSON for --device_features, '
+                        'e.g. \'{"nfilt": 80, "d": true}\'')
     p.add_argument("--sortagrad", action="store_true",
                    help="first epoch in ascending-duration batch order")
-    p.add_argument("--wav_augment", nargs="?", const="", default=None)
-    p.add_argument("--spec_augment", nargs="?", const="", default=None)
+    p.add_argument("--wav_augment", nargs="?", const="", default=None,
+                   help="raw-waveform augmentation in training (needs "
+                        "--device_features): random gain and white noise; "
+                        "optionally 'gain_db=3,noise_snr_min=20,"
+                        "noise_snr_max=50' (bare flag = those defaults; "
+                        "setting one group, gain or noise, keeps the "
+                        "other's default)")
+    p.add_argument("--spec_augment", nargs="?", const="", default=None,
+                   help="SpecAugment feature masking in training; "
+                        "optionally 'freq_masks=2,freq_width=8,"
+                        "time_masks=2,time_ratio=0.05' (bare flag = those "
+                        "defaults)")
     return p
 
 
 def _refuse_unported(args) -> None:
     """Every option the port does not have yet, by its ROADMAP item."""
     a5 = "is not ported to asr_study_torch yet (ROADMAP queue A item 5)"
-    a9 = "is not ported to asr_study_torch yet (ROADMAP queue A item 9)"
     refusals = [
-        (args.device_features is not None,
-         f"--device_features: in-step device features are not ported to "
-         f"asr_study_torch yet ({DEVICE_FEATURES_ITEM})"),
-        (args.spec_augment is not None, f"--spec_augment {a9}"),
-        (args.wav_augment is not None, f"--wav_augment {a9}"),
         (args.num_devices > 1,
          "--num_devices > 1: data parallelism is not ported to "
          "asr_study_torch yet (ROADMAP queue A item 12)"),
@@ -128,7 +151,9 @@ def _refuse_unported(args) -> None:
     for refused, why in refusals:
         if refused:
             raise SystemExit(why)
-    require_manifest(args.dataset)
+    if args.wav_augment is not None and not args.device_features:
+        raise SystemExit("--wav_augment operates on raw waveforms and "
+                         "needs --device_features")
 
 
 def run_dir(args) -> str:
@@ -161,19 +186,15 @@ def main(argv=None) -> int:
         raise SystemExit("--init_from and --resume are exclusive")
 
     label_parser = parser_for_training(args.dataset, args.vocab)
-    feature = host_feature(args.input_parser, args.input_params)
-    model = build_model(args.model, args.params,
-                        num_classes=label_parser.num_classes,
-                        input_dim=feature.num_feats,
-                        generator=torch.Generator().manual_seed(args.seed),
-                        device=device)
-
-    gen = DatasetGenerator(batch_size=args.batch_size)
+    gen = DatasetGenerator(batch_size=args.batch_size,
+                           **(RAW_GEN_KW if args.device_features else {}))
     train_it = flow_from_arg(gen, args.dataset, "train", label_parser,
                              args.input_parser, args.input_params)
     try:
         valid_it = flow_from_arg(gen, args.dataset, "valid", label_parser,
                                  args.input_parser, args.input_params)
+    except KeyError:
+        valid_it = None     # the HDF5 dataset has no 'valid' split
     except ValueError as e:
         # only the generator's "no usable valid data" means training
         # without validation; anything else must surface
@@ -192,7 +213,28 @@ def main(argv=None) -> int:
             accum_steps=args.accum_steps, plateau_factor=args.lr_plateau)
     except NotImplementedError as e:
         raise SystemExit(str(e)) from None
-    trainer = Trainer(model, spec)
+    augment = featurizer = wav_augment = None
+    if args.spec_augment is not None:
+        augment = parse_spec_augment(args.spec_augment)
+        print(f"training with {augment}", file=sys.stderr)
+    if args.device_features:
+        featurizer = device_featurizer_for(
+            args.device_features, args.device_feature_params, train_it,
+            args.dataset, "--device_features", device)
+        print(f"on-device features: {args.device_features} "
+              f"({type(featurizer).__name__}, {featurizer.num_feats} dims)",
+              file=sys.stderr)
+    if args.wav_augment is not None:
+        wav_augment = parse_wav_augment(args.wav_augment)
+        print(f"training with {wav_augment}", file=sys.stderr)
+    num_feats = featurizer.num_feats if featurizer else train_it.num_feats
+    model = build_model(args.model, args.params,
+                        num_classes=label_parser.num_classes,
+                        input_dim=num_feats,
+                        generator=torch.Generator().manual_seed(args.seed),
+                        device=device)
+    trainer = Trainer(model, spec, augment=augment, featurizer=featurizer,
+                      wav_augment=wav_augment)
     state = trainer.init_state()
     n_params = sum(p.numel() for p in model.parameters())
     print(f"{args.model}: {n_params:,} parameters on {device}",
@@ -229,7 +271,7 @@ def main(argv=None) -> int:
         "sortagrad": args.sortagrad,
         "device_features": args.device_features,
         "device_feature_params": args.device_feature_params,
-        "num_feats": train_it.num_feats,
+        "num_feats": num_feats,
         "num_classes": label_parser.num_classes,
         "vocab": label_parser.vocab,
     }

@@ -1,15 +1,15 @@
 """Fit a character n-gram LM for beam-search shallow fusion (port of
 ``asr_study_tpu/cli/train_lm.py``).
 
-    python -m asr_study_torch.cli.train_lm --dataset m.json \\
+    python -m asr_study_torch.cli.train_lm --dataset d.h5 \\
         --splits train valid --order 3 --output lm3.npz
 
-Fits on the transcripts of a JSON-lines manifest's splits (the manifest the
-acoustic model trains on) or on a text file, one sentence a line, and
-writes the dense ``.npz`` table that ``cli.eval --lm`` and ``cli.predict
---lm`` read (``text/lm.py``; the JAX package reads it too).  The last line
-of standard output is the JAX CLI's JSON report.  An HDF5 dataset is
-refused with the ROADMAP item that brings it.
+Fits on the transcripts of a dataset's splits (the HDF5 dataset or
+JSON-lines manifest the acoustic model trains on) or on a text file, one
+sentence a line, and writes the dense ``.npz`` table that ``cli.eval
+--lm`` and ``cli.predict --lm`` read (``text/lm.py``; the JAX package
+reads it too).  An HDF5 dataset's stored vocabulary is the LM's.  The last
+line of standard output is the JAX CLI's JSON report.
 """
 
 from __future__ import annotations
@@ -18,7 +18,8 @@ import argparse
 import json
 import sys
 
-from asr_study_torch.cli.data_flow import require_manifest
+from asr_study_torch.cli.data_flow import dataset_vocab, is_manifest
+from asr_study_torch.data import h5
 from asr_study_torch.text.lm import fit_ngram_lm
 from asr_study_torch.text.parser import CharParser
 
@@ -27,8 +28,8 @@ def build_argparser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="Fit a char n-gram LM")
     src = p.add_mutually_exclusive_group(required=True)
     src.add_argument("--dataset",
-                     help=".json / .jsonl manifest; transcripts come from "
-                          "the chosen splits' labels")
+                     help="HDF5 dataset path or .json / .jsonl manifest; "
+                          "transcripts come from the chosen splits")
     src.add_argument("--text",
                      help="plain text file, one sentence per line")
     p.add_argument("--splits", nargs="+", default=["train"],
@@ -45,9 +46,21 @@ def build_argparser() -> argparse.ArgumentParser:
 
 
 def _dataset_texts(path: str, splits, parser: CharParser):
-    """Transcripts of a manifest's ``splits`` (the ``DatasetParser.to_json``
-    format; a line without a ``split`` counts as train), as id
-    sequences."""
+    """Transcripts of a dataset's ``splits``, as id sequences: an HDF5
+    split's ``texts`` (its ``labels`` where it has none), or a manifest's
+    lines (a line without a ``split`` counts as train)."""
+    if not is_manifest(path):
+        with h5.File(path) as f:
+            for split in splits:
+                if split not in f:
+                    raise SystemExit(f"split '{split}' not in {path} "
+                                     f"(has: {', '.join(f.keys())})")
+                g = f[split]
+                if "texts" in g:
+                    yield from (parser(t) for t in g["texts"][:])
+                else:
+                    yield from g["labels"][:]
+        return
     wanted = set(splits)
     with open(path) as f:
         for line in f:
@@ -72,8 +85,11 @@ def main(argv=None) -> int:
     args = build_argparser().parse_args(argv)
     parser = CharParser()
     if args.dataset:
-        # a manifest stores no vocabulary: its labels take the default one
-        require_manifest(args.dataset)
+        # an HDF5 dataset's stored vocabulary (its label ids were minted
+        # with it); a manifest stores none and takes the default
+        stored = dataset_vocab(args.dataset)
+        if stored is not None:
+            parser = CharParser(stored)
         seqs = list(_dataset_texts(args.dataset, args.splits, parser))
     else:
         seqs = list(_text_file_ids(args.text, parser))

@@ -1,6 +1,6 @@
 """Length-bucketed, padded batches (numpy copy of
-``asr_study_tpu/data/generator.py`` ``Batch``, ``DatasetGenerator.flow``,
-``flow_from_json`` and ``DatasetIterator``).
+``asr_study_tpu/data/generator.py`` ``Batch``, ``DatasetGenerator`` and
+``DatasetIterator``).
 
 A copy because importing any ``asr_study_tpu.data`` module runs that
 package's ``__init__``, which imports ``h5py``, absent on the machine with
@@ -12,8 +12,9 @@ shuffles the bucket order with ``np.random.default_rng(seed)``.
 
 ``flow_from_json`` streams a JSON-lines manifest (``DatasetParser.to_json``)
 and extracts each utterance's features on the host, as the JAX generator
-does.  The HDF5 source (``flow_from_h5``) is ROADMAP queue A item 7's HDF5
-part.
+does.  ``flow_from_h5`` reads an HDF5 split (``data/h5.py``): into memory
+when its features fit in ``max_in_memory_bytes``, else a batch's rows at a
+time from disk (``H5FeatureRows``).
 """
 
 from __future__ import annotations
@@ -24,7 +25,8 @@ from typing import Iterator, List, Optional, Sequence
 
 import numpy as np
 
-from asr_study_torch.data.dataset_parser import HDF5_ITEM
+from asr_study_torch.data.dataset_parser import (
+    H5FeatureRows, read_h5, read_h5_inputs, read_h5_meta)
 
 
 def _round_up(x: int, multiple: int) -> int:
@@ -49,9 +51,9 @@ class Batch:
 
 
 class DatasetGenerator:
-    """Makes a :class:`DatasetIterator` over in-memory rows::
+    """Makes a :class:`DatasetIterator` over rows in memory or on disk::
 
-        train = DatasetGenerator(batch_size=32).flow(features, labels)
+        train = DatasetGenerator(batch_size=32).flow_from_h5("d.h5", "train")
         for batch in train.epoch(seed=epoch_seed):
             ...
     """
@@ -64,6 +66,7 @@ class DatasetGenerator:
         time_multiple: int = 64,
         label_multiple: int = 16,
         min_time: int = 64,
+        max_in_memory_bytes: int = 512 << 20,
     ):
         self.batch_size = batch_size
         self.sort_by_duration = sort_by_duration
@@ -71,15 +74,33 @@ class DatasetGenerator:
         self.time_multiple = time_multiple
         self.label_multiple = label_multiple
         self.min_time = min_time
+        self.max_in_memory_bytes = max_in_memory_bytes
 
-    def flow(self, inputs: Sequence[np.ndarray],
-             labels: Sequence[np.ndarray],
+    def flow(self, inputs, labels: Sequence[np.ndarray],
              texts: Optional[Sequence[str]] = None) -> "DatasetIterator":
-        """inputs: [T_i, F] float32 rows; labels: int id rows."""
-        return DatasetIterator(self, list(inputs), list(labels), texts)
+        """inputs: [T_i, F] float32 rows, or a lazy row source
+        (:class:`H5FeatureRows`); labels: int id rows."""
+        if not hasattr(inputs, "row_length"):
+            inputs = list(inputs)
+        return DatasetIterator(self, inputs, list(labels), texts)
 
-    def flow_from_h5(self, *args, **kwargs) -> "DatasetIterator":
-        raise NotImplementedError(HDF5_ITEM)
+    def flow_from_h5(self, h5_path: str, split: str,
+                     lazy: Optional[bool] = None) -> "DatasetIterator":
+        """One split of an HDF5 dataset.  ``lazy=None`` reads the split
+        into memory when its features fit in ``max_in_memory_bytes`` and
+        streams it a batch at a time from disk otherwise; True or False
+        forces one or the other."""
+        if lazy is None or lazy:
+            shapes, labels, texts, _ = read_h5_meta(h5_path, split)
+            nbytes = int(np.sum(shapes[:, 0].astype(np.int64)
+                                * shapes[:, 1]) * 4)
+            if lazy or nbytes > self.max_in_memory_bytes:
+                return self.flow(H5FeatureRows(h5_path, split, shapes=shapes),
+                                 labels, texts)
+            return self.flow(read_h5_inputs(h5_path, split, shapes), labels,
+                             texts)
+        inputs, labels, texts, _ = read_h5(h5_path, split)
+        return self.flow(inputs, labels, texts)
 
     def flow_from_json(self, json_path: str, input_parser, label_parser,
                        split: Optional[str] = None) -> "DatasetIterator":
@@ -107,7 +128,7 @@ class DatasetGenerator:
 
 
 class DatasetIterator:
-    def __init__(self, gen: DatasetGenerator, inputs: List[np.ndarray],
+    def __init__(self, gen: DatasetGenerator, inputs,
                  labels: List[np.ndarray], texts=None):
         if len(inputs) == 0:
             raise ValueError("empty dataset")
@@ -117,7 +138,12 @@ class DatasetIterator:
         self.inputs = inputs
         self.labels = labels
         self.texts = list(texts) if texts is not None else None
-        self._row_lengths = np.array([x.shape[0] for x in inputs], np.int64)
+        self._lazy = hasattr(inputs, "row_length")
+        if self._lazy:
+            self._row_lengths = inputs.shapes[:, 0].astype(np.int64)
+        else:
+            self._row_lengths = np.array([x.shape[0] for x in inputs],
+                                         np.int64)
         order = np.arange(len(inputs))
         if gen.sort_by_duration:
             order = order[np.argsort(self._row_lengths, kind="stable")]
@@ -132,7 +158,8 @@ class DatasetIterator:
 
     @property
     def num_feats(self) -> int:
-        return self.inputs[0].shape[1]
+        return (self.inputs.num_feats if self._lazy
+                else self.inputs[0].shape[1])
 
     @property
     def steps_per_epoch(self) -> int:
@@ -146,14 +173,20 @@ class DatasetIterator:
         t = max(gen.min_time, _round_up(max(row_lens), gen.time_multiple))
         l = _round_up(max(len(x) for x in labs), gen.label_multiple)
 
-        inputs = np.zeros((b, t, self.num_feats), dtype=np.float32)
         input_lengths = np.zeros((b,), dtype=np.int32)
         labels = np.zeros((b, l), dtype=np.int32)
         label_lengths = np.zeros((b,), dtype=np.int32)
         weights = np.zeros((b,), dtype=np.float32)
         uids = np.full((b,), -1, dtype=np.int32)
+        if self._lazy:
+            # the batch's rows read from disk; pack_into defines every entry
+            inputs = np.empty((b, t, self.num_feats), dtype=np.float32)
+            self.inputs.pack_into(idx, inputs)
+        else:
+            inputs = np.zeros((b, t, self.num_feats), dtype=np.float32)
+            for j, i in enumerate(idx):
+                inputs[j, : row_lens[j]] = self.inputs[i]
         for j, (i, tl, y) in enumerate(zip(idx, row_lens, labs)):
-            inputs[j, :tl] = self.inputs[i]
             input_lengths[j] = tl
             labels[j, : len(y)] = y
             label_lengths[j] = len(y)

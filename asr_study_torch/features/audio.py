@@ -347,6 +347,17 @@ class Feature:
         return type(self).__name__.lower()
 
 
+class Raw(Feature):
+    """Raw waveform as a [T, 1] feature [ref: preprocessing/audio.py::Raw]."""
+
+    @property
+    def num_feats(self) -> int:
+        return 1
+
+    def _transform(self, signal: np.ndarray) -> np.ndarray:
+        return signal.reshape(-1, 1)
+
+
 _UNSET = object()
 
 # Per-convention defaults for the five convention-shaped knobs.  The
@@ -532,5 +543,5 @@ class MFCC(_SpectralFeature):
 
 
 # the host feature classes by ``--input_parser`` name, for every CLI of the
-# port (the JAX package's ``register("feature")`` names, ``raw`` left out)
-FEATURES = {"mfcc": MFCC, "logfbank": LogFbank, "fbank": FBank}
+# port (the JAX package's ``register("feature")`` names)
+FEATURES = {"mfcc": MFCC, "logfbank": LogFbank, "fbank": FBank, "raw": Raw}

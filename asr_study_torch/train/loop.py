@@ -24,13 +24,19 @@ from asr_study_torch.train.trainer import Trainer, TrainState, device_batch
 from asr_study_torch.utils.metrics_writer import MetricWriter
 
 
-def step_generator(device: torch.device, seed: int,
-                   step: int) -> torch.Generator:
-    """The dropout generator of one update, a function of (seed, step)
+# the augmentations' stream, apart from dropout's (the JAX step folds 0x5A
+# and 0x3A into its key for them)
+AUGMENT_STREAM = 0x5A
+
+
+def step_generator(device: torch.device, seed: int, step: int,
+                   stream: int = 0) -> torch.Generator:
+    """The dropout generator of one update (``stream`` 0; the
+    augmentations' is :data:`AUGMENT_STREAM`), a function of (seed, step)
     like the JAX step's ``fold_in(rng, step)``: a resumed run draws the
     masks an uninterrupted one would."""
     return torch.Generator(device=device).manual_seed(
-        (seed * 1_000_003 + step) % (2 ** 63))
+        (seed * 1_000_003 + step + (stream << 40)) % (2 ** 63))
 
 
 def fit(
@@ -98,9 +104,14 @@ def fit(
                     ordered=first_epoch_ordered and epoch == 0):
                 inputs, in_lens, labels, lab_lens, weights = device_batch(
                     batch, device)
+                aug_gen = (step_generator(device, seed, state.step,
+                                          AUGMENT_STREAM)
+                           if trainer.augment is not None
+                           or trainer.wav_augment is not None
+                           else None)
                 state, metrics = trainer.train_step(
                     state, inputs, in_lens, labels, lab_lens, weights,
-                    step_generator(device, seed, state.step))
+                    step_generator(device, seed, state.step), aug_gen)
                 step = state.step
                 w = weights.sum()
                 ep_loss += metrics["loss"] * w

@@ -14,6 +14,12 @@ bias-corrected with eps 1e-8 outside the square root, which is
 ``torch.optim.Adam``'s form.  The staircase ``lr_decay`` multiplies the
 rate by ``lr_decay`` every ``decay_steps`` updates.
 
+With a ``featurizer`` the step takes raw padded waveforms [B, N(, 1)] with
+sample counts as lengths and featurizes them on the device first (on the
+card the fbank kernel, under ``torch.no_grad``: no gradient flows to the
+waveform); ``wav_augment`` runs before it and ``augment`` (SpecAugment)
+after it, in the train step only.
+
 One device, no mesh: data parallelism is ROADMAP queue A item 12.
 """
 
@@ -148,11 +154,28 @@ def device_batch(batch, device: torch.device | str
 
 class Trainer:
     """The step functions for one (model, optimizer) pair on the model's
-    device."""
+    device.
 
-    def __init__(self, model: nn.Module, optimizer: OptimizerSpec):
+    ``augment`` is a ``(inputs, input_lengths, generator) -> inputs``
+    transform of the feature batch (``features.augment.SpecAugment``),
+    ``featurizer`` a device featurizer (``features.select.featurizer``)
+    that turns raw padded waveforms into features inside both steps, and
+    ``wav_augment`` a ``(wavs, wav_lengths, generator) -> wavs`` transform
+    of the raw batch before it (``features.augment.WavAugment``), which
+    needs the featurizer."""
+
+    def __init__(self, model: nn.Module, optimizer: OptimizerSpec,
+                 augment=None, featurizer=None, wav_augment=None):
+        if wav_augment is not None and featurizer is None:
+            raise ValueError(
+                "wav_augment operates on raw waveforms and needs "
+                "featurizer= (the inputs are features otherwise)"
+            )
         self.model = model
         self.spec = optimizer
+        self.augment = augment
+        self.featurizer = featurizer
+        self.wav_augment = wav_augment
 
     @property
     def device(self) -> torch.device:
@@ -169,15 +192,39 @@ class Trainer:
         w = weights.to(torch.float32)
         return (per_seq * w).sum(), torch.clamp(w.sum(), min=1.0)
 
+    @torch.no_grad()
+    def _featurize(self, inputs: torch.Tensor, input_lengths: torch.Tensor,
+                   generator: Optional[torch.Generator] = None,
+                   train: bool = False):
+        """Raw padded wavs -> (features, frame counts) when a featurizer is
+        attached, after ``wav_augment`` in training; the identity
+        otherwise."""
+        if self.featurizer is None:
+            return inputs, input_lengths
+        wavs = inputs[..., 0] if inputs.dim() == 3 else inputs
+        if train and self.wav_augment is not None:
+            wavs = self.wav_augment(wavs, input_lengths, generator)
+        return self.featurizer._transform(wavs, input_lengths)
+
     def train_step(self, state: TrainState, inputs: torch.Tensor,
                    input_lengths: torch.Tensor, labels: torch.Tensor,
                    label_lengths: torch.Tensor, weights: torch.Tensor,
-                   generator: Optional[torch.Generator] = None
+                   generator: Optional[torch.Generator] = None,
+                   augment_generator: Optional[torch.Generator] = None
                    ) -> tuple[TrainState, Dict[str, torch.Tensor]]:
         """One update.  Returns the state (updated in place) and the
         step's ``loss`` (weighted mean) and ``grad_norm`` (before the
-        clip), as device scalars: nothing is fetched to the host."""
+        clip), as device scalars: nothing is fetched to the host.
+
+        ``generator`` draws the dropout masks; ``augment_generator`` (else
+        ``generator``) the augmentations', WavAugment's first."""
         model = state.model
+        aug_gen = augment_generator if augment_generator is not None \
+            else generator
+        inputs, input_lengths = self._featurize(inputs, input_lengths,
+                                                aug_gen, train=True)
+        if self.augment is not None:
+            inputs = self.augment(inputs, input_lengths, aug_gen)
         state.optimizer.zero_grad(set_to_none=True)
         logits = model(inputs, input_lengths, train=True,
                        generator=generator)
@@ -213,6 +260,7 @@ class Trainer:
                   ) -> Dict[str, torch.Tensor]:
         """Loss, greedy decode and edit distance, as device scalars."""
         model = state.model
+        inputs, input_lengths = self._featurize(inputs, input_lengths)
         logits = model(inputs, input_lengths, train=False)
         loss_sum, num = self._loss_sum(logits, input_lengths, labels,
                                        label_lengths, weights)

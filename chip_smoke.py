@@ -37,6 +37,12 @@ paths at full width, with random weights from a seeded
   ``deep_blstm`` at its zoo defaults (3x256, dropout 0.2) from it for 3
   epochs and one more with ``--resume``, ``cli.eval`` scores its valid and
   test splits;
+- the HDF5 path on that corpus: ``cli.make_dataset --output`` with host
+  MFCC (both layouts), raw waveforms, and features extracted on the card
+  over the pcm16 and dpack wires; ``cli.train`` of deep_blstm 3x256 from
+  the MFCC ``.h5`` and from the raw one with ``--device_features mfcc
+  --spec_augment --wav_augment gain_db=3``; ``cli.eval`` and
+  ``cli.predict --save`` of that run;
 - prefix beam search (BASELINE config 4): the ``ctc_beam`` kernel
   (csrc/ctc_beam.cu, a CTA per utterance) on speech-like emissions of
   B=32, T=512, V=28 at widths 4, 16 and 64, pruned, after blank collapse
@@ -111,7 +117,12 @@ Phases, in order; any failure raises and the exit code is not 0:
    eval's valid loss equal to the run's last ``val_loss``, finite test
    CER and WER; the host seconds of the synthesis and of the manifest's
    features, ms per train step (CUDA events) and audio-s/s, eval ms per
-   batch;
+   batch; then the h5 phase on its corpus: make_dataset --output (host
+   MFCC in both layouts, raw, and --device over pcm16 and dpack: the two
+   bit-equal, near host MFCC), train from the .h5 (each step's loss that
+   of the manifest run's first epoch) and with --device_features,
+   --spec_augment and --wav_augment (fbank in every step), eval and
+   predict of that run; extraction rates, flow_from_h5's read rate;
 9. the beam phase: ctc_beam against its plain twin on the card (all W
    beams of every row; prefixes, lengths and scores equal bit for bit),
    each case timed beside its bound (no library call does prefix beam
@@ -236,6 +247,12 @@ AUDIO_PER_STEP = TRAIN_B * TRAIN_T * 0.01   # 10 ms frames: 163.84 s
 # 400): 640 train, 80 valid and 80 test utterances of 3-8 words
 CORPUS_N, CORPUS_EPOCHS, CORPUS_B = 800, 3, 32
 CORPUS_LOSS_RTOL = 1e-5          # eval's valid loss against the last val_loss
+# the h5 phase: each step's loss from the MFCC .h5 against the corpus
+# phase's from the manifest (the same features, weights, seed and batches);
+# device extraction held against host MFCC at a power floor (without one,
+# SynthWords' near-silent mel channels part fp32 from fp64 logs by ~15)
+H5_LOSS_RTOL = 1e-4
+H5_LOG_FLOOR = 1e-2
 
 # the beam phase (BASELINE config 4, prefix beam search on an eval set):
 # speech-like emissions as benchmarks/bench_decode.py:49-53 makes them
@@ -3633,13 +3650,14 @@ def ctc_stage_split(card: str, model, batch, gen: torch.Generator) -> None:
 
 class CliTap:
     """Inside ``record()``: CUDA events around every ``Trainer.train_step``
-    and ``cli.eval.eval_batch`` call, with the batch's padded T, and the
-    host seconds and iterators of every ``DatasetGenerator.flow_from_json``
-    call (the manifest's features), as the CLIs make them; nothing else
-    changes."""
+    and ``cli.eval.eval_batch`` call, with the batch's padded T, each
+    step's loss (a device scalar), and the host seconds and iterators of
+    every ``DatasetGenerator.flow_from_json`` and ``flow_from_h5`` call (the
+    manifest's features, or the HDF5 split read), as the CLIs make them;
+    nothing else changes."""
 
     def __init__(self):
-        self.steps, self.evals, self.flows = [], [], []
+        self.steps, self.evals, self.flows, self.losses = [], [], [], []
         self.features_s = 0.0
 
     @contextlib.contextmanager
@@ -3650,32 +3668,41 @@ class CliTap:
 
         real_step, real_eval = Trainer.train_step, cli_eval.eval_batch
         real_flow = DatasetGenerator.flow_from_json
+        real_h5 = DatasetGenerator.flow_from_h5
 
-        def timed(fn, into, inputs_at):
+        def timed(fn, into, inputs_at, losses=None):
             def call(*args, **kwargs):
                 ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
                 ev[0].record()
                 out = fn(*args, **kwargs)
                 ev[1].record()
                 into.append((ev, args[inputs_at].shape[1]))
+                if losses is not None:
+                    losses.append(out[1]["loss"])
                 return out
             return call
 
-        def flow(gen, *args, **kwargs):
-            t0 = time.perf_counter()
-            it = real_flow(gen, *args, **kwargs)
-            self.features_s += time.perf_counter() - t0
-            self.flows.append((kwargs.get("split"), it))
-            return it
+        def tapped(real, split_at):
+            def flow(gen, *args, **kwargs):
+                t0 = time.perf_counter()
+                it = real(gen, *args, **kwargs)
+                self.features_s += time.perf_counter() - t0
+                split = kwargs.get("split", args[split_at]
+                                   if len(args) > split_at else None)
+                self.flows.append((split, it))
+                return it
+            return flow
 
-        Trainer.train_step = timed(real_step, self.steps, 2)
+        Trainer.train_step = timed(real_step, self.steps, 2, self.losses)
         cli_eval.eval_batch = timed(real_eval, self.evals, 1)
-        DatasetGenerator.flow_from_json = flow
+        DatasetGenerator.flow_from_json = tapped(real_flow, 3)
+        DatasetGenerator.flow_from_h5 = tapped(real_h5, 1)
         try:
             yield self
         finally:
             Trainer.train_step, cli_eval.eval_batch = real_step, real_eval
             DatasetGenerator.flow_from_json = real_flow
+            DatasetGenerator.flow_from_h5 = real_h5
 
     @staticmethod
     def epoch_windows(timed, spe: int) -> list:
@@ -3738,7 +3765,7 @@ def threaded_batches(batches, depth: int = 2):
         t.join()
 
 
-def corpus_phase(card: str, tmp: str) -> tuple[list, str, str]:
+def corpus_phase(card: str, tmp: str) -> tuple[list, str, str, list]:
     """BASELINE config 3 from a corpus, through the CLIs' ``main(argv)``:
     make_dataset (a SynthWords manifest), train (deep_blstm at its zoo
     defaults, CORPUS_EPOCHS epochs from the manifest), train --resume (one
@@ -3747,7 +3774,7 @@ def corpus_phase(card: str, tmp: str) -> tuple[list, str, str]:
     turns with the loop's batches straight from the iterator, as ``fit``
     takes them, and built ahead by a worker thread; all in ``tmp`` ->
     (each counted CLI run's launches, the manifest, the first run's
-    directory)."""
+    directory, the first run's loss of each step of its first epoch)."""
     from asr_study_torch.data.generator import DatasetGenerator
     from asr_study_torch.cli import eval as cli_eval
     from asr_study_torch.cli import make_dataset
@@ -3828,9 +3855,9 @@ def corpus_phase(card: str, tmp: str) -> tuple[list, str, str]:
               f"{epochs * train_audio_s / (sum(windows) / 1e3):.1f} "
               f"audio-s/s with the gaps between steps")
         runs.append(launches)
-        return spe, its
+        return spe, its, [float(v) for v in tap.losses[:spe]]
 
-    spe, its = train([], CORPUS_EPOCHS)
+    spe, its, first_epoch = train([], CORPUS_EPOCHS)
     with open(os.path.join(run_dir, "meta.json")) as f:
         meta = json.load(f)
     with open(os.path.join(run_dir, "train_metrics.csv")) as f:
@@ -3941,7 +3968,222 @@ def corpus_phase(card: str, tmp: str) -> tuple[list, str, str]:
                       f" audio-s/s" for v, m in means.items())
           + f"; thread/plain {means['thread'][0] / means['plain'][0]:.4f}"
           f"; train losses equal")
-    return runs, manifest, run_dir
+    return runs, manifest, run_dir, first_epoch
+
+
+def h5_phase(card: str, tmp: str, manifest: str,
+             corpus_losses: list) -> list:
+    """The HDF5 path through the CLIs, on the corpus phase's SynthWords
+    corpus in ``tmp``: (a) make_dataset --output, host MFCC in both
+    layouts (the packed rows held equal to the vlen file's, in duration
+    order) and raw; (b) make_dataset --device over the pcm16 and the dpack
+    wire at H5_LOG_FLOOR, the two files bit-equal and the test split
+    within FBANK_TOL of host MFCC at that floor; flow_from_h5's read rate;
+    (c) train deep_blstm one epoch from the MFCC file, each step's loss
+    within H5_LOSS_RTOL of the corpus phase's first epoch from the
+    manifest (the same weights, seed, batches and features); (d) train
+    --device_features mfcc --spec_augment --wav_augment gain_db=3 one epoch
+    from the raw file, the fbank kernel in every step and eval batch;
+    (e) eval and predict --on_device of run (d).  Every run's launches are
+    held to what it needs -> those launch counts."""
+    from asr_study_torch.cli import eval as cli_eval
+    from asr_study_torch.cli import make_dataset
+    from asr_study_torch.cli import predict as cli_predict
+    from asr_study_torch.cli import train as cli_train
+    from asr_study_torch.data.dataset_parser import read_h5
+    from asr_study_torch.data.generator import DatasetGenerator
+    from asr_study_torch.features.audio import MFCC
+
+    runs = []
+    splits = ("train", "valid", "test")
+    with open(manifest) as f:
+        utts = [json.loads(line) for line in f]
+    n_utts, audio_s = len(utts), sum(u["duration"] for u in utts)
+    batches = sum(-(-sum(u["split"] == s for u in utts) // 32)
+                  for s in splits)
+    files = {}
+
+    def build(name: str, *extra) -> tuple[float, dict]:
+        files[name] = os.path.join(tmp, f"{name}.h5")
+        reset_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            require(make_dataset.main([
+                "--parser", "synthwords", "--dataset_dir",
+                os.path.join(tmp, "corpus"), "--corpus_params",
+                json.dumps({"n": CORPUS_N, "seed": SEED}), "--output",
+                files[name], *extra]) == 0, f"make_dataset {name} failed")
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, read_counts()
+
+    def rate(what: str, secs: float) -> str:
+        return (f"{what} {secs:.2f} s, {n_utts / secs:.1f} utterances/s, "
+                f"{audio_s / secs:.1f} audio-s/s")
+
+    # (a) host features, both layouts, and raw
+    t_host, launches = build("feats")
+    require(not launches, f"host make_dataset launched {launches}")
+    build("packed", "--layout", "packed")
+    t_raw, _ = build("raw", "--input_parser", "raw")
+    host = {s: read_h5(files["feats"], s) for s in splits}
+    for s in splits:
+        packed = read_h5(files["packed"], s)
+        order = np.argsort(host[s][3], kind="stable")
+        require(packed[2] == [host[s][2][i] for i in order] and all(
+            np.array_equal(packed[0][k], host[s][0][i])
+            for k, i in enumerate(order)),
+            f"packed rows of {s} differ from the vlen file's")
+    raw_test = read_h5(files["raw"], "test")[0]
+    require(all(r.shape[1] == 1 for r in raw_test)
+            and len(raw_test) == len(host["test"][0]), "raw.h5 rows")
+    print(f"h5 phase (a): make_dataset --output, host MFCC: "
+          f"{rate('vlen', t_host)}; packed rows equal to the vlen file's in "
+          f"duration order; raw {t_raw:.2f} s")
+
+    # (b) device extraction over both wires
+    floor = json.dumps({"log_floor": H5_LOG_FLOOR})
+    dev, t_dev = {}, {}
+    for codec in ("pcm16", "dpack"):
+        t_dev[codec], launches = build(
+            f"dev_{codec}", "--device", "--device_wire_codec", codec,
+            "--input_params", floor)
+        want = {"fbank": batches}
+        if codec == "dpack":
+            want["dpack_decode"] = batches
+        require(launches == want, f"make_dataset --device {codec} launches "
+                f"{launches}, want {want}")
+        runs.append(launches)
+        dev[codec] = {s: read_h5(files[f"dev_{codec}"], s)[0]
+                      for s in splits}
+    require(all(np.array_equal(a, b) for s in splits
+                for a, b in zip(dev["pcm16"][s], dev["dpack"][s])),
+            "the pcm16 and dpack files' features differ")
+    mfcc = MFCC(log_floor=H5_LOG_FLOOR)
+    test_wavs = [u["audio"] for u in utts if u["split"] == "test"]
+    err = max(float(np.abs(mfcc(w) - r).max())
+              for w, r in zip(test_wavs, dev["pcm16"]["test"]))
+    print(f"[{card}] h5 phase (b): make_dataset --device, {batches} batches "
+          f"of <= 32, one fbank launch each (+ one dpack_decode with "
+          f"dpack): {rate('host MFCC', t_host)}; "
+          f"{rate('pcm16', t_dev['pcm16'])}; "
+          f"{rate('dpack', t_dev['dpack'])} (whole CLI runs: wav reads, "
+          f"extraction, HDF5 writes); pcm16 and dpack files bit-equal; "
+          f"test split against host MFCC at log_floor {H5_LOG_FLOOR:g}: "
+          f"max abs err {err:.3e} (tol {FBANK_TOL:g})")
+    require(err <= FBANK_TOL, f"device features {err:.3e} from host MFCC")
+
+    # the read rate of flow_from_h5, eager and lazy, both layouts
+    mb = sum(x.nbytes for x in host["train"][0]) / 2**20
+    reads = []
+    for name in ("feats", "packed"):
+        for lazy in (False, True):
+            t0 = time.perf_counter()
+            it = DatasetGenerator(batch_size=CORPUS_B).flow_from_h5(
+                files[name], "train", lazy=lazy)
+            n_b = sum(1 for _ in it.epoch(seed=SEED))
+            dt = time.perf_counter() - t0
+            reads.append(f"{'packed' if name == 'packed' else 'vlen'} "
+                         f"{'lazy' if lazy else 'eager'} {mb / dt:.1f} MB/s "
+                         f"({n_b / dt:.1f} batches/s)")
+    print(f"h5 phase: flow_from_h5 of the train split ({mb:.1f} MB of "
+          f"features) and one epoch of batches, host time: "
+          + "; ".join(reads))
+
+    # (c) train from the MFCC file, against the manifest's first epoch
+    tap = CliTap()
+    reset_counts()
+    with tap.record(), contextlib.redirect_stdout(io.StringIO()):
+        require(cli_train.main([
+            "--dataset", files["feats"], "--model", "deep_blstm",
+            "--batch_size", str(CORPUS_B), "--seed", str(SEED),
+            "--log_every", "5", "--epochs", "1", "--save",
+            os.path.join(tmp, "h5run")]) == 0, "train on the .h5 failed")
+    torch.cuda.synchronize()
+    launches = read_counts()
+    runs.append(launches)
+    its = dict(tap.flows)
+    spe, v_b = its["train"].steps_per_epoch, its["valid"].steps_per_epoch
+    want = {"bilstm_fwd": TRAIN_LAYERS * (spe + v_b),
+            "bilstm_bwd": TRAIN_LAYERS * spe, "ctc_alpha": spe + v_b,
+            "ctc_beta": spe}
+    require(launches == want, f"h5 train launches {launches}, want {want}")
+    losses = [float(v) for v in tap.losses]
+    require(len(losses) == len(corpus_losses) == spe,
+            f"{len(losses)} steps from the .h5, {len(corpus_losses)} from "
+            "the manifest")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, corpus_losses))
+    step_ms, by_t = CliTap.ms(tap.steps)
+    print(f"[{card}] h5 phase (c): train deep_blstm 3x{HIDDEN} one epoch "
+          f"from feats.h5, {spe} steps: {np.mean(step_ms[1:]):.4f} ms/step "
+          f"mean after the first ({by_t}); each step's loss against the "
+          f"manifest run's first epoch: max rel {rel:.3e} (tol "
+          f"{H5_LOSS_RTOL:g}); launches {launches}")
+    require(rel <= H5_LOSS_RTOL, "the .h5 run's losses differ from the "
+            "manifest run's")
+
+    # (d) raw waveforms, featurized in each step, with both augmentations
+    raw_run = os.path.join(tmp, "rawrun")
+    tap = CliTap()
+    reset_counts()
+    with tap.record(), contextlib.redirect_stdout(io.StringIO()):
+        require(cli_train.main([
+            "--dataset", files["raw"], "--model", "deep_blstm",
+            "--batch_size", str(CORPUS_B), "--seed", str(SEED),
+            "--log_every", "5", "--epochs", "1", "--save", raw_run,
+            "--device_features", "mfcc", "--spec_augment", "--wav_augment",
+            "gain_db=3"]) == 0, "train --device_features failed")
+    torch.cuda.synchronize()
+    launches = read_counts()
+    runs.append(launches)
+    its = dict(tap.flows)
+    spe, v_b = its["train"].steps_per_epoch, its["valid"].steps_per_epoch
+    want = {"fbank": spe + v_b, "bilstm_fwd": TRAIN_LAYERS * (spe + v_b),
+            "bilstm_bwd": TRAIN_LAYERS * spe, "ctc_alpha": spe + v_b,
+            "ctc_beta": spe}
+    require(launches == want, f"--device_features train launches "
+            f"{launches}, want {want}")
+    losses = [float(v) for v in tap.losses]
+    require(all(math.isfinite(v) for v in losses), f"losses {losses}")
+    step_ms, by_t = CliTap.ms(tap.steps)
+    print(f"[{card}] h5 phase (d): train --device_features mfcc "
+          f"--spec_augment --wav_augment gain_db=3 one epoch from raw.h5, "
+          f"{spe} steps: {np.mean(step_ms[1:]):.4f} ms/step mean after the "
+          f"first (padded samples: {by_t}); fbank launches a step and eval "
+          f"batch {launches['fbank'] / (spe + v_b):g}; losses "
+          f"{[round(v, 3) for v in losses[::5]]} (every 5th)")
+
+    # (e) eval and predict of run (d)
+    out = io.StringIO()
+    tap = CliTap()
+    reset_counts()
+    with tap.record(), contextlib.redirect_stdout(out):
+        require(cli_eval.main(["--dataset", files["raw"], "--split", "test",
+                               "--save", raw_run]) == 0, "eval failed")
+    launches = read_counts()
+    runs.append(launches)
+    res = json.loads(out.getvalue().strip().splitlines()[-1])
+    n_b = dict(tap.flows)["test"].steps_per_epoch
+    require(launches == {"fbank": n_b, "bilstm_fwd": TRAIN_LAYERS * n_b,
+                         "ctc_alpha": n_b}, f"eval launches {launches}")
+    require(res["num_utts"] == CORPUS_N // 10 and all(
+        math.isfinite(res[k]) for k in ("loss", "cer", "wer")),
+        f"eval of the raw run: {res}")
+    out = io.StringIO()
+    reset_counts()
+    with contextlib.redirect_stdout(out):
+        require(cli_predict.main(["--save", raw_run, "--on_device",
+                                  "--batch_size", "8",
+                                  *test_wavs[:8]]) == 0, "predict failed")
+    launches = read_counts()
+    runs.append(launches)
+    lines = [json.loads(line) for line in out.getvalue().splitlines()]
+    require(len(lines) == 8 and launches == {
+        "fbank": 1, "bilstm_fwd": TRAIN_LAYERS},
+        f"predict: {len(lines)} lines, launches {launches}")
+    print(f"h5 phase (e): eval --split test of run (d): {res}; predict "
+          f"--save --on_device of 8 test wavs with the run's recorded "
+          f"features: {len(lines)} transcripts, launches {launches}")
+    return runs
 
 
 def beam_emissions(dev: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
@@ -4480,12 +4722,16 @@ def main() -> int:
     clock.mark("training paths")
 
     # 8. the corpus phase: make_dataset -> train -> resume -> eval; then
+    # the h5 phase on its corpus: make_dataset --output (host, --device),
+    # train from the .h5 and with --device_features, eval, predict; then
     # 9. the beam phase on its manifest and run: ctc_beam against its
     # plain twin, train_lm, eval by beam search
     with tempfile.TemporaryDirectory() as tmp:
-        runs, manifest, run_dir = corpus_phase(card, tmp)
+        runs, manifest, run_dir, first_epoch = corpus_phase(card, tmp)
         path_launches += runs
         clock.mark("corpus phase")
+        path_launches += h5_phase(card, tmp, manifest, first_epoch)
+        clock.mark("h5 phase")
         beam_kernel, runs = beam_cli_phase(dev, card, manifest, run_dir, tmp)
         path_launches += runs
     clock.mark("beam phase")

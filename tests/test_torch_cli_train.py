@@ -4,7 +4,8 @@ meta.json hparams, a resumed run that continues its step count, the same
 LM table and report from train_lm, and eval on weights trained by the JAX
 CLI giving the same loss and transcripts, greedy and by beam search (with
 an LM, blank collapse and pruning); every option the port does not have
-yet refused with its ROADMAP item before any data is read."""
+yet refused with its ROADMAP item before any data is read, and each option
+of the HDF5 and device-feature path run on a small dataset."""
 
 import json
 import os
@@ -18,6 +19,7 @@ from asr_study_torch.cli import eval as port_eval
 from asr_study_torch.cli import make_dataset as port_make_dataset
 from asr_study_torch.cli import train as port_train
 from asr_study_torch.cli import train_lm as port_train_lm
+from asr_study_torch.data.dataset_parser import read_h5
 from asr_study_torch.models.zoo import build_model
 from asr_study_torch.train.checkpoint import CheckpointManager
 from asr_study_torch.train.trainer import Trainer, make_optimizer
@@ -71,55 +73,133 @@ def test_make_dataset_writes_the_jax_manifest(tmp_path, capsys):
 MISSING = "missing.json"
 
 
+_REFUSED = [
+    (12, "train", ["--num_devices", "2"], "item 12"),
+    (13, "train", ["--tp_devices", "2"], "item 13"),
+    (14, "train", ["--opt", "sgd"], "item 5"),
+    (15, "train", ["--accum_steps", "2"], "item 5"),
+    (16, "train", ["--lr_plateau", "0.5"], "item 5"),
+    (17, "train", ["--bf16"], "item 5"),
+    (18, "train", ["--profile"], "item 5"),
+    (19, "train", ["--check_nans"], "item 5"),
+    (21, "eval", ["--num_devices", "2"], "item 12"),
+    (22, "eval", ["--num_devices", "2", "--beam_width", "8", "--lm",
+                  "lm.npz"], "item 12"),
+]
+
+
+# the ids the cases had when this list also held the options of items 7,
+# 9 and 11
 @pytest.mark.parametrize("cli,argv,item", [
-    ("make_dataset", ["--output", "d.h5", "--to_json", "m.json"], "item 7"),
-    ("make_dataset", ["--to_json", "m.json", "--device"], "item 11"),
-    ("make_dataset", ["--to_json", "m.json", "--device_batch", "8"],
-     "item 11"),
-    ("make_dataset", ["--to_json", "m.json", "--device_wire_codec", "dpack"],
-     "item 11"),
-    ("make_dataset", ["--to_json", "m.json", "--input_parser", "raw"],
-     "item 7"),
-    ("make_dataset", ["--to_json", "m.json", "--input_parser", "fbank"],
-     "item 7"),
-    ("make_dataset", ["--to_json", "m.json", "--input_params", "{}"],
-     "item 7"),
-    ("make_dataset", ["--to_json", "m.json", "--vocab", "pt_br_apostrophe"],
-     "item 7"),
-    ("train", ["--dataset", "d.h5"], "item 7"),
-    ("train", ["--device_features"], "item 7"),
-    ("train", ["--spec_augment"], "item 9"),
-    ("train", ["--wav_augment", "gain_db=3"], "item 9"),
-    ("train", ["--num_devices", "2"], "item 12"),
-    ("train", ["--tp_devices", "2"], "item 13"),
-    ("train", ["--opt", "sgd"], "item 5"),
-    ("train", ["--accum_steps", "2"], "item 5"),
-    ("train", ["--lr_plateau", "0.5"], "item 5"),
-    ("train", ["--bf16"], "item 5"),
-    ("train", ["--profile"], "item 5"),
-    ("train", ["--check_nans"], "item 5"),
-    ("eval", ["--dataset", "d.h5"], "item 7"),
-    ("eval", ["--num_devices", "2"], "item 12"),
-    ("eval", ["--num_devices", "2", "--beam_width", "8", "--lm", "lm.npz"],
-     "item 12"),
-    ("train_lm", ["--dataset", "d.h5"], "item 7"),
-    ("train_lm", ["--dataset", "d.h5", "--splits", "train", "valid"],
-     "item 7"),
-])
+    pytest.param(cli, argv, item, id=f"{cli}-argv{k}-{item}")
+    for k, cli, argv, item in _REFUSED])
 def test_unported_options_are_refused(tmp_path, monkeypatch, cli, argv,
                                       item):
     monkeypatch.chdir(tmp_path)
-    base = {"make_dataset": ["--parser", "dummy", "--dataset_dir", "c"],
-            "train": ["--dataset", MISSING, "--device", "cpu"],
+    base = {"train": ["--dataset", MISSING, "--device", "cpu"],
             "eval": ["--dataset", MISSING, "--save", "run", "--device",
-                     "cpu"],
-            "train_lm": ["--output", "lm.npz"]}[cli]
-    main = {"make_dataset": port_make_dataset.main, "train": port_train.main,
-            "eval": port_eval.main, "train_lm": port_train_lm.main}[cli]
+                     "cpu"]}[cli]
+    main = {"train": port_train.main, "eval": port_eval.main}[cli]
     with pytest.raises(SystemExit) as e:
         main(base + argv)
     assert f"ROADMAP queue A {item}" in str(e.value.code)
     assert os.listdir(tmp_path) == []          # nothing read or written
+
+
+@pytest.mark.parametrize("cli,argv,why", [
+    ("make_dataset", ["--output", "d.h5", "--device",
+                      "--device_wire_codec", "mulaw"], "mulaw is lossy"),
+    ("train", ["--wav_augment"], "needs --device_features"),
+    ("train", ["--wav_augment", "gain_db=3", "--spec_augment"],
+     "needs --device_features"),
+])
+def test_invalid_combinations_are_refused(tmp_path, monkeypatch, cli, argv,
+                                          why):
+    """What the JAX CLIs refuse too, refused before any data is read."""
+    monkeypatch.chdir(tmp_path)
+    base = {"make_dataset": ["--parser", "dummy", "--dataset_dir", "c",
+                             "--platform", "cpu"],
+            "train": ["--dataset", MISSING, "--device", "cpu"]}[cli]
+    main = {"make_dataset": port_make_dataset.main,
+            "train": port_train.main}[cli]
+    with pytest.raises(SystemExit, match=why):
+        main(base + argv)
+    assert os.listdir(tmp_path) == []
+
+
+@pytest.fixture(scope="module")
+def small_h5(tmp_path_factory):
+    """A Dummy corpus, its MFCC and raw HDF5 datasets and a run trained on
+    the MFCC one, all by the port's CLIs."""
+    d = tmp_path_factory.mktemp("h5cli")
+    paths = {"CORPUS": str(d / "corpus"), "FEATS": str(d / "feats.h5"),
+             "RAW": str(d / "raw.h5"), "RUN": str(d / "run")}
+    for out, extra in (("FEATS", []), ("RAW", ["--input_parser", "raw"])):
+        assert port_make_dataset.main([
+            "--parser", "dummy", "--dataset_dir", paths["CORPUS"],
+            "--output", paths[out], *extra]) == 0
+    assert port_train.main(["--dataset", paths["FEATS"], "--device", "cpu",
+                            "--epochs", "1", "--save", paths["RUN"],
+                            *TRAIN_ARGS]) == 0
+    return paths
+
+
+# the options once refused with ROADMAP items 7, 9 and 11, each run:
+# ``expect`` is the dataset's or the run's feature count, eval's utterance
+# count or train_lm's sequence count
+@pytest.mark.parametrize("cli,argv,expect", [
+    ("make_dataset", ["--output", "d.h5", "--to_json", "m.json"], 39),
+    ("make_dataset", ["--output", "d.h5", "--device"], 39),
+    ("make_dataset", ["--output", "d.h5", "--device", "--device_batch", "8"],
+     39),
+    ("make_dataset", ["--output", "d.h5", "--device", "--device_wire_codec",
+                      "dpack"], 39),
+    ("make_dataset", ["--output", "d.h5", "--input_parser", "raw"], 1),
+    ("make_dataset", ["--output", "d.h5", "--input_parser", "fbank"], 40),
+    ("make_dataset", ["--output", "d.h5", "--input_params",
+                      '{"d": false}'], 26),
+    ("make_dataset", ["--output", "d.h5", "--vocab", "pt_br_apostrophe"],
+     39),
+    ("train", ["--dataset", "FEATS"], 39),
+    ("train", ["--dataset", "RAW", "--device_features"], 39),
+    ("train", ["--dataset", "FEATS", "--spec_augment"], 39),
+    ("train", ["--dataset", "RAW", "--device_features", "logfbank",
+               "--wav_augment", "gain_db=3"], 40),
+    ("eval", ["--dataset", "FEATS", "--save", "RUN"], 3),
+    ("train_lm", ["--dataset", "FEATS"], 10),
+    ("train_lm", ["--dataset", "FEATS", "--splits", "train", "valid"], 13),
+])
+def test_ported_options_work(tmp_path, monkeypatch, capsys, small_h5, cli,
+                             argv, expect):
+    monkeypatch.chdir(tmp_path)
+    argv = [small_h5.get(a, a) for a in argv]
+    base = {"make_dataset": ["--parser", "dummy", "--dataset_dir",
+                             small_h5["CORPUS"], "--platform", "cpu"],
+            "train": ["--device", "cpu", "--epochs", "1", "--save", "r",
+                      *TRAIN_ARGS],
+            "eval": ["--device", "cpu", "--split", "test"],
+            "train_lm": ["--output", "lm.npz"]}[cli]
+    main = {"make_dataset": port_make_dataset.main, "train": port_train.main,
+            "eval": port_eval.main, "train_lm": port_train_lm.main}[cli]
+    assert main(base + argv) == 0
+    out = capsys.readouterr().out
+    if cli == "make_dataset":
+        feats, labels, texts, _ = read_h5("d.h5", "train")
+        assert feats[0].shape[1] == expect and len(labels) == 10
+        assert all(texts)
+        if "--to_json" in argv:
+            with open("m.json") as f:
+                assert len(f.readlines()) == 16
+        if "--vocab" in argv:
+            assert data_flow.dataset_vocab("d.h5").endswith("'")
+    elif cli == "train":
+        meta = CheckpointManager("r").meta
+        assert meta["hparams"]["num_feats"] == expect
+        assert np.isfinite(meta["history"][0]["train_loss"])
+    else:
+        res = _last_json(out)
+        key = "num_utts" if cli == "eval" else "num_sequences"
+        assert res[key] == expect
 
 
 def test_device_and_run_checks(tmp_path, synth):

@@ -34,7 +34,7 @@ def seeded_wav(tmp_path_factory):
     return path
 
 
-@pytest.mark.parametrize("kind", ["MFCC", "LogFbank", "FBank"])
+@pytest.mark.parametrize("kind", ["MFCC", "LogFbank", "FBank", "Raw"])
 def test_features_equal_the_original(seeded_wav, kind):
     """The wav as both read_wavs decode it, and its features from both
     classes, bit for bit."""

@@ -9,12 +9,14 @@ import numpy as np
 import pytest
 
 from asr_study_torch.data import corpora
-from asr_study_torch.data.dataset_parser import DatasetParser
+from asr_study_torch.data.dataset_parser import (DatasetParser, read_h5,
+                                                 write_h5)
 from asr_study_torch.data.generator import DatasetGenerator
 from asr_study_torch.features.audio import MFCC, LogFbank
 from asr_study_torch.ops.metrics import cer, wer
 from asr_study_torch.text.parser import CharParser
 from asr_study_tpu.data import corpora as jcorpora
+from asr_study_tpu.data.dataset_parser import read_h5 as jax_read_h5
 from asr_study_tpu.data.generator import DatasetGenerator as JaxGenerator
 from asr_study_tpu.features.audio import MFCC as JaxMFCC
 from asr_study_tpu.features.audio import LogFbank as JaxLogFbank
@@ -77,7 +79,7 @@ def test_synthwords_guards_its_directory(tmp_path):
         list(jcorpora.SynthWords(root, n=4, seed=1)._iter())
 
 
-def test_corpus_table_and_hash_split():
+def test_corpus_table_and_hash_split(tmp_path):
     assert corpora.corpus("SynthWords") is corpora.SynthWords
     assert sorted(corpora.CORPORA) == ["brsd", "cslu", "dummy", "lapsbm",
                                        "sid", "synthwords", "voxforge"]
@@ -85,8 +87,19 @@ def test_corpus_table_and_hash_split():
         corpora.corpus("nosuch")
     for key in ("spk0", "M001", "LapsBM-F004", "anonymous", "x" * 40):
         assert corpora._hash_split(key) == jcorpora._hash_split(key)
-    with pytest.raises(NotImplementedError, match="queue A item 7"):
-        DatasetParser("d").to_h5("d.h5")
+    # to_h5 against the JAX to_h5 on one corpus
+    port, jax = str(tmp_path / "p.h5"), str(tmp_path / "j.h5")
+    root = str(tmp_path / "c")
+    counts = corpora.Dummy(root, n=5).to_h5(port, MFCC(), CharParser())
+    assert counts == jcorpora.Dummy(root, n=5).to_h5(jax, JaxMFCC(),
+                                                     JaxCharParser())
+    for split in counts:
+        got, want = read_h5(port, split), jax_read_h5(jax, split)
+        assert got[2] == want[2]
+        for a, b in zip(got[0] + got[1], want[0] + want[1]):
+            np.testing.assert_array_equal(a, b)
+    with pytest.raises(NotImplementedError):
+        DatasetParser("d").to_h5("d.h5", MFCC())
 
 
 # -- the real-corpus layouts (the trees of tests/test_corpora_layouts.py) ----
@@ -258,12 +271,27 @@ def test_flow_from_json_matches_jax(manifest, split, feature):
             assert g.texts == w.texts
 
 
-def test_flow_from_json_empty_split_and_hdf5(manifest):
+def test_flow_from_json_empty_split_and_hdf5(manifest, tmp_path):
     gen = DatasetGenerator(batch_size=4)
     with pytest.raises(ValueError, match="empty dataset"):
         gen.flow_from_json(manifest, MFCC(), CharParser(), split="nosuch")
-    with pytest.raises(NotImplementedError, match="queue A item 7"):
-        gen.flow_from_h5("d.h5", "train")
+    # the manifest's valid split written to HDF5 and read back: the
+    # batches flow_from_json makes of it, and a missing split refused
+    with open(manifest) as f:
+        utts = [u for u in map(json.loads, f) if u["split"] == "valid"]
+    path = str(tmp_path / "valid.h5")
+    write_h5(path, {"valid": utts}, MFCC(), CharParser())
+    got = list(gen.flow_from_h5(path, "valid").epoch(seed=1))
+    want = list(gen.flow_from_json(manifest, MFCC(), CharParser(),
+                                   split="valid").epoch(seed=1))
+    assert len(got) == len(want) > 0
+    for g, w in zip(got, want):
+        for field in ("inputs",) + BATCH_FIELDS:
+            np.testing.assert_array_equal(getattr(g, field),
+                                          getattr(w, field), err_msg=field)
+        assert g.texts == w.texts
+    with pytest.raises(KeyError, match="no split 'train'"):
+        gen.flow_from_h5(path, "train")
 
 
 # -- WER / CER ---------------------------------------------------------------

@@ -1949,3 +1949,141 @@ def test_beam_cuda_input_never_reaches_the_plain_twin(cuda, monkeypatch):
     assert dec.device.type == "cuda" and dec.shape == (3, 3, 40)
     assert torch.equal(dec, want[0][:, :3])
     assert torch.equal(scores, want[2][:, :3])
+
+
+# -- the HDF5 path and in-step device features -------------------------------
+
+def test_featurized_train_step_on_card_matches_cpu(cuda):
+    """A train step on raw waveforms with the kernel featurizer on the
+    card against the same step with the plain featurizer on the CPU, from
+    the same weights: loss and grad norm rel 1e-4, the fbank kernel
+    launched once."""
+    from asr_study_torch.features.augment import SpecAugment, WavAugment
+
+    rng = np.random.RandomState(5)
+    n = 24576
+    lens = np.array([n, 20000, 16384, 9000], np.int32)
+    wavs = (0.2 * rng.randn(4, n)).astype(np.float32)
+    wavs[np.arange(n)[None, :] >= lens[:, None]] = 0.0
+    labels = rng.randint(0, 27, (4, 16)).astype(np.int32)
+    batch = (wavs[..., None], lens, labels, np.full(4, 12, np.int32),
+             np.ones(4, np.float32))
+    out = {}
+    for dev in ("cpu", cuda):
+        model = deep_blstm("num_hiddens=64,num_layers=2,dropout=0.0",
+                           num_classes=27, input_dim=39,
+                           generator=torch.Generator().manual_seed(0),
+                           device=dev)
+        trainer = Trainer(model, make_optimizer(),
+                          featurizer=featurizer("mfcc", dev))
+        state = trainer.init_state()
+        before = fbank.launches
+        _, m = trainer.train_step(state, *[torch.from_numpy(a).to(dev)
+                                           for a in batch])
+        out[str(dev)] = {k: float(v) for k, v in m.items()}
+        if dev != "cpu":
+            assert fbank.launches - before == 1
+    for k in ("loss", "grad_norm"):
+        assert out["cuda:0"][k] == pytest.approx(out["cpu"][k], rel=1e-4)
+    # with both augmentations on the card: finite, and repeatable
+    losses = []
+    for _ in range(2):
+        model = deep_blstm("num_hiddens=64,num_layers=2", num_classes=27,
+                           input_dim=39,
+                           generator=torch.Generator().manual_seed(0),
+                           device=cuda)
+        trainer = Trainer(model, make_optimizer(),
+                          augment=SpecAugment(),
+                          featurizer=featurizer("mfcc", cuda),
+                          wav_augment=WavAugment(3.0, 20.0, 50.0))
+        _, m = trainer.train_step(
+            trainer.init_state(), *[torch.from_numpy(a).to(cuda)
+                                    for a in batch],
+            generator=torch.Generator(device=cuda).manual_seed(1),
+            augment_generator=torch.Generator(device=cuda).manual_seed(2))
+        losses.append(float(m["loss"]))
+    assert np.isfinite(losses[0]) and losses[0] == losses[1]
+
+
+def test_device_extractor_pcm16_equals_dpack(cuda):
+    from asr_study_torch.features.batch_extract import DeviceFeatureExtractor
+
+    rng = np.random.RandomState(2)
+    wavs = [(0.3 * np.sin(np.arange(n) * 0.05) + 0.02 * rng.randn(n))
+            .astype(np.float32) for n in rng.randint(400, 60000, 37)]
+    got = {}
+    for codec in ("pcm16", "dpack"):
+        before = (fbank.launches, dpack_decode.launches)
+        ex = DeviceFeatureExtractor(batch=16, wire_codec=codec, device=cuda)
+        got[codec] = ex.extract_batch(wavs)
+        assert fbank.launches - before[0] == 3
+        assert dpack_decode.launches - before[1] == (3 if codec == "dpack"
+                                                     else 0)
+    for a, b in zip(got["pcm16"], got["dpack"]):
+        assert a.shape == b.shape and np.array_equal(a, b)
+    plain = DeviceFeatureExtractor(batch=16, device="cpu").extract_batch(
+        wavs)
+    err = max(float(np.abs(a - b).max()) for a, b in zip(got["pcm16"],
+                                                         plain))
+    assert err <= 2e-3, err
+    with pytest.raises(ValueError, match="mulaw is lossy"):
+        DeviceFeatureExtractor(wire_codec="mulaw", device=cuda)
+
+
+def test_augment_on_card_repeats_under_one_seed(cuda):
+    from asr_study_torch.features.augment import SpecAugment, WavAugment
+
+    x = torch.randn(6, 200, 39, device=cuda) + 3.0
+    lens = torch.tensor([200, 150, 1, 0, 99, 7], device=cuda)
+    w = torch.randn(6, 9000, device=cuda)
+    wl = torch.tensor([9000, 4000, 1, 0, 8999, 100], device=cuda)
+    w = torch.where(torch.arange(9000, device=cuda)[None] < wl[:, None],
+                    w, 0.0)
+    spec, wav = SpecAugment(3, 10, 3, 0.2), WavAugment(6.0, 0.0, 10.0)
+
+    def run(seed):
+        g = torch.Generator(device=cuda).manual_seed(seed)
+        return spec(x, lens, g), wav(w, wl, g)
+
+    a, b, c = run(4), run(4), run(5)
+    for i in range(2):
+        assert torch.equal(a[i], b[i]) and not torch.equal(a[i], c[i])
+    pad = torch.arange(9000, device=cuda)[None] >= wl[:, None]
+    assert bool((a[1][pad] == 0).all())
+    masked = (a[0] == 0).any(dim=2)
+    assert not bool(masked[:, 200:].any()) and bool(masked.any())
+
+
+def test_h5_round_trip_on_card_machine(cuda, tmp_path):
+    """Written and read by the port alone (the card's machine has no
+    h5py), both layouts, through make_dataset-like writes and
+    flow_from_h5."""
+    from asr_study_torch.data import dataset_parser as dp
+    from asr_study_torch.data.generator import DatasetGenerator
+    from asr_study_torch.text.parser import CharParser
+
+    class Arrays:
+        def __call__(self, a):
+            return a
+
+        def __str__(self):
+            return "arrays"
+
+    rng = np.random.RandomState(0)
+    utts = [{"audio": rng.randn(rng.randint(1, 300), 39).astype(np.float32),
+             "label": "ola mundo", "duration": float(i % 7)}
+            for i in range(300)]
+    for layout in ("vlen", "packed"):
+        path = str(tmp_path / f"{layout}.h5")
+        dp.write_h5(path, {"train": utts}, Arrays(), CharParser(),
+                    layout=layout)
+        feats, labels, texts, durs = dp.read_h5(path, "train")
+        order = (np.argsort([u["duration"] for u in utts], kind="stable")
+                 if layout == "packed" else np.arange(len(utts)))
+        for k, i in enumerate(order):
+            assert np.array_equal(feats[k], utts[i]["audio"])
+        assert texts == ["ola mundo"] * 300
+        for lazy in (False, True):
+            it = DatasetGenerator(batch_size=32).flow_from_h5(path, "train",
+                                                              lazy=lazy)
+            assert sum(b.weights.sum() for b in it.epoch(seed=0)) == 300

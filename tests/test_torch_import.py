@@ -31,7 +31,8 @@ for want in ("cli.predict", "features.fbank", "features.audio",
              "ops.beam", "text.lm", "cli.train_lm", "data.wire",
              "ops.metrics", "data.generator", "train.trainer", "train.loop",
              "train.checkpoint", "cli.make_dataset", "cli.train", "cli.eval",
-             "cli.data_flow", "data.corpora", "data.dataset_parser"):
+             "cli.data_flow", "data.corpora", "data.dataset_parser",
+             "data.h5", "features.augment", "features.batch_extract"):
     assert "asr_study_torch." + want in names, (want, names)
 import chip_smoke
 from asr_study_torch import _build

@@ -16,6 +16,7 @@ import optax
 import pytest
 import torch
 
+from asr_study_torch.data import h5
 from asr_study_torch.data.generator import DatasetGenerator
 from asr_study_torch.models.nn import dropout
 from asr_study_torch.models.zoo import build_model, deep_blstm
@@ -264,9 +265,10 @@ def test_edit_distance_matches_jax_and_host():
                                                     r_len)))), rtol=1e-6)
 
 
-def test_batches_match_jax_generator():
+def test_batches_match_jax_generator(tmp_path):
     """Batch order, padding, weights, uids and texts are the JAX
-    generator's for the same seeds, ragged last batch included."""
+    generator's for the same seeds, ragged last batch included; from an
+    HDF5 split too, read eagerly or streamed."""
     rng = np.random.RandomState(4)
     n = 11
     feats = [rng.randn(rng.randint(20, 150), FEATS).astype(np.float32)
@@ -291,8 +293,27 @@ def test_batches_match_jax_generator():
                     assert a.dtype == b.dtype, field
                     np.testing.assert_array_equal(a, b, err_msg=field)
                 assert g.texts == w.texts and g.size == w.size
-    with pytest.raises(NotImplementedError, match="queue A item 7"):
-        DatasetGenerator().flow_from_h5("x.h5", "train")
+    path = str(tmp_path / "x.h5")
+    with h5.Writer(path) as w:
+        g = w.group("train")
+        g.create_dataset("shapes", np.array([f.shape for f in feats],
+                                            np.int32))
+        rows, lab, txt = (g.vlen_dataset("inputs", np.float32),
+                          g.vlen_dataset("labels", np.int32),
+                          g.vlen_dataset("texts"))
+        for f, y, t in zip(feats, labs, texts):
+            rows.append(f)
+            lab.append(y)
+            txt.append(t)
+        g.create_dataset("durations", np.zeros(n, np.float32))
+    for lazy in (False, True):
+        got = DatasetGenerator(batch_size=4).flow_from_h5(path, "train", lazy)
+        want = JaxGenerator(batch_size=4).flow_from_h5(path, "train", lazy)
+        for g, w in zip(got.epoch(seed=2), want.epoch(seed=2)):
+            for field in ("inputs", "labels", "weights", "uids"):
+                np.testing.assert_array_equal(getattr(g, field),
+                                              getattr(w, field))
+            assert g.texts == w.texts
     with pytest.raises(ValueError):
         DatasetGenerator().flow([], [])
 
