@@ -55,9 +55,10 @@ SIGNATURES = {
     "asr_fbank_fft": [_P, _I, _P, _P, _P, _I, _P, _P, _P, _P,
                       _I, _I, _I, _I, _I, _I, _I, _I,
                       _F, _I, _I, _P],
-    # xp_f, xp_b, mask, wh_f, wh_b, h_f, c_f, h_b, c_b, T, B, H, ndir,
-    # cluster CTAs, units per CTA, rows per cluster, stream
-    "asr_bilstm_fwd": [_P] * 9 + [_I] * 7 + [_P],
+    # xp_f, xp_b, mask, wh_f, wh_b, h_f, c_f, h_b, c_b, h_init, c_init (the
+    # carried state [ndir, B, H], or null), T, B, H, ndir, cluster CTAs,
+    # units per CTA, rows per cluster, stream
+    "asr_bilstm_fwd": [_P] * 11 + [_I] * 7 + [_P],
     # B, H, ndir, cluster CTAs, units, rows, *smem bytes, *max clusters
     "asr_bilstm_fwd_info": [_I] * 6 + [_P, _P],
     # xp_f, xp_b, mask, wh_f, wh_b, h_f, c_f, h_b, c_b, dh_f, dh_b, dxp_f,
@@ -65,9 +66,9 @@ SIGNATURES = {
     "asr_bilstm_bwd": [_P] * 13 + [_I] * 7 + [_P],
     "asr_bilstm_bwd_info": [_I] * 6 + [_P, _P],
     # the wide forms (256 < H <= 512): xp_f, xp_b, mask, wh_f, wh_b, h_f,
-    # c_f, h_b, c_b, g_f, g_b (the saved gates, or null), T, B, H, ndir,
-    # cluster CTAs, units per CTA, rows per cluster, stream
-    "asr_lstm_wide_fwd": [_P] * 11 + [_I] * 7 + [_P],
+    # c_f, h_b, c_b, g_f, g_b (the saved gates, or null), h_init, c_init,
+    # T, B, H, ndir, cluster CTAs, units per CTA, rows per cluster, stream
+    "asr_lstm_wide_fwd": [_P] * 13 + [_I] * 7 + [_P],
     # B, H, ndir, cluster CTAs, units, rows, *smem bytes, *max clusters
     "asr_lstm_wide_fwd_info": [_I] * 6 + [_P, _P],
     # g_f, g_b, mask, wh_f, wh_b, c_f, c_b, dh_f, dh_b, dxp_f, dxp_b, T, B,
@@ -75,16 +76,16 @@ SIGNATURES = {
     "asr_lstm_wide_bwd": [_P] * 11 + [_I] * 7 + [_P],
     "asr_lstm_wide_bwd_info": [_I] * 6 + [_P, _P],
     # the streamed-weight forms (H=512): xp_f, xp_b, mask, wh_f, wh_b, h_f,
-    # c_f, h_b, c_b, T, B, H, ndir, stream
-    "asr_lstm_stream_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
-                            _I, _I, _I, _I, _P],
+    # c_f, h_b, c_b, h_init, c_init, T, B, H, ndir, stream
+    "asr_lstm_stream_fwd": [_P] * 11 + [_I] * 4 + [_P],
     # xp_f, xp_b, mask, wh_f, wh_b, wht_f, wht_b, h_f, c_f, h_b, c_b,
     # dh_f, dh_b, dxp_f, dxp_b, T, B, H, ndir, stream
     "asr_lstm_stream_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                             _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    # xp_f, xp_b, mask, wh_f, wh_b, h_f, h_b, T, B, H, ndir, cluster CTAs,
-    # units per CTA, rows per cluster, stream
-    "asr_gru_fwd": [_P] * 7 + [_I] * 7 + [_P],
+    # xp_f, xp_b, mask, wh_f, wh_b, h_f, h_b, h_init (the carried h [ndir,
+    # B, H], or null), T, B, H, ndir, cluster CTAs, units per CTA, rows per
+    # cluster, stream
+    "asr_gru_fwd": [_P] * 8 + [_I] * 7 + [_P],
     # B, H, ndir, cluster CTAs, units, rows, *smem bytes, *max clusters
     "asr_gru_fwd_info": [_I] * 6 + [_P, _P],
     # xp_f, xp_b, mask, wh_f, wh_b, h_f, h_b, dh_f, dh_b, dxp_f, dhp_f,
@@ -93,8 +94,9 @@ SIGNATURES = {
     "asr_gru_bwd_info": [_I] * 6 + [_P, _P],
     # the wide forms (256 < H <= 512): xp_f, xp_b, mask, wh_f, wh_b, h_f,
     # h_b, hg_f, hg_b (the saved h side of the pre-activations, or null),
-    # T, B, H, ndir, cluster CTAs, units per CTA, rows per cluster, stream
-    "asr_gru_wide_fwd": [_P] * 9 + [_I] * 7 + [_P],
+    # h_init, T, B, H, ndir, cluster CTAs, units per CTA, rows per cluster,
+    # stream
+    "asr_gru_wide_fwd": [_P] * 10 + [_I] * 7 + [_P],
     # B, H, ndir, cluster CTAs, units, rows, *smem bytes, *max clusters
     "asr_gru_wide_fwd_info": [_I] * 6 + [_P, _P],
     # xp_f, xp_b, hg_f, hg_b, mask, wh_f, wh_b, h_f, h_b, dh_f, dh_b, dxp_f,
@@ -102,8 +104,9 @@ SIGNATURES = {
     "asr_gru_wide_bwd": [_P] * 15 + [_I] * 7 + [_P],
     "asr_gru_wide_bwd_info": [_I] * 6 + [_P, _P],
     # the streamed-weight forms (H > 512, or batches beyond the wide
-    # design): xp_f, xp_b, mask, wh_f, wh_b, h_f, h_b, T, B, H, ndir, stream
-    "asr_gru_stream_fwd": [_P] * 7 + [_I] * 4 + [_P],
+    # design): xp_f, xp_b, mask, wh_f, wh_b, h_f, h_b, h_init, T, B, H,
+    # ndir, stream
+    "asr_gru_stream_fwd": [_P] * 8 + [_I] * 4 + [_P],
     # xp_f, xp_b, mask, wh_f, wh_b, wht_f, wht_b, h_f, h_b, dh_f, dh_b,
     # dxp_f, dhp_f, dxp_b, dhp_b, T, B, H, ndir, stream
     "asr_gru_stream_bwd": [_P] * 15 + [_I] * 4 + [_P],
@@ -171,6 +174,11 @@ SIGNATURES = {
     # out_len, out_score, B, T, V, W, P, E, pad_id, lm_order, lm_mod,
     # lm_state0, alpha, beta, hash multipliers, stream
     "asr_ctc_beam": [_P] * 7 + [_I] * 10 + [_F, _F, _U, _U, _P],
+    # its stream form: log_probs, lengths, lm_logp (or null), bp, the beam
+    # state len, last, pb, pnb, h1, h2, lm (in and out), prefixes, emits,
+    # start slots, scores, B, T, V, W, E, pad_id, lm_order, lm_mod, alpha,
+    # beta, hash multipliers, stream
+    "asr_ctc_beam_stream": [_P] * 15 + [_I] * 8 + [_F, _F, _U, _U, _P],
     # payload, n_words, row_start, widths, totals, out, nbcap, stream
     "asr_dpack_decode": [_P, _L, _P, _P, _P, _P, _I, _P],
     # the one-launch design: payload, n_words, row_start, widths, scratch,

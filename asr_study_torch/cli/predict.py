@@ -6,6 +6,9 @@ JSON transcripts, one line per file.
 
     python -m asr_study_torch.cli.predict --save runs/exp1 a.wav
 
+    python -m asr_study_torch.cli.predict --weights uni.npz --stream \
+        [--chunk_seconds 10] [--beam_width 16 [--lm lm3.npz]] a.wav b.wav
+
 ``--weights`` takes the ``.npz`` that ``extras/export_weights.py`` writes
 from a JAX training run, ``--save`` a run directory of the port's
 ``train``.  ``--input_parser`` defaults to the run's recorded
@@ -25,7 +28,15 @@ CLI:
 The decode is greedy, or with ``--beam_width`` the best path of the prefix
 beam search (``ops/beam.py``; on the card one launch of
 ``csrc/ctc_beam.cu`` a batch), with ``--lm`` a char n-gram LM fused in.
-``--stream`` is refused with the ROADMAP item that brings it.
+
+``--stream`` (a unidirectional LSTM or GRU model) decodes each wav in
+chunks of ``--chunk_seconds`` of audio at bounded memory, as the JAX CLI
+does (``streaming.py``): features from the host oracle chunk by chunk, the
+model's recurrent state carried on ``--device`` from chunk to chunk (one
+forward kernel launch a layer and chunk on the card), greedy or by beam
+(one beam kernel launch a chunk).  Several wavs decoded greedily run as
+concurrent streams of one ``MultiStreamRecognizer``; otherwise each wav has
+its own ``StreamingRecognizer``.  It excludes ``--on_device``.
 """
 
 from __future__ import annotations
@@ -87,15 +98,13 @@ def build_argparser() -> argparse.ArgumentParser:
                         "shallow fusion; needs --beam_width > 0")
     p.add_argument("--lm_alpha", type=float, default=0.8)
     p.add_argument("--lm_beta", type=float, default=0.0)
-    # a JAX CLI option the port does not have yet: refused with the item
-    p.add_argument("--stream", action="store_true")
+    p.add_argument("--stream", action="store_true",
+                   help="chunked streaming decode with carried recurrent "
+                        "state: unbounded-length audio at bounded memory "
+                        "(unidirectional models only)")
+    p.add_argument("--chunk_seconds", type=float, default=10.0,
+                   help="audio chunk size for --stream")
     return p
-
-
-def _refuse_unported(args) -> None:
-    if args.stream:
-        raise SystemExit("--stream is not ported to asr_study_torch yet "
-                         "(ROADMAP queue A item 10)")
 
 
 def load_model(path: str, device: torch.device | str
@@ -208,9 +217,57 @@ def _check_feats(name: str, num_feats: int, model: AcousticModel) -> None:
                          f" the model takes {model.input_dim}")
 
 
+def _host_feature(name: str, feat_kw: dict, model: AcousticModel):
+    """The host oracle feature ``name`` built with ``feat_kw``, checked
+    against the model's input width."""
+    if name not in audio.FEATURES:
+        raise SystemExit(f"unknown --input_parser {name!r}; "
+                         f"have {sorted(audio.FEATURES)}")
+    feature = audio.FEATURES[name](**feat_kw)
+    _check_feats(name, feature.num_feats, model)
+    return feature
+
+
+def predict_streaming(model: AcousticModel, feature, paths: Sequence[str],
+                      chunk_seconds: float = 10.0,
+                      beam: BeamConfig | None = None) -> list[np.ndarray]:
+    """Each wav pushed ``chunk_seconds`` of audio at a time through the
+    streaming recognizers on the model's device (the JAX CLI's
+    ``_predict_streaming``) -> one id array per file.  Raises ValueError for
+    a model or feature that cannot stream."""
+    from asr_study_torch.streaming import (MultiStreamRecognizer,
+                                           StreamingRecognizer)
+
+    step = max(1, int(chunk_seconds * feature.fs))
+    if len(paths) > 1 and beam is None:
+        # many files: decode them as concurrent streams, one model step
+        # per tick over the whole batch (the serving shape)
+        wavs = [read_wav(p, sr=feature.fs)[0] for p in paths]
+        multi = MultiStreamRecognizer(model, feature, n_streams=len(wavs))
+        offs = [0] * len(wavs)
+        while any(o < len(w) for o, w in zip(offs, wavs)):
+            for i, w in enumerate(wavs):
+                if offs[i] < len(w):
+                    multi.push(i, w[offs[i]: offs[i] + step])
+                    offs[i] += step
+            multi.tick()
+        return [np.asarray(multi.finish(i), np.int32)
+                for i in range(len(paths))]
+    kw = {} if beam is None else dict(
+        beam_width=beam.width, prune=beam.prune, lm=beam.lm,
+        lm_alpha=beam.lm_alpha, lm_beta=beam.lm_beta)
+    out = []
+    for path in paths:
+        wav, _sr = read_wav(path, sr=feature.fs)
+        rec = StreamingRecognizer(model, feature, **kw)
+        for lo in range(0, max(len(wav), 1), step):
+            rec.push(wav[lo: lo + step])
+        out.append(np.asarray(rec.finish(), np.int32))
+    return out
+
+
 def main(argv=None) -> int:
     args = build_argparser().parse_args(argv)
-    _refuse_unported(args)
     device = torch.device(args.device)
     if args.save:
         label_parser = parser_from_run(args.save)
@@ -236,7 +293,17 @@ def main(argv=None) -> int:
     beam = BeamConfig(args.beam_width, 0, lm, args.lm_alpha,
                       args.lm_beta) if args.beam_width > 0 else None
     feat_kw = json.loads(args.input_params) if args.input_params else {}
-    if args.on_device:
+    if args.stream:
+        if args.on_device:
+            raise SystemExit("--stream is host-featurized decoding; it "
+                             "excludes --on_device")
+        feature = _host_feature(args.input_parser, feat_kw, model)
+        try:
+            ids = predict_streaming(model, feature, args.wavs,
+                                    args.chunk_seconds, beam)
+        except ValueError as e:
+            raise SystemExit(f"--stream: {e}") from e
+    elif args.on_device:
         feat = featurizer(args.input_parser, device, **feat_kw)
         _check_feats(args.input_parser, feat.num_feats, model)
         codec = args.wire_codec
@@ -250,11 +317,7 @@ def main(argv=None) -> int:
         ids = predict_on_device(model, feat, wavs, args.batch_size, codec,
                                 beam)
     else:
-        if args.input_parser not in audio.FEATURES:
-            raise SystemExit(f"unknown --input_parser {args.input_parser!r}; "
-                             f"have {sorted(audio.FEATURES)}")
-        feature = audio.FEATURES[args.input_parser](**feat_kw)
-        _check_feats(args.input_parser, feature.num_feats, model)
+        feature = _host_feature(args.input_parser, feat_kw, model)
         ids = predict_host_features(model, feature, args.wavs, device, beam)
     for path, seq in zip(args.wavs, ids):
         print(json.dumps({"file": path,

@@ -12,10 +12,15 @@
 // mask [T, B] and the recurrent weights wh_f / wh_b [H, 4H], gate order
 // i, f, g, o.  Outputs h and c of each direction, [T, B, H] in forward time
 // order.  Lane 1 (the reverse direction) walks time backward: it reads xp_b
-// and the mask at T-1-s.  Both lanes start from zero state, and a frame
-// whose mask is 0 keeps the previous h and c, which makes the reverse lane
-// exact on right-padded batches.  With ndir = 1 only lane 0 runs, walking
-// forward time, and the _b pointers are unused.
+// and the mask at T-1-s.  Each lane starts from the carried state h_init /
+// c_init [ndir, B, H] (lane d at row d * B), or from zeros where they are
+// null, and a frame whose mask is 0 keeps the previous h and c, which makes
+// the reverse lane exact on right-padded batches.  So the last frame of h
+// and c is the carry a chunk of a stream hands the next (streaming.py), and
+// a sequence run in chunks gives what it gives in one launch, bit for bit:
+// a step's arithmetic does not depend on where the launch began.  With
+// ndir = 1 only lane 0 runs, walking forward time, and the _b pointers are
+// unused.
 //
 // What bounds it on the H100: the recurrence is serial in time, and a step
 // is a [R, H] x [H, 4H] product (1 M FMAs at R=4, H=256) whose weights
@@ -117,7 +122,9 @@ bilstm_fwd_kernel(const float* __restrict__ xp_f,
                   const float* __restrict__ wh_f,
                   const float* __restrict__ wh_b, float* __restrict__ h_f,
                   float* __restrict__ c_f, float* __restrict__ h_b,
-                  float* __restrict__ c_b, int T, int B, int H, int U) {
+                  float* __restrict__ c_b, const float* __restrict__ h_init,
+                  const float* __restrict__ c_init, int T, int B, int H,
+                  int U) {
   cg::cluster_group cluster = cg::this_cluster();
   const int C = static_cast<int>(cluster.num_blocks());
   const int rank = static_cast<int>(cluster.block_rank());
@@ -155,8 +162,21 @@ bilstm_fwd_kernel(const float* __restrict__ xp_f,
                   : 0.f;
     }
   }
-  for (int i = tid; i < 2 * R * HS; i += kThreads) hbuf[i] = 0.f;
-  for (int i = tid; i < R * U; i += kThreads) cs[i] = 0.f;
+  // the carried state, zeros where none is given: the full h rows into
+  // slot 0 of every CTA's h buffer, the CTA's own units' c into cs
+  const size_t lane_row = static_cast<size_t>(blockIdx.z) * B;
+  for (int i = tid; i < 2 * R * HS; i += kThreads) {
+    const int r = i / HS, k = i - r * HS, b = b0 + r;
+    hbuf[i] = (h_init != nullptr && r < R && b < B && k < H)
+                  ? h_init[(lane_row + b) * H + k]
+                  : 0.f;
+  }
+  for (int i = tid; i < R * U; i += kThreads) {
+    const int r = i / U, unit = u0 + i - r * U, b = b0 + r;
+    cs[i] = (c_init != nullptr && b < B && unit < H)
+                ? c_init[(lane_row + b) * H + unit]
+                : 0.f;
+  }
 
   // xp of own columns and the mask of step s, into slot s & 1
   auto prefetch = [&](int s) {
@@ -288,8 +308,9 @@ cudaError_t configure(int B, int H, int ndir, int C, int U,
 template <int R>
 cudaError_t launch(const float* xp_f, const float* xp_b, const float* mask,
                    const float* wh_f, const float* wh_b, float* h_f,
-                   float* c_f, float* h_b, float* c_b, int T, int B, int H,
-                   int ndir, int C, int U, cudaStream_t stream) {
+                   float* c_f, float* h_b, float* c_b, const float* h_init,
+                   const float* c_init, int T, int B, int H, int ndir, int C,
+                   int U, cudaStream_t stream) {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[1];
   int fit = 0;
@@ -300,7 +321,8 @@ cudaError_t launch(const float* xp_f, const float* xp_b, const float* mask,
     return cudaErrorCooperativeLaunchTooLarge;
   cfg.stream = stream;
   err = cudaLaunchKernelEx(&cfg, bilstm_fwd_kernel<R>, xp_f, xp_b, mask,
-                           wh_f, wh_b, h_f, c_f, h_b, c_b, T, B, H, U);
+                           wh_f, wh_b, h_f, c_f, h_b, c_b, h_init, c_init, T,
+                           B, H, U);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -327,18 +349,20 @@ cudaError_t by_rows(int R, F&& f) {
 }  // namespace
 
 // Launch the forward over ndir directions: clusters of C CTAs of U units
-// each, R (1, 2, 4 or 8) batch rows a cluster.
+// each, R (1, 2, 4 or 8) batch rows a cluster.  h_init / c_init: the state
+// each lane starts from, [ndir, B, H], or null for zeros.
 extern "C" int asr_bilstm_fwd(const float* xp_f, const float* xp_b,
                               const float* mask, const float* wh_f,
                               const float* wh_b, float* h_f, float* c_f,
-                              float* h_b, float* c_b, int T, int B, int H,
+                              float* h_b, float* c_b, const float* h_init,
+                              const float* c_init, int T, int B, int H,
                               int ndir, int C, int U, int R, void* stream) {
   if (!valid_geometry(H, ndir, C, U))
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(by_rows(R, [&](auto rows) {
     return launch<decltype(rows)::value>(
-        xp_f, xp_b, mask, wh_f, wh_b, h_f, c_f, h_b, c_b, T, B, H, ndir, C,
-        U, static_cast<cudaStream_t>(stream));
+        xp_f, xp_b, mask, wh_f, wh_b, h_f, c_f, h_b, c_b, h_init, c_init, T,
+        B, H, ndir, C, U, static_cast<cudaStream_t>(stream));
   }));
 }
 

@@ -54,6 +54,17 @@
 // final scores are sorted and a thread per kept path walks the
 // backpointers back, writing the emitted characters at their positions.
 //
+// The stream form (asr_ctc_beam_stream; asr_study_tpu/ops/beam.py
+// `beam_stream_chunk`, the plain twin ops/beam.py `beam_stream_plain`)
+// decodes one chunk of a stream: it starts from the beam state a previous
+// chunk left ([B, W] lengths, last chars, p_blank, p_nonblank, both hash
+// lanes and LM contexts, in slot order) in place of the empty prefix, and
+// writes the state back after the chunk's last valid frame.  Nothing is
+// sorted: a thread per slot walks its backpointers back to the chunk's
+// first frame, counting the characters the chunk emitted and the slot it
+// started from, then writes them, so the caller splices each slot's chunk
+// onto that start slot's prefix.
+//
 // Limits (ops/beam.py BEAM_MAX_WIDTH, BEAM_MAX_VOCAB): W <= 128, V <= 64;
 // W*E*4 bytes of dynamic shared memory for the kill stamps.
 
@@ -68,25 +79,42 @@ constexpr int kMaxV = 64;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr uint64_t kPad = ~0ull;
 
+// The beam state of the stream form, [B, W] each, read before the first
+// frame and written after the last; all null in the one-shot form.
+struct Carry {
+  int* len;
+  int* last;
+  float* pb;
+  float* pnb;
+  uint32_t* h1;
+  uint32_t* h2;
+  int* lm;
+  int* emits;               // [B, W] the chars each slot's chunk emitted
+  int* start;               // [B, W] the slot each began the chunk in
+};
+
 struct Params {
   const float* log_probs;   // [B, T, V]
   const int* lengths;       // [B]
   const float* lm_logp;     // [S, V-1] or null
   int* bp;                  // [B, T, W]
   int* prefixes;            // [B, P, T]
-  int* out_len;             // [B, P]
+  int* out_len;             // [B, P] (the one-shot form)
   float* out_score;         // [B, P]
   int T, V, W, P, E, pad_id, lm_order, lm_mod, lm_state0;
   float alpha, beta;
   uint32_t mult1, mult2;
+  Carry carry;
 };
 
-// the beam state, two buffers: length, last char, LM context, p_blank, the
-// hash lanes; and the beam's terms for the frame it enters: logadd(p_blank,
-// p_nonblank), and the stay's p_blank and p_nonblank before the merge
+// the beam state, two buffers: length, last char, LM context, p_blank,
+// p_nonblank, the hash lanes; and the beam's terms for the frame it enters:
+// logadd(p_blank, p_nonblank), and the stay's p_blank and p_nonblank before
+// the merge
 struct State {
   int len[2][kMaxW], last[2][kMaxW], lm[2][kMaxW];
-  float pb[2][kMaxW], ptot[2][kMaxW], spb[2][kMaxW], spnb[2][kMaxW];
+  float pb[2][kMaxW], pnb[2][kMaxW], ptot[2][kMaxW], spb[2][kMaxW],
+      spnb[2][kMaxW];
   uint32_t h1[2][kMaxW], h2[2][kMaxW];
 };
 
@@ -167,6 +195,7 @@ __device__ __forceinline__ void set_terms(State& st, int buf, int k,
                                           const float* lp, int blank) {
   const float ptot = logadd(pb, pnb);
   st.pb[buf][k] = pb;
+  st.pnb[buf][k] = pnb;
   st.ptot[buf][k] = ptot;
   st.spb[buf][k] = ptot + lp[blank];
   st.spnb[buf][k] = pnb + (last >= 0 ? lp[last] : kLogEps);
@@ -278,9 +307,22 @@ ctc_beam_kernel(const Params a) {
   if (len > 0)
     for (int v = tid; v < V; v += kThreads) s_lp[v] = lp_b[v];
   __syncthreads();
-  // frame 0's extension chars; the empty prefix and the dead placeholders
+  // frame 0's extension chars; the empty prefix and the dead placeholders,
+  // or the stream form's carried beams
+  const Carry& cy = a.carry;
+  const bool carried = cy.len != nullptr;
   pick_chars(a, s_lp, s_ch[0], tid, kThreads);
   for (int w = tid; w < W; w += kThreads) {
+    if (carried) {
+      const size_t o = static_cast<size_t>(b) * W + w;
+      st.len[0][w] = cy.len[o];
+      st.last[0][w] = cy.last[o];
+      st.h1[0][w] = cy.h1[o];
+      st.h2[0][w] = cy.h2[o];
+      st.lm[0][w] = cy.lm[o];
+      set_terms(st, 0, w, cy.pb[o], cy.pnb[o], cy.last[o], s_lp, blank);
+      continue;
+    }
     st.len[0][w] = 0;
     st.last[0][w] = -1;
     st.h1[0][w] = w == 0 ? 1u : 0xDEAD0000u + w;
@@ -423,6 +465,45 @@ ctc_beam_kernel(const Params a) {
     __syncthreads();
   }
 
+  if (carried) {
+    // the stream form: the state back in slot order, then a thread a slot
+    // walks back to the chunk's first frame twice, to count its chars and
+    // find its start slot, then to place the chars
+    int* rows = a.prefixes + static_cast<size_t>(b) * W * T;
+    for (int i = tid; i < W * T; i += kThreads) rows[i] = a.pad_id;
+    for (int w = tid; w < W; w += kThreads) {
+      const size_t o = static_cast<size_t>(b) * W + w;
+      cy.len[o] = st.len[cur][w];
+      cy.last[o] = st.last[cur][w];
+      cy.pb[o] = st.pb[cur][w];
+      cy.pnb[o] = st.pnb[cur][w];
+      cy.h1[o] = st.h1[cur][w];
+      cy.h2[o] = st.h2[cur][w];
+      cy.lm[o] = st.lm[cur][w];
+      a.out_score[o] = st.ptot[cur][w];
+    }
+    __syncthreads();
+    for (int w = tid; w < W; w += kThreads) {
+      int slot = w, n = 0;
+      for (int t = len - 1; t >= 0; --t) {
+        const int v = bp_b[static_cast<size_t>(t) * W + slot];
+        n += (v >> 16) != 0;
+        slot = v & 0xFFFF;
+      }
+      const size_t o = static_cast<size_t>(b) * W + w;
+      cy.emits[o] = n;
+      cy.start[o] = slot;
+      int* row = rows + static_cast<size_t>(w) * T;
+      slot = w;
+      for (int t = len - 1; t >= 0; --t) {
+        const int v = bp_b[static_cast<size_t>(t) * W + slot];
+        if (v >> 16) row[--n] = (v >> 16) - 1;
+        slot = v & 0xFFFF;
+      }
+    }
+    return;
+  }
+
   // the final order of the W beams
   int span = 1;
   while (span < W) span <<= 1;
@@ -476,6 +557,14 @@ cudaError_t launch_r(const Params& a, int B, cudaStream_t stream) {
   return launch<kWarps, 4>(a, B, stream);
 }
 
+int launch_w(const Params& a, int B, cudaStream_t s) {
+  switch (warps_for(a.W)) {
+    case 4: return static_cast<int>(launch_r<4>(a, B, s));
+    case 8: return static_cast<int>(launch_r<8>(a, B, s));
+    default: return static_cast<int>(launch_r<16>(a, B, s));
+  }
+}
+
 }  // namespace
 
 // log_probs [B, T, V] float32 (log-softmax, blank = V-1), lengths [B]
@@ -497,11 +586,30 @@ extern "C" int asr_ctc_beam(const float* log_probs, const int* lengths,
     return static_cast<int>(cudaErrorInvalidValue);
   const Params a{log_probs, lengths, lm_logp, bp, prefixes, out_len,
                  out_score, T, V, W, P, E, pad_id, lm_order, lm_mod,
-                 lm_state0, alpha, beta, mult1, mult2};
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (warps_for(W)) {
-    case 4: return static_cast<int>(launch_r<4>(a, B, s));
-    case 8: return static_cast<int>(launch_r<8>(a, B, s));
-    default: return static_cast<int>(launch_r<16>(a, B, s));
-  }
+                 lm_state0, alpha, beta, mult1, mult2, Carry{}};
+  return launch_w(a, B, static_cast<cudaStream_t>(stream));
+}
+
+// The stream form: one chunk of B streams.  log_probs [B, T, V] and
+// lengths [B] (the chunk's valid frames) as above; the beam state [B, W]
+// (len, last, pb, pnb, h1, h2, lm, in slot order) read and written in
+// place -> prefixes [B, W, T] (each slot's chars of the chunk, pad_id past
+// them), emits [B, W] (their count), start [B, W] (the slot it began the
+// chunk in), scores [B, W] (logadd(p_blank, p_nonblank)), unsorted.
+extern "C" int asr_ctc_beam_stream(
+    const float* log_probs, const int* lengths, const float* lm_logp,
+    int* bp, int* len, int* last, float* pb, float* pnb, unsigned* h1,
+    unsigned* h2, int* lm, int* prefixes, int* emits, int* start,
+    float* scores, int B, int T, int V, int W, int E, int pad_id,
+    int lm_order, int lm_mod, float alpha, float beta, unsigned mult1,
+    unsigned mult2, void* stream) {
+  if (B <= 0) return 0;
+  if (W < 1 || W > kMaxW || V < 2 || V > kMaxV || E < 1 || E > V - 1 ||
+      T < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Params a{log_probs, lengths, lm_logp, bp, prefixes, nullptr,
+                 scores, T, V, W, W, E, pad_id, lm_order, lm_mod, 0, alpha,
+                 beta, mult1, mult2,
+                 Carry{len, last, pb, pnb, h1, h2, lm, emits, start}};
+  return launch_w(a, B, static_cast<cudaStream_t>(stream));
 }

@@ -12,9 +12,14 @@
 // r, z, n), the frame mask [T, B] and the recurrent weights wh_f / wh_b
 // [H, 3H].  Output h of each direction, [T, B, H] in forward time order.
 // Lane 1 (the reverse direction) walks time backward: it reads xp_b and the
-// mask at T-1-s.  Both lanes start from h = 0, and a frame whose mask is 0
-// keeps the previous h, which makes the reverse lane exact on right-padded
-// batches.  With ndir = 1 only lane 0 runs and the _b pointers are unused.
+// mask at T-1-s.  Each lane starts from the carried h_init [ndir, B, H]
+// (lane d at row d * B) or, where it is null, from h = 0, and a frame
+// whose mask is 0 keeps the previous h, which makes the reverse lane
+// exact on right-padded batches.  So h's last frame is the carry a
+// chunk of a stream hands the next (streaming.py), and a sequence run in
+// chunks gives what it gives in one launch, bit for bit: a step's
+// arithmetic does not depend on where the launch began.  With ndir = 1
+// only lane 0 runs and the _b pointers are unused.
 //
 //   r = sigmoid(xr + hr),  z = sigmoid(xz + hz),  n = tanh(xn + r * hn),
 //   h = (1 - z) * n + z * h_prev,   where [hr, hz, hn] = h_prev @ wh.
@@ -115,7 +120,8 @@ gru_fwd_kernel(const float* __restrict__ xp_f, const float* __restrict__ xp_b,
                const float* __restrict__ mask,
                const float* __restrict__ wh_f,
                const float* __restrict__ wh_b, float* __restrict__ h_f,
-               float* __restrict__ h_b, int T, int B, int H, int U) {
+               float* __restrict__ h_b, const float* __restrict__ h_init,
+               int T, int B, int H, int U) {
   cg::cluster_group cluster = cg::this_cluster();
   const int C = static_cast<int>(cluster.num_blocks());
   const int rank = static_cast<int>(cluster.block_rank());
@@ -151,7 +157,14 @@ gru_fwd_kernel(const float* __restrict__ xp_f, const float* __restrict__ xp_b,
                   : 0.f;
     }
   }
-  for (int i = tid; i < 2 * R * HS; i += kThreads) hbuf[i] = 0.f;
+  // the carried h, zeros where none is given: the full rows into slot 0
+  const size_t lane_row = static_cast<size_t>(blockIdx.z) * B;
+  for (int i = tid; i < 2 * R * HS; i += kThreads) {
+    const int r = i / HS, k = i - r * HS, b = b0 + r;
+    hbuf[i] = (h_init != nullptr && r < R && b < B && k < H)
+                  ? h_init[(lane_row + b) * H + k]
+                  : 0.f;
+  }
 
   // xp of own columns and the mask of step s, into slot s & 1
   auto prefetch = [&](int s) {
@@ -274,8 +287,8 @@ cudaError_t configure(int B, int H, int ndir, int C, int U,
 template <int R>
 cudaError_t launch(const float* xp_f, const float* xp_b, const float* mask,
                    const float* wh_f, const float* wh_b, float* h_f,
-                   float* h_b, int T, int B, int H, int ndir, int C, int U,
-                   cudaStream_t stream) {
+                   float* h_b, const float* h_init, int T, int B, int H,
+                   int ndir, int C, int U, cudaStream_t stream) {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[1];
   int fit = 0;
@@ -286,7 +299,7 @@ cudaError_t launch(const float* xp_f, const float* xp_b, const float* mask,
     return cudaErrorCooperativeLaunchTooLarge;
   cfg.stream = stream;
   err = cudaLaunchKernelEx(&cfg, gru_fwd_kernel<R>, xp_f, xp_b, mask, wh_f,
-                           wh_b, h_f, h_b, T, B, H, U);
+                           wh_b, h_f, h_b, h_init, T, B, H, U);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -313,17 +326,18 @@ cudaError_t by_rows(int R, F&& f) {
 }  // namespace
 
 // Launch the forward over ndir directions: clusters of C CTAs of U units
-// each, R (1, 2, 4 or 8) batch rows a cluster.
+// each, R (1, 2, 4 or 8) batch rows a cluster.  h_init: the h each lane
+// starts from, [ndir, B, H], or null for zeros.
 extern "C" int asr_gru_fwd(const float* xp_f, const float* xp_b,
                            const float* mask, const float* wh_f,
-                           const float* wh_b, float* h_f, float* h_b, int T,
-                           int B, int H, int ndir, int C, int U, int R,
-                           void* stream) {
+                           const float* wh_b, float* h_f, float* h_b,
+                           const float* h_init, int T, int B, int H, int ndir,
+                           int C, int U, int R, void* stream) {
   if (!valid_geometry(H, ndir, C, U))
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(by_rows(R, [&](auto rows) {
     return launch<decltype(rows)::value>(xp_f, xp_b, mask, wh_f, wh_b, h_f,
-                                         h_b, T, B, H, ndir, C, U,
+                                         h_b, h_init, T, B, H, ndir, C, U,
                                          static_cast<cudaStream_t>(stream));
   }));
 }

@@ -15,9 +15,11 @@
 // r, z, n), the frame mask [T, B] and the recurrent weights wh_f / wh_b
 // [H, 3H].  Output h of each direction, [T, B, H] in forward time order.
 // Lane 1 (the reverse direction) walks time backward: it reads xp_b and the
-// mask at T-1-s.  Both lanes start from h = 0, and a frame whose mask is 0
-// keeps the previous h, which makes the reverse lane exact on right-padded
-// batches.  With ndir = 1 only lane 0 runs and the _b pointers are unused.
+// mask at T-1-s.  Each lane starts from the carried h_init [ndir, B, H] or,
+// where it is null, from h = 0 (gru_fwd.cu says what the carry is for), and
+// a frame whose mask is 0 keeps the previous h, which makes the reverse
+// lane exact on right-padded batches.  With ndir = 1 only lane 0 runs and
+// the _b pointers are unused.
 //
 //   r = sigmoid(xr + hr),  z = sigmoid(xz + hz),  n = tanh(xn + r * hn),
 //   h = (1 - z) * n + z * h_prev,   where [hr, hz, hn] = h_prev @ wh.
@@ -56,7 +58,8 @@ gru_stream_fwd_kernel(const float* __restrict__ xp_f,
                       const float* __restrict__ mask,
                       const float* __restrict__ wh_f,
                       const float* __restrict__ wh_b, float* __restrict__ h_f,
-                      float* __restrict__ h_b, int T, int B, int H) {
+                      float* __restrict__ h_b,
+                      const float* __restrict__ h_init, int T, int B, int H) {
   extern __shared__ float smem[];
   const int G = 3 * H;
   float* hs = smem;              // [kRows][H]  h of the previous step
@@ -69,7 +72,10 @@ gru_stream_fwd_kernel(const float* __restrict__ xp_f,
   const int b0 = blockIdx.x * kRows;
   const int rows = min(kRows, B - b0);
 
-  for (int i = threadIdx.x; i < kRows * H; i += blockDim.x) hs[i] = 0.f;
+  // the carried h of the block's rows, zeros where none is given
+  const size_t init0 = (static_cast<size_t>(blockIdx.y) * B + b0) * H;
+  for (int i = threadIdx.x; i < kRows * H; i += blockDim.x)
+    hs[i] = (h_init != nullptr && i < rows * H) ? h_init[init0 + i] : 0.f;
   __syncthreads();
 
   for (int s = 0; s < T; ++s) {
@@ -113,11 +119,12 @@ gru_stream_fwd_kernel(const float* __restrict__ xp_f,
 
 }  // namespace
 
+// h_init: the h each lane starts from, [ndir, B, H], or null for zeros.
 extern "C" int asr_gru_stream_fwd(const float* xp_f, const float* xp_b,
                                   const float* mask, const float* wh_f,
                                   const float* wh_b, float* h_f, float* h_b,
-                                  int T, int B, int H, int ndir,
-                                  void* stream) {
+                                  const float* h_init, int T, int B, int H,
+                                  int ndir, void* stream) {
   if (ndir < 1 || ndir > 2) return static_cast<int>(cudaErrorInvalidValue);
   const int G = 3 * H;
   const size_t smem = sizeof(float) * static_cast<size_t>(kRows) * (H + G);
@@ -130,6 +137,6 @@ extern "C" int asr_gru_stream_fwd(const float* xp_f, const float* xp_b,
   const dim3 grid((B + kRows - 1) / kRows, ndir);
   gru_stream_fwd_kernel<<<grid, threads, smem,
                           static_cast<cudaStream_t>(stream)>>>(
-      xp_f, xp_b, mask, wh_f, wh_b, h_f, h_b, T, B, H);
+      xp_f, xp_b, mask, wh_f, wh_b, h_f, h_b, h_init, T, B, H);
   return static_cast<int>(cudaGetLastError());
 }

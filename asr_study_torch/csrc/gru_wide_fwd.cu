@@ -12,7 +12,9 @@
 // Inputs and outputs are gru_fwd.cu's: xp_f / xp_b [T, B, 3H] (x @ wx + b,
 // every bias folded in; gate order r, z, n), the mask [T, B], wh_f / wh_b
 // [H, 3H] -> h of each direction [T, B, H] in forward time order, lane 1
-// walking time backward, held frames repeating the previous h.
+// walking time backward, held frames repeating the previous h, each lane
+// starting from the carried h_init [ndir, B, H] or, where it is null, from
+// zeros (gru_fwd.cu says what the carry is for).
 //
 //   r = sigmoid(xr + hr),  z = sigmoid(xz + hz),  n = tanh(xn + r * hn),
 //   h = (1 - z) * n + z * h_prev,   where [hr, hz, hn] = h_prev @ wh.
@@ -138,7 +140,8 @@ gru_wide_fwd_kernel(const float* __restrict__ xp_f,
                     const float* __restrict__ wh_f,
                     const float* __restrict__ wh_b, float* __restrict__ h_f,
                     float* __restrict__ h_b, float* __restrict__ hg_f,
-                    float* __restrict__ hg_b, int T, int B, int H) {
+                    float* __restrict__ hg_b,
+                    const float* __restrict__ h_init, int T, int B, int H) {
   cg::cluster_group cluster = cg::this_cluster();
   const int C = static_cast<int>(cluster.num_blocks());
   const int rank = static_cast<int>(cluster.block_rank());
@@ -180,7 +183,14 @@ gru_wide_fwd_kernel(const float* __restrict__ xp_f,
     ws[(part * kPerShared + kk) * kCols + col] =
         (live && k < H) ? wcol[static_cast<size_t>(k) * G] : 0.f;
   }
-  for (int i = tid; i < 2 * R * kRows; i += kThreads) hbuf[i] = 0.f;
+  // the carried h, zeros where none is given: the full rows into slot 0
+  const size_t lane_row = static_cast<size_t>(blockIdx.z) * B;
+  for (int i = tid; i < 2 * R * kRows; i += kThreads) {
+    const int r = i / kRows, k = i - r * kRows, b = b0 + r;
+    hbuf[i] = (h_init != nullptr && r < R && b < B && k < H)
+                  ? h_init[(lane_row + b) * H + k]
+                  : 0.f;
+  }
 
   // xp of own columns and the mask of step s, into slot s & 1
   auto prefetch = [&](int s) {
@@ -354,8 +364,9 @@ cudaError_t configure(int B, int ndir, int C, cudaLaunchConfig_t* cfg,
 template <int R>
 cudaError_t launch(const float* xp_f, const float* xp_b, const float* mask,
                    const float* wh_f, const float* wh_b, float* h_f,
-                   float* h_b, float* hg_f, float* hg_b, int T, int B, int H,
-                   int ndir, int C, cudaStream_t stream) {
+                   float* h_b, float* hg_f, float* hg_b, const float* h_init,
+                   int T, int B, int H, int ndir, int C,
+                   cudaStream_t stream) {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[1];
   int fit = 0;
@@ -366,7 +377,8 @@ cudaError_t launch(const float* xp_f, const float* xp_b, const float* mask,
     return cudaErrorCooperativeLaunchTooLarge;
   cfg.stream = stream;
   err = cudaLaunchKernelEx(&cfg, gru_wide_fwd_kernel<R>, xp_f, xp_b, mask,
-                           wh_f, wh_b, h_f, h_b, hg_f, hg_b, T, B, H);
+                           wh_f, wh_b, h_f, h_b, hg_f, hg_b, h_init, T, B,
+                           H);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -393,19 +405,21 @@ cudaError_t by_rows(int R, F&& f) {
 
 // Launch the forward over ndir directions: clusters of C CTAs of U = 32
 // units each, R (4, 8 or 16) batch rows a cluster.  hg_f / hg_b: the h
-// side of the pre-activations [T, B, 3H] to write, or both null.
+// side of the pre-activations [T, B, 3H] to write, or both null.  h_init:
+// the h each lane starts from, [ndir, B, H], or null for zeros.
 extern "C" int asr_gru_wide_fwd(const float* xp_f, const float* xp_b,
                                 const float* mask, const float* wh_f,
                                 const float* wh_b, float* h_f, float* h_b,
-                                float* hg_f, float* hg_b, int T, int B,
-                                int H, int ndir, int C, int U, int R,
-                                void* stream) {
+                                float* hg_f, float* hg_b, const float* h_init,
+                                int T, int B, int H, int ndir, int C, int U,
+                                int R, void* stream) {
   if (!valid_geometry(H, ndir, C, U) ||
       ((hg_f == nullptr) != (hg_b == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(by_rows(R, [&](auto rows) {
     return launch<decltype(rows)::value>(xp_f, xp_b, mask, wh_f, wh_b, h_f,
-                                         h_b, hg_f, hg_b, T, B, H, ndir, C,
+                                         h_b, hg_f, hg_b, h_init, T, B, H,
+                                         ndir, C,
                                          static_cast<cudaStream_t>(stream));
   }));
 }

@@ -11,7 +11,10 @@
 // Inputs and outputs are bilstm_fwd.cu's: xp_f / xp_b [T, B, 4H] (x @ wx +
 // b), the mask [T, B], wh_f / wh_b [H, 4H] (gate order i, f, g, o) -> h and
 // c of each direction [T, B, H] in forward time order, lane 1 walking time
-// backward, held frames repeating the previous state.  When training, the
+// backward, held frames repeating the previous state, each lane starting
+// from the carried state h_init / c_init [ndir, B, H] or, where they are
+// null, from zeros (bilstm_fwd.cu says what the carry is for).  When
+// training, the
 // caller also passes g_f / g_b [T, B, 4H] and the kernel writes there the
 // four activated gates (sigmoid i, f, o and tanh g) of every frame, which
 // the backward (lstm_wide_bwd.cu) reads in place of recomputing them.  For
@@ -119,7 +122,9 @@ lstm_wide_fwd_kernel(const float* __restrict__ xp_f,
                      const float* __restrict__ wh_b, float* __restrict__ h_f,
                      float* __restrict__ c_f, float* __restrict__ h_b,
                      float* __restrict__ c_b, float* __restrict__ g_f,
-                     float* __restrict__ g_b, int T, int B, int H) {
+                     float* __restrict__ g_b,
+                     const float* __restrict__ h_init,
+                     const float* __restrict__ c_init, int T, int B, int H) {
   cg::cluster_group cluster = cg::this_cluster();
   const int C = static_cast<int>(cluster.num_blocks());
   const int rank = static_cast<int>(cluster.block_rank());
@@ -161,7 +166,14 @@ lstm_wide_fwd_kernel(const float* __restrict__ xp_f,
     ws[(half * kSlice + kk) * kCols + col] =
         (live && k < H) ? wcol[static_cast<size_t>(k) * G] : 0.f;
   }
-  for (int i = tid; i < 2 * R * kRows; i += kThreads) hbuf[i] = 0.f;
+  // the carried h, zeros where none is given: the full rows into slot 0
+  const size_t lane_row = static_cast<size_t>(blockIdx.z) * B;
+  for (int i = tid; i < 2 * R * kRows; i += kThreads) {
+    const int r = i / kRows, k = i - r * kRows, b = b0 + r;
+    hbuf[i] = (h_init != nullptr && r < R && b < B && k < H)
+                  ? h_init[(lane_row + b) * H + k]
+                  : 0.f;
+  }
 
   // xp of own columns and the mask of step s, into slot s & 1
   auto prefetch = [&](int s) {
@@ -185,10 +197,18 @@ lstm_wide_fwd_kernel(const float* __restrict__ xp_f,
     cp_async_commit();
   };
 
-  // the cell's (row, four units) of this thread, and their c
+  // the cell's (row, four units) of this thread, and their c, carried in
+  // or zeros
   const bool cell = tid < R * kQuads;
   const int cr = tid / kQuads, cu = 4 * (tid % kQuads);
-  float cst[4] = {0.f, 0.f, 0.f, 0.f};
+  float cst[4];
+#pragma unroll
+  for (int uu = 0; uu < 4; ++uu) {
+    const int unit = u0 + cu + uu, b = b0 + cr;
+    cst[uu] = (c_init != nullptr && cell && b < B && unit < H)
+                  ? c_init[(lane_row + b) * H + unit]
+                  : 0.f;
+  }
 
   prefetch(0);
   // every CTA of the cluster is running and initialised before any peer
@@ -333,8 +353,8 @@ template <int R>
 cudaError_t launch(const float* xp_f, const float* xp_b, const float* mask,
                    const float* wh_f, const float* wh_b, float* h_f,
                    float* c_f, float* h_b, float* c_b, float* g_f, float* g_b,
-                   int T, int B, int H, int ndir, int C,
-                   cudaStream_t stream) {
+                   const float* h_init, const float* c_init, int T, int B,
+                   int H, int ndir, int C, cudaStream_t stream) {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[1];
   int fit = 0;
@@ -345,8 +365,8 @@ cudaError_t launch(const float* xp_f, const float* xp_b, const float* mask,
     return cudaErrorCooperativeLaunchTooLarge;
   cfg.stream = stream;
   err = cudaLaunchKernelEx(&cfg, lstm_wide_fwd_kernel<R>, xp_f, xp_b, mask,
-                           wh_f, wh_b, h_f, c_f, h_b, c_b, g_f, g_b, T, B,
-                           H);
+                           wh_f, wh_b, h_f, c_f, h_b, c_b, g_f, g_b, h_init,
+                           c_init, T, B, H);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -373,19 +393,22 @@ cudaError_t by_rows(int R, F&& f) {
 
 // Launch the forward over ndir directions: clusters of C CTAs of U = 32
 // units each, R (4, 8 or 16) batch rows a cluster.  g_f / g_b: the
-// activated gates [T, B, 4H] to write, or both null.
+// activated gates [T, B, 4H] to write, or both null.  h_init / c_init: the
+// state each lane starts from, [ndir, B, H], or null for zeros.
 extern "C" int asr_lstm_wide_fwd(const float* xp_f, const float* xp_b,
                                  const float* mask, const float* wh_f,
                                  const float* wh_b, float* h_f, float* c_f,
                                  float* h_b, float* c_b, float* g_f,
-                                 float* g_b, int T, int B, int H, int ndir,
-                                 int C, int U, int R, void* stream) {
+                                 float* g_b, const float* h_init,
+                                 const float* c_init, int T, int B, int H,
+                                 int ndir, int C, int U, int R,
+                                 void* stream) {
   if (!valid_geometry(H, ndir, C, U) || ((g_f == nullptr) != (g_b == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(by_rows(R, [&](auto rows) {
     return launch<decltype(rows)::value>(
-        xp_f, xp_b, mask, wh_f, wh_b, h_f, c_f, h_b, c_b, g_f, g_b, T, B, H,
-        ndir, C, static_cast<cudaStream_t>(stream));
+        xp_f, xp_b, mask, wh_f, wh_b, h_f, c_f, h_b, c_b, g_f, g_b, h_init,
+        c_init, T, B, H, ndir, C, static_cast<cudaStream_t>(stream));
   }));
 }
 

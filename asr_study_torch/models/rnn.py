@@ -22,6 +22,14 @@ LSTM, GRU), uni- and bidirectional layers of each, the skip kinds
 In train mode the draws from the caller's generator go layer by layer:
 the forward cell's zoneout zh and zc, the backward cell's, then the
 layer's dropout.
+
+Streaming (``apply_streaming``, ``init_stream_carry``; the JAX forms at
+``asr_study_tpu/models/rnn.py`` ``RNNLayer.apply_streaming`` and
+``StackedRNN.apply_streaming``): one chunk of a unidirectional LSTM or GRU
+stack with each layer's state carried in and out, one launch of the
+layer's forward kernel a chunk on a CUDA device (``ops.bilstm.lstm`` and
+``ops.gru.gru`` started from the carry), inference only.  The layer-norm,
+MI and zoneout cells refuse it (ROADMAP queue A item 10b).
 """
 
 from __future__ import annotations
@@ -36,8 +44,8 @@ from asr_study_torch.models.cells import (GRUCell, LayerNormLSTMCell,
                                           ZoneoutLSTMCell)
 from asr_study_torch.models.nn import dense_apply, dense_init
 from asr_study_torch.models.nn import dropout as dropout_fn
-from asr_study_torch.ops.bilstm import BiLSTMFunction, LSTMFunction
-from asr_study_torch.ops.gru import BiGRUFunction, GRUFunction
+from asr_study_torch.ops.bilstm import BiLSTMFunction, LSTMFunction, lstm
+from asr_study_torch.ops.gru import BiGRUFunction, GRUFunction, gru
 from asr_study_torch.ops.ln_lstm import BiLNLSTMFunction, LNLSTMFunction
 from asr_study_torch.ops.mi_lstm import BiMILSTMFunction, MILSTMFunction
 from asr_study_torch.ops.zoneout_lstm import (BiZoneoutLSTMFunction,
@@ -50,6 +58,12 @@ _KINDS = {"lstm": (LSTMCell, BiLSTMFunction, LSTMFunction),
           "zoneout_lstm": (ZoneoutLSTMCell, BiZoneoutLSTMFunction,
                            ZoneoutLSTMFunction),
           "mi_lstm": (MILSTMCell, BiMILSTMFunction, MILSTMFunction)}
+# the cells whose forward kernels take a carried state, by kind -> the
+# forward op that starts from it (the carry: (h, c) for the LSTM, (h,) for
+# the GRU, as the JAX cells' carries)
+_STREAM_OPS = {"lstm": lstm, "gru": gru}
+_UNIDIRECTIONAL = ("streaming requires a unidirectional layer — build the "
+                   "model with bidirectional=false")
 
 
 class RNNLayer(nn.Module):
@@ -66,6 +80,7 @@ class RNNLayer(nn.Module):
             raise ValueError(f"unknown cell kind {cell_kind!r}; available: "
                              f"{', '.join(sorted(_KINDS))}")
         cell, self._bidi_op, self._uni_op = _KINDS[cell_kind]
+        self.cell_kind = cell_kind
         self.hidden = hidden
         self.bidirectional = bidirectional
         self.fw = cell(input_dim, hidden, generator, device, **cell_kw)
@@ -91,6 +106,39 @@ class RNNLayer(nn.Module):
             xp_f, xp_b, mask, *(a for pair in zip(res_f, res_b)
                                 for a in pair))
         return torch.cat([h_f, h_b], dim=-1) * mask
+
+    def check_streaming(self) -> None:
+        """Raise ValueError unless this layer can stream: a bidirectional
+        layer cannot (as in JAX), and the layer-norm, MI and zoneout cells
+        wait for carried state in their kernels."""
+        if self.bidirectional:
+            raise ValueError(_UNIDIRECTIONAL)
+        if self.cell_kind not in _STREAM_OPS:
+            raise ValueError(
+                f"streaming the {self.cell_kind} cell is not ported to "
+                "asr_study_torch yet (ROADMAP queue A item 10b)")
+
+    def init_stream_carry(self, batch: int) -> tuple[torch.Tensor, ...]:
+        """Zero state for ``batch`` streams: (h, c) for the LSTM, (h,) for
+        the GRU, [B, H] each, on the layer's device."""
+        self.check_streaming()
+        zeros = self.fw.wh.new_zeros((batch, self.hidden))
+        return (zeros, zeros.clone()) if self.cell_kind == "lstm" \
+            else (zeros,)
+
+    def apply_streaming(self, x: torch.Tensor, mask: torch.Tensor,
+                        carry: tuple) -> tuple[torch.Tensor, tuple]:
+        """One chunk of a forward-only recurrence with carried state, no
+        autograd: x [T, B, F], mask [T, B, 1] -> (h [T, B, H] zeroed on
+        masked frames, the new carry: h and c of the last frame, which a
+        masked frame holds).  One forward launch on a CUDA device."""
+        self.check_streaming()
+        mask = mask.contiguous()
+        with torch.no_grad():
+            xp, (wh,) = self.fw.prepare(x)
+            outs = _STREAM_OPS[self.cell_kind](xp, mask, wh, *carry)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        return outs[0] * mask, tuple(o[-1] for o in outs)
 
 
 class _StackEntry(nn.Module):
@@ -157,17 +205,38 @@ class StackedRNN(nn.Module):
         """x [T, B, F] -> [T, B, output_dim]"""
         last = len(self.layers) - 1
         for i, entry in enumerate(self.layers):
-            h = entry.rnn(x, mask, train, generator)
-            if self.skip != "none":
-                skip_in = x if entry.proj is None else dense_apply(
-                    entry.proj, x)
-                if self.skip == "residual":
-                    h = h + skip_in
-                else:
-                    t = torch.sigmoid(dense_apply(entry.gate, x))
-                    h = t * h + (1.0 - t) * skip_in
-                h = h * mask
+            h = self._skip(entry, entry.rnn(x, mask, train, generator), x,
+                           mask)
             if i < last:
                 h = dropout_fn(h, self.dropout, train, generator)
             x = h
         return x
+
+    def _skip(self, entry: _StackEntry, h: torch.Tensor, x: torch.Tensor,
+              mask: torch.Tensor) -> torch.Tensor:
+        """The layer's output h after the skip from its input x."""
+        if self.skip == "none":
+            return h
+        skip_in = x if entry.proj is None else dense_apply(entry.proj, x)
+        if self.skip == "residual":
+            h = h + skip_in
+        else:
+            t = torch.sigmoid(dense_apply(entry.gate, x))
+            h = t * h + (1.0 - t) * skip_in
+        return h * mask
+
+    def init_stream_carries(self, batch: int) -> list:
+        """Each layer's zero carry for ``batch`` streams."""
+        return [entry.rnn.init_stream_carry(batch) for entry in self.layers]
+
+    def apply_streaming(self, x: torch.Tensor, mask: torch.Tensor,
+                        carries: list) -> tuple[torch.Tensor, list]:
+        """One chunk x [T, B, F] through the stack with each layer's carry
+        (the skips and ``h *= mask`` as :meth:`forward`, no dropout) ->
+        (out [T, B, output_dim], the new carries)."""
+        new = []
+        for entry, carry in zip(self.layers, carries):
+            h, carry = entry.rnn.apply_streaming(x, mask, carry)
+            new.append(carry)
+            x = self._skip(entry, h, x, mask)
+        return x, new

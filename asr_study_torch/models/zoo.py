@@ -93,6 +93,33 @@ class AcousticModel(nn.Module):
         h = self.rnn(x, mask, train, generator)
         return dense_apply(self.out, h).transpose(0, 1)
 
+    def init_stream_carries(self, batch: int) -> list:
+        """Zero carries for ``batch`` streams (raises ValueError for a model
+        that cannot stream)."""
+        return self.rnn.init_stream_carries(batch)
+
+    @torch.inference_mode()
+    def apply_streaming(self, inputs: torch.Tensor,
+                        input_lengths: torch.Tensor, carries: list
+                        ) -> tuple[torch.Tensor, list]:
+        """One chunk of each of B streams with the recurrent state carried
+        (JAX ``AcousticModel.apply_streaming``; unidirectional LSTM and GRU
+        stacks): inputs [B, T, F], input_lengths [B] the chunk's valid
+        frames (0: the stream's state holds), carries from
+        :meth:`init_stream_carries` or the last call -> (logits [B, T,
+        V+1], the new carries).  A whole utterance fed in chunks gives what
+        :meth:`forward` gives it."""
+        x = inputs.transpose(0, 1)
+        mask = (torch.arange(x.shape[0], device=x.device)[:, None]
+                < input_lengths[None, :]).to(x.dtype)[..., None]
+        if len(self.front):
+            for p in self.front:
+                x = torch.clamp(torch.relu(dense_apply(p, x)), 0.0,
+                                self.relu_clip)
+            x = x * mask
+        h, carries = self.rnn.apply_streaming(x, mask, carries)
+        return dense_apply(self.out, h).transpose(0, 1), carries
+
 
 def _hp(params, **defaults) -> HParams:
     hp = HParams(**defaults)

@@ -101,40 +101,66 @@ def _sort_desc(x: torch.Tensor) -> torch.Tensor:
     return torch.sort(x, dim=-1, descending=True, stable=True).indices
 
 
-def beam_search_plain(log_probs: torch.Tensor, lengths: torch.Tensor,
-                      beam_width: int, pad_id: int = -1, prune: int = 0,
-                      lm=None, lm_alpha: float = 1.0, lm_beta: float = 0.0
-                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The plain version of :func:`ctc_beam`: the reference's scan, batched
-    over B as [B, W] state tensors, a Python loop over T.
+class BeamState(NamedTuple):
+    """The beam state a stream carries from chunk to chunk (the JAX
+    ``beam_stream_init`` carry), in slot order, each [..., W]: lengths,
+    last char (-1: none), p_blank, p_nonblank, the two hash lanes (uint32
+    bits held in int32) and the LM context (0 without an LM)."""
+    lengths: torch.Tensor      # int32
+    last: torch.Tensor         # int32
+    p_b: torch.Tensor          # float32
+    p_nb: torch.Tensor         # float32
+    h1: torch.Tensor           # int32, the uint32 lane's bits
+    h2: torch.Tensor           # int32
+    lm: torch.Tensor           # int32
 
-    log_probs [B, T, V] float32 (a log-softmax, blank = V-1), lengths [B]
-    -> (prefixes [B, W, T] int32 padded with ``pad_id``, lengths [B, W]
-    int32, scores [B, W] float32), all W beams best first."""
+
+def beam_stream_init(beam_width: int, lm_state0: int = 0,
+                     device: torch.device | str = "cpu") -> BeamState:
+    """The initial state of a stream, [W] each (JAX ``beam_stream_init``):
+    beam 0 the empty prefix, the rest dead placeholders with the distinct
+    hashes ``0xDEAD0000 + w`` and ``0xBEEF0000 + w``.  ``lm_state0`` is the
+    LM's start context (``CharNGramLM.init_state()``), 0 without an LM."""
+    w_idx = torch.arange(beam_width, dtype=torch.int64, device=device)
+    i32 = dict(dtype=torch.int32, device=device)
+    p_b = torch.full((beam_width,), LOG_EPS, device=device)
+    p_b[0] = 0.0
+    h1, h2 = _DEAD1 + w_idx, _DEAD2 + w_idx
+    h1[0] = h2[0] = _HASH_INIT
+    return BeamState(torch.zeros(beam_width, **i32),
+                     torch.full((beam_width,), -1, **i32), p_b,
+                     torch.full((beam_width,), LOG_EPS, device=device),
+                     _to_bits(h1), _to_bits(h2),
+                     torch.full((beam_width,), lm_state0, **i32))
+
+
+def _to_bits(h: torch.Tensor) -> torch.Tensor:
+    """int64 in [0, 2^32) -> int32 with the same 32 bits."""
+    return torch.where(h >= 2 ** 31, h - 2 ** 32, h).to(torch.int32)
+
+
+def _beam_scan(log_probs: torch.Tensor, lengths: torch.Tensor, state: tuple,
+               width: int, prune: int, lm, lm_alpha: float, lm_beta: float
+               ) -> tuple[tuple, torch.Tensor, torch.Tensor]:
+    """The reference's scan from ``state`` (int64 lengths, last char and LM
+    context, float32 p_b and p_nb, int64 hash lanes in [0, 2^32), [B, W]
+    each), batched over B, a Python loop over the frames within
+    ``lengths`` -> (the final state, backpointers: parent and emitted char
+    (-1: none) [T', B, W], T' the longest length)."""
     batch, t_max, vocab = log_probs.shape
     dev = log_probs.device
     n_char, blank = vocab - 1, vocab - 1
     n_ext = n_char if prune <= 0 else min(prune, n_char)
-    width = beam_width
     i64 = dict(dtype=torch.int64, device=dev)
     w_idx = torch.arange(width, **i64)
     lengths = lengths.to(**i64)
-
-    lens = torch.zeros((batch, width), **i64)
-    last = torch.full((batch, width), -1, **i64)
-    p_b = log_probs.new_full((batch, width), LOG_EPS)
-    p_b[:, 0] = 0.0
-    p_nb = log_probs.new_full((batch, width), LOG_EPS)
-    h1 = (_DEAD1 + w_idx).expand(batch, width).clone()
-    h2 = (_DEAD2 + w_idx).expand(batch, width).clone()
-    h1[:, 0] = h2[:, 0] = _HASH_INIT
+    lens, last, p_b, p_nb, h1, h2, lm_state = state
+    p_b, p_nb = p_b.to(log_probs.dtype), p_nb.to(log_probs.dtype)
     if lm is not None:
         order, lm_mod = _lm_context(lm, n_char)
         lm_tab = _lm_table(lm, dev)
-        lm_state = torch.full((batch, width), lm.init_state(), **i64)
     else:
         order = 0
-        lm_state = torch.zeros((batch, width), **i64)
     all_chars = torch.arange(n_char, **i64).expand(batch, n_char)
 
     # frames past every length leave the state and emit nothing
@@ -206,19 +232,48 @@ def beam_search_plain(log_probs: torch.Tensor, lengths: torch.Tensor,
             zip(new, (lens, last, p_b, p_nb, h1, h2, lm_state)))
         bp_parent[t] = torch.where(valid, parent, w_idx)
         bp_char[t] = torch.where(valid & ~is_stay, ext_char, -1)
+    return (lens, last, p_b, p_nb, h1, h2, lm_state), bp_parent, bp_char
 
-    # walk the backpointers back from each final beam, then place each
-    # emitted char at its position
-    slots = w_idx.expand(batch, width)
-    chars_tw = torch.empty((t_run, batch, width), **i64)
+
+def _walk_back(bp_parent: torch.Tensor, bp_char: torch.Tensor, t_max: int,
+               pad_id: int) -> tuple[torch.Tensor, ...]:
+    """The backpointers walked back from each final slot (JAX
+    ``_materialize``) -> (prefixes [B, W, t_max] int64, each emitted char
+    at its position and ``pad_id`` past them, emits [B, W], the slot each
+    final beam started the span in [B, W])."""
+    t_run, batch, width = bp_parent.shape
+    slots = torch.arange(width, device=bp_parent.device).expand(batch, width)
+    chars_tw = torch.empty_like(bp_char)
     for t in reversed(range(t_run)):
         chars_tw[t] = torch.gather(bp_char[t], 1, slots)
         slots = torch.gather(bp_parent[t], 1, slots)
     emitted = chars_tw >= 0
     pos = torch.where(emitted, emitted.cumsum(0) - 1, t_max)
-    prefixes = torch.full((batch, width, t_max + 1), pad_id, **i64)
+    prefixes = torch.full((batch, width, t_max + 1), pad_id,
+                          dtype=torch.int64, device=bp_parent.device)
     prefixes.scatter_(2, pos.permute(1, 2, 0), chars_tw.permute(1, 2, 0))
-    prefixes = prefixes[..., :t_max]
+    return prefixes[..., :t_max], emitted.sum(0), slots
+
+
+def beam_search_plain(log_probs: torch.Tensor, lengths: torch.Tensor,
+                      beam_width: int, pad_id: int = -1, prune: int = 0,
+                      lm=None, lm_alpha: float = 1.0, lm_beta: float = 0.0
+                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plain version of :func:`ctc_beam`: the reference's scan, batched
+    over B as [B, W] state tensors, a Python loop over T.
+
+    log_probs [B, T, V] float32 (a log-softmax, blank = V-1), lengths [B]
+    -> (prefixes [B, W, T] int32 padded with ``pad_id``, lengths [B, W]
+    int32, scores [B, W] float32), all W beams best first."""
+    batch, t_max, _ = log_probs.shape
+    dev = log_probs.device
+    init = beam_stream_init(beam_width, 0 if lm is None else lm.init_state(),
+                            dev)
+    state, bp_parent, bp_char = _beam_scan(
+        log_probs, lengths, _working(init, batch), beam_width, prune, lm,
+        lm_alpha, lm_beta)
+    lens, _, p_b, p_nb = state[:4]
+    prefixes = _walk_back(bp_parent, bp_char, t_max, pad_id)[0]
 
     scores = _logadd(p_b, p_nb)
     order_w = _sort_desc(scores)
@@ -229,6 +284,43 @@ def beam_search_plain(log_probs: torch.Tensor, lengths: torch.Tensor,
                            prefixes, pad_id)
     return (prefixes.to(torch.int32), lens.to(torch.int32),
             torch.gather(scores, 1, order_w))
+
+
+def _working(state: BeamState, batch: int | None = None) -> tuple:
+    """A :class:`BeamState` ([B, W], or [W] broadcast to ``batch`` rows) as
+    :func:`_beam_scan` takes it: int64 integers, the hash lanes in [0,
+    2^32)."""
+    if batch is not None:
+        state = BeamState(*(t.expand(batch, -1) for t in state))
+    lens, last, p_b, p_nb, h1, h2, lm = state
+    i64 = [t.to(torch.int64) for t in (lens, last, h1, h2, lm)]
+    return (i64[0], i64[1], p_b.clone(), p_nb.clone(), i64[2] & _U32,
+            i64[3] & _U32, i64[4])
+
+
+def beam_stream_plain(log_probs: torch.Tensor, lengths: torch.Tensor,
+                      state: BeamState, beam_width: int, pad_id: int = -1,
+                      prune: int = 0, lm=None, lm_alpha: float = 1.0,
+                      lm_beta: float = 0.0) -> tuple:
+    """The plain version of :func:`ctc_beam_stream`: :func:`beam_search_plain`
+    started from ``state`` ([B, W] each) and left unsorted.
+
+    log_probs [B, T, V] float32 log-softmax of one chunk of B streams,
+    lengths [B] the chunk's valid frames -> (the final state, prefixes [B,
+    W, T] int32 (each slot's chars of the chunk, ``pad_id`` past them),
+    emits [B, W] int32, start_slots [B, W] int32 (the slot each beam began
+    the chunk in), scores [B, W] float32), in slot order."""
+    t_max = log_probs.shape[1]
+    fin, bp_parent, bp_char = _beam_scan(
+        log_probs, lengths, _working(state), beam_width, prune, lm,
+        lm_alpha, lm_beta)
+    prefixes, emits, start = _walk_back(bp_parent, bp_char, t_max, pad_id)
+    lens, last, p_b, p_nb, h1, h2, lm_ctx = fin
+    i32 = torch.int32
+    out = BeamState(lens.to(i32), last.to(i32), p_b, p_nb, _to_bits(h1),
+                    _to_bits(h2), lm_ctx.to(i32))
+    return (out, prefixes.to(i32), emits.to(i32), start.to(i32),
+            _logadd(p_b, p_nb))
 
 
 def _check_limits(beam_width: int, vocab: int) -> None:
@@ -295,6 +387,110 @@ def ctc_beam(log_probs: torch.Tensor, lengths: torch.Tensor,
 
 
 ctc_beam.launches = 0
+
+
+def ctc_beam_stream(log_probs: torch.Tensor, lengths: torch.Tensor,
+                    state: BeamState, beam_width: int, pad_id: int = -1,
+                    prune: int = 0, lm=None, lm_alpha: float = 1.0,
+                    lm_beta: float = 0.0) -> tuple:
+    """The stream form on a CUDA tensor: one launch of ``csrc/ctc_beam.cu``
+    (``asr_ctc_beam_stream``) for a chunk of B streams, counted with
+    :func:`ctc_beam`'s launches.  Arguments and results as
+    :func:`beam_stream_plain`'s; the kernel writes the new state into a
+    copy of ``state``, which stays as it was.  Raises beyond the kernel's
+    limits and for a tensor not on a CUDA device."""
+    batch, t_max, vocab = log_probs.shape
+    dev = log_probs.device
+    if dev.type != "cuda":
+        raise ValueError(f"ctc_beam_stream: no kernel for device {dev}")
+    if log_probs.dtype != torch.float32:
+        raise ValueError(f"ctc_beam_stream: log_probs must be float32, got "
+                         f"{log_probs.dtype}")
+    _check_limits(beam_width, vocab)
+    for name, t in zip(BeamState._fields, state):
+        want = torch.float32 if name.startswith("p_") else torch.int32
+        if (tuple(t.shape) != (batch, beam_width) or t.dtype != want
+                or t.device != dev):
+            raise ValueError(
+                f"ctc_beam_stream: state.{name} must be {want} "
+                f"{(batch, beam_width)} on {dev}, got {t.dtype} "
+                f"{tuple(t.shape)} on {t.device}")
+    n_char = vocab - 1
+    n_ext = n_char if prune <= 0 else min(prune, n_char)
+    lp = log_probs.contiguous()
+    lens_in = lengths.to(device=dev, dtype=torch.int32).contiguous()
+    new = BeamState(*(t.contiguous().clone() for t in state))
+    i32 = dict(dtype=torch.int32, device=dev)
+    prefixes = torch.empty((batch, beam_width, t_max), **i32)
+    emits = torch.empty((batch, beam_width), **i32)
+    start = torch.empty((batch, beam_width), **i32)
+    scores = torch.empty((batch, beam_width), dtype=torch.float32,
+                         device=dev)
+    if batch == 0:
+        return new, prefixes, emits, start, scores
+    bp = torch.empty((batch, max(t_max, 1), beam_width), **i32)
+    order, lm_mod, lm_ptr = 0, 1, 0
+    if lm is not None:
+        order, lm_mod = _lm_context(lm, n_char)
+        lm_ptr = _lm_table(lm, dev).data_ptr()
+    with torch.cuda.device(dev):
+        err = _build.lib().asr_ctc_beam_stream(
+            lp.data_ptr(), lens_in.data_ptr(), lm_ptr, bp.data_ptr(),
+            *(t.data_ptr() for t in new), prefixes.data_ptr(),
+            emits.data_ptr(), start.data_ptr(), scores.data_ptr(), batch,
+            t_max, vocab, beam_width, n_ext, pad_id, order, lm_mod, lm_alpha,
+            lm_beta, _HASH_MULT & _U32, _HASH_MULT2 & _U32,
+            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "ctc_beam_stream")
+    ctc_beam.launches += 1
+    return new, prefixes, emits, start, scores
+
+
+def _valid_frames(valid, t_max: int) -> int:
+    """A chunk's valid frames: a count, or a [t] bool mask that must be a
+    prefix (the streams pad only their ragged tail)."""
+    if isinstance(valid, (int, np.integer)):
+        return max(0, min(int(valid), t_max))
+    v = torch.as_tensor(np.asarray(valid) if not torch.is_tensor(valid)
+                        else valid).to("cpu", torch.bool)
+    n = int(v.sum())
+    if tuple(v.shape) != (t_max,) or not bool(v[:n].all()):
+        raise ValueError("beam_stream_chunk: valid must be a [t] mask of "
+                         "leading frames")
+    return n
+
+
+def beam_stream_chunk(log_probs: torch.Tensor, valid, state: BeamState,
+                      beam_width: int, blank_id: int, prune: int = 0,
+                      pad_id: int = -1, lm=None, lm_alpha: float = 1.0,
+                      lm_beta: float = 0.0) -> tuple:
+    """Advance one stream's beam over one chunk (JAX ``beam_stream_chunk``).
+
+    log_probs [t, V] a log-softmax (blank = V-1), ``valid`` the chunk's
+    valid frames (a count, or a [t] mask of leading frames), ``state`` [W]
+    each from :func:`beam_stream_init` or the previous chunk (with an LM,
+    ``beam_stream_init(W, lm.init_state())``) -> (state, prefixes [W, t],
+    emits [W], start_slots [W], scores [W]): beam w extends the previous
+    chunk's beam ``start_slots[w]`` by ``prefixes[w, :emits[w]]``.  The
+    beams stay in slot order; order by ``scores`` at the stream's end.  A
+    CUDA tensor launches the kernel (:func:`ctc_beam_stream`), a CPU one
+    takes :func:`beam_stream_plain`."""
+    t_max, vocab = log_probs.shape
+    if blank_id != vocab - 1:
+        raise ValueError("beam_stream_chunk requires blank as the last id")
+    dev = log_probs.device
+    if dev.type == "cuda":
+        run = ctc_beam_stream
+    elif dev.type == "cpu":
+        run = beam_stream_plain
+    else:
+        raise ValueError(f"beam_stream_chunk: no kernel for device {dev}")
+    lengths = torch.tensor([_valid_frames(valid, t_max)], dtype=torch.int32,
+                           device=dev)
+    out = run(log_probs[None], lengths, BeamState(*(t[None] for t in state)),
+              beam_width, pad_id, prune, lm, lm_alpha, lm_beta)
+    return (BeamState(*(t[0] for t in out[0])),
+            *(t[0] for t in out[1:]))
 
 
 def beam_search_decode(

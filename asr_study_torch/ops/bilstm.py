@@ -36,7 +36,11 @@ whose backward is the backward kernel plus one ``h_prev^T @ dxp`` matmul
 per direction for the recurrent weights.
 
 Gate order i, f, g, o with the bias folded into ``xp``.  Masked frames hold
-h and c.
+h and c.  :func:`lstm` and its plain twin start from a carried state
+``h0``, ``c0`` [B, H] where given (zeros elsewhere, as every bidirectional
+and whole-sequence call starts), so a stream's chunks thread the state
+that the last frame of h and c hands on (``models/rnn.py``
+``RNNLayer.apply_streaming``).
 """
 
 from __future__ import annotations
@@ -46,10 +50,10 @@ import torch
 from asr_study_torch import _build
 from asr_study_torch.models.cells import lstm_gates, lstm_update
 from asr_study_torch.ops.recurrence import (STREAM_ROWS, WIDE_UNITS,
-                                            Geometry, check, check_res,
-                                            cluster_geometry, cotangent,
-                                            kernel_info, prev, r4, stream,
-                                            wide_geometry)
+                                            Geometry, check, check_carry,
+                                            check_res, cluster_geometry,
+                                            cotangent, kernel_info, prev, r4,
+                                            stream, wide_geometry)
 
 # The cluster kernels' thread shape (csrc/bilstm_{fwd,bwd}.cu kThreads and
 # kSlice): 256 threads a CTA, each holding 128 rows of one gate column.
@@ -133,13 +137,15 @@ def cluster_info(geo: Geometry, batch: int, hidden: int, backward: bool
 
 
 def _scan(xp: torch.Tensor, mask: torch.Tensor, wh: torch.Tensor,
-          reverse: bool, keep_gates: bool = False) -> tuple[torch.Tensor, ...]:
+          reverse: bool, keep_gates: bool = False, h0=None, c0=None
+          ) -> tuple[torch.Tensor, ...]:
     """One direction's h and c sequences [T, B, H] in forward time order,
     and with ``keep_gates`` the activated gates [T, B, 4H] of every frame
-    (held ones too: the step computes them before the mask holds h, c)."""
+    (held ones too: the step computes them before the mask holds h, c);
+    from ``h0``, ``c0`` [B, H] where given, else zeros."""
     t_steps, batch, gh = xp.shape
-    h = xp.new_zeros((batch, gh // 4))
-    c = xp.new_zeros((batch, gh // 4))
+    h = xp.new_zeros((batch, gh // 4)) if h0 is None else h0
+    c = xp.new_zeros((batch, gh // 4)) if c0 is None else c0
     hs, cs, gs = [None] * t_steps, [None] * t_steps, [None] * t_steps
     for t in (reversed(range(t_steps)) if reverse else range(t_steps)):
         gs[t] = lstm_gates(xp[t], h, wh)
@@ -165,10 +171,12 @@ def bilstm_plain(xp_f: torch.Tensor, xp_b: torch.Tensor, mask: torch.Tensor,
 
 
 def lstm_plain(xp: torch.Tensor, mask: torch.Tensor, wh: torch.Tensor,
+               h0: torch.Tensor | None = None, c0: torch.Tensor | None = None,
                keep_gates: bool = False) -> tuple[torch.Tensor, ...]:
-    """Plain version of :func:`lstm`: (h, c), then with ``keep_gates`` (at
-    any width) the gates g [T, B, 4H]."""
-    return _scan(xp, mask, wh, False, keep_gates)
+    """Plain version of :func:`lstm`: (h, c) from ``h0``, ``c0`` (or
+    zeros), then with ``keep_gates`` (at any width) the gates g [T, B,
+    4H]."""
+    return _scan(xp, mask, wh, False, keep_gates, h0, c0)
 
 
 def _geometry(xp: torch.Tensor, ndir: int) -> Geometry:
@@ -176,12 +184,14 @@ def _geometry(xp: torch.Tensor, ndir: int) -> Geometry:
 
 
 def launch_fwd(geo: Geometry, xps: list, mask: torch.Tensor,
-               whs: list, keep_gates: bool = False) -> list:
+               whs: list, keep_gates: bool = False, h0=None, c0=None
+               ) -> list:
     """Launch the forward over ``len(xps)`` directions (the second one walks
     time backward) in the design and layout ``geo`` -> [h, c] per
     direction, flattened, then with ``keep_gates`` (the wide design only)
-    the activated gates [T, B, 4H] of each direction.  The wrappers count
-    the launches."""
+    the activated gates [T, B, 4H] of each direction.  ``h0``, ``c0``: the
+    state the directions start from, [ndir, B, H] contiguous, or None for
+    zeros.  The wrappers count the launches."""
     t_steps, batch, gh = xps[0].shape
     hidden, ndir = gh // 4, len(xps)
     outs = [torch.empty((t_steps, batch, hidden), dtype=torch.float32,
@@ -192,19 +202,21 @@ def launch_fwd(geo: Geometry, xps: list, mask: torch.Tensor,
     ptrs = (xps[0].data_ptr(), xps[-1].data_ptr(), mask.data_ptr(),
             whs[0].data_ptr(), whs[-1].data_ptr(), outs[0].data_ptr(),
             outs[1].data_ptr(), outs[-2].data_ptr(), outs[-1].data_ptr())
+    init = tuple(None if s is None else s.data_ptr() for s in (h0, c0))
     dims = (t_steps, batch, hidden, ndir)
     with torch.cuda.device(xps[0].device):
         if geo.design == "cluster":
             err = _build.lib().asr_bilstm_fwd(
-                *ptrs, *dims, geo.ctas, geo.units, geo.rows, stream(xps[0]))
+                *ptrs, *init, *dims, geo.ctas, geo.units, geo.rows,
+                stream(xps[0]))
         elif geo.design == "wide":
             g_ptrs = ((gates[0].data_ptr(), gates[-1].data_ptr())
                       if keep_gates else (None, None))
             err = _build.lib().asr_lstm_wide_fwd(
-                *ptrs, *g_ptrs, *dims, geo.ctas, geo.units, geo.rows,
+                *ptrs, *g_ptrs, *init, *dims, geo.ctas, geo.units, geo.rows,
                 stream(xps[0]))
         else:
-            err = _build.lib().asr_lstm_stream_fwd(*ptrs, *dims,
+            err = _build.lib().asr_lstm_stream_fwd(*ptrs, *init, *dims,
                                                    stream(xps[0]))
     _build.check(err, f"{'bilstm' if ndir == 2 else 'lstm'}_fwd "
                       f"({geo.design})")
@@ -249,20 +261,25 @@ bilstm.by_design = {"cluster": 0, "wide": 0, "stream": 0}
 
 
 def lstm(xp: torch.Tensor, mask: torch.Tensor, wh: torch.Tensor,
+         h0: torch.Tensor | None = None, c0: torch.Tensor | None = None,
          residual: bool = False) -> tuple:
     """One unidirectional LSTM layer's recurrence, forward only: xp [T, B,
     4H], mask [T, B, 1], wh [H, 4H] -> (h, c[, res]), h and c [T, B, H],
     ``res`` with ``residual`` (see :func:`bilstm`: the gates (g,) where the
-    wide design runs, else ``()``).  :class:`LSTMFunction` is the
-    differentiable form."""
+    wide design runs, else ``()``).  ``h0`` and ``c0`` [B, H], both or
+    neither, are the state the recurrence starts from (zeros where not
+    given); h[T-1] and c[T-1] are the state it ends in, a masked frame
+    repeating the one before.  :class:`LSTMFunction` is the differentiable
+    form."""
     check("lstm", 4, mask, dict(xp=xp), dict(wh=wh), {})
+    check_carry("lstm", xp, 4, h0=h0, c0=c0)
     geo = _geometry(xp, 1)
     keep = residual and geo.design == "wide"
     if xp.device.type == "cpu":
         with torch.no_grad():
-            outs = lstm_plain(xp, mask, wh, keep)
+            outs = lstm_plain(xp, mask, wh, h0, c0, keep)
     else:
-        outs = launch_fwd(geo, [xp], mask, [wh], keep)
+        outs = launch_fwd(geo, [xp], mask, [wh], keep, h0, c0)
         lstm.launches += 1
         lstm.by_design[geo.design] += 1
     return (*outs[:2], tuple(outs[2:])) if residual else tuple(outs)

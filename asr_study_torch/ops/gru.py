@@ -39,7 +39,11 @@ autograd graph: gradients go through :class:`BiGRUFunction` and
 ``h_prev^T @ dhp`` matmul per direction for the recurrent weights.
 
 Gate order r, z, n with every bias folded into ``xp`` (valid because
-``n = tanh((xn + bn) + r * hn)``).  Masked frames hold ``h``.
+``n = tanh((xn + bn) + r * hn)``).  Masked frames hold ``h``.  :func:`gru`
+and its plain twin start from a carried ``h0`` [B, H] where given (zeros
+elsewhere, as every bidirectional and whole-sequence call starts), so a
+stream's chunks thread the h that the last frame hands on
+(``models/rnn.py`` ``RNNLayer.apply_streaming``).
 """
 
 from __future__ import annotations
@@ -49,10 +53,10 @@ import torch
 from asr_study_torch import _build
 from asr_study_torch.models.cells import gru_update
 from asr_study_torch.ops.recurrence import (STREAM_ROWS, WIDE_UNITS,
-                                            Geometry, check, check_res,
-                                            cluster_geometry, cotangent,
-                                            kernel_info, prev, r4, stream,
-                                            wide_geometry)
+                                            Geometry, check, check_carry,
+                                            check_res, cluster_geometry,
+                                            cotangent, kernel_info, prev, r4,
+                                            stream, wide_geometry)
 
 # The cluster kernels' thread shape (csrc/gru_{fwd,bwd}.cu kThreads and
 # kSlice): 384 threads a CTA, each holding 64 rows of one gate column, so at
@@ -149,13 +153,14 @@ def gru_cluster_info(geo: Geometry, batch: int, hidden: int, backward: bool
 
 
 def _scan(xp: torch.Tensor, mask: torch.Tensor, wh: torch.Tensor,
-          reverse: bool, keep_hg: bool = False) -> tuple[torch.Tensor, ...]:
+          reverse: bool, keep_hg: bool = False, h0=None
+          ) -> tuple[torch.Tensor, ...]:
     """One direction's h sequence [T, B, H] in forward time order, and with
     ``keep_hg`` the h side of every frame's pre-activations ``h_prev @ wh``
     [T, B, 3H] (held frames too: the step computes it before the mask holds
-    h)."""
+    h); from ``h0`` [B, H] where given, else zeros."""
     t_steps, batch, gh = xp.shape
-    h = xp.new_zeros((batch, gh // 3))
+    h = xp.new_zeros((batch, gh // 3)) if h0 is None else h0
     hs, hgs = [None] * t_steps, [None] * t_steps
     for t in (reversed(range(t_steps)) if reverse else range(t_steps)):
         hg = torch.matmul(h, wh)
@@ -182,10 +187,10 @@ def bigru_plain(xp_f: torch.Tensor, xp_b: torch.Tensor, mask: torch.Tensor,
 
 
 def gru_plain(xp: torch.Tensor, mask: torch.Tensor, wh: torch.Tensor,
-              keep_hg: bool = False):
-    """Plain version of :func:`gru`: h, or with ``keep_hg`` (at any width)
-    (h, hg) with hg [T, B, 3H]."""
-    out = _scan(xp, mask, wh, False, keep_hg)
+              h0: torch.Tensor | None = None, keep_hg: bool = False):
+    """Plain version of :func:`gru`: h from ``h0`` (or zeros), or with
+    ``keep_hg`` (at any width) (h, hg) with hg [T, B, 3H]."""
+    out = _scan(xp, mask, wh, False, keep_hg, h0)
     return out if keep_hg else out[0]
 
 
@@ -194,12 +199,13 @@ def _geometry(xp: torch.Tensor, ndir: int) -> Geometry:
 
 
 def launch_fwd(geo: Geometry, xps: list, mask: torch.Tensor,
-               whs: list, keep_hg: bool = False) -> list:
+               whs: list, keep_hg: bool = False, h0=None) -> list:
     """Launch the forward over ``len(xps)`` directions (the second one walks
     time backward) in the design and layout ``geo`` -> one h sequence per
     direction, then with ``keep_hg`` (the wide design only) the h side of
-    the pre-activations [T, B, 3H] of each direction.  The wrappers count
-    the launches."""
+    the pre-activations [T, B, 3H] of each direction.  ``h0``: the h the
+    directions start from, [ndir, B, H] contiguous, or None for zeros.  The
+    wrappers count the launches."""
     t_steps, batch, gh = xps[0].shape
     hidden, ndir = gh // 3, len(xps)
     outs = [torch.empty((t_steps, batch, hidden), dtype=torch.float32,
@@ -210,19 +216,21 @@ def launch_fwd(geo: Geometry, xps: list, mask: torch.Tensor,
     ptrs = (xps[0].data_ptr(), xps[-1].data_ptr(), mask.data_ptr(),
             whs[0].data_ptr(), whs[-1].data_ptr(), outs[0].data_ptr(),
             outs[-1].data_ptr())
+    init = None if h0 is None else h0.data_ptr()
     dims = (t_steps, batch, hidden, ndir)
     with torch.cuda.device(xps[0].device):
         if geo.design == "cluster":
-            err = _build.lib().asr_gru_fwd(*ptrs, *dims, geo.ctas, geo.units,
-                                           geo.rows, stream(xps[0]))
+            err = _build.lib().asr_gru_fwd(*ptrs, init, *dims, geo.ctas,
+                                           geo.units, geo.rows,
+                                           stream(xps[0]))
         elif geo.design == "wide":
             hg_ptrs = ((hgs[0].data_ptr(), hgs[-1].data_ptr()) if keep_hg
                        else (None, None))
             err = _build.lib().asr_gru_wide_fwd(
-                *ptrs, *hg_ptrs, *dims, geo.ctas, geo.units, geo.rows,
+                *ptrs, *hg_ptrs, init, *dims, geo.ctas, geo.units, geo.rows,
                 stream(xps[0]))
         else:
-            err = _build.lib().asr_gru_stream_fwd(*ptrs, *dims,
+            err = _build.lib().asr_gru_stream_fwd(*ptrs, init, *dims,
                                                   stream(xps[0]))
     _build.check(err, f"{'bigru' if ndir == 2 else 'gru'}_fwd ({geo.design})")
     return outs + hgs
@@ -266,20 +274,23 @@ bigru.by_design = {"cluster": 0, "wide": 0, "stream": 0}
 
 
 def gru(xp: torch.Tensor, mask: torch.Tensor, wh: torch.Tensor,
-        residual: bool = False):
+        h0: torch.Tensor | None = None, residual: bool = False):
     """One unidirectional GRU layer's recurrence, forward only: xp [T, B,
     3H], mask [T, B, 1], wh [H, 3H] -> h [T, B, H], or with ``residual``
     (h, res), ``res`` as in :func:`bigru` (the h side (hg,) where the wide
-    design runs, else ``()``).  :class:`GRUFunction` is the differentiable
-    form."""
+    design runs, else ``()``).  ``h0`` [B, H] is the h the recurrence starts
+    from (zeros where not given); h[T-1] is the one it ends in, a masked
+    frame repeating the one before.  :class:`GRUFunction` is the
+    differentiable form."""
     check("gru", 3, mask, dict(xp=xp), dict(wh=wh), {})
+    check_carry("gru", xp, 3, h0=h0)
     geo = _geometry(xp, 1)
     keep = residual and geo.design == "wide"
     if xp.device.type == "cpu":
         with torch.no_grad():
-            outs = _scan(xp, mask, wh, False, keep)
+            outs = _scan(xp, mask, wh, False, keep, h0)
     else:
-        outs = launch_fwd(geo, [xp], mask, [wh], keep)
+        outs = launch_fwd(geo, [xp], mask, [wh], keep, h0)
         gru.launches += 1
         gru.by_design[geo.design] += 1
     return (outs[0], tuple(outs[1:])) if residual else outs[0]

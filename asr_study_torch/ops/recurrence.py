@@ -1,7 +1,8 @@
 """What the recurrence ops (``ops/bilstm.py``, ``ops/gru.py``,
 ``ops/ln_lstm.py``, ``ops/zoneout_lstm.py``, ``ops/mi_lstm.py``) share
-around their kernels: the argument check (and that of the residual the
-wide designs' forwards hand their backwards), the stream, the
+around their kernels: the argument check (and those of the residual the
+wide designs' forwards hand their backwards and of the state a
+unidirectional forward carries in), the stream, the
 scan-previous state of a sequence, the cotangent of an unused output, and
 the fit rules of the cluster-resident kernels (the LSTM's, the GRU's, the
 layer-norm, zoneout and MI LSTMs'; the wide rule, the LSTM's and the
@@ -161,6 +162,28 @@ def check(name: str, gates: int, mask: torch.Tensor, xps: dict, whs: dict,
     if first.device.type == "cuda" and not all(
             t.is_contiguous() for t, _ in want.values()):
         raise ValueError(f"{name}: the kernel takes contiguous tensors")
+
+
+def check_carry(name: str, xp: torch.Tensor, gates: int, **carry) -> None:
+    """The carried state a unidirectional forward starts from (``h0=``,
+    and for the LSTM ``c0=``): all None, or all [B, H] float32 on xp's
+    device, contiguous.  Raises ValueError."""
+    given = [k for k, v in carry.items() if v is not None]
+    if not given:
+        return
+    if len(given) != len(carry):
+        raise ValueError(f"{name}: give {' and '.join(carry)} together, "
+                         f"got only {', '.join(given)}")
+    want = (xp.shape[1], xp.shape[2] // gates)
+    for k, v in carry.items():
+        if tuple(v.shape) != want or v.dtype != torch.float32:
+            raise ValueError(f"{name}: {k} must be float32 {want}, got "
+                             f"{v.dtype} {tuple(v.shape)}")
+        if v.device != xp.device:
+            raise ValueError(f"{name}: {k} is on {v.device}, xp on "
+                             f"{xp.device}")
+        if not v.is_contiguous():
+            raise ValueError(f"{name}: {k} must be contiguous")
 
 
 def check_res(name: str, gates: int, geo: Geometry, mask: torch.Tensor,

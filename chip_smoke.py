@@ -49,7 +49,14 @@ paths at full width, with random weights from a seeded
   and with a char 3-gram LM fused; the deep_blstm 2x256 serving slice with
   ``beam_width=16`` through ``serve_batch``; ``cli.train_lm`` on the
   corpus manifest and ``cli.eval --beam_width 16`` with its LM and with
-  ``--blank_collapse 0.99``.
+  ``--blank_collapse 0.99``;
+- streaming (``predict --stream``): ``streaming.StreamingRecognizer`` on
+  60 s of audio in 1 s pushes, 128-frame chunks (as
+  ``benchmarks/bench_stream.py`` drives the JAX one), for unidirectional
+  ``deep_gru`` 2x256, ``deep_blstm`` 3x256 and ``deep_speech`` (the wide
+  LSTM kernel), greedy and deep_gru by beam16 with the LM, the recurrent
+  state and the beam state carried on the card from chunk to chunk; a
+  ``MultiStreamRecognizer`` of 32 streams; ``cli.predict --stream``.
 
 Phases, in order; any failure raises and the exit code is not 0:
 
@@ -129,7 +136,21 @@ Phases, in order; any failure raises and the exit code is not 0:
    search), the plain twin once; the
    beam serving slice's launches and transcripts against the plain twin
    on its logits, its ms a batch beside the greedy slice's; train_lm's
-   report, each beam eval's record and launches (one ctc_beam a batch).
+   report, each beam eval's record and launches (one ctc_beam a batch);
+10. the streaming phase: (a) the LSTM and GRU forwards on each route
+   (cluster at H=256, wide at H=512, stream at B=97) started from a
+   random carry, in chunks of 128 bit-equal to one launch over 512
+   frames, within the forward tolerance of the plain twin, no carry
+   bit-equal to a zero carry, ms a chunk at B=1 and B=32; (b) the beam
+   kernel's stream form bit-equal to beam_stream_plain in chunks of 7, 64
+   and 512 at W = 4, 16, 64 and with the LM, the spliced best paths equal
+   to the one-shot beam's, us a frame at W=16; (c) each recognizer's
+   launches (one forward a layer and chunk, one beam a chunk), its
+   transcript equal to the whole utterance's on the card, its logits
+   against the CPU plain streaming path, bench_stream.py's first-push
+   latency and stream and batch audio-s/s; (d) the 32 streams' ids each
+   equal to its own recognizer's, audio-s/s; (e) ``predict --stream``'s
+   JSON lines equal to ``predict``'s, greedy and beam16 with the LM.
 
 The deep_blstm pcm16 slice's wire unpack and features stage are split
 with CUDA events (``_prep``, fbank, the two deltas, ``_finalize``), and
@@ -4392,6 +4413,398 @@ def beam_cli_phase(dev: torch.device, card: str, manifest: str,
     return found, runs
 
 
+
+# the streaming phase (predict --stream, ROADMAP A10): the carry check's
+# sequence and chunk (T=512 in chunks of 128; each batch's first row ends
+# 12 frames into the last chunk, its last row is masked throughout); the
+# recognizers' chunk (bench_stream.py's chunk_frames) and pushes (its
+# chunk_seconds) on its 60 s utterance; 32 concurrent streams of 3-8 s
+STREAM_T, STREAM_CHUNK = 512, 128
+STREAM_PUSH_S, STREAM_AUDIO_S = 1.0, 60.0
+MULTI_STREAMS = 32
+# each forward route with a carry: family, H, B (the stream design by a
+# batch past the wide design's budget, as check_stream_h512 reaches it)
+CARRY_ROUTES = (("lstm", HIDDEN, BATCH), ("lstm", 512, BATCH),
+                ("lstm", 512, 97), ("gru", HIDDEN, BATCH),
+                ("gru", 512, BATCH), ("gru", 512, 97))
+# the beam's stream form: (chunk, W, with the LM)
+BEAM_STREAM_CASES = ((7, 16, False), (64, 16, False), (BEAM_T, 16, False),
+                     (64, 4, False), (64, 64, False), (64, 16, True))
+# the recognizers' models at full width: label -> (zoo model, hparams,
+# kernel line row of its forward)
+STREAM_MODELS = {
+    "deep_gru 2x256 uni": ("deep_gru", f"num_hiddens={HIDDEN},num_layers=2,"
+                           "bidirectional=false", "gru_fwd"),
+    "deep_blstm 3x256 uni": ("deep_blstm", "bidirectional=false",
+                             "lstm_fwd"),
+    "deep_speech uni": ("deep_speech", "bidirectional=false",
+                        "lstm_fwd_wide"),
+}
+
+
+def check_stream_carries(dev: torch.device, card: str) -> None:
+    """(a) Each of the six LSTM and GRU forward routes started from a
+    random non-zero carry: in chunks of STREAM_CHUNK threading h[-1] (and
+    c[-1]) bit-equal to one launch over STREAM_T frames; within the
+    forward tolerance of the plain twin started from the same carry; no
+    carry bit-equal to an explicit zero carry; ms a chunk at B=1 and at
+    the route's batch."""
+    from asr_study_torch.ops.bilstm import lstm, lstm_geometry, lstm_plain
+    from asr_study_torch.ops.gru import gru, gru_geometry, gru_plain
+
+    g = torch.Generator().manual_seed(SEED + 40)
+    for family, h, b in CARRY_ROUTES:
+        fn, plain, geometry, gates, tol = (
+            (lstm, lstm_plain, lstm_geometry, 4, (BILSTM_ATOL, BILSTM_RTOL))
+            if family == "lstm" else
+            (gru, gru_plain, gru_geometry, 3, (GRU_ATOL, GRU_RTOL)))
+        design = geometry(h, b, 1).design
+        xp = torch.randn(STREAM_T, b, gates * h, generator=g).to(dev)
+        wh = (torch.randn(h, gates * h, generator=g) / h ** 0.5).to(dev)
+        lengths = torch.randint(1, STREAM_T + 1, (b,), generator=g)
+        lengths[0], lengths[-1] = STREAM_T - 12, 0
+        mask = mask_of(lengths, STREAM_T, dev)
+        init = [(0.5 * torch.randn(b, h, generator=g)).to(dev)
+                for _ in range(2 if family == "lstm" else 1)]
+
+        def run(x, m, *carry):
+            out = fn(x, m, wh, *carry)
+            return out if isinstance(out, tuple) else (out,)
+
+        with torch.inference_mode():
+            whole = run(xp, mask, *init)
+            chunks, carry = [], init
+            for lo in range(0, STREAM_T, STREAM_CHUNK):
+                out = run(xp[lo: lo + STREAM_CHUNK].contiguous(),
+                          mask[lo: lo + STREAM_CHUNK].contiguous(), *carry)
+                chunks.append(out)
+                carry = [o[-1] for o in out]
+            null = run(xp, mask)
+            zeros = run(xp, mask, *[torch.zeros_like(i) for i in init])
+            want = plain(xp, mask, wh, *init)
+            want = want if isinstance(want, tuple) else (want,)
+        torch.cuda.synchronize()
+        require(all(torch.equal(torch.cat([c[k] for c in chunks]), seq)
+                    for k, seq in enumerate(whole)),
+                f"{family} {design}: the chunked carry differs from one "
+                "launch")
+        require(all(torch.equal(a, z) for a, z in zip(null, zeros)),
+                f"{family} {design}: no carry differs from a zero carry")
+        err = max(float((a - w).abs().max()) for a, w in zip(whole, want))
+        require(all(within(a, w, *tol) for a, w in zip(whole, want)),
+                f"{family} {design} with a carry disagrees with plain by "
+                f"{err:.3e}")
+        times = []
+        for rows in ((1, b) if b == BATCH else (b,)):
+            args = (xp[:STREAM_CHUNK, :rows].contiguous(),
+                    mask[:STREAM_CHUNK, :rows].contiguous(),
+                    *[i[:rows].contiguous() for i in init])
+            with torch.inference_mode():
+                times.append(f"B={rows} {cuda_ms(lambda: run(*args), 10):.4f}"
+                             f" ms")
+        print(f"stream carry, {family}_fwd {design} design, H={h} B={b} "
+              f"T={STREAM_T} in chunks of {STREAM_CHUNK} from a random "
+              f"carry: chunked bit-equal to one launch, no carry bit-equal "
+              f"to zeros, vs plain max_abs_err={err:.3e} (tol {tol[0]:g} + "
+              f"{tol[1]:g}*|plain|)")
+        print(f"[{card}] stream carry, {family}_fwd {design} design, H={h}: "
+              f"a chunk of {STREAM_CHUNK} frames {', '.join(times)}")
+
+
+def check_beam_stream(dev: torch.device, card: str, lm) -> None:
+    """(b) The beam kernel's stream form against beam_stream_plain on the
+    beam phase's emissions, chunk by chunk (BEAM_STREAM_CASES): state,
+    prefixes, emits, start slots and scores bit for bit; each row's best
+    prefix spliced over the chunks equal to ctc_beam's one-shot best path;
+    the stream form's us a frame at W=16 at B=1 and B=32."""
+    from asr_study_torch.ops import beam
+
+    logits, lens = beam_emissions(dev)
+    lp = torch.log_softmax(logits, -1)
+    for chunk, width, with_lm in BEAM_STREAM_CASES:
+        kw = dict(lm=lm, **BEAM_LM) if with_lm else {}
+        init = beam.beam_stream_init(width, lm.init_state() if with_lm
+                                     else 0, dev)
+        state = beam.BeamState(*(s[None].repeat(BEAM_B, 1) for s in init))
+        spliced = [[[] for _ in range(width)] for _ in range(BEAM_B)]
+        for lo in range(0, BEAM_T, chunk):
+            n = (lens - lo).clamp(0, chunk)
+            got = beam.ctc_beam_stream(lp[:, lo: lo + chunk], n, state,
+                                       width, **kw)
+            want = beam.beam_stream_plain(lp[:, lo: lo + chunk], n, state,
+                                          width, **kw)
+            require(all(torch.equal(a, b) for a, b in zip(got[0], want[0]))
+                    and all(torch.equal(a, b)
+                            for a, b in zip(got[1:], want[1:])),
+                    f"ctc_beam stream form, chunk {chunk} W={width}: differs"
+                    f" from beam_stream_plain at frame {lo}")
+            state = got[0]
+            pref, emits, start = (x.cpu() for x in got[1:4])
+            spliced = [[spliced[r][int(start[r, w])]
+                        + pref[r, w, : int(emits[r, w])].tolist()
+                        for w in range(width)] for r in range(BEAM_B)]
+        one = beam.ctc_beam(lp, lens, width, **kw)
+        best = beam._sort_desc(got[4])[:, 0].cpu()
+        same = sum(spliced[r][int(best[r])]
+                   == one[0][r, 0, : int(one[1][r, 0])].tolist()
+                   for r in range(BEAM_B))
+        require(same == BEAM_B, f"ctc_beam stream form, chunk {chunk} "
+                f"W={width}: spliced best paths equal the one-shot beam's "
+                f"in {same}/{BEAM_B} rows")
+        print(f"ctc_beam stream form vs plain, chunks of {chunk} W={width}"
+              f"{' LM order %d' % lm.order if with_lm else ''}: state, "
+              f"prefixes, emits, start slots and scores bit-equal in every "
+              f"chunk; spliced best paths equal to ctc_beam's one-shot "
+              f"{same}/{BEAM_B}")
+    width, chunk = BEAM_SERVE_W, STREAM_CHUNK
+    init = beam.beam_stream_init(width, 0, dev)
+    for rows in (1, BEAM_B):
+        state = beam.BeamState(*(s[None].repeat(rows, 1) for s in init))
+        x = lp[:rows, :chunk].contiguous()
+        n = lens[:rows].clamp(0, chunk)
+        ms = cuda_ms(lambda: beam.ctc_beam_stream(x, n, state, width), 10)
+        print(f"[{card}] ctc_beam stream form W={width}, a chunk of {chunk} "
+              f"frames at B={rows}: {ms:.4f} ms, {1e3 * ms / chunk:.3f} us a "
+              f"frame")
+
+
+def synth_long(seconds: float, seed: int) -> np.ndarray:
+    """bench_stream.py's utterance: a 180 Hz tone and white noise."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(seconds * SR)) / SR
+    return (0.4 * np.sin(2 * np.pi * 180 * t)
+            + 0.05 * rng.standard_normal(len(t))).astype(np.float32)
+
+
+def stream_logits(model, feats: np.ndarray, chunk: int) -> torch.Tensor:
+    """apply_streaming over ``feats`` [T, F] in chunks of ``chunk`` (the
+    last ragged, padded and masked) -> logits [T, V+1] on the CPU."""
+    dev = next(model.parameters()).device
+    carries, out = model.init_stream_carries(1), []
+    for lo in range(0, len(feats), chunk):
+        n = min(chunk, len(feats) - lo)
+        x = np.zeros((1, chunk, feats.shape[1]), np.float32)
+        x[0, :n] = feats[lo: lo + n]
+        logits, carries = model.apply_streaming(
+            torch.from_numpy(x).to(dev),
+            torch.full((1,), n, dtype=torch.int32, device=dev), carries)
+        out.append(logits[0, :n].cpu())
+    return torch.cat(out)
+
+
+def recognizer_runs(dev: torch.device, card: str, lm) -> tuple:
+    """(c) StreamingRecognizer at full width on STREAM_AUDIO_S of audio in
+    pushes of STREAM_PUSH_S (chunk_frames STREAM_CHUNK) for each of
+    STREAM_MODELS, greedy, and deep_gru by beam16 with ``lm``: launches
+    counted from 0 (one forward a layer and chunk, one beam a chunk), the
+    transcript equal to the whole utterance's on the card
+    (predict_host_features), the chunked logits against the CPU plain
+    streaming path; bench_stream.py's numbers -> (the launches of each
+    run, the deep_gru model)."""
+    from asr_study_torch.cli.predict import predict_host_features
+    from asr_study_torch.features.audio import MFCC
+    from asr_study_torch.models.zoo import build_model
+    from asr_study_torch.ops.beam import BeamConfig
+    from asr_study_torch.streaming import StreamingRecognizer
+
+    feature = MFCC()
+    wav = synth_long(STREAM_AUDIO_S, SEED)
+    feats = feature(wav)
+    n_chunks = -(-len(feats) // STREAM_CHUNK)
+    step = int(STREAM_PUSH_S * SR)
+    runs, models = [], {}
+    cases = [(label, 0) for label in STREAM_MODELS] + [
+        ("deep_gru 2x256 uni", BEAM_SERVE_W)]
+    for i, (label, width) in enumerate(cases):
+        name, hp, row = STREAM_MODELS[label]
+        if label not in models:
+            models[label] = build_model(
+                name, hp, num_classes=NUM_CLASSES, input_dim=39,
+                generator=torch.Generator().manual_seed(SEED + 50 + i),
+                device=dev).eval()
+        model = models[label]
+        kw = dict(beam_width=width, lm=lm, **BEAM_LM) if width else {}
+
+        def stream(audio):
+            rec = StreamingRecognizer(model, feature,
+                                      chunk_frames=STREAM_CHUNK, **kw)
+            t0 = time.perf_counter()
+            rec.push(audio[:step])
+            first = time.perf_counter() - t0
+            for lo in range(step, len(audio), step):
+                rec.push(audio[lo: lo + step])
+            ids = rec.finish()
+            torch.cuda.synchronize()
+            return ids, first, time.perf_counter() - t0
+
+        stream(wav[: 2 * STREAM_CHUNK * 160])           # warm-up
+        reset_counts()
+        ids, first, wall = stream(wav)
+        launches = read_counts()
+        want = {row: len(model.rnn.layers) * n_chunks}
+        if width:
+            want["ctc_beam"] = n_chunks
+        require(launches == want, f"stream {label}: launches {launches}, "
+                f"want {want}")
+        runs.append(launches)
+        beam_cfg = (BeamConfig(width, 0, lm, **BEAM_LM) if width else None)
+        predict_host_features(model, feature, [wav[:step]], dev, beam_cfg)
+        t0 = time.perf_counter()
+        whole = predict_host_features(model, feature, [wav], dev, beam_cfg)
+        torch.cuda.synchronize()
+        batch_wall = time.perf_counter() - t0
+        require(ids == whole[0].tolist(), f"stream {label}: transcript "
+                f"differs from the whole utterance's ({len(ids)} against "
+                f"{len(whole[0])} ids)")
+        decoder = f"beam{width}+lm" if width else "greedy"
+        err = None
+        if not width:
+            got = stream_logits(model, feats, STREAM_CHUNK)
+            ref = stream_logits(copy.deepcopy(model).to("cpu"), feats,
+                                STREAM_CHUNK)
+            err = float((got - ref).abs().max())
+            require(err <= LOGITS_TOL, f"stream {label}: logits differ "
+                    f"from the CPU plain streaming path by {err:.3e}")
+        print(f"stream {label} {decoder}: {STREAM_AUDIO_S:g} s of audio, "
+              f"{len(feats)} frames in {n_chunks} chunks of {STREAM_CHUNK}, "
+              f"pushes of {STREAM_PUSH_S:g} s; launches {launches}; "
+              f"transcript ({len(ids)} ids) equal to the whole utterance's "
+              f"on the card"
+              + ("" if err is None else
+                 f"; logits vs the CPU plain streaming path max_abs_err="
+                 f"{err:.3e} (tol {LOGITS_TOL:g})"))
+        print(f"[{card}] stream {label} {decoder} (bench_stream.py's "
+              f"numbers): first_chunk_latency_ms {1e3 * first:.1f} (the "
+              f"first {STREAM_PUSH_S:g} s push), stream "
+              f"{STREAM_AUDIO_S / wall:.1f} audio-s/s, batch "
+              f"{STREAM_AUDIO_S / batch_wall:.1f} audio-s/s (host features "
+              f"+ one forward over the utterance + decode)")
+    return runs, models["deep_gru 2x256 uni"]
+
+
+def multi_stream_run(dev: torch.device, card: str, model) -> dict:
+    """(d) MultiStreamRecognizer, MULTI_STREAMS streams of 3-8 s at
+    chunk_frames STREAM_CHUNK, pushes of 0.3-1.2 s interleaved with ticks,
+    finished in a shuffled order: launches counted from 0, each stream's
+    ids equal to its own StreamingRecognizer's -> the launches."""
+    from asr_study_torch.features.audio import MFCC
+    from asr_study_torch.streaming import (MultiStreamRecognizer,
+                                           StreamingRecognizer)
+
+    rng = np.random.RandomState(SEED + 60)
+    wavs = [synth_long(rng.uniform(*SECONDS), SEED + 61 + i)
+            for i in range(MULTI_STREAMS)]
+    steps = [int(rng.uniform(0.3, 1.2) * SR) for _ in wavs]
+    order = rng.permutation(MULTI_STREAMS)
+    feature = MFCC()
+    reset_counts()
+    t0 = time.perf_counter()
+    multi = MultiStreamRecognizer(model, feature, MULTI_STREAMS,
+                                  chunk_frames=STREAM_CHUNK)
+    offs = [0] * MULTI_STREAMS
+    while any(o < len(w) for o, w in zip(offs, wavs)):
+        for i, w in enumerate(wavs):
+            if offs[i] < len(w):
+                multi.push(i, w[offs[i]: offs[i] + steps[i]])
+                offs[i] += steps[i]
+        multi.tick()
+    got = {int(i): multi.finish(int(i)) for i in order}
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    require(set(launches) == {"gru_fwd"}
+            and launches["gru_fwd"] % len(model.rnn.layers) == 0,
+            f"multi-stream launches {launches}")
+    same = 0
+    for i, w in enumerate(wavs):
+        rec = StreamingRecognizer(model, feature, chunk_frames=STREAM_CHUNK)
+        rec.push(w)
+        same += rec.finish() == got[i]
+    require(same == MULTI_STREAMS, f"multi-stream: {same}/{MULTI_STREAMS} "
+            "streams equal to their own recognizer's")
+    audio = sum(len(w) for w in wavs) / SR
+    print(f"multi-stream deep_gru 2x256 uni: {MULTI_STREAMS} streams, "
+          f"{audio:.1f} s of audio, "
+          f"{launches.get('gru_fwd', 0) // len(model.rnn.layers)} ticks, "
+          f"finished in a shuffled order; launches {launches}; each "
+          f"stream's ids equal to its own StreamingRecognizer's "
+          f"{same}/{MULTI_STREAMS}")
+    print(f"[{card}] multi-stream deep_gru 2x256 uni, {MULTI_STREAMS} "
+          f"streams: {audio / wall:.1f} audio-s/s ({wall:.2f} s of host "
+          f"time, features on the host)")
+    return launches
+
+
+def stream_cli_runs(card: str, tmp: str, model, lm_path: str) -> list:
+    """(e) ``cli.predict --stream`` on the card, greedy (three wavs as
+    concurrent streams) and ``--beam_width 16 --lm``, on an .npz of
+    ``model``: launches counted from 0, the JSON lines equal to ``predict``
+    without ``--stream`` on the same weights -> the launches."""
+    from asr_study_torch.cli import predict
+    from asr_study_torch.features.wav import write_wav
+    from asr_study_torch.text.parser import CharParser
+    from asr_study_torch.utils.weights import flat_from_params
+
+    name, hp, _ = STREAM_MODELS["deep_gru 2x256 uni"]
+    npz = os.path.join(tmp, "stream_uni.npz")
+    meta = {"model": name, "params": hp, "num_feats": 39,
+            "num_classes": NUM_CLASSES, "vocab": CharParser().vocab,
+            "blank_id": NUM_CLASSES}
+    np.savez(npz, __meta__=json.dumps(meta),
+             **flat_from_params(model.state_dict()))
+    rng = np.random.RandomState(SEED + 70)
+    paths = []
+    for i in range(3):
+        paths.append(os.path.join(tmp, f"stream_{i}.wav"))
+        write_wav(paths[-1], synth_long(rng.uniform(*SECONDS), SEED + 71 + i))
+    runs = []
+    for extra, label in (([], "greedy"),
+                         (["--beam_width", str(BEAM_SERVE_W), "--lm",
+                           lm_path], f"beam{BEAM_SERVE_W}+lm")):
+        lines = {}
+        for stream in (True, False):
+            out = io.StringIO()
+            if stream:
+                reset_counts()
+            with contextlib.redirect_stdout(out):
+                require(predict.main(["--weights", npz, *extra, *paths,
+                                      *(["--stream"] if stream else [])])
+                        == 0, "predict failed")
+            if stream:
+                torch.cuda.synchronize()
+                launches = read_counts()
+                runs.append(launches)
+            lines[stream] = [json.loads(x) for x in
+                             out.getvalue().strip().splitlines()]
+        require(lines[True] == lines[False] and len(lines[True]) == 3,
+                f"predict --stream {label}: {lines[True]} against "
+                f"{lines[False]}")
+        require(launches.get("gru_fwd", 0) > 0
+                and (not extra or launches.get("ctc_beam", 0) > 0),
+                f"predict --stream {label}: launches {launches}")
+        print(f"cli predict --stream {label} on 3 wavs: JSON lines equal to "
+              f"predict without --stream; launches {launches}")
+    return runs
+
+
+def streaming_phase(dev: torch.device, card: str, tmp: str) -> list:
+    """The streaming phase (predict --stream): (a) the forward kernels'
+    carried state on each route, (b) the beam kernel's stream form, then
+    the main paths with launches counted: (c) StreamingRecognizer at full
+    width, (d) MultiStreamRecognizer with MULTI_STREAMS streams, (e) the
+    CLI -> each main path's launches."""
+    from asr_study_torch.text.lm import CharNGramLM
+
+    lm_path = os.path.join(tmp, "lm3.npz")
+    lm = CharNGramLM.load(lm_path)
+    check_stream_carries(dev, card)
+    check_beam_stream(dev, card, lm)
+    runs, gru_model = recognizer_runs(dev, card, lm)
+    runs.append(multi_stream_run(dev, card, gru_model))
+    runs += stream_cli_runs(card, tmp, gru_model, lm_path)
+    return runs
+
+
 def main() -> int:
     t_start = time.perf_counter()
     clock = PhaseClock()
@@ -4734,7 +5147,10 @@ def main() -> int:
         clock.mark("h5 phase")
         beam_kernel, runs = beam_cli_phase(dev, card, manifest, run_dir, tmp)
         path_launches += runs
-    clock.mark("beam phase")
+        clock.mark("beam phase")
+        # 10. the streaming phase: predict --stream's carried state
+        path_launches += streaming_phase(dev, card, tmp)
+    clock.mark("streaming phase")
 
     # the kernels line -------------------------------------------------------
     measured = {

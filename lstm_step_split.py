@@ -767,24 +767,24 @@ def main() -> int:
             h, c = mi_lstm(xp, mask, wh, al, b1, b2, bias)
             ptrs = (xp, xp, mask, wh, wh, *mi, h, c, h, c, seqs[1], seqs[1],
                     *outs[:2])
-        elif kernel == "bilstm_fwd":    # h_f, c_f, h_b, c_b
-            ptrs = (xp, xp, mask, wh, wh, *outs)
-        elif kernel == "lstm_wide_fwd":  # h_f, c_f, h_b, c_b; no gates
+        elif kernel == "bilstm_fwd":    # h_f, c_f, h_b, c_b; zero state
             ptrs = (xp, xp, mask, wh, wh, *outs, None, None)
+        elif kernel == "lstm_wide_fwd":  # h_f, c_f, h_b, c_b; no gates
+            ptrs = (xp, xp, mask, wh, wh, *outs, None, None, None, None)
         elif kernel == "lstm_wide_bwd":  # gates, c, dh; dxp of each lane
             # the gates and c from the forward
             _, c, (gts,) = lstm(xp, mask, wh, residual=True)
             ptrs = (gts, gts, mask, wh, wh, c, c, seqs[1], seqs[1],
                     *outs[:2])
-        elif kernel == "gru_wide_fwd":  # h_f, h_b; no hg
-            ptrs = (xp, xp, mask, wh, wh, *outs[:2], None, None)
+        elif kernel == "gru_wide_fwd":  # h_f, h_b; no hg; zero state
+            ptrs = (xp, xp, mask, wh, wh, *outs[:2], None, None, None)
         elif kernel == "gru_wide_bwd":  # xp, hg, h, dh; dxp, dhp each lane
             # h and hg from the forward
             h, (hg,) = gru(xp, mask, wh, residual=True)
             ptrs = (xp, xp, hg, hg, mask, wh, wh, h, h, seqs[1], seqs[1],
                     *outs)
-        elif kernel == "gru_fwd":       # h_f, h_b
-            ptrs = (xp, xp, mask, wh, wh, *outs[:2])
+        elif kernel == "gru_fwd":       # h_f, h_b; zero state
+            ptrs = (xp, xp, mask, wh, wh, *outs[:2], None)
         else:                           # h, dh; dxp_f, dhp_f, dxp_b, dhp_b
             ptrs = (xp, xp, mask, wh, wh, seqs[0], seqs[0], seqs[1],
                     seqs[1], *outs)

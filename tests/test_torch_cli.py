@@ -150,7 +150,8 @@ def test_predict_serves_exported_lstm_zoo(artifact, tmp_path, capsys, name,
 ])
 def test_unported_options_refused(artifact, flag):
     npz, paths, _, _ = artifact
-    with pytest.raises(SystemExit, match="ROADMAP queue A item 10"):
+    with pytest.raises(SystemExit, match="--stream is host-featurized "
+                       "decoding; it excludes --on_device"):
         predict.main(["--weights", npz, "--device", "cpu", "--on_device",
                       *flag, *paths])
 

@@ -1,7 +1,7 @@
 """The port's copies of the JAX package's host modules (features/audio.py,
 features/wav.py, text/parser.py, text/lm.py, utils/hparams.py,
-utils/metrics_writer.py) give what their originals give on the same
-inputs."""
+utils/metrics_writer.py, and the host parts of streaming.py) give what
+their originals give on the same inputs."""
 
 import csv
 import os
@@ -10,11 +10,13 @@ import numpy as np
 import pytest
 from scipy.signal import resample_poly as scipy_resample_poly
 
+from asr_study_torch import streaming
 from asr_study_torch.features import audio, wav
 from asr_study_torch.text import lm as port_lm
 from asr_study_torch.text.parser import CharParser
 from asr_study_torch.utils.hparams import HParams
 from asr_study_torch.utils.metrics_writer import MetricWriter
+from asr_study_tpu import streaming as jstreaming
 from asr_study_tpu.features import audio as jaudio
 from asr_study_tpu.features import wav as jwav
 from asr_study_tpu.text import lm as jax_lm
@@ -169,3 +171,31 @@ def test_ngram_lm_saved_by_either_loads_in_the_other(tmp_path):
         port_lm.check_lm_vocab(other, parser.vocab)
     port_lm.check_lm_vocab(port_lm.CharNGramLM(saved.logp, 3, 0),
                            parser.vocab)
+
+
+@pytest.mark.parametrize("sizes", [(1, 0, 7, 2, 13, 3, 15), (41,)],
+                         ids=["uneven", "whole"])
+def test_streaming_host_parts_equal_the_original(sizes):
+    """streaming.py's copies: the delta stream on rows pushed in runs of
+    ``sizes`` then flushed, the featurizer's numbers of features and the
+    greedy collapse on chunks of one-hot rows, bit for bit."""
+    rng = np.random.RandomState(len(sizes))
+    rows = rng.randn(sum(sizes), 5)
+    port, orig = streaming._DeltaStream(2), jstreaming._DeltaStream(2)
+    lo = 0
+    for n in sizes:
+        np.testing.assert_array_equal(port.push(rows[lo: lo + n], False),
+                                      orig.push(rows[lo: lo + n], False))
+        lo += n
+    np.testing.assert_array_equal(port.push(rows[:0], True),
+                                  orig.push(rows[:0], True))
+    for kind in ("MFCC", "LogFbank", "FBank"):
+        assert streaming.StreamingFeaturizer(
+            getattr(audio, kind)()).num_feats == \
+            jstreaming.StreamingFeaturizer(getattr(jaudio, kind)()).num_feats
+    onehot = np.eye(4)[rng.randint(0, 4, 50)]
+    port_g, orig_g = streaming.GreedyStream(3), jstreaming.GreedyStream(3)
+    for chunk in np.array_split(onehot, len(sizes) + 2):
+        port_g.push(chunk)
+        orig_g.push(chunk)
+    assert port_g.ids == orig_g.ids and port_g.ids

@@ -2087,3 +2087,159 @@ def test_h5_round_trip_on_card_machine(cuda, tmp_path):
             it = DatasetGenerator(batch_size=32).flow_from_h5(path, "train",
                                                               lazy=lazy)
             assert sum(b.weights.sum() for b in it.epoch(seed=0)) == 300
+
+
+# -- streaming: carried state in the forward kernels, the beam's stream form -
+
+# each forward route of the LSTM and the GRU with a carry: the cluster
+# design at H=256 (and H=100, ragged over the cluster), the wide design at
+# H=512, the stream design by a batch past the wide design's budget
+CARRY_ROUTES = [("lstm", 256, 5, "cluster"), ("lstm", 100, 3, "cluster"),
+                ("lstm", 512, 5, "wide"), ("lstm", 512, 97, "stream"),
+                ("gru", 256, 5, "cluster"), ("gru", 512, 5, "wide"),
+                ("gru", 512, 97, "stream")]
+CARRY_TOL = dict(rtol=1e-5, atol=1e-4)   # chip_smoke.py's forward bounds
+
+
+def _carry_case(cuda, family, t, b, h, seed):
+    """xp, mask (the last row masked on every frame), wh and a non-zero
+    carry [(h0, c0) or (h0,)], on the card."""
+    g = torch.Generator().manual_seed(seed)
+    gates = 4 if family == "lstm" else 3
+    xp = torch.randn(t, b, gates * h, generator=g)
+    wh = torch.randn(h, gates * h, generator=g) / h ** 0.5
+    lengths = torch.randint(1, t + 1, (b,), generator=g)
+    lengths[0], lengths[-1] = t, 0
+    mask = (torch.arange(t)[:, None] < lengths[None, :]).float()[..., None]
+    init = [0.5 * torch.randn(b, h, generator=g)
+            for _ in range(2 if family == "lstm" else 1)]
+    return (xp.to(cuda), mask.to(cuda), wh.to(cuda),
+            [i.to(cuda) for i in init])
+
+
+def _as_tuple(out):
+    return out if isinstance(out, tuple) else (out,)
+
+
+@pytest.mark.parametrize("family,h,b,design", CARRY_ROUTES,
+                         ids=[f"{f}-{h}-{b}-{d}"
+                              for f, h, b, d in CARRY_ROUTES])
+def test_carried_state_routes(cuda, family, h, b, design):
+    """Each forward route started from a non-zero carry: against its plain
+    twin at the forward tolerance; run in chunks of 16 frames (a ragged
+    last one) threading h[-1] (and c[-1]) equal to one launch over the
+    sequence bit for bit; no carry equal to an explicit zero carry bit for
+    bit; the masked row holding its carry on every frame; every launch
+    counted under the route."""
+    t = 45
+    xp, mask, wh, init = _carry_case(cuda, family, t, b, h, seed=h + b)
+    fn, plain, geometry = ((lstm, lstm_plain, lstm_geometry)
+                           if family == "lstm" else
+                           (gru, gru_plain, gru_geometry))
+    assert geometry(h, b, 1).design == design
+    before = dict(fn.by_design)
+    whole = _as_tuple(fn(xp, mask, wh, *init))
+    chunks, carry = [], init
+    for lo in range(0, t, 16):
+        out = _as_tuple(fn(xp[lo: lo + 16].contiguous(),
+                           mask[lo: lo + 16].contiguous(), wh, *carry))
+        chunks.append(out)
+        carry = [o[-1] for o in out]
+    null = _as_tuple(fn(xp, mask, wh))
+    zeros = _as_tuple(fn(xp, mask, wh, *[torch.zeros_like(i) for i in init]))
+    assert fn.by_design == {**before, design: before[design] + 6}
+    want = _as_tuple(plain(xp, mask, wh, *init))
+    torch.cuda.synchronize()
+    for got_, want_ in zip(whole, want):
+        torch.testing.assert_close(got_, want_, **CARRY_TOL)
+    for k, seq in enumerate(whole):
+        assert torch.equal(torch.cat([c[k] for c in chunks]), seq)
+    for a, z in zip(null, zeros):
+        assert torch.equal(a, z)
+    for seq, i in zip(whole, init):
+        assert torch.equal(seq[:, -1], i[-1].expand(t, h))
+
+
+BEAM_STREAM_CASES = [(4, 0, False, 7), (16, 0, False, 64),
+                     (64, 0, False, 160), (128, 0, False, 40),
+                     (16, 8, False, 33), (16, 0, True, 50)]
+
+
+@pytest.mark.parametrize("width,prune,with_lm,chunk", BEAM_STREAM_CASES,
+                         ids=[f"w{w}-p{p}-{'lm' if m else 'nolm'}-c{c}"
+                              for w, p, m, c in BEAM_STREAM_CASES])
+def test_beam_stream_kernel_matches_plain(cuda, width, prune, with_lm,
+                                          chunk):
+    """The beam kernel's stream form against beam_stream_plain chunk by
+    chunk (rows of lengths T, ragged, 1 and 0): state, prefixes, emits,
+    start slots and scores bit for bit, one launch a chunk; each row's
+    best prefix spliced over the chunks equal to ctc_beam's one-shot best
+    path."""
+    logits, lens = _beam_emissions(cuda)
+    lp = torch.log_softmax(logits, -1)
+    b, t, _ = lp.shape
+    lm = _beam_lm() if with_lm else None
+    kw = dict(prune=prune, lm=lm, lm_alpha=0.8, lm_beta=0.1)
+    init = beam.beam_stream_init(width, lm.init_state() if lm else 0, cuda)
+    state = beam.BeamState(*(s[None].repeat(b, 1) for s in init))
+    spliced = [[[] for _ in range(width)] for _ in range(b)]
+    for lo in range(0, t, chunk):
+        n = (lens - lo).clamp(0, chunk)
+        before = beam.ctc_beam.launches
+        got = beam.ctc_beam_stream(lp[:, lo: lo + chunk], n, state, width,
+                                   **kw)
+        assert beam.ctc_beam.launches == before + 1
+        want = beam.beam_stream_plain(lp[:, lo: lo + chunk], n, state, width,
+                                      **kw)
+        for g_, w_ in zip(got[0], want[0]):
+            assert torch.equal(g_, w_)
+        for g_, w_ in zip(got[1:], want[1:]):
+            assert torch.equal(g_, w_)
+        state = got[0]
+        pref, emits, start = (x.cpu() for x in got[1:4])
+        spliced = [[spliced[r][int(start[r, w])]
+                    + pref[r, w, : int(emits[r, w])].tolist()
+                    for w in range(width)] for r in range(b)]
+    one = beam.ctc_beam(lp, lens, width, **kw)
+    best = beam._sort_desc(got[4])[:, 0].cpu()
+    for r in range(b):
+        assert spliced[r][int(best[r])] == \
+            one[0][r, 0, : int(one[1][r, 0])].tolist()
+
+
+@pytest.mark.parametrize("name,hp,fwd", [
+    ("deep_gru", "num_hiddens=64,num_layers=2,bidirectional=false", gru),
+    ("deep_blstm", "num_hiddens=64,num_layers=2,bidirectional=false", lstm),
+    ("deep_speech", "num_hiddens=512,input_dense=64,bidirectional=false",
+     lstm)], ids=["deep_gru", "deep_blstm", "deep_speech_512"])
+@pytest.mark.parametrize("width", [0, 8], ids=["greedy", "beam8"])
+def test_streaming_recognizer_on_card(cuda, name, hp, fwd, width):
+    """StreamingRecognizer on the card: one forward launch a layer and
+    chunk (one beam launch a chunk with a beam), and the transcript equal
+    to the whole utterance's decode on the card."""
+    from asr_study_torch.features.audio import MFCC
+    from asr_study_torch.ops.beam import BeamConfig, decode
+    from asr_study_torch.streaming import StreamingRecognizer
+
+    model = build_model(name, hp, num_classes=27, input_dim=39,
+                        generator=torch.Generator().manual_seed(3),
+                        device=cuda).eval()
+    w, _ = _wavs(4, [37000], 37000)
+    wav = w[0].numpy()
+    feature = MFCC()
+    rec = StreamingRecognizer(model, feature, chunk_frames=64,
+                              beam_width=width)
+    before = (fwd.launches, beam.ctc_beam.launches)
+    for lo in range(0, len(wav), 5000):
+        rec.push(wav[lo: lo + 5000])
+    ids = rec.finish()
+    feats = torch.from_numpy(feature(wav).astype(np.float32))[None].to(cuda)
+    n_chunks = -(-feats.shape[1] // 64)
+    assert (fwd.launches - before[0], beam.ctc_beam.launches - before[1]) \
+        == (len(model.rnn.layers) * n_chunks, n_chunks if width else 0)
+    lengths = torch.tensor([feats.shape[1]], device=cuda)
+    with torch.inference_mode():
+        logits = model(feats, lengths)
+        dec, n = decode(logits, lengths, model.blank_id,
+                        BeamConfig(width) if width else None)
+    assert ids == dec[0, : int(n[0])].tolist()
