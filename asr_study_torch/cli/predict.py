@@ -29,7 +29,7 @@ The decode is greedy, or with ``--beam_width`` the best path of the prefix
 beam search (``ops/beam.py``; on the card one launch of
 ``csrc/ctc_beam.cu`` a batch), with ``--lm`` a char n-gram LM fused in.
 
-``--stream`` (a unidirectional LSTM or GRU model) decodes each wav in
+``--stream`` (a unidirectional recurrent model) decodes each wav in
 chunks of ``--chunk_seconds`` of audio at bounded memory, as the JAX CLI
 does (``streaming.py``): features from the host oracle chunk by chunk, the
 model's recurrent state carried on ``--device`` from chunk to chunk (one

@@ -14,9 +14,10 @@ manifest.  With ``--device_features`` (a raw dataset, ``make_dataset
 is ``--device`` (a torch device, ``cuda`` unless asked for the CPU).  The
 run directory, its automatic name, its ``meta.json`` hparams and the
 training semantics (train and valid splits, early stop, the staircase
-decay, resume, warm start, SortaGrad) are the JAX CLI's.  Options the port
-does not have yet are refused, before the dataset is read, with the
-ROADMAP item that brings them.
+decay, resume, warm start, SortaGrad, the optimizers, gradient
+accumulation, reduce-on-plateau, ``--profile`` and ``--check_nans``) are
+the JAX CLI's.  Options the port does not have yet are refused, before the
+dataset is read, with the ROADMAP item that brings them.
 """
 
 from __future__ import annotations
@@ -36,7 +37,7 @@ from asr_study_torch.features.augment import (
 from asr_study_torch.models.zoo import build_model
 from asr_study_torch.train.checkpoint import CheckpointManager
 from asr_study_torch.train.loop import fit
-from asr_study_torch.train.trainer import Trainer, make_optimizer
+from asr_study_torch.train.trainer import BF16_ITEM, Trainer, make_optimizer
 
 # run-dir tags, in the JAX CLI's order
 _NAME_TAGS = ("params", "batch_size", "opt", "lr", "clipnorm", "bf16",
@@ -92,13 +93,17 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="data-parallel devices (0 or 1: one)")
     p.add_argument("--tp_devices", type=int, default=1)
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--profile", action="store_true")
+    p.add_argument("--profile", action="store_true",
+                   help="trace steps 10-20 with torch.profiler into "
+                        "<run>/trace")
     p.add_argument("--tensorboard", action="store_true",
                    help="also write TensorBoard event files to <run>/tb")
     p.add_argument("--log_every", type=int, default=10)
     p.add_argument("--device", default="cuda",
                    help="torch device to train on (default cuda)")
-    p.add_argument("--check_nans", action="store_true")
+    p.add_argument("--check_nans", action="store_true",
+                   help="stop with FloatingPointError at the first step "
+                        "whose loss or gradient norm is not finite")
     p.add_argument("--bf16", action="store_true")
     p.add_argument("--vocab", default=None,
                    help="label vocabulary: preset name (pt_br, "
@@ -133,7 +138,6 @@ def build_argparser() -> argparse.ArgumentParser:
 
 def _refuse_unported(args) -> None:
     """Every option the port does not have yet, by its ROADMAP item."""
-    a5 = "is not ported to asr_study_torch yet (ROADMAP queue A item 5)"
     refusals = [
         (args.num_devices > 1,
          "--num_devices > 1: data parallelism is not ported to "
@@ -141,12 +145,8 @@ def _refuse_unported(args) -> None:
         (args.tp_devices > 1,
          "--tp_devices > 1: tensor parallelism is not ported to "
          "asr_study_torch yet (ROADMAP queue A item 13)"),
-        (args.opt != "adam", f"--opt {args.opt}: only adam; the rest {a5}"),
-        (args.accum_steps > 1, f"--accum_steps > 1 {a5}"),
-        (bool(args.lr_plateau), f"--lr_plateau {a5}"),
-        (args.bf16, f"--bf16 {a5}"),
-        (args.profile, f"--profile {a5}"),
-        (args.check_nans, f"--check_nans {a5}"),
+        (args.bf16, "--bf16: bf16 compute is not ported to asr_study_torch "
+         f"yet ({BF16_ITEM})"),
     ]
     for refused, why in refusals:
         if refused:
@@ -206,13 +206,15 @@ def main(argv=None) -> int:
             "--early_stop requires a 'valid' split in the dataset "
             "(val_loss drives the stopping decision)")
 
-    try:
-        spec = make_optimizer(
-            args.opt, args.lr, args.clipnorm, lr_decay=args.lr_decay,
-            decay_steps=(train_it.steps_per_epoch if args.lr_decay else 0),
-            accum_steps=args.accum_steps, plateau_factor=args.lr_plateau)
-    except NotImplementedError as e:
-        raise SystemExit(str(e)) from None
+    # the decay and the plateau window count optimizer updates, which
+    # accumulation makes 1/accum_steps as frequent: per-epoch semantics
+    updates_per_epoch = max(1, train_it.steps_per_epoch // args.accum_steps)
+    spec = make_optimizer(
+        args.opt, args.lr, args.clipnorm, lr_decay=args.lr_decay,
+        decay_steps=updates_per_epoch if args.lr_decay else 0,
+        accum_steps=args.accum_steps, plateau_factor=args.lr_plateau,
+        plateau_patience=args.lr_patience if args.lr_plateau else 0,
+        plateau_window=updates_per_epoch)
     augment = featurizer = wav_augment = None
     if args.spec_augment is not None:
         augment = parse_spec_augment(args.spec_augment)
@@ -234,7 +236,7 @@ def main(argv=None) -> int:
                         generator=torch.Generator().manual_seed(args.seed),
                         device=device)
     trainer = Trainer(model, spec, augment=augment, featurizer=featurizer,
-                      wav_augment=wav_augment)
+                      wav_augment=wav_augment, check_nans=args.check_nans)
     state = trainer.init_state()
     n_params = sum(p.numel() for p in model.parameters())
     print(f"{args.model}: {n_params:,} parameters on {device}",
@@ -277,7 +279,8 @@ def main(argv=None) -> int:
     }
     fit(trainer, state, train_it, valid_it, epochs=args.epochs,
         seed=args.seed, ckpt=ckpt, hparams=hparams, log_dir=args.save,
-        log_every=args.log_every, tensorboard=args.tensorboard,
+        log_every=args.log_every, profile=args.profile,
+        tensorboard=args.tensorboard,
         early_stop_patience=args.early_stop, sortagrad=args.sortagrad,
         monitor=args.monitor)
     return 0

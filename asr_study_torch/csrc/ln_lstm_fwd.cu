@@ -15,9 +15,11 @@
 // and bias gc, bc [H] of each direction.  Outputs h and c of each direction
 // [T, B, H] in forward time order; c is the raw cell state (before its
 // LayerNorm), which the backward reads.  Lane 1 (the reverse direction)
-// walks time backward.  Both lanes start from zero state, and a frame whose
-// mask is 0 keeps the previous h and c.  With ndir = 1 only lane 0 runs and
-// the _b pointers are unused.  LayerNorm statistics are over all H units,
+// walks time backward.  Each lane starts from the carried state h_init /
+// c_init [ndir, B, H] (lane d at row d * B), or from zeros where they are
+// null (bilstm_fwd.cu says what the carry is for), and a frame whose mask
+// is 0 keeps the previous h and c.  With ndir = 1 only lane 0 runs and the
+// _b pointers are unused.  LayerNorm statistics are over all H units,
 // eps 1e-5.
 //
 // What bounds it on the H100: the recurrence is serial in time, and a step
@@ -171,7 +173,9 @@ ln_lstm_fwd_kernel(const float* __restrict__ xpn_f,
                    const float* __restrict__ bc_f,
                    const float* __restrict__ bc_b, float* __restrict__ h_f,
                    float* __restrict__ c_f, float* __restrict__ h_b,
-                   float* __restrict__ c_b, int T, int B, int H, int U) {
+                   float* __restrict__ c_b, const float* __restrict__ h_init,
+                   const float* __restrict__ c_init, int T, int B, int H,
+                   int U) {
   cg::cluster_group cluster = cg::this_cluster();
   const int C = static_cast<int>(cluster.num_blocks());
   const int rank = static_cast<int>(cluster.block_rank());
@@ -226,11 +230,26 @@ ln_lstm_fwd_kernel(const float* __restrict__ xpn_f,
   float ghq[4], gcu = 0.f, bcu = 0.f, c_state = 0.f, h_state = 0.f;
 #pragma unroll
   for (int q = 0; q < 4; ++q) ghq[q] = own ? gh[q * H + unit] : 0.f;
+  // the carried state, zeros where none is given: the own unit's h and c
+  // into the cell's registers, the full h rows into slot 0 of every CTA's
+  // h buffer
+  const size_t lane_row = static_cast<size_t>(blockIdx.z) * B;
   if (own) {
     gcu = gc[unit];
     bcu = bc[unit];
+    const int b = b0 + row;
+    if (b < B) {
+      const size_t o = (lane_row + b) * H + unit;
+      if (h_init != nullptr) h_state = h_init[o];
+      if (c_init != nullptr) c_state = c_init[o];
+    }
   }
-  for (int i = tid; i < 2 * R * HS; i += kThreads) hbuf[i] = 0.f;
+  for (int i = tid; i < 2 * R * HS; i += kThreads) {
+    const int r = i / HS, k = i - r * HS, b = b0 + r;
+    hbuf[i] = (h_init != nullptr && r < R && b < B && k < H)
+                  ? h_init[(lane_row + b) * H + k]
+                  : 0.f;
+  }
 
   // xpn of own columns and the mask of step s, into slot s & 1
   auto prefetch = [&](int s) {
@@ -403,8 +422,9 @@ cudaError_t launch(const float* xpn_f, const float* xpn_b, const float* mask,
                    const float* wh_f, const float* wh_b, const float* gh_f,
                    const float* gh_b, const float* gc_f, const float* gc_b,
                    const float* bc_f, const float* bc_b, float* h_f,
-                   float* c_f, float* h_b, float* c_b, int T, int B, int H,
-                   int ndir, int C, int U, cudaStream_t stream) {
+                   float* c_f, float* h_b, float* c_b, const float* h_init,
+                   const float* c_init, int T, int B, int H, int ndir, int C,
+                   int U, cudaStream_t stream) {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[1];
   int fit = 0;
@@ -416,7 +436,7 @@ cudaError_t launch(const float* xpn_f, const float* xpn_b, const float* mask,
   cfg.stream = stream;
   err = cudaLaunchKernelEx(&cfg, ln_lstm_fwd_kernel<R>, xpn_f, xpn_b, mask,
                            wh_f, wh_b, gh_f, gh_b, gc_f, gc_b, bc_f, bc_b,
-                           h_f, c_f, h_b, c_b, T, B, H, U);
+                           h_f, c_f, h_b, c_b, h_init, c_init, T, B, H, U);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -444,21 +464,23 @@ cudaError_t by_rows(int R, F&& f) {
 }  // namespace
 
 // Launch the forward over ndir directions: clusters of C CTAs of U units
-// each, R (1, 2, 4 or 8) batch rows a cluster.
+// each, R (1, 2, 4 or 8) batch rows a cluster.  h_init / c_init: the state
+// each lane starts from, [ndir, B, H], or null for zeros.
 extern "C" int asr_ln_lstm_fwd(const float* xpn_f, const float* xpn_b,
                                const float* mask, const float* wh_f,
                                const float* wh_b, const float* gh_f,
                                const float* gh_b, const float* gc_f,
                                const float* gc_b, const float* bc_f,
                                const float* bc_b, float* h_f, float* c_f,
-                               float* h_b, float* c_b, int T, int B, int H,
+                               float* h_b, float* c_b, const float* h_init,
+                               const float* c_init, int T, int B, int H,
                                int ndir, int C, int U, int R, void* stream) {
   if (!valid_geometry(H, ndir, C, U))
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(by_rows(R, [&](auto rows) {
     return launch<decltype(rows)::value>(
         xpn_f, xpn_b, mask, wh_f, wh_b, gh_f, gh_b, gc_f, gc_b, bc_f, bc_b,
-        h_f, c_f, h_b, c_b, T, B, H, ndir, C, U,
+        h_f, c_f, h_b, c_b, h_init, c_init, T, B, H, ndir, C, U,
         static_cast<cudaStream_t>(stream));
   }));
 }

@@ -17,9 +17,11 @@
 // and bias gc, bc [H] of each direction.  Outputs h and c of each direction
 // [T, B, H] in forward time order; c is the raw cell state (before its
 // LayerNorm), which the backward reads.  Lane 1 (the reverse direction)
-// walks time backward.  Both lanes start from zero state, and a frame whose
-// mask is 0 keeps the previous h and c.  With ndir = 1 only lane 0 runs and
-// the _b pointers are unused.  LayerNorm statistics are over all H units,
+// walks time backward.  Each lane starts from the carried state h_init /
+// c_init [ndir, B, H] or, where they are null, from zeros (bilstm_fwd.cu
+// says what the carry is for), and a frame whose mask is 0 keeps the
+// previous h and c.  With ndir = 1 only lane 0 runs and the _b pointers are
+// unused.  LayerNorm statistics are over all H units,
 // mean first and then the mean of the squared deviations, eps 1e-5.
 //
 // A step, per block of kRows batch rows (five barriers):
@@ -83,7 +85,8 @@ ln_lstm_fwd_kernel(const float* __restrict__ xpn_f,
                    const float* __restrict__ bc_f,
                    const float* __restrict__ bc_b, float* __restrict__ h_f,
                    float* __restrict__ c_f, float* __restrict__ h_b,
-                   float* __restrict__ c_b, int T, int B, int H) {
+                   float* __restrict__ c_b, const float* __restrict__ h_init,
+                   const float* __restrict__ c_init, int T, int B, int H) {
   extern __shared__ float smem[];
   const int G = 4 * H;
   const int RH = kRows * H;
@@ -111,9 +114,12 @@ ln_lstm_fwd_kernel(const float* __restrict__ xpn_f,
   const int lane = threadIdx.x & 31;
   const int nwarps = blockDim.x >> 5;
 
+  // the carried state of the block's rows, zeros where none is given
+  const size_t init0 = (static_cast<size_t>(blockIdx.y) * B + b0) * H;
   for (int i = threadIdx.x; i < RH; i += blockDim.x) {
-    hs[i] = 0.f;
-    cs[i] = 0.f;
+    const bool ok = i < rows * H;
+    hs[i] = (h_init != nullptr && ok) ? h_init[init0 + i] : 0.f;
+    cs[i] = (c_init != nullptr && ok) ? c_init[init0 + i] : 0.f;
   }
   __syncthreads();
 
@@ -200,13 +206,16 @@ ln_lstm_fwd_kernel(const float* __restrict__ xpn_f,
 
 }  // namespace
 
+// h_init / c_init: the state each lane starts from, [ndir, B, H], or null
+// for zeros.
 extern "C" int asr_ln_lstm_stream_fwd(const float* xpn_f, const float* xpn_b,
                                const float* mask, const float* wh_f,
                                const float* wh_b, const float* gh_f,
                                const float* gh_b, const float* gc_f,
                                const float* gc_b, const float* bc_f,
                                const float* bc_b, float* h_f, float* c_f,
-                               float* h_b, float* c_b, int T, int B, int H,
+                               float* h_b, float* c_b, const float* h_init,
+                               const float* c_init, int T, int B, int H,
                                int ndir, void* stream) {
   if (ndir < 1 || ndir > 2) return static_cast<int>(cudaErrorInvalidValue);
   const int G = 4 * H;
@@ -222,6 +231,6 @@ extern "C" int asr_ln_lstm_stream_fwd(const float* xpn_f, const float* xpn_b,
   ln_lstm_fwd_kernel<<<grid, threads, smem,
                        static_cast<cudaStream_t>(stream)>>>(
       xpn_f, xpn_b, mask, wh_f, wh_b, gh_f, gh_b, gc_f, gc_b, bc_f, bc_b,
-      h_f, c_f, h_b, c_b, T, B, H);
+      h_f, c_f, h_b, c_b, h_init, c_init, T, B, H);
   return static_cast<int>(cudaGetLastError());
 }

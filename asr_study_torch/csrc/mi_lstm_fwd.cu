@@ -17,8 +17,10 @@
 // Inputs: xp_f / xp_b [T, B, 4H], the mask [T, B], wh_* [H, 4H], alpha_*,
 // beta1_*, beta2_*, b_* [4H].  Outputs h and c of each direction [T, B, H]
 // in forward time order.  Lane 1 (the reverse direction) walks time
-// backward: it reads xp_b and the mask at T-1-s.  Both lanes start from
-// zero state, and a frame whose mask is 0 keeps the previous h and c.  With
+// backward: it reads xp_b and the mask at T-1-s.  Each lane starts from
+// the carried state h_init / c_init [ndir, B, H] (lane d at row d * B), or
+// from zeros where they are null (bilstm_fwd.cu says what the carry is
+// for), and a frame whose mask is 0 keeps the previous h and c.  With
 // ndir = 1 only lane 0 runs and the _b pointers are unused.
 //
 // What bounds it on the H100: as for the LSTM (bilstm_fwd.cu), a serial
@@ -116,8 +118,10 @@ mi_lstm_fwd_kernel(const float* __restrict__ xp_f,
                    const float* __restrict__ bias_f,
                    const float* __restrict__ bias_b,
                    float* __restrict__ h_f, float* __restrict__ c_f,
-                   float* __restrict__ h_b, float* __restrict__ c_b, int T,
-                   int B, int H, int U) {
+                   float* __restrict__ h_b, float* __restrict__ c_b,
+                   const float* __restrict__ h_init,
+                   const float* __restrict__ c_init, int T, int B, int H,
+                   int U) {
   cg::cluster_group cluster = cg::this_cluster();
   const int C = static_cast<int>(cluster.num_blocks());
   const int rank = static_cast<int>(cluster.block_rank());
@@ -164,8 +168,21 @@ mi_lstm_fwd_kernel(const float* __restrict__ xp_f,
     const int q = j / U, unit = u0 + j - q * U;
     vec[i] = unit < H ? vsrc[v][q * H + unit] : 0.f;
   }
-  for (int i = tid; i < 2 * R * HS; i += kThreads) hbuf[i] = 0.f;
-  for (int i = tid; i < R * U; i += kThreads) cs[i] = 0.f;
+  // the carried state, zeros where none is given: the full h rows into
+  // slot 0 of every CTA's h buffer, the CTA's own units' c into cs
+  const size_t lane_row = static_cast<size_t>(blockIdx.z) * B;
+  for (int i = tid; i < 2 * R * HS; i += kThreads) {
+    const int r = i / HS, k = i - r * HS, b = b0 + r;
+    hbuf[i] = (h_init != nullptr && r < R && b < B && k < H)
+                  ? h_init[(lane_row + b) * H + k]
+                  : 0.f;
+  }
+  for (int i = tid; i < R * U; i += kThreads) {
+    const int r = i / U, unit = u0 + i - r * U, b = b0 + r;
+    cs[i] = (c_init != nullptr && b < B && unit < H)
+                ? c_init[(lane_row + b) * H + unit]
+                : 0.f;
+  }
 
   // xp of own columns and the mask of step s, into slot s & 1
   auto prefetch = [&](int s) {
@@ -302,8 +319,9 @@ cudaError_t launch(const float* xp_f, const float* xp_b, const float* mask,
                    const float* al_b, const float* b1_f, const float* b1_b,
                    const float* b2_f, const float* b2_b,
                    const float* bias_f, const float* bias_b, float* h_f,
-                   float* c_f, float* h_b, float* c_b, int T, int B, int H,
-                   int ndir, int C, int U, cudaStream_t stream) {
+                   float* c_f, float* h_b, float* c_b, const float* h_init,
+                   const float* c_init, int T, int B, int H, int ndir, int C,
+                   int U, cudaStream_t stream) {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[1];
   int fit = 0;
@@ -315,7 +333,8 @@ cudaError_t launch(const float* xp_f, const float* xp_b, const float* mask,
   cfg.stream = stream;
   err = cudaLaunchKernelEx(&cfg, mi_lstm_fwd_kernel<R>, xp_f, xp_b, mask,
                            wh_f, wh_b, al_f, al_b, b1_f, b1_b, b2_f, b2_b,
-                           bias_f, bias_b, h_f, c_f, h_b, c_b, T, B, H, U);
+                           bias_f, bias_b, h_f, c_f, h_b, c_b, h_init, c_init,
+                           T, B, H, U);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -342,7 +361,8 @@ cudaError_t by_rows(int R, F&& f) {
 }  // namespace
 
 // Launch the forward over ndir directions: clusters of C CTAs of U units
-// each, R (1, 2, 4 or 8) batch rows a cluster.
+// each, R (1, 2, 4 or 8) batch rows a cluster.  h_init / c_init: the state
+// each lane starts from, [ndir, B, H], or null for zeros.
 extern "C" int asr_mi_lstm_fwd(const float* xp_f, const float* xp_b,
                                const float* mask, const float* wh_f,
                                const float* wh_b, const float* al_f,
@@ -350,14 +370,16 @@ extern "C" int asr_mi_lstm_fwd(const float* xp_f, const float* xp_b,
                                const float* b1_b, const float* b2_f,
                                const float* b2_b, const float* bias_f,
                                const float* bias_b, float* h_f, float* c_f,
-                               float* h_b, float* c_b, int T, int B, int H,
+                               float* h_b, float* c_b, const float* h_init,
+                               const float* c_init, int T, int B, int H,
                                int ndir, int C, int U, int R, void* stream) {
   if (!valid_geometry(H, ndir, C, U))
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(by_rows(R, [&](auto rows) {
     return launch<decltype(rows)::value>(
         xp_f, xp_b, mask, wh_f, wh_b, al_f, al_b, b1_f, b1_b, b2_f, b2_b,
-        bias_f, bias_b, h_f, c_f, h_b, c_b, T, B, H, ndir, C, U,
+        bias_f, bias_b, h_f, c_f, h_b, c_b, h_init, c_init, T, B, H, ndir, C,
+        U,
         static_cast<cudaStream_t>(stream));
   }));
 }

@@ -26,7 +26,10 @@
 // Inputs: xp_f / xp_b [T, B, 4H], the mask [T, B], wh_* [H, 4H], alpha_*,
 // beta1_*, beta2_*, b_* [4H].  Outputs h and c of each direction [T, B, H]
 // in forward time order; lane 1 walks time backward (xp_b and the mask at
-// T-1-s).  With ndir = 1 only lane 0 runs and the _b pointers are unused.
+// T-1-s).  Each lane starts from the carried state h_init / c_init [ndir,
+// B, H] or, where they are null, from zeros (bilstm_fwd.cu says what the
+// carry is for).  With ndir = 1 only lane 0 runs and the _b pointers are
+// unused.
 
 #include <cuda_runtime.h>
 
@@ -54,8 +57,9 @@ mi_lstm_fwd_kernel(const float* __restrict__ xp_f,
                    const float* __restrict__ bias_f,
                    const float* __restrict__ bias_b,
                    float* __restrict__ h_f, float* __restrict__ c_f,
-                   float* __restrict__ h_b, float* __restrict__ c_b, int T,
-                   int B, int H) {
+                   float* __restrict__ h_b, float* __restrict__ c_b,
+                   const float* __restrict__ h_init,
+                   const float* __restrict__ c_init, int T, int B, int H) {
   extern __shared__ float smem[];
   const int G = 4 * H;
   float* hs = smem;              // [kRows][H]  h of the previous step
@@ -74,9 +78,12 @@ mi_lstm_fwd_kernel(const float* __restrict__ xp_f,
   const int b0 = blockIdx.x * kRows;
   const int rows = min(kRows, B - b0);
 
+  // the carried state of the block's rows, zeros where none is given
+  const size_t init0 = (static_cast<size_t>(blockIdx.y) * B + b0) * H;
   for (int i = threadIdx.x; i < kRows * H; i += blockDim.x) {
-    hs[i] = 0.f;
-    cs[i] = 0.f;
+    const bool ok = i < rows * H;
+    hs[i] = (h_init != nullptr && ok) ? h_init[init0 + i] : 0.f;
+    cs[i] = (c_init != nullptr && ok) ? c_init[init0 + i] : 0.f;
   }
   __syncthreads();
 
@@ -136,6 +143,8 @@ mi_lstm_fwd_kernel(const float* __restrict__ xp_f,
 
 }  // namespace
 
+// h_init / c_init: the state each lane starts from, [ndir, B, H], or null
+// for zeros.
 extern "C" int asr_mi_lstm_stream_fwd(const float* xp_f, const float* xp_b,
                                const float* mask, const float* wh_f,
                                const float* wh_b, const float* al_f,
@@ -143,7 +152,8 @@ extern "C" int asr_mi_lstm_stream_fwd(const float* xp_f, const float* xp_b,
                                const float* b1_b, const float* b2_f,
                                const float* b2_b, const float* bias_f,
                                const float* bias_b, float* h_f, float* c_f,
-                               float* h_b, float* c_b, int T, int B, int H,
+                               float* h_b, float* c_b, const float* h_init,
+                               const float* c_init, int T, int B, int H,
                                int ndir, void* stream) {
   if (ndir < 1 || ndir > 2) return static_cast<int>(cudaErrorInvalidValue);
   const int G = 4 * H;
@@ -158,6 +168,6 @@ extern "C" int asr_mi_lstm_stream_fwd(const float* xp_f, const float* xp_b,
   mi_lstm_fwd_kernel<<<grid, threads, smem,
                        static_cast<cudaStream_t>(stream)>>>(
       xp_f, xp_b, mask, wh_f, wh_b, al_f, al_b, b1_f, b1_b, b2_f, b2_b,
-      bias_f, bias_b, h_f, c_f, h_b, c_b, T, B, H);
+      bias_f, bias_b, h_f, c_f, h_b, c_b, h_init, c_init, T, B, H);
   return static_cast<int>(cudaGetLastError());
 }

@@ -19,8 +19,11 @@
 // [T, B], each direction's zh and zc [T, B, H] and wh [H, 4H].  Outputs h
 // and c of each direction [T, B, H], all in forward time order: lane 1 (the
 // reverse direction) walks time backward and reads xp_b, zh_b, zc_b and the
-// mask at T-1-s.  Both lanes start from zero state.  With ndir = 1 only lane
-// 0 runs and the _b pointers are unused.
+// mask at T-1-s.  Each lane starts from the carried state h_init / c_init
+// [ndir, B, H] (lane d at row d * B), or from zeros where they are null
+// (bilstm_fwd.cu says what the carry is for); the first frame mixes its new
+// state with that carry.  With ndir = 1 only lane 0 runs and the _b
+// pointers are unused.
 //
 // What bounds it on the H100: as for the LSTM (bilstm_fwd.cu), a serial
 // chain of [R, H] x [H, 4H] products whose weights (1 MB at H=256) do not
@@ -116,7 +119,9 @@ zoneout_lstm_fwd_kernel(const float* __restrict__ xp_f,
                         const float* __restrict__ wh_b,
                         float* __restrict__ h_f, float* __restrict__ c_f,
                         float* __restrict__ h_b, float* __restrict__ c_b,
-                        int T, int B, int H, int U) {
+                        const float* __restrict__ h_init,
+                        const float* __restrict__ c_init, int T, int B,
+                        int H, int U) {
   cg::cluster_group cluster = cg::this_cluster();
   const int C = static_cast<int>(cluster.num_blocks());
   const int rank = static_cast<int>(cluster.block_rank());
@@ -158,8 +163,21 @@ zoneout_lstm_fwd_kernel(const float* __restrict__ xp_f,
                   : 0.f;
     }
   }
-  for (int i = tid; i < 2 * R * HS; i += kThreads) hbuf[i] = 0.f;
-  for (int i = tid; i < RU; i += kThreads) cs[i] = 0.f;
+  // the carried state, zeros where none is given: the full h rows into
+  // slot 0 of every CTA's h buffer, the CTA's own units' c into cs
+  const size_t lane_row = static_cast<size_t>(blockIdx.z) * B;
+  for (int i = tid; i < 2 * R * HS; i += kThreads) {
+    const int r = i / HS, k = i - r * HS, b = b0 + r;
+    hbuf[i] = (h_init != nullptr && r < R && b < B && k < H)
+                  ? h_init[(lane_row + b) * H + k]
+                  : 0.f;
+  }
+  for (int i = tid; i < RU; i += kThreads) {
+    const int r = i / U, unit = u0 + i - r * U, b = b0 + r;
+    cs[i] = (c_init != nullptr && b < B && unit < H)
+                ? c_init[(lane_row + b) * H + unit]
+                : 0.f;
+  }
 
   // xp of own columns, zh and zc of own units and the mask of step s, into
   // slot s & 1
@@ -307,9 +325,9 @@ template <int R>
 cudaError_t launch(const float* xp_f, const float* xp_b, const float* mask,
                    const float* zh_f, const float* zh_b, const float* zc_f,
                    const float* zc_b, const float* wh_f, const float* wh_b,
-                   float* h_f, float* c_f, float* h_b, float* c_b, int T,
-                   int B, int H, int ndir, int C, int U,
-                   cudaStream_t stream) {
+                   float* h_f, float* c_f, float* h_b, float* c_b,
+                   const float* h_init, const float* c_init, int T, int B,
+                   int H, int ndir, int C, int U, cudaStream_t stream) {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[1];
   int fit = 0;
@@ -321,7 +339,7 @@ cudaError_t launch(const float* xp_f, const float* xp_b, const float* mask,
   cfg.stream = stream;
   err = cudaLaunchKernelEx(&cfg, zoneout_lstm_fwd_kernel<R>, xp_f, xp_b,
                            mask, zh_f, zh_b, zc_f, zc_b, wh_f, wh_b, h_f,
-                           c_f, h_b, c_b, T, B, H, U);
+                           c_f, h_b, c_b, h_init, c_init, T, B, H, U);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -348,21 +366,25 @@ cudaError_t by_rows(int R, F&& f) {
 }  // namespace
 
 // Launch the forward over ndir directions: clusters of C CTAs of U units
-// each, R (1, 2, 4 or 8) batch rows a cluster.
+// each, R (1, 2, 4 or 8) batch rows a cluster.  h_init / c_init: the state
+// each lane starts from, [ndir, B, H], or null for zeros.
 extern "C" int asr_zoneout_lstm_fwd(const float* xp_f, const float* xp_b,
                                     const float* mask, const float* zh_f,
                                     const float* zh_b, const float* zc_f,
                                     const float* zc_b, const float* wh_f,
                                     const float* wh_b, float* h_f,
                                     float* c_f, float* h_b, float* c_b,
-                                    int T, int B, int H, int ndir, int C,
-                                    int U, int R, void* stream) {
+                                    const float* h_init,
+                                    const float* c_init, int T, int B, int H,
+                                    int ndir, int C, int U, int R,
+                                    void* stream) {
   if (!valid_geometry(H, ndir, C, U))
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(by_rows(R, [&](auto rows) {
     return launch<decltype(rows)::value>(
         xp_f, xp_b, mask, zh_f, zh_b, zc_f, zc_b, wh_f, wh_b, h_f, c_f, h_b,
-        c_b, T, B, H, ndir, C, U, static_cast<cudaStream_t>(stream));
+        c_b, h_init, c_init, T, B, H, ndir, C, U,
+        static_cast<cudaStream_t>(stream));
   }));
 }
 

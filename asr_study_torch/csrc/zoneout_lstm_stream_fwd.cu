@@ -26,8 +26,10 @@
 // [T, B], each direction's zh and zc [T, B, H] and wh [H, 4H], gate order
 // i, f, g, o.  Outputs h and c of each direction [T, B, H], all in forward
 // time order: lane 1 walks time backward and reads xp_b, zh_b, zc_b and the
-// mask at T-1-s.  With ndir = 1 only lane 0 runs and the _b pointers are
-// unused.
+// mask at T-1-s.  Each lane starts from the carried state h_init / c_init
+// [ndir, B, H] or, where they are null, from zeros (bilstm_fwd.cu says what
+// the carry is for).  With ndir = 1 only lane 0 runs and the _b pointers
+// are unused.
 
 #include <cuda_runtime.h>
 
@@ -52,7 +54,9 @@ zoneout_lstm_fwd_kernel(const float* __restrict__ xp_f,
                         const float* __restrict__ wh_b,
                         float* __restrict__ h_f, float* __restrict__ c_f,
                         float* __restrict__ h_b, float* __restrict__ c_b,
-                        int T, int B, int H) {
+                        const float* __restrict__ h_init,
+                        const float* __restrict__ c_init, int T, int B,
+                        int H) {
   extern __shared__ float smem[];
   const int G = 4 * H;
   float* hs = smem;              // [kRows][H]  h of the previous step
@@ -69,9 +73,12 @@ zoneout_lstm_fwd_kernel(const float* __restrict__ xp_f,
   const int b0 = blockIdx.x * kRows;
   const int rows = min(kRows, B - b0);
 
+  // the carried state of the block's rows, zeros where none is given
+  const size_t init0 = (static_cast<size_t>(blockIdx.y) * B + b0) * H;
   for (int i = threadIdx.x; i < kRows * H; i += blockDim.x) {
-    hs[i] = 0.f;
-    cs[i] = 0.f;
+    const bool ok = i < rows * H;
+    hs[i] = (h_init != nullptr && ok) ? h_init[init0 + i] : 0.f;
+    cs[i] = (c_init != nullptr && ok) ? c_init[init0 + i] : 0.f;
   }
   __syncthreads();
 
@@ -129,12 +136,14 @@ zoneout_lstm_fwd_kernel(const float* __restrict__ xp_f,
 
 }  // namespace
 
+// h_init / c_init: the state each lane starts from, [ndir, B, H], or null
+// for zeros.
 extern "C" int asr_zoneout_lstm_stream_fwd(
     const float* xp_f, const float* xp_b, const float* mask,
     const float* zh_f, const float* zh_b, const float* zc_f,
     const float* zc_b, const float* wh_f, const float* wh_b, float* h_f,
-    float* c_f, float* h_b, float* c_b, int T, int B, int H, int ndir,
-    void* stream) {
+    float* c_f, float* h_b, float* c_b, const float* h_init,
+    const float* c_init, int T, int B, int H, int ndir, void* stream) {
   if (ndir < 1 || ndir > 2) return static_cast<int>(cudaErrorInvalidValue);
   const int G = 4 * H;
   const size_t smem = sizeof(float) * static_cast<size_t>(kRows) * (2 * H + G);
@@ -148,6 +157,6 @@ extern "C" int asr_zoneout_lstm_stream_fwd(
   zoneout_lstm_fwd_kernel<<<grid, threads, smem,
                             static_cast<cudaStream_t>(stream)>>>(
       xp_f, xp_b, mask, zh_f, zh_b, zc_f, zc_b, wh_f, wh_b, h_f, c_f, h_b,
-      c_b, T, B, H);
+      c_b, h_init, c_init, T, B, H);
   return static_cast<int>(cudaGetLastError());
 }

@@ -25,11 +25,12 @@ layer's dropout.
 
 Streaming (``apply_streaming``, ``init_stream_carry``; the JAX forms at
 ``asr_study_tpu/models/rnn.py`` ``RNNLayer.apply_streaming`` and
-``StackedRNN.apply_streaming``): one chunk of a unidirectional LSTM or GRU
-stack with each layer's state carried in and out, one launch of the
-layer's forward kernel a chunk on a CUDA device (``ops.bilstm.lstm`` and
-``ops.gru.gru`` started from the carry), inference only.  The layer-norm,
-MI and zoneout cells refuse it (ROADMAP queue A item 10b).
+``StackedRNN.apply_streaming``): one chunk of a unidirectional stack of
+any cell kind with each layer's state carried in and out, one launch of the
+layer's forward kernel a chunk on a CUDA device (``ops.bilstm.lstm``,
+``ops.gru.gru``, ``ops.ln_lstm.ln_lstm``, ``ops.mi_lstm.mi_lstm`` or
+``ops.zoneout_lstm.zoneout_lstm`` started from the carry), inference only:
+the zoneout cell mixes with its eval-mode constants.
 """
 
 from __future__ import annotations
@@ -46,10 +47,13 @@ from asr_study_torch.models.nn import dense_apply, dense_init
 from asr_study_torch.models.nn import dropout as dropout_fn
 from asr_study_torch.ops.bilstm import BiLSTMFunction, LSTMFunction, lstm
 from asr_study_torch.ops.gru import BiGRUFunction, GRUFunction, gru
-from asr_study_torch.ops.ln_lstm import BiLNLSTMFunction, LNLSTMFunction
-from asr_study_torch.ops.mi_lstm import BiMILSTMFunction, MILSTMFunction
+from asr_study_torch.ops.ln_lstm import (BiLNLSTMFunction, LNLSTMFunction,
+                                         ln_lstm)
+from asr_study_torch.ops.mi_lstm import (BiMILSTMFunction, MILSTMFunction,
+                                         mi_lstm)
 from asr_study_torch.ops.zoneout_lstm import (BiZoneoutLSTMFunction,
-                                              ZoneoutLSTMFunction)
+                                              ZoneoutLSTMFunction,
+                                              zoneout_lstm)
 
 # cell kind -> (cell, fused bidirectional op, unidirectional op)
 _KINDS = {"lstm": (LSTMCell, BiLSTMFunction, LSTMFunction),
@@ -58,10 +62,10 @@ _KINDS = {"lstm": (LSTMCell, BiLSTMFunction, LSTMFunction),
           "zoneout_lstm": (ZoneoutLSTMCell, BiZoneoutLSTMFunction,
                            ZoneoutLSTMFunction),
           "mi_lstm": (MILSTMCell, BiMILSTMFunction, MILSTMFunction)}
-# the cells whose forward kernels take a carried state, by kind -> the
-# forward op that starts from it (the carry: (h, c) for the LSTM, (h,) for
-# the GRU, as the JAX cells' carries)
-_STREAM_OPS = {"lstm": lstm, "gru": gru}
+# cell kind -> the forward op that starts from a carried state (the carry:
+# (h,) for the GRU, (h, c) for every LSTM kind, as the JAX cells' carries)
+_STREAM_OPS = {"lstm": lstm, "gru": gru, "ln_lstm": ln_lstm,
+               "mi_lstm": mi_lstm, "zoneout_lstm": zoneout_lstm}
 _UNIDIRECTIONAL = ("streaming requires a unidirectional layer — build the "
                    "model with bidirectional=false")
 
@@ -109,34 +113,30 @@ class RNNLayer(nn.Module):
 
     def check_streaming(self) -> None:
         """Raise ValueError unless this layer can stream: a bidirectional
-        layer cannot (as in JAX), and the layer-norm, MI and zoneout cells
-        wait for carried state in their kernels."""
+        layer cannot (as in JAX)."""
         if self.bidirectional:
             raise ValueError(_UNIDIRECTIONAL)
-        if self.cell_kind not in _STREAM_OPS:
-            raise ValueError(
-                f"streaming the {self.cell_kind} cell is not ported to "
-                "asr_study_torch yet (ROADMAP queue A item 10b)")
 
     def init_stream_carry(self, batch: int) -> tuple[torch.Tensor, ...]:
-        """Zero state for ``batch`` streams: (h, c) for the LSTM, (h,) for
-        the GRU, [B, H] each, on the layer's device."""
+        """Zero state for ``batch`` streams: (h,) for the GRU, (h, c) for
+        every LSTM kind, [B, H] each, on the layer's device."""
         self.check_streaming()
         zeros = self.fw.wh.new_zeros((batch, self.hidden))
-        return (zeros, zeros.clone()) if self.cell_kind == "lstm" \
-            else (zeros,)
+        return (zeros,) if self.cell_kind == "gru" \
+            else (zeros, zeros.clone())
 
     def apply_streaming(self, x: torch.Tensor, mask: torch.Tensor,
                         carry: tuple) -> tuple[torch.Tensor, tuple]:
         """One chunk of a forward-only recurrence with carried state, no
         autograd: x [T, B, F], mask [T, B, 1] -> (h [T, B, H] zeroed on
         masked frames, the new carry: h and c of the last frame, which a
-        masked frame holds).  One forward launch on a CUDA device."""
+        masked frame holds).  One forward launch on a CUDA device; the
+        cell's ``prepare`` in eval mode gives the op's other arguments."""
         self.check_streaming()
         mask = mask.contiguous()
         with torch.no_grad():
-            xp, (wh,) = self.fw.prepare(x)
-            outs = _STREAM_OPS[self.cell_kind](xp, mask, wh, *carry)
+            xp, res = self.fw.prepare(x)
+            outs = _STREAM_OPS[self.cell_kind](xp, mask, *res, *carry)
         outs = outs if isinstance(outs, tuple) else (outs,)
         return outs[0] * mask, tuple(o[-1] for o in outs)
 

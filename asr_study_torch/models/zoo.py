@@ -103,9 +103,9 @@ class AcousticModel(nn.Module):
                         input_lengths: torch.Tensor, carries: list
                         ) -> tuple[torch.Tensor, list]:
         """One chunk of each of B streams with the recurrent state carried
-        (JAX ``AcousticModel.apply_streaming``; unidirectional LSTM and GRU
-        stacks): inputs [B, T, F], input_lengths [B] the chunk's valid
-        frames (0: the stream's state holds), carries from
+        (JAX ``AcousticModel.apply_streaming``; unidirectional stacks of
+        every cell kind): inputs [B, T, F], input_lengths [B] the chunk's
+        valid frames (0: the stream's state holds), carries from
         :meth:`init_stream_carries` or the last call -> (logits [B, T,
         V+1], the new carries).  A whole utterance fed in chunks gives what
         :meth:`forward` gives it."""

@@ -37,7 +37,10 @@ backward is the backward kernel (``dpre``, the gate pre-activation
 cotangents, and ``dcn``, the cell-LN output's) plus :func:`_ln_param_grads`
 per direction.
 
-Masked frames hold h and c.
+Masked frames hold h and c.  :func:`ln_lstm` and its plain twin start
+from a carried state ``h0``, ``c0`` [B, H] where given (zeros elsewhere),
+so a stream's chunks thread the state that the last frame of h and c hands
+on (``models/rnn.py`` ``RNNLayer.apply_streaming``).
 """
 
 from __future__ import annotations
@@ -48,8 +51,9 @@ from asr_study_torch import _build
 from asr_study_torch.models.cells import ln_lstm_step, ln_stats
 from asr_study_torch.ops.bilstm import CLUSTER_SLICE, CLUSTER_THREADS
 from asr_study_torch.ops.recurrence import (STREAM_ROWS, Geometry, check,
-                                            cluster_geometry, cotangent,
-                                            kernel_info, prev, r4, stream)
+                                            check_carry, cluster_geometry,
+                                            cotangent, kernel_info, prev, r4,
+                                            stream)
 
 
 def ln_cluster_smem(hidden: int, units: int, rows: int, ctas: int
@@ -113,12 +117,13 @@ def ln_cluster_info(geo: Geometry, batch: int, hidden: int, backward: bool
                        geo, batch, hidden)
 
 
-def _scan(xpn, mask, wh, gh, gc, bc, reverse: bool
+def _scan(xpn, mask, wh, gh, gc, bc, reverse: bool, h0=None, c0=None
           ) -> tuple[torch.Tensor, torch.Tensor]:
-    """One direction's h and c sequences [T, B, H] in forward time order."""
+    """One direction's h and c sequences [T, B, H] in forward time order,
+    from ``h0``, ``c0`` [B, H] where given, else zeros."""
     t_steps, batch, gh4 = xpn.shape
-    h = xpn.new_zeros((batch, gh4 // 4))
-    c = xpn.new_zeros((batch, gh4 // 4))
+    h = xpn.new_zeros((batch, gh4 // 4)) if h0 is None else h0
+    c = xpn.new_zeros((batch, gh4 // 4)) if c0 is None else c0
     hs = [None] * t_steps
     cs = [None] * t_steps
     for t in (reversed(range(t_steps)) if reverse else range(t_steps)):
@@ -137,10 +142,10 @@ def bi_ln_lstm_plain(xpn_f, xpn_b, mask, wh_f, wh_b, gh_f, gh_b, gc_f, gc_b,
             *_scan(xpn_b, mask, wh_b, gh_b, gc_b, bc_b, True))
 
 
-def ln_lstm_plain(xpn, mask, wh, gh, gc, bc
+def ln_lstm_plain(xpn, mask, wh, gh, gc, bc, h0=None, c0=None
                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain version of :func:`ln_lstm`; same arguments and results."""
-    return _scan(xpn, mask, wh, gh, gc, bc, False)
+    return _scan(xpn, mask, wh, gh, gc, bc, False, h0, c0)
 
 
 def _geometry(xpn: torch.Tensor, ndir: int) -> Geometry:
@@ -148,10 +153,12 @@ def _geometry(xpn: torch.Tensor, ndir: int) -> Geometry:
 
 
 def launch_fwd(geo: Geometry, xpns: list, mask: torch.Tensor, whs: list,
-               ghs: list, gcs: list, bcs: list) -> list:
+               ghs: list, gcs: list, bcs: list, h0=None, c0=None) -> list:
     """Launch the forward over ``len(xpns)`` directions (the second one walks
     time backward) in the design and layout ``geo`` -> [h, c] per
-    direction, flattened.  The wrappers count the launches."""
+    direction, flattened.  ``h0``, ``c0``: the state the directions start
+    from, [ndir, B, H] contiguous, or None for zeros.  The wrappers count
+    the launches."""
     t_steps, batch, gh4 = xpns[0].shape
     hidden, ndir = gh4 // 4, len(xpns)
     outs = [torch.empty((t_steps, batch, hidden), dtype=torch.float32,
@@ -161,7 +168,9 @@ def launch_fwd(geo: Geometry, xpns: list, mask: torch.Tensor, whs: list,
     args = (xpns[0], xpns[-1], mask, whs[0], whs[-1], ghs[0], ghs[-1],
             gcs[0], gcs[-1], bcs[0], bcs[-1], outs[0], outs[1], outs[-2],
             outs[-1])
-    ptrs = (*(a.data_ptr() for a in args), t_steps, batch, hidden, ndir)
+    ptrs = (*(a.data_ptr() for a in args),
+            *(None if s is None else s.data_ptr() for s in (h0, c0)),
+            t_steps, batch, hidden, ndir)
     with torch.cuda.device(xpns[0].device):
         if geo.design == "cluster":
             err = _build.lib().asr_ln_lstm_fwd(
@@ -212,19 +221,23 @@ bi_ln_lstm.by_design = {"cluster": 0, "stream": 0}
 
 
 def ln_lstm(xpn: torch.Tensor, mask: torch.Tensor, wh: torch.Tensor,
-            gh: torch.Tensor, gc: torch.Tensor, bc: torch.Tensor
+            gh: torch.Tensor, gc: torch.Tensor, bc: torch.Tensor,
+            h0: torch.Tensor | None = None, c0: torch.Tensor | None = None
             ) -> tuple[torch.Tensor, torch.Tensor]:
     """One unidirectional LN-LSTM layer's recurrence, forward only: xpn [T,
     B, 4H], mask [T, B, 1], wh [H, 4H], gh [4H], gc and bc [H] -> (h, c),
-    each [T, B, H] (see :func:`bi_ln_lstm`).  :class:`LNLSTMFunction` is
-    the differentiable form."""
+    each [T, B, H] (see :func:`bi_ln_lstm`).  ``h0`` and ``c0`` [B, H],
+    both or neither, are the state the recurrence starts from (zeros where
+    not given); h[T-1] and c[T-1] are the state it ends in.
+    :class:`LNLSTMFunction` is the differentiable form."""
     check("ln_lstm", 4, mask, dict(xpn=xpn), dict(wh=wh), {}, dict(gh=gh),
           dict(gc=gc, bc=bc))
+    check_carry("ln_lstm", xpn, 4, h0=h0, c0=c0)
     if xpn.device.type == "cpu":
         with torch.no_grad():
-            return ln_lstm_plain(xpn, mask, wh, gh, gc, bc)
+            return ln_lstm_plain(xpn, mask, wh, gh, gc, bc, h0, c0)
     geo = _geometry(xpn, 1)
-    h, c = launch_fwd(geo, [xpn], mask, [wh], [gh], [gc], [bc])
+    h, c = launch_fwd(geo, [xpn], mask, [wh], [gh], [gc], [bc], h0, c0)
     ln_lstm.launches += 1
     ln_lstm.by_design[geo.design] += 1
     return h, c

@@ -35,6 +35,11 @@ Python loop over time.  Neither records an autograd graph: gradients go
 through :class:`BiMILSTMFunction` and :class:`MILSTMFunction`, whose
 backward is the backward kernel (``dpre``, the gate pre-activation
 cotangents) plus :func:`dir_grads` per direction.
+
+:func:`mi_lstm` and its plain twin start from a carried state ``h0``,
+``c0`` [B, H] where given (zeros elsewhere), so a stream's chunks thread
+the state that the last frame of h and c hands on (``models/rnn.py``
+``RNNLayer.apply_streaming``).
 """
 
 from __future__ import annotations
@@ -46,8 +51,9 @@ from asr_study_torch.models.cells import mi_lstm_step
 from asr_study_torch.ops.bilstm import (CLUSTER_SLICE, CLUSTER_THREADS,
                                         cluster_smem, stream_smem)
 from asr_study_torch.ops.recurrence import (STREAM_ROWS, Geometry, check,
-                                            cluster_geometry, cotangent,
-                                            kernel_info, prev, stream)
+                                            check_carry, cluster_geometry,
+                                            cotangent, kernel_info, prev,
+                                            stream)
 
 
 def mi_cluster_smem(hidden: int, units: int, rows: int, ctas: int
@@ -100,12 +106,13 @@ def mi_cluster_info(geo: Geometry, batch: int, hidden: int, backward: bool
                        geo, batch, hidden)
 
 
-def _scan(xp, mask, wh, alpha, beta1, beta2, b, reverse: bool
-          ) -> tuple[torch.Tensor, torch.Tensor]:
-    """One direction's h and c sequences [T, B, H] in forward time order."""
+def _scan(xp, mask, wh, alpha, beta1, beta2, b, reverse: bool, h0=None,
+          c0=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """One direction's h and c sequences [T, B, H] in forward time order,
+    from ``h0``, ``c0`` [B, H] where given, else zeros."""
     t_steps, batch, gh = xp.shape
-    h = xp.new_zeros((batch, gh // 4))
-    c = xp.new_zeros((batch, gh // 4))
+    h = xp.new_zeros((batch, gh // 4)) if h0 is None else h0
+    c = xp.new_zeros((batch, gh // 4)) if c0 is None else c0
     hs = [None] * t_steps
     cs = [None] * t_steps
     for t in (reversed(range(t_steps)) if reverse else range(t_steps)):
@@ -125,10 +132,10 @@ def bi_mi_lstm_plain(xp_f, xp_b, mask, wh_f, wh_b, alpha_f, alpha_b,
             *_scan(xp_b, mask, wh_b, alpha_b, beta1_b, beta2_b, b_b, True))
 
 
-def mi_lstm_plain(xp, mask, wh, alpha, beta1, beta2, b
+def mi_lstm_plain(xp, mask, wh, alpha, beta1, beta2, b, h0=None, c0=None
                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain version of :func:`mi_lstm`; same arguments and results."""
-    return _scan(xp, mask, wh, alpha, beta1, beta2, b, False)
+    return _scan(xp, mask, wh, alpha, beta1, beta2, b, False, h0, c0)
 
 
 def _geometry(xp: torch.Tensor, ndir: int) -> Geometry:
@@ -143,11 +150,13 @@ def _pairs(vecs: list, ndir: int) -> list:
 
 
 def launch_fwd(geo: Geometry, xps: list, mask: torch.Tensor, whs: list,
-               vecs: list) -> list:
+               vecs: list, h0=None, c0=None) -> list:
     """Launch the forward over ``len(xps)`` directions (the second one walks
     time backward) in the design and layout ``geo`` -> [h, c] per
     direction, flattened.  ``vecs``: alpha, beta1, beta2 and b, each of
-    every direction in turn.  The wrappers count the launches."""
+    every direction in turn.  ``h0``, ``c0``: the state the directions
+    start from, [ndir, B, H] contiguous, or None for zeros.  The wrappers
+    count the launches."""
     t_steps, batch, gh = xps[0].shape
     hidden, ndir = gh // 4, len(xps)
     outs = [torch.empty((t_steps, batch, hidden), dtype=torch.float32,
@@ -156,7 +165,9 @@ def launch_fwd(geo: Geometry, xps: list, mask: torch.Tensor, whs: list,
         return outs
     args = (xps[0], xps[-1], mask, whs[0], whs[-1], *_pairs(vecs, ndir),
             outs[0], outs[1], outs[-2], outs[-1])
-    ptrs = (*(a.data_ptr() for a in args), t_steps, batch, hidden, ndir)
+    ptrs = (*(a.data_ptr() for a in args),
+            *(None if s is None else s.data_ptr() for s in (h0, c0)),
+            t_steps, batch, hidden, ndir)
     with torch.cuda.device(xps[0].device):
         if geo.design == "cluster":
             err = _build.lib().asr_mi_lstm_fwd(
@@ -210,18 +221,25 @@ bi_mi_lstm.by_design = {"cluster": 0, "stream": 0}
 
 def mi_lstm(xp: torch.Tensor, mask: torch.Tensor, wh: torch.Tensor,
             alpha: torch.Tensor, beta1: torch.Tensor, beta2: torch.Tensor,
-            b: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+            b: torch.Tensor, h0: torch.Tensor | None = None,
+            c0: torch.Tensor | None = None
+            ) -> tuple[torch.Tensor, torch.Tensor]:
     """One unidirectional MI-LSTM layer's recurrence, forward only: xp [T,
     B, 4H] raw, mask [T, B, 1], wh [H, 4H], alpha, beta1, beta2 and b [4H]
-    -> (h, c), each [T, B, H] (see :func:`bi_mi_lstm`).
+    -> (h, c), each [T, B, H] (see :func:`bi_mi_lstm`).  ``h0`` and ``c0``
+    [B, H], both or neither, are the state the recurrence starts from
+    (zeros where not given); h[T-1] and c[T-1] are the state it ends in.
     :class:`MILSTMFunction` is the differentiable form."""
     check("mi_lstm", 4, mask, dict(xp=xp), dict(wh=wh), {},
           dict(alpha=alpha, beta1=beta1, beta2=beta2, b=b))
+    check_carry("mi_lstm", xp, 4, h0=h0, c0=c0)
     if xp.device.type == "cpu":
         with torch.no_grad():
-            return mi_lstm_plain(xp, mask, wh, alpha, beta1, beta2, b)
+            return mi_lstm_plain(xp, mask, wh, alpha, beta1, beta2, b, h0,
+                                 c0)
     geo = _geometry(xp, 1)
-    h, c = launch_fwd(geo, [xp], mask, [wh], [alpha, beta1, beta2, b])
+    h, c = launch_fwd(geo, [xp], mask, [wh], [alpha, beta1, beta2, b], h0,
+                      c0)
     mi_lstm.launches += 1
     mi_lstm.by_design[geo.design] += 1
     return h, c

@@ -38,6 +38,12 @@ gradients go through :class:`BiZoneoutLSTMFunction` and
 :class:`ZoneoutLSTMFunction`, whose backward is the backward kernel plus
 one ``h_prev^T @ dxp`` matmul per direction.  The mix weights get no
 gradient.
+
+:func:`zoneout_lstm` and its plain twin start from a carried state ``h0``,
+``c0`` [B, H] where given (zeros elsewhere): the first frame mixes its new
+state with that carry, so a stream's chunks thread the state that the last
+frame of h and c hands on (``models/rnn.py``
+``RNNLayer.apply_streaming``).
 """
 
 from __future__ import annotations
@@ -49,8 +55,9 @@ from asr_study_torch.models.cells import zoneout_lstm_step
 from asr_study_torch.ops.bilstm import (CLUSTER_SLICE, CLUSTER_THREADS,
                                         _dwh, cluster_smem, stream_smem)
 from asr_study_torch.ops.recurrence import (STREAM_ROWS, Geometry, check,
-                                            cluster_geometry, cotangent,
-                                            kernel_info, prev, r4, stream)
+                                            check_carry, cluster_geometry,
+                                            cotangent, kernel_info, prev, r4,
+                                            stream)
 
 
 def zoneout_cluster_smem(hidden: int, units: int, rows: int, ctas: int
@@ -106,13 +113,13 @@ def zoneout_cluster_info(geo: Geometry, batch: int, hidden: int,
                        else "zoneout_lstm_fwd_info", geo, batch, hidden)
 
 
-def _scan(xp, mask, zh, zc, wh, reverse: bool
+def _scan(xp, mask, zh, zc, wh, reverse: bool, h0=None, c0=None
           ) -> tuple[torch.Tensor, torch.Tensor]:
     """One direction's mixed h and c sequences [T, B, H] in forward time
-    order."""
+    order, from ``h0``, ``c0`` [B, H] where given, else zeros."""
     t_steps, batch, gh = xp.shape
-    h = xp.new_zeros((batch, gh // 4))
-    c = xp.new_zeros((batch, gh // 4))
+    h = xp.new_zeros((batch, gh // 4)) if h0 is None else h0
+    c = xp.new_zeros((batch, gh // 4)) if c0 is None else c0
     hs = [None] * t_steps
     cs = [None] * t_steps
     for t in (reversed(range(t_steps)) if reverse else range(t_steps)):
@@ -132,10 +139,10 @@ def bi_zoneout_lstm_plain(xp_f, xp_b, mask, zh_f, zh_b, zc_f, zc_b, wh_f,
             *_scan(xp_b, mask, zh_b, zc_b, wh_b, True))
 
 
-def zoneout_lstm_plain(xp, mask, zh, zc, wh
+def zoneout_lstm_plain(xp, mask, zh, zc, wh, h0=None, c0=None
                        ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain version of :func:`zoneout_lstm`; same arguments and results."""
-    return _scan(xp, mask, zh, zc, wh, False)
+    return _scan(xp, mask, zh, zc, wh, False, h0, c0)
 
 
 def _geometry(xp: torch.Tensor, ndir: int) -> Geometry:
@@ -143,10 +150,12 @@ def _geometry(xp: torch.Tensor, ndir: int) -> Geometry:
 
 
 def launch_fwd(geo: Geometry, xps: list, mask: torch.Tensor, zhs: list,
-               zcs: list, whs: list) -> list:
+               zcs: list, whs: list, h0=None, c0=None) -> list:
     """Launch the forward over ``len(xps)`` directions (the second one walks
     time backward) in the design and layout ``geo`` -> [h, c] per
-    direction, flattened.  The wrappers count the launches."""
+    direction, flattened.  ``h0``, ``c0``: the state the directions start
+    from, [ndir, B, H] contiguous, or None for zeros.  The wrappers count
+    the launches."""
     t_steps, batch, gh = xps[0].shape
     hidden, ndir = gh // 4, len(xps)
     outs = [torch.empty((t_steps, batch, hidden), dtype=torch.float32,
@@ -155,7 +164,9 @@ def launch_fwd(geo: Geometry, xps: list, mask: torch.Tensor, zhs: list,
         return outs
     args = (xps[0], xps[-1], mask, zhs[0], zhs[-1], zcs[0], zcs[-1], whs[0],
             whs[-1], outs[0], outs[1], outs[-2], outs[-1])
-    ptrs = (*(a.data_ptr() for a in args), t_steps, batch, hidden, ndir)
+    ptrs = (*(a.data_ptr() for a in args),
+            *(None if s is None else s.data_ptr() for s in (h0, c0)),
+            t_steps, batch, hidden, ndir)
     with torch.cuda.device(xps[0].device):
         if geo.design == "cluster":
             err = _build.lib().asr_zoneout_lstm_fwd(
@@ -208,19 +219,24 @@ bi_zoneout_lstm.by_design = {"cluster": 0, "stream": 0}
 
 
 def zoneout_lstm(xp: torch.Tensor, mask: torch.Tensor, zh: torch.Tensor,
-                 zc: torch.Tensor, wh: torch.Tensor
+                 zc: torch.Tensor, wh: torch.Tensor,
+                 h0: torch.Tensor | None = None,
+                 c0: torch.Tensor | None = None
                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """One unidirectional zoneout-LSTM layer's recurrence, forward only: xp
     [T, B, 4H], mask [T, B, 1], zh and zc [T, B, H], wh [H, 4H] -> (h, c),
-    each [T, B, H] (see :func:`bi_zoneout_lstm`).
+    each [T, B, H] (see :func:`bi_zoneout_lstm`).  ``h0`` and ``c0`` [B,
+    H], both or neither, are the state the recurrence starts from (zeros
+    where not given); h[T-1] and c[T-1] are the state it ends in.
     :class:`ZoneoutLSTMFunction` is the differentiable form."""
     check("zoneout_lstm", 4, mask, dict(xp=xp), dict(wh=wh),
           dict(zh=zh, zc=zc))
+    check_carry("zoneout_lstm", xp, 4, h0=h0, c0=c0)
     if xp.device.type == "cpu":
         with torch.no_grad():
-            return zoneout_lstm_plain(xp, mask, zh, zc, wh)
+            return zoneout_lstm_plain(xp, mask, zh, zc, wh, h0, c0)
     geo = _geometry(xp, 1)
-    h, c = launch_fwd(geo, [xp], mask, [zh], [zc], [wh])
+    h, c = launch_fwd(geo, [xp], mask, [zh], [zc], [wh], h0, c0)
     zoneout_lstm.launches += 1
     zoneout_lstm.by_design[geo.design] += 1
     return h, c

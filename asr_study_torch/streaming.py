@@ -8,8 +8,9 @@ memory and bounded latency (port of ``asr_study_tpu/streaming.py``).
   across chunks (on the device, the argmax is taken there and only the
   label ids cross to the host).
 - ``AcousticModel.apply_streaming`` carries the recurrent state across
-  chunks (unidirectional LSTM and GRU models: one launch of the layer's
-  forward kernel a chunk on a CUDA device, started from the carry).
+  chunks (unidirectional models of every cell kind: one launch of the
+  layer's forward kernel a chunk on a CUDA device, started from the
+  carry).
 - ``BeamStream`` carries the prefix beam's state across chunks
   (``ops.beam.beam_stream_chunk``: one launch of the beam kernel a chunk on
   a CUDA device) and splices each chunk's prefixes onto the carried ones

@@ -9,10 +9,16 @@ and the metrics of a logged step are fetched one log step late, so the
 host never waits on the step it has just enqueued and runs ahead of the
 card (a worker thread building batches ahead gained nothing: the corpus
 phase of ``chip_smoke.py`` times both).
+
+``profile=True`` traces the steps ``[profile_steps)`` with
+``torch.profiler`` (host and, on a CUDA device, kernel activity) into
+``<log_dir>/trace`` as a Chrome trace (Perfetto reads it), where the JAX
+loop takes a ``jax.profiler`` trace of the same steps.
 """
 
 from __future__ import annotations
 
+import os
 import sys
 import time
 from typing import Any, Dict, Optional
@@ -39,6 +45,28 @@ def step_generator(device: torch.device, seed: int, step: int,
         (seed * 1_000_003 + step + (stream << 40)) % (2 ** 63))
 
 
+def _start_trace(device: torch.device):
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    prof = torch.profiler.profile(activities=activities)
+    prof.start()
+    return prof
+
+
+def _stop_trace(prof, device: torch.device, log_dir: str,
+                steps: tuple) -> None:
+    """Wait for the traced steps' kernels, stop the trace and write it to
+    ``<log_dir>/trace/steps_<a>_<b>.pt.trace.json``."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    prof.stop()
+    out = os.path.join(log_dir, "trace")
+    os.makedirs(out, exist_ok=True)
+    prof.export_chrome_trace(
+        os.path.join(out, f"steps_{steps[0]}_{steps[1]}.pt.trace.json"))
+
+
 def fit(
     trainer: Trainer,
     state: TrainState,
@@ -51,6 +79,7 @@ def fit(
     log_dir: Optional[str] = None,
     log_every: int = 10,
     profile: bool = False,
+    profile_steps: tuple = (10, 20),
     tensorboard: bool = False,
     early_stop_patience: int = 0,
     sortagrad: bool = False,
@@ -61,11 +90,9 @@ def fit(
     ``early_stop_patience`` > 0 stops once ``monitor`` (val_loss or val_ler,
     lower is better) has not improved for that many epochs (needs
     ``valid_iter``).  ``sortagrad=True`` runs the first epoch of a fresh
-    run (``state.step == 0``) in ascending-duration order."""
-    if profile:
-        raise NotImplementedError(
-            "profile=True is not ported yet: trace the port with "
-            "torch.profiler around fit instead")
+    run (``state.step == 0``) in ascending-duration order.  ``profile=True``
+    with a ``log_dir`` traces the steps ``[profile_steps)``; a run that
+    ends inside them closes the trace where it ends."""
     if early_stop_patience > 0 and valid_iter is None:
         raise ValueError(
             "early_stop_patience requires a validation split (val_loss "
@@ -78,6 +105,7 @@ def fit(
     last_log_step = step
     best_val = float("inf")
     stale_epochs = 0
+    prof = None
 
     def consume_log(pending):
         """Fetch a logged step's metrics (issued at least a step late)."""
@@ -102,6 +130,8 @@ def fit(
             for batch in train_iter.epoch(
                     seed=seed + epoch,
                     ordered=first_epoch_ordered and epoch == 0):
+                if profile and log_dir and step == profile_steps[0]:
+                    prof = _start_trace(device)
                 inputs, in_lens, labels, lab_lens, weights = device_batch(
                     batch, device)
                 aug_gen = (step_generator(device, seed, state.step,
@@ -113,6 +143,9 @@ def fit(
                     state, inputs, in_lens, labels, lab_lens, weights,
                     step_generator(device, seed, state.step), aug_gen)
                 step = state.step
+                if prof is not None and step == profile_steps[1]:
+                    _stop_trace(prof, device, log_dir, profile_steps)
+                    prof = None
                 w = weights.sum()
                 ep_loss += metrics["loss"] * w
                 ep_w += w
@@ -148,5 +181,8 @@ def fit(
                               file=sys.stderr)
                         break
     finally:
+        if prof is not None:
+            # the run ended inside the window: close the trace there
+            _stop_trace(prof, device, log_dir, profile_steps)
         writer.close()
     return state

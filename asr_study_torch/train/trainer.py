@@ -3,16 +3,39 @@
 
 A train step is forward (``train=True``, dropout from a ``torch.Generator``)
 -> per-sequence CTC -> the weighted sum over ``max(sum(w), 1)`` ->
-backward -> clip by global norm -> Adam.  On a CUDA device the recurrent
-layers and the CTC lattice run the port's kernels forward and backward; the
-rest is plain torch (cuBLAS fp32 matmuls: TF32 is not turned on here).
+backward -> clip by global norm -> the optimizer.  On a CUDA device the
+recurrent layers and the CTC lattice run the port's kernels forward and
+backward; the rest is plain torch (cuBLAS fp32 matmuls: TF32 is not turned
+on here).
 
-The optimizer is optax's ``chain(clip_by_global_norm(clipnorm),
-adam(lr))``: the clip scales by ``clipnorm / norm`` only where
-``norm >= clipnorm`` (no epsilon, unlike ``clip_grad_norm_``), and Adam is
-bias-corrected with eps 1e-8 outside the square root, which is
-``torch.optim.Adam``'s form.  The staircase ``lr_decay`` multiplies the
-rate by ``lr_decay`` every ``decay_steps`` updates.
+The optimizer is the JAX factory's optax chain, ``clip_by_global_norm
+(clipnorm)``, then the update rule, then ``reduce_on_plateau`` where asked,
+all inside ``MultiSteps`` where ``accum_steps > 1``:
+
+- the clip scales by ``clipnorm / norm`` only where ``norm >= clipnorm``
+  (no epsilon, unlike ``clip_grad_norm_``);
+- ``adam``: bias-corrected, eps 1e-8 outside the square root, which is
+  ``torch.optim.Adam``; ``adamw``: optax adds ``weight_decay * p`` to the
+  Adam direction before the rate, which is ``torch.optim.AdamW``'s ``p *=
+  1 - lr * wd`` followed by the Adam step; ``sgd``: momentum 0.9, no
+  dampening, which is ``torch.optim.SGD``; ``rmsprop``: optax's decay 0.9
+  with eps 1e-8 inside the root (:class:`RMSprop`; torch's RMSprop is
+  another rule);
+- the staircase ``lr_decay`` multiplies the rate by ``lr_decay`` every
+  ``decay_steps`` updates;
+- reduce-on-plateau (:class:`Plateau`) averages the step's loss over
+  ``plateau_window`` updates and then multiplies that update, and every
+  later one, by its scale, which drops by ``plateau_factor`` after
+  ``plateau_patience`` windows without improvement;
+- accumulation (:class:`GradAccumulator`) keeps the running mean of
+  ``accum_steps`` micro-batches' gradients and applies it, clip, decay and
+  plateau included, on the last of them; the others change no weight.
+  ``TrainState.step`` counts micro-steps, as the JAX state does.
+
+All of that state lives in device tensors, so a step fetches nothing to
+the host, and in ``TrainState.state_dict``, so ``--resume`` keeps it.
+``check_nans`` raises ``FloatingPointError`` at the first step whose loss
+or gradient norm is not finite, before the update (a host sync a step).
 
 With a ``featurizer`` the step takes raw padded waveforms [B, N(, 1)] with
 sample counts as lengths and featurizes them on the device first (on the
@@ -20,7 +43,8 @@ card the fbank kernel, under ``torch.no_grad``: no gradient flows to the
 waveform); ``wav_augment`` runs before it and ``augment`` (SpecAugment)
 after it, in the train step only.
 
-One device, no mesh: data parallelism is ROADMAP queue A item 12.
+One device, no mesh: data parallelism is ROADMAP queue A item 12; bf16
+compute is :data:`BF16_ITEM`.
 """
 
 from __future__ import annotations
@@ -35,7 +59,117 @@ from torch import nn
 from asr_study_torch.ops import ctc
 from asr_study_torch.ops.metrics import edit_distance
 
-_TRAIN_ITEM = "ROADMAP queue A item 5"
+# where bf16 compute (the JAX trainer's compute_dtype, train --bf16) waits
+BF16_ITEM = "ROADMAP queue A item 5b"
+OPTIMIZERS = ("adam", "adamw", "rmsprop", "sgd")
+
+
+class RMSprop(torch.optim.Optimizer):
+    """``optax.rmsprop(lr)``: ``nu = decay * nu + (1 - decay) * g^2`` from
+    zeros, then ``p -= lr * g / sqrt(nu + eps)``, eps inside the root, no
+    momentum, no centring."""
+
+    def __init__(self, params, lr: float, decay: float = 0.9,
+                 eps: float = 1e-8):
+        super().__init__(params, dict(lr=lr, decay=decay, eps=eps))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                state = self.state[p]
+                if not state:
+                    state["nu"] = torch.zeros_like(p)
+                nu = state["nu"]
+                nu.mul_(group["decay"]).addcmul_(p.grad, p.grad,
+                                                 value=1.0 - group["decay"])
+                p.addcdiv_(p.grad, (nu + group["eps"]).sqrt(),
+                           value=-group["lr"])
+
+
+class Plateau:
+    """``optax.contrib.reduce_on_plateau(factor, patience,
+    accumulation_size=window)`` at rtol 1e-4, atol 0, cooldown 0 and
+    min_scale 0, its state in device tensors: each update adds its loss to
+    a running mean; the ``window``-th counts the window as improved only
+    where ``mean < (1 - rtol) * best``, resets the mean, and at the
+    ``patience``-th window in a row without improvement multiplies the
+    scale by ``factor``.  :meth:`update` returns the scale that update
+    and the next ones are multiplied by."""
+
+    RTOL = 1e-4
+
+    def __init__(self, factor: float, patience: int, window: int,
+                 device: torch.device | str):
+        self.factor, self.patience, self.window = factor, patience, window
+        self.scale = torch.ones((), device=device)
+        self.best = torch.full((), float("inf"), device=device)
+        self.stale = torch.zeros((), dtype=torch.int32, device=device)
+        self.mean = torch.zeros((), device=device)
+        self.count = 0
+
+    def update(self, value: torch.Tensor) -> torch.Tensor:
+        count = self.count + 1
+        self.mean = (self.mean * self.count + value.to(torch.float32)) \
+            / count
+        self.count = count
+        if count == self.window:
+            improved = self.mean < self.best * (1.0 - self.RTOL)
+            self.best = torch.where(improved, self.mean, self.best)
+            stale = torch.where(improved, 0, self.stale + 1)
+            fire = stale == self.patience
+            self.stale = torch.where(fire, 0, stale).to(torch.int32)
+            self.scale = torch.where(fire, self.scale * self.factor,
+                                     self.scale)
+            self.mean = torch.zeros_like(self.mean)
+            self.count = 0
+        return self.scale
+
+    def state_dict(self) -> Dict[str, Any]:
+        return {"scale": self.scale, "best": self.best, "stale": self.stale,
+                "mean": self.mean, "count": self.count}
+
+    def load_state_dict(self, state: Dict[str, Any]) -> None:
+        for k in ("scale", "best", "stale", "mean"):
+            setattr(self, k, state[k].to(getattr(self, k).device))
+        self.count = int(state["count"])
+
+
+class GradAccumulator:
+    """``optax.MultiSteps(every_k_schedule=k)``: the running mean ``acc +=
+    (g - acc) / (n + 1)`` of the gradients of ``k`` micro-steps (a
+    parameter without a gradient adds zeros), handed on at the last."""
+
+    def __init__(self, params: Iterable[torch.Tensor], k: int):
+        self.k = k
+        self.grads = [torch.zeros_like(p) for p in params]
+        self.mini_step = 0
+
+    @torch.no_grad()
+    def add(self, params: list) -> bool:
+        """Fold the parameters' gradients in; at the k-th micro-step set
+        each ``p.grad`` to the mean, reset, and return True."""
+        n = self.mini_step
+        for acc, p in zip(self.grads, params):
+            g = p.grad if p.grad is not None else torch.zeros_like(acc)
+            acc.add_((g - acc) / (n + 1))
+        self.mini_step = (n + 1) % self.k
+        if self.mini_step:
+            return False
+        for acc, p in zip(self.grads, params):
+            p.grad = acc.clone()
+            acc.zero_()
+        return True
+
+    def state_dict(self) -> Dict[str, Any]:
+        return {"grads": self.grads, "mini_step": self.mini_step}
+
+    def load_state_dict(self, state: Dict[str, Any]) -> None:
+        for acc, saved in zip(self.grads, state["grads"]):
+            acc.copy_(saved)
+        self.mini_step = int(state["mini_step"])
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,15 +178,30 @@ class OptimizerSpec:
     parameters (a torch optimizer needs them, an optax transform does
     not)."""
 
+    name: str
     lr: float
     clipnorm: float
     lr_decay: float
     decay_steps: int
+    weight_decay: float = 0.0
+    accum_steps: int = 1
+    plateau_factor: float = 0.0
+    plateau_patience: int = 0
+    plateau_window: int = 1
 
     def build(self, params: Iterable[torch.Tensor]):
-        """-> (torch.optim.Adam, StepLR scheduler or None)"""
-        opt = torch.optim.Adam(params, lr=self.lr, betas=(0.9, 0.999),
-                               eps=1e-8)
+        """-> (the torch optimizer of the update rule, StepLR scheduler or
+        None)"""
+        if self.name == "adam":
+            opt = torch.optim.Adam(params, lr=self.lr, betas=(0.9, 0.999),
+                                   eps=1e-8)
+        elif self.name == "adamw":
+            opt = torch.optim.AdamW(params, lr=self.lr, betas=(0.9, 0.999),
+                                    eps=1e-8, weight_decay=self.weight_decay)
+        elif self.name == "sgd":
+            opt = torch.optim.SGD(params, lr=self.lr, momentum=0.9)
+        else:
+            opt = RMSprop(params, lr=self.lr)
         sched = None
         if self.lr_decay:
             sched = torch.optim.lr_scheduler.StepLR(
@@ -72,59 +221,76 @@ def make_optimizer(
     plateau_patience: int = 0,
     plateau_window: int = 1,
 ) -> OptimizerSpec:
-    """The JAX factory's choices, Adam only so far.
+    """The JAX factory's choices and its checks (the module docstring
+    says what each does).
 
     ``lr_decay`` in (0, 1) with ``decay_steps`` > 0 is staircase
-    exponential decay indexed by the update count."""
+    exponential decay indexed by the update count; ``weight_decay``
+    reaches adamw only; ``accum_steps`` > 1 averages that many
+    micro-batches' gradients into one update; ``plateau_factor`` in (0, 1)
+    with ``plateau_patience`` > 0 scales the updates down when the loss
+    averaged over ``plateau_window`` updates stops improving."""
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
-    if name != "adam":
-        raise NotImplementedError(
-            f"optimizer {name!r} is not ported yet ({_TRAIN_ITEM}); the port "
-            "has adam")
-    if weight_decay:
-        raise NotImplementedError(
-            f"weight_decay belongs to adamw, not ported yet ({_TRAIN_ITEM})")
-    if accum_steps > 1:
-        raise NotImplementedError(
-            f"accum_steps > 1 is not ported yet ({_TRAIN_ITEM})")
-    if plateau_factor:
-        raise NotImplementedError(
-            f"reduce-on-plateau is not ported yet ({_TRAIN_ITEM})")
+    if plateau_factor and not 0.0 < plateau_factor < 1.0:
+        raise ValueError(
+            f"plateau_factor must be in (0, 1), got {plateau_factor}")
+    if plateau_factor and plateau_patience <= 0:
+        raise ValueError(
+            f"plateau_factor={plateau_factor} needs plateau_patience > 0 "
+            f"(got {plateau_patience})")
     if lr_decay:
         if not 0.0 < lr_decay < 1.0:
             raise ValueError(f"lr_decay must be in (0, 1), got {lr_decay}")
         if decay_steps <= 0:
-            raise ValueError(f"lr_decay={lr_decay} needs decay_steps > 0 "
-                             f"(got {decay_steps})")
-    return OptimizerSpec(float(lr), float(clipnorm or 0.0), float(lr_decay),
-                         int(decay_steps))
+            raise ValueError(
+                f"lr_decay={lr_decay} needs decay_steps > 0 (got "
+                f"{decay_steps}) — silently ignoring the decay would train "
+                "at constant lr")
+    if name not in OPTIMIZERS:
+        raise ValueError(f"unknown optimizer {name!r}; have "
+                         f"{sorted(OPTIMIZERS)}")
+    return OptimizerSpec(
+        name, float(lr), float(clipnorm or 0.0), float(lr_decay),
+        int(decay_steps), float(weight_decay if name == "adamw" else 0.0),
+        int(accum_steps), float(plateau_factor or 0.0),
+        int(plateau_patience), max(1, int(plateau_window)))
 
 
 @dataclasses.dataclass
 class TrainState:
-    """The model, its optimizer (and rate schedule) and the update count;
-    ``train_step`` updates all of them in place."""
+    """The model, its optimizer (and rate schedule, plateau and gradient
+    accumulator where the spec has them) and the step count; ``train_step``
+    updates all of them in place."""
 
     model: nn.Module
     optimizer: torch.optim.Optimizer
     scheduler: Optional[Any]
     step: int = 0
+    plateau: Optional[Plateau] = None
+    accum: Optional[GradAccumulator] = None
 
     def state_dict(self) -> Dict[str, Any]:
-        return {
+        state = {
             "model": self.model.state_dict(),
             "optimizer": self.optimizer.state_dict(),
             "scheduler": (self.scheduler.state_dict()
                           if self.scheduler is not None else None),
             "step": self.step,
         }
+        for key in ("plateau", "accum"):
+            if getattr(self, key) is not None:
+                state[key] = getattr(self, key).state_dict()
+        return state
 
     def load_state_dict(self, state: Dict[str, Any]) -> None:
         self.model.load_state_dict(state["model"])
         self.optimizer.load_state_dict(state["optimizer"])
         if self.scheduler is not None:
             self.scheduler.load_state_dict(state["scheduler"])
+        for key in ("plateau", "accum"):
+            if getattr(self, key) is not None and key in state:
+                getattr(self, key).load_state_dict(state[key])
         self.step = int(state["step"])
 
 
@@ -162,10 +328,12 @@ class Trainer:
     that turns raw padded waveforms into features inside both steps, and
     ``wav_augment`` a ``(wavs, wav_lengths, generator) -> wavs`` transform
     of the raw batch before it (``features.augment.WavAugment``), which
-    needs the featurizer."""
+    needs the featurizer.  ``check_nans`` stops training with
+    ``FloatingPointError`` at the first non-finite loss or gradient norm."""
 
     def __init__(self, model: nn.Module, optimizer: OptimizerSpec,
-                 augment=None, featurizer=None, wav_augment=None):
+                 augment=None, featurizer=None, wav_augment=None,
+                 check_nans: bool = False):
         if wav_augment is not None and featurizer is None:
             raise ValueError(
                 "wav_augment operates on raw waveforms and needs "
@@ -176,14 +344,23 @@ class Trainer:
         self.augment = augment
         self.featurizer = featurizer
         self.wav_augment = wav_augment
+        self.check_nans = check_nans
 
     @property
     def device(self) -> torch.device:
         return next(self.model.parameters()).device
 
     def init_state(self) -> TrainState:
-        opt, sched = self.spec.build(self.model.parameters())
-        return TrainState(self.model, opt, sched, 0)
+        spec = self.spec
+        opt, sched = spec.build(self.model.parameters())
+        plateau = accum = None
+        if spec.plateau_factor:
+            plateau = Plateau(spec.plateau_factor, spec.plateau_patience,
+                              spec.plateau_window, self.device)
+        if spec.accum_steps > 1:
+            accum = GradAccumulator(self.model.parameters(),
+                                    spec.accum_steps)
+        return TrainState(self.model, opt, sched, 0, plateau, accum)
 
     def _loss_sum(self, logits, input_lengths, labels, label_lengths,
                   weights):
@@ -232,25 +409,53 @@ class Trainer:
                                          label_lengths, weights)
         loss = loss_sum / denom
         loss.backward()
-        gnorm = self.apply_gradients(state)
+        gnorm = self.apply_gradients(state, loss.detach())
         return state, {"loss": loss.detach(), "grad_norm": gnorm}
 
-    def apply_gradients(self, state: TrainState) -> torch.Tensor:
-        """Clip the model's gradients by global norm (in place), take
-        the Adam update and the schedule step, count the step; returns the
-        norm before the clip."""
-        grads = [p.grad for p in state.model.parameters()
-                 if p.grad is not None]
+    def apply_gradients(self, state: TrainState,
+                        loss: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
+        """Count the step and apply the model's gradients: with an
+        accumulator, fold them in and go on only at its last micro-step;
+        clip by global norm (in place), take the optimizer's update and
+        the schedule step, and scale the update by the plateau's scale,
+        which ``loss`` (the step's, a device scalar) moves.  Returns the
+        norm of the step's own gradients, before any of that."""
+        params = list(state.model.parameters())
+        grads = [p.grad for p in params if p.grad is not None]
         gnorm = global_norm(grads)
+        if self.check_nans:
+            bad = not bool(torch.isfinite(gnorm)) or (
+                loss is not None and not bool(torch.isfinite(loss)))
+            if bad:
+                raise FloatingPointError(
+                    f"step {state.step}: loss "
+                    f"{'-' if loss is None else float(loss)}, grad norm "
+                    f"{float(gnorm)}: not finite (check_nans; the weights "
+                    "are those before this step)")
+        state.step += 1
+        if state.accum is not None:
+            if not state.accum.add(params):
+                return gnorm
+            grads = [p.grad for p in params]
         if self.spec.clipnorm > 0:
-            scale = torch.where(gnorm < self.spec.clipnorm, 1.0,
-                                self.spec.clipnorm / gnorm)
+            norm = gnorm if state.accum is None else global_norm(grads)
+            scale = torch.where(norm < self.spec.clipnorm, 1.0,
+                                self.spec.clipnorm / norm)
             for g in grads:
                 g.mul_(scale)
+        if state.plateau is not None:
+            if loss is None:
+                raise ValueError("reduce-on-plateau needs the step's loss")
+            before = [p.detach().clone() for p in params]
         state.optimizer.step()
         if state.scheduler is not None:
             state.scheduler.step()
-        state.step += 1
+        if state.plateau is not None:
+            scale = state.plateau.update(loss)
+            with torch.no_grad():
+                for p, b in zip(params, before):
+                    p.sub_(b).mul_(scale).add_(b)
         return gnorm
 
     @torch.no_grad()

@@ -56,7 +56,12 @@ paths at full width, with random weights from a seeded
   ``deep_gru`` 2x256, ``deep_blstm`` 3x256 and ``deep_speech`` (the wide
   LSTM kernel), greedy and deep_gru by beam16 with the LM, the recurrent
   state and the beam state carried on the card from chunk to chunk; a
-  ``MultiStreamRecognizer`` of 32 streams; ``cli.predict --stream``.
+  ``MultiStreamRecognizer`` of 32 streams; ``cli.predict --stream``; and
+  ``StreamingRecognizer`` on a short clip for unidirectional ``ln_blstm``,
+  ``mi_blstm`` and ``zoneout_blstm`` 3x256;
+- the rest of the optimizer factory on deep_blstm 3x256 through
+  ``Trainer.train_step``: adamw, sgd, rmsprop, reduce-on-plateau and
+  gradient accumulation, ``check_nans`` and ``fit(profile=True)``.
 
 Phases, in order; any failure raises and the exit code is not 0:
 
@@ -117,7 +122,13 @@ Phases, in order; any failure raises and the exit code is not 0:
    checkpoint saved, restored and continued;
 7. training timings: ms per step, steps/s, audio-s/s, per-stage ms (the
    deep_blstm step's CTC stage split into its pieces), the device busy
-   share;
+   share; then the optimizer phase: adamw (weight decay 1e-2), sgd,
+   rmsprop and Adam with reduce-on-plateau (patience 1, window 1), each
+   OPT_STEPS steps of deep_blstm 3x256 on a batch a step, launches
+   counted, each step's loss and grad norm held against the plain path on
+   the CPU, run twice bit for bit; accumulation over two halves against
+   the whole batch; check_nans raising on a NaN batch with the weights
+   untouched; fit(profile=True) writing a trace with the card's kernels;
 8. the corpus phase: each CLI run's launches held to what its steps and
    evals need, every logged loss finite and the train loss falling from
    the first epoch to the third, the step count continued by ``--resume``,
@@ -138,10 +149,13 @@ Phases, in order; any failure raises and the exit code is not 0:
    on its logits, its ms a batch beside the greedy slice's; train_lm's
    report, each beam eval's record and launches (one ctc_beam a batch);
 10. the streaming phase: (a) the LSTM and GRU forwards on each route
-   (cluster at H=256, wide at H=512, stream at B=97) started from a
-   random carry, in chunks of 128 bit-equal to one launch over 512
-   frames, within the forward tolerance of the plain twin, no carry
-   bit-equal to a zero carry, ms a chunk at B=1 and B=32; (b) the beam
+   (cluster at H=256, wide at H=512, stream at B=97), and the layer-norm,
+   MI and zoneout LSTM forwards on each (cluster at H=256, stream at
+   H=512), started from a random carry, in chunks of 128 bit-equal to one
+   launch over 512 frames, within the forward tolerance of the plain twin
+   (the layer-norm LSTM's plain step from the kernel's own state, its
+   recurrence being chaotic), no carry bit-equal to a zero carry, ms a
+   chunk at B=1 and B=32; (b) the beam
    kernel's stream form bit-equal to beam_stream_plain in chunks of 7, 64
    and 512 at W = 4, 16, 64 and with the LM, the spliced best paths equal
    to the one-shot beam's, us a frame at W=16; (c) each recognizer's
@@ -150,7 +164,9 @@ Phases, in order; any failure raises and the exit code is not 0:
    against the CPU plain streaming path, bench_stream.py's first-push
    latency and stream and batch audio-s/s; (d) the 32 streams' ids each
    equal to its own recognizer's, audio-s/s; (e) ``predict --stream``'s
-   JSON lines equal to ``predict``'s, greedy and beam16 with the LM.
+   JSON lines equal to ``predict``'s, greedy and beam16 with the LM; (f)
+   the layer-norm, MI and zoneout recognizers' launches and transcripts
+   equal to the whole utterance's.
 
 The deep_blstm pcm16 slice's wire unpack and features stage are split
 with CUDA events (``_prep``, fbank, the two deltas, ``_finalize``), and
@@ -174,6 +190,7 @@ import json
 import math
 import os
 import queue
+import re
 import subprocess
 import sys
 import tempfile
@@ -3194,6 +3211,18 @@ TRAIN_PATHS = {
                          f"{TRAIN_LAYERS}x512 unidirectional GRU"),
 }
 CHAOTIC = ("ln_blstm", "ln_blstm uni")
+# the optimizer phase: deep_blstm 3x256 (the deep_blstm training path's
+# model) for OPT_STEPS steps, a fresh batch of OPT_B x OPT_T each step (so
+# the plateau sees a loss that need not fall), against the CPU plain path;
+# label -> make_optimizer's arguments after the name (clip 400)
+OPT_B, OPT_T, OPT_L, OPT_STEPS = 8, 128, 24, 3
+OPT_CASES = {
+    "adamw": dict(name="adamw", lr=1e-4, weight_decay=1e-2),
+    "sgd": dict(name="sgd", lr=2e-4),
+    "rmsprop": dict(name="rmsprop", lr=1e-4),
+    "adam+plateau": dict(name="adam", lr=1e-4, plateau_factor=0.5,
+                         plateau_patience=1, plateau_window=1),
+}
 
 
 def launch_counters() -> dict:
@@ -3550,6 +3579,180 @@ def fit_and_resume(dev, make, spec, per_steps) -> None:
               f"{[round(h['val_loss'], 4) for h in hist]}, val_ler "
               f"{[round(h['val_ler'], 4) for h in hist]}, best step "
               f"{ckpt.best_step}")
+
+
+def optimizer_phase(dev: torch.device, card: str) -> list:
+    """The rest of the optimizer factory on the deep_blstm training path's
+    model: for each of OPT_CASES, OPT_STEPS steps with launches counted
+    from 0, each step's loss and grad norm against the same steps of the
+    plain path on the CPU (STEP_LOSS_RTOL, STEP_GNORM_RTOL; the weights'
+    distance printed, held elementwise for SGD, whose update is linear in
+    the gradient: Adam's and RMSprop's first updates turn a near-zero
+    gradient's rounding into a sign), and the run repeated bit for bit;
+    SGD with accum_steps=2 over the two halves of a batch against one
+    step on the whole of it; check_nans raising on a NaN batch before any
+    update; fit(profile=True) writing a trace with the card's kernels ->
+    the launches of each counted run."""
+    from asr_study_torch.data.generator import DatasetGenerator
+    from asr_study_torch.models.zoo import build_model
+    from asr_study_torch.train.loop import fit
+    from asr_study_torch.train.trainer import Trainer, make_optimizer
+
+    model_name, hp, fwd_name, bwd_name, layers, desc = \
+        TRAIN_PATHS["deep_blstm"]
+
+    def make(device):
+        return build_model(model_name, hp, num_classes=NUM_CLASSES,
+                           input_dim=FEATS,
+                           generator=torch.Generator().manual_seed(SEED + 60),
+                           device=device)
+
+    rng = np.random.RandomState(SEED + 60)
+    hosts = [(rng.randn(OPT_B, OPT_T, FEATS).astype(np.float32),
+              rng.randint(OPT_T // 2, OPT_T + 1, OPT_B).astype(np.int32),
+              rng.randint(0, NUM_CLASSES, (OPT_B, OPT_L)).astype(np.int32),
+              rng.randint(OPT_L // 2, OPT_L + 1, OPT_B).astype(np.int32),
+              np.ones(OPT_B, np.float32)) for _ in range(OPT_STEPS)]
+    cpu_batches = [[torch.from_numpy(a) for a in h] for h in hosts]
+    batches = [[a.to(dev) for a in b] for b in cpu_batches]
+
+    def run(spec, device, steps, **kw):
+        trainer = Trainer(make(device), spec, **kw)
+        state = trainer.init_state()
+        ms = [trainer.train_step(state, *b)[1] for b in steps]
+        return state, [(float(m["loss"]), float(m["grad_norm"]))
+                       for m in ms]
+
+    def weights(state):
+        return [p.detach().cpu() for p in state.model.parameters()]
+
+    def rel(a, b):
+        return abs(a - b) / abs(b)
+
+    runs = []
+    for label, kw in OPT_CASES.items():
+        spec = make_optimizer(clipnorm=400.0, **kw)
+        reset_counts()
+        state, card_m = run(spec, dev, batches)
+        launches = read_counts()
+        want = {fwd_name: layers * OPT_STEPS, bwd_name: layers * OPT_STEPS,
+                "ctc_alpha": OPT_STEPS, "ctc_beta": OPT_STEPS}
+        require(launches == want, f"optimizer {label}: launches {launches}, "
+                f"want {want}")
+        runs.append(launches)
+        again, _ = run(spec, dev, batches)
+        same = all(torch.equal(a, b) for a, b in zip(
+            state.model.parameters(), again.model.parameters()))
+        require(same, f"optimizer {label}: two identical runs differ")
+        t0 = time.perf_counter()
+        cpu_state, cpu_m = run(spec, "cpu", cpu_batches)
+        cpu_s = time.perf_counter() - t0
+        loss_rel = max(rel(a[0], b[0]) for a, b in zip(card_m, cpu_m))
+        gnorm_rel = max(rel(a[1], b[1]) for a, b in zip(card_m, cpu_m))
+        w0 = weights(run(spec, "cpu", [])[0])
+        w_card, w_cpu = weights(state), weights(cpu_state)
+        w_rel = max(float((a - b).norm() / (b - c).norm())
+                    for a, b, c in zip(w_card, w_cpu, w0))
+        w_ok = all(within(a, b, 1e-5, 1e-4) for a, b in zip(w_card, w_cpu))
+        scale = ("" if state.plateau is None else
+                 f"; plateau scale {float(state.plateau.scale):g} on the "
+                 f"card, {float(cpu_state.plateau.scale):g} on the CPU")
+        print(f"optimizer {label} ({kw}), deep_blstm {desc} B={OPT_B} "
+              f"T={OPT_T}, {OPT_STEPS} steps on fresh batches: launches "
+              f"{launches}; losses {[round(m[0], 4) for m in card_m]}, vs "
+              f"the CPU plain path ({cpu_s:.1f} s there) rel {loss_rel:.3e} "
+              f"(tol {STEP_LOSS_RTOL:g}), grad norms rel {gnorm_rel:.3e} (tol "
+              f"{STEP_GNORM_RTOL:g}); weights: worst ||card - cpu|| / "
+              f"||update|| {w_rel:.3e}, elementwise within 1e-5 + "
+              f"1e-4*|cpu| {w_ok}{scale}; two runs bit-equal {same}")
+        require(loss_rel <= STEP_LOSS_RTOL,
+                f"optimizer {label}: a loss disagrees with the CPU")
+        require(gnorm_rel <= STEP_GNORM_RTOL,
+                f"optimizer {label}: a grad norm disagrees with the CPU")
+        if kw["name"] == "sgd":
+            require(w_ok, f"optimizer {label}: the weights disagree with "
+                    "the CPU")
+        if state.plateau is not None:
+            require(torch.equal(state.plateau.scale.cpu(),
+                                cpu_state.plateau.scale),
+                    f"optimizer {label}: the plateau scale differs")
+
+    # accumulation: two halves against the whole batch
+    halves = [[a[i * OPT_B // 2: (i + 1) * OPT_B // 2] for a in batches[0]]
+              for i in range(2)]
+    acc_spec = make_optimizer("sgd", 2e-4, 400.0, accum_steps=2)
+    reset_counts()
+    acc_state, _ = run(acc_spec, dev, halves)
+    launches = read_counts()
+    runs.append(launches)
+    acc_again, _ = run(acc_spec, dev, halves)
+    big_state, _ = run(make_optimizer("sgd", 2e-4, 400.0), dev, batches[:1])
+    acc_w, big_w = weights(acc_state), weights(big_state)
+    err = max(float((a - b).abs().max()) for a, b in zip(acc_w, big_w))
+    acc_ok = all(within(a, b, 1e-5, 1e-4) for a, b in zip(acc_w, big_w))
+    acc_same = all(torch.equal(a, b) for a, b in zip(
+        acc_state.model.parameters(), acc_again.model.parameters()))
+    print(f"optimizer sgd accum_steps=2 over the two halves of a batch "
+          f"(B={OPT_B // 2} each) vs one step on the whole: launches "
+          f"{launches}, steps {acc_state.step} vs {big_state.step}, weights "
+          f"max_abs_err={err:.3e} (tol 1e-5 + 1e-4*|whole|); two runs "
+          f"bit-equal {acc_same}")
+    require(acc_state.step == 2 and acc_ok and acc_same,
+            "accumulation disagrees with the whole batch")
+
+    # check_nans: a NaN in the inputs stops the step before the update
+    nan_batch = [a.clone() for a in batches[0]]
+    nan_batch[0][0, 3, 5] = float("nan")
+    trainer = Trainer(make(dev), make_optimizer("adam", 1e-4, 400.0),
+                      check_nans=True)
+    nan_state = trainer.init_state()
+    before = [p.detach().clone() for p in nan_state.model.parameters()]
+    try:
+        trainer.train_step(nan_state, *nan_batch)
+        raised = ""
+    except FloatingPointError as e:
+        raised = str(e)
+    untouched = all(torch.equal(a, b) for a, b in zip(
+        before, nan_state.model.parameters()))
+    print(f"check_nans on a batch with a NaN input: raised "
+          f"FloatingPointError {bool(raised)} ({raised[:60]}...), weights "
+          f"untouched {untouched}, step {nan_state.step}")
+    require(bool(raised) and untouched and nan_state.step == 0,
+            "check_nans did not stop the NaN step")
+
+    # fit(profile=True): steps [1, 3) of two epochs of two steps traced
+    frng = np.random.RandomState(SEED + 61)
+    feats = [frng.randn(frng.randint(OPT_T // 2, OPT_T + 1), FEATS)
+             .astype(np.float32) for _ in range(2 * OPT_B)]
+    labs = [frng.randint(0, NUM_CLASSES, frng.randint(8, OPT_L + 1))
+            .astype(np.int32) for _ in range(2 * OPT_B)]
+    it = DatasetGenerator(batch_size=OPT_B).flow(feats, labs)
+    with tempfile.TemporaryDirectory() as tmp:
+        trainer = Trainer(make(dev), make_optimizer("adam", 1e-4, 400.0))
+        reset_counts()
+        t0 = time.perf_counter()
+        fit_state = fit(trainer, trainer.init_state(), it, epochs=2,
+                        log_dir=tmp, profile=True, profile_steps=(1, 3))
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        launches = read_counts()
+        runs.append(launches)
+        files = os.listdir(os.path.join(tmp, "trace"))
+        require(files == ["steps_1_3.pt.trace.json"],
+                f"fit(profile=True) wrote {files}")
+        path = os.path.join(tmp, "trace", files[0])
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+        size = os.path.getsize(path)
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    ours = sorted({m.group(0) for m in (
+        re.search(r"\w*(?:lstm|ctc)\w*", e["name"]) for e in kernels) if m})
+    print(f"fit(profile=True): {fit_state.step} steps in {fit_s:.1f} s, "
+          f"launches {launches}; steps [1, 3) traced into "
+          f"<log_dir>/trace/{files[0]} ({size} bytes, {len(events)} events, "
+          f"{len(kernels)} kernel events; the port's: {ours})")
+    require(bool(ours), "the profile trace holds none of the port's kernels")
+    return runs
 
 
 def train_timings(card: str, path: str, desc: str, layers: int, trainer,
@@ -4426,7 +4629,11 @@ MULTI_STREAMS = 32
 # batch past the wide design's budget, as check_stream_h512 reaches it)
 CARRY_ROUTES = (("lstm", HIDDEN, BATCH), ("lstm", 512, BATCH),
                 ("lstm", 512, 97), ("gru", HIDDEN, BATCH),
-                ("gru", 512, BATCH), ("gru", 512, 97))
+                ("gru", 512, BATCH), ("gru", 512, 97),
+                ("ln_lstm", HIDDEN, BATCH), ("ln_lstm", 512, BATCH),
+                ("mi_lstm", HIDDEN, BATCH), ("mi_lstm", 512, BATCH),
+                ("zoneout_lstm", HIDDEN, BATCH),
+                ("zoneout_lstm", 512, BATCH))
 # the beam's stream form: (chunk, W, with the LM)
 BEAM_STREAM_CASES = ((7, 16, False), (64, 16, False), (BEAM_T, 16, False),
                      (64, 4, False), (64, 64, False), (64, 16, True))
@@ -4440,24 +4647,86 @@ STREAM_MODELS = {
     "deep_speech uni": ("deep_speech", "bidirectional=false",
                         "lstm_fwd_wide"),
 }
+# the layer-norm, MI and zoneout recognizers (3x256 uni, zoneout in eval
+# mode) on a CELL_STREAM_S clip; the CPU check of the layer-norm one's
+# logits covers its first LN_CHECK_T frames (a chaotic recurrence)
+CELL_STREAM_S = 8.0
+CELL_STREAM_MODELS = {
+    "ln_blstm 3x256 uni": ("ln_blstm", "bidirectional=false", "ln_lstm_fwd"),
+    "mi_blstm 3x256 uni": ("mi_blstm", "bidirectional=false", "mi_lstm_fwd"),
+    "zoneout_blstm 3x256 uni": ("zoneout_blstm", "bidirectional=false",
+                                "zoneout_lstm_fwd"),
+}
+
+
+def cell_carry_args(family: str, wh: torch.Tensor, b: int,
+                    g: torch.Generator, dev: torch.device) -> list:
+    """The op's arguments after the mask for a carry route: wh, and for
+    the layer-norm LSTM its gains and bias (gh, gc, bc about 1, 1, 0), for
+    the MI LSTM alpha, beta1, beta2 about 1 and b about 0, for the zoneout
+    LSTM the eval-mode mix weights zh = 0.9, zc = 0.85 over STREAM_T
+    frames before wh (constant, so any chunk's frames are a prefix)."""
+    h = wh.shape[0]
+
+    def near(n, centre):
+        return (centre + 0.1 * torch.randn(n, generator=g)).to(dev)
+
+    if family == "ln_lstm":
+        return [wh, near(4 * h, 1.0), near(h, 1.0), near(h, 0.0)]
+    if family == "mi_lstm":
+        return [wh, *(near(4 * h, 1.0) for _ in range(3)),
+                near(4 * h, 0.0)]
+    if family == "zoneout_lstm":
+        return [torch.full((STREAM_T, b, h), 0.9, device=dev),
+                torch.full((STREAM_T, b, h), 0.85, device=dev), wh]
+    return [wh]
+
+
+def ln_carry_steps(xp, mask, rest, out, init) -> tuple:
+    """The layer-norm LSTM's plain step from the kernel's own previous
+    state, the carry at frame 0, at every frame at once -> (h, c)."""
+    from asr_study_torch.models.cells import ln_lstm_step
+
+    h_k, c_k = out
+    t, b, h = h_k.shape
+    h_prev = torch.cat([init[0][None], h_k[:-1]]).reshape(t * b, h)
+    c_prev = torch.cat([init[1][None], c_k[:-1]]).reshape(t * b, h)
+    h_s, c_s = ln_lstm_step(h_prev, c_prev, xp.reshape(t * b, 4 * h),
+                            mask.reshape(t * b, 1), *rest)
+    return h_s.view_as(h_k), c_s.view_as(c_k)
 
 
 def check_stream_carries(dev: torch.device, card: str) -> None:
-    """(a) Each of the six LSTM and GRU forward routes started from a
-    random non-zero carry: in chunks of STREAM_CHUNK threading h[-1] (and
-    c[-1]) bit-equal to one launch over STREAM_T frames; within the
-    forward tolerance of the plain twin started from the same carry; no
-    carry bit-equal to an explicit zero carry; ms a chunk at B=1 and at
-    the route's batch."""
+    """(a) Each of the twelve forward routes of CARRY_ROUTES (the LSTM's
+    and the GRU's six, the layer-norm, MI and zoneout LSTMs' cluster and
+    stream routes) started from a random non-zero carry: in chunks of
+    STREAM_CHUNK threading h[-1] (and c[-1]) bit-equal to one launch over
+    STREAM_T frames; within the forward tolerance of the plain twin
+    started from the same carry (the layer-norm LSTM's chaotic
+    recurrence: of its plain step from the kernel's own state, the whole
+    trajectories' distance printed); no carry bit-equal to an explicit
+    zero carry; ms a chunk at B=1 and at the route's batch."""
     from asr_study_torch.ops.bilstm import lstm, lstm_geometry, lstm_plain
     from asr_study_torch.ops.gru import gru, gru_geometry, gru_plain
+    from asr_study_torch.ops.ln_lstm import (ln_geometry, ln_lstm,
+                                             ln_lstm_plain)
+    from asr_study_torch.ops.mi_lstm import (mi_geometry, mi_lstm,
+                                             mi_lstm_plain)
+    from asr_study_torch.ops.zoneout_lstm import (zoneout_geometry,
+                                                  zoneout_lstm,
+                                                  zoneout_lstm_plain)
 
+    ops = {"lstm": (lstm, lstm_plain, lstm_geometry),
+           "gru": (gru, gru_plain, gru_geometry),
+           "ln_lstm": (ln_lstm, ln_lstm_plain, ln_geometry),
+           "mi_lstm": (mi_lstm, mi_lstm_plain, mi_geometry),
+           "zoneout_lstm": (zoneout_lstm, zoneout_lstm_plain,
+                            zoneout_geometry)}
     g = torch.Generator().manual_seed(SEED + 40)
     for family, h, b in CARRY_ROUTES:
-        fn, plain, geometry, gates, tol = (
-            (lstm, lstm_plain, lstm_geometry, 4, (BILSTM_ATOL, BILSTM_RTOL))
-            if family == "lstm" else
-            (gru, gru_plain, gru_geometry, 3, (GRU_ATOL, GRU_RTOL)))
+        fn, plain, geometry = ops[family]
+        gates, tol = ((3, (GRU_ATOL, GRU_RTOL)) if family == "gru" else
+                      (4, (BILSTM_ATOL, BILSTM_RTOL)))
         design = geometry(h, b, 1).design
         xp = torch.randn(STREAM_T, b, gates * h, generator=g).to(dev)
         wh = (torch.randn(h, gates * h, generator=g) / h ** 0.5).to(dev)
@@ -4465,10 +4734,13 @@ def check_stream_carries(dev: torch.device, card: str) -> None:
         lengths[0], lengths[-1] = STREAM_T - 12, 0
         mask = mask_of(lengths, STREAM_T, dev)
         init = [(0.5 * torch.randn(b, h, generator=g)).to(dev)
-                for _ in range(2 if family == "lstm" else 1)]
+                for _ in range(1 if family == "gru" else 2)]
+        rest = cell_carry_args(family, wh, b, g, dev)
 
         def run(x, m, *carry):
-            out = fn(x, m, wh, *carry)
+            args = [a[: x.shape[0], : x.shape[1]].contiguous()
+                    if a.dim() == 3 else a for a in rest]
+            out = fn(x, m, *args, *carry)
             return out if isinstance(out, tuple) else (out,)
 
         with torch.inference_mode():
@@ -4481,8 +4753,11 @@ def check_stream_carries(dev: torch.device, card: str) -> None:
                 carry = [o[-1] for o in out]
             null = run(xp, mask)
             zeros = run(xp, mask, *[torch.zeros_like(i) for i in init])
-            want = plain(xp, mask, wh, *init)
+            want = plain(xp, mask, *rest, *init)
             want = want if isinstance(want, tuple) else (want,)
+            held = want
+            if family == "ln_lstm":
+                held = ln_carry_steps(xp, mask, rest, whole, init)
         torch.cuda.synchronize()
         require(all(torch.equal(torch.cat([c[k] for c in chunks]), seq)
                     for k, seq in enumerate(whole)),
@@ -4490,10 +4765,17 @@ def check_stream_carries(dev: torch.device, card: str) -> None:
                 "launch")
         require(all(torch.equal(a, z) for a, z in zip(null, zeros)),
                 f"{family} {design}: no carry differs from a zero carry")
-        err = max(float((a - w).abs().max()) for a, w in zip(whole, want))
-        require(all(within(a, w, *tol) for a, w in zip(whole, want)),
+        err = max(float((a - w).abs().max()) for a, w in zip(whole, held))
+        require(all(within(a, w, *tol) for a, w in zip(whole, held)),
                 f"{family} {design} with a carry disagrees with plain by "
                 f"{err:.3e}")
+        vs = "vs plain"
+        if family == "ln_lstm":
+            drift = max(float((a - w).abs().max())
+                        for a, w in zip(whole, want))
+            vs = (f"whole trajectories vs plain {drift:.3e} (not held: a "
+                  f"chaotic recurrence); vs the plain step from the "
+                  f"kernel's own state")
         times = []
         for rows in ((1, b) if b == BATCH else (b,)):
             args = (xp[:STREAM_CHUNK, :rows].contiguous(),
@@ -4505,7 +4787,7 @@ def check_stream_carries(dev: torch.device, card: str) -> None:
         print(f"stream carry, {family}_fwd {design} design, H={h} B={b} "
               f"T={STREAM_T} in chunks of {STREAM_CHUNK} from a random "
               f"carry: chunked bit-equal to one launch, no carry bit-equal "
-              f"to zeros, vs plain max_abs_err={err:.3e} (tol {tol[0]:g} + "
+              f"to zeros, {vs} max_abs_err={err:.3e} (tol {tol[0]:g} + "
               f"{tol[1]:g}*|plain|)")
         print(f"[{card}] stream carry, {family}_fwd {design} design, H={h}: "
               f"a chunk of {STREAM_CHUNK} frames {', '.join(times)}")
@@ -4682,6 +4964,73 @@ def recognizer_runs(dev: torch.device, card: str, lm) -> tuple:
     return runs, models["deep_gru 2x256 uni"]
 
 
+def cell_recognizer_runs(dev: torch.device, card: str) -> list:
+    """(f) StreamingRecognizer on CELL_STREAM_S of audio in pushes of
+    STREAM_PUSH_S (chunk_frames STREAM_CHUNK) for each of
+    CELL_STREAM_MODELS, greedy: launches counted from 0 (one forward a
+    layer and chunk), the ids equal to the same model's whole-utterance
+    greedy ids on the card, the chunked logits against the CPU plain
+    streaming path (the layer-norm model's on its first LN_CHECK_T
+    frames), stream audio-s/s -> the launches of each run."""
+    from asr_study_torch.cli.predict import predict_host_features
+    from asr_study_torch.features.audio import MFCC
+    from asr_study_torch.models.zoo import build_model
+    from asr_study_torch.streaming import StreamingRecognizer
+
+    feature = MFCC()
+    wav = synth_long(CELL_STREAM_S, SEED + 1)
+    feats = feature(wav)
+    n_chunks = -(-len(feats) // STREAM_CHUNK)
+    step = int(STREAM_PUSH_S * SR)
+    runs = []
+    for i, (label, (name, hp, row)) in enumerate(
+            CELL_STREAM_MODELS.items()):
+        model = build_model(
+            name, hp, num_classes=NUM_CLASSES, input_dim=39,
+            generator=torch.Generator().manual_seed(SEED + 70 + i),
+            device=dev).eval()
+
+        def stream(audio):
+            rec = StreamingRecognizer(model, feature,
+                                      chunk_frames=STREAM_CHUNK)
+            t0 = time.perf_counter()
+            for lo in range(0, len(audio), step):
+                rec.push(audio[lo: lo + step])
+            ids = rec.finish()
+            torch.cuda.synchronize()
+            return ids, time.perf_counter() - t0
+
+        stream(wav[: 2 * STREAM_CHUNK * 160])           # warm-up
+        reset_counts()
+        ids, wall = stream(wav)
+        launches = read_counts()
+        want = {row: len(model.rnn.layers) * n_chunks}
+        require(launches == want, f"stream {label}: launches {launches}, "
+                f"want {want}")
+        runs.append(launches)
+        whole = predict_host_features(model, feature, [wav], dev, None)
+        require(ids == whole[0].tolist(), f"stream {label}: transcript "
+                f"differs from the whole utterance's ({len(ids)} against "
+                f"{len(whole[0])} ids)")
+        n_check = LN_CHECK_T if name == "ln_blstm" else len(feats)
+        got = stream_logits(model, feats[:n_check], STREAM_CHUNK)
+        ref = stream_logits(copy.deepcopy(model).to("cpu"), feats[:n_check],
+                            STREAM_CHUNK)
+        err = float((got - ref).abs().max())
+        require(err <= LOGITS_TOL, f"stream {label}: logits differ from the "
+                f"CPU plain streaming path by {err:.3e}")
+        print(f"stream {label} greedy: {CELL_STREAM_S:g} s of audio, "
+              f"{len(feats)} frames in {n_chunks} chunks of {STREAM_CHUNK}; "
+              f"launches {launches}; transcript ({len(ids)} ids) equal to "
+              f"the whole utterance's on the card; logits on {n_check} "
+              f"frames vs the CPU plain streaming path max_abs_err="
+              f"{err:.3e} (tol {LOGITS_TOL:g})")
+        print(f"[{card}] stream {label} greedy: stream "
+              f"{CELL_STREAM_S / wall:.1f} audio-s/s ({STREAM_PUSH_S:g} s "
+              f"pushes, host features included)")
+    return runs
+
+
 def multi_stream_run(dev: torch.device, card: str, model) -> dict:
     """(d) MultiStreamRecognizer, MULTI_STREAMS streams of 3-8 s at
     chunk_frames STREAM_CHUNK, pushes of 0.3-1.2 s interleaved with ticks,
@@ -4792,7 +5141,8 @@ def streaming_phase(dev: torch.device, card: str, tmp: str) -> list:
     carried state on each route, (b) the beam kernel's stream form, then
     the main paths with launches counted: (c) StreamingRecognizer at full
     width, (d) MultiStreamRecognizer with MULTI_STREAMS streams, (e) the
-    CLI -> each main path's launches."""
+    CLI, (f) the layer-norm, MI and zoneout recognizers -> each main
+    path's launches."""
     from asr_study_torch.text.lm import CharNGramLM
 
     lm_path = os.path.join(tmp, "lm3.npz")
@@ -4802,6 +5152,7 @@ def streaming_phase(dev: torch.device, card: str, tmp: str) -> list:
     runs, gru_model = recognizer_runs(dev, card, lm)
     runs.append(multi_stream_run(dev, card, gru_model))
     runs += stream_cli_runs(card, tmp, gru_model, lm_path)
+    runs += cell_recognizer_runs(dev, card)
     return runs
 
 
@@ -5133,6 +5484,8 @@ def main() -> int:
         path_launches.append(training_slice(
             dev, card, path, with_fit=path == "deep_blstm")["launches"])
     clock.mark("training paths")
+    path_launches += optimizer_phase(dev, card)
+    clock.mark("optimizer phase")
 
     # 8. the corpus phase: make_dataset -> train -> resume -> eval; then
     # the h5 phase on its corpus: make_dataset --output (host, --device),

@@ -745,8 +745,8 @@ def main() -> int:
         zh, zc = ((torch.rand(t, B, H, device=dev, generator=g) < 0.9).float()
                   for _ in range(2))
         zo = (zh, zh, zc, zc)
-        if kernel == "ln_lstm_fwd":     # h_f, c_f, h_b, c_b
-            ptrs = (xp, xp, mask, wh, wh, *ln, *outs)
+        if kernel == "ln_lstm_fwd":     # h_f, c_f, h_b, c_b; zero state
+            ptrs = (xp, xp, mask, wh, wh, *ln, *outs, None, None)
         elif kernel == "ln_lstm_bwd":   # h, c, dh; dpre, dcn of each lane
             # h and c from the forward: random ones make the cotangent
             # chain overflow
@@ -755,14 +755,14 @@ def main() -> int:
                                 for _ in range(2))
             ptrs = (xp, xp, mask, wh, wh, *ln, h, c, h, c, seqs[1], seqs[1],
                     *outs)
-        elif kernel == "zoneout_lstm_fwd":  # h_f, c_f, h_b, c_b
-            ptrs = (xp, xp, mask, *zo, wh, wh, *outs)
+        elif kernel == "zoneout_lstm_fwd":  # h_f, c_f, h_b, c_b; zero state
+            ptrs = (xp, xp, mask, *zo, wh, wh, *outs, None, None)
         elif kernel == "zoneout_lstm_bwd":  # h, c, dh; dxp of each lane
             h, c = zoneout_lstm(xp, mask, zh, zc, wh)
             ptrs = (xp, xp, mask, *zo, wh, wh, h, c, h, c, seqs[1], seqs[1],
                     *outs[:2])
-        elif kernel == "mi_lstm_fwd":   # h_f, c_f, h_b, c_b
-            ptrs = (xp, xp, mask, wh, wh, *mi, *outs)
+        elif kernel == "mi_lstm_fwd":   # h_f, c_f, h_b, c_b; zero state
+            ptrs = (xp, xp, mask, wh, wh, *mi, *outs, None, None)
         elif kernel == "mi_lstm_bwd":   # h, c, dh; dpre of each lane
             h, c = mi_lstm(xp, mask, wh, al, b1, b2, bias)
             ptrs = (xp, xp, mask, wh, wh, *mi, h, c, h, c, seqs[1], seqs[1],

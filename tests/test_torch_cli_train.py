@@ -73,26 +73,23 @@ def test_make_dataset_writes_the_jax_manifest(tmp_path, capsys):
 MISSING = "missing.json"
 
 
+# (id, cli, argv, the ROADMAP item named)
 _REFUSED = [
-    (12, "train", ["--num_devices", "2"], "item 12"),
-    (13, "train", ["--tp_devices", "2"], "item 13"),
-    (14, "train", ["--opt", "sgd"], "item 5"),
-    (15, "train", ["--accum_steps", "2"], "item 5"),
-    (16, "train", ["--lr_plateau", "0.5"], "item 5"),
-    (17, "train", ["--bf16"], "item 5"),
-    (18, "train", ["--profile"], "item 5"),
-    (19, "train", ["--check_nans"], "item 5"),
-    (21, "eval", ["--num_devices", "2"], "item 12"),
-    (22, "eval", ["--num_devices", "2", "--beam_width", "8", "--lm",
-                  "lm.npz"], "item 12"),
+    ("train-argv12-item 12", "train", ["--num_devices", "2"], "item 12"),
+    ("train-argv13-item 13", "train", ["--tp_devices", "2"], "item 13"),
+    # item 5b since the rest of item 5 was ported
+    ("train-argv17-item 5", "train", ["--bf16"], "item 5b"),
+    ("eval-argv21-item 12", "eval", ["--num_devices", "2"], "item 12"),
+    ("eval-argv22-item 12", "eval", ["--num_devices", "2", "--beam_width",
+                                     "8", "--lm", "lm.npz"], "item 12"),
 ]
 
 
-# the ids the cases had when this list also held the options of items 7,
-# 9 and 11
+# the ids the cases had when this list also held the options of items 5,
+# 7, 9 and 11
 @pytest.mark.parametrize("cli,argv,item", [
-    pytest.param(cli, argv, item, id=f"{cli}-argv{k}-{item}")
-    for k, cli, argv, item in _REFUSED])
+    pytest.param(cli, argv, item, id=name)
+    for name, cli, argv, item in _REFUSED])
 def test_unported_options_are_refused(tmp_path, monkeypatch, cli, argv,
                                       item):
     monkeypatch.chdir(tmp_path)
@@ -168,6 +165,14 @@ def small_h5(tmp_path_factory):
     ("eval", ["--dataset", "FEATS", "--save", "RUN"], 3),
     ("train_lm", ["--dataset", "FEATS"], 10),
     ("train_lm", ["--dataset", "FEATS", "--splits", "train", "valid"], 13),
+    # the options once refused with ROADMAP item 5
+    ("train", ["--dataset", "FEATS", "--opt", "sgd"], 39),
+    ("train", ["--dataset", "FEATS", "--opt", "adamw"], 39),
+    ("train", ["--dataset", "FEATS", "--opt", "rmsprop"], 39),
+    ("train", ["--dataset", "FEATS", "--accum_steps", "2"], 39),
+    ("train", ["--dataset", "FEATS", "--lr_plateau", "0.5"], 39),
+    ("train", ["--dataset", "FEATS", "--profile"], 39),
+    ("train", ["--dataset", "FEATS", "--check_nans"], 39),
 ])
 def test_ported_options_work(tmp_path, monkeypatch, capsys, small_h5, cli,
                              argv, expect):

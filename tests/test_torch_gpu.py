@@ -2091,29 +2091,54 @@ def test_h5_round_trip_on_card_machine(cuda, tmp_path):
 
 # -- streaming: carried state in the forward kernels, the beam's stream form -
 
-# each forward route of the LSTM and the GRU with a carry: the cluster
-# design at H=256 (and H=100, ragged over the cluster), the wide design at
-# H=512, the stream design by a batch past the wide design's budget
+# each forward route with a carry: the LSTM's and the GRU's cluster
+# design at H=256 (and the LSTM's at H=100, ragged over the cluster), wide
+# design at H=512, stream design by a batch past the wide design's budget;
+# the layer-norm, MI and zoneout LSTMs' cluster design at H=256 and stream
+# design at H=512
 CARRY_ROUTES = [("lstm", 256, 5, "cluster"), ("lstm", 100, 3, "cluster"),
                 ("lstm", 512, 5, "wide"), ("lstm", 512, 97, "stream"),
                 ("gru", 256, 5, "cluster"), ("gru", 512, 5, "wide"),
-                ("gru", 512, 97, "stream")]
+                ("gru", 512, 97, "stream"),
+                *[(kind, h, 5, "cluster" if h == 256 else "stream")
+                  for kind in ("ln_lstm", "mi_lstm", "zoneout_lstm")
+                  for h in (256, 512)]]
 CARRY_TOL = dict(rtol=1e-5, atol=1e-4)   # chip_smoke.py's forward bounds
+CARRY_OPS = {"lstm": (lstm, lstm_plain, lstm_geometry),
+             "gru": (gru, gru_plain, gru_geometry),
+             "ln_lstm": (ln_lstm, ln_lstm_plain, ln_geometry),
+             "mi_lstm": (mi_lstm, mi_lstm_plain, mi_geometry),
+             "zoneout_lstm": (zoneout_lstm, zoneout_lstm_plain,
+                              zoneout_geometry)}
 
 
 def _carry_case(cuda, family, t, b, h, seed):
-    """xp, mask (the last row masked on every frame), wh and a non-zero
-    carry [(h0, c0) or (h0,)], on the card."""
+    """xp, mask (the last row masked on every frame), the op's arguments
+    after the mask (wh; the layer-norm LSTM's wh, gh, gc, bc; the MI
+    LSTM's wh, alpha, beta1, beta2, b; the zoneout LSTM's eval-mode mix
+    weights zh, zc, then wh) and a non-zero carry [(h0, c0) or (h0,)], on
+    the card."""
     g = torch.Generator().manual_seed(seed)
-    gates = 4 if family == "lstm" else 3
+
+    def near(n, centre):
+        return centre + 0.1 * torch.randn(n, generator=g)
+
+    gates = 3 if family == "gru" else 4
     xp = torch.randn(t, b, gates * h, generator=g)
     wh = torch.randn(h, gates * h, generator=g) / h ** 0.5
     lengths = torch.randint(1, t + 1, (b,), generator=g)
     lengths[0], lengths[-1] = t, 0
     mask = (torch.arange(t)[:, None] < lengths[None, :]).float()[..., None]
     init = [0.5 * torch.randn(b, h, generator=g)
-            for _ in range(2 if family == "lstm" else 1)]
-    return (xp.to(cuda), mask.to(cuda), wh.to(cuda),
+            for _ in range(1 if family == "gru" else 2)]
+    rest = {"ln_lstm": lambda: [wh, near(4 * h, 1.0), near(h, 1.0),
+                                near(h, 0.0)],
+            "mi_lstm": lambda: [wh, near(4 * h, 1.0), near(4 * h, 1.0),
+                                near(4 * h, 1.0), near(4 * h, 0.0)],
+            "zoneout_lstm": lambda: [torch.full((t, b, h), 0.9),
+                                     torch.full((t, b, h), 0.85), wh]
+            }.get(family, lambda: [wh])()
+    return (xp.to(cuda), mask.to(cuda), [a.to(cuda) for a in rest],
             [i.to(cuda) for i in init])
 
 
@@ -2130,25 +2155,31 @@ def test_carried_state_routes(cuda, family, h, b, design):
     last one) threading h[-1] (and c[-1]) equal to one launch over the
     sequence bit for bit; no carry equal to an explicit zero carry bit for
     bit; the masked row holding its carry on every frame; every launch
-    counted under the route."""
+    counted under the route; a wrong-shaped carry refused before any
+    launch."""
     t = 45
-    xp, mask, wh, init = _carry_case(cuda, family, t, b, h, seed=h + b)
-    fn, plain, geometry = ((lstm, lstm_plain, lstm_geometry)
-                           if family == "lstm" else
-                           (gru, gru_plain, gru_geometry))
+    xp, mask, rest, init = _carry_case(cuda, family, t, b, h, seed=h + b)
+    fn, plain, geometry = CARRY_OPS[family]
     assert geometry(h, b, 1).design == design
+
+    def run(lo, hi, *carry):
+        args = [a[lo:hi].contiguous() if a.dim() == 3 else a for a in rest]
+        return _as_tuple(fn(xp[lo:hi].contiguous(), mask[lo:hi].contiguous(),
+                            *args, *carry))
+
     before = dict(fn.by_design)
-    whole = _as_tuple(fn(xp, mask, wh, *init))
+    whole = run(0, t, *init)
     chunks, carry = [], init
     for lo in range(0, t, 16):
-        out = _as_tuple(fn(xp[lo: lo + 16].contiguous(),
-                           mask[lo: lo + 16].contiguous(), wh, *carry))
+        out = run(lo, lo + 16, *carry)
         chunks.append(out)
         carry = [o[-1] for o in out]
-    null = _as_tuple(fn(xp, mask, wh))
-    zeros = _as_tuple(fn(xp, mask, wh, *[torch.zeros_like(i) for i in init]))
+    null = run(0, t)
+    zeros = run(0, t, *[torch.zeros_like(i) for i in init])
+    with pytest.raises(ValueError, match="float32"):
+        run(0, t, *[i[:2] for i in init])
     assert fn.by_design == {**before, design: before[design] + 6}
-    want = _as_tuple(plain(xp, mask, wh, *init))
+    want = _as_tuple(plain(xp, mask, *rest, *init))
     torch.cuda.synchronize()
     for got_, want_ in zip(whole, want):
         torch.testing.assert_close(got_, want_, **CARRY_TOL)

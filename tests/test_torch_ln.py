@@ -390,3 +390,35 @@ def test_ln_geometry(hidden, ndir):
                 assert col not in owner
                 owner[col] = k
     assert sorted(owner) == list(range(4 * hidden))
+
+
+def test_jax_ln_blstm_float32_holds_float64_at_t64(monkeypatch):
+    """ROADMAP C2 pinned: the JAX ln_blstm at its default 3x256 on its CPU
+    scan path, run in float32 and in float64 from the same initial weights
+    and inputs (cells._dot and nn.dense_apply, which force float32
+    results, patched in this process only), agree to 1e-3 at T=64.  The
+    drift past that at full length (2.32 at T=805 in the measurement C2
+    records) is the float32 recurrence's own, so it is no sign of a fault
+    in the port's LN kernels or streaming."""
+    from asr_study_tpu.models import cells as jcells
+
+    monkeypatch.setattr(jcells, "_dot", lambda x, w: jnp.dot(
+        x.astype(w.dtype), w))
+    monkeypatch.setattr(jnn, "dense_apply", lambda p, x, precision=None: (
+        jnp.dot(x.astype(p["w"].dtype), p["w"], precision=precision)
+        + p["b"]))
+    jm = jzoo.ln_blstm("", num_classes=27)
+    params = jm.init(jax.random.PRNGKey(0), 39)
+    x = np.random.RandomState(0).randn(4, 64, 39).astype(np.float32)
+    lengths = jnp.full((4,), 64, jnp.int32)
+    y32 = np.asarray(jm.apply(params, jnp.asarray(x), lengths, train=False))
+    for layer in jm.rnn.layers:
+        monkeypatch.setattr(layer.cell, "dtype", jnp.float64)
+    with jax.enable_x64(True):
+        p64 = jax.tree_util.tree_map(
+            lambda a: jnp.asarray(np.asarray(a, np.float64)), params)
+        y64 = np.asarray(jm.apply(p64, jnp.asarray(x.astype(np.float64)),
+                                  lengths, train=False))
+    assert y32.dtype == np.float32 and y64.dtype == np.float64
+    assert y32.shape == y64.shape == (4, 64, 28)
+    np.testing.assert_allclose(y32, y64, rtol=0, atol=1e-3)

@@ -1,7 +1,9 @@
 """Streaming inference in the port (asr_study_torch/streaming.py, the
 models' apply_streaming, ops/beam.py's stream form, predict --stream)
 against the JAX package's (asr_study_tpu/streaming.py) on the CPU, at a
-small size: H=16, two layers, a few classes, under 2 s of audio."""
+small size: H=16, two layers, a few classes, under 2 s of audio.  Every
+cell kind streams: the LSTM, GRU, layer-norm, MI and zoneout LSTMs (the
+last with its eval-mode mix), unidirectional."""
 
 import json
 
@@ -38,7 +40,12 @@ STREAM_MODELS = {
     "highway_blstm": UNI,
     "deep_speech": "num_hiddens=16,input_dense=16,bidirectional=false,"
                    "dropout=0.0,input_dropout=0.0",
+    # the layer-norm, MI and zoneout LSTMs (zoneout with its eval mix)
+    "ln_blstm": UNI,
+    "mi_blstm": UNI,
+    "zoneout_blstm": UNI + ",zoneout_h=0.2,zoneout_c=0.3",
 }
+CELL_MODELS = ("ln_blstm", "mi_blstm", "zoneout_blstm")
 
 
 def _wav(seconds=1.7, seed=0, sr=16000):
@@ -153,13 +160,9 @@ def test_apply_streaming_matches_jax_and_forward(name):
 
 @pytest.mark.parametrize("name,hp,match", [
     ("deep_gru", "num_hiddens=16,num_layers=2", "unidirectional"),
-    ("ln_blstm", UNI, "item 10b"),
-    ("mi_blstm", UNI, "item 10b"),
-    ("zoneout_blstm", UNI, "item 10b"),
-], ids=["bidirectional", "ln", "mi", "zoneout"])
+], ids=["bidirectional"])
 def test_streaming_refusals(name, hp, match):
-    """A bidirectional model cannot stream (the JAX messages); the
-    layer-norm, MI and zoneout cells wait for ROADMAP item A10b."""
+    """A bidirectional model cannot stream (the JAX message)."""
     model = build_model(name, hp, num_classes=5, input_dim=13)
     with pytest.raises(ValueError, match=match):
         model.init_stream_carries(1)
@@ -168,6 +171,38 @@ def test_streaming_refusals(name, hp, match):
     with pytest.raises(ValueError, match=match):
         streaming.MultiStreamRecognizer(model, audio.MFCC(d=False, dd=False),
                                         n_streams=2)
+
+
+@pytest.mark.parametrize("name", CELL_MODELS, ids=["ln", "mi", "zoneout"])
+def test_cell_recognizers_match_jax(name, monkeypatch):
+    """StreamingRecognizer (greedy and by beam) and MultiStreamRecognizer
+    on the layer-norm, MI and zoneout LSTMs: the JAX recognizers' ids."""
+    monkeypatch.setenv("ASR_BEAM_SELECT", "gather")
+    jm, params, pm = _models(name, STREAM_MODELS[name], input_dim=13, seed=3)
+    feature = dict(d=False, dd=False)
+    wavs = [_wav(s, seed=20 + i) for i, s in enumerate((1.1, 0.7))]
+    for kw in ({}, dict(beam_width=4)):
+        port = streaming.StreamingRecognizer(pm, audio.MFCC(**feature),
+                                             chunk_frames=16, **kw)
+        jax_ = jstreaming.StreamingRecognizer(jm, params,
+                                              jaudio.MFCC(**feature),
+                                              chunk_frames=16, **kw)
+        for c in _chunks(wavs[0], (2500, 700, 4100)):
+            port.push(c)
+            jax_.push(c)
+        assert port.finish() == jax_.finish()
+    port = streaming.MultiStreamRecognizer(pm, audio.MFCC(**feature), 2,
+                                           chunk_frames=16)
+    jax_ = jstreaming.MultiStreamRecognizer(jm, params,
+                                            jaudio.MFCC(**feature), 2,
+                                            chunk_frames=16)
+    for i, w in enumerate(wavs):
+        port.push(i, w)
+        jax_.push(i, w)
+    port.tick()
+    jax_.tick()
+    assert [port.finish(i) for i in (1, 0)] == [jax_.finish(i)
+                                                 for i in (1, 0)]
 
 
 def _beam_case(seed=0, t_max=45, n_char=5):
@@ -391,11 +426,45 @@ def test_predict_stream_matches_jax_cli(cli_runs, capsys, monkeypatch,
     assert [json.loads(g)["file"] for g in got] == paths
 
 
+@pytest.mark.parametrize("name", CELL_MODELS, ids=["ln", "mi", "zoneout"])
+def test_predict_stream_cells_match_jax_cli(cli_runs, tmp_path, capsys,
+                                            name):
+    """predict --stream on the layer-norm, MI and zoneout LSTMs: the JAX
+    CLI's JSON lines from a JAX run of the same weights (two wavs as
+    concurrent streams, then one by beam)."""
+    _, _, paths, _ = cli_runs
+    hp = STREAM_MODELS[name]
+    parser = CharParser()
+    jm = jzoo.build_model(name, hp, num_classes=27)
+    state = Trainer(jm, make_optimizer()).init_state(jax.random.PRNGKey(5),
+                                                     39)
+    jrun = str(tmp_path / "jax_run")
+    ckpt = CheckpointManager(jrun)
+    ckpt.save(state, hparams={"model": name, "params": hp,
+                              "num_classes": 27, "num_feats": 39,
+                              "vocab": parser.vocab})
+    ckpt.wait()
+    ckpt.close()
+    npz = str(tmp_path / "m.npz")
+    np.savez(npz, __meta__=json.dumps(
+        {"model": name, "params": hp, "num_feats": 39, "num_classes": 27,
+         "vocab": parser.vocab, "blank_id": 27}),
+        **flatten_params(state.params))
+    for extra, wavs in (([], paths), (["--beam_width", "4"], paths[:1])):
+        common = ["--stream", "--chunk_seconds", "0.3", *extra, *wavs]
+        assert port_predict.main(["--weights", npz, "--device", "cpu",
+                                  *common]) == 0
+        got = capsys.readouterr().out.strip().splitlines()
+        assert jax_predict.main(["--save", jrun, "--platform", "cpu",
+                                 *common]) == 0
+        want = capsys.readouterr().out.strip().splitlines()
+        assert [json.loads(g) for g in got] == [json.loads(w) for w in want]
+        assert len(got) == len(wavs)
+
+
 @pytest.mark.parametrize("name,hp,match", [
     ("deep_gru", "num_hiddens=12,num_layers=1", "unidirectional"),
-    ("zoneout_blstm", "num_hiddens=12,num_layers=1,bidirectional=false",
-     "item 10b"),
-], ids=["bidirectional", "zoneout"])
+], ids=["bidirectional"])
 def test_predict_stream_refuses_what_cannot_stream(cli_runs, tmp_path, name,
                                                    hp, match):
     _, _, paths, _ = cli_runs

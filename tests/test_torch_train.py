@@ -122,14 +122,29 @@ def _jax_grads(jm, params, batch):
      "dropout=0.0"),
     (("adam", 5e-3, 400.0), "mi_blstm", "num_hiddens=8,num_layers=2,"
      "dropout=0.0,bidirectional=false"),
+    # the rest of the factory: make_optimizer(name, lr, clipnorm,
+    # weight_decay, lr_decay, decay_steps, accum_steps, plateau_factor,
+    # plateau_patience, plateau_window)
+    (("adamw", 5e-3, 400.0, 1e-2), "deep_blstm", HP),
+    (("adamw", 2e-2, 0.5, 1e-1, 0.5, 1), "deep_blstm", HP),
+    (("sgd", 5e-2, 0.5), "deep_blstm", HP),
+    (("rmsprop", 1e-3, 400.0), "deep_blstm", HP),
+    (("adam", 5e-3, 400.0, 0.0, 0.0, 0, 1, 0.5, 1, 1), "deep_blstm", HP),
+    # accumulation: the first and third steps fold their gradients in and
+    # change no weight, the second applies the mean of two
+    (("adam", 5e-3, 400.0, 0.0, 0.0, 0, 2), "deep_blstm", HP),
+    (("sgd", 5e-2, 400.0, 0.0, 0.0, 0, 2, 0.5, 1, 1), "deep_blstm", HP),
 ], ids=["no_clip", "clip", "lr_decay", "gru_bi", "gru_uni_clip", "lstm_uni",
         "highway", "residual", "deep_speech", "ln_bi_clip", "ln_uni",
-        "zoneout_bi", "zoneout_uni_clip", "mi_bi_clip", "mi_uni"])
+        "zoneout_bi", "zoneout_uni_clip", "mi_bi_clip", "mi_uni", "adamw",
+        "adamw_decay_clip", "sgd_clip", "rmsprop", "plateau", "accum2",
+        "accum2_sgd_plateau"])
 def test_train_steps_match_jax(spec_args, model, hp):
     """Three train steps from the same weights on the same batch: each
     step's loss and grad norm, the first step's gradients key by key (after
-    the clip, which optax's clip_by_global_norm decides), and the weights
-    after the third update."""
+    the clip, which optax's clip_by_global_norm decides; where the
+    gradients accumulate, unclipped), and the weights after the third
+    update."""
     jm, jt, jstate, trainer, state = _pair(spec_args, hp, model)
     batch = _batch(0)
     tbatch = [torch.from_numpy(a) for a in batch]
@@ -203,17 +218,167 @@ def test_lr_decay_staircase_matches_optax():
 
 
 @pytest.mark.parametrize("kwargs,err", [
-    (dict(name="sgd"), NotImplementedError),
-    (dict(name="adamw", weight_decay=1e-2), NotImplementedError),
-    (dict(accum_steps=2), NotImplementedError),
-    (dict(plateau_factor=0.5, plateau_patience=2), NotImplementedError),
     (dict(accum_steps=0), ValueError),
     (dict(lr_decay=1.5, decay_steps=2), ValueError),
     (dict(lr_decay=0.5), ValueError),
+    (dict(name="adagrad"), ValueError),
+    (dict(plateau_factor=1.5, plateau_patience=2), ValueError),
+    (dict(plateau_factor=0.5), ValueError),
 ])
 def test_make_optimizer_refuses(kwargs, err):
-    with pytest.raises(err):
+    """The JAX factory's checks, with its messages."""
+    with pytest.raises(err) as got:
         make_optimizer(**kwargs)
+    with pytest.raises(err) as want:
+        jtrainer.make_optimizer(**kwargs)
+    assert str(got.value) == str(want.value)
+
+
+def _full_batch(seed, b=8, t=12, l=3):
+    """Seeded numpy batch of fully weighted rows, ragged frames."""
+    rng = np.random.RandomState(seed)
+    return (rng.randn(b, t, FEATS).astype(np.float32),
+            rng.randint(t // 2, t + 1, b).astype(np.int32),
+            rng.randint(0, CLASSES, (b, l)).astype(np.int32),
+            rng.randint(1, l + 1, b).astype(np.int32),
+            np.ones(b, np.float32))
+
+
+@pytest.mark.parametrize("name", ["adam", "sgd"])
+def test_accumulation_matches_big_batch(name):
+    """accum_steps=2 over the two halves of a fully weighted batch lands
+    on the weights one update on the whole batch gives (JAX
+    tests/test_train.py test_grad_accumulation_matches_big_batch), and on
+    the JAX trainer's accumulated weights."""
+    big = _full_batch(7)
+    halves = [tuple(a[4 * i: 4 * (i + 1)] for a in big) for i in range(2)]
+
+    def run(accum, batches):
+        jm, jt, jstate, trainer, state = _pair(
+            (name, 5e-3, 10.0, 0.0, 0.0, 0, accum))
+        for b in batches:
+            jstate, _ = jt.train_step(jstate, *map(jnp.asarray, b),
+                                      jax.random.PRNGKey(0))
+            trainer.train_step(state, *map(torch.from_numpy, b))
+        assert state.step == int(jstate.step) == len(batches)
+        return (flat_from_params(trainer.model.state_dict()),
+                flatten_params(jstate.params))
+
+    (p_accum, j_accum), (p_big, _) = run(2, halves), run(1, [big])
+    for key, want in p_big.items():
+        np.testing.assert_allclose(p_accum[key], want, atol=2e-6,
+                                   err_msg=key)
+        np.testing.assert_allclose(p_accum[key], j_accum[key], rtol=1e-4,
+                                   atol=1e-5, err_msg=key)
+
+
+def _constant_grads(trainer, state, values, steps):
+    """Every parameter zero with gradient one, as the JAX plateau tests'
+    params and grads; ``steps`` applies with loss ``values[k]`` -> each
+    apply's update (the weights' change) of the first entry."""
+    params = list(state.model.parameters())
+    with torch.no_grad():
+        for p in params:
+            p.zero_()
+    mags = []
+    for k in range(steps):
+        before = params[0].detach().clone()
+        for p in params:
+            p.grad = torch.ones_like(p)
+        trainer.apply_gradients(state, torch.tensor(values[k]))
+        mags.append(float(-(params[0].detach() - before).flatten()[0]))
+    return mags
+
+
+@pytest.mark.parametrize("name,accum,window,values", [
+    ("adam", 1, 1, [1.0] * 8),
+    ("adam", 1, 1, [10.0 - i for i in range(8)]),
+    ("adam", 1, 2, [3.0, 1.0, 2.0, 2.0, 2.0, 2.0, 1.5, 1.9, 2.5, 2.5]),
+    ("sgd", 2, 1, [1.0] * 12),
+], ids=["stale", "improving", "window2", "sgd_in_accum2"])
+def test_plateau_scales_updates_as_optax(name, accum, window, values):
+    """Reduce-on-plateau (factor 0.5, patience 2; patience 1 inside
+    accumulation, as JAX tests/test_train.py's plateau tests) from a
+    constant gradient at rate 1: each apply's update equals optax's
+    chain(opt, reduce_on_plateau) (in MultiSteps) fed the same losses; a
+    stale loss halves the updates, an improving one never does (rel 1e-4:
+    optax's Adam takes its bias corrections in float32, torch's in
+    float64)."""
+    patience = 1 if accum > 1 else 2
+    args = (name, 1.0, 0.0, 0.0, 0.0, 0, accum, 0.5, patience, window)
+    trainer = Trainer(_port_model(), make_optimizer(*args))
+    got = _constant_grads(trainer, trainer.init_state(), values,
+                          len(values))
+    tx = optax.with_extra_args_support(jtrainer.make_optimizer(*args))
+    params = {"w": jnp.zeros((3,))}
+    st = tx.init(params)
+    want = []
+    for v in values:
+        upd, st = tx.update({"w": jnp.ones((3,))}, st, params,
+                            value=jnp.float32(v))
+        want.append(float(-upd["w"][0]))
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-7)
+    applied = [m for m in want if m]
+    if len(set(values)) == 1:
+        assert applied[-1] <= 0.5 * applied[0] + 1e-6
+    elif all(a > b for a, b in zip(values, values[1:])):
+        assert applied[-1] == pytest.approx(applied[0], rel=1e-3)
+    else:
+        assert applied[-1] == pytest.approx(0.5 * applied[0], rel=1e-3)
+
+
+def test_plateau_and_accumulation_survive_resume(tmp_path):
+    """A checkpoint taken mid-accumulation after the plateau scale has
+    dropped restores both into a fresh state: the next steps equal an
+    uninterrupted run's bit for bit."""
+    args = ("adam", 1.0, 0.0, 0.0, 0.0, 0, 2, 0.5, 1, 1)
+    values = [1.0] * 12
+    a = Trainer(_port_model(), make_optimizer(*args))
+    want = _constant_grads(a, a.init_state(), values, 12)
+    b = Trainer(_port_model(), make_optimizer(*args))
+    b_state = b.init_state()
+    got = _constant_grads(b, b_state, values, 7)
+    assert float(b_state.plateau.scale) < 1.0
+    assert b_state.accum.mini_step == 1
+    ckpt = CheckpointManager(str(tmp_path / "run"))
+    ckpt.save(b_state)
+    c = Trainer(_port_model(seed=3), make_optimizer(*args))
+    c_state = ckpt.restore(c.init_state())
+    assert c_state.step == 7 and c_state.accum.mini_step == 1
+    assert torch.equal(c_state.plateau.scale, b_state.plateau.scale)
+    params = list(c_state.model.parameters())
+    for k in range(7, 12):
+        before = params[0].detach().clone()
+        for p in params:
+            p.grad = torch.ones_like(p)
+        c.apply_gradients(c_state, torch.tensor(values[k]))
+        got.append(float(-(params[0].detach() - before).flatten()[0]))
+    assert got == want
+
+
+def test_check_nans_stops_before_the_update():
+    """check_nans raises FloatingPointError on a batch whose loss is NaN
+    and leaves the weights as they were; without it the step goes on and
+    the weights turn NaN."""
+    batch = list(_batch(3))
+    batch[0] = batch[0].copy()
+    batch[0][0, 2, 1] = np.nan
+    tbatch = [torch.from_numpy(a) for a in batch]
+    trainer = Trainer(_port_model(), make_optimizer("adam", 1e-2, 400.0),
+                      check_nans=True)
+    state = trainer.init_state()
+    trainer.train_step(state, *map(torch.from_numpy, _batch(4)))
+    before = {k: v.clone() for k, v in state.model.state_dict().items()}
+    with pytest.raises(FloatingPointError, match="not finite"):
+        trainer.train_step(state, *tbatch)
+    assert state.step == 1
+    for k, v in state.model.state_dict().items():
+        assert torch.equal(v, before[k]), k
+    plain = Trainer(_port_model(), make_optimizer("adam", 1e-2, 400.0))
+    p_state = plain.init_state()
+    plain.train_step(p_state, *tbatch)
+    assert not all(torch.isfinite(p).all()
+                   for p in p_state.model.parameters())
 
 
 def test_eval_step_and_run_eval_match_jax():
@@ -516,8 +681,31 @@ def test_fit_early_stop_and_refusals(tmp_path):
     assert state.step == 2 * train_iter.steps_per_epoch
     with pytest.raises(ValueError, match="validation"):
         fit(trainer, state, train_iter, None, early_stop_patience=1)
-    with pytest.raises(NotImplementedError):
-        fit(trainer, state, train_iter, profile=True)
+
+
+@pytest.mark.parametrize("window", [(1, 3), (2, 1000)],
+                         ids=["inside_run", "past_the_end"])
+def test_fit_profile_writes_a_trace(tmp_path, window):
+    """fit(profile=True) traces the steps [profile_steps) with
+    torch.profiler into <log_dir>/trace; a run that ends inside the window
+    writes its trace where it ends.  The trace is Chrome JSON with the
+    steps' operator events."""
+    import json
+
+    train_iter, _ = _corpus(3)
+    trainer = Trainer(_port_model(), make_optimizer("adam", 1e-2, 400.0))
+    state = fit(trainer, trainer.init_state(), train_iter, epochs=2,
+                log_dir=str(tmp_path), profile=True, profile_steps=window)
+    assert state.step == 2 * train_iter.steps_per_epoch
+    files = os.listdir(tmp_path / "trace")
+    assert files == [f"steps_{window[0]}_{window[1]}.pt.trace.json"]
+    with open(tmp_path / "trace" / files[0]) as f:
+        events = json.load(f)["traceEvents"]
+    assert any("addmm" in e.get("name", "") or "mm" in e.get("name", "")
+               for e in events)
+    # without a log dir there is nowhere to write: no trace
+    fit(trainer, trainer.init_state(), train_iter, epochs=1, profile=True,
+        profile_steps=(1, 2))
 
 
 def test_front_end_dropout_through_train_step_and_fit():
