@@ -180,6 +180,13 @@ SIGNATURES = {
     # start slots, scores, B, T, V, W, E, pad_id, lm_order, lm_mod, alpha,
     # beta, hash multipliers, stream
     "asr_ctc_beam_stream": [_P] * 15 + [_I] * 8 + [_F, _F, _U, _U, _P],
+    # the wide design (every W, V the select design does not take): the
+    # decode's arguments with bp int64 and, after it, the scratch [B,
+    # stride] bytes and its stride
+    "asr_ctc_beam_wide": [_P] * 5 + [_L] + [_P] * 3 + [_I] * 10
+                         + [_F, _F, _U, _U, _P],
+    "asr_ctc_beam_wide_stream": [_P] * 5 + [_L] + [_P] * 11 + [_I] * 8
+                                + [_F, _F, _U, _U, _P],
     # payload, n_words, row_start, widths, totals, out, nbcap, stream
     "asr_dpack_decode": [_P, _L, _P, _P, _P, _P, _I, _P],
     # the one-launch design: payload, n_words, row_start, widths, scratch,

@@ -65,8 +65,10 @@
 // started from, then writes them, so the caller splices each slot's chunk
 // onto that start slot's prefix.
 //
-// Limits (ops/beam.py BEAM_MAX_WIDTH, BEAM_MAX_VOCAB): W <= 128, V <= 64;
-// W*E*4 bytes of dynamic shared memory for the kill stamps.
+// The select design's route (ops/beam.py beam_design, SELECT_MAX_WIDTH and
+// SELECT_MAX_VOCAB): W <= 128, V <= 64; W*E*4 bytes of dynamic shared
+// memory for the kill stamps.  Every other (W, V) goes to the wide design,
+// ctc_beam_wide.cu.
 
 #include <cuda_runtime.h>
 #include <stdint.h>

@@ -44,7 +44,8 @@
 // at LOG_EPS, expf of min minus max, log1pf, add), IEEE expf and log1pf
 // (no fast math), uint32 hashes that wrap natively.
 //
-// Limits (ops/beam.py BEAM_MAX_WIDTH, BEAM_MAX_VOCAB): W <= 128, V <= 64;
+// Limits (the select design's route, ops/beam.py SELECT_MAX_WIDTH and
+// SELECT_MAX_VOCAB): W <= 128, V <= 64;
 // the keys and extension scores take (npad * 8 + W*E*4) bytes of dynamic
 // shared memory, npad = the power of two >= W + W*E (at most 97,792 B).
 

@@ -31,7 +31,7 @@ import json
 import logging
 import os
 import threading
-from typing import Callable, Dict, Iterator, List, Optional
+from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 
@@ -301,40 +301,56 @@ class H5FeatureRows:
             return dset[self._offsets[i]: self._offsets[i + 1]]
         return dset[i].reshape(tuple(self.shapes[i]))
 
-    def _read_rows(self, idx: np.ndarray) -> List[np.ndarray]:
-        """Rows ``idx`` (any order) -> [T, F] arrays; the packed layout
-        reads each run of consecutive indices in one go."""
+    def _read_runs(self, idx: np.ndarray
+                   ) -> Tuple[List[np.ndarray], np.ndarray]:
+        """Rows ``idx`` (any order) -> ([n, F] arrays, each row's first row
+        in their concatenation).  The packed layout reads each run of
+        consecutive indices in one go; the vlen layout gives an array a
+        row."""
         dset = self._rows()
+        starts = np.zeros(len(idx), np.int64)
         if self._offsets is None:
             f_dim = self.num_feats
-            return [r.reshape(-1, f_dim) for r in dset.rows(idx)]
+            runs = [r.reshape(-1, f_dim) for r in dset.rows(idx)]
+            lens = np.array([r.shape[0] for r in runs], np.int64)
+            np.cumsum(lens[:-1], out=starts[1:])
+            return runs, starts
         offs = self._offsets
         order = np.argsort(idx, kind="stable")
-        rows: List[Optional[np.ndarray]] = [None] * len(idx)
-        k = 0
+        runs = []
+        base = k = 0
         while k < len(order):
             e = k
             while e + 1 < len(order) and idx[order[e + 1]] <= \
                     idx[order[e]] + 1:
                 e += 1
             a, b = int(idx[order[k]]), int(idx[order[e]])
-            run = dset.read(int(offs[a]), int(offs[b + 1]))
-            for j in range(k, e + 1):
-                i = int(idx[order[j]])
-                rows[order[j]] = run[offs[i] - offs[a]: offs[i + 1] - offs[a]]
+            pos = order[k: e + 1]
+            runs.append(dset.read(int(offs[a]), int(offs[b + 1])))
+            starts[pos] = offs[idx[pos]] - offs[a] + base
+            base += runs[-1].shape[0]
             k = e + 1
-        return rows
+        return runs, starts
 
     def pack_into(self, idx, out: np.ndarray) -> None:
-        """Read rows ``idx`` and pack them into ``out`` [B, t_pad, F]; the
+        """Read rows ``idx`` and pack them into ``out`` [B, t_pad, F]
+        (float32) with the native packer (``asr_pack_batch_full``); the
         padded tails and the rows past ``len(idx)`` are zeroed, so ``out``
-        may come uninitialized."""
+        may come uninitialized.  A batch of one run of the packed layout
+        (every batch of the duration-sorted generator over a file written
+        in duration order) is packed straight from its one read; several
+        runs, or vlen rows, are joined first, as the JAX path does."""
+        from asr_study_torch.utils import native
+
         idx = np.asarray(idx, np.int64)
-        out[:] = 0
-        t_pad = out.shape[1]
-        for j, row in enumerate(self._read_rows(idx)):
-            t = min(row.shape[0], t_pad)
-            out[j, :t] = row[:t]
+        runs, starts = self._read_runs(idx)
+        if len(runs) == 1:
+            src = runs[0]
+        elif runs:
+            src = np.concatenate(runs)
+        else:
+            src = np.zeros((0, out.shape[2]), np.float32)
+        native.pack_batch_into(src, starts, self.shapes[idx, 0], out)
 
     def close(self) -> None:
         with self._lock:

@@ -24,9 +24,10 @@ Three codecs; both ends must agree on it:
 
 The host half (``wire_cap``, ``pack_audio``, the ``dpack_*`` encoders) is a
 NumPy copy of the JAX module's, byte for byte: that module imports jax at
-its top, so it cannot be shared.  Its C++ dpack encoder is not copied (the
-NumPy encoder is byte-identical to it).  The device half
-(``unpack_audio``, ``dpack_unpack``) is torch.
+its top, so it cannot be shared.  The dpack encode runs, as in the JAX
+module, through the port's native host library (``utils/native.py``), the
+NumPy encoder its plain twin.  The device half (``unpack_audio``,
+``dpack_unpack``) is torch.
 """
 
 from __future__ import annotations
@@ -239,10 +240,23 @@ def _dpack_deltas(wavs: Sequence[np.ndarray]) -> tuple[np.ndarray, list]:
     return (((d << 1) ^ (d >> 31)).astype(np.uint32)), lens
 
 
-def dpack_encode(wavs: Sequence[np.ndarray]
+def dpack_encode(wavs: Sequence[np.ndarray], use_native: bool = True
                  ) -> tuple[list, np.ndarray, np.ndarray, int]:
     """Encode to (lengths, widths uint8 [nb], payload int16, n_samples)
-    (copy of the NumPy path of ``asr_study_tpu.data.wire.dpack_encode``)."""
+    (port of ``asr_study_tpu.data.wire.dpack_encode``).
+
+    The route is the native encoder (``native/asr_native.cc``
+    ``asr_dpack_encode_v2``, through ``utils/native.py``), which raises if
+    its library cannot be built; ``use_native=False`` takes the NumPy
+    encoder below, its byte-identical plain twin."""
+    if use_native:
+        lens = [int(np.asarray(w).shape[0]) for w in wavs]
+        if sum(lens):
+            from asr_study_torch.utils import native
+
+            samples = np.concatenate([quantize_pcm16(w) for w in wavs])
+            widths, payload = native.dpack_encode(samples)
+            return lens, widths, payload, samples.shape[0]
     u, lens = _dpack_deltas(wavs)
     n = u.shape[0]
     nb = -(-n // _DPACK_BLOCK)

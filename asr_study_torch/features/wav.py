@@ -1,12 +1,14 @@
 """WAV file IO without external audio deps.
 
 Copied from ``asr_study_tpu/features/wav.py`` so that the port imports
-nothing of the JAX package.  It imports numpy and the standard library
-only, so two parts differ from the original: the RIFF/WAVE parser is the
-original's pure-Python one (the original tries its C++ reader first, which
-decodes the same samples), and the resampler is a numpy form of
-``scipy.signal.resample_poly``'s default filter (Kaiser window, beta 5, half
-length 10 taps per rate step), summed in float64.
+nothing of the JAX package.  As in the original, :func:`read_wav` decodes
+through the C++ reader of the native host library (``utils/native.py``,
+``asr_read_wav``), which in the port takes every encoding of the
+pure-Python parser, :func:`read_wav_plain` (its plain twin, reached only
+by name), and sizes its buffer from the file, so a recording of any length
+reads whole.  The resampler differs from the original: a numpy
+form of ``scipy.signal.resample_poly``'s default filter (Kaiser window,
+beta 5, half length 10 taps per rate step), summed in float64.
 
 The reference loads audio through ``librosa.load`` [ref:
 preprocessing/audio.py], which decodes to mono float32 in [-1, 1] at a
@@ -58,8 +60,18 @@ def read_wav(path: str, sr: int | None = 16000) -> Tuple[np.ndarray, int]:
 
     If ``sr`` is given and differs from the file's rate, resample (polyphase,
     like librosa's default resampler family).  Pass ``sr=None`` to keep the
-    native rate.
+    native rate.  Decoded by the native library's reader.
     """
+    from asr_study_torch.utils import native
+
+    return _maybe_resample(*native.read_wav(path), sr)
+
+
+def read_wav_plain(path: str, sr: int | None = 16000
+                   ) -> Tuple[np.ndarray, int]:
+    """:func:`read_wav` by the pure-Python RIFF/WAVE parser (its plain
+    twin): PCM 8/16/24/32 and IEEE float32/64, the extensible format tag,
+    channels averaged."""
     with open(path, "rb") as f:
         riff, _size, wave = struct.unpack("<4sI4s", f.read(12))
         if riff != b"RIFF" or wave != b"WAVE":

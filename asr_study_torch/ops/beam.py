@@ -18,11 +18,15 @@ strings are not carried: each frame writes (parent, emitted char)
 backpointers, walked back once at the end.
 
 :func:`beam_search_decode` takes the log-softmax in torch, then runs the
-walk: on a CUDA tensor one launch of ``csrc/ctc_beam.cu`` (:func:`ctc_beam`,
-a CTA per utterance, the whole time loop inside), on a CPU tensor
-:func:`beam_search_plain` (a loop over T of batched [B, W] torch ops).  The
-TPU forms of the reference (the one-hot winner reshuffle, its 16-bit
-halves and the ``ASR_BEAM_SELECT`` knob) are left out.
+walk: on a CUDA tensor one launch of a beam kernel (:func:`ctc_beam`, a CTA
+per utterance, the whole time loop inside), on a CPU tensor
+:func:`beam_search_plain` (a loop over T of batched [B, W] torch ops).
+:func:`beam_design` picks the kernel: ``csrc/ctc_beam.cu`` (the select
+design, its state in shared memory) for W <= 128 and V <= 64, else
+``csrc/ctc_beam_wide.cu`` (the wide design, its state in global-memory
+scratch), so every width and vocabulary the reference takes runs on the
+card.  The TPU forms of the reference (the one-hot winner reshuffle, its
+16-bit halves and the ``ASR_BEAM_SELECT`` knob) are left out.
 """
 
 from __future__ import annotations
@@ -44,11 +48,14 @@ _HASH_INIT = 1
 _DEAD1, _DEAD2 = 0xDEAD0000, 0xBEEF0000
 _U32 = 0xFFFFFFFF
 
-# csrc/ctc_beam.cu sizes its shared beam state (W beams), a frame's char
-# tables (V classes) and its warps' lists of 32*R keys (R <= 4 a lane) to
-# these
-BEAM_MAX_WIDTH = 128
-BEAM_MAX_VOCAB = 64
+# the select design's route: csrc/ctc_beam.cu sizes its shared beam state
+# (W beams), a frame's char tables (V classes) and its warps' lists of 32*R
+# keys (R <= 4 a lane) to these; the wide design takes the rest
+SELECT_MAX_WIDTH = 128
+SELECT_MAX_VOCAB = 64
+# the wide design's candidate index is 32 bits of its sort key, and its
+# loops count candidates in int: W * (E + 1) stays below this
+WIDE_MAX_CANDIDATES = 2 ** 31
 
 
 class BeamConfig(NamedTuple):
@@ -323,13 +330,78 @@ def beam_stream_plain(log_probs: torch.Tensor, lengths: torch.Tensor,
             _logadd(p_b, p_nb))
 
 
-def _check_limits(beam_width: int, vocab: int) -> None:
-    if not 1 <= beam_width <= BEAM_MAX_WIDTH:
-        raise ValueError(f"ctc_beam: beam_width {beam_width} outside the "
-                         f"kernel's 1..{BEAM_MAX_WIDTH}")
-    if not 2 <= vocab <= BEAM_MAX_VOCAB:
-        raise ValueError(f"ctc_beam: {vocab} classes (blank included) "
-                         f"outside the kernel's 2..{BEAM_MAX_VOCAB}")
+def beam_design(beam_width: int, vocab: int) -> str:
+    """The beam kernel a decode of ``beam_width`` beams over ``vocab``
+    classes (blank included) launches: "select" (``csrc/ctc_beam.cu``) for
+    W <= 128 and V <= 64, else "wide" (``csrc/ctc_beam_wide.cu``)."""
+    if beam_width < 1:
+        raise ValueError(f"ctc_beam: beam_width {beam_width} < 1")
+    if vocab < 2:
+        raise ValueError(f"ctc_beam: {vocab} classes (blank included) < 2")
+    if beam_width <= SELECT_MAX_WIDTH and vocab <= SELECT_MAX_VOCAB:
+        return "select"
+    return "wide"
+
+
+def wide_scratch_bytes(beam_width: int, vocab: int, n_ext: int) -> int:
+    """The wide design's scratch an utterance, in bytes (the layout of
+    ``csrc/ctc_beam_wide.cu`` ``carve``, which checks it): 8-byte candidate
+    keys (W + W*E) and the sorted top W (padded to a power of two); the two
+    state buffers (10 fields of W), the stays' merged p_nonblank, the kill
+    stamps (W*E) and two frames' chars (E, E, V-1), 4 bytes each; rounded
+    up to 8."""
+    w, e = beam_width, n_ext
+    wp = 1 << max(w - 1, 0).bit_length()
+    n = 8 * (w + w * e + wp) + 4 * (20 * w + w + w * e + 4 * e
+                                    + 2 * (vocab - 1))
+    return -(-n // 8) * 8
+
+
+def _wide_buffers(batch: int, t_max: int, beam_width: int, vocab: int,
+                  n_ext: int, dev: torch.device
+                  ) -> tuple[torch.Tensor, torch.Tensor, int]:
+    """The wide design's backpointers [B, T, W] int64 and scratch [B,
+    stride] bytes -> (bp, scratch, stride); raises ValueError, with the
+    numbers, for a frame of too many candidates or scratch past the card's
+    memory."""
+    cand = beam_width * (n_ext + 1)
+    if cand >= WIDE_MAX_CANDIDATES:
+        raise ValueError(
+            f"ctc_beam: W={beam_width} beams by E={n_ext} extension chars "
+            f"make {cand} candidates a frame, past the wide design's "
+            f"{WIDE_MAX_CANDIDATES - 1} (a 32-bit candidate index)")
+    stride = wide_scratch_bytes(beam_width, vocab, n_ext)
+    need = batch * (stride + 8 * max(t_max, 1) * beam_width)
+    try:
+        bp = torch.empty((batch, max(t_max, 1), beam_width),
+                         dtype=torch.int64, device=dev)
+        scratch = torch.empty((batch, stride), dtype=torch.uint8, device=dev)
+    except torch.cuda.OutOfMemoryError as e:
+        free, total = torch.cuda.mem_get_info(dev)
+        raise ValueError(
+            f"ctc_beam: the wide design needs {need} bytes of scratch and "
+            f"backpointers for B={batch}, T={t_max}, W={beam_width}, "
+            f"V={vocab}, E={n_ext}; {dev} has {free} of {total} free") from e
+    return bp, scratch, stride
+
+
+def _lm_args(lm, n_char: int, dev: torch.device) -> tuple[int, int, int]:
+    """(order, context modulus, table pointer) of a decode's LM on ``dev``,
+    (0, 1, 0) without one."""
+    if lm is None:
+        return 0, 1, 0
+    order, lm_mod = _lm_context(lm, n_char)
+    if lm.logp.shape[0] >= 2 ** 31:
+        raise ValueError("ctc_beam: the LM's context codes pass int32")
+    return order, lm_mod, _lm_table(lm, dev).data_ptr()
+
+
+def _check_input(log_probs: torch.Tensor, what: str) -> None:
+    if log_probs.device.type != "cuda":
+        raise ValueError(f"{what}: no kernel for device {log_probs.device}")
+    if log_probs.dtype != torch.float32:
+        raise ValueError(f"{what}: log_probs must be float32, got "
+                         f"{log_probs.dtype}")
 
 
 def ctc_beam(log_probs: torch.Tensor, lengths: torch.Tensor,
@@ -337,22 +409,20 @@ def ctc_beam(log_probs: torch.Tensor, lengths: torch.Tensor,
              prune: int = 0, lm=None, lm_alpha: float = 1.0,
              lm_beta: float = 0.0
              ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The beam walk on a CUDA tensor: one launch of ``csrc/ctc_beam.cu``
-    for the batch.
+    """The beam walk on a CUDA tensor: one launch of the kernel
+    :func:`beam_design` picks (``csrc/ctc_beam.cu`` or
+    ``csrc/ctc_beam_wide.cu``) for the batch, counted in ``launches`` and
+    ``by_design``.
 
     log_probs [B, T, V] float32 log-softmax (blank = V-1), lengths [B] ->
     (prefixes [B, P, T] int32, lengths [B, P] int32, scores [B, P]
-    float32), P = min(top_paths, beam_width), best first.  Raises beyond
-    the kernel's limits (W <= 128, V <= 64) and for a tensor not on a CUDA
-    device."""
+    float32), P = min(top_paths, beam_width), best first.  Raises for a
+    tensor not on a CUDA device, and on the wide design for a frame of 2^31
+    candidates or scratch past the card's memory."""
     batch, t_max, vocab = log_probs.shape
     dev = log_probs.device
-    if dev.type != "cuda":
-        raise ValueError(f"ctc_beam: no kernel for device {dev}")
-    if log_probs.dtype != torch.float32:
-        raise ValueError(f"ctc_beam: log_probs must be float32, got "
-                         f"{log_probs.dtype}")
-    _check_limits(beam_width, vocab)
+    _check_input(log_probs, "ctc_beam")
+    design = beam_design(beam_width, vocab)
     n_char = vocab - 1
     n_ext = n_char if prune <= 0 else min(prune, n_char)
     paths = max(1, min(top_paths, beam_width))
@@ -364,49 +434,52 @@ def ctc_beam(log_probs: torch.Tensor, lengths: torch.Tensor,
     scores = torch.empty((batch, paths), dtype=torch.float32, device=dev)
     if batch == 0:
         return prefixes, out_len, scores
-    # backpointers (parent | (char + 1) << 16) of every frame and beam
-    bp = torch.empty((batch, max(t_max, 1), beam_width), dtype=torch.int32,
-                     device=dev)
-    order, lm_mod, state0, lm_ptr = 0, 1, 0, 0
-    if lm is not None:
-        order, lm_mod = _lm_context(lm, n_char)
-        if lm.logp.shape[0] >= 2 ** 31:
-            raise ValueError("ctc_beam: the LM's context codes pass int32")
-        state0 = lm.init_state()
-        lm_ptr = _lm_table(lm, dev).data_ptr()
-    with torch.cuda.device(dev):
-        err = _build.lib().asr_ctc_beam(
-            lp.data_ptr(), lens_in.data_ptr(), lm_ptr, bp.data_ptr(),
-            prefixes.data_ptr(), out_len.data_ptr(), scores.data_ptr(),
+    order, lm_mod, lm_ptr = _lm_args(lm, n_char, dev)
+    state0 = 0 if lm is None else lm.init_state()
+    tail = (prefixes.data_ptr(), out_len.data_ptr(), scores.data_ptr(),
             batch, t_max, vocab, beam_width, paths, n_ext, pad_id, order,
             lm_mod, state0, lm_alpha, lm_beta, _HASH_MULT & _U32,
-            _HASH_MULT2 & _U32, torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, "ctc_beam")
+            _HASH_MULT2 & _U32)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if design == "select":
+            # backpointers (parent | (char + 1) << 16) of every frame, beam
+            bp = torch.empty((batch, max(t_max, 1), beam_width),
+                             dtype=torch.int32, device=dev)
+            err = _build.lib().asr_ctc_beam(
+                lp.data_ptr(), lens_in.data_ptr(), lm_ptr, bp.data_ptr(),
+                *tail, stream)
+        else:
+            bp, scratch, stride = _wide_buffers(batch, t_max, beam_width,
+                                                vocab, n_ext, dev)
+            err = _build.lib().asr_ctc_beam_wide(
+                lp.data_ptr(), lens_in.data_ptr(), lm_ptr, bp.data_ptr(),
+                scratch.data_ptr(), stride, *tail, stream)
+    _build.check(err, f"ctc_beam ({design} design)")
     ctc_beam.launches += 1
+    ctc_beam.by_design[design] += 1
     return prefixes, out_len, scores
 
 
 ctc_beam.launches = 0
+ctc_beam.by_design = {"select": 0, "wide": 0}
 
 
 def ctc_beam_stream(log_probs: torch.Tensor, lengths: torch.Tensor,
                     state: BeamState, beam_width: int, pad_id: int = -1,
                     prune: int = 0, lm=None, lm_alpha: float = 1.0,
                     lm_beta: float = 0.0) -> tuple:
-    """The stream form on a CUDA tensor: one launch of ``csrc/ctc_beam.cu``
-    (``asr_ctc_beam_stream``) for a chunk of B streams, counted with
+    """The stream form on a CUDA tensor: one launch of the kernel
+    :func:`beam_design` picks (``asr_ctc_beam_stream`` or
+    ``asr_ctc_beam_wide_stream``) for a chunk of B streams, counted with
     :func:`ctc_beam`'s launches.  Arguments and results as
     :func:`beam_stream_plain`'s; the kernel writes the new state into a
-    copy of ``state``, which stays as it was.  Raises beyond the kernel's
-    limits and for a tensor not on a CUDA device."""
+    copy of ``state``, which stays as it was.  Raises for a tensor not on
+    a CUDA device and as :func:`ctc_beam`."""
     batch, t_max, vocab = log_probs.shape
     dev = log_probs.device
-    if dev.type != "cuda":
-        raise ValueError(f"ctc_beam_stream: no kernel for device {dev}")
-    if log_probs.dtype != torch.float32:
-        raise ValueError(f"ctc_beam_stream: log_probs must be float32, got "
-                         f"{log_probs.dtype}")
-    _check_limits(beam_width, vocab)
+    _check_input(log_probs, "ctc_beam_stream")
+    design = beam_design(beam_width, vocab)
     for name, t in zip(BeamState._fields, state):
         want = torch.float32 if name.startswith("p_") else torch.int32
         if (tuple(t.shape) != (batch, beam_width) or t.dtype != want
@@ -428,21 +501,27 @@ def ctc_beam_stream(log_probs: torch.Tensor, lengths: torch.Tensor,
                          device=dev)
     if batch == 0:
         return new, prefixes, emits, start, scores
-    bp = torch.empty((batch, max(t_max, 1), beam_width), **i32)
-    order, lm_mod, lm_ptr = 0, 1, 0
-    if lm is not None:
-        order, lm_mod = _lm_context(lm, n_char)
-        lm_ptr = _lm_table(lm, dev).data_ptr()
-    with torch.cuda.device(dev):
-        err = _build.lib().asr_ctc_beam_stream(
-            lp.data_ptr(), lens_in.data_ptr(), lm_ptr, bp.data_ptr(),
-            *(t.data_ptr() for t in new), prefixes.data_ptr(),
+    order, lm_mod, lm_ptr = _lm_args(lm, n_char, dev)
+    tail = (*(t.data_ptr() for t in new), prefixes.data_ptr(),
             emits.data_ptr(), start.data_ptr(), scores.data_ptr(), batch,
             t_max, vocab, beam_width, n_ext, pad_id, order, lm_mod, lm_alpha,
-            lm_beta, _HASH_MULT & _U32, _HASH_MULT2 & _U32,
-            torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, "ctc_beam_stream")
+            lm_beta, _HASH_MULT & _U32, _HASH_MULT2 & _U32)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if design == "select":
+            bp = torch.empty((batch, max(t_max, 1), beam_width), **i32)
+            err = _build.lib().asr_ctc_beam_stream(
+                lp.data_ptr(), lens_in.data_ptr(), lm_ptr, bp.data_ptr(),
+                *tail, stream)
+        else:
+            bp, scratch, stride = _wide_buffers(batch, t_max, beam_width,
+                                                vocab, n_ext, dev)
+            err = _build.lib().asr_ctc_beam_wide_stream(
+                lp.data_ptr(), lens_in.data_ptr(), lm_ptr, bp.data_ptr(),
+                scratch.data_ptr(), stride, *tail, stream)
+    _build.check(err, f"ctc_beam_stream ({design} design)")
     ctc_beam.launches += 1
+    ctc_beam.by_design[design] += 1
     return new, prefixes, emits, start, scores
 
 

@@ -1,6 +1,7 @@
 """Label error metrics: on the device (port of
 ``asr_study_tpu/ops/metrics.py`` ``edit_distance`` and ``ler``) and on
-the host (``wer`` and ``cer`` over transcripts, copied).
+the host (``wer`` and ``cer`` over transcripts, through the native host
+library).
 
 The row-wise Levenshtein recurrence ``new[j] = min(row[j] + 1,
 new[j-1] + 1, row[j-1] + cost)`` depends on ``new[j-1]``; with
@@ -52,13 +53,14 @@ def ler(hyp: torch.Tensor, hyp_lengths: torch.Tensor, ref: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# host metrics over decoded strings (copied from asr_study_tpu/ops/metrics.py
-# ``_levenshtein_py``, ``wer`` and ``cer``, without the native-library
-# dispatch: the same distances from the pure-Python DP)
+# host metrics over decoded strings (port of asr_study_tpu/ops/metrics.py
+# ``_levenshtein_py``, ``wer`` and ``cer``: the distance from the native
+# host library on token ids, the pure-Python DP its plain twin)
 # ---------------------------------------------------------------------------
 
 def _levenshtein_py(a: Sequence, b: Sequence) -> int:
-    """Levenshtein distance between two token sequences."""
+    """Levenshtein distance between two token sequences (the plain twin of
+    :func:`levenshtein`)."""
     if len(a) < len(b):
         a, b = b, a
     prev = list(range(len(b) + 1))
@@ -70,12 +72,23 @@ def _levenshtein_py(a: Sequence, b: Sequence) -> int:
     return prev[-1]
 
 
+def levenshtein(a: Sequence, b: Sequence) -> int:
+    """Levenshtein distance between two token sequences: the tokens mapped
+    to int32 ids, then ``asr_levenshtein`` of ``native/asr_native.cc``."""
+    from asr_study_torch.utils import native
+
+    ids: dict = {}
+    enc_a = [ids.setdefault(t, len(ids)) for t in a]
+    enc_b = [ids.setdefault(t, len(ids)) for t in b]
+    return native.levenshtein(enc_a, enc_b)
+
+
 def wer(hyps: List[str], refs: List[str]) -> float:
     """Corpus word error rate over decoded transcripts."""
     errs = tot = 0
     for h, r in zip(hyps, refs):
         rw = r.split()
-        errs += _levenshtein_py(h.split(), rw)
+        errs += levenshtein(h.split(), rw)
         tot += len(rw)
     return errs / max(tot, 1)
 
@@ -84,6 +97,6 @@ def cer(hyps: List[str], refs: List[str]) -> float:
     """Corpus character error rate over decoded transcripts."""
     errs = tot = 0
     for h, r in zip(hyps, refs):
-        errs += _levenshtein_py(list(h), list(r))
+        errs += levenshtein(list(h), list(r))
         tot += len(r)
     return errs / max(tot, 1)

@@ -46,10 +46,20 @@ paths at full width, with random weights from a seeded
 - prefix beam search (BASELINE config 4): the ``ctc_beam`` kernel
   (csrc/ctc_beam.cu, a CTA per utterance) on speech-like emissions of
   B=32, T=512, V=28 at widths 4, 16 and 64, pruned, after blank collapse
-  and with a char 3-gram LM fused; the deep_blstm 2x256 serving slice with
-  ``beam_width=16`` through ``serve_batch``; ``cli.train_lm`` on the
-  corpus manifest and ``cli.eval --beam_width 16`` with its LM and with
-  ``--blank_collapse 0.99``;
+  and with a char 3-gram LM fused; its wide design (csrc/ctc_beam_wide.cu,
+  every W > 128 or V > 64) at W=256, W=16 and 128 over 100 classes,
+  W=1024 and W=256 with the LM at B=8 (its stream form at W=256 in the
+  streaming phase); the
+  deep_blstm 2x256 serving slice with ``beam_width=16`` through
+  ``serve_batch``; ``cli.train_lm`` on the corpus manifest and
+  ``cli.eval --beam_width 16`` with its LM and with ``--blank_collapse
+  0.99``, and ``cli.eval --beam_width 256``;
+- the native host library (``asr_study_torch/native/asr_native.cc``,
+  built with g++): the dpack encode against NumPy's on the serving and
+  edge batches and ``read_wav`` against the plain parser on the corpus's
+  files, byte for byte, each timed on the host in turns; the wall seconds
+  of these checks and of the wide design's cases and CLI runs are printed
+  with the phases';
 - streaming (``predict --stream``): ``streaming.StreamingRecognizer`` on
   60 s of audio in 1 s pushes, 128-frame chunks (as
   ``benchmarks/bench_stream.py`` drives the JAX one), for unidirectional
@@ -102,7 +112,9 @@ Phases, in order; any failure raises and the exit code is not 0:
    its plain version and the two-launch design (csrc/dpack.cu) over the
    whole stream of every serving batch, of the edge batches and of a
    stream of more blocks than the cooperative grid has CTAs, timed in
-   turns against the two-launch design, with the host encode time;
+   turns against the two-launch design; the native library's dpack
+   encode byte-equal to NumPy's on every serving and edge batch, both
+   timed on the host in turns;
 4. the serving slices, with launch counters proving their kernels ran
    (fbank in the FFT design only)
    (the LSTM, GRU, layer-norm, zoneout and MI LSTM kernels in the design
@@ -147,7 +159,10 @@ Phases, in order; any failure raises and the exit code is not 0:
    search), the plain twin once; the
    beam serving slice's launches and transcripts against the plain twin
    on its logits, its ms a batch beside the greedy slice's; train_lm's
-   report, each beam eval's record and launches (one ctc_beam a batch);
+   report, each beam eval's record and launches (one ctc_beam a batch;
+   at --beam_width 256 one ctc_beam_wide); the wide design against its
+   plain twin bit for bit (BEAM_WIDE_CASES, a repeat bit-equal), each
+   case timed beside its bound;
 10. the streaming phase: (a) the LSTM and GRU forwards on each route
    (cluster at H=256, wide at H=512, stream at B=97), and the layer-norm,
    MI and zoneout LSTM forwards on each (cluster at H=256, stream at
@@ -157,14 +172,16 @@ Phases, in order; any failure raises and the exit code is not 0:
    recurrence being chaotic), no carry bit-equal to a zero carry, ms a
    chunk at B=1 and B=32; (b) the beam
    kernel's stream form bit-equal to beam_stream_plain in chunks of 7, 64
-   and 512 at W = 4, 16, 64 and with the LM, the spliced best paths equal
-   to the one-shot beam's, us a frame at W=16; (c) each recognizer's
+   and 512 at W = 4, 16, 64, with the LM and at W=256 (the wide design),
+   the spliced best paths equal to the one-shot beam's, us a frame at
+   W=16 and 256; (c) each recognizer's
    launches (one forward a layer and chunk, one beam a chunk), its
    transcript equal to the whole utterance's on the card, its logits
    against the CPU plain streaming path, bench_stream.py's first-push
    latency and stream and batch audio-s/s; (d) the 32 streams' ids each
    equal to its own recognizer's, audio-s/s; (e) ``predict --stream``'s
-   JSON lines equal to ``predict``'s, greedy and beam16 with the LM; (f)
+   JSON lines equal to ``predict``'s, greedy, beam16 with the LM and
+   beam256 (the wide design); (f)
    the layer-norm, MI and zoneout recognizers' launches and transcripts
    equal to the whole utterance's.
 
@@ -301,6 +318,18 @@ H5_LOG_FLOOR = 1e-2
 BEAM_B, BEAM_T, BEAM_V, BEAM_FULL = 32, 512, 28, 24
 BEAM_WIDTHS = (4, 16, 64)
 BEAM_SERVE_W = 16                # the serving slice's and the CLIs' width
+# the wide design's cases (csrc/ctc_beam_wide.cu, every W > 128 or V > 64):
+# label -> (W, V, B, T, with the LM); W >= 512 cut to B=4, T=128, where the
+# plain twin's [B, W, W*E] merge would take minutes, and the LM case to
+# B=8 (its twin ~1.3 s at B=32); the CLIs' wide width
+BEAM_WIDE_CASES = {
+    "W=256": (256, BEAM_V, BEAM_B, BEAM_T, False),
+    "W=16 V=100": (16, 100, BEAM_B, BEAM_T, False),
+    "W=128 V=100": (128, 100, BEAM_B, BEAM_T, False),
+    "W=1024": (1024, BEAM_V, 4, 128, False),
+    "W=256 LM": (256, BEAM_V, 8, BEAM_T, True),
+}
+BEAM_WIDE_W = 256
 BEAM_LM = dict(lm_alpha=0.8, lm_beta=0.1)
 FRAME_S = 0.01
 
@@ -375,6 +404,24 @@ def bound(ops: float, nbytes: float) -> tuple[float, str]:
 
 def tensor_bytes(*ts: torch.Tensor) -> float:
     return float(sum(t.numel() * t.element_size() for t in ts))
+
+
+# wall seconds of the native host library's checks and of the wide beam
+# design's cases and CLI runs, each summed over the phases it runs in
+PARTS: dict[str, float] = {}
+
+
+def add_part(name: str, t0: float) -> None:
+    PARTS[name] = PARTS.get(name, 0.0) + time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def part(name: str):
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        add_part(name, t0)
 
 
 class PhaseClock:
@@ -3001,6 +3048,50 @@ def dpack_max_grid(dev: torch.device) -> int:
     return p.multi_processor_count * p.max_threads_per_multi_processor // 256
 
 
+def native_encode_check(groups: list) -> None:
+    """The native phase's encode part: the dpack encode of the native host
+    library (``utils/native.py``, the encoder's route) against its NumPy
+    twin, byte for byte, on the serving batches and the edge batches; each
+    serving batch timed on the host in turns (native, NumPy, native), with
+    the library built before."""
+    from asr_study_torch.data import wire
+    from asr_study_torch.utils import native
+
+    t0 = time.perf_counter()
+    path = native.build()
+    native.lib()
+    print(f"native host library: {path.parent.name}/{path.name} built or "
+          f"found in {time.perf_counter() - t0:.2f} s (g++ "
+          f"{' '.join(native.CXX_FLAGS)})")
+
+    def timed(ws, use_native):
+        t0 = time.perf_counter()
+        got = wire.dpack_encode(ws, use_native=use_native)
+        return got, 1e3 * (time.perf_counter() - t0)
+
+    edges = list(edge_dpack_batches().values())
+    ms = {True: [], False: []}
+    for k, ws in enumerate([*groups, *edges]):
+        got, nat = timed(ws, True)
+        want, npy = timed(ws, False)
+        require(got[0] == want[0] and got[3] == want[3]
+                and all(a.dtype == b.dtype and a.tobytes() == b.tobytes()
+                        for a, b in zip(got[1:3], want[1:3])),
+                "the native dpack encode differs from NumPy's")
+        if k < len(groups):
+            ms[True] += [nat, timed(ws, True)[1]]
+            ms[False].append(npy)
+    nat, npy = np.mean(ms[True]), np.mean(ms[False])
+    print(f"dpack encode, native against NumPy: byte-equal on "
+          f"{len(groups)} serving batches and {len(edges)} edge batches; "
+          f"host time on this machine's CPU, not the card's, in turns over "
+          f"the {len(groups)} serving batches of {BATCH}: native "
+          f"{nat:.3f} ms per batch (min {min(ms[True]):.3f}, max "
+          f"{max(ms[True]):.3f}), NumPy {npy:.3f} (min "
+          f"{min(ms[False]):.3f}, max {max(ms[False]):.3f}), "
+          f"{npy / nat:.1f}x")
+
+
 def check_dpack_kernel(dev: torch.device, card: str, groups: list,
                        wires: dict) -> dict:
     """Phase 3 for the dpack decode: the one-launch design bit for bit
@@ -3009,18 +3100,13 @@ def check_dpack_kernel(dev: torch.device, card: str, groups: list,
     and of 48 rows of 8 s (more dpack blocks than the cooperative grid has
     CTAs), and unpack_audio over dpack equal to it over pcm16; the two
     designs timed in turns at the first serving batch, by CUDA events and
-    device time; the host encode time."""
+    device time; the native dpack encode against NumPy's
+    (``native_encode_check``)."""
     from asr_study_torch.data import wire
     from asr_study_torch.ops.dpack import dpack_decode, dpack_decode_plain
 
-    enc_ms = []
-    for g in groups:
-        t0 = time.perf_counter()
-        wire.dpack_encode(g)
-        enc_ms.append(1e3 * (time.perf_counter() - t0))
-    print(f"dpack host encode (NumPy, host time, not the card's): "
-          f"{np.mean(enc_ms):.1f} ms per batch of {BATCH} (min "
-          f"{min(enc_ms):.1f}, max {max(enc_ms):.1f})")
+    with part("native encode check"):
+        native_encode_check(groups)
 
     dp, pcm = wires["dpack"], wires["pcm16"]
     cases = []
@@ -3139,8 +3225,10 @@ KERNELS = {
     "mi_lstm_fwd": ("mi_lstm_fwd.cu", "ops/pallas_mi_lstm.py:59"),
     "mi_lstm_bwd": ("mi_lstm_bwd.cu", "ops/pallas_mi_lstm.py:132"),
     "dpack_decode": ("dpack_onepass.cu", "ops/pallas_dpack.py:56"),
-    # no Pallas kernel: the JAX package's beam is one XLA scan
+    # no Pallas kernel: the JAX package's beam is one XLA scan; the wide
+    # design takes the (W, V) the select design does not
     "ctc_beam": ("ctc_beam.cu", "ops/beam.py:412"),
+    "ctc_beam_wide": ("ctc_beam_wide.cu", "ops/beam.py:412"),
     # the LSTM wrappers' wide design (256 < H <= 512): the same TPU
     # kernels, another source
     "bilstm_fwd_wide": ("lstm_wide_fwd.cu", "ops/pallas_bilstm.py:84"),
@@ -3157,7 +3245,8 @@ KERNELS = {
 WIDE_ROWS = {"bilstm_fwd_wide": "bilstm_fwd", "bilstm_bwd_wide": "bilstm_bwd",
              "lstm_fwd_wide": "lstm_fwd", "lstm_bwd_wide": "lstm_bwd",
              "bigru_fwd_wide": "bigru_fwd", "bigru_bwd_wide": "bigru_bwd",
-             "gru_fwd_wide": "gru_fwd", "gru_bwd_wide": "gru_bwd"}
+             "gru_fwd_wide": "gru_fwd", "gru_bwd_wide": "gru_bwd",
+             "ctc_beam_wide": "ctc_beam"}
 
 # training paths: label -> (zoo model, its hparams, forward and backward
 # kernel of its recurrence, recurrent layers, what it is); the LN paths'
@@ -3270,7 +3359,7 @@ def reset_counts() -> None:
     counters = launch_counters()
     for fn in counters.values():
         fn.launches = 0
-    for name in (*DESIGN_WRAPPERS, "fbank"):
+    for name in (*DESIGN_WRAPPERS, "fbank", "ctc_beam"):
         counters[name].by_design = dict.fromkeys(counters[name].by_design, 0)
 
 
@@ -3312,9 +3401,9 @@ def check_designs(label: str, hidden: int, batch: int,
 
 
 def read_counts() -> dict:
-    """The nonzero launch counts by kernel line row: the LSTM wrappers'
-    wide launches under their own rows (WIDE_ROWS), the rest under the
-    wrapper's."""
+    """The nonzero launch counts by kernel line row: the LSTM, GRU and
+    beam wrappers' wide launches under their own rows (WIDE_ROWS), the rest
+    under the wrapper's."""
     counters = launch_counters()
     counts = {k: fn.launches for k, fn in counters.items()}
     for row, name in WIDE_ROWS.items():
@@ -3989,6 +4078,32 @@ def threaded_batches(batches, depth: int = 2):
         t.join()
 
 
+def native_read_check(paths: list) -> None:
+    """The native phase's read part: ``read_wav`` (the native library's
+    reader, its route) against ``read_wav_plain`` on the corpus's files,
+    sample for sample (mono PCM16: exact), each timed on the host over all
+    of them in turns (native, plain, then plain, native)."""
+    from asr_study_torch.features.wav import read_wav, read_wav_plain
+
+    secs = {read_wav: 0.0, read_wav_plain: 0.0}
+    for fns in ((read_wav, read_wav_plain), (read_wav_plain, read_wav)):
+        for p in paths:
+            got = []
+            for fn in fns:
+                t0 = time.perf_counter()
+                got.append(fn(p, sr=None))
+                secs[fn] += time.perf_counter() - t0
+            (a, sr_a), (b, sr_b) = got
+            require(sr_a == sr_b and np.array_equal(a, b),
+                    f"read_wav differs from read_wav_plain on {p}")
+    nat, plain = (1e3 * secs[f] / (2 * len(paths))
+                  for f in (read_wav, read_wav_plain))
+    print(f"read_wav, native against plain on the corpus's {len(paths)} "
+          f"files: sample for sample equal; host time on this machine's "
+          f"CPU, in turns: native {nat:.4f} ms a file, plain {plain:.4f} "
+          f"({plain / nat:.2f}x)")
+
+
 def corpus_phase(card: str, tmp: str) -> tuple[list, str, str, list]:
     """BASELINE config 3 from a corpus, through the CLIs' ``main(argv)``:
     make_dataset (a SynthWords manifest), train (deep_blstm at its zoo
@@ -4023,6 +4138,8 @@ def corpus_phase(card: str, tmp: str) -> tuple[list, str, str, list]:
                 "test": CORPUS_N // 10},
             f"manifest splits {[(s, len(u)) for s, u in by_split.items()]}")
     train_audio_s = sum(u["duration"] for u in by_split["train"])
+    with part("native read check"):
+        native_read_check([u["audio"] for u in utts])
     print(f"corpus: make_dataset --parser synthwords n={CORPUS_N}: "
           f"{len(utts)} utterances ({train_audio_s:.1f} s of train "
           f"audio, {min(u['duration'] for u in utts):.2f}-"
@@ -4290,7 +4407,8 @@ def h5_phase(card: str, tmp: str, manifest: str,
           f"of <= 32, one fbank launch each (+ one dpack_decode with "
           f"dpack): {rate('host MFCC', t_host)}; "
           f"{rate('pcm16', t_dev['pcm16'])}; "
-          f"{rate('dpack', t_dev['dpack'])} (whole CLI runs: wav reads, "
+          f"{rate('dpack', t_dev['dpack'])} (the native encoder; whole "
+          f"CLI runs: wav reads, "
           f"extraction, HDF5 writes); pcm16 and dpack files bit-equal; "
           f"test split against host MFCC at log_floor {H5_LOG_FLOOR:g}: "
           f"max abs err {err:.3e} (tol {FBANK_TOL:g})")
@@ -4410,14 +4528,18 @@ def h5_phase(card: str, tmp: str, manifest: str,
     return runs
 
 
-def beam_emissions(dev: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
-    """The beam phase's logits [BEAM_B, BEAM_T, BEAM_V] and lengths."""
+def beam_emissions(dev: torch.device, batch: int = BEAM_B,
+                   t_max: int = BEAM_T, vocab: int = BEAM_V
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The beam phase's logits [batch, t_max, vocab] and lengths: a
+    quarter of the rows ragged (BEAM_FULL of BEAM_B rows at T)."""
     rng = np.random.RandomState(SEED)
-    x = rng.randn(BEAM_B, BEAM_T, BEAM_V).astype(np.float32)
-    blank = rng.rand(BEAM_B, BEAM_T) < 0.65
+    x = rng.randn(batch, t_max, vocab).astype(np.float32)
+    blank = rng.rand(batch, t_max) < 0.65
     x[:, :, -1] += np.where(blank, 10.0, -10.0).astype(np.float32)
-    lens = np.full(BEAM_B, BEAM_T, np.int32)
-    lens[BEAM_FULL:] = rng.randint(1, BEAM_T, BEAM_B - BEAM_FULL)
+    lens = np.full(batch, t_max, np.int32)
+    full = batch * BEAM_FULL // BEAM_B
+    lens[full:] = rng.randint(1, t_max, batch - full)
     return torch.from_numpy(x).to(dev), torch.from_numpy(lens).to(dev)
 
 
@@ -4502,6 +4624,68 @@ def check_beam_kernel(dev: torch.device, card: str, lm) -> dict:
             "library": {"ctc_beam": None}}
 
 
+def wide_beam_case(dev: torch.device, card: str, lm, label: str, w: int,
+                   vocab: int, b: int, t: int, with_lm: bool) -> tuple:
+    """One case of ``check_beam_wide`` -> (ms a batch, the twin's ms,
+    bound ms, bound by)."""
+    from asr_study_torch.ops import beam
+
+    logits, n = beam_emissions(dev, b, t, vocab)
+    x = torch.log_softmax(logits, -1)
+    kw = dict(lm=lm, **BEAM_LM) if with_lm else {}
+    require(beam.beam_design(w, vocab) == "wide",
+            f"{label}: beam_design {beam.beam_design(w, vocab)}")
+    before = dict(beam.ctc_beam.by_design)
+    got = beam.ctc_beam(x, n, w, top_paths=w, **kw)
+    require(beam.ctc_beam.by_design == {
+        "select": before["select"], "wide": before["wide"] + 1},
+        f"{label}: ran {beam.ctc_beam.by_design} from {before}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = beam.beam_search_plain(x, n, w, **kw)
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    require(all(torch.equal(g_, w_) for g_, w_ in zip(got, want)),
+            f"ctc_beam wide {label}: differs from plain (scores by up "
+            f"to {float((got[2] - want[2]).abs().max()):.3e}; tol 0)")
+    if label == f"W={BEAM_WIDE_W}":
+        again = beam.ctc_beam(x, n, w, top_paths=w, **kw)
+        require(all(torch.equal(g_, a_) for g_, a_ in zip(got, again)),
+                f"ctc_beam wide {label}: two runs differ")
+    ms = cuda_ms(lambda: beam.ctc_beam(x, n, w, **kw), 3, warmup=1)
+    out = beam.ctc_beam(x, n, w, **kw)
+    b_ms, b_by = beam_bound(x, n, w, vocab - 1, out, kw.get("lm"))
+    print(f"ctc_beam wide design vs plain, {label} (B={b}, T={t}, "
+          f"V={vocab}{', LM order %d' % lm.order if with_lm else ''}; "
+          f"a frame: {w + w * (vocab - 1)} candidates for the top {w}): "
+          f"all {w} beams of {b} rows, prefixes, lengths and scores "
+          f"equal bit for bit (tol 0)"
+          + ("; two runs bit-equal" if label == f"W={BEAM_WIDE_W}"
+             else ""))
+    print(f"[{card}] ctc_beam wide {label}: {ms:.4f} ms/batch, "
+          f"{1e3 * ms / t:.3f} us a frame of T; bound {b_ms:.6f} ms "
+          f"({b_by}); plain twin {plain_ms:.4f} ms/batch (host clock "
+          f"to a synchronize, once); library: none")
+    return ms, plain_ms, b_ms, b_by
+
+
+def check_beam_wide(dev: torch.device, card: str, lm) -> dict:
+    """The wide design (csrc/ctc_beam_wide.cu) against its plain twin on
+    the card, BEAM_WIDE_CASES: every beam of every row, prefixes, lengths
+    and scores bit for bit, launches by design; each case's ms a batch, us
+    a frame and bound; W=256 run twice bit-equal.  Its stream form runs in
+    the streaming phase (BEAM_STREAM_CASES)."""
+    timed = {}
+    for label, case in BEAM_WIDE_CASES.items():
+        with part(f"wide beam {label}"):
+            timed[label] = wide_beam_case(dev, card, lm, label, *case)
+    ms, plain_ms, b_ms, b_by = timed[f"W={BEAM_WIDE_W}"]
+    return {"errs": {"ctc_beam_wide": 0.0},      # bit-equal, required
+            "times": {"ctc_beam_wide": (ms, plain_ms)},
+            "bounds": {"ctc_beam_wide": (b_ms, b_by)},
+            "library": {"ctc_beam_wide": None}}
+
+
 def beam_serving_slice(card: str, model, feat, w: "Wire",
                        audio_s: float) -> dict:
     """deep_blstm 2x256 served over the pcm16 wire with beam width
@@ -4566,6 +4750,8 @@ def beam_cli_phase(dev: torch.device, card: str, manifest: str,
                       parser.num_classes, parser.char_to_id[" "],
                       vocab=parser.vocab)
     found = check_beam_kernel(dev, card, lm)
+    for key, val in check_beam_wide(dev, card, lm).items():
+        found[key].update(val)
 
     lm_path = os.path.join(tmp, "lm3.npz")
     out = io.StringIO()
@@ -4578,23 +4764,26 @@ def beam_cli_phase(dev: torch.device, card: str, manifest: str,
           f"{out.getvalue().strip().splitlines()[-1]} "
           f"({time.perf_counter() - t0:.2f} s of host time)")
     runs = []
-    for extra, decoder in ((["--lm", lm_path], f"beam{BEAM_SERVE_W}+lm"),
-                           (["--blank_collapse", "0.99"],
-                            f"beam{BEAM_SERVE_W}")):
+    for width, extra, decoder in (
+            (BEAM_SERVE_W, ["--lm", lm_path], f"beam{BEAM_SERVE_W}+lm"),
+            (BEAM_SERVE_W, ["--blank_collapse", "0.99"],
+             f"beam{BEAM_SERVE_W}"),
+            (BEAM_WIDE_W, [], f"beam{BEAM_WIDE_W}")):
+        t_run = time.perf_counter()
         tap = CliTap()
         out = io.StringIO()
         reset_counts()
         with tap.record(), contextlib.redirect_stdout(out):
             require(cli_eval.main([
                 "--dataset", manifest, "--split", "test", "--save", run_dir,
-                "--beam_width", str(BEAM_SERVE_W), *extra]) == 0,
+                "--beam_width", str(width), *extra]) == 0,
                 "beam eval failed")
         torch.cuda.synchronize()
         launches = read_counts()
         res = json.loads(out.getvalue().strip().splitlines()[-1])
         n_b = dict(tap.flows)["test"].steps_per_epoch
         want = {"bilstm_fwd": TRAIN_LAYERS * n_b, "ctc_alpha": n_b,
-                "ctc_beam": n_b}
+                "ctc_beam_wide" if width == BEAM_WIDE_W else "ctc_beam": n_b}
         require(launches == want,
                 f"beam eval launches {launches}, want {want}")
         require(res["decoder"] == decoder and res["num_utts"] == CORPUS_N
@@ -4606,13 +4795,15 @@ def beam_cli_phase(dev: torch.device, card: str, manifest: str,
                 == ("--blank_collapse" in extra),
                 f"beam eval {extra}: record keys {sorted(res)}")
         ms, by_t = CliTap.ms(tap.evals)
-        print(f"corpus eval --split test --beam_width {BEAM_SERVE_W} "
+        print(f"corpus eval --split test --beam_width {width} "
               f"{' '.join(extra)}: {res}; launches {launches}")
-        print(f"[{card}] corpus eval beam{BEAM_SERVE_W} "
+        print(f"[{card}] corpus eval beam{width} "
               f"{' '.join(extra[:1])}, CUDA events around each of {len(ms)} "
               f"batches (B={CORPUS_B}): {np.mean(ms):.4f} ms/batch mean; "
               f"{by_t}")
         runs.append(launches)
+        if width == BEAM_WIDE_W:
+            add_part(f"eval --beam_width {width}", t_run)
     return found, runs
 
 
@@ -4636,7 +4827,8 @@ CARRY_ROUTES = (("lstm", HIDDEN, BATCH), ("lstm", 512, BATCH),
                 ("zoneout_lstm", 512, BATCH))
 # the beam's stream form: (chunk, W, with the LM)
 BEAM_STREAM_CASES = ((7, 16, False), (64, 16, False), (BEAM_T, 16, False),
-                     (64, 4, False), (64, 64, False), (64, 16, True))
+                     (64, 4, False), (64, 64, False), (64, 16, True),
+                     (64, BEAM_WIDE_W, False))
 # the recognizers' models at full width: label -> (zoo model, hparams,
 # kernel line row of its forward)
 STREAM_MODELS = {
@@ -4798,12 +4990,14 @@ def check_beam_stream(dev: torch.device, card: str, lm) -> None:
     beam phase's emissions, chunk by chunk (BEAM_STREAM_CASES): state,
     prefixes, emits, start slots and scores bit for bit; each row's best
     prefix spliced over the chunks equal to ctc_beam's one-shot best path;
-    the stream form's us a frame at W=16 at B=1 and B=32."""
+    the stream form's us a frame at W=16 (the select design) and W=256
+    (the wide design) at B=1 and B=32."""
     from asr_study_torch.ops import beam
 
     logits, lens = beam_emissions(dev)
     lp = torch.log_softmax(logits, -1)
     for chunk, width, with_lm in BEAM_STREAM_CASES:
+        t_case = time.perf_counter()
         kw = dict(lm=lm, **BEAM_LM) if with_lm else {}
         init = beam.beam_stream_init(width, lm.init_state() if with_lm
                                      else 0, dev)
@@ -4838,16 +5032,24 @@ def check_beam_stream(dev: torch.device, card: str, lm) -> None:
               f"prefixes, emits, start slots and scores bit-equal in every "
               f"chunk; spliced best paths equal to ctc_beam's one-shot "
               f"{same}/{BEAM_B}")
-    width, chunk = BEAM_SERVE_W, STREAM_CHUNK
-    init = beam.beam_stream_init(width, 0, dev)
-    for rows in (1, BEAM_B):
-        state = beam.BeamState(*(s[None].repeat(rows, 1) for s in init))
-        x = lp[:rows, :chunk].contiguous()
-        n = lens[:rows].clamp(0, chunk)
-        ms = cuda_ms(lambda: beam.ctc_beam_stream(x, n, state, width), 10)
-        print(f"[{card}] ctc_beam stream form W={width}, a chunk of {chunk} "
-              f"frames at B={rows}: {ms:.4f} ms, {1e3 * ms / chunk:.3f} us a "
-              f"frame")
+        if width == BEAM_WIDE_W:
+            add_part(f"beam stream form W={width}", t_case)
+    chunk = STREAM_CHUNK
+    for width in (BEAM_SERVE_W, BEAM_WIDE_W):
+        t_case = time.perf_counter()
+        init = beam.beam_stream_init(width, 0, dev)
+        for rows in (1, BEAM_B):
+            state = beam.BeamState(*(s[None].repeat(rows, 1) for s in init))
+            x = lp[:rows, :chunk].contiguous()
+            n = lens[:rows].clamp(0, chunk)
+            ms = cuda_ms(lambda: beam.ctc_beam_stream(x, n, state, width),
+                         10)
+            print(f"[{card}] ctc_beam stream form W={width} "
+                  f"({beam.beam_design(width, BEAM_V)} design), a chunk of "
+                  f"{chunk} frames at B={rows}: {ms:.4f} ms, "
+                  f"{1e3 * ms / chunk:.3f} us a frame")
+        if width == BEAM_WIDE_W:
+            add_part(f"beam stream form W={width}", t_case)
 
 
 def synth_long(seconds: float, seed: int) -> np.ndarray:
@@ -5086,7 +5288,8 @@ def multi_stream_run(dev: torch.device, card: str, model) -> dict:
 
 def stream_cli_runs(card: str, tmp: str, model, lm_path: str) -> list:
     """(e) ``cli.predict --stream`` on the card, greedy (three wavs as
-    concurrent streams) and ``--beam_width 16 --lm``, on an .npz of
+    concurrent streams), ``--beam_width 16 --lm`` and ``--beam_width
+    256`` (the wide design), on an .npz of
     ``model``: launches counted from 0, the JSON lines equal to ``predict``
     without ``--stream`` on the same weights -> the launches."""
     from asr_study_torch.cli import predict
@@ -5109,7 +5312,10 @@ def stream_cli_runs(card: str, tmp: str, model, lm_path: str) -> list:
     runs = []
     for extra, label in (([], "greedy"),
                          (["--beam_width", str(BEAM_SERVE_W), "--lm",
-                           lm_path], f"beam{BEAM_SERVE_W}+lm")):
+                           lm_path], f"beam{BEAM_SERVE_W}+lm"),
+                         (["--beam_width", str(BEAM_WIDE_W)],
+                          f"beam{BEAM_WIDE_W}")):
+        t_run = time.perf_counter()
         lines = {}
         for stream in (True, False):
             out = io.StringIO()
@@ -5128,11 +5334,15 @@ def stream_cli_runs(card: str, tmp: str, model, lm_path: str) -> list:
         require(lines[True] == lines[False] and len(lines[True]) == 3,
                 f"predict --stream {label}: {lines[True]} against "
                 f"{lines[False]}")
+        beam_row = ("ctc_beam_wide" if str(BEAM_WIDE_W) in extra
+                    else "ctc_beam")
         require(launches.get("gru_fwd", 0) > 0
-                and (not extra or launches.get("ctc_beam", 0) > 0),
+                and (not extra or launches.get(beam_row, 0) > 0),
                 f"predict --stream {label}: launches {launches}")
         print(f"cli predict --stream {label} on 3 wavs: JSON lines equal to "
               f"predict without --stream; launches {launches}")
+        if beam_row == "ctc_beam_wide":
+            add_part(f"predict --stream {label}", t_run)
     return runs
 
 
@@ -5529,7 +5739,10 @@ def main() -> int:
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms})
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, the "
-          f"kernels' build included; by phase (s): {clock.summary()}")
+          f"kernels' build included; by phase (s): {clock.summary()}; the "
+          f"native library's checks and the wide beam design's cases and "
+          f"CLI runs, inside those phases (s): "
+          + "; ".join(f"{n} {t:.1f}" for n, t in PARTS.items()))
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -53,7 +53,9 @@ def _assert_same(got, want, top_paths):
 
 # (T, V, W, prune, top_paths, LM order (0: none), lengths): every width of
 # 1, 4, 8, 16, prune 0 and 3, top_paths up to W, no LM and orders 1-3, and
-# lengths 0, 1 and T among the rows; 8 decode shapes for the JAX side
+# lengths 0, 1 and T among the rows; then W = 129 and 160 at V = 65, 70 and
+# 28, pruned and not, with LMs of order 2 and 3 (the wide design's sizes);
+# 12 decode shapes for the JAX side
 CASES = [
     (20, 6, 1, 0, 1, 0, (20, 0, 1)),
     (33, 6, 4, 0, 4, 1, (33, 1, 0)),
@@ -62,6 +64,11 @@ CASES = [
     (40, 28, 16, 0, 3, 3, (40, 1, 0)),
     (30, 28, 8, 3, 8, 0, (0, 30, 1)),
     (36, 28, 4, 3, 2, 3, (36, 12, 1)),
+    # the wide design's route on the card (W > 128 or V > 64)
+    (14, 65, 129, 0, 3, 0, (14, 0, 5)),
+    (12, 70, 160, 6, 160, 3, (12, 1, 7)),
+    (10, 28, 160, 0, 4, 2, (10, 10, 0)),
+    (12, 70, 129, 0, 129, 0, (12, 3, 12)),
 ]
 
 
@@ -198,11 +205,109 @@ def test_decode_helper_and_guards():
     lm, _ = _lm_pair(0, 2, 4)
     with pytest.raises(ValueError, match="LM alphabet"):
         beam_search_decode(logits, lens, beam_width=2, lm=lm)
-    # the kernel wrapper takes CUDA tensors only, within its limits
+    # the kernel wrappers take CUDA tensors only, on either design
     with pytest.raises(ValueError, match="no kernel for device cpu"):
         beam.ctc_beam(torch.log_softmax(logits, -1), lens, 4)
-    with pytest.raises(ValueError, match="beam_width 129"):
-        beam._check_limits(beam.BEAM_MAX_WIDTH + 1, 28)
-    with pytest.raises(ValueError, match="65 classes"):
-        beam._check_limits(16, beam.BEAM_MAX_VOCAB + 1)
-    beam._check_limits(beam.BEAM_MAX_WIDTH, beam.BEAM_MAX_VOCAB)
+    wide = torch.log_softmax(torch.randn(2, 5, 70), -1)
+    with pytest.raises(ValueError, match="no kernel for device cpu"):
+        beam.ctc_beam(wide, lens, 160)
+    state = beam.BeamState(*(t[None].repeat(2, 1)
+                             for t in beam.beam_stream_init(160)))
+    with pytest.raises(ValueError, match="no kernel for device cpu"):
+        beam.ctc_beam_stream(wide, lens, state, 160)
+    # the route rule: past the select design's W <= 128 and V <= 64, the
+    # wide design; below 1 beam or 2 classes, nothing
+    assert beam.beam_design(beam.SELECT_MAX_WIDTH + 1, 28) == "wide"
+    assert beam.beam_design(16, beam.SELECT_MAX_VOCAB + 1) == "wide"
+    assert beam.beam_design(beam.SELECT_MAX_WIDTH,
+                            beam.SELECT_MAX_VOCAB) == "select"
+    with pytest.raises(ValueError, match="beam_width 0"):
+        beam.beam_design(0, 28)
+    with pytest.raises(ValueError, match="1 classes"):
+        beam.beam_design(4, 1)
+
+
+@pytest.mark.parametrize("width,vocab,design", [
+    (1, 2, "select"), (128, 64, "select"), (128, 2, "select"),
+    (1, 64, "select"), (129, 64, "wide"), (128, 65, "wide"),
+    (129, 65, "wide"), (1, 65, "wide"), (129, 2, "wide"),
+    (1024, 256, "wide"), (16, 28, "select")])
+def test_beam_design_edges(width, vocab, design):
+    assert beam.beam_design(width, vocab) == design
+
+
+def test_wide_scratch_bytes():
+    """The wide design's scratch an utterance (csrc/ctc_beam_wide.cu
+    ``carve``): W=1024, V=256, E=255 by hand; a multiple of 8, growing with
+    each of W, V and E."""
+    w, v, e = 1024, 256, 255
+    want = 8 * (w + w * e + 1024) + 4 * (20 * w + w + w * e + 4 * e
+                                         + 2 * (v - 1))
+    assert beam.wide_scratch_bytes(w, v, e) == want == 3_241_960
+    for args in ((129, 65, 64), (129, 65, 3), (1, 2, 1), (160, 70, 6)):
+        n = beam.wide_scratch_bytes(*args)
+        assert n % 8 == 0 and n > 0
+        for k in range(3):
+            bigger = list(args)
+            bigger[k] += 1
+            if bigger[2] < bigger[1]:
+                assert beam.wide_scratch_bytes(*bigger) > n
+
+
+def test_wide_design_refuses_a_frame_past_its_candidate_index():
+    """The wide design's one field limit, W * (E + 1) < 2^31, is raised
+    as ValueError with its numbers before anything is allocated."""
+    with pytest.raises(ValueError, match="65536 beams by E=32768 .* "
+                       "2147549184 candidates"):
+        beam._wide_buffers(1, 1, 65536, 32769, 32768, torch.device("cpu"))
+
+
+@pytest.mark.parametrize("width,vocab,prune,order", [
+    (160, 70, 5, 2), (129, 65, 0, 0)], ids=["w160-v70-p5-lm2", "w129-v65"])
+def test_wide_stream_matches_jax_gather(monkeypatch, width, vocab, prune,
+                                        order):
+    """beam_stream_chunk on the wide design's sizes, chunk by chunk against
+    the JAX one (its gather form), the last chunk ragged: prefixes, emits
+    and start slots exactly, scores and the state's scores at rtol 1e-5,
+    its integers exactly."""
+    import jax
+
+    from asr_study_tpu.ops import beam as jbeam
+
+    monkeypatch.setenv("ASR_BEAM_SELECT", "gather")
+    lp = np.asarray(torch.log_softmax(torch.from_numpy(
+        _logits(width + vocab, 1, 17, vocab, blank_bias=3.0)[0]), -1))
+    n_char, chunk = vocab - 1, 7
+    kw = dict(prune=prune)
+    jkw = dict(kw)
+    if order:
+        lm, jlm = _lm_pair(order, order, n_char)
+        kw.update(lm=lm, lm_alpha=0.7, lm_beta=0.2)
+        jkw.update(lm=jlm, lm_alpha=0.7, lm_beta=0.2)
+    lm0 = kw["lm"].init_state() if order else 0
+    state = beam.beam_stream_init(width, lm0)
+    jstate = jbeam.beam_stream_init(width, lm0)
+    j_chunk = jax.jit(lambda x, v, st: jbeam.beam_stream_chunk(
+        x, v, st, width, n_char, **jkw))
+    for lo in range(0, len(lp), chunk):
+        part = lp[lo: lo + chunk]
+        padded = np.zeros((chunk, vocab), np.float32)
+        padded[: len(part)] = part
+        valid = np.arange(chunk) < len(part)
+        state, pref, emits, start, scores = beam.beam_stream_chunk(
+            torch.from_numpy(padded), torch.from_numpy(valid), state, width,
+            n_char, **kw)
+        jstate, jpref, jemits, jstart, jscores = j_chunk(
+            jnp.asarray(padded), jnp.asarray(valid), jstate)
+        np.testing.assert_array_equal(pref.numpy(), np.asarray(jpref))
+        np.testing.assert_array_equal(emits.numpy(), np.asarray(jemits))
+        np.testing.assert_array_equal(start.numpy(), np.asarray(jstart))
+        np.testing.assert_allclose(scores.numpy(), np.asarray(jscores),
+                                   **SCORE_TOL)
+        for name, got, want in zip(beam.BeamState._fields, state, jstate):
+            want = np.asarray(want)
+            if name.startswith("p_"):
+                np.testing.assert_allclose(got.numpy(), want, **SCORE_TOL)
+            else:
+                np.testing.assert_array_equal(got.numpy(),
+                                              want.view(np.int32))

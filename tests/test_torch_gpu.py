@@ -1857,29 +1857,40 @@ def _beam_emissions(cuda, seed=0, batch=6, t_max=160, vocab=28):
     return torch.from_numpy(x).to(cuda), torch.from_numpy(lens).to(cuda)
 
 
-def _beam_lm(seed=0):
+def _beam_lm(seed=0, n_char=27):
     rng = np.random.RandomState(seed)
-    return fit_ngram_lm([rng.randint(0, 27, size=rng.randint(1, 30))
-                         for _ in range(100)], 3, 27, 26)
+    return fit_ngram_lm([rng.randint(0, n_char, size=rng.randint(1, 30))
+                         for _ in range(100)], 3, n_char, n_char - 1)
 
 
-@pytest.mark.parametrize("width,prune,collapse,with_lm", [
-    (4, 0, False, False), (16, 0, False, False), (64, 0, False, False),
-    (64, 8, False, False), (16, 0, True, False), (16, 0, False, True)],
-    ids=["w4", "w16", "w64", "w64_prune8", "w16_collapse", "w16_lm3"])
-def test_beam_kernel_matches_plain(cuda, width, prune, collapse, with_lm):
+@pytest.mark.parametrize("width,prune,collapse,with_lm,vocab", [
+    (4, 0, False, False, 28), (16, 0, False, False, 28),
+    (64, 0, False, False, 28), (64, 8, False, False, 28),
+    (16, 0, True, False, 28), (16, 0, False, True, 28),
+    (256, 0, False, False, 28), (16, 0, False, False, 100),
+    (128, 0, False, False, 100), (129, 8, False, False, 65),
+    (160, 0, False, True, 70), (256, 0, False, True, 28)],
+    ids=["w4", "w16", "w64", "w64_prune8", "w16_collapse", "w16_lm3",
+         "wide_w256", "wide_w16_v100", "wide_w128_v100",
+         "wide_w129_v65_prune8", "wide_w160_v70_lm3", "wide_w256_lm3"])
+def test_beam_kernel_matches_plain(cuda, width, prune, collapse, with_lm,
+                                   vocab):
     """Every beam of the kernel against the plain twin on the card, on
-    chip_smoke.py's cases: the same prefixes and lengths, the scores bit
-    for bit (the same arithmetic, no FMA contraction)."""
-    logits, lens = _beam_emissions(cuda)
+    chip_smoke.py's cases, on the select design and (W > 128 or V > 64)
+    the wide one: the same prefixes and lengths, the scores bit for bit
+    (the same arithmetic, no FMA contraction), one launch of the design
+    beam_design picks."""
+    logits, lens = _beam_emissions(cuda, vocab=vocab)
     if collapse:
         logits, lens, _ = ctc.blank_collapse(logits, lens, threshold=0.99)
     lp = torch.log_softmax(logits, -1)
-    lm = _beam_lm() if with_lm else None
+    lm = _beam_lm(0, vocab - 1) if with_lm else None
     kw = dict(prune=prune, lm=lm, lm_alpha=0.8, lm_beta=0.1)
-    before = beam.ctc_beam.launches
+    design = beam.beam_design(width, vocab)
+    before = dict(beam.ctc_beam.by_design)
     got = beam.ctc_beam(lp, lens, width, top_paths=width, **kw)
-    assert beam.ctc_beam.launches == before + 1
+    assert beam.ctc_beam.by_design == {**before,
+                                       design: before[design] + 1}
     want = beam.beam_search_plain(lp, lens, width, **kw)
     for g, w in zip(got, want):
         assert g.shape == w.shape and g.dtype == w.dtype
@@ -1920,19 +1931,53 @@ def test_beam_kernel_long_rows(cuda, width, with_lm):
 
 
 def test_beam_kernel_limits(cuda):
-    """The kernel's limits are raised as ValueError, never run on the plain
-    twin; at the limits the kernel runs and equals the twin."""
+    """Past the select design's W <= 128 and V <= 64 the wide design runs
+    (csrc/ctc_beam_wide.cu), never the plain twin: W=129, V=65, and
+    W=1024 at V=256 with a 3-gram LM through ctc_beam and
+    beam_search_decode, each equal to the twin; at W=128, V=64 the select
+    design runs and equals it."""
+    cases = [(129, 28, None, 4, 12), (4, 65, None, 4, 12),
+             (1024, 256, _beam_lm(3, 255), 4, 6)]
+    for width, vocab, lm, batch, t_max in cases:
+        logits, lens = _beam_emissions(cuda, seed=width, batch=batch,
+                                       t_max=t_max, vocab=vocab)
+        lp = torch.log_softmax(logits, -1)
+        kw = dict(lm=lm, lm_alpha=0.8, lm_beta=0.1)
+        assert beam.beam_design(width, vocab) == "wide"
+        before = dict(beam.ctc_beam.by_design)
+        got = beam.ctc_beam(lp, lens, width, top_paths=width, **kw)
+        dec = beam.beam_search_decode(logits, lens, beam_width=width,
+                                      top_paths=2, **kw)
+        assert beam.ctc_beam.by_design == {"select": before["select"],
+                                           "wide": before["wide"] + 2}
+        want = beam.beam_search_plain(lp, lens, width, **kw)
+        for g, w in zip(got, want):
+            assert g.shape == w.shape and g.dtype == w.dtype
+            assert torch.equal(g, w)
+        for g, w in zip(dec, want):
+            assert torch.equal(g, w[:, :2])
     logits, lens = _beam_emissions(cuda, batch=4, t_max=12, vocab=64)
     lp = torch.log_softmax(logits, -1)
-    with pytest.raises(ValueError, match="beam_width 129"):
-        beam.beam_search_decode(logits, lens, beam_width=129)
-    wide = torch.log_softmax(torch.randn(2, 5, 65, device=cuda), -1)
-    with pytest.raises(ValueError, match="65 classes"):
-        beam.ctc_beam(wide, torch.tensor([5, 5], device=cuda), 4)
+    before = beam.ctc_beam.by_design["select"]
     got = beam.ctc_beam(lp, lens, 128, top_paths=128)
+    assert beam.ctc_beam.by_design["select"] == before + 1
     want = beam.beam_search_plain(lp, lens, 128)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("width,vocab", [(256, 28), (129, 65)])
+def test_beam_wide_kernel_repeats_bit_for_bit(cuda, width, vocab):
+    """The wide design's candidate lists are filled by atomics in no fixed
+    order; the selection by unique keys makes two runs bit-equal."""
+    logits, lens = _beam_emissions(cuda, seed=5, batch=4, t_max=64,
+                                   vocab=vocab)
+    lp = torch.log_softmax(logits, -1)
+    one = beam.ctc_beam(lp, lens, width, top_paths=width, prune=12)
+    for _ in range(2):
+        again = beam.ctc_beam(lp, lens, width, top_paths=width, prune=12)
+        for a, b in zip(one, again):
+            assert torch.equal(a, b)
 
 
 def test_beam_cuda_input_never_reaches_the_plain_twin(cuda, monkeypatch):
@@ -2191,35 +2236,41 @@ def test_carried_state_routes(cuda, family, h, b, design):
         assert torch.equal(seq[:, -1], i[-1].expand(t, h))
 
 
-BEAM_STREAM_CASES = [(4, 0, False, 7), (16, 0, False, 64),
-                     (64, 0, False, 160), (128, 0, False, 40),
-                     (16, 8, False, 33), (16, 0, True, 50)]
+BEAM_STREAM_CASES = [(4, 0, False, 7, 28), (16, 0, False, 64, 28),
+                     (64, 0, False, 160, 28), (128, 0, False, 40, 28),
+                     (16, 8, False, 33, 28), (16, 0, True, 50, 28),
+                     (256, 0, True, 50, 28), (129, 8, False, 33, 65),
+                     (160, 0, False, 7, 70)]
 
 
-@pytest.mark.parametrize("width,prune,with_lm,chunk", BEAM_STREAM_CASES,
-                         ids=[f"w{w}-p{p}-{'lm' if m else 'nolm'}-c{c}"
-                              for w, p, m, c in BEAM_STREAM_CASES])
+@pytest.mark.parametrize(
+    "width,prune,with_lm,chunk,vocab", BEAM_STREAM_CASES,
+    ids=[f"w{w}-p{p}-{'lm' if m else 'nolm'}-c{c}"
+         + ("" if v == 28 else f"-v{v}")
+         for w, p, m, c, v in BEAM_STREAM_CASES])
 def test_beam_stream_kernel_matches_plain(cuda, width, prune, with_lm,
-                                          chunk):
-    """The beam kernel's stream form against beam_stream_plain chunk by
-    chunk (rows of lengths T, ragged, 1 and 0): state, prefixes, emits,
-    start slots and scores bit for bit, one launch a chunk; each row's
-    best prefix spliced over the chunks equal to ctc_beam's one-shot best
-    path."""
-    logits, lens = _beam_emissions(cuda)
+                                          chunk, vocab):
+    """The beam kernels' stream form (the select design, and the wide one
+    for W > 128 or V > 64) against beam_stream_plain chunk by chunk (rows
+    of lengths T, ragged, 1 and 0): state, prefixes, emits, start slots
+    and scores bit for bit, one launch a chunk; each row's best prefix
+    spliced over the chunks equal to ctc_beam's one-shot best path."""
+    logits, lens = _beam_emissions(cuda, vocab=vocab)
     lp = torch.log_softmax(logits, -1)
     b, t, _ = lp.shape
-    lm = _beam_lm() if with_lm else None
+    lm = _beam_lm(0, vocab - 1) if with_lm else None
     kw = dict(prune=prune, lm=lm, lm_alpha=0.8, lm_beta=0.1)
     init = beam.beam_stream_init(width, lm.init_state() if lm else 0, cuda)
     state = beam.BeamState(*(s[None].repeat(b, 1) for s in init))
     spliced = [[[] for _ in range(width)] for _ in range(b)]
+    design = beam.beam_design(width, vocab)
     for lo in range(0, t, chunk):
         n = (lens - lo).clamp(0, chunk)
-        before = beam.ctc_beam.launches
+        before = dict(beam.ctc_beam.by_design)
         got = beam.ctc_beam_stream(lp[:, lo: lo + chunk], n, state, width,
                                    **kw)
-        assert beam.ctc_beam.launches == before + 1
+        assert beam.ctc_beam.by_design == {**before,
+                                           design: before[design] + 1}
         want = beam.beam_stream_plain(lp[:, lo: lo + chunk], n, state, width,
                                       **kw)
         for g_, w_ in zip(got[0], want[0]):

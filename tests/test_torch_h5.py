@@ -109,12 +109,14 @@ def test_attributes_and_feature_rows(jax_files, layout):
     assert rows.num_feats == ref.num_feats == 1
     for i in (0, 5, 599):
         np.testing.assert_array_equal(rows[i], ref[i])
-    idx = np.array([7, 3, 4, 5, 300, 2])
-    got = np.full((8, 64, 1), np.nan, np.float32)
-    want = np.full((8, 64, 1), np.nan, np.float32)
-    rows.pack_into(idx, got)
-    ref.pack_into(idx, want)
-    np.testing.assert_array_equal(got, want)
+    # several runs; one run out of order (packed from its one read); none
+    for idx in ([7, 3, 4, 5, 300, 2], [12, 10, 11, 13], []):
+        idx = np.array(idx, np.int64)
+        got = np.full((8, 64, 1), np.nan, np.float32)
+        want = np.full((8, 64, 1), np.nan, np.float32)
+        rows.pack_into(idx, got)
+        ref.pack_into(idx, want)
+        np.testing.assert_array_equal(got, want)
 
 
 @pytest.mark.parametrize("layout", ["vlen", "packed"])

@@ -1,7 +1,7 @@
 """Every module of asr_study_torch imports where jax, h5py, triton and the
 JAX package (asr_study_tpu) are absent (the machine with the card has
 neither jax nor h5py), loads no module of the JAX package, and importing
-builds no kernel; neither the port nor chip_smoke.py names the JAX package
+builds no kernel and no native host library; neither the port nor chip_smoke.py names the JAX package
 or jax in an import statement."""
 
 import ast
@@ -32,11 +32,14 @@ for want in ("cli.predict", "features.fbank", "features.audio",
              "ops.metrics", "data.generator", "train.trainer", "train.loop",
              "train.checkpoint", "cli.make_dataset", "cli.train", "cli.eval",
              "cli.data_flow", "data.corpora", "data.dataset_parser",
-             "data.h5", "features.augment", "features.batch_extract"):
+             "data.h5", "features.augment", "features.batch_extract",
+             "utils.native"):
     assert "asr_study_torch." + want in names, (want, names)
 import chip_smoke
 from asr_study_torch import _build
 assert _build.lib.cache_info().currsize == 0, "a kernel was built at import"
+from asr_study_torch.utils import native
+assert native.lib.cache_info().currsize == 0, "the native library was built"
 bad = sorted(m for m in set(sys.modules) - before
              if m.split(".")[0] in BLOCKED and sys.modules[m] is not None)
 assert not bad, bad
