@@ -65,6 +65,9 @@ SIGNATURES = {
     # dxp_b, T, B, H, ndir, cluster CTAs, units, rows, stream
     "asr_bilstm_bwd": [_P] * 13 + [_I] * 7 + [_P],
     "asr_bilstm_bwd_info": [_I] * 6 + [_P, _P],
+    # the bfloat16-weight forms: the same arguments, wh_f and wh_b bfloat16
+    "asr_bilstm_fwd_bf16": [_P] * 11 + [_I] * 7 + [_P],
+    "asr_bilstm_bwd_bf16": [_P] * 13 + [_I] * 7 + [_P],
     # the wide forms (256 < H <= 512): xp_f, xp_b, mask, wh_f, wh_b, h_f,
     # c_f, h_b, c_b, g_f, g_b (the saved gates, or null), h_init, c_init,
     # T, B, H, ndir, cluster CTAs, units per CTA, rows per cluster, stream
@@ -75,6 +78,9 @@ SIGNATURES = {
     # H, ndir, cluster CTAs, units, rows, stream
     "asr_lstm_wide_bwd": [_P] * 11 + [_I] * 7 + [_P],
     "asr_lstm_wide_bwd_info": [_I] * 6 + [_P, _P],
+    # the bfloat16-weight forms: the same arguments, wh_f and wh_b bfloat16
+    "asr_lstm_wide_fwd_bf16": [_P] * 13 + [_I] * 7 + [_P],
+    "asr_lstm_wide_bwd_bf16": [_P] * 11 + [_I] * 7 + [_P],
     # the streamed-weight forms (H=512): xp_f, xp_b, mask, wh_f, wh_b, h_f,
     # c_f, h_b, c_b, h_init, c_init, T, B, H, ndir, stream
     "asr_lstm_stream_fwd": [_P] * 11 + [_I] * 4 + [_P],

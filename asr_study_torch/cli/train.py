@@ -34,7 +34,7 @@ from asr_study_torch.cli.data_flow import (
 from asr_study_torch.data.generator import DatasetGenerator
 from asr_study_torch.features.augment import (
     parse_spec_augment, parse_wav_augment)
-from asr_study_torch.models.zoo import build_model
+from asr_study_torch.models.zoo import CELL_KINDS, build_model
 from asr_study_torch.train.checkpoint import CheckpointManager
 from asr_study_torch.train.loop import fit
 from asr_study_torch.train.trainer import BF16_ITEM, Trainer, make_optimizer
@@ -104,7 +104,9 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--check_nans", action="store_true",
                    help="stop with FloatingPointError at the first step "
                         "whose loss or gradient norm is not finite")
-    p.add_argument("--bf16", action="store_true")
+    p.add_argument("--bf16", action="store_true",
+                   help="mixed precision: bfloat16 compute, float32 master "
+                        "weights and optimizer state (models of LSTM cells)")
     p.add_argument("--vocab", default=None,
                    help="label vocabulary: preset name (pt_br, "
                         "pt_br_apostrophe) or literal characters; default "
@@ -145,8 +147,12 @@ def _refuse_unported(args) -> None:
         (args.tp_devices > 1,
          "--tp_devices > 1: tensor parallelism is not ported to "
          "asr_study_torch yet (ROADMAP queue A item 13)"),
-        (args.bf16, "--bf16: bf16 compute is not ported to asr_study_torch "
-         f"yet ({BF16_ITEM})"),
+        (args.bf16 and CELL_KINDS.get(args.model.lower(), "lstm") != "lstm",
+         f"--bf16 --model {args.model}: bf16 compute is ported to "
+         f"asr_study_torch for the models of LSTM cells only ("
+         f"{', '.join(m for m, k in CELL_KINDS.items() if k == 'lstm')}), "
+         f"not yet for its {CELL_KINDS.get(args.model.lower())} cells "
+         f"({BF16_ITEM})"),
     ]
     for refused, why in refusals:
         if refused:
@@ -236,7 +242,8 @@ def main(argv=None) -> int:
                         generator=torch.Generator().manual_seed(args.seed),
                         device=device)
     trainer = Trainer(model, spec, augment=augment, featurizer=featurizer,
-                      wav_augment=wav_augment, check_nans=args.check_nans)
+                      wav_augment=wav_augment, check_nans=args.check_nans,
+                      compute_dtype=torch.bfloat16 if args.bf16 else None)
     state = trainer.init_state()
     n_params = sum(p.numel() for p in model.parameters())
     print(f"{args.model}: {n_params:,} parameters on {device}",

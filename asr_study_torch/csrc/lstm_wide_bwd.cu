@@ -52,11 +52,20 @@
 //      unit j (its slot for this sender);
 //   c. one cluster barrier.
 //
+// The bfloat16-weight form (asr_lstm_wide_bwd_bf16) is the same kernel on
+// the weight type W = __nv_bfloat16: the slice's rows held as bfloat16, in
+// registers (64 pairs a thread) and in ws ([128][256] bfloat16, 65,536 B),
+// dpre rounded to bfloat16 in shared memory before the product
+// (ops/pallas_lstm.py `_mm(dpre, wht)`) and written to dxp unrounded, the
+// products float32 fmaf on the converted values in the float32 form's
+// order.  The gates it reads are the bfloat16 forward's.
+//
 // The fixed order of every sum keeps the backward, and so the train steps,
 // bit-reproducible.  The launcher refuses a grid whose clusters are not
 // all resident at once (cudaOccupancyMaxActiveClusters).
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <type_traits>
@@ -72,12 +81,14 @@ constexpr int kRows = 2 * kThreads;  // rows of wh covered: the widest H
 constexpr int kMaxCluster = 16;      // Hopper's non-portable maximum
 
 // Offsets (in floats) of the dynamic shared memory of one CTA; mirrored by
-// ops/bilstm.py `wide_smem`.
+// ops/bilstm.py `wide_smem` for the float32 form (ws holds `half`, i.e.
+// bfloat16, weights in the bfloat16 form).
 struct BwdLayout {
   int ws, dpre, recv, total;
-  __host__ __device__ BwdLayout(int R, int C) {
+  __host__ __device__ BwdLayout(int R, int C, bool half) {
     ws = 0;                          // [kCols][kThreads] wh rows 256..511
-    dpre = ws + kCols * kThreads;    // [kCols][R]
+    dpre = ws + (half ? kCols * kThreads / 2 : kCols * kThreads);
+    //                                  [kCols][R]
     recv = dpre + kCols * R;         // [2][C][kUnits][R]
     total = recv + 2 * C * kUnits * R;
   }
@@ -88,13 +99,53 @@ struct CellIn {
   float g[4], cp, dh, m;
 };
 
-template <int R>
+// A thread's kCols weights of one row of wh, in registers: float32, or
+// bfloat16 pairs for the bfloat16-weight form.  get(col) gives column col
+// as float32 (col a constant of the unrolled loop).
+template <typename W>
+struct Row {
+  float w[kCols];
+  __device__ __forceinline__ void set2(int col, W a, W b) {
+    w[col] = a;
+    w[col + 1] = b;
+  }
+  __device__ __forceinline__ float get(int col) const { return w[col]; }
+};
+
+template <>
+struct Row<__nv_bfloat16> {
+  __nv_bfloat162 w[kCols / 2];
+  __device__ __forceinline__ void set2(int col, __nv_bfloat16 a,
+                                       __nv_bfloat16 b) {
+    w[col / 2] = __halves2bfloat162(a, b);
+  }
+  __device__ __forceinline__ float get(int col) const {
+    return (col & 1) ? __high2float(w[col / 2]) : __low2float(w[col / 2]);
+  }
+};
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+// x as it enters a product with weights of type W: itself, or rounded to
+// the nearest bfloat16
+template <typename W>
+__device__ __forceinline__ float as_operand(float x) {
+  if constexpr (std::is_same_v<W, __nv_bfloat16>)
+    return __bfloat162float(__float2bfloat16_rn(x));
+  else
+    return x;
+}
+
+template <typename W, int R>
 __global__ void __launch_bounds__(kThreads, 1)
 lstm_wide_bwd_kernel(const float* __restrict__ g_f,
                      const float* __restrict__ g_b,
                      const float* __restrict__ mask,
-                     const float* __restrict__ wh_f,
-                     const float* __restrict__ wh_b,
+                     const W* __restrict__ wh_f,
+                     const W* __restrict__ wh_b,
                      const float* __restrict__ c_f,
                      const float* __restrict__ c_b,
                      const float* __restrict__ dh_f,
@@ -105,17 +156,17 @@ lstm_wide_bwd_kernel(const float* __restrict__ g_f,
   cg::cluster_group cluster = cg::this_cluster();
   const int C = static_cast<int>(cluster.num_blocks());
   const int rank = static_cast<int>(cluster.block_rank());
-  const BwdLayout L(R, C);
+  const BwdLayout L(R, C, std::is_same_v<W, __nv_bfloat16>);
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  float* ws = smem + L.ws;
+  W* ws = reinterpret_cast<W*>(smem + L.ws);
   float* dpre = smem + L.dpre;
   float* recv = smem + L.recv;
   const int G = 4 * H;
 
   const bool rev = blockIdx.z == 1;
   const float* __restrict__ gates = rev ? g_b : g_f;
-  const float* __restrict__ wh = rev ? wh_b : wh_f;
+  const W* __restrict__ wh = rev ? wh_b : wh_f;
   const float* __restrict__ c = rev ? c_b : c_f;
   const float* __restrict__ dh_out = rev ? dh_b : dh_f;
   float* __restrict__ dxp = rev ? dxp_b : dxp_f;
@@ -126,20 +177,25 @@ lstm_wide_bwd_kernel(const float* __restrict__ g_f,
 
   // the resident slice: rows tid (registers) and 256 + tid (ws) of
   // wh[:, own columns], col = q * kUnits + u being wh's column q*H + u0 + u
-  float w[kCols];
+  Row<W> w;
+  {
+    auto at = [&](int col) {
+      const int unit = u0 + col % kUnits;
+      return (tid < H && unit < H)
+                 ? wh[static_cast<size_t>(tid) * G + (col / kUnits) * H +
+                      unit]
+                 : W{};
+    };
 #pragma unroll
-  for (int col = 0; col < kCols; ++col) {
-    const int unit = u0 + col % kUnits;
-    w[col] = (tid < H && unit < H)
-                 ? wh[static_cast<size_t>(tid) * G + (col / kUnits) * H + unit]
-                 : 0.f;
+    for (int col = 0; col < kCols; col += 2)
+      w.set2(col, at(col), at(col + 1));
   }
   for (int col = 0; col < kCols; ++col) {
     const int unit = u0 + col % kUnits, k = kThreads + tid;
     ws[col * kThreads + tid] =
         (k < H && unit < H)
             ? wh[static_cast<size_t>(k) * G + (col / kUnits) * H + unit]
-            : 0.f;
+            : W{};
   }
   for (int i = tid; i < 2 * C * kUnits * R; i += kThreads) recv[i] = 0.f;
 
@@ -216,11 +272,12 @@ lstm_wide_bwd_kernel(const float* __restrict__ g_f,
       const float p_f = m ? dc * in[p].cp * fg * (1.f - fg) : 0.f;
       const float p_g = m ? dc * ig * (1.f - gg * gg) : 0.f;
       const float p_o = m ? d_o * og * (1.f - og) : 0.f;
+      // the product's operands (rounded in the bfloat16 form); dxp unrounded
       float* dp = dpre + u * R + r;
-      dp[0] = p_i;
-      dp[kUnits * R] = p_f;
-      dp[2 * kUnits * R] = p_g;
-      dp[3 * kUnits * R] = p_o;
+      dp[0] = as_operand<W>(p_i);
+      dp[kUnits * R] = as_operand<W>(p_f);
+      dp[2 * kUnits * R] = as_operand<W>(p_g);
+      dp[3 * kUnits * R] = as_operand<W>(p_o);
       if (pair_ok(p)) {
         float* out = dxp + (static_cast<size_t>(t) * B + b0 + r) * G + u0 + u;
         out[0] = p_i;
@@ -245,7 +302,8 @@ lstm_wide_bwd_kernel(const float* __restrict__ g_f,
       }
 #pragma unroll
       for (int col = 0; col < kCols; ++col) {
-        const float wa = w[col], wb = ws[col * kThreads + tid];
+        const float wa = w.get(col),
+                    wb = to_float(ws[col * kThreads + tid]);
 #pragma unroll
         for (int r = 0; r < R; r += 4) {
           const float4 d =
@@ -282,16 +340,18 @@ lstm_wide_bwd_kernel(const float* __restrict__ g_f,
 
 // The launch configuration of the cluster grid -> its dynamic shared memory
 // and how many of its clusters the card holds at once.
-template <int R>
+template <typename W, int R>
 cudaError_t configure(int B, int ndir, int C, cudaLaunchConfig_t* cfg,
                       cudaLaunchAttribute* attr, int* max_clusters) {
   const size_t smem =
-      sizeof(float) * static_cast<size_t>(BwdLayout(R, C).total);
+      sizeof(float) *
+      static_cast<size_t>(
+          BwdLayout(R, C, std::is_same_v<W, __nv_bfloat16>).total);
   cudaError_t err = cudaFuncSetAttribute(
-      lstm_wide_bwd_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      lstm_wide_bwd_kernel<W, R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(lstm_wide_bwd_kernel<R>,
+  err = cudaFuncSetAttribute(lstm_wide_bwd_kernel<W, R>,
                              cudaFuncAttributeNonPortableClusterSizeAllowed,
                              1);
   if (err != cudaSuccess) return err;
@@ -306,25 +366,25 @@ cudaError_t configure(int B, int ndir, int C, cudaLaunchConfig_t* cfg,
   cfg->attrs = attr;
   cfg->numAttrs = 1;
   return cudaOccupancyMaxActiveClusters(max_clusters,
-                                        lstm_wide_bwd_kernel<R>, cfg);
+                                        lstm_wide_bwd_kernel<W, R>, cfg);
 }
 
-template <int R>
+template <typename W, int R>
 cudaError_t launch(const float* g_f, const float* g_b, const float* mask,
-                   const float* wh_f, const float* wh_b, const float* c_f,
+                   const W* wh_f, const W* wh_b, const float* c_f,
                    const float* c_b, const float* dh_f, const float* dh_b,
                    float* dxp_f, float* dxp_b, int T, int B, int H, int ndir,
                    int C, cudaStream_t stream) {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[1];
   int fit = 0;
-  cudaError_t err = configure<R>(B, ndir, C, &cfg, attr, &fit);
+  cudaError_t err = configure<W, R>(B, ndir, C, &cfg, attr, &fit);
   if (err != cudaSuccess) return err;
   // all clusters in one wave, or no launch
   if (fit < static_cast<int>(cfg.gridDim.y * cfg.gridDim.z))
     return cudaErrorCooperativeLaunchTooLarge;
   cfg.stream = stream;
-  err = cudaLaunchKernelEx(&cfg, lstm_wide_bwd_kernel<R>, g_f, g_b, mask,
+  err = cudaLaunchKernelEx(&cfg, lstm_wide_bwd_kernel<W, R>, g_f, g_b, mask,
                            wh_f, wh_b, c_f, c_b, dh_f, dh_b, dxp_f, dxp_b, T,
                            B, H);
   if (err != cudaSuccess) return err;
@@ -349,6 +409,21 @@ cudaError_t by_rows(int R, F&& f) {
   }
 }
 
+template <typename W>
+int launch_form(const float* g_f, const float* g_b, const float* mask,
+                const W* wh_f, const W* wh_b, const float* c_f,
+                const float* c_b, const float* dh_f, const float* dh_b,
+                float* dxp_f, float* dxp_b, int T, int B, int H, int ndir,
+                int C, int U, int R, void* stream) {
+  if (!valid_geometry(H, ndir, C, U))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(by_rows(R, [&](auto rows) {
+    return launch<W, decltype(rows)::value>(
+        g_f, g_b, mask, wh_f, wh_b, c_f, c_b, dh_f, dh_b, dxp_f, dxp_b, T, B,
+        H, ndir, C, static_cast<cudaStream_t>(stream));
+  }));
+}
+
 }  // namespace
 
 // Launch the backward over ndir directions from the forward's saved gates:
@@ -361,13 +436,21 @@ extern "C" int asr_lstm_wide_bwd(const float* g_f, const float* g_b,
                                  const float* dh_b, float* dxp_f,
                                  float* dxp_b, int T, int B, int H, int ndir,
                                  int C, int U, int R, void* stream) {
-  if (!valid_geometry(H, ndir, C, U))
-    return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(by_rows(R, [&](auto rows) {
-    return launch<decltype(rows)::value>(
-        g_f, g_b, mask, wh_f, wh_b, c_f, c_b, dh_f, dh_b, dxp_f, dxp_b, T, B,
-        H, ndir, C, static_cast<cudaStream_t>(stream));
-  }));
+  return launch_form<float>(g_f, g_b, mask, wh_f, wh_b, c_f, c_b, dh_f, dh_b,
+                            dxp_f, dxp_b, T, B, H, ndir, C, U, R, stream);
+}
+
+// The bfloat16-weight form: asr_lstm_wide_bwd's arguments with wh_f /
+// wh_b bfloat16 [H, 4H] (and the gates of asr_lstm_wide_fwd_bf16).
+extern "C" int asr_lstm_wide_bwd_bf16(
+    const float* g_f, const float* g_b, const float* mask,
+    const __nv_bfloat16* wh_f, const __nv_bfloat16* wh_b, const float* c_f,
+    const float* c_b, const float* dh_f, const float* dh_b, float* dxp_f,
+    float* dxp_b, int T, int B, int H, int ndir, int C, int U, int R,
+    void* stream) {
+  return launch_form<__nv_bfloat16>(g_f, g_b, mask, wh_f, wh_b, c_f, c_b,
+                                    dh_f, dh_b, dxp_f, dxp_b, T, B, H, ndir,
+                                    C, U, R, stream);
 }
 
 // The backward's dynamic shared memory per CTA and the clusters the card
@@ -380,8 +463,8 @@ extern "C" int asr_lstm_wide_bwd_info(int B, int H, int ndir, int C, int U,
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[1];
   const cudaError_t err = by_rows(R, [&](auto rows) {
-    return configure<decltype(rows)::value>(B, ndir, C, &cfg, attr,
-                                            max_clusters);
+    return configure<float, decltype(rows)::value>(B, ndir, C, &cfg, attr,
+                                                   max_clusters);
   });
   if (err == cudaSuccess) *smem_bytes = static_cast<int>(cfg.dynamicSmemBytes);
   return static_cast<int>(err);

@@ -55,11 +55,21 @@
 //   3. its four h as one float4 into every CTA's next h buffer through
 //      distributed shared memory; one cluster barrier.
 //
+// The bfloat16-weight form (asr_lstm_wide_fwd_bf16) is the same kernel on
+// the weight type W = __nv_bfloat16: the slice's rows are held as bfloat16
+// in the registers (64 pairs a thread) and in ws ([256][128] bfloat16,
+// 65,536 B), h enters the product rounded to bfloat16 (ops/pallas_lstm.py
+// `_mm`), the exchanged copy rounded by its writer while the cell thread
+// keeps its units' h unrounded for the hold, and the products are float32
+// fmaf on the converted values in the float32 form's order.  h, c and the
+// gates written out stay float32.
+//
 // The launcher refuses a grid whose clusters are not all resident at once
 // (cudaOccupancyMaxActiveClusters); ops/bilstm.py `lstm_geometry` picks R
 // and sends this width range here.
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <type_traits>
@@ -79,12 +89,14 @@ constexpr int kMaxCluster = 16;      // Hopper's non-portable maximum
 __host__ __device__ constexpr int round4(int n) { return (n + 3) & ~3; }
 
 // Offsets (in floats) of the dynamic shared memory of one CTA; mirrored by
-// ops/bilstm.py `wide_smem`.
+// ops/bilstm.py `wide_smem` for the float32 form (ws holds `half`, i.e.
+// bfloat16, weights in the bfloat16 form).
 struct FwdLayout {
   int ws, hbuf, xs, mk, red, total;
-  __host__ __device__ explicit FwdLayout(int R) {
+  __host__ __device__ FwdLayout(int R, bool half) {
     ws = 0;                          // [2 * kSlice][kCols] rows 256..511
-    hbuf = ws + 2 * kSlice * kCols;  // [2][R][kRows]  h_prev, alternating
+    hbuf = ws + (half ? 1 : 2) * kSlice * kCols;
+    //                                  [2][R][kRows]  h_prev, alternating
     xs = hbuf + 2 * R * kRows;       // [2][R][kCols]  xp of own columns
     mk = xs + 2 * R * kCols;         // [2][R]         mask
     red = mk + round4(2 * R);        // [2][R][kCols]  partial products
@@ -94,6 +106,50 @@ struct FwdLayout {
 
 __device__ __forceinline__ float sigmoidf(float x) {
   return 1.f / (1.f + expf(-x));
+}
+
+// A thread's kSlice weights of one column, in registers: float32, or
+// bfloat16 pairs for the bfloat16-weight form.  quad(kk) gives rows kk ..
+// kk + 3 as float32.
+template <typename W>
+struct Slice {
+  float w[kSlice];
+  __device__ __forceinline__ void set2(int kk, W a, W b) {
+    w[kk] = a;
+    w[kk + 1] = b;
+  }
+  __device__ __forceinline__ float4 quad(int kk) const {
+    return make_float4(w[kk], w[kk + 1], w[kk + 2], w[kk + 3]);
+  }
+};
+
+template <>
+struct Slice<__nv_bfloat16> {
+  __nv_bfloat162 w[kSlice / 2];
+  __device__ __forceinline__ void set2(int kk, __nv_bfloat16 a,
+                                       __nv_bfloat16 b) {
+    w[kk / 2] = __halves2bfloat162(a, b);
+  }
+  __device__ __forceinline__ float4 quad(int kk) const {
+    const float2 lo = __bfloat1622float2(w[kk / 2]);
+    const float2 hi = __bfloat1622float2(w[kk / 2 + 1]);
+    return make_float4(lo.x, lo.y, hi.x, hi.y);
+  }
+};
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+// x as it enters a product with weights of type W: itself, or rounded to
+// the nearest bfloat16
+template <typename W>
+__device__ __forceinline__ float as_operand(float x) {
+  if constexpr (std::is_same_v<W, __nv_bfloat16>)
+    return __bfloat162float(__float2bfloat16_rn(x));
+  else
+    return x;
 }
 
 // 4-byte asynchronous copy global -> shared; zero-fills when !valid
@@ -113,13 +169,13 @@ __device__ __forceinline__ void cp_async_wait_prev() {
   asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
 
-template <int R>
+template <typename W, int R>
 __global__ void __launch_bounds__(kThreads, 1)
 lstm_wide_fwd_kernel(const float* __restrict__ xp_f,
                      const float* __restrict__ xp_b,
                      const float* __restrict__ mask,
-                     const float* __restrict__ wh_f,
-                     const float* __restrict__ wh_b, float* __restrict__ h_f,
+                     const W* __restrict__ wh_f,
+                     const W* __restrict__ wh_b, float* __restrict__ h_f,
                      float* __restrict__ c_f, float* __restrict__ h_b,
                      float* __restrict__ c_b, float* __restrict__ g_f,
                      float* __restrict__ g_b,
@@ -128,10 +184,11 @@ lstm_wide_fwd_kernel(const float* __restrict__ xp_f,
   cg::cluster_group cluster = cg::this_cluster();
   const int C = static_cast<int>(cluster.num_blocks());
   const int rank = static_cast<int>(cluster.block_rank());
-  const FwdLayout L(R);
+  constexpr bool kRounded = std::is_same_v<W, __nv_bfloat16>;
+  const FwdLayout L(R, kRounded);
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  float* ws = smem + L.ws;
+  W* ws = reinterpret_cast<W*>(smem + L.ws);
   float* hbuf = smem + L.hbuf;
   float* xs = smem + L.xs;
   float* mk = smem + L.mk;
@@ -140,7 +197,7 @@ lstm_wide_fwd_kernel(const float* __restrict__ xp_f,
 
   const bool rev = blockIdx.z == 1;
   const float* __restrict__ xp = rev ? xp_b : xp_f;
-  const float* __restrict__ wh = rev ? wh_b : wh_f;
+  const W* __restrict__ wh = rev ? wh_b : wh_f;
   float* __restrict__ h_out = rev ? h_b : h_f;
   float* __restrict__ c_out = rev ? c_b : c_f;
   float* __restrict__ g_out = rev ? g_b : g_f;
@@ -153,25 +210,29 @@ lstm_wide_fwd_kernel(const float* __restrict__ xp_f,
   // into ws; col = q * kUnits + u is wh's column q * H + u0 + u, zero past H
   const int col = tid % kCols, half = tid / kCols;
   const int q_col = col / kUnits, unit_col = u0 + col % kUnits;
-  const float* __restrict__ wcol = wh + q_col * H + unit_col;
+  const W* __restrict__ wcol = wh + q_col * H + unit_col;
   const bool live = unit_col < H;
-  float w[kSlice];
+  Slice<W> w;
+  {
+    auto at = [&](int kk) {
+      const int k = half * kSlice + kk;
+      return (live && k < H) ? wcol[static_cast<size_t>(k) * G] : W{};
+    };
 #pragma unroll
-  for (int kk = 0; kk < kSlice; ++kk) {
-    const int k = half * kSlice + kk;
-    w[kk] = (live && k < H) ? wcol[static_cast<size_t>(k) * G] : 0.f;
+    for (int kk = 0; kk < kSlice; kk += 2) w.set2(kk, at(kk), at(kk + 1));
   }
   for (int kk = 0; kk < kSlice; ++kk) {
     const int k = 2 * kSlice + half * kSlice + kk;
     ws[(half * kSlice + kk) * kCols + col] =
-        (live && k < H) ? wcol[static_cast<size_t>(k) * G] : 0.f;
+        (live && k < H) ? wcol[static_cast<size_t>(k) * G] : W{};
   }
-  // the carried h, zeros where none is given: the full rows into slot 0
+  // the carried h, zeros where none is given: the full rows into slot 0,
+  // as product operands
   const size_t lane_row = static_cast<size_t>(blockIdx.z) * B;
   for (int i = tid; i < 2 * R * kRows; i += kThreads) {
     const int r = i / kRows, k = i - r * kRows, b = b0 + r;
     hbuf[i] = (h_init != nullptr && r < R && b < B && k < H)
-                  ? h_init[(lane_row + b) * H + k]
+                  ? as_operand<W>(h_init[(lane_row + b) * H + k])
                   : 0.f;
   }
 
@@ -197,17 +258,19 @@ lstm_wide_fwd_kernel(const float* __restrict__ xp_f,
     cp_async_commit();
   };
 
-  // the cell's (row, four units) of this thread, and their c, carried in
-  // or zeros
+  // the cell's (row, four units) of this thread, and their c (and in the
+  // bfloat16 form their unrounded h), carried in or zeros
   const bool cell = tid < R * kQuads;
   const int cr = tid / kQuads, cu = 4 * (tid % kQuads);
-  float cst[4];
+  float cst[4], hst[4];
 #pragma unroll
   for (int uu = 0; uu < 4; ++uu) {
     const int unit = u0 + cu + uu, b = b0 + cr;
-    cst[uu] = (c_init != nullptr && cell && b < B && unit < H)
-                  ? c_init[(lane_row + b) * H + unit]
-                  : 0.f;
+    const bool given = cell && b < B && unit < H;
+    cst[uu] = (c_init != nullptr && given) ? c_init[(lane_row + b) * H + unit]
+                                           : 0.f;
+    hst[uu] = (h_init != nullptr && given) ? h_init[(lane_row + b) * H + unit]
+                                           : 0.f;
   }
 
   prefetch(0);
@@ -228,26 +291,29 @@ lstm_wide_fwd_kernel(const float* __restrict__ xp_f,
     {
       const float* h0 = hp + half * kSlice;
       const float* h1 = hp + 2 * kSlice + half * kSlice;
-      const float* wsc = ws + half * kSlice * kCols + col;
+      const W* wsc = ws + half * kSlice * kCols + col;
       float acc[R];
 #pragma unroll
       for (int r = 0; r < R; ++r) acc[r] = 0.f;
 #pragma unroll
       for (int kk = 0; kk < kSlice; kk += 4) {
+        const float4 wv = w.quad(kk);
 #pragma unroll
         for (int r = 0; r < R; ++r) {
           const float4 hv =
               *reinterpret_cast<const float4*>(h0 + r * kRows + kk);
-          acc[r] = fmaf(hv.x, w[kk], acc[r]);
-          acc[r] = fmaf(hv.y, w[kk + 1], acc[r]);
-          acc[r] = fmaf(hv.z, w[kk + 2], acc[r]);
-          acc[r] = fmaf(hv.w, w[kk + 3], acc[r]);
+          acc[r] = fmaf(hv.x, wv.x, acc[r]);
+          acc[r] = fmaf(hv.y, wv.y, acc[r]);
+          acc[r] = fmaf(hv.z, wv.z, acc[r]);
+          acc[r] = fmaf(hv.w, wv.w, acc[r]);
         }
       }
 #pragma unroll 4
       for (int kk = 0; kk < kSlice; kk += 4) {
-        const float w0 = wsc[kk * kCols], w1 = wsc[(kk + 1) * kCols],
-                    w2 = wsc[(kk + 2) * kCols], w3 = wsc[(kk + 3) * kCols];
+        const float w0 = to_float(wsc[kk * kCols]),
+                    w1 = to_float(wsc[(kk + 1) * kCols]),
+                    w2 = to_float(wsc[(kk + 2) * kCols]),
+                    w3 = to_float(wsc[(kk + 3) * kCols]);
 #pragma unroll
         for (int r = 0; r < R; ++r) {
           const float4 hv =
@@ -294,11 +360,12 @@ lstm_wide_fwd_kernel(const float* __restrict__ xp_f,
         float h = og * tanhf(c);
         if (!m) {
           c = cst[uu];
-          h = hp[cr * kRows + unit];
+          h = kRounded ? hst[uu] : hp[cr * kRows + unit];
         }
         const bool valid = unit < H;
         cst[uu] = valid ? c : 0.f;
-        hv[uu] = valid ? h : 0.f;
+        hst[uu] = valid ? h : 0.f;
+        hv[uu] = valid ? as_operand<W>(h) : 0.f;
         if (valid && b < B) {
           const size_t o = static_cast<size_t>(t) * B + b;
           h_out[o * H + unit] = h;
@@ -323,15 +390,18 @@ lstm_wide_fwd_kernel(const float* __restrict__ xp_f,
 
 // The launch configuration of the cluster grid -> its dynamic shared memory
 // and how many of its clusters the card holds at once.
-template <int R>
+template <typename W, int R>
 cudaError_t configure(int B, int ndir, int C, cudaLaunchConfig_t* cfg,
                       cudaLaunchAttribute* attr, int* max_clusters) {
-  const size_t smem = sizeof(float) * static_cast<size_t>(FwdLayout(R).total);
+  const size_t smem =
+      sizeof(float) *
+      static_cast<size_t>(
+          FwdLayout(R, std::is_same_v<W, __nv_bfloat16>).total);
   cudaError_t err = cudaFuncSetAttribute(
-      lstm_wide_fwd_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      lstm_wide_fwd_kernel<W, R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(lstm_wide_fwd_kernel<R>,
+  err = cudaFuncSetAttribute(lstm_wide_fwd_kernel<W, R>,
                              cudaFuncAttributeNonPortableClusterSizeAllowed,
                              1);
   if (err != cudaSuccess) return err;
@@ -346,25 +416,25 @@ cudaError_t configure(int B, int ndir, int C, cudaLaunchConfig_t* cfg,
   cfg->attrs = attr;
   cfg->numAttrs = 1;
   return cudaOccupancyMaxActiveClusters(max_clusters,
-                                        lstm_wide_fwd_kernel<R>, cfg);
+                                        lstm_wide_fwd_kernel<W, R>, cfg);
 }
 
-template <int R>
+template <typename W, int R>
 cudaError_t launch(const float* xp_f, const float* xp_b, const float* mask,
-                   const float* wh_f, const float* wh_b, float* h_f,
+                   const W* wh_f, const W* wh_b, float* h_f,
                    float* c_f, float* h_b, float* c_b, float* g_f, float* g_b,
                    const float* h_init, const float* c_init, int T, int B,
                    int H, int ndir, int C, cudaStream_t stream) {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[1];
   int fit = 0;
-  cudaError_t err = configure<R>(B, ndir, C, &cfg, attr, &fit);
+  cudaError_t err = configure<W, R>(B, ndir, C, &cfg, attr, &fit);
   if (err != cudaSuccess) return err;
   // all clusters in one wave, or no launch
   if (fit < static_cast<int>(cfg.gridDim.y * cfg.gridDim.z))
     return cudaErrorCooperativeLaunchTooLarge;
   cfg.stream = stream;
-  err = cudaLaunchKernelEx(&cfg, lstm_wide_fwd_kernel<R>, xp_f, xp_b, mask,
+  err = cudaLaunchKernelEx(&cfg, lstm_wide_fwd_kernel<W, R>, xp_f, xp_b, mask,
                            wh_f, wh_b, h_f, c_f, h_b, c_b, g_f, g_b, h_init,
                            c_init, T, B, H);
   if (err != cudaSuccess) return err;
@@ -389,6 +459,21 @@ cudaError_t by_rows(int R, F&& f) {
   }
 }
 
+template <typename W>
+int launch_form(const float* xp_f, const float* xp_b, const float* mask,
+                const W* wh_f, const W* wh_b, float* h_f, float* c_f,
+                float* h_b, float* c_b, float* g_f, float* g_b,
+                const float* h_init, const float* c_init, int T, int B,
+                int H, int ndir, int C, int U, int R, void* stream) {
+  if (!valid_geometry(H, ndir, C, U) || ((g_f == nullptr) != (g_b == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(by_rows(R, [&](auto rows) {
+    return launch<W, decltype(rows)::value>(
+        xp_f, xp_b, mask, wh_f, wh_b, h_f, c_f, h_b, c_b, g_f, g_b, h_init,
+        c_init, T, B, H, ndir, C, static_cast<cudaStream_t>(stream));
+  }));
+}
+
 }  // namespace
 
 // Launch the forward over ndir directions: clusters of C CTAs of U = 32
@@ -403,13 +488,22 @@ extern "C" int asr_lstm_wide_fwd(const float* xp_f, const float* xp_b,
                                  const float* c_init, int T, int B, int H,
                                  int ndir, int C, int U, int R,
                                  void* stream) {
-  if (!valid_geometry(H, ndir, C, U) || ((g_f == nullptr) != (g_b == nullptr)))
-    return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(by_rows(R, [&](auto rows) {
-    return launch<decltype(rows)::value>(
-        xp_f, xp_b, mask, wh_f, wh_b, h_f, c_f, h_b, c_b, g_f, g_b, h_init,
-        c_init, T, B, H, ndir, C, static_cast<cudaStream_t>(stream));
-  }));
+  return launch_form<float>(xp_f, xp_b, mask, wh_f, wh_b, h_f, c_f, h_b, c_b,
+                            g_f, g_b, h_init, c_init, T, B, H, ndir, C, U, R,
+                            stream);
+}
+
+// The bfloat16-weight form: asr_lstm_wide_fwd's arguments with wh_f /
+// wh_b bfloat16 [H, 4H].
+extern "C" int asr_lstm_wide_fwd_bf16(
+    const float* xp_f, const float* xp_b, const float* mask,
+    const __nv_bfloat16* wh_f, const __nv_bfloat16* wh_b, float* h_f,
+    float* c_f, float* h_b, float* c_b, float* g_f, float* g_b,
+    const float* h_init, const float* c_init, int T, int B, int H, int ndir,
+    int C, int U, int R, void* stream) {
+  return launch_form<__nv_bfloat16>(xp_f, xp_b, mask, wh_f, wh_b, h_f, c_f,
+                                    h_b, c_b, g_f, g_b, h_init, c_init, T, B,
+                                    H, ndir, C, U, R, stream);
 }
 
 // The forward's dynamic shared memory per CTA and the clusters the card
@@ -422,8 +516,8 @@ extern "C" int asr_lstm_wide_fwd_info(int B, int H, int ndir, int C, int U,
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[1];
   const cudaError_t err = by_rows(R, [&](auto rows) {
-    return configure<decltype(rows)::value>(B, ndir, C, &cfg, attr,
-                                            max_clusters);
+    return configure<float, decltype(rows)::value>(B, ndir, C, &cfg, attr,
+                                                   max_clusters);
   });
   if (err == cudaSuccess) *smem_bytes = static_cast<int>(cfg.dynamicSmemBytes);
   return static_cast<int>(err);

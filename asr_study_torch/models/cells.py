@@ -19,8 +19,9 @@ from typing import Optional
 import torch
 from torch import nn
 
-from asr_study_torch.models.nn import (glorot_uniform, layer_norm_apply,
-                                       layer_norm_init, orthogonal)
+from asr_study_torch.models.nn import (dot, glorot_uniform,
+                                       layer_norm_apply, layer_norm_init,
+                                       orthogonal)
 
 
 def _hold(mask_t: torch.Tensor, new: torch.Tensor,
@@ -32,8 +33,10 @@ def _hold(mask_t: torch.Tensor, new: torch.Tensor,
 def lstm_gates(xp_t: torch.Tensor, h_prev: torch.Tensor, wh: torch.Tensor
                ) -> torch.Tensor:
     """One frame's activated gates [B, 4H]: sigmoid i, f, o and tanh g of
-    ``xp_t + h_prev @ wh``."""
-    i, f, g, o = (xp_t + torch.matmul(h_prev, wh)).chunk(4, dim=-1)
+    ``xp_t + h_prev @ wh``, the product in wh's dtype (:func:`dot`: with
+    bfloat16 weights h_prev is rounded to bfloat16, as the JAX kernels'
+    ``_mm`` rounds it)."""
+    i, f, g, o = (xp_t + dot(h_prev, wh)).chunk(4, dim=-1)
     return torch.cat([torch.sigmoid(i), torch.sigmoid(f), torch.tanh(g),
                       torch.sigmoid(o)], dim=-1)
 
@@ -74,13 +77,15 @@ class LSTMCell(nn.Module):
         self.b = nn.Parameter(b.to(device))
 
     def input_proj(self, x: torch.Tensor) -> torch.Tensor:
-        return torch.matmul(x, self.wx)
+        """``x @ wx`` in wx's dtype, float32 out (:func:`dot`)."""
+        return dot(x, self.wx)
 
     def prepare(self, x: torch.Tensor, train: bool = False,
                 generator: Optional[torch.Generator] = None
                 ) -> tuple[torch.Tensor, tuple[torch.Tensor, ...]]:
         """What the recurrence op takes for input x [T, B, F]: the streamed
-        ``x @ wx + b`` [T, B, 4H] and the rest of its arguments, here
+        ``x @ wx + b`` [T, B, 4H] (float32: a bfloat16 b is added as it
+        is) and the rest of its arguments, here
         ``(wh,)``.  ``train`` and ``generator`` reach the cells that draw
         (:class:`ZoneoutLSTMCell`); the others ignore them."""
         return (self.input_proj(x) + self.b).contiguous(), (self.wh,)

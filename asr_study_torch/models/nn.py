@@ -52,9 +52,23 @@ def dense_init(in_dim: int, out_dim: int,
     }
 
 
+def dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` in the weights' dtype with float32 accumulation (the JAX
+    ``cells._dot``): with bfloat16 weights both operands are rounded to
+    bfloat16 and multiplied in float32, which is exact for such operands,
+    so the result is float32 and unrounded, and autograd hands ``x`` and
+    ``w`` gradients rounded to bfloat16, as the VJP of the JAX cast does.
+    With float32 weights it is ``x @ w``."""
+    if w.dtype == torch.float32:
+        return torch.matmul(x, w)
+    return torch.matmul(x.to(w.dtype).float(), w.float())
+
+
 def dense_apply(params: Mapping[str, torch.Tensor],
                 x: torch.Tensor) -> torch.Tensor:
-    return torch.matmul(x, params["w"]) + params["b"]
+    """``x @ w + b`` through :func:`dot`; a bfloat16 bias is added to the
+    float32 product as it is (the JAX promotion)."""
+    return dot(x, params["w"]) + params["b"]
 
 
 def layer_norm_init(dim: int, device: torch.device | str | None = None

@@ -35,6 +35,19 @@ gradients go through :class:`BiLSTMFunction` and :class:`LSTMFunction`,
 whose backward is the backward kernel plus one ``h_prev^T @ dxp`` matmul
 per direction for the recurrent weights.
 
+bfloat16 weights (``train --bf16``, the JAX trainer's ``compute_dtype``):
+``wh`` may be bfloat16 in every wrapper, both directions alike, while xp,
+the mask, h, c and every cotangent stay float32.  The cluster and wide
+designs then launch their bfloat16-weight forms (the same sources, the
+``_bf16`` entry points): h_prev is rounded to bfloat16 where it enters the
+product and the backward rounds ``dpre`` before ``dpre @ wh^T``, as the
+JAX kernels' ``_mm`` does, each product taken in float32.  The plain
+twins round the same way (:func:`~asr_study_torch.models.nn.dot`), and
+``dwh`` comes back bfloat16.  A bfloat16 call whose shape goes to the
+stream design raises (:data:`~asr_study_torch.ops.recurrence.BF16_ITEM`);
+``by_design`` counts bfloat16 launches under ``cluster_bf16`` and
+``wide_bf16``.
+
 Gate order i, f, g, o with the bias folded into ``xp``.  Masked frames hold
 h and c.  :func:`lstm` and its plain twin start from a carried state
 ``h0``, ``c0`` [B, H] where given (zeros elsewhere, as every bidirectional
@@ -49,11 +62,13 @@ import torch
 
 from asr_study_torch import _build
 from asr_study_torch.models.cells import lstm_gates, lstm_update
-from asr_study_torch.ops.recurrence import (STREAM_ROWS, WIDE_UNITS,
-                                            Geometry, check, check_carry,
-                                            check_res, cluster_geometry,
-                                            cotangent, kernel_info, prev, r4,
-                                            stream, wide_geometry)
+from asr_study_torch.models.nn import dot
+from asr_study_torch.ops.recurrence import (BF16_ITEM, STREAM_ROWS,
+                                            WIDE_UNITS, Geometry, check,
+                                            check_carry, check_res,
+                                            cluster_geometry, cotangent,
+                                            kernel_info, prev, r4, stream,
+                                            wide_geometry)
 
 # The cluster kernels' thread shape (csrc/bilstm_{fwd,bwd}.cu kThreads and
 # kSlice): 256 threads a CTA, each holding 128 rows of one gate column.
@@ -179,8 +194,31 @@ def lstm_plain(xp: torch.Tensor, mask: torch.Tensor, wh: torch.Tensor,
     return _scan(xp, mask, wh, False, keep_gates, h0, c0)
 
 
-def _geometry(xp: torch.Tensor, ndir: int) -> Geometry:
-    return lstm_geometry(xp.shape[2] // 4, xp.shape[1], ndir)
+def _geometry(name: str, xp: torch.Tensor, wh: torch.Tensor,
+              ndir: int) -> Geometry:
+    """The layout of this call; a bfloat16 call that would go to the stream
+    design raises (it has no bfloat16 form, and no call quietly takes
+    float32)."""
+    geo = lstm_geometry(xp.shape[2] // 4, xp.shape[1], ndir)
+    if wh.dtype == torch.bfloat16 and geo.design == "stream":
+        raise ValueError(
+            f"{name}: bfloat16 weights at H={xp.shape[2] // 4}, B="
+            f"{xp.shape[1]}, {ndir} direction(s) go to the stream design, "
+            f"which has no bfloat16 form yet ({BF16_ITEM}); the cluster "
+            f"and wide designs take H <= 512 up to B=48 in two directions "
+            f"and B=96 in one")
+    return geo
+
+
+def _design_key(geo: Geometry, wh: torch.Tensor) -> str:
+    """The ``by_design`` key of a launch: the design, ``_bf16`` added for
+    the bfloat16-weight forms."""
+    return geo.design + ("_bf16" if wh.dtype == torch.bfloat16 else "")
+
+
+def _by_design() -> dict:
+    return {"cluster": 0, "wide": 0, "stream": 0, "cluster_bf16": 0,
+            "wide_bf16": 0}
 
 
 def launch_fwd(geo: Geometry, xps: list, mask: torch.Tensor,
@@ -204,22 +242,23 @@ def launch_fwd(geo: Geometry, xps: list, mask: torch.Tensor,
             outs[1].data_ptr(), outs[-2].data_ptr(), outs[-1].data_ptr())
     init = tuple(None if s is None else s.data_ptr() for s in (h0, c0))
     dims = (t_steps, batch, hidden, ndir)
+    form = "_bf16" if whs[0].dtype == torch.bfloat16 else ""
     with torch.cuda.device(xps[0].device):
         if geo.design == "cluster":
-            err = _build.lib().asr_bilstm_fwd(
+            err = getattr(_build.lib(), f"asr_bilstm_fwd{form}")(
                 *ptrs, *init, *dims, geo.ctas, geo.units, geo.rows,
                 stream(xps[0]))
         elif geo.design == "wide":
             g_ptrs = ((gates[0].data_ptr(), gates[-1].data_ptr())
                       if keep_gates else (None, None))
-            err = _build.lib().asr_lstm_wide_fwd(
+            err = getattr(_build.lib(), f"asr_lstm_wide_fwd{form}")(
                 *ptrs, *g_ptrs, *init, *dims, geo.ctas, geo.units, geo.rows,
                 stream(xps[0]))
         else:
             err = _build.lib().asr_lstm_stream_fwd(*ptrs, *init, *dims,
                                                    stream(xps[0]))
     _build.check(err, f"{'bilstm' if ndir == 2 else 'lstm'}_fwd "
-                      f"({geo.design})")
+                      f"({geo.design}{form})")
     return outs + gates
 
 
@@ -243,8 +282,8 @@ def bilstm(xp_f: torch.Tensor, xp_b: torch.Tensor, mask: torch.Tensor,
                 differentiable form.
     """
     check("bilstm", 4, mask, dict(xp_f=xp_f, xp_b=xp_b),
-          dict(wh_f=wh_f, wh_b=wh_b), {})
-    geo = _geometry(xp_f, 2)
+          dict(wh_f=wh_f, wh_b=wh_b), {}, bf16=True)
+    geo = _geometry("bilstm", xp_f, wh_f, 2)
     keep = residual and geo.design == "wide"
     if xp_f.device.type == "cpu":
         with torch.no_grad():
@@ -252,12 +291,12 @@ def bilstm(xp_f: torch.Tensor, xp_b: torch.Tensor, mask: torch.Tensor,
     else:
         outs = launch_fwd(geo, [xp_f, xp_b], mask, [wh_f, wh_b], keep)
         bilstm.launches += 1
-        bilstm.by_design[geo.design] += 1
+        bilstm.by_design[_design_key(geo, wh_f)] += 1
     return (*outs[:4], tuple(outs[4:])) if residual else tuple(outs)
 
 
 bilstm.launches = 0
-bilstm.by_design = {"cluster": 0, "wide": 0, "stream": 0}
+bilstm.by_design = _by_design()
 
 
 def lstm(xp: torch.Tensor, mask: torch.Tensor, wh: torch.Tensor,
@@ -271,9 +310,9 @@ def lstm(xp: torch.Tensor, mask: torch.Tensor, wh: torch.Tensor,
     given); h[T-1] and c[T-1] are the state it ends in, a masked frame
     repeating the one before.  :class:`LSTMFunction` is the differentiable
     form."""
-    check("lstm", 4, mask, dict(xp=xp), dict(wh=wh), {})
+    check("lstm", 4, mask, dict(xp=xp), dict(wh=wh), {}, bf16=True)
     check_carry("lstm", xp, 4, h0=h0, c0=c0)
-    geo = _geometry(xp, 1)
+    geo = _geometry("lstm", xp, wh, 1)
     keep = residual and geo.design == "wide"
     if xp.device.type == "cpu":
         with torch.no_grad():
@@ -281,12 +320,12 @@ def lstm(xp: torch.Tensor, mask: torch.Tensor, wh: torch.Tensor,
     else:
         outs = launch_fwd(geo, [xp], mask, [wh], keep, h0, c0)
         lstm.launches += 1
-        lstm.by_design[geo.design] += 1
+        lstm.by_design[_design_key(geo, wh)] += 1
     return (*outs[:2], tuple(outs[2:])) if residual else tuple(outs)
 
 
 lstm.launches = 0
-lstm.by_design = {"cluster": 0, "wide": 0, "stream": 0}
+lstm.by_design = _by_design()
 
 
 def _walk_bwd(xp, mask, wh, h, c, dh_out, reverse: bool) -> torch.Tensor:
@@ -319,8 +358,9 @@ def _walk_gates(gates, mask, wh, c, dh_out, reverse: bool) -> torch.Tensor:
                           dh * tc * o * (1.0 - o)], dim=-1)
         dpre = torch.where(m, dpre, 0.0)
         dxp[t] = dpre
-        # held frames pass h and c (and their cotangents) straight on
-        dh_next = dpre @ wh.t() + torch.where(m, 0.0, dh)
+        # held frames pass h and c (and their cotangents) straight on; with
+        # bfloat16 weights dpre is rounded before the product (dot)
+        dh_next = dot(dpre, wh.t()) + torch.where(m, 0.0, dh)
         dc_next = torch.where(m, dc * f, dc_next)
     return dxp
 
@@ -363,17 +403,18 @@ def launch_bwd(geo: Geometry, xps: list, mask: torch.Tensor, whs: list,
     t_steps, batch, gh = xps[0].shape
     hidden, ndir = gh // 4, len(xps)
     dims = (t_steps, batch, hidden, ndir)
+    form = "_bf16" if whs[0].dtype == torch.bfloat16 else ""
     with torch.cuda.device(xps[0].device):
         if geo.design == "cluster":
             args = (xps[0], xps[-1], mask, whs[0], whs[-1], hs[0], cs[0],
                     hs[-1], cs[-1], dhs[0], dhs[-1], outs[0], outs[-1])
-            err = _build.lib().asr_bilstm_bwd(
+            err = getattr(_build.lib(), f"asr_bilstm_bwd{form}")(
                 *(t.data_ptr() for t in args), *dims, geo.ctas, geo.units,
                 geo.rows, stream(xps[0]))
         elif geo.design == "wide":
             args = (gates[0], gates[-1], mask, whs[0], whs[-1], cs[0],
                     cs[-1], dhs[0], dhs[-1], outs[0], outs[-1])
-            err = _build.lib().asr_lstm_wide_bwd(
+            err = getattr(_build.lib(), f"asr_lstm_wide_bwd{form}")(
                 *(t.data_ptr() for t in args), *dims, geo.ctas, geo.units,
                 geo.rows, stream(xps[0]))
         else:
@@ -384,7 +425,7 @@ def launch_bwd(geo: Geometry, xps: list, mask: torch.Tensor, whs: list,
             err = _build.lib().asr_lstm_stream_bwd(
                 *(t.data_ptr() for t in args), *dims, stream(xps[0]))
     _build.check(err, f"{'bilstm' if ndir == 2 else 'lstm'}_bwd "
-                      f"({geo.design})")
+                      f"({geo.design}{form})")
     return outs
 
 
@@ -401,8 +442,9 @@ def bilstm_bwd(xp_f: torch.Tensor, xp_b: torch.Tensor, mask: torch.Tensor,
     cotangents of h_f and h_b.  dxp is zero on masked frames."""
     check("bilstm_bwd", 4, mask, dict(xp_f=xp_f, xp_b=xp_b),
           dict(wh_f=wh_f, wh_b=wh_b),
-          dict(h_f=h_f, c_f=c_f, h_b=h_b, c_b=c_b, dh_f=dh_f, dh_b=dh_b))
-    geo = _geometry(xp_f, 2)
+          dict(h_f=h_f, c_f=c_f, h_b=h_b, c_b=c_b, dh_f=dh_f, dh_b=dh_b),
+          bf16=True)
+    geo = _geometry("bilstm_bwd", xp_f, wh_f, 2)
     check_res("bilstm_bwd", 4, geo, mask, dict(xp_f=xp_f, xp_b=xp_b), res,
               "g")
     if xp_f.device.type == "cpu":
@@ -415,12 +457,12 @@ def bilstm_bwd(xp_f: torch.Tensor, xp_b: torch.Tensor, mask: torch.Tensor,
     dxp_f, dxp_b = launch_bwd(geo, [xp_f, xp_b], mask, [wh_f, wh_b],
                               [h_f, h_b], [c_f, c_b], [dh_f, dh_b], list(res))
     bilstm_bwd.launches += 1
-    bilstm_bwd.by_design[geo.design] += 1
+    bilstm_bwd.by_design[_design_key(geo, wh_f)] += 1
     return dxp_f, dxp_b
 
 
 bilstm_bwd.launches = 0
-bilstm_bwd.by_design = {"cluster": 0, "wide": 0, "stream": 0}
+bilstm_bwd.by_design = _by_design()
 
 
 def lstm_bwd(xp: torch.Tensor, mask: torch.Tensor, wh: torch.Tensor,
@@ -430,8 +472,8 @@ def lstm_bwd(xp: torch.Tensor, mask: torch.Tensor, wh: torch.Tensor,
     :func:`bilstm_bwd` for one direction (h, c and ``res`` as :func:`lstm`
     returned them with ``residual=True``)."""
     check("lstm_bwd", 4, mask, dict(xp=xp), dict(wh=wh),
-          dict(h=h, c=c, dh=dh))
-    geo = _geometry(xp, 1)
+          dict(h=h, c=c, dh=dh), bf16=True)
+    geo = _geometry("lstm_bwd", xp, wh, 1)
     check_res("lstm_bwd", 4, geo, mask, dict(xp=xp), res, "g")
     if xp.device.type == "cpu":
         with torch.no_grad():
@@ -440,20 +482,21 @@ def lstm_bwd(xp: torch.Tensor, mask: torch.Tensor, wh: torch.Tensor,
             return lstm_bwd_plain(xp, mask, wh, h, c, dh)
     (dxp,) = launch_bwd(geo, [xp], mask, [wh], [h], [c], [dh], list(res))
     lstm_bwd.launches += 1
-    lstm_bwd.by_design[geo.design] += 1
+    lstm_bwd.by_design[_design_key(geo, wh)] += 1
     return dxp
 
 
 lstm_bwd.launches = 0
-lstm_bwd.by_design = {"cluster": 0, "wide": 0, "stream": 0}
+lstm_bwd.by_design = _by_design()
 
 
-def _dwh(h: torch.Tensor, dxp: torch.Tensor, reverse: bool) -> torch.Tensor:
-    """``h_prev^T dxp`` over all T*B rows: one matmul (as
-    ``pallas_lstm.py``'s einsum)."""
+def _dwh(h: torch.Tensor, dxp: torch.Tensor, reverse: bool,
+         wh: torch.Tensor) -> torch.Tensor:
+    """``h_prev^T dxp`` over all T*B rows: one float32 matmul, cast to
+    wh's dtype (as ``pallas_lstm.py``'s einsum and its ``astype``)."""
     hidden = h.shape[-1]
-    return prev(h, reverse).reshape(-1, hidden).t() @ dxp.reshape(
-        -1, 4 * hidden)
+    return (prev(h, reverse).reshape(-1, hidden).t() @ dxp.reshape(
+        -1, 4 * hidden)).to(wh.dtype)
 
 
 class BiLSTMFunction(torch.autograd.Function):
@@ -481,8 +524,8 @@ class BiLSTMFunction(torch.autograd.Function):
         dxp_f, dxp_b = bilstm_bwd(xp_f, xp_b, mask, wh_f, wh_b, h_f, c_f,
                                   h_b, c_b, cotangent(dh_f, h_f),
                                   cotangent(dh_b, h_b), tuple(res))
-        return (dxp_f, dxp_b, None, _dwh(h_f, dxp_f, False),
-                _dwh(h_b, dxp_b, True))
+        return (dxp_f, dxp_b, None, _dwh(h_f, dxp_f, False, wh_f),
+                _dwh(h_b, dxp_b, True, wh_b))
 
 
 class LSTMFunction(torch.autograd.Function):
@@ -502,4 +545,4 @@ class LSTMFunction(torch.autograd.Function):
     def backward(ctx, dh):
         xp, mask, wh, h, c, *res = ctx.saved_tensors
         dxp = lstm_bwd(xp, mask, wh, h, c, cotangent(dh, h), tuple(res))
-        return dxp, None, _dwh(h, dxp, False)
+        return dxp, None, _dwh(h, dxp, False, wh)

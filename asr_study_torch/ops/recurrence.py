@@ -50,6 +50,10 @@ WIDE_MAX_HIDDEN = 512
 WIDE_BUDGET = 6
 WIDE_ROWS = (4, 8, 16)
 
+# where bf16 compute (the JAX trainer's compute_dtype, train --bf16) waits
+# for every recurrence but the LSTM's cluster and wide designs
+BF16_ITEM = "ROADMAP queue A item 5b"
+
 
 class Geometry(NamedTuple):
     """How one launch of a recurrence's kernels is laid out."""
@@ -129,11 +133,14 @@ def kernel_info(name: str, geo: Geometry, batch: int, hidden: int
 
 def check(name: str, gates: int, mask: torch.Tensor, xps: dict, whs: dict,
           seqs: dict, gate_vecs: dict | None = None,
-          unit_vecs: dict | None = None) -> None:
+          unit_vecs: dict | None = None, bf16: bool = False) -> None:
     """Shapes [T, B, G*H] for ``xps``, [T, B, 1] for the mask, [H, G*H] for
     ``whs``, [T, B, H] for ``seqs``, [G*H] for ``gate_vecs`` and [H] for
     ``unit_vecs`` (dicts name -> tensor, G = ``gates``); float32, one
-    device, contiguous on CUDA.  Raises ValueError."""
+    device, contiguous on CUDA.  With ``bf16`` the ``whs`` may instead all
+    be bfloat16 (the ops that have bfloat16-weight kernels); elsewhere
+    bfloat16 weights are refused naming :data:`BF16_ITEM`.  Raises
+    ValueError."""
     first_name, first = next(iter(xps.items()))
     if first.dim() != 3 or first.shape[2] % gates:
         raise ValueError(f"{name}: {first_name} must be [T, B, {gates}H], "
@@ -148,12 +155,22 @@ def check(name: str, gates: int, mask: torch.Tensor, xps: dict, whs: dict,
         **{k: (v, (gh,)) for k, v in (gate_vecs or {}).items()},
         **{k: (v, (hidden,)) for k, v in (unit_vecs or {}).items()},
     }
+    wh_dtype = next(iter(whs.values())).dtype if whs else torch.float32
+    if wh_dtype == torch.bfloat16 and not bf16:
+        raise ValueError(f"{name}: bfloat16 weights have no kernel in this "
+                         f"recurrence yet ({BF16_ITEM}); give float32")
+    if wh_dtype != torch.bfloat16:
+        wh_dtype = torch.float32
     for arg, (t, shape) in want.items():
         if tuple(t.shape) != shape:
             raise ValueError(f"{name}: {arg} must be {shape}, got "
                              f"{tuple(t.shape)}")
-        if t.dtype != torch.float32:
-            raise ValueError(f"{name}: {arg} must be float32, got {t.dtype}")
+        dtype = wh_dtype if arg in whs else torch.float32
+        if t.dtype != dtype:
+            raise ValueError(
+                f"{name}: {arg} must be {str(dtype)[6:]}, got {t.dtype}" + (
+                    " (the directions' weights share one dtype)"
+                    if arg in whs else ""))
         if t.device != first.device:
             raise ValueError(f"{name}: {arg} is on {t.device}, "
                              f"{first_name} on {first.device}")

@@ -397,7 +397,7 @@ class BiZoneoutLSTMFunction(torch.autograd.Function):
             xp_f, xp_b, mask, zh_f, zh_b, zc_f, zc_b, wh_f, wh_b, h_f, c_f,
             h_b, c_b, cotangent(dh_f, h_f), cotangent(dh_b, h_b))
         return (dxp_f, dxp_b, None, None, None, None, None,
-                _dwh(h_f, dxp_f, False), _dwh(h_b, dxp_b, True))
+                _dwh(h_f, dxp_f, False, wh_f), _dwh(h_b, dxp_b, True, wh_b))
 
 
 class ZoneoutLSTMFunction(torch.autograd.Function):
@@ -417,4 +417,4 @@ class ZoneoutLSTMFunction(torch.autograd.Function):
     def backward(ctx, dh):
         xp, mask, zh, zc, wh, h, c = ctx.saved_tensors
         dxp = zoneout_lstm_bwd(xp, mask, zh, zc, wh, h, c, cotangent(dh, h))
-        return dxp, None, None, None, _dwh(h, dxp, False)
+        return dxp, None, None, None, _dwh(h, dxp, False, wh)

@@ -43,8 +43,18 @@ card the fbank kernel, under ``torch.no_grad``: no gradient flows to the
 waveform); ``wav_augment`` runs before it and ``augment`` (SpecAugment)
 after it, in the train step only.
 
-One device, no mesh: data parallelism is ROADMAP queue A item 12; bf16
-compute is :data:`BF16_ITEM`.
+``compute_dtype=torch.bfloat16`` (``train --bf16``) is the JAX trainer's
+mixed precision: the train step runs the model on its parameters cast to
+bfloat16 (``torch.func.functional_call``) and on the inputs rounded to
+bfloat16, every product then taking bfloat16 operands into a float32
+result (``models.nn.dot``, the recurrent kernels' bfloat16-weight forms)
+while h, c, dropout, the skips and the CTC loss stay float32.  The cast's
+autograd hands the float32 master weights gradients rounded to bfloat16;
+the clip, the optimizer and its state, the eval step and checkpoints stay
+float32.  Only models built from ``LSTMCell`` have the kernels for it; the
+other cells wait on :data:`BF16_ITEM`.
+
+One device, no mesh: data parallelism is ROADMAP queue A item 12.
 """
 
 from __future__ import annotations
@@ -56,11 +66,13 @@ import numpy as np
 import torch
 from torch import nn
 
+from asr_study_torch.models.cells import GRUCell, LSTMCell
 from asr_study_torch.ops import ctc
 from asr_study_torch.ops.metrics import edit_distance
-
 # where bf16 compute (the JAX trainer's compute_dtype, train --bf16) waits
-BF16_ITEM = "ROADMAP queue A item 5b"
+# for the cells other than LSTMCell
+from asr_study_torch.ops.recurrence import BF16_ITEM
+
 OPTIMIZERS = ("adam", "adamw", "rmsprop", "sgd")
 
 
@@ -329,16 +341,34 @@ class Trainer:
     ``wav_augment`` a ``(wavs, wav_lengths, generator) -> wavs`` transform
     of the raw batch before it (``features.augment.WavAugment``), which
     needs the featurizer.  ``check_nans`` stops training with
-    ``FloatingPointError`` at the first non-finite loss or gradient norm."""
+    ``FloatingPointError`` at the first non-finite loss or gradient norm.
+    ``compute_dtype`` ``torch.bfloat16`` runs the train step in mixed
+    precision (the module docstring); a model holding a cell other than
+    ``LSTMCell`` refuses it."""
 
     def __init__(self, model: nn.Module, optimizer: OptimizerSpec,
                  augment=None, featurizer=None, wav_augment=None,
-                 check_nans: bool = False):
+                 check_nans: bool = False,
+                 compute_dtype: Optional[torch.dtype] = None):
         if wav_augment is not None and featurizer is None:
             raise ValueError(
                 "wav_augment operates on raw waveforms and needs "
                 "featurizer= (the inputs are features otherwise)"
             )
+        if compute_dtype not in (None, torch.float32, torch.bfloat16):
+            raise ValueError(f"compute_dtype must be torch.bfloat16 or None, "
+                             f"got {compute_dtype}")
+        if compute_dtype == torch.bfloat16:
+            others = sorted({type(m).__name__ for m in model.modules()
+                             if isinstance(m, (LSTMCell, GRUCell))
+                             and type(m) is not LSTMCell})
+            if others:
+                raise ValueError(
+                    f"compute_dtype=torch.bfloat16: the bfloat16 kernels "
+                    f"cover LSTMCell only, and this model holds "
+                    f"{', '.join(others)} ({BF16_ITEM})")
+        self.compute_dtype = (compute_dtype if compute_dtype == torch.bfloat16
+                              else None)
         self.model = model
         self.spec = optimizer
         self.augment = augment
@@ -403,14 +433,37 @@ class Trainer:
         if self.augment is not None:
             inputs = self.augment(inputs, input_lengths, aug_gen)
         state.optimizer.zero_grad(set_to_none=True)
-        logits = model(inputs, input_lengths, train=True,
-                       generator=generator)
+        if self.compute_dtype is None:
+            logits = model(inputs, input_lengths, train=True,
+                           generator=generator)
+        else:
+            logits = self._forward_cast(model, inputs, input_lengths,
+                                        generator)
         loss_sum, denom = self._loss_sum(logits, input_lengths, labels,
                                          label_lengths, weights)
         loss = loss_sum / denom
         loss.backward()
         gnorm = self.apply_gradients(state, loss.detach())
         return state, {"loss": loss.detach(), "grad_norm": gnorm}
+
+    def _forward_cast(self, model: nn.Module, inputs: torch.Tensor,
+                      input_lengths: torch.Tensor,
+                      generator: Optional[torch.Generator]) -> torch.Tensor:
+        """The train-mode forward in ``compute_dtype``: the model on its
+        floating parameters cast (differentiably, so each gradient reaches
+        its float32 master) and on the inputs rounded to it (held as
+        float32: every use either rounds them again or adds them to
+        float32, as the JAX cast's bfloat16 inputs are used); the logits
+        float32 for the CTC loss."""
+        dt = self.compute_dtype
+        params = {n: p.to(dt) if p.is_floating_point() else p
+                  for n, p in model.named_parameters()}
+        if inputs.is_floating_point():
+            inputs = inputs.to(dt).to(inputs.dtype)
+        logits = torch.func.functional_call(
+            model, params, (inputs, input_lengths),
+            dict(train=True, generator=generator))
+        return logits.float()
 
     def apply_gradients(self, state: TrainState,
                         loss: Optional[torch.Tensor] = None

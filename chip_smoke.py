@@ -71,7 +71,12 @@ paths at full width, with random weights from a seeded
   ``mi_blstm`` and ``zoneout_blstm`` 3x256;
 - the rest of the optimizer factory on deep_blstm 3x256 through
   ``Trainer.train_step``: adamw, sgd, rmsprop, reduce-on-plateau and
-  gradient accumulation, ``check_nans`` and ``fit(profile=True)``.
+  gradient accumulation, ``check_nans`` and ``fit(profile=True)``;
+- bf16 training (``train --bf16``, ``Trainer(compute_dtype=
+  torch.bfloat16)``): train steps of deep_blstm 3x256 (the LSTM cluster
+  kernels' bfloat16-weight forms) and deep_speech (the wide kernels'),
+  each bidirectional and unidirectional, and ``cli.train --bf16`` of
+  deep_blstm on the corpus manifest.
 
 Phases, in order; any failure raises and the exit code is not 0:
 
@@ -84,11 +89,11 @@ Phases, in order; any failure raises and the exit code is not 0:
    for fbank, dpack_decode and the layer-norm, zoneout and MI LSTMs); the
    fbank kernel's FFT design (csrc/fbank_fft.cu) and DFT design
    (csrc/fbank.cu) both against the plain version and against it run with
-   float64 tables, timed in turns, beside the stock cuFFT chain
+   float64 tables, the FFT design timed beside the stock cuFFT chain
    (``torch.fft.rfft`` and the rest, several calls); the LSTM kernels' wide design at H=512 (deep_speech's width), both
    directions and one, its backward from the forward's saved gates, timed
-   in turns against the stream design it replaced beside cuDNN's two
-   calls and the bound, with the card's cudaOccupancyMaxActiveClusters
+   beside cuDNN's two calls and the bound, with the card's
+   cudaOccupancyMaxActiveClusters
    for its 16-CTA clusters; the GRU kernels' wide design at H=512 the same
    way (its backward from the h side of the pre-activations the forward
    keeps), beside cuDNN ``nn.GRU``; the layer-norm, zoneout and MI LSTM
@@ -97,11 +102,13 @@ Phases, in order; any failure raises and the exit code is not 0:
    LSTM, GRU and MI kernels also at H=512 and H=100, and at shapes ragged
    for the cluster design's tiling (H=100, B=5 and B=33, a row masked
    throughout, T=1), with the design each width takes, its cluster
-   geometry and shared memory; at H=256 the cluster design timed in turns
-   against the stream design it replaced (through the latter's C entry
-   point) beside cuDNN, the layer-norm, zoneout and MI LSTM kernels too (no
-   cuDNN); the MI kernels at alpha = 0, beta1 = beta2 = 1 and the zoneout
-   kernels at zh = zc = 1 against the LSTM kernels; the zoneout kernels
+   geometry and shared memory, each timed with its step split (the
+   designs these replaced, the stream design, the fbank DFT design and the
+   two-launch dpack decode, are timed against them in turns by
+   ``lstm_step_split.py stream_design``, ``fbank_dft`` and
+   ``dpack_two_launch``); the MI kernels at alpha = 0, beta1 = beta2 = 1
+   and the zoneout kernels at zh = zc = 1 against the LSTM kernels; the
+   zoneout kernels
    with Bernoulli and with constant mix weights, and at ragged shapes as
    the MI ones; the CTC walks' warp design (csrc/ctc_warp.cu, through the
    wrappers) and block design (csrc/ctc.cu, through its C entry points)
@@ -111,10 +118,9 @@ Phases, in order; any failure raises and the exit code is not 0:
    decode's one-launch design (csrc/dpack_onepass.cu) bit for bit against
    its plain version and the two-launch design (csrc/dpack.cu) over the
    whole stream of every serving batch, of the edge batches and of a
-   stream of more blocks than the cooperative grid has CTAs, timed in
-   turns against the two-launch design; the native library's dpack
-   encode byte-equal to NumPy's on every serving and edge batch, both
-   timed on the host in turns;
+   stream of more blocks than the cooperative grid has CTAs; the native
+   library's dpack encode byte-equal to NumPy's on every serving and edge
+   batch, both timed on the host in turns;
 4. the serving slices, with launch counters proving their kernels ran
    (fbank in the FFT design only)
    (the LSTM, GRU, layer-norm, zoneout and MI LSTM kernels in the design
@@ -141,11 +147,21 @@ Phases, in order; any failure raises and the exit code is not 0:
    the CPU, run twice bit for bit; accumulation over two halves against
    the whole batch; check_nans raising on a NaN batch with the weights
    untouched; fit(profile=True) writing a trace with the card's kernels;
+   then the bf16 phase: the four bfloat16-weight forms (the cluster and
+   wide LSTM kernels, forward and backward) against their plain twins at
+   T=512, B=32, H=256 and 512, one and two directions (h, c, the kept
+   gates, dxp; dwh after its matmul), two launches bit-equal, each timed
+   beside its float32 form, its bound and cuDNN ``nn.LSTM`` in bfloat16;
+   BF16_STEPS bf16 train steps of deep_blstm and deep_speech, each
+   bidirectional and with ``bidirectional=false``, from the float32
+   slice's weights, their launches (the bf16 forms only), losses
+   beside the float32 run's, two identical steps bit-equal, ms a step;
 8. the corpus phase: each CLI run's launches held to what its steps and
    evals need, every logged loss finite and the train loss falling from
    the first epoch to the third, the step count continued by ``--resume``,
    eval's valid loss equal to the run's last ``val_loss``, finite test
-   CER and WER; the host seconds of the synthesis and of the manifest's
+   CER and WER, then ``train --bf16`` for an epoch (the bf16 cluster forms
+   in every step); the host seconds of the synthesis and of the manifest's
    features, ms per train step (CUDA events) and audio-s/s, eval ms per
    batch; then the h5 phase on its corpus: make_dataset --output (host
    MFCC in both layouts, raw, and --device over pcm16 and dpack: the two
@@ -249,6 +265,15 @@ BWD_RTOL = 1e-4
 # - dwh through BiLSTMFunction against autograd through bilstm_plain: a sum
 #   over T*B = 16384 rows, so the bound is relative to the largest entry.
 DWH_RTOL = 1e-4
+# the bfloat16-weight forms (train --bf16) against their plain twins, both
+# rounding h_prev and dpre to bfloat16 and multiplying in float32: an
+# operand on a rounding boundary may round apart between the two, which
+# moves a step's sum by a bfloat16 ulp of one product, and the recurrence
+# carries it (measured max 1.1e-3 on h, c and dxp at T=512, B=32, H=256
+# and 512); dwh, a bfloat16 matmul result, against its max abs
+BF16_ATOL = 5e-3
+BF16_RTOL = 5e-3
+BF16_DWH_FRAC = 1e-2
 # - ctc_alpha / ctc_beta: alpha and gamma are log-likelihoods reaching
 #   about -2000, where one fp32 ulp is 1.2e-4: |kernel - plain| <= ATOL +
 #   RTOL*|plain| on entries above the floor; entries at LOG_EPS must be at
@@ -288,8 +313,10 @@ GRU_RTOL = 1e-5
 LN_CHECK_T = 64
 
 # H100 SXM peaks (NVIDIA's data sheet, at a 700 W power limit): fp32
-# outside the tensor cores, and HBM3 bandwidth
+# outside the tensor cores, bf16 products into fp32 on the tensor cores
+# (dense), and HBM3 bandwidth
 PEAK_FP32 = 67e12
+PEAK_BF16 = 989e12
 PEAK_HBM = 3.35e12
 
 # config 3 (benchmarks/bench_train.py defaults)
@@ -393,11 +420,12 @@ def ctc_compare(got: torch.Tensor, want: torch.Tensor
             err)
 
 
-def bound(ops: float, nbytes: float) -> tuple[float, str]:
-    """The least time the card could take: the larger of ``ops`` fp32
-    operations at PEAK_FP32 and ``nbytes`` moved at PEAK_HBM -> (ms, which
-    of the two limits it)."""
-    t_ops, t_bytes = ops / PEAK_FP32, nbytes / PEAK_HBM
+def bound(ops: float, nbytes: float, peak: float = PEAK_FP32
+          ) -> tuple[float, str]:
+    """The least time the card could take: the larger of ``ops``
+    operations at ``peak`` (fp32: PEAK_FP32) and ``nbytes`` moved at
+    PEAK_HBM -> (ms, which of the two limits it)."""
+    t_ops, t_bytes = ops / peak, nbytes / PEAK_HBM
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                        else "bytes")
 
@@ -442,15 +470,16 @@ class PhaseClock:
 
 
 def rnn_bound(xp: torch.Tensor, hidden: int, ndir: int, passes: int,
-              moved: tuple) -> tuple[float, str]:
+              moved: tuple, peak: float = PEAK_FP32) -> tuple[float, str]:
     """Bound of a recurrent kernel: ``passes`` [B, H] x [H, G] products a
     step and direction (1 forward; 2 backward: the recomputed h-side
     pre-activations and the cotangent through wh^T) over every frame of
-    xp [T, B, G]; the gate maths is left out, so it stays a lower bound.
-    ``moved``: the function's inputs and outputs, each counted once."""
+    xp [T, B, G] at ``peak`` (PEAK_BF16 for bfloat16 operands); the gate
+    maths is left out, so it stays a lower bound.  ``moved``: the
+    function's inputs and outputs, each counted once."""
     t, b, g = xp.shape
     return bound(passes * 2.0 * t * b * hidden * g * ndir,
-                 tensor_bytes(*moved))
+                 tensor_bytes(*moved), peak)
 
 
 def ctc_yardsticks(logits: torch.Tensor, lengths: torch.Tensor,
@@ -1047,41 +1076,30 @@ def print_cluster_geometry() -> None:
                         f"one wave")
 
 
-def time_in_turns(card: str, label: str, cluster_fn, stream_fn, steps: int,
-                  geo, passes: int, rest: str, gates: int = 4,
-                  library: tuple[str, float] | None = None,
+def time_resident(card: str, label: str, fn, steps: int, geo,
+                  passes: int, rest: str, gates: int = 4,
                   hidden: int = HIDDEN) -> float:
-    """One kernel's resident design (``geo.design``: cluster or wide) and
-    the stream design timed in turns, resident, stream, stream, resident,
-    5 calls a turn, at H=``hidden`` and B=BATCH -> the resident design's
-    mean ms.  Prints both, the library call's time where there is one
-    (``library``: its name and ms in this run), and the resident design's
-    step split into the FMA time of one CTA's slice (``passes`` [R, H] x
-    [H, gates*U] products a step in the layout ``geo``, at 128 FMAs a
-    clock and the card's SM clock) and the ``rest``."""
-    turns = {"cluster": [], "stream": []}
-    for design in ("cluster", "stream", "stream", "cluster"):
-        turns[design].append(cuda_ms(
-            cluster_fn if design == "cluster" else stream_fn, 5))
+    """One kernel's resident design (``geo.design``: cluster or wide) in
+    two turns of 5 calls at H=``hidden`` and B=BATCH -> its mean ms.
+    Prints both turns and the step split into the FMA time of one CTA's
+    slice (``passes`` [R, H] x [H, gates*U] products a step in the layout
+    ``geo``, at 128 FMAs a clock and the card's SM clock) and the
+    ``rest``.  The stream design these kernels
+    replaced is timed against them in turns by ``lstm_step_split.py
+    stream_design``."""
+    turns = [cuda_ms(fn, 5) for _ in range(2)]
     clk = sm_clock_hz()
     fmas = passes * geo.rows * hidden * gates * geo.units
-    c_ms = sum(turns["cluster"]) / 2
-    s_ms = sum(turns["stream"]) / 2
-    step_us = 1e3 * c_ms / steps
+    ms = sum(turns) / 2
+    step_us = 1e3 * ms / steps
     fma_us = 1e6 * fmas / (128 * clk)
-    lib = ("" if library is None else
-           f"{library[0]} {library[1]:.4f} ms ({library[1] / c_ms:.2f}x the "
-           f"{geo.design} design); ")
     print(f"[{card}] {label} at H={hidden} T={steps} B={BATCH} "
-          f"(R={geo.rows}), in turns: {geo.design} design "
-          f"{turns['cluster'][0]:.4f} / {turns['cluster'][1]:.4f} ms, "
-          f"stream design {turns['stream'][0]:.4f} / "
-          f"{turns['stream'][1]:.4f} ms ({s_ms / c_ms:.2f}x); {lib}"
-          f"{step_us:.3f} us a step, of which the {fmas} FMAs of one "
-          f"CTA's slice take {fma_us:.3f} us at 128 a clock and the SM "
-          f"clock {clk / 1e6:.0f} MHz, the rest ({rest}) "
+          f"(R={geo.rows}): {geo.design} design {turns[0]:.4f} / "
+          f"{turns[1]:.4f} ms; {step_us:.3f} us a step, of which the "
+          f"{fmas} FMAs of one CTA's slice take {fma_us:.3f} us at 128 a "
+          f"clock and the SM clock {clk / 1e6:.0f} MHz, the rest ({rest}) "
           f"{step_us - fma_us:.3f} us")
-    return c_ms
+    return ms
 
 
 def ln_smem(hidden: int) -> tuple[int, int, int]:
@@ -1141,22 +1159,20 @@ def check_ln_kernels(dev: torch.device, card: str, x_serve: torch.Tensor,
     through BiLNLSTMFunction / LNLSTMFunction against autograd through the
     plain loops on the first LN_CHECK_T frames; each in the design
     ``ln_geometry`` gives (the cluster one at H=256: held by the by-design
-    counts) and timed with its plain version and its bound, and in turns
-    (cluster, stream, stream, cluster) against the stream design (its C
-    entry point, through ``launch_fwd`` / ``launch_bwd``, which count no
-    launch), with the per-step time split into the FMA time of one CTA's
-    slice at the card's SM clock and the rest.  The LN gains and biases are
+    counts) and timed with its plain version and its bound, with the
+    per-step time split into the FMA time of one CTA's slice at the card's
+    SM clock and the rest (``lstm_step_split.py stream_design`` times the
+    stream design against it in turns).  The LN gains and biases are
     moved off their init (1 and 0) by seeded noise, so that every vector
     the kernels take matters."""
     from asr_study_torch.models.zoo import ln_blstm
     from asr_study_torch.ops.ln_lstm import (BiLNLSTMFunction, LNLSTMFunction,
                                              bi_ln_lstm, bi_ln_lstm_bwd,
                                              bi_ln_lstm_bwd_plain,
-                                             bi_ln_lstm_plain, launch_bwd,
-                                             launch_fwd, ln_geometry, ln_lstm,
-                                             ln_lstm_bwd, ln_lstm_bwd_plain,
-                                             ln_lstm_plain,
-                                             ln_stream_geometry)
+                                             bi_ln_lstm_plain, ln_geometry,
+                                             ln_lstm, ln_lstm_bwd,
+                                             ln_lstm_bwd_plain,
+                                             ln_lstm_plain)
 
     g = torch.Generator().manual_seed(SEED + 7)
     h = HIDDEN
@@ -1196,8 +1212,8 @@ def check_ln_kernels(dev: torch.device, card: str, x_serve: torch.Tensor,
                 f"more launch of the {want} design")
         return want
 
-    def in_turns(label, cluster_fn, stream_fn, steps, ndir, passes):
-        return time_in_turns(card, label, cluster_fn, stream_fn, steps,
+    def timed(label, fn, steps, ndir, passes):
+        return time_resident(card, label, fn, steps,
                              ln_geometry(h, BATCH, ndir), passes,
                              "statistics, exchange, barriers, cell, loads")
 
@@ -1224,7 +1240,6 @@ def check_ln_kernels(dev: torch.device, card: str, x_serve: torch.Tensor,
         n = len(xpns)
         args = (*xpns, mask_s, *res)
         # wh, gh, gc, bc, each a list over the directions
-        groups = [list(res[i * n: (i + 1) * n]) for i in range(4)]
         with torch.no_grad():
             before = dict(fwd.by_design)
             got, want = fwd(*args), fwd_plain(*args)
@@ -1238,10 +1253,7 @@ def check_ln_kernels(dev: torch.device, card: str, x_serve: torch.Tensor,
             drift = [max_err([r.double().to(dev) for r in run], ref)
                      for run in (got[0::2], want[0::2], cpu)]
             times[f"{name}_fwd"] = (
-                in_turns(f"{name}_fwd", lambda: fwd(*args),
-                         lambda: launch_fwd(ln_stream_geometry(h, BATCH, n),
-                                            list(xpns), mask_s, *groups),
-                         t_s, n, 1),
+                timed(f"{name}_fwd", lambda: fwd(*args), t_s, n, 1),
                 cuda_ms(lambda: fwd_plain(*args), 2, 1))
         errs[f"{name}_fwd"] = max_err(got, steps)
         bounds[f"{name}_fwd"] = rnn_bound(xpns[0], h, n, 1, (*args, *got))
@@ -1265,7 +1277,6 @@ def check_ln_kernels(dev: torch.device, card: str, x_serve: torch.Tensor,
         # the backward at the training shapes
         xpns, res = prepared(layer, x)
         args = (*xpns, mask, *res)
-        groups = [list(res[i * n: (i + 1) * n]) for i in range(4)]
         with torch.no_grad():
             hc = fwd(*args)
             bwd_args = (*args, *hc, *dh[:n])
@@ -1274,12 +1285,7 @@ def check_ln_kernels(dev: torch.device, card: str, x_serve: torch.Tensor,
             torch.cuda.synchronize()
             design = ran_design(bwd, before, n, b)
             times[f"{name}_bwd"] = (
-                in_turns(f"{name}_bwd", lambda: bwd(*bwd_args),
-                         lambda: launch_bwd(ln_stream_geometry(h, b, n),
-                                            list(xpns), mask, *groups,
-                                            list(hc[0::2]), list(hc[1::2]),
-                                            dh[:n]),
-                         t, n, 2),
+                timed(f"{name}_bwd", lambda: bwd(*bwd_args), t, n, 2),
                 cuda_ms(lambda: bwd_plain(*bwd_args), 2, 1))
         errs[f"{name}_bwd"] = max_err(d_k, d_p)
         bounds[f"{name}_bwd"] = rnn_bound(xpns[0], h, n, 2,
@@ -1661,15 +1667,12 @@ def check_lstm_wide(dev: torch.device, card: str, x_serve: torch.Tensor,
 
         libs = [yardsticks()]
         with torch.no_grad():
-            k_fwd = time_in_turns(
-                card, fwd_row, lambda: fwd(fxps, mask_s),
-                lambda: launch_fwd(stream_geo, fxps, mask_s, whs), t_s, geo,
-                1, "exchange, barrier, cell, loads", hidden=h)
+            k_fwd = time_resident(
+                card, fwd_row, lambda: fwd(fxps, mask_s), t_s, geo, 1,
+                "exchange, barrier, cell, loads", hidden=h)
             k_train = cuda_ms(lambda: fwd(fxps, mask_s, train=True), 10)
-            k_bwd = time_in_turns(
-                card, bwd_row, lambda: bwd(hcs, gs),
-                lambda: launch_bwd(stream_geo, bxps, mask, whs, list(hs),
-                                   list(cs), dh[:n]), t, geo, 1,
+            k_bwd = time_resident(
+                card, bwd_row, lambda: bwd(hcs, gs), t, geo, 1,
                 "exchange, barrier, cell, loads", hidden=h)
         libs.append(yardsticks())
         print(f"[{card}] {fwd_row} as training runs it (residual: also "
@@ -1888,15 +1891,12 @@ def check_gru_wide(dev: torch.device, card: str, x_serve: torch.Tensor,
 
         libs = [yardsticks()]
         with torch.no_grad():
-            k_fwd = time_in_turns(
-                card, fwd_row, lambda: fwd(fxps, mask_s),
-                lambda: launch_fwd(stream_geo, fxps, mask_s, whs), t_s, geo,
-                1, "exchange, barrier, cell, loads", gates=3, hidden=h)
+            k_fwd = time_resident(
+                card, fwd_row, lambda: fwd(fxps, mask_s), t_s, geo, 1,
+                "exchange, barrier, cell, loads", gates=3, hidden=h)
             k_train = cuda_ms(lambda: fwd(fxps, mask_s, train=True), 10)
-            k_bwd = time_in_turns(
-                card, bwd_row, lambda: bwd(hs, gs),
-                lambda: launch_bwd(stream_geo, bxps, mask, whs, list(hs),
-                                   dh[:n]), t, geo, 1,
+            k_bwd = time_resident(
+                card, bwd_row, lambda: bwd(hs, gs), t, geo, 1,
                 "exchange, barrier, cell, loads", gates=3, hidden=h)
         libs.append(yardsticks())
         print(f"[{card}] {fwd_row} as training runs it (residual: also "
@@ -2033,10 +2033,9 @@ def sm_clock_hz() -> float:
     return float(out.splitlines()[0]) * 1e6
 
 
-def check_lstm_designs(dev: torch.device, card: str, x_serve: torch.Tensor,
-                       len_serve: torch.Tensor, library: dict) -> None:
+def check_lstm_designs(dev: torch.device) -> None:
     """Phase 3 for the cluster design of the LSTM kernels beyond the main
-    paths, and its time against the design it replaced.
+    paths.
 
     The four wrappers against their plain versions at shapes ragged for the
     cluster tiling: H=100 (13 units a CTA, the last CTA 9), B=5 and B=33
@@ -2045,19 +2044,12 @@ def check_lstm_designs(dev: torch.device, card: str, x_serve: torch.Tensor,
     clusters hold, so the stream design; one direction: the wide design
     with a ragged last group); each case runs the design ``lstm_geometry``
     picks, held by the wrappers' by-design counts, at the forward and
-    backward tolerances.  Then, at H=256 and the main paths' shapes (T=805
-    forward, T=512 backward, B=32), the cluster design and the stream design
-    (its C entry point) timed in turns, cluster, stream, stream, cluster,
-    beside cuDNN's time from ``library`` (this run), with the per-step time
-    split into the FMA time of one CTA's slice at the card's SM clock and
-    the rest (exchange, barrier, cell)."""
-    from asr_study_torch.models.zoo import deep_blstm
+    backward tolerances.  (``lstm_step_split.py stream_design`` times the
+    cluster design against the stream design it replaced, in turns.)"""
     from asr_study_torch.ops.bilstm import (bilstm, bilstm_bwd,
                                             bilstm_bwd_plain, bilstm_plain,
-                                            launch_bwd, launch_fwd, lstm,
-                                            lstm_bwd, lstm_bwd_plain,
-                                            lstm_geometry, lstm_plain,
-                                            stream_geometry)
+                                            lstm, lstm_bwd, lstm_bwd_plain,
+                                            lstm_geometry, lstm_plain)
 
     g = torch.Generator().manual_seed(SEED + 12)
     for t, b, h, masked in ((37, 5, 100, True), (40, 33, 256, True),
@@ -2111,74 +2103,22 @@ def check_lstm_designs(dev: torch.device, card: str, x_serve: torch.Tensor,
               + f" (tol fwd {BILSTM_ATOL:g} + {BILSTM_RTOL:g}*|plain|, bwd "
               f"{BWD_ATOL:g} + {BWD_RTOL:g}*|plain|)")
 
-    # the two designs in turns at H=256
-    layer = deep_blstm(f"num_hiddens={HIDDEN},num_layers=1", input_dim=FEATS,
-                       generator=g, device=dev).rnn.layers[0].rnn
-    t_s = x_serve.shape[0]
-    mask_s = mask_of(len_serve, t_s, dev)
-    fxps = [input_proj(layer.fw, x_serve), input_proj(layer.bw, x_serve)]
-    whs = [layer.fw.wh.detach(), layer.bw.wh.detach()]
-    t, b = TRAIN_T, TRAIN_B
-    lengths = torch.randint(t // 2, t + 1, (b,), generator=g)
-    lengths[0] = t
-    x = torch.randn(t, b, FEATS, generator=g).to(dev)
-    mask = mask_of(lengths, t, dev)
-    bxps = [input_proj(layer.fw, x), input_proj(layer.bw, x)]
-    dhs = [torch.randn(t, b, HIDDEN, generator=g).to(dev) for _ in range(2)]
-    with torch.no_grad():
-        hf, cf, hb, cb = bilstm(*bxps, mask, *whs)
-        # the stream design through launch_fwd / launch_bwd, which call
-        # its C entry points directly and count no launch
-        uni_s, bi_s = (stream_geometry(HIDDEN, BATCH, n) for n in (1, 2))
-        runs = {
-            "lstm_fwd": (lambda: lstm(fxps[0], mask_s, whs[0]),
-                         lambda: launch_fwd(uni_s, fxps[:1], mask_s,
-                                            whs[:1]), t_s, 1, 1),
-            "bilstm_fwd": (lambda: bilstm(*fxps, mask_s, *whs),
-                           lambda: launch_fwd(bi_s, fxps, mask_s, whs),
-                           t_s, 2, 1),
-            "lstm_bwd": (lambda: lstm_bwd(bxps[0], mask, whs[0], hf, cf,
-                                          dhs[0]),
-                         lambda: launch_bwd(uni_s, bxps[:1], mask, whs[:1],
-                                            [hf], [cf], dhs[:1]), t, 1, 2),
-            "bilstm_bwd": (lambda: bilstm_bwd(*bxps, mask, *whs, hf, cf, hb,
-                                              cb, *dhs),
-                           lambda: launch_bwd(bi_s, bxps, mask, whs,
-                                              [hf, hb], [cf, cb], dhs),
-                           t, 2, 2),
-        }
-        for name, (cluster_fn, stream_fn, steps, ndir, passes) in \
-                runs.items():
-            time_in_turns(card, name, cluster_fn, stream_fn, steps,
-                          lstm_geometry(HIDDEN, BATCH, ndir), passes,
-                          "exchange, barrier, cell, loads",
-                          library=("cuDNN", library[name]))
 
-
-def check_gru_designs(dev: torch.device, card: str, x_serve: torch.Tensor,
-                      len_serve: torch.Tensor, library: dict) -> None:
+def check_gru_designs(dev: torch.device) -> None:
     """Phase 3 for the cluster design of the GRU kernels beyond the main
-    paths, and its time against the design it replaced, as
-    ``check_lstm_designs`` for the LSTM.
+    paths, as ``check_lstm_designs`` for the LSTM.
 
     The four wrappers against their plain versions at shapes ragged for the
     cluster tiling (H=100: 13 units a CTA, the last CTA 9; B=5 and B=33; a
     row masked on every frame; T=1) and at H=512 (the wide design, its
     backward from the forward's res), each case in the design
     ``gru_geometry`` picks (held by the by-design counts), at the forward
-    and backward tolerances.  Then, at H=256 and
-    the main paths' shapes (T=805 forward, T=512 backward, B=32), the
-    cluster and stream designs timed in turns, cluster, stream, stream,
-    cluster, beside nn.GRU's time in this run (``library``; for the
-    one-direction forward, which the kernel line times at T=512, nn.GRU is
-    timed here at T=805), with the per-step time split into the FMA time of
-    one CTA's slice at the card's SM clock and the rest."""
-    from asr_study_torch.models.zoo import deep_gru
+    and backward tolerances.  (``lstm_step_split.py stream_design`` times
+    the cluster design against the stream design in turns.)"""
     from asr_study_torch.ops.gru import (bigru, bigru_bwd, bigru_bwd_plain,
                                          bigru_plain, gru, gru_bwd,
                                          gru_bwd_plain, gru_geometry,
-                                         gru_plain, gru_stream_geometry,
-                                         launch_bwd, launch_fwd)
+                                         gru_plain)
 
     g = torch.Generator().manual_seed(SEED + 13)
     wrappers = {"bigru_fwd": bigru, "bigru_bwd": bigru_bwd, "gru_fwd": gru,
@@ -2235,54 +2175,6 @@ def check_gru_designs(dev: torch.device, card: str, x_serve: torch.Tensor,
               + f" (tol fwd {GRU_ATOL:g} + {GRU_RTOL:g}*|plain|, bwd "
               f"{BWD_ATOL:g} + {BWD_RTOL:g}*|plain|)")
 
-    # the two designs in turns at H=256
-    layer, uni = (deep_gru(f"num_hiddens={HIDDEN},num_layers=1,bidirectional="
-                           f"{bi}", input_dim=FEATS, generator=g,
-                           device=dev).rnn.layers[0].rnn
-                  for bi in ("true", "false"))
-    t_s = x_serve.shape[0]
-    mask_s = mask_of(len_serve, t_s, dev)
-    y = rnn_yardsticks("gru", uni, x_serve, len_serve, mask_s)
-    print_yardsticks(card, f"cuDNN nn.GRU unidirectional, T={t_s} "
-                     f"B={BATCH} H={HIDDEN}", y)
-    require(y["out_err"] <= LOGITS_TOL, "layer disagrees with nn.GRU")
-    library = {**library, "gru_fwd": y["lib_fwd"]}
-    fxps = [input_proj(layer.fw, x_serve), input_proj(layer.bw, x_serve)]
-    whs = [layer.fw.wh.detach(), layer.bw.wh.detach()]
-    uxp, uwh = input_proj(uni.fw, x_serve), uni.fw.wh.detach()
-    t, b = TRAIN_T, TRAIN_B
-    lengths = torch.randint(t // 2, t + 1, (b,), generator=g)
-    lengths[0] = t
-    x = torch.randn(t, b, FEATS, generator=g).to(dev)
-    mask = mask_of(lengths, t, dev)
-    bxps = [input_proj(layer.fw, x), input_proj(layer.bw, x)]
-    dhs = [torch.randn(t, b, HIDDEN, generator=g).to(dev) for _ in range(2)]
-    with torch.no_grad():
-        hf, hb = bigru(*bxps, mask, *whs)
-        # the stream design through launch_fwd / launch_bwd, which call
-        # its C entry points directly and count no launch
-        uni_s, bi_s = (gru_stream_geometry(HIDDEN, BATCH, n) for n in (1, 2))
-        runs = {
-            "gru_fwd": (lambda: gru(uxp, mask_s, uwh),
-                        lambda: launch_fwd(uni_s, [uxp], mask_s, [uwh]),
-                        t_s, 1, 1),
-            "bigru_fwd": (lambda: bigru(*fxps, mask_s, *whs),
-                          lambda: launch_fwd(bi_s, fxps, mask_s, whs),
-                          t_s, 2, 1),
-            "gru_bwd": (lambda: gru_bwd(bxps[0], mask, whs[0], hf, dhs[0]),
-                        lambda: launch_bwd(uni_s, bxps[:1], mask, whs[:1],
-                                           [hf], dhs[:1]), t, 1, 2),
-            "bigru_bwd": (lambda: bigru_bwd(*bxps, mask, *whs, hf, hb, *dhs),
-                          lambda: launch_bwd(bi_s, bxps, mask, whs, [hf, hb],
-                                             dhs), t, 2, 2),
-        }
-        for name, (cluster_fn, stream_fn, steps, ndir, passes) in \
-                runs.items():
-            time_in_turns(card, name, cluster_fn, stream_fn, steps,
-                          gru_geometry(HIDDEN, BATCH, ndir), passes,
-                          "exchange, barrier, cell, loads", gates=3,
-                          library=("cuDNN nn.GRU", library[name]))
-
 
 def check_cell_family(dev: torch.device, card: str, x_serve: torch.Tensor,
                       len_serve: torch.Tensor, family: str) -> dict:
@@ -2302,9 +2194,9 @@ def check_cell_family(dev: torch.device, card: str, x_serve: torch.Tensor,
     are moved off their init by seeded noise, so that each one the kernels
     take matters.  Both families' kernels run the design
     ``zoneout_geometry`` / ``mi_geometry`` gives (the cluster one at H=256:
-    held by the by-design counts), are timed in turns against the stream
-    design (its C entry point through ``launch_fwd`` / ``launch_bwd``,
-    which count no launch); the MI kernels are held at alpha = 0, beta1 =
+    held by the by-design counts), timed with the per-step split
+    (``lstm_step_split.py stream_design`` times the stream design against
+    them in turns); the MI kernels are held at alpha = 0, beta1 =
     beta2 = 1 against the cluster LSTM kernels fed xp + b, where the MI
     pre-activation is the LSTM's; then ``check_zoneout_designs`` /
     ``check_mi_designs`` holds them at ragged shapes.
@@ -2320,8 +2212,6 @@ def check_cell_family(dev: torch.device, card: str, x_serve: torch.Tensor,
     model_name = {"zoneout": "zoneout_blstm", "mi": "mi_blstm"}[family]
     op = zo if family == "zoneout" else mi
     geometry = zo.zoneout_geometry if family == "zoneout" else mi.mi_geometry
-    stream_geometry = (zo.zoneout_stream_geometry if family == "zoneout"
-                       else mi.mi_stream_geometry)
     stem = "zoneout_lstm" if family == "zoneout" else "mi_lstm"
     # positions of the differentiable resident arguments (the MI vectors
     # and wh; a zoneout cell's mix weights get no gradient)
@@ -2367,18 +2257,10 @@ def check_cell_family(dev: torch.device, card: str, x_serve: torch.Tensor,
                 f"more launch of the {want} design")
         return f" ({want} design)"
 
-    def in_turns(label, cluster_fn, stream_fn, steps, ndir, passes):
-        return time_in_turns(card, label, cluster_fn, stream_fn, steps,
+    def timed(label, fn, steps, ndir, passes):
+        return time_resident(card, label, fn, steps,
                              geometry(h, BATCH, ndir), passes,
                              "exchange, barrier, cell, loads")
-
-    def split(res, n):
-        """The residents as launch_fwd / launch_bwd take them: zoneout's
-        (zh, zc, wh), the MI's (wh, its vectors), each a list over the
-        directions."""
-        if family == "zoneout":
-            return [list(res[k * n:(k + 1) * n]) for k in range(3)]
-        return [list(res[:n]), list(res[n:])]
 
     mixes = ("bernoulli", "constant") if family == "zoneout" else ("-",)
     errs, times, bounds = {}, {}, {}
@@ -2419,12 +2301,8 @@ def check_cell_family(dev: torch.device, card: str, x_serve: torch.Tensor,
                 drift = [max_err([r.double() for r in run], ref)
                          for run in (got[0::2], want[0::2])]
                 if mix != "constant":
-                    geo_s = stream_geometry(h, BATCH, n)
                     times[f"{name}_fwd"] = (
-                        in_turns(f"{name}_fwd", lambda: fwd(*args),
-                                 lambda: op.launch_fwd(
-                                     geo_s, list(xps), mask_s,
-                                     *split(res, n)), t_s, n, 1),
+                        timed(f"{name}_fwd", lambda: fwd(*args), t_s, n, 1),
                         cuda_ms(lambda: fwd_plain(*args), 2, 1))
             err = max_err(got, want)
             errs[f"{name}_fwd"] = max(err, errs.get(f"{name}_fwd", 0.0))
@@ -2456,13 +2334,8 @@ def check_cell_family(dev: torch.device, card: str, x_serve: torch.Tensor,
                 d_k = d_k if n == 2 else (d_k,)
                 d_p = d_p if n == 2 else (d_p,)
                 if mix != "constant":
-                    geo_s = stream_geometry(h, b, n)
                     times[f"{name}_bwd"] = (
-                        in_turns(f"{name}_bwd", lambda: bwd(*bwd_args),
-                                 lambda: op.launch_bwd(
-                                     geo_s, list(xps), mask, *split(res, n),
-                                     list(hc[0::2]), list(hc[1::2]), dh[:n]),
-                                 t, n, 2),
+                        timed(f"{name}_bwd", lambda: bwd(*bwd_args), t, n, 2),
                         cuda_ms(lambda: bwd_plain(*bwd_args), 2, 1))
             err = max_err(d_k, d_p)
             errs[f"{name}_bwd"] = max(err, errs.get(f"{name}_bwd", 0.0))
@@ -2821,9 +2694,9 @@ def check_fbank_kernel(card: str, feat, pre: torch.Tensor,
     wrapper, and the DFT design through its C entry point asr_fbank as the
     wrapper ran it (the signal padded to the last frame, then the launch),
     against spectral_plain at FBANK_TOL, each beside its error against
-    spectral_plain with float64 tables; the two timed in turns, fft, dft,
-    dft, fft, 20 calls a turn, with their device times; the cuFFT chain as
-    a yardstick; both bounds."""
+    spectral_plain with float64 tables; the fft design timed, two turns of
+    20 calls, with its device time; the cuFFT chain as a yardstick; both
+    designs' bounds."""
     from asr_study_torch.features.device import spectral_plain
     from asr_study_torch.features.fbank import (chain_design, fbank,
                                                 launch_dft)
@@ -2868,30 +2741,25 @@ def check_fbank_kernel(card: str, feat, pre: torch.Tensor,
         require(errs[d] <= FBANK_TOL, f"fbank {d} design disagrees with "
                 "plain")
 
-    calls = {"fft": lambda: fbank(chain, pre, t_out), "dft": dft}
-    turns = {"fft": [], "dft": []}
+    def fft():
+        return fbank(chain, pre, t_out)
+
     with torch.inference_mode():
-        for d in ("fft", "dft", "dft", "fft"):
-            turns[d].append(cuda_ms(calls[d], 20))
-        dev = {"fft": kernel_device_ms(calls["fft"], 20, "fbank_fft"),
-               "dft": kernel_device_ms(calls["dft"], 20, "fbank_kernel")}
+        turns = [cuda_ms(fft, 20) for _ in range(2)]
+        dev = kernel_device_ms(fft, 20, "fbank_fft")
         plain_ms = cuda_ms(lambda: spectral_plain(chain, pre, t_out), 20)
         lib_out = cufft_chain(chain, pre, t_out)
         lib_ms = cuda_ms(lambda: cufft_chain(chain, pre, t_out), 20)
     torch.cuda.synchronize()
-    fft_ms, dft_ms = (sum(turns[d]) / 2 for d in ("fft", "dft"))
+    fft_ms = sum(turns) / 2
     bounds = fbank_bounds(chain, pre, got["fft"])
-
-    def dev_txt(d):
-        return "not measured" if dev[d] is None else f"{dev[d]:.4f} ms"
-    print(f"[{card}] fbank at B={pre.shape[0]} T={t_out}, in turns (the fft "
-          f"design through the wrapper, the dft design as the wrapper ran "
-          f"it): fft design {turns['fft'][0]:.4f} / "
-          f"{turns['fft'][1]:.4f} ms (device time {dev_txt('fft')}), dft "
-          f"design {turns['dft'][0]:.4f} / {turns['dft'][1]:.4f} ms (device "
-          f"time {dev_txt('dft')}; with the pad copy of pre) "
-          f"({dft_ms / fft_ms:.2f}x); "
-          f"plain {plain_ms:.4f} ms; bound {bounds['fft'][0]:.4f} ms "
+    print(f"[{card}] fbank at B={pre.shape[0]} T={t_out}, the fft design "
+          f"through the wrapper, two turns: {turns[0]:.4f} / {turns[1]:.4f}"
+          f" ms (device time "
+          f"{'not measured' if dev is None else f'{dev:.4f} ms'}; "
+          f"``lstm_step_split.py fbank_dft`` times the dft design against "
+          f"it in turns); plain {plain_ms:.4f} ms; bound "
+          f"{bounds['fft'][0]:.4f} ms "
           f"({bounds['fft'][1]}; the least work: a real FFT, banded mel), "
           f"the DFT-form bound {bounds['dft'][0]:.4f} ms "
           f"({bounds['dft'][1]})")
@@ -3098,10 +2966,11 @@ def check_dpack_kernel(dev: torch.device, card: str, groups: list,
     against its plain version and the two-launch design over the whole
     [scap] stream of every serving batch's dpack wire, of the edge batches
     and of 48 rows of 8 s (more dpack blocks than the cooperative grid has
-    CTAs), and unpack_audio over dpack equal to it over pcm16; the two
-    designs timed in turns at the first serving batch, by CUDA events and
-    device time; the native dpack encode against NumPy's
-    (``native_encode_check``)."""
+    CTAs), and unpack_audio over dpack equal to it over pcm16; the
+    one-launch design timed at the first serving batch, through the
+    wrapper and by device time (``lstm_step_split.py dpack_two_launch``
+    times the two designs in turns); the native dpack encode against
+    NumPy's (``native_encode_check``)."""
     from asr_study_torch.data import wire
     from asr_study_torch.ops.dpack import dpack_decode, dpack_decode_plain
 
@@ -3158,12 +3027,9 @@ def check_dpack_kernel(dev: torch.device, card: str, groups: list,
 
     args = wire.dpack_regions(dp.dev[: dp.cap], BATCH, dp.scap)
     payload, row_start, widths = args
-    calls = {"one": dpack_one_launch(*args, dp.scap)[0],
-             "two": dpack_two_launch(*args, dp.scap)[0]}
-    turns = {"one": [], "two": []}
-    for d in ("one", "two", "two", "one"):
-        turns[d].append(cuda_ms(calls[d], 50, warmup=5))
-    dev_ms = {d: kernel_device_ms(calls[d], 20, "dpack") for d in calls}
+    one = dpack_one_launch(*args, dp.scap)[0]
+    entry_ms = cuda_ms(one, 50, warmup=5)
+    dev_ms = kernel_device_ms(one, 20, "dpack")
     ms = cuda_ms(lambda: dpack_decode(*args, dp.scap), 50, warmup=5)
     plain_ms = cuda_ms(lambda: dpack_decode_plain(*args, dp.scap), 5)
     w_sum = int(widths.sum())
@@ -3173,17 +3039,12 @@ def check_dpack_kernel(dev: torch.device, card: str, groups: list,
     d_bound = bound(float(dp.scap),
                     256 * 2 * w_sum + tensor_bytes(row_start, widths)
                     + 4.0 * dp.scap)
-    def dev_txt(d):
-        return ("not measured" if dev_ms[d] is None
-                else f"{dev_ms[d]:.4f} ms")
+    dev_txt = "not measured" if dev_ms is None else f"{dev_ms:.4f} ms"
     print(f"[{card}] dpack_decode (one batch: {dp.scap // 4096} blocks, "
           f"{16 * w_sum * 256 / dp.scap:.2f} bits a sample of scap): "
-          f"through the wrapper {ms:.4f} ms; in turns through the C entry "
-          f"points, 50 calls a turn: one-launch design {turns['one'][0]:.4f}"
-          f" / {turns['one'][1]:.4f} ms (device time {dev_txt('one')}, "
-          f"torch.profiler), two-launch design {turns['two'][0]:.4f} / "
-          f"{turns['two'][1]:.4f} ms (device time of its two launches "
-          f"{dev_txt('two')}); plain {plain_ms:.4f} ms, bound "
+          f"through the wrapper {ms:.4f} ms; through its C entry point, 50 "
+          f"calls: {entry_ms:.4f} ms (device time {dev_txt}, "
+          f"torch.profiler); plain {plain_ms:.4f} ms, bound "
           f"{d_bound[0]:.4f} ms ({d_bound[1]})")
     print("dpack_decode library yardstick: none; no PyTorch call decodes "
           "dpack (bit-plane expansion with a carried prefix sum), so "
@@ -3240,6 +3101,12 @@ KERNELS = {
     "bigru_bwd_wide": ("gru_wide_bwd.cu", "ops/pallas_bigru.py:92"),
     "gru_fwd_wide": ("gru_wide_fwd.cu", "ops/pallas_gru.py:41"),
     "gru_bwd_wide": ("gru_wide_bwd.cu", "ops/pallas_gru.py:60"),
+    # the LSTM's bfloat16-weight forms (train --bf16): the cluster and wide
+    # kernels on a bfloat16 wh, the same sources
+    "bilstm_fwd_bf16": ("bilstm_fwd.cu", "ops/pallas_bilstm.py:84"),
+    "bilstm_bwd_bf16": ("bilstm_bwd.cu", "ops/pallas_bilstm.py:125"),
+    "bilstm_fwd_wide_bf16": ("lstm_wide_fwd.cu", "ops/pallas_bilstm.py:84"),
+    "bilstm_bwd_wide_bf16": ("lstm_wide_bwd.cu", "ops/pallas_bilstm.py:125"),
 }
 # kernel line row of the wide design -> the wrapper that launches it
 WIDE_ROWS = {"bilstm_fwd_wide": "bilstm_fwd", "bilstm_bwd_wide": "bilstm_bwd",
@@ -3247,6 +3114,12 @@ WIDE_ROWS = {"bilstm_fwd_wide": "bilstm_fwd", "bilstm_bwd_wide": "bilstm_bwd",
              "bigru_fwd_wide": "bigru_fwd", "bigru_bwd_wide": "bigru_bwd",
              "gru_fwd_wide": "gru_fwd", "gru_bwd_wide": "gru_bwd",
              "ctc_beam_wide": "ctc_beam"}
+# kernel line row of a bfloat16-weight form -> (the wrapper that launches
+# it, its by_design key); the unidirectional wrappers' rows are counted but
+# not in the kernels line, whose bf16 rows are the bidirectional ones
+BF16_ROWS = {f"{w}{wide}_bf16": (w, ("wide" if wide else "cluster") + "_bf16")
+             for w in ("bilstm_fwd", "bilstm_bwd", "lstm_fwd", "lstm_bwd")
+             for wide in ("", "_wide")}
 
 # training paths: label -> (zoo model, its hparams, forward and backward
 # kernel of its recurrence, recurrent layers, what it is); the LN paths'
@@ -3364,13 +3237,13 @@ def reset_counts() -> None:
 
 
 def check_designs(label: str, hidden: int, batch: int,
-                  s_len: int | None = None) -> None:
+                  s_len: int | None = None, bf16: bool = False) -> None:
     """The LSTM, GRU, layer-norm, zoneout and MI LSTM kernels launched
     since the counts were reset ran the design ``lstm_geometry`` /
     ``gru_geometry`` / ``ln_geometry`` / ``zoneout_geometry`` /
-    ``mi_geometry`` gives this path's width and batch, and the CTC kernels
-    the one ``ctc_design`` gives its lattice of ``s_len`` states, and no
-    other."""
+    ``mi_geometry`` gives this path's width and batch (with ``bf16``, its
+    bfloat16-weight form), and the CTC kernels the one ``ctc_design``
+    gives its lattice of ``s_len`` states, and no other."""
     from asr_study_torch.ops.bilstm import lstm_geometry
     from asr_study_torch.ops.ctc import ctc_design
     from asr_study_torch.ops.gru import gru_geometry
@@ -3396,18 +3269,22 @@ def check_designs(label: str, hidden: int, batch: int,
                     mi_geometry if "mi_" in name else lstm_geometry)
         want = geometry(hidden, batch,
                         2 if name.startswith("bi") else 1).design
+        want += "_bf16" if bf16 else ""
         require(list(by_design) == [want],
                 f"{label}: {name} ran {by_design}, want only {want}")
 
 
 def read_counts() -> dict:
     """The nonzero launch counts by kernel line row: the LSTM, GRU and
-    beam wrappers' wide launches under their own rows (WIDE_ROWS), the rest
-    under the wrapper's."""
+    beam wrappers' wide launches under their own rows (WIDE_ROWS), the
+    LSTM wrappers' bfloat16-weight launches under theirs (BF16_ROWS), the
+    rest under the wrapper's."""
     counters = launch_counters()
     counts = {k: fn.launches for k, fn in counters.items()}
-    for row, name in WIDE_ROWS.items():
-        counts[row] = counters[name].by_design["wide"]
+    rows = {**{row: (name, "wide") for row, name in WIDE_ROWS.items()},
+            **BF16_ROWS}
+    for row, (name, design) in rows.items():
+        counts[row] = counters[name].by_design[design]
         counts[name] -= counts[row]
     return {k: v for k, v in counts.items() if v}
 
@@ -3453,15 +3330,16 @@ class MixTap:
         return self._patched(True)
 
 
-def check_reproducible(path: str, make, spec, batch, dev) -> None:
+def check_reproducible(path: str, make, spec, batch, dev,
+                       compute_dtype=None) -> None:
     """Two train steps from the same weights, fresh Adam state, batch and
-    generator seed: the loss and every gradient must be equal bit for
-    bit."""
+    generator seed (in ``compute_dtype``): the loss and every gradient must
+    be equal bit for bit."""
     from asr_study_torch.train.trainer import Trainer
 
     runs = []
     for _ in range(2):
-        tr = Trainer(make(dev), spec)
+        tr = Trainer(make(dev), spec, compute_dtype=compute_dtype)
         _, m = tr.train_step(tr.init_state(), *batch,
                              torch.Generator(device=dev).manual_seed(SEED + 9))
         runs.append((m["loss"], {n: p.grad for n, p in
@@ -5366,6 +5244,322 @@ def streaming_phase(dev: torch.device, card: str, tmp: str) -> list:
     return runs
 
 
+# the bfloat16 phase: label -> (zoo model, hparams, its bfloat16 forms'
+# kernel line rows (forward, backward), recurrent layers, what it is)
+BF16_PATHS = {
+    "deep_blstm": ("deep_blstm", _CONFIG3, "bilstm_fwd_bf16",
+                   "bilstm_bwd_bf16", TRAIN_LAYERS,
+                   f"{TRAIN_LAYERS}x{HIDDEN} BLSTM"),
+    "deep_speech": ("deep_speech", "dropout=0.0,input_dropout=0.0",
+                    "bilstm_fwd_wide_bf16", "bilstm_bwd_wide_bf16", 1,
+                    "3x512 dense + 1x512 BLSTM"),
+    "deep_blstm uni": ("deep_blstm", _CONFIG3 + ",bidirectional=false",
+                       "lstm_fwd_bf16", "lstm_bwd_bf16", TRAIN_LAYERS,
+                       f"{TRAIN_LAYERS}x{HIDDEN} unidirectional LSTM"),
+    "deep_speech uni": ("deep_speech", "dropout=0.0,input_dropout=0.0,"
+                        "bidirectional=false", "lstm_fwd_wide_bf16",
+                        "lstm_bwd_wide_bf16", 1,
+                        "3x512 dense + 1x512 unidirectional LSTM"),
+}
+BF16_STEPS = 5
+
+
+def bf16_library(hidden: int, ndir: int, t: int, b: int, dev,
+                 reps: int = 5) -> tuple[float, float]:
+    """cuDNN ``nn.LSTM(H, H)`` in bfloat16 (weights and input) at T, B,
+    ``ndir`` directions, unpacked -> (forward ms, backward ms as forward +
+    backward less forward).  It includes the input projection, which the
+    port's kernels leave to cuBLAS."""
+    ref = torch.nn.LSTM(hidden, hidden, bidirectional=ndir == 2).to(
+        dev, torch.bfloat16)
+    ref.flatten_parameters()
+    x = torch.randn(t, b, hidden, device=dev, dtype=torch.bfloat16)
+    x_req = x.clone().requires_grad_()
+    leaves = [x_req, *ref.parameters()]
+    with torch.no_grad():
+        fwd = cuda_ms(lambda: ref(x), reps)
+    g = torch.randn(t, b, ndir * hidden, device=dev, dtype=torch.bfloat16)
+    fwd_grad = cuda_ms(lambda: ref(x_req)[0], reps)
+    fb = cuda_ms(lambda: torch.autograd.grad(ref(x_req)[0], leaves, g), reps)
+    return fwd, fb - fwd_grad
+
+
+def check_bf16_kernels(dev: torch.device, card: str) -> dict:
+    """The four bfloat16-weight forms (cluster and wide, forward and
+    backward, each over one and two directions) against their plain twins
+    on the card at the training shapes T=TRAIN_T, B=TRAIN_B, at H=256 and
+    H=512: h, c (the wide design's kept gates too) and dxp within
+    BF16_ATOL + BF16_RTOL * |plain|, dwh = h_prev^T dxp in bfloat16 within
+    BF16_DWH_FRAC of its max abs; two launches bit-equal; each form timed
+    beside its float32 form on the same inputs, its bound and cuDNN
+    ``nn.LSTM`` in bfloat16.  -> the kernel line's entries of the
+    bidirectional forms."""
+    from asr_study_torch.ops import bilstm as B
+
+    errs, times, bounds, library = {}, {}, {}, {}
+    g = torch.Generator().manual_seed(SEED + 24)
+    t, b = TRAIN_T, TRAIN_B
+    for hidden in (HIDDEN, 512):
+        xps = [torch.randn(t, b, 4 * hidden, generator=g).to(dev)
+               for _ in range(2)]
+        w32 = [(torch.randn(hidden, 4 * hidden, generator=g)
+                / hidden ** 0.5).to(dev) for _ in range(2)]
+        w16 = [w.to(torch.bfloat16) for w in w32]
+        lengths = torch.randint(t // 2, t + 1, (b,), generator=g)
+        lengths[0] = t
+        mask = mask_of(lengths, t, dev)
+        dhs = [torch.randn(t, b, hidden, generator=g).to(dev)
+               for _ in range(2)]
+        lib = {n: bf16_library(hidden, n, t, b, dev) for n in (2, 1)}
+        for ndir in (2, 1):
+            geo = B.lstm_geometry(hidden, b, ndir)
+            wide = geo.design == "wide"
+            xs, dh = xps[:ndir], dhs[:ndir]
+
+            def fwd(ws, residual=False):
+                if ndir == 2:
+                    return B.bilstm(*xs, mask, *ws, residual=residual)
+                return B.lstm(xs[0], mask, ws[0], residual=residual)
+
+            def bwd(ws, hc, res):
+                if ndir == 2:
+                    return B.bilstm_bwd(*xs, mask, *ws, *hc, *dh, res)
+                return (B.lstm_bwd(xs[0], mask, ws[0], *hc, dh[0], res),)
+
+            def plain(ws, hc, res):
+                if ndir == 2:
+                    f = B.bilstm_plain(*xs, mask, *ws, keep_gates=wide)
+                    d = (B.bilstm_bwd_gates_plain(*res, mask, *ws, hc[1],
+                                                  hc[3], *dh) if wide else
+                         B.bilstm_bwd_plain(*xs, mask, *ws, *hc, *dh))
+                    return f, d
+                f = B.lstm_plain(xs[0], mask, ws[0], keep_gates=wide)
+                d = ((B.lstm_bwd_gates_plain(*res, mask, ws[0], hc[1],
+                                             dh[0]),) if wide else
+                     (B.lstm_bwd_plain(xs[0], mask, ws[0], *hc, dh[0]),))
+                return f, d
+
+            key = geo.design + "_bf16"
+            wrappers = ((B.bilstm, B.bilstm_bwd) if ndir == 2
+                        else (B.lstm, B.lstm_bwd))
+            before = [w.by_design[key] for w in wrappers]
+            with torch.no_grad():
+                runs = []
+                for _ in range(2):
+                    *hc, res = fwd(w16, residual=True)
+                    runs.append((*hc, *res, *bwd(w16, hc, res)))
+                require([w.by_design[key] - n for w, n in
+                         zip(wrappers, before)] == [2, 2],
+                        f"bf16 H={hidden} ndir={ndir}: the {key} forms did "
+                        f"not run")
+                t0 = time.perf_counter()
+                f_p, d_p = plain(w16, hc, res)
+                torch.cuda.synchronize()
+                plain_s = time.perf_counter() - t0
+                d_k = runs[0][-ndir:]
+                dwh_k = [B._dwh(hc[2 * i], d, i == 1, w16[i])
+                         for i, d in enumerate(d_k)]
+                dwh_p = [B._dwh(hc[2 * i], d, i == 1, w16[i])
+                         for i, d in enumerate(d_p)]
+            same = all(torch.equal(x, y) for x, y in zip(*runs))
+            got = (*hc, *res)
+            err_f = max(float((k - p).abs().max()) for k, p in zip(got, f_p))
+            err_b = max(float((k - p).abs().max()) for k, p in zip(d_k, d_p))
+            dwh_frac = max(float((k.float() - p.float()).abs().max())
+                           / float(p.float().abs().max())
+                           for k, p in zip(dwh_k, dwh_p))
+            ok = (all(within(k, p, BF16_ATOL, BF16_RTOL)
+                      for k, p in zip(got, f_p))
+                  and all(within(k, p, BF16_ATOL, BF16_RTOL)
+                          for k, p in zip(d_k, d_p)))
+            print(f"bf16 {'bi' if ndir == 2 else 'uni'} LSTM kernels "
+                  f"({geo.design} design, R={geo.rows}) vs plain twins at "
+                  f"T={t} B={b} H={hidden}: forward max_abs_err {err_f:.3e}"
+                  f" (h, c{', gates' if wide else ''}), backward {err_b:.3e}"
+                  f" (dxp; max|dxp| {max(float(p.abs().max()) for p in d_p):.2f}),"
+                  f" dwh (bfloat16) max err / max|dwh| {dwh_frac:.3e} (tol "
+                  f"{BF16_ATOL:g} + {BF16_RTOL:g}*|plain|, dwh "
+                  f"{BF16_DWH_FRAC:g}); two launches bit-equal {same}; "
+                  f"plain twins {plain_s:.2f} s")
+            require(ok, f"bf16 LSTM kernels disagree with plain at H="
+                        f"{hidden} ndir={ndir}")
+            require(dwh_frac <= BF16_DWH_FRAC,
+                    f"bf16 dwh disagrees with plain at H={hidden}")
+            require(same, f"bf16 LSTM kernels at H={hidden} ndir={ndir} "
+                          f"differ between two launches")
+
+            # timings: each bfloat16 form beside its float32 form
+            with torch.no_grad():
+                *hc32, res32 = fwd(w32, residual=True)
+                ms = {"bf16_fwd": cuda_ms(lambda: fwd(w16), 10),
+                      "f32_fwd": cuda_ms(lambda: fwd(w32), 10),
+                      "bf16_bwd": cuda_ms(lambda: bwd(w16, hc, res), 10),
+                      "f32_bwd": cuda_ms(lambda: bwd(w32, hc32, res32), 10)}
+                plain_ms = {
+                    "fwd": cuda_ms(lambda: plain(w16, hc, res)[0], 1, 0),
+                    "bwd": cuda_ms(lambda: plain(w16, hc, res)[1], 1, 0)}
+            # the bound at the card's rate for bfloat16 products into
+            # float32 (the tensor cores'), and at the fp32 FMA rate the
+            # kernels' own products run at (rows 2, 3, 6 and 7's)
+            served = fwd(w16)
+            fwd_moved = (*xs, mask, *w16[:ndir], *served)
+            # the backward reads the gates and c (wide) or xp, h and c
+            bwd_moved = (*(res if wide else xs), *(hc[1::2] if wide else hc),
+                         mask, *w16[:ndir], *dh, *d_k)
+            passes = 1 if wide else 2
+            b_fwd = rnn_bound(xs[0], hidden, ndir, 1, fwd_moved, PEAK_BF16)
+            b_bwd = rnn_bound(xs[0], hidden, ndir, passes, bwd_moved,
+                              PEAK_BF16)
+            f_fwd = rnn_bound(xs[0], hidden, ndir, 1, fwd_moved)
+            f_bwd = rnn_bound(xs[0], hidden, ndir, passes, bwd_moved)
+            lib_f, lib_b = lib[ndir]
+            print(f"[{card}] bf16 {'bi' if ndir == 2 else 'uni'} LSTM "
+                  f"{geo.design} forms at T={t} B={b} H={hidden}: forward "
+                  f"{ms['bf16_fwd']:.4f} ms (float32 form "
+                  f"{ms['f32_fwd']:.4f}, {ms['bf16_fwd'] / ms['f32_fwd']:.3f}"
+                  f"x), backward {ms['bf16_bwd']:.4f} ms (float32 form "
+                  f"{ms['f32_bwd']:.4f}, {ms['bf16_bwd'] / ms['f32_bwd']:.3f}"
+                  f"x); bounds {b_fwd[0]:.4f} ({b_fwd[1]}) / {b_bwd[0]:.4f} "
+                  f"ms ({b_bwd[1]}) at the bf16 tensor-core rate, "
+                  f"{f_fwd[0]:.4f} / {f_bwd[0]:.4f} ms at the fp32 FMA "
+                  f"rate; plain twins {plain_ms['fwd']:.4f} / "
+                  f"{plain_ms['bwd']:.4f} ms; cuDNN nn.LSTM({hidden}, "
+                  f"{hidden}) in bfloat16 forward {lib_f:.4f} ms, backward "
+                  f"{lib_b:.4f} ms")
+            if ndir == 2:
+                row = "bilstm_{}" + ("_wide" if wide else "") + "_bf16"
+                for kind, err in (("fwd", err_f), ("bwd", err_b)):
+                    errs[row.format(kind)] = err
+                    times[row.format(kind)] = (ms[f"bf16_{kind}"],
+                                               plain_ms[kind])
+                bounds[row.format("fwd")] = b_fwd
+                bounds[row.format("bwd")] = b_bwd
+                library[row.format("fwd")] = lib_f
+                library[row.format("bwd")] = lib_b
+    return {"errs": errs, "times": times, "bounds": bounds,
+            "library": library}
+
+
+def bf16_train_path(dev: torch.device, card: str, path: str) -> dict:
+    """BF16_STEPS bfloat16 train steps (``Trainer(compute_dtype=
+    torch.bfloat16)``) of one of BF16_PATHS at the config-3 shapes of
+    ``training_slice``, from the float32 slice's initial weights, counted
+    from 0: launches of the bfloat16 forms only, held to the steps; losses
+    finite, printed beside BF16_STEPS float32 steps' from the same weights;
+    two identical bfloat16 steps bit-equal; ms a step of each by CUDA
+    events; the masters and the optimizer's state float32."""
+    from asr_study_torch.models.zoo import build_model
+    from asr_study_torch.train.trainer import Trainer, make_optimizer
+
+    model_name, hp, fwd_row, bwd_row, layers, desc = BF16_PATHS[path]
+
+    def make(device, seed=SEED):
+        return build_model(model_name, hp, num_classes=NUM_CLASSES,
+                           input_dim=FEATS,
+                           generator=torch.Generator().manual_seed(seed),
+                           device=device)
+
+    spec = make_optimizer("adam", 1e-4, 400.0)
+    rng = np.random.RandomState(SEED)
+    batch = [torch.from_numpy(a).to(dev) for a in (
+        rng.randn(TRAIN_B, TRAIN_T, FEATS).astype(np.float32),
+        np.full(TRAIN_B, TRAIN_T, np.int32),
+        rng.randint(0, NUM_CLASSES, (TRAIN_B, TRAIN_L)).astype(np.int32),
+        np.full(TRAIN_B, TRAIN_L, np.int32),
+        np.ones(TRAIN_B, np.float32))]
+    runs = {}
+    for dtype in (torch.bfloat16, None):
+        trainer = Trainer(make(dev), spec, compute_dtype=dtype)
+        state = trainer.init_state()
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        reset_counts()
+        losses = [trainer.train_step(state, *batch, gen)[1]["loss"]
+                  for _ in range(BF16_STEPS)]
+        torch.cuda.synchronize()
+        launches = read_counts()
+        check_designs(f"{path} {'bf16' if dtype else 'float32'} train",
+                      trainer.model.rnn.layers[0].rnn.hidden, TRAIN_B,
+                      2 * TRAIN_L + 1, bf16=dtype is not None)
+        ms = cuda_ms(lambda: trainer.train_step(state, *batch, gen), 5)
+        runs[dtype] = (launches, torch.stack(losses).cpu(), ms, trainer,
+                       state)
+    launches, losses, ms, trainer, state = runs[torch.bfloat16]
+    want = {fwd_row: layers * BF16_STEPS, bwd_row: layers * BF16_STEPS,
+            "ctc_alpha": BF16_STEPS, "ctc_beta": BF16_STEPS}
+    print(f"bf16 train: {path} {desc} B={TRAIN_B} T={TRAIN_T} L={TRAIN_L},"
+          f" adam 1e-4 clip 400, compute_dtype bfloat16; launches over "
+          f"{BF16_STEPS} steps {launches}; the float32 run's "
+          f"{runs[None][0]}")
+    require(launches == want, f"bf16 {path} launches {launches}, want "
+                              f"{want}")
+    require(bool(torch.isfinite(losses).all()), f"bf16 {path}: non-finite "
+                                                f"loss")
+    require(all(p.dtype == torch.float32 for p in trainer.model.parameters())
+            and all(v.dtype == torch.float32
+                    for st in state.optimizer.state.values()
+                    for v in st.values() if torch.is_tensor(v)
+                    and v.is_floating_point()),
+            f"bf16 {path}: a master or optimizer state is not float32")
+    f32 = runs[None][1]
+    print(f"{path} train losses, {BF16_STEPS} steps on one batch from the "
+          f"same weights: bf16 {[round(float(v), 4) for v in losses]}; "
+          f"float32 {[round(float(v), 4) for v in f32]} (first step rel "
+          f"{abs(float(losses[0]) / float(f32[0]) - 1):.3e})")
+    check_reproducible(f"{path} bf16", make, spec, batch, dev,
+                       compute_dtype=torch.bfloat16)
+    print(f"[{card}] {path} bf16 train step ({desc}, B={TRAIN_B}, "
+          f"T={TRAIN_T}, L={TRAIN_L}): {ms:.4f} ms/step, "
+          f"{AUDIO_PER_STEP / (ms / 1e3):.1f} audio-s/s; float32 "
+          f"{runs[None][2]:.4f} ms/step ({ms / runs[None][2]:.3f}x)")
+    return launches
+
+
+def bf16_cli_run(card: str, tmp: str, manifest: str) -> dict:
+    """``train --bf16 --model deep_blstm`` (zoo defaults) for one epoch on
+    the corpus phase's manifest through ``cli.train.main``, counted from
+    0: the bfloat16 cluster forms launched for every train step and the
+    float32 ones for the validation, finite losses, ``hparams["bf16"]``."""
+    from asr_study_torch.cli import train as cli_train
+
+    run_dir = os.path.join(tmp, "bf16_run")
+    tap = CliTap()
+    reset_counts()
+    t0 = time.perf_counter()
+    with tap.record(), contextlib.redirect_stdout(io.StringIO()):
+        require(cli_train.main([
+            "--dataset", manifest, "--model", "deep_blstm", "--batch_size",
+            str(CORPUS_B), "--seed", str(SEED), "--log_every", "5",
+            "--save", run_dir, "--epochs", "1", "--bf16"]) == 0,
+            "train --bf16 failed")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    its = dict(tap.flows)
+    spe, v_b = its["train"].steps_per_epoch, its["valid"].steps_per_epoch
+    want = {"bilstm_fwd_bf16": TRAIN_LAYERS * spe,
+            "bilstm_bwd_bf16": TRAIN_LAYERS * spe,
+            "bilstm_fwd": TRAIN_LAYERS * v_b, "ctc_alpha": spe + v_b,
+            "ctc_beta": spe}
+    require(launches == want, f"train --bf16 launches {launches}, want "
+                              f"{want}")
+    with open(os.path.join(run_dir, "meta.json")) as f:
+        meta = json.load(f)
+    losses = [float(v) for v in tap.losses]
+    require(meta["hparams"]["bf16"] is True
+            and all(math.isfinite(v) for v in losses)
+            and all(math.isfinite(v) for h in meta["history"]
+                    for v in h.values()), f"train --bf16: {meta['history']}")
+    step_ms, by_t = CliTap.ms(tap.steps)
+    print(f"corpus train --bf16 (deep_blstm zoo defaults, 1 epoch x {spe} "
+          f"steps, B={CORPUS_B}): launches {launches}; losses "
+          f"{[round(v, 3) for v in losses]}; history {meta['history']}; "
+          f"{wall:.1f} s wall")
+    print(f"[{card}] corpus train --bf16 step, CUDA events: "
+          f"{np.mean(step_ms[1:]):.4f} ms/step mean after the first "
+          f"({step_ms[0]:.4f}); by bucket {by_t}")
+    return launches
+
+
 def main() -> int:
     t_start = time.perf_counter()
     clock = PhaseClock()
@@ -5495,12 +5689,8 @@ def main() -> int:
     gru_kernels = check_gru_kernels(dev, card, x_serve, feat_lengths)
     lstm_kernels = check_lstm_kernels(dev, card, x_serve, feat_lengths)
     wide_kernels = check_lstm_wide(dev, card, x_serve, feat_lengths)
-    check_lstm_designs(dev, card, x_serve, feat_lengths, {
-        "bilstm_fwd": lstm_y["lib_fwd"],
-        "bilstm_bwd": train_kernels["library"]["bilstm_bwd"],
-        **lstm_kernels["library"]})
-    check_gru_designs(dev, card, x_serve, feat_lengths,
-                      gru_kernels["library"])
+    check_lstm_designs(dev)
+    check_gru_designs(dev)
     gru_wide_kernels = check_gru_wide(dev, card, x_serve, feat_lengths)
     ln_kernels = check_ln_kernels(dev, card, x_serve, feat_lengths)
     zo_kernels = check_cell_family(dev, card, x_serve, feat_lengths,
@@ -5696,6 +5886,13 @@ def main() -> int:
     clock.mark("training paths")
     path_launches += optimizer_phase(dev, card)
     clock.mark("optimizer phase")
+    # the bfloat16 phase (train --bf16): the four bfloat16-weight forms
+    # against their twins, then bf16 train steps of deep_blstm (cluster)
+    # and deep_speech (wide), bi and uni
+    bf16_kernels = check_bf16_kernels(dev, card)
+    for path in BF16_PATHS:
+        path_launches.append(bf16_train_path(dev, card, path))
+    clock.mark("bf16 phase")
 
     # 8. the corpus phase: make_dataset -> train -> resume -> eval; then
     # the h5 phase on its corpus: make_dataset --output (host, --device),
@@ -5705,6 +5902,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         runs, manifest, run_dir, first_epoch = corpus_phase(card, tmp)
         path_launches += runs
+        with part("train --bf16 CLI"):
+            path_launches.append(bf16_cli_run(card, tmp, manifest))
         clock.mark("corpus phase")
         path_launches += h5_phase(card, tmp, manifest, first_epoch)
         clock.mark("h5 phase")
@@ -5722,7 +5921,7 @@ def main() -> int:
     }
     for found in (fbank_kernels, train_kernels, gru_kernels, lstm_kernels,
                   wide_kernels, gru_wide_kernels, ln_kernels, zo_kernels,
-                  mi_kernels, dpack_kernels, beam_kernel):
+                  mi_kernels, dpack_kernels, beam_kernel, bf16_kernels):
         for name, err in found["errs"].items():
             measured[name] = (err, *found["times"][name],
                               found["bounds"][name], found["library"][name])
@@ -5740,8 +5939,8 @@ def main() -> int:
             "library_ms": library_ms})
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, the "
           f"kernels' build included; by phase (s): {clock.summary()}; the "
-          f"native library's checks and the wide beam design's cases and "
-          f"CLI runs, inside those phases (s): "
+          f"native library's checks, the wide beam design's cases and CLI "
+          f"runs and the train --bf16 run, inside those phases (s): "
           + "; ".join(f"{n} {t:.1f}" for n, t in PARTS.items()))
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

@@ -101,6 +101,24 @@ timing only) first and last, their outputs required bit-equal; then each
 design on the cases of ``BEAM_SPLIT_CASES`` in the variants listed at
 ``BEAM_KERNELS``.
 
+The designs the size rules no longer pick at the main paths' shapes, each
+timed in turns against the design that replaced it (``RETIRED``; no
+variant builds; ``chip_smoke.py`` keeps their correctness checks):
+
+- ``stream_design``: every recurrence's resident design (the cluster
+  LSTM, GRU, layer-norm, MI and zoneout kernels at H=256, the wide LSTM
+  and GRU kernels at H=512) against the stream design at the same shape,
+  resident, stream, stream, resident, 5 calls a turn, forward at T=805
+  and backward at T=512, B=32, one and two directions, through the ops'
+  ``launch_fwd`` / ``launch_bwd`` (which count no launch);
+- ``fbank_dft``: fbank at the serving shape, the FFT design through the
+  wrapper against the DFT design (csrc/fbank.cu) through its C entry
+  point as the wrapper would run it, 20 calls a turn, with device times;
+- ``dpack_two_launch``: the dpack decode of the first serving batch, the
+  one-launch design against the two-launch one (csrc/dpack.cu, reached by
+  no route), through their C entry points, 50 calls a turn, with device
+  times.
+
 Prints one line per variant and the card's name and power limit.  Without
 CUDA it exits 1.
 """
@@ -679,6 +697,192 @@ def beam_split(card: str, entry: dict) -> None:
                        note)
 
 
+def in_turns(calls: dict, reps: int) -> dict:
+    """The two ``calls`` (name -> fn; the new design first) timed in turns
+    a, b, b, a, ``reps`` calls a turn -> name -> [ms of each turn]."""
+    from chip_smoke import cuda_ms
+
+    first, second = calls
+    out = {first: [], second: []}
+    for name in (first, second, second, first):
+        out[name].append(cuda_ms(calls[name], reps))
+    return out
+
+
+def turns_text(turns: dict) -> str:
+    (a, ta), (b, tb) = turns.items()
+    return (f"{a} design {ta[0]:.4f} / {ta[1]:.4f} ms, {b} design "
+            f"{tb[0]:.4f} / {tb[1]:.4f} ms ({sum(tb) / sum(ta):.2f}x)")
+
+
+def stream_design(card: str) -> None:
+    """Each recurrence's resident design against the stream design at the
+    main paths' shapes, in turns (the module docstring)."""
+    from asr_study_torch.ops import bilstm, gru, ln_lstm, mi_lstm
+    from asr_study_torch.ops import zoneout_lstm as zo
+
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev).manual_seed(0)
+
+    def randn(*shape, scale=1.0):
+        return scale * torch.randn(*shape, device=dev, generator=g)
+
+    # family -> (its op module, size rule, stream layout, gate columns)
+    families = {
+        "lstm": (bilstm, bilstm.lstm_geometry, bilstm.stream_geometry, 4),
+        "gru": (gru, gru.gru_geometry, gru.gru_stream_geometry, 3),
+        "ln_lstm": (ln_lstm, ln_lstm.ln_geometry,
+                    ln_lstm.ln_stream_geometry, 4),
+        "mi_lstm": (mi_lstm, mi_lstm.mi_geometry,
+                    mi_lstm.mi_stream_geometry, 4),
+        "zoneout_lstm": (zo, zo.zoneout_geometry,
+                         zo.zoneout_stream_geometry, 4),
+    }
+    for family, hidden in (("lstm", H_NARROW), ("gru", H_NARROW),
+                           ("ln_lstm", H_NARROW), ("mi_lstm", H_NARROW),
+                           ("zoneout_lstm", H_NARROW), ("lstm", H_WIDE),
+                           ("gru", H_WIDE)):
+        op, geometry, stream_geometry, gates = families[family]
+        for ndir in (2, 1):
+            for kind, t in (("fwd", T_FWD), ("bwd", T_BWD)):
+                n = ndir
+                xps = [randn(t, B, gates * hidden) for _ in range(n)]
+                whs = [randn(hidden, gates * hidden, scale=hidden ** -0.5)
+                       for _ in range(n)]
+                mask = torch.ones(t, B, 1, device=dev)
+                dhs = [randn(t, B, hidden) for _ in range(n)]
+                ones = [1.0 + randn(gates * hidden, scale=0.1)
+                        for _ in range(3 * n)]
+                unit = [1.0 + randn(hidden, scale=0.1) for _ in range(2 * n)]
+                zs = [(torch.rand(t, B, hidden, device=dev, generator=g)
+                       < 0.9).float() for _ in range(2 * n)]
+                vecs = ones + [randn(gates * hidden, scale=0.1)
+                               for _ in range(n)]
+
+                def fwd(geo, keep=False):
+                    if family == "lstm":
+                        return op.launch_fwd(geo, xps, mask, whs,
+                                             keep_gates=keep)
+                    if family == "gru":
+                        return op.launch_fwd(geo, xps, mask, whs,
+                                             keep_hg=keep)
+                    if family == "ln_lstm":
+                        return op.launch_fwd(geo, xps, mask, whs, ones[:n],
+                                             unit[:n], unit[n:])
+                    if family == "mi_lstm":
+                        return op.launch_fwd(geo, xps, mask, whs, vecs)
+                    return op.launch_fwd(geo, xps, mask, zs[:n], zs[n:],
+                                         whs)
+
+                def bwd(geo, outs, keep):
+                    if family == "gru":
+                        return op.launch_bwd(geo, xps, mask, whs, outs[:n],
+                                             dhs, outs[n:] if keep else None)
+                    hs, cs = outs[0:2 * n:2], outs[1:2 * n:2]
+                    if family == "lstm":
+                        return op.launch_bwd(geo, xps, mask, whs, hs, cs,
+                                             dhs, outs[2 * n:] if keep
+                                             else None)
+                    if family == "ln_lstm":
+                        return op.launch_bwd(geo, xps, mask, whs, ones[:n],
+                                             unit[:n], unit[n:], hs, cs, dhs)
+                    if family == "mi_lstm":
+                        return op.launch_bwd(geo, xps, mask, whs, vecs, hs,
+                                             cs, dhs)
+                    return op.launch_bwd(geo, xps, mask, zs[:n], zs[n:], whs,
+                                         hs, cs, dhs)
+
+                resident = geometry(hidden, B, n)
+                streamed = stream_geometry(hidden, B, n)
+                keep = resident.design == "wide"
+                with torch.no_grad():
+                    if kind == "fwd":
+                        calls = {resident.design: lambda: fwd(resident),
+                                 "stream": lambda: fwd(streamed)}
+                    else:
+                        # h and c (and the wide design's saved res) from
+                        # the forward: random ones overflow the chain
+                        outs = fwd(resident, keep)
+                        calls = {resident.design:
+                                 lambda: bwd(resident, outs, keep),
+                                 "stream": lambda: bwd(streamed, outs,
+                                                       False)}
+                    turns = in_turns(calls, 5)
+                print(f"[{card}] {family}_{kind} ndir={n} H={hidden} "
+                      f"T={t} B={B} (R={resident.rows}), in turns: "
+                      f"{turns_text(turns)}")
+
+
+def fbank_dft(card: str) -> None:
+    """fbank's FFT design against its DFT design at the serving shape, in
+    turns (the module docstring)."""
+    import numpy as np
+
+    from asr_study_torch.features.fbank import fbank, launch_dft
+    from asr_study_torch.features.select import featurizer
+    from chip_smoke import BATCH, SEED, kernel_device_ms, synth_batch
+
+    dev = torch.device("cuda", 0)
+    wavs, _ = synth_batch(np.random.RandomState(SEED), max_len=True)
+    n_pad = -(-max(len(x) for x in wavs) // 2048) * 2048
+    w = torch.zeros((BATCH, n_pad), dtype=torch.float32)
+    for i, x in enumerate(wavs):
+        w[i, : len(x)] = torch.from_numpy(x)
+    lens = torch.tensor([len(x) for x in wavs], dtype=torch.int32)
+    feat = featurizer("mfcc", dev)
+    pre, t_out, _ = feat._prep(w.to(dev), lens.to(dev))
+    chain = feat.chain
+    need = (t_out - 1) * chain.frame_step + chain.frame_len
+    out = torch.empty(BATCH, t_out, chain.num_out, device=dev)
+
+    def dft():
+        padded = torch.nn.functional.pad(pre, (0, max(0, need
+                                                      - pre.shape[1])))
+        launch_dft(chain, padded, t_out, out)
+
+    calls = {"fft": lambda: fbank(chain, pre, t_out), "dft": dft}
+    with torch.inference_mode():
+        turns = in_turns(calls, 20)
+        dev_ms = {"fft": kernel_device_ms(calls["fft"], 20, "fbank_fft"),
+                  "dft": kernel_device_ms(calls["dft"], 20, "fbank_kernel")}
+    print(f"[{card}] fbank at B={BATCH} T={t_out} (MFCC, nfft "
+          f"{chain.nfft}), in turns (the dft design with the pad copy of "
+          f"pre, as the wrapper runs it): {turns_text(turns)}; device time "
+          + ", ".join(f"{d} " + ("not measured" if v is None else
+                                 f"{v:.4f} ms") for d, v in dev_ms.items()))
+
+
+def dpack_two_launch(card: str) -> None:
+    """The dpack decode's one-launch design against its two-launch design
+    on the first serving batch, in turns (the module docstring)."""
+    import numpy as np
+
+    from asr_study_torch.data import wire
+    from chip_smoke import (BATCH, SEED, dpack_one_launch, kernel_device_ms,
+                            make_wire, synth_batch)
+    from chip_smoke import dpack_two_launch as two_launch
+
+    dev = torch.device("cuda", 0)
+    rng = np.random.RandomState(SEED)
+    synth_batch(rng, max_len=True)          # chip_smoke.py's check batch
+    dp = make_wire(synth_batch(rng)[0], "dpack", dev)
+    args = wire.dpack_regions(dp.dev[: dp.cap], BATCH, dp.scap)
+    calls = {"one": dpack_one_launch(*args, dp.scap)[0],
+             "two": two_launch(*args, dp.scap)[0]}
+    turns = in_turns(calls, 50)
+    dev_ms = {d: kernel_device_ms(calls[d], 20, "dpack") for d in calls}
+    print(f"[{card}] dpack_decode, the first serving batch "
+          f"({dp.scap // 4096} blocks), in turns through the C entry "
+          f"points: {turns_text(turns)}; device time "
+          + ", ".join(f"{d}-launch " + ("not measured" if v is None else
+                                        f"{v:.4f} ms")
+                      for d, v in dev_ms.items()))
+
+
+RETIRED = {"stream_design": stream_design, "fbank_dft": fbank_dft,
+           "dpack_two_launch": dpack_two_launch}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("lstm_step_split: torch.cuda.is_available() is false; this "
@@ -693,7 +897,8 @@ def main() -> int:
 
     from asr_study_torch.ops.gru import gru
 
-    names = [*KERNELS, *CTC_KERNELS, *FBANK_KERNELS, *BEAM_KERNELS]
+    names = [*KERNELS, *CTC_KERNELS, *FBANK_KERNELS, *BEAM_KERNELS,
+             *RETIRED]
     kernels = sys.argv[1:] or names
     unknown = [k for k in kernels if k not in names]
     if unknown:
@@ -704,11 +909,15 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.splitlines()[0]
-    entry = build(Path(__file__).resolve().parent, kernels)
+    entry = build(Path(__file__).resolve().parent,
+                  [k for k in kernels if k not in RETIRED])
     dev = torch.device("cuda", 0)
     g = torch.Generator(device=dev).manual_seed(0)
     print(card)
     for kernel in kernels:
+        if kernel in RETIRED:
+            RETIRED[kernel](card)
+            continue
         if kernel in CTC_KERNELS:
             ctc_split(card, kernel, entry)
             continue

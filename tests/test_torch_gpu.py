@@ -1287,10 +1287,10 @@ def test_ln_blstm_on_card_matches_cpu(cuda, bidirectional):
             g_p[k].norm()), k
 
 
-def _two_identical_steps(cuda, name, hp, seed=3):
+def _two_identical_steps(cuda, name, hp, seed=3, compute_dtype=None):
     """Two train steps of ``name`` from the same weights, fresh Adam state,
-    batch and generator seed -> [(loss, {param: grad}, {param: updated})]
-    for each, all on the host."""
+    batch and generator seed (in ``compute_dtype``) -> [(loss, {param:
+    grad}, {param: updated})] for each, all on the host."""
     g = torch.Generator().manual_seed(7)
     b, t, l_max = 16, 300, 40
     batch = [torch.randn(b, t, 39, generator=g),
@@ -1303,7 +1303,8 @@ def _two_identical_steps(cuda, name, hp, seed=3):
     for _ in range(2):
         model = build_model(name, hp, generator=torch.Generator().manual_seed(
             1), device=cuda)
-        trainer = Trainer(model, make_optimizer("adam", 1e-3, 400.0))
+        trainer = Trainer(model, make_optimizer("adam", 1e-3, 400.0),
+                          compute_dtype=compute_dtype)
         _, m = trainer.train_step(
             trainer.init_state(), *[a.to(cuda) for a in batch],
             torch.Generator(device=cuda).manual_seed(seed))
@@ -1362,6 +1363,106 @@ def test_deep_gru_512_train_step_is_bit_reproducible(cuda, bidirectional):
     assert (fwd.by_design["wide"] - before[0],
             bwd.by_design["wide"] - before[1]) == (2 * 3, 2 * 3)
     assert _bit_differences(runs) == []
+
+
+# the bfloat16-weight forms (train --bf16): cluster (H=8, 100, 256) and
+# wide (H=300, 512) shapes, bi and uni, ragged and with a dead row;
+# |kernel - plain| <= atol + rtol * |plain| (chip_smoke.py BF16_ATOL /
+# BF16_RTOL: both sides round h_prev and dpre to bfloat16, and an operand
+# on a rounding boundary may round apart)
+BF16_TOL = dict(rtol=5e-3, atol=5e-3)
+BF16_CASES = [(12, 4, 8, 2, False), (37, 5, 100, 1, True),
+              (64, 32, 256, 2, False), (40, 33, 256, 1, True),
+              (23, 5, 300, 2, True), (64, 32, 512, 2, False),
+              (40, 33, 512, 1, True)]
+
+
+@pytest.mark.parametrize("t,b,h,ndir,dead", BF16_CASES,
+                         ids=[f"{t}-{b}-{h}-{'bi' if n == 2 else 'uni'}"
+                              + ("-dead" if d else "")
+                              for t, b, h, n, d in BF16_CASES])
+def test_bf16_kernels_match_plain(cuda, t, b, h, ndir, dead):
+    """The bfloat16-weight forms of the forward and backward (cluster or
+    wide, by lstm_geometry) against their plain twins with the same
+    bfloat16 wh, counted under ``<design>_bf16``; repeated bit for bit."""
+    args, dh = _bilstm_case(cuda, t, b, h, seed=t + b + h, dead=dead)
+    args[3], args[4] = args[3].to(torch.bfloat16), args[4].to(torch.bfloat16)
+    design = lstm_geometry(h, b, ndir).design + "_bf16"
+    fwd, bwd = (bilstm, bilstm_bwd) if ndir == 2 else (lstm, lstm_bwd)
+    before = (fwd.by_design[design], bwd.by_design[design])
+    runs = []
+    for _ in range(2):
+        if ndir == 2:
+            *outs, res = bilstm(*args, residual=True)
+            dxp = bilstm_bwd(*args, *outs, *dh, res)
+        else:
+            xp, mask, wh = args[0], args[2], args[3]
+            *outs, res = lstm(xp, mask, wh, residual=True)
+            dxp = (lstm_bwd(xp, mask, wh, *outs, dh[0], res),)
+        runs.append((*outs, *res, *dxp))
+    assert (fwd.by_design[design] - before[0],
+            bwd.by_design[design] - before[1]) == (2, 2)
+    if ndir == 2:
+        want = bilstm_plain(*args, keep_gates=bool(res))
+        want_d = (bilstm_bwd_gates_plain(*res, *args[2:5], outs[1], outs[3],
+                                         *dh) if res else
+                  bilstm_bwd_plain(*args, *outs, *dh))
+    else:
+        want = lstm_plain(xp, mask, wh, keep_gates=bool(res))
+        want_d = ((lstm_bwd_gates_plain(*res, mask, wh, outs[1], dh[0]),)
+                  if res else (lstm_bwd_plain(xp, mask, wh, *outs, dh[0]),))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, c) for a, c in zip(*runs))
+    for g_, w_ in zip((*outs, *res, *runs[0][-ndir:]), (*want, *want_d)):
+        torch.testing.assert_close(g_, w_, **BF16_TOL)
+
+
+@pytest.mark.parametrize("name,hp,design", [
+    ("deep_blstm", "dropout=0.0", "cluster_bf16"),
+    ("deep_speech", "dropout=0.0,input_dropout=0.0", "wide_bf16")])
+def test_bf16_train_step_is_bit_reproducible(cuda, name, hp, design):
+    """Two identical bfloat16 train steps of deep_blstm 3x256 (the cluster
+    forms) and deep_speech (the wide forms) give bit-equal loss, gradients
+    and updated weights, the masters float32."""
+    before = (bilstm.by_design[design], bilstm_bwd.by_design[design])
+    runs = _two_identical_steps(cuda, name, hp,
+                                compute_dtype=torch.bfloat16)
+    layers = 3 if name == "deep_blstm" else 1
+    assert (bilstm.by_design[design] - before[0],
+            bilstm_bwd.by_design[design] - before[1]) == (2 * layers,
+                                                          2 * layers)
+    assert _bit_differences(runs) == []
+    assert all(p.dtype == torch.float32 for p in runs[0][2].values())
+    assert np.isfinite(float(runs[0][0]))
+
+
+def test_bf16_train_step_on_card_matches_cpu(cuda):
+    """One bfloat16 step of a small deep_blstm on the card (the kernels'
+    bfloat16 forms) against the CPU's (their plain twins): the loss, and
+    each gradient within 1e-2 of its max abs (an operand on a bfloat16
+    rounding boundary may round apart)."""
+    g = torch.Generator().manual_seed(5)
+    b, t, l_max = 6, 60, 12
+    batch = [torch.randn(b, t, 39, generator=g),
+             torch.randint(t // 2, t + 1, (b,), generator=g),
+             torch.randint(0, 27, (b, l_max), generator=g),
+             torch.randint(l_max // 2, l_max + 1, (b,), generator=g),
+             torch.ones(b)]
+    out = []
+    for dev in (cuda, "cpu"):
+        model = build_model("deep_blstm", "num_hiddens=64,num_layers=2,"
+                            "dropout=0.0", generator=torch.Generator()
+                            .manual_seed(2), device=dev)
+        tr = Trainer(model, make_optimizer("sgd", 1e-2, 400.0),
+                     compute_dtype=torch.bfloat16)
+        _, m = tr.train_step(tr.init_state(), *[a.to(dev) for a in batch])
+        out.append((float(m["loss"]), {k: p.grad.cpu() for k, p in
+                                       model.named_parameters()}))
+    (loss_k, g_k), (loss_p, g_p) = out
+    assert loss_k == pytest.approx(loss_p, rel=1e-3)
+    for k in g_p:
+        scale = float(g_p[k].abs().max())
+        assert float((g_k[k] - g_p[k]).abs().max()) <= 1e-2 * scale, k
 
 
 def test_deep_blstm_train_step_is_bit_reproducible_deterministic(cuda):
