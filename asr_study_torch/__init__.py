@@ -34,7 +34,8 @@ and the training path (BASELINE config 3, and ``deep_gru``):
         csrc/lstm_wide_bwd.cu) or deep_gru (ops/gru.BiGRUFunction
         and GRUFunction: csrc/gru_fwd.cu forward, csrc/gru_bwd.cu
         backward) -> ops/ctc.ctc_loss (CTCNLL: csrc/ctc_warp.cu alpha
-        forward, beta backward) -> clip -> Adam
+        forward, beta backward) -> [--num_devices N: parallel/dp, one
+        flat all-reduce of the gradients over N ranks] -> clip -> Adam
                 -> train/checkpoint.CheckpointManager
         -> cli/eval (forward, CTC loss, greedy or beam decode, blank
            collapse; CER and WER)

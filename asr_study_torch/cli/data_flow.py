@@ -37,6 +37,29 @@ def resolve_device(name: str) -> torch.device:
     return device
 
 
+def data_parallel_devices(num_devices: int, device: str, batch_size: int,
+                          what: str) -> list[str]:
+    """``--num_devices N`` -> the devices of its N ranks (``cuda:0`` to
+    ``cuda:N-1``; N times ``cpu``), or [] for one device (N of 0 or 1),
+    checked as the JAX CLIs check their mesh and with their messages
+    (``what`` opens the device count's): never more ranks than cards, and
+    a batch the ranks split evenly."""
+    n = max(1, num_devices)
+    if n == 1:
+        return []
+    if torch.device(device).type == "cuda":
+        avail = torch.cuda.device_count()
+        if n > avail:
+            raise SystemExit(f"{what} but only {avail} device(s) available")
+        devices = [f"cuda:{i}" for i in range(n)]
+    else:
+        devices = ["cpu"] * n
+    if batch_size % n:
+        raise SystemExit(f"--batch_size {batch_size} not divisible by {n} "
+                         "devices")
+    return devices
+
+
 def dataset_vocab(dataset: str) -> Optional[str]:
     """The vocabulary an HDF5 dataset was built with (the first split
     group's ``vocab`` attribute, in name order); None for a manifest or a

@@ -18,8 +18,14 @@ of standard output is the JAX CLI's JSON record (``split``, ``num_utts``,
 ``--blank_collapse`` ``blank_collapse_overflow_utts``).  A run trained
 with in-step device features (``train --device_features``) is evaluated
 on a raw dataset, featurized on the device by the chain its hparams
-record.  Data-parallel eval is refused with the ROADMAP item that brings
-it, as is a run written by the JAX package.
+record.  A run written by the JAX package is refused.
+
+``--num_devices N`` (N > 1) evaluates data-parallel, as the JAX CLI's
+``shard_map``: N ranks (``parallel.dp.launch``; NCCL on ``cuda:0`` to
+``cuda:N-1``, gloo on the CPU) each decode their rows of every batch, the
+loss and weight sums are all-reduced and the decoded ids, lengths and
+dropped frames gathered to rank 0 in global row order, so the record and
+the ``--dump`` file are the one-device run's.
 """
 
 from __future__ import annotations
@@ -32,13 +38,14 @@ import sys
 import torch
 
 from asr_study_torch.cli.data_flow import (
-    RAW_GEN_KW, device_featurizer_for, flow_from_arg, parser_from_run,
-    require_port_run, resolve_device)
+    RAW_GEN_KW, data_parallel_devices, device_featurizer_for, flow_from_arg,
+    parser_from_run, require_port_run, resolve_device)
 from asr_study_torch.data.generator import DatasetGenerator
 from asr_study_torch.models.zoo import AcousticModel, build_model
 from asr_study_torch.ops.beam import BeamConfig, decode
 from asr_study_torch.ops.ctc import blank_collapse, ctc_loss
 from asr_study_torch.ops.metrics import cer, wer
+from asr_study_torch.parallel import dp
 from asr_study_torch.text.lm import CharNGramLM, check_lm_vocab
 from asr_study_torch.text.parser import CharParser
 from asr_study_torch.train.checkpoint import CheckpointManager
@@ -92,7 +99,8 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--lm_beta", type=float, default=0.0,
                    help="per-character insertion bonus with --lm")
     p.add_argument("--num_devices", type=int, default=0,
-                   help="0 or 1: one device")
+                   help="data-parallel ranks, one a device (0 or 1: one "
+                        "device; on cuda at most the card count)")
     p.add_argument("--best", action="store_true",
                    help="use the best (val_loss) checkpoint instead of latest")
     p.add_argument("--dump", default=None,
@@ -102,23 +110,19 @@ def build_argparser() -> argparse.ArgumentParser:
     return p
 
 
-def _refuse_unported(args) -> None:
-    if args.num_devices > 1:
-        raise SystemExit("--num_devices > 1: data-parallel eval is not "
-                         "ported to asr_study_torch yet (ROADMAP queue A "
-                         "item 12)")
-
-
 @torch.inference_mode()
 def eval_batch(model: AcousticModel, inputs: torch.Tensor,
                input_lengths: torch.Tensor, labels: torch.Tensor,
                label_lengths: torch.Tensor, weights: torch.Tensor,
                beam: BeamConfig | None = None, collapse: float = 0.0,
-               keep_ratio: float = 0.6, featurizer=None
+               keep_ratio: float = 0.6, featurizer=None,
+               group: dp.DataGroup | None = None
                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                           torch.Tensor]:
     """One batch on the device -> (weighted mean loss, decoded ids [B, T']
-    padded with -1, decoded lengths [B], frames dropped [B]).
+    padded with -1, decoded lengths [B], frames dropped [B]); with a data
+    ``group``, of this rank's rows, the loss the mean over every rank's
+    (one all-reduce of the loss and weight sums).
 
     With ``featurizer`` the inputs are raw padded waveforms [B, N, 1],
     featurized first.  Greedy decode; with ``beam`` the best beam, after
@@ -132,7 +136,10 @@ def eval_batch(model: AcousticModel, inputs: torch.Tensor,
     per_seq = ctc_loss(logits, input_lengths, labels, label_lengths,
                        blank_id=model.blank_id)
     w = weights.to(torch.float32)
-    loss = (per_seq * w).sum() / torch.clamp(w.sum(), min=1.0)
+    sums = torch.stack([(per_seq * w).sum(), w.sum()])
+    if group is not None:
+        dp.all_reduce_sum(group, sums)
+    loss = sums[0] / torch.clamp(sums[1], min=1.0)
     dropped = torch.zeros_like(input_lengths)
     dec_logits, dec_lengths = logits, input_lengths
     if beam is not None and beam.width > 0 and collapse > 0:
@@ -145,13 +152,41 @@ def eval_batch(model: AcousticModel, inputs: torch.Tensor,
 
 def main(argv=None) -> int:
     args = build_argparser().parse_args(argv)
-    _refuse_unported(args)
-    device = resolve_device(args.device)
+    devices = data_parallel_devices(args.num_devices, args.device,
+                                    args.batch_size,
+                                    f"--num_devices {args.num_devices}")
+    device = None if devices else resolve_device(args.device)
+    if args.lm and args.beam_width <= 0:
+        raise SystemExit("--lm requires --beam_width > 0")
+    if not devices:
+        results, pairs = evaluate(args, device)
+    else:
+        try:
+            results, pairs = dp.launch(_eval_rank, devices, args=(args,))[0]
+        except dp.RankError as e:
+            raise SystemExit(
+                f"eval --num_devices {len(devices)}: {e}") from None
+    if args.dump:
+        with open(args.dump, "w") as f:
+            for h, r in pairs:
+                f.write(json.dumps({"hyp": h, "ref": r}) + "\n")
+    print(json.dumps(results))
+    return 0
+
+
+def _eval_rank(group: dp.DataGroup, args):
+    return evaluate(args, group.device, group)
+
+
+def evaluate(args, device: torch.device, group: dp.DataGroup | None = None
+             ) -> tuple[dict, list] | None:
+    """Evaluate as ``args`` says on ``device``, as one rank of ``group``
+    where there is one -> (the JSON record, the (hypothesis, reference)
+    pairs) on rank 0, None on the others."""
+    lead = group is None or group.rank == 0
     label_parser = parser_from_run(args.save, args.dataset)
     lm = None
     if args.lm:
-        if args.beam_width <= 0:
-            raise SystemExit("--lm requires --beam_width > 0")
         lm = CharNGramLM.load(args.lm)
         check_lm_vocab(lm, label_parser.vocab)
     beam = BeamConfig(args.beam_width, args.beam_prune, lm, args.lm_alpha,
@@ -176,10 +211,21 @@ def main(argv=None) -> int:
     tot_loss, tot_n = 0.0, 0
     overflow_utts = 0
     for b in it.epoch():
+        rows = (dp.shard_rows(b, group.rank, group.world) if group is not None
+                else b)
         loss, dec, lens, dropped = eval_batch(
-            model, *device_batch(b, device), beam=beam,
+            model, *device_batch(rows, device), beam=beam,
             collapse=args.blank_collapse, keep_ratio=args.keep_ratio,
-            featurizer=feat)
+            featurizer=feat, group=group)
+        if group is not None:
+            # the ranks' rows back in global order: one gather of
+            # [ids | length | dropped] rows
+            out = dp.all_gather_rows(group, torch.cat(
+                [dec.long(), lens.long()[:, None], dropped.long()[:, None]],
+                dim=1))
+            dec, lens, dropped = out[:, :-2], out[:, -2], out[:, -1]
+        if not lead:
+            continue
         dec, lens = dec.cpu().numpy(), lens.cpu().numpy()
         n = int(b.weights.sum())
         tot_loss += float(loss) * n
@@ -197,7 +243,8 @@ def main(argv=None) -> int:
             refs.append(
                 b.texts[i] if b.texts
                 else label_parser.imap(b.labels[i, : b.label_lengths[i]]))
-
+    if not lead:
+        return None
     results = {
         "split": args.split,
         "num_utts": tot_n,
@@ -212,12 +259,7 @@ def main(argv=None) -> int:
                          "alpha": args.lm_alpha, "beta": args.lm_beta}
     if args.blank_collapse > 0:
         results["blank_collapse_overflow_utts"] = overflow_utts
-    if args.dump:
-        with open(args.dump, "w") as f:
-            for h, r in zip(hyps, refs):
-                f.write(json.dumps({"hyp": h, "ref": r}) + "\n")
-    print(json.dumps(results))
-    return 0
+    return results, list(zip(hyps, refs))
 
 
 if __name__ == "__main__":

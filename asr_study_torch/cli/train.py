@@ -18,6 +18,13 @@ decay, resume, warm start, SortaGrad, the optimizers, gradient
 accumulation, reduce-on-plateau, ``--profile`` and ``--check_nans``) are
 the JAX CLI's.  Options the port does not have yet are refused, before the
 dataset is read, with the ROADMAP item that brings them.
+
+``--num_devices N`` (N > 1) trains data-parallel, as the JAX CLI's ``data``
+mesh: N ranks (``parallel.dp.launch``), over NCCL on ``cuda:0`` to
+``cuda:N-1`` (never more ranks than cards) or over gloo on the CPU (each
+rank ``cores // N`` threads), each stepping on its rows of every global
+batch of ``--batch_size``, which N must divide; rank 0 writes the run
+directory and prints.  A rank that fails ends the run with its error.
 """
 
 from __future__ import annotations
@@ -25,16 +32,18 @@ from __future__ import annotations
 import argparse
 import os
 import sys
+from typing import Optional
 
 import torch
 
 from asr_study_torch.cli.data_flow import (
-    RAW_GEN_KW, device_featurizer_for, flow_from_arg, parser_for_training,
-    require_port_run, resolve_device)
+    RAW_GEN_KW, data_parallel_devices, device_featurizer_for, flow_from_arg,
+    parser_for_training, require_port_run, resolve_device)
 from asr_study_torch.data.generator import DatasetGenerator
 from asr_study_torch.features.augment import (
     parse_spec_augment, parse_wav_augment)
 from asr_study_torch.models.zoo import CELL_KINDS, build_model
+from asr_study_torch.parallel import dp
 from asr_study_torch.train.checkpoint import CheckpointManager
 from asr_study_torch.train.loop import fit
 from asr_study_torch.train.trainer import BF16_ITEM, Trainer, make_optimizer
@@ -90,7 +99,8 @@ def build_argparser() -> argparse.ArgumentParser:
                         "the port (its best checkpoint if kept, else "
                         "latest); the optimizer starts fresh at step 0")
     p.add_argument("--num_devices", type=int, default=0,
-                   help="data-parallel devices (0 or 1: one)")
+                   help="data-parallel ranks, one a device (0 or 1: one "
+                        "device; on cuda at most the card count)")
     p.add_argument("--tp_devices", type=int, default=1)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--profile", action="store_true",
@@ -141,9 +151,6 @@ def build_argparser() -> argparse.ArgumentParser:
 def _refuse_unported(args) -> None:
     """Every option the port does not have yet, by its ROADMAP item."""
     refusals = [
-        (args.num_devices > 1,
-         "--num_devices > 1: data parallelism is not ported to "
-         "asr_study_torch yet (ROADMAP queue A item 12)"),
         (args.tp_devices > 1,
          "--tp_devices > 1: tensor parallelism is not ported to "
          "asr_study_torch yet (ROADMAP queue A item 13)"),
@@ -181,7 +188,11 @@ def run_dir(args) -> str:
 def main(argv=None) -> int:
     args = build_argparser().parse_args(argv)
     _refuse_unported(args)
-    device = resolve_device(args.device)
+    devices = data_parallel_devices(
+        args.num_devices, args.device, args.batch_size,
+        f"--num_devices {args.num_devices} x --tp_devices "
+        f"{max(1, args.tp_devices)}")
+    device = None if devices else resolve_device(args.device)
     if args.save is None:
         args.save = run_dir(args)
         print(f"run dir: {args.save}", file=sys.stderr)
@@ -190,6 +201,28 @@ def main(argv=None) -> int:
             require_port_run(d)
     if args.init_from and args.resume:
         raise SystemExit("--init_from and --resume are exclusive")
+    if not devices:
+        return train(args, device)
+    try:
+        dp.launch(_train_rank, devices, args=(args,))
+    except dp.RankError as e:
+        raise SystemExit(f"train --num_devices {len(devices)}: {e}") from None
+    return 0
+
+
+def _train_rank(group: dp.DataGroup, args) -> int:
+    return train(args, group.device, group)
+
+
+def train(args, device: torch.device,
+          group: Optional[dp.DataGroup] = None) -> int:
+    """Train as ``args`` says on ``device``, as one rank of ``group`` where
+    there is one."""
+    lead = group is None or group.rank == 0
+
+    def say(msg: str) -> None:
+        if lead:
+            print(msg, file=sys.stderr)
 
     label_parser = parser_for_training(args.dataset, args.vocab)
     gen = DatasetGenerator(batch_size=args.batch_size,
@@ -224,17 +257,16 @@ def main(argv=None) -> int:
     augment = featurizer = wav_augment = None
     if args.spec_augment is not None:
         augment = parse_spec_augment(args.spec_augment)
-        print(f"training with {augment}", file=sys.stderr)
+        say(f"training with {augment}")
     if args.device_features:
         featurizer = device_featurizer_for(
             args.device_features, args.device_feature_params, train_it,
             args.dataset, "--device_features", device)
-        print(f"on-device features: {args.device_features} "
-              f"({type(featurizer).__name__}, {featurizer.num_feats} dims)",
-              file=sys.stderr)
+        say(f"on-device features: {args.device_features} "
+            f"({type(featurizer).__name__}, {featurizer.num_feats} dims)")
     if args.wav_augment is not None:
         wav_augment = parse_wav_augment(args.wav_augment)
-        print(f"training with {wav_augment}", file=sys.stderr)
+        say(f"training with {wav_augment}")
     num_feats = featurizer.num_feats if featurizer else train_it.num_feats
     model = build_model(args.model, args.params,
                         num_classes=label_parser.num_classes,
@@ -243,25 +275,27 @@ def main(argv=None) -> int:
                         device=device)
     trainer = Trainer(model, spec, augment=augment, featurizer=featurizer,
                       wav_augment=wav_augment, check_nans=args.check_nans,
-                      compute_dtype=torch.bfloat16 if args.bf16 else None)
+                      compute_dtype=torch.bfloat16 if args.bf16 else None,
+                      group=group)
     state = trainer.init_state()
     n_params = sum(p.numel() for p in model.parameters())
-    print(f"{args.model}: {n_params:,} parameters on {device}",
-          file=sys.stderr)
+    say(f"{args.model}: {n_params:,} parameters on {device}"
+        + (f" and {group.world - 1} more rank(s) ({group.backend})"
+           if group is not None else ""))
     if args.init_from:
         src = CheckpointManager(args.init_from)
         # the best checkpoint if the source run kept one, else latest
         use_best = src.best_step is not None
         model.load_state_dict(src.restore_params(model.state_dict(),
                                                  best=use_best))
-        print(f"warm-started weights from {args.init_from} "
-              f"({'best' if use_best else 'latest'} checkpoint)",
-              file=sys.stderr)
-    ckpt = CheckpointManager(args.save, best_metric=args.monitor)
+        say(f"warm-started weights from {args.init_from} "
+            f"({'best' if use_best else 'latest'} checkpoint)")
+    ckpt = CheckpointManager(args.save, best_metric=args.monitor,
+                             group=group)
     if args.resume:
         if ckpt.latest_step is not None:
             state = ckpt.restore(state)
-            print(f"resumed from step {state.step}", file=sys.stderr)
+            say(f"resumed from step {state.step}")
         elif args.resume == "latest":
             raise SystemExit(
                 f"--resume: no checkpoint found in {args.save} "
@@ -270,7 +304,9 @@ def main(argv=None) -> int:
     hparams = {
         "model": args.model, "params": args.params,
         "batch_size": args.batch_size, "opt": args.opt, "lr": args.lr,
-        "clipnorm": args.clipnorm, "num_devices": 1, "tp_devices": 1,
+        "clipnorm": args.clipnorm,
+        "num_devices": group.world if group is not None else 1,
+        "tp_devices": 1,
         "bf16": args.bf16, "lr_decay": args.lr_decay,
         "early_stop": args.early_stop, "accum_steps": args.accum_steps,
         "lr_plateau": args.lr_plateau,

@@ -11,6 +11,11 @@ of Orbax::
 
 'latest' and 'best' are separate retention domains, so a newer but worse
 checkpoint never displaces resume-from-latest.  Saves are synchronous.
+
+Under data parallelism (``group=``, a ``parallel.dp.DataGroup``) rank 0
+writes and a barrier follows, so every rank restores the same files.  A
+checkpoint holds no topology: a run saved under N ranks resumes on one,
+and the reverse.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ from typing import Any, Dict, Mapping, Optional
 
 import torch
 
+from asr_study_torch.parallel import dp
 from asr_study_torch.train.trainer import TrainState
 
 _FILE = "state.pt"
@@ -54,13 +60,15 @@ def _write(root: str, step: int, payload: Dict[str, Any],
 class CheckpointManager:
     """Keeps ``latest`` (``max_to_keep`` newest) and ``best`` (one, by
     ``best_metric`` in ``mode`` 'min' or 'max'; a tie keeps the earlier)
-    checkpoints under ``directory``."""
+    checkpoints under ``directory``; with a data ``group``, rank 0
+    writes them."""
 
     def __init__(self, directory: str, max_to_keep: int = 2,
                  keep_best: bool = True, best_metric: str = "val_loss",
-                 mode: str = "min"):
+                 mode: str = "min", group: Optional[dp.DataGroup] = None):
         if mode not in ("min", "max"):
             raise ValueError(f"mode must be 'min' or 'max', got {mode!r}")
+        self.group = group
         self.directory = os.path.abspath(directory)
         self.max_to_keep = max_to_keep
         self.keep_best = keep_best
@@ -89,6 +97,15 @@ class CheckpointManager:
     def save(self, state: TrainState,
              metrics: Optional[Dict[str, float]] = None,
              hparams: Optional[Dict[str, Any]] = None) -> None:
+        """Write ``state`` at its step (on rank 0 of a data group, the
+        others waiting at a barrier until it is written)."""
+        if self.group is None or self.group.rank == 0:
+            self._save(state, metrics, hparams)
+        if self.group is not None:
+            dp.barrier(self.group)
+
+    def _save(self, state: TrainState, metrics: Optional[Dict[str, float]],
+              hparams: Optional[Dict[str, Any]]) -> None:
         step = int(state.step)
         payload = state.state_dict()
         m = {k: float(v) for k, v in (metrics or {}).items()}

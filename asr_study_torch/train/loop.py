@@ -14,6 +14,12 @@ phase of ``chip_smoke.py`` times both).
 ``torch.profiler`` (host and, on a CUDA device, kernel activity) into
 ``<log_dir>/trace`` as a Chrome trace (Perfetto reads it), where the JAX
 loop takes a ``jax.profiler`` trace of the same steps.
+
+With a data-parallel trainer (``Trainer(group=)``) every rank runs this
+loop on the same global batch stream (the same seed, the same shuffle) and
+steps on its rows of each batch; dropout and the augmentations draw from
+generators of (seed, step, rank); only rank 0 writes metrics, logs and the
+trace and prints, and the checkpoint manager saves on rank 0 alone.
 """
 
 from __future__ import annotations
@@ -26,23 +32,31 @@ from typing import Any, Dict, Optional
 import torch
 
 from asr_study_torch.train.checkpoint import CheckpointManager
-from asr_study_torch.train.trainer import Trainer, TrainState, device_batch
+from asr_study_torch.train.trainer import Trainer, TrainState
 from asr_study_torch.utils.metrics_writer import MetricWriter
 
 
 # the augmentations' stream, apart from dropout's (the JAX step folds 0x5A
 # and 0x3A into its key for them)
 AUGMENT_STREAM = 0x5A
+# an odd 64-bit constant (the golden ratio's): rank r's seeds differ from
+# rank 0's in every bit range
+_RANK_MIX = 0x9E3779B97F4A7C15
 
 
 def step_generator(device: torch.device, seed: int, step: int,
-                   stream: int = 0) -> torch.Generator:
+                   stream: int = 0, rank: int = 0) -> torch.Generator:
     """The dropout generator of one update (``stream`` 0; the
-    augmentations' is :data:`AUGMENT_STREAM`), a function of (seed, step)
-    like the JAX step's ``fold_in(rng, step)``: a resumed run draws the
-    masks an uninterrupted one would."""
+    augmentations' is :data:`AUGMENT_STREAM`) on data-parallel rank
+    ``rank``, a function of (seed, step, rank) like the JAX step's
+    ``fold_in(rng, step)`` and, on a mesh, ``fold_in(rng, axis_index)``:
+    a resumed run draws the masks an uninterrupted one would, and the
+    ranks draw different ones (rank 0 those of one device).  The rank is
+    mixed into the low 32 bits too, the only ones the CPU generator's
+    Mersenne twister takes."""
+    base = seed * 1_000_003 + step + (stream << 40)
     return torch.Generator(device=device).manual_seed(
-        (seed * 1_000_003 + step + (stream << 40)) % (2 ** 63))
+        (base ^ (rank * _RANK_MIX)) % (2 ** 63))
 
 
 def _start_trace(device: torch.device):
@@ -98,6 +112,10 @@ def fit(
             "early_stop_patience requires a validation split (val_loss "
             "drives the stopping decision) — none was provided")
     device = trainer.device
+    rank = trainer.group.rank if trainer.group is not None else 0
+    lead = rank == 0
+    if not lead:        # rank 0 writes the metrics, the logs and the trace
+        log_dir, profile = None, False
     writer = MetricWriter(log_dir, "train", tensorboard=tensorboard)
     step = state.step
     first_epoch_ordered = sortagrad and step == 0
@@ -125,31 +143,33 @@ def fit(
     try:
         for epoch in range(epochs):
             ep_loss = torch.zeros((), device=device)
-            ep_w = torch.zeros((), device=device)
+            ep_w = 0.0
             pending = None               # (step, device metrics, epoch)
             for batch in train_iter.epoch(
                     seed=seed + epoch,
                     ordered=first_epoch_ordered and epoch == 0):
                 if profile and log_dir and step == profile_steps[0]:
                     prof = _start_trace(device)
-                inputs, in_lens, labels, lab_lens, weights = device_batch(
-                    batch, device)
+                inputs, in_lens, labels, lab_lens, weights = \
+                    trainer.local_batch(batch)
                 aug_gen = (step_generator(device, seed, state.step,
-                                          AUGMENT_STREAM)
+                                          AUGMENT_STREAM, rank)
                            if trainer.augment is not None
                            or trainer.wav_augment is not None
                            else None)
                 state, metrics = trainer.train_step(
                     state, inputs, in_lens, labels, lab_lens, weights,
-                    step_generator(device, seed, state.step), aug_gen)
+                    step_generator(device, seed, state.step, rank=rank),
+                    aug_gen)
                 step = state.step
                 if prof is not None and step == profile_steps[1]:
                     _stop_trace(prof, device, log_dir, profile_steps)
                     prof = None
-                w = weights.sum()
+                # the global batch's weight: the loss is its mean
+                w = float(batch.weights.sum())
                 ep_loss += metrics["loss"] * w
                 ep_w += w
-                if step % log_every == 0:
+                if lead and step % log_every == 0:
                     if pending is not None:
                         consume_log(pending)
                     pending = (step, metrics, epoch)
@@ -158,13 +178,13 @@ def fit(
 
             scalars: Dict[str, float] = {
                 "epoch": epoch,
-                "train_loss": float(ep_loss) / max(float(ep_w), 1e-9),
+                "train_loss": float(ep_loss) / max(ep_w, 1e-9),
             }
             if valid_iter is not None:
                 val = trainer.run_eval(state, valid_iter.epoch())
                 scalars["val_loss"] = val["loss"]
                 scalars["val_ler"] = val["ler"]
-            writer.write(step, scalars, echo=True)
+            writer.write(step, scalars, echo=lead)
             if ckpt is not None:
                 ckpt.save(state, metrics={k: v for k, v in scalars.items()
                                           if k != "epoch"},
@@ -176,9 +196,10 @@ def fit(
                 else:
                     stale_epochs += 1
                     if stale_epochs >= early_stop_patience:
-                        print(f"early stop: {monitor} has not improved for "
-                              f"{stale_epochs} epochs (best {best_val:.4g})",
-                              file=sys.stderr)
+                        if lead:
+                            print(f"early stop: {monitor} has not improved "
+                                  f"for {stale_epochs} epochs (best "
+                                  f"{best_val:.4g})", file=sys.stderr)
                         break
     finally:
         if prof is not None:

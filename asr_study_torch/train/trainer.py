@@ -2,8 +2,11 @@
 ``asr_study_tpu/train/trainer.py``).
 
 A train step is forward (``train=True``, dropout from a ``torch.Generator``)
--> per-sequence CTC -> the weighted sum over ``max(sum(w), 1)`` ->
-backward -> clip by global norm -> the optimizer.  On a CUDA device the
+-> per-sequence CTC -> backward of the weighted loss **sum** -> the
+gradients, the loss sum and the weight sum summed over the data-parallel
+group (none without one) -> the gradients and the loss divided by
+``max(sum(w), 1)`` -> clip by global norm -> the optimizer, in the JAX
+step's order.  On a CUDA device the
 recurrent layers and the CTC lattice run the port's kernels forward and
 backward; the rest is plain torch (cuBLAS fp32 matmuls: TF32 is not turned
 on here).
@@ -54,7 +57,16 @@ the clip, the optimizer and its state, the eval step and checkpoints stay
 float32.  Only models built from ``LSTMCell`` have the kernels for it; the
 other cells wait on :data:`BF16_ITEM`.
 
-One device, no mesh: data parallelism is ROADMAP queue A item 12.
+Data parallelism (``Trainer(group=)``, ``train --num_devices N``) is the
+JAX trainer's ``shard_map`` over a ``data`` mesh, one process a rank
+(``parallel/dp.py``): ``init_state`` broadcasts rank 0's parameters, each
+rank steps on its rows of the global batch (:meth:`Trainer.local_batch`),
+and one all-reduce of one flat float32 buffer a step (the gradients in
+parameter order, then the loss sum and the weight sum) makes the step the
+one on the whole batch, zero-weight rows wherever they land; the clip, the
+accumulator, the plateau (on the global loss) and ``check_nans`` (on the
+global norm: every rank raises together) follow it unchanged.  The eval
+step all-reduces its sums the same way.
 """
 
 from __future__ import annotations
@@ -69,6 +81,7 @@ from torch import nn
 from asr_study_torch.models.cells import GRUCell, LSTMCell
 from asr_study_torch.ops import ctc
 from asr_study_torch.ops.metrics import edit_distance
+from asr_study_torch.parallel import dp
 # where bf16 compute (the JAX trainer's compute_dtype, train --bf16) waits
 # for the cells other than LSTMCell
 from asr_study_torch.ops.recurrence import BF16_ITEM
@@ -344,12 +357,15 @@ class Trainer:
     ``FloatingPointError`` at the first non-finite loss or gradient norm.
     ``compute_dtype`` ``torch.bfloat16`` runs the train step in mixed
     precision (the module docstring); a model holding a cell other than
-    ``LSTMCell`` refuses it."""
+    ``LSTMCell`` refuses it.  ``group`` (a ``parallel.dp.DataGroup`` on the
+    model's device) makes the steps data-parallel, as the JAX trainer's
+    ``mesh=``."""
 
     def __init__(self, model: nn.Module, optimizer: OptimizerSpec,
                  augment=None, featurizer=None, wav_augment=None,
                  check_nans: bool = False,
-                 compute_dtype: Optional[torch.dtype] = None):
+                 compute_dtype: Optional[torch.dtype] = None,
+                 group: Optional[dp.DataGroup] = None):
         if wav_augment is not None and featurizer is None:
             raise ValueError(
                 "wav_augment operates on raw waveforms and needs "
@@ -370,6 +386,10 @@ class Trainer:
         self.compute_dtype = (compute_dtype if compute_dtype == torch.bfloat16
                               else None)
         self.model = model
+        if group is not None and group.device != self.device:
+            raise ValueError(f"the model is on {self.device}, its data "
+                             f"group's rank {group.rank} on {group.device}")
+        self.group = group
         self.spec = optimizer
         self.augment = augment
         self.featurizer = featurizer
@@ -390,14 +410,61 @@ class Trainer:
         if spec.accum_steps > 1:
             accum = GradAccumulator(self.model.parameters(),
                                     spec.accum_steps)
+        if self.group is not None:
+            # every rank starts from rank 0's weights
+            with torch.no_grad():
+                params = list(self.model.parameters())
+                flat = dp.broadcast(self.group, torch.cat(
+                    [p.reshape(-1) for p in params]))
+                for p, v in zip(params, flat.split(
+                        [p.numel() for p in params])):
+                    p.copy_(v.view_as(p))
         return TrainState(self.model, opt, sched, 0, plateau, accum)
 
+    def local_batch(self, batch) -> tuple[torch.Tensor, ...]:
+        """A host ``Batch`` -> this rank's rows of it on the device
+        (``parallel.dp.shard_rows``; the whole batch without a group), as
+        :func:`device_batch` puts them."""
+        if self.group is not None:
+            batch = dp.shard_rows(batch, self.group.rank, self.group.world)
+        return device_batch(batch, self.device)
+
+    def _psum(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` summed over the data group's ranks, in place (the identity
+        without a group)."""
+        return t if self.group is None else dp.all_reduce_sum(self.group, t)
+
     def _loss_sum(self, logits, input_lengths, labels, label_lengths,
-                  weights):
+                  weights) -> tuple[torch.Tensor, torch.Tensor]:
+        """-> (the weighted sum of the per-sequence CTC losses, the sum of
+        the weights) of this rank's rows."""
         per_seq = ctc.ctc_loss(logits, input_lengths, labels, label_lengths,
                                blank_id=self.model.blank_id)
         w = weights.to(torch.float32)
-        return (per_seq * w).sum(), torch.clamp(w.sum(), min=1.0)
+        return (per_seq * w).sum(), w.sum()
+
+    def _reduce_grads(self, params: list, loss_sum: torch.Tensor,
+                      w_sum: torch.Tensor) -> torch.Tensor:
+        """After the backward of the local loss sum: the gradients, the
+        loss sum and the weight sum summed over the group in one flat
+        float32 buffer (gradients in parameter order, then the two sums;
+        one all-reduce; nothing without a group), then each gradient
+        divided by ``max(weight sum, 1)`` -> the weighted mean loss."""
+        if self.group is not None:
+            for p in params:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            flat = self._psum(torch.cat(
+                [p.grad.reshape(-1) for p in params]
+                + [loss_sum.reshape(1), w_sum.reshape(1)]))
+            for p, g in zip(params, flat[:-2].split(
+                    [p.numel() for p in params])):
+                p.grad = g.view_as(p)
+            loss_sum, w_sum = flat[-2], flat[-1]
+        denom = torch.clamp(w_sum, min=1.0)
+        torch._foreach_div_([p.grad for p in params if p.grad is not None],
+                            denom)
+        return loss_sum / denom
 
     @torch.no_grad()
     def _featurize(self, inputs: torch.Tensor, input_lengths: torch.Tensor,
@@ -419,9 +486,11 @@ class Trainer:
                    generator: Optional[torch.Generator] = None,
                    augment_generator: Optional[torch.Generator] = None
                    ) -> tuple[TrainState, Dict[str, torch.Tensor]]:
-        """One update.  Returns the state (updated in place) and the
-        step's ``loss`` (weighted mean) and ``grad_norm`` (before the
-        clip), as device scalars: nothing is fetched to the host.
+        """One update on this rank's rows (the whole batch without a
+        group).  Returns the state (updated in place) and the step's
+        ``loss`` (weighted mean over the global batch) and ``grad_norm``
+        (before the clip), as device scalars: nothing is fetched to the
+        host.
 
         ``generator`` draws the dropout masks; ``augment_generator`` (else
         ``generator``) the augmentations', WavAugment's first."""
@@ -439,12 +508,13 @@ class Trainer:
         else:
             logits = self._forward_cast(model, inputs, input_lengths,
                                         generator)
-        loss_sum, denom = self._loss_sum(logits, input_lengths, labels,
+        loss_sum, w_sum = self._loss_sum(logits, input_lengths, labels,
                                          label_lengths, weights)
-        loss = loss_sum / denom
-        loss.backward()
-        gnorm = self.apply_gradients(state, loss.detach())
-        return state, {"loss": loss.detach(), "grad_norm": gnorm}
+        loss_sum.backward()
+        loss = self._reduce_grads(list(model.parameters()),
+                                  loss_sum.detach(), w_sum)
+        gnorm = self.apply_gradients(state, loss)
+        return state, {"loss": loss, "grad_norm": gnorm}
 
     def _forward_cast(self, model: nn.Module, inputs: torch.Tensor,
                       input_lengths: torch.Tensor,
@@ -516,7 +586,8 @@ class Trainer:
                   input_lengths: torch.Tensor, labels: torch.Tensor,
                   label_lengths: torch.Tensor, weights: torch.Tensor
                   ) -> Dict[str, torch.Tensor]:
-        """Loss, greedy decode and edit distance, as device scalars."""
+        """Loss, greedy decode and edit distance of this rank's rows, their
+        sums over the group (one all-reduce), as device scalars."""
         model = state.model
         inputs, input_lengths = self._featurize(inputs, input_lengths)
         logits = model(inputs, input_lengths, train=False)
@@ -527,20 +598,23 @@ class Trainer:
         dist = edit_distance(decoded, dec_lens, labels,
                              label_lengths).to(torch.float32)
         w = weights.to(torch.float32)
+        edit, chars, loss_sum, num = self._psum(torch.stack([
+            (dist * w).sum(), (label_lengths.to(torch.float32) * w).sum(),
+            loss_sum, num]))
         return {
-            "loss": loss_sum / num,
-            "edit_dist": (dist * w).sum(),
-            "label_chars": torch.clamp(
-                (label_lengths.to(torch.float32) * w).sum(), min=1.0),
-            "num_seqs": w.sum(),
+            "loss": loss_sum / torch.clamp(num, min=1.0),
+            "edit_dist": edit,
+            "label_chars": torch.clamp(chars, min=1.0),
+            "num_seqs": num,
         }
 
     def run_eval(self, state: TrainState, batches) -> Dict[str, float]:
-        """Greedy-decode LER and loss over host batches, summed on
-        the device and fetched once at the end."""
+        """Greedy-decode LER and loss over host batches (each rank its rows
+        of each, every batch's sums all-reduced), summed on the device and
+        fetched once at the end."""
         acc = None
         for b in batches:
-            out = self.eval_step(state, *device_batch(b, self.device))
+            out = self.eval_step(state, *self.local_batch(b))
             vals = torch.stack([out["edit_dist"], out["label_chars"],
                                 out["loss"] * out["num_seqs"],
                                 out["num_seqs"]])

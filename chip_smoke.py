@@ -76,7 +76,13 @@ paths at full width, with random weights from a seeded
   torch.bfloat16)``): train steps of deep_blstm 3x256 (the LSTM cluster
   kernels' bfloat16-weight forms) and deep_speech (the wide kernels'),
   each bidirectional and unidirectional, and ``cli.train --bf16`` of
-  deep_blstm on the corpus manifest.
+  deep_blstm on the corpus manifest;
+- data parallelism (BASELINE config 5, ``train --num_devices``,
+  ``Trainer(group=)``): deep_blstm 3x256 at B=32, T=512 in two ranks
+  (``parallel.dp.launch``) that share the one card over gloo, which stages
+  the all-reduce through the host (the machine has one card, so not a
+  data-parallel rate), and in one rank over NCCL; ``fit`` over the corpus
+  manifest's train split in two ranks.
 
 Phases, in order; any failure raises and the exit code is not 0:
 
@@ -199,7 +205,19 @@ Phases, in order; any failure raises and the exit code is not 0:
    JSON lines equal to ``predict``'s, greedy, beam16 with the LM and
    beam256 (the wide design); (f)
    the layer-norm, MI and zoneout recognizers' launches and transcripts
-   equal to the whole utterance's.
+   equal to the whole utterance's;
+11. the dp phase (after the corpus phase, on its manifest): (a) one SGD
+   step of deep_blstm 3x256 at B=32, T=512 in two ranks on cuda:0 over
+   gloo against the one-process step from the same weights (loss rel
+   DP_LOSS_RTOL, each gradient within DP_GRAD_FRAC of its max abs), and
+   with DP_RAGGED_REAL real rows of 32, so that the second rank holds
+   one; two identical DP steps bit-equal; (b) one rank over NCCL in this
+   process, bit-equal to the step without a group; (c) DP_FIT_STEPS
+   ``fit`` steps (one epoch of the corpus's train split) in the two ranks,
+   launches counted in each, losses within DP_FIT_RTOL of the one-process
+   run's, one checkpoint written by rank 0; (d) ms a step of the two
+   ranks beside the one-process B=32 step, and ms of the flat all-reduce
+   alone.
 
 The deep_blstm pcm16 slice's wire unpack and features stage are split
 with CUDA events (``_prep``, fbank, the two deltas, ``_finalize``), and
@@ -329,6 +347,12 @@ AUDIO_PER_STEP = TRAIN_B * TRAIN_T * 0.01   # 10 ms frames: 163.84 s
 # 400): 640 train, 80 valid and 80 test utterances of 3-8 words
 CORPUS_N, CORPUS_EPOCHS, CORPUS_B = 800, 3, 32
 CORPUS_LOSS_RTOL = 1e-5          # eval's valid loss against the last val_loss
+# the dp phase: a DP step against the one-process step (loss, gradients as
+# a share of their max abs), the fit losses of two ranks against one
+# process's, the ragged batch's real rows (the second rank holds one)
+DP_LOSS_RTOL, DP_GRAD_FRAC, DP_FIT_RTOL = 1e-5, 1e-4, 1e-3
+DP_RAGGED_REAL, DP_FIT_STEPS, DP_TIME_STEPS = 17, 20, 5
+DP_JOIN_S = 300                  # the two ranks' launch, at most
 # the h5 phase: each step's loss from the MFCC .h5 against the corpus
 # phase's from the manifest (the same features, weights, seed and batches);
 # device extraction held against host MFCC at a power floor (without one,
@@ -3982,7 +4006,7 @@ def native_read_check(paths: list) -> None:
           f"({plain / nat:.2f}x)")
 
 
-def corpus_phase(card: str, tmp: str) -> tuple[list, str, str, list]:
+def corpus_phase(card: str, tmp: str) -> tuple[list, str, str, list, object]:
     """BASELINE config 3 from a corpus, through the CLIs' ``main(argv)``:
     make_dataset (a SynthWords manifest), train (deep_blstm at its zoo
     defaults, CORPUS_EPOCHS epochs from the manifest), train --resume (one
@@ -3991,7 +4015,8 @@ def corpus_phase(card: str, tmp: str) -> tuple[list, str, str, list]:
     turns with the loop's batches straight from the iterator, as ``fit``
     takes them, and built ahead by a worker thread; all in ``tmp`` ->
     (each counted CLI run's launches, the manifest, the first run's
-    directory, the first run's loss of each step of its first epoch)."""
+    directory, the first run's loss of each step of its first epoch, its
+    train split's iterator)."""
     from asr_study_torch.data.generator import DatasetGenerator
     from asr_study_torch.cli import eval as cli_eval
     from asr_study_torch.cli import make_dataset
@@ -4187,7 +4212,7 @@ def corpus_phase(card: str, tmp: str) -> tuple[list, str, str, list]:
                       f" audio-s/s" for v, m in means.items())
           + f"; thread/plain {means['thread'][0] / means['plain'][0]:.4f}"
           f"; train losses equal")
-    return runs, manifest, run_dir, first_epoch
+    return runs, manifest, run_dir, first_epoch, train_it
 
 
 def h5_phase(card: str, tmp: str, manifest: str,
@@ -5560,6 +5585,248 @@ def bf16_cli_run(card: str, tmp: str, manifest: str) -> dict:
     return launches
 
 
+def dp_model(dev: torch.device):
+    """The dp phase's model: deep_blstm 3x256 from a seed, dropout 0 (one
+    process and two ranks draw different masks otherwise)."""
+    from asr_study_torch.models.zoo import deep_blstm
+
+    return deep_blstm(f"num_hiddens={HIDDEN},num_layers={TRAIN_LAYERS},"
+                      "dropout=0.0", num_classes=NUM_CLASSES,
+                      input_dim=FEATS,
+                      generator=torch.Generator().manual_seed(SEED + 11),
+                      device=dev)
+
+
+def dp_batch(real: int | None = None):
+    """The dp phase's global host batch: B=32, T=512 frames padded, 256 to
+    512 real, labels of 24 to 48; every row weighted, or the first
+    ``real`` only."""
+    from asr_study_torch.data.generator import Batch
+
+    rng = np.random.RandomState(SEED + 12)
+    weights = np.ones(TRAIN_B, np.float32)
+    if real is not None:
+        weights[real:] = 0.0
+    return Batch(rng.randn(TRAIN_B, TRAIN_T, FEATS).astype(np.float32),
+                 rng.randint(TRAIN_T // 2, TRAIN_T + 1,
+                             TRAIN_B).astype(np.int32),
+                 rng.randint(0, NUM_CLASSES,
+                             (TRAIN_B, TRAIN_L)).astype(np.int32),
+                 rng.randint(TRAIN_L // 2, TRAIN_L + 1,
+                             TRAIN_B).astype(np.int32), weights)
+
+
+def dp_trainer(dev: torch.device, group=None, spec=None):
+    from asr_study_torch.train.trainer import Trainer, make_optimizer
+
+    return Trainer(dp_model(dev), spec or make_optimizer("sgd", 1e-4, 400.0),
+                   group=group)
+
+
+def dp_step(dev: torch.device, batch, group=None) -> tuple:
+    """One SGD step from the dp model's weights on ``batch`` (this rank's
+    rows under ``group``) -> (loss, grad norm, {name: gradient as the
+    optimizer took it, on the host})."""
+    tr = dp_trainer(dev, group)
+    _, m = tr.train_step(tr.init_state(), *tr.local_batch(batch),
+                         torch.Generator(device=dev).manual_seed(SEED))
+    return float(m["loss"]), float(m["grad_norm"]), {
+        n: p.grad.detach().cpu() for n, p in tr.model.named_parameters()}
+
+
+def dp_step_ms(dev: torch.device, group=None) -> float:
+    """ms a step (host clock around DP_TIME_STEPS steps ending in a
+    synchronize, after one warm-up step) of the dp model on the full
+    batch, this rank's rows under ``group``."""
+    from asr_study_torch.parallel import dp
+
+    tr = dp_trainer(dev, group)
+    state = tr.init_state()
+    batch = tr.local_batch(dp_batch())
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    tr.train_step(state, *batch, gen)
+    if group is not None:
+        dp.barrier(group)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(DP_TIME_STEPS):
+        tr.train_step(state, *batch, gen)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / DP_TIME_STEPS
+
+
+def dp_fit(dev: torch.device, train_it, run_dir: str,
+           group=None) -> tuple[list, dict]:
+    """``fit`` for one epoch of ``train_it`` (DP_FIT_STEPS steps) from the
+    dp model's weights with the CLI's default Adam, a checkpoint at its
+    end, launches counted from 0 -> (the logged losses, read from the
+    run's CSV on rank 0, else [], the launches of this process)."""
+    from asr_study_torch.train.checkpoint import CheckpointManager
+    from asr_study_torch.train.loop import fit
+    from asr_study_torch.train.trainer import make_optimizer
+
+    tr = dp_trainer(dev, group, make_optimizer())
+    reset_counts()
+    with contextlib.redirect_stderr(io.StringIO()):
+        fit(tr, tr.init_state(), train_it, None, epochs=1, seed=SEED,
+            ckpt=CheckpointManager(run_dir, group=group), log_dir=run_dir,
+            log_every=1)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    if group is not None and group.rank:
+        return [], launches
+    with open(os.path.join(run_dir, "train_metrics.csv")) as f:
+        return [float(r["loss"]) for r in csv.DictReader(f)
+                if r.get("loss")], launches
+
+
+def dp_rank(group, train_it, tmp: str, t_launch: float) -> dict:
+    """One rank of the dp phase's two (``parallel.dp.launch`` on cuda:0
+    over gloo): (a) the full and the ragged step and the full one again,
+    (d) ms a step and ms of the flat all-reduce alone, (c) fit -> their
+    results and the seconds from ``t_launch`` (the parent's wall clock) to
+    this body and then each part's."""
+    from asr_study_torch.parallel import dp
+
+    marks = [("start", time.time() - t_launch)]
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = group.device
+    full = dp_step(dev, dp_batch(), group)
+    again = dp_step(dev, dp_batch(), group)
+    out = {"full": full, "ragged": dp_step(dev, dp_batch(DP_RAGGED_REAL),
+                                           group),
+           "repeat_equal": full[0] == again[0] and all(
+               torch.equal(g, again[2][n]) for n, g in full[2].items())}
+    marks.append(("(a)", time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    out["step_ms"] = dp_step_ms(dev, group)
+    flat = torch.zeros(sum(g.numel() for g in full[2].values()) + 2,
+                       device=dev)
+    dp.barrier(group)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(DP_TIME_STEPS):
+        dp.all_reduce_sum(group, flat)
+    torch.cuda.synchronize()
+    out["allreduce_ms"] = (time.perf_counter() - t0) * 1e3 / DP_TIME_STEPS
+    out["allreduce_mib"] = 4 * flat.numel() / 2**20
+    marks.append(("(d)", time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    out["fit"] = dp_fit(dev, train_it, os.path.join(tmp, "dp_fit"), group)
+    marks.append(("(c)", time.perf_counter() - t0))
+    out["marks"] = marks
+    return out
+
+
+def dp_phase(card: str, tmp: str, train_it) -> list:
+    """BASELINE config 5 on the one card (the module docstring's phase 11)
+    -> [the two ranks' fit launches, summed]."""
+    from asr_study_torch.parallel import dp
+    from asr_study_torch.train.checkpoint import CheckpointManager
+
+    dev = torch.device("cuda", 0)
+    require(train_it.steps_per_epoch == DP_FIT_STEPS,
+            f"the corpus's train split gives {train_it.steps_per_epoch} "
+            f"batches of {CORPUS_B}, want {DP_FIT_STEPS}")
+    ref = {"full": dp_step(dev, dp_batch()),
+           "ragged": dp_step(dev, dp_batch(DP_RAGGED_REAL))}
+    single_ms = dp_step_ms(dev)
+    # (b) one rank over NCCL, in this process
+    group = dp.make_group(0, 1, dev, os.path.join(tmp, "nccl_store"))
+    try:
+        require(group.backend == "nccl", f"backend {group.backend}")
+        nccl = dp_step(dev, dp_batch(DP_RAGGED_REAL), group)
+    finally:
+        torch.distributed.destroy_process_group()
+    want = ref["ragged"]
+    nccl_equal = nccl[:2] == want[:2] and all(
+        torch.equal(g, want[2][n]) for n, g in nccl[2].items())
+    print(f"dp (b): one rank over NCCL against the step without a group "
+          f"(deep_blstm {TRAIN_LAYERS}x{HIDDEN}, B={TRAIN_B}, T={TRAIN_T}, "
+          f"{DP_RAGGED_REAL} real rows, sgd): loss, grad norm and "
+          f"{len(want[2])} gradients bit-equal {nccl_equal} (loss "
+          f"{nccl[0]:.6f} vs {want[0]:.6f})")
+    require(nccl_equal, "one NCCL rank differs from the step without a "
+            "group")
+    single_dir = os.path.join(tmp, "dp_single")
+    single_losses, _ = dp_fit(dev, train_it, single_dir)
+
+    t0 = time.perf_counter()
+    ranks = dp.launch(dp_rank, [dev, dev], args=(train_it, tmp, time.time()),
+                      backend="gloo", join_timeout=DP_JOIN_S)
+    launch_s = time.perf_counter() - t0
+    # (a)
+    for name in ("full", "ragged"):
+        loss, gnorm, grads = ref[name]
+        for rank, r in enumerate(ranks):
+            got = r[name]
+            loss_rel = abs(got[0] - loss) / abs(loss)
+            frac = {n: float((got[2][n] - g).abs().max()
+                             / g.abs().max().clamp(min=1e-30))
+                    for n, g in grads.items()}
+            worst = max(frac, key=frac.get)
+            print(f"dp (a) {name}: rank {rank} of 2 (B={TRAIN_B // 2} rows "
+                  f"each, gloo on cuda:0) against one process at "
+                  f"B={TRAIN_B}: loss {got[0]:.6f} vs {loss:.6f}, rel "
+                  f"{loss_rel:.3e} (tol {DP_LOSS_RTOL:g}); grad norm "
+                  f"{got[1]:.6g} vs {gnorm:.6g}; worst gradient "
+                  f"|diff|/max|g| {frac[worst]:.3e} in {worst} (tol "
+                  f"{DP_GRAD_FRAC:g})")
+            require(loss_rel <= DP_LOSS_RTOL, f"dp {name}: loss differs")
+            require(frac[worst] <= DP_GRAD_FRAC,
+                    f"dp {name}: a gradient differs")
+        require(all(torch.equal(g, ranks[1][name][2][n])
+                    for n, g in ranks[0][name][2].items()),
+                f"dp {name}: the ranks' gradients differ")
+    print(f"dp (a): two identical DP steps bit-equal on each rank "
+          f"{[r['repeat_equal'] for r in ranks]}; the two ranks' gradients "
+          f"bit-equal")
+    require(all(r["repeat_equal"] for r in ranks),
+            "two identical DP steps differ")
+    # (c)
+    dp_losses, _ = ranks[0]["fit"]
+    launches = {}
+    for r in ranks:
+        for k, v in r["fit"][1].items():
+            launches[k] = launches.get(k, 0) + v
+    per_rank = {"bilstm_fwd": TRAIN_LAYERS * DP_FIT_STEPS,
+                "bilstm_bwd": TRAIN_LAYERS * DP_FIT_STEPS,
+                "ctc_alpha": DP_FIT_STEPS, "ctc_beta": DP_FIT_STEPS}
+    require(all(r["fit"][1] == per_rank for r in ranks),
+            f"dp fit launches by rank {[r['fit'][1] for r in ranks]}, want "
+            f"{per_rank} each")
+    rel = [abs(a - b) / abs(b) for a, b in zip(dp_losses, single_losses)]
+    ckpt = CheckpointManager(os.path.join(tmp, "dp_fit"))
+    print(f"dp (c): fit, {DP_FIT_STEPS} steps of the corpus's train split "
+          f"(B={CORPUS_B}, adam 1e-3) in two ranks, launches {launches} "
+          f"({per_rank} a rank); losses "
+          f"{[round(v, 4) for v in dp_losses[::5]]} (every 5th) vs one "
+          f"process {[round(v, 4) for v in single_losses[::5]]}, worst rel "
+          f"{max(rel):.3e} (tol {DP_FIT_RTOL:g}); checkpoint at step "
+          f"{ckpt.latest_step}, history {len(ckpt.meta['history'])}")
+    require(len(dp_losses) == len(single_losses) == DP_FIT_STEPS,
+            f"{len(dp_losses)} and {len(single_losses)} losses logged")
+    require(max(rel) <= DP_FIT_RTOL, "dp fit losses differ from one "
+            "process's")
+    require(ckpt.latest_step == DP_FIT_STEPS
+            and len(ckpt.meta["history"]) == 1,
+            "dp fit: not one checkpoint at its last step")
+    # (d)
+    print(f"[{card}] dp (d): deep_blstm {TRAIN_LAYERS}x{HIDDEN} sgd step at "
+          f"B={TRAIN_B}, T={TRAIN_T}: two ranks sharing one card through "
+          f"host-staged gloo (not a DP rate: one card, and gloo copies the "
+          f"{ranks[0]['allreduce_mib']:.2f} MiB buffer through the host) "
+          f"{ranks[0]['step_ms']:.4f} / {ranks[1]['step_ms']:.4f} ms a "
+          f"step on ranks 0 / 1, the flat all-reduce alone "
+          f"{ranks[0]['allreduce_ms']:.4f} ms; one process "
+          f"{single_ms:.4f} ms a step; the two ranks' launch "
+          f"{launch_s:.1f} s wall, rank 0's parts (s): "
+          + ", ".join(f"{k} {v:.1f}" for k, v in ranks[0]["marks"]))
+    return [launches]
+
+
 def main() -> int:
     t_start = time.perf_counter()
     clock = PhaseClock()
@@ -5900,11 +6167,16 @@ def main() -> int:
     # 9. the beam phase on its manifest and run: ctc_beam against its
     # plain twin, train_lm, eval by beam search
     with tempfile.TemporaryDirectory() as tmp:
-        runs, manifest, run_dir, first_epoch = corpus_phase(card, tmp)
+        runs, manifest, run_dir, first_epoch, train_it = corpus_phase(card,
+                                                                      tmp)
         path_launches += runs
         with part("train --bf16 CLI"):
             path_launches.append(bf16_cli_run(card, tmp, manifest))
         clock.mark("corpus phase")
+        # 11. the dp phase on the corpus's train split
+        path_launches += dp_phase(card, tmp, train_it)
+        del train_it
+        clock.mark("dp phase")
         path_launches += h5_phase(card, tmp, manifest, first_epoch)
         clock.mark("h5 phase")
         beam_kernel, runs = beam_cli_phase(dev, card, manifest, run_dir, tmp)

@@ -14,6 +14,8 @@ product where the Pallas backward rounds ``dpre`` before it; the TPU runs
 the Pallas kernels, so the port follows them and the JAX side here runs
 with ``RNN_BACKEND = "pallas"`` (read at call time)."""
 
+import copy
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -223,8 +225,10 @@ def _batch(seed=0, b=3, t=12, l=3):
 def test_bf16_train_step_matches_jax(monkeypatch, case):
     """One sgd step (momentum 0.9 from zeros: the update is -lr * grad, so
     the JAX gradient is (p0 - p1) / lr) from the same weights: the loss,
-    every parameter's gradient, bfloat16-representable, and float32
-    masters and optimizer state afterwards."""
+    every parameter's gradient (the gradient of the weighted loss sum,
+    which the cast's autograd hands the float32 master bfloat16-
+    representable, divided by max(sum w, 1) after it, in the JAX step's
+    order), and float32 masters and optimizer state afterwards."""
     monkeypatch.setattr(jrnn, "RNN_BACKEND", "pallas")
     model, hp = STEP_CASES[case]
     lr = 0.1
@@ -240,6 +244,15 @@ def test_bf16_train_step_matches_jax(monkeypatch, case):
     trainer = Trainer(pm, make_optimizer(*spec), compute_dtype=BF16)
     state = trainer.init_state()
     batch = _batch()
+    # the masters' gradients of the loss sum, the step's own pieces
+    probe = Trainer(copy.deepcopy(pm), make_optimizer(*spec),
+                    compute_dtype=BF16)
+    tb = list(map(torch.from_numpy, batch))
+    logits = probe._forward_cast(probe.model, tb[0], tb[1],
+                                 torch.Generator().manual_seed(1))
+    loss_sum, w_sum = probe._loss_sum(logits, *tb[1:])
+    loss_sum.backward()
+    sum_grads = dict(probe.model.named_parameters())
     js1, jmet = jt.train_step(js, *map(jnp.asarray, batch),
                               jax.random.PRNGKey(1))
     state, met = trainer.train_step(state, *map(torch.from_numpy, batch),
@@ -252,7 +265,9 @@ def test_bf16_train_step_matches_jax(monkeypatch, case):
     for k in p0:
         p = named[k.replace("/", ".")]
         assert p.dtype == torch.float32 and p.grad.dtype == torch.float32
-        assert _bf16_exact(p.grad), k
+        g_sum = sum_grads[k.replace("/", ".")].grad
+        assert _bf16_exact(g_sum), k
+        assert torch.equal(p.grad, g_sum / w_sum), k
         want = (np.asarray(p0[k], np.float32)
                 - np.asarray(p1[k], np.float32)) / lr
         _close_frac(p.grad.numpy(), want, what=k)

@@ -9,6 +9,7 @@ of the HDF5 and device-feature path run on a small dataset."""
 
 import json
 import os
+import time
 
 import jax
 import numpy as np
@@ -77,35 +78,48 @@ def test_make_dataset_writes_the_jax_manifest(tmp_path, capsys):
 MISSING = "missing.json"
 
 
-# (id, cli, argv, the ROADMAP item named)
+# the JAX CLIs' messages for more data-parallel devices than there are
+# (asr_study_tpu/cli/train.py and cli/eval.py)
+_TOO_MANY_TRAIN = ("--num_devices 2 x --tp_devices 1 but only 1 device(s) "
+                   "available")
+_TOO_MANY_EVAL = "--num_devices 2 but only 1 device(s) available"
+
+# (id, cli, argv, what the refusal says: the ROADMAP item named, or since
+# data parallelism (item 12) was ported the JAX CLI's message for more
+# devices than the card count, here monkeypatched to 1)
 _REFUSED = [
-    ("train-argv12-item 12", "train", ["--num_devices", "2"], "item 12"),
-    ("train-argv13-item 13", "train", ["--tp_devices", "2"], "item 13"),
+    ("train-argv12-item 12", "train", ["--device", "cuda", "--num_devices",
+                                       "2"], _TOO_MANY_TRAIN),
+    ("train-argv13-item 13", "train", ["--tp_devices", "2"],
+     "ROADMAP queue A item 13"),
     # item 5b since the rest of item 5 was ported; --bf16 with a model of
     # other cells than LSTMCell since the LSTM models' bf16 was ported
     ("train-argv17-item 5", "train", ["--bf16", "--model", "deep_gru"],
-     "item 5b"),
-    ("eval-argv21-item 12", "eval", ["--num_devices", "2"], "item 12"),
-    ("eval-argv22-item 12", "eval", ["--num_devices", "2", "--beam_width",
-                                     "8", "--lm", "lm.npz"], "item 12"),
+     "ROADMAP queue A item 5b"),
+    ("eval-argv21-item 12", "eval", ["--device", "cuda", "--num_devices",
+                                     "2"], _TOO_MANY_EVAL),
+    ("eval-argv22-item 12", "eval", ["--device", "cuda", "--num_devices",
+                                     "2", "--beam_width", "8", "--lm",
+                                     "lm.npz"], _TOO_MANY_EVAL),
 ]
 
 
 # the ids the cases had when this list also held the options of items 5,
 # 7, 9 and 11
-@pytest.mark.parametrize("cli,argv,item", [
-    pytest.param(cli, argv, item, id=name)
-    for name, cli, argv, item in _REFUSED])
+@pytest.mark.parametrize("cli,argv,says", [
+    pytest.param(cli, argv, says, id=name)
+    for name, cli, argv, says in _REFUSED])
 def test_unported_options_are_refused(tmp_path, monkeypatch, cli, argv,
-                                      item):
+                                      says):
     monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     base = {"train": ["--dataset", MISSING, "--device", "cpu"],
             "eval": ["--dataset", MISSING, "--save", "run", "--device",
                      "cpu"]}[cli]
     main = {"train": port_train.main, "eval": port_eval.main}[cli]
     with pytest.raises(SystemExit) as e:
         main(base + argv)
-    assert f"ROADMAP queue A {item}" in str(e.value.code)
+    assert says in str(e.value.code)
     assert os.listdir(tmp_path) == []          # nothing read or written
 
 
@@ -115,6 +129,11 @@ def test_unported_options_are_refused(tmp_path, monkeypatch, cli, argv,
     ("train", ["--wav_augment"], "needs --device_features"),
     ("train", ["--wav_augment", "gain_db=3", "--spec_augment"],
      "needs --device_features"),
+    # the JAX CLIs' messages
+    ("train", ["--num_devices", "3", "--batch_size", "8"],
+     "--batch_size 8 not divisible by 3 devices"),
+    ("eval", ["--num_devices", "3", "--batch_size", "8"],
+     "--batch_size 8 not divisible by 3 devices"),
 ])
 def test_invalid_combinations_are_refused(tmp_path, monkeypatch, cli, argv,
                                           why):
@@ -122,9 +141,11 @@ def test_invalid_combinations_are_refused(tmp_path, monkeypatch, cli, argv,
     monkeypatch.chdir(tmp_path)
     base = {"make_dataset": ["--parser", "dummy", "--dataset_dir", "c",
                              "--platform", "cpu"],
-            "train": ["--dataset", MISSING, "--device", "cpu"]}[cli]
+            "train": ["--dataset", MISSING, "--device", "cpu"],
+            "eval": ["--dataset", MISSING, "--save", "run", "--device",
+                     "cpu"]}[cli]
     main = {"make_dataset": port_make_dataset.main,
-            "train": port_train.main}[cli]
+            "train": port_train.main, "eval": port_eval.main}[cli]
     with pytest.raises(SystemExit, match=why):
         main(base + argv)
     assert os.listdir(tmp_path) == []
@@ -315,6 +336,68 @@ def test_train_bf16_matches_jax_losses(tmp_path, monkeypatch, synth):
     np.testing.assert_allclose(losses["port"], losses["jax"], rtol=1e-4)
 
 
+def _logged_losses(run):
+    with open(os.path.join(run, "train_metrics.csv")) as f:
+        rows = [l.split(",") for l in f.read().splitlines()]
+    col = rows[0].index("loss")
+    return [float(r[col]) for r in rows[1:] if r[col]]
+
+
+def _jax_init_run(tmp_path, hp, num_classes=27):
+    """A port run dir holding the JAX CLI's initial weights (PRNGKey(0))
+    of graves2006 with ``hp``, for --init_from."""
+    params = jax_zoo.graves2006(hp, num_classes=num_classes).init(
+        jax.random.PRNGKey(0), 39)
+    pm = build_model("graves2006", hp, num_classes=num_classes,
+                     input_dim=39)
+    pm.load_state_dict(params_from_flat(flatten_params(params)))
+    init = str(tmp_path / "init")
+    CheckpointManager(init).save(Trainer(pm, make_optimizer()).init_state())
+    return init
+
+
+def test_train_data_parallel_matches_jax_losses(tmp_path, synth):
+    """train --device cpu --num_devices 2 (two gloo ranks) from the JAX
+    CLI's initial weights gives the JAX CLI's --num_devices 2 per-step
+    losses (rtol 1e-4) and validation loss; rank 0 wrote the run dir, its
+    hparams recording the two devices."""
+    argv = ["--dataset", synth, *TRAIN_ARGS, "--num_devices", "2",
+            "--epochs", "1"]
+    jrun, prun = str(tmp_path / "jax"), str(tmp_path / "port")
+    assert jax_train.main([*argv, "--platform", "cpu", "--save", jrun]) == 0
+    init = _jax_init_run(tmp_path, "num_hiddens=16")
+    assert port_train.main([*argv, "--device", "cpu", "--save", prun,
+                            "--init_from", init]) == 0
+    want = _logged_losses(jrun)
+    assert len(want) == 2
+    np.testing.assert_allclose(_logged_losses(prun), want, rtol=1e-4)
+    meta = {}
+    for side, run in (("port", prun), ("jax", jrun)):
+        with open(os.path.join(run, "meta.json")) as f:
+            meta[side] = json.load(f)
+    assert meta["port"]["hparams"]["num_devices"] == \
+        meta["jax"]["hparams"]["num_devices"] == 2
+    assert meta["port"]["last_step"] == meta["jax"]["last_step"] == 2
+    assert meta["port"]["history"][0]["val_loss"] == pytest.approx(
+        meta["jax"]["history"][0]["val_loss"], rel=1e-4)
+
+
+def test_train_with_a_failing_rank_exits_nonzero(tmp_path, synth):
+    """Ranks that raise (here: --init_from a run of another width) end
+    train --num_devices 2 with their error well inside the launch's
+    collective timeout."""
+    init = _jax_init_run(tmp_path, "num_hiddens=8")
+    t0 = time.perf_counter()
+    with pytest.raises(SystemExit) as e:
+        port_train.main(["--dataset", synth, *TRAIN_ARGS, "--num_devices",
+                         "2", "--device", "cpu", "--epochs", "1", "--save",
+                         str(tmp_path / "run"), "--init_from", init])
+    msg = str(e.value.code)
+    assert "train --num_devices 2: rank" in msg
+    assert "param shape mismatch" in msg
+    assert time.perf_counter() - t0 < 120
+
+
 class _Named(Exception):
     """Stops the JAX train CLI once it has named its run dir."""
 
@@ -485,6 +568,47 @@ def test_eval_beam_matches_jax_eval(tmp_path, capsys, monkeypatch, jax_run,
     assert got["cer"] == want["cer"] and got["wer"] == want["wer"]
     with open(dumps["port"]) as a, open(dumps["jax"]) as b:
         assert [json.loads(l) for l in a] == [json.loads(l) for l in b]
+
+
+@pytest.mark.parametrize("extra", [
+    [], ["--beam_width", "4"],
+    ["--beam_width", "4", "--blank_collapse", "0.5", "--keep_ratio", "0.3"],
+], ids=["greedy", "beam4", "beam4_collapse"])
+def test_eval_data_parallel_matches_jax_and_one_device(
+        tmp_path, capsys, monkeypatch, jax_run, extra):
+    """eval --num_devices 2 (two gloo ranks, each decoding its rows; batch
+    4 of a 3-utterance split, so rank 1 holds a padding row): the record
+    and the dump equal the port's one-device eval's and the JAX CLI's
+    --num_devices 2."""
+    manifest, jdir, pdir = jax_run
+    monkeypatch.setenv("ASR_BEAM_SELECT", "gather")
+    common = ["--dataset", manifest, "--split", "test", "--batch_size", "4",
+              *extra]
+    got, dumps = {}, {}
+    for side, argv in (
+            ("one", ["--save", pdir, "--device", "cpu"]),
+            ("dp", ["--save", pdir, "--device", "cpu", "--num_devices",
+                    "2"]),
+            ("jax", ["--save", jdir, "--platform", "cpu", "--num_devices",
+                     "2"])):
+        dumps[side] = str(tmp_path / f"{side}.jsonl")
+        main = jax_eval.main if side == "jax" else port_eval.main
+        assert main([*common, *argv, "--dump", dumps[side]]) == 0
+        got[side] = _last_json(capsys.readouterr().out)
+        with open(dumps[side]) as f:
+            dumps[side] = [json.loads(l) for l in f]
+    dp, one, jx = got["dp"], got["one"], got["jax"]
+    assert dp["num_utts"] == one["num_utts"] == jx["num_utts"] == 3
+    assert dp["loss"] == pytest.approx(one["loss"], rel=1e-5)
+    assert dp["loss"] == pytest.approx(jx["loss"], rel=1e-4)
+    for k in ("split", "decoder", "cer", "wer"):
+        assert dp[k] == one[k] == jx[k], k
+    if "--blank_collapse" in extra:
+        assert dp["blank_collapse_overflow_utts"] == \
+            one["blank_collapse_overflow_utts"] == \
+            jx["blank_collapse_overflow_utts"]
+    assert dumps["dp"] == dumps["one"] == dumps["jax"]
+    assert any(d["hyp"] for d in dumps["dp"])
 
 
 def test_eval_lm_needs_a_beam(jax_run, tmp_path):

@@ -306,6 +306,38 @@ def test_eval_of_a_device_feature_run_matches_jax(corpus, raw_runs,
                         "--device", "cpu"])
 
 
+def test_eval_data_parallel_of_a_device_feature_run(corpus, raw_runs,
+                                                   tmp_path, capsys):
+    """eval --num_devices 2 of a --device_features run: each gloo rank
+    featurizes and decodes its rows; the record and the dump equal the
+    one-device eval's and the JAX CLI's --num_devices 2 (as
+    tests/test_device_train.py holds the JAX CLI's to its one-device
+    run)."""
+    _, _, files = corpus
+    jrun, prun = raw_runs
+    common = ["--dataset", files["raw"], "--split", "test", "--batch_size",
+              "4"]
+    got, dumps = {}, {}
+    for side, argv in (
+            ("one", ["--save", prun, "--device", "cpu"]),
+            ("dp", ["--save", prun, "--device", "cpu", "--num_devices",
+                    "2"]),
+            ("jax", ["--save", jrun, "--platform", "cpu", "--num_devices",
+                     "2"])):
+        dumps[side] = str(tmp_path / f"{side}.jsonl")
+        main = jax_eval.main if side == "jax" else port_eval.main
+        assert main([*common, *argv, "--dump", dumps[side]]) == 0
+        got[side] = _last_json(capsys.readouterr().out)
+        with open(dumps[side]) as f:
+            dumps[side] = [json.loads(l) for l in f]
+    assert got["dp"]["num_utts"] == got["one"]["num_utts"] == 3
+    assert got["dp"]["loss"] == pytest.approx(got["one"]["loss"], rel=1e-5)
+    assert got["dp"]["loss"] == pytest.approx(got["jax"]["loss"], rel=1e-4)
+    for k in ("cer", "wer", "decoder"):
+        assert got["dp"][k] == got["one"][k] == got["jax"][k], k
+    assert dumps["dp"] == dumps["one"] == dumps["jax"]
+
+
 def test_predict_of_a_device_feature_run_matches_jax(corpus, raw_runs,
                                                      capsys):
     _, root, _ = corpus

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+import dp_ranks
 from asr_study_torch import _build
 from asr_study_torch.cli.predict import pack_batches, serve_batch
 from asr_study_torch.data import wire
@@ -43,6 +44,7 @@ from asr_study_torch.ops.ln_lstm import (BiLNLSTMFunction, LNLSTMFunction,
                                          ln_geometry, ln_lstm, ln_lstm_bwd,
                                          ln_lstm_bwd_plain, ln_lstm_plain)
 from asr_study_torch.ops.recurrence import Geometry
+from asr_study_torch.parallel import dp
 from asr_study_torch.text.lm import fit_ngram_lm
 from asr_study_torch.models.cells import ZoneoutLSTMCell
 from asr_study_torch.ops.mi_lstm import (BiMILSTMFunction, MILSTMFunction,
@@ -2426,3 +2428,61 @@ def test_streaming_recognizer_on_card(cuda, name, hp, fwd, width):
         dec, n = decode(logits, lengths, model.blank_id,
                         BeamConfig(width) if width else None)
     assert ids == dec[0, : int(n[0])].tolist()
+
+
+# -- data parallelism (train / eval --num_devices) -----------------------------
+
+DP_CASE = dict(model="deep_blstm", hp="num_hiddens=64,num_layers=2,"
+               "dropout=0.0", spec=("sgd", 0.1, 400.0), flat=None,
+               device="cuda:0")
+
+
+def _dp_cases():
+    """A full batch, the same again, and one of 5 real rows of 8 (the
+    second rank holds one)."""
+    return {"full": dict(DP_CASE, batches=[(1, None)]),
+            "again": dict(DP_CASE, batches=[(1, None)]),
+            "ragged": dict(DP_CASE, batches=[(1, dp_ranks.RAGGED)])}
+
+
+def test_dp_two_ranks_on_one_card_match_one_process(cuda):
+    """Two ranks on cuda:0 over gloo (host-staged: the card has no second
+    device for NCCL) against the one-process step from the same weights,
+    on the cluster LSTM and CTC kernels: loss rel 1e-5, each gradient
+    within 1e-4 of its max abs, the ragged case too; two identical DP
+    steps and the two ranks' weights bit-equal (chip_smoke.py's dp phase
+    (a) at a small size)."""
+    cases = _dp_cases()
+    ranks = dp.launch(dp_ranks.rank_main, ["cuda:0", "cuda:0"],
+                      args=(cases,), backend="gloo", join_timeout=300)
+    for name in ("full", "ragged"):
+        single = dp_ranks.run_case(cases[name])
+        for r in ranks:
+            assert r[name]["losses"][0] == pytest.approx(
+                single["losses"][0], rel=1e-5), name
+            for k, g in single["grads"].items():
+                err = float(np.abs(r[name]["grads"][k] - g).max())
+                assert err <= 1e-4 * float(np.abs(g).max()), (name, k, err)
+    for r in ranks:
+        assert r["full"]["losses"] == r["again"]["losses"]
+        for k, g in r["full"]["grads"].items():
+            np.testing.assert_array_equal(r["again"]["grads"][k], g)
+    for k, v in ranks[0]["full"]["params"].items():
+        np.testing.assert_array_equal(ranks[1]["full"]["params"][k], v)
+
+
+def test_dp_one_nccl_rank_is_bit_equal_to_no_group(cuda, tmp_path):
+    """A group of one rank over NCCL (the flat all-reduce and the division
+    after it) steps bit for bit as the trainer without a group."""
+    case = _dp_cases()["ragged"]
+    want = dp_ranks.run_case(case)
+    group = dp.make_group(0, 1, cuda, str(tmp_path / "store"))
+    try:
+        assert group.backend == "nccl"
+        got = dp_ranks.run_case(case, group)
+    finally:
+        torch.distributed.destroy_process_group()
+    assert got["losses"] == want["losses"]
+    for key in ("grads", "params"):
+        for k, v in want[key].items():
+            np.testing.assert_array_equal(got[key][k], v, err_msg=k)
