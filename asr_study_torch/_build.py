@@ -98,6 +98,9 @@ SIGNATURES = {
     # dxp_b, dhp_b, T, B, H, ndir, cluster CTAs, units, rows, stream
     "asr_gru_bwd": [_P] * 13 + [_I] * 7 + [_P],
     "asr_gru_bwd_info": [_I] * 6 + [_P, _P],
+    # the bfloat16-weight forms: the same arguments, wh_f and wh_b bfloat16
+    "asr_gru_fwd_bf16": [_P] * 8 + [_I] * 7 + [_P],
+    "asr_gru_bwd_bf16": [_P] * 13 + [_I] * 7 + [_P],
     # the wide forms (256 < H <= 512): xp_f, xp_b, mask, wh_f, wh_b, h_f,
     # h_b, hg_f, hg_b (the saved h side of the pre-activations, or null),
     # h_init, T, B, H, ndir, cluster CTAs, units per CTA, rows per cluster,
@@ -109,6 +112,9 @@ SIGNATURES = {
     # dhp_f, dxp_b, dhp_b, T, B, H, ndir, cluster CTAs, units, rows, stream
     "asr_gru_wide_bwd": [_P] * 15 + [_I] * 7 + [_P],
     "asr_gru_wide_bwd_info": [_I] * 6 + [_P, _P],
+    # the bfloat16-weight forms: the same arguments, wh_f and wh_b bfloat16
+    "asr_gru_wide_fwd_bf16": [_P] * 10 + [_I] * 7 + [_P],
+    "asr_gru_wide_bwd_bf16": [_P] * 15 + [_I] * 7 + [_P],
     # the streamed-weight forms (H > 512, or batches beyond the wide
     # design): xp_f, xp_b, mask, wh_f, wh_b, h_f, h_b, h_init, T, B, H,
     # ndir, stream

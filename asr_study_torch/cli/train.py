@@ -42,7 +42,7 @@ from asr_study_torch.cli.data_flow import (
 from asr_study_torch.data.generator import DatasetGenerator
 from asr_study_torch.features.augment import (
     parse_spec_augment, parse_wav_augment)
-from asr_study_torch.models.zoo import CELL_KINDS, build_model
+from asr_study_torch.models.zoo import BF16_CELLS, CELL_KINDS, build_model
 from asr_study_torch.parallel import dp
 from asr_study_torch.train.checkpoint import CheckpointManager
 from asr_study_torch.train.loop import fit
@@ -116,7 +116,8 @@ def build_argparser() -> argparse.ArgumentParser:
                         "whose loss or gradient norm is not finite")
     p.add_argument("--bf16", action="store_true",
                    help="mixed precision: bfloat16 compute, float32 master "
-                        "weights and optimizer state (models of LSTM cells)")
+                        "weights and optimizer state (models of LSTM and "
+                        "GRU cells)")
     p.add_argument("--vocab", default=None,
                    help="label vocabulary: preset name (pt_br, "
                         "pt_br_apostrophe) or literal characters; default "
@@ -150,15 +151,16 @@ def build_argparser() -> argparse.ArgumentParser:
 
 def _refuse_unported(args) -> None:
     """Every option the port does not have yet, by its ROADMAP item."""
+    cells = CELL_KINDS.get(args.model.lower(), "lstm")
+    waiting = [m for m, k in CELL_KINDS.items() if k not in BF16_CELLS]
     refusals = [
         (args.tp_devices > 1,
          "--tp_devices > 1: tensor parallelism is not ported to "
          "asr_study_torch yet (ROADMAP queue A item 13)"),
-        (args.bf16 and CELL_KINDS.get(args.model.lower(), "lstm") != "lstm",
-         f"--bf16 --model {args.model}: bf16 compute is ported to "
-         f"asr_study_torch for the models of LSTM cells only ("
-         f"{', '.join(m for m, k in CELL_KINDS.items() if k == 'lstm')}), "
-         f"not yet for its {CELL_KINDS.get(args.model.lower())} cells "
+        (args.bf16 and cells not in BF16_CELLS,
+         f"--bf16 --model {args.model}: bf16 compute is not ported to "
+         f"asr_study_torch yet for the models of {cells} cells "
+         f"({', '.join(waiting)}); it is for those of LSTM and GRU cells "
          f"({BF16_ITEM})"),
     ]
     for refused, why in refusals:

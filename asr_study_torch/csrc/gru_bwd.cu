@@ -52,6 +52,18 @@
 //      it (its slot for this sender, alternating on s & 1);
 //   d. one cluster barrier.
 //
+// The bfloat16-weight form (asr_gru_bwd_bf16) is the same kernel on the
+// weight type W = __nv_bfloat16 (ops/pallas_gru.py `_bwd_kernel` with a
+// bfloat16 wh): the slice is held as bfloat16 in the registers (32 pairs a
+// thread) and in ws ([H][3U' + 2] bfloat16, whose odd row stride in words
+// keeps step c's pair reads free of bank conflicts); the saved h_prev is
+// rounded to bfloat16 in shared memory by the thread whose copy brought
+// it, which first keeps the CTA's own units' unrounded values in hown
+// ([R][U]) for dpre_z, so step a recomputes the forward's hp from the
+// forward's operands; and dhp is rounded to bfloat16 before step c
+// (`_mm(dhp, wht)`), while dxp and dhp are written unrounded.  Products
+// are float32 fmaf on the converted values in the float32 form's order.
+//
 // The fixed order of every sum keeps the backward, and so the train steps,
 // bit-reproducible.  The launcher refuses a grid whose clusters are not all
 // resident at once (cudaOccupancyMaxActiveClusters); ops/gru.py
@@ -59,6 +71,7 @@
 // fit (H=512) to gru_stream_bwd.cu.
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <type_traits>
@@ -74,19 +87,22 @@ constexpr int kMaxCluster = 8;   // the portable cluster size
 __host__ __device__ constexpr int round4(int n) { return (n + 3) & ~3; }
 
 // Offsets (in floats) of the dynamic shared memory of one CTA; mirrored by
-// ops/gru.py `gru_cluster_smem`.  Every region starts on 16 bytes.
+// ops/gru.py `gru_cluster_smem` for the float32 form.  Every region starts
+// on 16 bytes.  In the bfloat16 form (`half`) ws holds bfloat16 weights
+// in rows of gcs elements, and hown the own units' unrounded h_prev.
 struct BwdLayout {
   int hp, gcp, gcs, ks, hs, ws, hpb, xs, dho, mk, red, dhp, recv, hold,
-      total;
-  __host__ __device__ BwdLayout(int H, int U, int R, int C) {
+      hown, total;
+  __host__ __device__ BwdLayout(int H, int U, int R, int C, bool half) {
     const int gc = 3 * U;
     hp = round4(H);
     gcp = round4(gc);                // own columns, padded to float4
-    gcs = gcp + 1;
+    gcs = half ? gcp + 2 : gcp + 1;  // an odd number of words a row
     ks = (H + kSlice - 1) / kSlice;  // slices of the H reduction
     hs = ks * kSlice;                // h rows, zero-padded to whole slices
     ws = 0;                          // [hp][gcs]   wh[:, own columns]
-    hpb = ws + round4(hp * gcs);     // [2][R][hs]  saved h at t_prev
+    hpb = ws + round4(half ? hp * gcs / 2 : hp * gcs);
+    //                                  [2][R][hs]  saved h at t_prev
     xs = hpb + 2 * R * hs;           // [2][R][gc]  xp of own columns
     dho = xs + round4(2 * R * gc);   // [2][R][U]   dh_out at t
     mk = dho + round4(2 * R * U);    // [2][R]      mask
@@ -94,12 +110,65 @@ struct BwdLayout {
     dhp = red + round4(ks * R * gc); // [R][gcp]    dhp of own columns
     recv = dhp + R * gcp;            // [2][C][R][U] received partials
     hold = recv + round4(2 * C * R * U);  // [R][U] dh passed on
-    total = hold + round4(R * U);
+    hown = hold + round4(R * U);     // [R][U]      own h_prev (bfloat16)
+    total = hown + (half ? round4(R * U) : 0);
   }
 };
 
 __device__ __forceinline__ float sigmoidf(float x) {
   return 1.f / (1.f + expf(-x));
+}
+
+// A thread's kSlice weights of one column, in registers: float32, or
+// bfloat16 pairs for the bfloat16-weight form.  quad(kk) gives rows kk ..
+// kk + 3 as float32.
+template <typename W>
+struct Slice {
+  float w[kSlice];
+  __device__ __forceinline__ void set2(int kk, W a, W b) {
+    w[kk] = a;
+    w[kk + 1] = b;
+  }
+  __device__ __forceinline__ float4 quad(int kk) const {
+    return make_float4(w[kk], w[kk + 1], w[kk + 2], w[kk + 3]);
+  }
+};
+
+template <>
+struct Slice<__nv_bfloat16> {
+  __nv_bfloat162 w[kSlice / 2];
+  __device__ __forceinline__ void set2(int kk, __nv_bfloat16 a,
+                                       __nv_bfloat16 b) {
+    w[kk / 2] = __halves2bfloat162(a, b);
+  }
+  __device__ __forceinline__ float4 quad(int kk) const {
+    const float2 lo = __bfloat1622float2(w[kk / 2]);
+    const float2 hi = __bfloat1622float2(w[kk / 2 + 1]);
+    return make_float4(lo.x, lo.y, hi.x, hi.y);
+  }
+};
+
+// x as it enters a product with weights of type W: itself, or rounded to
+// the nearest bfloat16
+template <typename W>
+__device__ __forceinline__ float as_operand(float x) {
+  if constexpr (std::is_same_v<W, __nv_bfloat16>)
+    return __bfloat162float(__float2bfloat16_rn(x));
+  else
+    return x;
+}
+
+// four consecutive weights of a ws row as float32 (k a multiple of 4)
+__device__ __forceinline__ float4 row4(const float* w) {
+  return make_float4(w[0], w[1], w[2], w[3]);
+}
+
+__device__ __forceinline__ float4 row4(const __nv_bfloat16* w) {
+  const float2 lo =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(w));
+  const float2 hi =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(w + 2));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
 }
 
 // 4-byte asynchronous copy global -> shared; zero-fills when !valid
@@ -119,12 +188,11 @@ __device__ __forceinline__ void cp_async_wait_prev() {
   asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
 
-template <int R>
+template <typename W, int R>
 __global__ void __launch_bounds__(kThreads, 1)
 gru_bwd_kernel(const float* __restrict__ xp_f, const float* __restrict__ xp_b,
-               const float* __restrict__ mask,
-               const float* __restrict__ wh_f,
-               const float* __restrict__ wh_b,
+               const float* __restrict__ mask, const W* __restrict__ wh_f,
+               const W* __restrict__ wh_b,
                const float* __restrict__ h_f, const float* __restrict__ h_b,
                const float* __restrict__ dh_f,
                const float* __restrict__ dh_b, float* __restrict__ dxp_f,
@@ -133,10 +201,11 @@ gru_bwd_kernel(const float* __restrict__ xp_f, const float* __restrict__ xp_b,
   cg::cluster_group cluster = cg::this_cluster();
   const int C = static_cast<int>(cluster.num_blocks());
   const int rank = static_cast<int>(cluster.block_rank());
-  const BwdLayout L(H, U, R, C);
+  constexpr bool kRounded = std::is_same_v<W, __nv_bfloat16>;
+  const BwdLayout L(H, U, R, C, kRounded);
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  float* ws = smem + L.ws;
+  W* ws = reinterpret_cast<W*>(smem + L.ws);
   float* hpb = smem + L.hpb;
   float* xs = smem + L.xs;
   float* dho = smem + L.dho;
@@ -145,12 +214,13 @@ gru_bwd_kernel(const float* __restrict__ xp_f, const float* __restrict__ xp_b,
   float* dhs = smem + L.dhp;
   float* recv = smem + L.recv;
   float* hold = smem + L.hold;
+  float* hown = smem + L.hown;
   const int G = 3 * H, GC = 3 * U, GCP = L.gcp, GCS = L.gcs, HS = L.hs;
   const int RU = R * U;
 
   const bool rev = blockIdx.z == 1;
   const float* __restrict__ xp = rev ? xp_b : xp_f;
-  const float* __restrict__ wh = rev ? wh_b : wh_f;
+  const W* __restrict__ wh = rev ? wh_b : wh_f;
   const float* __restrict__ h = rev ? h_b : h_f;
   const float* __restrict__ dh_out = rev ? dh_b : dh_f;
   float* __restrict__ dxp = rev ? dxp_b : dxp_f;
@@ -169,20 +239,21 @@ gru_bwd_kernel(const float* __restrict__ xp_f, const float* __restrict__ xp_b,
     const int q = col / U, unit = u0 + col - q * U;
     ws[i] = (k < H && col < GC && unit < H)
                 ? wh[static_cast<size_t>(k) * G + q * H + unit]
-                : 0.f;
+                : W{};
   }
   const int col = tid % GC, ks = tid / GC;
   const bool active = ks < L.ks;
-  float w[kSlice];
+  Slice<W> w;
   {
     const int q = col / U, unit = u0 + col - q * U;
-#pragma unroll
-    for (int kk = 0; kk < kSlice; ++kk) {
+    auto at = [&](int kk) {
       const int k = ks * kSlice + kk;
-      w[kk] = (active && k < H && unit < H)
-                  ? wh[static_cast<size_t>(k) * G + q * H + unit]
-                  : 0.f;
-    }
+      return (active && k < H && unit < H)
+                 ? wh[static_cast<size_t>(k) * G + q * H + unit]
+                 : W{};
+    };
+#pragma unroll
+    for (int kk = 0; kk < kSlice; kk += 2) w.set2(kk, at(kk), at(kk + 1));
   }
   for (int i = tid; i < R * GCP; i += kThreads) dhs[i] = 0.f;
   for (int i = tid; i < 2 * C * RU; i += kThreads) recv[i] = 0.f;
@@ -241,6 +312,17 @@ gru_bwd_kernel(const float* __restrict__ xp_f, const float* __restrict__ xp_b,
     else
       cp_async_commit();
     cp_async_wait_prev();
+    if constexpr (kRounded) {
+      // h_prev as the forward's product took it, each element rounded by
+      // the thread whose copy brought it (prefetch's mapping), the own
+      // units' unrounded values kept first
+      float* hr = hpb + cur * R * HS;
+      for (int i = tid; i < R * HS; i += kThreads) {
+        const int r = i / HS, k = i - r * HS;
+        if (k >= u0 && k < u0 + U) hown[r * U + k - u0] = hr[i];
+        hr[i] = as_operand<W>(hr[i]);
+      }
+    }
     __syncthreads();
     const float* hprev = hpb + cur * R * HS;
 
@@ -252,14 +334,15 @@ gru_bwd_kernel(const float* __restrict__ xp_f, const float* __restrict__ xp_b,
       for (int r = 0; r < R; ++r) acc[r] = 0.f;
 #pragma unroll
       for (int kk = 0; kk < kSlice; kk += 4) {
+        const float4 wv = w.quad(kk);
 #pragma unroll
         for (int r = 0; r < R; ++r) {
           const float4 hv =
               *reinterpret_cast<const float4*>(hk + r * HS + kk);
-          acc[r] = fmaf(hv.x, w[kk], acc[r]);
-          acc[r] = fmaf(hv.y, w[kk + 1], acc[r]);
-          acc[r] = fmaf(hv.z, w[kk + 2], acc[r]);
-          acc[r] = fmaf(hv.w, w[kk + 3], acc[r]);
+          acc[r] = fmaf(hv.x, wv.x, acc[r]);
+          acc[r] = fmaf(hv.y, wv.y, acc[r]);
+          acc[r] = fmaf(hv.z, wv.z, acc[r]);
+          acc[r] = fmaf(hv.w, wv.w, acc[r]);
         }
       }
 #pragma unroll
@@ -288,15 +371,17 @@ gru_bwd_kernel(const float* __restrict__ xp_f, const float* __restrict__ xp_b,
       float dh = dho[cur * RU + i] + hold[i];
       for (int p = 0; p < C; ++p) dh += got[p * RU + i];
       const bool m = mk[cur * R + r] > 0.f;
-      const float h_prev = hprev[r * HS + unit];
+      const float h_prev = kRounded ? hown[i] : hprev[r * HS + unit];
       const float dpre_n = m ? dh * (1.f - zg) * (1.f - ng * ng) : 0.f;
       const float dpre_r = m ? dpre_n * hsum[2] * rg * (1.f - rg) : 0.f;
       const float dpre_z = m ? dh * (h_prev - ng) * zg * (1.f - zg) : 0.f;
       const float dhp_n = dpre_n * rg;
+      // step c's operands (rounded in the bfloat16 form); dxp, dhp
+      // unrounded
       float* dp = dhs + r * GCP + u;
-      dp[0] = dpre_r;
-      dp[U] = dpre_z;
-      dp[2 * U] = dhp_n;
+      dp[0] = as_operand<W>(dpre_r);
+      dp[U] = as_operand<W>(dpre_z);
+      dp[2 * U] = as_operand<W>(dhp_n);
       const int b = b0 + r;
       if (b < B) {
         const size_t o = (static_cast<size_t>(t) * B + b) * G + unit;
@@ -317,19 +402,18 @@ gru_bwd_kernel(const float* __restrict__ xp_f, const float* __restrict__ xp_b,
       float acc[R];
 #pragma unroll
       for (int r = 0; r < R; ++r) acc[r] = 0.f;
-      const float* wrow = ws + j * GCS;
+      const W* wrow = ws + j * GCS;
 #pragma unroll 2
       for (int k = 0; k < GCP; k += 4) {
-        const float w0 = wrow[k], w1 = wrow[k + 1], w2 = wrow[k + 2],
-                    w3 = wrow[k + 3];
+        const float4 wv = row4(wrow + k);
 #pragma unroll
         for (int r = 0; r < R; ++r) {
           const float4 dv =
               *reinterpret_cast<const float4*>(dhs + r * GCP + k);
-          acc[r] = fmaf(dv.x, w0, acc[r]);
-          acc[r] = fmaf(dv.y, w1, acc[r]);
-          acc[r] = fmaf(dv.z, w2, acc[r]);
-          acc[r] = fmaf(dv.w, w3, acc[r]);
+          acc[r] = fmaf(dv.x, wv.x, acc[r]);
+          acc[r] = fmaf(dv.y, wv.y, acc[r]);
+          acc[r] = fmaf(dv.z, wv.z, acc[r]);
+          acc[r] = fmaf(dv.w, wv.w, acc[r]);
         }
       }
       const int owner = j / U;
@@ -345,14 +429,16 @@ gru_bwd_kernel(const float* __restrict__ xp_f, const float* __restrict__ xp_b,
 
 // The launch configuration of the cluster grid -> its dynamic shared memory
 // and how many of its clusters the card holds at once.
-template <int R>
+template <typename W, int R>
 cudaError_t configure(int B, int H, int ndir, int C, int U,
                       cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr,
                       int* max_clusters) {
   const size_t smem =
-      sizeof(float) * static_cast<size_t>(BwdLayout(H, U, R, C).total);
+      sizeof(float) *
+      static_cast<size_t>(
+          BwdLayout(H, U, R, C, std::is_same_v<W, __nv_bfloat16>).total);
   cudaError_t err = cudaFuncSetAttribute(
-      gru_bwd_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      gru_bwd_kernel<W, R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   *cfg = cudaLaunchConfig_t{};
@@ -365,13 +451,13 @@ cudaError_t configure(int B, int H, int ndir, int C, int U,
   attr[0].val.clusterDim.z = 1;
   cfg->attrs = attr;
   cfg->numAttrs = 1;
-  return cudaOccupancyMaxActiveClusters(max_clusters, gru_bwd_kernel<R>,
+  return cudaOccupancyMaxActiveClusters(max_clusters, gru_bwd_kernel<W, R>,
                                         cfg);
 }
 
-template <int R>
+template <typename W, int R>
 cudaError_t launch(const float* xp_f, const float* xp_b, const float* mask,
-                   const float* wh_f, const float* wh_b, const float* h_f,
+                   const W* wh_f, const W* wh_b, const float* h_f,
                    const float* h_b, const float* dh_f, const float* dh_b,
                    float* dxp_f, float* dhp_f, float* dxp_b, float* dhp_b,
                    int T, int B, int H, int ndir, int C, int U,
@@ -379,13 +465,13 @@ cudaError_t launch(const float* xp_f, const float* xp_b, const float* mask,
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[1];
   int fit = 0;
-  cudaError_t err = configure<R>(B, H, ndir, C, U, &cfg, attr, &fit);
+  cudaError_t err = configure<W, R>(B, H, ndir, C, U, &cfg, attr, &fit);
   if (err != cudaSuccess) return err;
   // all clusters in one wave, or no launch
   if (fit < static_cast<int>(cfg.gridDim.y * cfg.gridDim.z))
     return cudaErrorCooperativeLaunchTooLarge;
   cfg.stream = stream;
-  err = cudaLaunchKernelEx(&cfg, gru_bwd_kernel<R>, xp_f, xp_b, mask, wh_f,
+  err = cudaLaunchKernelEx(&cfg, gru_bwd_kernel<W, R>, xp_f, xp_b, mask, wh_f,
                            wh_b, h_f, h_b, dh_f, dh_b, dxp_f, dhp_f, dxp_b,
                            dhp_b, T, B, H, U);
   if (err != cudaSuccess) return err;
@@ -411,6 +497,21 @@ cudaError_t by_rows(int R, F&& f) {
   }
 }
 
+template <typename W>
+int launch_form(const float* xp_f, const float* xp_b, const float* mask,
+                const W* wh_f, const W* wh_b, const float* h_f,
+                const float* h_b, const float* dh_f, const float* dh_b,
+                float* dxp_f, float* dhp_f, float* dxp_b, float* dhp_b, int T,
+                int B, int H, int ndir, int C, int U, int R, void* stream) {
+  if (!valid_geometry(H, ndir, C, U))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(by_rows(R, [&](auto rows) {
+    return launch<W, decltype(rows)::value>(
+        xp_f, xp_b, mask, wh_f, wh_b, h_f, h_b, dh_f, dh_b, dxp_f, dhp_f,
+        dxp_b, dhp_b, T, B, H, ndir, C, U, static_cast<cudaStream_t>(stream));
+  }));
+}
+
 }  // namespace
 
 // Launch the backward over ndir directions: clusters of C CTAs of U units
@@ -422,13 +523,22 @@ extern "C" int asr_gru_bwd(const float* xp_f, const float* xp_b,
                            const float* dh_b, float* dxp_f, float* dhp_f,
                            float* dxp_b, float* dhp_b, int T, int B, int H,
                            int ndir, int C, int U, int R, void* stream) {
-  if (!valid_geometry(H, ndir, C, U))
-    return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(by_rows(R, [&](auto rows) {
-    return launch<decltype(rows)::value>(
-        xp_f, xp_b, mask, wh_f, wh_b, h_f, h_b, dh_f, dh_b, dxp_f, dhp_f,
-        dxp_b, dhp_b, T, B, H, ndir, C, U, static_cast<cudaStream_t>(stream));
-  }));
+  return launch_form<float>(xp_f, xp_b, mask, wh_f, wh_b, h_f, h_b, dh_f,
+                            dh_b, dxp_f, dhp_f, dxp_b, dhp_b, T, B, H, ndir,
+                            C, U, R, stream);
+}
+
+// The bfloat16-weight form: asr_gru_bwd's arguments with wh_f / wh_b
+// bfloat16 [H, 3H].
+extern "C" int asr_gru_bwd_bf16(
+    const float* xp_f, const float* xp_b, const float* mask,
+    const __nv_bfloat16* wh_f, const __nv_bfloat16* wh_b, const float* h_f,
+    const float* h_b, const float* dh_f, const float* dh_b, float* dxp_f,
+    float* dhp_f, float* dxp_b, float* dhp_b, int T, int B, int H, int ndir,
+    int C, int U, int R, void* stream) {
+  return launch_form<__nv_bfloat16>(xp_f, xp_b, mask, wh_f, wh_b, h_f, h_b,
+                                    dh_f, dh_b, dxp_f, dhp_f, dxp_b, dhp_b, T,
+                                    B, H, ndir, C, U, R, stream);
 }
 
 // The backward's dynamic shared memory per CTA and the clusters the card
@@ -440,8 +550,8 @@ extern "C" int asr_gru_bwd_info(int B, int H, int ndir, int C, int U, int R,
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[1];
   const cudaError_t err = by_rows(R, [&](auto rows) {
-    return configure<decltype(rows)::value>(B, H, ndir, C, U, &cfg, attr,
-                                            max_clusters);
+    return configure<float, decltype(rows)::value>(B, H, ndir, C, U, &cfg,
+                                                   attr, max_clusters);
   });
   if (err == cudaSuccess) *smem_bytes = static_cast<int>(cfg.dynamicSmemBytes);
   return static_cast<int>(err);

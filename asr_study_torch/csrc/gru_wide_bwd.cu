@@ -58,11 +58,21 @@
 //      j (its slot for this sender);
 //   c. one cluster barrier.
 //
+// The bfloat16-weight form (asr_gru_wide_bwd_bf16) is the same kernel on
+// the weight type W = __nv_bfloat16: the slice's rows held as bfloat16, in
+// registers (48 pairs a thread) and in ws ([96][256] bfloat16, 49,152 B),
+// dhp rounded to bfloat16 in shared memory before the product
+// (ops/pallas_gru.py `_mm(dhp, wht)`) and written to dxp and dhp
+// unrounded, the products float32 fmaf on the converted values in the
+// float32 form's order.  The h side it reads is the bfloat16 forward's,
+// bf16(h_prev) @ wh; h_prev enters the cell's dz unrounded.
+//
 // The fixed order of every sum keeps the backward, and so the train steps,
 // bit-reproducible.  The launcher refuses a grid whose clusters are not
 // all resident at once (cudaOccupancyMaxActiveClusters).
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <type_traits>
@@ -78,12 +88,14 @@ constexpr int kRows = 2 * kThreads;  // rows of wh covered: the widest H
 constexpr int kMaxCluster = 16;      // Hopper's non-portable maximum
 
 // Offsets (in floats) of the dynamic shared memory of one CTA; mirrored by
-// ops/gru.py `gru_wide_smem`.
+// ops/gru.py `gru_wide_smem` for the float32 form (ws holds `half`, i.e.
+// bfloat16, weights in the bfloat16 form).
 struct BwdLayout {
   int ws, dpre, recv, total;
-  __host__ __device__ BwdLayout(int R, int C) {
+  __host__ __device__ BwdLayout(int R, int C, bool half) {
     ws = 0;                          // [kCols][kThreads] wh rows 256..511
-    dpre = ws + kCols * kThreads;    // [kCols][R]
+    dpre = ws + (half ? kCols * kThreads / 2 : kCols * kThreads);
+    //                                  [kCols][R]
     recv = dpre + kCols * R;         // [2][C][kUnits][R]
     total = recv + 2 * C * kUnits * R;
   }
@@ -98,15 +110,55 @@ struct CellIn {
   float x[3], g[3], hp, dh, m;
 };
 
-template <int R>
+// A thread's kCols weights of one row of wh, in registers: float32, or
+// bfloat16 pairs for the bfloat16-weight form.  get(col) gives column col
+// as float32 (col a constant of the unrolled loop).
+template <typename W>
+struct Row {
+  float w[kCols];
+  __device__ __forceinline__ void set2(int col, W a, W b) {
+    w[col] = a;
+    w[col + 1] = b;
+  }
+  __device__ __forceinline__ float get(int col) const { return w[col]; }
+};
+
+template <>
+struct Row<__nv_bfloat16> {
+  __nv_bfloat162 w[kCols / 2];
+  __device__ __forceinline__ void set2(int col, __nv_bfloat16 a,
+                                       __nv_bfloat16 b) {
+    w[col / 2] = __halves2bfloat162(a, b);
+  }
+  __device__ __forceinline__ float get(int col) const {
+    return (col & 1) ? __high2float(w[col / 2]) : __low2float(w[col / 2]);
+  }
+};
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+// x as it enters a product with weights of type W: itself, or rounded to
+// the nearest bfloat16
+template <typename W>
+__device__ __forceinline__ float as_operand(float x) {
+  if constexpr (std::is_same_v<W, __nv_bfloat16>)
+    return __bfloat162float(__float2bfloat16_rn(x));
+  else
+    return x;
+}
+
+template <typename W, int R>
 __global__ void __launch_bounds__(kThreads, 1)
 gru_wide_bwd_kernel(const float* __restrict__ xp_f,
                     const float* __restrict__ xp_b,
                     const float* __restrict__ hg_f,
                     const float* __restrict__ hg_b,
                     const float* __restrict__ mask,
-                    const float* __restrict__ wh_f,
-                    const float* __restrict__ wh_b,
+                    const W* __restrict__ wh_f,
+                    const W* __restrict__ wh_b,
                     const float* __restrict__ h_f,
                     const float* __restrict__ h_b,
                     const float* __restrict__ dh_f,
@@ -118,10 +170,10 @@ gru_wide_bwd_kernel(const float* __restrict__ xp_f,
   cg::cluster_group cluster = cg::this_cluster();
   const int C = static_cast<int>(cluster.num_blocks());
   const int rank = static_cast<int>(cluster.block_rank());
-  const BwdLayout L(R, C);
+  const BwdLayout L(R, C, std::is_same_v<W, __nv_bfloat16>);
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  float* ws = smem + L.ws;
+  W* ws = reinterpret_cast<W*>(smem + L.ws);
   float* dpre = smem + L.dpre;
   float* recv = smem + L.recv;
   const int G = 3 * H;
@@ -129,7 +181,7 @@ gru_wide_bwd_kernel(const float* __restrict__ xp_f,
   const bool rev = blockIdx.z == 1;
   const float* __restrict__ xp = rev ? xp_b : xp_f;
   const float* __restrict__ hg = rev ? hg_b : hg_f;
-  const float* __restrict__ wh = rev ? wh_b : wh_f;
+  const W* __restrict__ wh = rev ? wh_b : wh_f;
   const float* __restrict__ h = rev ? h_b : h_f;
   const float* __restrict__ dh_out = rev ? dh_b : dh_f;
   float* __restrict__ dxp = rev ? dxp_b : dxp_f;
@@ -141,20 +193,25 @@ gru_wide_bwd_kernel(const float* __restrict__ xp_f,
 
   // the resident slice: rows tid (registers) and 256 + tid (ws) of
   // wh[:, own columns], col = q * kUnits + u being wh's column q*H + u0 + u
-  float w[kCols];
+  Row<W> w;
+  {
+    auto at = [&](int col) {
+      const int unit = u0 + col % kUnits;
+      return (tid < H && unit < H)
+                 ? wh[static_cast<size_t>(tid) * G + (col / kUnits) * H +
+                      unit]
+                 : W{};
+    };
 #pragma unroll
-  for (int col = 0; col < kCols; ++col) {
-    const int unit = u0 + col % kUnits;
-    w[col] = (tid < H && unit < H)
-                 ? wh[static_cast<size_t>(tid) * G + (col / kUnits) * H + unit]
-                 : 0.f;
+    for (int col = 0; col < kCols; col += 2)
+      w.set2(col, at(col), at(col + 1));
   }
   for (int col = 0; col < kCols; ++col) {
     const int unit = u0 + col % kUnits, k = kThreads + tid;
     ws[col * kThreads + tid] =
         (k < H && unit < H)
             ? wh[static_cast<size_t>(k) * G + (col / kUnits) * H + unit]
-            : 0.f;
+            : W{};
   }
   for (int i = tid; i < 2 * C * kUnits * R; i += kThreads) recv[i] = 0.f;
 
@@ -221,10 +278,12 @@ gru_wide_bwd_kernel(const float* __restrict__ xp_f,
       const float dpre_r = m ? dpre_n * hn * rg * (1.f - rg) : 0.f;
       const float dpre_z = m ? dh * (in[p].hp - ng) * zg * (1.f - zg) : 0.f;
       const float dhp_n = dpre_n * rg;
+      // the product's operands (rounded in the bfloat16 form); dxp and dhp
+      // unrounded
       float* dp = dpre + u * R + r;
-      dp[0] = dpre_r;
-      dp[kUnits * R] = dpre_z;
-      dp[2 * kUnits * R] = dhp_n;
+      dp[0] = as_operand<W>(dpre_r);
+      dp[kUnits * R] = as_operand<W>(dpre_z);
+      dp[2 * kUnits * R] = as_operand<W>(dhp_n);
       if (pair_ok(p)) {
         const size_t o = (static_cast<size_t>(t) * B + b0 + r) * G + u0 + u;
         dxp[o] = dpre_r;
@@ -249,7 +308,8 @@ gru_wide_bwd_kernel(const float* __restrict__ xp_f,
       }
 #pragma unroll
       for (int col = 0; col < kCols; ++col) {
-        const float wa = w[col], wb = ws[col * kThreads + tid];
+        const float wa = w.get(col),
+                    wb = to_float(ws[col * kThreads + tid]);
 #pragma unroll
         for (int r = 0; r < R; r += 4) {
           const float4 d =
@@ -286,16 +346,18 @@ gru_wide_bwd_kernel(const float* __restrict__ xp_f,
 
 // The launch configuration of the cluster grid -> its dynamic shared memory
 // and how many of its clusters the card holds at once.
-template <int R>
+template <typename W, int R>
 cudaError_t configure(int B, int ndir, int C, cudaLaunchConfig_t* cfg,
                       cudaLaunchAttribute* attr, int* max_clusters) {
   const size_t smem =
-      sizeof(float) * static_cast<size_t>(BwdLayout(R, C).total);
+      sizeof(float) *
+      static_cast<size_t>(
+          BwdLayout(R, C, std::is_same_v<W, __nv_bfloat16>).total);
   cudaError_t err = cudaFuncSetAttribute(
-      gru_wide_bwd_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      gru_wide_bwd_kernel<W, R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(gru_wide_bwd_kernel<R>,
+  err = cudaFuncSetAttribute(gru_wide_bwd_kernel<W, R>,
                              cudaFuncAttributeNonPortableClusterSizeAllowed,
                              1);
   if (err != cudaSuccess) return err;
@@ -309,27 +371,27 @@ cudaError_t configure(int B, int ndir, int C, cudaLaunchConfig_t* cfg,
   attr[0].val.clusterDim.z = 1;
   cfg->attrs = attr;
   cfg->numAttrs = 1;
-  return cudaOccupancyMaxActiveClusters(max_clusters, gru_wide_bwd_kernel<R>,
-                                        cfg);
+  return cudaOccupancyMaxActiveClusters(max_clusters,
+                                        gru_wide_bwd_kernel<W, R>, cfg);
 }
 
-template <int R>
+template <typename W, int R>
 cudaError_t launch(const float* xp_f, const float* xp_b, const float* hg_f,
-                   const float* hg_b, const float* mask, const float* wh_f,
-                   const float* wh_b, const float* h_f, const float* h_b,
+                   const float* hg_b, const float* mask, const W* wh_f,
+                   const W* wh_b, const float* h_f, const float* h_b,
                    const float* dh_f, const float* dh_b, float* dxp_f,
                    float* dhp_f, float* dxp_b, float* dhp_b, int T, int B,
                    int H, int ndir, int C, cudaStream_t stream) {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[1];
   int fit = 0;
-  cudaError_t err = configure<R>(B, ndir, C, &cfg, attr, &fit);
+  cudaError_t err = configure<W, R>(B, ndir, C, &cfg, attr, &fit);
   if (err != cudaSuccess) return err;
   // all clusters in one wave, or no launch
   if (fit < static_cast<int>(cfg.gridDim.y * cfg.gridDim.z))
     return cudaErrorCooperativeLaunchTooLarge;
   cfg.stream = stream;
-  err = cudaLaunchKernelEx(&cfg, gru_wide_bwd_kernel<R>, xp_f, xp_b, hg_f,
+  err = cudaLaunchKernelEx(&cfg, gru_wide_bwd_kernel<W, R>, xp_f, xp_b, hg_f,
                            hg_b, mask, wh_f, wh_b, h_f, h_b, dh_f, dh_b,
                            dxp_f, dhp_f, dxp_b, dhp_b, T, B, H);
   if (err != cudaSuccess) return err;
@@ -354,6 +416,23 @@ cudaError_t by_rows(int R, F&& f) {
   }
 }
 
+template <typename W>
+int launch_form(const float* xp_f, const float* xp_b, const float* hg_f,
+                const float* hg_b, const float* mask, const W* wh_f,
+                const W* wh_b, const float* h_f, const float* h_b,
+                const float* dh_f, const float* dh_b, float* dxp_f,
+                float* dhp_f, float* dxp_b, float* dhp_b, int T, int B,
+                int H, int ndir, int C, int U, int R, void* stream) {
+  if (!valid_geometry(H, ndir, C, U))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(by_rows(R, [&](auto rows) {
+    return launch<W, decltype(rows)::value>(
+        xp_f, xp_b, hg_f, hg_b, mask, wh_f, wh_b, h_f, h_b, dh_f, dh_b,
+        dxp_f, dhp_f, dxp_b, dhp_b, T, B, H, ndir, C,
+        static_cast<cudaStream_t>(stream));
+  }));
+}
+
 }  // namespace
 
 // Launch the backward over ndir directions from the forward's saved h side
@@ -368,14 +447,23 @@ extern "C" int asr_gru_wide_bwd(const float* xp_f, const float* xp_b,
                                 float* dhp_f, float* dxp_b, float* dhp_b,
                                 int T, int B, int H, int ndir, int C, int U,
                                 int R, void* stream) {
-  if (!valid_geometry(H, ndir, C, U))
-    return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(by_rows(R, [&](auto rows) {
-    return launch<decltype(rows)::value>(
-        xp_f, xp_b, hg_f, hg_b, mask, wh_f, wh_b, h_f, h_b, dh_f, dh_b,
-        dxp_f, dhp_f, dxp_b, dhp_b, T, B, H, ndir, C,
-        static_cast<cudaStream_t>(stream));
-  }));
+  return launch_form<float>(xp_f, xp_b, hg_f, hg_b, mask, wh_f, wh_b, h_f,
+                            h_b, dh_f, dh_b, dxp_f, dhp_f, dxp_b, dhp_b, T, B,
+                            H, ndir, C, U, R, stream);
+}
+
+// The bfloat16-weight form: asr_gru_wide_bwd's arguments with wh_f / wh_b
+// bfloat16 [H, 3H] (and the h side of asr_gru_wide_fwd_bf16).
+extern "C" int asr_gru_wide_bwd_bf16(
+    const float* xp_f, const float* xp_b, const float* hg_f,
+    const float* hg_b, const float* mask, const __nv_bfloat16* wh_f,
+    const __nv_bfloat16* wh_b, const float* h_f, const float* h_b,
+    const float* dh_f, const float* dh_b, float* dxp_f, float* dhp_f,
+    float* dxp_b, float* dhp_b, int T, int B, int H, int ndir, int C, int U,
+    int R, void* stream) {
+  return launch_form<__nv_bfloat16>(xp_f, xp_b, hg_f, hg_b, mask, wh_f, wh_b,
+                                    h_f, h_b, dh_f, dh_b, dxp_f, dhp_f, dxp_b,
+                                    dhp_b, T, B, H, ndir, C, U, R, stream);
 }
 
 // The backward's dynamic shared memory per CTA and the clusters the card
@@ -388,8 +476,8 @@ extern "C" int asr_gru_wide_bwd_info(int B, int H, int ndir, int C, int U,
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[1];
   const cudaError_t err = by_rows(R, [&](auto rows) {
-    return configure<decltype(rows)::value>(B, ndir, C, &cfg, attr,
-                                            max_clusters);
+    return configure<float, decltype(rows)::value>(B, ndir, C, &cfg, attr,
+                                                   max_clusters);
   });
   if (err == cudaSuccess) *smem_bytes = static_cast<int>(cfg.dynamicSmemBytes);
   return static_cast<int>(err);

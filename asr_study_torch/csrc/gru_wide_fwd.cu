@@ -71,11 +71,22 @@
 //   3. its four h as one float4 into every CTA's next h buffer through
 //      distributed shared memory; one cluster barrier.
 //
+// The bfloat16-weight form (asr_gru_wide_fwd_bf16) is the same kernel on
+// the weight type W = __nv_bfloat16: the slice's rows are held as bfloat16
+// in the registers (64 pairs a thread) and in ws ([256][96] bfloat16,
+// 49,152 B), h enters the product rounded to bfloat16 (ops/pallas_gru.py
+// `_mm`), the exchanged copy rounded by its writer while the cell thread
+// keeps its units' h unrounded for z * h_prev and the hold, and the
+// products are float32 fmaf on the converted values in the float32 form's
+// order.  h and the h side hg written out stay float32 (hg is then
+// bf16(h_prev) @ wh, what the backward would recompute).
+//
 // The launcher refuses a grid whose clusters are not all resident at once
 // (cudaOccupancyMaxActiveClusters); ops/gru.py `gru_geometry` picks R and
 // sends this width range here.
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <type_traits>
@@ -98,12 +109,14 @@ constexpr int kMaxCluster = 16;      // Hopper's non-portable maximum
 __host__ __device__ constexpr int round4(int n) { return (n + 3) & ~3; }
 
 // Offsets (in floats) of the dynamic shared memory of one CTA; mirrored by
-// ops/gru.py `gru_wide_smem`.
+// ops/gru.py `gru_wide_smem` for the float32 form (ws holds `half`, i.e.
+// bfloat16, weights in the bfloat16 form).
 struct FwdLayout {
   int ws, hbuf, xs, mk, red, total;
-  __host__ __device__ explicit FwdLayout(int R) {
+  __host__ __device__ FwdLayout(int R, bool half) {
     ws = 0;                          // [kShared][kCols] rows 256..511
-    hbuf = ws + kShared * kCols;     // [2][R][kRows]  h_prev, alternating
+    hbuf = ws + (half ? kShared * kCols / 2 : kShared * kCols);
+    //                                  [2][R][kRows]  h_prev, alternating
     xs = hbuf + 2 * R * kRows;       // [2][R][kCols]  xp of own columns
     mk = xs + 2 * R * kCols;         // [2][R]         mask
     red = mk + round4(2 * R);        // [kSplit][R][kCols] partial products
@@ -113,6 +126,50 @@ struct FwdLayout {
 
 __device__ __forceinline__ float sigmoidf(float x) {
   return 1.f / (1.f + expf(-x));
+}
+
+// A thread's kSlice weights of one column, in registers: float32, or
+// bfloat16 pairs for the bfloat16-weight form.  quad(kk) gives rows kk ..
+// kk + 3 as float32.
+template <typename W>
+struct Slice {
+  float w[kSlice];
+  __device__ __forceinline__ void set2(int kk, W a, W b) {
+    w[kk] = a;
+    w[kk + 1] = b;
+  }
+  __device__ __forceinline__ float4 quad(int kk) const {
+    return make_float4(w[kk], w[kk + 1], w[kk + 2], w[kk + 3]);
+  }
+};
+
+template <>
+struct Slice<__nv_bfloat16> {
+  __nv_bfloat162 w[kSlice / 2];
+  __device__ __forceinline__ void set2(int kk, __nv_bfloat16 a,
+                                       __nv_bfloat16 b) {
+    w[kk / 2] = __halves2bfloat162(a, b);
+  }
+  __device__ __forceinline__ float4 quad(int kk) const {
+    const float2 lo = __bfloat1622float2(w[kk / 2]);
+    const float2 hi = __bfloat1622float2(w[kk / 2 + 1]);
+    return make_float4(lo.x, lo.y, hi.x, hi.y);
+  }
+};
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+// x as it enters a product with weights of type W: itself, or rounded to
+// the nearest bfloat16
+template <typename W>
+__device__ __forceinline__ float as_operand(float x) {
+  if constexpr (std::is_same_v<W, __nv_bfloat16>)
+    return __bfloat162float(__float2bfloat16_rn(x));
+  else
+    return x;
 }
 
 // 4-byte asynchronous copy global -> shared; zero-fills when !valid
@@ -132,23 +189,24 @@ __device__ __forceinline__ void cp_async_wait_prev() {
   asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
 
-template <int R>
+template <typename W, int R>
 __global__ void __launch_bounds__(kThreads, 1)
 gru_wide_fwd_kernel(const float* __restrict__ xp_f,
                     const float* __restrict__ xp_b,
                     const float* __restrict__ mask,
-                    const float* __restrict__ wh_f,
-                    const float* __restrict__ wh_b, float* __restrict__ h_f,
+                    const W* __restrict__ wh_f,
+                    const W* __restrict__ wh_b, float* __restrict__ h_f,
                     float* __restrict__ h_b, float* __restrict__ hg_f,
                     float* __restrict__ hg_b,
                     const float* __restrict__ h_init, int T, int B, int H) {
   cg::cluster_group cluster = cg::this_cluster();
   const int C = static_cast<int>(cluster.num_blocks());
   const int rank = static_cast<int>(cluster.block_rank());
-  const FwdLayout L(R);
+  constexpr bool kRounded = std::is_same_v<W, __nv_bfloat16>;
+  const FwdLayout L(R, kRounded);
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  float* ws = smem + L.ws;
+  W* ws = reinterpret_cast<W*>(smem + L.ws);
   float* hbuf = smem + L.hbuf;
   float* xs = smem + L.xs;
   float* mk = smem + L.mk;
@@ -157,7 +215,7 @@ gru_wide_fwd_kernel(const float* __restrict__ xp_f,
 
   const bool rev = blockIdx.z == 1;
   const float* __restrict__ xp = rev ? xp_b : xp_f;
-  const float* __restrict__ wh = rev ? wh_b : wh_f;
+  const W* __restrict__ wh = rev ? wh_b : wh_f;
   float* __restrict__ h_out = rev ? h_b : h_f;
   float* __restrict__ hg_out = rev ? hg_b : hg_f;
   const int b0 = blockIdx.y * R;
@@ -170,25 +228,29 @@ gru_wide_fwd_kernel(const float* __restrict__ xp_f,
   // q * H + u0 + u, zero past H
   const int col = tid % kCols, part = tid / kCols;
   const int q_col = col / kUnits, unit_col = u0 + col % kUnits;
-  const float* __restrict__ wcol = wh + q_col * H + unit_col;
+  const W* __restrict__ wcol = wh + q_col * H + unit_col;
   const bool live = unit_col < H;
-  float w[kSlice];
+  Slice<W> w;
+  {
+    auto at = [&](int kk) {
+      const int k = part * kSlice + kk;
+      return (live && k < H) ? wcol[static_cast<size_t>(k) * G] : W{};
+    };
 #pragma unroll
-  for (int kk = 0; kk < kSlice; ++kk) {
-    const int k = part * kSlice + kk;
-    w[kk] = (live && k < H) ? wcol[static_cast<size_t>(k) * G] : 0.f;
+    for (int kk = 0; kk < kSlice; kk += 2) w.set2(kk, at(kk), at(kk + 1));
   }
   for (int kk = 0; kk < kPerShared; ++kk) {
     const int k = kSplit * kSlice + part * kPerShared + kk;
     ws[(part * kPerShared + kk) * kCols + col] =
-        (live && k < H) ? wcol[static_cast<size_t>(k) * G] : 0.f;
+        (live && k < H) ? wcol[static_cast<size_t>(k) * G] : W{};
   }
-  // the carried h, zeros where none is given: the full rows into slot 0
+  // the carried h, zeros where none is given: the full rows into slot 0,
+  // as product operands
   const size_t lane_row = static_cast<size_t>(blockIdx.z) * B;
   for (int i = tid; i < 2 * R * kRows; i += kThreads) {
     const int r = i / kRows, k = i - r * kRows, b = b0 + r;
     hbuf[i] = (h_init != nullptr && r < R && b < B && k < H)
-                  ? h_init[(lane_row + b) * H + k]
+                  ? as_operand<W>(h_init[(lane_row + b) * H + k])
                   : 0.f;
   }
 
@@ -214,9 +276,18 @@ gru_wide_fwd_kernel(const float* __restrict__ xp_f,
     cp_async_commit();
   };
 
-  // the cell's (row, four units) of this thread
+  // the cell's (row, four units) of this thread, and in the bfloat16 form
+  // their unrounded h, carried in or zeros
   const bool cell = tid < R * kQuads;
   const int cr = tid / kQuads, cu = 4 * (tid % kQuads);
+  float hst[4];
+#pragma unroll
+  for (int uu = 0; uu < 4; ++uu) {
+    const int unit = u0 + cu + uu, b = b0 + cr;
+    hst[uu] = (h_init != nullptr && cell && b < B && unit < H)
+                  ? h_init[(lane_row + b) * H + unit]
+                  : 0.f;
+  }
 
   prefetch(0);
   // every CTA of the cluster is running and initialised before any peer
@@ -236,26 +307,29 @@ gru_wide_fwd_kernel(const float* __restrict__ xp_f,
     {
       const float* h0 = hp + part * kSlice;
       const float* h1 = hp + kSplit * kSlice + part * kPerShared;
-      const float* wsc = ws + part * kPerShared * kCols + col;
+      const W* wsc = ws + part * kPerShared * kCols + col;
       float acc[R];
 #pragma unroll
       for (int r = 0; r < R; ++r) acc[r] = 0.f;
 #pragma unroll
       for (int kk = 0; kk < kSlice; kk += 4) {
+        const float4 wv = w.quad(kk);
 #pragma unroll
         for (int r = 0; r < R; ++r) {
           const float4 hv =
               *reinterpret_cast<const float4*>(h0 + r * kRows + kk);
-          acc[r] = fmaf(hv.x, w[kk], acc[r]);
-          acc[r] = fmaf(hv.y, w[kk + 1], acc[r]);
-          acc[r] = fmaf(hv.z, w[kk + 2], acc[r]);
-          acc[r] = fmaf(hv.w, w[kk + 3], acc[r]);
+          acc[r] = fmaf(hv.x, wv.x, acc[r]);
+          acc[r] = fmaf(hv.y, wv.y, acc[r]);
+          acc[r] = fmaf(hv.z, wv.z, acc[r]);
+          acc[r] = fmaf(hv.w, wv.w, acc[r]);
         }
       }
 #pragma unroll 4
       for (int kk = 0; kk < kPerShared; kk += 4) {
-        const float w0 = wsc[kk * kCols], w1 = wsc[(kk + 1) * kCols],
-                    w2 = wsc[(kk + 2) * kCols], w3 = wsc[(kk + 3) * kCols];
+        const float w0 = to_float(wsc[kk * kCols]),
+                    w1 = to_float(wsc[(kk + 1) * kCols]),
+                    w2 = to_float(wsc[(kk + 2) * kCols]),
+                    w3 = to_float(wsc[(kk + 3) * kCols]);
 #pragma unroll
         for (int r = 0; r < R; ++r) {
           const float4 hv =
@@ -305,14 +379,15 @@ gru_wide_fwd_kernel(const float* __restrict__ xp_f,
 #pragma unroll
       for (int uu = 0; uu < 4; ++uu) {
         const int unit = u0 + cu + uu;
-        const float h_prev = hp[cr * kRows + unit];
+        const float h_prev = kRounded ? hst[uu] : hp[cr * kRows + unit];
         const float rg = sigmoidf(xq[0][uu] + hq[0][uu]);
         const float zg = sigmoidf(xq[1][uu] + hq[1][uu]);
         const float ng = tanhf(xq[2][uu] + rg * hq[2][uu]);
         float h = (1.f - zg) * ng + zg * h_prev;
         if (!m) h = h_prev;
         const bool valid = unit < H;
-        hv[uu] = valid ? h : 0.f;
+        hst[uu] = valid ? h : 0.f;
+        hv[uu] = valid ? as_operand<W>(h) : 0.f;
         if (valid && b < B) {
           const size_t o = static_cast<size_t>(t) * B + b;
           h_out[o * H + unit] = h;
@@ -335,15 +410,18 @@ gru_wide_fwd_kernel(const float* __restrict__ xp_f,
 
 // The launch configuration of the cluster grid -> its dynamic shared memory
 // and how many of its clusters the card holds at once.
-template <int R>
+template <typename W, int R>
 cudaError_t configure(int B, int ndir, int C, cudaLaunchConfig_t* cfg,
                       cudaLaunchAttribute* attr, int* max_clusters) {
-  const size_t smem = sizeof(float) * static_cast<size_t>(FwdLayout(R).total);
+  const size_t smem =
+      sizeof(float) *
+      static_cast<size_t>(
+          FwdLayout(R, std::is_same_v<W, __nv_bfloat16>).total);
   cudaError_t err = cudaFuncSetAttribute(
-      gru_wide_fwd_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      gru_wide_fwd_kernel<W, R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(gru_wide_fwd_kernel<R>,
+  err = cudaFuncSetAttribute(gru_wide_fwd_kernel<W, R>,
                              cudaFuncAttributeNonPortableClusterSizeAllowed,
                              1);
   if (err != cudaSuccess) return err;
@@ -357,26 +435,26 @@ cudaError_t configure(int B, int ndir, int C, cudaLaunchConfig_t* cfg,
   attr[0].val.clusterDim.z = 1;
   cfg->attrs = attr;
   cfg->numAttrs = 1;
-  return cudaOccupancyMaxActiveClusters(max_clusters, gru_wide_fwd_kernel<R>,
-                                        cfg);
+  return cudaOccupancyMaxActiveClusters(max_clusters,
+                                        gru_wide_fwd_kernel<W, R>, cfg);
 }
 
-template <int R>
+template <typename W, int R>
 cudaError_t launch(const float* xp_f, const float* xp_b, const float* mask,
-                   const float* wh_f, const float* wh_b, float* h_f,
+                   const W* wh_f, const W* wh_b, float* h_f,
                    float* h_b, float* hg_f, float* hg_b, const float* h_init,
                    int T, int B, int H, int ndir, int C,
                    cudaStream_t stream) {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[1];
   int fit = 0;
-  cudaError_t err = configure<R>(B, ndir, C, &cfg, attr, &fit);
+  cudaError_t err = configure<W, R>(B, ndir, C, &cfg, attr, &fit);
   if (err != cudaSuccess) return err;
   // all clusters in one wave, or no launch
   if (fit < static_cast<int>(cfg.gridDim.y * cfg.gridDim.z))
     return cudaErrorCooperativeLaunchTooLarge;
   cfg.stream = stream;
-  err = cudaLaunchKernelEx(&cfg, gru_wide_fwd_kernel<R>, xp_f, xp_b, mask,
+  err = cudaLaunchKernelEx(&cfg, gru_wide_fwd_kernel<W, R>, xp_f, xp_b, mask,
                            wh_f, wh_b, h_f, h_b, hg_f, hg_b, h_init, T, B,
                            H);
   if (err != cudaSuccess) return err;
@@ -401,6 +479,21 @@ cudaError_t by_rows(int R, F&& f) {
   }
 }
 
+template <typename W>
+int launch_form(const float* xp_f, const float* xp_b, const float* mask,
+                const W* wh_f, const W* wh_b, float* h_f, float* h_b,
+                float* hg_f, float* hg_b, const float* h_init, int T, int B,
+                int H, int ndir, int C, int U, int R, void* stream) {
+  if (!valid_geometry(H, ndir, C, U) ||
+      ((hg_f == nullptr) != (hg_b == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(by_rows(R, [&](auto rows) {
+    return launch<W, decltype(rows)::value>(
+        xp_f, xp_b, mask, wh_f, wh_b, h_f, h_b, hg_f, hg_b, h_init, T, B, H,
+        ndir, C, static_cast<cudaStream_t>(stream));
+  }));
+}
+
 }  // namespace
 
 // Launch the forward over ndir directions: clusters of C CTAs of U = 32
@@ -413,15 +506,20 @@ extern "C" int asr_gru_wide_fwd(const float* xp_f, const float* xp_b,
                                 float* hg_f, float* hg_b, const float* h_init,
                                 int T, int B, int H, int ndir, int C, int U,
                                 int R, void* stream) {
-  if (!valid_geometry(H, ndir, C, U) ||
-      ((hg_f == nullptr) != (hg_b == nullptr)))
-    return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(by_rows(R, [&](auto rows) {
-    return launch<decltype(rows)::value>(xp_f, xp_b, mask, wh_f, wh_b, h_f,
-                                         h_b, hg_f, hg_b, h_init, T, B, H,
-                                         ndir, C,
-                                         static_cast<cudaStream_t>(stream));
-  }));
+  return launch_form<float>(xp_f, xp_b, mask, wh_f, wh_b, h_f, h_b, hg_f,
+                            hg_b, h_init, T, B, H, ndir, C, U, R, stream);
+}
+
+// The bfloat16-weight form: asr_gru_wide_fwd's arguments with wh_f / wh_b
+// bfloat16 [H, 3H].
+extern "C" int asr_gru_wide_fwd_bf16(
+    const float* xp_f, const float* xp_b, const float* mask,
+    const __nv_bfloat16* wh_f, const __nv_bfloat16* wh_b, float* h_f,
+    float* h_b, float* hg_f, float* hg_b, const float* h_init, int T, int B,
+    int H, int ndir, int C, int U, int R, void* stream) {
+  return launch_form<__nv_bfloat16>(xp_f, xp_b, mask, wh_f, wh_b, h_f, h_b,
+                                    hg_f, hg_b, h_init, T, B, H, ndir, C, U,
+                                    R, stream);
 }
 
 // The forward's dynamic shared memory per CTA and the clusters the card
@@ -434,8 +532,8 @@ extern "C" int asr_gru_wide_fwd_info(int B, int H, int ndir, int C, int U,
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[1];
   const cudaError_t err = by_rows(R, [&](auto rows) {
-    return configure<decltype(rows)::value>(B, ndir, C, &cfg, attr,
-                                            max_clusters);
+    return configure<float, decltype(rows)::value>(B, ndir, C, &cfg, attr,
+                                                   max_clusters);
   });
   if (err == cudaSuccess) *smem_bytes = static_cast<int>(cfg.dynamicSmemBytes);
   return static_cast<int>(err);

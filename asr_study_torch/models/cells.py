@@ -321,8 +321,10 @@ def gru_step(h_prev: torch.Tensor, xp_t: torch.Tensor, mask_t: torch.Tensor,
     """One frame: xp_t [B, 3H] (bias folded in), mask_t [B, 1] -> h.
 
     ``n = tanh(xn + r * hn)``: the bias ``bn`` is additive inside the tanh
-    and outside ``r * hn``, so it folds into ``xn`` with the others."""
-    return gru_update(torch.matmul(h_prev, wh), h_prev, xp_t, mask_t)
+    and outside ``r * hn``, so it folds into ``xn`` with the others.  The
+    product is taken in wh's dtype (:func:`dot`: with bfloat16 weights
+    h_prev is rounded to bfloat16 there, and only there)."""
+    return gru_update(dot(h_prev, wh), h_prev, xp_t, mask_t)
 
 
 def gru_update(hg_t: torch.Tensor, h_prev: torch.Tensor, xp_t: torch.Tensor,
@@ -356,13 +358,14 @@ class GRUCell(nn.Module):
                                           device=device))
 
     def input_proj(self, x: torch.Tensor) -> torch.Tensor:
-        return torch.matmul(x, self.wx)
+        """``x @ wx`` in wx's dtype, float32 out (:func:`dot`)."""
+        return dot(x, self.wx)
 
     def prepare(self, x: torch.Tensor, train: bool = False,
                 generator: Optional[torch.Generator] = None
                 ) -> tuple[torch.Tensor, tuple[torch.Tensor, ...]]:
-        """The streamed ``x @ wx + b`` [T, B, 3H] and the resident
-        ``(wh,)``."""
+        """The streamed ``x @ wx + b`` [T, B, 3H] (float32: a bfloat16 b is
+        added as it is) and the resident ``(wh,)``."""
         return (self.input_proj(x) + self.b).contiguous(), (self.wh,)
 
     def step(self, carry: tuple[torch.Tensor], xp_t: torch.Tensor,

@@ -63,10 +63,11 @@ import torch
 from asr_study_torch import _build
 from asr_study_torch.models.cells import lstm_gates, lstm_update
 from asr_study_torch.models.nn import dot
-from asr_study_torch.ops.recurrence import (BF16_ITEM, STREAM_ROWS,
-                                            WIDE_UNITS, Geometry, check,
+from asr_study_torch.ops.recurrence import (STREAM_ROWS, WIDE_UNITS,
+                                            Geometry, bf16_design, check,
                                             check_carry, check_res,
                                             cluster_geometry, cotangent,
+                                            design_counts, design_key,
                                             kernel_info, prev, r4, stream,
                                             wide_geometry)
 
@@ -196,29 +197,9 @@ def lstm_plain(xp: torch.Tensor, mask: torch.Tensor, wh: torch.Tensor,
 
 def _geometry(name: str, xp: torch.Tensor, wh: torch.Tensor,
               ndir: int) -> Geometry:
-    """The layout of this call; a bfloat16 call that would go to the stream
-    design raises (it has no bfloat16 form, and no call quietly takes
-    float32)."""
-    geo = lstm_geometry(xp.shape[2] // 4, xp.shape[1], ndir)
-    if wh.dtype == torch.bfloat16 and geo.design == "stream":
-        raise ValueError(
-            f"{name}: bfloat16 weights at H={xp.shape[2] // 4}, B="
-            f"{xp.shape[1]}, {ndir} direction(s) go to the stream design, "
-            f"which has no bfloat16 form yet ({BF16_ITEM}); the cluster "
-            f"and wide designs take H <= 512 up to B=48 in two directions "
-            f"and B=96 in one")
-    return geo
-
-
-def _design_key(geo: Geometry, wh: torch.Tensor) -> str:
-    """The ``by_design`` key of a launch: the design, ``_bf16`` added for
-    the bfloat16-weight forms."""
-    return geo.design + ("_bf16" if wh.dtype == torch.bfloat16 else "")
-
-
-def _by_design() -> dict:
-    return {"cluster": 0, "wide": 0, "stream": 0, "cluster_bf16": 0,
-            "wide_bf16": 0}
+    hidden, batch = xp.shape[2] // 4, xp.shape[1]
+    return bf16_design(name, lstm_geometry(hidden, batch, ndir), wh, hidden,
+                       batch)
 
 
 def launch_fwd(geo: Geometry, xps: list, mask: torch.Tensor,
@@ -291,12 +272,12 @@ def bilstm(xp_f: torch.Tensor, xp_b: torch.Tensor, mask: torch.Tensor,
     else:
         outs = launch_fwd(geo, [xp_f, xp_b], mask, [wh_f, wh_b], keep)
         bilstm.launches += 1
-        bilstm.by_design[_design_key(geo, wh_f)] += 1
+        bilstm.by_design[design_key(geo, wh_f)] += 1
     return (*outs[:4], tuple(outs[4:])) if residual else tuple(outs)
 
 
 bilstm.launches = 0
-bilstm.by_design = _by_design()
+bilstm.by_design = design_counts()
 
 
 def lstm(xp: torch.Tensor, mask: torch.Tensor, wh: torch.Tensor,
@@ -320,12 +301,12 @@ def lstm(xp: torch.Tensor, mask: torch.Tensor, wh: torch.Tensor,
     else:
         outs = launch_fwd(geo, [xp], mask, [wh], keep, h0, c0)
         lstm.launches += 1
-        lstm.by_design[_design_key(geo, wh)] += 1
+        lstm.by_design[design_key(geo, wh)] += 1
     return (*outs[:2], tuple(outs[2:])) if residual else tuple(outs)
 
 
 lstm.launches = 0
-lstm.by_design = _by_design()
+lstm.by_design = design_counts()
 
 
 def _walk_bwd(xp, mask, wh, h, c, dh_out, reverse: bool) -> torch.Tensor:
@@ -457,12 +438,12 @@ def bilstm_bwd(xp_f: torch.Tensor, xp_b: torch.Tensor, mask: torch.Tensor,
     dxp_f, dxp_b = launch_bwd(geo, [xp_f, xp_b], mask, [wh_f, wh_b],
                               [h_f, h_b], [c_f, c_b], [dh_f, dh_b], list(res))
     bilstm_bwd.launches += 1
-    bilstm_bwd.by_design[_design_key(geo, wh_f)] += 1
+    bilstm_bwd.by_design[design_key(geo, wh_f)] += 1
     return dxp_f, dxp_b
 
 
 bilstm_bwd.launches = 0
-bilstm_bwd.by_design = _by_design()
+bilstm_bwd.by_design = design_counts()
 
 
 def lstm_bwd(xp: torch.Tensor, mask: torch.Tensor, wh: torch.Tensor,
@@ -482,12 +463,12 @@ def lstm_bwd(xp: torch.Tensor, mask: torch.Tensor, wh: torch.Tensor,
             return lstm_bwd_plain(xp, mask, wh, h, c, dh)
     (dxp,) = launch_bwd(geo, [xp], mask, [wh], [h], [c], [dh], list(res))
     lstm_bwd.launches += 1
-    lstm_bwd.by_design[_design_key(geo, wh)] += 1
+    lstm_bwd.by_design[design_key(geo, wh)] += 1
     return dxp
 
 
 lstm_bwd.launches = 0
-lstm_bwd.by_design = _by_design()
+lstm_bwd.by_design = design_counts()
 
 
 def _dwh(h: torch.Tensor, dxp: torch.Tensor, reverse: bool,

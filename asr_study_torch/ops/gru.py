@@ -38,6 +38,22 @@ autograd graph: gradients go through :class:`BiGRUFunction` and
 :class:`GRUFunction`, whose backward is the backward kernel plus one
 ``h_prev^T @ dhp`` matmul per direction for the recurrent weights.
 
+bfloat16 weights (``train --bf16``, the JAX trainer's ``compute_dtype``,
+under which ``pallas_bigru`` / ``pallas_gru`` run with a bfloat16 wh):
+``wh`` may be bfloat16 in every wrapper, both directions alike, while xp,
+the mask, h and every cotangent stay float32.  The cluster and wide
+designs then launch their bfloat16-weight forms (the same sources, the
+``_bf16`` entry points): h_prev is rounded to bfloat16 where it enters
+``h_prev @ wh`` (and only there: the cell's ``z * h_prev`` and a held
+frame take it unrounded), the backward recomputes that product the same
+way and rounds ``dhp`` before ``dhp @ wh^T``, as the JAX kernels' ``_mm``
+does, each product taken in float32; dxp and dhp come out unrounded.  The
+plain twins round the same way (:func:`~asr_study_torch.models.nn.dot`),
+and ``dwh`` comes back bfloat16.  A bfloat16 call whose shape goes to the
+stream design raises (:data:`~asr_study_torch.ops.recurrence.BF16_ITEM`);
+``by_design`` counts bfloat16 launches under ``cluster_bf16`` and
+``wide_bf16``.
+
 Gate order r, z, n with every bias folded into ``xp`` (valid because
 ``n = tanh((xn + bn) + r * hn)``).  Masked frames hold ``h``.  :func:`gru`
 and its plain twin start from a carried ``h0`` [B, H] where given (zeros
@@ -52,11 +68,14 @@ import torch
 
 from asr_study_torch import _build
 from asr_study_torch.models.cells import gru_update
+from asr_study_torch.models.nn import dot
 from asr_study_torch.ops.recurrence import (STREAM_ROWS, WIDE_UNITS,
-                                            Geometry, check, check_carry,
-                                            check_res, cluster_geometry,
-                                            cotangent, kernel_info, prev, r4,
-                                            stream, wide_geometry)
+                                            Geometry, bf16_design, check,
+                                            check_carry, check_res,
+                                            cluster_geometry, cotangent,
+                                            design_counts, design_key,
+                                            kernel_info, prev, r4, stream,
+                                            wide_geometry)
 
 # The cluster kernels' thread shape (csrc/gru_{fwd,bwd}.cu kThreads and
 # kSlice): 384 threads a CTA, each holding 64 rows of one gate column, so at
@@ -158,12 +177,13 @@ def _scan(xp: torch.Tensor, mask: torch.Tensor, wh: torch.Tensor,
     """One direction's h sequence [T, B, H] in forward time order, and with
     ``keep_hg`` the h side of every frame's pre-activations ``h_prev @ wh``
     [T, B, 3H] (held frames too: the step computes it before the mask holds
-    h); from ``h0`` [B, H] where given, else zeros."""
+    h; in wh's dtype, :func:`dot`); from ``h0`` [B, H] where given, else
+    zeros."""
     t_steps, batch, gh = xp.shape
     h = xp.new_zeros((batch, gh // 3)) if h0 is None else h0
     hs, hgs = [None] * t_steps, [None] * t_steps
     for t in (reversed(range(t_steps)) if reverse else range(t_steps)):
-        hg = torch.matmul(h, wh)
+        hg = dot(h, wh)
         h = gru_update(hg, h, xp[t], mask[t])
         hs[t] = h
         if keep_hg:
@@ -194,8 +214,11 @@ def gru_plain(xp: torch.Tensor, mask: torch.Tensor, wh: torch.Tensor,
     return out if keep_hg else out[0]
 
 
-def _geometry(xp: torch.Tensor, ndir: int) -> Geometry:
-    return gru_geometry(xp.shape[2] // 3, xp.shape[1], ndir)
+def _geometry(name: str, xp: torch.Tensor, wh: torch.Tensor,
+              ndir: int) -> Geometry:
+    hidden, batch = xp.shape[2] // 3, xp.shape[1]
+    return bf16_design(name, gru_geometry(hidden, batch, ndir), wh, hidden,
+                       batch)
 
 
 def launch_fwd(geo: Geometry, xps: list, mask: torch.Tensor,
@@ -218,21 +241,23 @@ def launch_fwd(geo: Geometry, xps: list, mask: torch.Tensor,
             outs[-1].data_ptr())
     init = None if h0 is None else h0.data_ptr()
     dims = (t_steps, batch, hidden, ndir)
+    form = "_bf16" if whs[0].dtype == torch.bfloat16 else ""
     with torch.cuda.device(xps[0].device):
         if geo.design == "cluster":
-            err = _build.lib().asr_gru_fwd(*ptrs, init, *dims, geo.ctas,
-                                           geo.units, geo.rows,
-                                           stream(xps[0]))
+            err = getattr(_build.lib(), f"asr_gru_fwd{form}")(
+                *ptrs, init, *dims, geo.ctas, geo.units, geo.rows,
+                stream(xps[0]))
         elif geo.design == "wide":
             hg_ptrs = ((hgs[0].data_ptr(), hgs[-1].data_ptr()) if keep_hg
                        else (None, None))
-            err = _build.lib().asr_gru_wide_fwd(
+            err = getattr(_build.lib(), f"asr_gru_wide_fwd{form}")(
                 *ptrs, *hg_ptrs, init, *dims, geo.ctas, geo.units, geo.rows,
                 stream(xps[0]))
         else:
             err = _build.lib().asr_gru_stream_fwd(*ptrs, init, *dims,
                                                   stream(xps[0]))
-    _build.check(err, f"{'bigru' if ndir == 2 else 'gru'}_fwd ({geo.design})")
+    _build.check(err, f"{'bigru' if ndir == 2 else 'gru'}_fwd "
+                      f"({geo.design}{form})")
     return outs + hgs
 
 
@@ -245,7 +270,8 @@ def bigru(xp_f: torch.Tensor, xp_b: torch.Tensor, mask: torch.Tensor,
     xp_f, xp_b: [T, B, 3H] float32, ``x @ wx + b`` of each direction, both in
                 forward time order (the reverse walk happens inside)
     mask:       [T, B, 1] float32, 1.0 on real frames
-    wh_f, wh_b: [H, 3H] float32 recurrent weights, gate order r, z, n
+    wh_f, wh_b: [H, 3H] float32 (or both bfloat16) recurrent weights,
+                gate order r, z, n
     residual:   also return ``res``, what :func:`bigru_bwd` reads beyond
                 these outputs, to pass on to it unopened: where
                 :func:`gru_geometry` gives the wide design the h side of the
@@ -256,8 +282,8 @@ def bigru(xp_f: torch.Tensor, xp_b: torch.Tensor, mask: torch.Tensor,
                 :class:`BiGRUFunction` is the differentiable form.
     """
     check("bigru", 3, mask, dict(xp_f=xp_f, xp_b=xp_b),
-          dict(wh_f=wh_f, wh_b=wh_b), {})
-    geo = _geometry(xp_f, 2)
+          dict(wh_f=wh_f, wh_b=wh_b), {}, bf16=True)
+    geo = _geometry("bigru", xp_f, wh_f, 2)
     keep = residual and geo.design == "wide"
     if xp_f.device.type == "cpu":
         with torch.no_grad():
@@ -265,12 +291,12 @@ def bigru(xp_f: torch.Tensor, xp_b: torch.Tensor, mask: torch.Tensor,
     else:
         outs = launch_fwd(geo, [xp_f, xp_b], mask, [wh_f, wh_b], keep)
         bigru.launches += 1
-        bigru.by_design[geo.design] += 1
+        bigru.by_design[design_key(geo, wh_f)] += 1
     return (*outs[:2], tuple(outs[2:])) if residual else tuple(outs)
 
 
 bigru.launches = 0
-bigru.by_design = {"cluster": 0, "wide": 0, "stream": 0}
+bigru.by_design = design_counts()
 
 
 def gru(xp: torch.Tensor, mask: torch.Tensor, wh: torch.Tensor,
@@ -282,9 +308,9 @@ def gru(xp: torch.Tensor, mask: torch.Tensor, wh: torch.Tensor,
     from (zeros where not given); h[T-1] is the one it ends in, a masked
     frame repeating the one before.  :class:`GRUFunction` is the
     differentiable form."""
-    check("gru", 3, mask, dict(xp=xp), dict(wh=wh), {})
+    check("gru", 3, mask, dict(xp=xp), dict(wh=wh), {}, bf16=True)
     check_carry("gru", xp, 3, h0=h0)
-    geo = _geometry(xp, 1)
+    geo = _geometry("gru", xp, wh, 1)
     keep = residual and geo.design == "wide"
     if xp.device.type == "cpu":
         with torch.no_grad():
@@ -292,12 +318,12 @@ def gru(xp: torch.Tensor, mask: torch.Tensor, wh: torch.Tensor,
     else:
         outs = launch_fwd(geo, [xp], mask, [wh], keep, h0)
         gru.launches += 1
-        gru.by_design[geo.design] += 1
+        gru.by_design[design_key(geo, wh)] += 1
     return (outs[0], tuple(outs[1:])) if residual else outs[0]
 
 
 gru.launches = 0
-gru.by_design = {"cluster": 0, "wide": 0, "stream": 0}
+gru.by_design = design_counts()
 
 
 def _walk_bwd(xp, mask, wh, h, dh_out, reverse: bool, hg=None
@@ -305,14 +331,16 @@ def _walk_bwd(xp, mask, wh, h, dh_out, reverse: bool, hg=None
     """One direction's cotangent walk (``_gru_row_bwd`` of the JAX
     package), from the end of its own time order back -> (dxp, dhp); the h
     side of the pre-activations from ``hg`` [T, B, 3H] (the wide forward's
-    res) where given, else recomputed as ``h_prev @ wh``."""
+    res) where given, else recomputed as ``h_prev @ wh``; both products in
+    wh's dtype (:func:`dot`), dxp and dhp unrounded."""
     t_steps, batch, gh = xp.shape
     hp = prev(h, reverse)
     dxp, dhp = torch.empty_like(xp), torch.empty_like(xp)
     dh_next = xp.new_zeros((batch, gh // 3))
     for t in (range(t_steps) if reverse else reversed(range(t_steps))):
         m = mask[t] > 0                                      # [B, 1]
-        hr, hz, hn = (hp[t] @ wh if hg is None else hg[t]).chunk(3, dim=-1)
+        hg_t = dot(hp[t], wh) if hg is None else hg[t]
+        hr, hz, hn = hg_t.chunk(3, dim=-1)
         xr, xz, xn = xp[t].chunk(3, dim=-1)
         r = torch.sigmoid(xr + hr)
         z = torch.sigmoid(xz + hz)
@@ -324,8 +352,9 @@ def _walk_bwd(xp, mask, wh, h, dh_out, reverse: bool, hg=None
         dxp[t] = torch.where(m, torch.cat([dpre_r, dpre_z, dpre_n], -1), 0.0)
         dhp[t] = torch.where(m, torch.cat([dpre_r, dpre_z, dpre_n * r], -1),
                              0.0)
-        # a held frame passes its h (and the cotangent) straight on
-        dh_next = dhp[t] @ wh.t() + torch.where(m, dh * z, dh)
+        # a held frame passes its h (and the cotangent) straight on; with
+        # bfloat16 weights dhp is rounded before the product (dot)
+        dh_next = dot(dhp[t], wh.t()) + torch.where(m, dh * z, dh)
     return dxp, dhp
 
 
@@ -370,16 +399,17 @@ def launch_bwd(geo: Geometry, xps: list, mask: torch.Tensor, whs: list,
     hidden, ndir = gh // 3, len(xps)
     tail = (hs[0], hs[-1], dhs[0], dhs[-1], outs[0], outs[1], outs[-2],
             outs[-1])
+    form = "_bf16" if whs[0].dtype == torch.bfloat16 else ""
     with torch.cuda.device(xps[0].device):
         if geo.design == "cluster":
             args = (xps[0], xps[-1], mask, whs[0], whs[-1], *tail)
-            err = _build.lib().asr_gru_bwd(
+            err = getattr(_build.lib(), f"asr_gru_bwd{form}")(
                 *(t.data_ptr() for t in args), t_steps, batch, hidden, ndir,
                 geo.ctas, geo.units, geo.rows, stream(xps[0]))
         elif geo.design == "wide":
             args = (xps[0], xps[-1], hgs[0], hgs[-1], mask, whs[0], whs[-1],
                     *tail)
-            err = _build.lib().asr_gru_wide_bwd(
+            err = getattr(_build.lib(), f"asr_gru_wide_bwd{form}")(
                 *(t.data_ptr() for t in args), t_steps, batch, hidden, ndir,
                 geo.ctas, geo.units, geo.rows, stream(xps[0]))
         else:
@@ -389,7 +419,8 @@ def launch_bwd(geo: Geometry, xps: list, mask: torch.Tensor, whs: list,
             err = _build.lib().asr_gru_stream_bwd(
                 *(t.data_ptr() for t in args), t_steps, batch, hidden, ndir,
                 stream(xps[0]))
-    _build.check(err, f"{'bigru' if ndir == 2 else 'gru'}_bwd ({geo.design})")
+    _build.check(err, f"{'bigru' if ndir == 2 else 'gru'}_bwd "
+                      f"({geo.design}{form})")
     return outs
 
 
@@ -409,8 +440,8 @@ def bigru_bwd(xp_f: torch.Tensor, xp_b: torch.Tensor, mask: torch.Tensor,
     is ``h_prev^T dhp``."""
     check("bigru_bwd", 3, mask, dict(xp_f=xp_f, xp_b=xp_b),
           dict(wh_f=wh_f, wh_b=wh_b),
-          dict(h_f=h_f, h_b=h_b, dh_f=dh_f, dh_b=dh_b))
-    geo = _geometry(xp_f, 2)
+          dict(h_f=h_f, h_b=h_b, dh_f=dh_f, dh_b=dh_b), bf16=True)
+    geo = _geometry("bigru_bwd", xp_f, wh_f, 2)
     check_res("bigru_bwd", 3, geo, mask, dict(xp_f=xp_f, xp_b=xp_b), res,
               "hg")
     if xp_f.device.type == "cpu":
@@ -423,12 +454,12 @@ def bigru_bwd(xp_f: torch.Tensor, xp_b: torch.Tensor, mask: torch.Tensor,
     outs = launch_bwd(geo, [xp_f, xp_b], mask, [wh_f, wh_b], [h_f, h_b],
                       [dh_f, dh_b], list(res))
     bigru_bwd.launches += 1
-    bigru_bwd.by_design[geo.design] += 1
+    bigru_bwd.by_design[design_key(geo, wh_f)] += 1
     return tuple(outs)
 
 
 bigru_bwd.launches = 0
-bigru_bwd.by_design = {"cluster": 0, "wide": 0, "stream": 0}
+bigru_bwd.by_design = design_counts()
 
 
 def gru_bwd(xp: torch.Tensor, mask: torch.Tensor, wh: torch.Tensor,
@@ -437,8 +468,9 @@ def gru_bwd(xp: torch.Tensor, mask: torch.Tensor, wh: torch.Tensor,
     """The cotangent walk of :func:`gru` -> (dxp, dhp), as in
     :func:`bigru_bwd` for one direction (h and ``res`` as :func:`gru`
     returned them with ``residual=True``)."""
-    check("gru_bwd", 3, mask, dict(xp=xp), dict(wh=wh), dict(h=h, dh=dh))
-    geo = _geometry(xp, 1)
+    check("gru_bwd", 3, mask, dict(xp=xp), dict(wh=wh), dict(h=h, dh=dh),
+          bf16=True)
+    geo = _geometry("gru_bwd", xp, wh, 1)
     check_res("gru_bwd", 3, geo, mask, dict(xp=xp), res, "hg")
     if xp.device.type == "cpu":
         with torch.no_grad():
@@ -447,20 +479,22 @@ def gru_bwd(xp: torch.Tensor, mask: torch.Tensor, wh: torch.Tensor,
             return gru_bwd_plain(xp, mask, wh, h, dh)
     dxp, dhp = launch_bwd(geo, [xp], mask, [wh], [h], [dh], list(res))
     gru_bwd.launches += 1
-    gru_bwd.by_design[geo.design] += 1
+    gru_bwd.by_design[design_key(geo, wh)] += 1
     return dxp, dhp
 
 
 gru_bwd.launches = 0
-gru_bwd.by_design = {"cluster": 0, "wide": 0, "stream": 0}
+gru_bwd.by_design = design_counts()
 
 
-def _dwh(h: torch.Tensor, dhp: torch.Tensor, reverse: bool) -> torch.Tensor:
+def _dwh(h: torch.Tensor, dhp: torch.Tensor, reverse: bool,
+         wh: torch.Tensor) -> torch.Tensor:
     """``h_prev^T dhp`` over all T*B rows (not ``dxp``: its n block lacks
-    the factor r)."""
+    the factor r): one float32 matmul, cast to wh's dtype (as
+    ``pallas_gru.py``'s einsum and its ``astype``)."""
     hidden = h.shape[-1]
-    return prev(h, reverse).reshape(-1, hidden).t() @ dhp.reshape(
-        -1, 3 * hidden)
+    return (prev(h, reverse).reshape(-1, hidden).t() @ dhp.reshape(
+        -1, 3 * hidden)).to(wh.dtype)
 
 
 class BiGRUFunction(torch.autograd.Function):
@@ -485,8 +519,8 @@ class BiGRUFunction(torch.autograd.Function):
         dxp_f, dhp_f, dxp_b, dhp_b = bigru_bwd(
             xp_f, xp_b, mask, wh_f, wh_b, h_f, h_b, cotangent(dh_f, h_f),
             cotangent(dh_b, h_b), tuple(res))
-        return (dxp_f, dxp_b, None, _dwh(h_f, dhp_f, False),
-                _dwh(h_b, dhp_b, True))
+        return (dxp_f, dxp_b, None, _dwh(h_f, dhp_f, False, wh_f),
+                _dwh(h_b, dhp_b, True, wh_b))
 
 
 class GRUFunction(torch.autograd.Function):
@@ -505,4 +539,4 @@ class GRUFunction(torch.autograd.Function):
     def backward(ctx, dh):
         xp, mask, wh, h, *res = ctx.saved_tensors
         dxp, dhp = gru_bwd(xp, mask, wh, h, cotangent(dh, h), tuple(res))
-        return dxp, None, _dwh(h, dhp, False)
+        return dxp, None, _dwh(h, dhp, False, wh)

@@ -51,7 +51,7 @@ WIDE_BUDGET = 6
 WIDE_ROWS = (4, 8, 16)
 
 # where bf16 compute (the JAX trainer's compute_dtype, train --bf16) waits
-# for every recurrence but the LSTM's cluster and wide designs
+# for every recurrence but the LSTM's and the GRU's cluster and wide designs
 BF16_ITEM = "ROADMAP queue A item 5b"
 
 
@@ -116,6 +116,34 @@ def wide_geometry(hidden: int, batch: int, ndir: int,
             return Geometry("wide", ctas, WIDE_UNITS, rows,
                             (ctas, groups, ndir), fwd, bwd)
     return None
+
+
+def bf16_design(name: str, geo: Geometry, wh: torch.Tensor, hidden: int,
+                batch: int) -> Geometry:
+    """``geo``, the layout of a call of the LSTM or GRU wrapper ``name``
+    with weights ``wh``; a bfloat16 call that it sends to the stream design
+    raises (that design has no bfloat16 form, and no call quietly takes
+    float32)."""
+    if wh.dtype == torch.bfloat16 and geo.design == "stream":
+        raise ValueError(
+            f"{name}: bfloat16 weights at H={hidden}, B={batch}, "
+            f"{geo.grid[2]} direction(s) go to the stream design, which has "
+            f"no bfloat16 form yet ({BF16_ITEM}); the cluster and wide "
+            f"designs take H <= 512 up to B=48 in two directions and B=96 "
+            f"in one")
+    return geo
+
+
+def design_key(geo: Geometry, wh: torch.Tensor) -> str:
+    """The ``by_design`` key of a launch of the LSTM or GRU kernels: the
+    design, ``_bf16`` added for the bfloat16-weight forms."""
+    return geo.design + ("_bf16" if wh.dtype == torch.bfloat16 else "")
+
+
+def design_counts() -> dict:
+    """A fresh ``by_design`` of the LSTM and GRU wrappers."""
+    return {"cluster": 0, "wide": 0, "stream": 0, "cluster_bf16": 0,
+            "wide_bf16": 0}
 
 
 def kernel_info(name: str, geo: Geometry, batch: int, hidden: int

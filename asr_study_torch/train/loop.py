@@ -39,9 +39,11 @@ from asr_study_torch.utils.metrics_writer import MetricWriter
 # the augmentations' stream, apart from dropout's (the JAX step folds 0x5A
 # and 0x3A into its key for them)
 AUGMENT_STREAM = 0x5A
-# an odd 64-bit constant (the golden ratio's): rank r's seeds differ from
-# rank 0's in every bit range
+# odd 64-bit constants (the golden ratio's; splitmix64's first
+# multiplier): rank r's and stream s's seeds differ from rank 0's and
+# stream 0's in every bit range, the low 32 bits included
 _RANK_MIX = 0x9E3779B97F4A7C15
+_STREAM_MIX = 0xBF58476D1CE4E5B9
 
 
 def step_generator(device: torch.device, seed: int, step: int,
@@ -51,12 +53,13 @@ def step_generator(device: torch.device, seed: int, step: int,
     ``rank``, a function of (seed, step, rank) like the JAX step's
     ``fold_in(rng, step)`` and, on a mesh, ``fold_in(rng, axis_index)``:
     a resumed run draws the masks an uninterrupted one would, and the
-    ranks draw different ones (rank 0 those of one device).  The rank is
-    mixed into the low 32 bits too, the only ones the CPU generator's
-    Mersenne twister takes."""
-    base = seed * 1_000_003 + step + (stream << 40)
+    ranks draw different ones (rank 0 those of one device).  The rank and
+    the stream are mixed into the low 32 bits too, the only ones the CPU
+    generator's Mersenne twister takes; stream 0 and rank 0 leave the seed
+    ``seed * 1_000_003 + step``."""
+    base = seed * 1_000_003 + step
     return torch.Generator(device=device).manual_seed(
-        (base ^ (rank * _RANK_MIX)) % (2 ** 63))
+        (base ^ (rank * _RANK_MIX) ^ (stream * _STREAM_MIX)) % (2 ** 63))
 
 
 def _start_trace(device: torch.device):

@@ -54,8 +54,8 @@ result (``models.nn.dot``, the recurrent kernels' bfloat16-weight forms)
 while h, c, dropout, the skips and the CTC loss stay float32.  The cast's
 autograd hands the float32 master weights gradients rounded to bfloat16;
 the clip, the optimizer and its state, the eval step and checkpoints stay
-float32.  Only models built from ``LSTMCell`` have the kernels for it; the
-other cells wait on :data:`BF16_ITEM`.
+float32.  Only models built from ``LSTMCell`` or ``GRUCell`` have the
+kernels for it; the other cells wait on :data:`BF16_ITEM`.
 
 Data parallelism (``Trainer(group=)``, ``train --num_devices N``) is the
 JAX trainer's ``shard_map`` over a ``data`` mesh, one process a rank
@@ -83,7 +83,7 @@ from asr_study_torch.ops import ctc
 from asr_study_torch.ops.metrics import edit_distance
 from asr_study_torch.parallel import dp
 # where bf16 compute (the JAX trainer's compute_dtype, train --bf16) waits
-# for the cells other than LSTMCell
+# for the cells other than LSTMCell and GRUCell
 from asr_study_torch.ops.recurrence import BF16_ITEM
 
 OPTIMIZERS = ("adam", "adamw", "rmsprop", "sgd")
@@ -357,7 +357,7 @@ class Trainer:
     ``FloatingPointError`` at the first non-finite loss or gradient norm.
     ``compute_dtype`` ``torch.bfloat16`` runs the train step in mixed
     precision (the module docstring); a model holding a cell other than
-    ``LSTMCell`` refuses it.  ``group`` (a ``parallel.dp.DataGroup`` on the
+    ``LSTMCell`` and ``GRUCell`` refuses it.  ``group`` (a ``parallel.dp.DataGroup`` on the
     model's device) makes the steps data-parallel, as the JAX trainer's
     ``mesh=``."""
 
@@ -377,11 +377,11 @@ class Trainer:
         if compute_dtype == torch.bfloat16:
             others = sorted({type(m).__name__ for m in model.modules()
                              if isinstance(m, (LSTMCell, GRUCell))
-                             and type(m) is not LSTMCell})
+                             and type(m) not in (LSTMCell, GRUCell)})
             if others:
                 raise ValueError(
                     f"compute_dtype=torch.bfloat16: the bfloat16 kernels "
-                    f"cover LSTMCell only, and this model holds "
+                    f"cover LSTMCell and GRUCell only, and this model holds "
                     f"{', '.join(others)} ({BF16_ITEM})")
         self.compute_dtype = (compute_dtype if compute_dtype == torch.bfloat16
                               else None)

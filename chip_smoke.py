@@ -75,8 +75,10 @@ paths at full width, with random weights from a seeded
 - bf16 training (``train --bf16``, ``Trainer(compute_dtype=
   torch.bfloat16)``): train steps of deep_blstm 3x256 (the LSTM cluster
   kernels' bfloat16-weight forms) and deep_speech (the wide kernels'),
-  each bidirectional and unidirectional, and ``cli.train --bf16`` of
-  deep_blstm on the corpus manifest;
+  each bidirectional and unidirectional, of deep_gru 3x256 (the GRU
+  cluster kernels'), bidirectional and unidirectional, and 3x512 (the wide
+  GRU kernels'), and ``cli.train --bf16`` of deep_blstm and deep_gru on the
+  corpus manifest;
 - data parallelism (BASELINE config 5, ``train --num_devices``,
   ``Trainer(group=)``): deep_blstm 3x256 at B=32, T=512 in two ranks
   (``parallel.dp.launch``) that share the one card over gloo, which stages
@@ -153,26 +155,29 @@ Phases, in order; any failure raises and the exit code is not 0:
    the CPU, run twice bit for bit; accumulation over two halves against
    the whole batch; check_nans raising on a NaN batch with the weights
    untouched; fit(profile=True) writing a trace with the card's kernels;
-   then the bf16 phase: the four bfloat16-weight forms (the cluster and
-   wide LSTM kernels, forward and backward) against their plain twins at
-   T=512, B=32, H=256 and 512, one and two directions (h, c, the kept
-   gates, dxp; dwh after its matmul), two launches bit-equal, each timed
-   beside its float32 form, its bound and cuDNN ``nn.LSTM`` in bfloat16;
-   BF16_STEPS bf16 train steps of deep_blstm and deep_speech, each
-   bidirectional and with ``bidirectional=false``, from the float32
-   slice's weights, their launches (the bf16 forms only), losses
-   beside the float32 run's, two identical steps bit-equal, ms a step;
+   then the bf16 phase: the eight bfloat16-weight forms (the cluster and
+   wide LSTM and GRU kernels, forward and backward) against their plain
+   twins at T=512, B=32, H=256 and 512, one and two directions (h, c, the
+   kept gates or h side, dxp, the GRU's dhp; dwh after its matmul), two
+   launches bit-equal, each timed beside its float32 form, its bound and
+   cuDNN ``nn.LSTM`` / ``nn.GRU`` in bfloat16; BF16_STEPS bf16 train steps
+   of deep_blstm and deep_speech, each bidirectional and with
+   ``bidirectional=false``, and of deep_gru 3x256 bi and uni and 3x512,
+   from the float32 slice's weights, their launches (the bf16 forms only),
+   losses beside the float32 run's, two identical steps bit-equal, ms a
+   step;
 8. the corpus phase: each CLI run's launches held to what its steps and
    evals need, every logged loss finite and the train loss falling from
    the first epoch to the third, the step count continued by ``--resume``,
    eval's valid loss equal to the run's last ``val_loss``, finite test
-   CER and WER, then ``train --bf16`` for an epoch (the bf16 cluster forms
-   in every step); the host seconds of the synthesis and of the manifest's
-   features, ms per train step (CUDA events) and audio-s/s, eval ms per
-   batch; then the h5 phase on its corpus: make_dataset --output (host
-   MFCC in both layouts, raw, and --device over pcm16 and dpack: the two
-   bit-equal, near host MFCC), train from the .h5 (each step's loss that
-   of the manifest run's first epoch) and with --device_features,
+   CER and WER, then ``train --bf16`` of deep_blstm and of deep_gru for an
+   epoch each (the bf16 cluster forms in every step); the host seconds of
+   the synthesis and of the manifest's features, ms per train step (CUDA
+   events) and audio-s/s, eval ms per batch; then the h5 phase on its
+   corpus: make_dataset --output (host MFCC in both layouts, raw, and
+   --device over pcm16 and dpack: the two bit-equal, near host MFCC),
+   train from the .h5 (each step's loss that of the manifest run's first
+   epoch) and with --device_features,
    --spec_augment and --wav_augment (fbank in every step), eval and
    predict of that run; extraction rates, flow_from_h5's read rate;
 9. the beam phase: ctc_beam against its plain twin on the card (all W
@@ -3131,6 +3136,12 @@ KERNELS = {
     "bilstm_bwd_bf16": ("bilstm_bwd.cu", "ops/pallas_bilstm.py:125"),
     "bilstm_fwd_wide_bf16": ("lstm_wide_fwd.cu", "ops/pallas_bilstm.py:84"),
     "bilstm_bwd_wide_bf16": ("lstm_wide_bwd.cu", "ops/pallas_bilstm.py:125"),
+    # the GRU's bfloat16-weight forms: the cluster and wide GRU kernels on
+    # a bfloat16 wh, the same sources
+    "bigru_fwd_bf16": ("gru_fwd.cu", "ops/pallas_bigru.py:69"),
+    "bigru_bwd_bf16": ("gru_bwd.cu", "ops/pallas_bigru.py:92"),
+    "bigru_fwd_wide_bf16": ("gru_wide_fwd.cu", "ops/pallas_bigru.py:69"),
+    "bigru_bwd_wide_bf16": ("gru_wide_bwd.cu", "ops/pallas_bigru.py:92"),
 }
 # kernel line row of the wide design -> the wrapper that launches it
 WIDE_ROWS = {"bilstm_fwd_wide": "bilstm_fwd", "bilstm_bwd_wide": "bilstm_bwd",
@@ -3142,7 +3153,8 @@ WIDE_ROWS = {"bilstm_fwd_wide": "bilstm_fwd", "bilstm_bwd_wide": "bilstm_bwd",
 # it, its by_design key); the unidirectional wrappers' rows are counted but
 # not in the kernels line, whose bf16 rows are the bidirectional ones
 BF16_ROWS = {f"{w}{wide}_bf16": (w, ("wide" if wide else "cluster") + "_bf16")
-             for w in ("bilstm_fwd", "bilstm_bwd", "lstm_fwd", "lstm_bwd")
+             for w in ("bilstm_fwd", "bilstm_bwd", "lstm_fwd", "lstm_bwd",
+                       "bigru_fwd", "bigru_bwd", "gru_fwd", "gru_bwd")
              for wide in ("", "_wide")}
 
 # training paths: label -> (zoo model, its hparams, forward and backward
@@ -5285,18 +5297,28 @@ BF16_PATHS = {
                         "bidirectional=false", "lstm_fwd_wide_bf16",
                         "lstm_bwd_wide_bf16", 1,
                         "3x512 dense + 1x512 unidirectional LSTM"),
+    "deep_gru": ("deep_gru", _CONFIG3, "bigru_fwd_bf16", "bigru_bwd_bf16",
+                 TRAIN_LAYERS, f"{TRAIN_LAYERS}x{HIDDEN} BGRU"),
+    "deep_gru uni": ("deep_gru", _CONFIG3 + ",bidirectional=false",
+                     "gru_fwd_bf16", "gru_bwd_bf16", TRAIN_LAYERS,
+                     f"{TRAIN_LAYERS}x{HIDDEN} unidirectional GRU"),
+    "deep_gru 512": ("deep_gru", f"num_hiddens=512,num_layers={TRAIN_LAYERS}"
+                     ",dropout=0.0", "bigru_fwd_wide_bf16",
+                     "bigru_bwd_wide_bf16", TRAIN_LAYERS,
+                     f"{TRAIN_LAYERS}x512 BGRU"),
 }
 BF16_STEPS = 5
 
 
-def bf16_library(hidden: int, ndir: int, t: int, b: int, dev,
+def bf16_library(cell: str, hidden: int, ndir: int, t: int, b: int, dev,
                  reps: int = 5) -> tuple[float, float]:
-    """cuDNN ``nn.LSTM(H, H)`` in bfloat16 (weights and input) at T, B,
-    ``ndir`` directions, unpacked -> (forward ms, backward ms as forward +
-    backward less forward).  It includes the input projection, which the
-    port's kernels leave to cuBLAS."""
-    ref = torch.nn.LSTM(hidden, hidden, bidirectional=ndir == 2).to(
-        dev, torch.bfloat16)
+    """cuDNN ``nn.LSTM(H, H)`` (``cell`` "lstm") or ``nn.GRU(H, H)`` ("gru")
+    in bfloat16 (weights and input) at T, B, ``ndir`` directions, unpacked
+    -> (forward ms, backward ms as forward + backward less forward).  It
+    includes the input projection, which the port's kernels leave to
+    cuBLAS."""
+    ref = (torch.nn.LSTM if cell == "lstm" else torch.nn.GRU)(
+        hidden, hidden, bidirectional=ndir == 2).to(dev, torch.bfloat16)
     ref.flatten_parameters()
     x = torch.randn(t, b, hidden, device=dev, dtype=torch.bfloat16)
     x_req = x.clone().requires_grad_()
@@ -5309,25 +5331,106 @@ def bf16_library(hidden: int, ndir: int, t: int, b: int, dev,
     return fwd, fb - fwd_grad
 
 
-def check_bf16_kernels(dev: torch.device, card: str) -> dict:
-    """The four bfloat16-weight forms (cluster and wide, forward and
-    backward, each over one and two directions) against their plain twins
-    on the card at the training shapes T=TRAIN_T, B=TRAIN_B, at H=256 and
-    H=512: h, c (the wide design's kept gates too) and dxp within
-    BF16_ATOL + BF16_RTOL * |plain|, dwh = h_prev^T dxp in bfloat16 within
-    BF16_DWH_FRAC of its max abs; two launches bit-equal; each form timed
-    beside its float32 form on the same inputs, its bound and cuDNN
-    ``nn.LSTM`` in bfloat16.  -> the kernel line's entries of the
-    bidirectional forms."""
-    from asr_study_torch.ops import bilstm as B
+class Bf16Family:
+    """What check_bf16_kernels needs of one recurrence: the LSTM's
+    (ops/bilstm.py) or the GRU's (ops/gru.py) wrappers, plain twins and
+    dwh, in one shape.  ``fwd`` -> (the h (and c) sequences, res); ``bwd``
+    -> the backward's outputs (LSTM: dxp a direction; GRU: dxp, dhp a
+    direction); ``dwh_args(outs, d, i)`` -> (h, the cotangent dwh takes)
+    of direction i."""
 
+    def __init__(self, cell: str):
+        from asr_study_torch.ops import bilstm as B
+        from asr_study_torch.ops import gru as G
+
+        self.cell, self.gates = cell, 4 if cell == "lstm" else 3
+        self.mod = B if cell == "lstm" else G
+        self.geometry = B.lstm_geometry if cell == "lstm" else G.gru_geometry
+        self.name = "LSTM" if cell == "lstm" else "GRU"
+        self.row = "bilstm_{}" if cell == "lstm" else "bigru_{}"
+
+    def wrappers(self, ndir: int) -> tuple:
+        m = self.mod
+        if self.cell == "lstm":
+            return (m.bilstm, m.bilstm_bwd) if ndir == 2 else (m.lstm,
+                                                               m.lstm_bwd)
+        return (m.bigru, m.bigru_bwd) if ndir == 2 else (m.gru, m.gru_bwd)
+
+    def fwd(self, xs, mask, ws, residual=False):
+        f = self.wrappers(len(xs))[0]
+        if len(xs) == 2:
+            return f(*xs, mask, *ws, residual=residual)
+        out = f(xs[0], mask, ws[0], residual=residual)
+        return out if isinstance(out, tuple) else (out,)
+
+    def bwd(self, xs, mask, ws, outs, dh, res) -> tuple:
+        f = self.wrappers(len(xs))[1]
+        if len(xs) == 2:
+            return tuple(f(*xs, mask, *ws, *outs, *dh, res))
+        out = f(xs[0], mask, ws[0], *outs, dh[0], res)
+        return out if isinstance(out, tuple) else (out,)
+
+    def plain(self, xs, mask, ws, outs, dh, res) -> tuple:
+        """(the forward's outputs with the wide design's res, the
+        backward's) of the plain twins; the wide backward from res."""
+        m, wide, bi = self.mod, bool(res), len(xs) == 2
+        if self.cell == "lstm":
+            if bi:
+                f = m.bilstm_plain(*xs, mask, *ws, keep_gates=wide)
+                d = (m.bilstm_bwd_gates_plain(*res, mask, *ws, outs[1],
+                                              outs[3], *dh) if wide else
+                     m.bilstm_bwd_plain(*xs, mask, *ws, *outs, *dh))
+                return f, d
+            f = m.lstm_plain(xs[0], mask, ws[0], keep_gates=wide)
+            d = ((m.lstm_bwd_gates_plain(*res, mask, ws[0], outs[1],
+                                         dh[0]),) if wide else
+                 (m.lstm_bwd_plain(xs[0], mask, ws[0], *outs, dh[0]),))
+            return f, d
+        if bi:
+            f = m.bigru_plain(*xs, mask, *ws, keep_hg=wide)
+            d = (m.bigru_bwd_res_plain(*xs, *res, mask, *ws, *outs, *dh)
+                 if wide else m.bigru_bwd_plain(*xs, mask, *ws, *outs, *dh))
+            return f, d
+        f = m.gru_plain(xs[0], mask, ws[0], keep_hg=wide)
+        d = (m.gru_bwd_res_plain(xs[0], *res, mask, ws[0], outs[0], dh[0])
+             if wide else m.gru_bwd_plain(xs[0], mask, ws[0], outs[0],
+                                          dh[0]))
+        return (f if wide else (f,)), d
+
+    def dwh_args(self, outs, d, i):
+        if self.cell == "lstm":
+            return outs[2 * i], d[i]
+        return outs[i], d[2 * i + 1]
+
+    def bwd_moved(self, xs, mask, ws, outs, dh, res, d) -> tuple:
+        """What the backward reads and writes: the LSTM's wide form the kept
+        gates and c, its cluster form xp, h and c; the GRU's xp, h (and the
+        kept h side); both the mask, wh, dh and their outputs."""
+        if self.cell == "lstm":
+            return (*(res if res else xs), *(outs[1::2] if res else outs),
+                    mask, *ws, *dh, *d)
+        return (*xs, *res, *outs, mask, *ws, *dh, *d)
+
+
+def check_bf16_kernels(dev: torch.device, card: str, cell: str) -> dict:
+    """The four bfloat16-weight forms of the LSTM (``cell`` "lstm") or the
+    GRU ("gru"): cluster and wide, forward and backward, each over one and
+    two directions, against their plain twins on the card at the training
+    shapes T=TRAIN_T, B=TRAIN_B, at H=256 and H=512: h (c; the wide
+    design's kept gates or h side) and the backward's outputs (dxp; the
+    GRU's dhp too) within BF16_ATOL + BF16_RTOL * |plain|, dwh in bfloat16
+    within BF16_DWH_FRAC of its max abs; two launches bit-equal; each form
+    timed beside its float32 form on the same inputs, its bound and cuDNN
+    ``nn.LSTM`` / ``nn.GRU`` in bfloat16.  -> the kernel line's entries of
+    the bidirectional forms."""
+    fam = Bf16Family(cell)
     errs, times, bounds, library = {}, {}, {}, {}
-    g = torch.Generator().manual_seed(SEED + 24)
-    t, b = TRAIN_T, TRAIN_B
+    g = torch.Generator().manual_seed(SEED + (24 if cell == "lstm" else 26))
+    t, b, gates = TRAIN_T, TRAIN_B, fam.gates
     for hidden in (HIDDEN, 512):
-        xps = [torch.randn(t, b, 4 * hidden, generator=g).to(dev)
+        xps = [torch.randn(t, b, gates * hidden, generator=g).to(dev)
                for _ in range(2)]
-        w32 = [(torch.randn(hidden, 4 * hidden, generator=g)
+        w32 = [(torch.randn(hidden, gates * hidden, generator=g)
                 / hidden ** 0.5).to(dev) for _ in range(2)]
         w16 = [w.to(torch.bfloat16) for w in w32]
         lengths = torch.randint(t // 2, t + 1, (b,), generator=g)
@@ -5335,102 +5438,86 @@ def check_bf16_kernels(dev: torch.device, card: str) -> dict:
         mask = mask_of(lengths, t, dev)
         dhs = [torch.randn(t, b, hidden, generator=g).to(dev)
                for _ in range(2)]
-        lib = {n: bf16_library(hidden, n, t, b, dev) for n in (2, 1)}
+        lib = {n: bf16_library(cell, hidden, n, t, b, dev) for n in (2, 1)}
         for ndir in (2, 1):
-            geo = B.lstm_geometry(hidden, b, ndir)
+            geo = fam.geometry(hidden, b, ndir)
             wide = geo.design == "wide"
             xs, dh = xps[:ndir], dhs[:ndir]
-
-            def fwd(ws, residual=False):
-                if ndir == 2:
-                    return B.bilstm(*xs, mask, *ws, residual=residual)
-                return B.lstm(xs[0], mask, ws[0], residual=residual)
-
-            def bwd(ws, hc, res):
-                if ndir == 2:
-                    return B.bilstm_bwd(*xs, mask, *ws, *hc, *dh, res)
-                return (B.lstm_bwd(xs[0], mask, ws[0], *hc, dh[0], res),)
-
-            def plain(ws, hc, res):
-                if ndir == 2:
-                    f = B.bilstm_plain(*xs, mask, *ws, keep_gates=wide)
-                    d = (B.bilstm_bwd_gates_plain(*res, mask, *ws, hc[1],
-                                                  hc[3], *dh) if wide else
-                         B.bilstm_bwd_plain(*xs, mask, *ws, *hc, *dh))
-                    return f, d
-                f = B.lstm_plain(xs[0], mask, ws[0], keep_gates=wide)
-                d = ((B.lstm_bwd_gates_plain(*res, mask, ws[0], hc[1],
-                                             dh[0]),) if wide else
-                     (B.lstm_bwd_plain(xs[0], mask, ws[0], *hc, dh[0]),))
-                return f, d
-
+            ws16, ws32 = w16[:ndir], w32[:ndir]
             key = geo.design + "_bf16"
-            wrappers = ((B.bilstm, B.bilstm_bwd) if ndir == 2
-                        else (B.lstm, B.lstm_bwd))
+            wrappers = fam.wrappers(ndir)
             before = [w.by_design[key] for w in wrappers]
             with torch.no_grad():
                 runs = []
                 for _ in range(2):
-                    *hc, res = fwd(w16, residual=True)
-                    runs.append((*hc, *res, *bwd(w16, hc, res)))
+                    *outs, res = fam.fwd(xs, mask, ws16, residual=True)
+                    runs.append((*outs, *res,
+                                 *fam.bwd(xs, mask, ws16, outs, dh, res)))
                 require([w.by_design[key] - n for w, n in
                          zip(wrappers, before)] == [2, 2],
-                        f"bf16 H={hidden} ndir={ndir}: the {key} forms did "
-                        f"not run")
+                        f"bf16 {fam.name} H={hidden} ndir={ndir}: the "
+                        f"{key} forms did not run")
                 t0 = time.perf_counter()
-                f_p, d_p = plain(w16, hc, res)
+                f_p, d_p = fam.plain(xs, mask, ws16, outs, dh, res)
                 torch.cuda.synchronize()
                 plain_s = time.perf_counter() - t0
-                d_k = runs[0][-ndir:]
-                dwh_k = [B._dwh(hc[2 * i], d, i == 1, w16[i])
-                         for i, d in enumerate(d_k)]
-                dwh_p = [B._dwh(hc[2 * i], d, i == 1, w16[i])
-                         for i, d in enumerate(d_p)]
+                d_k = runs[0][len(outs) + len(res):]
+                dwh_k = [fam.mod._dwh(*fam.dwh_args(outs, d_k, i), i == 1,
+                                      ws16[i]) for i in range(ndir)]
+                dwh_p = [fam.mod._dwh(*fam.dwh_args(outs, d_p, i), i == 1,
+                                      ws16[i]) for i in range(ndir)]
             same = all(torch.equal(x, y) for x, y in zip(*runs))
-            got = (*hc, *res)
+            got = (*outs, *res)
             err_f = max(float((k - p).abs().max()) for k, p in zip(got, f_p))
             err_b = max(float((k - p).abs().max()) for k, p in zip(d_k, d_p))
             dwh_frac = max(float((k.float() - p.float()).abs().max())
                            / float(p.float().abs().max())
                            for k, p in zip(dwh_k, dwh_p))
-            ok = (all(within(k, p, BF16_ATOL, BF16_RTOL)
-                      for k, p in zip(got, f_p))
+            ok = (len(got) == len(f_p) and len(d_k) == len(d_p)
+                  and all(within(k, p, BF16_ATOL, BF16_RTOL)
+                          for k, p in zip(got, f_p))
                   and all(within(k, p, BF16_ATOL, BF16_RTOL)
                           for k, p in zip(d_k, d_p)))
-            print(f"bf16 {'bi' if ndir == 2 else 'uni'} LSTM kernels "
+            kept = ("c, gates" if cell == "lstm" else "h side") if wide else (
+                "c" if cell == "lstm" else "")
+            print(f"bf16 {'bi' if ndir == 2 else 'uni'} {fam.name} kernels "
                   f"({geo.design} design, R={geo.rows}) vs plain twins at "
                   f"T={t} B={b} H={hidden}: forward max_abs_err {err_f:.3e}"
-                  f" (h, c{', gates' if wide else ''}), backward {err_b:.3e}"
-                  f" (dxp; max|dxp| {max(float(p.abs().max()) for p in d_p):.2f}),"
-                  f" dwh (bfloat16) max err / max|dwh| {dwh_frac:.3e} (tol "
+                  f" (h{', ' + kept if kept else ''}), backward {err_b:.3e}"
+                  f" ({'dxp' if cell == 'lstm' else 'dxp, dhp'}; max|dxp| "
+                  f"{max(float(p.abs().max()) for p in d_p):.2f}), dwh "
+                  f"(bfloat16) max err / max|dwh| {dwh_frac:.3e} (tol "
                   f"{BF16_ATOL:g} + {BF16_RTOL:g}*|plain|, dwh "
                   f"{BF16_DWH_FRAC:g}); two launches bit-equal {same}; "
                   f"plain twins {plain_s:.2f} s")
-            require(ok, f"bf16 LSTM kernels disagree with plain at H="
+            require(ok, f"bf16 {fam.name} kernels disagree with plain at H="
                         f"{hidden} ndir={ndir}")
             require(dwh_frac <= BF16_DWH_FRAC,
-                    f"bf16 dwh disagrees with plain at H={hidden}")
-            require(same, f"bf16 LSTM kernels at H={hidden} ndir={ndir} "
-                          f"differ between two launches")
+                    f"bf16 {fam.name} dwh disagrees with plain at H={hidden}")
+            require(same, f"bf16 {fam.name} kernels at H={hidden} ndir="
+                          f"{ndir} differ between two launches")
 
             # timings: each bfloat16 form beside its float32 form
             with torch.no_grad():
-                *hc32, res32 = fwd(w32, residual=True)
-                ms = {"bf16_fwd": cuda_ms(lambda: fwd(w16), 10),
-                      "f32_fwd": cuda_ms(lambda: fwd(w32), 10),
-                      "bf16_bwd": cuda_ms(lambda: bwd(w16, hc, res), 10),
-                      "f32_bwd": cuda_ms(lambda: bwd(w32, hc32, res32), 10)}
+                *outs32, res32 = fam.fwd(xs, mask, ws32, residual=True)
+                ms = {"bf16_fwd": cuda_ms(lambda: fam.fwd(xs, mask, ws16),
+                                          10),
+                      "f32_fwd": cuda_ms(lambda: fam.fwd(xs, mask, ws32), 10),
+                      "bf16_bwd": cuda_ms(lambda: fam.bwd(
+                          xs, mask, ws16, outs, dh, res), 10),
+                      "f32_bwd": cuda_ms(lambda: fam.bwd(
+                          xs, mask, ws32, outs32, dh, res32), 10)}
                 plain_ms = {
-                    "fwd": cuda_ms(lambda: plain(w16, hc, res)[0], 1, 0),
-                    "bwd": cuda_ms(lambda: plain(w16, hc, res)[1], 1, 0)}
+                    "fwd": cuda_ms(lambda: fam.plain(xs, mask, ws16, outs,
+                                                     dh, res)[0], 1, 0),
+                    "bwd": cuda_ms(lambda: fam.plain(xs, mask, ws16, outs,
+                                                     dh, res)[1], 1, 0)}
             # the bound at the card's rate for bfloat16 products into
             # float32 (the tensor cores'), and at the fp32 FMA rate the
-            # kernels' own products run at (rows 2, 3, 6 and 7's)
-            served = fwd(w16)
-            fwd_moved = (*xs, mask, *w16[:ndir], *served)
-            # the backward reads the gates and c (wide) or xp, h and c
-            bwd_moved = (*(res if wide else xs), *(hc[1::2] if wide else hc),
-                         mask, *w16[:ndir], *dh, *d_k)
+            # kernels' own products run at
+            served = fam.fwd(xs, mask, ws16)
+            fwd_moved = (*xs, mask, *ws16, *served)
+            bwd_moved = fam.bwd_moved(xs, mask, ws16, outs, dh, res, d_k)
             passes = 1 if wide else 2
             b_fwd = rnn_bound(xs[0], hidden, ndir, 1, fwd_moved, PEAK_BF16)
             b_bwd = rnn_bound(xs[0], hidden, ndir, passes, bwd_moved,
@@ -5438,7 +5525,7 @@ def check_bf16_kernels(dev: torch.device, card: str) -> dict:
             f_fwd = rnn_bound(xs[0], hidden, ndir, 1, fwd_moved)
             f_bwd = rnn_bound(xs[0], hidden, ndir, passes, bwd_moved)
             lib_f, lib_b = lib[ndir]
-            print(f"[{card}] bf16 {'bi' if ndir == 2 else 'uni'} LSTM "
+            print(f"[{card}] bf16 {'bi' if ndir == 2 else 'uni'} {fam.name} "
                   f"{geo.design} forms at T={t} B={b} H={hidden}: forward "
                   f"{ms['bf16_fwd']:.4f} ms (float32 form "
                   f"{ms['f32_fwd']:.4f}, {ms['bf16_fwd'] / ms['f32_fwd']:.3f}"
@@ -5448,11 +5535,11 @@ def check_bf16_kernels(dev: torch.device, card: str) -> dict:
                   f"ms ({b_bwd[1]}) at the bf16 tensor-core rate, "
                   f"{f_fwd[0]:.4f} / {f_bwd[0]:.4f} ms at the fp32 FMA "
                   f"rate; plain twins {plain_ms['fwd']:.4f} / "
-                  f"{plain_ms['bwd']:.4f} ms; cuDNN nn.LSTM({hidden}, "
+                  f"{plain_ms['bwd']:.4f} ms; cuDNN nn.{fam.name}({hidden}, "
                   f"{hidden}) in bfloat16 forward {lib_f:.4f} ms, backward "
                   f"{lib_b:.4f} ms")
             if ndir == 2:
-                row = "bilstm_{}" + ("_wide" if wide else "") + "_bf16"
+                row = fam.row + ("_wide" if wide else "") + "_bf16"
                 for kind, err in (("fwd", err_f), ("bwd", err_b)):
                     errs[row.format(kind)] = err
                     times[row.format(kind)] = (ms[f"bf16_{kind}"],
@@ -5539,47 +5626,50 @@ def bf16_train_path(dev: torch.device, card: str, path: str) -> dict:
     return launches
 
 
-def bf16_cli_run(card: str, tmp: str, manifest: str) -> dict:
-    """``train --bf16 --model deep_blstm`` (zoo defaults) for one epoch on
-    the corpus phase's manifest through ``cli.train.main``, counted from
-    0: the bfloat16 cluster forms launched for every train step and the
-    float32 ones for the validation, finite losses, ``hparams["bf16"]``."""
+def bf16_cli_run(card: str, tmp: str, manifest: str, model: str) -> dict:
+    """``train --bf16 --model <model>`` (deep_blstm or deep_gru, zoo
+    defaults: 3x256, bidirectional) for one epoch on the corpus phase's
+    manifest through ``cli.train.main``, counted from 0: the bfloat16
+    cluster forms launched for every train step and the float32 ones for
+    the validation, finite losses, ``hparams["bf16"]``."""
     from asr_study_torch.cli import train as cli_train
 
-    run_dir = os.path.join(tmp, "bf16_run")
+    run_dir = os.path.join(tmp, f"bf16_run_{model}")
     tap = CliTap()
     reset_counts()
     t0 = time.perf_counter()
     with tap.record(), contextlib.redirect_stdout(io.StringIO()):
         require(cli_train.main([
-            "--dataset", manifest, "--model", "deep_blstm", "--batch_size",
+            "--dataset", manifest, "--model", model, "--batch_size",
             str(CORPUS_B), "--seed", str(SEED), "--log_every", "5",
             "--save", run_dir, "--epochs", "1", "--bf16"]) == 0,
-            "train --bf16 failed")
+            f"train --bf16 --model {model} failed")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_counts()
     its = dict(tap.flows)
     spe, v_b = its["train"].steps_per_epoch, its["valid"].steps_per_epoch
-    want = {"bilstm_fwd_bf16": TRAIN_LAYERS * spe,
-            "bilstm_bwd_bf16": TRAIN_LAYERS * spe,
-            "bilstm_fwd": TRAIN_LAYERS * v_b, "ctc_alpha": spe + v_b,
+    rnn = "bilstm" if model == "deep_blstm" else "bigru"
+    want = {f"{rnn}_fwd_bf16": TRAIN_LAYERS * spe,
+            f"{rnn}_bwd_bf16": TRAIN_LAYERS * spe,
+            f"{rnn}_fwd": TRAIN_LAYERS * v_b, "ctc_alpha": spe + v_b,
             "ctc_beta": spe}
-    require(launches == want, f"train --bf16 launches {launches}, want "
-                              f"{want}")
+    require(launches == want, f"train --bf16 --model {model} launches "
+                              f"{launches}, want {want}")
     with open(os.path.join(run_dir, "meta.json")) as f:
         meta = json.load(f)
     losses = [float(v) for v in tap.losses]
     require(meta["hparams"]["bf16"] is True
             and all(math.isfinite(v) for v in losses)
             and all(math.isfinite(v) for h in meta["history"]
-                    for v in h.values()), f"train --bf16: {meta['history']}")
+                    for v in h.values()),
+            f"train --bf16 --model {model}: {meta['history']}")
     step_ms, by_t = CliTap.ms(tap.steps)
-    print(f"corpus train --bf16 (deep_blstm zoo defaults, 1 epoch x {spe} "
+    print(f"corpus train --bf16 ({model} zoo defaults, 1 epoch x {spe} "
           f"steps, B={CORPUS_B}): launches {launches}; losses "
           f"{[round(v, 3) for v in losses]}; history {meta['history']}; "
           f"{wall:.1f} s wall")
-    print(f"[{card}] corpus train --bf16 step, CUDA events: "
+    print(f"[{card}] corpus train --bf16 --model {model} step, CUDA events: "
           f"{np.mean(step_ms[1:]):.4f} ms/step mean after the first "
           f"({step_ms[0]:.4f}); by bucket {by_t}")
     return launches
@@ -6153,10 +6243,13 @@ def main() -> int:
     clock.mark("training paths")
     path_launches += optimizer_phase(dev, card)
     clock.mark("optimizer phase")
-    # the bfloat16 phase (train --bf16): the four bfloat16-weight forms
-    # against their twins, then bf16 train steps of deep_blstm (cluster)
-    # and deep_speech (wide), bi and uni
-    bf16_kernels = check_bf16_kernels(dev, card)
+    # the bfloat16 phase (train --bf16): the LSTM's and the GRU's four
+    # bfloat16-weight forms each against their twins, then bf16 train steps
+    # of deep_blstm (cluster) and deep_speech (wide), bi and uni, deep_gru
+    # 3x256 (cluster) bi and uni and 3x512 (wide)
+    bf16_kernels = check_bf16_kernels(dev, card, "lstm")
+    for key, found in check_bf16_kernels(dev, card, "gru").items():
+        bf16_kernels[key].update(found)
     for path in BF16_PATHS:
         path_launches.append(bf16_train_path(dev, card, path))
     clock.mark("bf16 phase")
@@ -6170,8 +6263,10 @@ def main() -> int:
         runs, manifest, run_dir, first_epoch, train_it = corpus_phase(card,
                                                                       tmp)
         path_launches += runs
-        with part("train --bf16 CLI"):
-            path_launches.append(bf16_cli_run(card, tmp, manifest))
+        for model in ("deep_blstm", "deep_gru"):
+            with part(f"train --bf16 --model {model} CLI"):
+                path_launches.append(bf16_cli_run(card, tmp, manifest,
+                                                  model))
         clock.mark("corpus phase")
         # 11. the dp phase on the corpus's train split
         path_launches += dp_phase(card, tmp, train_it)

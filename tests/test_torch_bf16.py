@@ -7,7 +7,7 @@ against ``pallas_bilstm`` / ``pallas_lstm`` with a bfloat16 ``wh`` in
 interpret mode, and ``Trainer(compute_dtype=torch.bfloat16)`` steps
 against the JAX ``Trainer(compute_dtype=jnp.bfloat16)`` on the Pallas
 route; the refusals of the cells and the design that have no bfloat16
-kernels.
+kernels (the GRU's bfloat16 forms: ``tests/test_torch_bf16_gru.py``).
 
 The JAX ``lax.scan`` default rounds the recurrent cotangent after its
 product where the Pallas backward rounds ``dpre`` before it; the TPU runs
@@ -28,7 +28,6 @@ from asr_study_torch.models.cells import (GRUCell, LayerNormLSTMCell,
 from asr_study_torch.models.nn import dense_apply, dot
 from asr_study_torch.models.zoo import CELL_KINDS, build_model
 from asr_study_torch.ops import bilstm as B
-from asr_study_torch.ops.gru import bigru, gru
 from asr_study_torch.ops.ln_lstm import bi_ln_lstm, ln_lstm
 from asr_study_torch.ops.mi_lstm import bi_mi_lstm, mi_lstm
 from asr_study_torch.ops.recurrence import BF16_ITEM
@@ -297,16 +296,13 @@ def _op_args(op, t=5, b=2, h=8):
     """The op's arguments at a small shape, its recurrent weights
     bfloat16."""
     g = torch.Generator().manual_seed(0)
-    gates = 3 if op in (gru, bigru) else 4
-    xp = torch.randn(t, b, gates * h, generator=g)
+    xp = torch.randn(t, b, 4 * h, generator=g)
     mask = torch.ones(t, b, 1)
-    wh = torch.randn(h, gates * h, generator=g).to(BF16)
-    vec, unit = torch.ones(gates * h), torch.ones(h)
+    wh = torch.randn(h, 4 * h, generator=g).to(BF16)
+    vec, unit = torch.ones(4 * h), torch.ones(h)
     z = torch.ones(t, b, h)
-    bi = op in (bigru, bi_ln_lstm, bi_mi_lstm, bi_zoneout_lstm)
-    if op in (gru, bigru):
-        rest = []
-    elif op in (ln_lstm, bi_ln_lstm):
+    bi = op in (bi_ln_lstm, bi_mi_lstm, bi_zoneout_lstm)
+    if op in (ln_lstm, bi_ln_lstm):
         rest = [vec, unit, unit]
     elif op in (mi_lstm, bi_mi_lstm):
         rest = [vec, vec, vec, vec]
@@ -321,7 +317,7 @@ def _op_args(op, t=5, b=2, h=8):
     return [xp, xp, mask, wh, wh, *(a for r in rest for a in (r, r))]
 
 
-@pytest.mark.parametrize("op", [gru, bigru, ln_lstm, bi_ln_lstm, mi_lstm,
+@pytest.mark.parametrize("op", [ln_lstm, bi_ln_lstm, mi_lstm,
                                 bi_mi_lstm, zoneout_lstm, bi_zoneout_lstm],
                          ids=lambda f: f.__name__)
 def test_other_cells_refuse_bf16(op):
@@ -329,7 +325,7 @@ def test_other_cells_refuse_bf16(op):
         op(*_op_args(op))
 
 
-@pytest.mark.parametrize("model", ["deep_gru", "ln_blstm", "zoneout_blstm",
+@pytest.mark.parametrize("model", ["ln_blstm", "zoneout_blstm",
                                    "mi_blstm"])
 def test_trainer_refuses_bf16_for_other_cells(model):
     pm = build_model(model, "num_hiddens=8,num_layers=1", num_classes=4,

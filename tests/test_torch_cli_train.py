@@ -93,8 +93,9 @@ _REFUSED = [
     ("train-argv13-item 13", "train", ["--tp_devices", "2"],
      "ROADMAP queue A item 13"),
     # item 5b since the rest of item 5 was ported; --bf16 with a model of
-    # other cells than LSTMCell since the LSTM models' bf16 was ported
-    ("train-argv17-item 5", "train", ["--bf16", "--model", "deep_gru"],
+    # other cells than LSTMCell and GRUCell since the LSTM and GRU models'
+    # bf16 was ported
+    ("train-argv17-item 5", "train", ["--bf16", "--model", "ln_blstm"],
      "ROADMAP queue A item 5b"),
     ("eval-argv21-item 12", "eval", ["--device", "cuda", "--num_devices",
                                      "2"], _TOO_MANY_EVAL),
@@ -301,39 +302,44 @@ def test_train_resume_and_hparams_match_jax(tmp_path, monkeypatch, synth,
 
 
 def test_train_bf16_matches_jax_losses(tmp_path, monkeypatch, synth):
-    """train --bf16 on a small deep_blstm from the JAX CLI's initial
-    weights (--init_from a port run holding them) gives the JAX CLI's
-    per-step --bf16 losses, the JAX side on its Pallas route (the TPU's,
-    whose rounding the port's kernels follow); the other cells' models
-    are refused."""
+    """train --bf16 on a small deep_blstm and a small deep_gru, each from
+    the JAX CLI's initial weights (--init_from a port run holding them),
+    gives the JAX CLI's per-step --bf16 losses, the JAX side on its Pallas
+    route (the TPU's, whose rounding the port's kernels follow)."""
     monkeypatch.setattr(jax_rnn, "RNN_BACKEND", "pallas")
     hp = "num_hiddens=8,num_layers=2,dropout=0.0"
-    argv = ["--dataset", synth, "--model", "deep_blstm", "--params", hp,
-            "--batch_size", "8", "--num_devices", "1", "--log_every", "1",
-            "--epochs", "1", "--bf16"]
-    jrun = str(tmp_path / "jax")
-    assert jax_train.main([*argv, "--platform", "cpu", "--save", jrun]) == 0
-    params = jax_zoo.deep_blstm(hp, num_classes=27).init(
-        jax.random.PRNGKey(0), 39)
-    pm = build_model("deep_blstm", hp, num_classes=27, input_dim=39)
-    pm.load_state_dict(params_from_flat(flatten_params(params)))
-    init = str(tmp_path / "init")
-    CheckpointManager(init).save(Trainer(pm, make_optimizer()).init_state())
-    prun = str(tmp_path / "port")
-    assert port_train.main([*argv, "--device", "cpu", "--save", prun,
-                            "--init_from", init]) == 0
-    losses = {}
-    for side, run in (("port", prun), ("jax", jrun)):
-        with open(os.path.join(run, "train_metrics.csv")) as f:
-            rows = [l.split(",") for l in f.read().splitlines()]
-        col = rows[0].index("loss")
-        losses[side] = [float(r[col]) for r in rows[1:] if r[col]]
-        with open(os.path.join(run, "meta.json")) as f:
-            assert json.load(f)["hparams"]["bf16"] is True
-    assert len(losses["jax"]) == 2
-    # equal to the printed digits here (measured); rtol 1e-4 leaves room
-    # for Adam's normalised update of gradients a bfloat16 ulp apart
-    np.testing.assert_allclose(losses["port"], losses["jax"], rtol=1e-4)
+    for model in ("deep_blstm", "deep_gru"):
+        out = tmp_path / model
+        argv = ["--dataset", synth, "--model", model, "--params", hp,
+                "--batch_size", "8", "--num_devices", "1", "--log_every",
+                "1", "--epochs", "1", "--bf16"]
+        jrun = str(out / "jax")
+        assert jax_train.main([*argv, "--platform", "cpu", "--save",
+                               jrun]) == 0
+        params = getattr(jax_zoo, model)(hp, num_classes=27).init(
+            jax.random.PRNGKey(0), 39)
+        pm = build_model(model, hp, num_classes=27, input_dim=39)
+        pm.load_state_dict(params_from_flat(flatten_params(params)))
+        init = str(out / "init")
+        CheckpointManager(init).save(
+            Trainer(pm, make_optimizer()).init_state())
+        prun = str(out / "port")
+        assert port_train.main([*argv, "--device", "cpu", "--save", prun,
+                                "--init_from", init]) == 0
+        losses = {}
+        for side, run in (("port", prun), ("jax", jrun)):
+            with open(os.path.join(run, "train_metrics.csv")) as f:
+                rows = [l.split(",") for l in f.read().splitlines()]
+            col = rows[0].index("loss")
+            losses[side] = [float(r[col]) for r in rows[1:] if r[col]]
+            with open(os.path.join(run, "meta.json")) as f:
+                assert json.load(f)["hparams"]["bf16"] is True
+        assert len(losses["jax"]) == 2, model
+        # equal to the printed digits here (measured); rtol 1e-4 leaves
+        # room for Adam's normalised update of gradients a bfloat16 ulp
+        # apart
+        np.testing.assert_allclose(losses["port"], losses["jax"], rtol=1e-4,
+                                   err_msg=model)
 
 
 def _logged_losses(run):

@@ -30,6 +30,7 @@ from asr_study_torch.ops.bilstm import (BiLSTMFunction, LSTMFunction, bilstm,
                                         cluster_info, lstm, lstm_bwd,
                                         lstm_bwd_gates_plain, lstm_bwd_plain,
                                         lstm_geometry, lstm_plain)
+from asr_study_torch.ops.gru import _dwh as gru_dwh
 from asr_study_torch.ops.gru import (BiGRUFunction, GRUFunction, bigru,
                                      bigru_bwd, bigru_bwd_plain,
                                      bigru_bwd_res_plain, bigru_plain, gru,
@@ -1453,6 +1454,115 @@ def test_bf16_train_step_on_card_matches_cpu(cuda):
     out = []
     for dev in (cuda, "cpu"):
         model = build_model("deep_blstm", "num_hiddens=64,num_layers=2,"
+                            "dropout=0.0", generator=torch.Generator()
+                            .manual_seed(2), device=dev)
+        tr = Trainer(model, make_optimizer("sgd", 1e-2, 400.0),
+                     compute_dtype=torch.bfloat16)
+        _, m = tr.train_step(tr.init_state(), *[a.to(dev) for a in batch])
+        out.append((float(m["loss"]), {k: p.grad.cpu() for k, p in
+                                       model.named_parameters()}))
+    (loss_k, g_k), (loss_p, g_p) = out
+    assert loss_k == pytest.approx(loss_p, rel=1e-3)
+    for k in g_p:
+        scale = float(g_p[k].abs().max())
+        assert float((g_k[k] - g_p[k]).abs().max()) <= 1e-2 * scale, k
+
+
+# the GRU's bfloat16-weight forms: cluster (H=8, 100, 256) and wide (H=300,
+# 512) shapes, bi and uni, ragged and with a dead row, at BF16_TOL
+GRU_BF16_CASES = [(12, 4, 8, 2, False), (37, 5, 100, 1, True),
+                  (64, 32, 256, 2, False), (40, 33, 256, 1, True),
+                  (23, 5, 300, 2, True), (64, 32, 512, 2, False),
+                  (40, 33, 512, 1, True)]
+
+
+@pytest.mark.parametrize("t,b,h,ndir,dead", GRU_BF16_CASES,
+                         ids=[f"{t}-{b}-{h}-{'bi' if n == 2 else 'uni'}"
+                              + ("-dead" if d else "")
+                              for t, b, h, n, d in GRU_BF16_CASES])
+def test_gru_bf16_kernels_match_plain(cuda, t, b, h, ndir, dead):
+    """The GRU's bfloat16-weight forms of the forward (the wide one keeping
+    the h side) and backward (cluster or wide, by gru_geometry) against
+    their plain twins with the same bfloat16 wh: h, the kept h side, dxp,
+    dhp, and dwh (bfloat16) within 1e-2 of its max abs; counted under
+    ``<design>_bf16``; repeated bit for bit."""
+    args, dh = _gru_case(cuda, t, b, h, seed=t + b + h + 1, dead=dead)
+    args[3], args[4] = args[3].to(torch.bfloat16), args[4].to(torch.bfloat16)
+    design = gru_geometry(h, b, ndir).design + "_bf16"
+    fwd, bwd = (bigru, bigru_bwd) if ndir == 2 else (gru, gru_bwd)
+    xp, mask, wh = args[0], args[2], args[3]
+    before = (fwd.by_design[design], bwd.by_design[design])
+    runs = []
+    for _ in range(2):
+        if ndir == 2:
+            *hs, res = bigru(*args, residual=True)
+            d = bigru_bwd(*args, *hs, *dh, res)
+        else:
+            h_1, res = gru(xp, mask, wh, residual=True)
+            hs = [h_1]
+            d = gru_bwd(xp, mask, wh, h_1, dh[0], res)
+        runs.append((*hs, *res, *d))
+    assert (fwd.by_design[design] - before[0],
+            bwd.by_design[design] - before[1]) == (2, 2)
+    if ndir == 2:
+        want = bigru_plain(*args, keep_hg=bool(res))
+        want_d = (bigru_bwd_res_plain(args[0], args[1], *res, *args[2:], *hs,
+                                      *dh) if res else
+                  bigru_bwd_plain(*args, *hs, *dh))
+    else:
+        want = gru_plain(xp, mask, wh, keep_hg=bool(res))
+        want = want if res else (want,)
+        want_d = (gru_bwd_res_plain(xp, *res, mask, wh, hs[0], dh[0]) if res
+                  else gru_bwd_plain(xp, mask, wh, hs[0], dh[0]))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, c) for a, c in zip(*runs))
+    got = runs[0]
+    for g_, w_ in zip(got, (*want, *want_d)):
+        assert g_.dtype == torch.float32
+        torch.testing.assert_close(g_, w_, **BF16_TOL)
+    for i in range(ndir):
+        k_ = gru_dwh(hs[i], got[-2 * ndir + 2 * i + 1], i == 1, args[3 + i])
+        p_ = gru_dwh(hs[i], want_d[2 * i + 1], i == 1, args[3 + i])
+        assert k_.dtype == torch.bfloat16
+        scale = float(p_.float().abs().max())
+        assert float((k_.float() - p_.float()).abs().max()) <= 1e-2 * scale
+
+
+@pytest.mark.parametrize("hp,design", [
+    ("dropout=0.0", "cluster_bf16"),
+    ("dropout=0.0,bidirectional=false", "cluster_bf16"),
+    ("num_hiddens=512,dropout=0.0", "wide_bf16")],
+    ids=["3x256-bi", "3x256-uni", "3x512-bi"])
+def test_bf16_gru_train_step_is_bit_reproducible(cuda, hp, design):
+    """Two identical bfloat16 train steps of deep_gru (3x256 bi and uni:
+    the cluster forms; 3x512: the wide forms) give bit-equal loss,
+    gradients and updated weights, the masters float32."""
+    fwd, bwd = ((gru, gru_bwd) if "bidirectional=false" in hp
+                else (bigru, bigru_bwd))
+    before = (fwd.by_design[design], bwd.by_design[design])
+    runs = _two_identical_steps(cuda, "deep_gru", hp,
+                                compute_dtype=torch.bfloat16)
+    assert (fwd.by_design[design] - before[0],
+            bwd.by_design[design] - before[1]) == (2 * 3, 2 * 3)
+    assert _bit_differences(runs) == []
+    assert all(p.dtype == torch.float32 for p in runs[0][2].values())
+    assert np.isfinite(float(runs[0][0]))
+
+
+def test_bf16_gru_train_step_on_card_matches_cpu(cuda):
+    """One bfloat16 step of a small deep_gru on the card (the GRU kernels'
+    bfloat16 forms) against the CPU's (their plain twins): the loss, and
+    each gradient within 1e-2 of its max abs."""
+    g = torch.Generator().manual_seed(6)
+    b, t, l_max = 6, 60, 12
+    batch = [torch.randn(b, t, 39, generator=g),
+             torch.randint(t // 2, t + 1, (b,), generator=g),
+             torch.randint(0, 27, (b, l_max), generator=g),
+             torch.randint(l_max // 2, l_max + 1, (b,), generator=g),
+             torch.ones(b)]
+    out = []
+    for dev in (cuda, "cpu"):
+        model = build_model("deep_gru", "num_hiddens=64,num_layers=2,"
                             "dropout=0.0", generator=torch.Generator()
                             .manual_seed(2), device=dev)
         tr = Trainer(model, make_optimizer("sgd", 1e-2, 400.0),

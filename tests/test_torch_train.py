@@ -22,7 +22,7 @@ from asr_study_torch.models.nn import dropout
 from asr_study_torch.models.zoo import build_model, deep_blstm
 from asr_study_torch.ops.metrics import edit_distance, ler
 from asr_study_torch.train.checkpoint import CheckpointManager
-from asr_study_torch.train.loop import fit, step_generator
+from asr_study_torch.train.loop import AUGMENT_STREAM, fit, step_generator
 from asr_study_torch.train.trainer import (Trainer, global_norm,
                                            make_optimizer)
 from asr_study_torch.utils.weights import flat_from_params, params_from_flat
@@ -551,6 +551,23 @@ def _run_steps(trainer, state, batch, n, seed=0):
                            step_generator(torch.device("cpu"), seed,
                                           state.step))
     return state
+
+
+@pytest.mark.parametrize("seed,step,rank", [(0, 0, 0), (12345, 0, 0),
+                                            (7, 3, 1), (1, 1000, 3)])
+def test_augment_stream_draws_apart_from_dropout_on_cpu(seed, step, rank):
+    """The CPU generator keeps a seed's low 32 bits, so the augmentations'
+    stream has to differ from dropout's there (the JAX step folds 0x5A
+    into its key); dropout's stream keeps its seed, seed * 1_000_003 +
+    step, on rank 0."""
+    cpu = torch.device("cpu")
+    drop = step_generator(cpu, seed, step, rank=rank)
+    aug = step_generator(cpu, seed, step, AUGMENT_STREAM, rank)
+    assert not torch.equal(torch.rand(64, generator=drop),
+                           torch.rand(64, generator=aug))
+    if rank == 0:
+        assert (step_generator(cpu, seed, step).initial_seed()
+                == seed * 1_000_003 + step)
 
 
 def test_checkpoint_resume_equals_uninterrupted(tmp_path):
