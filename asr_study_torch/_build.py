@@ -152,6 +152,9 @@ SIGNATURES = {
     # rows, stream
     "asr_zoneout_lstm_bwd": [_P] * 17 + [_I] * 7 + [_P],
     "asr_zoneout_lstm_bwd_info": [_I] * 6 + [_P, _P],
+    # the bfloat16-weight forms: the same arguments, wh_f and wh_b bfloat16
+    "asr_zoneout_lstm_fwd_bf16": [_P] * 15 + [_I] * 7 + [_P],
+    "asr_zoneout_lstm_bwd_bf16": [_P] * 17 + [_I] * 7 + [_P],
     # the streamed-weight forms (H=300, H=512): the cluster forward's
     # arguments without the geometry
     "asr_zoneout_lstm_stream_fwd": [_P] * 15 + [_I, _I, _I, _I, _P],
@@ -169,6 +172,9 @@ SIGNATURES = {
     # dpre_b, T, B, H, ndir, cluster CTAs, units, rows, stream
     "asr_mi_lstm_bwd": [_P] * 21 + [_I] * 7 + [_P],
     "asr_mi_lstm_bwd_info": [_I] * 6 + [_P, _P],
+    # the bfloat16-weight forms: the same arguments, wh_f and wh_b bfloat16
+    "asr_mi_lstm_fwd_bf16": [_P] * 19 + [_I] * 7 + [_P],
+    "asr_mi_lstm_bwd_bf16": [_P] * 21 + [_I] * 7 + [_P],
     # the streamed-weight forms (H=300, H=512): the cluster forward's
     # arguments without the geometry
     "asr_mi_lstm_stream_fwd": [_P] * 19 + [_I, _I, _I, _I, _P],

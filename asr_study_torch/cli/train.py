@@ -116,8 +116,8 @@ def build_argparser() -> argparse.ArgumentParser:
                         "whose loss or gradient norm is not finite")
     p.add_argument("--bf16", action="store_true",
                    help="mixed precision: bfloat16 compute, float32 master "
-                        "weights and optimizer state (models of LSTM and "
-                        "GRU cells)")
+                        "weights and optimizer state (models of LSTM, GRU, "
+                        "zoneout and MI LSTM cells)")
     p.add_argument("--vocab", default=None,
                    help="label vocabulary: preset name (pt_br, "
                         "pt_br_apostrophe) or literal characters; default "
@@ -160,8 +160,8 @@ def _refuse_unported(args) -> None:
         (args.bf16 and cells not in BF16_CELLS,
          f"--bf16 --model {args.model}: bf16 compute is not ported to "
          f"asr_study_torch yet for the models of {cells} cells "
-         f"({', '.join(waiting)}); it is for those of LSTM and GRU cells "
-         f"({BF16_ITEM})"),
+         f"({', '.join(waiting)}); it is for those of "
+         f"{', '.join(BF16_CELLS)} cells ({BF16_ITEM})"),
     ]
     for refused, why in refusals:
         if refused:

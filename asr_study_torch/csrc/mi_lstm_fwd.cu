@@ -43,12 +43,26 @@
 //      distributed shared memory (cluster.map_shared_rank); the buffers
 //      alternate on s & 1, so one cluster barrier a step suffices.
 //
+// The bfloat16-weight form (asr_mi_lstm_fwd_bf16; train --bf16, the JAX
+// trainer's compute_dtype, under which the Pallas kernels run with a
+// bfloat16 wh) is the same kernel on the weight type W = __nv_bfloat16, as
+// bilstm_fwd.cu's: each thread holds its slice as 64 bfloat16 pairs, and h
+// enters hp rounded to bfloat16 (ops/pallas_lstm.py `_mm`:
+// h_prev.astype(wh.dtype)), the exchanged copy rounded by its writer,
+// while the hold of a masked frame takes h_prev unrounded
+// (`_mi_cell_math`), so the cell keeps its own units' h in a register.
+// The products are float32 fmaf on the converted pairs, summed in the
+// float32 form's order; xp, the mask, the MI vectors (float32 copies of
+// the bfloat16 parameters), h and c stay float32.  Its shared memory is
+// the float32 form's.
+//
 // The launcher checks with cudaOccupancyMaxActiveClusters that every
 // cluster of the grid is resident at once and refuses the launch otherwise.
 // ops/mi_lstm.py `mi_geometry` picks C, U and R, and sends the widths whose
 // slice does not fit (H=300, H=512) to mi_lstm_stream_fwd.cu.
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <type_traits>
@@ -85,6 +99,45 @@ __device__ __forceinline__ float sigmoidf(float x) {
   return 1.f / (1.f + expf(-x));
 }
 
+// A thread's kSlice weights of one column, in registers: float32, or
+// bfloat16 pairs for the bfloat16-weight form.  quad(kk) gives rows kk ..
+// kk + 3 as float32.
+template <typename W>
+struct Slice {
+  float w[kSlice];
+  __device__ __forceinline__ void set2(int kk, W a, W b) {
+    w[kk] = a;
+    w[kk + 1] = b;
+  }
+  __device__ __forceinline__ float4 quad(int kk) const {
+    return make_float4(w[kk], w[kk + 1], w[kk + 2], w[kk + 3]);
+  }
+};
+
+template <>
+struct Slice<__nv_bfloat16> {
+  __nv_bfloat162 w[kSlice / 2];
+  __device__ __forceinline__ void set2(int kk, __nv_bfloat16 a,
+                                       __nv_bfloat16 b) {
+    w[kk / 2] = __halves2bfloat162(a, b);
+  }
+  __device__ __forceinline__ float4 quad(int kk) const {
+    const float2 lo = __bfloat1622float2(w[kk / 2]);
+    const float2 hi = __bfloat1622float2(w[kk / 2 + 1]);
+    return make_float4(lo.x, lo.y, hi.x, hi.y);
+  }
+};
+
+// x as it enters a product with weights of type W: itself, or rounded to
+// the nearest bfloat16
+template <typename W>
+__device__ __forceinline__ float as_operand(float x) {
+  if constexpr (std::is_same_v<W, __nv_bfloat16>)
+    return __bfloat162float(__float2bfloat16_rn(x));
+  else
+    return x;
+}
+
 // 4-byte asynchronous copy global -> shared; zero-fills when !valid
 __device__ __forceinline__ void cp_async4(float* dst, const float* src,
                                           bool valid) {
@@ -102,13 +155,13 @@ __device__ __forceinline__ void cp_async_wait_prev() {
   asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
 
-template <int R>
+template <typename W, int R>
 __global__ void __launch_bounds__(kThreads, 1)
 mi_lstm_fwd_kernel(const float* __restrict__ xp_f,
                    const float* __restrict__ xp_b,
                    const float* __restrict__ mask,
-                   const float* __restrict__ wh_f,
-                   const float* __restrict__ wh_b,
+                   const W* __restrict__ wh_f,
+                   const W* __restrict__ wh_b,
                    const float* __restrict__ al_f,
                    const float* __restrict__ al_b,
                    const float* __restrict__ b1_f,
@@ -138,7 +191,7 @@ mi_lstm_fwd_kernel(const float* __restrict__ xp_f,
 
   const bool rev = blockIdx.z == 1;
   const float* __restrict__ xp = rev ? xp_b : xp_f;
-  const float* __restrict__ wh = rev ? wh_b : wh_f;
+  const W* __restrict__ wh = rev ? wh_b : wh_f;
   const float* vsrc[4] = {rev ? al_b : al_f, rev ? b1_b : b1_f,
                           rev ? b2_b : b2_f, rev ? bias_b : bias_f};
   float* __restrict__ h_out = rev ? h_b : h_f;
@@ -151,16 +204,17 @@ mi_lstm_fwd_kernel(const float* __restrict__ xp_f,
   // w[kk] = wh[ks*kSlice + kk][q*H + u0 + u] for col = q*U + u, zero past H
   const int col = tid % GC, ks = tid / GC;
   const bool active = ks < L.ks;
-  float w[kSlice];
+  Slice<W> w;
   {
     const int q = col / U, unit = u0 + col - q * U;
-#pragma unroll
-    for (int kk = 0; kk < kSlice; ++kk) {
+    auto at = [&](int kk) {
       const int k = ks * kSlice + kk;
-      w[kk] = (active && k < H && unit < H)
-                  ? wh[static_cast<size_t>(k) * G + q * H + unit]
-                  : 0.f;
-    }
+      return (active && k < H && unit < H)
+                 ? wh[static_cast<size_t>(k) * G + q * H + unit]
+                 : W{};
+    };
+#pragma unroll
+    for (int kk = 0; kk < kSlice; kk += 2) w.set2(kk, at(kk), at(kk + 1));
   }
   // the MI vectors of own columns: vec[v][q*U + u] = vsrc[v][q*H + u0 + u]
   for (int i = tid; i < 4 * GC; i += kThreads) {
@@ -169,19 +223,24 @@ mi_lstm_fwd_kernel(const float* __restrict__ xp_f,
     vec[i] = unit < H ? vsrc[v][q * H + unit] : 0.f;
   }
   // the carried state, zeros where none is given: the full h rows into
-  // slot 0 of every CTA's h buffer, the CTA's own units' c into cs
+  // slot 0 of every CTA's h buffer (as product operands), the CTA's own
+  // units' c into cs, and in the bfloat16 form their unrounded h into
+  // h_own (its (row, unit) pair: R * U <= kThreads there)
   const size_t lane_row = static_cast<size_t>(blockIdx.z) * B;
   for (int i = tid; i < 2 * R * HS; i += kThreads) {
     const int r = i / HS, k = i - r * HS, b = b0 + r;
     hbuf[i] = (h_init != nullptr && r < R && b < B && k < H)
-                  ? h_init[(lane_row + b) * H + k]
+                  ? as_operand<W>(h_init[(lane_row + b) * H + k])
                   : 0.f;
   }
+  float h_own = 0.f;
   for (int i = tid; i < R * U; i += kThreads) {
     const int r = i / U, unit = u0 + i - r * U, b = b0 + r;
-    cs[i] = (c_init != nullptr && b < B && unit < H)
-                ? c_init[(lane_row + b) * H + unit]
-                : 0.f;
+    const bool given = b < B && unit < H;
+    cs[i] = (c_init != nullptr && given) ? c_init[(lane_row + b) * H + unit]
+                                         : 0.f;
+    h_own = (h_init != nullptr && given) ? h_init[(lane_row + b) * H + unit]
+                                         : 0.f;
   }
 
   // xp of own columns and the mask of step s, into slot s & 1
@@ -229,14 +288,15 @@ mi_lstm_fwd_kernel(const float* __restrict__ xp_f,
       for (int r = 0; r < R; ++r) acc[r] = 0.f;
 #pragma unroll
       for (int kk = 0; kk < kSlice; kk += 4) {
+        const float4 wv = w.quad(kk);
 #pragma unroll
         for (int r = 0; r < R; ++r) {
           const float4 hv =
               *reinterpret_cast<const float4*>(hk + r * HS + kk);
-          acc[r] = fmaf(hv.x, w[kk], acc[r]);
-          acc[r] = fmaf(hv.y, w[kk + 1], acc[r]);
-          acc[r] = fmaf(hv.z, w[kk + 2], acc[r]);
-          acc[r] = fmaf(hv.w, w[kk + 3], acc[r]);
+          acc[r] = fmaf(hv.x, wv.x, acc[r]);
+          acc[r] = fmaf(hv.y, wv.y, acc[r]);
+          acc[r] = fmaf(hv.z, wv.z, acc[r]);
+          acc[r] = fmaf(hv.w, wv.w, acc[r]);
         }
       }
 #pragma unroll
@@ -266,7 +326,8 @@ mi_lstm_fwd_kernel(const float* __restrict__ xp_f,
       const float gg = tanhf(pre[2]);
       const float og = sigmoidf(pre[3]);
       const float c_prev = cs[i];
-      const float h_prev = hp[r * HS + unit];
+      constexpr bool kRounded = std::is_same_v<W, __nv_bfloat16>;
+      const float h_prev = kRounded ? h_own : hp[r * HS + unit];
       float c = fg * c_prev + ig * gg;
       float h = og * tanhf(c);
       if (!(mk[cur * R + r] > 0.f)) {
@@ -274,12 +335,14 @@ mi_lstm_fwd_kernel(const float* __restrict__ xp_f,
         h = h_prev;
       }
       cs[i] = c;
+      h_own = h;
       const int b = b0 + r;
       if (b < B) {
         const size_t o = (static_cast<size_t>(t) * B + b) * H + unit;
         h_out[o] = h;
         c_out[o] = c;
       }
+      h = as_operand<W>(h);      // the exchanged copy: a product operand
       for (int p = 0; p < C; ++p)
         cluster.map_shared_rank(hn, p)[r * HS + unit] = h;
     }
@@ -289,14 +352,14 @@ mi_lstm_fwd_kernel(const float* __restrict__ xp_f,
 
 // The launch configuration of the cluster grid -> its dynamic shared memory
 // and how many of its clusters the card holds at once.
-template <int R>
+template <typename W, int R>
 cudaError_t configure(int B, int H, int ndir, int C, int U,
                       cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr,
                       int* max_clusters) {
   const size_t smem =
       sizeof(float) * static_cast<size_t>(FwdLayout(H, U, R).total);
   cudaError_t err = cudaFuncSetAttribute(
-      mi_lstm_fwd_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      mi_lstm_fwd_kernel<W, R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   *cfg = cudaLaunchConfig_t{};
@@ -309,29 +372,33 @@ cudaError_t configure(int B, int H, int ndir, int C, int U,
   attr[0].val.clusterDim.z = 1;
   cfg->attrs = attr;
   cfg->numAttrs = 1;
-  return cudaOccupancyMaxActiveClusters(max_clusters, mi_lstm_fwd_kernel<R>,
-                                        cfg);
+  return cudaOccupancyMaxActiveClusters(max_clusters,
+                                        mi_lstm_fwd_kernel<W, R>, cfg);
 }
 
-template <int R>
+template <typename W, int R>
 cudaError_t launch(const float* xp_f, const float* xp_b, const float* mask,
-                   const float* wh_f, const float* wh_b, const float* al_f,
+                   const W* wh_f, const W* wh_b, const float* al_f,
                    const float* al_b, const float* b1_f, const float* b1_b,
                    const float* b2_f, const float* b2_b,
                    const float* bias_f, const float* bias_b, float* h_f,
                    float* c_f, float* h_b, float* c_b, const float* h_init,
                    const float* c_init, int T, int B, int H, int ndir, int C,
                    int U, cudaStream_t stream) {
+  // the bfloat16 form keeps a thread's one (row, unit) pair's h in a
+  // register
+  if (std::is_same_v<W, __nv_bfloat16> && R * U > kThreads)
+    return cudaErrorInvalidValue;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[1];
   int fit = 0;
-  cudaError_t err = configure<R>(B, H, ndir, C, U, &cfg, attr, &fit);
+  cudaError_t err = configure<W, R>(B, H, ndir, C, U, &cfg, attr, &fit);
   if (err != cudaSuccess) return err;
   // all clusters in one wave, or no launch
   if (fit < static_cast<int>(cfg.gridDim.y * cfg.gridDim.z))
     return cudaErrorCooperativeLaunchTooLarge;
   cfg.stream = stream;
-  err = cudaLaunchKernelEx(&cfg, mi_lstm_fwd_kernel<R>, xp_f, xp_b, mask,
+  err = cudaLaunchKernelEx(&cfg, mi_lstm_fwd_kernel<W, R>, xp_f, xp_b, mask,
                            wh_f, wh_b, al_f, al_b, b1_f, b1_b, b2_f, b2_b,
                            bias_f, bias_b, h_f, c_f, h_b, c_b, h_init, c_init,
                            T, B, H, U);
@@ -358,6 +425,24 @@ cudaError_t by_rows(int R, F&& f) {
   }
 }
 
+template <typename W>
+int launch_form(const float* xp_f, const float* xp_b, const float* mask,
+                const W* wh_f, const W* wh_b, const float* al_f,
+                const float* al_b, const float* b1_f, const float* b1_b,
+                const float* b2_f, const float* b2_b, const float* bias_f,
+                const float* bias_b, float* h_f, float* c_f, float* h_b,
+                float* c_b, const float* h_init, const float* c_init, int T,
+                int B, int H, int ndir, int C, int U, int R, void* stream) {
+  if (!valid_geometry(H, ndir, C, U))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(by_rows(R, [&](auto rows) {
+    return launch<W, decltype(rows)::value>(
+        xp_f, xp_b, mask, wh_f, wh_b, al_f, al_b, b1_f, b1_b, b2_f, b2_b,
+        bias_f, bias_b, h_f, c_f, h_b, c_b, h_init, c_init, T, B, H, ndir, C,
+        U, static_cast<cudaStream_t>(stream));
+  }));
+}
+
 }  // namespace
 
 // Launch the forward over ndir directions: clusters of C CTAs of U units
@@ -373,15 +458,26 @@ extern "C" int asr_mi_lstm_fwd(const float* xp_f, const float* xp_b,
                                float* h_b, float* c_b, const float* h_init,
                                const float* c_init, int T, int B, int H,
                                int ndir, int C, int U, int R, void* stream) {
-  if (!valid_geometry(H, ndir, C, U))
-    return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(by_rows(R, [&](auto rows) {
-    return launch<decltype(rows)::value>(
-        xp_f, xp_b, mask, wh_f, wh_b, al_f, al_b, b1_f, b1_b, b2_f, b2_b,
-        bias_f, bias_b, h_f, c_f, h_b, c_b, h_init, c_init, T, B, H, ndir, C,
-        U,
-        static_cast<cudaStream_t>(stream));
-  }));
+  return launch_form<float>(xp_f, xp_b, mask, wh_f, wh_b, al_f, al_b, b1_f,
+                            b1_b, b2_f, b2_b, bias_f, bias_b, h_f, c_f, h_b,
+                            c_b, h_init, c_init, T, B, H, ndir, C, U, R,
+                            stream);
+}
+
+// The bfloat16-weight form: asr_mi_lstm_fwd's arguments with wh_f / wh_b
+// bfloat16 [H, 4H].
+extern "C" int asr_mi_lstm_fwd_bf16(
+    const float* xp_f, const float* xp_b, const float* mask,
+    const __nv_bfloat16* wh_f, const __nv_bfloat16* wh_b, const float* al_f,
+    const float* al_b, const float* b1_f, const float* b1_b,
+    const float* b2_f, const float* b2_b, const float* bias_f,
+    const float* bias_b, float* h_f, float* c_f, float* h_b, float* c_b,
+    const float* h_init, const float* c_init, int T, int B, int H, int ndir,
+    int C, int U, int R, void* stream) {
+  return launch_form<__nv_bfloat16>(
+      xp_f, xp_b, mask, wh_f, wh_b, al_f, al_b, b1_f, b1_b, b2_f, b2_b,
+      bias_f, bias_b, h_f, c_f, h_b, c_b, h_init, c_init, T, B, H, ndir, C,
+      U, R, stream);
 }
 
 // The forward's dynamic shared memory per CTA and the clusters the card
@@ -394,8 +490,8 @@ extern "C" int asr_mi_lstm_fwd_info(int B, int H, int ndir, int C, int U,
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[1];
   const cudaError_t err = by_rows(R, [&](auto rows) {
-    return configure<decltype(rows)::value>(B, H, ndir, C, U, &cfg, attr,
-                                            max_clusters);
+    return configure<float, decltype(rows)::value>(B, H, ndir, C, U, &cfg,
+                                                   attr, max_clusters);
   });
   if (err == cudaSuccess) *smem_bytes = static_cast<int>(cfg.dynamicSmemBytes);
   return static_cast<int>(err);

@@ -56,6 +56,21 @@
 //      it (its slot for this sender, alternating on s & 1);
 //   d. one cluster barrier.
 //
+// The bfloat16-weight form (asr_zoneout_lstm_bwd_bf16) is the same kernel
+// on the weight type W = __nv_bfloat16 (ops/pallas_zoneout_lstm.py
+// `_zo_row_bwd` with a bfloat16 wh), as bilstm_bwd.cu's: the slice is held
+// as bfloat16 in the registers (64 pairs a thread) and in ws ([H][4U + 2]
+// bfloat16, whose odd row stride in words keeps step c's pair reads free of
+// bank conflicts); the saved h_prev is rounded to bfloat16 in shared memory
+// by the thread whose cp.async fetched it, so step a recomputes the
+// forward's gates from the forward's operands.  That slot is this CTA's
+// own (no peer reads it: the exchange carries only step c's partials) and
+// step a is its only reader (the backward takes h_prev nowhere but in the
+// product), so no unrounded copy is kept.  dpre is rounded to bfloat16
+// before step c (`_mm(dpre, wht)`), while dxp is written unrounded.
+// Products are float32 fmaf on the converted values in the float32 form's
+// order.
+//
 // The fixed order of every sum keeps the backward, and so the train steps,
 // bit-reproducible.  The launcher refuses a grid whose clusters are not all
 // resident at once (cudaOccupancyMaxActiveClusters); ops/zoneout_lstm.py
@@ -63,6 +78,7 @@
 // not fit (H=300, H=512) to zoneout_lstm_stream_bwd.cu.
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <type_traits>
@@ -78,18 +94,21 @@ constexpr int kMaxCluster = 8;   // the portable cluster size
 __host__ __device__ constexpr int round4(int n) { return (n + 3) & ~3; }
 
 // Offsets (in floats) of the dynamic shared memory of one CTA; mirrored by
-// ops/zoneout_lstm.py `zoneout_cluster_smem`.
+// ops/zoneout_lstm.py `zoneout_cluster_smem` for the float32 form.  ws
+// holds `half` (bfloat16) weights in the bfloat16 form, in rows of gcs
+// elements.
 struct BwdLayout {
   int hp, gcs, ks, hs, ws, hpb, xs, cp, dho, zh, zc, mk, red, dpre, recv,
       hold, dcs, total;
-  __host__ __device__ BwdLayout(int H, int U, int R, int C) {
+  __host__ __device__ BwdLayout(int H, int U, int R, int C, bool half) {
     const int gc = 4 * U;
     hp = round4(H);
-    gcs = gc + 1;
+    gcs = half ? gc + 2 : gc + 1;    // an odd number of words a row
     ks = (H + kSlice - 1) / kSlice;  // slices of the H reduction
     hs = ks * kSlice;                // h rows, zero-padded to whole slices
     ws = 0;                          // [hp][gcs]   wh[:, own columns]
-    hpb = ws + round4(hp * gcs);     // [2][R][hs]  saved h at t_prev
+    hpb = ws + round4(half ? hp * gcs / 2 : hp * gcs);
+    //                                  [2][R][hs]  saved h at t_prev
     xs = hpb + 2 * R * hs;           // [2][R][gc]  xp of own columns
     cp = xs + 2 * R * gc;            // [2][R][U]   c at t_prev, own units
     dho = cp + round4(2 * R * U);    // [2][R][U]   dh_out at t
@@ -109,6 +128,58 @@ __device__ __forceinline__ float sigmoidf(float x) {
   return 1.f / (1.f + expf(-x));
 }
 
+// A thread's kSlice weights of one column, in registers: float32, or
+// bfloat16 pairs for the bfloat16-weight form.  quad(kk) gives rows kk ..
+// kk + 3 as float32.
+template <typename W>
+struct Slice {
+  float w[kSlice];
+  __device__ __forceinline__ void set2(int kk, W a, W b) {
+    w[kk] = a;
+    w[kk + 1] = b;
+  }
+  __device__ __forceinline__ float4 quad(int kk) const {
+    return make_float4(w[kk], w[kk + 1], w[kk + 2], w[kk + 3]);
+  }
+};
+
+template <>
+struct Slice<__nv_bfloat16> {
+  __nv_bfloat162 w[kSlice / 2];
+  __device__ __forceinline__ void set2(int kk, __nv_bfloat16 a,
+                                       __nv_bfloat16 b) {
+    w[kk / 2] = __halves2bfloat162(a, b);
+  }
+  __device__ __forceinline__ float4 quad(int kk) const {
+    const float2 lo = __bfloat1622float2(w[kk / 2]);
+    const float2 hi = __bfloat1622float2(w[kk / 2 + 1]);
+    return make_float4(lo.x, lo.y, hi.x, hi.y);
+  }
+};
+
+// x as it enters a product with weights of type W: itself, or rounded to
+// the nearest bfloat16
+template <typename W>
+__device__ __forceinline__ float as_operand(float x) {
+  if constexpr (std::is_same_v<W, __nv_bfloat16>)
+    return __bfloat162float(__float2bfloat16_rn(x));
+  else
+    return x;
+}
+
+// four consecutive weights of a ws row as float32 (k even)
+__device__ __forceinline__ float4 row4(const float* w) {
+  return make_float4(w[0], w[1], w[2], w[3]);
+}
+
+__device__ __forceinline__ float4 row4(const __nv_bfloat16* w) {
+  const float2 lo =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(w));
+  const float2 hi =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(w + 2));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+
 // 4-byte asynchronous copy global -> shared; zero-fills when !valid
 __device__ __forceinline__ void cp_async4(float* dst, const float* src,
                                           bool valid) {
@@ -126,7 +197,7 @@ __device__ __forceinline__ void cp_async_wait_prev() {
   asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
 
-template <int R>
+template <typename W, int R>
 __global__ void __launch_bounds__(kThreads, 1)
 zoneout_lstm_bwd_kernel(const float* __restrict__ xp_f,
                         const float* __restrict__ xp_b,
@@ -135,8 +206,8 @@ zoneout_lstm_bwd_kernel(const float* __restrict__ xp_f,
                         const float* __restrict__ zh_b,
                         const float* __restrict__ zc_f,
                         const float* __restrict__ zc_b,
-                        const float* __restrict__ wh_f,
-                        const float* __restrict__ wh_b,
+                        const W* __restrict__ wh_f,
+                        const W* __restrict__ wh_b,
                         const float* __restrict__ h_f,
                         const float* __restrict__ c_f,
                         const float* __restrict__ h_b,
@@ -148,10 +219,11 @@ zoneout_lstm_bwd_kernel(const float* __restrict__ xp_f,
   cg::cluster_group cluster = cg::this_cluster();
   const int C = static_cast<int>(cluster.num_blocks());
   const int rank = static_cast<int>(cluster.block_rank());
-  const BwdLayout L(H, U, R, C);
+  constexpr bool kRounded = std::is_same_v<W, __nv_bfloat16>;
+  const BwdLayout L(H, U, R, C, kRounded);
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  float* ws = smem + L.ws;
+  W* ws = reinterpret_cast<W*>(smem + L.ws);
   float* hpb = smem + L.hpb;
   float* xs = smem + L.xs;
   float* cps = smem + L.cp;
@@ -171,7 +243,7 @@ zoneout_lstm_bwd_kernel(const float* __restrict__ xp_f,
   const float* __restrict__ xp = rev ? xp_b : xp_f;
   const float* __restrict__ zh = rev ? zh_b : zh_f;
   const float* __restrict__ zc = rev ? zc_b : zc_f;
-  const float* __restrict__ wh = rev ? wh_b : wh_f;
+  const W* __restrict__ wh = rev ? wh_b : wh_f;
   const float* __restrict__ h = rev ? h_b : h_f;
   const float* __restrict__ c = rev ? c_b : c_f;
   const float* __restrict__ dh_out = rev ? dh_b : dh_f;
@@ -189,20 +261,21 @@ zoneout_lstm_bwd_kernel(const float* __restrict__ xp_f,
     const int q = col / U, unit = u0 + col - q * U;
     ws[k * GCS + col] =
         (k < H && unit < H) ? wh[static_cast<size_t>(k) * G + q * H + unit]
-                            : 0.f;
+                            : W{};
   }
   const int col = tid % GC, ks = tid / GC;
   const bool active = ks < L.ks;
-  float w[kSlice];
+  Slice<W> w;
   {
     const int q = col / U, unit = u0 + col - q * U;
-#pragma unroll
-    for (int kk = 0; kk < kSlice; ++kk) {
+    auto at = [&](int kk) {
       const int k = ks * kSlice + kk;
-      w[kk] = (active && k < H && unit < H)
-                  ? wh[static_cast<size_t>(k) * G + q * H + unit]
-                  : 0.f;
-    }
+      return (active && k < H && unit < H)
+                 ? wh[static_cast<size_t>(k) * G + q * H + unit]
+                 : W{};
+    };
+#pragma unroll
+    for (int kk = 0; kk < kSlice; kk += 2) w.set2(kk, at(kk), at(kk + 1));
   }
   for (int i = tid; i < R * GC; i += kThreads) dpre[i] = 0.f;
   for (int i = tid; i < 2 * C * RU; i += kThreads) recv[i] = 0.f;
@@ -268,6 +341,13 @@ zoneout_lstm_bwd_kernel(const float* __restrict__ xp_f,
     else
       cp_async_commit();
     cp_async_wait_prev();
+    if constexpr (kRounded) {
+      // h_prev as the forward's product took it, each element rounded by
+      // the thread whose copy brought it (prefetch's mapping)
+      float* hr = hpb + cur * R * HS;
+      for (int i = tid; i < R * HS; i += kThreads)
+        hr[i] = as_operand<W>(hr[i]);
+    }
     __syncthreads();
 
     // a. the gates, recomputed from the saved h_prev, the weights from
@@ -279,14 +359,15 @@ zoneout_lstm_bwd_kernel(const float* __restrict__ xp_f,
       for (int r = 0; r < R; ++r) acc[r] = 0.f;
 #pragma unroll
       for (int kk = 0; kk < kSlice; kk += 4) {
+        const float4 wv = w.quad(kk);
 #pragma unroll
         for (int r = 0; r < R; ++r) {
           const float4 hv =
               *reinterpret_cast<const float4*>(hk + r * HS + kk);
-          acc[r] = fmaf(hv.x, w[kk], acc[r]);
-          acc[r] = fmaf(hv.y, w[kk + 1], acc[r]);
-          acc[r] = fmaf(hv.z, w[kk + 2], acc[r]);
-          acc[r] = fmaf(hv.w, w[kk + 3], acc[r]);
+          acc[r] = fmaf(hv.x, wv.x, acc[r]);
+          acc[r] = fmaf(hv.y, wv.y, acc[r]);
+          acc[r] = fmaf(hv.z, wv.z, acc[r]);
+          acc[r] = fmaf(hv.w, wv.w, acc[r]);
         }
       }
 #pragma unroll
@@ -327,11 +408,12 @@ zoneout_lstm_bwd_kernel(const float* __restrict__ xp_f,
       const float p_f = m ? dc * c_prev * fg * (1.f - fg) : 0.f;
       const float p_g = m ? dc * ig * (1.f - gg * gg) : 0.f;
       const float p_o = m ? dh_new * tc * og * (1.f - og) : 0.f;
+      // step c's operands (rounded in the bfloat16 form); dxp unrounded
       float* dp = dpre + r * GC + u;
-      dp[0] = p_i;
-      dp[U] = p_f;
-      dp[2 * U] = p_g;
-      dp[3 * U] = p_o;
+      dp[0] = as_operand<W>(p_i);
+      dp[U] = as_operand<W>(p_f);
+      dp[2 * U] = as_operand<W>(p_g);
+      dp[3 * U] = as_operand<W>(p_o);
       const int b = b0 + r;
       if (b < B) {
         float* out = dxp + (static_cast<size_t>(t) * B + b) * G + unit;
@@ -352,19 +434,18 @@ zoneout_lstm_bwd_kernel(const float* __restrict__ xp_f,
       float acc[R];
 #pragma unroll
       for (int r = 0; r < R; ++r) acc[r] = 0.f;
-      const float* wrow = ws + j * GCS;
+      const W* wrow = ws + j * GCS;
 #pragma unroll 2
       for (int k = 0; k < GC; k += 4) {
-        const float w0 = wrow[k], w1 = wrow[k + 1], w2 = wrow[k + 2],
-                    w3 = wrow[k + 3];
+        const float4 wv = row4(wrow + k);
 #pragma unroll
         for (int r = 0; r < R; ++r) {
           const float4 dv =
               *reinterpret_cast<const float4*>(dpre + r * GC + k);
-          acc[r] = fmaf(dv.x, w0, acc[r]);
-          acc[r] = fmaf(dv.y, w1, acc[r]);
-          acc[r] = fmaf(dv.z, w2, acc[r]);
-          acc[r] = fmaf(dv.w, w3, acc[r]);
+          acc[r] = fmaf(dv.x, wv.x, acc[r]);
+          acc[r] = fmaf(dv.y, wv.y, acc[r]);
+          acc[r] = fmaf(dv.z, wv.z, acc[r]);
+          acc[r] = fmaf(dv.w, wv.w, acc[r]);
         }
       }
       const int owner = j / U;
@@ -380,15 +461,17 @@ zoneout_lstm_bwd_kernel(const float* __restrict__ xp_f,
 
 // The launch configuration of the cluster grid -> its dynamic shared memory
 // and how many of its clusters the card holds at once.
-template <int R>
+template <typename W, int R>
 cudaError_t configure(int B, int H, int ndir, int C, int U,
                       cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr,
                       int* max_clusters) {
   const size_t smem =
-      sizeof(float) * static_cast<size_t>(BwdLayout(H, U, R, C).total);
+      sizeof(float) *
+      static_cast<size_t>(
+          BwdLayout(H, U, R, C, std::is_same_v<W, __nv_bfloat16>).total);
   cudaError_t err = cudaFuncSetAttribute(
-      zoneout_lstm_bwd_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      zoneout_lstm_bwd_kernel<W, R>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   *cfg = cudaLaunchConfig_t{};
   cfg->gridDim = dim3(C, (B + R - 1) / R, ndir);
@@ -401,13 +484,13 @@ cudaError_t configure(int B, int H, int ndir, int C, int U,
   cfg->attrs = attr;
   cfg->numAttrs = 1;
   return cudaOccupancyMaxActiveClusters(max_clusters,
-                                        zoneout_lstm_bwd_kernel<R>, cfg);
+                                        zoneout_lstm_bwd_kernel<W, R>, cfg);
 }
 
-template <int R>
+template <typename W, int R>
 cudaError_t launch(const float* xp_f, const float* xp_b, const float* mask,
                    const float* zh_f, const float* zh_b, const float* zc_f,
-                   const float* zc_b, const float* wh_f, const float* wh_b,
+                   const float* zc_b, const W* wh_f, const W* wh_b,
                    const float* h_f, const float* c_f, const float* h_b,
                    const float* c_b, const float* dh_f, const float* dh_b,
                    float* dxp_f, float* dxp_b, int T, int B, int H, int ndir,
@@ -415,13 +498,13 @@ cudaError_t launch(const float* xp_f, const float* xp_b, const float* mask,
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[1];
   int fit = 0;
-  cudaError_t err = configure<R>(B, H, ndir, C, U, &cfg, attr, &fit);
+  cudaError_t err = configure<W, R>(B, H, ndir, C, U, &cfg, attr, &fit);
   if (err != cudaSuccess) return err;
   // all clusters in one wave, or no launch
   if (fit < static_cast<int>(cfg.gridDim.y * cfg.gridDim.z))
     return cudaErrorCooperativeLaunchTooLarge;
   cfg.stream = stream;
-  err = cudaLaunchKernelEx(&cfg, zoneout_lstm_bwd_kernel<R>, xp_f, xp_b,
+  err = cudaLaunchKernelEx(&cfg, zoneout_lstm_bwd_kernel<W, R>, xp_f, xp_b,
                            mask, zh_f, zh_b, zc_f, zc_b, wh_f, wh_b, h_f,
                            c_f, h_b, c_b, dh_f, dh_b, dxp_f, dxp_b, T, B, H,
                            U);
@@ -448,6 +531,24 @@ cudaError_t by_rows(int R, F&& f) {
   }
 }
 
+template <typename W>
+int launch_form(const float* xp_f, const float* xp_b, const float* mask,
+                const float* zh_f, const float* zh_b, const float* zc_f,
+                const float* zc_b, const W* wh_f, const W* wh_b,
+                const float* h_f, const float* c_f, const float* h_b,
+                const float* c_b, const float* dh_f, const float* dh_b,
+                float* dxp_f, float* dxp_b, int T, int B, int H, int ndir,
+                int C, int U, int R, void* stream) {
+  if (!valid_geometry(H, ndir, C, U))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(by_rows(R, [&](auto rows) {
+    return launch<W, decltype(rows)::value>(
+        xp_f, xp_b, mask, zh_f, zh_b, zc_f, zc_b, wh_f, wh_b, h_f, c_f, h_b,
+        c_b, dh_f, dh_b, dxp_f, dxp_b, T, B, H, ndir, C, U,
+        static_cast<cudaStream_t>(stream));
+  }));
+}
+
 }  // namespace
 
 // Launch the backward over ndir directions: clusters of C CTAs of U units
@@ -459,14 +560,24 @@ extern "C" int asr_zoneout_lstm_bwd(
     const float* h_f, const float* c_f, const float* h_b, const float* c_b,
     const float* dh_f, const float* dh_b, float* dxp_f, float* dxp_b, int T,
     int B, int H, int ndir, int C, int U, int R, void* stream) {
-  if (!valid_geometry(H, ndir, C, U))
-    return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(by_rows(R, [&](auto rows) {
-    return launch<decltype(rows)::value>(
-        xp_f, xp_b, mask, zh_f, zh_b, zc_f, zc_b, wh_f, wh_b, h_f, c_f, h_b,
-        c_b, dh_f, dh_b, dxp_f, dxp_b, T, B, H, ndir, C, U,
-        static_cast<cudaStream_t>(stream));
-  }));
+  return launch_form<float>(xp_f, xp_b, mask, zh_f, zh_b, zc_f, zc_b, wh_f,
+                            wh_b, h_f, c_f, h_b, c_b, dh_f, dh_b, dxp_f,
+                            dxp_b, T, B, H, ndir, C, U, R, stream);
+}
+
+// The bfloat16-weight form: asr_zoneout_lstm_bwd's arguments with wh_f /
+// wh_b bfloat16 [H, 4H].
+extern "C" int asr_zoneout_lstm_bwd_bf16(
+    const float* xp_f, const float* xp_b, const float* mask,
+    const float* zh_f, const float* zh_b, const float* zc_f,
+    const float* zc_b, const __nv_bfloat16* wh_f, const __nv_bfloat16* wh_b,
+    const float* h_f, const float* c_f, const float* h_b, const float* c_b,
+    const float* dh_f, const float* dh_b, float* dxp_f, float* dxp_b, int T,
+    int B, int H, int ndir, int C, int U, int R, void* stream) {
+  return launch_form<__nv_bfloat16>(xp_f, xp_b, mask, zh_f, zh_b, zc_f, zc_b,
+                                    wh_f, wh_b, h_f, c_f, h_b, c_b, dh_f,
+                                    dh_b, dxp_f, dxp_b, T, B, H, ndir, C, U,
+                                    R, stream);
 }
 
 // The backward's dynamic shared memory per CTA and the clusters the card
@@ -479,8 +590,8 @@ extern "C" int asr_zoneout_lstm_bwd_info(int B, int H, int ndir, int C,
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[1];
   const cudaError_t err = by_rows(R, [&](auto rows) {
-    return configure<decltype(rows)::value>(B, H, ndir, C, U, &cfg, attr,
-                                            max_clusters);
+    return configure<float, decltype(rows)::value>(B, H, ndir, C, U, &cfg,
+                                                   attr, max_clusters);
   });
   if (err == cudaSuccess) *smem_bytes = static_cast<int>(cfg.dynamicSmemBytes);
   return static_cast<int>(err);

@@ -188,8 +188,10 @@ def mi_lstm_step(h_prev: torch.Tensor, c_prev: torch.Tensor,
     """One frame of the multiplicative-integration LSTM: xp_t [B, 4H] is the
     raw ``x @ wx`` (no bias), alpha, beta1, beta2 and b [4H]; the gate
     pre-activation is ``alpha * xp * hp + beta1 * xp + beta2 * hp + b`` with
-    ``hp = h_prev @ wh``.  -> (h, c)."""
-    hp = torch.matmul(h_prev, wh)
+    ``hp = h_prev @ wh`` in wh's dtype (:func:`dot`: with bfloat16 weights
+    h_prev is rounded to bfloat16 there, and only there: a held frame keeps
+    it unrounded).  -> (h, c)."""
+    hp = dot(h_prev, wh)
     pre = alpha * xp_t * hp + beta1 * xp_t + beta2 * hp + b
     i, f, g, o = pre.chunk(4, dim=-1)
     c = torch.sigmoid(f) * c_prev + torch.sigmoid(i) * torch.tanh(g)
@@ -216,9 +218,12 @@ class MILSTMCell(LSTMCell):
                 ) -> tuple[torch.Tensor, tuple[torch.Tensor, ...]]:
         """The streamed RAW ``x @ wx`` [T, B, 4H] (the Hadamard term needs
         it without the bias) and the resident ``(wh, alpha, beta1, beta2,
-        b)``."""
+        b)``, the four vectors as float32 (bfloat16 ones cast, as the JAX
+        route's ``astype(jnp.float32)``: their gradients are rounded to
+        bfloat16 at the cast)."""
         return self.input_proj(x).contiguous(), (
-            self.wh, self.alpha, self.beta1, self.beta2, self.b)
+            self.wh, *(v.float() for v in (self.alpha, self.beta1,
+                                             self.beta2, self.b)))
 
     def step(self, carry: tuple[torch.Tensor, torch.Tensor],
              xp_t: torch.Tensor, mask_t: torch.Tensor
@@ -237,8 +242,10 @@ def zoneout_lstm_step(h_prev: torch.Tensor, c_prev: torch.Tensor,
     ``_zo_cell_math``): the LSTM update from xp_t [B, 4H] (bias folded in),
     then ``h = zh * h_new + (1 - zh) * h_prev`` and the same for c with zc
     (zh_t, zc_t [B, H]: the weight of the new state), then the hold on
-    masked frames.  -> (h, c)."""
-    pre = xp_t + torch.matmul(h_prev, wh)
+    masked frames.  The product is taken in wh's dtype (:func:`dot`: with
+    bfloat16 weights h_prev is rounded to bfloat16 there, and only there:
+    the mix and the hold take it unrounded).  -> (h, c)."""
+    pre = xp_t + dot(h_prev, wh)
     i, f, g, o = pre.chunk(4, dim=-1)
     c_new = torch.sigmoid(f) * c_prev + torch.sigmoid(i) * torch.tanh(g)
     h_new = torch.sigmoid(o) * torch.tanh(c_new)
@@ -297,9 +304,9 @@ class ZoneoutLSTMCell(LSTMCell):
     def prepare(self, x: torch.Tensor, train: bool = False,
                 generator: Optional[torch.Generator] = None
                 ) -> tuple[torch.Tensor, tuple[torch.Tensor, ...]]:
-        """The streamed ``x @ wx + b`` [T, B, 4H] and ``(zh, zc, wh)``, the
-        mix weights [T, B, H] in forward time order whichever way the layer
-        walks."""
+        """The streamed ``x @ wx + b`` [T, B, 4H] (float32: a bfloat16 b is
+        added as it is) and ``(zh, zc, wh)``, the mix weights [T, B, H] in
+        forward time order whichever way the layer walks."""
         zh, zc = self.mix(x.shape[0], x.shape[1], train, generator,
                           x.device)
         return (self.input_proj(x) + self.b).contiguous(), (zh, zc, self.wh)

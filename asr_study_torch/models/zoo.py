@@ -278,7 +278,7 @@ CELL_KINDS = {"graves2006": "lstm", "deep_blstm": "lstm", "deep_gru": "gru",
               "mi_blstm": "mi_lstm", "highway_blstm": "lstm",
               "residual_blstm": "lstm", "deep_speech": "lstm"}
 # the cell kinds whose recurrent kernels have bfloat16-weight forms
-BF16_CELLS = ("lstm", "gru")
+BF16_CELLS = ("lstm", "gru", "zoneout_lstm", "mi_lstm")
 
 
 def build_model(name: str, params=None, num_classes: int = 27,

@@ -40,6 +40,24 @@ cotangents) plus :func:`dir_grads` per direction.
 ``c0`` [B, H] where given (zeros elsewhere), so a stream's chunks thread
 the state that the last frame of h and c hands on (``models/rnn.py``
 ``RNNLayer.apply_streaming``).
+
+bfloat16 weights (``train --bf16``, the JAX trainer's ``compute_dtype``,
+under which ``pallas_bi_mi_lstm`` / ``pallas_mi_lstm`` run with a bfloat16
+wh): ``wh`` may be bfloat16 in every wrapper, both directions alike, while
+xp, the mask, the MI vectors (float32 copies of bfloat16 ones), h, c and
+every cotangent stay float32.  The cluster design then launches its
+bfloat16-weight forms (the same sources, the ``_bf16`` entry points):
+h_prev is rounded to bfloat16 where it enters ``hp = h_prev @ wh`` and
+only there (a held frame keeps it unrounded), the backward recomputes hp
+the same way and rounds ``dhp = dpre * (alpha * xp + beta2)`` before ``dhp
+@ wh^T``, as the JAX kernels' ``_mm`` does, each product taken in float32;
+dpre comes out unrounded.  The plain twins round the same way
+(:func:`~asr_study_torch.models.nn.dot`).  :func:`dir_grads` follows the
+JAX ``dir_grads``, which mixes the float32 h_prev with the bfloat16 wh:
+its hp is the float32 product of the UNROUNDED h_prev and wh's values, and
+``dwh`` comes back bfloat16.  A bfloat16 call whose shape goes to the
+stream design raises (:data:`~asr_study_torch.ops.recurrence.BF16_ITEM`);
+``by_design`` counts bfloat16 launches under ``cluster_bf16``.
 """
 
 from __future__ import annotations
@@ -48,12 +66,14 @@ import torch
 
 from asr_study_torch import _build
 from asr_study_torch.models.cells import mi_lstm_step
+from asr_study_torch.models.nn import dot
 from asr_study_torch.ops.bilstm import (CLUSTER_SLICE, CLUSTER_THREADS,
                                         cluster_smem, stream_smem)
-from asr_study_torch.ops.recurrence import (STREAM_ROWS, Geometry, check,
-                                            check_carry, cluster_geometry,
-                                            cotangent, kernel_info, prev,
-                                            stream)
+from asr_study_torch.ops.recurrence import (STREAM_ROWS, Geometry, bf16_design,
+                                            check, check_carry,
+                                            cluster_geometry, cotangent,
+                                            design_counts, design_key,
+                                            kernel_info, prev, stream)
 
 
 def mi_cluster_smem(hidden: int, units: int, rows: int, ctas: int
@@ -138,8 +158,11 @@ def mi_lstm_plain(xp, mask, wh, alpha, beta1, beta2, b, h0=None, c0=None
     return _scan(xp, mask, wh, alpha, beta1, beta2, b, False, h0, c0)
 
 
-def _geometry(xp: torch.Tensor, ndir: int) -> Geometry:
-    return mi_geometry(xp.shape[2] // 4, xp.shape[1], ndir)
+def _geometry(name: str, xp: torch.Tensor, wh: torch.Tensor,
+              ndir: int) -> Geometry:
+    hidden, batch = xp.shape[2] // 4, xp.shape[1]
+    return bf16_design(name, mi_geometry(hidden, batch, ndir), wh, hidden,
+                       batch, wide=False)
 
 
 def _pairs(vecs: list, ndir: int) -> list:
@@ -168,14 +191,15 @@ def launch_fwd(geo: Geometry, xps: list, mask: torch.Tensor, whs: list,
     ptrs = (*(a.data_ptr() for a in args),
             *(None if s is None else s.data_ptr() for s in (h0, c0)),
             t_steps, batch, hidden, ndir)
+    form = "_bf16" if whs[0].dtype == torch.bfloat16 else ""
     with torch.cuda.device(xps[0].device):
         if geo.design == "cluster":
-            err = _build.lib().asr_mi_lstm_fwd(
+            err = getattr(_build.lib(), f"asr_mi_lstm_fwd{form}")(
                 *ptrs, geo.ctas, geo.units, geo.rows, stream(xps[0]))
         else:
             err = _build.lib().asr_mi_lstm_stream_fwd(*ptrs, stream(xps[0]))
     _build.check(err, f"{'bi_mi_lstm' if ndir == 2 else 'mi_lstm'}_fwd "
-                      f"({geo.design})")
+                      f"({geo.design}{form})")
     return outs
 
 
@@ -192,7 +216,8 @@ def bi_mi_lstm(xp_f: torch.Tensor, xp_b: torch.Tensor, mask: torch.Tensor,
     xp_f, xp_b: [T, B, 4H] float32, the raw ``x @ wx`` of each direction,
                 both in forward time order (the reverse walk happens inside)
     mask:       [T, B, 1] float32, 1.0 on real frames
-    wh_f, wh_b: [H, 4H] float32 recurrent weights, gate order i, f, g, o
+    wh_f, wh_b: [H, 4H] float32 (or both bfloat16) recurrent weights, gate
+                order i, f, g, o
     alpha_*, beta1_*, beta2_*, b_*: [4H] float32 MI vectors
     ->          (h_f, c_f, h_b, c_b), each [T, B, H] in forward time order;
                 a masked frame repeats the previous state.  No autograd
@@ -202,21 +227,21 @@ def bi_mi_lstm(xp_f: torch.Tensor, xp_b: torch.Tensor, mask: torch.Tensor,
           dict(wh_f=wh_f, wh_b=wh_b), {},
           dict(alpha_f=alpha_f, alpha_b=alpha_b, beta1_f=beta1_f,
                beta1_b=beta1_b, beta2_f=beta2_f, beta2_b=beta2_b, b_f=b_f,
-               b_b=b_b))
+               b_b=b_b), bf16=True)
     args = (xp_f, xp_b, mask, wh_f, wh_b, alpha_f, alpha_b, beta1_f,
             beta1_b, beta2_f, beta2_b, b_f, b_b)
+    geo = _geometry("bi_mi_lstm", xp_f, wh_f, 2)
     if xp_f.device.type == "cpu":
         with torch.no_grad():
             return bi_mi_lstm_plain(*args)
-    geo = _geometry(xp_f, 2)
     outs = launch_fwd(geo, [xp_f, xp_b], mask, [wh_f, wh_b], list(args[5:]))
     bi_mi_lstm.launches += 1
-    bi_mi_lstm.by_design[geo.design] += 1
+    bi_mi_lstm.by_design[design_key(geo, wh_f)] += 1
     return tuple(outs)
 
 
 bi_mi_lstm.launches = 0
-bi_mi_lstm.by_design = {"cluster": 0, "stream": 0}
+bi_mi_lstm.by_design = design_counts()
 
 
 def mi_lstm(xp: torch.Tensor, mask: torch.Tensor, wh: torch.Tensor,
@@ -231,29 +256,30 @@ def mi_lstm(xp: torch.Tensor, mask: torch.Tensor, wh: torch.Tensor,
     (zeros where not given); h[T-1] and c[T-1] are the state it ends in.
     :class:`MILSTMFunction` is the differentiable form."""
     check("mi_lstm", 4, mask, dict(xp=xp), dict(wh=wh), {},
-          dict(alpha=alpha, beta1=beta1, beta2=beta2, b=b))
+          dict(alpha=alpha, beta1=beta1, beta2=beta2, b=b), bf16=True)
     check_carry("mi_lstm", xp, 4, h0=h0, c0=c0)
+    geo = _geometry("mi_lstm", xp, wh, 1)
     if xp.device.type == "cpu":
         with torch.no_grad():
             return mi_lstm_plain(xp, mask, wh, alpha, beta1, beta2, b, h0,
                                  c0)
-    geo = _geometry(xp, 1)
     h, c = launch_fwd(geo, [xp], mask, [wh], [alpha, beta1, beta2, b], h0,
                       c0)
     mi_lstm.launches += 1
-    mi_lstm.by_design[geo.design] += 1
+    mi_lstm.by_design[design_key(geo, wh)] += 1
     return h, c
 
 
 mi_lstm.launches = 0
-mi_lstm.by_design = {"cluster": 0, "stream": 0}
+mi_lstm.by_design = design_counts()
 
 
 def _walk_bwd(xp, mask, wh, alpha, beta1, beta2, b, h, c, dh_out,
               reverse: bool) -> torch.Tensor:
     """One direction's cotangent walk (``_mi_row_bwd`` of the JAX package),
     from the end of its own time order back -> dpre.  The recurrent chain
-    goes through ``dhp = dpre * (alpha * xp + beta2)`` and ``wh^T``."""
+    goes through ``dhp = dpre * (alpha * xp + beta2)`` and ``wh^T``; both
+    products in wh's dtype (:func:`dot`), dpre unrounded."""
     t_steps, batch, gh = xp.shape
     hp_seq, cp_seq = prev(h, reverse), prev(c, reverse)
     dpre_seq = torch.empty_like(xp)
@@ -261,7 +287,7 @@ def _walk_bwd(xp, mask, wh, alpha, beta1, beta2, b, h, c, dh_out,
     dc_next = xp.new_zeros((batch, gh // 4))
     for t in (range(t_steps) if reverse else reversed(range(t_steps))):
         m = mask[t] > 0                                      # [B, 1]
-        hp = hp_seq[t] @ wh
+        hp = dot(hp_seq[t], wh)
         gates = alpha * xp[t] * hp + beta1 * xp[t] + beta2 * hp + b
         i, f, g, o = gates.chunk(4, dim=-1)
         i, f, g, o = (torch.sigmoid(i), torch.sigmoid(f), torch.tanh(g),
@@ -276,8 +302,9 @@ def _walk_bwd(xp, mask, wh, alpha, beta1, beta2, b, h, c, dh_out,
         dpre = torch.where(m, dpre, 0.0)
         dpre_seq[t] = dpre
         dhp = dpre * (alpha * xp[t] + beta2)
-        # held frames pass h and c (and their cotangents) straight on
-        dh_next = dhp @ wh.t() + torch.where(m, 0.0, dh)
+        # held frames pass h and c (and their cotangents) straight on; with
+        # bfloat16 weights dhp is rounded before the product (dot)
+        dh_next = dot(dhp, wh.t()) + torch.where(m, 0.0, dh)
         dc_next = torch.where(m, dc * f, dc_next)
     return dpre_seq
 
@@ -313,10 +340,11 @@ def launch_bwd(geo: Geometry, xps: list, mask: torch.Tensor, whs: list,
     hidden, ndir = gh // 4, len(xps)
     seqs = (*_pairs(vecs, ndir), hs[0], cs[0], hs[-1], cs[-1], dhs[0],
             dhs[-1], outs[0], outs[-1])
+    form = "_bf16" if whs[0].dtype == torch.bfloat16 else ""
     with torch.cuda.device(xps[0].device):
         if geo.design == "cluster":
             args = (xps[0], xps[-1], mask, whs[0], whs[-1], *seqs)
-            err = _build.lib().asr_mi_lstm_bwd(
+            err = getattr(_build.lib(), f"asr_mi_lstm_bwd{form}")(
                 *(a.data_ptr() for a in args), t_steps, batch, hidden, ndir,
                 geo.ctas, geo.units, geo.rows, stream(xps[0]))
         else:
@@ -327,7 +355,7 @@ def launch_bwd(geo: Geometry, xps: list, mask: torch.Tensor, whs: list,
                 *(a.data_ptr() for a in args), t_steps, batch, hidden, ndir,
                 stream(xps[0]))
     _build.check(err, f"{'bi_mi_lstm' if ndir == 2 else 'mi_lstm'}_bwd "
-                      f"({geo.design})")
+                      f"({geo.design}{form})")
     return outs
 
 
@@ -344,22 +372,22 @@ def bi_mi_lstm_bwd(xp_f, xp_b, mask, wh_f, wh_b, alpha_f, alpha_b, beta1_f,
           dict(h_f=h_f, c_f=c_f, h_b=h_b, c_b=c_b, dh_f=dh_f, dh_b=dh_b),
           dict(alpha_f=alpha_f, alpha_b=alpha_b, beta1_f=beta1_f,
                beta1_b=beta1_b, beta2_f=beta2_f, beta2_b=beta2_b, b_f=b_f,
-               b_b=b_b))
+               b_b=b_b), bf16=True)
     vecs = [alpha_f, alpha_b, beta1_f, beta1_b, beta2_f, beta2_b, b_f, b_b]
+    geo = _geometry("bi_mi_lstm_bwd", xp_f, wh_f, 2)
     if xp_f.device.type == "cpu":
         with torch.no_grad():
             return bi_mi_lstm_bwd_plain(xp_f, xp_b, mask, wh_f, wh_b, *vecs,
                                         h_f, c_f, h_b, c_b, dh_f, dh_b)
-    geo = _geometry(xp_f, 2)
     dpre_f, dpre_b = launch_bwd(geo, [xp_f, xp_b], mask, [wh_f, wh_b], vecs,
                                 [h_f, h_b], [c_f, c_b], [dh_f, dh_b])
     bi_mi_lstm_bwd.launches += 1
-    bi_mi_lstm_bwd.by_design[geo.design] += 1
+    bi_mi_lstm_bwd.by_design[design_key(geo, wh_f)] += 1
     return dpre_f, dpre_b
 
 
 bi_mi_lstm_bwd.launches = 0
-bi_mi_lstm_bwd.by_design = {"cluster": 0, "stream": 0}
+bi_mi_lstm_bwd.by_design = design_counts()
 
 
 def mi_lstm_bwd(xp, mask, wh, alpha, beta1, beta2, b, h, c, dh
@@ -368,21 +396,21 @@ def mi_lstm_bwd(xp, mask, wh, alpha, beta1, beta2, b, h, c, dh
     :func:`bi_mi_lstm_bwd` for one direction."""
     check("mi_lstm_bwd", 4, mask, dict(xp=xp), dict(wh=wh),
           dict(h=h, c=c, dh=dh),
-          dict(alpha=alpha, beta1=beta1, beta2=beta2, b=b))
+          dict(alpha=alpha, beta1=beta1, beta2=beta2, b=b), bf16=True)
+    geo = _geometry("mi_lstm_bwd", xp, wh, 1)
     if xp.device.type == "cpu":
         with torch.no_grad():
             return mi_lstm_bwd_plain(xp, mask, wh, alpha, beta1, beta2, b, h,
                                      c, dh)
-    geo = _geometry(xp, 1)
     (dpre,) = launch_bwd(geo, [xp], mask, [wh], [alpha, beta1, beta2, b],
                          [h], [c], [dh])
     mi_lstm_bwd.launches += 1
-    mi_lstm_bwd.by_design[geo.design] += 1
+    mi_lstm_bwd.by_design[design_key(geo, wh)] += 1
     return dpre
 
 
 mi_lstm_bwd.launches = 0
-mi_lstm_bwd.by_design = {"cluster": 0, "stream": 0}
+mi_lstm_bwd.by_design = design_counts()
 
 
 def dir_grads(dpre, xp, h, wh, alpha, beta1, beta2, reverse: bool
@@ -392,14 +420,17 @@ def dir_grads(dpre, xp, h, wh, alpha, beta1, beta2, reverse: bool
     ``dir_grads``): one ``hp = h_prev @ wh``, then ``dxp = dpre * (alpha *
     hp + beta1)``, ``dhp = dpre * (alpha * xp + beta2)``, ``dwh =
     h_prev^T dhp`` (not ``dpre``) and the vectors' sums.  dpre is zero on
-    masked frames, so every sum is mask-correct."""
+    masked frames, so every sum is mask-correct.  Both products are
+    float32 on the unrounded h_prev, a bfloat16 wh taken at its values (the
+    JAX einsum's promotion of its float32 h_prev and bfloat16 wh, not the
+    kernels' rounded product), and dwh is cast to wh's dtype."""
     hidden = h.shape[-1]
     h_prev = prev(h, reverse).reshape(-1, hidden)
     dpre = dpre.reshape(-1, 4 * hidden)
     xp = xp.reshape(-1, 4 * hidden)
-    hp = h_prev @ wh
+    hp = h_prev @ wh.float()
     dxp = dpre * (alpha * hp + beta1)
-    dwh = h_prev.t() @ (dpre * (alpha * xp + beta2))
+    dwh = (h_prev.t() @ (dpre * (alpha * xp + beta2))).to(wh.dtype)
     xph = dpre * xp
     return (dxp.view(h.shape[0], h.shape[1], 4 * hidden), dwh,
             (xph * hp).sum(dim=0), xph.sum(dim=0), (dpre * hp).sum(dim=0),

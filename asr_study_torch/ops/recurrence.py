@@ -50,8 +50,11 @@ WIDE_MAX_HIDDEN = 512
 WIDE_BUDGET = 6
 WIDE_ROWS = (4, 8, 16)
 
+CLUSTER_MAX_HIDDEN = 256     # the widest H the cluster design takes
+
 # where bf16 compute (the JAX trainer's compute_dtype, train --bf16) waits
-# for every recurrence but the LSTM's and the GRU's cluster and wide designs
+# for the recurrences that have no bfloat16-weight kernels yet: the
+# layer-norm LSTM's, and every stream design
 BF16_ITEM = "ROADMAP queue A item 5b"
 
 
@@ -104,7 +107,7 @@ def wide_geometry(hidden: int, batch: int, ndir: int,
     256 < H <= WIDE_MAX_HIDDEN, where no row count of WIDE_ROWS keeps the
     launch within WIDE_BUDGET clusters, or where the kernels' shared memory,
     ``smem(rows, ctas) -> (forward, backward)`` bytes, exceeds SMEM_LIMIT."""
-    if not 256 < hidden <= WIDE_MAX_HIDDEN:
+    if not CLUSTER_MAX_HIDDEN < hidden <= WIDE_MAX_HIDDEN:
         return None
     ctas = -(-hidden // WIDE_UNITS)
     for rows in WIDE_ROWS:
@@ -119,29 +122,35 @@ def wide_geometry(hidden: int, batch: int, ndir: int,
 
 
 def bf16_design(name: str, geo: Geometry, wh: torch.Tensor, hidden: int,
-                batch: int) -> Geometry:
-    """``geo``, the layout of a call of the LSTM or GRU wrapper ``name``
+                batch: int, wide: bool = True) -> Geometry:
+    """``geo``, the layout of a call of the recurrence wrapper ``name``
     with weights ``wh``; a bfloat16 call that it sends to the stream design
     raises (that design has no bfloat16 form, and no call quietly takes
-    float32)."""
+    float32), saying what the bfloat16 forms take: the cluster design, and
+    the wide design where the cell has one (``wide``: the LSTM, the GRU)."""
     if wh.dtype == torch.bfloat16 and geo.design == "stream":
+        rows = CLUSTER_BUDGET * CLUSTER_ROWS[-1]
+        reach = (f"the cluster and wide designs take H <= {WIDE_MAX_HIDDEN}"
+                 if wide else
+                 f"the cluster design takes H <= {CLUSTER_MAX_HIDDEN}")
         raise ValueError(
             f"{name}: bfloat16 weights at H={hidden}, B={batch}, "
             f"{geo.grid[2]} direction(s) go to the stream design, which has "
-            f"no bfloat16 form yet ({BF16_ITEM}); the cluster and wide "
-            f"designs take H <= 512 up to B=48 in two directions and B=96 "
-            f"in one")
+            f"no bfloat16 form yet ({BF16_ITEM}); {reach} up to "
+            f"B={rows // 2} in two directions and B={rows} in one")
     return geo
 
 
 def design_key(geo: Geometry, wh: torch.Tensor) -> str:
-    """The ``by_design`` key of a launch of the LSTM or GRU kernels: the
+    """The ``by_design`` key of a launch of the recurrence kernels: the
     design, ``_bf16`` added for the bfloat16-weight forms."""
     return geo.design + ("_bf16" if wh.dtype == torch.bfloat16 else "")
 
 
 def design_counts() -> dict:
-    """A fresh ``by_design`` of the LSTM and GRU wrappers."""
+    """A fresh ``by_design`` of the LSTM, GRU, zoneout and MI LSTM
+    wrappers (the last two have no wide design: their wide counts stay
+    0)."""
     return {"cluster": 0, "wide": 0, "stream": 0, "cluster_bf16": 0,
             "wide_bf16": 0}
 

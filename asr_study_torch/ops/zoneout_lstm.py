@@ -44,6 +44,22 @@ gradient.
 state with that carry, so a stream's chunks thread the state that the last
 frame of h and c hands on (``models/rnn.py``
 ``RNNLayer.apply_streaming``).
+
+bfloat16 weights (``train --bf16``, the JAX trainer's ``compute_dtype``,
+under which ``pallas_bi_zoneout_lstm`` / ``pallas_zoneout_lstm`` run with a
+bfloat16 wh): ``wh`` may be bfloat16 in every wrapper, both directions
+alike, while xp, the mask, the mix weights, h, c and every cotangent stay
+float32.  The cluster design then launches its bfloat16-weight forms (the
+same sources, the ``_bf16`` entry points): h_prev is rounded to bfloat16
+where it enters ``h_prev @ wh`` and only there (the mix and the hold take
+it unrounded), the backward recomputes that product the same way and
+rounds ``dpre`` before ``dpre @ wh^T``, as the JAX kernels' ``_mm`` does,
+each product taken in float32; dxp comes out unrounded.  The plain twins
+round the same way (:func:`~asr_study_torch.models.nn.dot`), and ``dwh``
+(a float32 product of the unrounded h_prev and dxp) comes back bfloat16.
+A bfloat16 call whose shape goes to the stream design raises
+(:data:`~asr_study_torch.ops.recurrence.BF16_ITEM`); ``by_design`` counts
+bfloat16 launches under ``cluster_bf16``.
 """
 
 from __future__ import annotations
@@ -52,12 +68,14 @@ import torch
 
 from asr_study_torch import _build
 from asr_study_torch.models.cells import zoneout_lstm_step
+from asr_study_torch.models.nn import dot
 from asr_study_torch.ops.bilstm import (CLUSTER_SLICE, CLUSTER_THREADS,
                                         _dwh, cluster_smem, stream_smem)
-from asr_study_torch.ops.recurrence import (STREAM_ROWS, Geometry, check,
-                                            check_carry, cluster_geometry,
-                                            cotangent, kernel_info, prev, r4,
-                                            stream)
+from asr_study_torch.ops.recurrence import (STREAM_ROWS, Geometry, bf16_design,
+                                            check, check_carry,
+                                            cluster_geometry, cotangent,
+                                            design_counts, design_key,
+                                            kernel_info, prev, r4, stream)
 
 
 def zoneout_cluster_smem(hidden: int, units: int, rows: int, ctas: int
@@ -145,8 +163,11 @@ def zoneout_lstm_plain(xp, mask, zh, zc, wh, h0=None, c0=None
     return _scan(xp, mask, zh, zc, wh, False, h0, c0)
 
 
-def _geometry(xp: torch.Tensor, ndir: int) -> Geometry:
-    return zoneout_geometry(xp.shape[2] // 4, xp.shape[1], ndir)
+def _geometry(name: str, xp: torch.Tensor, wh: torch.Tensor,
+              ndir: int) -> Geometry:
+    hidden, batch = xp.shape[2] // 4, xp.shape[1]
+    return bf16_design(name, zoneout_geometry(hidden, batch, ndir), wh,
+                       hidden, batch, wide=False)
 
 
 def launch_fwd(geo: Geometry, xps: list, mask: torch.Tensor, zhs: list,
@@ -167,15 +188,16 @@ def launch_fwd(geo: Geometry, xps: list, mask: torch.Tensor, zhs: list,
     ptrs = (*(a.data_ptr() for a in args),
             *(None if s is None else s.data_ptr() for s in (h0, c0)),
             t_steps, batch, hidden, ndir)
+    form = "_bf16" if whs[0].dtype == torch.bfloat16 else ""
     with torch.cuda.device(xps[0].device):
         if geo.design == "cluster":
-            err = _build.lib().asr_zoneout_lstm_fwd(
+            err = getattr(_build.lib(), f"asr_zoneout_lstm_fwd{form}")(
                 *ptrs, geo.ctas, geo.units, geo.rows, stream(xps[0]))
         else:
             err = _build.lib().asr_zoneout_lstm_stream_fwd(*ptrs,
                                                            stream(xps[0]))
     _build.check(err, f"{'bi_zoneout_lstm' if ndir == 2 else 'zoneout_lstm'}"
-                      f"_fwd ({geo.design})")
+                      f"_fwd ({geo.design}{form})")
     return outs
 
 
@@ -193,7 +215,8 @@ def bi_zoneout_lstm(xp_f: torch.Tensor, xp_b: torch.Tensor,
     mask:       [T, B, 1] float32, 1.0 on real frames
     zh_*, zc_*: [T, B, H] float32 mix weights of each direction, both in
                 forward time order
-    wh_f, wh_b: [H, 4H] float32 recurrent weights, gate order i, f, g, o
+    wh_f, wh_b: [H, 4H] float32 (or both bfloat16) recurrent weights, gate
+                order i, f, g, o
     ->          (h_f, c_f, h_b, c_b), the mixed states, each [T, B, H] in
                 forward time order; a masked frame repeats the previous
                 state.  No autograd graph: :class:`BiZoneoutLSTMFunction`
@@ -201,21 +224,21 @@ def bi_zoneout_lstm(xp_f: torch.Tensor, xp_b: torch.Tensor,
     """
     check("bi_zoneout_lstm", 4, mask, dict(xp_f=xp_f, xp_b=xp_b),
           dict(wh_f=wh_f, wh_b=wh_b),
-          dict(zh_f=zh_f, zh_b=zh_b, zc_f=zc_f, zc_b=zc_b))
+          dict(zh_f=zh_f, zh_b=zh_b, zc_f=zc_f, zc_b=zc_b), bf16=True)
     args = (xp_f, xp_b, mask, zh_f, zh_b, zc_f, zc_b, wh_f, wh_b)
+    geo = _geometry("bi_zoneout_lstm", xp_f, wh_f, 2)
     if xp_f.device.type == "cpu":
         with torch.no_grad():
             return bi_zoneout_lstm_plain(*args)
-    geo = _geometry(xp_f, 2)
     outs = launch_fwd(geo, [xp_f, xp_b], mask, [zh_f, zh_b], [zc_f, zc_b],
                       [wh_f, wh_b])
     bi_zoneout_lstm.launches += 1
-    bi_zoneout_lstm.by_design[geo.design] += 1
+    bi_zoneout_lstm.by_design[design_key(geo, wh_f)] += 1
     return tuple(outs)
 
 
 bi_zoneout_lstm.launches = 0
-bi_zoneout_lstm.by_design = {"cluster": 0, "stream": 0}
+bi_zoneout_lstm.by_design = design_counts()
 
 
 def zoneout_lstm(xp: torch.Tensor, mask: torch.Tensor, zh: torch.Tensor,
@@ -230,27 +253,28 @@ def zoneout_lstm(xp: torch.Tensor, mask: torch.Tensor, zh: torch.Tensor,
     where not given); h[T-1] and c[T-1] are the state it ends in.
     :class:`ZoneoutLSTMFunction` is the differentiable form."""
     check("zoneout_lstm", 4, mask, dict(xp=xp), dict(wh=wh),
-          dict(zh=zh, zc=zc))
+          dict(zh=zh, zc=zc), bf16=True)
     check_carry("zoneout_lstm", xp, 4, h0=h0, c0=c0)
+    geo = _geometry("zoneout_lstm", xp, wh, 1)
     if xp.device.type == "cpu":
         with torch.no_grad():
             return zoneout_lstm_plain(xp, mask, zh, zc, wh, h0, c0)
-    geo = _geometry(xp, 1)
     h, c = launch_fwd(geo, [xp], mask, [zh], [zc], [wh], h0, c0)
     zoneout_lstm.launches += 1
-    zoneout_lstm.by_design[geo.design] += 1
+    zoneout_lstm.by_design[design_key(geo, wh)] += 1
     return h, c
 
 
 zoneout_lstm.launches = 0
-zoneout_lstm.by_design = {"cluster": 0, "stream": 0}
+zoneout_lstm.by_design = design_counts()
 
 
 def _walk_bwd(xp, mask, zh, zc, wh, h, c, dh_out, reverse: bool
               ) -> torch.Tensor:
     """One direction's cotangent walk (``_zo_row_bwd`` of the JAX package),
     from the end of its own time order back -> dxp.  The stored h and c are
-    the mixed states, so c_new is recomputed from (xp, h_prev, c_prev)."""
+    the mixed states, so c_new is recomputed from (xp, h_prev, c_prev);
+    both products in wh's dtype (:func:`dot`), dxp unrounded."""
     t_steps, batch, gh = xp.shape
     hp, cp = prev(h, reverse), prev(c, reverse)
     dxp = torch.empty_like(xp)
@@ -258,7 +282,7 @@ def _walk_bwd(xp, mask, zh, zc, wh, h, c, dh_out, reverse: bool
     dc_next = xp.new_zeros((batch, gh // 4))
     for t in (range(t_steps) if reverse else reversed(range(t_steps))):
         m = mask[t] > 0                                      # [B, 1]
-        gates = xp[t] + hp[t] @ wh
+        gates = xp[t] + dot(hp[t], wh)
         i, f, g, o = gates.chunk(4, dim=-1)
         i, f, g, o = (torch.sigmoid(i), torch.sigmoid(f), torch.tanh(g),
                       torch.sigmoid(o))
@@ -273,8 +297,9 @@ def _walk_bwd(xp, mask, zh, zc, wh, h, c, dh_out, reverse: bool
         dpre = torch.where(m, dpre, 0.0)
         dxp[t] = dpre
         # a real frame passes dh * (1 - zh) and dc_next * (1 - zc) past the
-        # cell; a held one passes dh and dc_next whole
-        dh_next = dpre @ wh.t() + torch.where(m, dh * (1.0 - zh[t]), dh)
+        # cell; a held one passes dh and dc_next whole; with bfloat16
+        # weights dpre is rounded before the product (dot)
+        dh_next = dot(dpre, wh.t()) + torch.where(m, dh * (1.0 - zh[t]), dh)
         dc_next = torch.where(m, dc * f + dc_next * (1.0 - zc[t]), dc_next)
     return dxp
 
@@ -306,9 +331,10 @@ def launch_bwd(geo: Geometry, xps: list, mask: torch.Tensor, zhs: list,
     head = (xps[0], xps[-1], mask, zhs[0], zhs[-1], zcs[0], zcs[-1], whs[0],
             whs[-1])
     seqs = (hs[0], cs[0], hs[-1], cs[-1], dhs[0], dhs[-1], outs[0], outs[-1])
+    form = "_bf16" if whs[0].dtype == torch.bfloat16 else ""
     with torch.cuda.device(xps[0].device):
         if geo.design == "cluster":
-            err = _build.lib().asr_zoneout_lstm_bwd(
+            err = getattr(_build.lib(), f"asr_zoneout_lstm_bwd{form}")(
                 *(a.data_ptr() for a in (*head, *seqs)), t_steps, batch,
                 hidden, ndir, geo.ctas, geo.units, geo.rows, stream(xps[0]))
         else:
@@ -318,7 +344,7 @@ def launch_bwd(geo: Geometry, xps: list, mask: torch.Tensor, zhs: list,
                 *(a.data_ptr() for a in args), t_steps, batch, hidden, ndir,
                 stream(xps[0]))
     _build.check(err, f"{'bi_zoneout_lstm' if ndir == 2 else 'zoneout_lstm'}"
-                      f"_bwd ({geo.design})")
+                      f"_bwd ({geo.design}{form})")
     return outs
 
 
@@ -333,42 +359,42 @@ def bi_zoneout_lstm_bwd(xp_f, xp_b, mask, zh_f, zh_b, zc_f, zc_b, wh_f,
     check("bi_zoneout_lstm_bwd", 4, mask, dict(xp_f=xp_f, xp_b=xp_b),
           dict(wh_f=wh_f, wh_b=wh_b),
           dict(zh_f=zh_f, zh_b=zh_b, zc_f=zc_f, zc_b=zc_b, h_f=h_f, c_f=c_f,
-               h_b=h_b, c_b=c_b, dh_f=dh_f, dh_b=dh_b))
+               h_b=h_b, c_b=c_b, dh_f=dh_f, dh_b=dh_b), bf16=True)
+    geo = _geometry("bi_zoneout_lstm_bwd", xp_f, wh_f, 2)
     if xp_f.device.type == "cpu":
         with torch.no_grad():
             return bi_zoneout_lstm_bwd_plain(xp_f, xp_b, mask, zh_f, zh_b,
                                              zc_f, zc_b, wh_f, wh_b, h_f,
                                              c_f, h_b, c_b, dh_f, dh_b)
-    geo = _geometry(xp_f, 2)
     dxp_f, dxp_b = launch_bwd(geo, [xp_f, xp_b], mask, [zh_f, zh_b],
                               [zc_f, zc_b], [wh_f, wh_b], [h_f, h_b],
                               [c_f, c_b], [dh_f, dh_b])
     bi_zoneout_lstm_bwd.launches += 1
-    bi_zoneout_lstm_bwd.by_design[geo.design] += 1
+    bi_zoneout_lstm_bwd.by_design[design_key(geo, wh_f)] += 1
     return dxp_f, dxp_b
 
 
 bi_zoneout_lstm_bwd.launches = 0
-bi_zoneout_lstm_bwd.by_design = {"cluster": 0, "stream": 0}
+bi_zoneout_lstm_bwd.by_design = design_counts()
 
 
 def zoneout_lstm_bwd(xp, mask, zh, zc, wh, h, c, dh) -> torch.Tensor:
     """The cotangent scan of :func:`zoneout_lstm` -> dxp [T, B, 4H], as in
     :func:`bi_zoneout_lstm_bwd` for one direction."""
     check("zoneout_lstm_bwd", 4, mask, dict(xp=xp), dict(wh=wh),
-          dict(zh=zh, zc=zc, h=h, c=c, dh=dh))
+          dict(zh=zh, zc=zc, h=h, c=c, dh=dh), bf16=True)
+    geo = _geometry("zoneout_lstm_bwd", xp, wh, 1)
     if xp.device.type == "cpu":
         with torch.no_grad():
             return zoneout_lstm_bwd_plain(xp, mask, zh, zc, wh, h, c, dh)
-    geo = _geometry(xp, 1)
     (dxp,) = launch_bwd(geo, [xp], mask, [zh], [zc], [wh], [h], [c], [dh])
     zoneout_lstm_bwd.launches += 1
-    zoneout_lstm_bwd.by_design[geo.design] += 1
+    zoneout_lstm_bwd.by_design[design_key(geo, wh)] += 1
     return dxp
 
 
 zoneout_lstm_bwd.launches = 0
-zoneout_lstm_bwd.by_design = {"cluster": 0, "stream": 0}
+zoneout_lstm_bwd.by_design = design_counts()
 
 
 class BiZoneoutLSTMFunction(torch.autograd.Function):

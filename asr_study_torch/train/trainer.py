@@ -54,8 +54,9 @@ result (``models.nn.dot``, the recurrent kernels' bfloat16-weight forms)
 while h, c, dropout, the skips and the CTC loss stay float32.  The cast's
 autograd hands the float32 master weights gradients rounded to bfloat16;
 the clip, the optimizer and its state, the eval step and checkpoints stay
-float32.  Only models built from ``LSTMCell`` or ``GRUCell`` have the
-kernels for it; the other cells wait on :data:`BF16_ITEM`.
+float32.  Only models built from ``LSTMCell``, ``GRUCell``,
+``ZoneoutLSTMCell`` or ``MILSTMCell`` have the kernels for it; the
+layer-norm LSTM waits on :data:`BF16_ITEM`.
 
 Data parallelism (``Trainer(group=)``, ``train --num_devices N``) is the
 JAX trainer's ``shard_map`` over a ``data`` mesh, one process a rank
@@ -78,15 +79,18 @@ import numpy as np
 import torch
 from torch import nn
 
-from asr_study_torch.models.cells import GRUCell, LSTMCell
+from asr_study_torch.models.cells import (GRUCell, LSTMCell, MILSTMCell,
+                                          ZoneoutLSTMCell)
 from asr_study_torch.ops import ctc
 from asr_study_torch.ops.metrics import edit_distance
 from asr_study_torch.parallel import dp
 # where bf16 compute (the JAX trainer's compute_dtype, train --bf16) waits
-# for the cells other than LSTMCell and GRUCell
+# for the cells other than BF16_CELLS
 from asr_study_torch.ops.recurrence import BF16_ITEM
 
 OPTIMIZERS = ("adam", "adamw", "rmsprop", "sgd")
+# the cells whose recurrent kernels have bfloat16-weight forms
+BF16_CELLS = (LSTMCell, GRUCell, ZoneoutLSTMCell, MILSTMCell)
 
 
 class RMSprop(torch.optim.Optimizer):
@@ -357,9 +361,9 @@ class Trainer:
     ``FloatingPointError`` at the first non-finite loss or gradient norm.
     ``compute_dtype`` ``torch.bfloat16`` runs the train step in mixed
     precision (the module docstring); a model holding a cell other than
-    ``LSTMCell`` and ``GRUCell`` refuses it.  ``group`` (a ``parallel.dp.DataGroup`` on the
-    model's device) makes the steps data-parallel, as the JAX trainer's
-    ``mesh=``."""
+    those of :data:`BF16_CELLS` refuses it.  ``group`` (a
+    ``parallel.dp.DataGroup`` on the model's device) makes the steps
+    data-parallel, as the JAX trainer's ``mesh=``."""
 
     def __init__(self, model: nn.Module, optimizer: OptimizerSpec,
                  augment=None, featurizer=None, wav_augment=None,
@@ -377,12 +381,13 @@ class Trainer:
         if compute_dtype == torch.bfloat16:
             others = sorted({type(m).__name__ for m in model.modules()
                              if isinstance(m, (LSTMCell, GRUCell))
-                             and type(m) not in (LSTMCell, GRUCell)})
+                             and type(m) not in BF16_CELLS})
             if others:
                 raise ValueError(
                     f"compute_dtype=torch.bfloat16: the bfloat16 kernels "
-                    f"cover LSTMCell and GRUCell only, and this model holds "
-                    f"{', '.join(others)} ({BF16_ITEM})")
+                    f"cover {', '.join(c.__name__ for c in BF16_CELLS)} "
+                    f"only, and this model holds {', '.join(others)} "
+                    f"({BF16_ITEM})")
         self.compute_dtype = (compute_dtype if compute_dtype == torch.bfloat16
                               else None)
         self.model = model

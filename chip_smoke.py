@@ -77,7 +77,9 @@ paths at full width, with random weights from a seeded
   kernels' bfloat16-weight forms) and deep_speech (the wide kernels'),
   each bidirectional and unidirectional, of deep_gru 3x256 (the GRU
   cluster kernels'), bidirectional and unidirectional, and 3x512 (the wide
-  GRU kernels'), and ``cli.train --bf16`` of deep_blstm and deep_gru on the
+  GRU kernels'), of zoneout_blstm and mi_blstm 3x256 (the zoneout and MI
+  cluster kernels'), bidirectional and unidirectional, and ``cli.train
+  --bf16`` of deep_blstm, deep_gru, zoneout_blstm and mi_blstm on the
   corpus manifest;
 - data parallelism (BASELINE config 5, ``train --num_devices``,
   ``Trainer(group=)``): deep_blstm 3x256 at B=32, T=512 in two ranks
@@ -133,8 +135,10 @@ Phases, in order; any failure raises and the exit code is not 0:
    (fbank in the FFT design only)
    (the LSTM, GRU, layer-norm, zoneout and MI LSTM kernels in the design
    their width takes; the LSTM's wide design under its own kernel line rows),
-   logits held against the plain path on the CPU (for ln_blstm, whose
-   recurrence is chaotic, on a batch cut to LN_CHECK_T frames); the dpack
+   logits held against the plain path on the CPU (every batch of the
+   deep_blstm pcm16 slice, the first batch of the others; for ln_blstm,
+   whose recurrence is chaotic, on a batch cut to LN_CHECK_T frames); the
+   dpack
    slice's logits and transcripts equal to the pcm16 slice's, the mulaw
    slice's logits against the plain path fed the same mulaw wire; the
    link probe and the codec it picks;
@@ -155,23 +159,27 @@ Phases, in order; any failure raises and the exit code is not 0:
    the CPU, run twice bit for bit; accumulation over two halves against
    the whole batch; check_nans raising on a NaN batch with the weights
    untouched; fit(profile=True) writing a trace with the card's kernels;
-   then the bf16 phase: the eight bfloat16-weight forms (the cluster and
-   wide LSTM and GRU kernels, forward and backward) against their plain
-   twins at T=512, B=32, H=256 and 512, one and two directions (h, c, the
-   kept gates or h side, dxp, the GRU's dhp; dwh after its matmul), two
+   then the bf16 phase: the twelve bfloat16-weight kernels (the cluster
+   and wide LSTM and GRU kernels, the cluster zoneout and MI LSTM kernels,
+   forward and backward) against their plain twins at T=512, B=32, H=256
+   and (LSTM, GRU) 512, one and two directions (h, c, the kept gates or h
+   side, dxp, the GRU's dhp, the MI dpre; dwh after its matmul; the
+   zoneout mix drawn once, Bernoulli(0.9), for kernel and twin), two
    launches bit-equal, each timed beside its float32 form, its bound and
-   cuDNN ``nn.LSTM`` / ``nn.GRU`` in bfloat16; BF16_STEPS bf16 train steps
-   of deep_blstm and deep_speech, each bidirectional and with
-   ``bidirectional=false``, and of deep_gru 3x256 bi and uni and 3x512,
-   from the float32 slice's weights, their launches (the bf16 forms only),
-   losses beside the float32 run's, two identical steps bit-equal, ms a
-   step;
+   cuDNN ``nn.LSTM`` / ``nn.GRU`` in bfloat16 (no library call for zoneout
+   or MI); BF16_STEPS bf16 train steps of deep_blstm and deep_speech, each
+   bidirectional and with ``bidirectional=false``, of deep_gru 3x256 bi
+   and uni and 3x512, and of zoneout_blstm (rates 0.1) and mi_blstm 3x256
+   bi and uni, from the float32 slice's weights, their launches (the bf16
+   forms only), losses beside the float32 run's, two identical steps
+   bit-equal, ms a step;
 8. the corpus phase: each CLI run's launches held to what its steps and
    evals need, every logged loss finite and the train loss falling from
    the first epoch to the third, the step count continued by ``--resume``,
    eval's valid loss equal to the run's last ``val_loss``, finite test
-   CER and WER, then ``train --bf16`` of deep_blstm and of deep_gru for an
-   epoch each (the bf16 cluster forms in every step); the host seconds of
+   CER and WER, then ``train --bf16`` of deep_blstm, deep_gru,
+   zoneout_blstm and mi_blstm for an epoch each (the bf16 cluster forms in
+   every step); the host seconds of
    the synthesis and of the manifest's features, ms per train step (CUDA
    events) and audio-s/s, eval ms per batch; then the h5 phase on its
    corpus: make_dataset --output (host MFCC in both layouts, raw, and
@@ -2844,6 +2852,64 @@ def features_stage_split(card: str, feat, flat: torch.Tensor,
           + f"; features {sum(parts.values()) - parts[names[0]]:.4f} ms")
 
 
+# processes that run the serving slices' plain path on the CPU at once, at
+# most, one thread each (the H100 machines this runs on have 8 cores)
+PLAIN_WORKERS = 8
+_plain_model: dict = {}
+
+
+def plain_workers(jobs: int) -> int:
+    """Worker processes for ``jobs`` plain batches: one a core that this
+    process may run on, up to PLAIN_WORKERS."""
+    return max(1, min(jobs, PLAIN_WORKERS, len(os.sched_getaffinity(0))))
+
+
+def plain_worker_init() -> None:
+    """A plain worker: one thread, and no card (a CUDA tensor in a job
+    fails loudly rather than opening a context)."""
+    os.environ["CUDA_VISIBLE_DEVICES"] = ""
+    torch.set_num_threads(1)
+
+
+def plain_serve(path: str, codec: str, chunk: np.ndarray, n_pad: int,
+                scap: int | None) -> tuple:
+    """One serving batch through the plain path on the CPU, in a worker
+    process: the model pickled at ``path`` (the worker keeps the last one
+    it loaded) fed the wire buffer ``chunk`` -> Served's fields as
+    arrays."""
+    from asr_study_torch.cli.predict import serve_batch
+    from asr_study_torch.features.select import featurizer
+
+    if _plain_model.get("path") != path:
+        _plain_model.update(path=path,
+                            model=torch.load(path, weights_only=False))
+    if "feat" not in _plain_model:
+        _plain_model["feat"] = featurizer("mfcc", "cpu")
+    served = serve_batch(_plain_model["model"], _plain_model["feat"],
+                         torch.from_numpy(chunk), BATCH, n_pad, codec, scap)
+    return tuple(t.detach().numpy() for t in served)
+
+
+def run_plain(jobs: list) -> list:
+    """plain_serve of each job, in plain_workers(len(jobs)) spawned
+    processes, all stopped before it returns -> Served on the CPU, in the
+    jobs' order."""
+    import concurrent.futures
+    import multiprocessing
+
+    from asr_study_torch.cli.predict import Served
+
+    pool = concurrent.futures.ProcessPoolExecutor(
+        plain_workers(len(jobs)),
+        mp_context=multiprocessing.get_context("spawn"),
+        initializer=plain_worker_init)
+    try:
+        futures = [pool.submit(plain_serve, *job) for job in jobs]
+        return [Served(*map(torch.from_numpy, f.result())) for f in futures]
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+
+
 class Wire(NamedTuple):
     """One codec's wire buffers of the serving batches, end to end."""
     cap: int                     # words a buffer
@@ -3142,6 +3208,20 @@ KERNELS = {
     "bigru_bwd_bf16": ("gru_bwd.cu", "ops/pallas_bigru.py:92"),
     "bigru_fwd_wide_bf16": ("gru_wide_fwd.cu", "ops/pallas_bigru.py:69"),
     "bigru_bwd_wide_bf16": ("gru_wide_bwd.cu", "ops/pallas_bigru.py:92"),
+    # the zoneout and MI LSTMs' bfloat16-weight forms: their cluster
+    # kernels on a bfloat16 wh, the same sources; both directions' rows
+    "bi_zoneout_lstm_fwd_bf16": ("zoneout_lstm_fwd.cu",
+                                 "ops/pallas_bi_zoneout_lstm.py:41"),
+    "bi_zoneout_lstm_bwd_bf16": ("zoneout_lstm_bwd.cu",
+                                 "ops/pallas_bi_zoneout_lstm.py:83"),
+    "zoneout_lstm_fwd_bf16": ("zoneout_lstm_fwd.cu",
+                              "ops/pallas_zoneout_lstm.py:56"),
+    "zoneout_lstm_bwd_bf16": ("zoneout_lstm_bwd.cu",
+                              "ops/pallas_zoneout_lstm.py:133"),
+    "bi_mi_lstm_fwd_bf16": ("mi_lstm_fwd.cu", "ops/pallas_bi_mi_lstm.py:39"),
+    "bi_mi_lstm_bwd_bf16": ("mi_lstm_bwd.cu", "ops/pallas_bi_mi_lstm.py:81"),
+    "mi_lstm_fwd_bf16": ("mi_lstm_fwd.cu", "ops/pallas_mi_lstm.py:59"),
+    "mi_lstm_bwd_bf16": ("mi_lstm_bwd.cu", "ops/pallas_mi_lstm.py:132"),
 }
 # kernel line row of the wide design -> the wrapper that launches it
 WIDE_ROWS = {"bilstm_fwd_wide": "bilstm_fwd", "bilstm_bwd_wide": "bilstm_bwd",
@@ -3150,12 +3230,19 @@ WIDE_ROWS = {"bilstm_fwd_wide": "bilstm_fwd", "bilstm_bwd_wide": "bilstm_bwd",
              "gru_fwd_wide": "gru_fwd", "gru_bwd_wide": "gru_bwd",
              "ctc_beam_wide": "ctc_beam"}
 # kernel line row of a bfloat16-weight form -> (the wrapper that launches
-# it, its by_design key); the unidirectional wrappers' rows are counted but
-# not in the kernels line, whose bf16 rows are the bidirectional ones
-BF16_ROWS = {f"{w}{wide}_bf16": (w, ("wide" if wide else "cluster") + "_bf16")
-             for w in ("bilstm_fwd", "bilstm_bwd", "lstm_fwd", "lstm_bwd",
-                       "bigru_fwd", "bigru_bwd", "gru_fwd", "gru_bwd")
-             for wide in ("", "_wide")}
+# it, its by_design key); the LSTM's and the GRU's unidirectional rows are
+# counted but not in the kernels line, whose bf16 rows of theirs are the
+# bidirectional ones
+BF16_ROWS = {**{f"{w}{wide}_bf16": (w, ("wide" if wide else "cluster")
+                                    + "_bf16")
+                for w in ("bilstm_fwd", "bilstm_bwd", "lstm_fwd", "lstm_bwd",
+                          "bigru_fwd", "bigru_bwd", "gru_fwd", "gru_bwd")
+                for wide in ("", "_wide")},
+             **{f"{w}_bf16": (w, "cluster_bf16")
+                for w in ("bi_zoneout_lstm_fwd", "bi_zoneout_lstm_bwd",
+                          "zoneout_lstm_fwd", "zoneout_lstm_bwd",
+                          "bi_mi_lstm_fwd", "bi_mi_lstm_bwd", "mi_lstm_fwd",
+                          "mi_lstm_bwd")}}
 
 # training paths: label -> (zoo model, its hparams, forward and backward
 # kernel of its recurrence, recurrent layers, what it is); the LN paths'
@@ -5306,6 +5393,19 @@ BF16_PATHS = {
                      ",dropout=0.0", "bigru_fwd_wide_bf16",
                      "bigru_bwd_wide_bf16", TRAIN_LAYERS,
                      f"{TRAIN_LAYERS}x512 BGRU"),
+    "zoneout_blstm": ("zoneout_blstm", _CONFIG3, "bi_zoneout_lstm_fwd_bf16",
+                      "bi_zoneout_lstm_bwd_bf16", TRAIN_LAYERS,
+                      f"{TRAIN_LAYERS}x{HIDDEN} zoneout BLSTM 0.1/0.1"),
+    "zoneout_blstm uni": ("zoneout_blstm", _CONFIG3 + ",bidirectional=false",
+                          "zoneout_lstm_fwd_bf16", "zoneout_lstm_bwd_bf16",
+                          TRAIN_LAYERS, f"{TRAIN_LAYERS}x{HIDDEN} "
+                          "unidirectional zoneout LSTM 0.1/0.1"),
+    "mi_blstm": ("mi_blstm", _CONFIG3, "bi_mi_lstm_fwd_bf16",
+                 "bi_mi_lstm_bwd_bf16", TRAIN_LAYERS,
+                 f"{TRAIN_LAYERS}x{HIDDEN} MI BLSTM"),
+    "mi_blstm uni": ("mi_blstm", _CONFIG3 + ",bidirectional=false",
+                     "mi_lstm_fwd_bf16", "mi_lstm_bwd_bf16", TRAIN_LAYERS,
+                     f"{TRAIN_LAYERS}x{HIDDEN} unidirectional MI LSTM"),
 }
 BF16_STEPS = 5
 
@@ -5333,31 +5433,73 @@ def bf16_library(cell: str, hidden: int, ndir: int, t: int, b: int, dev,
 
 class Bf16Family:
     """What check_bf16_kernels needs of one recurrence: the LSTM's
-    (ops/bilstm.py) or the GRU's (ops/gru.py) wrappers, plain twins and
-    dwh, in one shape.  ``fwd`` -> (the h (and c) sequences, res); ``bwd``
-    -> the backward's outputs (LSTM: dxp a direction; GRU: dxp, dhp a
-    direction); ``dwh_args(outs, d, i)`` -> (h, the cotangent dwh takes)
-    of direction i."""
+    (ops/bilstm.py), the GRU's (ops/gru.py), the zoneout LSTM's
+    (ops/zoneout_lstm.py) or the MI LSTM's (ops/mi_lstm.py) wrappers,
+    plain twins and dwh, in one shape.  ``extras`` draws what the zoneout
+    and MI recurrences take beside xp and wh (the mix weights zh, zc; the
+    MI vectors), which every later call then passes; ``fwd`` -> (the h
+    (and c) sequences, res); ``bwd`` -> the backward's outputs (LSTM,
+    zoneout: dxp a direction; GRU: dxp, dhp a direction; MI: dpre a
+    direction); ``dwh(xs, ws, outs, d, i)`` -> dwh of direction i."""
 
     def __init__(self, cell: str):
         from asr_study_torch.ops import bilstm as B
         from asr_study_torch.ops import gru as G
+        from asr_study_torch.ops import mi_lstm as MI
+        from asr_study_torch.ops import zoneout_lstm as ZO
 
-        self.cell, self.gates = cell, 4 if cell == "lstm" else 3
-        self.mod = B if cell == "lstm" else G
-        self.geometry = B.lstm_geometry if cell == "lstm" else G.gru_geometry
-        self.name = "LSTM" if cell == "lstm" else "GRU"
-        self.row = "bilstm_{}" if cell == "lstm" else "bigru_{}"
+        self.cell, self.gates = cell, 3 if cell == "gru" else 4
+        self.mod = {"lstm": B, "gru": G, "zoneout_lstm": ZO,
+                    "mi_lstm": MI}[cell]
+        self.geometry = {"lstm": B.lstm_geometry, "gru": G.gru_geometry,
+                         "zoneout_lstm": ZO.zoneout_geometry,
+                         "mi_lstm": MI.mi_geometry}[cell]
+        self.name = {"lstm": "LSTM", "gru": "GRU",
+                     "zoneout_lstm": "zoneout LSTM",
+                     "mi_lstm": "MI LSTM"}[cell]
+        # the wrappers' names, two directions and one; the kernels line's
+        # rows are theirs
+        self.names = {"lstm": ("bilstm", "lstm"), "gru": ("bigru", "gru"),
+                      "zoneout_lstm": ("bi_zoneout_lstm", "zoneout_lstm"),
+                      "mi_lstm": ("bi_mi_lstm", "mi_lstm")}[cell]
+        # the LSTM and GRU have a wide design and a cuDNN call; the zoneout
+        # and MI LSTMs' rows of both directions are in the kernels line
+        self.resident = cell in ("zoneout_lstm", "mi_lstm")
+        self.widths = (HIDDEN,) if self.resident else (HIDDEN, 512)
+        self.ex = [[], []]
+
+    def extras(self, g: torch.Generator, t: int, b: int, hidden: int,
+               dev) -> None:
+        """Draw the zoneout mix (Bernoulli(0.9) zh and zc of each
+        direction) or the MI vectors (alpha, beta1, beta2 near 1, b near
+        0) from ``g``, on the card, for every later call."""
+        if self.cell == "zoneout_lstm":
+            self.ex = [[(torch.rand(t, b, hidden, generator=g) < 0.9)
+                        .float().to(dev) for _ in range(2)]
+                       for _ in range(2)]
+        elif self.cell == "mi_lstm":
+            self.ex = [[(c + 0.3 * torch.randn(self.gates * hidden,
+                                               generator=g)).to(dev)
+                        for c in (1.0, 1.0, 1.0, 0.0)] for _ in range(2)]
+
+    def _args(self, xs, mask, ws) -> tuple:
+        """The zoneout or MI wrapper's arguments before its outputs."""
+        ex = self.ex[:len(xs)]
+        inter = [t for k in range(len(ex[0])) for t in
+                 (e[k] for e in ex)]
+        if self.cell == "zoneout_lstm":
+            return (*xs, mask, *inter, *ws)
+        return (*xs, mask, *ws, *inter)
 
     def wrappers(self, ndir: int) -> tuple:
-        m = self.mod
-        if self.cell == "lstm":
-            return (m.bilstm, m.bilstm_bwd) if ndir == 2 else (m.lstm,
-                                                               m.lstm_bwd)
-        return (m.bigru, m.bigru_bwd) if ndir == 2 else (m.gru, m.gru_bwd)
+        name = self.names[0 if ndir == 2 else 1]
+        return (getattr(self.mod, name), getattr(self.mod, f"{name}_bwd"))
 
     def fwd(self, xs, mask, ws, residual=False):
         f = self.wrappers(len(xs))[0]
+        if self.resident:
+            out = tuple(f(*self._args(xs, mask, ws)))
+            return (*out, ()) if residual else out
         if len(xs) == 2:
             return f(*xs, mask, *ws, residual=residual)
         out = f(xs[0], mask, ws[0], residual=residual)
@@ -5365,15 +5507,25 @@ class Bf16Family:
 
     def bwd(self, xs, mask, ws, outs, dh, res) -> tuple:
         f = self.wrappers(len(xs))[1]
-        if len(xs) == 2:
+        if self.resident:
+            out = f(*self._args(xs, mask, ws), *outs, *dh)
+        elif len(xs) == 2:
             return tuple(f(*xs, mask, *ws, *outs, *dh, res))
-        out = f(xs[0], mask, ws[0], *outs, dh[0], res)
+        else:
+            out = f(xs[0], mask, ws[0], *outs, dh[0], res)
         return out if isinstance(out, tuple) else (out,)
 
     def plain(self, xs, mask, ws, outs, dh, res) -> tuple:
         """(the forward's outputs with the wide design's res, the
         backward's) of the plain twins; the wide backward from res."""
         m, wide, bi = self.mod, bool(res), len(xs) == 2
+        if self.resident:
+            args = self._args(xs, mask, ws)
+            name = self.names[0 if bi else 1]
+            fwd = getattr(m, f"{name}_plain")
+            bwd = getattr(m, f"{name}_bwd_plain")
+            d = bwd(*args, *outs, *dh)
+            return fwd(*args), (d if isinstance(d, tuple) else (d,))
         if self.cell == "lstm":
             if bi:
                 f = m.bilstm_plain(*xs, mask, *ws, keep_gates=wide)
@@ -5397,37 +5549,56 @@ class Bf16Family:
                                           dh[0]))
         return (f if wide else (f,)), d
 
-    def dwh_args(self, outs, d, i):
-        if self.cell == "lstm":
-            return outs[2 * i], d[i]
-        return outs[i], d[2 * i + 1]
+    def dwh(self, xs, ws, outs, d, i) -> torch.Tensor:
+        """dwh of direction i (bfloat16 with a bfloat16 wh) from the
+        backward's outputs d, as the Functions' backward takes it."""
+        from asr_study_torch.ops.bilstm import _dwh
+
+        if self.cell == "mi_lstm":
+            al, b1, b2, _ = self.ex[i]
+            return self.mod.dir_grads(d[i], xs[i], outs[2 * i], ws[i], al,
+                                      b1, b2, i == 1)[1]
+        if self.cell == "gru":
+            return self.mod._dwh(outs[i], d[2 * i + 1], i == 1, ws[i])
+        return _dwh(outs[2 * i], d[i], i == 1, ws[i])
+
+    def fwd_moved(self, xs, mask, ws, served) -> tuple:
+        """What the forward reads and writes."""
+        return (*xs, mask, *ws, *(t for e in self.ex[:len(xs)] for t in e),
+                *served)
 
     def bwd_moved(self, xs, mask, ws, outs, dh, res, d) -> tuple:
         """What the backward reads and writes: the LSTM's wide form the kept
         gates and c, its cluster form xp, h and c; the GRU's xp, h (and the
-        kept h side); both the mask, wh, dh and their outputs."""
+        kept h side); the zoneout and MI LSTMs' xp, h, c and the mix or the
+        vectors; all the mask, wh, dh and their outputs."""
         if self.cell == "lstm":
             return (*(res if res else xs), *(outs[1::2] if res else outs),
                     mask, *ws, *dh, *d)
-        return (*xs, *res, *outs, mask, *ws, *dh, *d)
+        return (*xs, *res, *outs, mask, *ws, *dh, *d,
+                *(t for e in self.ex[:len(xs)] for t in e))
 
 
 def check_bf16_kernels(dev: torch.device, card: str, cell: str) -> dict:
-    """The four bfloat16-weight forms of the LSTM (``cell`` "lstm") or the
-    GRU ("gru"): cluster and wide, forward and backward, each over one and
-    two directions, against their plain twins on the card at the training
-    shapes T=TRAIN_T, B=TRAIN_B, at H=256 and H=512: h (c; the wide
-    design's kept gates or h side) and the backward's outputs (dxp; the
-    GRU's dhp too) within BF16_ATOL + BF16_RTOL * |plain|, dwh in bfloat16
-    within BF16_DWH_FRAC of its max abs; two launches bit-equal; each form
-    timed beside its float32 form on the same inputs, its bound and cuDNN
-    ``nn.LSTM`` / ``nn.GRU`` in bfloat16.  -> the kernel line's entries of
-    the bidirectional forms."""
+    """The bfloat16-weight forms of the LSTM (``cell`` "lstm") or the GRU
+    ("gru"): cluster and wide, at H=256 and H=512, or of the zoneout or MI
+    LSTM ("zoneout_lstm", "mi_lstm"): cluster, at H=256; forward and
+    backward, each over one and two directions, against their plain twins
+    on the card at the training shapes T=TRAIN_T, B=TRAIN_B: h (c; the
+    wide design's kept gates or h side) and the backward's outputs (dxp;
+    the GRU's dhp too; the MI dpre) within BF16_ATOL + BF16_RTOL *
+    |plain|, dwh in bfloat16 within BF16_DWH_FRAC of its max abs; two
+    launches bit-equal; each form timed beside its float32 form on the
+    same inputs, its bound and cuDNN ``nn.LSTM`` / ``nn.GRU`` in bfloat16
+    (none for zoneout and MI).  -> the kernel line's entries of the
+    bidirectional forms (the zoneout and MI LSTMs': of both)."""
     fam = Bf16Family(cell)
     errs, times, bounds, library = {}, {}, {}, {}
-    g = torch.Generator().manual_seed(SEED + (24 if cell == "lstm" else 26))
+    g = torch.Generator().manual_seed(SEED + {"lstm": 24, "gru": 26,
+                                              "zoneout_lstm": 27,
+                                              "mi_lstm": 28}[cell])
     t, b, gates = TRAIN_T, TRAIN_B, fam.gates
-    for hidden in (HIDDEN, 512):
+    for hidden in fam.widths:
         xps = [torch.randn(t, b, gates * hidden, generator=g).to(dev)
                for _ in range(2)]
         w32 = [(torch.randn(hidden, gates * hidden, generator=g)
@@ -5438,7 +5609,9 @@ def check_bf16_kernels(dev: torch.device, card: str, cell: str) -> dict:
         mask = mask_of(lengths, t, dev)
         dhs = [torch.randn(t, b, hidden, generator=g).to(dev)
                for _ in range(2)]
-        lib = {n: bf16_library(cell, hidden, n, t, b, dev) for n in (2, 1)}
+        fam.extras(g, t, b, hidden, dev)
+        lib = {n: (None, None) if fam.resident else
+               bf16_library(cell, hidden, n, t, b, dev) for n in (2, 1)}
         for ndir in (2, 1):
             geo = fam.geometry(hidden, b, ndir)
             wide = geo.design == "wide"
@@ -5462,10 +5635,10 @@ def check_bf16_kernels(dev: torch.device, card: str, cell: str) -> dict:
                 torch.cuda.synchronize()
                 plain_s = time.perf_counter() - t0
                 d_k = runs[0][len(outs) + len(res):]
-                dwh_k = [fam.mod._dwh(*fam.dwh_args(outs, d_k, i), i == 1,
-                                      ws16[i]) for i in range(ndir)]
-                dwh_p = [fam.mod._dwh(*fam.dwh_args(outs, d_p, i), i == 1,
-                                      ws16[i]) for i in range(ndir)]
+                dwh_k = [fam.dwh(xs, ws16, outs, d_k, i)
+                         for i in range(ndir)]
+                dwh_p = [fam.dwh(xs, ws16, outs, d_p, i)
+                         for i in range(ndir)]
             same = all(torch.equal(x, y) for x, y in zip(*runs))
             got = (*outs, *res)
             err_f = max(float((k - p).abs().max()) for k, p in zip(got, f_p))
@@ -5479,12 +5652,14 @@ def check_bf16_kernels(dev: torch.device, card: str, cell: str) -> dict:
                   and all(within(k, p, BF16_ATOL, BF16_RTOL)
                           for k, p in zip(d_k, d_p)))
             kept = ("c, gates" if cell == "lstm" else "h side") if wide else (
-                "c" if cell == "lstm" else "")
+                "" if cell == "gru" else "c")
+            d_names = {"lstm": "dxp", "gru": "dxp, dhp",
+                       "zoneout_lstm": "dxp", "mi_lstm": "dpre"}[cell]
             print(f"bf16 {'bi' if ndir == 2 else 'uni'} {fam.name} kernels "
                   f"({geo.design} design, R={geo.rows}) vs plain twins at "
                   f"T={t} B={b} H={hidden}: forward max_abs_err {err_f:.3e}"
                   f" (h{', ' + kept if kept else ''}), backward {err_b:.3e}"
-                  f" ({'dxp' if cell == 'lstm' else 'dxp, dhp'}; max|dxp| "
+                  f" ({d_names}; max|{d_names.split(',')[0]}| "
                   f"{max(float(p.abs().max()) for p in d_p):.2f}), dwh "
                   f"(bfloat16) max err / max|dwh| {dwh_frac:.3e} (tol "
                   f"{BF16_ATOL:g} + {BF16_RTOL:g}*|plain|, dwh "
@@ -5516,7 +5691,7 @@ def check_bf16_kernels(dev: torch.device, card: str, cell: str) -> dict:
             # float32 (the tensor cores'), and at the fp32 FMA rate the
             # kernels' own products run at
             served = fam.fwd(xs, mask, ws16)
-            fwd_moved = (*xs, mask, *ws16, *served)
+            fwd_moved = fam.fwd_moved(xs, mask, ws16, served)
             bwd_moved = fam.bwd_moved(xs, mask, ws16, outs, dh, res, d_k)
             passes = 1 if wide else 2
             b_fwd = rnn_bound(xs[0], hidden, ndir, 1, fwd_moved, PEAK_BF16)
@@ -5525,6 +5700,11 @@ def check_bf16_kernels(dev: torch.device, card: str, cell: str) -> dict:
             f_fwd = rnn_bound(xs[0], hidden, ndir, 1, fwd_moved)
             f_bwd = rnn_bound(xs[0], hidden, ndir, passes, bwd_moved)
             lib_f, lib_b = lib[ndir]
+            library_text = (
+                "no library call (cuDNN has no zoneout or MI cell)"
+                if fam.resident else
+                f"cuDNN nn.{fam.name}({hidden}, {hidden}) in bfloat16 "
+                f"forward {lib_f:.4f} ms, backward {lib_b:.4f} ms")
             print(f"[{card}] bf16 {'bi' if ndir == 2 else 'uni'} {fam.name} "
                   f"{geo.design} forms at T={t} B={b} H={hidden}: forward "
                   f"{ms['bf16_fwd']:.4f} ms (float32 form "
@@ -5535,11 +5715,10 @@ def check_bf16_kernels(dev: torch.device, card: str, cell: str) -> dict:
                   f"ms ({b_bwd[1]}) at the bf16 tensor-core rate, "
                   f"{f_fwd[0]:.4f} / {f_bwd[0]:.4f} ms at the fp32 FMA "
                   f"rate; plain twins {plain_ms['fwd']:.4f} / "
-                  f"{plain_ms['bwd']:.4f} ms; cuDNN nn.{fam.name}({hidden}, "
-                  f"{hidden}) in bfloat16 forward {lib_f:.4f} ms, backward "
-                  f"{lib_b:.4f} ms")
-            if ndir == 2:
-                row = fam.row + ("_wide" if wide else "") + "_bf16"
+                  f"{plain_ms['bwd']:.4f} ms; {library_text}")
+            if ndir == 2 or fam.resident:
+                row = (fam.names[2 - ndir] + "_{}" + ("_wide" if wide else "")
+                       + "_bf16")
                 for kind, err in (("fwd", err_f), ("bwd", err_b)):
                     errs[row.format(kind)] = err
                     times[row.format(kind)] = (ms[f"bf16_{kind}"],
@@ -5626,12 +5805,18 @@ def bf16_train_path(dev: torch.device, card: str, path: str) -> dict:
     return launches
 
 
+# the bidirectional recurrence wrapper of each model train --bf16 runs on
+# the corpus
+BF16_CLI_RNN = {"deep_blstm": "bilstm", "deep_gru": "bigru",
+                "zoneout_blstm": "bi_zoneout_lstm", "mi_blstm": "bi_mi_lstm"}
+
+
 def bf16_cli_run(card: str, tmp: str, manifest: str, model: str) -> dict:
-    """``train --bf16 --model <model>`` (deep_blstm or deep_gru, zoo
-    defaults: 3x256, bidirectional) for one epoch on the corpus phase's
-    manifest through ``cli.train.main``, counted from 0: the bfloat16
-    cluster forms launched for every train step and the float32 ones for
-    the validation, finite losses, ``hparams["bf16"]``."""
+    """``train --bf16 --model <model>`` (one of BF16_CLI_RNN, zoo defaults:
+    3x256, bidirectional) for one epoch on the corpus phase's manifest
+    through ``cli.train.main``, counted from 0: the bfloat16 cluster forms
+    launched for every train step and the float32 ones for the validation,
+    finite losses, ``hparams["bf16"]``."""
     from asr_study_torch.cli import train as cli_train
 
     run_dir = os.path.join(tmp, f"bf16_run_{model}")
@@ -5649,7 +5834,7 @@ def bf16_cli_run(card: str, tmp: str, manifest: str, model: str) -> dict:
     launches = read_counts()
     its = dict(tap.flows)
     spe, v_b = its["train"].steps_per_epoch, its["valid"].steps_per_epoch
-    rnn = "bilstm" if model == "deep_blstm" else "bigru"
+    rnn = BF16_CLI_RNN[model]
     want = {f"{rnn}_fwd_bf16": TRAIN_LAYERS * spe,
             f"{rnn}_bwd_bf16": TRAIN_LAYERS * spe,
             f"{rnn}_fwd": TRAIN_LAYERS * v_b, "ctc_alpha": spe + v_b,
@@ -5925,7 +6110,7 @@ def main() -> int:
               "needs an NVIDIA GPU", file=sys.stderr)
         return 1
     from asr_study_torch import _build
-    from asr_study_torch.cli.predict import pack_batches, serve_batch
+    from asr_study_torch.cli.predict import Served, pack_batches, serve_batch
     from asr_study_torch.data import wire
     from asr_study_torch.features.fbank import fbank
     from asr_study_torch.features.select import featurizer
@@ -6073,15 +6258,22 @@ def main() -> int:
     dpack_kernels = check_dpack_kernel(dev, card, groups, wires)
     clock.mark("wires and the dpack decode")
     feat_cpu = featurizer("mfcc", "cpu")
+    # the serving slices' models on the host, and their batches for the
+    # plain path on the CPU: (label, chaotic, served on the card, the job
+    # of plain_serve)
+    plain_tmp = tempfile.TemporaryDirectory()
+    plain_batches = []
 
     def serving_slice(label, model, fwd_name, layers, desc, chaotic=False,
                       codec="pcm16", vs_pcm16=None, cpu_batches=N_BATCHES):
         """One model's serving slice over the ``codec`` wire: launches
-        counted from 0, logits and transcripts against the plain path on
-        the CPU fed the same wire, ms per batch -> (launches, served).  For
-        a ``chaotic`` recurrence (the layer-norm LSTM) the full batches'
-        logits drift is printed, and the logits are held on the first
-        LN_CHECK_T frames' worth of audio of one batch instead.  The dpack
+        counted from 0, ms per batch -> (launches, served); its batches
+        are queued for plain_checks, which holds their logits and
+        transcripts against the plain path on the CPU fed the same wire.
+        For a ``chaotic`` recurrence (the layer-norm LSTM) the full
+        batches' logits drift is printed there, and the logits are held
+        here on the first LN_CHECK_T frames' worth of audio of one batch
+        instead.  The dpack
         slice is held equal to ``vs_pcm16``, the pcm16 slice's batches
         (the same samples after the unpack); the mulaw slice counts its
         transcripts equal to them.  ``cpu_batches``: how many of the
@@ -6123,28 +6315,18 @@ def main() -> int:
                   + f"; identical transcripts {N_BATCHES * BATCH}/"
                   f"{N_BATCHES * BATCH}")
         else:
+            # the plain path on the CPU runs later, in worker processes
+            # (plain_checks), so that it neither holds up the card nor
+            # shares the host with the slices' timings
             model_cpu = copy.deepcopy(model).to("cpu")
-            logits_err, same = 0.0, 0
+            path = os.path.join(plain_tmp.name,
+                                label.replace(" ", "_") + ".pt")
+            torch.save(model_cpu, path)
             for o, s in list(zip(w.offsets, served))[:cpu_batches]:
-                ref = serve_batch(model_cpu, feat_cpu, w.cpu[o: o + w.cap],
-                                  BATCH, w.n_pad, codec, w.scap)
-                require(s.logits.shape == (BATCH, ref.logits.shape[1],
-                                           NUM_CLASSES + 1),
-                        f"logits shape {tuple(s.logits.shape)}")
-                require(bool(torch.isfinite(s.logits).all()),
-                        "non-finite logits")
-                require(torch.equal(s.feat_lengths.cpu(), ref.feat_lengths),
-                        "frame lengths differ from the plain path")
-                require(bool((s.lengths <= s.feat_lengths).all()),
-                        "a decode is longer than its frames")
-                logits_err = max(logits_err, float(
-                    (s.logits.cpu() - ref.logits).abs().max()))
-                same += int((s.decoded.cpu() == ref.decoded).all(1).sum())
-            held = ", not held: a chaotic recurrence" if chaotic else ""
-            print(f"{label} slice logits, kernel path on the card vs plain "
-                  f"path on the CPU ({cpu_batches} of {N_BATCHES} batches): "
-                  f"max_abs_err={logits_err:.3e} (tol {LOGITS_TOL:g}{held}); "
-                  f"identical transcripts {same}/{cpu_batches * BATCH}")
+                plain_batches.append((label, chaotic, Served(
+                    *(t.cpu() for t in s)), (path, codec, w.cpu[
+                        o: o + w.cap].numpy(), w.n_pad, w.scap)))
+            logits_err = 0.0            # held in plain_checks
         if codec == "mulaw":
             same = sum(int((s.decoded == r.decoded).all(1).sum())
                        for s, r in zip(served, vs_pcm16))
@@ -6171,6 +6353,43 @@ def main() -> int:
               f"({codec} wire unpack + features + {desc} + classifier + "
               f"greedy decode, B={BATCH})")
         return launches, served
+
+    def plain_checks():
+        """The serving slices' batches through the plain path on the CPU,
+        in up to PLAIN_WORKERS processes of one thread each: logits and
+        transcripts against the kernel path's on the card, per slice."""
+        t0 = time.perf_counter()
+        refs = run_plain([b[3] for b in plain_batches])
+        plain_s = PARTS["serving slices' plain path on the CPU"] = (
+            time.perf_counter() - t0)
+        by_label = {}
+        for (label, chaotic, s, _), ref in zip(plain_batches, refs):
+            require(s.logits.shape == (BATCH, ref.logits.shape[1],
+                                       NUM_CLASSES + 1),
+                    f"logits shape {tuple(s.logits.shape)}")
+            require(bool(torch.isfinite(s.logits).all()), "non-finite logits")
+            require(torch.equal(s.feat_lengths, ref.feat_lengths),
+                    "frame lengths differ from the plain path")
+            require(bool((s.lengths <= s.feat_lengths).all()),
+                    "a decode is longer than its frames")
+            err, same, n = by_label.get(label, (0.0, 0, 0))
+            by_label[label] = (
+                max(err, float((s.logits - ref.logits).abs().max())),
+                same + int((s.decoded == ref.decoded).all(1).sum()), n + 1)
+        chaotic_labels = {b[0] for b in plain_batches if b[1]}
+        for label, (err, same, n) in by_label.items():
+            held = (", not held: a chaotic recurrence"
+                    if label in chaotic_labels else "")
+            print(f"{label} slice logits, kernel path on the card vs plain "
+                  f"path on the CPU ({n} of {N_BATCHES} batches): "
+                  f"max_abs_err={err:.3e} (tol {LOGITS_TOL:g}{held}); "
+                  f"identical transcripts {same}/{n * BATCH}")
+            require(held or err <= LOGITS_TOL,
+                    f"{label} slice logits disagree with plain")
+        print(f"the serving slices' plain path on the CPU: "
+              f"{len(plain_batches)} batches in {plain_s:.1f} s "
+              f"({plain_workers(len(plain_batches))} worker processes of one "
+              f"thread)")
 
     blstm_desc = f"{LAYERS}x{HIDDEN} BLSTM"
     launches, pcm_served = serving_slice("deep_blstm", model, "bilstm_fwd",
@@ -6224,7 +6443,8 @@ def main() -> int:
             chaotic=name == "ln_blstm",
             cpu_batches=1 if "512" in label else N_BATCHES)[0])
         del served
-
+    plain_checks()
+    plain_tmp.cleanup()
     clock.mark("serving slices")
     path_launches.append(beam_serving_slice(card, model, feat,
                                             wires["pcm16"], audio_s))
@@ -6244,12 +6464,14 @@ def main() -> int:
     path_launches += optimizer_phase(dev, card)
     clock.mark("optimizer phase")
     # the bfloat16 phase (train --bf16): the LSTM's and the GRU's four
-    # bfloat16-weight forms each against their twins, then bf16 train steps
-    # of deep_blstm (cluster) and deep_speech (wide), bi and uni, deep_gru
-    # 3x256 (cluster) bi and uni and 3x512 (wide)
+    # bfloat16-weight forms and the zoneout and MI LSTMs' two each against
+    # their twins, then bf16 train steps of deep_blstm (cluster) and
+    # deep_speech (wide), bi and uni, deep_gru 3x256 (cluster) bi and uni
+    # and 3x512 (wide), zoneout_blstm and mi_blstm 3x256 bi and uni
     bf16_kernels = check_bf16_kernels(dev, card, "lstm")
-    for key, found in check_bf16_kernels(dev, card, "gru").items():
-        bf16_kernels[key].update(found)
+    for cell in ("gru", "zoneout_lstm", "mi_lstm"):
+        for key, found in check_bf16_kernels(dev, card, cell).items():
+            bf16_kernels[key].update(found)
     for path in BF16_PATHS:
         path_launches.append(bf16_train_path(dev, card, path))
     clock.mark("bf16 phase")
@@ -6263,7 +6485,7 @@ def main() -> int:
         runs, manifest, run_dir, first_epoch, train_it = corpus_phase(card,
                                                                       tmp)
         path_launches += runs
-        for model in ("deep_blstm", "deep_gru"):
+        for model in BF16_CLI_RNN:
             with part(f"train --bf16 --model {model} CLI"):
                 path_launches.append(bf16_cli_run(card, tmp, manifest,
                                                   model))

@@ -6,8 +6,9 @@ cast, the LSTM recurrence with bfloat16 ``wh`` (``BiLSTMFunction``,
 against ``pallas_bilstm`` / ``pallas_lstm`` with a bfloat16 ``wh`` in
 interpret mode, and ``Trainer(compute_dtype=torch.bfloat16)`` steps
 against the JAX ``Trainer(compute_dtype=jnp.bfloat16)`` on the Pallas
-route; the refusals of the cells and the design that have no bfloat16
-kernels (the GRU's bfloat16 forms: ``tests/test_torch_bf16_gru.py``).
+route; the refusals of the cell and the design that have no bfloat16
+kernels (the GRU's bfloat16 forms: ``tests/test_torch_bf16_gru.py``; the
+zoneout and MI LSTMs': ``tests/test_torch_bf16_zoneout_mi.py``).
 
 The JAX ``lax.scan`` default rounds the recurrent cotangent after its
 product where the Pallas backward rounds ``dpre`` before it; the TPU runs
@@ -29,9 +30,7 @@ from asr_study_torch.models.nn import dense_apply, dot
 from asr_study_torch.models.zoo import CELL_KINDS, build_model
 from asr_study_torch.ops import bilstm as B
 from asr_study_torch.ops.ln_lstm import bi_ln_lstm, ln_lstm
-from asr_study_torch.ops.mi_lstm import bi_mi_lstm, mi_lstm
 from asr_study_torch.ops.recurrence import BF16_ITEM
-from asr_study_torch.ops.zoneout_lstm import bi_zoneout_lstm, zoneout_lstm
 from asr_study_torch.train.trainer import Trainer, make_optimizer
 from asr_study_torch.utils.weights import params_from_flat
 from asr_study_tpu.models import cells as jcells
@@ -293,40 +292,26 @@ def test_bf16_eval_step_is_float32():
 # -- refusals ----------------------------------------------------------------
 
 def _op_args(op, t=5, b=2, h=8):
-    """The op's arguments at a small shape, its recurrent weights
-    bfloat16."""
+    """The layer-norm op's arguments at a small shape, its recurrent
+    weights bfloat16."""
     g = torch.Generator().manual_seed(0)
     xp = torch.randn(t, b, 4 * h, generator=g)
     mask = torch.ones(t, b, 1)
     wh = torch.randn(h, 4 * h, generator=g).to(BF16)
-    vec, unit = torch.ones(4 * h), torch.ones(h)
-    z = torch.ones(t, b, h)
-    bi = op in (bi_ln_lstm, bi_mi_lstm, bi_zoneout_lstm)
-    if op in (ln_lstm, bi_ln_lstm):
-        rest = [vec, unit, unit]
-    elif op in (mi_lstm, bi_mi_lstm):
-        rest = [vec, vec, vec, vec]
-    else:
-        rest = []
-    if not bi:
-        if op is zoneout_lstm:
-            return [xp, mask, z, z, wh]
+    rest = [torch.ones(4 * h), torch.ones(h), torch.ones(h)]
+    if op is ln_lstm:
         return [xp, mask, wh, *rest]
-    if op is bi_zoneout_lstm:
-        return [xp, xp, mask, z, z, z, z, wh, wh]
     return [xp, xp, mask, wh, wh, *(a for r in rest for a in (r, r))]
 
 
-@pytest.mark.parametrize("op", [ln_lstm, bi_ln_lstm, mi_lstm,
-                                bi_mi_lstm, zoneout_lstm, bi_zoneout_lstm],
+@pytest.mark.parametrize("op", [ln_lstm, bi_ln_lstm],
                          ids=lambda f: f.__name__)
 def test_other_cells_refuse_bf16(op):
     with pytest.raises(ValueError, match=BF16_ITEM):
         op(*_op_args(op))
 
 
-@pytest.mark.parametrize("model", ["ln_blstm", "zoneout_blstm",
-                                   "mi_blstm"])
+@pytest.mark.parametrize("model", ["ln_blstm"])
 def test_trainer_refuses_bf16_for_other_cells(model):
     pm = build_model(model, "num_hiddens=8,num_layers=1", num_classes=4,
                      input_dim=5)

@@ -93,7 +93,7 @@ _REFUSED = [
     ("train-argv13-item 13", "train", ["--tp_devices", "2"],
      "ROADMAP queue A item 13"),
     # item 5b since the rest of item 5 was ported; --bf16 with a model of
-    # other cells than LSTMCell and GRUCell since the LSTM and GRU models'
+    # layer-norm LSTM cells since the LSTM, GRU, zoneout and MI models'
     # bf16 was ported
     ("train-argv17-item 5", "train", ["--bf16", "--model", "ln_blstm"],
      "ROADMAP queue A item 5b"),
@@ -302,13 +302,16 @@ def test_train_resume_and_hparams_match_jax(tmp_path, monkeypatch, synth,
 
 
 def test_train_bf16_matches_jax_losses(tmp_path, monkeypatch, synth):
-    """train --bf16 on a small deep_blstm and a small deep_gru, each from
-    the JAX CLI's initial weights (--init_from a port run holding them),
-    gives the JAX CLI's per-step --bf16 losses, the JAX side on its Pallas
-    route (the TPU's, whose rounding the port's kernels follow)."""
+    """train --bf16 on a small deep_blstm, deep_gru, zoneout_blstm (rate 0:
+    the two CLIs draw no mix) and mi_blstm, each from the JAX CLI's
+    initial weights (--init_from a port run holding them), gives the JAX
+    CLI's per-step --bf16 losses, the JAX side on its Pallas route (the
+    TPU's, whose rounding the port's kernels follow)."""
     monkeypatch.setattr(jax_rnn, "RNN_BACKEND", "pallas")
-    hp = "num_hiddens=8,num_layers=2,dropout=0.0"
-    for model in ("deep_blstm", "deep_gru"):
+    base = "num_hiddens=8,num_layers=2,dropout=0.0"
+    for model, hp in (("deep_blstm", base), ("deep_gru", base),
+                      ("zoneout_blstm", base + ",zoneout_h=0.0,zoneout_c=0.0"),
+                      ("mi_blstm", base)):
         out = tmp_path / model
         argv = ["--dataset", synth, "--model", model, "--params", hp,
                 "--batch_size", "8", "--num_devices", "1", "--log_every",

@@ -1577,6 +1577,175 @@ def test_bf16_gru_train_step_on_card_matches_cpu(cuda):
         assert float((g_k[k] - g_p[k]).abs().max()) <= 1e-2 * scale, k
 
 
+# the zoneout and MI LSTMs' bfloat16-weight forms: the cluster design at
+# H=8, 100 and 256, bi and uni, ragged and with a dead row, at BF16_TOL
+ZM_BF16_CASES = [(12, 4, 8, 2, False), (37, 5, 100, 1, True),
+                 (64, 32, 256, 2, False), (40, 33, 256, 1, True),
+                 (29, 7, 256, 2, True)]
+
+
+def _zm_bf16_case(cuda, cell, t, b, h, dead):
+    """(bidirectional arguments with bfloat16 wh, the unidirectional ones,
+    dh) of the zoneout (Bernoulli(0.9) mix) or MI LSTM, the last row dead
+    where ``dead``."""
+    seed = t + b + h + 2
+    if cell == "zoneout":
+        args, dh = _zoneout_case(cuda, t, b, h, seed, "bernoulli")
+        w_at, pick = (7, 8), _zo_uni
+    else:
+        args, dh = _mi_case(cuda, t, b, h, seed)
+        w_at, pick = (3, 4), _mi_uni
+    if dead:
+        args[2] = args[2].clone()
+        args[2][:, -1] = 0.0
+    for i in w_at:
+        args[i] = args[i].to(torch.bfloat16)
+    return args, pick(args), dh
+
+
+def _zm_ops(cell, ndir):
+    """(forward, backward, forward plain, backward plain) of one cell."""
+    if cell == "zoneout":
+        return ((bi_zoneout_lstm, bi_zoneout_lstm_bwd, bi_zoneout_lstm_plain,
+                 bi_zoneout_lstm_bwd_plain) if ndir == 2 else
+                (zoneout_lstm, zoneout_lstm_bwd, zoneout_lstm_plain,
+                 zoneout_lstm_bwd_plain))
+    return ((bi_mi_lstm, bi_mi_lstm_bwd, bi_mi_lstm_plain,
+             bi_mi_lstm_bwd_plain) if ndir == 2 else
+            (mi_lstm, mi_lstm_bwd, mi_lstm_plain, mi_lstm_bwd_plain))
+
+
+def _zm_dwh(cell, ndir, args, hc, d, i):
+    """dwh (bfloat16) of direction i from the backward's output d."""
+    from asr_study_torch.ops.bilstm import _dwh
+    from asr_study_torch.ops.mi_lstm import dir_grads
+
+    if cell == "zoneout":
+        wh = args[7 + i] if ndir == 2 else args[4]
+        return _dwh(hc[2 * i], d[i], i == 1, wh)
+    if ndir == 2:
+        xp, wh, al, b1, b2 = (args[i], args[3 + i], args[5 + i], args[7 + i],
+                              args[9 + i])
+    else:
+        xp, _, wh, al, b1, b2, _ = args
+    return dir_grads(d[i], xp, hc[2 * i], wh, al, b1, b2, i == 1)[1]
+
+
+@pytest.mark.parametrize("cell", ["zoneout", "mi"])
+@pytest.mark.parametrize("t,b,h,ndir,dead", ZM_BF16_CASES,
+                         ids=[f"{t}-{b}-{h}-{'bi' if n == 2 else 'uni'}"
+                              + ("-dead" if d else "")
+                              for t, b, h, n, d in ZM_BF16_CASES])
+def test_zoneout_mi_bf16_kernels_match_plain(cuda, cell, t, b, h, ndir,
+                                             dead):
+    """The zoneout and MI LSTMs' bfloat16-weight forms of the forward and
+    backward (the cluster design) against their plain twins with the same
+    bfloat16 wh: h, c, dxp / dpre at BF16_TOL, dwh (bfloat16) within 1e-2
+    of its max abs; counted under ``cluster_bf16``; repeated bit for
+    bit."""
+    bi_args, uni_args, dh = _zm_bf16_case(cuda, cell, t, b, h, dead)
+    args = bi_args if ndir == 2 else uni_args
+    dh = dh[:ndir]
+    geometry = zoneout_geometry if cell == "zoneout" else mi_geometry
+    assert geometry(h, b, ndir).design == "cluster"
+    fwd, bwd, fwd_plain, bwd_plain = _zm_ops(cell, ndir)
+    before = (fwd.by_design["cluster_bf16"], bwd.by_design["cluster_bf16"])
+    runs = []
+    for _ in range(2):
+        hc = fwd(*args)
+        d = bwd(*args, *hc, *dh)
+        d = d if isinstance(d, tuple) else (d,)
+        runs.append((*hc, *d))
+    assert (fwd.by_design["cluster_bf16"] - before[0],
+            bwd.by_design["cluster_bf16"] - before[1]) == (2, 2)
+    want = fwd_plain(*args)
+    want_d = bwd_plain(*args, *hc, *dh)
+    want_d = want_d if isinstance(want_d, tuple) else (want_d,)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, c) for a, c in zip(*runs))
+    for g_, w_ in zip(runs[0], (*want, *want_d)):
+        assert g_.dtype == torch.float32
+        torch.testing.assert_close(g_, w_, **BF16_TOL)
+    for i in range(ndir):
+        k_ = _zm_dwh(cell, ndir, args, hc, d, i)
+        p_ = _zm_dwh(cell, ndir, args, hc, want_d, i)
+        assert k_.dtype == torch.bfloat16
+        scale = float(p_.float().abs().max())
+        assert float((k_.float() - p_.float()).abs().max()) <= 1e-2 * scale
+
+
+@pytest.mark.parametrize("name,bidirectional", [
+    ("zoneout_blstm", True), ("zoneout_blstm", False), ("mi_blstm", True),
+    ("mi_blstm", False)], ids=["zoneout-bi", "zoneout-uni", "mi-bi",
+                               "mi-uni"])
+def test_bf16_zoneout_mi_train_step_is_bit_reproducible(cuda, name,
+                                                       bidirectional):
+    """Two identical bfloat16 train steps of zoneout_blstm (rate 0.1, the
+    mix drawn from the same seed) and mi_blstm, 3x256 bi and uni (the
+    cluster forms), give bit-equal loss, gradients and updated weights,
+    the masters float32."""
+    if name == "zoneout_blstm":
+        ops = ((bi_zoneout_lstm, bi_zoneout_lstm_bwd) if bidirectional else
+               (zoneout_lstm, zoneout_lstm_bwd))
+    else:
+        ops = ((bi_mi_lstm, bi_mi_lstm_bwd) if bidirectional else
+               (mi_lstm, mi_lstm_bwd))
+    before = [w.by_design["cluster_bf16"] for w in ops]
+    runs = _two_identical_steps(
+        cuda, name, f"dropout=0.0,bidirectional={str(bidirectional).lower()}",
+        compute_dtype=torch.bfloat16)
+    assert [w.by_design["cluster_bf16"] - n for w, n in zip(ops, before)] \
+        == [2 * 3, 2 * 3]
+    assert _bit_differences(runs) == []
+    assert all(p.dtype == torch.float32 for p in runs[0][2].values())
+    assert np.isfinite(float(runs[0][0]))
+
+
+def _host_mix(seed):
+    """A ZoneoutLSTMCell.mix drawing Bernoulli(0.9) weights from one CPU
+    generator and moving them to the caller's device: a run on the card
+    and one on the CPU get the same mix."""
+    g = torch.Generator().manual_seed(seed)
+
+    def mix(self, t_steps, batch, train=False, generator=None, device=None):
+        shape = (t_steps, batch, self.hidden)
+        return tuple((torch.rand(shape, generator=g) < 0.9).float().to(device)
+                     for _ in range(2))
+    return mix
+
+
+@pytest.mark.parametrize("name", ["zoneout_blstm", "mi_blstm"])
+def test_bf16_zoneout_mi_train_step_on_card_matches_cpu(cuda, monkeypatch,
+                                                        name):
+    """One bfloat16 step of a small zoneout_blstm (the mix drawn on the
+    host for both) and mi_blstm on the card (the kernels' bfloat16 forms)
+    against the CPU's (their plain twins): the loss, and each gradient
+    within 1e-2 of its max abs."""
+    g = torch.Generator().manual_seed(8)
+    b, t, l_max = 6, 60, 12
+    batch = [torch.randn(b, t, 39, generator=g),
+             torch.randint(t // 2, t + 1, (b,), generator=g),
+             torch.randint(0, 27, (b, l_max), generator=g),
+             torch.randint(l_max // 2, l_max + 1, (b,), generator=g),
+             torch.ones(b)]
+    out = []
+    for dev in (cuda, "cpu"):
+        monkeypatch.setattr(ZoneoutLSTMCell, "mix", _host_mix(9))
+        model = build_model(name, "num_hiddens=64,num_layers=2,dropout=0.0",
+                            generator=torch.Generator().manual_seed(2),
+                            device=dev)
+        tr = Trainer(model, make_optimizer("sgd", 1e-2, 400.0),
+                     compute_dtype=torch.bfloat16)
+        _, m = tr.train_step(tr.init_state(), *[a.to(dev) for a in batch])
+        out.append((float(m["loss"]), {k: p.grad.cpu() for k, p in
+                                       model.named_parameters()}))
+    (loss_k, g_k), (loss_p, g_p) = out
+    assert loss_k == pytest.approx(loss_p, rel=1e-3)
+    for k in g_p:
+        scale = float(g_p[k].abs().max())
+        assert float((g_k[k] - g_p[k]).abs().max()) <= 1e-2 * scale, k
+
+
 def test_deep_blstm_train_step_is_bit_reproducible_deterministic(cuda):
     """The same under ``torch.use_deterministic_algorithms``, switched on
     for this test only: the control that separates a nondeterministic
