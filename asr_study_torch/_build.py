@@ -134,6 +134,9 @@ SIGNATURES = {
     # ndir, cluster CTAs, units, rows, stream
     "asr_ln_lstm_bwd": [_P] * 21 + [_I] * 7 + [_P],
     "asr_ln_lstm_bwd_info": [_I] * 6 + [_P, _P],
+    # the bfloat16-weight forms: the same arguments, wh_f and wh_b bfloat16
+    "asr_ln_lstm_fwd_bf16": [_P] * 17 + [_I] * 7 + [_P],
+    "asr_ln_lstm_bwd_bf16": [_P] * 21 + [_I] * 7 + [_P],
     # the streamed-weight forms (H=300, H=512): the cluster forward's
     # arguments without the geometry
     "asr_ln_lstm_stream_fwd": [_P] * 17 + [_I, _I, _I, _I, _P],

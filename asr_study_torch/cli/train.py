@@ -42,11 +42,11 @@ from asr_study_torch.cli.data_flow import (
 from asr_study_torch.data.generator import DatasetGenerator
 from asr_study_torch.features.augment import (
     parse_spec_augment, parse_wav_augment)
-from asr_study_torch.models.zoo import BF16_CELLS, CELL_KINDS, build_model
+from asr_study_torch.models.zoo import build_model
 from asr_study_torch.parallel import dp
 from asr_study_torch.train.checkpoint import CheckpointManager
 from asr_study_torch.train.loop import fit
-from asr_study_torch.train.trainer import BF16_ITEM, Trainer, make_optimizer
+from asr_study_torch.train.trainer import Trainer, make_optimizer
 
 # run-dir tags, in the JAX CLI's order
 _NAME_TAGS = ("params", "batch_size", "opt", "lr", "clipnorm", "bf16",
@@ -116,8 +116,7 @@ def build_argparser() -> argparse.ArgumentParser:
                         "whose loss or gradient norm is not finite")
     p.add_argument("--bf16", action="store_true",
                    help="mixed precision: bfloat16 compute, float32 master "
-                        "weights and optimizer state (models of LSTM, GRU, "
-                        "zoneout and MI LSTM cells)")
+                        "weights and optimizer state (every zoo model)")
     p.add_argument("--vocab", default=None,
                    help="label vocabulary: preset name (pt_br, "
                         "pt_br_apostrophe) or literal characters; default "
@@ -151,21 +150,10 @@ def build_argparser() -> argparse.ArgumentParser:
 
 def _refuse_unported(args) -> None:
     """Every option the port does not have yet, by its ROADMAP item."""
-    cells = CELL_KINDS.get(args.model.lower(), "lstm")
-    waiting = [m for m, k in CELL_KINDS.items() if k not in BF16_CELLS]
-    refusals = [
-        (args.tp_devices > 1,
-         "--tp_devices > 1: tensor parallelism is not ported to "
-         "asr_study_torch yet (ROADMAP queue A item 13)"),
-        (args.bf16 and cells not in BF16_CELLS,
-         f"--bf16 --model {args.model}: bf16 compute is not ported to "
-         f"asr_study_torch yet for the models of {cells} cells "
-         f"({', '.join(waiting)}); it is for those of "
-         f"{', '.join(BF16_CELLS)} cells ({BF16_ITEM})"),
-    ]
-    for refused, why in refusals:
-        if refused:
-            raise SystemExit(why)
+    if args.tp_devices > 1:
+        raise SystemExit("--tp_devices > 1: tensor parallelism is not "
+                         "ported to asr_study_torch yet (ROADMAP queue A "
+                         "item 13)")
     if args.wav_augment is not None and not args.device_features:
         raise SystemExit("--wav_augment operates on raw waveforms and "
                          "needs --device_features")

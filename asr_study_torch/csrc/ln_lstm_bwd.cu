@@ -60,6 +60,23 @@
 // barrier as the partials.  A step so has three cluster barriers (after b
 // and f, after c, after d).
 //
+// The bfloat16-weight form (asr_ln_lstm_bwd_bf16) is the same kernel on the
+// weight type W = __nv_bfloat16 (ops/pallas_ln_lstm.py `_ln_row_bwd` with a
+// bfloat16 wh), as zoneout_lstm_bwd.cu's: the slice is held as bfloat16 in
+// the registers (64 pairs a thread) and in ws ([H][4U + 2] bfloat16, whose
+// odd row stride in words keeps step f's pair reads free of bank
+// conflicts).  The saved h_prev is rounded to bfloat16 in shared memory by
+// the thread whose cp.async fetched it, after its copy lands and before the
+// barrier that opens the iteration, so step a (the product of the step one
+// ahead of the chain, whose row that slot holds) recomputes the forward's
+// hp from the forward's operands, and the statistics of b are those of the
+// rounded product.  That slot is this CTA's own and step a is its only
+// reader (the LN backward takes h_prev nowhere but in the product; c_prev,
+// for df, is a buffer of its own), so no unrounded copy is kept.  dhp is
+// rounded as step e writes it (`_mm(dhp, wht)`), while dpre and dcn are
+// written unrounded.  Products are float32 fmaf on the converted values in
+// the float32 form's order.
+//
 // Every sum that crosses CTAs runs in a fixed order (the partials in rank
 // order, the statistics by an 8-lane shuffle butterfly over the senders), so
 // the backward, and the train steps, repeat bit for bit.  The launcher
@@ -69,6 +86,7 @@
 // slice does not fit (H=300, H=512) to ln_lstm_stream_bwd.cu.
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <type_traits>
@@ -85,18 +103,20 @@ constexpr float kEps = 1e-5f;
 __host__ __device__ constexpr int round4(int n) { return (n + 3) & ~3; }
 
 // Offsets (in floats) of the dynamic shared memory of one CTA; mirrored by
-// ops/ln_lstm.py `ln_cluster_smem`.
+// ops/ln_lstm.py `ln_cluster_smem` for the float32 form.  ws holds `half`
+// (bfloat16) weights in the bfloat16 form, in rows of gcs elements.
 struct BwdLayout {
   int hp, gcs, ks, hs, ws, hpb, xs, ct, cp, dho, mk, red, dhp, recv, sta,
       stb, stq, total;
-  __host__ __device__ BwdLayout(int H, int U, int R, int C) {
+  __host__ __device__ BwdLayout(int H, int U, int R, int C, bool half) {
     const int gc = 4 * U;
     hp = round4(H);
-    gcs = gc + 1;
+    gcs = half ? gc + 2 : gc + 1;    // an odd number of words a row
     ks = (H + kSlice - 1) / kSlice;  // slices of the H reduction
     hs = ks * kSlice;                // h rows, zero-padded to whole slices
     ws = 0;                          // [hp][gcs]   wh[:, own columns]
-    hpb = ws + round4(hp * gcs);     // [2][R][hs]  saved h at t_prev
+    hpb = ws + round4(half ? hp * gcs / 2 : hp * gcs);
+    //                                  [2][R][hs]  saved h at t_prev
     xs = hpb + 2 * R * hs;           // [2][R][gc]  xpn of own columns
     ct = xs + 2 * R * gc;            // [2][R][U]   c at t, own units
     cp = ct + round4(2 * R * U);     // [2][R][U]   c at t_prev
@@ -170,6 +190,58 @@ __device__ __forceinline__ void means(const float* st, int stride, int snd,
   for (int q = 0; q < NQ; ++q) out[q] = group8_sum(part[q]) * inv_h;
 }
 
+// A thread's kSlice weights of one column, in registers: float32, or
+// bfloat16 pairs for the bfloat16-weight form.  quad(kk) gives rows kk ..
+// kk + 3 as float32.
+template <typename W>
+struct Slice {
+  float w[kSlice];
+  __device__ __forceinline__ void set2(int kk, W a, W b) {
+    w[kk] = a;
+    w[kk + 1] = b;
+  }
+  __device__ __forceinline__ float4 quad(int kk) const {
+    return make_float4(w[kk], w[kk + 1], w[kk + 2], w[kk + 3]);
+  }
+};
+
+template <>
+struct Slice<__nv_bfloat16> {
+  __nv_bfloat162 w[kSlice / 2];
+  __device__ __forceinline__ void set2(int kk, __nv_bfloat16 a,
+                                       __nv_bfloat16 b) {
+    w[kk / 2] = __halves2bfloat162(a, b);
+  }
+  __device__ __forceinline__ float4 quad(int kk) const {
+    const float2 lo = __bfloat1622float2(w[kk / 2]);
+    const float2 hi = __bfloat1622float2(w[kk / 2 + 1]);
+    return make_float4(lo.x, lo.y, hi.x, hi.y);
+  }
+};
+
+// x as it enters a product with weights of type W: itself, or rounded to
+// the nearest bfloat16
+template <typename W>
+__device__ __forceinline__ float as_operand(float x) {
+  if constexpr (std::is_same_v<W, __nv_bfloat16>)
+    return __bfloat162float(__float2bfloat16_rn(x));
+  else
+    return x;
+}
+
+// four consecutive weights of a ws row as float32 (k even)
+__device__ __forceinline__ float4 row4(const float* w) {
+  return make_float4(w[0], w[1], w[2], w[3]);
+}
+
+__device__ __forceinline__ float4 row4(const __nv_bfloat16* w) {
+  const float2 lo =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(w));
+  const float2 hi =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(w + 2));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+
 // 4-byte asynchronous copy global -> shared; zero-fills when !valid
 __device__ __forceinline__ void cp_async4(float* dst, const float* src,
                                           bool valid) {
@@ -187,13 +259,13 @@ __device__ __forceinline__ void cp_async_wait_prev() {
   asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
 
-template <int R>
+template <typename W, int R>
 __global__ void __launch_bounds__(kThreads, 1)
 ln_lstm_bwd_kernel(const float* __restrict__ xpn_f,
                    const float* __restrict__ xpn_b,
                    const float* __restrict__ mask,
-                   const float* __restrict__ wh_f,
-                   const float* __restrict__ wh_b,
+                   const W* __restrict__ wh_f,
+                   const W* __restrict__ wh_b,
                    const float* __restrict__ gh_f,
                    const float* __restrict__ gh_b,
                    const float* __restrict__ gc_f,
@@ -212,10 +284,11 @@ ln_lstm_bwd_kernel(const float* __restrict__ xpn_f,
   cg::cluster_group cluster = cg::this_cluster();
   const int C = static_cast<int>(cluster.num_blocks());
   const int rank = static_cast<int>(cluster.block_rank());
-  const BwdLayout L(H, U, R, C);
+  constexpr bool kRounded = std::is_same_v<W, __nv_bfloat16>;
+  const BwdLayout L(H, U, R, C, kRounded);
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  float* ws = smem + L.ws;
+  W* ws = reinterpret_cast<W*>(smem + L.ws);
   float* hpb = smem + L.hpb;
   float* xs = smem + L.xs;
   float* cts = smem + L.ct;
@@ -230,7 +303,7 @@ ln_lstm_bwd_kernel(const float* __restrict__ xpn_f,
 
   const bool rev = blockIdx.z == 1;
   const float* __restrict__ xpn = rev ? xpn_b : xpn_f;
-  const float* __restrict__ wh = rev ? wh_b : wh_f;
+  const W* __restrict__ wh = rev ? wh_b : wh_f;
   const float* __restrict__ gh = rev ? gh_b : gh_f;
   const float* __restrict__ gc = rev ? gc_b : gc_f;
   const float* __restrict__ bc = rev ? bc_b : bc_f;
@@ -252,20 +325,21 @@ ln_lstm_bwd_kernel(const float* __restrict__ xpn_f,
     const int q = cl / U, un = u0 + cl - q * U;
     ws[k * GCS + cl] =
         (k < H && un < H) ? wh[static_cast<size_t>(k) * G + q * H + un]
-                          : 0.f;
+                          : W{};
   }
   const int col = tid % GC, ks = tid / GC;
   const bool active = ks < L.ks;
-  float w[kSlice];
+  Slice<W> w;
   {
     const int q = col / U, un = u0 + col - q * U;
-#pragma unroll
-    for (int kk = 0; kk < kSlice; ++kk) {
+    auto at = [&](int kk) {
       const int k = ks * kSlice + kk;
-      w[kk] = (active && k < H && un < H)
-                  ? wh[static_cast<size_t>(k) * G + q * H + un]
-                  : 0.f;
-    }
+      return (active && k < H && un < H)
+                 ? wh[static_cast<size_t>(k) * G + q * H + un]
+                 : W{};
+    };
+#pragma unroll
+    for (int kk = 0; kk < kSlice; kk += 2) w.set2(kk, at(kk), at(kk + 1));
   }
   for (int i = tid; i < R * GC; i += kThreads) dhp[i] = 0.f;
   for (int i = tid; i < 2 * C * RU; i += kThreads) recv[i] = 0.f;
@@ -364,6 +438,14 @@ ln_lstm_bwd_kernel(const float* __restrict__ xpn_f,
     if (it + 1 < T) fetch_stats(it + 1);
     cp_async_commit();
     cp_async_wait_prev();
+    if (kRounded && it < T) {
+      // the h_prev of step it, which step a below multiplies, as the
+      // forward's product took it: each element rounded by the thread
+      // whose copy brought it (fetch_stats' mapping)
+      float* hr = hpb + (it & 1) * R * HS;
+      for (int i = tid; i < R * HS; i += kThreads)
+        hr[i] = as_operand<W>(hr[i]);
+    }
     __syncthreads();
 
     if (it > 0) {
@@ -454,11 +536,12 @@ ln_lstm_bwd_kernel(const float* __restrict__ xpn_f,
         float mq[8];
         means<8>(stq + row * 8, R * 8, snd, n_snd, inv_h, mq);
         if (lane < U) {
+          // step f's operands (rounded in the bfloat16 form)
 #pragma unroll
           for (int q = 0; q < 4; ++q)
-            dhp[row * GC + q * U + lane] =
+            dhp[row * GC + q * U + lane] = as_operand<W>(
                 own ? rs[q] * (dq[q] - mq[2 * q] - xhat[q] * mq[2 * q + 1])
-                    : 0.f;
+                    : 0.f);
         }
       }
       __syncthreads();
@@ -468,19 +551,18 @@ ln_lstm_bwd_kernel(const float* __restrict__ xpn_f,
         float acc[R];
 #pragma unroll
         for (int r = 0; r < R; ++r) acc[r] = 0.f;
-        const float* wrow = ws + j * GCS;
+        const W* wrow = ws + j * GCS;
 #pragma unroll 2
         for (int k = 0; k < GC; k += 4) {
-          const float w0 = wrow[k], w1 = wrow[k + 1], w2 = wrow[k + 2],
-                      w3 = wrow[k + 3];
+          const float4 wv = row4(wrow + k);
 #pragma unroll
           for (int r = 0; r < R; ++r) {
             const float4 dv =
                 *reinterpret_cast<const float4*>(dhp + r * GC + k);
-            acc[r] = fmaf(dv.x, w0, acc[r]);
-            acc[r] = fmaf(dv.y, w1, acc[r]);
-            acc[r] = fmaf(dv.z, w2, acc[r]);
-            acc[r] = fmaf(dv.w, w3, acc[r]);
+            acc[r] = fmaf(dv.x, wv.x, acc[r]);
+            acc[r] = fmaf(dv.y, wv.y, acc[r]);
+            acc[r] = fmaf(dv.z, wv.z, acc[r]);
+            acc[r] = fmaf(dv.w, wv.w, acc[r]);
           }
         }
         const int owner = j / U;
@@ -504,14 +586,15 @@ ln_lstm_bwd_kernel(const float* __restrict__ xpn_f,
         for (int r = 0; r < R; ++r) acc[r] = 0.f;
 #pragma unroll
         for (int kk = 0; kk < kSlice; kk += 4) {
+          const float4 wv = w.quad(kk);
 #pragma unroll
           for (int r = 0; r < R; ++r) {
             const float4 hv =
                 *reinterpret_cast<const float4*>(hk + r * HS + kk);
-            acc[r] = fmaf(hv.x, w[kk], acc[r]);
-            acc[r] = fmaf(hv.y, w[kk + 1], acc[r]);
-            acc[r] = fmaf(hv.z, w[kk + 2], acc[r]);
-            acc[r] = fmaf(hv.w, w[kk + 3], acc[r]);
+            acc[r] = fmaf(hv.x, wv.x, acc[r]);
+            acc[r] = fmaf(hv.y, wv.y, acc[r]);
+            acc[r] = fmaf(hv.z, wv.z, acc[r]);
+            acc[r] = fmaf(hv.w, wv.w, acc[r]);
           }
         }
 #pragma unroll
@@ -553,14 +636,16 @@ ln_lstm_bwd_kernel(const float* __restrict__ xpn_f,
 
 // The launch configuration of the cluster grid -> its dynamic shared memory
 // and how many of its clusters the card holds at once.
-template <int R>
+template <typename W, int R>
 cudaError_t configure(int B, int H, int ndir, int C, int U,
                       cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr,
                       int* max_clusters) {
   const size_t smem =
-      sizeof(float) * static_cast<size_t>(BwdLayout(H, U, R, C).total);
+      sizeof(float) *
+      static_cast<size_t>(
+          BwdLayout(H, U, R, C, std::is_same_v<W, __nv_bfloat16>).total);
   cudaError_t err = cudaFuncSetAttribute(
-      ln_lstm_bwd_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      ln_lstm_bwd_kernel<W, R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   *cfg = cudaLaunchConfig_t{};
@@ -573,25 +658,28 @@ cudaError_t configure(int B, int H, int ndir, int C, int U,
   attr[0].val.clusterDim.z = 1;
   cfg->attrs = attr;
   cfg->numAttrs = 1;
-  return cudaOccupancyMaxActiveClusters(max_clusters, ln_lstm_bwd_kernel<R>,
-                                        cfg);
+  return cudaOccupancyMaxActiveClusters(max_clusters,
+                                        ln_lstm_bwd_kernel<W, R>, cfg);
 }
 
-template <int R>
-cudaError_t launch(const float* const* p, float* const* out, int T, int B,
-                   int H, int ndir, int C, int U, cudaStream_t stream) {
+// p: the float32 inputs in the kernel's order without wh (xpn_f, xpn_b,
+// mask, then gh_f .. dh_b)
+template <typename W, int R>
+cudaError_t launch(const float* const* p, const W* wh_f, const W* wh_b,
+                   float* const* out, int T, int B, int H, int ndir, int C,
+                   int U, cudaStream_t stream) {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[1];
   int fit = 0;
-  cudaError_t err = configure<R>(B, H, ndir, C, U, &cfg, attr, &fit);
+  cudaError_t err = configure<W, R>(B, H, ndir, C, U, &cfg, attr, &fit);
   if (err != cudaSuccess) return err;
   // all clusters in one wave, or no launch
   if (fit < static_cast<int>(cfg.gridDim.y * cfg.gridDim.z))
     return cudaErrorCooperativeLaunchTooLarge;
   cfg.stream = stream;
-  err = cudaLaunchKernelEx(&cfg, ln_lstm_bwd_kernel<R>, p[0], p[1], p[2],
-                           p[3], p[4], p[5], p[6], p[7], p[8], p[9], p[10],
-                           p[11], p[12], p[13], p[14], p[15], p[16], out[0],
+  err = cudaLaunchKernelEx(&cfg, ln_lstm_bwd_kernel<W, R>, p[0], p[1], p[2],
+                           wh_f, wh_b, p[3], p[4], p[5], p[6], p[7], p[8],
+                           p[9], p[10], p[11], p[12], p[13], p[14], out[0],
                            out[1], out[2], out[3], T, B, H, U);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
@@ -617,6 +705,28 @@ cudaError_t by_rows(int R, F&& f) {
   }
 }
 
+template <typename W>
+int launch_form(const float* xpn_f, const float* xpn_b, const float* mask,
+                const W* wh_f, const W* wh_b, const float* gh_f,
+                const float* gh_b, const float* gc_f, const float* gc_b,
+                const float* bc_f, const float* bc_b, const float* h_f,
+                const float* c_f, const float* h_b, const float* c_b,
+                const float* dh_f, const float* dh_b, float* dpre_f,
+                float* dcn_f, float* dpre_b, float* dcn_b, int T, int B,
+                int H, int ndir, int C, int U, int R, void* stream) {
+  if (!valid_geometry(H, ndir, C, U))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const float* const in[] = {xpn_f, xpn_b, mask, gh_f, gh_b, gc_f, gc_b,
+                             bc_f,  bc_b,  h_f,  c_f,  h_b,  c_b,  dh_f,
+                             dh_b};
+  float* const out[] = {dpre_f, dcn_f, dpre_b, dcn_b};
+  return static_cast<int>(by_rows(R, [&](auto rows) {
+    return launch<W, decltype(rows)::value>(
+        in, wh_f, wh_b, out, T, B, H, ndir, C, U,
+        static_cast<cudaStream_t>(stream));
+  }));
+}
+
 }  // namespace
 
 // Launch the backward over ndir directions: clusters of C CTAs of U units
@@ -629,16 +739,26 @@ extern "C" int asr_ln_lstm_bwd(
     const float* h_b, const float* c_b, const float* dh_f, const float* dh_b,
     float* dpre_f, float* dcn_f, float* dpre_b, float* dcn_b, int T, int B,
     int H, int ndir, int C, int U, int R, void* stream) {
-  if (!valid_geometry(H, ndir, C, U))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const float* const in[] = {xpn_f, xpn_b, mask, wh_f, wh_b, gh_f,
-                             gh_b,  gc_f,  gc_b, bc_f, bc_b, h_f,
-                             c_f,   h_b,   c_b,  dh_f, dh_b};
-  float* const out[] = {dpre_f, dcn_f, dpre_b, dcn_b};
-  return static_cast<int>(by_rows(R, [&](auto rows) {
-    return launch<decltype(rows)::value>(in, out, T, B, H, ndir, C, U,
-                                         static_cast<cudaStream_t>(stream));
-  }));
+  return launch_form<float>(xpn_f, xpn_b, mask, wh_f, wh_b, gh_f, gh_b, gc_f,
+                            gc_b, bc_f, bc_b, h_f, c_f, h_b, c_b, dh_f, dh_b,
+                            dpre_f, dcn_f, dpre_b, dcn_b, T, B, H, ndir, C, U,
+                            R, stream);
+}
+
+// The bfloat16-weight form: asr_ln_lstm_bwd's arguments with wh_f / wh_b
+// bfloat16 [H, 4H].
+extern "C" int asr_ln_lstm_bwd_bf16(
+    const float* xpn_f, const float* xpn_b, const float* mask,
+    const __nv_bfloat16* wh_f, const __nv_bfloat16* wh_b, const float* gh_f,
+    const float* gh_b, const float* gc_f, const float* gc_b,
+    const float* bc_f, const float* bc_b, const float* h_f, const float* c_f,
+    const float* h_b, const float* c_b, const float* dh_f, const float* dh_b,
+    float* dpre_f, float* dcn_f, float* dpre_b, float* dcn_b, int T, int B,
+    int H, int ndir, int C, int U, int R, void* stream) {
+  return launch_form<__nv_bfloat16>(
+      xpn_f, xpn_b, mask, wh_f, wh_b, gh_f, gh_b, gc_f, gc_b, bc_f, bc_b,
+      h_f, c_f, h_b, c_b, dh_f, dh_b, dpre_f, dcn_f, dpre_b, dcn_b, T, B, H,
+      ndir, C, U, R, stream);
 }
 
 // The backward's dynamic shared memory per CTA and the clusters the card
@@ -651,8 +771,8 @@ extern "C" int asr_ln_lstm_bwd_info(int B, int H, int ndir, int C, int U,
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[1];
   const cudaError_t err = by_rows(R, [&](auto rows) {
-    return configure<decltype(rows)::value>(B, H, ndir, C, U, &cfg, attr,
-                                            max_clusters);
+    return configure<float, decltype(rows)::value>(B, H, ndir, C, U, &cfg,
+                                                   attr, max_clusters);
   });
   if (err == cudaSuccess) *smem_bytes = static_cast<int>(cfg.dynamicSmemBytes);
   return static_cast<int>(err);

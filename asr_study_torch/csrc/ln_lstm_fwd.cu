@@ -59,12 +59,26 @@
 // (ROADMAP C2).  Every sum runs in a fixed order, so all CTAs of a cluster
 // hold the same statistics and a launch repeats bit for bit.
 //
+// The bfloat16-weight form (asr_ln_lstm_fwd_bf16; train --bf16, the JAX
+// trainer's compute_dtype, under which the Pallas kernels run with a
+// bfloat16 wh) is the same kernel on the weight type W = __nv_bfloat16, as
+// zoneout_lstm_fwd.cu's: each thread holds its slice as 64 bfloat16 pairs,
+// and h enters the product rounded to bfloat16 (ops/pallas_lstm.py `_mm`:
+// h_prev.astype(wh.dtype)), the copy pushed into every CTA's h buffer
+// rounded by its writer.  The statistics of the product, c and the cell LN
+// stay float32, and the hold takes h_prev unrounded (`_ln_cell_fwd_math`):
+// the cell's h_state register is the unrounded h.  The products are
+// float32 fmaf on the converted pairs, summed in the float32 form's order;
+// xpn, the mask, the gains, h and c stay float32.  Its shared memory is the
+// float32 form's.
+//
 // The launcher checks with cudaOccupancyMaxActiveClusters that every
 // cluster of the grid is resident at once and refuses the launch otherwise.
 // ops/ln_lstm.py `ln_geometry` picks C, U and R, and sends the widths whose
 // slice does not fit (H=300, H=512) to ln_lstm_stream_fwd.cu.
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <type_traits>
@@ -142,6 +156,45 @@ __device__ __forceinline__ void combine(const float* st, int stride, int snd,
   }
 }
 
+// A thread's kSlice weights of one column, in registers: float32, or
+// bfloat16 pairs for the bfloat16-weight form.  quad(kk) gives rows kk ..
+// kk + 3 as float32.
+template <typename W>
+struct Slice {
+  float w[kSlice];
+  __device__ __forceinline__ void set2(int kk, W a, W b) {
+    w[kk] = a;
+    w[kk + 1] = b;
+  }
+  __device__ __forceinline__ float4 quad(int kk) const {
+    return make_float4(w[kk], w[kk + 1], w[kk + 2], w[kk + 3]);
+  }
+};
+
+template <>
+struct Slice<__nv_bfloat16> {
+  __nv_bfloat162 w[kSlice / 2];
+  __device__ __forceinline__ void set2(int kk, __nv_bfloat16 a,
+                                       __nv_bfloat16 b) {
+    w[kk / 2] = __halves2bfloat162(a, b);
+  }
+  __device__ __forceinline__ float4 quad(int kk) const {
+    const float2 lo = __bfloat1622float2(w[kk / 2]);
+    const float2 hi = __bfloat1622float2(w[kk / 2 + 1]);
+    return make_float4(lo.x, lo.y, hi.x, hi.y);
+  }
+};
+
+// x as it enters a product with weights of type W: itself, or rounded to
+// the nearest bfloat16
+template <typename W>
+__device__ __forceinline__ float as_operand(float x) {
+  if constexpr (std::is_same_v<W, __nv_bfloat16>)
+    return __bfloat162float(__float2bfloat16_rn(x));
+  else
+    return x;
+}
+
 // 4-byte asynchronous copy global -> shared; zero-fills when !valid
 __device__ __forceinline__ void cp_async4(float* dst, const float* src,
                                           bool valid) {
@@ -159,13 +212,13 @@ __device__ __forceinline__ void cp_async_wait_prev() {
   asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
 
-template <int R>
+template <typename W, int R>
 __global__ void __launch_bounds__(kThreads, 1)
 ln_lstm_fwd_kernel(const float* __restrict__ xpn_f,
                    const float* __restrict__ xpn_b,
                    const float* __restrict__ mask,
-                   const float* __restrict__ wh_f,
-                   const float* __restrict__ wh_b,
+                   const W* __restrict__ wh_f,
+                   const W* __restrict__ wh_b,
                    const float* __restrict__ gh_f,
                    const float* __restrict__ gh_b,
                    const float* __restrict__ gc_f,
@@ -190,7 +243,7 @@ ln_lstm_fwd_kernel(const float* __restrict__ xpn_f,
 
   const bool rev = blockIdx.z == 1;
   const float* __restrict__ xpn = rev ? xpn_b : xpn_f;
-  const float* __restrict__ wh = rev ? wh_b : wh_f;
+  const W* __restrict__ wh = rev ? wh_b : wh_f;
   const float* __restrict__ gh = rev ? gh_b : gh_f;
   const float* __restrict__ gc = rev ? gc_b : gc_f;
   const float* __restrict__ bc = rev ? bc_b : bc_f;
@@ -204,16 +257,17 @@ ln_lstm_fwd_kernel(const float* __restrict__ xpn_f,
   // w[kk] = wh[ks*kSlice + kk][q*H + u0 + u] for col = q*U + u, zero past H
   const int col = tid % GC, ks = tid / GC;
   const bool active = ks < L.ks;
-  float w[kSlice];
+  Slice<W> w;
   {
     const int q = col / U, unit = u0 + col - q * U;
-#pragma unroll
-    for (int kk = 0; kk < kSlice; ++kk) {
+    auto at = [&](int kk) {
       const int k = ks * kSlice + kk;
-      w[kk] = (active && k < H && unit < H)
-                  ? wh[static_cast<size_t>(k) * G + q * H + unit]
-                  : 0.f;
-    }
+      return (active && k < H && unit < H)
+                 ? wh[static_cast<size_t>(k) * G + q * H + unit]
+                 : W{};
+    };
+#pragma unroll
+    for (int kk = 0; kk < kSlice; kk += 2) w.set2(kk, at(kk), at(kk + 1));
   }
 
   // the cell: warp r takes batch row b0 + r, lane u unit u0 + u; that
@@ -231,8 +285,8 @@ ln_lstm_fwd_kernel(const float* __restrict__ xpn_f,
 #pragma unroll
   for (int q = 0; q < 4; ++q) ghq[q] = own ? gh[q * H + unit] : 0.f;
   // the carried state, zeros where none is given: the own unit's h and c
-  // into the cell's registers, the full h rows into slot 0 of every CTA's
-  // h buffer
+  // into the cell's registers (unrounded), the full h rows into slot 0 of
+  // every CTA's h buffer (as product operands)
   const size_t lane_row = static_cast<size_t>(blockIdx.z) * B;
   if (own) {
     gcu = gc[unit];
@@ -247,7 +301,7 @@ ln_lstm_fwd_kernel(const float* __restrict__ xpn_f,
   for (int i = tid; i < 2 * R * HS; i += kThreads) {
     const int r = i / HS, k = i - r * HS, b = b0 + r;
     hbuf[i] = (h_init != nullptr && r < R && b < B && k < H)
-                  ? h_init[(lane_row + b) * H + k]
+                  ? as_operand<W>(h_init[(lane_row + b) * H + k])
                   : 0.f;
   }
 
@@ -297,14 +351,15 @@ ln_lstm_fwd_kernel(const float* __restrict__ xpn_f,
       for (int r = 0; r < R; ++r) acc[r] = 0.f;
 #pragma unroll
       for (int kk = 0; kk < kSlice; kk += 4) {
+        const float4 wv = w.quad(kk);
 #pragma unroll
         for (int r = 0; r < R; ++r) {
           const float4 hv =
               *reinterpret_cast<const float4*>(hk + r * HS + kk);
-          acc[r] = fmaf(hv.x, w[kk], acc[r]);
-          acc[r] = fmaf(hv.y, w[kk + 1], acc[r]);
-          acc[r] = fmaf(hv.z, w[kk + 2], acc[r]);
-          acc[r] = fmaf(hv.w, w[kk + 3], acc[r]);
+          acc[r] = fmaf(hv.x, wv.x, acc[r]);
+          acc[r] = fmaf(hv.y, wv.y, acc[r]);
+          acc[r] = fmaf(hv.z, wv.z, acc[r]);
+          acc[r] = fmaf(hv.w, wv.w, acc[r]);
         }
       }
 #pragma unroll
@@ -383,8 +438,11 @@ ln_lstm_fwd_kernel(const float* __restrict__ xpn_f,
           h_out[o] = hn;
           c_out[o] = cn;
         }
+        // the pushed copy is a product operand (rounded in the bfloat16
+        // form); h_state keeps h unrounded for the hold
         float* hn_buf = hbuf + (cur ^ 1) * R * HS + row * HS + unit;
-        for (int p = 0; p < C; ++p) *cluster.map_shared_rank(hn_buf, p) = hn;
+        const float hx = as_operand<W>(hn);
+        for (int p = 0; p < C; ++p) *cluster.map_shared_rank(hn_buf, p) = hx;
       }
     }
     cluster.sync();
@@ -393,14 +451,14 @@ ln_lstm_fwd_kernel(const float* __restrict__ xpn_f,
 
 // The launch configuration of the cluster grid -> its dynamic shared memory
 // and how many of its clusters the card holds at once.
-template <int R>
+template <typename W, int R>
 cudaError_t configure(int B, int H, int ndir, int C, int U,
                       cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr,
                       int* max_clusters) {
   const size_t smem =
       sizeof(float) * static_cast<size_t>(FwdLayout(H, U, R, C).total);
   cudaError_t err = cudaFuncSetAttribute(
-      ln_lstm_fwd_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      ln_lstm_fwd_kernel<W, R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   *cfg = cudaLaunchConfig_t{};
@@ -413,13 +471,13 @@ cudaError_t configure(int B, int H, int ndir, int C, int U,
   attr[0].val.clusterDim.z = 1;
   cfg->attrs = attr;
   cfg->numAttrs = 1;
-  return cudaOccupancyMaxActiveClusters(max_clusters, ln_lstm_fwd_kernel<R>,
-                                        cfg);
+  return cudaOccupancyMaxActiveClusters(max_clusters,
+                                        ln_lstm_fwd_kernel<W, R>, cfg);
 }
 
-template <int R>
+template <typename W, int R>
 cudaError_t launch(const float* xpn_f, const float* xpn_b, const float* mask,
-                   const float* wh_f, const float* wh_b, const float* gh_f,
+                   const W* wh_f, const W* wh_b, const float* gh_f,
                    const float* gh_b, const float* gc_f, const float* gc_b,
                    const float* bc_f, const float* bc_b, float* h_f,
                    float* c_f, float* h_b, float* c_b, const float* h_init,
@@ -428,13 +486,13 @@ cudaError_t launch(const float* xpn_f, const float* xpn_b, const float* mask,
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[1];
   int fit = 0;
-  cudaError_t err = configure<R>(B, H, ndir, C, U, &cfg, attr, &fit);
+  cudaError_t err = configure<W, R>(B, H, ndir, C, U, &cfg, attr, &fit);
   if (err != cudaSuccess) return err;
   // all clusters in one wave, or no launch
   if (fit < static_cast<int>(cfg.gridDim.y * cfg.gridDim.z))
     return cudaErrorCooperativeLaunchTooLarge;
   cfg.stream = stream;
-  err = cudaLaunchKernelEx(&cfg, ln_lstm_fwd_kernel<R>, xpn_f, xpn_b, mask,
+  err = cudaLaunchKernelEx(&cfg, ln_lstm_fwd_kernel<W, R>, xpn_f, xpn_b, mask,
                            wh_f, wh_b, gh_f, gh_b, gc_f, gc_b, bc_f, bc_b,
                            h_f, c_f, h_b, c_b, h_init, c_init, T, B, H, U);
   if (err != cudaSuccess) return err;
@@ -461,6 +519,24 @@ cudaError_t by_rows(int R, F&& f) {
   }
 }
 
+template <typename W>
+int launch_form(const float* xpn_f, const float* xpn_b, const float* mask,
+                const W* wh_f, const W* wh_b, const float* gh_f,
+                const float* gh_b, const float* gc_f, const float* gc_b,
+                const float* bc_f, const float* bc_b, float* h_f, float* c_f,
+                float* h_b, float* c_b, const float* h_init,
+                const float* c_init, int T, int B, int H, int ndir, int C,
+                int U, int R, void* stream) {
+  if (!valid_geometry(H, ndir, C, U))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(by_rows(R, [&](auto rows) {
+    return launch<W, decltype(rows)::value>(
+        xpn_f, xpn_b, mask, wh_f, wh_b, gh_f, gh_b, gc_f, gc_b, bc_f, bc_b,
+        h_f, c_f, h_b, c_b, h_init, c_init, T, B, H, ndir, C, U,
+        static_cast<cudaStream_t>(stream));
+  }));
+}
+
 }  // namespace
 
 // Launch the forward over ndir directions: clusters of C CTAs of U units
@@ -475,14 +551,24 @@ extern "C" int asr_ln_lstm_fwd(const float* xpn_f, const float* xpn_b,
                                float* h_b, float* c_b, const float* h_init,
                                const float* c_init, int T, int B, int H,
                                int ndir, int C, int U, int R, void* stream) {
-  if (!valid_geometry(H, ndir, C, U))
-    return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(by_rows(R, [&](auto rows) {
-    return launch<decltype(rows)::value>(
-        xpn_f, xpn_b, mask, wh_f, wh_b, gh_f, gh_b, gc_f, gc_b, bc_f, bc_b,
-        h_f, c_f, h_b, c_b, h_init, c_init, T, B, H, ndir, C, U,
-        static_cast<cudaStream_t>(stream));
-  }));
+  return launch_form<float>(xpn_f, xpn_b, mask, wh_f, wh_b, gh_f, gh_b, gc_f,
+                            gc_b, bc_f, bc_b, h_f, c_f, h_b, c_b, h_init,
+                            c_init, T, B, H, ndir, C, U, R, stream);
+}
+
+// The bfloat16-weight form: asr_ln_lstm_fwd's arguments with wh_f / wh_b
+// bfloat16 [H, 4H].
+extern "C" int asr_ln_lstm_fwd_bf16(
+    const float* xpn_f, const float* xpn_b, const float* mask,
+    const __nv_bfloat16* wh_f, const __nv_bfloat16* wh_b, const float* gh_f,
+    const float* gh_b, const float* gc_f, const float* gc_b,
+    const float* bc_f, const float* bc_b, float* h_f, float* c_f, float* h_b,
+    float* c_b, const float* h_init, const float* c_init, int T, int B,
+    int H, int ndir, int C, int U, int R, void* stream) {
+  return launch_form<__nv_bfloat16>(xpn_f, xpn_b, mask, wh_f, wh_b, gh_f,
+                                    gh_b, gc_f, gc_b, bc_f, bc_b, h_f, c_f,
+                                    h_b, c_b, h_init, c_init, T, B, H, ndir,
+                                    C, U, R, stream);
 }
 
 // The forward's dynamic shared memory per CTA and the clusters the card
@@ -495,8 +581,8 @@ extern "C" int asr_ln_lstm_fwd_info(int B, int H, int ndir, int C, int U,
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[1];
   const cudaError_t err = by_rows(R, [&](auto rows) {
-    return configure<decltype(rows)::value>(B, H, ndir, C, U, &cfg, attr,
-                                            max_clusters);
+    return configure<float, decltype(rows)::value>(B, H, ndir, C, U, &cfg,
+                                                   attr, max_clusters);
   });
   if (err == cudaSuccess) *smem_bytes = static_cast<int>(cfg.dynamicSmemBytes);
   return static_cast<int>(err);

@@ -117,9 +117,12 @@ def ln_lstm_step(h_prev: torch.Tensor, c_prev: torch.Tensor,
     """One frame of the layer-norm LSTM in the kernel's split form: xpn_t
     [B, 4H] carries every additive term (``ln_x`` of ``x @ wx``, ``b`` and
     ``ln_h``'s bias), the h side adds ``xhat(h_prev @ wh) * gh`` per gate
-    block; gh [4H], gc and bc [H] (``ln_c``).  -> (h, c)."""
+    block; gh [4H], gc and bc [H] (``ln_c``).  The product is taken in
+    wh's dtype (:func:`dot`: with bfloat16 weights h_prev is rounded to
+    bfloat16 there, and only there: its statistics, c and the hold stay
+    float32 and take it unrounded).  -> (h, c)."""
     batch, hidden = h_prev.shape
-    xhat, _ = ln_stats(torch.matmul(h_prev, wh).view(batch, 4, hidden))
+    xhat, _ = ln_stats(dot(h_prev, wh).view(batch, 4, hidden))
     pre = xpn_t + (xhat * gh.view(4, hidden)).view(batch, 4 * hidden)
     i, f, g, o = pre.chunk(4, dim=-1)
     c = torch.sigmoid(f) * c_prev + torch.sigmoid(i) * torch.tanh(g)
@@ -158,12 +161,15 @@ class LayerNormLSTMCell(LSTMCell):
                 ) -> tuple[torch.Tensor, tuple[torch.Tensor, ...]]:
         """The streamed ``xpn`` [T, B, 4H] (``ln_x`` has no recurrent
         dependence, so it runs here over every frame, and every additive
-        term is folded in) and the resident ``(wh, ln_h.g, ln_c.g,
-        ln_c.b)``."""
+        term is folded in; float32: bfloat16 ``ln_x``, ``b`` and ``ln_h.b``
+        are applied to the float32 projection as they are) and the resident
+        ``(wh, ln_h.g, ln_c.g, ln_c.b)``, the three vectors as float32
+        (bfloat16 ones cast, as the JAX route's ``astype(jnp.float32)``:
+        their gradients are rounded to bfloat16 at the cast)."""
         xpn = (self._blockwise_ln(self.ln_x, self.input_proj(x)) + self.b
                + self.ln_h["b"])
-        return xpn.contiguous(), (self.wh, self.ln_h["g"], self.ln_c["g"],
-                                  self.ln_c["b"])
+        return xpn.contiguous(), (self.wh, *(v.float() for v in (
+            self.ln_h["g"], self.ln_c["g"], self.ln_c["b"])))
 
     def step(self, carry: tuple[torch.Tensor, torch.Tensor],
              xp_t: torch.Tensor, mask_t: torch.Tensor
@@ -171,7 +177,7 @@ class LayerNormLSTMCell(LSTMCell):
         """xp_t [B, 4H] is ``input_proj`` without the bias."""
         h_prev, c_prev = carry
         pre = (self._blockwise_ln(self.ln_x, xp_t)
-               + self._blockwise_ln(self.ln_h, torch.matmul(h_prev, self.wh))
+               + self._blockwise_ln(self.ln_h, dot(h_prev, self.wh))
                + self.b)
         i, f, g, o = pre.chunk(4, dim=-1)
         c = torch.sigmoid(f) * c_prev + torch.sigmoid(i) * torch.tanh(g)

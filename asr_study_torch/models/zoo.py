@@ -270,15 +270,11 @@ MODELS = {"graves2006": graves2006, "deep_blstm": deep_blstm,
           "deep_speech": deep_speech}
 
 
-# the cell kind each constructor builds its stack from (``train --bf16``
-# refuses the models whose cells have no bfloat16 kernels before it reads
-# the dataset)
+# the cell kind each constructor builds its stack from
 CELL_KINDS = {"graves2006": "lstm", "deep_blstm": "lstm", "deep_gru": "gru",
               "ln_blstm": "ln_lstm", "zoneout_blstm": "zoneout_lstm",
               "mi_blstm": "mi_lstm", "highway_blstm": "lstm",
               "residual_blstm": "lstm", "deep_speech": "lstm"}
-# the cell kinds whose recurrent kernels have bfloat16-weight forms
-BF16_CELLS = ("lstm", "gru", "zoneout_lstm", "mi_lstm")
 
 
 def build_model(name: str, params=None, num_classes: int = 27,

@@ -263,7 +263,7 @@ def bilstm(xp_f: torch.Tensor, xp_b: torch.Tensor, mask: torch.Tensor,
                 differentiable form.
     """
     check("bilstm", 4, mask, dict(xp_f=xp_f, xp_b=xp_b),
-          dict(wh_f=wh_f, wh_b=wh_b), {}, bf16=True)
+          dict(wh_f=wh_f, wh_b=wh_b), {})
     geo = _geometry("bilstm", xp_f, wh_f, 2)
     keep = residual and geo.design == "wide"
     if xp_f.device.type == "cpu":
@@ -291,7 +291,7 @@ def lstm(xp: torch.Tensor, mask: torch.Tensor, wh: torch.Tensor,
     given); h[T-1] and c[T-1] are the state it ends in, a masked frame
     repeating the one before.  :class:`LSTMFunction` is the differentiable
     form."""
-    check("lstm", 4, mask, dict(xp=xp), dict(wh=wh), {}, bf16=True)
+    check("lstm", 4, mask, dict(xp=xp), dict(wh=wh), {})
     check_carry("lstm", xp, 4, h0=h0, c0=c0)
     geo = _geometry("lstm", xp, wh, 1)
     keep = residual and geo.design == "wide"
@@ -423,8 +423,7 @@ def bilstm_bwd(xp_f: torch.Tensor, xp_b: torch.Tensor, mask: torch.Tensor,
     cotangents of h_f and h_b.  dxp is zero on masked frames."""
     check("bilstm_bwd", 4, mask, dict(xp_f=xp_f, xp_b=xp_b),
           dict(wh_f=wh_f, wh_b=wh_b),
-          dict(h_f=h_f, c_f=c_f, h_b=h_b, c_b=c_b, dh_f=dh_f, dh_b=dh_b),
-          bf16=True)
+          dict(h_f=h_f, c_f=c_f, h_b=h_b, c_b=c_b, dh_f=dh_f, dh_b=dh_b))
     geo = _geometry("bilstm_bwd", xp_f, wh_f, 2)
     check_res("bilstm_bwd", 4, geo, mask, dict(xp_f=xp_f, xp_b=xp_b), res,
               "g")
@@ -453,7 +452,7 @@ def lstm_bwd(xp: torch.Tensor, mask: torch.Tensor, wh: torch.Tensor,
     :func:`bilstm_bwd` for one direction (h, c and ``res`` as :func:`lstm`
     returned them with ``residual=True``)."""
     check("lstm_bwd", 4, mask, dict(xp=xp), dict(wh=wh),
-          dict(h=h, c=c, dh=dh), bf16=True)
+          dict(h=h, c=c, dh=dh))
     geo = _geometry("lstm_bwd", xp, wh, 1)
     check_res("lstm_bwd", 4, geo, mask, dict(xp=xp), res, "g")
     if xp.device.type == "cpu":

@@ -282,7 +282,7 @@ def bigru(xp_f: torch.Tensor, xp_b: torch.Tensor, mask: torch.Tensor,
                 :class:`BiGRUFunction` is the differentiable form.
     """
     check("bigru", 3, mask, dict(xp_f=xp_f, xp_b=xp_b),
-          dict(wh_f=wh_f, wh_b=wh_b), {}, bf16=True)
+          dict(wh_f=wh_f, wh_b=wh_b), {})
     geo = _geometry("bigru", xp_f, wh_f, 2)
     keep = residual and geo.design == "wide"
     if xp_f.device.type == "cpu":
@@ -308,7 +308,7 @@ def gru(xp: torch.Tensor, mask: torch.Tensor, wh: torch.Tensor,
     from (zeros where not given); h[T-1] is the one it ends in, a masked
     frame repeating the one before.  :class:`GRUFunction` is the
     differentiable form."""
-    check("gru", 3, mask, dict(xp=xp), dict(wh=wh), {}, bf16=True)
+    check("gru", 3, mask, dict(xp=xp), dict(wh=wh), {})
     check_carry("gru", xp, 3, h0=h0)
     geo = _geometry("gru", xp, wh, 1)
     keep = residual and geo.design == "wide"
@@ -440,7 +440,7 @@ def bigru_bwd(xp_f: torch.Tensor, xp_b: torch.Tensor, mask: torch.Tensor,
     is ``h_prev^T dhp``."""
     check("bigru_bwd", 3, mask, dict(xp_f=xp_f, xp_b=xp_b),
           dict(wh_f=wh_f, wh_b=wh_b),
-          dict(h_f=h_f, h_b=h_b, dh_f=dh_f, dh_b=dh_b), bf16=True)
+          dict(h_f=h_f, h_b=h_b, dh_f=dh_f, dh_b=dh_b))
     geo = _geometry("bigru_bwd", xp_f, wh_f, 2)
     check_res("bigru_bwd", 3, geo, mask, dict(xp_f=xp_f, xp_b=xp_b), res,
               "hg")
@@ -468,8 +468,7 @@ def gru_bwd(xp: torch.Tensor, mask: torch.Tensor, wh: torch.Tensor,
     """The cotangent walk of :func:`gru` -> (dxp, dhp), as in
     :func:`bigru_bwd` for one direction (h and ``res`` as :func:`gru`
     returned them with ``residual=True``)."""
-    check("gru_bwd", 3, mask, dict(xp=xp), dict(wh=wh), dict(h=h, dh=dh),
-          bf16=True)
+    check("gru_bwd", 3, mask, dict(xp=xp), dict(wh=wh), dict(h=h, dh=dh))
     geo = _geometry("gru_bwd", xp, wh, 1)
     check_res("gru_bwd", 3, geo, mask, dict(xp=xp), res, "hg")
     if xp.device.type == "cpu":

@@ -41,6 +41,26 @@ Masked frames hold h and c.  :func:`ln_lstm` and its plain twin start
 from a carried state ``h0``, ``c0`` [B, H] where given (zeros elsewhere),
 so a stream's chunks thread the state that the last frame of h and c hands
 on (``models/rnn.py`` ``RNNLayer.apply_streaming``).
+
+bfloat16 weights (``train --bf16``, the JAX trainer's ``compute_dtype``,
+under which ``pallas_bi_ln_lstm`` / ``pallas_ln_lstm`` run with a bfloat16
+wh): ``wh`` may be bfloat16 in every wrapper, both directions alike, while
+xpn, the mask, gh, gc, bc (float32 copies of bfloat16 ones), h, c and
+every cotangent stay float32.  The cluster design then launches its
+bfloat16-weight forms (the same sources, the ``_bf16`` entry points):
+h_prev is rounded to bfloat16 where it enters ``h_prev @ wh`` and only
+there (the statistics of that product, c and the hold stay float32, the
+hold taking h_prev unrounded), the backward recomputes the product the
+same way and rounds ``dhp`` before ``dhp @ wh^T``, as the JAX kernels'
+``_mm`` does, each product taken in float32; dpre and dcn come out
+unrounded.  The plain twins round the same way
+(:func:`~asr_study_torch.models.nn.dot`).  :func:`_ln_param_grads` follows
+the JAX ``_ln_param_grads``, whose einsum promotes the float32 h_prev with
+the bfloat16 wh: its hp is the float32 product of the UNROUNDED h_prev
+and wh's values, and ``dwh`` comes back bfloat16.  A bfloat16 call whose
+shape goes to the stream design raises
+(:data:`~asr_study_torch.ops.recurrence.BF16_ITEM`); ``by_design`` counts
+bfloat16 launches under ``cluster_bf16``.
 """
 
 from __future__ import annotations
@@ -49,11 +69,13 @@ import torch
 
 from asr_study_torch import _build
 from asr_study_torch.models.cells import ln_lstm_step, ln_stats
+from asr_study_torch.models.nn import dot
 from asr_study_torch.ops.bilstm import CLUSTER_SLICE, CLUSTER_THREADS
-from asr_study_torch.ops.recurrence import (STREAM_ROWS, Geometry, check,
-                                            check_carry, cluster_geometry,
-                                            cotangent, kernel_info, prev, r4,
-                                            stream)
+from asr_study_torch.ops.recurrence import (STREAM_ROWS, Geometry, bf16_design,
+                                            check, check_carry,
+                                            cluster_geometry, cotangent,
+                                            design_counts, design_key,
+                                            kernel_info, prev, r4, stream)
 
 
 def ln_cluster_smem(hidden: int, units: int, rows: int, ctas: int
@@ -148,8 +170,11 @@ def ln_lstm_plain(xpn, mask, wh, gh, gc, bc, h0=None, c0=None
     return _scan(xpn, mask, wh, gh, gc, bc, False, h0, c0)
 
 
-def _geometry(xpn: torch.Tensor, ndir: int) -> Geometry:
-    return ln_geometry(xpn.shape[2] // 4, xpn.shape[1], ndir)
+def _geometry(name: str, xpn: torch.Tensor, wh: torch.Tensor,
+              ndir: int) -> Geometry:
+    hidden, batch = xpn.shape[2] // 4, xpn.shape[1]
+    return bf16_design(name, ln_geometry(hidden, batch, ndir), wh, hidden,
+                       batch, wide=False)
 
 
 def launch_fwd(geo: Geometry, xpns: list, mask: torch.Tensor, whs: list,
@@ -171,14 +196,15 @@ def launch_fwd(geo: Geometry, xpns: list, mask: torch.Tensor, whs: list,
     ptrs = (*(a.data_ptr() for a in args),
             *(None if s is None else s.data_ptr() for s in (h0, c0)),
             t_steps, batch, hidden, ndir)
+    form = "_bf16" if whs[0].dtype == torch.bfloat16 else ""
     with torch.cuda.device(xpns[0].device):
         if geo.design == "cluster":
-            err = _build.lib().asr_ln_lstm_fwd(
+            err = getattr(_build.lib(), f"asr_ln_lstm_fwd{form}")(
                 *ptrs, geo.ctas, geo.units, geo.rows, stream(xpns[0]))
         else:
             err = _build.lib().asr_ln_lstm_stream_fwd(*ptrs, stream(xpns[0]))
     _build.check(err, f"{'bi_ln_lstm' if ndir == 2 else 'ln_lstm'}_fwd "
-                      f"({geo.design})")
+                      f"({geo.design}{form})")
     return outs
 
 
@@ -193,7 +219,8 @@ def bi_ln_lstm(xpn_f: torch.Tensor, xpn_b: torch.Tensor, mask: torch.Tensor,
     xpn_f, xpn_b: [T, B, 4H] float32, each direction's streamed input (see
                   the module docstring), both in forward time order
     mask:         [T, B, 1] float32, 1.0 on real frames
-    wh_f, wh_b:   [H, 4H] recurrent weights, gate order i, f, g, o
+    wh_f, wh_b:   [H, 4H] float32 (or both bfloat16) recurrent weights,
+                  gate order i, f, g, o
     gh_*:         [4H] ``ln_h`` gains;  gc_*, bc_*: [H] ``ln_c`` gain, bias
     ->            (h_f, c_f, h_b, c_b), each [T, B, H] in forward time
                   order, c before its LayerNorm; a masked frame repeats the
@@ -205,19 +232,19 @@ def bi_ln_lstm(xpn_f: torch.Tensor, xpn_b: torch.Tensor, mask: torch.Tensor,
           dict(gc_f=gc_f, gc_b=gc_b, bc_f=bc_f, bc_b=bc_b))
     args = (xpn_f, xpn_b, mask, wh_f, wh_b, gh_f, gh_b, gc_f, gc_b, bc_f,
             bc_b)
+    geo = _geometry("bi_ln_lstm", xpn_f, wh_f, 2)
     if xpn_f.device.type == "cpu":
         with torch.no_grad():
             return bi_ln_lstm_plain(*args)
-    geo = _geometry(xpn_f, 2)
     outs = launch_fwd(geo, [xpn_f, xpn_b], mask, [wh_f, wh_b], [gh_f, gh_b],
                       [gc_f, gc_b], [bc_f, bc_b])
     bi_ln_lstm.launches += 1
-    bi_ln_lstm.by_design[geo.design] += 1
+    bi_ln_lstm.by_design[design_key(geo, wh_f)] += 1
     return tuple(outs)
 
 
 bi_ln_lstm.launches = 0
-bi_ln_lstm.by_design = {"cluster": 0, "stream": 0}
+bi_ln_lstm.by_design = design_counts()
 
 
 def ln_lstm(xpn: torch.Tensor, mask: torch.Tensor, wh: torch.Tensor,
@@ -233,18 +260,18 @@ def ln_lstm(xpn: torch.Tensor, mask: torch.Tensor, wh: torch.Tensor,
     check("ln_lstm", 4, mask, dict(xpn=xpn), dict(wh=wh), {}, dict(gh=gh),
           dict(gc=gc, bc=bc))
     check_carry("ln_lstm", xpn, 4, h0=h0, c0=c0)
+    geo = _geometry("ln_lstm", xpn, wh, 1)
     if xpn.device.type == "cpu":
         with torch.no_grad():
             return ln_lstm_plain(xpn, mask, wh, gh, gc, bc, h0, c0)
-    geo = _geometry(xpn, 1)
     h, c = launch_fwd(geo, [xpn], mask, [wh], [gh], [gc], [bc], h0, c0)
     ln_lstm.launches += 1
-    ln_lstm.by_design[geo.design] += 1
+    ln_lstm.by_design[design_key(geo, wh)] += 1
     return h, c
 
 
 ln_lstm.launches = 0
-ln_lstm.by_design = {"cluster": 0, "stream": 0}
+ln_lstm.by_design = design_counts()
 
 
 def _ln_bwd(dy_g: torch.Tensor, xhat: torch.Tensor,
@@ -259,7 +286,10 @@ def _ln_bwd(dy_g: torch.Tensor, xhat: torch.Tensor,
 def _walk_bwd(xpn, mask, wh, gh, gc, bc, h, c, dh_out, reverse: bool
               ) -> tuple[torch.Tensor, torch.Tensor]:
     """One direction's cotangent walk (``_ln_row_bwd`` of the JAX package),
-    from the end of its own time order back -> (dpre, dcn)."""
+    from the end of its own time order back -> (dpre, dcn); both products
+    in wh's dtype (:func:`dot`: with bfloat16 weights the h side's
+    statistics are those of the rounded product, and dhp is rounded for
+    ``@ wh^T`` only), dpre and dcn unrounded."""
     t_steps, batch, gh4 = xpn.shape
     hidden = gh4 // 4
     hp_seq, cp_seq = prev(h, reverse), prev(c, reverse)
@@ -270,7 +300,7 @@ def _walk_bwd(xpn, mask, wh, gh, gc, bc, h, c, dh_out, reverse: bool
     gh_g = gh.view(4, hidden)
     for t in (range(t_steps) if reverse else reversed(range(t_steps))):
         m = mask[t] > 0                                      # [B, 1]
-        xhat, rstd = ln_stats((hp_seq[t] @ wh).view(batch, 4, hidden))
+        xhat, rstd = ln_stats(dot(hp_seq[t], wh).view(batch, 4, hidden))
         pre = xpn[t] + (xhat * gh_g).view(batch, gh4)
         i, f, g, o = pre.chunk(4, dim=-1)
         i, f, g, o = (torch.sigmoid(i), torch.sigmoid(f), torch.tanh(g),
@@ -290,7 +320,8 @@ def _walk_bwd(xpn, mask, wh, gh, gc, bc, h, c, dh_out, reverse: bool
         dpre_seq[t] = dpre
         dhp = _ln_bwd(dpre.view(batch, 4, hidden) * gh_g, xhat, rstd)
         # held frames pass h and c (and their cotangents) straight on
-        dh_next = dhp.view(batch, gh4) @ wh.t() + torch.where(m, 0.0, dh)
+        dh_next = (dot(dhp.view(batch, gh4), wh.t())
+                   + torch.where(m, 0.0, dh))
         dc_next = torch.where(m, dc * f, dc_next)
     return dpre_seq, dcn_seq
 
@@ -327,10 +358,11 @@ def launch_bwd(geo: Geometry, xpns: list, mask: torch.Tensor, whs: list,
     vecs = (ghs[0], ghs[-1], gcs[0], gcs[-1], bcs[0], bcs[-1], hs[0], cs[0],
             hs[-1], cs[-1], dhs[0], dhs[-1], outs[0], outs[1], outs[-2],
             outs[-1])
+    form = "_bf16" if whs[0].dtype == torch.bfloat16 else ""
     with torch.cuda.device(xpns[0].device):
         if geo.design == "cluster":
             args = (xpns[0], xpns[-1], mask, whs[0], whs[-1], *vecs)
-            err = _build.lib().asr_ln_lstm_bwd(
+            err = getattr(_build.lib(), f"asr_ln_lstm_bwd{form}")(
                 *(a.data_ptr() for a in args), t_steps, batch, hidden, ndir,
                 geo.ctas, geo.units, geo.rows, stream(xpns[0]))
         else:
@@ -341,7 +373,7 @@ def launch_bwd(geo: Geometry, xpns: list, mask: torch.Tensor, whs: list,
                 *(a.data_ptr() for a in args), t_steps, batch, hidden, ndir,
                 stream(xpns[0]))
     _build.check(err, f"{'bi_ln_lstm' if ndir == 2 else 'ln_lstm'}_bwd "
-                      f"({geo.design})")
+                      f"({geo.design}{form})")
     return outs
 
 
@@ -360,22 +392,22 @@ def bi_ln_lstm_bwd(xpn_f, xpn_b, mask, wh_f, wh_b, gh_f, gh_b, gc_f, gc_b,
           dict(h_f=h_f, c_f=c_f, h_b=h_b, c_b=c_b, dh_f=dh_f, dh_b=dh_b),
           dict(gh_f=gh_f, gh_b=gh_b),
           dict(gc_f=gc_f, gc_b=gc_b, bc_f=bc_f, bc_b=bc_b))
+    geo = _geometry("bi_ln_lstm_bwd", xpn_f, wh_f, 2)
     if xpn_f.device.type == "cpu":
         with torch.no_grad():
             return bi_ln_lstm_bwd_plain(xpn_f, xpn_b, mask, wh_f, wh_b, gh_f,
                                         gh_b, gc_f, gc_b, bc_f, bc_b, h_f,
                                         c_f, h_b, c_b, dh_f, dh_b)
-    geo = _geometry(xpn_f, 2)
     outs = launch_bwd(geo, [xpn_f, xpn_b], mask, [wh_f, wh_b], [gh_f, gh_b],
                       [gc_f, gc_b], [bc_f, bc_b], [h_f, h_b], [c_f, c_b],
                       [dh_f, dh_b])
     bi_ln_lstm_bwd.launches += 1
-    bi_ln_lstm_bwd.by_design[geo.design] += 1
+    bi_ln_lstm_bwd.by_design[design_key(geo, wh_f)] += 1
     return tuple(outs)
 
 
 bi_ln_lstm_bwd.launches = 0
-bi_ln_lstm_bwd.by_design = {"cluster": 0, "stream": 0}
+bi_ln_lstm_bwd.by_design = design_counts()
 
 
 def ln_lstm_bwd(xpn, mask, wh, gh, gc, bc, h, c, dh
@@ -384,19 +416,19 @@ def ln_lstm_bwd(xpn, mask, wh, gh, gc, bc, h, c, dh
     :func:`bi_ln_lstm_bwd` for one direction."""
     check("ln_lstm_bwd", 4, mask, dict(xpn=xpn), dict(wh=wh),
           dict(h=h, c=c, dh=dh), dict(gh=gh), dict(gc=gc, bc=bc))
+    geo = _geometry("ln_lstm_bwd", xpn, wh, 1)
     if xpn.device.type == "cpu":
         with torch.no_grad():
             return ln_lstm_bwd_plain(xpn, mask, wh, gh, gc, bc, h, c, dh)
-    geo = _geometry(xpn, 1)
     dpre, dcn = launch_bwd(geo, [xpn], mask, [wh], [gh], [gc], [bc], [h],
                            [c], [dh])
     ln_lstm_bwd.launches += 1
-    ln_lstm_bwd.by_design[geo.design] += 1
+    ln_lstm_bwd.by_design[design_key(geo, wh)] += 1
     return dpre, dcn
 
 
 ln_lstm_bwd.launches = 0
-ln_lstm_bwd.by_design = {"cluster": 0, "stream": 0}
+ln_lstm_bwd.by_design = design_counts()
 
 
 def _ln_param_grads(dpre, dcn, h, c, wh, gh, reverse: bool
@@ -405,14 +437,17 @@ def _ln_param_grads(dpre, dcn, h, c, wh, gh, reverse: bool
     (``pallas_ln_lstm.py`` ``_ln_param_grads``): one ``h_prev @ wh`` and its
     statistics, ``dgh = sum dpre * xhat_h``, ``dwh = h_prev^T dhp`` with
     ``dhp`` the LN backward of ``dpre * gh`` (not ``dpre`` itself), and
-    ``dgc = sum dcn * xhat(c)``, ``dbc = sum dcn``."""
+    ``dgc = sum dcn * xhat(c)``, ``dbc = sum dcn``.  Both products are
+    float32 on the unrounded h_prev, a bfloat16 wh taken at its values (the
+    JAX einsum's promotion, not the kernels' rounded product), and dwh is
+    cast to wh's dtype."""
     hidden = h.shape[-1]
     h_prev = prev(h, reverse).reshape(-1, hidden)
-    xhat_h, rstd_h = ln_stats((h_prev @ wh).view(-1, 4, hidden))
+    xhat_h, rstd_h = ln_stats((h_prev @ wh.float()).view(-1, 4, hidden))
     dpre_g = dpre.reshape(-1, 4, hidden)
     dgh = (dpre_g * xhat_h).sum(dim=0).reshape(4 * hidden)
     dhp = _ln_bwd(dpre_g * gh.view(4, hidden), xhat_h, rstd_h)
-    dwh = h_prev.t() @ dhp.reshape(-1, 4 * hidden)
+    dwh = (h_prev.t() @ dhp.reshape(-1, 4 * hidden)).to(wh.dtype)
     xhat_c, _ = ln_stats(c.reshape(-1, hidden))
     dcn = dcn.reshape(-1, hidden)
     return dwh, dgh, (dcn * xhat_c).sum(dim=0), dcn.sum(dim=0)

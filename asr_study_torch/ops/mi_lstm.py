@@ -227,7 +227,7 @@ def bi_mi_lstm(xp_f: torch.Tensor, xp_b: torch.Tensor, mask: torch.Tensor,
           dict(wh_f=wh_f, wh_b=wh_b), {},
           dict(alpha_f=alpha_f, alpha_b=alpha_b, beta1_f=beta1_f,
                beta1_b=beta1_b, beta2_f=beta2_f, beta2_b=beta2_b, b_f=b_f,
-               b_b=b_b), bf16=True)
+               b_b=b_b))
     args = (xp_f, xp_b, mask, wh_f, wh_b, alpha_f, alpha_b, beta1_f,
             beta1_b, beta2_f, beta2_b, b_f, b_b)
     geo = _geometry("bi_mi_lstm", xp_f, wh_f, 2)
@@ -256,7 +256,7 @@ def mi_lstm(xp: torch.Tensor, mask: torch.Tensor, wh: torch.Tensor,
     (zeros where not given); h[T-1] and c[T-1] are the state it ends in.
     :class:`MILSTMFunction` is the differentiable form."""
     check("mi_lstm", 4, mask, dict(xp=xp), dict(wh=wh), {},
-          dict(alpha=alpha, beta1=beta1, beta2=beta2, b=b), bf16=True)
+          dict(alpha=alpha, beta1=beta1, beta2=beta2, b=b))
     check_carry("mi_lstm", xp, 4, h0=h0, c0=c0)
     geo = _geometry("mi_lstm", xp, wh, 1)
     if xp.device.type == "cpu":
@@ -372,7 +372,7 @@ def bi_mi_lstm_bwd(xp_f, xp_b, mask, wh_f, wh_b, alpha_f, alpha_b, beta1_f,
           dict(h_f=h_f, c_f=c_f, h_b=h_b, c_b=c_b, dh_f=dh_f, dh_b=dh_b),
           dict(alpha_f=alpha_f, alpha_b=alpha_b, beta1_f=beta1_f,
                beta1_b=beta1_b, beta2_f=beta2_f, beta2_b=beta2_b, b_f=b_f,
-               b_b=b_b), bf16=True)
+               b_b=b_b))
     vecs = [alpha_f, alpha_b, beta1_f, beta1_b, beta2_f, beta2_b, b_f, b_b]
     geo = _geometry("bi_mi_lstm_bwd", xp_f, wh_f, 2)
     if xp_f.device.type == "cpu":
@@ -396,7 +396,7 @@ def mi_lstm_bwd(xp, mask, wh, alpha, beta1, beta2, b, h, c, dh
     :func:`bi_mi_lstm_bwd` for one direction."""
     check("mi_lstm_bwd", 4, mask, dict(xp=xp), dict(wh=wh),
           dict(h=h, c=c, dh=dh),
-          dict(alpha=alpha, beta1=beta1, beta2=beta2, b=b), bf16=True)
+          dict(alpha=alpha, beta1=beta1, beta2=beta2, b=b))
     geo = _geometry("mi_lstm_bwd", xp, wh, 1)
     if xp.device.type == "cpu":
         with torch.no_grad():

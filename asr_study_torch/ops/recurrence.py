@@ -53,8 +53,8 @@ WIDE_ROWS = (4, 8, 16)
 CLUSTER_MAX_HIDDEN = 256     # the widest H the cluster design takes
 
 # where bf16 compute (the JAX trainer's compute_dtype, train --bf16) waits
-# for the recurrences that have no bfloat16-weight kernels yet: the
-# layer-norm LSTM's, and every stream design
+# for the designs that have no bfloat16-weight kernels yet: every stream
+# design
 BF16_ITEM = "ROADMAP queue A item 5b"
 
 
@@ -148,9 +148,9 @@ def design_key(geo: Geometry, wh: torch.Tensor) -> str:
 
 
 def design_counts() -> dict:
-    """A fresh ``by_design`` of the LSTM, GRU, zoneout and MI LSTM
-    wrappers (the last two have no wide design: their wide counts stay
-    0)."""
+    """A fresh ``by_design`` of the LSTM, GRU, layer-norm, zoneout and MI
+    LSTM wrappers (the last three have no wide design: their wide counts
+    stay 0)."""
     return {"cluster": 0, "wide": 0, "stream": 0, "cluster_bf16": 0,
             "wide_bf16": 0}
 
@@ -170,14 +170,12 @@ def kernel_info(name: str, geo: Geometry, batch: int, hidden: int
 
 def check(name: str, gates: int, mask: torch.Tensor, xps: dict, whs: dict,
           seqs: dict, gate_vecs: dict | None = None,
-          unit_vecs: dict | None = None, bf16: bool = False) -> None:
+          unit_vecs: dict | None = None) -> None:
     """Shapes [T, B, G*H] for ``xps``, [T, B, 1] for the mask, [H, G*H] for
     ``whs``, [T, B, H] for ``seqs``, [G*H] for ``gate_vecs`` and [H] for
-    ``unit_vecs`` (dicts name -> tensor, G = ``gates``); float32, one
-    device, contiguous on CUDA.  With ``bf16`` the ``whs`` may instead all
-    be bfloat16 (the ops that have bfloat16-weight kernels); elsewhere
-    bfloat16 weights are refused naming :data:`BF16_ITEM`.  Raises
-    ValueError."""
+    ``unit_vecs`` (dicts name -> tensor, G = ``gates``); float32 (or the
+    ``whs`` all bfloat16: the bfloat16-weight forms), one device,
+    contiguous on CUDA.  Raises ValueError."""
     first_name, first = next(iter(xps.items()))
     if first.dim() != 3 or first.shape[2] % gates:
         raise ValueError(f"{name}: {first_name} must be [T, B, {gates}H], "
@@ -193,9 +191,6 @@ def check(name: str, gates: int, mask: torch.Tensor, xps: dict, whs: dict,
         **{k: (v, (hidden,)) for k, v in (unit_vecs or {}).items()},
     }
     wh_dtype = next(iter(whs.values())).dtype if whs else torch.float32
-    if wh_dtype == torch.bfloat16 and not bf16:
-        raise ValueError(f"{name}: bfloat16 weights have no kernel in this "
-                         f"recurrence yet ({BF16_ITEM}); give float32")
     if wh_dtype != torch.bfloat16:
         wh_dtype = torch.float32
     for arg, (t, shape) in want.items():

@@ -224,7 +224,7 @@ def bi_zoneout_lstm(xp_f: torch.Tensor, xp_b: torch.Tensor,
     """
     check("bi_zoneout_lstm", 4, mask, dict(xp_f=xp_f, xp_b=xp_b),
           dict(wh_f=wh_f, wh_b=wh_b),
-          dict(zh_f=zh_f, zh_b=zh_b, zc_f=zc_f, zc_b=zc_b), bf16=True)
+          dict(zh_f=zh_f, zh_b=zh_b, zc_f=zc_f, zc_b=zc_b))
     args = (xp_f, xp_b, mask, zh_f, zh_b, zc_f, zc_b, wh_f, wh_b)
     geo = _geometry("bi_zoneout_lstm", xp_f, wh_f, 2)
     if xp_f.device.type == "cpu":
@@ -253,7 +253,7 @@ def zoneout_lstm(xp: torch.Tensor, mask: torch.Tensor, zh: torch.Tensor,
     where not given); h[T-1] and c[T-1] are the state it ends in.
     :class:`ZoneoutLSTMFunction` is the differentiable form."""
     check("zoneout_lstm", 4, mask, dict(xp=xp), dict(wh=wh),
-          dict(zh=zh, zc=zc), bf16=True)
+          dict(zh=zh, zc=zc))
     check_carry("zoneout_lstm", xp, 4, h0=h0, c0=c0)
     geo = _geometry("zoneout_lstm", xp, wh, 1)
     if xp.device.type == "cpu":
@@ -359,7 +359,7 @@ def bi_zoneout_lstm_bwd(xp_f, xp_b, mask, zh_f, zh_b, zc_f, zc_b, wh_f,
     check("bi_zoneout_lstm_bwd", 4, mask, dict(xp_f=xp_f, xp_b=xp_b),
           dict(wh_f=wh_f, wh_b=wh_b),
           dict(zh_f=zh_f, zh_b=zh_b, zc_f=zc_f, zc_b=zc_b, h_f=h_f, c_f=c_f,
-               h_b=h_b, c_b=c_b, dh_f=dh_f, dh_b=dh_b), bf16=True)
+               h_b=h_b, c_b=c_b, dh_f=dh_f, dh_b=dh_b))
     geo = _geometry("bi_zoneout_lstm_bwd", xp_f, wh_f, 2)
     if xp_f.device.type == "cpu":
         with torch.no_grad():
@@ -382,7 +382,7 @@ def zoneout_lstm_bwd(xp, mask, zh, zc, wh, h, c, dh) -> torch.Tensor:
     """The cotangent scan of :func:`zoneout_lstm` -> dxp [T, B, 4H], as in
     :func:`bi_zoneout_lstm_bwd` for one direction."""
     check("zoneout_lstm_bwd", 4, mask, dict(xp=xp), dict(wh=wh),
-          dict(zh=zh, zc=zc, h=h, c=c, dh=dh), bf16=True)
+          dict(zh=zh, zc=zc, h=h, c=c, dh=dh))
     geo = _geometry("zoneout_lstm_bwd", xp, wh, 1)
     if xp.device.type == "cpu":
         with torch.no_grad():

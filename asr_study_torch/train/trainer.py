@@ -54,9 +54,9 @@ result (``models.nn.dot``, the recurrent kernels' bfloat16-weight forms)
 while h, c, dropout, the skips and the CTC loss stay float32.  The cast's
 autograd hands the float32 master weights gradients rounded to bfloat16;
 the clip, the optimizer and its state, the eval step and checkpoints stay
-float32.  Only models built from ``LSTMCell``, ``GRUCell``,
-``ZoneoutLSTMCell`` or ``MILSTMCell`` have the kernels for it; the
-layer-norm LSTM waits on :data:`BF16_ITEM`.
+float32.  Every cell of the port has the kernels for it (:data:`BF16_CELLS`);
+a model holding another subclass of ``LSTMCell`` or ``GRUCell`` refuses it,
+naming :data:`BF16_ITEM`.
 
 Data parallelism (``Trainer(group=)``, ``train --num_devices N``) is the
 JAX trainer's ``shard_map`` over a ``data`` mesh, one process a rank
@@ -79,7 +79,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from asr_study_torch.models.cells import (GRUCell, LSTMCell, MILSTMCell,
+from asr_study_torch.models.cells import (GRUCell, LayerNormLSTMCell,
+                                          LSTMCell, MILSTMCell,
                                           ZoneoutLSTMCell)
 from asr_study_torch.ops import ctc
 from asr_study_torch.ops.metrics import edit_distance
@@ -90,7 +91,8 @@ from asr_study_torch.ops.recurrence import BF16_ITEM
 
 OPTIMIZERS = ("adam", "adamw", "rmsprop", "sgd")
 # the cells whose recurrent kernels have bfloat16-weight forms
-BF16_CELLS = (LSTMCell, GRUCell, ZoneoutLSTMCell, MILSTMCell)
+BF16_CELLS = (LSTMCell, GRUCell, LayerNormLSTMCell, ZoneoutLSTMCell,
+              MILSTMCell)
 
 
 class RMSprop(torch.optim.Optimizer):

@@ -305,6 +305,20 @@ DWH_RTOL = 1e-4
 BF16_ATOL = 5e-3
 BF16_RTOL = 5e-3
 BF16_DWH_FRAC = 1e-2
+# the layer-norm LSTM's bfloat16 backward.  It scales dhp by the rstd of a
+# gate block of h_prev @ wh, so a bfloat16 rounding of dhp that flips
+# between two summation orders moves the next cotangent by up to a percent
+# of its norm, and the chain carries that on: the plain twin parts from
+# itself with its products summed in float64 parts by up to 4.2e-2 of a
+# (frame, row)'s norm over T=LN_CHECK_T and 1.0e-2 of dwh's max at H=256,
+# B=32 (tests/test_torch_bf16_ln.py, test_ln_bf16_backward_spread_*);
+# over T=512 the kernels and the twins part by as much as a row's norm
+# (printed by check_bf16_kernels).  So its
+# dpre and dcn are held per (frame, row) on the first LN_CHECK_T steps of
+# each chain within BF16_ATOL + LN_BF16_ROW_RTOL * ||plain||, dwh within
+# LN_BF16_DWH_FRAC of its max there; the rest of a chain is printed.
+LN_BF16_ROW_RTOL = 0.1
+LN_BF16_DWH_FRAC = 3e-2
 # - ctc_alpha / ctc_beta: alpha and gamma are log-likelihoods reaching
 #   about -2000, where one fp32 ulp is 1.2e-4: |kernel - plain| <= ATOL +
 #   RTOL*|plain| on entries above the floor; entries at LOG_EPS must be at
@@ -2856,6 +2870,9 @@ def features_stage_split(card: str, feat, flat: torch.Tensor,
 # most, one thread each (the H100 machines this runs on have 8 cores)
 PLAIN_WORKERS = 8
 _plain_model: dict = {}
+# torch's threads in this process (one a core): CpuChecks' chaotic held
+# steps run in as many
+HELD_THREADS = torch.get_num_threads()
 
 
 def plain_workers(jobs: int) -> int:
@@ -3222,6 +3239,14 @@ KERNELS = {
     "bi_mi_lstm_bwd_bf16": ("mi_lstm_bwd.cu", "ops/pallas_bi_mi_lstm.py:81"),
     "mi_lstm_fwd_bf16": ("mi_lstm_fwd.cu", "ops/pallas_mi_lstm.py:59"),
     "mi_lstm_bwd_bf16": ("mi_lstm_bwd.cu", "ops/pallas_mi_lstm.py:132"),
+    # the layer-norm LSTM's bfloat16-weight forms: its cluster kernels on a
+    # bfloat16 wh, the same sources; both directions' rows
+    "bi_ln_lstm_fwd_bf16": ("ln_lstm_fwd.cu",
+                            "ops/pallas_bi_ln_lstm.py:39"),
+    "bi_ln_lstm_bwd_bf16": ("ln_lstm_bwd.cu",
+                            "ops/pallas_bi_ln_lstm.py:81"),
+    "ln_lstm_fwd_bf16": ("ln_lstm_fwd.cu", "ops/pallas_ln_lstm.py:106"),
+    "ln_lstm_bwd_bf16": ("ln_lstm_bwd.cu", "ops/pallas_ln_lstm.py:198"),
 }
 # kernel line row of the wide design -> the wrapper that launches it
 WIDE_ROWS = {"bilstm_fwd_wide": "bilstm_fwd", "bilstm_bwd_wide": "bilstm_bwd",
@@ -3242,7 +3267,8 @@ BF16_ROWS = {**{f"{w}{wide}_bf16": (w, ("wide" if wide else "cluster")
                 for w in ("bi_zoneout_lstm_fwd", "bi_zoneout_lstm_bwd",
                           "zoneout_lstm_fwd", "zoneout_lstm_bwd",
                           "bi_mi_lstm_fwd", "bi_mi_lstm_bwd", "mi_lstm_fwd",
-                          "mi_lstm_bwd")}}
+                          "mi_lstm_bwd", "bi_ln_lstm_fwd", "bi_ln_lstm_bwd",
+                          "ln_lstm_fwd", "ln_lstm_bwd")}}
 
 # training paths: label -> (zoo model, its hparams, forward and backward
 # kernel of its recurrence, recurrent layers, what it is); the LN paths'
@@ -3479,10 +3505,155 @@ def check_reproducible(path: str, make, spec, batch, dev,
     require(same, f"{path}: two identical train steps differ")
 
 
-def training_slice(dev: torch.device, card: str, path: str = "deep_blstm",
-                   with_fit: bool = True) -> dict:
+def train_host() -> tuple:
+    """The training paths' batch (config-3 shapes, from SEED) as numpy
+    arrays: features [B, T, F], frame lengths, labels, label lengths,
+    weights."""
+    rng = np.random.RandomState(SEED)
+    return (rng.randn(TRAIN_B, TRAIN_T, FEATS).astype(np.float32),
+            np.full(TRAIN_B, TRAIN_T, np.int32),
+            rng.randint(0, NUM_CLASSES, (TRAIN_B, TRAIN_L)).astype(np.int32),
+            np.full(TRAIN_B, TRAIN_L, np.int32),
+            np.ones(TRAIN_B, np.float32))
+
+
+def cpu_train_step(path: str, host: tuple, mix: list,
+                   threads: int | None = None) -> tuple:
+    """The first train step of one of TRAIN_PATHS on the CPU (the plain
+    path), in a worker process (CpuChecks): the path's model from SEED,
+    adam 1e-4 clip 400, the batch ``host`` (numpy arrays), the zoneout mix
+    weights ``mix`` (the card's, pairs of arrays) replayed, in ``threads``
+    torch threads where given -> (loss, grad_norm, {parameter: gradient},
+    seconds)."""
+    from asr_study_torch.models.zoo import build_model
+    from asr_study_torch.train.trainer import Trainer, make_optimizer
+
+    t0 = time.perf_counter()
+    before = torch.get_num_threads()
+    if threads is not None:
+        torch.set_num_threads(threads)
+    model_name, hp = TRAIN_PATHS[path][:2]
+    model = build_model(model_name, hp, num_classes=NUM_CLASSES,
+                        input_dim=FEATS,
+                        generator=torch.Generator().manual_seed(SEED),
+                        device="cpu")
+    trainer = Trainer(model, make_optimizer("adam", 1e-4, 400.0))
+    tap = MixTap()
+    tap.drawn = [tuple(map(torch.from_numpy, z)) for z in mix]
+    try:
+        with tap.replay():
+            _, m = trainer.train_step(trainer.init_state(),
+                                      *map(torch.from_numpy, host),
+                                      torch.Generator().manual_seed(SEED))
+    finally:
+        torch.set_num_threads(before)
+    return (float(m["loss"]), float(m["grad_norm"]),
+            {n: p.grad.numpy() for n, p in model.named_parameters()},
+            time.perf_counter() - t0)
+
+
+class CpuChecks:
+    """The training paths' steps on the CPU (cpu_train_step), in spawned
+    processes of one thread each, one core left to the process that drives
+    the card: a path hands in its jobs and goes on, and ``finish`` (after
+    the last path) waits for each result and runs its check.  A chaotic
+    path's held step runs in as many threads as this process has
+    (HELD_THREADS), the summation order its check has always had: that
+    step's plain path parts from itself by more than STEP_GRAD_RTOL
+    between one thread and eight (ln_blstm at T=LN_CHECK_T: 1.58e-3 of
+    ln_c.b's gradient in one thread, 2.36e-4 in eight)."""
+
+    def __init__(self, jobs: int):
+        import concurrent.futures
+        import multiprocessing
+
+        self.workers = max(1, plain_workers(jobs) - 1)
+        self.pool = concurrent.futures.ProcessPoolExecutor(
+            self.workers, mp_context=multiprocessing.get_context("spawn"),
+            initializer=plain_worker_init)
+        self.pending = []
+        self.t0 = time.perf_counter()
+
+    def submit(self, job: tuple, check) -> None:
+        """cpu_train_step(*job), its result handed to ``check``."""
+        self.pending.append((self.pool.submit(cpu_train_step, *job), check))
+
+    def finish(self) -> None:
+        t_wait = time.perf_counter()
+        try:
+            results = [(f.result(), check) for f, check in self.pending]
+        finally:
+            self.pool.shutdown(wait=True, cancel_futures=True)
+        now = time.perf_counter()
+        cpu_s = sum(r[3] for r, _ in results)
+        PARTS["training paths' CPU steps, waited for"] = now - t_wait
+        print(f"the training paths' steps on the CPU: {len(results)} in "
+              f"{self.workers} worker processes of one thread, {cpu_s:.1f} s "
+              f"of steps in {now - self.t0:.1f} s of wall time beside the "
+              f"card's work, {now - t_wait:.1f} s of it waited for after "
+              f"the last path")
+        for r, check in results:
+            check(r)
+
+
+def cpu_steps_turns(turns: int = 2) -> int:
+    """``python3 chip_smoke.py cpu_steps_turns``: the training paths' steps
+    on the CPU (the jobs training_slice hands CpuChecks: every path's first
+    step at full size, the chaotic paths' at LN_CHECK_T too; the zoneout
+    paths' mix weights drawn here, Bernoulli(0.9) as on the card) timed in
+    their two placements, in turns: one after another in this process, its
+    threads on every core (the placement before CpuChecks), and in
+    CpuChecks' worker processes.  Host work only: no card is needed; the
+    wall times vary with the machine's load, so compare them within one
+    run."""
+    rng = np.random.RandomState(SEED + 1)
+    host = train_host()
+    n_lab = LN_CHECK_T // 4
+    short = (host[0][:, :LN_CHECK_T], np.minimum(host[1], LN_CHECK_T),
+             host[2][:, :n_lab], np.minimum(host[3], n_lab), host[4])
+    jobs = []
+    for path, (model_name, _, _, _, layers, _) in TRAIN_PATHS.items():
+        pairs = (layers * (1 if "uni" in path else 2)
+                 if model_name == "zoneout_blstm" else 0)
+        mix = [tuple((rng.rand(TRAIN_T, TRAIN_B, HIDDEN) < 0.9).astype(
+            np.float32) for _ in range(2)) for _ in range(pairs)]
+        jobs.append((path, host, mix))
+        if path in CHAOTIC:
+            jobs.append((path, short, mix, HELD_THREADS))
+    print(f"{len(jobs)} CPU steps of the training paths, {turns} turns of "
+          f"each placement (in process, then workers, then the reverse)")
+    walls = {"in process": [], "workers": []}
+    order = ["in process", "workers"]
+    for turn in range(turns):
+        for where in (order if turn % 2 == 0 else order[::-1]):
+            t0 = time.perf_counter()
+            if where == "in process":
+                steps = [cpu_train_step(*job[:3])[3] for job in jobs]
+            else:
+                checks = CpuChecks(len(jobs))
+                for job in jobs:
+                    checks.submit(job, lambda r: None)
+                steps = [f.result()[3] for f, _ in checks.pending]
+                checks.pool.shutdown(wait=True)
+            walls[where].append(time.perf_counter() - t0)
+            print(f"turn {turn}, {where}: {walls[where][-1]:.1f} s wall, "
+                  f"steps {sum(steps):.1f} s in all (longest "
+                  f"{max(steps):.1f} s), torch threads here "
+                  f"{torch.get_num_threads()}, cores "
+                  f"{len(os.sched_getaffinity(0))}")
+    print("mean wall s: " + "; ".join(f"{k} {np.mean(v):.1f}"
+                                       for k, v in walls.items()))
+    return 0
+
+
+def training_slice(dev: torch.device, card: str, path: str,
+                   checks: CpuChecks, with_fit: bool = True) -> dict:
     """Phases 6 and 7 for one of TRAIN_PATHS: the config-3 training shapes
-    through Trainer (and, ``with_fit``, fit with a checkpoint)."""
+    through Trainer (and, ``with_fit``, fit with a checkpoint); the first
+    step on the CPU handed to ``checks`` -> the launches, and ``time``,
+    which times the path's steps (train_timings) once ``checks`` has
+    finished: the workers share the host, and steps timed beside them
+    ran slower."""
     from asr_study_torch.models.zoo import build_model
     from asr_study_torch.train.trainer import Trainer, make_optimizer
 
@@ -3499,16 +3670,9 @@ def training_slice(dev: torch.device, card: str, path: str = "deep_blstm",
                            device=device)
 
     spec = make_optimizer("adam", 1e-4, 400.0)
-    rng = np.random.RandomState(SEED)
-    host = (rng.randn(TRAIN_B, TRAIN_T, FEATS).astype(np.float32),
-            np.full(TRAIN_B, TRAIN_T, np.int32),
-            rng.randint(0, NUM_CLASSES, (TRAIN_B, TRAIN_L)).astype(np.int32),
-            np.full(TRAIN_B, TRAIN_L, np.int32),
-            np.ones(TRAIN_B, np.float32))
-    batch_cpu = [torch.from_numpy(a) for a in host]
-    batch = [a.to(dev) for a in batch_cpu]
+    host = train_host()
+    batch = [torch.from_numpy(a).to(dev) for a in host]
     model = make(dev)
-    model_cpu = make("cpu")
     trainer = Trainer(model, spec)
     state = trainer.init_state()
     # draws in train mode (the zoneout mix weights) come from the card
@@ -3544,28 +3708,28 @@ def training_slice(dev: torch.device, card: str, path: str = "deep_blstm",
     require(float(losses[-1]) < float(losses[0]), "train loss did not fall")
     check_reproducible(path, make, spec, batch, dev)
 
-    # the first step again on the CPU: the plain path, the same weights
+    # the first step again on the CPU: the plain path, the same weights,
+    # in a worker process (CpuChecks) while the card goes on
     check_on = "the first step"
     if path in CHAOTIC:
         # the full-size first step on the CPU too: printed, not held
-        full = Trainer(make("cpu"), spec)
-        _, m_full = full.train_step(full.init_state(), *batch_cpu)
-        print(f"{path} train, the first step at full size, kernel path on "
-              f"the card vs plain path on the CPU (not held: a chaotic "
-              f"recurrence): loss {loss_1:.4f} vs "
-              f"{float(m_full['loss']):.4f}, rel "
-              f"{abs(loss_1 / float(m_full['loss']) - 1):.3e}; grad_norm "
-              f"{gnorm_1:.4g} vs {float(m_full['grad_norm']):.4g}")
+        def printed(r, loss_1=loss_1, gnorm_1=gnorm_1):
+            print(f"{path} train, the first step at full size, kernel path "
+                  f"on the card vs plain path on the CPU (not held: a "
+                  f"chaotic recurrence; {r[3]:.1f} s there): loss "
+                  f"{loss_1:.4f} vs {r[0]:.4f}, rel "
+                  f"{abs(loss_1 / r[0] - 1):.3e}; grad_norm {gnorm_1:.4g} "
+                  f"vs {r[1]:.4g}")
+
+        checks.submit((path, host, []), printed)
         # one step from the same weights on the batch cut to LN_CHECK_T
         # frames and LN_CHECK_T // 4 labels, on the card and on the CPU
         n_lab = LN_CHECK_T // 4
-        batch_cpu = [batch_cpu[0][:, :LN_CHECK_T],
-                     torch.clamp(batch_cpu[1], max=LN_CHECK_T),
-                     batch_cpu[2][:, :n_lab],
-                     torch.clamp(batch_cpu[3], max=n_lab), batch_cpu[4]]
+        host = (host[0][:, :LN_CHECK_T], np.minimum(host[1], LN_CHECK_T),
+                host[2][:, :n_lab], np.minimum(host[3], n_lab), host[4])
         short = Trainer(make(dev), spec)
         _, m = short.train_step(short.init_state(),
-                                *[a.to(dev) for a in batch_cpu])
+                                *[torch.from_numpy(a).to(dev) for a in host])
         grads = {n: p.grad.detach().cpu()
                  for n, p in short.model.named_parameters()}
         loss_1, gnorm_1 = float(m["loss"]), float(m["grad_norm"])
@@ -3575,38 +3739,41 @@ def training_slice(dev: torch.device, card: str, path: str = "deep_blstm",
         check_on += (f" with the card's mix weights of that step "
                      f"({len(tap.drawn)} pairs, mean zh "
                      f"{float(torch.stack([z[0].mean() for z in tap.drawn]).mean()):.4f})")
-    t0 = time.perf_counter()
-    trainer_cpu = Trainer(model_cpu, spec)
-    with tap.replay():
-        _, m_cpu = trainer_cpu.train_step(trainer_cpu.init_state(),
-                                          *batch_cpu,
-                                          torch.Generator().manual_seed(SEED))
-    cpu_s = time.perf_counter() - t0
-    loss_rel = abs(loss_1 - float(m_cpu["loss"])) / abs(float(m_cpu["loss"]))
-    gnorm_rel = (abs(gnorm_1 - float(m_cpu["grad_norm"]))
-                 / float(m_cpu["grad_norm"]))
-    grad_rel = {n: float((grads[n] - p.grad).norm() / p.grad.norm())
-                for n, p in model_cpu.named_parameters()}
-    worst = max(grad_rel, key=grad_rel.get)
-    print(f"{path} train, {check_on}, kernel path on the card vs plain "
-          f"path on the CPU "
-          f"({cpu_s:.1f} s there): loss {loss_1:.4f} vs "
-          f"{float(m_cpu['loss']):.4f}, rel {loss_rel:.3e} (tol "
-          f"{STEP_LOSS_RTOL:g}); grad_norm {gnorm_1:.4f} vs "
-          f"{float(m_cpu['grad_norm']):.4f}, rel {gnorm_rel:.3e} (tol "
-          f"{STEP_GNORM_RTOL:g}); gradients of {len(grad_rel)} parameters, "
-          f"worst ||diff||/||cpu|| {grad_rel[worst]:.3e} in {worst} (tol "
-          f"{STEP_GRAD_RTOL:g})")
-    require(loss_rel <= STEP_LOSS_RTOL, "train loss disagrees with CPU")
-    require(gnorm_rel <= STEP_GNORM_RTOL, "grad norm disagrees with CPU")
-    require(grad_rel[worst] <= STEP_GRAD_RTOL,
-            "a gradient disagrees with CPU")
+
+    threads = HELD_THREADS if path in CHAOTIC else None
+
+    def held(r):
+        loss_cpu, gnorm_cpu, grads_cpu, cpu_s = r
+        loss_rel = abs(loss_1 - loss_cpu) / abs(loss_cpu)
+        gnorm_rel = abs(gnorm_1 - gnorm_cpu) / gnorm_cpu
+        grad_rel = {n: float((grads[n] - torch.from_numpy(g)).norm()
+                             / torch.from_numpy(g).norm())
+                    for n, g in grads_cpu.items()}
+        worst = max(grad_rel, key=grad_rel.get)
+        print(f"{path} train, {check_on}, kernel path on the card vs plain "
+              f"path on the CPU ({cpu_s:.1f} s there"
+              + (f", {threads} threads" if threads else "")
+              + f"): loss {loss_1:.4f} vs "
+              f"{loss_cpu:.4f}, rel {loss_rel:.3e} (tol {STEP_LOSS_RTOL:g}); "
+              f"grad_norm {gnorm_1:.4f} vs {gnorm_cpu:.4f}, rel "
+              f"{gnorm_rel:.3e} (tol {STEP_GNORM_RTOL:g}); gradients of "
+              f"{len(grad_rel)} parameters, worst ||diff||/||cpu|| "
+              f"{grad_rel[worst]:.3e} in {worst} (tol {STEP_GRAD_RTOL:g})")
+        require(loss_rel <= STEP_LOSS_RTOL,
+                f"{path}: train loss disagrees with CPU")
+        require(gnorm_rel <= STEP_GNORM_RTOL,
+                f"{path}: grad norm disagrees with CPU")
+        require(grad_rel[worst] <= STEP_GRAD_RTOL,
+                f"{path}: a gradient disagrees with CPU")
+
+    checks.submit((path, host, [tuple(z.cpu().numpy() for z in pair)
+                                for pair in tap.drawn], threads), held)
 
     if with_fit:
         fit_and_resume(dev, make, spec, per_steps)
-    stats = train_timings(card, path, desc, layers, trainer, state, batch,
-                          gen)
-    return {"launches": launches, **stats}
+    return {"launches": launches,
+            "time": lambda: train_timings(card, path, desc, layers, trainer,
+                                          state, batch, gen)}
 
 
 def fit_and_resume(dev, make, spec, per_steps) -> None:
@@ -5406,6 +5573,12 @@ BF16_PATHS = {
     "mi_blstm uni": ("mi_blstm", _CONFIG3 + ",bidirectional=false",
                      "mi_lstm_fwd_bf16", "mi_lstm_bwd_bf16", TRAIN_LAYERS,
                      f"{TRAIN_LAYERS}x{HIDDEN} unidirectional MI LSTM"),
+    "ln_blstm": ("ln_blstm", _CONFIG3, "bi_ln_lstm_fwd_bf16",
+                 "bi_ln_lstm_bwd_bf16", TRAIN_LAYERS,
+                 f"{TRAIN_LAYERS}x{HIDDEN} LN BLSTM"),
+    "ln_blstm uni": ("ln_blstm", _CONFIG3 + ",bidirectional=false",
+                     "ln_lstm_fwd_bf16", "ln_lstm_bwd_bf16", TRAIN_LAYERS,
+                     f"{TRAIN_LAYERS}x{HIDDEN} unidirectional LN LSTM"),
 }
 BF16_STEPS = 5
 
@@ -5433,47 +5606,61 @@ def bf16_library(cell: str, hidden: int, ndir: int, t: int, b: int, dev,
 
 class Bf16Family:
     """What check_bf16_kernels needs of one recurrence: the LSTM's
-    (ops/bilstm.py), the GRU's (ops/gru.py), the zoneout LSTM's
-    (ops/zoneout_lstm.py) or the MI LSTM's (ops/mi_lstm.py) wrappers,
-    plain twins and dwh, in one shape.  ``extras`` draws what the zoneout
-    and MI recurrences take beside xp and wh (the mix weights zh, zc; the
+    (ops/bilstm.py), the GRU's (ops/gru.py), the layer-norm LSTM's
+    (ops/ln_lstm.py), the zoneout LSTM's (ops/zoneout_lstm.py) or the MI
+    LSTM's (ops/mi_lstm.py) wrappers, plain twins and dwh, in one shape.
+    ``extras`` draws what the LN, zoneout and MI recurrences take beside xp
+    and wh (the LN gains and bias gh, gc, bc; the mix weights zh, zc; the
     MI vectors), which every later call then passes; ``fwd`` -> (the h
     (and c) sequences, res); ``bwd`` -> the backward's outputs (LSTM,
-    zoneout: dxp a direction; GRU: dxp, dhp a direction; MI: dpre a
-    direction); ``dwh(xs, ws, outs, d, i)`` -> dwh of direction i."""
+    zoneout: dxp a direction; GRU: dxp, dhp a direction; LN: dpre, dcn a
+    direction; MI: dpre a direction); ``dwh(xs, ws, outs, d, i)`` -> dwh
+    of direction i."""
 
     def __init__(self, cell: str):
         from asr_study_torch.ops import bilstm as B
         from asr_study_torch.ops import gru as G
+        from asr_study_torch.ops import ln_lstm as LN
         from asr_study_torch.ops import mi_lstm as MI
         from asr_study_torch.ops import zoneout_lstm as ZO
 
         self.cell, self.gates = cell, 3 if cell == "gru" else 4
-        self.mod = {"lstm": B, "gru": G, "zoneout_lstm": ZO,
+        self.mod = {"lstm": B, "gru": G, "ln_lstm": LN, "zoneout_lstm": ZO,
                     "mi_lstm": MI}[cell]
         self.geometry = {"lstm": B.lstm_geometry, "gru": G.gru_geometry,
+                         "ln_lstm": LN.ln_geometry,
                          "zoneout_lstm": ZO.zoneout_geometry,
                          "mi_lstm": MI.mi_geometry}[cell]
-        self.name = {"lstm": "LSTM", "gru": "GRU",
+        self.name = {"lstm": "LSTM", "gru": "GRU", "ln_lstm": "LN LSTM",
                      "zoneout_lstm": "zoneout LSTM",
                      "mi_lstm": "MI LSTM"}[cell]
         # the wrappers' names, two directions and one; the kernels line's
         # rows are theirs
         self.names = {"lstm": ("bilstm", "lstm"), "gru": ("bigru", "gru"),
+                      "ln_lstm": ("bi_ln_lstm", "ln_lstm"),
                       "zoneout_lstm": ("bi_zoneout_lstm", "zoneout_lstm"),
                       "mi_lstm": ("bi_mi_lstm", "mi_lstm")}[cell]
-        # the LSTM and GRU have a wide design and a cuDNN call; the zoneout
-        # and MI LSTMs' rows of both directions are in the kernels line
-        self.resident = cell in ("zoneout_lstm", "mi_lstm")
+        # the LSTM and GRU have a wide design and a cuDNN call; the LN,
+        # zoneout and MI LSTMs' rows of both directions are in the kernels
+        # line
+        self.resident = cell in ("ln_lstm", "zoneout_lstm", "mi_lstm")
+        # the LN recurrence is chaotic at T=TRAIN_T (ROADMAP C2): held
+        # step by step and row by row there, whole only at LN_CHECK_T
+        self.chaotic = cell == "ln_lstm"
         self.widths = (HIDDEN,) if self.resident else (HIDDEN, 512)
         self.ex = [[], []]
 
     def extras(self, g: torch.Generator, t: int, b: int, hidden: int,
                dev) -> None:
-        """Draw the zoneout mix (Bernoulli(0.9) zh and zc of each
-        direction) or the MI vectors (alpha, beta1, beta2 near 1, b near
-        0) from ``g``, on the card, for every later call."""
-        if self.cell == "zoneout_lstm":
+        """Draw the LN gains and bias (gh, gc near 1, bc near 0), the
+        zoneout mix (Bernoulli(0.9) zh and zc) or the MI vectors (alpha,
+        beta1, beta2 near 1, b near 0) of each direction from ``g``, on
+        the card, for every later call."""
+        if self.cell == "ln_lstm":
+            self.ex = [[(c + 0.3 * torch.randn(n, generator=g)).to(dev)
+                        for c, n in ((1.0, 4 * hidden), (1.0, hidden),
+                                     (0.0, hidden))] for _ in range(2)]
+        elif self.cell == "zoneout_lstm":
             self.ex = [[(torch.rand(t, b, hidden, generator=g) < 0.9)
                         .float().to(dev) for _ in range(2)]
                        for _ in range(2)]
@@ -5483,7 +5670,8 @@ class Bf16Family:
                         for c in (1.0, 1.0, 1.0, 0.0)] for _ in range(2)]
 
     def _args(self, xs, mask, ws) -> tuple:
-        """The zoneout or MI wrapper's arguments before its outputs."""
+        """The LN, zoneout or MI wrapper's arguments before its
+        outputs."""
         ex = self.ex[:len(xs)]
         inter = [t for k in range(len(ex[0])) for t in
                  (e[k] for e in ex)]
@@ -5558,6 +5746,10 @@ class Bf16Family:
             al, b1, b2, _ = self.ex[i]
             return self.mod.dir_grads(d[i], xs[i], outs[2 * i], ws[i], al,
                                       b1, b2, i == 1)[1]
+        if self.cell == "ln_lstm":
+            return self.mod._ln_param_grads(d[2 * i], d[2 * i + 1],
+                                            outs[2 * i], outs[2 * i + 1],
+                                            ws[i], self.ex[i][0], i == 1)[0]
         if self.cell == "gru":
             return self.mod._dwh(outs[i], d[2 * i + 1], i == 1, ws[i])
         return _dwh(outs[2 * i], d[i], i == 1, ws[i])
@@ -5570,8 +5762,8 @@ class Bf16Family:
     def bwd_moved(self, xs, mask, ws, outs, dh, res, d) -> tuple:
         """What the backward reads and writes: the LSTM's wide form the kept
         gates and c, its cluster form xp, h and c; the GRU's xp, h (and the
-        kept h side); the zoneout and MI LSTMs' xp, h, c and the mix or the
-        vectors; all the mask, wh, dh and their outputs."""
+        kept h side); the LN, zoneout and MI LSTMs' xp, h, c and the
+        vectors or the mix; all the mask, wh, dh and their outputs."""
         if self.cell == "lstm":
             return (*(res if res else xs), *(outs[1::2] if res else outs),
                     mask, *ws, *dh, *d)
@@ -5579,24 +5771,99 @@ class Bf16Family:
                 *(t for e in self.ex[:len(xs)] for t in e))
 
 
+def chain_start(seqs, n: int, ndir: int) -> list:
+    """The first ``n`` steps of each direction's backward chain in the
+    sequences [T, B, ...] of ``seqs`` (each direction's outputs in turn,
+    forward then reversed): the last n frames of the forward direction's,
+    the first n of the reversed one's."""
+    per = len(seqs) // ndir
+    return [s[-n:] if i < per else s[:n] for i, s in enumerate(seqs)]
+
+
+def ln_bf16_held(fam: Bf16Family, xs, mask, ws, dh, outs, d_k, d_p
+                 ) -> tuple:
+    """The LN LSTM's bfloat16 forms held as check_ln_kernels holds its
+    float32 ones (ROADMAP C2), with the backward's row tolerance of
+    LN_BF16_ROW_RTOL: every frame of the forward's h and c against the
+    plain step from the kernel's own previous state (ln_stepwise); the
+    backward's dpre and dcn of every (frame, row) of the first LN_CHECK_T
+    steps of each chain against the twin's from the same states
+    (rows_within), the rest printed; the backward through the kernels and
+    the twins on the first LN_CHECK_T frames, from the kernel's forward
+    there, by rows, and dwh there; printed beside them: the forwards'
+    whole sequences there (a bfloat16 rounding of h_prev that flips
+    between the two parts them as the backward's do) and the twin on the
+    CPU against the twin on the card (another summation order: the plain
+    path's own spread) -> (forward max err, backward max err, all held
+    within, dwh max err / max abs, what was held)."""
+    def max_err(got, want):
+        return max(float((k - p).abs().max()) for k, p in zip(got, want))
+
+    def worst_row(got, want):
+        return max(float(((k - p).norm(dim=-1) / p.norm(dim=-1).clamp(
+            min=1e-30)).max()) for k, p in zip(got, want))
+
+    n = LN_CHECK_T
+    with torch.no_grad():
+        steps = ln_stepwise(fam._args(xs, mask, ws), outs)
+        xs_c, mask_c, dh_c = ([a[:n].contiguous() for a in xs],
+                              mask[:n].contiguous(),
+                              [a[:n].contiguous() for a in dh])
+        o_k = fam.fwd(xs_c, mask_c, ws)
+        g_k = fam.bwd(xs_c, mask_c, ws, o_k, dh_c, ())
+        o_p, g_p = fam.plain(xs_c, mask_c, ws, o_k, dh_c, ())
+        cpu = lambda ts: [a.cpu() for a in ts]            # noqa: E731
+        ex, fam.ex = fam.ex, [cpu(e) for e in fam.ex]
+        try:
+            g_cpu = fam.plain(cpu(xs_c), mask_c.cpu(), cpu(ws), cpu(o_k),
+                              cpu(dh_c), ())[1]
+        finally:
+            fam.ex = ex
+        dwh = [[fam.dwh(xs_c, ws, o_k, d, i) for i in range(len(xs))]
+               for d in (g_k, g_p)]
+    dwh_frac = max(float((k.float() - p.float()).abs().max())
+                   / float(p.float().abs().max()) for k, p in zip(*dwh))
+    head_k, head_p = (chain_start(d, n, len(xs)) for d in (d_k, d_p))
+    ok = (all(within(k, p, BF16_ATOL, BF16_RTOL) for k, p in zip(outs, steps))
+          and rows_within(head_k, head_p, BF16_ATOL, LN_BF16_ROW_RTOL)
+          and rows_within(g_k, g_p, BF16_ATOL, LN_BF16_ROW_RTOL)
+          and all(bool(torch.isfinite(k).all()) for k in d_k)
+          and dwh_frac <= LN_BF16_DWH_FRAC)
+    held = (f"; held (a chaotic recurrence): the forward every frame "
+            f"against the plain step from its own state, the backward's "
+            f"first {n} chain steps every (frame, row) within "
+            f"{BF16_ATOL:g} + {LN_BF16_ROW_RTOL:g}*||plain|| (worst "
+            f"||diff||/||plain|| {worst_row(head_k, head_p):.3e}; over all "
+            f"{d_k[0].shape[0]} steps {worst_row(d_k, d_p):.3e}, printed), "
+            f"the backward at T={n} by rows (worst {worst_row(g_k, g_p):.3e}"
+            f"; the twin on the CPU against the twin on the card there "
+            f"{worst_row(g_cpu, cpu(g_p)):.3e}, the forwards' whole "
+            f"sequences {max_err(o_k, o_p):.3e}, printed) and dwh there "
+            f"within {LN_BF16_DWH_FRAC:g} of its max")
+    return max_err(outs, steps), max_err(d_k, d_p), ok, dwh_frac, held
+
+
 def check_bf16_kernels(dev: torch.device, card: str, cell: str) -> dict:
     """The bfloat16-weight forms of the LSTM (``cell`` "lstm") or the GRU
-    ("gru"): cluster and wide, at H=256 and H=512, or of the zoneout or MI
-    LSTM ("zoneout_lstm", "mi_lstm"): cluster, at H=256; forward and
-    backward, each over one and two directions, against their plain twins
-    on the card at the training shapes T=TRAIN_T, B=TRAIN_B: h (c; the
-    wide design's kept gates or h side) and the backward's outputs (dxp;
-    the GRU's dhp too; the MI dpre) within BF16_ATOL + BF16_RTOL *
-    |plain|, dwh in bfloat16 within BF16_DWH_FRAC of its max abs; two
-    launches bit-equal; each form timed beside its float32 form on the
-    same inputs, its bound and cuDNN ``nn.LSTM`` / ``nn.GRU`` in bfloat16
-    (none for zoneout and MI).  -> the kernel line's entries of the
-    bidirectional forms (the zoneout and MI LSTMs': of both)."""
+    ("gru"): cluster and wide, at H=256 and H=512, or of the layer-norm,
+    zoneout or MI LSTM ("ln_lstm", "zoneout_lstm", "mi_lstm"): cluster, at
+    H=256; forward and backward, each over one and two directions, against
+    their plain twins on the card at the training shapes T=TRAIN_T,
+    B=TRAIN_B: h (c; the wide design's kept gates or h side) and the
+    backward's outputs (dxp; the GRU's dhp too; the LN's dpre and dcn; the
+    MI dpre) within BF16_ATOL + BF16_RTOL * |plain|, dwh in bfloat16
+    within BF16_DWH_FRAC of its max abs (the LN's as ln_bf16_held holds
+    them); two launches bit-equal; each form timed beside its float32 form
+    on the same inputs, its bound and cuDNN ``nn.LSTM`` / ``nn.GRU`` in
+    bfloat16 (none for the LN, zoneout and MI LSTMs).  -> the kernel
+    line's entries of the bidirectional forms (the LN, zoneout and MI
+    LSTMs': of both)."""
     fam = Bf16Family(cell)
     errs, times, bounds, library = {}, {}, {}, {}
     g = torch.Generator().manual_seed(SEED + {"lstm": 24, "gru": 26,
                                               "zoneout_lstm": 27,
-                                              "mi_lstm": 28}[cell])
+                                              "mi_lstm": 28,
+                                              "ln_lstm": 29}[cell])
     t, b, gates = TRAIN_T, TRAIN_B, fam.gates
     for hidden in fam.widths:
         xps = [torch.randn(t, b, gates * hidden, generator=g).to(dev)
@@ -5635,26 +5902,33 @@ def check_bf16_kernels(dev: torch.device, card: str, cell: str) -> dict:
                 torch.cuda.synchronize()
                 plain_s = time.perf_counter() - t0
                 d_k = runs[0][len(outs) + len(res):]
-                dwh_k = [fam.dwh(xs, ws16, outs, d_k, i)
-                         for i in range(ndir)]
-                dwh_p = [fam.dwh(xs, ws16, outs, d_p, i)
-                         for i in range(ndir)]
             same = all(torch.equal(x, y) for x, y in zip(*runs))
             got = (*outs, *res)
-            err_f = max(float((k - p).abs().max()) for k, p in zip(got, f_p))
-            err_b = max(float((k - p).abs().max()) for k, p in zip(d_k, d_p))
-            dwh_frac = max(float((k.float() - p.float()).abs().max())
-                           / float(p.float().abs().max())
-                           for k, p in zip(dwh_k, dwh_p))
-            ok = (len(got) == len(f_p) and len(d_k) == len(d_p)
-                  and all(within(k, p, BF16_ATOL, BF16_RTOL)
-                          for k, p in zip(got, f_p))
-                  and all(within(k, p, BF16_ATOL, BF16_RTOL)
-                          for k, p in zip(d_k, d_p)))
+            held = ""
+            if fam.chaotic:
+                err_f, err_b, ok, dwh_frac, held = ln_bf16_held(
+                    fam, xs, mask, ws16, dh, outs, d_k, d_p)
+            else:
+                with torch.no_grad():
+                    dwh = [[fam.dwh(xs, ws16, outs, d, i)
+                            for i in range(ndir)] for d in (d_k, d_p)]
+                err_f = max(float((k - p).abs().max())
+                            for k, p in zip(got, f_p))
+                err_b = max(float((k - p).abs().max())
+                            for k, p in zip(d_k, d_p))
+                dwh_frac = max(float((k.float() - p.float()).abs().max())
+                               / float(p.float().abs().max())
+                               for k, p in zip(*dwh))
+                ok = (len(got) == len(f_p) and len(d_k) == len(d_p)
+                      and all(within(k, p, BF16_ATOL, BF16_RTOL)
+                              for k, p in zip(got, f_p))
+                      and all(within(k, p, BF16_ATOL, BF16_RTOL)
+                              for k, p in zip(d_k, d_p)))
             kept = ("c, gates" if cell == "lstm" else "h side") if wide else (
                 "" if cell == "gru" else "c")
             d_names = {"lstm": "dxp", "gru": "dxp, dhp",
-                       "zoneout_lstm": "dxp", "mi_lstm": "dpre"}[cell]
+                       "ln_lstm": "dpre, dcn", "zoneout_lstm": "dxp",
+                       "mi_lstm": "dpre"}[cell]
             print(f"bf16 {'bi' if ndir == 2 else 'uni'} {fam.name} kernels "
                   f"({geo.design} design, R={geo.rows}) vs plain twins at "
                   f"T={t} B={b} H={hidden}: forward max_abs_err {err_f:.3e}"
@@ -5664,10 +5938,10 @@ def check_bf16_kernels(dev: torch.device, card: str, cell: str) -> dict:
                   f"(bfloat16) max err / max|dwh| {dwh_frac:.3e} (tol "
                   f"{BF16_ATOL:g} + {BF16_RTOL:g}*|plain|, dwh "
                   f"{BF16_DWH_FRAC:g}); two launches bit-equal {same}; "
-                  f"plain twins {plain_s:.2f} s")
+                  f"plain twins {plain_s:.2f} s{held}")
             require(ok, f"bf16 {fam.name} kernels disagree with plain at H="
                         f"{hidden} ndir={ndir}")
-            require(dwh_frac <= BF16_DWH_FRAC,
+            require(fam.chaotic or dwh_frac <= BF16_DWH_FRAC,
                     f"bf16 {fam.name} dwh disagrees with plain at H={hidden}")
             require(same, f"bf16 {fam.name} kernels at H={hidden} ndir="
                           f"{ndir} differ between two launches")
@@ -5701,7 +5975,8 @@ def check_bf16_kernels(dev: torch.device, card: str, cell: str) -> dict:
             f_bwd = rnn_bound(xs[0], hidden, ndir, passes, bwd_moved)
             lib_f, lib_b = lib[ndir]
             library_text = (
-                "no library call (cuDNN has no zoneout or MI cell)"
+                "no library call (cuDNN has no layer-norm, zoneout or MI "
+                "cell)"
                 if fam.resident else
                 f"cuDNN nn.{fam.name}({hidden}, {hidden}) in bfloat16 "
                 f"forward {lib_f:.4f} ms, backward {lib_b:.4f} ms")
@@ -5751,13 +6026,7 @@ def bf16_train_path(dev: torch.device, card: str, path: str) -> dict:
                            device=device)
 
     spec = make_optimizer("adam", 1e-4, 400.0)
-    rng = np.random.RandomState(SEED)
-    batch = [torch.from_numpy(a).to(dev) for a in (
-        rng.randn(TRAIN_B, TRAIN_T, FEATS).astype(np.float32),
-        np.full(TRAIN_B, TRAIN_T, np.int32),
-        rng.randint(0, NUM_CLASSES, (TRAIN_B, TRAIN_L)).astype(np.int32),
-        np.full(TRAIN_B, TRAIN_L, np.int32),
-        np.ones(TRAIN_B, np.float32))]
+    batch = [torch.from_numpy(a).to(dev) for a in train_host()]
     runs = {}
     for dtype in (torch.bfloat16, None):
         trainer = Trainer(make(dev), spec, compute_dtype=dtype)
@@ -5808,7 +6077,8 @@ def bf16_train_path(dev: torch.device, card: str, path: str) -> dict:
 # the bidirectional recurrence wrapper of each model train --bf16 runs on
 # the corpus
 BF16_CLI_RNN = {"deep_blstm": "bilstm", "deep_gru": "bigru",
-                "zoneout_blstm": "bi_zoneout_lstm", "mi_blstm": "bi_mi_lstm"}
+                "zoneout_blstm": "bi_zoneout_lstm", "mi_blstm": "bi_mi_lstm",
+                "ln_blstm": "bi_ln_lstm"}
 
 
 def bf16_cli_run(card: str, tmp: str, manifest: str, model: str) -> dict:
@@ -6457,19 +6727,27 @@ def main() -> int:
           f"(T={t_out}, B={BATCH}, H={HIDDEN})")
 
     # 6, 7. the training paths ---------------------------------------------
+    checks = CpuChecks(len(TRAIN_PATHS) + len(CHAOTIC))
+    timings = []
     for path in TRAIN_PATHS:
-        path_launches.append(training_slice(
-            dev, card, path, with_fit=path == "deep_blstm")["launches"])
+        found = training_slice(dev, card, path, checks,
+                               with_fit=path == "deep_blstm")
+        path_launches.append(found["launches"])
+        timings.append(found["time"])
+    checks.finish()
+    for time_path in timings:
+        time_path()
     clock.mark("training paths")
     path_launches += optimizer_phase(dev, card)
     clock.mark("optimizer phase")
     # the bfloat16 phase (train --bf16): the LSTM's and the GRU's four
-    # bfloat16-weight forms and the zoneout and MI LSTMs' two each against
-    # their twins, then bf16 train steps of deep_blstm (cluster) and
-    # deep_speech (wide), bi and uni, deep_gru 3x256 (cluster) bi and uni
-    # and 3x512 (wide), zoneout_blstm and mi_blstm 3x256 bi and uni
+    # bfloat16-weight forms and the LN, zoneout and MI LSTMs' two each
+    # against their twins, then bf16 train steps of deep_blstm (cluster)
+    # and deep_speech (wide), bi and uni, deep_gru 3x256 (cluster) bi and
+    # uni and 3x512 (wide), zoneout_blstm, mi_blstm and ln_blstm 3x256 bi
+    # and uni
     bf16_kernels = check_bf16_kernels(dev, card, "lstm")
-    for cell in ("gru", "zoneout_lstm", "mi_lstm"):
+    for cell in ("gru", "zoneout_lstm", "mi_lstm", "ln_lstm"):
         for key, found in check_bf16_kernels(dev, card, cell).items():
             bf16_kernels[key].update(found)
     for path in BF16_PATHS:
@@ -6539,4 +6817,5 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(cpu_steps_turns() if sys.argv[1:] == ["cpu_steps_turns"]
+             else main())

@@ -6,9 +6,11 @@ cast, the LSTM recurrence with bfloat16 ``wh`` (``BiLSTMFunction``,
 against ``pallas_bilstm`` / ``pallas_lstm`` with a bfloat16 ``wh`` in
 interpret mode, and ``Trainer(compute_dtype=torch.bfloat16)`` steps
 against the JAX ``Trainer(compute_dtype=jnp.bfloat16)`` on the Pallas
-route; the refusals of the cell and the design that have no bfloat16
-kernels (the GRU's bfloat16 forms: ``tests/test_torch_bf16_gru.py``; the
-zoneout and MI LSTMs': ``tests/test_torch_bf16_zoneout_mi.py``).
+route; the refusals of the design that has no bfloat16 kernels and of a
+cell outside the Trainer's BF16_CELLS (the GRU's bfloat16 forms:
+``tests/test_torch_bf16_gru.py``; the zoneout and MI LSTMs':
+``tests/test_torch_bf16_zoneout_mi.py``; the layer-norm LSTM's:
+``tests/test_torch_bf16_ln.py``).
 
 The JAX ``lax.scan`` default rounds the recurrent cotangent after its
 product where the Pallas backward rounds ``dpre`` before it; the TPU runs
@@ -307,18 +309,36 @@ def _op_args(op, t=5, b=2, h=8):
 @pytest.mark.parametrize("op", [ln_lstm, bi_ln_lstm],
                          ids=lambda f: f.__name__)
 def test_other_cells_refuse_bf16(op):
+    """Since the layer-norm LSTM has bfloat16-weight kernels its ops run a
+    bfloat16 wh at a cluster shape (the plain twin here, float32 h and c
+    of the shape) and refuse it, naming A5b, at a shape that goes to the
+    stream design (H=300)."""
+    out = op(*_op_args(op))
+    assert all(o.dtype == torch.float32 and o.shape == (5, 2, 8)
+               for o in out)
     with pytest.raises(ValueError, match=BF16_ITEM):
-        op(*_op_args(op))
+        op(*_op_args(op, h=300))
 
 
 @pytest.mark.parametrize("model", ["ln_blstm"])
 def test_trainer_refuses_bf16_for_other_cells(model):
+    """The Trainer takes compute_dtype=torch.bfloat16 for ln_blstm, whose
+    cells have bfloat16-weight kernels, and still refuses float16; a model
+    holding a subclass of LSTMCell outside BF16_CELLS refuses bfloat16,
+    naming A5b."""
     pm = build_model(model, "num_hiddens=8,num_layers=1", num_classes=4,
                      input_dim=5)
-    with pytest.raises(ValueError, match=BF16_ITEM):
-        Trainer(pm, make_optimizer(), compute_dtype=BF16)
+    assert Trainer(pm, make_optimizer(),
+                   compute_dtype=BF16).compute_dtype == BF16
     with pytest.raises(ValueError, match="compute_dtype"):
         Trainer(pm, make_optimizer(), compute_dtype=torch.float16)
+
+    class OtherCell(LSTMCell):
+        pass
+
+    other = torch.nn.Sequential(OtherCell(5, 8))
+    with pytest.raises(ValueError, match=BF16_ITEM):
+        Trainer(other, make_optimizer(), compute_dtype=BF16)
 
 
 @pytest.mark.parametrize("hidden,batch,ndir", [(520, 2, 1), (256, 49, 2),
@@ -356,8 +376,7 @@ _CELLS = {"lstm": LSTMCell, "gru": GRUCell, "ln_lstm": LayerNormLSTMCell,
 
 @pytest.mark.parametrize("model", sorted(CELL_KINDS))
 def test_cell_kinds_name_the_models_cells(model):
-    """CELL_KINDS, which train --bf16 reads before building the model, says
-    which cell each zoo model is built from."""
+    """CELL_KINDS says which cell each zoo model is built from."""
     hp = "num_hiddens=8,num_layers=1" + (",input_dense=8,input_layers=1"
                                          if model == "deep_speech" else "")
     pm = build_model(model, hp, num_classes=4, input_dim=5)

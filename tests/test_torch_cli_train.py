@@ -92,11 +92,6 @@ _REFUSED = [
                                        "2"], _TOO_MANY_TRAIN),
     ("train-argv13-item 13", "train", ["--tp_devices", "2"],
      "ROADMAP queue A item 13"),
-    # item 5b since the rest of item 5 was ported; --bf16 with a model of
-    # layer-norm LSTM cells since the LSTM, GRU, zoneout and MI models'
-    # bf16 was ported
-    ("train-argv17-item 5", "train", ["--bf16", "--model", "ln_blstm"],
-     "ROADMAP queue A item 5b"),
     ("eval-argv21-item 12", "eval", ["--device", "cuda", "--num_devices",
                                      "2"], _TOO_MANY_EVAL),
     ("eval-argv22-item 12", "eval", ["--device", "cuda", "--num_devices",

@@ -1746,6 +1746,175 @@ def test_bf16_zoneout_mi_train_step_on_card_matches_cpu(cuda, monkeypatch,
         assert float((g_k[k] - g_p[k]).abs().max()) <= 1e-2 * scale, k
 
 
+# the layer-norm LSTM's bfloat16-weight forms: the cluster design at H=8,
+# 100 and 256, bi and uni, ragged and with a dead row.  The forward frame
+# by frame at BF16_TOL (ROADMAP C2; the whole sequences part where a
+# bfloat16 rounding of h_prev flips between kernel and twin);
+# the backward per (frame, row) within BF16_TOL's atol + LN_BF16_ROW_RTOL
+# of the row's norm and dwh within LN_BF16_DWH_FRAC of its max, on T <= 64
+# or the first 64 steps of a chain: a bfloat16 rounding of dhp that flips
+# between two summation orders moves the chain by more than BF16_TOL (the
+# twin against itself in another order, tests/test_torch_bf16_ln.py
+# test_ln_bf16_backward_spread_*; chip_smoke.py LN_BF16_ROW_RTOL)
+LN_BF16_CASES = ZM_BF16_CASES
+LN_BF16_ROW_RTOL = 0.1
+LN_BF16_DWH_FRAC = 3e-2
+
+
+def _rows_within(got, want, rtol):
+    """Every (frame, row): ||got - want|| <= BF16_TOL's atol + rtol *
+    ||want||."""
+    diff = (got - want).norm(dim=-1)
+    return bool((diff <= BF16_TOL["atol"] + rtol * want.norm(dim=-1)).all())
+
+
+def _ln_bf16_args(cuda, t, b, h, seed, dead, ndir):
+    """An LN case (_ln_case) with bfloat16 wh, in the op's order for
+    ``ndir`` directions, and its cotangents."""
+    args, dh = _ln_case(cuda, t, b, h, seed=seed, dead=dead)
+    args = list(args)
+    args[3], args[4] = args[3].to(torch.bfloat16), args[4].to(torch.bfloat16)
+    if ndir == 1:
+        args = [args[i] for i in (0, 2, 3, 5, 7, 9)]
+    return args, dh[:ndir]
+
+
+def _ln_bf16_ops(ndir):
+    return ((bi_ln_lstm, bi_ln_lstm_bwd, bi_ln_lstm_plain,
+             bi_ln_lstm_bwd_plain) if ndir == 2 else
+            (ln_lstm, ln_lstm_bwd, ln_lstm_plain, ln_lstm_bwd_plain))
+
+
+def _ln_steps(args, hc, ndir):
+    """The plain step from the kernel's own previous state at every frame
+    (h, c per direction): the forward held frame by frame."""
+    from asr_study_torch.models.cells import ln_lstm_step
+    from asr_study_torch.ops.recurrence import prev
+
+    xs, mask, vecs = args[:ndir], args[ndir], args[ndir + 1:]
+    out = []
+    for d in range(ndir):
+        wh, gh, gc, bc = vecs[d::ndir]
+        h_k, c_k = hc[2 * d], hc[2 * d + 1]
+        t, b, h = h_k.shape
+        h_s, c_s = ln_lstm_step(
+            prev(h_k, d == 1).reshape(t * b, h),
+            prev(c_k, d == 1).reshape(t * b, h),
+            xs[d].reshape(t * b, 4 * h), mask.reshape(t * b, 1), wh, gh, gc,
+            bc)
+        out += [h_s.view_as(h_k), c_s.view_as(c_k)]
+    return out
+
+
+@pytest.mark.parametrize("t,b,h,ndir,dead", LN_BF16_CASES,
+                         ids=[f"{t}-{b}-{h}-{'bi' if n == 2 else 'uni'}"
+                              + ("-dead" if d else "")
+                              for t, b, h, n, d in LN_BF16_CASES])
+def test_ln_bf16_kernels_match_plain(cuda, t, b, h, ndir, dead):
+    """The LN LSTM's bfloat16-weight forms of the forward and backward (the
+    cluster design) against their plain twins with the same bfloat16 wh:
+    h and c of every frame against the plain step from the kernel's own
+    state at BF16_TOL, dpre and dcn (from the same forward states) per
+    (frame, row) within LN_BF16_ROW_RTOL of the row's norm, dwh (bfloat16)
+    within LN_BF16_DWH_FRAC of its max abs; counted under
+    ``cluster_bf16``; repeated bit for bit."""
+    from asr_study_torch.ops.ln_lstm import _ln_param_grads
+
+    args, dh = _ln_bf16_args(cuda, t, b, h, t + b + h + 3, dead, ndir)
+    assert ln_geometry(h, b, ndir).design == "cluster"
+    fwd, bwd, _, bwd_plain = _ln_bf16_ops(ndir)
+    before = (fwd.by_design["cluster_bf16"], bwd.by_design["cluster_bf16"])
+    runs = []
+    for _ in range(2):
+        hc = fwd(*args)
+        runs.append((*hc, *bwd(*args, *hc, *dh)))
+    assert (fwd.by_design["cluster_bf16"] - before[0],
+            bwd.by_design["cluster_bf16"] - before[1]) == (2, 2)
+    want = _ln_steps(args, hc, ndir)
+    want_d = bwd_plain(*args, *hc, *dh)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, c) for a, c in zip(*runs))
+    for g_, w_ in zip(runs[0][:2 * ndir], want):
+        assert g_.dtype == torch.float32
+        torch.testing.assert_close(g_, w_, **BF16_TOL)
+    d = runs[0][2 * ndir:]
+    for g_, w_ in zip(d, want_d):
+        assert g_.dtype == torch.float32
+        assert _rows_within(g_, w_, LN_BF16_ROW_RTOL)
+    for i in range(ndir):
+        wh, gh = args[ndir + 1 + i], args[ndir + 1 + ndir + i]
+        k_, p_ = (_ln_param_grads(g[2 * i], g[2 * i + 1], hc[2 * i],
+                                  hc[2 * i + 1], wh, gh, i == 1)[0]
+                  for g in (d, want_d))
+        assert k_.dtype == torch.bfloat16
+        scale = float(p_.float().abs().max())
+        assert float((k_.float() - p_.float()).abs().max()) <= \
+            LN_BF16_DWH_FRAC * scale
+
+
+@pytest.mark.parametrize("ndir", [2, 1], ids=["bi", "uni"])
+def test_ln_bf16_kernels_stepwise_at_long_t(cuda, ndir):
+    """At T=512, B=32, H=256 (the training shapes, where the LN recurrence
+    is chaotic, ROADMAP C2) the bfloat16 forward's h and c of every frame
+    against the plain step from the kernel's own previous state at
+    BF16_TOL; the backward's dpre and dcn of every (frame, row) of the
+    first 64 steps of each chain within LN_BF16_ROW_RTOL of that row's
+    norm against the twin's from the same states, and finite on every
+    frame."""
+    args, dh = _ln_bf16_args(cuda, 512, 32, 256, 41, False, ndir)
+    fwd, bwd, _, bwd_plain = _ln_bf16_ops(ndir)
+    hc = fwd(*args)
+    steps = _ln_steps(args, hc, ndir)
+    d_k = bwd(*args, *hc, *dh)
+    d_p = bwd_plain(*args, *hc, *dh)
+    torch.cuda.synchronize()
+    for g_, w_ in zip(hc, steps):
+        torch.testing.assert_close(g_, w_, **BF16_TOL)
+    for i, (g_, w_) in enumerate(zip(d_k, d_p)):
+        assert bool(torch.isfinite(g_).all())
+        # the chain starts at the last frame forward, the first reversed
+        head = slice(-64, None) if i < 2 else slice(None, 64)
+        assert _rows_within(g_[head], w_[head], LN_BF16_ROW_RTOL)
+
+
+@pytest.mark.parametrize("bidirectional", [True, False], ids=["bi", "uni"])
+def test_bf16_ln_train_step_is_bit_reproducible(cuda, bidirectional):
+    """Two identical bfloat16 train steps of ln_blstm 3x256, bi and uni (the
+    cluster forms), give bit-equal loss, gradients and updated weights,
+    the masters float32."""
+    ops = ((bi_ln_lstm, bi_ln_lstm_bwd) if bidirectional else
+           (ln_lstm, ln_lstm_bwd))
+    before = [w.by_design["cluster_bf16"] for w in ops]
+    hp = f"dropout=0.0,bidirectional={str(bidirectional).lower()}"
+    runs = _two_identical_steps(cuda, "ln_blstm", hp,
+                                compute_dtype=torch.bfloat16)
+    assert [w.by_design["cluster_bf16"] - n for w, n in zip(ops, before)] \
+        == [2 * 3, 2 * 3]
+    assert _bit_differences(runs) == []
+    assert all(p.dtype == torch.float32 for p in runs[0][2].values())
+    assert np.isfinite(float(runs[0][0]))
+
+
+@pytest.mark.parametrize("h,b,ndir", [(300, 2, 1), (512, 3, 2),
+                                      (100, 49, 2)])
+def test_ln_bf16_stream_shapes_refuse_on_card(cuda, h, b, ndir):
+    """A bfloat16 LN call that ln_geometry sends to the stream design
+    raises naming A5b on the card too, forward and backward, and launches
+    nothing."""
+    from asr_study_torch.ops.recurrence import BF16_ITEM
+
+    args, dh = _ln_bf16_args(cuda, 3, b, h, 5, False, ndir)
+    assert ln_geometry(h, b, ndir).design == "stream"
+    fwd, bwd, _, _ = _ln_bf16_ops(ndir)
+    hc = [torch.zeros(3, b, h, device=cuda) for _ in range(2 * ndir)]
+    before = (fwd.launches, bwd.launches)
+    with pytest.raises(ValueError, match=BF16_ITEM):
+        fwd(*args)
+    with pytest.raises(ValueError, match=BF16_ITEM):
+        bwd(*args, *hc, *dh)
+    assert (fwd.launches, bwd.launches) == before
+
+
 def test_deep_blstm_train_step_is_bit_reproducible_deterministic(cuda):
     """The same under ``torch.use_deterministic_algorithms``, switched on
     for this test only: the control that separates a nondeterministic
