@@ -88,6 +88,10 @@ SIGNATURES = {
     # dh_f, dh_b, dxp_f, dxp_b, T, B, H, ndir, stream
     "asr_lstm_stream_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                             _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # the bfloat16-weight forms: the same arguments, wh_f, wh_b (and wht_f,
+    # wht_b) bfloat16
+    "asr_lstm_stream_fwd_bf16": [_P] * 11 + [_I] * 4 + [_P],
+    "asr_lstm_stream_bwd_bf16": [_P] * 15 + [_I] * 4 + [_P],
     # xp_f, xp_b, mask, wh_f, wh_b, h_f, h_b, h_init (the carried h [ndir,
     # B, H], or null), T, B, H, ndir, cluster CTAs, units per CTA, rows per
     # cluster, stream
@@ -122,6 +126,10 @@ SIGNATURES = {
     # xp_f, xp_b, mask, wh_f, wh_b, wht_f, wht_b, h_f, h_b, dh_f, dh_b,
     # dxp_f, dhp_f, dxp_b, dhp_b, T, B, H, ndir, stream
     "asr_gru_stream_bwd": [_P] * 15 + [_I] * 4 + [_P],
+    # the bfloat16-weight forms: the same arguments, wh_f, wh_b (and wht_f,
+    # wht_b) bfloat16
+    "asr_gru_stream_fwd_bf16": [_P] * 8 + [_I] * 4 + [_P],
+    "asr_gru_stream_bwd_bf16": [_P] * 15 + [_I] * 4 + [_P],
     # xpn_f, xpn_b, mask, wh_f, wh_b, gh_f, gh_b, gc_f, gc_b, bc_f, bc_b,
     # h_f, c_f, h_b, c_b, h_init, c_init (the carried state [ndir, B, H],
     # or null), T, B, H, ndir, cluster CTAs, units per CTA, rows per

@@ -37,16 +37,17 @@ per direction for the recurrent weights.
 
 bfloat16 weights (``train --bf16``, the JAX trainer's ``compute_dtype``):
 ``wh`` may be bfloat16 in every wrapper, both directions alike, while xp,
-the mask, h, c and every cotangent stay float32.  The cluster and wide
-designs then launch their bfloat16-weight forms (the same sources, the
-``_bf16`` entry points): h_prev is rounded to bfloat16 where it enters the
-product and the backward rounds ``dpre`` before ``dpre @ wh^T``, as the
-JAX kernels' ``_mm`` does, each product taken in float32.  The plain
-twins round the same way (:func:`~asr_study_torch.models.nn.dot`), and
-``dwh`` comes back bfloat16.  A bfloat16 call whose shape goes to the
-stream design raises (:data:`~asr_study_torch.ops.recurrence.BF16_ITEM`);
-``by_design`` counts bfloat16 launches under ``cluster_bf16`` and
-``wide_bf16``.
+the mask, h, c and every cotangent stay float32.  Every design then
+launches its bfloat16-weight form (the same sources, the ``_bf16`` entry
+points): h_prev is rounded to bfloat16 where it enters the product (and
+only there: the state update and a held frame take it unrounded) and the
+backward rounds ``dpre`` before ``dpre @ wh^T``, as the JAX kernels'
+``_mm`` does, each product taken in float32; dxp comes out unrounded.
+The plain twins round the same way
+(:func:`~asr_study_torch.models.nn.dot`), and ``dwh`` comes back
+bfloat16.  No bfloat16 call takes a float32 form; ``by_design`` counts
+bfloat16 launches under ``cluster_bf16``, ``wide_bf16`` and
+``stream_bf16``.
 
 Gate order i, f, g, o with the bias folded into ``xp``.  Masked frames hold
 h and c.  :func:`lstm` and its plain twin start from a carried state
@@ -64,12 +65,11 @@ from asr_study_torch import _build
 from asr_study_torch.models.cells import lstm_gates, lstm_update
 from asr_study_torch.models.nn import dot
 from asr_study_torch.ops.recurrence import (STREAM_ROWS, WIDE_UNITS,
-                                            Geometry, bf16_design, check,
-                                            check_carry, check_res,
-                                            cluster_geometry, cotangent,
-                                            design_counts, design_key,
-                                            kernel_info, prev, r4, stream,
-                                            wide_geometry)
+                                            Geometry, check, check_carry,
+                                            check_res, cluster_geometry,
+                                            cotangent, design_counts,
+                                            design_key, kernel_info, prev,
+                                            r4, stream, wide_geometry)
 
 # The cluster kernels' thread shape (csrc/bilstm_{fwd,bwd}.cu kThreads and
 # kSlice): 256 threads a CTA, each holding 128 rows of one gate column.
@@ -106,13 +106,15 @@ def wide_smem(rows: int, ctas: int) -> tuple[int, int]:
     return 4 * fwd, 4 * bwd
 
 
-def stream_smem(hidden: int) -> tuple[int, int]:
+def stream_smem(hidden: int, bf16: bool = False) -> tuple[int, int]:
     """Dynamic shared memory per block of the stream forward and backward,
-    bytes, by the formulas of ``csrc/lstm_stream_{fwd,bwd}.cu``."""
+    bytes, by the formulas of ``csrc/lstm_stream_{fwd,bwd}.cu``; with
+    ``bf16``, of the bfloat16-weight forms (the forward's rounded copy of
+    h besides)."""
     gates = 4 * hidden
     threads = min(-(-gates // 32) * 32, 1024)
     nsplit = max(threads // hidden, 1)
-    return (4 * STREAM_ROWS * (2 * hidden + gates),
+    return (4 * STREAM_ROWS * ((3 if bf16 else 2) * hidden + gates),
             4 * STREAM_ROWS * ((3 + nsplit) * hidden + gates))
 
 
@@ -195,11 +197,8 @@ def lstm_plain(xp: torch.Tensor, mask: torch.Tensor, wh: torch.Tensor,
     return _scan(xp, mask, wh, False, keep_gates, h0, c0)
 
 
-def _geometry(name: str, xp: torch.Tensor, wh: torch.Tensor,
-              ndir: int) -> Geometry:
-    hidden, batch = xp.shape[2] // 4, xp.shape[1]
-    return bf16_design(name, lstm_geometry(hidden, batch, ndir), wh, hidden,
-                       batch)
+def _geometry(xp: torch.Tensor, ndir: int) -> Geometry:
+    return lstm_geometry(xp.shape[2] // 4, xp.shape[1], ndir)
 
 
 def launch_fwd(geo: Geometry, xps: list, mask: torch.Tensor,
@@ -236,8 +235,8 @@ def launch_fwd(geo: Geometry, xps: list, mask: torch.Tensor,
                 *ptrs, *g_ptrs, *init, *dims, geo.ctas, geo.units, geo.rows,
                 stream(xps[0]))
         else:
-            err = _build.lib().asr_lstm_stream_fwd(*ptrs, *init, *dims,
-                                                   stream(xps[0]))
+            err = getattr(_build.lib(), f"asr_lstm_stream_fwd{form}")(
+                *ptrs, *init, *dims, stream(xps[0]))
     _build.check(err, f"{'bilstm' if ndir == 2 else 'lstm'}_fwd "
                       f"({geo.design}{form})")
     return outs + gates
@@ -264,7 +263,7 @@ def bilstm(xp_f: torch.Tensor, xp_b: torch.Tensor, mask: torch.Tensor,
     """
     check("bilstm", 4, mask, dict(xp_f=xp_f, xp_b=xp_b),
           dict(wh_f=wh_f, wh_b=wh_b), {})
-    geo = _geometry("bilstm", xp_f, wh_f, 2)
+    geo = _geometry(xp_f, 2)
     keep = residual and geo.design == "wide"
     if xp_f.device.type == "cpu":
         with torch.no_grad():
@@ -293,7 +292,7 @@ def lstm(xp: torch.Tensor, mask: torch.Tensor, wh: torch.Tensor,
     form."""
     check("lstm", 4, mask, dict(xp=xp), dict(wh=wh), {})
     check_carry("lstm", xp, 4, h0=h0, c0=c0)
-    geo = _geometry("lstm", xp, wh, 1)
+    geo = _geometry(xp, 1)
     keep = residual and geo.design == "wide"
     if xp.device.type == "cpu":
         with torch.no_grad():
@@ -403,7 +402,7 @@ def launch_bwd(geo: Geometry, xps: list, mask: torch.Tensor, whs: list,
             args = (xps[0], xps[-1], mask, whs[0], whs[-1], whts[0],
                     whts[-1], hs[0], cs[0], hs[-1], cs[-1], dhs[0], dhs[-1],
                     outs[0], outs[-1])
-            err = _build.lib().asr_lstm_stream_bwd(
+            err = getattr(_build.lib(), f"asr_lstm_stream_bwd{form}")(
                 *(t.data_ptr() for t in args), *dims, stream(xps[0]))
     _build.check(err, f"{'bilstm' if ndir == 2 else 'lstm'}_bwd "
                       f"({geo.design}{form})")
@@ -424,7 +423,7 @@ def bilstm_bwd(xp_f: torch.Tensor, xp_b: torch.Tensor, mask: torch.Tensor,
     check("bilstm_bwd", 4, mask, dict(xp_f=xp_f, xp_b=xp_b),
           dict(wh_f=wh_f, wh_b=wh_b),
           dict(h_f=h_f, c_f=c_f, h_b=h_b, c_b=c_b, dh_f=dh_f, dh_b=dh_b))
-    geo = _geometry("bilstm_bwd", xp_f, wh_f, 2)
+    geo = _geometry(xp_f, 2)
     check_res("bilstm_bwd", 4, geo, mask, dict(xp_f=xp_f, xp_b=xp_b), res,
               "g")
     if xp_f.device.type == "cpu":
@@ -453,7 +452,7 @@ def lstm_bwd(xp: torch.Tensor, mask: torch.Tensor, wh: torch.Tensor,
     returned them with ``residual=True``)."""
     check("lstm_bwd", 4, mask, dict(xp=xp), dict(wh=wh),
           dict(h=h, c=c, dh=dh))
-    geo = _geometry("lstm_bwd", xp, wh, 1)
+    geo = _geometry(xp, 1)
     check_res("lstm_bwd", 4, geo, mask, dict(xp=xp), res, "g")
     if xp.device.type == "cpu":
         with torch.no_grad():

@@ -41,18 +41,17 @@ autograd graph: gradients go through :class:`BiGRUFunction` and
 bfloat16 weights (``train --bf16``, the JAX trainer's ``compute_dtype``,
 under which ``pallas_bigru`` / ``pallas_gru`` run with a bfloat16 wh):
 ``wh`` may be bfloat16 in every wrapper, both directions alike, while xp,
-the mask, h and every cotangent stay float32.  The cluster and wide
-designs then launch their bfloat16-weight forms (the same sources, the
-``_bf16`` entry points): h_prev is rounded to bfloat16 where it enters
-``h_prev @ wh`` (and only there: the cell's ``z * h_prev`` and a held
-frame take it unrounded), the backward recomputes that product the same
-way and rounds ``dhp`` before ``dhp @ wh^T``, as the JAX kernels' ``_mm``
-does, each product taken in float32; dxp and dhp come out unrounded.  The
-plain twins round the same way (:func:`~asr_study_torch.models.nn.dot`),
-and ``dwh`` comes back bfloat16.  A bfloat16 call whose shape goes to the
-stream design raises (:data:`~asr_study_torch.ops.recurrence.BF16_ITEM`);
-``by_design`` counts bfloat16 launches under ``cluster_bf16`` and
-``wide_bf16``.
+the mask, h and every cotangent stay float32.  Every design then launches
+its bfloat16-weight form (the same sources, the ``_bf16`` entry points):
+h_prev is rounded to bfloat16 where it enters ``h_prev @ wh`` (and only
+there: the cell's ``z * h_prev`` and a held frame take it unrounded), the
+backward recomputes that product the same way and rounds ``dhp`` before
+``dhp @ wh^T``, as the JAX kernels' ``_mm`` does, each product taken in
+float32; dxp and dhp come out unrounded.  The plain twins round the same
+way (:func:`~asr_study_torch.models.nn.dot`), and ``dwh`` comes back
+bfloat16.  No bfloat16 call takes a float32 form;
+``by_design`` counts bfloat16 launches under ``cluster_bf16``,
+``wide_bf16`` and ``stream_bf16``.
 
 Gate order r, z, n with every bias folded into ``xp`` (valid because
 ``n = tanh((xn + bn) + r * hn)``).  Masked frames hold ``h``.  :func:`gru`
@@ -70,12 +69,11 @@ from asr_study_torch import _build
 from asr_study_torch.models.cells import gru_update
 from asr_study_torch.models.nn import dot
 from asr_study_torch.ops.recurrence import (STREAM_ROWS, WIDE_UNITS,
-                                            Geometry, bf16_design, check,
-                                            check_carry, check_res,
-                                            cluster_geometry, cotangent,
-                                            design_counts, design_key,
-                                            kernel_info, prev, r4, stream,
-                                            wide_geometry)
+                                            Geometry, check, check_carry,
+                                            check_res, cluster_geometry,
+                                            cotangent, design_counts,
+                                            design_key, kernel_info, prev,
+                                            r4, stream, wide_geometry)
 
 # The cluster kernels' thread shape (csrc/gru_{fwd,bwd}.cu kThreads and
 # kSlice): 384 threads a CTA, each holding 64 rows of one gate column, so at
@@ -125,13 +123,15 @@ def gru_wide_smem(rows: int, ctas: int) -> tuple[int, int]:
     return 4 * fwd, 4 * bwd
 
 
-def gru_stream_smem(hidden: int) -> tuple[int, int]:
+def gru_stream_smem(hidden: int, bf16: bool = False) -> tuple[int, int]:
     """Dynamic shared memory per block of the stream forward and backward,
-    bytes, by the formulas of ``csrc/gru_stream_{fwd,bwd}.cu``."""
+    bytes, by the formulas of ``csrc/gru_stream_{fwd,bwd}.cu``; with
+    ``bf16``, of the bfloat16-weight forms (the forward's rounded copy of
+    h besides)."""
     gates = 3 * hidden
     threads = min(-(-gates // 32) * 32, 1024)
     nsplit = max(threads // hidden, 1)
-    return (4 * STREAM_ROWS * (hidden + gates),
+    return (4 * STREAM_ROWS * ((2 if bf16 else 1) * hidden + gates),
             4 * STREAM_ROWS * ((2 + nsplit) * hidden + gates))
 
 
@@ -214,11 +214,8 @@ def gru_plain(xp: torch.Tensor, mask: torch.Tensor, wh: torch.Tensor,
     return out if keep_hg else out[0]
 
 
-def _geometry(name: str, xp: torch.Tensor, wh: torch.Tensor,
-              ndir: int) -> Geometry:
-    hidden, batch = xp.shape[2] // 3, xp.shape[1]
-    return bf16_design(name, gru_geometry(hidden, batch, ndir), wh, hidden,
-                       batch)
+def _geometry(xp: torch.Tensor, ndir: int) -> Geometry:
+    return gru_geometry(xp.shape[2] // 3, xp.shape[1], ndir)
 
 
 def launch_fwd(geo: Geometry, xps: list, mask: torch.Tensor,
@@ -254,8 +251,8 @@ def launch_fwd(geo: Geometry, xps: list, mask: torch.Tensor,
                 *ptrs, *hg_ptrs, init, *dims, geo.ctas, geo.units, geo.rows,
                 stream(xps[0]))
         else:
-            err = _build.lib().asr_gru_stream_fwd(*ptrs, init, *dims,
-                                                  stream(xps[0]))
+            err = getattr(_build.lib(), f"asr_gru_stream_fwd{form}")(
+                *ptrs, init, *dims, stream(xps[0]))
     _build.check(err, f"{'bigru' if ndir == 2 else 'gru'}_fwd "
                       f"({geo.design}{form})")
     return outs + hgs
@@ -283,7 +280,7 @@ def bigru(xp_f: torch.Tensor, xp_b: torch.Tensor, mask: torch.Tensor,
     """
     check("bigru", 3, mask, dict(xp_f=xp_f, xp_b=xp_b),
           dict(wh_f=wh_f, wh_b=wh_b), {})
-    geo = _geometry("bigru", xp_f, wh_f, 2)
+    geo = _geometry(xp_f, 2)
     keep = residual and geo.design == "wide"
     if xp_f.device.type == "cpu":
         with torch.no_grad():
@@ -310,7 +307,7 @@ def gru(xp: torch.Tensor, mask: torch.Tensor, wh: torch.Tensor,
     differentiable form."""
     check("gru", 3, mask, dict(xp=xp), dict(wh=wh), {})
     check_carry("gru", xp, 3, h0=h0)
-    geo = _geometry("gru", xp, wh, 1)
+    geo = _geometry(xp, 1)
     keep = residual and geo.design == "wide"
     if xp.device.type == "cpu":
         with torch.no_grad():
@@ -416,7 +413,7 @@ def launch_bwd(geo: Geometry, xps: list, mask: torch.Tensor, whs: list,
             whts = [w.t().contiguous() for w in whs]
             args = (xps[0], xps[-1], mask, whs[0], whs[-1], whts[0],
                     whts[-1], *tail)
-            err = _build.lib().asr_gru_stream_bwd(
+            err = getattr(_build.lib(), f"asr_gru_stream_bwd{form}")(
                 *(t.data_ptr() for t in args), t_steps, batch, hidden, ndir,
                 stream(xps[0]))
     _build.check(err, f"{'bigru' if ndir == 2 else 'gru'}_bwd "
@@ -441,7 +438,7 @@ def bigru_bwd(xp_f: torch.Tensor, xp_b: torch.Tensor, mask: torch.Tensor,
     check("bigru_bwd", 3, mask, dict(xp_f=xp_f, xp_b=xp_b),
           dict(wh_f=wh_f, wh_b=wh_b),
           dict(h_f=h_f, h_b=h_b, dh_f=dh_f, dh_b=dh_b))
-    geo = _geometry("bigru_bwd", xp_f, wh_f, 2)
+    geo = _geometry(xp_f, 2)
     check_res("bigru_bwd", 3, geo, mask, dict(xp_f=xp_f, xp_b=xp_b), res,
               "hg")
     if xp_f.device.type == "cpu":
@@ -469,7 +466,7 @@ def gru_bwd(xp: torch.Tensor, mask: torch.Tensor, wh: torch.Tensor,
     :func:`bigru_bwd` for one direction (h and ``res`` as :func:`gru`
     returned them with ``residual=True``)."""
     check("gru_bwd", 3, mask, dict(xp=xp), dict(wh=wh), dict(h=h, dh=dh))
-    geo = _geometry("gru_bwd", xp, wh, 1)
+    geo = _geometry(xp, 1)
     check_res("gru_bwd", 3, geo, mask, dict(xp=xp), res, "hg")
     if xp.device.type == "cpu":
         with torch.no_grad():

@@ -174,7 +174,7 @@ def _geometry(name: str, xpn: torch.Tensor, wh: torch.Tensor,
               ndir: int) -> Geometry:
     hidden, batch = xpn.shape[2] // 4, xpn.shape[1]
     return bf16_design(name, ln_geometry(hidden, batch, ndir), wh, hidden,
-                       batch, wide=False)
+                       batch)
 
 
 def launch_fwd(geo: Geometry, xpns: list, mask: torch.Tensor, whs: list,

@@ -162,7 +162,7 @@ def _geometry(name: str, xp: torch.Tensor, wh: torch.Tensor,
               ndir: int) -> Geometry:
     hidden, batch = xp.shape[2] // 4, xp.shape[1]
     return bf16_design(name, mi_geometry(hidden, batch, ndir), wh, hidden,
-                       batch, wide=False)
+                       batch)
 
 
 def _pairs(vecs: list, ndir: int) -> list:

@@ -6,7 +6,9 @@ unidirectional forward carries in), the stream, the
 scan-previous state of a sequence, the cotangent of an unused output, and
 the fit rules of the cluster-resident kernels (the LSTM's, the GRU's, the
 layer-norm, zoneout and MI LSTMs'; the wide rule, the LSTM's and the
-GRU's)."""
+GRU's), and the refusal of a bfloat16 call that goes to a design with no
+bfloat16-weight form (the layer-norm, zoneout and MI LSTMs' stream
+designs; every design of the LSTM and the GRU has one)."""
 
 from __future__ import annotations
 
@@ -53,8 +55,8 @@ WIDE_ROWS = (4, 8, 16)
 CLUSTER_MAX_HIDDEN = 256     # the widest H the cluster design takes
 
 # where bf16 compute (the JAX trainer's compute_dtype, train --bf16) waits
-# for the designs that have no bfloat16-weight kernels yet: every stream
-# design
+# for the designs that have no bfloat16-weight kernels yet: the layer-norm,
+# zoneout and MI LSTMs' stream designs (its item 2b)
 BF16_ITEM = "ROADMAP queue A item 5b"
 
 
@@ -122,22 +124,20 @@ def wide_geometry(hidden: int, batch: int, ndir: int,
 
 
 def bf16_design(name: str, geo: Geometry, wh: torch.Tensor, hidden: int,
-                batch: int, wide: bool = True) -> Geometry:
-    """``geo``, the layout of a call of the recurrence wrapper ``name``
-    with weights ``wh``; a bfloat16 call that it sends to the stream design
-    raises (that design has no bfloat16 form, and no call quietly takes
-    float32), saying what the bfloat16 forms take: the cluster design, and
-    the wide design where the cell has one (``wide``: the LSTM, the GRU)."""
+                batch: int) -> Geometry:
+    """``geo``, the layout of a call of the layer-norm, zoneout or MI LSTM
+    wrapper ``name`` with weights ``wh``; a bfloat16 call that it sends to
+    the stream design raises (that cell's stream design has no bfloat16
+    form, and no call quietly takes float32), saying what the bfloat16
+    forms take: the cluster design."""
     if wh.dtype == torch.bfloat16 and geo.design == "stream":
         rows = CLUSTER_BUDGET * CLUSTER_ROWS[-1]
-        reach = (f"the cluster and wide designs take H <= {WIDE_MAX_HIDDEN}"
-                 if wide else
-                 f"the cluster design takes H <= {CLUSTER_MAX_HIDDEN}")
         raise ValueError(
             f"{name}: bfloat16 weights at H={hidden}, B={batch}, "
             f"{geo.grid[2]} direction(s) go to the stream design, which has "
-            f"no bfloat16 form yet ({BF16_ITEM}); {reach} up to "
-            f"B={rows // 2} in two directions and B={rows} in one")
+            f"no bfloat16 form for this cell yet ({BF16_ITEM}); the cluster "
+            f"design takes H <= {CLUSTER_MAX_HIDDEN} up to B={rows // 2} in "
+            f"two directions and B={rows} in one")
     return geo
 
 
@@ -149,10 +149,10 @@ def design_key(geo: Geometry, wh: torch.Tensor) -> str:
 
 def design_counts() -> dict:
     """A fresh ``by_design`` of the LSTM, GRU, layer-norm, zoneout and MI
-    LSTM wrappers (the last three have no wide design: their wide counts
-    stay 0)."""
+    LSTM wrappers (the last three have no wide design and no bfloat16
+    stream form: those counts stay 0)."""
     return {"cluster": 0, "wide": 0, "stream": 0, "cluster_bf16": 0,
-            "wide_bf16": 0}
+            "wide_bf16": 0, "stream_bf16": 0}
 
 
 def kernel_info(name: str, geo: Geometry, batch: int, hidden: int

@@ -167,7 +167,7 @@ def _geometry(name: str, xp: torch.Tensor, wh: torch.Tensor,
               ndir: int) -> Geometry:
     hidden, batch = xp.shape[2] // 4, xp.shape[1]
     return bf16_design(name, zoneout_geometry(hidden, batch, ndir), wh,
-                       hidden, batch, wide=False)
+                       hidden, batch)
 
 
 def launch_fwd(geo: Geometry, xps: list, mask: torch.Tensor, zhs: list,

@@ -77,10 +77,13 @@ paths at full width, with random weights from a seeded
   kernels' bfloat16-weight forms) and deep_speech (the wide kernels'),
   each bidirectional and unidirectional, of deep_gru 3x256 (the GRU
   cluster kernels'), bidirectional and unidirectional, and 3x512 (the wide
-  GRU kernels'), of zoneout_blstm and mi_blstm 3x256 (the zoneout and MI
-  cluster kernels'), bidirectional and unidirectional, and ``cli.train
-  --bf16`` of deep_blstm, deep_gru, zoneout_blstm and mi_blstm on the
-  corpus manifest;
+  GRU kernels'), of zoneout_blstm, mi_blstm and ln_blstm 3x256 (their
+  cluster kernels'), bidirectional and unidirectional, of deep_blstm
+  3x256, deep_speech and deep_gru 3x256 at B=64 bidirectional (the LSTM
+  and GRU stream kernels' bfloat16-weight forms: ``--batch_size 64``), and
+  ``cli.train --bf16`` of deep_blstm, deep_gru, zoneout_blstm, mi_blstm
+  and ln_blstm on the corpus manifest, and of deep_blstm with
+  ``--batch_size 64``;
 - data parallelism (BASELINE config 5, ``train --num_devices``,
   ``Trainer(group=)``): deep_blstm 3x256 at B=32, T=512 in two ranks
   (``parallel.dp.launch``) that share the one card over gloo, which stages
@@ -159,27 +162,31 @@ Phases, in order; any failure raises and the exit code is not 0:
    the CPU, run twice bit for bit; accumulation over two halves against
    the whole batch; check_nans raising on a NaN batch with the weights
    untouched; fit(profile=True) writing a trace with the card's kernels;
-   then the bf16 phase: the twelve bfloat16-weight kernels (the cluster
-   and wide LSTM and GRU kernels, the cluster zoneout and MI LSTM kernels,
-   forward and backward) against their plain twins at T=512, B=32, H=256
-   and (LSTM, GRU) 512, one and two directions (h, c, the kept gates or h
-   side, dxp, the GRU's dhp, the MI dpre; dwh after its matmul; the
-   zoneout mix drawn once, Bernoulli(0.9), for kernel and twin), two
-   launches bit-equal, each timed beside its float32 form, its bound and
-   cuDNN ``nn.LSTM`` / ``nn.GRU`` in bfloat16 (no library call for zoneout
-   or MI); BF16_STEPS bf16 train steps of deep_blstm and deep_speech, each
+   then the bf16 phase: the eighteen bfloat16-weight kernels (the
+   cluster, wide and stream LSTM and GRU kernels, the cluster LN, zoneout
+   and MI LSTM kernels, forward and backward) against their plain twins
+   at T=512, B=32, H=256 and (LSTM, GRU) 512, one and two directions, and
+   the stream forms at B=64 in two directions at H=256 and 512 and at
+   B=128 in one at H=256 (h, c, the kept gates or h side, dxp, the GRU's
+   dhp, the MI dpre; dwh after its matmul; the zoneout mix drawn once,
+   Bernoulli(0.9), for kernel and twin), two launches bit-equal, each
+   timed beside its float32 form, its bound and cuDNN ``nn.LSTM`` /
+   ``nn.GRU`` in bfloat16 (no library call for LN, zoneout or MI);
+   BF16_STEPS bf16 train steps of deep_blstm and deep_speech, each
    bidirectional and with ``bidirectional=false``, of deep_gru 3x256 bi
-   and uni and 3x512, and of zoneout_blstm (rates 0.1) and mi_blstm 3x256
-   bi and uni, from the float32 slice's weights, their launches (the bf16
-   forms only), losses beside the float32 run's, two identical steps
-   bit-equal, ms a step;
+   and uni and 3x512, of zoneout_blstm (rates 0.1), mi_blstm and ln_blstm
+   3x256 bi and uni, and of deep_blstm, deep_speech and deep_gru 3x256 at
+   B=64 bi (the stream forms: train --bf16 --batch_size 64), from the
+   float32 slice's weights, their launches (the bf16 forms only), losses
+   beside the float32 run's, two identical steps bit-equal, ms a step;
 8. the corpus phase: each CLI run's launches held to what its steps and
    evals need, every logged loss finite and the train loss falling from
    the first epoch to the third, the step count continued by ``--resume``,
    eval's valid loss equal to the run's last ``val_loss``, finite test
    CER and WER, then ``train --bf16`` of deep_blstm, deep_gru,
-   zoneout_blstm and mi_blstm for an epoch each (the bf16 cluster forms in
-   every step); the host seconds of
+   zoneout_blstm, mi_blstm and ln_blstm for an epoch each (the bf16
+   cluster forms in every step) and of deep_blstm with ``--batch_size 64``
+   (the bf16 stream forms in every step); the host seconds of
    the synthesis and of the manifest's features, ms per train step (CUDA
    events) and audio-s/s, eval ms per batch; then the h5 phase on its
    corpus: make_dataset --output (host MFCC in both layouts, raw, and
@@ -3247,6 +3254,15 @@ KERNELS = {
                             "ops/pallas_bi_ln_lstm.py:81"),
     "ln_lstm_fwd_bf16": ("ln_lstm_fwd.cu", "ops/pallas_ln_lstm.py:106"),
     "ln_lstm_bwd_bf16": ("ln_lstm_bwd.cu", "ops/pallas_ln_lstm.py:198"),
+    # the LSTM's and the GRU's stream design on a bfloat16 wh (train --bf16
+    # at the batches no resident design takes, as --batch_size 64 in two
+    # directions), the same sources
+    "bilstm_fwd_stream_bf16": ("lstm_stream_fwd.cu",
+                               "ops/pallas_bilstm.py:84"),
+    "bilstm_bwd_stream_bf16": ("lstm_stream_bwd.cu",
+                               "ops/pallas_bilstm.py:125"),
+    "bigru_fwd_stream_bf16": ("gru_stream_fwd.cu", "ops/pallas_bigru.py:69"),
+    "bigru_bwd_stream_bf16": ("gru_stream_bwd.cu", "ops/pallas_bigru.py:92"),
 }
 # kernel line row of the wide design -> the wrapper that launches it
 WIDE_ROWS = {"bilstm_fwd_wide": "bilstm_fwd", "bilstm_bwd_wide": "bilstm_bwd",
@@ -3258,11 +3274,11 @@ WIDE_ROWS = {"bilstm_fwd_wide": "bilstm_fwd", "bilstm_bwd_wide": "bilstm_bwd",
 # it, its by_design key); the LSTM's and the GRU's unidirectional rows are
 # counted but not in the kernels line, whose bf16 rows of theirs are the
 # bidirectional ones
-BF16_ROWS = {**{f"{w}{wide}_bf16": (w, ("wide" if wide else "cluster")
-                                    + "_bf16")
+BF16_ROWS = {**{f"{w}{suffix}_bf16": (w, design + "_bf16")
                 for w in ("bilstm_fwd", "bilstm_bwd", "lstm_fwd", "lstm_bwd",
                           "bigru_fwd", "bigru_bwd", "gru_fwd", "gru_bwd")
-                for wide in ("", "_wide")},
+                for suffix, design in (("", "cluster"), ("_wide", "wide"),
+                                       ("_stream", "stream"))},
              **{f"{w}_bf16": (w, "cluster_bf16")
                 for w in ("bi_zoneout_lstm_fwd", "bi_zoneout_lstm_bwd",
                           "zoneout_lstm_fwd", "zoneout_lstm_bwd",
@@ -3505,11 +3521,11 @@ def check_reproducible(path: str, make, spec, batch, dev,
     require(same, f"{path}: two identical train steps differ")
 
 
-def train_host() -> tuple:
-    """The training paths' batch (config-3 shapes, from SEED) as numpy
+def train_host(seed: int = SEED) -> tuple:
+    """The training paths' batch (config-3 shapes, from ``seed``) as numpy
     arrays: features [B, T, F], frame lengths, labels, label lengths,
     weights."""
-    rng = np.random.RandomState(SEED)
+    rng = np.random.RandomState(seed)
     return (rng.randn(TRAIN_B, TRAIN_T, FEATS).astype(np.float32),
             np.full(TRAIN_B, TRAIN_T, np.int32),
             rng.randint(0, NUM_CLASSES, (TRAIN_B, TRAIN_L)).astype(np.int32),
@@ -5581,6 +5597,26 @@ BF16_PATHS = {
                      f"{TRAIN_LAYERS}x{HIDDEN} unidirectional LN LSTM"),
 }
 BF16_STEPS = 5
+# the bfloat16 phase at the stream design's batch (train --bf16
+# --batch_size 64: no resident design takes B=64 in two directions at any
+# width of the zoo): label -> as BF16_PATHS, trained on BF16_STREAM_B rows
+BF16_STREAM_B = 64
+BF16_STREAM_PATHS = {
+    "deep_blstm b64": ("deep_blstm", _CONFIG3, "bilstm_fwd_stream_bf16",
+                       "bilstm_bwd_stream_bf16", TRAIN_LAYERS,
+                       f"{TRAIN_LAYERS}x{HIDDEN} BLSTM"),
+    "deep_speech b64": ("deep_speech", "dropout=0.0,input_dropout=0.0",
+                        "bilstm_fwd_stream_bf16", "bilstm_bwd_stream_bf16",
+                        1, "3x512 dense + 1x512 BLSTM"),
+    "deep_gru b64": ("deep_gru", _CONFIG3, "bigru_fwd_stream_bf16",
+                     "bigru_bwd_stream_bf16", TRAIN_LAYERS,
+                     f"{TRAIN_LAYERS}x{HIDDEN} BGRU"),
+}
+# the LSTM's and the GRU's bfloat16 stream forms held against their twins
+# at T=TRAIN_T: (H, B, directions), two directions at the zoo's 256 and 512
+# units and B=BF16_STREAM_B, one direction at B=128
+BF16_STREAM_CASES = ((HIDDEN, BF16_STREAM_B, (2,)), (512, BF16_STREAM_B, (2,)),
+                     (HIDDEN, 128, (1,)))
 
 
 def bf16_library(cell: str, hidden: int, ndir: int, t: int, b: int, dev,
@@ -5706,36 +5742,49 @@ class Bf16Family:
     def plain(self, xs, mask, ws, outs, dh, res) -> tuple:
         """(the forward's outputs with the wide design's res, the
         backward's) of the plain twins; the wide backward from res."""
+        return (self.plain_fwd(xs, mask, ws, res),
+                self.plain_bwd(xs, mask, ws, outs, dh, res))
+
+    def plain_fwd(self, xs, mask, ws, res) -> tuple:
+        """The forward's plain twin: its outputs, with the wide design's
+        res where ``res`` is not empty."""
         m, wide, bi = self.mod, bool(res), len(xs) == 2
         if self.resident:
-            args = self._args(xs, mask, ws)
             name = self.names[0 if bi else 1]
-            fwd = getattr(m, f"{name}_plain")
-            bwd = getattr(m, f"{name}_bwd_plain")
-            d = bwd(*args, *outs, *dh)
-            return fwd(*args), (d if isinstance(d, tuple) else (d,))
+            return getattr(m, f"{name}_plain")(*self._args(xs, mask, ws))
         if self.cell == "lstm":
             if bi:
-                f = m.bilstm_plain(*xs, mask, *ws, keep_gates=wide)
-                d = (m.bilstm_bwd_gates_plain(*res, mask, *ws, outs[1],
-                                              outs[3], *dh) if wide else
-                     m.bilstm_bwd_plain(*xs, mask, *ws, *outs, *dh))
-                return f, d
-            f = m.lstm_plain(xs[0], mask, ws[0], keep_gates=wide)
-            d = ((m.lstm_bwd_gates_plain(*res, mask, ws[0], outs[1],
-                                         dh[0]),) if wide else
-                 (m.lstm_bwd_plain(xs[0], mask, ws[0], *outs, dh[0]),))
-            return f, d
+                return m.bilstm_plain(*xs, mask, *ws, keep_gates=wide)
+            return m.lstm_plain(xs[0], mask, ws[0], keep_gates=wide)
         if bi:
-            f = m.bigru_plain(*xs, mask, *ws, keep_hg=wide)
-            d = (m.bigru_bwd_res_plain(*xs, *res, mask, *ws, *outs, *dh)
-                 if wide else m.bigru_bwd_plain(*xs, mask, *ws, *outs, *dh))
-            return f, d
+            return m.bigru_plain(*xs, mask, *ws, keep_hg=wide)
         f = m.gru_plain(xs[0], mask, ws[0], keep_hg=wide)
-        d = (m.gru_bwd_res_plain(xs[0], *res, mask, ws[0], outs[0], dh[0])
-             if wide else m.gru_bwd_plain(xs[0], mask, ws[0], outs[0],
-                                          dh[0]))
-        return (f if wide else (f,)), d
+        return f if wide else (f,)
+
+    def plain_bwd(self, xs, mask, ws, outs, dh, res) -> tuple:
+        """The backward's plain twin from the kernel forward's ``outs``
+        (the wide design's from res): its outputs."""
+        m, wide, bi = self.mod, bool(res), len(xs) == 2
+        if self.resident:
+            name = self.names[0 if bi else 1]
+            d = getattr(m, f"{name}_bwd_plain")(*self._args(xs, mask, ws),
+                                                *outs, *dh)
+            return d if isinstance(d, tuple) else (d,)
+        if self.cell == "lstm":
+            if bi:
+                return (m.bilstm_bwd_gates_plain(*res, mask, *ws, outs[1],
+                                                 outs[3], *dh) if wide else
+                        m.bilstm_bwd_plain(*xs, mask, *ws, *outs, *dh))
+            return ((m.lstm_bwd_gates_plain(*res, mask, ws[0], outs[1],
+                                            dh[0]),) if wide else
+                    (m.lstm_bwd_plain(xs[0], mask, ws[0], *outs, dh[0]),))
+        if bi:
+            return (m.bigru_bwd_res_plain(*xs, *res, mask, *ws, *outs, *dh)
+                    if wide else m.bigru_bwd_plain(*xs, mask, *ws, *outs,
+                                                   *dh))
+        return (m.gru_bwd_res_plain(xs[0], *res, mask, ws[0], outs[0], dh[0])
+                if wide else m.gru_bwd_plain(xs[0], mask, ws[0], outs[0],
+                                             dh[0]))
 
     def dwh(self, xs, ws, outs, d, i) -> torch.Tensor:
         """dwh of direction i (bfloat16 with a bfloat16 wh) from the
@@ -5815,8 +5864,8 @@ def ln_bf16_held(fam: Bf16Family, xs, mask, ws, dh, outs, d_k, d_p
         cpu = lambda ts: [a.cpu() for a in ts]            # noqa: E731
         ex, fam.ex = fam.ex, [cpu(e) for e in fam.ex]
         try:
-            g_cpu = fam.plain(cpu(xs_c), mask_c.cpu(), cpu(ws), cpu(o_k),
-                              cpu(dh_c), ())[1]
+            g_cpu = fam.plain_bwd(cpu(xs_c), mask_c.cpu(), cpu(ws),
+                                  cpu(o_k), cpu(dh_c), ())
         finally:
             fam.ex = ex
         dwh = [[fam.dwh(xs_c, ws, o_k, d, i) for i in range(len(xs))]
@@ -5845,11 +5894,13 @@ def ln_bf16_held(fam: Bf16Family, xs, mask, ws, dh, outs, d_k, d_p
 
 def check_bf16_kernels(dev: torch.device, card: str, cell: str) -> dict:
     """The bfloat16-weight forms of the LSTM (``cell`` "lstm") or the GRU
-    ("gru"): cluster and wide, at H=256 and H=512, or of the layer-norm,
-    zoneout or MI LSTM ("ln_lstm", "zoneout_lstm", "mi_lstm"): cluster, at
-    H=256; forward and backward, each over one and two directions, against
-    their plain twins on the card at the training shapes T=TRAIN_T,
-    B=TRAIN_B: h (c; the wide design's kept gates or h side) and the
+    ("gru"): cluster and wide, at H=256 and H=512, and stream at
+    BF16_STREAM_CASES, or of the layer-norm, zoneout or MI LSTM
+    ("ln_lstm", "zoneout_lstm", "mi_lstm"): cluster, at H=256; forward and
+    backward, each over one and two directions (the stream cases: as
+    listed), against their plain twins on the card at the training shapes
+    T=TRAIN_T, B=TRAIN_B (the stream cases: their B): h (c; the wide
+    design's kept gates or h side) and the
     backward's outputs (dxp; the GRU's dhp too; the LN's dpre and dcn; the
     MI dpre) within BF16_ATOL + BF16_RTOL * |plain|, dwh in bfloat16
     within BF16_DWH_FRAC of its max abs (the LN's as ln_bf16_held holds
@@ -5857,15 +5908,19 @@ def check_bf16_kernels(dev: torch.device, card: str, cell: str) -> dict:
     on the same inputs, its bound and cuDNN ``nn.LSTM`` / ``nn.GRU`` in
     bfloat16 (none for the LN, zoneout and MI LSTMs).  -> the kernel
     line's entries of the bidirectional forms (the LN, zoneout and MI
-    LSTMs': of both)."""
+    LSTMs': of both; a row's first shape, so the stream rows' H=256,
+    B=BF16_STREAM_B)."""
     fam = Bf16Family(cell)
     errs, times, bounds, library = {}, {}, {}, {}
     g = torch.Generator().manual_seed(SEED + {"lstm": 24, "gru": 26,
                                               "zoneout_lstm": 27,
                                               "mi_lstm": 28,
                                               "ln_lstm": 29}[cell])
-    t, b, gates = TRAIN_T, TRAIN_B, fam.gates
-    for hidden in fam.widths:
+    t, gates = TRAIN_T, fam.gates
+    cases = [(hidden, TRAIN_B, (2, 1)) for hidden in fam.widths]
+    if not fam.resident:
+        cases += BF16_STREAM_CASES
+    for hidden, b, ndirs in cases:
         xps = [torch.randn(t, b, gates * hidden, generator=g).to(dev)
                for _ in range(2)]
         w32 = [(torch.randn(hidden, gates * hidden, generator=g)
@@ -5878,10 +5933,12 @@ def check_bf16_kernels(dev: torch.device, card: str, cell: str) -> dict:
                for _ in range(2)]
         fam.extras(g, t, b, hidden, dev)
         lib = {n: (None, None) if fam.resident else
-               bf16_library(cell, hidden, n, t, b, dev) for n in (2, 1)}
-        for ndir in (2, 1):
+               bf16_library(cell, hidden, n, t, b, dev) for n in ndirs}
+        for ndir in ndirs:
             geo = fam.geometry(hidden, b, ndir)
             wide = geo.design == "wide"
+            # the stream forms take 10-20x the resident ones' time a call
+            reps = 3 if geo.design == "stream" else 10
             xs, dh = xps[:ndir], dhs[:ndir]
             ws16, ws32 = w16[:ndir], w32[:ndir]
             key = geo.design + "_bf16"
@@ -5950,17 +6007,18 @@ def check_bf16_kernels(dev: torch.device, card: str, cell: str) -> dict:
             with torch.no_grad():
                 *outs32, res32 = fam.fwd(xs, mask, ws32, residual=True)
                 ms = {"bf16_fwd": cuda_ms(lambda: fam.fwd(xs, mask, ws16),
-                                          10),
-                      "f32_fwd": cuda_ms(lambda: fam.fwd(xs, mask, ws32), 10),
+                                          reps),
+                      "f32_fwd": cuda_ms(lambda: fam.fwd(xs, mask, ws32),
+                                         reps),
                       "bf16_bwd": cuda_ms(lambda: fam.bwd(
-                          xs, mask, ws16, outs, dh, res), 10),
+                          xs, mask, ws16, outs, dh, res), reps),
                       "f32_bwd": cuda_ms(lambda: fam.bwd(
-                          xs, mask, ws32, outs32, dh, res32), 10)}
+                          xs, mask, ws32, outs32, dh, res32), reps)}
                 plain_ms = {
-                    "fwd": cuda_ms(lambda: fam.plain(xs, mask, ws16, outs,
-                                                     dh, res)[0], 1, 0),
-                    "bwd": cuda_ms(lambda: fam.plain(xs, mask, ws16, outs,
-                                                     dh, res)[1], 1, 0)}
+                    "fwd": cuda_ms(lambda: fam.plain_fwd(xs, mask, ws16,
+                                                         res), 1, 0),
+                    "bwd": cuda_ms(lambda: fam.plain_bwd(
+                        xs, mask, ws16, outs, dh, res), 1, 0)}
             # the bound at the card's rate for bfloat16 products into
             # float32 (the tensor cores'), and at the fp32 FMA rate the
             # kernels' own products run at
@@ -5991,9 +6049,10 @@ def check_bf16_kernels(dev: torch.device, card: str, cell: str) -> dict:
                   f"{f_fwd[0]:.4f} / {f_bwd[0]:.4f} ms at the fp32 FMA "
                   f"rate; plain twins {plain_ms['fwd']:.4f} / "
                   f"{plain_ms['bwd']:.4f} ms; {library_text}")
-            if ndir == 2 or fam.resident:
-                row = (fam.names[2 - ndir] + "_{}" + ("_wide" if wide else "")
-                       + "_bf16")
+            suffix = {"wide": "_wide", "stream": "_stream"}.get(geo.design,
+                                                                "")
+            row = f"{fam.names[2 - ndir]}_{{}}{suffix}_bf16"
+            if (ndir == 2 or fam.resident) and row.format("fwd") not in errs:
                 for kind, err in (("fwd", err_f), ("bwd", err_b)):
                     errs[row.format(kind)] = err
                     times[row.format(kind)] = (ms[f"bf16_{kind}"],
@@ -6009,15 +6068,20 @@ def check_bf16_kernels(dev: torch.device, card: str, cell: str) -> dict:
 def bf16_train_path(dev: torch.device, card: str, path: str) -> dict:
     """BF16_STEPS bfloat16 train steps (``Trainer(compute_dtype=
     torch.bfloat16)``) of one of BF16_PATHS at the config-3 shapes of
-    ``training_slice``, from the float32 slice's initial weights, counted
-    from 0: launches of the bfloat16 forms only, held to the steps; losses
-    finite, printed beside BF16_STEPS float32 steps' from the same weights;
-    two identical bfloat16 steps bit-equal; ms a step of each by CUDA
-    events; the masters and the optimizer's state float32."""
+    ``training_slice`` (or of BF16_STREAM_PATHS on BF16_STREAM_B rows: the
+    config-3 batch and the one train_host draws from the next seed), from
+    the float32 slice's initial weights, counted from 0: launches of the
+    bfloat16 forms only, held to the steps; losses finite, printed beside
+    BF16_STEPS float32 steps' from the same weights; two identical
+    bfloat16 steps bit-equal; ms a step of each by CUDA events; the
+    masters and the optimizer's state float32."""
     from asr_study_torch.models.zoo import build_model
     from asr_study_torch.train.trainer import Trainer, make_optimizer
 
-    model_name, hp, fwd_row, bwd_row, layers, desc = BF16_PATHS[path]
+    stream = path in BF16_STREAM_PATHS
+    model_name, hp, fwd_row, bwd_row, layers, desc = (
+        BF16_STREAM_PATHS if stream else BF16_PATHS)[path]
+    rows = BF16_STREAM_B if stream else TRAIN_B
 
     def make(device, seed=SEED):
         return build_model(model_name, hp, num_classes=NUM_CLASSES,
@@ -6026,7 +6090,10 @@ def bf16_train_path(dev: torch.device, card: str, path: str) -> dict:
                            device=device)
 
     spec = make_optimizer("adam", 1e-4, 400.0)
-    batch = [torch.from_numpy(a).to(dev) for a in train_host()]
+    hosts = [train_host(SEED + k) for k in range(rows // TRAIN_B)]
+    batch = [torch.from_numpy(np.concatenate(parts)).to(dev)
+             for parts in zip(*hosts)]
+    audio_per_step = AUDIO_PER_STEP * rows / TRAIN_B
     runs = {}
     for dtype in (torch.bfloat16, None):
         trainer = Trainer(make(dev), spec, compute_dtype=dtype)
@@ -6038,7 +6105,7 @@ def bf16_train_path(dev: torch.device, card: str, path: str) -> dict:
         torch.cuda.synchronize()
         launches = read_counts()
         check_designs(f"{path} {'bf16' if dtype else 'float32'} train",
-                      trainer.model.rnn.layers[0].rnn.hidden, TRAIN_B,
+                      trainer.model.rnn.layers[0].rnn.hidden, rows,
                       2 * TRAIN_L + 1, bf16=dtype is not None)
         ms = cuda_ms(lambda: trainer.train_step(state, *batch, gen), 5)
         runs[dtype] = (launches, torch.stack(losses).cpu(), ms, trainer,
@@ -6046,7 +6113,7 @@ def bf16_train_path(dev: torch.device, card: str, path: str) -> dict:
     launches, losses, ms, trainer, state = runs[torch.bfloat16]
     want = {fwd_row: layers * BF16_STEPS, bwd_row: layers * BF16_STEPS,
             "ctc_alpha": BF16_STEPS, "ctc_beta": BF16_STEPS}
-    print(f"bf16 train: {path} {desc} B={TRAIN_B} T={TRAIN_T} L={TRAIN_L},"
+    print(f"bf16 train: {path} {desc} B={rows} T={TRAIN_T} L={TRAIN_L},"
           f" adam 1e-4 clip 400, compute_dtype bfloat16; launches over "
           f"{BF16_STEPS} steps {launches}; the float32 run's "
           f"{runs[None][0]}")
@@ -6067,9 +6134,9 @@ def bf16_train_path(dev: torch.device, card: str, path: str) -> dict:
           f"{abs(float(losses[0]) / float(f32[0]) - 1):.3e})")
     check_reproducible(f"{path} bf16", make, spec, batch, dev,
                        compute_dtype=torch.bfloat16)
-    print(f"[{card}] {path} bf16 train step ({desc}, B={TRAIN_B}, "
+    print(f"[{card}] {path} bf16 train step ({desc}, B={rows}, "
           f"T={TRAIN_T}, L={TRAIN_L}): {ms:.4f} ms/step, "
-          f"{AUDIO_PER_STEP / (ms / 1e3):.1f} audio-s/s; float32 "
+          f"{audio_per_step / (ms / 1e3):.1f} audio-s/s; float32 "
           f"{runs[None][2]:.4f} ms/step ({ms / runs[None][2]:.3f}x)")
     return launches
 
@@ -6081,36 +6148,43 @@ BF16_CLI_RNN = {"deep_blstm": "bilstm", "deep_gru": "bigru",
                 "ln_blstm": "bi_ln_lstm"}
 
 
-def bf16_cli_run(card: str, tmp: str, manifest: str, model: str) -> dict:
-    """``train --bf16 --model <model>`` (one of BF16_CLI_RNN, zoo defaults:
-    3x256, bidirectional) for one epoch on the corpus phase's manifest
-    through ``cli.train.main``, counted from 0: the bfloat16 cluster forms
-    launched for every train step and the float32 ones for the validation,
-    finite losses, ``hparams["bf16"]``."""
+def bf16_cli_run(card: str, tmp: str, manifest: str, model: str,
+                 batch: int = CORPUS_B) -> dict:
+    """``train --bf16 --model <model> --batch_size <batch>`` (one of
+    BF16_CLI_RNN, zoo defaults: 3x256, bidirectional) for one epoch on the
+    corpus phase's manifest through ``cli.train.main``, counted from 0:
+    the bfloat16 forms of the design the batch takes (cluster at
+    CORPUS_B, stream at BF16_STREAM_B) launched for every train step and
+    the float32 ones for the validation, finite losses,
+    ``hparams["bf16"]``."""
     from asr_study_torch.cli import train as cli_train
+    from asr_study_torch.ops.bilstm import lstm_geometry
 
-    run_dir = os.path.join(tmp, f"bf16_run_{model}")
+    run_dir = os.path.join(tmp, f"bf16_run_{model}_b{batch}")
     tap = CliTap()
     reset_counts()
     t0 = time.perf_counter()
     with tap.record(), contextlib.redirect_stdout(io.StringIO()):
         require(cli_train.main([
             "--dataset", manifest, "--model", model, "--batch_size",
-            str(CORPUS_B), "--seed", str(SEED), "--log_every", "5",
+            str(batch), "--seed", str(SEED), "--log_every", "5",
             "--save", run_dir, "--epochs", "1", "--bf16"]) == 0,
-            f"train --bf16 --model {model} failed")
+            f"train --bf16 --model {model} --batch_size {batch} failed")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_counts()
     its = dict(tap.flows)
     spe, v_b = its["train"].steps_per_epoch, its["valid"].steps_per_epoch
     rnn = BF16_CLI_RNN[model]
-    want = {f"{rnn}_fwd_bf16": TRAIN_LAYERS * spe,
-            f"{rnn}_bwd_bf16": TRAIN_LAYERS * spe,
+    # every batch is padded to its full rows: one design for all of them
+    suffix = "_stream" if lstm_geometry(HIDDEN, batch, 2).design == \
+        "stream" else ""
+    want = {f"{rnn}_fwd{suffix}_bf16": TRAIN_LAYERS * spe,
+            f"{rnn}_bwd{suffix}_bf16": TRAIN_LAYERS * spe,
             f"{rnn}_fwd": TRAIN_LAYERS * v_b, "ctc_alpha": spe + v_b,
             "ctc_beta": spe}
-    require(launches == want, f"train --bf16 --model {model} launches "
-                              f"{launches}, want {want}")
+    require(launches == want, f"train --bf16 --model {model} --batch_size "
+                              f"{batch} launches {launches}, want {want}")
     with open(os.path.join(run_dir, "meta.json")) as f:
         meta = json.load(f)
     losses = [float(v) for v in tap.losses]
@@ -6118,15 +6192,16 @@ def bf16_cli_run(card: str, tmp: str, manifest: str, model: str) -> dict:
             and all(math.isfinite(v) for v in losses)
             and all(math.isfinite(v) for h in meta["history"]
                     for v in h.values()),
-            f"train --bf16 --model {model}: {meta['history']}")
+            f"train --bf16 --model {model} --batch_size {batch}: "
+            f"{meta['history']}")
     step_ms, by_t = CliTap.ms(tap.steps)
     print(f"corpus train --bf16 ({model} zoo defaults, 1 epoch x {spe} "
-          f"steps, B={CORPUS_B}): launches {launches}; losses "
+          f"steps, B={batch}): launches {launches}; losses "
           f"{[round(v, 3) for v in losses]}; history {meta['history']}; "
           f"{wall:.1f} s wall")
-    print(f"[{card}] corpus train --bf16 --model {model} step, CUDA events: "
-          f"{np.mean(step_ms[1:]):.4f} ms/step mean after the first "
-          f"({step_ms[0]:.4f}); by bucket {by_t}")
+    print(f"[{card}] corpus train --bf16 --model {model} --batch_size "
+          f"{batch} step, CUDA events: {np.mean(step_ms[1:]):.4f} ms/step "
+          f"mean after the first ({step_ms[0]:.4f}); by bucket {by_t}")
     return launches
 
 
@@ -6434,12 +6509,21 @@ def main() -> int:
           f"({16 * -(-s_len // 32)} B static at S={s_len}; the block design "
           f"{4 * 2 * s_len} B and {4 * 4 * s_len} B)")
     print_cluster_geometry()
+    from asr_study_torch.ops.bilstm import stream_smem
+    from asr_study_torch.ops.gru import gru_stream_smem
     for hidden in (HIDDEN, 512):
         fwd_b, bwd_b, nsplit = ln_smem(hidden)
         print(f"  dynamic shared memory per block at H={hidden} of the "
               f"layer-norm LSTM's stream route: ln_lstm_stream_fwd (both "
               f"forms) {fwd_b} B (4 rows), ln_lstm_stream_bwd {bwd_b} B (4 "
               f"rows, {nsplit} partial sums), raised at each launch")
+        print(f"  the same of the LSTM's and the GRU's stream forms "
+              f"(float32 / bfloat16 weights): lstm_stream_fwd "
+              f"{stream_smem(hidden)[0]} / {stream_smem(hidden, True)[0]} "
+              f"B, lstm_stream_bwd {stream_smem(hidden)[1]} B (both), "
+              f"gru_stream_fwd {gru_stream_smem(hidden)[0]} / "
+              f"{gru_stream_smem(hidden, True)[0]} B, gru_stream_bwd "
+              f"{gru_stream_smem(hidden)[1]} B (both)")
 
     # 3. kernels against their plain versions at main-path shapes ---------
     rng = np.random.RandomState(SEED)
@@ -6740,17 +6824,17 @@ def main() -> int:
     clock.mark("training paths")
     path_launches += optimizer_phase(dev, card)
     clock.mark("optimizer phase")
-    # the bfloat16 phase (train --bf16): the LSTM's and the GRU's four
+    # the bfloat16 phase (train --bf16): the LSTM's and the GRU's six
     # bfloat16-weight forms and the LN, zoneout and MI LSTMs' two each
     # against their twins, then bf16 train steps of deep_blstm (cluster)
     # and deep_speech (wide), bi and uni, deep_gru 3x256 (cluster) bi and
     # uni and 3x512 (wide), zoneout_blstm, mi_blstm and ln_blstm 3x256 bi
-    # and uni
+    # and uni, and of deep_blstm, deep_speech and deep_gru at B=64 (stream)
     bf16_kernels = check_bf16_kernels(dev, card, "lstm")
     for cell in ("gru", "zoneout_lstm", "mi_lstm", "ln_lstm"):
         for key, found in check_bf16_kernels(dev, card, cell).items():
             bf16_kernels[key].update(found)
-    for path in BF16_PATHS:
+    for path in (*BF16_PATHS, *BF16_STREAM_PATHS):
         path_launches.append(bf16_train_path(dev, card, path))
     clock.mark("bf16 phase")
 
@@ -6767,6 +6851,9 @@ def main() -> int:
             with part(f"train --bf16 --model {model} CLI"):
                 path_launches.append(bf16_cli_run(card, tmp, manifest,
                                                   model))
+        with part(f"train --bf16 --batch_size {BF16_STREAM_B} CLI"):
+            path_launches.append(bf16_cli_run(card, tmp, manifest,
+                                              "deep_blstm", BF16_STREAM_B))
         clock.mark("corpus phase")
         # 11. the dp phase on the corpus's train split
         path_launches += dp_phase(card, tmp, train_it)

@@ -2,11 +2,12 @@
 held against the JAX package: ``BiGRUFunction`` and ``GRUFunction`` with a
 bfloat16 ``wh`` (the plain twins of the GRU kernels' bfloat16-weight
 forms) against ``pallas_bigru`` / ``pallas_gru`` with one in interpret
-mode, ``Trainer(compute_dtype=torch.bfloat16)`` steps of ``deep_gru``
-against the JAX ``Trainer(compute_dtype=jnp.bfloat16)`` on its Pallas
-route (``RNN_BACKEND = "pallas"``, as ``tests/test_torch_bf16.py`` runs the
-LSTM's), the float32 recurrence unchanged bit for bit, and the refusal of
-a bfloat16 shape that goes to the stream design."""
+mode, at the cluster, wide and stream designs' shapes,
+``Trainer(compute_dtype=torch.bfloat16)`` steps of ``deep_gru`` against the
+JAX ``Trainer(compute_dtype=jnp.bfloat16)`` on its Pallas route
+(``RNN_BACKEND = "pallas"``, as ``tests/test_torch_bf16.py`` runs the
+LSTM's), at batches of the cluster and stream designs, and the float32
+recurrence unchanged bit for bit."""
 
 import copy
 
@@ -18,7 +19,7 @@ import torch
 
 from asr_study_torch.models.zoo import build_model
 from asr_study_torch.ops import gru as G
-from asr_study_torch.ops.recurrence import BF16_ITEM, prev
+from asr_study_torch.ops.recurrence import prev
 from asr_study_torch.train.trainer import Trainer, make_optimizer
 from asr_study_torch.utils.weights import params_from_flat
 from asr_study_tpu.models import rnn as jrnn
@@ -28,36 +29,10 @@ from asr_study_tpu.ops import pallas_gru as jg
 from asr_study_tpu.train import trainer as jtrainer
 from extras.export_weights import _flatten as flatten_params
 from tests.test_torch_bf16 import (CLASSES, FEATS, GRAD_FRAC, LOSS_RTOL,
-                                   VALUE_TOL, _batch, _bf16_exact,
-                                   _close_frac)
+                                   _batch, _bf16_exact, _close_frac,
+                                   _close_with_flips, _stream_inputs)
 
 BF16 = torch.bfloat16
-# The packages sum h_prev @ wh in other orders, so an h_prev within a
-# float32 ulp of a bfloat16 rounding boundary may round apart: one product
-# then moves by a bfloat16 ulp of its operand and the recurrence carries
-# the difference for a few steps (measured at bi H=16, where one such flip
-# gives 1.9e-5 on h and 1.4e-4 on dxp, |dxp| up to 3.5; 1.5e-7 and 4.8e-7,
-# VALUE_TOL's order, in the other cases).  So every element is held within
-# FLIP_ATOL + VALUE_TOL's rtol, and all but FLIP_SHARE of them within
-# VALUE_TOL: a rounding in the wrong place (h_prev rounded in the cell's
-# z * h_prev, dhp not rounded before its product) moves most elements by
-# about 1e-3.
-FLIP_ATOL = 1e-3
-FLIP_SHARE = 0.05
-
-
-def _close_with_flips(got, want, what):
-    got = np.asarray(got, np.float32)
-    want = np.asarray(want, np.float32)
-    err = np.abs(got - want)
-    tight = VALUE_TOL["atol"] + VALUE_TOL["rtol"] * np.abs(want)
-    assert (err <= FLIP_ATOL + VALUE_TOL["rtol"] * np.abs(want)).all(), (
-        f"{what}: max err {err.max():.3e}")
-    share = float((err > tight).mean())
-    assert share <= FLIP_SHARE, f"{what}: {share:.3f} of the elements " \
-                                f"beyond VALUE_TOL (max err {err.max():.3e})"
-
-
 def _gru_inputs(seed, t, b, h):
     """xp_f, xp_b [T,B,3H], a mask with held frames [T,B,1], wh_f, wh_b
     [H,3H] float32, and the cotangents of h_f, h_b."""
@@ -215,10 +190,13 @@ def test_float32_gru_unchanged(ndir):
 
 # -- the train step ----------------------------------------------------------
 
+# (hparams, batch): the cluster design's batch (B=3), and B=50 in two
+# directions, the stream design's
 GRU_STEP_CASES = {
-    "deep_gru": "num_hiddens=8,num_layers=2,dropout=0.0",
-    "deep_gru_uni": "num_hiddens=8,num_layers=1,dropout=0.0,"
-                    "bidirectional=false",
+    "deep_gru": ("num_hiddens=8,num_layers=2,dropout=0.0", 3),
+    "deep_gru_uni": ("num_hiddens=8,num_layers=1,dropout=0.0,"
+                     "bidirectional=false", 3),
+    "deep_gru_b50": ("num_hiddens=8,num_layers=2,dropout=0.0", 50),
 }
 
 
@@ -230,7 +208,7 @@ def test_bf16_gru_train_step_matches_jax(monkeypatch, case):
     representable gradient of the loss sum, divided by the weight sum
     after it), float32 masters and optimizer state afterwards."""
     monkeypatch.setattr(jrnn, "RNN_BACKEND", "pallas")
-    hp = GRU_STEP_CASES[case]
+    hp, b = GRU_STEP_CASES[case]
     lr = 0.1
     spec = ("sgd", lr, 400.0)
     jm = jzoo.deep_gru(hp, num_classes=CLASSES)
@@ -243,7 +221,7 @@ def test_bf16_gru_train_step_matches_jax(monkeypatch, case):
     pm.load_state_dict(params_from_flat(p0))
     trainer = Trainer(pm, make_optimizer(*spec), compute_dtype=BF16)
     state = trainer.init_state()
-    batch = _batch()
+    batch = _batch(b=b)
     probe = Trainer(copy.deepcopy(pm), make_optimizer(*spec),
                     compute_dtype=BF16)
     tb = list(map(torch.from_numpy, batch))
@@ -278,7 +256,7 @@ def test_bf16_gru_train_step_matches_jax(monkeypatch, case):
 def test_bf16_gru_eval_step_is_float32():
     """The eval step does not cast: a bfloat16 deep_gru trainer's eval
     equals a float32 trainer's on the same weights, bit for bit."""
-    pm = build_model("deep_gru", GRU_STEP_CASES["deep_gru"],
+    pm = build_model("deep_gru", GRU_STEP_CASES["deep_gru"][0],
                      num_classes=CLASSES, input_dim=FEATS,
                      generator=torch.Generator().manual_seed(0))
     batch = list(map(torch.from_numpy, _batch(1)))
@@ -295,28 +273,54 @@ def test_bf16_gru_eval_step_is_float32():
 @pytest.mark.parametrize("hidden,batch,ndir", [(520, 2, 1), (512, 97, 1),
                                                (512, 49, 2)])
 def test_gru_stream_design_refuses_bf16(hidden, batch, ndir):
-    """A bfloat16 GRU call whose shape goes to the stream design raises,
-    naming A5b, forward and backward, on the CPU too, where the float32
-    call runs the plain twin."""
+    """At a shape that gru_geometry sends to the stream design a bfloat16
+    GRU call runs (on the CPU the plain twin of the stream design's
+    bfloat16 forms, no launch counted; nothing refuses or takes float32):
+    h, dxp and dwh of BiGRUFunction / GRUFunction against pallas_bigru /
+    pallas_gru with a bfloat16 wh in interpret mode, at T=4 with held
+    frames."""
     assert G.gru_geometry(hidden, batch, ndir).design == "stream"
-    t = 2
-    g = torch.Generator().manual_seed(0)
-    xp = torch.randn(t, batch, 3 * hidden, generator=g)
-    mask = torch.ones(t, batch, 1)
-    wh = torch.randn(hidden, 3 * hidden, generator=g) / hidden ** 0.5
-    dh = torch.randn(t, batch, hidden, generator=g)
+    t = 4
+    xp_f, xp_b, mask, wh_f, wh_b, dh_f, dh_b = _stream_inputs(
+        hidden + batch + 1, t, batch, hidden, 3)
+    J = jnp.asarray
+
+    def jax_loss(xf, xb, wf, wb):
+        if ndir == 2:
+            hf, hb = jbi.pallas_bigru(xf, xb, J(mask), wf, wb, hidden,
+                                      interpret=True)
+            return jnp.sum(hf * J(dh_f)) + jnp.sum(hb * J(dh_b)), (hf, hb)
+        hf = jg.pallas_gru(xf, J(mask), wf, hidden, interpret=True)
+        return jnp.sum(hf * J(dh_f)), (hf,)
+
+    (_, hs_j), g_j = jax.value_and_grad(jax_loss, argnums=(0, 1, 2, 3),
+                                        has_aux=True)(
+        J(xp_f), J(xp_b), J(wh_f).astype(jnp.bfloat16),
+        J(wh_b).astype(jnp.bfloat16))
+    T = torch.from_numpy
+    xf, xb = T(xp_f).requires_grad_(), T(xp_b).requires_grad_()
+    wf = T(wh_f).to(BF16).requires_grad_()
+    wb = T(wh_b).to(BF16).requires_grad_()
+    ops = (G.bigru, G.bigru_bwd, G.gru, G.gru_bwd)
+    before = [(op.launches, dict(op.by_design)) for op in ops]
     if ndir == 2:
-        h = G.bigru(xp, xp, mask, wh, wh)
-        assert h[0].shape == (t, batch, hidden)
-        G.bigru_bwd(xp, xp, mask, wh, wh, *h, dh, dh)
-        calls = (lambda w: G.bigru(xp, xp, mask, w, w),
-                 lambda w: G.bigru_bwd(xp, xp, mask, w, w, *h, dh, dh))
+        hs = G.BiGRUFunction.apply(xf, xb, T(mask), wf, wb)
+        loss = (hs[0] * T(dh_f)).sum() + (hs[1] * T(dh_b)).sum()
+        pairs, weights = ((xf, g_j[0]), (xb, g_j[1])), ((wf, g_j[2]),
+                                                        (wb, g_j[3]))
     else:
-        h = G.gru(xp, mask, wh)
-        assert h.shape == (t, batch, hidden)
-        G.gru_bwd(xp, mask, wh, h, dh)
-        calls = (lambda w: G.gru(xp, mask, w),
-                 lambda w: G.gru_bwd(xp, mask, w, h, dh))
-    for call in calls:
-        with pytest.raises(ValueError, match=BF16_ITEM):
-            call(wh.to(BF16))
+        hs = (G.GRUFunction.apply(xf, T(mask), wf),)
+        loss = (hs[0] * T(dh_f)).sum()
+        pairs, weights = ((xf, g_j[0]),), ((wf, g_j[2]),)
+    loss.backward()
+    assert [(op.launches, op.by_design) for op in ops] == before
+    for got, want in zip(hs, hs_j):
+        assert got.dtype == torch.float32
+        _close_with_flips(got.detach().numpy(), want, "h")
+    for xt, g in pairs:
+        assert xt.grad.dtype == torch.float32
+        _close_with_flips(xt.grad.numpy(), g, "dxp")
+    for wt, g in weights:
+        assert wt.grad.dtype == BF16 and g.dtype == jnp.bfloat16
+        _close_frac(wt.grad.float().numpy(), g.astype(jnp.float32),
+                    frac=GRAD_FRAC, what="dwh")

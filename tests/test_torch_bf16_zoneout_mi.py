@@ -41,8 +41,8 @@ from asr_study_tpu.ops import pallas_zoneout_lstm as jzo
 from asr_study_tpu.train import trainer as jtrainer
 from extras.export_weights import _flatten as flatten_params
 from tests.test_torch_bf16 import (CLASSES, FEATS, GRAD_FRAC, LOSS_RTOL,
-                                   _batch, _bf16_exact, _close_frac)
-from tests.test_torch_bf16_gru import _close_with_flips
+                                   _batch, _bf16_exact, _close_frac,
+                                   _close_with_flips)
 
 BF16 = torch.bfloat16
 # Tolerances, as tests/test_torch_bf16_gru.py states them: h, c and dxp /

@@ -1368,16 +1368,22 @@ def test_deep_gru_512_train_step_is_bit_reproducible(cuda, bidirectional):
     assert _bit_differences(runs) == []
 
 
-# the bfloat16-weight forms (train --bf16): cluster (H=8, 100, 256) and
-# wide (H=300, 512) shapes, bi and uni, ragged and with a dead row;
-# |kernel - plain| <= atol + rtol * |plain| (chip_smoke.py BF16_ATOL /
-# BF16_RTOL: both sides round h_prev and dpre to bfloat16, and an operand
-# on a rounding boundary may round apart)
+# the bfloat16-weight forms (train --bf16): cluster (H=8, 100, 256),
+# wide (H=300, 512) and stream shapes (STREAM_CASES at H=512; B=64 in two
+# directions at H=256 and 100, B=128 in one at H=256: train --bf16
+# --batch_size 64 and a unidirectional B=128), bi and uni, ragged and with
+# a dead row; |kernel - plain| <= atol + rtol * |plain| (chip_smoke.py
+# BF16_ATOL / BF16_RTOL: both sides round h_prev and dpre to bfloat16, and
+# an operand on a rounding boundary may round apart)
 BF16_TOL = dict(rtol=5e-3, atol=5e-3)
+BF16_STREAM_CASES = [(24, 64, 256, 2, False), (20, 64, 100, 2, True),
+                     (16, 128, 256, 1, False)]
 BF16_CASES = [(12, 4, 8, 2, False), (37, 5, 100, 1, True),
               (64, 32, 256, 2, False), (40, 33, 256, 1, True),
               (23, 5, 300, 2, True), (64, 32, 512, 2, False),
-              (40, 33, 512, 1, True)]
+              (40, 33, 512, 1, True),
+              *[(t, b, 512, n, True) for t, b, n in STREAM_CASES],
+              *BF16_STREAM_CASES]
 
 
 @pytest.mark.parametrize("t,b,h,ndir,dead", BF16_CASES,
@@ -1385,8 +1391,8 @@ BF16_CASES = [(12, 4, 8, 2, False), (37, 5, 100, 1, True),
                               + ("-dead" if d else "")
                               for t, b, h, n, d in BF16_CASES])
 def test_bf16_kernels_match_plain(cuda, t, b, h, ndir, dead):
-    """The bfloat16-weight forms of the forward and backward (cluster or
-    wide, by lstm_geometry) against their plain twins with the same
+    """The bfloat16-weight forms of the forward and backward (cluster, wide
+    or stream, by lstm_geometry) against their plain twins with the same
     bfloat16 wh, counted under ``<design>_bf16``; repeated bit for bit."""
     args, dh = _bilstm_case(cuda, t, b, h, seed=t + b + h, dead=dead)
     args[3], args[4] = args[3].to(torch.bfloat16), args[4].to(torch.bfloat16)
@@ -1468,12 +1474,15 @@ def test_bf16_train_step_on_card_matches_cpu(cuda):
         assert float((g_k[k] - g_p[k]).abs().max()) <= 1e-2 * scale, k
 
 
-# the GRU's bfloat16-weight forms: cluster (H=8, 100, 256) and wide (H=300,
-# 512) shapes, bi and uni, ragged and with a dead row, at BF16_TOL
+# the GRU's bfloat16-weight forms: cluster (H=8, 100, 256), wide (H=300,
+# 512) and stream shapes (GRU_STREAM_CASES at H=512 and BF16_STREAM_CASES),
+# bi and uni, ragged and with a dead row, at BF16_TOL
 GRU_BF16_CASES = [(12, 4, 8, 2, False), (37, 5, 100, 1, True),
                   (64, 32, 256, 2, False), (40, 33, 256, 1, True),
                   (23, 5, 300, 2, True), (64, 32, 512, 2, False),
-                  (40, 33, 512, 1, True)]
+                  (40, 33, 512, 1, True),
+                  *[(t, b, 512, n, True) for t, b, n in GRU_STREAM_CASES],
+                  *BF16_STREAM_CASES]
 
 
 @pytest.mark.parametrize("t,b,h,ndir,dead", GRU_BF16_CASES,
@@ -1482,7 +1491,8 @@ GRU_BF16_CASES = [(12, 4, 8, 2, False), (37, 5, 100, 1, True),
                               for t, b, h, n, d in GRU_BF16_CASES])
 def test_gru_bf16_kernels_match_plain(cuda, t, b, h, ndir, dead):
     """The GRU's bfloat16-weight forms of the forward (the wide one keeping
-    the h side) and backward (cluster or wide, by gru_geometry) against
+    the h side) and backward (cluster, wide or stream, by gru_geometry)
+    against
     their plain twins with the same bfloat16 wh: h, the kept h side, dxp,
     dhp, and dwh (bfloat16) within 1e-2 of its max abs; counted under
     ``<design>_bf16``; repeated bit for bit."""
