@@ -172,6 +172,10 @@ SIGNATURES = {
     # xp_f, xp_b, mask, zh_f, zh_b, zc_f, zc_b, wh_f, wh_b, wht_f, wht_b,
     # h_f, c_f, h_b, c_b, dh_f, dh_b, dxp_f, dxp_b, T, B, H, ndir, stream
     "asr_zoneout_lstm_stream_bwd": [_P] * 19 + [_I, _I, _I, _I, _P],
+    # the bfloat16-weight forms: the same arguments, wh_f, wh_b (and wht_f,
+    # wht_b) bfloat16
+    "asr_zoneout_lstm_stream_fwd_bf16": [_P] * 15 + [_I] * 4 + [_P],
+    "asr_zoneout_lstm_stream_bwd_bf16": [_P] * 19 + [_I] * 4 + [_P],
     # xp_f, xp_b, mask, wh_f, wh_b, alpha_f, alpha_b, beta1_f, beta1_b,
     # beta2_f, beta2_b, b_f, b_b, h_f, c_f, h_b, c_b, h_init, c_init, T, B,
     # H, ndir, cluster CTAs, units per CTA, rows per cluster, stream
@@ -193,6 +197,10 @@ SIGNATURES = {
     # beta1_b, beta2_f, beta2_b, b_f, b_b, h_f, c_f, h_b, c_b, dh_f, dh_b,
     # dpre_f, dpre_b, T, B, H, ndir, stream
     "asr_mi_lstm_stream_bwd": [_P] * 23 + [_I, _I, _I, _I, _P],
+    # the bfloat16-weight forms: the same arguments, wh_f, wh_b (and wht_f,
+    # wht_b) bfloat16
+    "asr_mi_lstm_stream_fwd_bf16": [_P] * 19 + [_I] * 4 + [_P],
+    "asr_mi_lstm_stream_bwd_bf16": [_P] * 23 + [_I] * 4 + [_P],
     # lp_ext, valid, skip, alpha_seq, T, B, S, stream
     "asr_ctc_alpha": [_P, _P, _P, _P, _I, _I, _I, _P],
     # lp_ext, valid, alpha_seq, skip2, end_ind, gamma, T, B, S, stream

@@ -34,8 +34,22 @@
 // the h outputs dh_f / dh_b [T, B, H].  Output dxp_f / dxp_b [T, B, 4H],
 // zero on masked frames.  dwh = h_prev^T dxp is one matmul per direction
 // outside the kernel.  With ndir = 1 only lane 0 runs.
+//
+// The bfloat16-weight form (asr_zoneout_lstm_stream_bwd_bf16;
+// ops/pallas_zoneout_lstm.py `_zo_row_bwd` with a bfloat16 wh) is the same
+// kernel on the weight type W = __nv_bfloat16: wh and wht (the wrapper's
+// transpose of the bfloat16 wh) are read as bfloat16, h_prev is rounded to
+// bfloat16 where it is loaded for P1 (the gates recomputed from the
+// rounded h_prev, as `_mm` does; hs feeds nothing else, and c_prev stays
+// float32), and P2 writes dpre to dxp unrounded and to shared memory
+// rounded, the operand of P3's `dpre @ wht`.  The products are float32
+// fmaf on the converted weights, in the float32 form's order; its shared
+// memory is the float32 form's.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -46,6 +60,58 @@ __device__ __forceinline__ float sigmoidf(float x) {
   return 1.f / (1.f + expf(-x));
 }
 
+// x as it enters a product with weights of type W: itself, or rounded to
+// the nearest bfloat16
+template <typename W>
+__device__ __forceinline__ float as_operand(float x) {
+  if constexpr (std::is_same_v<W, __nv_bfloat16>)
+    return __bfloat162float(__float2bfloat16_rn(x));
+  else
+    return x;
+}
+
+// one weight, read through the read-only cache, as float32; a bfloat16
+// by its 16 bits, the high half of the float32 of the same value (a plain
+// load the compiler schedules as it does the float32 form's)
+__device__ __forceinline__ float load_w(const float* w) { return __ldg(w); }
+
+__device__ __forceinline__ float load_w(const __nv_bfloat16* w) {
+  const unsigned short bits = __ldg(reinterpret_cast<const unsigned short*>(w));
+  return __uint_as_float(static_cast<unsigned>(bits) << 16);
+}
+
+// acc[r] += x[r * ldx + k] * w[k * ldw] for k = k0 .. k1 - 1 in turn: the
+// bfloat16-weight form's product, the weights of kAhead rows loaded ahead
+// of their FMAs.  Left to itself the compiler keeps two of the 2-byte
+// loads in flight where it keeps four of the float32 form's, and the loop
+// waits on L2; the sums are the float32 form's, in its order.
+constexpr int kAhead = 8;
+
+__device__ __forceinline__ void product_ahead(float (&acc)[kRows],
+                                              const float* x, int ldx,
+                                              const __nv_bfloat16* w,
+                                              int ldw, int k0, int k1) {
+  int k = k0;
+  for (; k + kAhead <= k1; k += kAhead) {
+    float wk[kAhead];
+#pragma unroll
+    for (int q = 0; q < kAhead; ++q)
+      wk[q] = load_w(w + static_cast<size_t>(k + q) * ldw);
+#pragma unroll
+    for (int q = 0; q < kAhead; ++q) {
+#pragma unroll
+      for (int r = 0; r < kRows; ++r)
+        acc[r] = fmaf(x[r * ldx + k + q], wk[q], acc[r]);
+    }
+  }
+  for (; k < k1; ++k) {
+    const float wk = load_w(w + static_cast<size_t>(k) * ldw);
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) acc[r] = fmaf(x[r * ldx + k], wk, acc[r]);
+  }
+}
+
+template <typename W>
 __global__ void __launch_bounds__(kMaxThreads)
 zoneout_lstm_bwd_kernel(const float* __restrict__ xp_f,
                         const float* __restrict__ xp_b,
@@ -54,10 +120,10 @@ zoneout_lstm_bwd_kernel(const float* __restrict__ xp_f,
                         const float* __restrict__ zh_b,
                         const float* __restrict__ zc_f,
                         const float* __restrict__ zc_b,
-                        const float* __restrict__ wh_f,
-                        const float* __restrict__ wh_b,
-                        const float* __restrict__ wht_f,
-                        const float* __restrict__ wht_b,
+                        const W* __restrict__ wh_f,
+                        const W* __restrict__ wh_b,
+                        const W* __restrict__ wht_f,
+                        const W* __restrict__ wht_b,
                         const float* __restrict__ h_f,
                         const float* __restrict__ c_f,
                         const float* __restrict__ h_b,
@@ -67,9 +133,11 @@ zoneout_lstm_bwd_kernel(const float* __restrict__ xp_f,
                         float* __restrict__ dxp_f, float* __restrict__ dxp_b,
                         int T, int B, int H, int nsplit) {
   extern __shared__ float smem[];
+  constexpr bool kRounded = std::is_same_v<W, __nv_bfloat16>;
   const int G = 4 * H;
   const int RH = kRows * H;
-  float* hs = smem;                  // [kRows][H]  h_prev of this step
+  float* hs = smem;                  // [kRows][H]  h_prev of this step,
+                                     // as the product's operand
   float* hold = hs + RH;             // [kRows][H]  dh passed straight back
   float* dcs = hold + RH;            // [kRows][H]  dc_next
   float* part = dcs + RH;            // [nsplit][kRows][H]  dh_rec partials
@@ -79,8 +147,8 @@ zoneout_lstm_bwd_kernel(const float* __restrict__ xp_f,
   const float* __restrict__ xp = rev ? xp_b : xp_f;
   const float* __restrict__ zh = rev ? zh_b : zh_f;
   const float* __restrict__ zc = rev ? zc_b : zc_f;
-  const float* __restrict__ wh = rev ? wh_b : wh_f;
-  const float* __restrict__ wht = rev ? wht_b : wht_f;
+  const W* __restrict__ wh = rev ? wh_b : wh_f;
+  const W* __restrict__ wht = rev ? wht_b : wht_f;
   const float* __restrict__ h = rev ? h_b : h_f;
   const float* __restrict__ c = rev ? c_b : c_f;
   const float* __restrict__ dh_out = rev ? dh_b : dh_f;
@@ -101,7 +169,8 @@ zoneout_lstm_bwd_kernel(const float* __restrict__ xp_f,
     for (int i = threadIdx.x; i < RH; i += blockDim.x) {
       const int r = i / H;
       hs[i] = (r < rows && tp >= 0 && tp < T)
-                  ? h[(static_cast<size_t>(tp) * B + b0) * H + i]
+                  ? as_operand<W>(
+                        h[(static_cast<size_t>(tp) * B + b0) * H + i])
                   : 0.f;
     }
   }
@@ -119,11 +188,16 @@ zoneout_lstm_bwd_kernel(const float* __restrict__ xp_f,
 #pragma unroll
       for (int r = 0; r < kRows; ++r)
         acc[r] = r < rows ? xp[(row0 + r) * G + j] : 0.f;
+      if constexpr (kRounded) {
+        product_ahead(acc, hs, H, wh + j, G, 0, H);
+      } else {
 #pragma unroll 4
-      for (int k = 0; k < H; ++k) {
-        const float w = __ldg(wh + static_cast<size_t>(k) * G + j);
+        for (int k = 0; k < H; ++k) {
+          const float w = load_w(wh + static_cast<size_t>(k) * G + j);
 #pragma unroll
-        for (int r = 0; r < kRows; ++r) acc[r] = fmaf(hs[r * H + k], w, acc[r]);
+          for (int r = 0; r < kRows; ++r)
+            acc[r] = fmaf(hs[r * H + k], w, acc[r]);
+        }
       }
 #pragma unroll
       for (int r = 0; r < kRows; ++r) gates[r * G + j] = acc[r];
@@ -155,10 +229,10 @@ zoneout_lstm_bwd_kernel(const float* __restrict__ xp_f,
       const float p_f = m ? dc * c_prev * fg * (1.f - fg) : 0.f;
       const float p_g = m ? dc * ig * (1.f - gg * gg) : 0.f;
       const float p_o = m ? dh_new * tc * og * (1.f - og) : 0.f;
-      g[u] = p_i;
-      g[H + u] = p_f;
-      g[2 * H + u] = p_g;
-      g[3 * H + u] = p_o;
+      g[u] = as_operand<W>(p_i);            // P3's operands
+      g[H + u] = as_operand<W>(p_f);
+      g[2 * H + u] = as_operand<W>(p_g);
+      g[3 * H + u] = as_operand<W>(p_o);
       float* out = dxp + (row0 + r) * G;
       out[u] = p_i;
       out[H + u] = p_f;
@@ -179,12 +253,16 @@ zoneout_lstm_bwd_kernel(const float* __restrict__ xp_f,
       float acc[kRows];
 #pragma unroll
       for (int r = 0; r < kRows; ++r) acc[r] = 0.f;
+      if constexpr (kRounded) {
+        product_ahead(acc, gates, G, wht + u, H, q * chunk, j1);
+      } else {
 #pragma unroll 4
-      for (int j = q * chunk; j < j1; ++j) {
-        const float w = __ldg(wht + static_cast<size_t>(j) * H + u);
+        for (int j = q * chunk; j < j1; ++j) {
+          const float w = load_w(wht + static_cast<size_t>(j) * H + u);
 #pragma unroll
-        for (int r = 0; r < kRows; ++r)
-          acc[r] = fmaf(gates[r * G + j], w, acc[r]);
+          for (int r = 0; r < kRows; ++r)
+            acc[r] = fmaf(gates[r * G + j], w, acc[r]);
+        }
       }
 #pragma unroll
       for (int r = 0; r < kRows; ++r) part[q * RH + r * H + u] = acc[r];
@@ -196,12 +274,40 @@ zoneout_lstm_bwd_kernel(const float* __restrict__ xp_f,
       for (int i = threadIdx.x; i < RH; i += blockDim.x) {
         const int r = i / H;
         hs[i] = (ok && r < rows)
-                    ? h[(static_cast<size_t>(tpn) * B + b0) * H + i]
+                    ? as_operand<W>(
+                          h[(static_cast<size_t>(tpn) * B + b0) * H + i])
                     : 0.f;
       }
     }
     __syncthreads();
   }
+}
+
+template <typename W>
+int launch(const float* xp_f, const float* xp_b, const float* mask,
+           const float* zh_f, const float* zh_b, const float* zc_f,
+           const float* zc_b, const W* wh_f, const W* wh_b, const W* wht_f,
+           const W* wht_b, const float* h_f, const float* c_f,
+           const float* h_b, const float* c_b, const float* dh_f,
+           const float* dh_b, float* dxp_f, float* dxp_b, int T, int B,
+           int H, int ndir, void* stream) {
+  if (ndir < 1 || ndir > 2) return static_cast<int>(cudaErrorInvalidValue);
+  const int G = 4 * H;
+  const int warps_g = ((G + 31) / 32) * 32;
+  const int threads = warps_g < kMaxThreads ? warps_g : kMaxThreads;
+  const int nsplit = threads / H > 1 ? threads / H : 1;
+  const size_t smem = sizeof(float) * static_cast<size_t>(kRows) *
+                      ((3 + nsplit) * static_cast<size_t>(H) + G);
+  cudaError_t err = cudaFuncSetAttribute(
+      zoneout_lstm_bwd_kernel<W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((B + kRows - 1) / kRows, ndir);
+  zoneout_lstm_bwd_kernel<W><<<grid, threads, smem,
+                               static_cast<cudaStream_t>(stream)>>>(
+      xp_f, xp_b, mask, zh_f, zh_b, zc_f, zc_b, wh_f, wh_b, wht_f, wht_b,
+      h_f, c_f, h_b, c_b, dh_f, dh_b, dxp_f, dxp_b, T, B, H, nsplit);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -214,21 +320,23 @@ extern "C" int asr_zoneout_lstm_stream_bwd(
     const float* c_f, const float* h_b, const float* c_b, const float* dh_f,
     const float* dh_b, float* dxp_f, float* dxp_b, int T, int B, int H,
     int ndir, void* stream) {
-  if (ndir < 1 || ndir > 2) return static_cast<int>(cudaErrorInvalidValue);
-  const int G = 4 * H;
-  const int warps_g = ((G + 31) / 32) * 32;
-  const int threads = warps_g < kMaxThreads ? warps_g : kMaxThreads;
-  const int nsplit = threads / H > 1 ? threads / H : 1;
-  const size_t smem = sizeof(float) * static_cast<size_t>(kRows) *
-                      ((3 + nsplit) * static_cast<size_t>(H) + G);
-  cudaError_t err = cudaFuncSetAttribute(
-      zoneout_lstm_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((B + kRows - 1) / kRows, ndir);
-  zoneout_lstm_bwd_kernel<<<grid, threads, smem,
-                            static_cast<cudaStream_t>(stream)>>>(
-      xp_f, xp_b, mask, zh_f, zh_b, zc_f, zc_b, wh_f, wh_b, wht_f, wht_b,
-      h_f, c_f, h_b, c_b, dh_f, dh_b, dxp_f, dxp_b, T, B, H, nsplit);
-  return static_cast<int>(cudaGetLastError());
+  return launch<float>(xp_f, xp_b, mask, zh_f, zh_b, zc_f, zc_b, wh_f, wh_b,
+                       wht_f, wht_b, h_f, c_f, h_b, c_b, dh_f, dh_b, dxp_f,
+                       dxp_b, T, B, H, ndir, stream);
+}
+
+// The bfloat16-weight form: asr_zoneout_lstm_stream_bwd's arguments with
+// wh_f / wh_b bfloat16 [H, 4H] and wht_f / wht_b bfloat16 [4H, H].
+extern "C" int asr_zoneout_lstm_stream_bwd_bf16(
+    const float* xp_f, const float* xp_b, const float* mask,
+    const float* zh_f, const float* zh_b, const float* zc_f,
+    const float* zc_b, const __nv_bfloat16* wh_f, const __nv_bfloat16* wh_b,
+    const __nv_bfloat16* wht_f, const __nv_bfloat16* wht_b,
+    const float* h_f, const float* c_f, const float* h_b, const float* c_b,
+    const float* dh_f, const float* dh_b, float* dxp_f, float* dxp_b, int T,
+    int B, int H, int ndir, void* stream) {
+  return launch<__nv_bfloat16>(xp_f, xp_b, mask, zh_f, zh_b, zc_f, zc_b,
+                               wh_f, wh_b, wht_f, wht_b, h_f, c_f, h_b, c_b,
+                               dh_f, dh_b, dxp_f, dxp_b, T, B, H, ndir,
+                               stream);
 }

@@ -30,8 +30,23 @@
 // [ndir, B, H] or, where they are null, from zeros (bilstm_fwd.cu says what
 // the carry is for).  With ndir = 1 only lane 0 runs and the _b pointers
 // are unused.
+//
+// The bfloat16-weight form (asr_zoneout_lstm_stream_fwd_bf16; train --bf16,
+// the JAX trainer's compute_dtype, under which the Pallas kernels run with
+// a bfloat16 wh) is the same kernel on the weight type W = __nv_bfloat16:
+// wh is read as bfloat16 and h_prev enters the product rounded to bfloat16
+// (ops/pallas_zoneout_lstm.py `_zo_cell_math`: only `_mm(h_prev, wh)`
+// sees the rounded h_prev).  The block keeps h unrounded in hs for the
+// zoneout mix and the hold of a masked frame, and beside it the rounded
+// copy hr that the product reads, written where hs is; the products are
+// float32 fmaf on the converted weights, summed in the float32 form's
+// order, and xp, the mask, zh, zc, h and c stay float32.  In the float32
+// form hr is hs.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -42,6 +57,66 @@ __device__ __forceinline__ float sigmoidf(float x) {
   return 1.f / (1.f + expf(-x));
 }
 
+// x as it enters a product with weights of type W: itself, or rounded to
+// the nearest bfloat16
+template <typename W>
+__device__ __forceinline__ float as_operand(float x) {
+  if constexpr (std::is_same_v<W, __nv_bfloat16>)
+    return __bfloat162float(__float2bfloat16_rn(x));
+  else
+    return x;
+}
+
+// one weight, read through the read-only cache, as float32; a bfloat16
+// by its 16 bits, the high half of the float32 of the same value (a plain
+// load the compiler schedules as it does the float32 form's)
+__device__ __forceinline__ float load_w(const float* w) { return __ldg(w); }
+
+__device__ __forceinline__ float load_w(const __nv_bfloat16* w) {
+  const unsigned short bits = __ldg(reinterpret_cast<const unsigned short*>(w));
+  return __uint_as_float(static_cast<unsigned>(bits) << 16);
+}
+
+// acc[r] += x[r * ldx + k] * w[k * ldw] for k = k0 .. k1 - 1 in turn: the
+// bfloat16-weight form's product, the weights of kAhead rows loaded ahead
+// of their FMAs.  Left to itself the compiler keeps two of the 2-byte
+// loads in flight where it keeps four of the float32 form's, and the loop
+// waits on L2; the sums are the float32 form's, in its order.
+constexpr int kAhead = 8;
+
+__device__ __forceinline__ void product_ahead(float (&acc)[kRows],
+                                              const float* x, int ldx,
+                                              const __nv_bfloat16* w,
+                                              int ldw, int k0, int k1) {
+  int k = k0;
+  for (; k + kAhead <= k1; k += kAhead) {
+    float wk[kAhead];
+#pragma unroll
+    for (int q = 0; q < kAhead; ++q)
+      wk[q] = load_w(w + static_cast<size_t>(k + q) * ldw);
+#pragma unroll
+    for (int q = 0; q < kAhead; ++q) {
+#pragma unroll
+      for (int r = 0; r < kRows; ++r)
+        acc[r] = fmaf(x[r * ldx + k + q], wk[q], acc[r]);
+    }
+  }
+  for (; k < k1; ++k) {
+    const float wk = load_w(w + static_cast<size_t>(k) * ldw);
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) acc[r] = fmaf(x[r * ldx + k], wk, acc[r]);
+  }
+}
+
+// dynamic shared memory of a block: hs, cs and the gates, and for the
+// bfloat16-weight form the rounded copy hr
+template <typename W>
+size_t smem_bytes(int H) {
+  constexpr int kCopies = std::is_same_v<W, __nv_bfloat16> ? 3 : 2;
+  return sizeof(float) * static_cast<size_t>(kRows) * (kCopies * H + 4 * H);
+}
+
+template <typename W>
 __global__ void __launch_bounds__(kMaxThreads)
 zoneout_lstm_fwd_kernel(const float* __restrict__ xp_f,
                         const float* __restrict__ xp_b,
@@ -50,24 +125,27 @@ zoneout_lstm_fwd_kernel(const float* __restrict__ xp_f,
                         const float* __restrict__ zh_b,
                         const float* __restrict__ zc_f,
                         const float* __restrict__ zc_b,
-                        const float* __restrict__ wh_f,
-                        const float* __restrict__ wh_b,
+                        const W* __restrict__ wh_f,
+                        const W* __restrict__ wh_b,
                         float* __restrict__ h_f, float* __restrict__ c_f,
                         float* __restrict__ h_b, float* __restrict__ c_b,
                         const float* __restrict__ h_init,
                         const float* __restrict__ c_init, int T, int B,
                         int H) {
   extern __shared__ float smem[];
+  constexpr bool kRounded = std::is_same_v<W, __nv_bfloat16>;
   const int G = 4 * H;
   float* hs = smem;              // [kRows][H]  h of the previous step
   float* cs = hs + kRows * H;    // [kRows][H]  c of the previous step
   float* gates = cs + kRows * H; // [kRows][G]
+  // [kRows][H]  h as the product's operand: rounded, or hs itself
+  float* hr = kRounded ? gates + kRows * G : hs;
 
   const bool rev = blockIdx.y == 1;
   const float* __restrict__ xp = rev ? xp_b : xp_f;
   const float* __restrict__ zh = rev ? zh_b : zh_f;
   const float* __restrict__ zc = rev ? zc_b : zc_f;
-  const float* __restrict__ wh = rev ? wh_b : wh_f;
+  const W* __restrict__ wh = rev ? wh_b : wh_f;
   float* __restrict__ h_out = rev ? h_b : h_f;
   float* __restrict__ c_out = rev ? c_b : c_f;
   const int b0 = blockIdx.x * kRows;
@@ -79,6 +157,7 @@ zoneout_lstm_fwd_kernel(const float* __restrict__ xp_f,
     const bool ok = i < rows * H;
     hs[i] = (h_init != nullptr && ok) ? h_init[init0 + i] : 0.f;
     cs[i] = (c_init != nullptr && ok) ? c_init[init0 + i] : 0.f;
+    if (kRounded) hr[i] = as_operand<W>(hs[i]);
   }
   __syncthreads();
 
@@ -92,11 +171,16 @@ zoneout_lstm_fwd_kernel(const float* __restrict__ xp_f,
 #pragma unroll
       for (int r = 0; r < kRows; ++r)
         acc[r] = r < rows ? xp[(row0 + r) * G + j] : 0.f;
+      if constexpr (kRounded) {
+        product_ahead(acc, hr, H, wh + j, G, 0, H);
+      } else {
 #pragma unroll 4
-      for (int k = 0; k < H; ++k) {
-        const float w = __ldg(wh + static_cast<size_t>(k) * G + j);
+        for (int k = 0; k < H; ++k) {
+          const float w = load_w(wh + static_cast<size_t>(k) * G + j);
 #pragma unroll
-        for (int r = 0; r < kRows; ++r) acc[r] = fmaf(hs[r * H + k], w, acc[r]);
+          for (int r = 0; r < kRows; ++r)
+            acc[r] = fmaf(hr[r * H + k], w, acc[r]);
+        }
       }
 #pragma unroll
       for (int r = 0; r < kRows; ++r) gates[r * G + j] = acc[r];
@@ -127,11 +211,36 @@ zoneout_lstm_fwd_kernel(const float* __restrict__ xp_f,
       }
       cs[i] = c;
       hs[i] = h;
+      if (kRounded) hr[i] = as_operand<W>(h);
       h_out[o] = h;
       c_out[o] = c;
     }
     __syncthreads();
   }
+}
+
+template <typename W>
+int launch(const float* xp_f, const float* xp_b, const float* mask,
+           const float* zh_f, const float* zh_b, const float* zc_f,
+           const float* zc_b, const W* wh_f, const W* wh_b, float* h_f,
+           float* c_f, float* h_b, float* c_b, const float* h_init,
+           const float* c_init, int T, int B, int H, int ndir,
+           void* stream) {
+  if (ndir < 1 || ndir > 2) return static_cast<int>(cudaErrorInvalidValue);
+  const int G = 4 * H;
+  const size_t smem = smem_bytes<W>(H);
+  cudaError_t err = cudaFuncSetAttribute(
+      zoneout_lstm_fwd_kernel<W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int warps_g = ((G + 31) / 32) * 32;
+  const int threads = warps_g < kMaxThreads ? warps_g : kMaxThreads;
+  const dim3 grid((B + kRows - 1) / kRows, ndir);
+  zoneout_lstm_fwd_kernel<W><<<grid, threads, smem,
+                               static_cast<cudaStream_t>(stream)>>>(
+      xp_f, xp_b, mask, zh_f, zh_b, zc_f, zc_b, wh_f, wh_b, h_f, c_f, h_b,
+      c_b, h_init, c_init, T, B, H);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -144,19 +253,20 @@ extern "C" int asr_zoneout_lstm_stream_fwd(
     const float* zc_b, const float* wh_f, const float* wh_b, float* h_f,
     float* c_f, float* h_b, float* c_b, const float* h_init,
     const float* c_init, int T, int B, int H, int ndir, void* stream) {
-  if (ndir < 1 || ndir > 2) return static_cast<int>(cudaErrorInvalidValue);
-  const int G = 4 * H;
-  const size_t smem = sizeof(float) * static_cast<size_t>(kRows) * (2 * H + G);
-  cudaError_t err = cudaFuncSetAttribute(
-      zoneout_lstm_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int warps_g = ((G + 31) / 32) * 32;
-  const int threads = warps_g < kMaxThreads ? warps_g : kMaxThreads;
-  const dim3 grid((B + kRows - 1) / kRows, ndir);
-  zoneout_lstm_fwd_kernel<<<grid, threads, smem,
-                            static_cast<cudaStream_t>(stream)>>>(
-      xp_f, xp_b, mask, zh_f, zh_b, zc_f, zc_b, wh_f, wh_b, h_f, c_f, h_b,
-      c_b, h_init, c_init, T, B, H);
-  return static_cast<int>(cudaGetLastError());
+  return launch<float>(xp_f, xp_b, mask, zh_f, zh_b, zc_f, zc_b, wh_f, wh_b,
+                       h_f, c_f, h_b, c_b, h_init, c_init, T, B, H, ndir,
+                       stream);
+}
+
+// The bfloat16-weight form: asr_zoneout_lstm_stream_fwd's arguments with
+// wh_f / wh_b bfloat16 [H, 4H].
+extern "C" int asr_zoneout_lstm_stream_fwd_bf16(
+    const float* xp_f, const float* xp_b, const float* mask,
+    const float* zh_f, const float* zh_b, const float* zc_f,
+    const float* zc_b, const __nv_bfloat16* wh_f, const __nv_bfloat16* wh_b,
+    float* h_f, float* c_f, float* h_b, float* c_b, const float* h_init,
+    const float* c_init, int T, int B, int H, int ndir, void* stream) {
+  return launch<__nv_bfloat16>(xp_f, xp_b, mask, zh_f, zh_b, zc_f, zc_b,
+                               wh_f, wh_b, h_f, c_f, h_b, c_b, h_init,
+                               c_init, T, B, H, ndir, stream);
 }

@@ -45,7 +45,7 @@ bfloat16 weights (``train --bf16``, the JAX trainer's ``compute_dtype``,
 under which ``pallas_bi_mi_lstm`` / ``pallas_mi_lstm`` run with a bfloat16
 wh): ``wh`` may be bfloat16 in every wrapper, both directions alike, while
 xp, the mask, the MI vectors (float32 copies of bfloat16 ones), h, c and
-every cotangent stay float32.  The cluster design then launches its
+every cotangent stay float32.  Both designs then launch their
 bfloat16-weight forms (the same sources, the ``_bf16`` entry points):
 h_prev is rounded to bfloat16 where it enters ``hp = h_prev @ wh`` and
 only there (a held frame keeps it unrounded), the backward recomputes hp
@@ -55,9 +55,9 @@ dpre comes out unrounded.  The plain twins round the same way
 (:func:`~asr_study_torch.models.nn.dot`).  :func:`dir_grads` follows the
 JAX ``dir_grads``, which mixes the float32 h_prev with the bfloat16 wh:
 its hp is the float32 product of the UNROUNDED h_prev and wh's values, and
-``dwh`` comes back bfloat16.  A bfloat16 call whose shape goes to the
-stream design raises (:data:`~asr_study_torch.ops.recurrence.BF16_ITEM`);
-``by_design`` counts bfloat16 launches under ``cluster_bf16``.
+``dwh`` comes back bfloat16.  No bfloat16 call takes a float32 form;
+``by_design`` counts bfloat16 launches under ``cluster_bf16`` and
+``stream_bf16``.
 """
 
 from __future__ import annotations
@@ -69,11 +69,11 @@ from asr_study_torch.models.cells import mi_lstm_step
 from asr_study_torch.models.nn import dot
 from asr_study_torch.ops.bilstm import (CLUSTER_SLICE, CLUSTER_THREADS,
                                         cluster_smem, stream_smem)
-from asr_study_torch.ops.recurrence import (STREAM_ROWS, Geometry, bf16_design,
-                                            check, check_carry,
-                                            cluster_geometry, cotangent,
-                                            design_counts, design_key,
-                                            kernel_info, prev, stream)
+from asr_study_torch.ops.recurrence import (STREAM_ROWS, Geometry, check,
+                                            check_carry, cluster_geometry,
+                                            cotangent, design_counts,
+                                            design_key, kernel_info, prev,
+                                            stream)
 
 
 def mi_cluster_smem(hidden: int, units: int, rows: int, ctas: int
@@ -87,12 +87,13 @@ def mi_cluster_smem(hidden: int, units: int, rows: int, ctas: int
     return fwd + vecs, bwd + vecs
 
 
-def mi_stream_smem(hidden: int) -> tuple[int, int]:
+def mi_stream_smem(hidden: int, bf16: bool = False) -> tuple[int, int]:
     """Dynamic shared memory per block of the stream forward and backward,
     bytes: the formulas of ``csrc/mi_lstm_stream_{fwd,bwd}.cu``, which are
     ``csrc/lstm_stream_{fwd,bwd}.cu``'s (``ops/bilstm.py``
-    ``stream_smem``)."""
-    return stream_smem(hidden)
+    ``stream_smem``); with ``bf16``, of the bfloat16-weight forms (the
+    forward's rounded copy of h besides)."""
+    return stream_smem(hidden, bf16)
 
 
 def mi_geometry(hidden: int, batch: int, ndir: int) -> Geometry:
@@ -158,11 +159,8 @@ def mi_lstm_plain(xp, mask, wh, alpha, beta1, beta2, b, h0=None, c0=None
     return _scan(xp, mask, wh, alpha, beta1, beta2, b, False, h0, c0)
 
 
-def _geometry(name: str, xp: torch.Tensor, wh: torch.Tensor,
-              ndir: int) -> Geometry:
-    hidden, batch = xp.shape[2] // 4, xp.shape[1]
-    return bf16_design(name, mi_geometry(hidden, batch, ndir), wh, hidden,
-                       batch)
+def _geometry(xp: torch.Tensor, ndir: int) -> Geometry:
+    return mi_geometry(xp.shape[2] // 4, xp.shape[1], ndir)
 
 
 def _pairs(vecs: list, ndir: int) -> list:
@@ -197,7 +195,8 @@ def launch_fwd(geo: Geometry, xps: list, mask: torch.Tensor, whs: list,
             err = getattr(_build.lib(), f"asr_mi_lstm_fwd{form}")(
                 *ptrs, geo.ctas, geo.units, geo.rows, stream(xps[0]))
         else:
-            err = _build.lib().asr_mi_lstm_stream_fwd(*ptrs, stream(xps[0]))
+            err = getattr(_build.lib(), f"asr_mi_lstm_stream_fwd{form}")(
+                *ptrs, stream(xps[0]))
     _build.check(err, f"{'bi_mi_lstm' if ndir == 2 else 'mi_lstm'}_fwd "
                       f"({geo.design}{form})")
     return outs
@@ -230,7 +229,7 @@ def bi_mi_lstm(xp_f: torch.Tensor, xp_b: torch.Tensor, mask: torch.Tensor,
                b_b=b_b))
     args = (xp_f, xp_b, mask, wh_f, wh_b, alpha_f, alpha_b, beta1_f,
             beta1_b, beta2_f, beta2_b, b_f, b_b)
-    geo = _geometry("bi_mi_lstm", xp_f, wh_f, 2)
+    geo = _geometry(xp_f, 2)
     if xp_f.device.type == "cpu":
         with torch.no_grad():
             return bi_mi_lstm_plain(*args)
@@ -258,7 +257,7 @@ def mi_lstm(xp: torch.Tensor, mask: torch.Tensor, wh: torch.Tensor,
     check("mi_lstm", 4, mask, dict(xp=xp), dict(wh=wh), {},
           dict(alpha=alpha, beta1=beta1, beta2=beta2, b=b))
     check_carry("mi_lstm", xp, 4, h0=h0, c0=c0)
-    geo = _geometry("mi_lstm", xp, wh, 1)
+    geo = _geometry(xp, 1)
     if xp.device.type == "cpu":
         with torch.no_grad():
             return mi_lstm_plain(xp, mask, wh, alpha, beta1, beta2, b, h0,
@@ -351,7 +350,7 @@ def launch_bwd(geo: Geometry, xps: list, mask: torch.Tensor, whs: list,
             whts = [w.t().contiguous() for w in whs]
             args = (xps[0], xps[-1], mask, whs[0], whs[-1], whts[0],
                     whts[-1], *seqs)
-            err = _build.lib().asr_mi_lstm_stream_bwd(
+            err = getattr(_build.lib(), f"asr_mi_lstm_stream_bwd{form}")(
                 *(a.data_ptr() for a in args), t_steps, batch, hidden, ndir,
                 stream(xps[0]))
     _build.check(err, f"{'bi_mi_lstm' if ndir == 2 else 'mi_lstm'}_bwd "
@@ -374,7 +373,7 @@ def bi_mi_lstm_bwd(xp_f, xp_b, mask, wh_f, wh_b, alpha_f, alpha_b, beta1_f,
                beta1_b=beta1_b, beta2_f=beta2_f, beta2_b=beta2_b, b_f=b_f,
                b_b=b_b))
     vecs = [alpha_f, alpha_b, beta1_f, beta1_b, beta2_f, beta2_b, b_f, b_b]
-    geo = _geometry("bi_mi_lstm_bwd", xp_f, wh_f, 2)
+    geo = _geometry(xp_f, 2)
     if xp_f.device.type == "cpu":
         with torch.no_grad():
             return bi_mi_lstm_bwd_plain(xp_f, xp_b, mask, wh_f, wh_b, *vecs,
@@ -397,7 +396,7 @@ def mi_lstm_bwd(xp, mask, wh, alpha, beta1, beta2, b, h, c, dh
     check("mi_lstm_bwd", 4, mask, dict(xp=xp), dict(wh=wh),
           dict(h=h, c=c, dh=dh),
           dict(alpha=alpha, beta1=beta1, beta2=beta2, b=b))
-    geo = _geometry("mi_lstm_bwd", xp, wh, 1)
+    geo = _geometry(xp, 1)
     if xp.device.type == "cpu":
         with torch.no_grad():
             return mi_lstm_bwd_plain(xp, mask, wh, alpha, beta1, beta2, b, h,

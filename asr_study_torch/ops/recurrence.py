@@ -7,8 +7,8 @@ scan-previous state of a sequence, the cotangent of an unused output, and
 the fit rules of the cluster-resident kernels (the LSTM's, the GRU's, the
 layer-norm, zoneout and MI LSTMs'; the wide rule, the LSTM's and the
 GRU's), and the refusal of a bfloat16 call that goes to a design with no
-bfloat16-weight form (the layer-norm, zoneout and MI LSTMs' stream
-designs; every design of the LSTM and the GRU has one)."""
+bfloat16-weight form (the layer-norm LSTM's stream design; every design
+of the LSTM, the GRU and the zoneout and MI LSTMs has one)."""
 
 from __future__ import annotations
 
@@ -55,8 +55,8 @@ WIDE_ROWS = (4, 8, 16)
 CLUSTER_MAX_HIDDEN = 256     # the widest H the cluster design takes
 
 # where bf16 compute (the JAX trainer's compute_dtype, train --bf16) waits
-# for the designs that have no bfloat16-weight kernels yet: the layer-norm,
-# zoneout and MI LSTMs' stream designs (its item 2b)
+# for the design that has no bfloat16-weight kernels yet: the layer-norm
+# LSTM's stream design (its item 2c)
 BF16_ITEM = "ROADMAP queue A item 5b"
 
 
@@ -125,11 +125,11 @@ def wide_geometry(hidden: int, batch: int, ndir: int,
 
 def bf16_design(name: str, geo: Geometry, wh: torch.Tensor, hidden: int,
                 batch: int) -> Geometry:
-    """``geo``, the layout of a call of the layer-norm, zoneout or MI LSTM
-    wrapper ``name`` with weights ``wh``; a bfloat16 call that it sends to
-    the stream design raises (that cell's stream design has no bfloat16
-    form, and no call quietly takes float32), saying what the bfloat16
-    forms take: the cluster design."""
+    """``geo``, the layout of a call of the layer-norm LSTM wrapper ``name``
+    with weights ``wh``; a bfloat16 call that it sends to the stream design
+    raises (that cell's stream design has no bfloat16 form, and no call
+    quietly takes float32), saying what the bfloat16 forms take: the
+    cluster design."""
     if wh.dtype == torch.bfloat16 and geo.design == "stream":
         rows = CLUSTER_BUDGET * CLUSTER_ROWS[-1]
         raise ValueError(
@@ -149,8 +149,8 @@ def design_key(geo: Geometry, wh: torch.Tensor) -> str:
 
 def design_counts() -> dict:
     """A fresh ``by_design`` of the LSTM, GRU, layer-norm, zoneout and MI
-    LSTM wrappers (the last three have no wide design and no bfloat16
-    stream form: those counts stay 0)."""
+    LSTM wrappers (the last three have no wide design, and the layer-norm
+    LSTM no bfloat16 stream form: those counts stay 0)."""
     return {"cluster": 0, "wide": 0, "stream": 0, "cluster_bf16": 0,
             "wide_bf16": 0, "stream_bf16": 0}
 

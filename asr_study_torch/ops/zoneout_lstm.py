@@ -49,17 +49,16 @@ bfloat16 weights (``train --bf16``, the JAX trainer's ``compute_dtype``,
 under which ``pallas_bi_zoneout_lstm`` / ``pallas_zoneout_lstm`` run with a
 bfloat16 wh): ``wh`` may be bfloat16 in every wrapper, both directions
 alike, while xp, the mask, the mix weights, h, c and every cotangent stay
-float32.  The cluster design then launches its bfloat16-weight forms (the
-same sources, the ``_bf16`` entry points): h_prev is rounded to bfloat16
-where it enters ``h_prev @ wh`` and only there (the mix and the hold take
-it unrounded), the backward recomputes that product the same way and
-rounds ``dpre`` before ``dpre @ wh^T``, as the JAX kernels' ``_mm`` does,
-each product taken in float32; dxp comes out unrounded.  The plain twins
-round the same way (:func:`~asr_study_torch.models.nn.dot`), and ``dwh``
-(a float32 product of the unrounded h_prev and dxp) comes back bfloat16.
-A bfloat16 call whose shape goes to the stream design raises
-(:data:`~asr_study_torch.ops.recurrence.BF16_ITEM`); ``by_design`` counts
-bfloat16 launches under ``cluster_bf16``.
+float32.  Both designs then launch their bfloat16-weight forms (the same
+sources, the ``_bf16`` entry points): h_prev is rounded to bfloat16 where
+it enters ``h_prev @ wh`` and only there (the mix and the hold take it
+unrounded), the backward recomputes that product the same way and rounds
+``dpre`` before ``dpre @ wh^T``, as the JAX kernels' ``_mm`` does, each
+product taken in float32; dxp comes out unrounded.  The plain twins round
+the same way (:func:`~asr_study_torch.models.nn.dot`), and ``dwh`` (a
+float32 product of the unrounded h_prev and dxp) comes back bfloat16.  No
+bfloat16 call takes a float32 form; ``by_design`` counts bfloat16
+launches under ``cluster_bf16`` and ``stream_bf16``.
 """
 
 from __future__ import annotations
@@ -71,11 +70,11 @@ from asr_study_torch.models.cells import zoneout_lstm_step
 from asr_study_torch.models.nn import dot
 from asr_study_torch.ops.bilstm import (CLUSTER_SLICE, CLUSTER_THREADS,
                                         _dwh, cluster_smem, stream_smem)
-from asr_study_torch.ops.recurrence import (STREAM_ROWS, Geometry, bf16_design,
-                                            check, check_carry,
-                                            cluster_geometry, cotangent,
-                                            design_counts, design_key,
-                                            kernel_info, prev, r4, stream)
+from asr_study_torch.ops.recurrence import (STREAM_ROWS, Geometry, check,
+                                            check_carry, cluster_geometry,
+                                            cotangent, design_counts,
+                                            design_key, kernel_info, prev, r4,
+                                            stream)
 
 
 def zoneout_cluster_smem(hidden: int, units: int, rows: int, ctas: int
@@ -91,12 +90,13 @@ def zoneout_cluster_smem(hidden: int, units: int, rows: int, ctas: int
     return fwd + 2 * pairs, bwd + pairs
 
 
-def zoneout_stream_smem(hidden: int) -> tuple[int, int]:
+def zoneout_stream_smem(hidden: int, bf16: bool = False) -> tuple[int, int]:
     """Dynamic shared memory per block of the stream forward and backward,
     bytes: the formulas of ``csrc/zoneout_lstm_stream_{fwd,bwd}.cu``, which
     are ``csrc/lstm_stream_{fwd,bwd}.cu``'s (``ops/bilstm.py``
-    ``stream_smem``)."""
-    return stream_smem(hidden)
+    ``stream_smem``); with ``bf16``, of the bfloat16-weight forms (the
+    forward's rounded copy of h besides)."""
+    return stream_smem(hidden, bf16)
 
 
 def zoneout_geometry(hidden: int, batch: int, ndir: int) -> Geometry:
@@ -163,11 +163,8 @@ def zoneout_lstm_plain(xp, mask, zh, zc, wh, h0=None, c0=None
     return _scan(xp, mask, zh, zc, wh, False, h0, c0)
 
 
-def _geometry(name: str, xp: torch.Tensor, wh: torch.Tensor,
-              ndir: int) -> Geometry:
-    hidden, batch = xp.shape[2] // 4, xp.shape[1]
-    return bf16_design(name, zoneout_geometry(hidden, batch, ndir), wh,
-                       hidden, batch)
+def _geometry(xp: torch.Tensor, ndir: int) -> Geometry:
+    return zoneout_geometry(xp.shape[2] // 4, xp.shape[1], ndir)
 
 
 def launch_fwd(geo: Geometry, xps: list, mask: torch.Tensor, zhs: list,
@@ -194,8 +191,8 @@ def launch_fwd(geo: Geometry, xps: list, mask: torch.Tensor, zhs: list,
             err = getattr(_build.lib(), f"asr_zoneout_lstm_fwd{form}")(
                 *ptrs, geo.ctas, geo.units, geo.rows, stream(xps[0]))
         else:
-            err = _build.lib().asr_zoneout_lstm_stream_fwd(*ptrs,
-                                                           stream(xps[0]))
+            err = getattr(_build.lib(), f"asr_zoneout_lstm_stream_fwd{form}")(
+                *ptrs, stream(xps[0]))
     _build.check(err, f"{'bi_zoneout_lstm' if ndir == 2 else 'zoneout_lstm'}"
                       f"_fwd ({geo.design}{form})")
     return outs
@@ -226,7 +223,7 @@ def bi_zoneout_lstm(xp_f: torch.Tensor, xp_b: torch.Tensor,
           dict(wh_f=wh_f, wh_b=wh_b),
           dict(zh_f=zh_f, zh_b=zh_b, zc_f=zc_f, zc_b=zc_b))
     args = (xp_f, xp_b, mask, zh_f, zh_b, zc_f, zc_b, wh_f, wh_b)
-    geo = _geometry("bi_zoneout_lstm", xp_f, wh_f, 2)
+    geo = _geometry(xp_f, 2)
     if xp_f.device.type == "cpu":
         with torch.no_grad():
             return bi_zoneout_lstm_plain(*args)
@@ -255,7 +252,7 @@ def zoneout_lstm(xp: torch.Tensor, mask: torch.Tensor, zh: torch.Tensor,
     check("zoneout_lstm", 4, mask, dict(xp=xp), dict(wh=wh),
           dict(zh=zh, zc=zc))
     check_carry("zoneout_lstm", xp, 4, h0=h0, c0=c0)
-    geo = _geometry("zoneout_lstm", xp, wh, 1)
+    geo = _geometry(xp, 1)
     if xp.device.type == "cpu":
         with torch.no_grad():
             return zoneout_lstm_plain(xp, mask, zh, zc, wh, h0, c0)
@@ -340,7 +337,7 @@ def launch_bwd(geo: Geometry, xps: list, mask: torch.Tensor, zhs: list,
         else:
             whts = [w.t().contiguous() for w in whs]
             args = (*head, whts[0], whts[-1], *seqs)
-            err = _build.lib().asr_zoneout_lstm_stream_bwd(
+            err = getattr(_build.lib(), f"asr_zoneout_lstm_stream_bwd{form}")(
                 *(a.data_ptr() for a in args), t_steps, batch, hidden, ndir,
                 stream(xps[0]))
     _build.check(err, f"{'bi_zoneout_lstm' if ndir == 2 else 'zoneout_lstm'}"
@@ -360,7 +357,7 @@ def bi_zoneout_lstm_bwd(xp_f, xp_b, mask, zh_f, zh_b, zc_f, zc_b, wh_f,
           dict(wh_f=wh_f, wh_b=wh_b),
           dict(zh_f=zh_f, zh_b=zh_b, zc_f=zc_f, zc_b=zc_b, h_f=h_f, c_f=c_f,
                h_b=h_b, c_b=c_b, dh_f=dh_f, dh_b=dh_b))
-    geo = _geometry("bi_zoneout_lstm_bwd", xp_f, wh_f, 2)
+    geo = _geometry(xp_f, 2)
     if xp_f.device.type == "cpu":
         with torch.no_grad():
             return bi_zoneout_lstm_bwd_plain(xp_f, xp_b, mask, zh_f, zh_b,
@@ -383,7 +380,7 @@ def zoneout_lstm_bwd(xp, mask, zh, zc, wh, h, c, dh) -> torch.Tensor:
     :func:`bi_zoneout_lstm_bwd` for one direction."""
     check("zoneout_lstm_bwd", 4, mask, dict(xp=xp), dict(wh=wh),
           dict(zh=zh, zc=zc, h=h, c=c, dh=dh))
-    geo = _geometry("zoneout_lstm_bwd", xp, wh, 1)
+    geo = _geometry(xp, 1)
     if xp.device.type == "cpu":
         with torch.no_grad():
             return zoneout_lstm_bwd_plain(xp, mask, zh, zc, wh, h, c, dh)

@@ -79,11 +79,12 @@ paths at full width, with random weights from a seeded
   cluster kernels'), bidirectional and unidirectional, and 3x512 (the wide
   GRU kernels'), of zoneout_blstm, mi_blstm and ln_blstm 3x256 (their
   cluster kernels'), bidirectional and unidirectional, of deep_blstm
-  3x256, deep_speech and deep_gru 3x256 at B=64 bidirectional (the LSTM
-  and GRU stream kernels' bfloat16-weight forms: ``--batch_size 64``), and
-  ``cli.train --bf16`` of deep_blstm, deep_gru, zoneout_blstm, mi_blstm
-  and ln_blstm on the corpus manifest, and of deep_blstm with
-  ``--batch_size 64``;
+  3x256, deep_speech, deep_gru 3x256, zoneout_blstm and mi_blstm 3x256 at
+  B=64 bidirectional (the LSTM, GRU, zoneout and MI stream kernels'
+  bfloat16-weight forms: ``--batch_size 64``) and of zoneout_blstm and
+  mi_blstm unidirectional at B=128, and ``cli.train --bf16`` of
+  deep_blstm, deep_gru, zoneout_blstm, mi_blstm and ln_blstm on the corpus
+  manifest, and of deep_blstm and zoneout_blstm with ``--batch_size 64``;
 - data parallelism (BASELINE config 5, ``train --num_devices``,
   ``Trainer(group=)``): deep_blstm 3x256 at B=32, T=512 in two ranks
   (``parallel.dp.launch``) that share the one card over gloo, which stages
@@ -162,34 +163,37 @@ Phases, in order; any failure raises and the exit code is not 0:
    the CPU, run twice bit for bit; accumulation over two halves against
    the whole batch; check_nans raising on a NaN batch with the weights
    untouched; fit(profile=True) writing a trace with the card's kernels;
-   then the bf16 phase: the eighteen bfloat16-weight kernels (the
-   cluster, wide and stream LSTM and GRU kernels, the cluster LN, zoneout
-   and MI LSTM kernels, forward and backward) against their plain twins
-   at T=512, B=32, H=256 and (LSTM, GRU) 512, one and two directions, and
-   the stream forms at B=64 in two directions at H=256 and 512 and at
-   B=128 in one at H=256 (h, c, the kept gates or h side, dxp, the GRU's
-   dhp, the MI dpre; dwh after its matmul; the zoneout mix drawn once,
+   then the bf16 phase: the twenty-two bfloat16-weight kernels (the
+   cluster, wide and stream LSTM and GRU kernels, the cluster and stream
+   zoneout and MI LSTM kernels, the cluster LN LSTM kernels, forward and
+   backward) against their plain twins at T=512, B=32, H=256 and (LSTM,
+   GRU) 512, one and two directions, and the stream forms (all but the
+   LN LSTM's) at B=64 in two directions at H=256 and 512 and at B=128 in
+   one at H=256 (h, c, the kept gates or h side, dxp, the GRU's dhp, the
+   MI dpre; dwh after its matmul; the zoneout mix drawn once,
    Bernoulli(0.9), for kernel and twin), two launches bit-equal, each
    timed beside its float32 form, its bound and cuDNN ``nn.LSTM`` /
    ``nn.GRU`` in bfloat16 (no library call for LN, zoneout or MI);
    BF16_STEPS bf16 train steps of deep_blstm and deep_speech, each
    bidirectional and with ``bidirectional=false``, of deep_gru 3x256 bi
    and uni and 3x512, of zoneout_blstm (rates 0.1), mi_blstm and ln_blstm
-   3x256 bi and uni, and of deep_blstm, deep_speech and deep_gru 3x256 at
-   B=64 bi (the stream forms: train --bf16 --batch_size 64), from the
-   float32 slice's weights, their launches (the bf16 forms only), losses
-   beside the float32 run's, two identical steps bit-equal, ms a step;
+   3x256 bi and uni, of deep_blstm, deep_speech, deep_gru, zoneout_blstm
+   (rates 0.1) and mi_blstm 3x256 at B=64 bi (the stream forms: train
+   --bf16 --batch_size 64), and of zoneout_blstm and mi_blstm 3x256 uni at
+   B=128 (their unidirectional stream forms), from the float32 slice's
+   weights, their launches (the bf16 forms only), losses beside the
+   float32 run's, two identical steps bit-equal, ms a step;
 8. the corpus phase: each CLI run's launches held to what its steps and
    evals need, every logged loss finite and the train loss falling from
    the first epoch to the third, the step count continued by ``--resume``,
    eval's valid loss equal to the run's last ``val_loss``, finite test
    CER and WER, then ``train --bf16`` of deep_blstm, deep_gru,
    zoneout_blstm, mi_blstm and ln_blstm for an epoch each (the bf16
-   cluster forms in every step) and of deep_blstm with ``--batch_size 64``
-   (the bf16 stream forms in every step); the host seconds of
-   the synthesis and of the manifest's features, ms per train step (CUDA
-   events) and audio-s/s, eval ms per batch; then the h5 phase on its
-   corpus: make_dataset --output (host MFCC in both layouts, raw, and
+   cluster forms in every step) and of deep_blstm and zoneout_blstm with
+   ``--batch_size 64`` (the bf16 stream forms in every step); the host
+   seconds of the synthesis and of the manifest's features, ms per train
+   step (CUDA events) and audio-s/s, eval ms per batch; then the h5 phase
+   on its corpus: make_dataset --output (host MFCC in both layouts, raw, and
    --device over pcm16 and dpack: the two bit-equal, near host MFCC),
    train from the .h5 (each step's loss that of the manifest run's first
    epoch) and with --device_features,
@@ -3263,6 +3267,25 @@ KERNELS = {
                                "ops/pallas_bilstm.py:125"),
     "bigru_fwd_stream_bf16": ("gru_stream_fwd.cu", "ops/pallas_bigru.py:69"),
     "bigru_bwd_stream_bf16": ("gru_stream_bwd.cu", "ops/pallas_bigru.py:92"),
+    # the zoneout and MI LSTMs' stream design on a bfloat16 wh (train --bf16
+    # --batch_size 64 of zoneout_blstm and mi_blstm), the same sources; both
+    # directions' rows
+    "bi_zoneout_lstm_fwd_stream_bf16": ("zoneout_lstm_stream_fwd.cu",
+                                        "ops/pallas_bi_zoneout_lstm.py:41"),
+    "bi_zoneout_lstm_bwd_stream_bf16": ("zoneout_lstm_stream_bwd.cu",
+                                        "ops/pallas_bi_zoneout_lstm.py:83"),
+    "zoneout_lstm_fwd_stream_bf16": ("zoneout_lstm_stream_fwd.cu",
+                                     "ops/pallas_zoneout_lstm.py:56"),
+    "zoneout_lstm_bwd_stream_bf16": ("zoneout_lstm_stream_bwd.cu",
+                                     "ops/pallas_zoneout_lstm.py:133"),
+    "bi_mi_lstm_fwd_stream_bf16": ("mi_lstm_stream_fwd.cu",
+                                   "ops/pallas_bi_mi_lstm.py:39"),
+    "bi_mi_lstm_bwd_stream_bf16": ("mi_lstm_stream_bwd.cu",
+                                   "ops/pallas_bi_mi_lstm.py:81"),
+    "mi_lstm_fwd_stream_bf16": ("mi_lstm_stream_fwd.cu",
+                                "ops/pallas_mi_lstm.py:59"),
+    "mi_lstm_bwd_stream_bf16": ("mi_lstm_stream_bwd.cu",
+                                "ops/pallas_mi_lstm.py:132"),
 }
 # kernel line row of the wide design -> the wrapper that launches it
 WIDE_ROWS = {"bilstm_fwd_wide": "bilstm_fwd", "bilstm_bwd_wide": "bilstm_bwd",
@@ -3273,7 +3296,8 @@ WIDE_ROWS = {"bilstm_fwd_wide": "bilstm_fwd", "bilstm_bwd_wide": "bilstm_bwd",
 # kernel line row of a bfloat16-weight form -> (the wrapper that launches
 # it, its by_design key); the LSTM's and the GRU's unidirectional rows are
 # counted but not in the kernels line, whose bf16 rows of theirs are the
-# bidirectional ones
+# bidirectional ones (the LN, zoneout and MI LSTMs' rows of both
+# directions are in it)
 BF16_ROWS = {**{f"{w}{suffix}_bf16": (w, design + "_bf16")
                 for w in ("bilstm_fwd", "bilstm_bwd", "lstm_fwd", "lstm_bwd",
                           "bigru_fwd", "bigru_bwd", "gru_fwd", "gru_bwd")
@@ -3284,7 +3308,12 @@ BF16_ROWS = {**{f"{w}{suffix}_bf16": (w, design + "_bf16")
                           "zoneout_lstm_fwd", "zoneout_lstm_bwd",
                           "bi_mi_lstm_fwd", "bi_mi_lstm_bwd", "mi_lstm_fwd",
                           "mi_lstm_bwd", "bi_ln_lstm_fwd", "bi_ln_lstm_bwd",
-                          "ln_lstm_fwd", "ln_lstm_bwd")}}
+                          "ln_lstm_fwd", "ln_lstm_bwd")},
+             **{f"{w}_stream_bf16": (w, "stream_bf16")
+                for w in ("bi_zoneout_lstm_fwd", "bi_zoneout_lstm_bwd",
+                          "zoneout_lstm_fwd", "zoneout_lstm_bwd",
+                          "bi_mi_lstm_fwd", "bi_mi_lstm_bwd", "mi_lstm_fwd",
+                          "mi_lstm_bwd")}}
 
 # training paths: label -> (zoo model, its hparams, forward and backward
 # kernel of its recurrence, recurrent layers, what it is); the LN paths'
@@ -5611,10 +5640,33 @@ BF16_STREAM_PATHS = {
     "deep_gru b64": ("deep_gru", _CONFIG3, "bigru_fwd_stream_bf16",
                      "bigru_bwd_stream_bf16", TRAIN_LAYERS,
                      f"{TRAIN_LAYERS}x{HIDDEN} BGRU"),
+    "zoneout_blstm b64": ("zoneout_blstm", _CONFIG3,
+                          "bi_zoneout_lstm_fwd_stream_bf16",
+                          "bi_zoneout_lstm_bwd_stream_bf16", TRAIN_LAYERS,
+                          f"{TRAIN_LAYERS}x{HIDDEN} zoneout BLSTM 0.1/0.1"),
+    "mi_blstm b64": ("mi_blstm", _CONFIG3, "bi_mi_lstm_fwd_stream_bf16",
+                     "bi_mi_lstm_bwd_stream_bf16", TRAIN_LAYERS,
+                     f"{TRAIN_LAYERS}x{HIDDEN} MI BLSTM"),
+    # one direction at B=128 (past the cluster design's B=96 there): the
+    # zoneout and MI LSTMs' unidirectional stream rows of the kernels line
+    "zoneout_blstm uni b128": ("zoneout_blstm", _CONFIG3 +
+                               ",bidirectional=false",
+                               "zoneout_lstm_fwd_stream_bf16",
+                               "zoneout_lstm_bwd_stream_bf16", TRAIN_LAYERS,
+                               f"{TRAIN_LAYERS}x{HIDDEN} unidirectional "
+                               "zoneout LSTM 0.1/0.1"),
+    "mi_blstm uni b128": ("mi_blstm", _CONFIG3 + ",bidirectional=false",
+                          "mi_lstm_fwd_stream_bf16",
+                          "mi_lstm_bwd_stream_bf16", TRAIN_LAYERS,
+                          f"{TRAIN_LAYERS}x{HIDDEN} unidirectional MI "
+                          "LSTM"),
 }
-# the LSTM's and the GRU's bfloat16 stream forms held against their twins
-# at T=TRAIN_T: (H, B, directions), two directions at the zoo's 256 and 512
-# units and B=BF16_STREAM_B, one direction at B=128
+# the rows a BF16_STREAM_PATHS path trains on where not BF16_STREAM_B
+BF16_STREAM_ROWS = {"zoneout_blstm uni b128": 128, "mi_blstm uni b128": 128}
+# the bfloat16 stream forms (the LSTM's, the GRU's, the zoneout and MI
+# LSTMs') held against their twins at T=TRAIN_T: (H, B, directions), two
+# directions at the zoo's 256 and 512 units and B=BF16_STREAM_B, one
+# direction at B=128
 BF16_STREAM_CASES = ((HIDDEN, BF16_STREAM_B, (2,)), (512, BF16_STREAM_B, (2,)),
                      (HIDDEN, 128, (1,)))
 
@@ -5680,6 +5732,8 @@ class Bf16Family:
         # zoneout and MI LSTMs' rows of both directions are in the kernels
         # line
         self.resident = cell in ("ln_lstm", "zoneout_lstm", "mi_lstm")
+        # every cell's stream design has bfloat16 forms but the LN LSTM's
+        self.stream_bf16 = cell != "ln_lstm"
         # the LN recurrence is chaotic at T=TRAIN_T (ROADMAP C2): held
         # step by step and row by row there, whole only at LN_CHECK_T
         self.chaotic = cell == "ln_lstm"
@@ -5895,8 +5949,9 @@ def ln_bf16_held(fam: Bf16Family, xs, mask, ws, dh, outs, d_k, d_p
 def check_bf16_kernels(dev: torch.device, card: str, cell: str) -> dict:
     """The bfloat16-weight forms of the LSTM (``cell`` "lstm") or the GRU
     ("gru"): cluster and wide, at H=256 and H=512, and stream at
-    BF16_STREAM_CASES, or of the layer-norm, zoneout or MI LSTM
-    ("ln_lstm", "zoneout_lstm", "mi_lstm"): cluster, at H=256; forward and
+    BF16_STREAM_CASES, or of the zoneout or MI LSTM ("zoneout_lstm",
+    "mi_lstm"): cluster, at H=256, and stream at BF16_STREAM_CASES, or of
+    the layer-norm LSTM ("ln_lstm"): cluster, at H=256; forward and
     backward, each over one and two directions (the stream cases: as
     listed), against their plain twins on the card at the training shapes
     T=TRAIN_T, B=TRAIN_B (the stream cases: their B): h (c; the wide
@@ -5918,7 +5973,7 @@ def check_bf16_kernels(dev: torch.device, card: str, cell: str) -> dict:
                                               "ln_lstm": 29}[cell])
     t, gates = TRAIN_T, fam.gates
     cases = [(hidden, TRAIN_B, (2, 1)) for hidden in fam.widths]
-    if not fam.resident:
+    if fam.stream_bf16:
         cases += BF16_STREAM_CASES
     for hidden, b, ndirs in cases:
         xps = [torch.randn(t, b, gates * hidden, generator=g).to(dev)
@@ -6068,8 +6123,9 @@ def check_bf16_kernels(dev: torch.device, card: str, cell: str) -> dict:
 def bf16_train_path(dev: torch.device, card: str, path: str) -> dict:
     """BF16_STEPS bfloat16 train steps (``Trainer(compute_dtype=
     torch.bfloat16)``) of one of BF16_PATHS at the config-3 shapes of
-    ``training_slice`` (or of BF16_STREAM_PATHS on BF16_STREAM_B rows: the
-    config-3 batch and the one train_host draws from the next seed), from
+    ``training_slice`` (or of BF16_STREAM_PATHS on BF16_STREAM_B rows, or
+    BF16_STREAM_ROWS: the config-3 batch and the ones train_host draws from
+    the next seeds), from
     the float32 slice's initial weights, counted from 0: launches of the
     bfloat16 forms only, held to the steps; losses finite, printed beside
     BF16_STEPS float32 steps' from the same weights; two identical
@@ -6081,7 +6137,7 @@ def bf16_train_path(dev: torch.device, card: str, path: str) -> dict:
     stream = path in BF16_STREAM_PATHS
     model_name, hp, fwd_row, bwd_row, layers, desc = (
         BF16_STREAM_PATHS if stream else BF16_PATHS)[path]
-    rows = BF16_STREAM_B if stream else TRAIN_B
+    rows = BF16_STREAM_ROWS.get(path, BF16_STREAM_B) if stream else TRAIN_B
 
     def make(device, seed=SEED):
         return build_model(model_name, hp, num_classes=NUM_CLASSES,
@@ -6159,6 +6215,10 @@ def bf16_cli_run(card: str, tmp: str, manifest: str, model: str,
     ``hparams["bf16"]``."""
     from asr_study_torch.cli import train as cli_train
     from asr_study_torch.ops.bilstm import lstm_geometry
+    from asr_study_torch.ops.gru import gru_geometry
+    from asr_study_torch.ops.ln_lstm import ln_geometry
+    from asr_study_torch.ops.mi_lstm import mi_geometry
+    from asr_study_torch.ops.zoneout_lstm import zoneout_geometry
 
     run_dir = os.path.join(tmp, f"bf16_run_{model}_b{batch}")
     tap = CliTap()
@@ -6177,8 +6237,11 @@ def bf16_cli_run(card: str, tmp: str, manifest: str, model: str,
     spe, v_b = its["train"].steps_per_epoch, its["valid"].steps_per_epoch
     rnn = BF16_CLI_RNN[model]
     # every batch is padded to its full rows: one design for all of them
-    suffix = "_stream" if lstm_geometry(HIDDEN, batch, 2).design == \
-        "stream" else ""
+    geometry = {"deep_gru": gru_geometry, "ln_blstm": ln_geometry,
+                "zoneout_blstm": zoneout_geometry,
+                "mi_blstm": mi_geometry}.get(model, lstm_geometry)
+    suffix = "_stream" if geometry(HIDDEN, batch, 2).design == "stream" \
+        else ""
     want = {f"{rnn}_fwd{suffix}_bf16": TRAIN_LAYERS * spe,
             f"{rnn}_bwd{suffix}_bf16": TRAIN_LAYERS * spe,
             f"{rnn}_fwd": TRAIN_LAYERS * v_b, "ctc_alpha": spe + v_b,
@@ -6511,6 +6574,8 @@ def main() -> int:
     print_cluster_geometry()
     from asr_study_torch.ops.bilstm import stream_smem
     from asr_study_torch.ops.gru import gru_stream_smem
+    from asr_study_torch.ops.mi_lstm import mi_stream_smem
+    from asr_study_torch.ops.zoneout_lstm import zoneout_stream_smem
     for hidden in (HIDDEN, 512):
         fwd_b, bwd_b, nsplit = ln_smem(hidden)
         print(f"  dynamic shared memory per block at H={hidden} of the "
@@ -6524,6 +6589,13 @@ def main() -> int:
               f"gru_stream_fwd {gru_stream_smem(hidden)[0]} / "
               f"{gru_stream_smem(hidden, True)[0]} B, gru_stream_bwd "
               f"{gru_stream_smem(hidden)[1]} B (both)")
+        print(f"  the same of the zoneout and MI LSTMs' stream forms: "
+              f"zoneout_lstm_stream_fwd {zoneout_stream_smem(hidden)[0]} / "
+              f"{zoneout_stream_smem(hidden, True)[0]} B, "
+              f"zoneout_lstm_stream_bwd {zoneout_stream_smem(hidden)[1]} B; "
+              f"mi_lstm_stream_fwd {mi_stream_smem(hidden)[0]} / "
+              f"{mi_stream_smem(hidden, True)[0]} B, mi_lstm_stream_bwd "
+              f"{mi_stream_smem(hidden)[1]} B (both)")
 
     # 3. kernels against their plain versions at main-path shapes ---------
     rng = np.random.RandomState(SEED)
@@ -6825,11 +6897,13 @@ def main() -> int:
     path_launches += optimizer_phase(dev, card)
     clock.mark("optimizer phase")
     # the bfloat16 phase (train --bf16): the LSTM's and the GRU's six
-    # bfloat16-weight forms and the LN, zoneout and MI LSTMs' two each
-    # against their twins, then bf16 train steps of deep_blstm (cluster)
-    # and deep_speech (wide), bi and uni, deep_gru 3x256 (cluster) bi and
-    # uni and 3x512 (wide), zoneout_blstm, mi_blstm and ln_blstm 3x256 bi
-    # and uni, and of deep_blstm, deep_speech and deep_gru at B=64 (stream)
+    # bfloat16-weight forms, the zoneout and MI LSTMs' four each and the LN
+    # LSTM's two against their twins, then bf16 train steps of deep_blstm
+    # (cluster) and deep_speech (wide), bi and uni, deep_gru 3x256
+    # (cluster) bi and uni and 3x512 (wide), zoneout_blstm, mi_blstm and
+    # ln_blstm 3x256 bi and uni, of deep_blstm, deep_speech, deep_gru,
+    # zoneout_blstm and mi_blstm at B=64 (stream), and of zoneout_blstm
+    # and mi_blstm unidirectional at B=128 (stream)
     bf16_kernels = check_bf16_kernels(dev, card, "lstm")
     for cell in ("gru", "zoneout_lstm", "mi_lstm", "ln_lstm"):
         for key, found in check_bf16_kernels(dev, card, cell).items():
@@ -6851,9 +6925,11 @@ def main() -> int:
             with part(f"train --bf16 --model {model} CLI"):
                 path_launches.append(bf16_cli_run(card, tmp, manifest,
                                                   model))
-        with part(f"train --bf16 --batch_size {BF16_STREAM_B} CLI"):
-            path_launches.append(bf16_cli_run(card, tmp, manifest,
-                                              "deep_blstm", BF16_STREAM_B))
+        for model in ("deep_blstm", "zoneout_blstm"):
+            with part(f"train --bf16 --model {model} --batch_size "
+                      f"{BF16_STREAM_B} CLI"):
+                path_launches.append(bf16_cli_run(card, tmp, manifest,
+                                                  model, BF16_STREAM_B))
         clock.mark("corpus phase")
         # 11. the dp phase on the corpus's train split
         path_launches += dp_phase(card, tmp, train_it)

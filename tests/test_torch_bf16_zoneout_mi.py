@@ -13,8 +13,9 @@ the holds taking it unrounded; ``dpre`` / the MI ``dhp`` rounded only for
 mi_blstm against the JAX ``Trainer(compute_dtype=jnp.bfloat16)`` on its
 Pallas route (``RNN_BACKEND = "pallas"``, as ``tests/test_torch_bf16.py``
 runs the LSTM's), zoneout at rate 0 and at 0.1 with one mix handed to both
-sides; the float32 eval step; and the refusal of a bfloat16 shape that
-goes to the stream design."""
+sides; and the float32 eval step.  The shapes that go to the stream design
+(the stream forms' twins against the JAX kernels, and train steps at
+B=50 and B=97): ``tests/test_torch_bf16_zm_stream.py``."""
 
 import copy
 
@@ -29,7 +30,7 @@ from asr_study_torch.models.zoo import build_model
 from asr_study_torch.ops import mi_lstm as M
 from asr_study_torch.ops import zoneout_lstm as Z
 from asr_study_torch.ops.bilstm import _dwh
-from asr_study_torch.ops.recurrence import BF16_ITEM, prev
+from asr_study_torch.ops.recurrence import prev
 from asr_study_torch.train.trainer import Trainer, make_optimizer
 from asr_study_torch.utils.weights import params_from_flat
 from asr_study_tpu.models import rnn as jrnn
@@ -112,16 +113,13 @@ def _check_weight(got, want, what):
 
 # -- (a) the Functions against the JAX Pallas ops ---------------------------
 
-@pytest.mark.parametrize("h", [8, 16])
-@pytest.mark.parametrize("ndir", [2, 1], ids=["bi", "uni"])
-def test_zoneout_with_bf16_wh_matches_pallas(ndir, h):
+def check_zoneout_parity(ndir, h, args, dh):
     """h, dxp and dwh (bfloat16) of BiZoneoutLSTMFunction /
-    ZoneoutLSTMFunction with a bfloat16 wh and a non-zero mix against
-    pallas_bi_zoneout_lstm / pallas_zoneout_lstm with one and the same mix,
-    in interpret mode, at T=12, B=3 with held frames."""
-    t, b = 12, 3
-    (xp_f, xp_b, mask, zh_f, zh_b, zc_f, zc_b, wh_f, wh_b), (dh_f, dh_b) = \
-        _zo_inputs(h + 2, t, b, h)
+    ZoneoutLSTMFunction with a bfloat16 wh against pallas_bi_zoneout_lstm
+    / pallas_zoneout_lstm with one and the same mix, in interpret mode:
+    ``args`` and ``dh`` as _zo_inputs gives them."""
+    xp_f, xp_b, mask, zh_f, zh_b, zc_f, zc_b, wh_f, wh_b = args
+    dh_f, dh_b = dh
     J = jnp.asarray
 
     def jax_loss(xf, xb, wf, wb):
@@ -162,17 +160,14 @@ def test_zoneout_with_bf16_wh_matches_pallas(ndir, h):
         _check_weight(wt.grad, g, "dwh")
 
 
-@pytest.mark.parametrize("h", [8, 16])
-@pytest.mark.parametrize("ndir", [2, 1], ids=["bi", "uni"])
-def test_mi_with_bf16_wh_matches_pallas(ndir, h):
+def check_mi_parity(ndir, h, args, dh):
     """h and every gradient of BiMILSTMFunction / MILSTMFunction with a
     bfloat16 wh (dxp; dwh in bfloat16; dalpha, dbeta1, dbeta2, db of the
     float32 vectors) against pallas_bi_mi_lstm / pallas_mi_lstm with one,
-    in interpret mode, at T=12, B=3 with held frames."""
-    t, b = 12, 3
-    args, (dh_f, dh_b) = _mi_inputs(h + 3, t, b, h)
+    in interpret mode: ``args`` and ``dh`` as _mi_inputs gives them."""
     xp_f, xp_b, mask, wh_f, wh_b = args[:5]
     vecs = args[5:]
+    dh_f, dh_b = dh
     J = jnp.asarray
     n_vec = 4 * ndir
 
@@ -216,6 +211,22 @@ def test_mi_with_bf16_wh_matches_pallas(ndir, h):
     for i, (leaf, g) in enumerate(zip(leaves, g_j[4:])):
         assert leaf.grad.dtype == torch.float32
         _close_frac(leaf.grad.numpy(), g, frac=GRAD_FRAC, what=f"vec {i}")
+
+
+@pytest.mark.parametrize("h", [8, 16])
+@pytest.mark.parametrize("ndir", [2, 1], ids=["bi", "uni"])
+def test_zoneout_with_bf16_wh_matches_pallas(ndir, h):
+    """check_zoneout_parity with a non-zero mix at T=12, B=3 with held
+    frames (the cluster design)."""
+    check_zoneout_parity(ndir, h, *_zo_inputs(h + 2, 12, 3, h))
+
+
+@pytest.mark.parametrize("h", [8, 16])
+@pytest.mark.parametrize("ndir", [2, 1], ids=["bi", "uni"])
+def test_mi_with_bf16_wh_matches_pallas(ndir, h):
+    """check_mi_parity at T=12, B=3 with held frames (the cluster
+    design)."""
+    check_mi_parity(ndir, h, *_mi_inputs(h + 3, 12, 3, h))
 
 
 # -- (b) the twins against the rounding rule written out ----------------------
@@ -534,24 +545,17 @@ class _MixFeed:
         return mix
 
 
-@pytest.mark.parametrize("case", list(ZM_STEP_CASES))
-def test_bf16_zoneout_mi_train_step_matches_jax(monkeypatch, case):
+def check_train_step(monkeypatch, model, hp, b=3, feed=None):
     """One sgd step (momentum 0.9 from zeros: the JAX gradient is (p0 - p1)
-    / lr) of zoneout_blstm (rate 0, and rate 0.1 with one mix handed to
-    both packages by patching their draws) and mi_blstm from the same
-    weights: the loss within LOSS_RTOL, every parameter's gradient (the
-    cast's autograd hands the float32 master a bfloat16-representable
-    gradient of the loss sum, divided by the weight sum after it) within
-    GRAD_FRAC of its max, float32 masters and optimizer state
-    afterwards."""
+    / lr) of ``model`` with ``hp`` on ``b`` rows, bfloat16 compute on the
+    port and on the JAX Pallas route, from the same weights (with
+    ``feed``, one zoneout mix handed to both): the loss within LOSS_RTOL,
+    every parameter's gradient (the cast's autograd hands the float32
+    master a bfloat16-representable gradient of the loss sum, divided by
+    the weight sum after it) within GRAD_FRAC of its max, float32 masters
+    and optimizer state afterwards."""
     monkeypatch.setattr(jrnn, "RNN_BACKEND", "pallas")
-    model, hp = ZM_STEP_CASES[case]
-    batch = _batch()
-    if case == "zoneout_blstm_rate":
-        t_steps, b = batch[0].shape[1], batch[0].shape[0]
-        feed = _MixFeed(17, t_steps, b, 4)
-        monkeypatch.setattr(jrnn, "_zoneout_mix", feed.jax_mix)
-        monkeypatch.setattr(ZoneoutLSTMCell, "mix", feed.port_mix())
+    batch = _batch(b=b)
     lr = 0.1
     spec = ("sgd", lr, 400.0)
     jm = getattr(jzoo, model)(hp, num_classes=CLASSES)
@@ -567,18 +571,18 @@ def test_bf16_zoneout_mi_train_step_matches_jax(monkeypatch, case):
     probe = Trainer(copy.deepcopy(pm), make_optimizer(*spec),
                     compute_dtype=BF16)
     tb = list(map(torch.from_numpy, batch))
-    if case == "zoneout_blstm_rate":
+    if feed is not None:
         feed.k = 0
     logits = probe._forward_cast(probe.model, tb[0], tb[1],
                                  torch.Generator().manual_seed(1))
     loss_sum, w_sum = probe._loss_sum(logits, *tb[1:])
     loss_sum.backward()
     sum_grads = dict(probe.model.named_parameters())
-    if case == "zoneout_blstm_rate":
+    if feed is not None:
         feed.k = 0
     js1, jmet = jt.train_step(js, *map(jnp.asarray, batch),
                               jax.random.PRNGKey(1))
-    if case == "zoneout_blstm_rate":
+    if feed is not None:
         assert feed.k == 4          # two layers, two directions, one trace
         feed.k = 0
     state, met = trainer.train_step(state, *map(torch.from_numpy, batch),
@@ -602,6 +606,21 @@ def test_bf16_zoneout_mi_train_step_matches_jax(monkeypatch, case):
                    if torch.is_tensor(v))
 
 
+@pytest.mark.parametrize("case", list(ZM_STEP_CASES))
+def test_bf16_zoneout_mi_train_step_matches_jax(monkeypatch, case):
+    """check_train_step of zoneout_blstm (rate 0, and rate 0.1 with one mix
+    handed to both packages by patching their draws) and mi_blstm at B=3
+    (the cluster design)."""
+    model, hp = ZM_STEP_CASES[case]
+    feed = None
+    if case == "zoneout_blstm_rate":
+        batch = _batch()
+        feed = _MixFeed(17, batch[0].shape[1], batch[0].shape[0], 4)
+        monkeypatch.setattr(jrnn, "_zoneout_mix", feed.jax_mix)
+        monkeypatch.setattr(ZoneoutLSTMCell, "mix", feed.port_mix())
+    check_train_step(monkeypatch, model, hp, feed=feed)
+
+
 # -- (e) the eval step --------------------------------------------------------
 
 @pytest.mark.parametrize("model", ["zoneout_blstm", "mi_blstm"])
@@ -618,52 +637,3 @@ def test_bf16_zoneout_mi_eval_step_is_float32(model):
         outs.append(tr.eval_step(tr.init_state(), *batch))
     for k in outs[0]:
         assert torch.equal(outs[0][k], outs[1][k]), k
-
-
-# -- (f) the stream design ----------------------------------------------------
-
-@pytest.mark.parametrize("cell", ["zoneout", "mi"])
-@pytest.mark.parametrize("hidden,batch,ndir", [(300, 2, 1), (512, 3, 2),
-                                               (100, 49, 2)])
-def test_zoneout_mi_stream_design_refuses_bf16(cell, hidden, batch, ndir):
-    """A bfloat16 zoneout or MI call whose shape goes to the stream design
-    (H > 256, or a batch past the cluster budget) raises, naming A5b,
-    forward and backward, on the CPU too, where the float32 call runs the
-    plain twin."""
-    geometry = Z.zoneout_geometry if cell == "zoneout" else M.mi_geometry
-    assert geometry(hidden, batch, ndir).design == "stream"
-    t = 2
-    g = torch.Generator().manual_seed(0)
-    xp = torch.randn(t, batch, 4 * hidden, generator=g)
-    mask = torch.ones(t, batch, 1)
-    wh = torch.randn(hidden, 4 * hidden, generator=g) / hidden ** 0.5
-    dh = torch.randn(t, batch, hidden, generator=g)
-    if cell == "zoneout":
-        z = torch.full((t, batch, hidden), 0.9)
-        if ndir == 2:
-            fwd = lambda w: Z.bi_zoneout_lstm(xp, xp, mask, z, z, z, z, w, w)
-            bwd = lambda w, hc: Z.bi_zoneout_lstm_bwd(
-                xp, xp, mask, z, z, z, z, w, w, *hc, dh, dh)
-        else:
-            fwd = lambda w: Z.zoneout_lstm(xp, mask, z, z, w)
-            bwd = lambda w, hc: Z.zoneout_lstm_bwd(xp, mask, z, z, w, *hc,
-                                                   dh)
-    else:
-        v = [torch.ones(4 * hidden)] * 4
-        if ndir == 2:
-            fwd = lambda w: M.bi_mi_lstm(xp, xp, mask, w, w,
-                                         *(a for x in v for a in (x, x)))
-            bwd = lambda w, hc: M.bi_mi_lstm_bwd(
-                xp, xp, mask, w, w, *(a for x in v for a in (x, x)), *hc,
-                dh, dh)
-        else:
-            fwd = lambda w: M.mi_lstm(xp, mask, w, *v)
-            bwd = lambda w, hc: M.mi_lstm_bwd(xp, mask, w, *v, *hc, dh)
-    hc = fwd(wh)
-    assert hc[0].shape == (t, batch, hidden)
-    bwd(wh, hc)
-    for call in (fwd, lambda w: bwd(w, hc)):
-        with pytest.raises(ValueError, match=BF16_ITEM):
-            call(wh.to(BF16))
-        with pytest.raises(ValueError, match="cluster design takes H <= 256"):
-            call(wh.to(BF16))

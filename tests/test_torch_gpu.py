@@ -1592,6 +1592,14 @@ def test_bf16_gru_train_step_on_card_matches_cpu(cuda):
 ZM_BF16_CASES = [(12, 4, 8, 2, False), (37, 5, 100, 1, True),
                  (64, 32, 256, 2, False), (40, 33, 256, 1, True),
                  (29, 7, 256, 2, True)]
+# and their stream design: B=64 in two directions at H=256 and 100, B=128
+# in one at H=256 (train --bf16 --batch_size 64, a unidirectional B=128),
+# H=300 and H=512 at small batches; a list of its own, since the LN LSTM's
+# bfloat16 cases (LN_BF16_CASES) are ZM_BF16_CASES and its stream design
+# has no bfloat16 form
+ZM_BF16_STREAM_CASES = [(24, 64, 256, 2, False), (20, 64, 100, 2, True),
+                        (16, 128, 256, 1, False), (23, 5, 300, 1, True),
+                        (12, 3, 512, 2, True)]
 
 
 def _zm_bf16_case(cuda, cell, t, b, h, dead):
@@ -1642,32 +1650,37 @@ def _zm_dwh(cell, ndir, args, hc, d, i):
 
 
 @pytest.mark.parametrize("cell", ["zoneout", "mi"])
-@pytest.mark.parametrize("t,b,h,ndir,dead", ZM_BF16_CASES,
+@pytest.mark.parametrize("t,b,h,ndir,dead",
+                         ZM_BF16_CASES + ZM_BF16_STREAM_CASES,
                          ids=[f"{t}-{b}-{h}-{'bi' if n == 2 else 'uni'}"
                               + ("-dead" if d else "")
-                              for t, b, h, n, d in ZM_BF16_CASES])
+                              for t, b, h, n, d in
+                              ZM_BF16_CASES + ZM_BF16_STREAM_CASES])
 def test_zoneout_mi_bf16_kernels_match_plain(cuda, cell, t, b, h, ndir,
                                              dead):
     """The zoneout and MI LSTMs' bfloat16-weight forms of the forward and
-    backward (the cluster design) against their plain twins with the same
-    bfloat16 wh: h, c, dxp / dpre at BF16_TOL, dwh (bfloat16) within 1e-2
-    of its max abs; counted under ``cluster_bf16``; repeated bit for
-    bit."""
+    backward (the cluster design, and the stream design at
+    ZM_BF16_STREAM_CASES) against their plain twins with the same bfloat16
+    wh: h, c, dxp / dpre at BF16_TOL, dwh (bfloat16) within 1e-2 of its
+    max abs; counted under ``<design>_bf16``; repeated bit for bit."""
     bi_args, uni_args, dh = _zm_bf16_case(cuda, cell, t, b, h, dead)
     args = bi_args if ndir == 2 else uni_args
     dh = dh[:ndir]
     geometry = zoneout_geometry if cell == "zoneout" else mi_geometry
-    assert geometry(h, b, ndir).design == "cluster"
+    design = ("stream" if (t, b, h, ndir, dead) in ZM_BF16_STREAM_CASES
+              else "cluster")
+    assert geometry(h, b, ndir).design == design
+    key = design + "_bf16"
     fwd, bwd, fwd_plain, bwd_plain = _zm_ops(cell, ndir)
-    before = (fwd.by_design["cluster_bf16"], bwd.by_design["cluster_bf16"])
+    before = (fwd.by_design[key], bwd.by_design[key])
     runs = []
     for _ in range(2):
         hc = fwd(*args)
         d = bwd(*args, *hc, *dh)
         d = d if isinstance(d, tuple) else (d,)
         runs.append((*hc, *d))
-    assert (fwd.by_design["cluster_bf16"] - before[0],
-            bwd.by_design["cluster_bf16"] - before[1]) == (2, 2)
+    assert (fwd.by_design[key] - before[0],
+            bwd.by_design[key] - before[1]) == (2, 2)
     want = fwd_plain(*args)
     want_d = bwd_plain(*args, *hc, *dh)
     want_d = want_d if isinstance(want_d, tuple) else (want_d,)
