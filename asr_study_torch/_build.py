@@ -152,6 +152,10 @@ SIGNATURES = {
     # bc_f, bc_b, h_f, c_f, h_b, c_b, dh_f, dh_b, dpre_f, dcn_f, dpre_b,
     # dcn_b, T, B, H, ndir, stream
     "asr_ln_lstm_stream_bwd": [_P] * 23 + [_I, _I, _I, _I, _P],
+    # the bfloat16-weight forms: the same arguments, wh_f, wh_b (and wht_f,
+    # wht_b) bfloat16
+    "asr_ln_lstm_stream_fwd_bf16": [_P] * 17 + [_I] * 4 + [_P],
+    "asr_ln_lstm_stream_bwd_bf16": [_P] * 23 + [_I] * 4 + [_P],
     # xp_f, xp_b, mask, zh_f, zh_b, zc_f, zc_b, wh_f, wh_b, h_f, c_f, h_b,
     # c_b, h_init, c_init, T, B, H, ndir, cluster CTAs, units per CTA, rows
     # per cluster, stream

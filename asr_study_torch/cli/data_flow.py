@@ -38,22 +38,24 @@ def resolve_device(name: str) -> torch.device:
 
 
 def data_parallel_devices(num_devices: int, device: str, batch_size: int,
-                          what: str) -> list[str]:
-    """``--num_devices N`` -> the devices of its N ranks (``cuda:0`` to
-    ``cuda:N-1``; N times ``cpu``), or [] for one device (N of 0 or 1),
-    checked as the JAX CLIs check their mesh and with their messages
-    (``what`` opens the device count's): never more ranks than cards, and
-    a batch the ranks split evenly."""
+                          what: str, tp_devices: int = 1) -> list[str]:
+    """``--num_devices N`` (x ``--tp_devices M``) -> the devices of its N * M
+    ranks (``cuda:0`` to ``cuda:N*M-1``; N * M times ``cpu``), or [] for
+    one device (N of 0 or 1, M of 1), checked as the JAX CLIs check their
+    mesh and with their messages (``what`` opens the device count's):
+    never more ranks than cards, and a batch the N data ranks split
+    evenly."""
     n = max(1, num_devices)
-    if n == 1:
+    ranks = n * max(1, tp_devices)
+    if ranks == 1:
         return []
     if torch.device(device).type == "cuda":
         avail = torch.cuda.device_count()
-        if n > avail:
+        if ranks > avail:
             raise SystemExit(f"{what} but only {avail} device(s) available")
-        devices = [f"cuda:{i}" for i in range(n)]
+        devices = [f"cuda:{i}" for i in range(ranks)]
     else:
-        devices = ["cpu"] * n
+        devices = ["cpu"] * ranks
     if batch_size % n:
         raise SystemExit(f"--batch_size {batch_size} not divisible by {n} "
                          "devices")

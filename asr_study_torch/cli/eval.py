@@ -183,7 +183,7 @@ def evaluate(args, device: torch.device, group: dp.DataGroup | None = None
     """Evaluate as ``args`` says on ``device``, as one rank of ``group``
     where there is one -> (the JSON record, the (hypothesis, reference)
     pairs) on rank 0, None on the others."""
-    lead = group is None or group.rank == 0
+    lead = group is None or group.lead
     label_parser = parser_from_run(args.save, args.dataset)
     lm = None
     if args.lm:

@@ -16,8 +16,8 @@ run directory, its automatic name, its ``meta.json`` hparams and the
 training semantics (train and valid splits, early stop, the staircase
 decay, resume, warm start, SortaGrad, the optimizers, gradient
 accumulation, reduce-on-plateau, ``--profile`` and ``--check_nans``) are
-the JAX CLI's.  Options the port does not have yet are refused, before the
-dataset is read, with the ROADMAP item that brings them.
+the JAX CLI's, and so are its refusals of invalid combinations, made
+before the dataset is read.
 
 ``--num_devices N`` (N > 1) trains data-parallel, as the JAX CLI's ``data``
 mesh: N ranks (``parallel.dp.launch``), over NCCL on ``cuda:0`` to
@@ -25,6 +25,12 @@ mesh: N ranks (``parallel.dp.launch``), over NCCL on ``cuda:0`` to
 rank ``cores // N`` threads), each stepping on its rows of every global
 batch of ``--batch_size``, which N must divide; rank 0 writes the run
 directory and prints.  A rank that fails ends the run with its error.
+
+``--tp_devices M`` (M > 1) adds the JAX CLI's ``model`` mesh axis: N x M
+ranks (N of 1 where ``--num_devices`` is 0 or 1), M shards of each plain
+LSTM or GRU layer's gate dimension a data rank (``parallel/tp.py``).  A
+model ``validate_tp`` refuses, and more ranks than cards, stop at start-up
+with the JAX CLI's messages; on the CPU the ranks are gloo processes.
 """
 
 from __future__ import annotations
@@ -44,6 +50,7 @@ from asr_study_torch.features.augment import (
     parse_spec_augment, parse_wav_augment)
 from asr_study_torch.models.zoo import build_model
 from asr_study_torch.parallel import dp
+from asr_study_torch.parallel.tp import validate_tp
 from asr_study_torch.train.checkpoint import CheckpointManager
 from asr_study_torch.train.loop import fit
 from asr_study_torch.train.trainer import Trainer, make_optimizer
@@ -101,7 +108,10 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--num_devices", type=int, default=0,
                    help="data-parallel ranks, one a device (0 or 1: one "
                         "device; on cuda at most the card count)")
-    p.add_argument("--tp_devices", type=int, default=1)
+    p.add_argument("--tp_devices", type=int, default=1,
+                   help="tensor-parallel model shards per data rank "
+                        "(lstm/gru cells only; total ranks = num_devices "
+                        "x tp_devices)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--profile", action="store_true",
                    help="trace steps 10-20 with torch.profiler into "
@@ -148,17 +158,6 @@ def build_argparser() -> argparse.ArgumentParser:
     return p
 
 
-def _refuse_unported(args) -> None:
-    """Every option the port does not have yet, by its ROADMAP item."""
-    if args.tp_devices > 1:
-        raise SystemExit("--tp_devices > 1: tensor parallelism is not "
-                         "ported to asr_study_torch yet (ROADMAP queue A "
-                         "item 13)")
-    if args.wav_augment is not None and not args.device_features:
-        raise SystemExit("--wav_augment operates on raw waveforms and "
-                         "needs --device_features")
-
-
 def run_dir(args) -> str:
     """``runs/<model>_<k=v of each non-default tag>``, as the JAX CLI
     names it."""
@@ -177,11 +176,21 @@ def run_dir(args) -> str:
 
 def main(argv=None) -> int:
     args = build_argparser().parse_args(argv)
-    _refuse_unported(args)
+    if args.wav_augment is not None and not args.device_features:
+        raise SystemExit("--wav_augment operates on raw waveforms and "
+                         "needs --device_features")
+    tp = max(1, args.tp_devices)
+    if tp > 1:
+        # the cells and widths only: a model on no memory
+        model = build_model(args.model, args.params, num_classes=1,
+                            input_dim=1, device="meta")
+        try:
+            validate_tp(model, tp)
+        except ValueError as e:
+            raise SystemExit(f"--tp_devices {tp}: {e}") from None
     devices = data_parallel_devices(
         args.num_devices, args.device, args.batch_size,
-        f"--num_devices {args.num_devices} x --tp_devices "
-        f"{max(1, args.tp_devices)}")
+        f"--num_devices {max(1, args.num_devices)} x --tp_devices {tp}", tp)
     device = None if devices else resolve_device(args.device)
     if args.save is None:
         args.save = run_dir(args)
@@ -194,9 +203,11 @@ def main(argv=None) -> int:
     if not devices:
         return train(args, device)
     try:
-        dp.launch(_train_rank, devices, args=(args,))
+        dp.launch(_train_rank, devices, args=(args,), tp=tp)
     except dp.RankError as e:
-        raise SystemExit(f"train --num_devices {len(devices)}: {e}") from None
+        layout = f"--num_devices {len(devices) // tp}" + (
+            f" x --tp_devices {tp}" if tp > 1 else "")
+        raise SystemExit(f"train {layout}: {e}") from None
     return 0
 
 
@@ -208,7 +219,7 @@ def train(args, device: torch.device,
           group: Optional[dp.DataGroup] = None) -> int:
     """Train as ``args`` says on ``device``, as one rank of ``group`` where
     there is one."""
-    lead = group is None or group.rank == 0
+    lead = group is None or group.lead
 
     def say(msg: str) -> None:
         if lead:
@@ -269,8 +280,10 @@ def train(args, device: torch.device,
                       group=group)
     state = trainer.init_state()
     n_params = sum(p.numel() for p in model.parameters())
+    tp = group.model.world if group is not None and group.model else 1
     say(f"{args.model}: {n_params:,} parameters on {device}"
-        + (f" and {group.world - 1} more rank(s) ({group.backend})"
+        + (f" and {group.world * tp - 1} more rank(s) ({group.backend}"
+           + (f", {tp} model shards a data rank" if tp > 1 else "") + ")"
            if group is not None else ""))
     if args.init_from:
         src = CheckpointManager(args.init_from)
@@ -296,7 +309,7 @@ def train(args, device: torch.device,
         "batch_size": args.batch_size, "opt": args.opt, "lr": args.lr,
         "clipnorm": args.clipnorm,
         "num_devices": group.world if group is not None else 1,
-        "tp_devices": 1,
+        "tp_devices": tp,
         "bf16": args.bf16, "lr_decay": args.lr_decay,
         "early_stop": args.early_stop, "accum_steps": args.accum_steps,
         "lr_plateau": args.lr_plateau,

@@ -50,8 +50,22 @@
 // five barriers a step but no traffic to device memory.  Shared memory is
 // kRows * (6H + nsplit*H + 8H + 20) floats: 74,048 bytes at H=256, above
 // the 48 KB default, so every launch raises the limit.
+//
+// The bfloat16-weight form (asr_ln_lstm_stream_bwd_bf16;
+// ops/pallas_ln_lstm.py `_ln_bwd_kernel` with a bfloat16 wh) is the same
+// kernel on the weight type W = __nv_bfloat16: wh and wht (the wrapper's
+// transpose of the bfloat16 wh) are read as bfloat16, h_prev is rounded to
+// bfloat16 where it is loaded into hs (P1 recomputes hp and its statistics
+// from the rounded h_prev, as `_mm` does; hs feeds nothing else, and c_prev
+// stays float32), and P7 writes dhp rounded to bfloat16, the operand of
+// P8's `dhp @ wht` (JAX `_mm(dhp, wht)`).  The products are float32 fmaf
+// on the converted weights, in the float32 form's order; dpre and dcn come
+// out unrounded, and its shared memory is the float32 form's.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -83,14 +97,64 @@ __device__ __forceinline__ float2 warp_stats(const float* x, int n,
   return make_float2(mu, 1.f / sqrtf(warp_sum(s2) / n + kEps));
 }
 
+// x as it enters a product with weights of type W: itself, or rounded to
+// the nearest bfloat16
+template <typename W>
+__device__ __forceinline__ float as_operand(float x) {
+  if constexpr (std::is_same_v<W, __nv_bfloat16>)
+    return __bfloat162float(__float2bfloat16_rn(x));
+  else
+    return x;
+}
+
+// one weight, read through the read-only cache, as float32; a bfloat16
+// by its 16 bits, the high half of the float32 of the same value
+__device__ __forceinline__ float load_w(const float* w) { return __ldg(w); }
+
+__device__ __forceinline__ float load_w(const __nv_bfloat16* w) {
+  const unsigned short bits = __ldg(reinterpret_cast<const unsigned short*>(w));
+  return __uint_as_float(static_cast<unsigned>(bits) << 16);
+}
+
+// acc[r] += x[r * ldx + k] * w[k * ldw] for k = k0 .. k1 - 1 in turn: the
+// bfloat16-weight form's product, the weights of kAhead rows loaded ahead
+// of their FMAs (zoneout_lstm_stream_fwd.cu says why); the sums are the
+// float32 form's, in its order.
+constexpr int kAhead = 8;
+
+__device__ __forceinline__ void product_ahead(float (&acc)[kRows],
+                                              const float* x, int ldx,
+                                              const __nv_bfloat16* w,
+                                              int ldw, int k0, int k1) {
+  int k = k0;
+  for (; k + kAhead <= k1; k += kAhead) {
+    float wk[kAhead];
+#pragma unroll
+    for (int q = 0; q < kAhead; ++q)
+      wk[q] = load_w(w + static_cast<size_t>(k + q) * ldw);
+#pragma unroll
+    for (int q = 0; q < kAhead; ++q) {
+#pragma unroll
+      for (int r = 0; r < kRows; ++r)
+        acc[r] = fmaf(x[r * ldx + k + q], wk[q], acc[r]);
+    }
+  }
+  for (; k < k1; ++k) {
+    const float wk = load_w(w + static_cast<size_t>(k) * ldw);
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) acc[r] = fmaf(x[r * ldx + k], wk, acc[r]);
+  }
+}
+
+template <typename W>
 __global__ void __launch_bounds__(kMaxThreads)
 ln_lstm_bwd_kernel(const float* __restrict__ xpn_f,
                    const float* __restrict__ xpn_b,
                    const float* __restrict__ mask,
-                   const float* __restrict__ wh_f,
-                   const float* __restrict__ wh_b,
-                   const float* __restrict__ wht_f,
-                   const float* __restrict__ wht_b,
+                   const W* __restrict__ wh_f,
+                   const W* __restrict__ wh_b,
+                   const W* __restrict__ wht_f,
+                   const W* __restrict__ wht_b,
                    const float* __restrict__ gh_f,
                    const float* __restrict__ gh_b,
                    const float* __restrict__ gc_f,
@@ -107,9 +171,11 @@ ln_lstm_bwd_kernel(const float* __restrict__ xpn_f,
                    float* __restrict__ dpre_b, float* __restrict__ dcn_b,
                    int T, int B, int H, int nsplit) {
   extern __shared__ float smem[];
+  constexpr bool kRounded = std::is_same_v<W, __nv_bfloat16>;
   const int G = 4 * H;
   const int RH = kRows * H;
-  float* hs = smem;                  // [kRows][H]  h_prev of this step
+  float* hs = smem;                  // [kRows][H]  h_prev of this step,
+                                     // as P1's operand
   float* hold = hs + RH;             // [kRows][H]  dh passed by held frames
   float* dcs = hold + RH;            // [kRows][H]  dc_next
   float* ys = dcs + RH;              // [kRows][H]  dcn * gc
@@ -129,8 +195,8 @@ ln_lstm_bwd_kernel(const float* __restrict__ xpn_f,
 
   const bool rev = blockIdx.y == 1;
   const float* __restrict__ xpn = rev ? xpn_b : xpn_f;
-  const float* __restrict__ wh = rev ? wh_b : wh_f;
-  const float* __restrict__ wht = rev ? wht_b : wht_f;
+  const W* __restrict__ wh = rev ? wh_b : wh_f;
+  const W* __restrict__ wht = rev ? wht_b : wht_f;
   const float* __restrict__ gh = rev ? gh_b : gh_f;
   const float* __restrict__ gc = rev ? gc_b : gc_f;
   const float* __restrict__ bc = rev ? bc_b : bc_f;
@@ -157,7 +223,7 @@ ln_lstm_bwd_kernel(const float* __restrict__ xpn_f,
     const int tp = t + step_dir;
     for (int i = threadIdx.x; i < rows * H; i += blockDim.x)
       if (tp >= 0 && tp < T)
-        hs[i] = h[(static_cast<size_t>(tp) * B + b0) * H + i];
+        hs[i] = as_operand<W>(h[(static_cast<size_t>(tp) * B + b0) * H + i]);
   }
   __syncthreads();
 
@@ -172,11 +238,16 @@ ln_lstm_bwd_kernel(const float* __restrict__ xpn_f,
       float acc[kRows];
 #pragma unroll
       for (int r = 0; r < kRows; ++r) acc[r] = 0.f;
+      if constexpr (kRounded) {
+        product_ahead(acc, hs, H, wh + j, G, 0, H);
+      } else {
 #pragma unroll 4
-      for (int k = 0; k < H; ++k) {
-        const float w = __ldg(wh + static_cast<size_t>(k) * G + j);
+        for (int k = 0; k < H; ++k) {
+          const float w = load_w(wh + static_cast<size_t>(k) * G + j);
 #pragma unroll
-        for (int r = 0; r < kRows; ++r) acc[r] = fmaf(hs[r * H + k], w, acc[r]);
+          for (int r = 0; r < kRows; ++r)
+            acc[r] = fmaf(hs[r * H + k], w, acc[r]);
+        }
       }
 #pragma unroll
       for (int r = 0; r < kRows; ++r) hp[r * G + j] = acc[r];
@@ -300,7 +371,7 @@ ln_lstm_bwd_kernel(const float* __restrict__ xpn_f,
       const int r = i / G;
       const int p = 4 * r + (i - r * G) / H;
       const float xhat = (hp[i] - mu_h[p]) * rs_h[p];
-      dq[i] = rs_h[p] * (dq[i] - m1_h[p] - xhat * m2_h[p]);
+      dq[i] = as_operand<W>(rs_h[p] * (dq[i] - m1_h[p] - xhat * m2_h[p]));
     }
     __syncthreads();
 
@@ -312,11 +383,16 @@ ln_lstm_bwd_kernel(const float* __restrict__ xpn_f,
       float acc[kRows];
 #pragma unroll
       for (int r = 0; r < kRows; ++r) acc[r] = 0.f;
+      if constexpr (kRounded) {
+        product_ahead(acc, dq, G, wht + u, H, q * chunk, j1);
+      } else {
 #pragma unroll 4
-      for (int j = q * chunk; j < j1; ++j) {
-        const float w = __ldg(wht + static_cast<size_t>(j) * H + u);
+        for (int j = q * chunk; j < j1; ++j) {
+          const float w = load_w(wht + static_cast<size_t>(j) * H + u);
 #pragma unroll
-        for (int r = 0; r < kRows; ++r) acc[r] = fmaf(dq[r * G + j], w, acc[r]);
+          for (int r = 0; r < kRows; ++r)
+            acc[r] = fmaf(dq[r * G + j], w, acc[r]);
+        }
       }
 #pragma unroll
       for (int r = 0; r < kRows; ++r) part[q * RH + r * H + u] = acc[r];
@@ -325,10 +401,43 @@ ln_lstm_bwd_kernel(const float* __restrict__ xpn_f,
       const int tpn = tp + step_dir;        // the next step's t_prev
       const bool ok = s + 1 < T && tpn >= 0 && tpn < T;
       for (int i = threadIdx.x; i < rows * H; i += blockDim.x)
-        hs[i] = ok ? h[(static_cast<size_t>(tpn) * B + b0) * H + i] : 0.f;
+        hs[i] = ok ? as_operand<W>(
+                         h[(static_cast<size_t>(tpn) * B + b0) * H + i])
+                   : 0.f;
     }
     __syncthreads();
   }
+}
+
+template <typename W>
+int launch(const float* xpn_f, const float* xpn_b, const float* mask,
+           const W* wh_f, const W* wh_b, const W* wht_f, const W* wht_b,
+           const float* gh_f, const float* gh_b, const float* gc_f,
+           const float* gc_b, const float* bc_f, const float* bc_b,
+           const float* h_f, const float* c_f, const float* h_b,
+           const float* c_b, const float* dh_f, const float* dh_b,
+           float* dpre_f, float* dcn_f, float* dpre_b, float* dcn_b, int T,
+           int B, int H, int ndir, void* stream) {
+  if (ndir < 1 || ndir > 2) return static_cast<int>(cudaErrorInvalidValue);
+  const int G = 4 * H;
+  const int warps_g = ((G + 31) / 32) * 32;
+  const int threads = warps_g < kMaxThreads ? warps_g : kMaxThreads;
+  const int nsplit = threads / H > 1 ? threads / H : 1;
+  const size_t smem =
+      sizeof(float) * static_cast<size_t>(kRows) *
+      ((6 + nsplit) * static_cast<size_t>(H) + 2 * static_cast<size_t>(G) +
+       20);
+  cudaError_t err = cudaFuncSetAttribute(
+      ln_lstm_bwd_kernel<W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((B + kRows - 1) / kRows, ndir);
+  ln_lstm_bwd_kernel<W><<<grid, threads, smem,
+                          static_cast<cudaStream_t>(stream)>>>(
+      xpn_f, xpn_b, mask, wh_f, wh_b, wht_f, wht_b, gh_f, gh_b, gc_f, gc_b,
+      bc_f, bc_b, h_f, c_f, h_b, c_b, dh_f, dh_b, dpre_f, dcn_f, dpre_b,
+      dcn_b, T, B, H, nsplit);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -342,24 +451,26 @@ extern "C" int asr_ln_lstm_stream_bwd(
     const float* c_b, const float* dh_f, const float* dh_b, float* dpre_f,
     float* dcn_f, float* dpre_b, float* dcn_b, int T, int B, int H, int ndir,
     void* stream) {
-  if (ndir < 1 || ndir > 2) return static_cast<int>(cudaErrorInvalidValue);
-  const int G = 4 * H;
-  const int warps_g = ((G + 31) / 32) * 32;
-  const int threads = warps_g < kMaxThreads ? warps_g : kMaxThreads;
-  const int nsplit = threads / H > 1 ? threads / H : 1;
-  const size_t smem =
-      sizeof(float) * static_cast<size_t>(kRows) *
-      ((6 + nsplit) * static_cast<size_t>(H) + 2 * static_cast<size_t>(G) +
-       20);
-  cudaError_t err = cudaFuncSetAttribute(
-      ln_lstm_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((B + kRows - 1) / kRows, ndir);
-  ln_lstm_bwd_kernel<<<grid, threads, smem,
-                       static_cast<cudaStream_t>(stream)>>>(
-      xpn_f, xpn_b, mask, wh_f, wh_b, wht_f, wht_b, gh_f, gh_b, gc_f, gc_b,
-      bc_f, bc_b, h_f, c_f, h_b, c_b, dh_f, dh_b, dpre_f, dcn_f, dpre_b,
-      dcn_b, T, B, H, nsplit);
-  return static_cast<int>(cudaGetLastError());
+  return launch<float>(xpn_f, xpn_b, mask, wh_f, wh_b, wht_f, wht_b, gh_f,
+                       gh_b, gc_f, gc_b, bc_f, bc_b, h_f, c_f, h_b, c_b, dh_f,
+                       dh_b, dpre_f, dcn_f, dpre_b, dcn_b, T, B, H, ndir,
+                       stream);
+}
+
+// The bfloat16-weight form: asr_ln_lstm_stream_bwd's arguments with wh_f /
+// wh_b bfloat16 [H, 4H] and wht_f / wht_b bfloat16 [4H, H].
+extern "C" int asr_ln_lstm_stream_bwd_bf16(
+    const float* xpn_f, const float* xpn_b, const float* mask,
+    const __nv_bfloat16* wh_f, const __nv_bfloat16* wh_b,
+    const __nv_bfloat16* wht_f, const __nv_bfloat16* wht_b,
+    const float* gh_f, const float* gh_b, const float* gc_f,
+    const float* gc_b, const float* bc_f, const float* bc_b,
+    const float* h_f, const float* c_f, const float* h_b, const float* c_b,
+    const float* dh_f, const float* dh_b, float* dpre_f, float* dcn_f,
+    float* dpre_b, float* dcn_b, int T, int B, int H, int ndir,
+    void* stream) {
+  return launch<__nv_bfloat16>(xpn_f, xpn_b, mask, wh_f, wh_b, wht_f, wht_b,
+                               gh_f, gh_b, gc_f, gc_b, bc_f, bc_b, h_f, c_f,
+                               h_b, c_b, dh_f, dh_b, dpre_f, dcn_f, dpre_b,
+                               dcn_b, T, B, H, ndir, stream);
 }

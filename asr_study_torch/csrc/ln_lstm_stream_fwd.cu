@@ -39,8 +39,23 @@
 // traffic: hp, the new c and the statistics stay in shared memory.  Any H
 // works; the launcher raises the dynamic shared memory limit to what H
 // needs.
+//
+// The bfloat16-weight form (asr_ln_lstm_stream_fwd_bf16; train --bf16, the
+// JAX trainer's compute_dtype, under which the Pallas kernels run with a
+// bfloat16 wh) is the same kernel on the weight type W = __nv_bfloat16: wh
+// is read as bfloat16 and h_prev enters P1's product rounded to bfloat16
+// (ops/pallas_ln_lstm.py `_mm(h_prev, wh)`).  P2 takes its statistics from
+// that product of the rounded operands (JAX `_ln_stats(_mm(...))`).  The
+// block keeps h unrounded in hs for the hold of a masked frame, and beside
+// it the rounded copy hr that P1 reads, written where hs is; the products
+// are float32 fmaf on the converted weights, summed in the float32 form's
+// order, and xpn, the mask, the gains, hp, h and c stay float32.  In the
+// float32 form hr is hs.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -72,12 +87,72 @@ __device__ __forceinline__ float2 warp_stats(const float* x, int n,
   return make_float2(mu, 1.f / sqrtf(warp_sum(s2) / n + kEps));
 }
 
+// x as it enters a product with weights of type W: itself, or rounded to
+// the nearest bfloat16
+template <typename W>
+__device__ __forceinline__ float as_operand(float x) {
+  if constexpr (std::is_same_v<W, __nv_bfloat16>)
+    return __bfloat162float(__float2bfloat16_rn(x));
+  else
+    return x;
+}
+
+// one weight, read through the read-only cache, as float32; a bfloat16
+// by its 16 bits, the high half of the float32 of the same value
+__device__ __forceinline__ float load_w(const float* w) { return __ldg(w); }
+
+__device__ __forceinline__ float load_w(const __nv_bfloat16* w) {
+  const unsigned short bits = __ldg(reinterpret_cast<const unsigned short*>(w));
+  return __uint_as_float(static_cast<unsigned>(bits) << 16);
+}
+
+// acc[r] += x[r * ldx + k] * w[k * ldw] for k = k0 .. k1 - 1 in turn: the
+// bfloat16-weight form's product, the weights of kAhead rows loaded ahead
+// of their FMAs (zoneout_lstm_stream_fwd.cu says why); the sums are the
+// float32 form's, in its order.
+constexpr int kAhead = 8;
+
+__device__ __forceinline__ void product_ahead(float (&acc)[kRows],
+                                              const float* x, int ldx,
+                                              const __nv_bfloat16* w,
+                                              int ldw, int k0, int k1) {
+  int k = k0;
+  for (; k + kAhead <= k1; k += kAhead) {
+    float wk[kAhead];
+#pragma unroll
+    for (int q = 0; q < kAhead; ++q)
+      wk[q] = load_w(w + static_cast<size_t>(k + q) * ldw);
+#pragma unroll
+    for (int q = 0; q < kAhead; ++q) {
+#pragma unroll
+      for (int r = 0; r < kRows; ++r)
+        acc[r] = fmaf(x[r * ldx + k + q], wk[q], acc[r]);
+    }
+  }
+  for (; k < k1; ++k) {
+    const float wk = load_w(w + static_cast<size_t>(k) * ldw);
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) acc[r] = fmaf(x[r * ldx + k], wk, acc[r]);
+  }
+}
+
+// dynamic shared memory of a block: hs, cs, cn, os, hp and the statistics,
+// and for the bfloat16-weight form the rounded copy hr
+template <typename W>
+size_t smem_bytes(int H) {
+  constexpr int kCopies = std::is_same_v<W, __nv_bfloat16> ? 5 : 4;
+  return sizeof(float) * static_cast<size_t>(kRows) *
+         (kCopies * static_cast<size_t>(H) + 4 * static_cast<size_t>(H) +
+          10);
+}
+
+template <typename W>
 __global__ void __launch_bounds__(kMaxThreads)
 ln_lstm_fwd_kernel(const float* __restrict__ xpn_f,
                    const float* __restrict__ xpn_b,
                    const float* __restrict__ mask,
-                   const float* __restrict__ wh_f,
-                   const float* __restrict__ wh_b,
+                   const W* __restrict__ wh_f,
+                   const W* __restrict__ wh_b,
                    const float* __restrict__ gh_f,
                    const float* __restrict__ gh_b,
                    const float* __restrict__ gc_f,
@@ -88,6 +163,7 @@ ln_lstm_fwd_kernel(const float* __restrict__ xpn_f,
                    float* __restrict__ c_b, const float* __restrict__ h_init,
                    const float* __restrict__ c_init, int T, int B, int H) {
   extern __shared__ float smem[];
+  constexpr bool kRounded = std::is_same_v<W, __nv_bfloat16>;
   const int G = 4 * H;
   const int RH = kRows * H;
   float* hs = smem;                // [kRows][H]  h of the previous step
@@ -99,10 +175,12 @@ ln_lstm_fwd_kernel(const float* __restrict__ xpn_f,
   float* rs_h = mu_h + 4 * kRows;  // [kRows][4]
   float* mu_c = rs_h + 4 * kRows;  // [kRows]
   float* rs_c = mu_c + kRows;      // [kRows]
+  // [kRows][H]  h as P1's operand: rounded, or hs itself
+  float* hr = kRounded ? rs_c + kRows : hs;
 
   const bool rev = blockIdx.y == 1;
   const float* __restrict__ xpn = rev ? xpn_b : xpn_f;
-  const float* __restrict__ wh = rev ? wh_b : wh_f;
+  const W* __restrict__ wh = rev ? wh_b : wh_f;
   const float* __restrict__ gh = rev ? gh_b : gh_f;
   const float* __restrict__ gc = rev ? gc_b : gc_f;
   const float* __restrict__ bc = rev ? bc_b : bc_f;
@@ -120,6 +198,7 @@ ln_lstm_fwd_kernel(const float* __restrict__ xpn_f,
     const bool ok = i < rows * H;
     hs[i] = (h_init != nullptr && ok) ? h_init[init0 + i] : 0.f;
     cs[i] = (c_init != nullptr && ok) ? c_init[init0 + i] : 0.f;
+    if (kRounded) hr[i] = as_operand<W>(hs[i]);
   }
   __syncthreads();
 
@@ -132,11 +211,16 @@ ln_lstm_fwd_kernel(const float* __restrict__ xpn_f,
       float acc[kRows];
 #pragma unroll
       for (int r = 0; r < kRows; ++r) acc[r] = 0.f;
+      if constexpr (kRounded) {
+        product_ahead(acc, hr, H, wh + j, G, 0, H);
+      } else {
 #pragma unroll 4
-      for (int k = 0; k < H; ++k) {
-        const float w = __ldg(wh + static_cast<size_t>(k) * G + j);
+        for (int k = 0; k < H; ++k) {
+          const float w = load_w(wh + static_cast<size_t>(k) * G + j);
 #pragma unroll
-        for (int r = 0; r < kRows; ++r) acc[r] = fmaf(hs[r * H + k], w, acc[r]);
+          for (int r = 0; r < kRows; ++r)
+            acc[r] = fmaf(hr[r * H + k], w, acc[r]);
+        }
       }
 #pragma unroll
       for (int r = 0; r < kRows; ++r) hp[r * G + j] = acc[r];
@@ -196,12 +280,37 @@ ln_lstm_fwd_kernel(const float* __restrict__ xpn_f,
       }
       cs[i] = c;
       hs[i] = h;
+      if (kRounded) hr[i] = as_operand<W>(h);
       const size_t o = (row0 + r) * H + u;
       h_out[o] = h;
       c_out[o] = c;
     }
     __syncthreads();
   }
+}
+
+template <typename W>
+int launch(const float* xpn_f, const float* xpn_b, const float* mask,
+           const W* wh_f, const W* wh_b, const float* gh_f,
+           const float* gh_b, const float* gc_f, const float* gc_b,
+           const float* bc_f, const float* bc_b, float* h_f, float* c_f,
+           float* h_b, float* c_b, const float* h_init, const float* c_init,
+           int T, int B, int H, int ndir, void* stream) {
+  if (ndir < 1 || ndir > 2) return static_cast<int>(cudaErrorInvalidValue);
+  const int G = 4 * H;
+  const size_t smem = smem_bytes<W>(H);
+  cudaError_t err = cudaFuncSetAttribute(
+      ln_lstm_fwd_kernel<W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int warps_g = ((G + 31) / 32) * 32;
+  const int threads = warps_g < kMaxThreads ? warps_g : kMaxThreads;
+  const dim3 grid((B + kRows - 1) / kRows, ndir);
+  ln_lstm_fwd_kernel<W><<<grid, threads, smem,
+                          static_cast<cudaStream_t>(stream)>>>(
+      xpn_f, xpn_b, mask, wh_f, wh_b, gh_f, gh_b, gc_f, gc_b, bc_f, bc_b,
+      h_f, c_f, h_b, c_b, h_init, c_init, T, B, H);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -217,20 +326,21 @@ extern "C" int asr_ln_lstm_stream_fwd(const float* xpn_f, const float* xpn_b,
                                float* h_b, float* c_b, const float* h_init,
                                const float* c_init, int T, int B, int H,
                                int ndir, void* stream) {
-  if (ndir < 1 || ndir > 2) return static_cast<int>(cudaErrorInvalidValue);
-  const int G = 4 * H;
-  const size_t smem = sizeof(float) * static_cast<size_t>(kRows) *
-                      (4 * static_cast<size_t>(H) + G + 10);
-  cudaError_t err = cudaFuncSetAttribute(
-      ln_lstm_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int warps_g = ((G + 31) / 32) * 32;
-  const int threads = warps_g < kMaxThreads ? warps_g : kMaxThreads;
-  const dim3 grid((B + kRows - 1) / kRows, ndir);
-  ln_lstm_fwd_kernel<<<grid, threads, smem,
-                       static_cast<cudaStream_t>(stream)>>>(
-      xpn_f, xpn_b, mask, wh_f, wh_b, gh_f, gh_b, gc_f, gc_b, bc_f, bc_b,
-      h_f, c_f, h_b, c_b, h_init, c_init, T, B, H);
-  return static_cast<int>(cudaGetLastError());
+  return launch<float>(xpn_f, xpn_b, mask, wh_f, wh_b, gh_f, gh_b, gc_f,
+                       gc_b, bc_f, bc_b, h_f, c_f, h_b, c_b, h_init, c_init,
+                       T, B, H, ndir, stream);
+}
+
+// The bfloat16-weight form: asr_ln_lstm_stream_fwd's arguments with wh_f /
+// wh_b bfloat16 [H, 4H].
+extern "C" int asr_ln_lstm_stream_fwd_bf16(
+    const float* xpn_f, const float* xpn_b, const float* mask,
+    const __nv_bfloat16* wh_f, const __nv_bfloat16* wh_b, const float* gh_f,
+    const float* gh_b, const float* gc_f, const float* gc_b,
+    const float* bc_f, const float* bc_b, float* h_f, float* c_f, float* h_b,
+    float* c_b, const float* h_init, const float* c_init, int T, int B,
+    int H, int ndir, void* stream) {
+  return launch<__nv_bfloat16>(xpn_f, xpn_b, mask, wh_f, wh_b, gh_f, gh_b,
+                               gc_f, gc_b, bc_f, bc_b, h_f, c_f, h_b, c_b,
+                               h_init, c_init, T, B, H, ndir, stream);
 }

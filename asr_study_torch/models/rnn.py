@@ -31,6 +31,10 @@ layer's forward kernel a chunk on a CUDA device (``ops.bilstm.lstm``,
 ``ops.gru.gru``, ``ops.ln_lstm.ln_lstm``, ``ops.mi_lstm.mi_lstm`` or
 ``ops.zoneout_lstm.zoneout_lstm`` started from the carry), inference only:
 the zoneout cell mixes with its eval-mode constants.
+
+Tensor parallelism (``tp=(model group, shards)``, the JAX ``tp=``): each
+layer runs ``parallel.tp.tp_rnn_layer_apply``, the gate-dim-sharded scan of
+the plain LSTM and GRU, in place of the kernel Functions.
 """
 
 from __future__ import annotations
@@ -54,6 +58,7 @@ from asr_study_torch.ops.mi_lstm import (BiMILSTMFunction, MILSTMFunction,
 from asr_study_torch.ops.zoneout_lstm import (BiZoneoutLSTMFunction,
                                               ZoneoutLSTMFunction,
                                               zoneout_lstm)
+from asr_study_torch.parallel.tp import tp_rnn_layer_apply
 
 # cell kind -> (cell, fused bidirectional op, unidirectional op)
 _KINDS = {"lstm": (LSTMCell, BiLSTMFunction, LSTMFunction),
@@ -97,10 +102,16 @@ class RNNLayer(nn.Module):
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor,
                 train: bool = False,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                tp: Optional[tuple] = None) -> torch.Tensor:
         """x [T, B, F], mask [T, B, 1] -> [T, B, output_dim].  ``train`` and
-        ``generator`` reach the cells' ``prepare`` (the zoneout draws)."""
+        ``generator`` reach the cells' ``prepare`` (the zoneout draws).
+        ``tp`` ``(model group, shards)`` with shards > 1 runs the
+        tensor-parallel scan (``parallel/tp.py``), on every rank of that
+        group together."""
         mask = mask.contiguous()
+        if tp is not None and tp[1] > 1:
+            return tp_rnn_layer_apply(self, x, mask, *tp) * mask
         xp_f, res_f = self.fw.prepare(x, train, generator)
         if not self.bidirectional:
             return self._uni_op.apply(xp_f, mask, *res_f) * mask
@@ -200,13 +211,14 @@ class StackedRNN(nn.Module):
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor,
                 train: bool = False,
-                generator: Optional[torch.Generator] = None
-                ) -> torch.Tensor:
-        """x [T, B, F] -> [T, B, output_dim]"""
+                generator: Optional[torch.Generator] = None,
+                tp: Optional[tuple] = None) -> torch.Tensor:
+        """x [T, B, F] -> [T, B, output_dim]; ``tp`` as
+        :meth:`RNNLayer.forward` takes it."""
         last = len(self.layers) - 1
         for i, entry in enumerate(self.layers):
-            h = self._skip(entry, entry.rnn(x, mask, train, generator), x,
-                           mask)
+            h = self._skip(entry, entry.rnn(x, mask, train, generator, tp),
+                           x, mask)
             if i < last:
                 h = dropout_fn(h, self.dropout, train, generator)
             x = h

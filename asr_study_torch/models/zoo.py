@@ -73,13 +73,14 @@ class AcousticModel(nn.Module):
 
     def forward(self, inputs: torch.Tensor, input_lengths: torch.Tensor,
                 train: bool = False,
-                generator: Optional[torch.Generator] = None
-                ) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                tp: Optional[tuple] = None) -> torch.Tensor:
         """inputs [B, T, F], input_lengths [B] -> logits [B, T, V+1].
 
         ``train`` turns the front end's and the stack's dropout on, drawn
         from ``generator`` (a ``torch.Generator`` on the inputs' device),
-        the front end's first."""
+        the front end's first.  ``tp`` ``(model group, shards)`` runs the
+        stack tensor-parallel (``parallel/tp.py``; the JAX ``tp=``)."""
         x = inputs.transpose(0, 1)                               # [T, B, F]
         t_steps = x.shape[0]
         mask = (torch.arange(t_steps, device=x.device)[:, None]
@@ -90,7 +91,7 @@ class AcousticModel(nn.Module):
                                 self.relu_clip)
                 x = dropout_fn(x, self.input_dropout, train, generator)
             x = x * mask
-        h = self.rnn(x, mask, train, generator)
+        h = self.rnn(x, mask, train, generator, tp)
         return dense_apply(self.out, h).transpose(0, 1)
 
     def init_stream_carries(self, batch: int) -> list:

@@ -46,7 +46,7 @@ bfloat16 weights (``train --bf16``, the JAX trainer's ``compute_dtype``,
 under which ``pallas_bi_ln_lstm`` / ``pallas_ln_lstm`` run with a bfloat16
 wh): ``wh`` may be bfloat16 in every wrapper, both directions alike, while
 xpn, the mask, gh, gc, bc (float32 copies of bfloat16 ones), h, c and
-every cotangent stay float32.  The cluster design then launches its
+every cotangent stay float32.  Both designs then launch their
 bfloat16-weight forms (the same sources, the ``_bf16`` entry points):
 h_prev is rounded to bfloat16 where it enters ``h_prev @ wh`` and only
 there (the statistics of that product, c and the hold stay float32, the
@@ -57,10 +57,9 @@ unrounded.  The plain twins round the same way
 (:func:`~asr_study_torch.models.nn.dot`).  :func:`_ln_param_grads` follows
 the JAX ``_ln_param_grads``, whose einsum promotes the float32 h_prev with
 the bfloat16 wh: its hp is the float32 product of the UNROUNDED h_prev
-and wh's values, and ``dwh`` comes back bfloat16.  A bfloat16 call whose
-shape goes to the stream design raises
-(:data:`~asr_study_torch.ops.recurrence.BF16_ITEM`); ``by_design`` counts
-bfloat16 launches under ``cluster_bf16``.
+and wh's values, and ``dwh`` comes back bfloat16.  No bfloat16 call takes a
+float32 form; ``by_design`` counts bfloat16 launches under ``cluster_bf16``
+and ``stream_bf16``.
 """
 
 from __future__ import annotations
@@ -71,11 +70,11 @@ from asr_study_torch import _build
 from asr_study_torch.models.cells import ln_lstm_step, ln_stats
 from asr_study_torch.models.nn import dot
 from asr_study_torch.ops.bilstm import CLUSTER_SLICE, CLUSTER_THREADS
-from asr_study_torch.ops.recurrence import (STREAM_ROWS, Geometry, bf16_design,
-                                            check, check_carry,
-                                            cluster_geometry, cotangent,
-                                            design_counts, design_key,
-                                            kernel_info, prev, r4, stream)
+from asr_study_torch.ops.recurrence import (STREAM_ROWS, Geometry, check,
+                                            check_carry, cluster_geometry,
+                                            cotangent, design_counts,
+                                            design_key, kernel_info, prev, r4,
+                                            stream)
 
 
 def ln_cluster_smem(hidden: int, units: int, rows: int, ctas: int
@@ -98,13 +97,15 @@ def ln_cluster_smem(hidden: int, units: int, rows: int, ctas: int
     return 4 * fwd, 4 * bwd
 
 
-def ln_stream_smem(hidden: int) -> tuple[int, int]:
+def ln_stream_smem(hidden: int, bf16: bool = False) -> tuple[int, int]:
     """Dynamic shared memory per block of the stream forward and backward,
-    bytes, by the formulas of ``csrc/ln_lstm_stream_{fwd,bwd}.cu``."""
+    bytes, by the formulas of ``csrc/ln_lstm_stream_{fwd,bwd}.cu``; with
+    ``bf16``, of the bfloat16-weight forms (the forward's rounded copy of h
+    besides; the backward's is the float32 form's)."""
     gates = 4 * hidden
     threads = min(-(-gates // 32) * 32, 1024)
     nsplit = max(threads // hidden, 1)
-    return (4 * STREAM_ROWS * (4 * hidden + gates + 10),
+    return (4 * STREAM_ROWS * ((5 if bf16 else 4) * hidden + gates + 10),
             4 * STREAM_ROWS * ((6 + nsplit) * hidden + 2 * gates + 20))
 
 
@@ -170,11 +171,8 @@ def ln_lstm_plain(xpn, mask, wh, gh, gc, bc, h0=None, c0=None
     return _scan(xpn, mask, wh, gh, gc, bc, False, h0, c0)
 
 
-def _geometry(name: str, xpn: torch.Tensor, wh: torch.Tensor,
-              ndir: int) -> Geometry:
-    hidden, batch = xpn.shape[2] // 4, xpn.shape[1]
-    return bf16_design(name, ln_geometry(hidden, batch, ndir), wh, hidden,
-                       batch)
+def _geometry(xpn: torch.Tensor, ndir: int) -> Geometry:
+    return ln_geometry(xpn.shape[2] // 4, xpn.shape[1], ndir)
 
 
 def launch_fwd(geo: Geometry, xpns: list, mask: torch.Tensor, whs: list,
@@ -202,7 +200,8 @@ def launch_fwd(geo: Geometry, xpns: list, mask: torch.Tensor, whs: list,
             err = getattr(_build.lib(), f"asr_ln_lstm_fwd{form}")(
                 *ptrs, geo.ctas, geo.units, geo.rows, stream(xpns[0]))
         else:
-            err = _build.lib().asr_ln_lstm_stream_fwd(*ptrs, stream(xpns[0]))
+            err = getattr(_build.lib(), f"asr_ln_lstm_stream_fwd{form}")(
+                *ptrs, stream(xpns[0]))
     _build.check(err, f"{'bi_ln_lstm' if ndir == 2 else 'ln_lstm'}_fwd "
                       f"({geo.design}{form})")
     return outs
@@ -232,7 +231,7 @@ def bi_ln_lstm(xpn_f: torch.Tensor, xpn_b: torch.Tensor, mask: torch.Tensor,
           dict(gc_f=gc_f, gc_b=gc_b, bc_f=bc_f, bc_b=bc_b))
     args = (xpn_f, xpn_b, mask, wh_f, wh_b, gh_f, gh_b, gc_f, gc_b, bc_f,
             bc_b)
-    geo = _geometry("bi_ln_lstm", xpn_f, wh_f, 2)
+    geo = _geometry(xpn_f, 2)
     if xpn_f.device.type == "cpu":
         with torch.no_grad():
             return bi_ln_lstm_plain(*args)
@@ -260,7 +259,7 @@ def ln_lstm(xpn: torch.Tensor, mask: torch.Tensor, wh: torch.Tensor,
     check("ln_lstm", 4, mask, dict(xpn=xpn), dict(wh=wh), {}, dict(gh=gh),
           dict(gc=gc, bc=bc))
     check_carry("ln_lstm", xpn, 4, h0=h0, c0=c0)
-    geo = _geometry("ln_lstm", xpn, wh, 1)
+    geo = _geometry(xpn, 1)
     if xpn.device.type == "cpu":
         with torch.no_grad():
             return ln_lstm_plain(xpn, mask, wh, gh, gc, bc, h0, c0)
@@ -369,7 +368,7 @@ def launch_bwd(geo: Geometry, xpns: list, mask: torch.Tensor, whs: list,
             whts = [w.t().contiguous() for w in whs]
             args = (xpns[0], xpns[-1], mask, whs[0], whs[-1], whts[0],
                     whts[-1], *vecs)
-            err = _build.lib().asr_ln_lstm_stream_bwd(
+            err = getattr(_build.lib(), f"asr_ln_lstm_stream_bwd{form}")(
                 *(a.data_ptr() for a in args), t_steps, batch, hidden, ndir,
                 stream(xpns[0]))
     _build.check(err, f"{'bi_ln_lstm' if ndir == 2 else 'ln_lstm'}_bwd "
@@ -392,7 +391,7 @@ def bi_ln_lstm_bwd(xpn_f, xpn_b, mask, wh_f, wh_b, gh_f, gh_b, gc_f, gc_b,
           dict(h_f=h_f, c_f=c_f, h_b=h_b, c_b=c_b, dh_f=dh_f, dh_b=dh_b),
           dict(gh_f=gh_f, gh_b=gh_b),
           dict(gc_f=gc_f, gc_b=gc_b, bc_f=bc_f, bc_b=bc_b))
-    geo = _geometry("bi_ln_lstm_bwd", xpn_f, wh_f, 2)
+    geo = _geometry(xpn_f, 2)
     if xpn_f.device.type == "cpu":
         with torch.no_grad():
             return bi_ln_lstm_bwd_plain(xpn_f, xpn_b, mask, wh_f, wh_b, gh_f,
@@ -416,7 +415,7 @@ def ln_lstm_bwd(xpn, mask, wh, gh, gc, bc, h, c, dh
     :func:`bi_ln_lstm_bwd` for one direction."""
     check("ln_lstm_bwd", 4, mask, dict(xpn=xpn), dict(wh=wh),
           dict(h=h, c=c, dh=dh), dict(gh=gh), dict(gc=gc, bc=bc))
-    geo = _geometry("ln_lstm_bwd", xpn, wh, 1)
+    geo = _geometry(xpn, 1)
     if xpn.device.type == "cpu":
         with torch.no_grad():
             return ln_lstm_bwd_plain(xpn, mask, wh, gh, gc, bc, h, c, dh)

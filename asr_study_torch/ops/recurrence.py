@@ -6,9 +6,7 @@ unidirectional forward carries in), the stream, the
 scan-previous state of a sequence, the cotangent of an unused output, and
 the fit rules of the cluster-resident kernels (the LSTM's, the GRU's, the
 layer-norm, zoneout and MI LSTMs'; the wide rule, the LSTM's and the
-GRU's), and the refusal of a bfloat16 call that goes to a design with no
-bfloat16-weight form (the layer-norm LSTM's stream design; every design
-of the LSTM, the GRU and the zoneout and MI LSTMs has one)."""
+GRU's).  Every design of every cell has its bfloat16-weight form."""
 
 from __future__ import annotations
 
@@ -53,12 +51,6 @@ WIDE_BUDGET = 6
 WIDE_ROWS = (4, 8, 16)
 
 CLUSTER_MAX_HIDDEN = 256     # the widest H the cluster design takes
-
-# where bf16 compute (the JAX trainer's compute_dtype, train --bf16) waits
-# for the design that has no bfloat16-weight kernels yet: the layer-norm
-# LSTM's stream design (its item 2c)
-BF16_ITEM = "ROADMAP queue A item 5b"
-
 
 class Geometry(NamedTuple):
     """How one launch of a recurrence's kernels is laid out."""
@@ -123,24 +115,6 @@ def wide_geometry(hidden: int, batch: int, ndir: int,
     return None
 
 
-def bf16_design(name: str, geo: Geometry, wh: torch.Tensor, hidden: int,
-                batch: int) -> Geometry:
-    """``geo``, the layout of a call of the layer-norm LSTM wrapper ``name``
-    with weights ``wh``; a bfloat16 call that it sends to the stream design
-    raises (that cell's stream design has no bfloat16 form, and no call
-    quietly takes float32), saying what the bfloat16 forms take: the
-    cluster design."""
-    if wh.dtype == torch.bfloat16 and geo.design == "stream":
-        rows = CLUSTER_BUDGET * CLUSTER_ROWS[-1]
-        raise ValueError(
-            f"{name}: bfloat16 weights at H={hidden}, B={batch}, "
-            f"{geo.grid[2]} direction(s) go to the stream design, which has "
-            f"no bfloat16 form for this cell yet ({BF16_ITEM}); the cluster "
-            f"design takes H <= {CLUSTER_MAX_HIDDEN} up to B={rows // 2} in "
-            f"two directions and B={rows} in one")
-    return geo
-
-
 def design_key(geo: Geometry, wh: torch.Tensor) -> str:
     """The ``by_design`` key of a launch of the recurrence kernels: the
     design, ``_bf16`` added for the bfloat16-weight forms."""
@@ -149,8 +123,8 @@ def design_key(geo: Geometry, wh: torch.Tensor) -> str:
 
 def design_counts() -> dict:
     """A fresh ``by_design`` of the LSTM, GRU, layer-norm, zoneout and MI
-    LSTM wrappers (the last three have no wide design, and the layer-norm
-    LSTM no bfloat16 stream form: those counts stay 0)."""
+    LSTM wrappers (the last three have no wide design: those counts stay
+    0)."""
     return {"cluster": 0, "wide": 0, "stream": 0, "cluster_bf16": 0,
             "wide_bf16": 0, "stream_bf16": 0}
 

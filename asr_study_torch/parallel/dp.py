@@ -27,6 +27,18 @@ gradients of the local weighted loss **sum** in parameter order, then the
 loss sum and the weight sum; the trainer divides by ``max(weight sum, 1)``
 after it, so a step on N ranks is the step on the whole batch, zero-weight
 padding rows wherever they land.
+
+With ``tp`` > 1 (``train --tp_devices``) the ranks form the JAX trainer's
+2-D ``(data, model)`` mesh: ``launch(fn, devices, tp=m)`` on ``n * m``
+devices makes global rank ``d * m + k`` shard ``k`` of model group ``d``
+and rank ``d`` of data group ``k``.  Each rank's :class:`DataGroup` then
+carries its data index and count (``rank``, ``world``, what
+:func:`shard_rows` and the step generators read), its data group ``pg``
+(the gradients' all-reduce: the ranks that share a model index) and its
+:class:`ModelGroup` (the ranks that share a data index, on which
+``parallel/tp.py`` shards the recurrence); both groups are made with
+``dist.new_group``.  :func:`broadcast` and :func:`barrier` reach every
+rank, and :attr:`DataGroup.lead` (global rank 0) writes and prints.
 """
 
 from __future__ import annotations
@@ -57,23 +69,52 @@ class RankError(RuntimeError):
 
 
 @dataclasses.dataclass(frozen=True)
+class ModelGroup:
+    """This process's place in its tensor-parallel group (the JAX mesh's
+    ``model`` axis): its shard index, the shard count, the process group
+    and its backend."""
+
+    rank: int
+    world: int
+    pg: Any
+    backend: str
+
+
+@dataclasses.dataclass(frozen=True)
 class DataGroup:
     """This process's place in the data-parallel group: its rank, the
     group's size, its device and the process group its collectives run
-    on."""
+    on; with tensor parallelism, also its :class:`ModelGroup`."""
 
     rank: int
     world: int
     device: torch.device
     backend: str
     pg: Any = None
+    model: Optional[ModelGroup] = None
+
+    @property
+    def lead(self) -> bool:
+        """Global rank 0: the one that writes and prints."""
+        return self.rank == 0 and (self.model is None or self.model.rank == 0)
+
+    @property
+    def tp(self) -> Optional[tuple]:
+        """``(model group, shards)`` for the model's ``tp=`` (the JAX
+        trainer's ``_tp``), or None without tensor parallelism."""
+        if self.model is None or self.model.world <= 1:
+            return None
+        return self.model, self.model.world
 
 
 def make_group(rank: int, world: int, device: torch.device | str,
-               init_file: str, backend: Optional[str] = None) -> DataGroup:
+               init_file: str, backend: Optional[str] = None,
+               tp: int = 1) -> DataGroup:
     """Join the group of ``world`` ranks of this host that meets at the
     file store ``init_file`` (the counterpart of ``make_mesh``);
-    ``backend`` None takes :data:`BACKENDS` of the device's type."""
+    ``backend`` None takes :data:`BACKENDS` of the device's type.  With
+    ``tp`` > 1, ``world / tp`` data ranks of ``tp`` model shards each
+    (the module docstring)."""
     device = torch.device(device)
     backend = backend or BACKENDS[device.type]
     # the ranks are processes of this host: the loopback device, and no
@@ -82,9 +123,22 @@ def make_group(rank: int, world: int, device: torch.device | str,
     os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
     if device.type == "cuda":
         torch.cuda.set_device(device)
+    if world % tp:
+        raise ValueError(f"{world} ranks do not split into model groups "
+                         f"of {tp}")
     dist.init_process_group(backend, init_method=f"file://{init_file}",
                             rank=rank, world_size=world, timeout=TIMEOUT)
-    return DataGroup(rank, world, device, backend, dist.group.WORLD)
+    if tp == 1:
+        return DataGroup(rank, world, device, backend, dist.group.WORLD)
+    # every rank makes every group, in the same order
+    n_data = world // tp
+    data_pgs = [dist.new_group([d * tp + k for d in range(n_data)])
+                for k in range(tp)]
+    model_pgs = [dist.new_group(list(range(d * tp, (d + 1) * tp)))
+                 for d in range(n_data)]
+    d, k = divmod(rank, tp)
+    return DataGroup(d, n_data, device, backend, data_pgs[k],
+                     ModelGroup(k, tp, model_pgs[d], backend))
 
 
 def all_reduce_sum(group: DataGroup, t: torch.Tensor) -> torch.Tensor:
@@ -95,8 +149,9 @@ def all_reduce_sum(group: DataGroup, t: torch.Tensor) -> torch.Tensor:
 
 def broadcast(group: DataGroup, t: torch.Tensor, src: int = 0
               ) -> torch.Tensor:
-    """Rank ``src``'s ``t`` on every rank, in place -> ``t``."""
-    dist.broadcast(t, src, group=group.pg)
+    """Global rank ``src``'s ``t`` on every rank of the launch (both axes
+    of a ``(data, model)`` layout), in place -> ``t``."""
+    dist.broadcast(t, src)
     return t
 
 
@@ -109,9 +164,9 @@ def all_gather_rows(group: DataGroup, t: torch.Tensor) -> torch.Tensor:
 
 
 def barrier(group: DataGroup) -> None:
-    """Wait until every rank got here (an all-reduce of one element on the
-    group's device, the same on every backend)."""
-    all_reduce_sum(group, torch.zeros(1, device=group.device))
+    """Wait until every rank of the launch got here (an all-reduce of one
+    element on the group's device, the same on every backend)."""
+    dist.all_reduce(torch.zeros(1, device=group.device))
 
 
 def shard_rows(batch, rank: int, world: int):
@@ -130,7 +185,7 @@ def shard_rows(batch, rank: int, world: int):
 
 
 def _rank_main(fn: Callable, args: tuple, rank: int, devices: list,
-               backend: Optional[str], tmp: str) -> None:
+               backend: Optional[str], tmp: str, tp: int = 1) -> None:
     """One rank of :func:`launch`: join the group, run ``fn``, write its
     return value (or this rank's traceback) under ``tmp``."""
     try:
@@ -139,7 +194,7 @@ def _rank_main(fn: Callable, args: tuple, rank: int, devices: list,
             torch.set_num_threads(max(1, (os.cpu_count() or 1)
                                       // len(devices)))
         group = make_group(rank, len(devices), device,
-                           os.path.join(tmp, "store"), backend)
+                           os.path.join(tmp, "store"), backend, tp)
         out = fn(group, *args)
         path = os.path.join(tmp, f"rank{rank}.pkl")
         with open(path + ".tmp", "wb") as f:
@@ -208,9 +263,11 @@ def _failure(procs: list, tmp: str, why: str,
 
 def launch(fn: Callable, devices: Sequence[torch.device | str],
            args: tuple = (), backend: Optional[str] = None,
-           join_timeout: Optional[float] = None) -> list:
+           join_timeout: Optional[float] = None, tp: int = 1) -> list:
     """Run ``fn(group, *args)`` in one spawned process a device (rank r on
-    ``devices[r]``) -> the ranks' return values in rank order.
+    ``devices[r]``) -> the ranks' return values in rank order.  ``tp`` > 1
+    lays the ranks out as ``len(devices) / tp`` data ranks of ``tp`` model
+    shards (:func:`make_group`).
 
     ``fn`` and ``args`` are pickled (``fn`` by its import path), and so are
     the return values.  A CPU rank uses ``cores // len(devices)`` threads.
@@ -222,7 +279,7 @@ def launch(fn: Callable, devices: Sequence[torch.device | str],
     with tempfile.TemporaryDirectory(prefix="asr_dp_") as tmp:
         procs = [ctx.Process(target=_rank_main, name=f"asr-dp-rank{r}",
                              args=(fn, tuple(args), r, devices, backend,
-                                   tmp))
+                                   tmp, tp))
                  for r in range(len(devices))]
         try:
             for p in procs:

@@ -99,7 +99,7 @@ class CheckpointManager:
              hparams: Optional[Dict[str, Any]] = None) -> None:
         """Write ``state`` at its step (on rank 0 of a data group, the
         others waiting at a barrier until it is written)."""
-        if self.group is None or self.group.rank == 0:
+        if self.group is None or self.group.lead:
             self._save(state, metrics, hparams)
         if self.group is not None:
             dp.barrier(self.group)

@@ -116,7 +116,7 @@ def fit(
             "drives the stopping decision) — none was provided")
     device = trainer.device
     rank = trainer.group.rank if trainer.group is not None else 0
-    lead = rank == 0
+    lead = trainer.group is None or trainer.group.lead
     if not lead:        # rank 0 writes the metrics, the logs and the trace
         log_dir, profile = None, False
     writer = MetricWriter(log_dir, "train", tensorboard=tensorboard)

@@ -55,8 +55,8 @@ while h, c, dropout, the skips and the CTC loss stay float32.  The cast's
 autograd hands the float32 master weights gradients rounded to bfloat16;
 the clip, the optimizer and its state, the eval step and checkpoints stay
 float32.  Every cell of the port has the kernels for it (:data:`BF16_CELLS`);
-a model holding another subclass of ``LSTMCell`` or ``GRUCell`` refuses it,
-naming :data:`BF16_ITEM`.
+a model holding another subclass of ``LSTMCell`` or ``GRUCell`` refuses it:
+the port has no bfloat16 kernels for a cell it does not know.
 
 Data parallelism (``Trainer(group=)``, ``train --num_devices N``) is the
 JAX trainer's ``shard_map`` over a ``data`` mesh, one process a rank
@@ -68,6 +68,16 @@ one on the whole batch, zero-weight rows wherever they land; the clip, the
 accumulator, the plateau (on the global loss) and ``check_nans`` (on the
 global norm: every rank raises together) follow it unchanged.  The eval
 step all-reduces its sums the same way.
+
+Tensor parallelism (a group of ``dp.launch(..., tp=m)``, ``train
+--tp_devices m``) is the JAX trainer's 2-D ``(data, model)`` mesh: both
+steps run the model with ``tp=`` (the group's model group and its shard
+count, the JAX ``_tp``), so the recurrent layers take the gate-dim-sharded
+scan of ``parallel/tp.py``; the ranks of a model group step on the same
+rows (those of their data index) and draw the same dropout masks, and its
+``tp_slice`` leaves the gradients replicated across the model group, so
+the flat all-reduce runs over the data group alone.  ``init_state``
+broadcasts global rank 0's parameters to every rank.
 """
 
 from __future__ import annotations
@@ -85,9 +95,6 @@ from asr_study_torch.models.cells import (GRUCell, LayerNormLSTMCell,
 from asr_study_torch.ops import ctc
 from asr_study_torch.ops.metrics import edit_distance
 from asr_study_torch.parallel import dp
-# where bf16 compute (the JAX trainer's compute_dtype, train --bf16) waits
-# for the cells other than BF16_CELLS
-from asr_study_torch.ops.recurrence import BF16_ITEM
 
 OPTIMIZERS = ("adam", "adamw", "rmsprop", "sgd")
 # the cells whose recurrent kernels have bfloat16-weight forms
@@ -365,7 +372,8 @@ class Trainer:
     precision (the module docstring); a model holding a cell other than
     those of :data:`BF16_CELLS` refuses it.  ``group`` (a
     ``parallel.dp.DataGroup`` on the model's device) makes the steps
-    data-parallel, as the JAX trainer's ``mesh=``."""
+    data-parallel, as the JAX trainer's ``mesh=``, and tensor-parallel
+    where the group has a model group of more than one shard."""
 
     def __init__(self, model: nn.Module, optimizer: OptimizerSpec,
                  augment=None, featurizer=None, wav_augment=None,
@@ -388,8 +396,8 @@ class Trainer:
                 raise ValueError(
                     f"compute_dtype=torch.bfloat16: the bfloat16 kernels "
                     f"cover {', '.join(c.__name__ for c in BF16_CELLS)} "
-                    f"only, and this model holds {', '.join(others)} "
-                    f"({BF16_ITEM})")
+                    f"only, and this model holds {', '.join(others)}, a "
+                    f"cell with no bfloat16 kernels")
         self.compute_dtype = (compute_dtype if compute_dtype == torch.bfloat16
                               else None)
         self.model = model
@@ -397,6 +405,8 @@ class Trainer:
             raise ValueError(f"the model is on {self.device}, its data "
                              f"group's rank {group.rank} on {group.device}")
         self.group = group
+        # (model group, shards) where the group is tensor-parallel
+        self.tp = group.tp if group is not None else None
         self.spec = optimizer
         self.augment = augment
         self.featurizer = featurizer
@@ -418,7 +428,8 @@ class Trainer:
             accum = GradAccumulator(self.model.parameters(),
                                     spec.accum_steps)
         if self.group is not None:
-            # every rank starts from rank 0's weights
+            # every rank (both axes of a TP layout) starts from rank 0's
+            # weights
             with torch.no_grad():
                 params = list(self.model.parameters())
                 flat = dp.broadcast(self.group, torch.cat(
@@ -511,7 +522,7 @@ class Trainer:
         state.optimizer.zero_grad(set_to_none=True)
         if self.compute_dtype is None:
             logits = model(inputs, input_lengths, train=True,
-                           generator=generator)
+                           generator=generator, tp=self.tp)
         else:
             logits = self._forward_cast(model, inputs, input_lengths,
                                         generator)
@@ -539,7 +550,7 @@ class Trainer:
             inputs = inputs.to(dt).to(inputs.dtype)
         logits = torch.func.functional_call(
             model, params, (inputs, input_lengths),
-            dict(train=True, generator=generator))
+            dict(train=True, generator=generator, tp=self.tp))
         return logits.float()
 
     def apply_gradients(self, state: TrainState,
@@ -597,7 +608,7 @@ class Trainer:
         sums over the group (one all-reduce), as device scalars."""
         model = state.model
         inputs, input_lengths = self._featurize(inputs, input_lengths)
-        logits = model(inputs, input_lengths, train=False)
+        logits = model(inputs, input_lengths, train=False, tp=self.tp)
         loss_sum, num = self._loss_sum(logits, input_lengths, labels,
                                        label_lengths, weights)
         decoded, dec_lens = ctc.greedy_decode(logits, input_lengths,

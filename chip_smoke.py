@@ -79,18 +79,23 @@ paths at full width, with random weights from a seeded
   cluster kernels'), bidirectional and unidirectional, and 3x512 (the wide
   GRU kernels'), of zoneout_blstm, mi_blstm and ln_blstm 3x256 (their
   cluster kernels'), bidirectional and unidirectional, of deep_blstm
-  3x256, deep_speech, deep_gru 3x256, zoneout_blstm and mi_blstm 3x256 at
-  B=64 bidirectional (the LSTM, GRU, zoneout and MI stream kernels'
-  bfloat16-weight forms: ``--batch_size 64``) and of zoneout_blstm and
-  mi_blstm unidirectional at B=128, and ``cli.train --bf16`` of
-  deep_blstm, deep_gru, zoneout_blstm, mi_blstm and ln_blstm on the corpus
-  manifest, and of deep_blstm and zoneout_blstm with ``--batch_size 64``;
+  3x256, deep_speech, deep_gru 3x256, zoneout_blstm, mi_blstm and
+  ln_blstm 3x256 at B=64 bidirectional (the LSTM, GRU, zoneout, MI and LN
+  stream kernels' bfloat16-weight forms: ``--batch_size 64``) and of
+  zoneout_blstm, mi_blstm and ln_blstm unidirectional at B=128, and
+  ``cli.train --bf16`` of deep_blstm, deep_gru, zoneout_blstm, mi_blstm
+  and ln_blstm on the corpus manifest, and of deep_blstm, zoneout_blstm
+  and ln_blstm with ``--batch_size 64``;
 - data parallelism (BASELINE config 5, ``train --num_devices``,
   ``Trainer(group=)``): deep_blstm 3x256 at B=32, T=512 in two ranks
   (``parallel.dp.launch``) that share the one card over gloo, which stages
   the all-reduce through the host (the machine has one card, so not a
   data-parallel rate), and in one rank over NCCL; ``fit`` over the corpus
-  manifest's train split in two ranks.
+  manifest's train split in two ranks;
+- tensor parallelism (``train --tp_devices``, ``parallel/tp.py``):
+  deep_blstm and deep_gru 3x256 at B=32, T=512, each layer's gate
+  dimension sharded over two ranks (``dp.launch(..., tp=2)``) that share
+  the one card over gloo.
 
 Phases, in order; any failure raises and the exit code is not 0:
 
@@ -163,14 +168,15 @@ Phases, in order; any failure raises and the exit code is not 0:
    the CPU, run twice bit for bit; accumulation over two halves against
    the whole batch; check_nans raising on a NaN batch with the weights
    untouched; fit(profile=True) writing a trace with the card's kernels;
-   then the bf16 phase: the twenty-two bfloat16-weight kernels (the
+   then the bf16 phase: the twenty-four bfloat16-weight kernels (the
    cluster, wide and stream LSTM and GRU kernels, the cluster and stream
-   zoneout and MI LSTM kernels, the cluster LN LSTM kernels, forward and
-   backward) against their plain twins at T=512, B=32, H=256 and (LSTM,
-   GRU) 512, one and two directions, and the stream forms (all but the
-   LN LSTM's) at B=64 in two directions at H=256 and 512 and at B=128 in
-   one at H=256 (h, c, the kept gates or h side, dxp, the GRU's dhp, the
-   MI dpre; dwh after its matmul; the zoneout mix drawn once,
+   zoneout, MI and LN LSTM kernels, forward and backward) against their
+   plain twins at T=512, B=32, H=256 and (LSTM, GRU) 512, one and two
+   directions, and the stream forms at B=64 in two directions at H=256
+   and 512 and at B=128 in one at H=256 (h, c, the kept gates or h side,
+   dxp, the GRU's dhp, the MI dpre; the LN's forward frame by frame and
+   its backward by rows, as ln_bf16_held holds it; dwh after its matmul;
+   the zoneout mix drawn once,
    Bernoulli(0.9), for kernel and twin), two launches bit-equal, each
    timed beside its float32 form, its bound and cuDNN ``nn.LSTM`` /
    ``nn.GRU`` in bfloat16 (no library call for LN, zoneout or MI);
@@ -178,9 +184,10 @@ Phases, in order; any failure raises and the exit code is not 0:
    bidirectional and with ``bidirectional=false``, of deep_gru 3x256 bi
    and uni and 3x512, of zoneout_blstm (rates 0.1), mi_blstm and ln_blstm
    3x256 bi and uni, of deep_blstm, deep_speech, deep_gru, zoneout_blstm
-   (rates 0.1) and mi_blstm 3x256 at B=64 bi (the stream forms: train
-   --bf16 --batch_size 64), and of zoneout_blstm and mi_blstm 3x256 uni at
-   B=128 (their unidirectional stream forms), from the float32 slice's
+   (rates 0.1), mi_blstm and ln_blstm 3x256 at B=64 bi (the stream forms:
+   train --bf16 --batch_size 64), and of zoneout_blstm, mi_blstm and
+   ln_blstm 3x256 uni at B=128 (their unidirectional stream forms), from
+   the float32 slice's
    weights, their launches (the bf16 forms only), losses beside the
    float32 run's, two identical steps bit-equal, ms a step;
 8. the corpus phase: each CLI run's launches held to what its steps and
@@ -189,8 +196,9 @@ Phases, in order; any failure raises and the exit code is not 0:
    eval's valid loss equal to the run's last ``val_loss``, finite test
    CER and WER, then ``train --bf16`` of deep_blstm, deep_gru,
    zoneout_blstm, mi_blstm and ln_blstm for an epoch each (the bf16
-   cluster forms in every step) and of deep_blstm and zoneout_blstm with
-   ``--batch_size 64`` (the bf16 stream forms in every step); the host
+   cluster forms in every step) and of deep_blstm, zoneout_blstm and
+   ln_blstm with ``--batch_size 64`` (the bf16 stream forms in every
+   step); the host
    seconds of the synthesis and of the manifest's features, ms per train
    step (CUDA events) and audio-s/s, eval ms per batch; then the h5 phase
    on its corpus: make_dataset --output (host MFCC in both layouts, raw, and
@@ -241,7 +249,18 @@ Phases, in order; any failure raises and the exit code is not 0:
    launches counted in each, losses within DP_FIT_RTOL of the one-process
    run's, one checkpoint written by rank 0; (d) ms a step of the two
    ranks beside the one-process B=32 step, and ms of the flat all-reduce
-   alone.
+   alone;
+12. the tp phase: deep_blstm and deep_gru 3x256 at B=32, T=512 in two
+   ranks on cuda:0 over gloo (``dp.launch(..., tp=2)``: one data rank of
+   two model shards), each an eval step and an SGD step from the same
+   weights as the one-process steps on the kernels: the eval and train
+   losses within TP_LOSS_RTOL, each gradient within TP_GRAD_FRAC of its
+   norm, the two ranks' gradients bit-equal, no recurrence kernel
+   launched in the ranks (the TP scan is plain tensor code, as in JAX);
+   the reduce-scatter of the NCCL form of the all-gather's backward and
+   tp_slice's all-reduce in a one-rank NCCL group; ms of each step,
+   which is not a TP rate (one card, gloo stages every frame's
+   all-gather through the host).
 
 The deep_blstm pcm16 slice's wire unpack and features stage are split
 with CUDA events (``_prep``, fbank, the two deltas, ``_finalize``), and
@@ -391,6 +410,10 @@ CORPUS_LOSS_RTOL = 1e-5          # eval's valid loss against the last val_loss
 DP_LOSS_RTOL, DP_GRAD_FRAC, DP_FIT_RTOL = 1e-5, 1e-4, 1e-3
 DP_RAGGED_REAL, DP_FIT_STEPS, DP_TIME_STEPS = 17, 20, 5
 DP_JOIN_S = 300                  # the two ranks' launch, at most
+# the tp phase: the TP eval and train step against the one-process steps
+# (losses; each gradient as ||diff|| / ||one process's||)
+TP_LOSS_RTOL, TP_GRAD_FRAC = 1e-4, 1e-3
+TP_MODELS = ("deep_blstm", "deep_gru")
 # the h5 phase: each step's loss from the MFCC .h5 against the corpus
 # phase's from the manifest (the same features, weights, seed and batches);
 # device extraction held against host MFCC at a power floor (without one,
@@ -3286,6 +3309,17 @@ KERNELS = {
                                 "ops/pallas_mi_lstm.py:59"),
     "mi_lstm_bwd_stream_bf16": ("mi_lstm_stream_bwd.cu",
                                 "ops/pallas_mi_lstm.py:132"),
+    # the layer-norm LSTM's stream design on a bfloat16 wh (train --bf16
+    # --batch_size 64 --model ln_blstm), the same sources; both directions'
+    # rows
+    "bi_ln_lstm_fwd_stream_bf16": ("ln_lstm_stream_fwd.cu",
+                                   "ops/pallas_bi_ln_lstm.py:39"),
+    "bi_ln_lstm_bwd_stream_bf16": ("ln_lstm_stream_bwd.cu",
+                                   "ops/pallas_bi_ln_lstm.py:81"),
+    "ln_lstm_fwd_stream_bf16": ("ln_lstm_stream_fwd.cu",
+                                "ops/pallas_ln_lstm.py:106"),
+    "ln_lstm_bwd_stream_bf16": ("ln_lstm_stream_bwd.cu",
+                                "ops/pallas_ln_lstm.py:198"),
 }
 # kernel line row of the wide design -> the wrapper that launches it
 WIDE_ROWS = {"bilstm_fwd_wide": "bilstm_fwd", "bilstm_bwd_wide": "bilstm_bwd",
@@ -3313,7 +3347,8 @@ BF16_ROWS = {**{f"{w}{suffix}_bf16": (w, design + "_bf16")
                 for w in ("bi_zoneout_lstm_fwd", "bi_zoneout_lstm_bwd",
                           "zoneout_lstm_fwd", "zoneout_lstm_bwd",
                           "bi_mi_lstm_fwd", "bi_mi_lstm_bwd", "mi_lstm_fwd",
-                          "mi_lstm_bwd")}}
+                          "mi_lstm_bwd", "bi_ln_lstm_fwd", "bi_ln_lstm_bwd",
+                          "ln_lstm_fwd", "ln_lstm_bwd")}}
 
 # training paths: label -> (zoo model, its hparams, forward and backward
 # kernel of its recurrence, recurrent layers, what it is); the LN paths'
@@ -5660,11 +5695,20 @@ BF16_STREAM_PATHS = {
                           "mi_lstm_bwd_stream_bf16", TRAIN_LAYERS,
                           f"{TRAIN_LAYERS}x{HIDDEN} unidirectional MI "
                           "LSTM"),
+    # the layer-norm LSTM's: B=64 in two directions, B=128 in one
+    "ln_blstm b64": ("ln_blstm", _CONFIG3, "bi_ln_lstm_fwd_stream_bf16",
+                     "bi_ln_lstm_bwd_stream_bf16", TRAIN_LAYERS,
+                     f"{TRAIN_LAYERS}x{HIDDEN} LN BLSTM"),
+    "ln_blstm uni b128": ("ln_blstm", _CONFIG3 + ",bidirectional=false",
+                          "ln_lstm_fwd_stream_bf16",
+                          "ln_lstm_bwd_stream_bf16", TRAIN_LAYERS,
+                          f"{TRAIN_LAYERS}x{HIDDEN} unidirectional LN "
+                          "LSTM"),
 }
 # the rows a BF16_STREAM_PATHS path trains on where not BF16_STREAM_B
-BF16_STREAM_ROWS = {"zoneout_blstm uni b128": 128, "mi_blstm uni b128": 128}
-# the bfloat16 stream forms (the LSTM's, the GRU's, the zoneout and MI
-# LSTMs') held against their twins at T=TRAIN_T: (H, B, directions), two
+BF16_STREAM_ROWS = {"zoneout_blstm uni b128": 128, "mi_blstm uni b128": 128,
+                    "ln_blstm uni b128": 128}
+# the bfloat16 stream forms (every cell's) held against their twins at T=TRAIN_T: (H, B, directions), two
 # directions at the zoo's 256 and 512 units and B=BF16_STREAM_B, one
 # direction at B=128
 BF16_STREAM_CASES = ((HIDDEN, BF16_STREAM_B, (2,)), (512, BF16_STREAM_B, (2,)),
@@ -5732,8 +5776,6 @@ class Bf16Family:
         # zoneout and MI LSTMs' rows of both directions are in the kernels
         # line
         self.resident = cell in ("ln_lstm", "zoneout_lstm", "mi_lstm")
-        # every cell's stream design has bfloat16 forms but the LN LSTM's
-        self.stream_bf16 = cell != "ln_lstm"
         # the LN recurrence is chaotic at T=TRAIN_T (ROADMAP C2): held
         # step by step and row by row there, whole only at LN_CHECK_T
         self.chaotic = cell == "ln_lstm"
@@ -5949,10 +5991,9 @@ def ln_bf16_held(fam: Bf16Family, xs, mask, ws, dh, outs, d_k, d_p
 def check_bf16_kernels(dev: torch.device, card: str, cell: str) -> dict:
     """The bfloat16-weight forms of the LSTM (``cell`` "lstm") or the GRU
     ("gru"): cluster and wide, at H=256 and H=512, and stream at
-    BF16_STREAM_CASES, or of the zoneout or MI LSTM ("zoneout_lstm",
-    "mi_lstm"): cluster, at H=256, and stream at BF16_STREAM_CASES, or of
-    the layer-norm LSTM ("ln_lstm"): cluster, at H=256; forward and
-    backward, each over one and two directions (the stream cases: as
+    BF16_STREAM_CASES, or of the zoneout, MI or layer-norm LSTM
+    ("zoneout_lstm", "mi_lstm", "ln_lstm"): cluster, at H=256, and stream
+    at BF16_STREAM_CASES; forward and backward, each over one and two directions (the stream cases: as
     listed), against their plain twins on the card at the training shapes
     T=TRAIN_T, B=TRAIN_B (the stream cases: their B): h (c; the wide
     design's kept gates or h side) and the
@@ -5973,8 +6014,7 @@ def check_bf16_kernels(dev: torch.device, card: str, cell: str) -> dict:
                                               "ln_lstm": 29}[cell])
     t, gates = TRAIN_T, fam.gates
     cases = [(hidden, TRAIN_B, (2, 1)) for hidden in fam.widths]
-    if fam.stream_bf16:
-        cases += BF16_STREAM_CASES
+    cases += BF16_STREAM_CASES
     for hidden, b, ndirs in cases:
         xps = [torch.randn(t, b, gates * hidden, generator=g).to(dev)
                for _ in range(2)]
@@ -6510,6 +6550,145 @@ def dp_phase(card: str, tmp: str, train_it) -> list:
     return [launches]
 
 
+def tp_steps(name: str, dev: torch.device, group=None) -> dict:
+    """An eval step, then an SGD step, of ``name`` 3x256 (dropout 0) from
+    the tp phase's seeded weights on dp_batch(), tensor-parallel on
+    ``group``'s model group where given, launches counted from 0 -> their
+    losses, the gradients on the host, ms of each (CUDA-synchronised host
+    clock) and the launches."""
+    from asr_study_torch.models.zoo import build_model
+    from asr_study_torch.train.trainer import Trainer, make_optimizer
+
+    model = build_model(name, _CONFIG3, num_classes=NUM_CLASSES,
+                        input_dim=FEATS,
+                        generator=torch.Generator().manual_seed(SEED + 13),
+                        device=dev)
+    tr = Trainer(model, make_optimizer("sgd", 1e-4, 400.0), group=group)
+    state = tr.init_state()
+    batch = tr.local_batch(dp_batch())
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ev = tr.eval_step(state, *batch)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    _, m = tr.train_step(state, *batch,
+                         torch.Generator(device=dev).manual_seed(SEED))
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    return {"eval_loss": float(ev["loss"]), "loss": float(m["loss"]),
+            "grads": {n: p.grad.detach().cpu()
+                      for n, p in tr.model.named_parameters()},
+            "eval_ms": (t1 - t0) * 1e3, "step_ms": (t2 - t1) * 1e3,
+            "launches": read_counts()}
+
+
+def tp_rank(group, t_launch: float) -> dict:
+    """One rank of the tp phase's two (``parallel.dp.launch(..., tp=2)`` on
+    cuda:0 over gloo): tp_steps of each TP_MODELS model, and the seconds
+    from ``t_launch`` (the parent's wall clock) to this body."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {"start_s": time.time() - t_launch}
+    for name in TP_MODELS:
+        out[name] = tp_steps(name, group.device, group)
+    return out
+
+
+def tp_nccl_backward(dev: torch.device, tmp: str) -> None:
+    """The NCCL form of the TP all-gather's backward (reduce_scatter_tensor)
+    and tp_slice's all-reduce, in a one-rank NCCL group in this process:
+    the card has no second device for a two-rank NCCL layout, so a group of
+    one is where those calls run here (the gradient passes through
+    unchanged)."""
+    import torch.distributed as dist
+
+    from asr_study_torch.parallel import dp
+    from asr_study_torch.parallel.tp import _Gather, tp_slice
+
+    group = dp.make_group(0, 1, dev, os.path.join(tmp, "tp_nccl_store"))
+    try:
+        require(group.backend == "nccl", f"backend {group.backend}")
+        mg = dp.ModelGroup(0, 1, dist.group.WORLD, "nccl")
+        g = torch.Generator(device=dev).manual_seed(SEED + 14)
+        h = torch.randn(TRAIN_B, HIDDEN, device=dev, generator=g,
+                        requires_grad=True)
+        ct = torch.randn(TRAIN_B, HIDDEN, device=dev, generator=g)
+        _Gather.apply(h, mg).backward(ct)
+        w = torch.randn(HIDDEN, 4 * HIDDEN, device=dev, generator=g,
+                        requires_grad=True)
+        tp_slice(w, 4, mg, 1).backward(2 * w.detach())
+        ok = torch.equal(h.grad, ct) and torch.equal(w.grad, 2 * w.detach())
+    finally:
+        dist.destroy_process_group()
+    print(f"tp: the all-gather's NCCL backward (reduce_scatter_tensor) and "
+          f"tp_slice's all-reduce in a one-rank NCCL group pass the "
+          f"cotangent through bit for bit: {ok}")
+    require(ok, "the NCCL form of the TP backward changed the cotangent")
+
+
+def tp_phase(card: str, tmp: str) -> list:
+    """The tensor-parallel path on the one card (the module docstring's
+    phase 12) -> [the ranks' launches, summed]."""
+    from asr_study_torch.parallel import dp
+
+    dev = torch.device("cuda", 0)
+    ref = {name: tp_steps(name, dev) for name in TP_MODELS}
+    tp_nccl_backward(dev, tmp)
+    t0 = time.perf_counter()
+    ranks = dp.launch(tp_rank, [dev, dev], args=(time.time(),),
+                      backend="gloo", join_timeout=DP_JOIN_S, tp=2)
+    launch_s = time.perf_counter() - t0
+    launches = {}
+    for name in TP_MODELS:
+        want = ref[name]
+        for rank, r in enumerate(ranks):
+            got = r[name]
+            rel = {k: abs(got[k] - want[k]) / abs(want[k])
+                   for k in ("eval_loss", "loss")}
+            frac = {n: float((got["grads"][n] - g).norm()
+                             / g.norm().clamp(min=1e-30))
+                    for n, g in want["grads"].items()}
+            worst = max(frac, key=frac.get)
+            print(f"tp: {name} {TRAIN_LAYERS}x{HIDDEN}, rank {rank} of 2 "
+                  f"(one data rank, two model shards, gloo on cuda:0) "
+                  f"against one process on the kernels (B={TRAIN_B}, "
+                  f"T={TRAIN_T}, {len(want['grads'])} parameters): eval "
+                  f"loss {got['eval_loss']:.6f} vs {want['eval_loss']:.6f} "
+                  f"rel {rel['eval_loss']:.3e}, train loss {got['loss']:.6f}"
+                  f" vs {want['loss']:.6f} rel {rel['loss']:.3e} (tol "
+                  f"{TP_LOSS_RTOL:g}); worst gradient ||diff||/||g|| "
+                  f"{frac[worst]:.3e} in {worst} (tol {TP_GRAD_FRAC:g}); "
+                  f"launches {got['launches']} (one process "
+                  f"{want['launches']})")
+            require(max(rel.values()) <= TP_LOSS_RTOL,
+                    f"tp {name}: a loss differs from one process's")
+            require(frac[worst] <= TP_GRAD_FRAC,
+                    f"tp {name}: a gradient differs from one process's")
+            require(set(got["launches"]) == {"ctc_alpha", "ctc_beta"},
+                    f"tp {name}: launches {got['launches']}: a recurrence "
+                    f"kernel ran in the TP path")
+            for k, v in got["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+        require(all(torch.equal(g, ranks[1][name]["grads"][n])
+                    for n, g in ranks[0][name]["grads"].items()),
+                f"tp {name}: the ranks' gradients differ")
+        print(f"[{card}] tp: {name} {TRAIN_LAYERS}x{HIDDEN} at B={TRAIN_B}, "
+              f"T={TRAIN_T} in two ranks sharing one card through "
+              f"host-staged gloo (not a TP rate: one card, and gloo copies "
+              f"every frame's all-gather through the host): eval "
+              f"{ranks[0][name]['eval_ms']:.1f} / "
+              f"{ranks[1][name]['eval_ms']:.1f} ms, sgd step "
+              f"{ranks[0][name]['step_ms']:.1f} / "
+              f"{ranks[1][name]['step_ms']:.1f} ms on ranks 0 / 1; one "
+              f"process on the kernels: eval {want['eval_ms']:.1f} ms, step "
+              f"{want['step_ms']:.1f} ms (first calls, host clock)")
+    print(f"tp: the two ranks' launch {launch_s:.1f} s wall, rank 0's body "
+          f"from {ranks[0]['start_s']:.1f} s; the two ranks' gradients "
+          f"bit-equal")
+    return [launches]
+
+
 def main() -> int:
     t_start = time.perf_counter()
     clock = PhaseClock()
@@ -6576,12 +6755,15 @@ def main() -> int:
     from asr_study_torch.ops.gru import gru_stream_smem
     from asr_study_torch.ops.mi_lstm import mi_stream_smem
     from asr_study_torch.ops.zoneout_lstm import zoneout_stream_smem
+    from asr_study_torch.ops.ln_lstm import ln_stream_smem
     for hidden in (HIDDEN, 512):
         fwd_b, bwd_b, nsplit = ln_smem(hidden)
         print(f"  dynamic shared memory per block at H={hidden} of the "
-              f"layer-norm LSTM's stream route: ln_lstm_stream_fwd (both "
-              f"forms) {fwd_b} B (4 rows), ln_lstm_stream_bwd {bwd_b} B (4 "
-              f"rows, {nsplit} partial sums), raised at each launch")
+              f"layer-norm LSTM's stream route: ln_lstm_stream_fwd "
+              f"(float32 / bfloat16 weights) {fwd_b} / "
+              f"{ln_stream_smem(hidden, True)[0]} B (4 rows), "
+              f"ln_lstm_stream_bwd {bwd_b} B (both; 4 rows, {nsplit} "
+              f"partial sums), raised at each launch")
         print(f"  the same of the LSTM's and the GRU's stream forms "
               f"(float32 / bfloat16 weights): lstm_stream_fwd "
               f"{stream_smem(hidden)[0]} / {stream_smem(hidden, True)[0]} "
@@ -6897,13 +7079,13 @@ def main() -> int:
     path_launches += optimizer_phase(dev, card)
     clock.mark("optimizer phase")
     # the bfloat16 phase (train --bf16): the LSTM's and the GRU's six
-    # bfloat16-weight forms, the zoneout and MI LSTMs' four each and the LN
-    # LSTM's two against their twins, then bf16 train steps of deep_blstm
-    # (cluster) and deep_speech (wide), bi and uni, deep_gru 3x256
-    # (cluster) bi and uni and 3x512 (wide), zoneout_blstm, mi_blstm and
-    # ln_blstm 3x256 bi and uni, of deep_blstm, deep_speech, deep_gru,
-    # zoneout_blstm and mi_blstm at B=64 (stream), and of zoneout_blstm
-    # and mi_blstm unidirectional at B=128 (stream)
+    # bfloat16-weight forms and the zoneout, MI and LN LSTMs' four each
+    # against their twins, then bf16 train steps of deep_blstm (cluster)
+    # and deep_speech (wide), bi and uni, deep_gru 3x256 (cluster) bi and
+    # uni and 3x512 (wide), zoneout_blstm, mi_blstm and ln_blstm 3x256 bi
+    # and uni, of deep_blstm, deep_speech, deep_gru, zoneout_blstm,
+    # mi_blstm and ln_blstm at B=64 (stream), and of zoneout_blstm,
+    # mi_blstm and ln_blstm unidirectional at B=128 (stream)
     bf16_kernels = check_bf16_kernels(dev, card, "lstm")
     for cell in ("gru", "zoneout_lstm", "mi_lstm", "ln_lstm"):
         for key, found in check_bf16_kernels(dev, card, cell).items():
@@ -6925,7 +7107,7 @@ def main() -> int:
             with part(f"train --bf16 --model {model} CLI"):
                 path_launches.append(bf16_cli_run(card, tmp, manifest,
                                                   model))
-        for model in ("deep_blstm", "zoneout_blstm"):
+        for model in ("deep_blstm", "zoneout_blstm", "ln_blstm"):
             with part(f"train --bf16 --model {model} --batch_size "
                       f"{BF16_STREAM_B} CLI"):
                 path_launches.append(bf16_cli_run(card, tmp, manifest,
@@ -6935,6 +7117,9 @@ def main() -> int:
         path_launches += dp_phase(card, tmp, train_it)
         del train_it
         clock.mark("dp phase")
+        # 12. the tp phase
+        path_launches += tp_phase(card, tmp)
+        clock.mark("tp phase")
         path_launches += h5_phase(card, tmp, manifest, first_epoch)
         clock.mark("h5 phase")
         beam_kernel, runs = beam_cli_phase(dev, card, manifest, run_dir, tmp)

@@ -34,7 +34,6 @@ from asr_study_torch.models.nn import dense_apply, dot
 from asr_study_torch.models.zoo import CELL_KINDS, build_model
 from asr_study_torch.ops import bilstm as B
 from asr_study_torch.ops.ln_lstm import bi_ln_lstm, ln_lstm
-from asr_study_torch.ops.recurrence import BF16_ITEM
 from asr_study_torch.train.trainer import Trainer, make_optimizer
 from asr_study_torch.utils.weights import params_from_flat
 from asr_study_tpu.models import cells as jcells
@@ -347,23 +346,22 @@ def _op_args(op, t=5, b=2, h=8):
 @pytest.mark.parametrize("op", [ln_lstm, bi_ln_lstm],
                          ids=lambda f: f.__name__)
 def test_other_cells_refuse_bf16(op):
-    """Since the layer-norm LSTM has bfloat16-weight kernels its ops run a
-    bfloat16 wh at a cluster shape (the plain twin here, float32 h and c
-    of the shape) and refuse it, naming A5b, at a shape that goes to the
-    stream design (H=300)."""
-    out = op(*_op_args(op))
-    assert all(o.dtype == torch.float32 and o.shape == (5, 2, 8)
-               for o in out)
-    with pytest.raises(ValueError, match=BF16_ITEM):
-        op(*_op_args(op, h=300))
+    """The layer-norm LSTM has bfloat16-weight kernels in both designs: its
+    ops run a bfloat16 wh (the plain twin here, float32 h and c of the
+    shape) at a cluster shape and at one that goes to the stream design
+    (H=300), refusing neither."""
+    for h in (8, 300):
+        out = op(*_op_args(op, h=h))
+        assert all(o.dtype == torch.float32 and o.shape == (5, 2, h)
+                   for o in out)
 
 
 @pytest.mark.parametrize("model", ["ln_blstm"])
 def test_trainer_refuses_bf16_for_other_cells(model):
     """The Trainer takes compute_dtype=torch.bfloat16 for ln_blstm, whose
     cells have bfloat16-weight kernels, and still refuses float16; a model
-    holding a subclass of LSTMCell outside BF16_CELLS refuses bfloat16,
-    naming A5b."""
+    holding a subclass of LSTMCell outside BF16_CELLS refuses bfloat16: a
+    cell the port has no bfloat16 kernels for."""
     pm = build_model(model, "num_hiddens=8,num_layers=1", num_classes=4,
                      input_dim=5)
     assert Trainer(pm, make_optimizer(),
@@ -375,7 +373,8 @@ def test_trainer_refuses_bf16_for_other_cells(model):
         pass
 
     other = torch.nn.Sequential(OtherCell(5, 8))
-    with pytest.raises(ValueError, match=BF16_ITEM):
+    with pytest.raises(ValueError, match="OtherCell, a cell with no "
+                                         "bfloat16 kernels"):
         Trainer(other, make_optimizer(), compute_dtype=BF16)
 
 

@@ -84,14 +84,15 @@ _TOO_MANY_TRAIN = ("--num_devices 2 x --tp_devices 1 but only 1 device(s) "
                    "available")
 _TOO_MANY_EVAL = "--num_devices 2 but only 1 device(s) available"
 
-# (id, cli, argv, what the refusal says: the ROADMAP item named, or since
-# data parallelism (item 12) was ported the JAX CLI's message for more
-# devices than the card count, here monkeypatched to 1)
+# (id, cli, argv, what the refusal says: since data parallelism (item 12)
+# and tensor parallelism (item 13) were ported, the JAX CLI's message for
+# more devices than the card count, here monkeypatched to 1)
 _REFUSED = [
     ("train-argv12-item 12", "train", ["--device", "cuda", "--num_devices",
                                        "2"], _TOO_MANY_TRAIN),
-    ("train-argv13-item 13", "train", ["--tp_devices", "2"],
-     "ROADMAP queue A item 13"),
+    ("train-argv13-item 13", "train", ["--device", "cuda", "--tp_devices",
+                                       "2"],
+     "--num_devices 1 x --tp_devices 2 but only 1 device(s) available"),
     ("eval-argv21-item 12", "eval", ["--device", "cuda", "--num_devices",
                                      "2"], _TOO_MANY_EVAL),
     ("eval-argv22-item 12", "eval", ["--device", "cuda", "--num_devices",

@@ -1596,7 +1596,7 @@ ZM_BF16_CASES = [(12, 4, 8, 2, False), (37, 5, 100, 1, True),
 # in one at H=256 (train --bf16 --batch_size 64, a unidirectional B=128),
 # H=300 and H=512 at small batches; a list of its own, since the LN LSTM's
 # bfloat16 cases (LN_BF16_CASES) are ZM_BF16_CASES and its stream design
-# has no bfloat16 form
+# has a list of its own (LN_BF16_STREAM_CASES)
 ZM_BF16_STREAM_CASES = [(24, 64, 256, 2, False), (20, 64, 100, 2, True),
                         (16, 128, 256, 1, False), (23, 5, 300, 1, True),
                         (12, 3, 512, 2, True)]
@@ -1829,30 +1829,27 @@ def _ln_steps(args, hc, ndir):
     return out
 
 
-@pytest.mark.parametrize("t,b,h,ndir,dead", LN_BF16_CASES,
-                         ids=[f"{t}-{b}-{h}-{'bi' if n == 2 else 'uni'}"
-                              + ("-dead" if d else "")
-                              for t, b, h, n, d in LN_BF16_CASES])
-def test_ln_bf16_kernels_match_plain(cuda, t, b, h, ndir, dead):
-    """The LN LSTM's bfloat16-weight forms of the forward and backward (the
-    cluster design) against their plain twins with the same bfloat16 wh:
-    h and c of every frame against the plain step from the kernel's own
-    state at BF16_TOL, dpre and dcn (from the same forward states) per
-    (frame, row) within LN_BF16_ROW_RTOL of the row's norm, dwh (bfloat16)
-    within LN_BF16_DWH_FRAC of its max abs; counted under
-    ``cluster_bf16``; repeated bit for bit."""
+def _check_ln_bf16(cuda, t, b, h, ndir, dead, design):
+    """The LN LSTM's bfloat16-weight forms of the forward and backward of
+    ``design`` against their plain twins with the same bfloat16 wh: h and
+    c of every frame against the plain step from the kernel's own state at
+    BF16_TOL, dpre and dcn (from the same forward states) per (frame, row)
+    within LN_BF16_ROW_RTOL of the row's norm, dwh (bfloat16) within
+    LN_BF16_DWH_FRAC of its max abs; counted under ``<design>_bf16``;
+    repeated bit for bit."""
     from asr_study_torch.ops.ln_lstm import _ln_param_grads
 
     args, dh = _ln_bf16_args(cuda, t, b, h, t + b + h + 3, dead, ndir)
-    assert ln_geometry(h, b, ndir).design == "cluster"
+    assert ln_geometry(h, b, ndir).design == design
     fwd, bwd, _, bwd_plain = _ln_bf16_ops(ndir)
-    before = (fwd.by_design["cluster_bf16"], bwd.by_design["cluster_bf16"])
+    key = f"{design}_bf16"
+    before = (fwd.by_design[key], bwd.by_design[key])
     runs = []
     for _ in range(2):
         hc = fwd(*args)
         runs.append((*hc, *bwd(*args, *hc, *dh)))
-    assert (fwd.by_design["cluster_bf16"] - before[0],
-            bwd.by_design["cluster_bf16"] - before[1]) == (2, 2)
+    assert (fwd.by_design[key] - before[0],
+            bwd.by_design[key] - before[1]) == (2, 2)
     want = _ln_steps(args, hc, ndir)
     want_d = bwd_plain(*args, *hc, *dh)
     torch.cuda.synchronize()
@@ -1873,6 +1870,15 @@ def test_ln_bf16_kernels_match_plain(cuda, t, b, h, ndir, dead):
         scale = float(p_.float().abs().max())
         assert float((k_.float() - p_.float()).abs().max()) <= \
             LN_BF16_DWH_FRAC * scale
+
+
+@pytest.mark.parametrize("t,b,h,ndir,dead", LN_BF16_CASES,
+                         ids=[f"{t}-{b}-{h}-{'bi' if n == 2 else 'uni'}"
+                              + ("-dead" if d else "")
+                              for t, b, h, n, d in LN_BF16_CASES])
+def test_ln_bf16_kernels_match_plain(cuda, t, b, h, ndir, dead):
+    """_check_ln_bf16 of the cluster design."""
+    _check_ln_bf16(cuda, t, b, h, ndir, dead, "cluster")
 
 
 @pytest.mark.parametrize("ndir", [2, 1], ids=["bi", "uni"])
@@ -1918,24 +1924,21 @@ def test_bf16_ln_train_step_is_bit_reproducible(cuda, bidirectional):
     assert np.isfinite(float(runs[0][0]))
 
 
-@pytest.mark.parametrize("h,b,ndir", [(300, 2, 1), (512, 3, 2),
-                                      (100, 49, 2)])
-def test_ln_bf16_stream_shapes_refuse_on_card(cuda, h, b, ndir):
-    """A bfloat16 LN call that ln_geometry sends to the stream design
-    raises naming A5b on the card too, forward and backward, and launches
-    nothing."""
-    from asr_study_torch.ops.recurrence import BF16_ITEM
+# the LN LSTM's bfloat16 stream forms: (H, B, directions) at the shapes
+# that go to the stream design: H=300 and 512 at small batches, a batch
+# past the cluster budget at H=100, and train --bf16 --batch_size 64's
+# B=64 in two directions and a unidirectional B=128 at H=256; T and a dead
+# last row by case
+LN_BF16_STREAM_CASES = [(300, 2, 1), (512, 3, 2), (100, 49, 2), (256, 64, 2),
+                        (256, 128, 1)]
 
-    args, dh = _ln_bf16_args(cuda, 3, b, h, 5, False, ndir)
-    assert ln_geometry(h, b, ndir).design == "stream"
-    fwd, bwd, _, _ = _ln_bf16_ops(ndir)
-    hc = [torch.zeros(3, b, h, device=cuda) for _ in range(2 * ndir)]
-    before = (fwd.launches, bwd.launches)
-    with pytest.raises(ValueError, match=BF16_ITEM):
-        fwd(*args)
-    with pytest.raises(ValueError, match=BF16_ITEM):
-        bwd(*args, *hc, *dh)
-    assert (fwd.launches, bwd.launches) == before
+
+@pytest.mark.parametrize("h,b,ndir", LN_BF16_STREAM_CASES)
+def test_ln_bf16_stream_shapes_refuse_on_card(cuda, h, b, ndir):
+    """At the shapes ln_geometry sends to the stream design a bfloat16 LN
+    call runs the stream design's bfloat16-weight forms, refusing none:
+    _check_ln_bf16 of the stream design."""
+    _check_ln_bf16(cuda, 20 + h % 7, b, h, ndir, b % 2 == 1, "stream")
 
 
 def test_deep_blstm_train_step_is_bit_reproducible_deterministic(cuda):
@@ -2940,6 +2943,30 @@ def test_dp_two_ranks_on_one_card_match_one_process(cuda):
             np.testing.assert_array_equal(r["again"]["grads"][k], g)
     for k, v in ranks[0]["full"]["params"].items():
         np.testing.assert_array_equal(ranks[1]["full"]["params"][k], v)
+
+
+def test_tp_two_ranks_on_one_card_match_one_process(cuda):
+    """Two ranks on cuda:0 over gloo as one data rank of two model shards
+    (``dp.launch(..., tp=2)``: the gate-dim-sharded scan of
+    ``parallel/tp.py``) against the one-process step on the cluster LSTM
+    and CTC kernels, from the same weights: loss rel 1e-5, each gradient
+    within 1e-4 of its max abs, the two ranks' weights bit-equal
+    (chip_smoke.py's tp phase at a small size)."""
+    import tp_ranks
+
+    case = dict(DP_CASE, kind="step", batches=[(1, None)])
+    ranks = dp.launch(tp_ranks.rank_main, ["cuda:0", "cuda:0"],
+                      args=({"step": case},), backend="gloo",
+                      join_timeout=300, tp=2)
+    single = dp_ranks.run_case(case)
+    for r in ranks:
+        assert r["step"]["losses"][0] == pytest.approx(single["losses"][0],
+                                                       rel=1e-5)
+        for k, g in single["grads"].items():
+            err = float(np.abs(r["step"]["grads"][k] - g).max())
+            assert err <= 1e-4 * float(np.abs(g).max()), (k, err)
+    for k, v in ranks[0]["step"]["params"].items():
+        np.testing.assert_array_equal(ranks[1]["step"]["params"][k], v)
 
 
 def test_dp_one_nccl_rank_is_bit_equal_to_no_group(cuda, tmp_path):
